@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the two CUDA kernels from tpulp_torch/kernels/csrc, holds each
-against its plain PyTorch version at the shape the main path gives it
-(1538 x 3073, float64, K = 128) and at the bench shape (m = n = 4096, K =
-256, float32 and float64), solves the Wyndor LP and the whole LP corpus
+Builds the two CUDA kernels from tpulp_torch/kernels/csrc (and checks in
+their machine code that the f64 flush runs on the FP64 tensor cores and
+the f32 flush uses no TF32), holds each against its plain PyTorch version
+at the shape the main path gives it (1538 x 3073, float64, K = 128) and at
+the bench shape (m = n = 4096, K = 256, float32 and float64), holds the
+flush against its plain version on ragged shapes and on a case built to
+probe every rule of its scan, solves the Wyndor LP and the whole LP corpus
 exactly through ``tpulp_torch.solve_lp``, drives the main path at a real
 size (a 1536 x 1536 LP through ``solve_lp(driver="auto")``, which must take
-the kernel engine), and runs the kernel engine on the bench instance. Every
+the kernel engine), checks that a caller's TF32 setting does not reach the
+engines' products, and runs the kernel engine on the bench instance. Every
 phase that fails raises. The line before the last is a JSON summary of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Without CUDA
 the script exits non-zero and prints no result. It imports no jax.
@@ -33,6 +37,11 @@ MAIN_N = 1536
 # the kernel engine's block in solve_lp: max(block, 128) with block = 64
 MAIN_K = 128
 RUNS = 20  # timed runs of each kernel and of its plain version
+# (M, N, K) of the flush cases: every tile edge ragged, down to one element,
+# up to the main path's and the bench shape
+FLUSH_SHAPES = [(2, 3, 1), (130, 257, 17), (67, 8193, 255),
+                (1538, 3073, 128), (4098, 8193, 256)]
+TF32_M = TF32_N = 512  # the bench instance of the TF32 check
 
 
 def log(msg: str) -> None:
@@ -76,43 +85,131 @@ def cuda_time_ms(fn, runs: int, setup=None) -> float:
 # phase 3: the kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_flush(T0, U, V, ca, opts, dtype_name, runs):
+def check_flush(T0, U, V, ca, opt_tol, piv_tol, dtype_name, runs):
+    """The flush kernel against its plain version: Tn within 1e-5 (f32) or
+    1e-12 (f64) relative to |T| + |U|^T |V| (the size of the sum, which
+    the two sum in different orders), and the kernel's scan bit for bit
+    equal to the scan recomputed from its own Tn. Returns errors and
+    times."""
     import torch
 
     from tpulp_torch.kernels import fused_flush, fused_flush_reference
 
-    Tk, scan_k = fused_flush(T0.clone(), U, V, ca, opts.opt_tol, opts.piv_tol)
-    Tr, _ = fused_flush_reference(T0.clone(), U, V, ca, opts.opt_tol,
-                                  opts.piv_tol)
+    Tk, scan_k = fused_flush(T0.clone(), U, V, ca, opt_tol, piv_tol)
+    Tr, _ = fused_flush_reference(T0.clone(), U, V, ca, opt_tol, piv_tol)
     torch.cuda.synchronize()
     mag = T0.abs() + U.abs().T @ V.abs()
     rtol = 1e-5 if dtype_name == "float32" else 1e-12
     err = (Tk - Tr).abs()
     worst = float((err / mag.clamp_min(1e-30)).max())
     max_abs = float(err.max())
+    shape = f"{tuple(T0.shape)} K={U.shape[0]}"
     if not bool((err <= rtol * mag).all()):
-        raise AssertionError(f"flush {dtype_name}: |Tn - ref| / (|T| + "
-                             f"|U|^T|V|) = {worst:.3e} > {rtol:g}")
-    scan_torch = torch.stack([(ca > 0) & (Tk[0] < -opts.opt_tol),
-                              (Tk[2:] > opts.piv_tol).any(dim=0)]
-                             ).to(torch.int32)
-    if not torch.equal(scan_k, scan_torch):
-        raise AssertionError(f"flush {dtype_name}: scan differs from the "
-                             "scan recomputed from the kernel's Tn")
+        raise AssertionError(f"flush {dtype_name} {shape}: |Tn - ref| / "
+                             f"(|T| + |U|^T|V|) = {worst:.3e} > {rtol:g}")
+    if not torch.equal(scan_k, scan_of(Tk, ca, opt_tol, piv_tol)):
+        raise AssertionError(f"flush {dtype_name} {shape}: scan differs "
+                             "from the scan recomputed from the kernel's Tn")
     work = T0.clone()
 
     def reset():
         work.copy_(T0)
 
-    ms = cuda_time_ms(lambda: fused_flush(work, U, V, ca, opts.opt_tol,
-                                          opts.piv_tol), runs, reset)
+    ms = cuda_time_ms(lambda: fused_flush(work, U, V, ca, opt_tol, piv_tol),
+                      runs, reset)
     plain_ms = cuda_time_ms(lambda: fused_flush_reference(
-        work, U, V, ca, opts.opt_tol, opts.piv_tol), runs, reset)
-    log(f"# B1 fused_flush {dtype_name} {tuple(T0.shape)} K={U.shape[0]}: "
-        f"ok, max |err| {max_abs:.3e}, max err/mag {worst:.3e} (rtol "
-        f"{rtol:g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(median of {runs})")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        work, U, V, ca, opt_tol, piv_tol), runs, reset)
+    gflop = 2 * T0.shape[0] * T0.shape[1] * U.shape[0] / 1e9
+    log(f"# B1 fused_flush {dtype_name} {shape}: ok, max |err| "
+        f"{max_abs:.3e}, max err/mag {worst:.3e} (rtol {rtol:g}); kernel "
+        f"{ms:.3f} ms = {gflop / ms:.2f} TFLOP/s, plain {plain_ms:.3f} ms = "
+        f"{gflop / plain_ms:.2f} TFLOP/s (median of {runs})")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "tflops": gflop / ms, "plain_tflops": gflop / plain_ms}
+
+
+def scan_of(Tn, ca, opt_tol, piv_tol):
+    """The flush's (2, N) scan, computed from a flushed tableau."""
+    import torch
+
+    return torch.stack([(ca > 0) & (Tn[0] < -opt_tol),
+                        (Tn[2:] > piv_tol).any(dim=0)]).to(torch.int32)
+
+
+def flush_inputs(M, N, K, seed):
+    """T, U, V, ca of a flush case, from a numpy seed, in float64."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(M, N)), rng.normal(size=(K, M)) * 0.1,
+            rng.normal(size=(K, N)) * 0.1,
+            rng.integers(0, 2, size=N).astype(np.int32))
+
+
+def scan_case(M=67, N=300, K=17, seed=5):
+    """A flush case whose Tn is exact at f32 and f64 (small integers and
+    binary fractions) and which probes every rule of the scan: row 0
+    straddles -tol (below, at, just above), ca is 0 at some improving
+    columns, rows 0 and 1 hold entries above tol that must not count,
+    constraint entries sit at tol (not counted) and just above it, and the
+    only positive constraint entry of some columns is in the last row, and
+    of the last column in the first constraint row. Returns (T, U, V, ca,
+    tol, the exact Tn, the exact scan)."""
+    tol = 2.0 ** -10
+    rng = np.random.default_rng(seed)
+    U = rng.integers(-1, 2, size=(K, M)).astype(np.float64)
+    U[:, :2] = 0.0  # rows 0 and 1 of the product are zero
+    V = rng.integers(-1, 2, size=(K, N)).astype(np.float64)
+    exact = np.arange(0, N - 1, 7)  # columns with a zero product
+    V[:, exact] = 0.0
+    P = U.T @ V  # exact: small integers
+    Tn = np.full((M, N), -1.0)
+    Tn[0] = np.resize([-tol - 2.0 ** -20, -tol, -tol + 2.0 ** -20, 0.5,
+                       -3.0], N)
+    Tn[1] = 5.0  # above tol, but row 1 is no constraint row
+    Tn[M - 1, 1::5] = 1.0  # the only positive entry: the last row
+    Tn[2, N - 1] = 1.0  # the last column's: the first constraint row
+    Tn[5, exact[0::2]] = tol  # at tol: not counted
+    Tn[7, exact[1::2]] = tol + 2.0 ** -20  # just above: counted
+    T = Tn - P
+    ca = rng.integers(0, 2, size=N).astype(np.int32)
+    scan = np.stack([(ca > 0) & (Tn[0] < -tol),
+                     (Tn[2:] > tol).any(axis=0)]).astype(np.int32)
+    return T, U, V, ca, tol, Tn, scan
+
+
+def phase_flush_cases(dev):
+    """Phase 3b: the flush against its plain version at every shape of
+    FLUSH_SHAPES and on the scan case, at f32 and f64; returns the errors
+    and times per case."""
+    import torch
+
+    from tpulp_torch.kernels import fused_flush
+
+    stats = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        for M, N, K in FLUSH_SHAPES:
+            T, U, V, ca = (torch.tensor(x, device=dev) for x in
+                           flush_inputs(M, N, K, seed=M + N + K))
+            stats[f"{name} {M}x{N} K={K}"] = check_flush(
+                T.to(dt), U.to(dt), V.to(dt), ca, 1e-5, 1e-5, name,
+                RUNS)
+            del T, U, V
+        T, U, V, ca, tol, Tn, scan = scan_case()
+        args = [torch.tensor(x, device=dev).to(dt) for x in (T, U, V)]
+        ca_t = torch.tensor(ca, device=dev)
+        check_flush(*args, ca_t, tol, tol, name, 3)
+        Tk, scan_k = fused_flush(args[0].clone(), args[1], args[2], ca_t,
+                                 tol, tol)
+        if not np.array_equal(Tk.double().cpu().numpy(), Tn):
+            raise AssertionError(f"scan case {name}: Tn is not exact")
+        if not np.array_equal(scan_k.cpu().numpy(), scan):
+            raise AssertionError(f"scan case {name}: scan differs from the "
+                                 "exact scan")
+        log(f"# B1 scan case {name} {T.shape} K={U.shape[0]}: Tn exact, "
+            f"scan equal to numpy's ({int(scan[0].sum())} improving, "
+            f"{int(scan[1].sum())} blocked columns)")
+        torch.cuda.empty_cache()
+    return stats
 
 
 def _rel(a, b) -> float:
@@ -206,16 +303,22 @@ def main_path_arrays(m: int, n: int, seed: int = 0):
 
 
 def main_path_form(m: int, n: int, seed: int = 0):
-    """``main_path_arrays`` as a StandardForm, built directly (going
-    through LinExpr at this size costs minutes of Python)."""
+    """``main_path_arrays`` as a StandardForm."""
+    return standard_form(*main_path_arrays(m, n, seed), n)
+
+
+def standard_form(c, A, b, hint, n: int):
+    """(c, A, b, hint) with n structural columns and a slack basis as a
+    StandardForm, built directly (going through LinExpr at this size costs
+    minutes of Python)."""
     from tpulp_torch import StandardForm
 
-    c, A, b, hint = main_path_arrays(m, n, seed)
+    m = len(b)
     names = [f"x{j}" for j in range(n)] + [f"s{i}" for i in range(m)]
     return StandardForm(
-        c=[int(v) for v in c],
+        c=c.tolist(),
         A=A.tolist(),
-        b=[int(v) for v in b],
+        b=b.tolist(),
         col_names=names,
         obj_const=Fraction(0),
         sense="min",
@@ -292,8 +395,8 @@ def phase_kernels(dev):
         ins = kernel_inputs(state)
         stall = opts.resolved_stall_limit(state.m, state.n)
         out = blocked_inner_block(*ins, opts, stall, K)
-        flush = check_flush(ins[0], out[0], out[1], out[5], opts, name,
-                            RUNS)
+        flush = check_flush(ins[0], out[0], out[1], out[5], opts.opt_tol,
+                            opts.piv_tol, name, RUNS)
         stats[case] = {"fused_flush": flush, "blocked_inner_block": inner}
         del state, ins, out
         torch.cuda.empty_cache()
@@ -368,6 +471,96 @@ def phase_main_path():
                       "pivots_per_s": sol.niter / secs}
 
 
+def phase_tf32_guard():
+    """Phase 5b: a caller's ``allow_tf32 = True`` must not reach the
+    engines' products. solve_lp(f32, driver="blocked") on the bench
+    instance at 512 x 512 gives the same status, niter and basis with the
+    flag True as with it False, and leaves the flag True; switching it back
+    to False then leaves torch's settings readable ("highest")."""
+    import torch
+
+    import tpulp_torch
+
+    sf = standard_form(*bench_arrays(TF32_M, TF32_N), TF32_N)
+
+    def solve():
+        sol = tpulp_torch.solve_lp(sf, dtype=torch.float32, driver="blocked",
+                                   device="cuda")
+        torch.cuda.synchronize()
+        return sol.status, sol.niter, sol.basis, sol.rung
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ref = solve()
+    secs = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    out = solve()
+    still_on = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # torch raises here if the engines left its settings disagreeing
+    after = torch.get_float32_matmul_precision()
+    same = out == ref
+    log(f"# TF32 guard: solve_lp {TF32_M}x{TF32_M + TF32_N} f32 blocked with "
+        f"allow_tf32 True: {out[0]}, niter {out[1]}, rung {out[3]}; with it "
+        f"False: {ref[0]}, niter {ref[1]}, rung {ref[3]} ({secs:.2f} s); "
+        f"status/niter/basis {'same' if same else 'DIFFERENT'}; flag "
+        f"{'still True' if still_on else 'RESET'} after the call; set back "
+        f"to False, torch reports matmul precision {after!r}")
+    if not same:
+        raise AssertionError("TF32 guard: the walk changed under "
+                             "allow_tf32 = True")
+    if not still_on:
+        raise AssertionError("TF32 guard: solve_lp did not restore the "
+                             "caller's allow_tf32 = True")
+    if after != "highest":
+        raise AssertionError(f"TF32 guard: matmul precision {after!r} after "
+                             "allow_tf32 = False")
+    return {"status": out[0], "niter": out[1], "rung": out[3]}
+
+
+def check_machine_code(lib_path):
+    """The flush's machine code: the f64 kernel issues DMMA (FP64 tensor
+    cores) and the f32 kernel no tensor-core instruction at all (so no
+    TF32); returns the counts per kernel."""
+    import os
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            continue
+        if fn is None or "flush_kernel" not in fn or "*/" not in line:
+            continue
+        # "/*0130*/  @!P0 DMMA.8x8x4 R4, R8, R12, R4 ;  /* 0x... */"
+        words = line.split("*/", 1)[1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if not words or words[0].startswith("/*"):
+            continue
+        op = words[0]
+        kind = "f64" if "flush_kernelIdE" in fn else "f32"
+        c = counts.setdefault(kind, {"DMMA": 0, "HMMA": 0, "FFMA": 0,
+                                     "DFMA": 0})
+        for key in c:
+            if op.startswith(key):
+                c[key] += 1
+    log(f"# machine code of the flush: {counts}")
+    if set(counts) != {"f32", "f64"}:
+        raise AssertionError(f"flush kernels not found in the SASS: {counts}")
+    if counts["f64"]["DMMA"] == 0:
+        raise AssertionError("the f64 flush issues no DMMA")
+    if counts["f32"]["HMMA"] or counts["f32"]["DMMA"]:
+        raise AssertionError("the f32 flush issues tensor-core instructions")
+    if counts["f32"]["FFMA"] == 0:
+        raise AssertionError("the f32 flush issues no FFMA")
+    return counts
+
+
 def phase_bench(dev):
     """Phase 6: the kernel engine on the bench instance (f32, K = 256) to
     termination or 20,000 pivots, gated like bench.py; then the per-block
@@ -437,13 +630,16 @@ def main() -> int:
 
     # 2: build (with nvcc's register and shared-memory report)
     t0 = time.perf_counter()
-    build(verbose=True)
+    lib_path = build(verbose=True)
     load_library()
     log(f"# build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    sass = check_machine_code(lib_path)
 
     kstats = phase_kernels(dev)
+    flush_cases = phase_flush_cases(dev)
     phase_small_lps()
     launches, main_path = phase_main_path()
+    tf32 = phase_tf32_guard()
     bench = phase_bench(dev)
 
     if "jax" in sys.modules:
@@ -463,8 +659,11 @@ def main() -> int:
                         **kstats["main_path"][kname],
                         **{case: kstats[case][kname]
                            for case in ("bench_float32", "bench_float64")}})
+    kernels[0]["cases"] = flush_cases
+    kernels[0]["sass"] = sass
     log(json.dumps({"kernels": kernels, "card": smi,
-                    "main_path": main_path, "bench": bench}))
+                    "main_path": main_path, "tf32_guard": tf32,
+                    "bench": bench}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

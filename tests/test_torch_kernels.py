@@ -18,6 +18,7 @@ from tpulp.core.state import SolverOptions as TpulpOptions
 from tpulp.kernels.pallas_block import blocked_inner_block as tpulp_block
 from tpulp.kernels.pallas_block import fused_flush as tpulp_flush
 from tpulp.solve.blocked_pallas import run_simplex_blocked_pallas
+from chip_smoke import FLUSH_SHAPES, flush_inputs, scan_case
 from tpulp_torch.core import (SolverOptions, Status, eta_scaled_options,
                               from_numpy_state)
 from tpulp_torch.kernels import (LAUNCHES, blocked_inner_block,
@@ -143,6 +144,66 @@ def test_flush_reference_matches_pallas(dtype, atol):
     np.testing.assert_allclose(Tn_t.numpy(), np.asarray(Tn_j), rtol=0,
                                atol=atol)
     assert np.array_equal(scan_t.numpy(), np.asarray(scan_j))
+
+
+def _numpy_scan(Tn, ca, opt_tol, piv_tol):
+    return np.stack([(ca > 0) & (Tn[0] < -opt_tol),
+                     (Tn[2:] > piv_tol).any(axis=0)]).astype(np.int32)
+
+
+def _numpy_flush(T, U, V, ca, opt_tol, piv_tol):
+    Tn = T + U.T @ V
+    return Tn, _numpy_scan(Tn, ca, opt_tol, piv_tol)
+
+
+# chip_smoke.py's ragged flush shapes that fit a CPU test (the bench shape,
+# 4098 x 8193 x 256, runs on the card only)
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-5),
+                                        ("float64", 1e-12)])
+@pytest.mark.parametrize("shape", FLUSH_SHAPES[:4],
+                         ids=[f"{M}x{N}x{K}" for M, N, K in FLUSH_SHAPES[:4]])
+def test_flush_reference_ragged_shapes(shape, dtype, rtol):
+    """The plain flush on every ragged shape against numpy in float64:
+    Tn within the dtype's tolerance relative to |T| + |U|^T|V|, and its
+    scan equal to the scan of its own Tn."""
+    M, N, K = shape
+    T, U, V, ca = flush_inputs(M, N, K, seed=M + N + K)
+    tt = getattr(torch, dtype)
+    Tn, scan = fused_flush_reference(
+        torch.tensor(T, dtype=tt), torch.tensor(U, dtype=tt),
+        torch.tensor(V, dtype=tt), torch.tensor(ca), 1e-5, 1e-5)
+    ref, _ = _numpy_flush(T, U, V, ca, 1e-5, 1e-5)
+    mag = np.abs(T) + np.abs(U).T @ np.abs(V)
+    assert Tn.shape == (M, N) and scan.shape == (2, N)
+    assert (np.abs(Tn.double().numpy() - ref) <= rtol * mag).all()
+    assert np.array_equal(scan.numpy(),
+                          _numpy_scan(Tn.double().numpy(), ca, 1e-5, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("M,N,K", [(67, 300, 17), (8, 5, 3), (128, 256, 17)])
+def test_flush_reference_scan_case(M, N, K, dtype):
+    """chip_smoke.py's scan case (row 0 straddling -tol, ca = 0 at
+    improving columns, rows 0 and 1 above tol, entries at and just above
+    tol, lone positives in the last row and column): Tn exact and the scan
+    equal to numpy's, bit for bit."""
+    T, U, V, ca, tol, Tn_np, scan_np = scan_case(M, N, K)
+    Tn_ref, scan_ref = _numpy_flush(T, U, V, ca, tol, tol)
+    assert np.array_equal(Tn_ref, Tn_np) and np.array_equal(scan_ref, scan_np)
+    tt = getattr(torch, dtype)
+    Tn, scan = fused_flush_reference(
+        torch.tensor(T, dtype=tt), torch.tensor(U, dtype=tt),
+        torch.tensor(V, dtype=tt), torch.tensor(ca), tol, tol)
+    assert np.array_equal(Tn.double().numpy(), Tn_np)
+    assert np.array_equal(scan.numpy(), scan_np)
+    if M % 128 == 0 and N % 128 == 0:
+        jt = getattr(jnp, dtype)
+        Tn_j, _, scan_j = tpulp_flush(
+            jnp.asarray(T, jt), jnp.asarray(U, jt), jnp.asarray(V, jt),
+            jnp.asarray(ca[None, :], jnp.int32), opt_tol=tol, piv_tol=tol,
+            interpret=True)
+        assert np.array_equal(np.asarray(Tn_j, np.float64), Tn_np)
+        assert np.array_equal(np.asarray(scan_j), scan_np)
 
 
 # ---------------------------------------------------------------------------
@@ -280,18 +341,28 @@ def test_launch_counters_stay_zero_on_cpu():
 
 def test_nvcc_command_line():
     out = build.BUILD_DIR / build.LIB_NAME
-    cmd = build.nvcc_command(out)
-    assert cmd[0] == "nvcc"
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    assert cmd[cmd.index("-o") + 1] == str(out)
-    assert out.relative_to(ROOT).parts[0] == "build"
-    sources = [pathlib.Path(x) for x in cmd if x.endswith(".cu")]
+    compiles, link = build.nvcc_commands(out)
+    sources, objects = [], []
+    for cmd in compiles:
+        assert cmd[0] == "nvcc"
+        assert cmd[cmd.index("-gencode") + 1] == \
+            "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-fPIC", "-c"):
+            assert flag in cmd
+        (src,) = [pathlib.Path(x) for x in cmd if x.endswith(".cu")]
+        sources.append(src)
+        objects.append(cmd[cmd.index("-o") + 1])
     assert sorted(p.name for p in sources) == ["flush.cu", "inner_block.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
-    assert "-Xptxas=-v" in build.nvcc_command(out, verbose=True)
+    assert link[0] == "nvcc" and "-shared" in link
+    assert link[link.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert link[link.index("-o") + 1] == str(out)
+    assert sorted(link[link.index("-o") + 2:]) == sorted(objects)
+    assert all(pathlib.Path(o).parent == out.parent for o in objects)
+    assert out.relative_to(ROOT).parts[0] == "build"
+    verbose, _ = build.nvcc_commands(out, verbose=True)
+    assert all("-Xptxas=-v" in cmd for cmd in verbose)
 
 
 # ---------------------------------------------------------------------------

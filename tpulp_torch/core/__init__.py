@@ -1,5 +1,6 @@
 """Core state: tableau tensors, solver options and status codes."""
 
+from .precision import full_precision
 from .state import (
     RULE_BLAND,
     RULE_DANTZIG,
@@ -24,6 +25,7 @@ __all__ = [
     "from_numpy_state",
     "to_numpy_state",
     "eta_scaled_options",
+    "full_precision",
     "RULE_DANTZIG",
     "RULE_BLAND",
     "RULE_MAX_INCREASE",

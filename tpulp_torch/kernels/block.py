@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.precision import full_precision
 from ..core.state import RULE_BLAND, RULE_DEVEX, SolverOptions, Status
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_flush",
@@ -90,6 +91,7 @@ def _suffix(dtype) -> str:
 # B1: the flush
 # ---------------------------------------------------------------------------
 
+@full_precision()
 def fused_flush_reference(T, U, V, ca, opt_tol: float, piv_tol: float):
     """Plain version of ``fused_flush``: ``T += U^T V`` in place, and the
     scan ``[ca & (T[0] < -opt_tol), any(T[2:] > piv_tol, axis 0)]``."""
@@ -133,6 +135,7 @@ def _first(mask: torch.Tensor) -> int:
     return int(torch.where(mask, ids, BIG_I).min())
 
 
+@full_precision()
 def blocked_inner_block_reference(T, row0, row1, bvec, ca, ac, basis, ab,
                                   gamma, iscal, fscal, opts: SolverOptions,
                                   stall_limit: int, K: int):

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``tpulp_torch.kernels``.
 
-The sources in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, at first use, into
-``build/tpulp_torch/`` at the root of the checkout. The library is rebuilt
-when the hash of the sources changes, and it is loaded with ``ctypes``.
-Nothing is built or loaded when the package is imported.
+The sources in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, at first use, into ``build/tpulp_torch/``
+at the root of the checkout. The library is rebuilt when the hash of the
+sources changes, and it is loaded with ``ctypes``. Nothing is built or
+loaded when the package is imported.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import time
 from pathlib import Path
 
 __all__ = ["ARCH_FLAGS", "BUILD_DIR", "LIB_NAME", "build", "load_library",
-           "nvcc_command", "source_files"]
+           "nvcc_commands", "source_files"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpulp_torch"
@@ -53,16 +54,26 @@ def _nvcc() -> str:
     return found
 
 
-def nvcc_command(out: Path, nvcc: str = "nvcc",
-                 verbose: bool = False) -> list[str]:
-    """The nvcc command line that builds the library ``out``."""
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC"]
-    if verbose:
-        cmd.append("-Xptxas=-v")
-    cmd += ["-o", str(out)]
-    cmd += [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    return cmd
+def nvcc_commands(out: Path, nvcc: str = "nvcc",
+                  verbose: bool = False) -> tuple[list[list[str]], list[str]]:
+    """The nvcc command lines that build the library ``out``: one compile
+    per source (run in parallel), then the link."""
+    compiles, objects = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.with_name(f"{out.name}.{src.stem}.o")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-c"]
+        if verbose:
+            cmd.append("-Xptxas=-v")
+        compiles.append(cmd + ["-o", str(obj), str(src)])
+        objects.append(str(obj))
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *objects]
+    return compiles, link
+
+
+def _fail(cmd: list[str], code: int, out: str, err: str) -> RuntimeError:
+    return RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}\n"
+                        f"{err}")
 
 
 def build(verbose: bool = False) -> Path:
@@ -77,16 +88,30 @@ def build(verbose: bool = False) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = nvcc_command(tmp, nvcc=_nvcc(), verbose=verbose)
+    compiles, link = nvcc_commands(tmp, nvcc=_nvcc(), verbose=verbose)
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in compiles]
+    # wait for every compile before looking at any result
+    reports = []
+    for cmd, proc in zip(compiles, procs):
+        out, err = proc.communicate()
+        reports.append((cmd, proc.returncode, out, err))
+    for cmd, code, out, err in reports:
+        if code != 0:
+            raise _fail(cmd, code, out, err)
+    res = subprocess.run(link, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+        raise _fail(link, res.returncode, res.stdout, res.stderr)
+    for cmd in compiles:
+        os.remove(cmd[cmd.index("-o") + 1])
     if verbose:
-        print(f"# nvcc {time.perf_counter() - t0:.1f} s: {' '.join(cmd)}")
-        print(res.stdout + res.stderr)
+        print(f"# nvcc {time.perf_counter() - t0:.1f} s ({len(compiles)} "
+              f"compiles in parallel, then the link)")
+        for cmd, _, out, err in reports:
+            print(" ".join(cmd))
+            print(out + err)
     os.replace(tmp, lib)
     stamp.write_text(digest + "\n")
     return lib

@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.precision import full_precision
 from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status, eta_scaled_options)
 from .driver import finish, first_true, put, ratio_rows, status_select, take
@@ -192,6 +193,7 @@ def _fresh_carry(s: SimplexState, K: int, gamma=None) -> _BlockCarry:
     )
 
 
+@full_precision()
 def run_simplex_blocked(state: SimplexState,
                         opts: SolverOptions | None = None,
                         block: int = 64) -> SimplexState:

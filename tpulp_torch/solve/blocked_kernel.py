@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.precision import full_precision
 from ..core.state import (SimplexState, SolverOptions, Status,
                           eta_scaled_options)
 from ..kernels.block import blocked_inner_block, fused_flush
@@ -78,6 +79,7 @@ def kernel_block(inputs, opts: SolverOptions, stall_limit: int, K: int,
              basis, ab, gamma, iscal, fscal), (U, V))
 
 
+@full_precision()
 def run_simplex_blocked_kernel(state: SimplexState,
                                opts: SolverOptions | None = None,
                                block: int = 128) -> SimplexState:

@@ -20,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.precision import full_precision
 from ..core.state import (SimplexState, SolverOptions, Status, TIE_MAXPIV,
                           make_state)
 
@@ -106,6 +107,7 @@ def _numeric(out: SimplexState) -> SimplexState:
         Status.NUMERIC, dtype=torch.int32, device=out.status.device))
 
 
+@full_precision()
 def run_simplex_refreshed(
     c,
     A,
