@@ -13,10 +13,16 @@ probe every rule of its scan, solves the Wyndor LP and the whole LP corpus
 exactly through ``tpulp_torch.solve_lp``, drives the main path at a real
 size (a 1536 x 1536 LP through ``solve_lp(driver="auto")``, which must take
 the kernel engine), checks that a caller's TF32 setting does not reach the
-engines' products, and runs the kernel engine on the bench instance. Every
-phase that fails raises. The line before the last is a JSON summary of the
-kernels; the last line is ``{"ok": true, "device": {...}}``. Without CUDA
-the script exits non-zero and prints no result. It imports no jax.
+engines' products, and runs the kernel engine on the bench instance.
+Phase 7 drives ``solve_milp`` on bench.py's 28-item knapsack (f32 and f64,
+the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
+and f64 optima, checked in Fractions) with every wave tensor checked to be
+on the card, times a batched pivot at B = 128, and runs ``solve_lp_batch``
+cold and warm over 64 RHS scenarios and ``solve_lp(warm_start=)`` at
+256 x 512. Every phase that fails raises. The line before the last is a
+JSON summary of the kernels; the last line is ``{"ok": true, "device":
+{...}}``. Without CUDA the script exits non-zero and prints no result. It
+imports no jax.
 """
 
 from __future__ import annotations
@@ -42,6 +48,14 @@ RUNS = 20  # timed runs of each kernel and of its plain version
 FLUSH_SHAPES = [(2, 3, 1), (130, 257, 17), (67, 8193, 255),
                 (1538, 3073, 128), (4098, 8193, 256)]
 TF32_M = TF32_N = 512  # the bench instance of the TF32 check
+# phase 7, MILP: bench.py's knapsack (run_bench_milp), a multidimensional
+# knapsack, a scenario batch and a warm re-solve
+MILP_ITEMS = 28
+MILP_BATCH = 128
+MDK_ITEMS, MDK_ROWS, MDK_SEED = 40, 5, 1
+SCEN_M, SCEN_N, SCEN_LANES = 64, 128, 64
+WARM_M, WARM_N = 256, 512
+PIVOT_STEPS = 64  # timed batched steps per measurement
 
 
 def log(msg: str) -> None:
@@ -606,6 +620,444 @@ def phase_bench(dev):
             "pivots_per_s": niter / secs, "b2_ms": b2_ms, "b1_ms": b1_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: MILP, batches and warm starts
+# ---------------------------------------------------------------------------
+
+def knapsack_lp(values, weights_rows, caps):
+    """max v x s.t. W x <= caps, x binary (one row per weight vector)."""
+    from tpulp_torch import LinExpr, LinProg
+
+    lp = LinProg()
+    obj = LinExpr()
+    for i, v in enumerate(values):
+        lp.addVar(f"x{i}", integral=True, lb=0, ub=1)
+        obj += LinExpr(int(v), f"x{i}")
+    lp.maximize(obj)
+    for w, cap in zip(weights_rows, caps):
+        e = LinExpr()
+        for i, wi in enumerate(w):
+            e += LinExpr(int(wi), f"x{i}")
+        lp.addConstraint(e.constraintLeq(int(cap)))
+    return lp
+
+
+def bench_knapsack(n_items=MILP_ITEMS, seed=0):
+    """bench.py's MILP instance (``run_bench_milp``): (values, weights,
+    cap)."""
+    rng = np.random.default_rng(seed)
+    values = [int(v) for v in rng.integers(10, 60, size=n_items)]
+    weights = [int(w) for w in rng.integers(5, 25, size=n_items)]
+    return values, weights, int(sum(weights) * 0.4)
+
+
+def dp_knapsack(values, weights, cap) -> int:
+    """The exact 0/1 knapsack optimum by dynamic programming."""
+    best = [0] * (cap + 1)
+    for v, w in zip(values, weights):
+        for c in range(cap, w - 1, -1):
+            best[c] = max(best[c], best[c - w] + v)
+    return best[cap]
+
+
+def md_knapsack(n=MDK_ITEMS, rows=MDK_ROWS, seed=MDK_SEED):
+    """A multidimensional knapsack: bench.py's values and weights in
+    ``rows`` constraints, each capacity 40% of its weights. Returns
+    (values, W, caps)."""
+    rng = np.random.default_rng(seed)
+    values = rng.integers(10, 60, size=n)
+    W = rng.integers(5, 25, size=(rows, n))
+    return values, W, (W.sum(axis=1) * 0.4).astype(int)
+
+
+def spy_wave_devices():
+    """Wrap the wave entry points that ``tpulp_torch.milp.bnb`` calls so
+    that every tensor they take or return must be a CUDA tensor: the
+    template, the pool, R/const, the states, the summaries and the
+    generation chain. Returns (call counts, restore)."""
+    import torch
+
+    import tpulp_torch.milp.bnb as bnb
+
+    names = ("make_batched_states", "new_pool", "pool_write",
+             "pack_wave_summary", "run_simplex_batch", "run_warm_wave",
+             "run_expand_generation", "run_warm_batch")
+    saved = {name: getattr(bnb, name) for name in names}
+    calls = {name: 0 for name in names}
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                yield from tensors(y)
+
+    def wrap(name, fn):
+        def spy(*args, **kw):
+            out = fn(*args, **kw)
+            for t in tensors([args, list(kw.values()), out]):
+                if not t.is_cuda:
+                    raise AssertionError(f"{name}: a {tuple(t.shape)} "
+                                         f"tensor on {t.device}")
+            calls[name] += 1
+            return out
+        return spy
+
+    for name, fn in saved.items():
+        setattr(bnb, name, wrap(name, fn))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(bnb, name, fn)
+
+    return calls, restore
+
+
+def milp_stats_line(stats, secs):
+    warm = max(stats.warm_nodes, 1)
+    return (f"{stats.nodes_solved} nodes in {stats.waves} waves "
+            f"({stats.gen_waves} device generations, {stats.gen_nodes} "
+            f"nodes), {stats.warm_nodes} warm nodes at "
+            f"{stats.warm_pivots / warm:.2f} pivots each, "
+            f"{stats.solo_resolves} solo re-solves, {stats.incumbent_updates}"
+            f" incumbents; {secs:.3f} s = {stats.nodes_solved / secs:.1f} "
+            f"nodes/s; assemble {stats.t_assemble:.3f} s, device "
+            f"{stats.t_device:.3f} s, process {stats.t_process:.3f} s, "
+            f"verify {stats.t_verify:.3f} s")
+
+
+def device_busy(fn):
+    """(wall s, device busy s, CUDA kernels) of ``fn()`` under
+    torch.profiler, tracing the card only. Keep ``fn`` short: a whole MILP
+    solve (~70,000 kernels) takes over 30 s to trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, kernels = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.self_device_time_total / 1e6
+            kernels += e.count
+    return wall, busy, kernels
+
+
+def phase_milp_knapsacks():
+    """Phase 7a/7b: the bench knapsack (f32 and f64: one untimed solve,
+    one timed) must hit the DP oracle exactly; the multidimensional
+    knapsack's f32 and f64 optima must be equal, integral and feasible in
+    Fractions. Every tensor of every wave must be a CUDA tensor."""
+    import warnings
+
+    import torch
+
+    import tpulp_torch
+
+    warnings.filterwarnings("error", message="There is a performance drop")
+    values, weights, cap = bench_knapsack()
+    oracle = dp_knapsack(values, weights, cap)
+    res = {}
+    calls, restore = spy_wave_devices()
+    try:
+        for dt in (torch.float32, torch.float64):
+            name = str(dt).replace("torch.", "")
+            lp = knapsack_lp(values, [weights], [cap])
+            t0 = time.perf_counter()
+            tpulp_torch.solve_milp(lp, dtype=dt, batch_size=MILP_BATCH,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sol, st = tpulp_torch.solve_milp(lp, dtype=dt,
+                                             batch_size=MILP_BATCH,
+                                             return_stats=True,
+                                             device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            if not (sol.status == "optimal" and sol.objective == oracle):
+                raise AssertionError(f"bench knapsack {name}: {sol.status} "
+                                     f"{sol.objective}, DP oracle {oracle}")
+            log(f"# MILP bench knapsack n={MILP_ITEMS} batch={MILP_BATCH} "
+                f"{name}: optimal {sol.objective} = DP oracle; "
+                + milp_stats_line(st, secs)
+                + f"; peak device memory {peak / 2**20:.1f} MiB, pool "
+                f"{st.pool_bytes / 2**20:.2f} MiB; the untimed first solve "
+                f"took {first:.3f} s")
+            res[f"bench_knapsack_{name}"] = {
+                "nodes": st.nodes_solved, "waves": st.waves,
+                "gen_waves": st.gen_waves, "warm_nodes": st.warm_nodes,
+                "warm_pivots": st.warm_pivots,
+                "solo_resolves": st.solo_resolves, "seconds": secs,
+                "nodes_per_s": st.nodes_solved / secs,
+                "t_assemble": st.t_assemble, "t_device": st.t_device,
+                "t_process": st.t_process, "t_verify": st.t_verify,
+                "peak_bytes": peak}
+        v, W, caps = md_knapsack()
+        optima = {}
+        for dt in (torch.float64, torch.float32):
+            name = str(dt).replace("torch.", "")
+            t0 = time.perf_counter()
+            sol, st = tpulp_torch.solve_milp(
+                knapsack_lp(v, W, caps), dtype=dt, batch_size=MILP_BATCH,
+                return_stats=True, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if sol.status != "optimal":
+                raise AssertionError(f"md knapsack {name}: {sol.status}")
+            x = [Fraction(sol.x[f"x{i}"]) for i in range(len(v))]
+            if any(xi not in (0, 1) for xi in x):
+                raise AssertionError(f"md knapsack {name}: x not binary")
+            for r in range(MDK_ROWS):
+                if sum(int(W[r, i]) * x[i] for i in range(len(v))) > caps[r]:
+                    raise AssertionError(f"md knapsack {name}: row {r} "
+                                         "violated")
+            if sum(int(v[i]) * x[i] for i in range(len(v))) != sol.objective:
+                raise AssertionError(f"md knapsack {name}: objective "
+                                     "differs from v x")
+            optima[name] = sol.objective
+            log(f"# MILP {MDK_ROWS}-constraint knapsack n={MDK_ITEMS} seed "
+                f"{MDK_SEED} {name}: optimal {sol.objective} (x binary and "
+                f"feasible in Fractions); pool {st.pool_bytes} bytes; "
+                + milp_stats_line(st, secs))
+            res[f"md_knapsack_{name}"] = {
+                "objective": str(sol.objective), "nodes": st.nodes_solved,
+                "seconds": secs, "nodes_per_s": st.nodes_solved / secs,
+                "pool_bytes": st.pool_bytes}
+        if optima["float32"] != optima["float64"]:
+            raise AssertionError(f"md knapsack optima differ: {optima}")
+    finally:
+        restore()
+    for name in ("make_batched_states", "new_pool", "pool_write",
+                 "pack_wave_summary", "run_simplex_batch", "run_warm_wave",
+                 "run_expand_generation"):
+        if calls[name] == 0:
+            raise AssertionError(f"the MILP runs never called {name}")
+    log(f"# MILP waves: every tensor on the card ({calls})")
+    res["wave_calls"] = calls
+    return res
+
+
+def phase_drop_scatters():
+    """Phase 7e: the writes tpulp drops out of range (``mode="drop"``) on
+    the card. ``pool_write`` with padded (slot = cap) and past-capacity
+    slots must leave exactly the valid writes in the pool; a device-built
+    generation whose children overflow the batch must drop the lanes past
+    B and agree with the same call on the host CPU (statuses, bases,
+    genealogy)."""
+    import torch
+
+    from tpulp_torch import SolverOptions, lower_to_standard_form
+    from tpulp_torch.batch import make_batched_states, run_simplex_batch
+    from tpulp_torch.milp.bnb import _int_recover_matrix
+    from tpulp_torch.solve.dual import (new_pool, pack_wave_summary,
+                                        pool_write, run_expand_generation)
+
+    cap, B = 6, 8
+    rng = np.random.default_rng(3)
+    T_wave = torch.tensor(rng.normal(size=(B, 5, 7)), device="cuda")
+    basis = torch.tensor(rng.integers(0, 6, size=(B, 3)), device="cuda")
+    slots = [3, 0, cap, 5, cap + 2, cap, cap + 9, 1]
+    lanes = [7, 6, 5, 4, 3, 2, 1, 0]
+    pool_T, pool_b = new_pool(cap, (5, 7), 3, torch.float64, "cuda")
+    pool_write(pool_T, pool_b, np.array(slots, np.int32), T_wave, basis,
+               np.array(lanes, np.int32))
+    want = np.zeros((cap, 5, 7))
+    for s_, l_ in zip(slots, lanes):
+        if s_ < cap:
+            want[s_] = T_wave[l_].cpu().numpy()
+    if not np.array_equal(pool_T[:cap].cpu().numpy(), want):
+        raise AssertionError("pool_write: padded or past-capacity slots "
+                             "reached the pool")
+
+    values, weights, cap_w = bench_knapsack(n_items=12, seed=1)
+    sf = lower_to_standard_form(knapsack_lp(values, [weights], [cap_w]),
+                                integer_bound_rows=True)
+    names = list(sf.int_bound_rows)
+    row_adj = {int(nm[2:]): (j, 1 if nm[1] == "s" else -1)
+               for j, nm in enumerate(sf.col_names)
+               if j >= sf.n_struct and nm[:2] in ("_s", "_e")}
+    meta = [[], [], [], []]
+    for nm in names:
+        le_row, ge_row = sf.int_bound_rows[nm]
+        for k, (col, sign) in enumerate((row_adj[le_row], row_adj[ge_row])):
+            meta[2 * k].append(col)
+            meta[2 * k + 1].append(float(sign))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        st = make_batched_states([sf] * B, device=dev)
+        opts = SolverOptions.for_dtype(st.T.dtype)
+        out = run_simplex_batch(st, opts)
+        R, const = (torch.as_tensor(x, device=dev) for x in
+                    _int_recover_matrix(sf, names, st.T.shape[2] - 1,
+                                        np.float64))
+        summ = pack_wave_summary(out, R, const)
+        f64 = dict(dtype=torch.float64, device=dev)
+        bounds = torch.tensor([[0.0, 1.0]] * len(names), **f64)
+        art0 = st.art_cols[0]
+        outs[dev] = run_expand_generation(
+            out.T, out.basis, summ, torch.ones(B, dtype=torch.bool,
+                                               device=dev),
+            bounds[:, 0].expand(B, -1), bounds[:, 1].expand(B, -1),
+            st.col_active[0] & ~art0, art0,
+            torch.tensor(meta[0], device=dev), torch.tensor(meta[1], **f64),
+            torch.tensor(meta[2], device=dev), torch.tensor(meta[3], **f64),
+            torch.tensor(-np.inf, **f64), torch.tensor(1e-6, **f64),
+            opts.max_iters, R, const, opts=opts)
+    g, c = outs["cuda"], outs["cpu"]
+    expanded = int(g[5].sum())
+    same = (torch.equal(g[0].status.cpu(), c[0].status)
+            and torch.equal(g[0].basis.cpu(), c[0].basis)
+            and all(torch.equal(x.cpu(), y) for x, y in zip(g[2:], c[2:]))
+            and torch.equal(g[1][:, -2:].cpu(), c[1][:, -2:]))
+    log(f"# drop-mode writes on the card: pool_write dropped slots "
+        f"{[s_ for s_ in slots if s_ >= cap]}; a generation of B={B} lanes "
+        f"expanded {expanded} parents into {int(g[2].sum())} child lanes "
+        f"({max(0, 2 * expanded - B)} dropped); statuses, bases and "
+        f"genealogy {'equal to' if same else 'DIFFERENT from'} the CPU's")
+    if not same or 2 * expanded <= B:
+        raise AssertionError("device-built generation: no overflow, or "
+                             "the card and the CPU disagree")
+
+
+def batched_pivot_ms():
+    """ms per batched step (one pivot on every lane) at B = MILP_BATCH on
+    the bench knapsack's node tableau, rank-1 and dual, f32 and f64: host
+    clock around PIVOT_STEPS synchronised steps, and the device time and
+    kernel count per step under torch.profiler."""
+    import torch
+
+    from tpulp_torch import SolverOptions, lower_to_standard_form
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.solve.driver import simplex_step
+    from tpulp_torch.solve.dual import dual_simplex_step
+
+    values, weights, cap = bench_knapsack()
+    sf = lower_to_standard_form(knapsack_lp(values, [weights], [cap]),
+                                integer_bound_rows=True)
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        state = make_batched_states([sf] * MILP_BATCH, dtype=dt,
+                                    device="cuda")
+        opts = SolverOptions.for_dtype(dt)
+        stall = opts.resolved_stall_limit(state.T.shape[1] - 2,
+                                          state.T.shape[2] - 1)
+        for kind, fn in (("rank-1", simplex_step),
+                         ("dual", dual_simplex_step)):
+            step = torch.func.vmap(
+                lambda s, fn=fn: fn(s, opts, stall, 10 ** 9))
+            s = state
+            for _ in range(4):
+                s = step(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PIVOT_STEPS):
+                s = step(s)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / PIVOT_STEPS
+
+            def run(s=s):
+                for _ in range(16):
+                    s = step(s)
+
+            wall, busy, kernels = device_busy(run)
+            key = f"{kind} {name}"
+            res[key] = {"ms": ms, "device_ms": 1e3 * busy / 16,
+                        "kernels": kernels / 16,
+                        "busy_share": busy / wall}
+            log(f"# batched {kind} step, B={MILP_BATCH}, tableau "
+                f"{tuple(state.T.shape[1:])} {name}: {ms:.3f} ms per step "
+                f"(host clock, mean of {PIVOT_STEPS}); "
+                f"device {1e3 * busy / 16:.3f} ms and {kernels / 16:.0f} "
+                f"kernels per step, the card busy {100 * busy / wall:.1f}% "
+                "of the traced 16 steps (torch.profiler)")
+    return res
+
+
+def scenario_form(A, b, c):
+    """min c x, A x <= b, x >= 0 with a slack basis, as a StandardForm."""
+    m, n = A.shape
+    return standard_form(np.concatenate([c, np.zeros(m, dtype=c.dtype)]),
+                         np.concatenate([A, np.eye(m, dtype=A.dtype)],
+                                        axis=1), b, list(range(n, n + m)), n)
+
+
+def phase_batch_and_warm():
+    """Phase 7c/7d: ``solve_lp_batch`` over SCEN_LANES RHS scenarios of one
+    SCEN_M x SCEN_N integer LP, cold and with ``warm_start`` (statuses and
+    exact objectives equal lane for lane, fewer pivots warm), then
+    ``solve_lp(warm_start=)`` on tests/test_warm_start.py's recipe at
+    WARM_M x WARM_N with three rows tightened by 0.8 (the objective within
+    one f64 ulp of the cold solve's, fewer pivots)."""
+    import math
+
+    import tpulp_torch
+
+    rng = np.random.default_rng(0)
+    A = rng.integers(1, 10, size=(SCEN_M, SCEN_N))
+    b = A @ rng.integers(0, 3, size=SCEN_N) + rng.integers(1, 20,
+                                                           size=SCEN_M)
+    c = -rng.integers(1, 10, size=SCEN_N)
+    scens = [scenario_form(A, b - rng.integers(0, b // 10 + 2), c)
+             for _ in range(SCEN_LANES)]
+    base = tpulp_torch.solve_lp(scenario_form(A, b, c), device="cuda")
+    times = {}
+    t0 = time.perf_counter()
+    cold = tpulp_torch.solve_lp_batch(scens, device="cuda")
+    times["cold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = tpulp_torch.solve_lp_batch(scens, warm_start=base, device="cuda")
+    times["warm"] = time.perf_counter() - t0
+    bad = [k for k, (w, cd) in enumerate(zip(warm, cold))
+           if w.status != cd.status or w.objective != cd.objective]
+    if bad or any(s.status != "optimal" for s in cold):
+        raise AssertionError(f"scenario batch: lanes {bad} differ")
+    piv = {k: sum(s.niter for s in v) for k, v in
+           (("cold", cold), ("warm", warm))}
+    if not piv["warm"] < piv["cold"]:
+        raise AssertionError(f"scenario batch: warm took {piv}")
+    log(f"# solve_lp_batch {SCEN_LANES} scenarios of {SCEN_M}x{SCEN_N}: "
+        f"statuses and exact objectives equal lane for lane; pivots cold "
+        f"{piv['cold']}, warm {piv['warm']}; {times['cold']:.2f} s cold, "
+        f"{times['warm']:.2f} s warm (exact refinement per lane included)")
+
+    rng = np.random.default_rng(0)
+    A = np.abs(rng.normal(size=(WARM_M, WARM_N))) + 0.1
+    x0 = np.abs(rng.normal(size=WARM_N))
+    b = A @ x0 + np.abs(rng.normal(size=WARM_M)) + 0.5
+    c = -(np.abs(rng.normal(size=WARM_N)) + 0.1)
+    sol = tpulp_torch.solve_lp(scenario_form(A, b, c), device="cuda")
+    b2 = b.copy()
+    b2[:3] *= 0.8
+    form2 = scenario_form(A, b2, c)
+    t0 = time.perf_counter()
+    cold2 = tpulp_torch.solve_lp(form2, device="cuda")
+    t_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm2 = tpulp_torch.solve_lp(form2, warm_start=sol, device="cuda")
+    t_warm = time.perf_counter() - t0
+    ok = (cold2.status == warm2.status == "optimal"
+          and abs(warm2.objective - cold2.objective)
+          <= math.ulp(cold2.objective))
+    log(f"# solve_lp(warm_start=) {WARM_M}x{WARM_N}, three rows x 0.8: "
+        f"cold {cold2.status} {cold2.objective!r} in {cold2.niter} pivots "
+        f"({t_cold:.2f} s), warm {warm2.status} {warm2.objective!r} in "
+        f"{warm2.niter} pivots ({t_warm:.2f} s)")
+    if not ok or not warm2.niter < cold2.niter:
+        raise AssertionError("warm re-solve: objective beyond one ulp or "
+                             "no fewer pivots")
+    return {"batch_pivots": piv, "batch_seconds": times,
+            "warm_lp": {"cold_niter": cold2.niter,
+                        "warm_niter": warm2.niter}}
+
+
 def main() -> int:
     import torch
 
@@ -642,6 +1094,24 @@ def main() -> int:
     tf32 = phase_tf32_guard()
     bench = phase_bench(dev)
 
+    # 7: MILP, the batched waves and warm starts (plain torch: no kernel of
+    # this repo runs here unless a solo re-solve takes the kernel engine)
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    secs = {}
+    t0 = time.perf_counter()
+    milp = phase_milp_knapsacks()
+    phase_drop_scatters()
+    secs["milp"] = time.perf_counter() - t0
+    milp["batched_pivot"] = batched_pivot_ms()
+    secs["pivot"] = time.perf_counter() - t0 - secs["milp"]
+    milp.update(phase_batch_and_warm())
+    secs["batch+warm"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"# phase 7 (MILP, batch, warm): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+        + f"; kernel launches {dict(LAUNCHES)}")
+
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     sources = {
@@ -663,7 +1133,7 @@ def main() -> int:
     kernels[0]["sass"] = sass
     log(json.dumps({"kernels": kernels, "card": smi,
                     "main_path": main_path, "tf32_guard": tf32,
-                    "bench": bench}))
+                    "bench": bench, "milp": milp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -73,10 +73,9 @@ def test_every_engine_solves_wyndor(driver):
 @pytest.mark.parametrize("option", [
     {"mesh": object()},
     {"simple_bounds": True},
-    {"warm_start": tpulp_torch.Solution(status="optimal", basis=[0, 1])},
     {"certificates": True},
     {"ranging": True},
-], ids=["mesh", "simple_bounds", "warm_start", "certificates", "ranging"])
+], ids=["mesh", "simple_bounds", "certificates", "ranging"])
 def test_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpulp_torch.solve_lp(_wyndor(), device="cpu", **option)

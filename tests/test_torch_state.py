@@ -88,7 +88,8 @@ def test_options_mirror_tpulp():
 
 
 def test_no_jax_import_in_package_source():
-    pat = re.compile(r"^\s*(import|from) (jax|tpulp\.(solve|core|kernels))\b")
+    pat = re.compile(r"^\s*(import|from) (jax|tpulp\.(solve|core|kernels|milp|"
+                     r"batch|shard|comm|utils|io\.checkpoint))\b")
     offenders = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in sorted((ROOT / "tpulp_torch").rglob("*.py"))
@@ -101,6 +102,8 @@ WYNDOR = """
 import sys
 before = "jax" in sys.modules
 import tpulp_torch
+import tpulp_torch.batch
+import tpulp_torch.milp
 from tpulp_torch import LinExpr, LinProg, solve_lp
 lp = LinProg()
 lp.addVar("x")
@@ -110,14 +113,28 @@ lp.addConstraint(LinExpr(1, "x", 1, "y").constraintLeq(12))
 lp.addConstraint(LinExpr(2, "x", 1, "y").constraintLeq(16))
 sol = solve_lp(lp, device="cpu")
 assert sol.status == "optimal" and sol.objective == 400, sol
+k = LinProg()
+k.addVar("a", integral=True, lb=0, ub=1)
+k.addVar("b", integral=True, lb=0, ub=1)
+k.maximize(LinExpr(3, "a", 2, "b"))
+k.addConstraint(LinExpr(2, "a", 2, "b").constraintLeq(3))
+sol = tpulp_torch.solve_milp(k, device="cpu")
+assert sol.status == "optimal" and sol.objective == 3, sol
 after = "jax" in sys.modules
-print("JAX", before, after)
-sys.exit(1 if after and not before else 0)
+jax_side = sorted(m for m in sys.modules if m in JAX_SIDE
+                  or m.startswith(tuple(p + "." for p in JAX_SIDE)))
+print("JAX", before, after, jax_side)
+sys.exit(1 if (after and not before) or jax_side else 0)
 """
+JAX_SIDE = ["tpulp.solve", "tpulp.core", "tpulp.kernels", "tpulp.milp",
+            "tpulp.batch", "tpulp.shard", "tpulp.comm", "tpulp.utils",
+            "tpulp.io.checkpoint"]
 
 
 def test_package_solves_without_importing_jax():
-    res = subprocess.run([sys.executable, "-c", WYNDOR], cwd=ROOT,
+    script = f"JAX_SIDE = {JAX_SIDE!r}" + WYNDOR
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "JAX False False" in res.stdout or "JAX True True" in res.stdout
+    assert ("JAX False False []" in res.stdout
+            or "JAX True True []" in res.stdout)

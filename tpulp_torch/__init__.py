@@ -5,16 +5,23 @@ reference. It imports torch and never jax. The modeling layer
 (``LinProg``, ``LinExpr``, lowering to ``StandardForm``) is tpulp's own,
 shared because it is pure Python. ``solve_lp(prog, device="cuda")`` solves
 one LP on the card: the rank-1, rank-K blocked, and kernel engines, the
-last running two CUDA kernels built for sm_90a at first use.
+last running two CUDA kernels built for sm_90a at first use; with
+``warm_start=`` it re-solves from a prior basis (the dual simplex for an
+RHS change). ``solve_lp_batch`` solves a batch of LPs in one wave of
+lanes, and ``solve_milp`` solves a mixed-integer program by
+branch-and-bound over such waves.
 """
 
 from tpulp.model import (LinCon, LinExpr, LinProg, LinVar, StandardForm,
                          lower_to_standard_form)
 
+from .batch import solve_lp_batch
 from .core import SimplexState, SolverOptions, Status, make_state
-from .solve import (Solution, run_simplex, run_simplex_blocked,
-                    run_simplex_blocked_kernel, run_simplex_devex,
-                    run_simplex_refreshed, solve_lp, solve_standard_form)
+from .milp import BnbStats, solve_milp
+from .solve import (Solution, run_dual_simplex, run_simplex,
+                    run_simplex_blocked, run_simplex_blocked_kernel,
+                    run_simplex_devex, run_simplex_refreshed, solve_lp,
+                    solve_standard_form, warm_state_from_basis)
 
 __all__ = [
     "LinProg",
@@ -24,6 +31,9 @@ __all__ = [
     "StandardForm",
     "lower_to_standard_form",
     "solve_lp",
+    "solve_lp_batch",
+    "solve_milp",
+    "BnbStats",
     "solve_standard_form",
     "Solution",
     "make_state",
@@ -35,4 +45,6 @@ __all__ = [
     "run_simplex_blocked",
     "run_simplex_blocked_kernel",
     "run_simplex_refreshed",
+    "run_dual_simplex",
+    "warm_state_from_basis",
 ]

@@ -1,0 +1,340 @@
+"""Batched simplex: many independent LPs in one wave of lanes.
+
+The counterpart of ``tpulp.batch.vmap_driver`` (the rank-1 route). A
+batched ``SimplexState`` carries a leading lane axis on every field;
+``run_simplex_batch`` runs ``torch.func.vmap`` of the rank-1 step over it,
+and the step freezes each lane once it leaves RUNNING or reaches the
+budget, so lanes with different pivot counts share one loop. Problems of
+different shapes are padded to one shape: each padded row gets its own
+unit "pad slack" basic column, extra columns are inactive, and padded
+artificial columns keep phase 1 uniform. The batch is the engine under
+``tpulp_torch.milp``: every branch-and-bound wave is one batched solve.
+
+Not ported yet, and raising NotImplementedError: the blocked batch driver
+(``driver="blocked"``, ROADMAP item 9), the bounded batch
+(``simple_bounds=True``, item 8) and ``mesh`` (item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from fractions import Fraction
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from tpulp.model.lower import (StandardForm, lower_to_standard_form,
+                               materialize_simple_bounds)
+from tpulp.model.prog import MAX, LinProg
+
+from ..core.precision import full_precision
+from ..core.state import (SimplexState, SolverOptions, Status, _numpy_state,
+                          from_numpy_state, make_state)
+from ..solve.api import (Solution, _device, _not_ported,
+                         solve_standard_form)
+from ..solve.driver import finish, simplex_step
+from ..solve.dual import run_lanes, run_warm_batch
+from ..solve.refine import (exact_basis_certificate, float_basis_certificate,
+                            refine_basis_solution)
+
+__all__ = [
+    "stack_states",
+    "unstack_state",
+    "make_batched_states",
+    "run_simplex_batch",
+    "solve_lp_batch",
+    "extract_batch_solutions",
+]
+
+
+def stack_states(states: Sequence[SimplexState]) -> SimplexState:
+    """Stack same-shape states along a new leading lane axis."""
+    return SimplexState(*(torch.stack(xs, dim=0) for xs in zip(*states)))
+
+
+def unstack_state(batched: SimplexState, i: int) -> SimplexState:
+    """Problem ``i`` of a batched state."""
+    return SimplexState(*(x[i] for x in batched))
+
+
+def _padded_arrays(sf: StandardForm, m_max: int, n_base: int):
+    """One problem's dense arrays padded to (m_max, n_base) non-artificial
+    columns: each zero row gets a fresh unit basic column (a pad slack),
+    extra columns stay zero and costless."""
+    c, A, b, hint = *sf.to_dense(np.float64), list(sf.basis_hint)
+    m, n = A.shape
+    cp = np.zeros((n_base,))
+    cp[:n] = c
+    Ap = np.zeros((m_max, n_base))
+    Ap[:m, :n] = A
+    bp = np.zeros((m_max,))
+    bp[:m] = b
+    for k in range(m_max - m):
+        Ap[m + k, n + k] = 1.0  # pad slack
+        hint.append(n + k)
+    return cp, Ap, bp, hint
+
+
+def make_batched_states(sfs: Sequence[StandardForm], dtype=torch.float64,
+                        return_host_art: bool = False, device="cuda"):
+    """Lower a list of StandardForms to ONE batched state of uniform shape
+    on ``device``: built in numpy as tpulp builds them, stacked on the host,
+    one transfer per field. Lowerings with simple bounds are refused (the
+    batched step has no bounded ratio test; ``materialize_simple_bounds``
+    turns them into rows). ``return_host_art=True`` also returns the host
+    copy of the batched ``art_cols``."""
+    if not sfs:
+        raise ValueError("empty batch")
+    if any(sf.upper is not None and any(u is not None for u in sf.upper)
+           for sf in sfs):
+        raise ValueError(
+            "batched solving needs row-based bounds: materialize "
+            "simple_bounds lowerings first (model.lower."
+            "materialize_simple_bounds)")
+    dims = [(sf.m, sf.n, sum(1 for h in sf.basis_hint if h < 0))
+            for sf in sfs]
+    m_max = max(d[0] for d in dims)
+    n_base = max(d[1] + (m_max - d[0]) for d in dims)
+    art_max = max(d[2] for d in dims)
+    lanes = [_numpy_state(*_padded_arrays(sf, m_max, n_base),
+                          n_extra_art=art_max - n_art)
+             for sf, (_, _, n_art) in zip(sfs, dims)]
+    T, basis, col_active, art_cols, phase = (
+        np.stack(xs, axis=0) for xs in zip(*lanes))
+    B = len(sfs)
+    zeros = np.zeros((B,), np.int32)
+    state = from_numpy_state(
+        (T, basis, col_active, art_cols, phase.astype(np.int32),
+         zeros + Status.RUNNING, zeros, zeros, np.zeros((B,), bool),
+         np.full((B,), np.inf)), device=device, dtype=dtype)
+    if return_host_art:
+        return state, art_cols
+    return state
+
+
+@full_precision()
+def run_simplex_batch(batched: SimplexState,
+                      opts: SolverOptions | None = None) -> SimplexState:
+    """Run the rank-1 step over every lane to termination or the budget."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(batched.T.dtype)
+    m = batched.T.shape[1] - 2
+    n = batched.T.shape[2] - 1
+    stall_limit = opts.resolved_stall_limit(m, n)
+    out = run_lanes(
+        lambda s: simplex_step(s, opts, stall_limit, opts.max_iters),
+        batched, opts.max_iters)
+    return finish(out)
+
+
+def solve_lp_batch(
+    progs: Sequence[Union[LinProg, StandardForm]],
+    options: SolverOptions | None = None,
+    dtype=torch.float64,
+    refine: str = "auto",
+    return_state: bool = False,
+    pad_to: int | None = None,
+    driver: str = "rank1",
+    simple_bounds: bool = False,
+    mesh=None,
+    warm_start: Optional[Solution] = None,
+    device="cuda",
+    **opt_overrides,
+) -> List[Solution]:
+    """Solve a batch of LPs in one wave on ``device``; one Solution each.
+
+    ``warm_start``: a prior ``Solution`` of the same-structure program.
+    The batch must share one constraint matrix, objective and lowering
+    layout and differ only in the RHS (scenarios). Every lane starts from
+    its basis in one dual-simplex wave (``run_warm_batch``), then refines
+    and certifies as usual; a lane the wave does not settle re-solves solo
+    through the ladder, so statuses keep ``solve_lp``'s confirmation.
+
+    ``return_state=True`` returns ``(solutions, out_state, lane_of)``:
+    the terminal batched state and the lane of each problem (-1 for a
+    trivially infeasible one that never reached the device). ``pad_to``
+    replicates lane 0 up to a fixed batch width; padded lanes run but are
+    never extracted."""
+    if mesh is not None:
+        raise _not_ported("solve_lp_batch(mesh=...)", "item 12, multi-GPU")
+    if simple_bounds:
+        raise _not_ported("solve_lp_batch(simple_bounds=True)",
+                          "item 8, bounded")
+    if driver == "blocked":
+        raise _not_ported("solve_lp_batch(driver='blocked')",
+                          "item 9, the batched blocked driver")
+    if driver != "rank1":
+        raise ValueError(f"unknown batch driver {driver!r}")
+    dev = _device(device)
+    if options is None:
+        options = SolverOptions.for_dtype(dtype)
+    if opt_overrides:
+        options = dataclasses.replace(options, **opt_overrides)
+    sfs = [p if isinstance(p, StandardForm) else lower_to_standard_form(p)
+           for p in progs]
+    # simple_bounds lowerings become explicit bound rows (the same optimum)
+    sfs = [materialize_simple_bounds(sf) if sf.upper is not None else sf
+           for sf in sfs]
+    solvable = [i for i, sf in enumerate(sfs) if not sf.trivially_infeasible]
+    results: List[Solution] = [Solution(status="infeasible")] * len(sfs)
+    if not solvable:
+        return (results, None, [-1] * len(sfs)) if return_state else results
+    if warm_start is not None:
+        out = _solve_batch_warm(sfs, solvable, warm_start, options, dtype,
+                                refine, results, dev)
+    else:
+        sf_batch = [sfs[i] for i in solvable]
+        if pad_to is not None and len(sf_batch) < pad_to:
+            sf_batch = sf_batch + [sf_batch[0]] * (pad_to - len(sf_batch))
+        out = run_simplex_batch(
+            make_batched_states(sf_batch, dtype=dtype, device=dev), options)
+        extracted = extract_batch_solutions(
+            [sfs[i] for i in solvable], out, refine)
+        for k, i in enumerate(solvable):
+            results[i] = extracted[k]
+    if return_state:
+        lane_of = [-1] * len(sfs)
+        for k, i in enumerate(solvable):
+            lane_of[i] = k
+        return results, out, lane_of
+    return results
+
+
+def _solve_batch_warm(sfs, solvable, warm_start, options, dtype, refine,
+                      results, dev) -> SimplexState:
+    """One warm dual-simplex wave over same-structure RHS scenarios: the
+    shared root frame, per-lane b and the warm basis on every lane. Lanes
+    whose verdict is not a certified optimum re-solve solo. Fills
+    ``results`` and returns the terminal batched state."""
+    if warm_start.basis is None:
+        raise ValueError(
+            "warm_start solution carries no basis (status-only or "
+            "presolve-reduced solves don't); re-solve cold")
+    dense = {i: sfs[i].to_dense(np.float64) for i in solvable}
+    sf0 = sfs[solvable[0]]
+    c0, A0, b0 = dense[solvable[0]]
+    for i in solvable[1:]:
+        sf = sfs[i]
+        ci, Ai, _ = dense[i]
+        if (sf.m != sf0.m or sf.n != sf0.n
+                or list(sf.basis_hint) != list(sf0.basis_hint)
+                or not np.array_equal(Ai, A0)
+                or not np.array_equal(ci, c0)):
+            raise ValueError(
+                "warm_start batching requires SAME-STRUCTURE scenarios "
+                "(identical constraint matrix, objective, and lowering "
+                f"layout; program {i} differs — only the RHS may vary)")
+    st0 = make_state(c0, A0, b0, sf0.basis_hint, dtype=dtype, device=dev)
+    wb = np.asarray(warm_start.basis, np.int32)
+    if wb.shape != (st0.m,) or (wb.size and (
+            int(wb.min()) < 0 or int(wb.max()) >= st0.n)):
+        raise ValueError(
+            f"warm_basis must be {st0.m} augmented-column indices in "
+            f"[0, {st0.n}) for this program structure; got shape "
+            f"{wb.shape}")
+    # phase-2 frames: artificial columns must not be priceable
+    active = st0.col_active & ~st0.art_cols
+    b_mat = np.stack([dense[i][2] for i in solvable])
+    basis_mat = np.tile(wb, (len(solvable), 1))
+    out = run_warm_batch(st0.T[2:, :-1], st0.T[0, :-1], active,
+                         st0.art_cols, basis_mat, b_mat, opts=options)
+    extracted = extract_batch_solutions(
+        [sfs[i] for i in solvable], out, refine)
+    for k, i in enumerate(solvable):
+        sol = extracted[k]
+        if sol.status != "optimal":
+            # float wave verdicts are unconfirmed; the solo ladder decides
+            sol = solve_standard_form(sfs[i], options=options, dtype=dtype,
+                                      refine=refine, device=dev)
+        results[i] = sol
+    return out
+
+
+def extract_batch_solutions(sfs: Sequence[StandardForm], out: SimplexState,
+                            refine: str, prefetched=None) -> List[Solution]:
+    """One Solution per StandardForm from the terminal batched state; lane
+    k is ``sfs[k]`` (trailing padded lanes are ignored). ``prefetched``
+    optionally supplies host copies of ``(statuses, niters, bases,
+    corners, art_cols)`` already read in one fetch."""
+    if prefetched is not None:
+        statuses, niters, bases, corners, art_cols_np = prefetched
+    else:
+        statuses = out.status.cpu().numpy()
+        niters = out.niter.cpu().numpy()
+        bases = out.basis.cpu().numpy()
+        corners = out.T[:, 0, -1].cpu().numpy()
+        art_cols_np = out.art_cols.cpu().numpy()
+    rhs_np = out.T[:, 2:, -1].cpu().numpy() if refine == "none" else None
+    results: List[Solution] = []
+    for k, sf in enumerate(sfs):
+        status = Status.NAMES.get(int(statuses[k]), "unknown")
+        if status != "optimal":
+            results.append(Solution(status=status, niter=int(niters[k])))
+            continue
+        results.append(_extract_one(
+            sf, [int(j) for j in bases[k]], float(-corners[k]),
+            int(niters[k]), refine, art_cols_np[k],
+            None if rhs_np is None else rhs_np[k]))
+    return results
+
+
+def _extract_one(sf: StandardForm, basis_cols, z_float, niter, refine,
+                 art_cols_lane: np.ndarray,
+                 rhs_lane: Optional[np.ndarray]) -> Solution:
+    """Refine and recover one lane's solution on the host."""
+    m = sf.m
+    # only this problem's real rows; padded rows hold pad slacks or padded
+    # artificials, which do not exist in sf's column space
+    basis = basis_cols[:m]
+    # batched column -> sf column: structural columns coincide ([0, sf.n));
+    # this problem's artificials start at the first art column in the
+    # batched layout but at sf.n in refine's convention
+    n_batched = art_cols_lane.shape[0]
+    art_start = int(art_cols_lane.argmax()) if bool(art_cols_lane.any()) \
+        else n_batched
+    remapped = [j if j < sf.n else (sf.n + (j - art_start)
+                                    if j >= art_start else j)
+                for j in basis]
+    if refine == "none":
+        z_min = z_float + float(sf.obj_const)
+        obj = -z_min if sf.sense == MAX else z_min
+        b = rhs_lane[:m]
+        vals = {j: float(b[k2]) for k2, j in enumerate(remapped) if j < sf.n}
+        x = {}
+        for name, (terms, const) in sf.recover.items():
+            v = const
+            for col, coeff in terms:
+                v = v + coeff * vals.get(col, 0.0)
+            x[name] = v
+        return Solution(status="optimal", objective=obj, x=x, niter=niter,
+                        objective_min=z_min, col_values=vals, basis=remapped)
+    try:
+        col_values, z_min = refine_basis_solution(sf, remapped, mode=refine)
+    except (ZeroDivisionError, np.linalg.LinAlgError):
+        return Solution(status="numerical_error", niter=niter)
+    # the certificate follows the refine mode: a caller that chose f64
+    # refinement (the MILP bounding waves, which verify incumbents exactly
+    # themselves) pays no rational certificate per lane
+    mode = refine
+    if mode == "auto":
+        mode = "exact" if sf.m <= 192 else "float64"
+    try:
+        if mode == "exact":
+            primal_ok, dual_ok = exact_basis_certificate(sf, remapped)
+        else:
+            primal_ok, dual_ok = float_basis_certificate(sf, remapped)
+    except (ZeroDivisionError, np.linalg.LinAlgError):
+        return Solution(status="numerical_error", niter=niter)
+    if not (primal_ok and dual_ok):
+        return Solution(status="numerical_error", niter=niter)
+    obj = -z_min if sf.sense == MAX else z_min
+    x = {}
+    for name, (terms, const) in sf.recover.items():
+        v = const
+        for col, coeff in terms:
+            v = v + coeff * col_values.get(col, Fraction(0))
+        x[name] = v
+    return Solution(status="optimal", objective=obj, x=x, niter=niter,
+                    objective_min=z_min, col_values=dict(col_values),
+                    basis=remapped)

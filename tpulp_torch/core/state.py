@@ -232,40 +232,23 @@ def make_state(c, A, b, basis_hint, dtype=torch.float64,
 def from_numpy_state(np_state, device="cuda", dtype=None) -> SimplexState:
     """A state from ten numpy leaves in ``SimplexState`` order: tpulp's
     ``make_state(..., _numpy=True)``, or ``np.asarray`` of each leaf of a
-    tpulp state. ``dtype`` defaults to the tableau's own."""
+    tpulp state, batched ones included (every leaf with a leading lane
+    axis). ``dtype`` defaults to the tableau's own."""
     T = np.asarray(np_state[0])
     dtype = _torch_dtype(T.dtype if dtype is None else dtype)
     dev = torch.device(device)
-
-    def scalar(v, dt):
-        return torch.tensor(np.asarray(v).item(), dtype=dt, device=dev)
-
-    return SimplexState(
-        T=torch.tensor(T, dtype=dtype, device=dev),
-        basis=torch.tensor(np.asarray(np_state[1], np.int32), device=dev),
-        col_active=torch.tensor(np.asarray(np_state[2], bool), device=dev),
-        art_cols=torch.tensor(np.asarray(np_state[3], bool), device=dev),
-        phase=scalar(np_state[4], torch.int32),
-        status=scalar(np_state[5], torch.int32),
-        niter=scalar(np_state[6], torch.int32),
-        stuck=scalar(np_state[7], torch.int32),
-        bland=scalar(np_state[8], torch.bool),
-        last_z=scalar(np_state[9], dtype),
-    )
+    kinds = (dtype, torch.int32, torch.bool, torch.bool, torch.int32,
+             torch.int32, torch.int32, torch.int32, torch.bool, dtype)
+    return SimplexState(*(
+        torch.tensor(np.asarray(v), device=dev).to(dt)
+        for v, dt in zip(np_state, kinds)))
 
 
 def to_numpy_state(state: SimplexState) -> tuple:
-    """The ten leaves of ``state`` as numpy values, with tpulp's dtypes."""
-    T = state.T.detach().cpu().numpy()
-    return (
-        T,
-        state.basis.cpu().numpy().astype(np.int32),
-        state.col_active.cpu().numpy().astype(bool),
-        state.art_cols.cpu().numpy().astype(bool),
-        np.int32(state.phase.item()),
-        np.int32(state.status.item()),
-        np.int32(state.niter.item()),
-        np.int32(state.stuck.item()),
-        np.bool_(state.bland.item()),
-        T.dtype.type(state.last_z.item()),
-    )
+    """The ten leaves of ``state`` as numpy values with tpulp's dtypes:
+    numpy scalars for the 0-d leaves of one problem, arrays for a batch."""
+    np_dtype = np.float32 if state.T.dtype == torch.float32 else np.float64
+    kinds = (np_dtype, np.int32, bool, bool, np.int32, np.int32, np.int32,
+             np.int32, np.bool_, np_dtype)
+    return tuple(np.asarray(x.detach().cpu().numpy(), dtype=dt)[()]
+                 for x, dt in zip(state, kinds))

@@ -7,6 +7,8 @@ from .blocked_kernel import run_simplex_blocked_kernel
 from .devex import run_simplex_devex
 from .driver import (extract_solution, find_pivot_all, pivot_update,
                      run_simplex, simplex_step)
+from .dual import (dual_simplex_step, run_dual_simplex,
+                   warm_state_from_basis)
 from .refine import (basis_duals, exact_basis_certificate,
                      float_basis_certificate, refine_basis_solution)
 from .refresh import refresh_tableau, run_simplex_refreshed
@@ -22,6 +24,9 @@ __all__ = [
     "pivot_update",
     "find_pivot_all",
     "extract_solution",
+    "dual_simplex_step",
+    "run_dual_simplex",
+    "warm_state_from_basis",
     "run_simplex_devex",
     "run_simplex_blocked",
     "run_simplex_blocked_kernel",

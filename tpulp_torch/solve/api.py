@@ -29,6 +29,7 @@ from .blocked import run_simplex_blocked
 from .blocked_kernel import run_simplex_blocked_kernel
 from .devex import run_simplex_devex
 from .driver import extract_solution, run_simplex
+from .dual import run_dual_simplex, warm_state_from_basis
 from .refine import (basis_duals, exact_basis_certificate,
                      float_basis_certificate, original_sensitivity,
                      refine_basis_solution)
@@ -57,8 +58,10 @@ class Solution:
     ``objective_min`` is the internal minimization value including the
     lowering constant. ``y`` holds the row duals (minimization sense) and
     ``duals``/``reduced_costs`` the original-problem sensitivity when the
-    solve asked for them. ``rung`` names the precision-ladder rung that
-    produced the answer."""
+    solve asked for them. ``mip_gap`` is a MILP's proven optimality gap
+    (incumbent - best open bound) / max(|incumbent|, 1) in the
+    minimization sense: 0 when proven optimal, set on the early exits.
+    ``rung`` names the precision-ladder rung that produced the answer."""
 
     status: str
     objective: Optional[Union[float, Fraction]] = None
@@ -70,6 +73,7 @@ class Solution:
     y: Optional[list] = None
     duals: Optional[Dict] = None
     reduced_costs: Optional[Dict[str, Any]] = None
+    mip_gap: Optional[float] = None
     rung: Optional[str] = None
 
     @property
@@ -145,6 +149,36 @@ def solve_standard_form_host(sf: StandardForm, rule: str = "dantzig"
     )
 
 
+def _warm_frame(state, warm_basis, options: SolverOptions):
+    """(state, warm_out) for a warm start from ``warm_basis``: the rebuilt
+    frame replaces ``state`` when it is primal feasible; when it is only
+    dual feasible, ``warm_out`` is the dual simplex's terminal state; a
+    frame that is neither, or not finite, leaves the cold ``state``."""
+    wb = np.asarray(warm_basis, np.int32)
+    if wb.shape != (state.m,) or (wb.size and (
+            int(wb.min()) < 0 or int(wb.max()) >= state.n)):
+        raise ValueError(
+            f"warm_basis must be {state.m} augmented-column indices in "
+            f"[0, {state.n}) for this program structure; got shape "
+            f"{wb.shape}")
+    # the warm frame starts in phase 2: artificial columns (still priceable
+    # in the cold state's phase 1) must not be
+    active_cols = state.col_active & ~state.art_cols
+    frame = warm_state_from_basis(state.T[2:, :-1], state.T[0, :-1],
+                                  active_cols, state.art_cols, wb,
+                                  state.T[2:, -1])
+    if not bool(torch.isfinite(frame.T).all()):
+        return state, None
+    bvals = frame.T[2:, -1].cpu().numpy()
+    red = frame.T[0, :-1].cpu().numpy()
+    active = active_cols.cpu().numpy()
+    if bvals.min(initial=0.0) >= -options.feas_tol:
+        return frame, None
+    if red[active].min(initial=0.0) >= -options.opt_tol:
+        return state, run_dual_simplex(frame, options)
+    return state, None
+
+
 def _auto_engine(elems: int, dev: torch.device) -> str:
     if elems < RANK1_BELOW:
         return "rank1"
@@ -164,10 +198,20 @@ def solve_standard_form(
     driver: str = "auto",
     block: int = 64,
     scale: str = "auto",
+    warm_basis=None,
     device="cuda",
     _depth: int = 0,
 ) -> Solution:
     """Solve a lowered StandardForm on ``device``.
+
+    ``warm_basis``: a basis (augmented-column indices, e.g. the
+    ``Solution.basis`` of a same-structure program) to start from instead
+    of the slack/artificial basis. Its frame is rebuilt against the current
+    (scaled) data by ``warm_state_from_basis``: a primal-feasible frame
+    continues with the primal engine, a dual-feasible one re-optimizes with
+    the dual simplex, and any other frame (or a singular basis) starts
+    cold. Refinement, certificate and ladder are unchanged; escalations
+    re-solve cold.
 
     ``scale``: power-of-two equilibration of the device data ('auto' when
     material, 'force', 'none'); refinement, certificate and duals always
@@ -215,9 +259,16 @@ def solve_standard_form(
     opts_eng = dataclasses.replace(options, rule=RULE_DEVEX) \
         if pricing == "devex" else options
 
+    warm_out = None
+    if warm_basis is not None:
+        state, warm_out = _warm_frame(state, warm_basis, options)
     elems = (state.m + 2) * (state.n + 1)
     eng = _auto_engine(elems, dev) if driver == "auto" else driver
-    if eng == "rank1":
+    if warm_out is not None:
+        # the RHS moved (the branch-and-bound child's shape): `warm_out` is
+        # the dual simplex's terminal state
+        out = warm_out
+    elif eng == "rank1":
         out = run_simplex_devex(state, options) if pricing == "devex" \
             else run_simplex(state, options)
     elif eng == "blocked":
@@ -369,15 +420,19 @@ def solve_lp(
     and reduced costs. See ``solve_standard_form`` for ``pricing``,
     ``driver``, ``block``, ``scale``, ``refine`` and ``fallback``.
 
+    ``warm_start``: a prior ``Solution`` of a same-structure program (the
+    same variables and constraints; the RHS, the objective or both may
+    differ). Its basis seeds the solve: an RHS change re-optimizes with the
+    dual simplex, an objective change continues with the primal engine
+    from the still-feasible frame, and a basis that fits neither starts
+    cold (see ``solve_standard_form``'s ``warm_basis``).
+
     Not ported yet, and raising NotImplementedError: ``mesh``,
-    ``simple_bounds``, ``warm_start``, ``certificates`` and ``ranging``."""
+    ``simple_bounds``, ``certificates`` and ``ranging``."""
     if mesh is not None:
         raise _not_ported("mesh=", "item 12, multi-GPU")
     if simple_bounds:
         raise _not_ported("simple_bounds=True", "item 8, bounded")
-    if warm_start is not None:
-        raise _not_ported("warm_start=", "item 7, dual simplex and warm "
-                          "starts")
     if certificates:
         raise _not_ported("certificates=True", "item 11, exact-layer "
                           "bindings")
@@ -390,10 +445,18 @@ def solve_lp(
         options = dataclasses.replace(options, **opt_overrides)
     is_prog = not isinstance(prog, StandardForm)
     sf = lower_to_standard_form(prog) if is_prog else prog
+    warm_basis = None
+    if warm_start is not None:
+        if warm_start.basis is None:
+            raise ValueError(
+                "warm_start solution carries no basis (presolve-reduced, "
+                "early-stopped, or status-only solves don't); re-solve "
+                "cold or keep a basis-bearing Solution")
+        warm_basis = warm_start.basis
     sol = solve_standard_form(sf, options=options, dtype=dtype,
                               refine=refine, fallback=fallback, duals=duals,
                               pricing=pricing, driver=driver, block=block,
-                              scale=scale, device=dev)
+                              scale=scale, warm_basis=warm_basis, device=dev)
     if duals and is_prog and sol.y is not None:
         dmap, rc = original_sensitivity(prog, sf, sol.y)
         sol = dataclasses.replace(sol, duals=dmap, reduced_costs=rc)

@@ -26,7 +26,7 @@ __all__ = [
 ]
 
 BIG_I = 2 ** 30
-# steps between two host reads of the status
+# the longest chunk of steps between two host reads of the status
 CHUNK = 32
 
 
@@ -38,7 +38,12 @@ def take(x: torch.Tensor, i: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 def put(x: torch.Tensor, i: torch.Tensor, v) -> torch.Tensor:
     """A copy of the 1-d ``x`` with entry ``i`` set to ``v``."""
-    v = torch.as_tensor(v, dtype=x.dtype, device=x.device).reshape(1)
+    if isinstance(v, torch.Tensor):
+        v = v.to(x.dtype).reshape(1)
+    else:
+        # a fill on the device: a Python scalar moved as a tensor would be a
+        # blocking host-to-device copy in every step
+        v = torch.full((1,), v, dtype=x.dtype, device=x.device)
     return x.index_put((i.reshape(1).long(),), v)
 
 
@@ -60,7 +65,9 @@ def pivot_update(T: torch.Tensor, r_glob: torch.Tensor,
     colv = take(T, j, 1)
     is_r = (torch.arange(nrows, device=T.device) == r_glob)[:, None]
     is_j = (torch.arange(ncols, device=T.device) == j)[None, :]
-    # one fused multiply-add per element, as XLA emits it for tpulp
+    # addcmul is one fused multiply-add per element on the CPU, as XLA
+    # emits it for tpulp; CUDA's rounds the product first, so f64 walks on
+    # the card can part from tpulp's (ROADMAP C)
     Tn = torch.addcmul(T, colv[:, None], prow[None, :], value=-1.0)
     Tn = torch.where(is_r, prow[None, :], Tn)
     return torch.where(is_j, is_r.to(T.dtype), Tn)
@@ -216,26 +223,28 @@ def simplex_step(state: SimplexState, opts: SolverOptions,
 
 
 def run_chunked(step, carry, get_state, max_iters: int):
-    """Apply ``step`` in chunks of ``CHUNK`` until the state's status
-    leaves RUNNING or its pivot count reaches ``max_iters`` (one host read
-    per chunk). A RUNNING state at the budget becomes ITERATION_LIMIT."""
+    """Apply ``step`` in chunks until no lane of the state is RUNNING below
+    ``max_iters`` pivots: one host read per chunk, whether the state is one
+    problem or a batch with a leading lane axis (the steps freeze finished
+    lanes themselves). Chunks grow 1, 2, 4, ... up to ``CHUNK`` steps, so a
+    warm re-solve of a few pivots does not run a whole chunk of no-op
+    steps."""
+    chunk = 1
     while True:
         s = get_state(carry)
-        status, niter = torch.stack([s.status, s.niter]).tolist()
-        if status != Status.RUNNING or niter >= max_iters:
+        live = (s.status == Status.RUNNING) & (s.niter < max_iters)
+        if not bool(live.any()):
             break
-        for _ in range(CHUNK):
+        for _ in range(chunk):
             carry = step(carry)
+        chunk = min(2 * chunk, CHUNK)
     return carry
 
 
 def finish(s: SimplexState) -> SimplexState:
-    """Map a still-RUNNING exit to ITERATION_LIMIT."""
+    """Map a still-RUNNING exit to ITERATION_LIMIT (per lane on a batch)."""
     return s._replace(status=torch.where(
-        s.status == Status.RUNNING,
-        torch.tensor(Status.ITERATION_LIMIT, dtype=torch.int32,
-                     device=s.status.device),
-        s.status))
+        s.status == Status.RUNNING, Status.ITERATION_LIMIT, s.status))
 
 
 def run_simplex(state: SimplexState, opts: SolverOptions | None = None
