@@ -3,26 +3,35 @@
 
     python3 chip_smoke.py
 
-Builds the two CUDA kernels from tpulp_torch/kernels/csrc (and checks in
-their machine code that the f64 flush runs on the FP64 tensor cores and
-the f32 flush uses no TF32), holds each against its plain PyTorch version
-at the shape the main path gives it (1538 x 3073, float64, K = 128) and at
-the bench shape (m = n = 4096, K = 256, float32 and float64), holds the
-flush against its plain version on ragged shapes and on a case built to
-probe every rule of its scan, solves the Wyndor LP and the whole LP corpus
-exactly through ``tpulp_torch.solve_lp``, drives the main path at a real
-size (a 1536 x 1536 LP through ``solve_lp(driver="auto")``, which must take
-the kernel engine), checks that a caller's TF32 setting does not reach the
-engines' products, and runs the kernel engine on the bench instance.
+Builds the three CUDA kernels from tpulp_torch/kernels/csrc (and checks
+in their machine code that the f64 flush runs on the FP64 tensor cores
+and the f32 flush uses no TF32), prints nvcc's registers and spills,
+holds the flush and the inner block against their plain PyTorch versions
+at the shape the main path gives them (1538 x 3073, float64, K = 128) and
+at the bench shape (m = n = 4096, K = 256, float32 and float64) -- the
+inner block in both variants (eta slices resident in shared memory, or
+streamed from L2), bit for bit against its plain version summing in the
+kernel's order, walked to the end through cleanup, devex and Bland pivots,
+with its per-stage split -- times one grid barrier of each kind, holds the
+FMA kernel bit for bit against the CPU's addcmul (broadcast and vmapped),
+holds the flush against its plain version on ragged shapes and on a case
+built to probe every rule of its scan, solves the Wyndor LP and the whole
+LP corpus exactly through ``tpulp_torch.solve_lp``, drives the main path
+at a real size (a 1536 x 1536 LP through ``solve_lp(driver="auto")``,
+which must take the kernel engine), checks that a caller's TF32 setting
+does not reach the engines' products, and runs the kernel engine on the
+bench instance.
 Phase 7 drives ``solve_milp`` on bench.py's 28-item knapsack (f32 and f64,
 the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
 and f64 optima, checked in Fractions) with every wave tensor checked to be
 on the card, times a batched pivot at B = 128, and runs ``solve_lp_batch``
 cold and warm over 64 RHS scenarios and ``solve_lp(warm_start=)`` at
-256 x 512. Every phase that fails raises. The line before the last is a
-JSON summary of the kernels; the last line is ``{"ok": true, "device":
+256 x 512; the f64 bench knapsack must explore tpulp's 789 nodes. Every
+phase that fails raises. The line before the last is a JSON summary of
+the kernels (each with its bound, its plain version's time and, where one
+exists, a library call's); the last line is ``{"ok": true, "device":
 {...}}``. Without CUDA the script exits non-zero and prints no result. It
-imports no jax.
+imports nothing of jax or tpulp.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ RUNS = 20  # timed runs of each kernel and of its plain version
 FLUSH_SHAPES = [(2, 3, 1), (130, 257, 17), (67, 8193, 255),
                 (1538, 3073, 128), (4098, 8193, 256)]
 TF32_M = TF32_N = 512  # the bench instance of the TF32 check
+ART_M, ART_N, ART_K = 192, 256, 32  # the walks from an artificial basis
+BLAND_SHAPE = (96, 128)  # Bland's walk (1,088 pivots)
 # phase 7, MILP: bench.py's knapsack (run_bench_milp), a multidimensional
 # knapsack, a scenario batch and a warm re-solve
 MILP_ITEMS = 28
@@ -56,6 +67,24 @@ MDK_ITEMS, MDK_ROWS, MDK_SEED = 40, 5, 1
 SCEN_M, SCEN_N, SCEN_LANES = 64, 128, 64
 WARM_M, WARM_N = 256, 512
 PIVOT_STEPS = 64  # timed batched steps per measurement
+BARRIER_PROBE_N = 2 * BENCH_K * 4  # barriers per probe launch (2K, x4)
+# the card's peaks for the bounds (NVIDIA H100 SXM data sheet, dense): HBM
+# bytes/s; FP32 outside the tensor cores; FP64 outside them (B2's eta sums
+# and the FMA kernel at f64); FP64 on the tensor cores (the f64 flush's DMMA)
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+FP64_FLOP_S = 34e12
+FP64_TC_FLOP_S = 67e12
+# the f64 bench knapsack's tree: tpulp's and the port's on the CPU
+KNAPSACK_F64_NODES = 789
+
+
+def bound(nbytes: float, flops: float, flop_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def log(msg: str) -> None:
@@ -107,6 +136,7 @@ def check_flush(T0, U, V, ca, opt_tol, piv_tol, dtype_name, runs):
     times."""
     import torch
 
+    from tpulp_torch.core.precision import full_precision
     from tpulp_torch.kernels import fused_flush, fused_flush_reference
 
     Tk, scan_k = fused_flush(T0.clone(), U, V, ca, opt_tol, piv_tol)
@@ -133,13 +163,23 @@ def check_flush(T0, U, V, ca, opt_tol, piv_tol, dtype_name, runs):
                       runs, reset)
     plain_ms = cuda_time_ms(lambda: fused_flush_reference(
         work, U, V, ca, opt_tol, piv_tol), runs, reset)
-    gflop = 2 * T0.shape[0] * T0.shape[1] * U.shape[0] / 1e9
+    with full_precision():
+        library_ms = cuda_time_ms(lambda: work.addmm_(U.T, V), runs, reset)
+    (M, N), K = T0.shape, U.shape[0]
+    size = T0.element_size()
+    bound_ms, bound_by = bound(
+        size * (2 * M * N + K * (M + N)) + 4 * N + 8 * N, 2 * K * M * N,
+        FP32_FLOP_S if dtype_name == "float32" else FP64_TC_FLOP_S)
+    gflop = 2 * M * N * K / 1e9
     log(f"# B1 fused_flush {dtype_name} {shape}: ok, max |err| "
         f"{max_abs:.3e}, max err/mag {worst:.3e} (rtol {rtol:g}); kernel "
         f"{ms:.3f} ms = {gflop / ms:.2f} TFLOP/s, plain {plain_ms:.3f} ms = "
-        f"{gflop / plain_ms:.2f} TFLOP/s (median of {runs})")
+        f"{gflop / plain_ms:.2f} TFLOP/s, torch.addmm {library_ms:.3f} ms; "
+        f"bound {bound_ms:.4f} ms ({bound_by}) (median of {runs})")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "tflops": gflop / ms, "plain_tflops": gflop / plain_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "tflops": gflop / ms,
+            "plain_tflops": gflop / plain_ms}
 
 
 def scan_of(Tn, ca, opt_tol, piv_tol):
@@ -231,69 +271,141 @@ def _rel(a, b) -> float:
     return float((a - b).abs().max()) / scale
 
 
+def inner_block_bound(M, N, K, niter, dtype_name):
+    """(bound_ms, bound_by) of one inner block that took ``niter`` pivots:
+    bytes = T0's column and row per pivot, U and V written, the running
+    vectors and masks read and written once; operations = the eta sums
+    (pivot p: 2p(M + N) flops, in double at either dtype) over the FP64
+    rate, plus ~10(M + N) a pivot at the data's rate."""
+    size = 4 if dtype_name == "float32" else 8
+    nbytes = (size * (niter * (M + N) + K * (M + N) + 2 * (3 * N + M))
+              + 4 * 2 * (2 * N + 2 * (M - 2)))
+    t_eta = niter * (niter - 1) * (M + N) / FP64_FLOP_S
+    t_rest = 10 * niter * (M + N) / (FP32_FLOP_S if size == 4
+                                      else FP64_FLOP_S)
+    return bound(nbytes, (t_eta + t_rest) * FP64_FLOP_S, FP64_FLOP_S)
+
+
 def check_inner_block(state, opts, dtype_name, runs, K):
-    """Two blocks of K pivots of the kernel engine from the same state,
-    once with the kernels and once with their plain versions: the same
-    decisions, and U/V and the flushed T close."""
+    """Two blocks of K pivots of the kernel engine from the same state, run
+    with the plain versions and with the kernels, the inner-block kernel in
+    each variant (resident: eta slices in shared memory; streaming: read
+    from L2). At f64: the same iscal, basis and art-basic mask, and U, V
+    and the flushed T within 1e-10 relative; at f32: block 1's basis and
+    niter. Returns errors, times (each variant, the plain version) and the
+    bound of block 1."""
+    import functools
+
     import torch
 
     from tpulp_torch.kernels import (blocked_inner_block,
                                      blocked_inner_block_reference,
                                      fused_flush_reference)
+    from tpulp_torch.kernels.block import (INNER_BLOCK_STAGES,
+                                           inner_block_plan)
     from tpulp_torch.solve.blocked_kernel import kernel_block, kernel_inputs
 
+    M, N = state.T.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     stall = opts.resolved_stall_limit(state.m, state.n)
     inputs = kernel_inputs(state)
-    sides = {"kernel": [x.clone() for x in inputs],
-             "plain": [x.clone() for x in inputs]}
-    plain = dict(inner=blocked_inner_block_reference,
-                 flush=fused_flush_reference)
-    max_abs = 0.0
+    plain_side, plain = [x.clone() for x in inputs], []
     for blk in range(2):
-        etas = {}
-        for side in sides:
-            sides[side], etas[side] = kernel_block(
-                sides[side], opts, stall, K,
-                **(plain if side == "plain" else {}))
-        torch.cuda.synchronize()
-        k, p = sides["kernel"], sides["plain"]
-        same_iscal = torch.equal(k[9], p[9])
-        same_basis = torch.equal(k[6], p[6])
-        same_ab = torch.equal(k[7], p[7])
-        rels = {"U": _rel(etas["kernel"][0], etas["plain"][0]),
-                "V": _rel(etas["kernel"][1], etas["plain"][1]),
-                "T": _rel(k[0], p[0])}
-        max_abs = max(max_abs, *(float((a - b).abs().max()) for a, b in
-                                 zip(etas["kernel"], etas["plain"])))
-        log(f"# B2 blocked_inner_block {dtype_name} {tuple(state.T.shape)} "
-            f"K={K} block {blk + 1}: iscal "
-            f"{k[9].tolist()} vs plain {p[9].tolist()}; basis "
-            f"{'same' if same_basis else 'DIFFERENT'}, ab "
-            f"{'same' if same_ab else 'DIFFERENT'}; rel err "
-            + " ".join(f"{n} {v:.2e}" for n, v in rels.items()))
-        if dtype_name == "float64":
-            if not (same_iscal and same_basis and same_ab):
-                raise AssertionError(f"B2 f64 block {blk + 1}: decisions "
-                                     "differ from the plain version")
-            bad = {n: v for n, v in rels.items() if v > 1e-10}
-            if bad:
-                raise AssertionError(f"B2 f64 block {blk + 1}: values "
-                                     f"differ beyond 1e-10 relative: {bad}")
-        elif blk == 0:
-            if not (same_basis and int(k[9][2]) == int(p[9][2])):
-                raise AssertionError("B2 f32 block 1: basis or niter differ "
-                                     "from the plain version")
-        elif not (same_iscal and same_basis):
-            log("# B2 float32 block 2: the walk diverged from the plain "
-                "version (recorded, not gated)")
+        plain_side, etas = kernel_block(plain_side, opts, stall, K,
+                                        inner=blocked_inner_block_reference,
+                                        flush=fused_flush_reference)
+        # the next block flushes T in place: keep a copy
+        plain.append(([x.clone() for x in plain_side], etas))
+    torch.cuda.synchronize()
+    exact = blocked_inner_block_reference(*inputs, opts, stall, K,
+                                          kernel_order=True)
+    max_abs, out = 0.0, {"variants": {}}
+    default = inner_block_plan(M, N, K, state.T.dtype, sms).variant
+    for variant in ("resident", "streaming"):
+        plan = inner_block_plan(M, N, K, state.T.dtype, sms, variant)
+        inner = functools.partial(blocked_inner_block, variant=variant)
+        got = inner(*inputs, opts, stall, K)
+        if not all(torch.equal(x, y) for x, y in zip(got, exact)):
+            raise AssertionError(
+                f"B2 {variant} {dtype_name} {(M, N)} K={K}: block 1 not bit "
+                "for bit the plain version summing in the kernel's order")
+        log(f"# B2 {variant} {dtype_name} {(M, N)} K={K} block 1: every "
+            "output bit for bit the plain version's in the kernel's order")
+        side = [x.clone() for x in inputs]
+        for blk in range(2):
+            side, etas = kernel_block(side, opts, stall, K, inner=inner)
+            torch.cuda.synchronize()
+            p, p_etas = plain[blk]
+            same_iscal = torch.equal(side[9], p[9])
+            same_basis = torch.equal(side[6], p[6])
+            same_ab = torch.equal(side[7], p[7])
+            rels = {"U": _rel(etas[0], p_etas[0]),
+                    "V": _rel(etas[1], p_etas[1]), "T": _rel(side[0], p[0])}
+            max_abs = max(max_abs, *(float((a - b).abs().max()) for a, b in
+                                     zip(etas, p_etas)))
+            if blk == 0:
+                niter = int(side[9][2]) - int(inputs[9][2])
+            log(f"# B2 blocked_inner_block {variant} {dtype_name} "
+                f"{(M, N)} K={K} block {blk + 1}: iscal "
+                f"{side[9].tolist()} vs plain {p[9].tolist()}; basis "
+                f"{'same' if same_basis else 'DIFFERENT'}, ab "
+                f"{'same' if same_ab else 'DIFFERENT'}; rel err "
+                + " ".join(f"{n} {v:.2e}" for n, v in rels.items()))
+            if dtype_name == "float64":
+                if not (same_iscal and same_basis and same_ab):
+                    raise AssertionError(
+                        f"B2 {variant} f64 block {blk + 1}: decisions "
+                        "differ from the plain version")
+                bad = {n: v for n, v in rels.items() if v > 1e-10}
+                if bad:
+                    raise AssertionError(
+                        f"B2 {variant} f64 block {blk + 1}: values differ "
+                        f"beyond 1e-10 relative: {bad}")
+            elif blk == 0:
+                if not (same_basis and int(side[9][2]) == int(p[9][2])):
+                    raise AssertionError(
+                        f"B2 {variant} f32 block 1: basis or niter differ "
+                        "from the plain version")
+            elif not (same_iscal and same_basis):
+                log(f"# B2 {variant} float32 block 2: the walk diverged from "
+                    "the plain version (recorded, not gated)")
+        args = list(inputs) + [opts, stall, K]
+        ms = cuda_time_ms(lambda: inner(*args), runs)
+        out["variants"][variant] = {
+            "ms": ms, "smem": plan.smem, "grid": plan.grid,
+            "rows": plan.rows, "cols": plan.cols,
+            "barriers_per_pivot": plan.barriers_per_pivot}
+        log(f"# B2 {variant} {dtype_name} {(M, N)} K={K}: {ms:.3f} ms per "
+            f"block = {1e3 * ms / max(niter, 1):.2f} us a pivot ({niter} "
+            f"pivots; median of {runs}); grid {plan.grid}, {plan.rows} rows "
+            f"and {plan.cols} columns a block, {plan.smem} bytes of dynamic "
+            f"shared memory, {plan.barriers_per_pivot} grid barriers "
+            f"(flag) per typical pivot"
+            + (" [the plan's choice]" if variant == default else ""))
     args = list(inputs) + [opts, stall, K]
-    ms = cuda_time_ms(lambda: blocked_inner_block(*args), runs)
+    # where a pivot's time goes: block 0's cycles per stage, as shares of
+    # the measured time per block
+    cyc = torch.zeros((len(INNER_BLOCK_STAGES),), dtype=torch.int64,
+                      device=state.T.device)
+    blocked_inner_block(*args, stage_cycles=cyc)
+    share = (cyc.double() / cyc.sum().double()).tolist()
+    us = 1e3 * out["variants"][default]["ms"] / max(niter, 1)
+    out["stages_us"] = {name: us * f
+                        for name, f in zip(INNER_BLOCK_STAGES, share)}
+    log(f"# B2 {default} {dtype_name} {(M, N)} K={K}: us a pivot by stage "
+        "(block 0's clock) " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["stages_us"].items()))
     plain_ms = cuda_time_ms(lambda: blocked_inner_block_reference(*args),
-                            runs)
-    log(f"# B2 blocked_inner_block {dtype_name} {tuple(state.T.shape)} "
-        f"K={K}: kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms per block (median of {runs})")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+                            max(3, runs // 4))
+    bound_ms, bound_by = inner_block_bound(M, N, K, niter, dtype_name)
+    log(f"# B2 {dtype_name} {(M, N)} K={K}: plain {plain_ms:.3f} ms per "
+        f"block; bound {bound_ms:.4f} ms ({bound_by}) for its {niter} pivots")
+    out.update({"max_abs_err": max_abs,
+                "ms": out["variants"][default]["ms"], "variant": default,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None,
+                "pivots": niter})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +492,62 @@ def gate_terminal_basis(out, c, A, b, dtype_name, opt_tol):
     return res
 
 
+def artificial_arrays(m: int, n: int, seed: int = 1):
+    """An equality LP that starts on artificials and keeps some of them
+    basic into phase 2: D x = b with D's last four rows sums of earlier
+    rows (redundant), a quarter of b zero (degenerate), no slack basis.
+    Returns (c, A, b, hint)."""
+    rng = np.random.default_rng(seed)
+    D = rng.normal(size=(m, n))
+    D[m - 4:] = D[0:4] + D[4:8]
+    x0 = np.abs(rng.normal(size=n)) * (rng.random(n) < 0.5)
+    b = D @ x0
+    neg = b < 0
+    D[neg] *= -1.0
+    b[neg] *= -1.0
+    return rng.normal(size=n), D, b, [-1] * m
+
+
+def check_walk(case, state, opts, K, max_blocks=64):
+    """The kernel engine block by block from ``state`` to termination, with
+    the inner-block kernel in each variant and with its plain version
+    summing in the kernel's order (both sides flush with the flush
+    kernel): every output of every block bit for bit equal. Returns
+    (blocks, final iscal)."""
+    import functools
+
+    import torch
+
+    from tpulp_torch import Status
+    from tpulp_torch.kernels import (blocked_inner_block,
+                                     blocked_inner_block_reference)
+    from tpulp_torch.solve.blocked_kernel import kernel_block, kernel_inputs
+
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    plain = functools.partial(blocked_inner_block_reference,
+                              kernel_order=True)
+    for variant in ("resident", "streaming"):
+        k = kernel_inputs(state)
+        p = [x.clone() for x in k]
+        inner = functools.partial(blocked_inner_block, variant=variant)
+        for blk in range(max_blocks):
+            k, _ = kernel_block(k, opts, stall, K, inner=inner)
+            p, _ = kernel_block(p, opts, stall, K, inner=plain)
+            same = all(torch.equal(x, y) for x, y in zip(k, p))
+            if not same:
+                raise AssertionError(
+                    f"B2 {variant} walk {case}, block {blk + 1}: iscal "
+                    f"{k[9].tolist()} vs plain {p[9].tolist()}, outputs not "
+                    f"bit for bit equal (T rel err {_rel(k[0], p[0]):.2e})")
+            if int(k[9][1]) != Status.RUNNING:
+                break
+        log(f"# B2 {variant} walk {case} {tuple(state.T.shape)} K={K}: "
+            f"{blk + 1} blocks bit for bit the plain version's, final iscal "
+            f"{k[9].tolist()} (phase, status, niter, stuck, bland, t), "
+            f"{int(k[7].sum())} artificials still basic")
+    return blk + 1, k[9].tolist()
+
+
 def phase_kernels(dev):
     """Phase 3: both kernels against their plain versions at the shape the
     main path of phase 5 gives them (f64, K = 128) and at the bench shape
@@ -414,6 +582,17 @@ def phase_kernels(dev):
         stats[case] = {"fused_flush": flush, "blocked_inner_block": inner}
         del state, ins, out
         torch.cuda.empty_cache()
+    # the cleanup (B) and Bland (D) stages and devex weights, walked to the
+    # end from an artificial basis
+    from tpulp_torch.core.state import RULE_BLAND, RULE_DEVEX
+
+    for rule, rname, (m, n) in ((RULE_DEVEX, "devex", (ART_M, ART_N)),
+                                (RULE_BLAND, "bland", BLAND_SHAPE)):
+        c, A, b, hint = artificial_arrays(m, n)
+        state = make_state(c, A, b, hint, dtype=torch.float64, device=dev)
+        opts = eta_scaled_options(SolverOptions.for_dtype(
+            torch.float64, rule=rule), torch.float64)
+        check_walk(f"artificial-{rname}", state, opts, ART_K)
     return stats
 
 
@@ -468,7 +647,8 @@ def phase_main_path():
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    if not all(v > 0 for v in launches.values()):
+    if not (launches["fused_flush"] > 0
+            and launches["blocked_inner_block"] > 0):
         raise AssertionError(f"solve_lp(driver='auto') at {MAIN_M}x{MAIN_N} "
                              f"did not take the kernel engine: {launches}")
     if sol.status != "optimal":
@@ -530,6 +710,157 @@ def phase_tf32_guard():
         raise AssertionError(f"TF32 guard: matmul precision {after!r} after "
                              "allow_tf32 = False")
     return {"status": out[0], "niter": out[1], "rung": out[3]}
+
+
+def check_static_smem(ptxas) -> None:
+    """The inner-block kernel's static shared memory (ptxas's report) must
+    fit the room ``inner_block_plan`` leaves beside the dynamic share it
+    plans, or a plan that fits on paper would not launch."""
+    from tpulp_torch.kernels.block import IB_STATIC_SMEM
+
+    got = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k.startswith("inner_block")}
+    if len(got) != 2 or max(got.values()) > IB_STATIC_SMEM:
+        raise AssertionError(f"inner block static shared memory {got}: "
+                             f"the plan leaves {IB_STATIC_SMEM} bytes")
+    log(f"# inner block static shared memory {got} bytes, within the "
+        f"{IB_STATIC_SMEM} the plan leaves")
+
+
+def ptxas_report(text: str):
+    """{kernel: {"registers": n, "spill_bytes": n, "static_smem": n}} from
+    nvcc's -Xptxas=-v output, for the inner-block, flush and FMA
+    kernels."""
+    import re
+
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None:
+            continue
+        name = next((k for k in ("inner_block_kernelIf",
+                                 "inner_block_kernelId",
+                                 "flush_kernelIf", "flush_kernelId",
+                                 "fma_kernelIf", "fma_kernelId",
+                                 "barrier_probe_kernel") if k in fn), None)
+        if name is None:
+            continue
+        rec = out.setdefault(name.replace("kernelIf", "kernel<float>")
+                             .replace("kernelId", "kernel<double>"), {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            rec["static_smem"] = int(m.group(1))
+    return out
+
+
+def phase_barrier_probe():
+    """Phase 3c: one grid barrier, timed in an otherwise empty persistent
+    cooperative kernel (one 256-thread block per SM, BARRIER_PROBE_N
+    barriers), for cooperative_groups' grid.sync() and the flag barrier;
+    the faster is the inner-block kernel's latency floor per barrier."""
+    from tpulp_torch.kernels.block import barrier_probe
+
+    res = {}
+    for _ in range(2):
+        for kind in ("grid_sync", "flag"):
+            us = 1e3 * barrier_probe(BARRIER_PROBE_N, kind)
+            res[kind] = min(res.get(kind, us), us)
+    best = min(res, key=res.get)
+    log(f"# barrier probe ({BARRIER_PROBE_N} barriers a launch, best of 2): "
+        f"grid.sync() {res['grid_sync']:.3f} us, flag barrier "
+        f"{res['flag']:.3f} us per barrier; faster: {best}; the inner "
+        f"block uses the flag barrier")
+    return {"us_per_barrier": res, "faster": best, "inner_block_uses": "flag"}
+
+
+# (name, shapes of c, a, b, value): the engines' calls on the card; vmapped
+# cases batch a leading dimension of MILP_BATCH lanes
+FMA_CASES = [
+    ("rank1_pivot_vmap", [(59, 114), (59, 1), (1, 114)], -1.0, True),
+    ("rhs_rewrite", [(MILP_BATCH, 59), (MILP_BATCH, 1), (MILP_BATCH, 59)],
+     1.0, False),
+    ("running_vector", [(3073,), (), (3073,)], 1.0, False),
+    ("running_bvec_vmap", [(1538,), (1538,), ()], 1.0, True),
+    ("rank1_pivot_big", [(1538, 3073), (1538, 1), (1, 3073)], -1.0, False),
+]
+
+
+def phase_fma(dev):
+    """Phase 3d: the FMA kernel bit for bit equal to the CPU's
+    torch.addcmul (one rounding: fma(value * a, b, c)) on seeded f32 and
+    f64 data, broadcast and vmapped; timed against CUDA's torch.addcmul
+    (which rounds the product first) and the plain version on the CPU.
+    Returns the cases' numbers; the headline is the vmapped rank-1 pivot of
+    the MILP waves at f64."""
+    import torch
+
+    from tpulp_torch.kernels import fused_fma
+
+    stats = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        for case, shapes, value, vmapped in FMA_CASES:
+            rng = np.random.default_rng(len(stats))
+            lead = (MILP_BATCH,) if vmapped else ()
+            cpu = [torch.tensor(rng.normal(size=lead + s)).to(dt)
+                   for s in shapes]
+            gpu = [x.to(dev) for x in cpu]
+            if vmapped:
+                def kern(c, a, b):
+                    return torch.func.vmap(
+                        lambda c, a, b: fused_fma(c, a, b, value))(c, a, b)
+
+                def lib(c, a, b):
+                    return torch.func.vmap(lambda c, a, b: torch.addcmul(
+                        c, a, b, value=value))(c, a, b)
+            else:
+                def kern(c, a, b):
+                    return fused_fma(c, a, b, value)
+
+                def lib(c, a, b):
+                    return torch.addcmul(c, a, b, value=value)
+            got = kern(*gpu)
+            torch.cuda.synchronize()
+            want = lib(*cpu)
+            if not torch.equal(got.cpu(), want):
+                bad = int((got.cpu() != want).sum())
+                raise AssertionError(f"fused_fma {case} {name}: {bad} of "
+                                     f"{want.numel()} elements differ from "
+                                     "the CPU's addcmul")
+            two = int((lib(*gpu).cpu() != want).sum())
+            ms = cuda_time_ms(lambda: kern(*gpu), RUNS)
+            lib_ms = cuda_time_ms(lambda: lib(*gpu), RUNS)
+            t0 = time.perf_counter()
+            for _ in range(RUNS):
+                lib(*cpu)
+            plain_ms = 1e3 * (time.perf_counter() - t0) / RUNS
+            size = got.element_size()
+            nbytes = size * (sum(x.numel() for x in gpu) + got.numel())
+            bound_ms, bound_by = bound(
+                nbytes, 3 * got.numel(),
+                FP32_FLOP_S if dt == torch.float32 else FP64_FLOP_S)
+            stats[f"{case} {name}"] = {
+                "shape": list(got.shape), "max_abs_err": 0.0, "ms": ms,
+                "plain_ms": plain_ms, "plain_on": "cpu",
+                "cuda_addcmul_ms": lib_ms, "cuda_addcmul_differs": two,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+            log(f"# FMA {case} {name} {tuple(got.shape)}: bit for bit the "
+                f"CPU's addcmul (CUDA addcmul differs at {two} of "
+                f"{got.numel()}); kernel {ms:.4f} ms, CUDA addcmul "
+                f"{lib_ms:.4f} ms, plain on the CPU {plain_ms:.4f} ms; "
+                f"bound {bound_ms:.5f} ms ({bound_by})")
+    return stats
 
 
 def check_machine_code(lib_path):
@@ -757,6 +1088,7 @@ def phase_milp_knapsacks():
     import torch
 
     import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
 
     warnings.filterwarnings("error", message="There is a performance drop")
     values, weights, cap = bench_knapsack()
@@ -773,6 +1105,9 @@ def phase_milp_knapsacks():
             torch.cuda.synchronize()
             first = time.perf_counter() - t0
             torch.cuda.reset_peak_memory_stats()
+            # the MILP main path: counts set to 0 just before the timed
+            # solve and read just after it
+            reset_launches()
             t0 = time.perf_counter()
             sol, st = tpulp_torch.solve_milp(lp, dtype=dt,
                                              batch_size=MILP_BATCH,
@@ -780,16 +1115,27 @@ def phase_milp_knapsacks():
                                              device="cuda")
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            fma_launches = launches["fused_fma"]
+            if fma_launches == 0:
+                raise AssertionError(f"bench knapsack {name}: solve_milp "
+                                     "never launched the FMA kernel")
             peak = torch.cuda.max_memory_allocated()
             if not (sol.status == "optimal" and sol.objective == oracle):
                 raise AssertionError(f"bench knapsack {name}: {sol.status} "
                                      f"{sol.objective}, DP oracle {oracle}")
+            if (dt == torch.float64
+                    and st.nodes_solved != KNAPSACK_F64_NODES):
+                raise AssertionError(
+                    f"bench knapsack f64: {st.nodes_solved} nodes, tpulp's "
+                    f"tree has {KNAPSACK_F64_NODES} (the fused FMA keeps "
+                    "the card's pivots on tpulp's walk)")
             log(f"# MILP bench knapsack n={MILP_ITEMS} batch={MILP_BATCH} "
                 f"{name}: optimal {sol.objective} = DP oracle; "
                 + milp_stats_line(st, secs)
                 + f"; peak device memory {peak / 2**20:.1f} MiB, pool "
                 f"{st.pool_bytes / 2**20:.2f} MiB; the untimed first solve "
-                f"took {first:.3f} s")
+                f"took {first:.3f} s; {fma_launches} FMA kernel launches")
             res[f"bench_knapsack_{name}"] = {
                 "nodes": st.nodes_solved, "waves": st.waves,
                 "gen_waves": st.gen_waves, "warm_nodes": st.warm_nodes,
@@ -798,7 +1144,7 @@ def phase_milp_knapsacks():
                 "nodes_per_s": st.nodes_solved / secs,
                 "t_assemble": st.t_assemble, "t_device": st.t_device,
                 "t_process": st.t_process, "t_verify": st.t_verify,
-                "peak_bytes": peak}
+                "peak_bytes": peak, "launches": launches}
         v, W, caps = md_knapsack()
         optima = {}
         for dt in (torch.float64, torch.float32):
@@ -1059,6 +1405,9 @@ def phase_batch_and_warm():
 
 
 def main() -> int:
+    import contextlib
+    import io
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1080,25 +1429,33 @@ def main() -> int:
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    # 2: build (with nvcc's register and shared-memory report)
+    # 2: build (with nvcc's register, shared-memory and spill report)
     t0 = time.perf_counter()
-    lib_path = build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        lib_path = build(verbose=True)
     load_library()
-    log(f"# build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    log(report.getvalue().rstrip())
+    ptxas = ptxas_report(report.getvalue())
+    log(f"# build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a); "
+        f"registers / spills: {ptxas}")
     sass = check_machine_code(lib_path)
+    check_static_smem(ptxas)
 
+    # 3: the kernels against their plain versions
     kstats = phase_kernels(dev)
+    probe = phase_barrier_probe()
+    fma_cases = phase_fma(dev)
     flush_cases = phase_flush_cases(dev)
     phase_small_lps()
+    # 5: the LP main path; its launch counts are read right after it
     launches, main_path = phase_main_path()
     tf32 = phase_tf32_guard()
     bench = phase_bench(dev)
 
-    # 7: MILP, the batched waves and warm starts (plain torch: no kernel of
-    # this repo runs here unless a solo re-solve takes the kernel engine)
-    from tpulp_torch.kernels import LAUNCHES, reset_launches
-
-    reset_launches()
+    # 7: MILP, the batched waves and warm starts (the batched pivots run
+    # the FMA kernel); the f64 bench knapsack's timed solve is the MILP
+    # main path, its launch counts read right after it
     secs = {}
     t0 = time.perf_counter()
     milp = phase_milp_knapsacks()
@@ -1108,30 +1465,51 @@ def main() -> int:
     secs["pivot"] = time.perf_counter() - t0 - secs["milp"]
     milp.update(phase_batch_and_warm())
     secs["batch+warm"] = time.perf_counter() - t0 - sum(secs.values())
+    milp_launches = milp["bench_knapsack_float64"]["launches"]
     log(f"# phase 7 (MILP, batch, warm): "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
-        + f"; kernel launches {dict(LAUNCHES)}")
+        + f"; kernel launches of the f64 bench knapsack's timed solve "
+        f"{milp_launches}")
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = sorted(m for m in sys.modules if m == "jax"
+                    or m.startswith("jax.") or m == "tpulp"
+                    or m.startswith("tpulp."))
+    if loaded:
+        raise AssertionError(f"jax or tpulp modules were imported: {loaded}")
     sources = {
         "fused_flush": ("tpulp_torch/kernels/csrc/flush.cu",
-                        "tpulp/kernels/pallas_block.py:491"),
+                        "tpulp/kernels/pallas_block.py:491", launches),
         "blocked_inner_block": ("tpulp_torch/kernels/csrc/inner_block.cu",
-                                "tpulp/kernels/pallas_block.py:554"),
+                                "tpulp/kernels/pallas_block.py:554",
+                                launches),
+        "fused_fma": ("tpulp_torch/kernels/csrc/fma.cu",
+                      "none: XLA's fusion of the rank-1 update "
+                      "(tpulp/solve/driver.py)", milp_launches),
     }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
-    for kname, (src, repl) in sources.items():
-        # the headline numbers are taken at the main path's own shape; the
-        # bench shape's ride along
+    for kname, (src, repl, counts) in sources.items():
+        if kname == "fused_fma":
+            head = dict(fma_cases["rank1_pivot_vmap float64"])
+            head["library_ms"] = None  # CUDA addcmul rounds twice
+            cases = fma_cases
+        else:
+            # the headline numbers are taken at the main path's own shape;
+            # the bench shape's ride along
+            head = kstats["main_path"][kname]
+            cases = {case: kstats[case][kname]
+                     for case in ("bench_float32", "bench_float64")}
         kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[kname],
-                        **kstats["main_path"][kname],
-                        **{case: kstats[case][kname]
-                           for case in ("bench_float32", "bench_float64")}})
-    kernels[0]["cases"] = flush_cases
+                        "replaces": repl, "launches": counts[kname],
+                        **{k: head.get(k) for k in keys},
+                        "cases": cases})
+    kernels[0]["flush_cases"] = flush_cases
     kernels[0]["sass"] = sass
-    log(json.dumps({"kernels": kernels, "card": smi,
+    kernels[1]["barrier_probe"] = probe
+    for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma")):
+        kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
+    log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,
                     "bench": bench, "milp": milp}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ import torch
 
 import tpulp.solve as tpulp_solve
 import tpulp_torch
+from tpulp import LinExpr, LinProg
 from tpulp.corpus import CASES
-from tpulp_torch import LinExpr, LinProg
+
+from test_torch_model import to_port
 
 torch.set_num_threads(1)
 
@@ -28,11 +30,16 @@ def _wyndor():
     return lp
 
 
+def _port_wyndor():
+    return to_port(_wyndor())
+
+
 @pytest.mark.parametrize("case", SMALL, ids=SMALL_IDS)
 def test_corpus_matches_tpulp(case):
-    sf = case.lp().lower()
-    ref = tpulp_solve.solve_lp(sf, max_iters=case.max_iters)
-    out = tpulp_torch.solve_lp(sf, max_iters=case.max_iters, device="cpu")
+    lp = case.lp()
+    ref = tpulp_solve.solve_lp(lp.lower(), max_iters=case.max_iters)
+    out = tpulp_torch.solve_lp(to_port(lp).lower(), max_iters=case.max_iters,
+                               device="cpu")
     assert out.status == ref.status == case.status
     assert out.objective == ref.objective
     if case.status == "optimal":
@@ -44,8 +51,9 @@ def test_corpus_matches_tpulp(case):
 
 @pytest.mark.parametrize("case", SMALL, ids=SMALL_IDS)
 def test_corpus_on_kernel_engine(case):
-    out = tpulp_torch.solve_lp(case.lp().lower(), max_iters=case.max_iters,
-                               device="cpu", driver="kernel")
+    out = tpulp_torch.solve_lp(to_port(case.lp()).lower(),
+                               max_iters=case.max_iters, device="cpu",
+                               driver="kernel")
     assert out.status == case.status
     if case.status == "optimal":
         assert out.objective == case.objective
@@ -54,7 +62,7 @@ def test_corpus_on_kernel_engine(case):
 def test_wyndor_duals_match_tpulp():
     lp = _wyndor()
     ref = tpulp_solve.solve_lp(lp, duals=True)
-    out = tpulp_torch.solve_lp(lp, duals=True, device="cpu")
+    out = tpulp_torch.solve_lp(to_port(lp), duals=True, device="cpu")
     assert out.objective == ref.objective == 400
     assert out.x == ref.x
     assert out.y == ref.y
@@ -65,7 +73,7 @@ def test_wyndor_duals_match_tpulp():
 @pytest.mark.parametrize("driver", ["rank1", "blocked", "kernel",
                                     "refreshed"])
 def test_every_engine_solves_wyndor(driver):
-    sol = tpulp_torch.solve_lp(_wyndor(), device="cpu", driver=driver)
+    sol = tpulp_torch.solve_lp(_port_wyndor(), device="cpu", driver=driver)
     assert sol.status == "optimal" and sol.objective == 400
     assert sol.x == {"x": 4, "y": 8}
 
@@ -78,16 +86,16 @@ def test_every_engine_solves_wyndor(driver):
 ], ids=["mesh", "simple_bounds", "certificates", "ranging"])
 def test_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpulp_torch.solve_lp(_wyndor(), device="cpu", **option)
+        tpulp_torch.solve_lp(_port_wyndor(), device="cpu", **option)
 
 
 def test_cuda_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        tpulp_torch.solve_lp(_wyndor())
+        tpulp_torch.solve_lp(_port_wyndor())
     with pytest.raises(RuntimeError, match="cuda"):
-        tpulp_torch.solve_lp(_wyndor(), device="cuda")
+        tpulp_torch.solve_lp(_port_wyndor(), device="cuda")
 
 
 def test_ladder_escalates_numeric_to_refreshed_rung(monkeypatch):
@@ -106,6 +114,7 @@ def test_ladder_escalates_numeric_to_refreshed_rung(monkeypatch):
         return out
 
     monkeypatch.setattr(api, "run_simplex", failing)
-    sol = tpulp_torch.solve_lp(_wyndor(), device="cpu", dtype=torch.float32)
+    sol = tpulp_torch.solve_lp(_port_wyndor(), device="cpu",
+                               dtype=torch.float32)
     assert sol.status == "optimal" and sol.objective == 400
     assert sol.rung == "refreshed-float64"

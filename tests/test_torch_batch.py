@@ -21,6 +21,8 @@ from tpulp_torch.batch import (make_batched_states, run_simplex_batch,
                                solve_lp_batch, stack_states, unstack_state)
 from tpulp_torch.core import SolverOptions, from_numpy_state, to_numpy_state
 
+from test_torch_model import to_port
+
 torch.set_num_threads(1)
 pytestmark = pytest.mark.filterwarnings(
     "error:There is a performance drop")
@@ -118,7 +120,8 @@ def test_make_batched_states_matches_tpulp():
     sfs = [f().lower() for f in MIXED]
     ref, ref_art = tpulp_make_batched(sfs, dtype=jnp.float64,
                                       return_host_art=True)
-    out, art = make_batched_states(sfs, return_host_art=True, device="cpu")
+    out, art = make_batched_states(to_port(sfs), return_host_art=True,
+                                   device="cpu")
     for name, r, o in zip(ref._fields, ref, to_numpy_state(out)):
         r = np.asarray(r)
         assert r.dtype == o.dtype and r.shape == o.shape, name
@@ -147,7 +150,7 @@ def test_run_simplex_batch_walk_matches_tpulp(budget):
     ref = tpulp_run_batch(tpulp_make_batched(sfs, dtype=jnp.float64),
                           TpulpOptions.for_dtype(jnp.float64,
                                                  max_iters=budget))
-    out = run_simplex_batch(make_batched_states(sfs, device="cpu"),
+    out = run_simplex_batch(make_batched_states(to_port(sfs), device="cpu"),
                             SolverOptions.for_dtype(torch.float64,
                                                     max_iters=budget))
     assert np.array_equal(out.status.numpy(), np.asarray(ref.status))
@@ -170,7 +173,7 @@ def _same_solutions(out, ref):
 def test_solve_lp_batch_matches_tpulp():
     progs = [f() for f in MIXED] + [_random_lp(s) for s in range(8)]
     ref = tpulp_solve_batch(progs, refine="exact", max_iters=2000)
-    out = solve_lp_batch(progs, refine="exact", max_iters=2000,
+    out = solve_lp_batch(to_port(progs), refine="exact", max_iters=2000,
                          device="cpu")
     _same_solutions(out, ref)
     assert out[0].objective == 400 and out[1].objective == F(-1, 20)
@@ -185,12 +188,13 @@ def test_solve_lp_batch_state_pad_and_trivial_lane():
     progs = [_textbook(), bad, _beale()]
     ref, rstate, rlanes = tpulp_solve_batch(progs, return_state=True,
                                             pad_to=5)
-    out, state, lanes = solve_lp_batch(progs, return_state=True, pad_to=5,
-                                       device="cpu")
+    out, state, lanes = solve_lp_batch(to_port(progs), return_state=True,
+                                       pad_to=5, device="cpu")
     _same_solutions(out, ref)
     assert lanes == rlanes == [0, -1, 1]
     assert state.T.shape == rstate.T.shape and state.T.shape[0] == 5
-    none = solve_lp_batch([_textbook()], refine="none", device="cpu")[0]
+    none = solve_lp_batch(to_port([_textbook()]), refine="none",
+                          device="cpu")[0]
     assert abs(none.objective - 400) < 1e-9
 
 
@@ -204,12 +208,12 @@ class TestWarmBatch:
     def test_warm_wave_matches_tpulp_and_pivots_less(self):
         base, scens = self._scenarios()
         sol_j = tpulp_solve_lp(base)
-        sol_t = tpulp_torch.solve_lp(base, device="cpu")
+        sol_t = tpulp_torch.solve_lp(to_port(base), device="cpu")
         assert sol_t.basis == sol_j.basis
         ref = tpulp_solve_batch(scens, warm_start=sol_j)
-        out = solve_lp_batch(scens, warm_start=sol_t, device="cpu")
+        out = solve_lp_batch(to_port(scens), warm_start=sol_t, device="cpu")
         _same_solutions(out, ref)
-        cold = solve_lp_batch(scens, device="cpu")
+        cold = solve_lp_batch(to_port(scens), device="cpu")
         assert [c.objective for c in cold] == [o.objective for o in out]
         assert sum(o.niter for o in out) < sum(c.niter for c in cold)
 
@@ -223,20 +227,20 @@ class TestWarmBatch:
             lp.addConstraint(LinExpr(1, "x", 1, "y").constraintGeq(lo))
             return lp
 
-        sol = tpulp_torch.solve_lp(box(1), device="cpu")
-        out = solve_lp_batch([box(2), box(100)], warm_start=sol,
+        sol = tpulp_torch.solve_lp(to_port(box(1)), device="cpu")
+        out = solve_lp_batch(to_port([box(2), box(100)]), warm_start=sol,
                              device="cpu")
         assert out[0].status == "optimal" and out[0].objective == 2
         assert out[1].status == "infeasible"
 
     def test_structure_mismatch_raises(self):
         base, scens = self._scenarios(k=2)
-        sol = tpulp_torch.solve_lp(base, device="cpu")
+        sol = tpulp_torch.solve_lp(to_port(base), device="cpu")
         scens[1] = _dense_leq_lp(9)
         with pytest.raises(ValueError, match="SAME-STRUCTURE"):
-            solve_lp_batch(scens, warm_start=sol, device="cpu")
+            solve_lp_batch(to_port(scens), warm_start=sol, device="cpu")
         with pytest.raises(ValueError, match="no basis"):
-            solve_lp_batch(scens[:1], device="cpu",
+            solve_lp_batch(to_port(scens[:1]), device="cpu",
                            warm_start=tpulp_torch.Solution("infeasible"))
 
 
@@ -245,14 +249,14 @@ class TestWarmBatch:
 ], ids=["blocked", "simple_bounds", "mesh"])
 def test_batch_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_lp_batch([_textbook()], device="cpu", **option)
+        solve_lp_batch(to_port([_textbook()]), device="cpu", **option)
 
 
 def test_batch_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        solve_lp_batch([_textbook()])
+        solve_lp_batch(to_port([_textbook()]))
 
 
 class TestSolveLpWarmStart:
@@ -261,10 +265,11 @@ class TestSolveLpWarmStart:
 
     def _pair(self, lp2, lp1):
         sol_j = tpulp_solve_lp(lp1)
-        sol_t = tpulp_torch.solve_lp(lp1, device="cpu")
+        sol_t = tpulp_torch.solve_lp(to_port(lp1), device="cpu")
         assert sol_t.basis == sol_j.basis
         ref = tpulp_solve_lp(lp2, warm_start=sol_j)
-        out = tpulp_torch.solve_lp(lp2, warm_start=sol_t, device="cpu")
+        out = tpulp_torch.solve_lp(to_port(lp2), warm_start=sol_t,
+                                   device="cpu")
         assert out.status == ref.status
         assert out.objective == ref.objective and out.niter == ref.niter
         return out
@@ -280,7 +285,7 @@ class TestSolveLpWarmStart:
         scale[:3] = 0.8
         lp2 = _dense_leq_lp(seed, b_scale=scale)
         out = self._pair(lp2, _dense_leq_lp(seed))
-        cold = tpulp_torch.solve_lp(lp2, device="cpu")
+        cold = tpulp_torch.solve_lp(to_port(lp2), device="cpu")
         assert out.objective == cold.objective
         assert out.niter < max(cold.niter, 2)
 
@@ -298,7 +303,7 @@ class TestSolveLpWarmStart:
             else None
         lp2 = _dense_leq_lp(seed, m=m, n=n, b_scale=b_scale, c_override=c2)
         out = self._pair(lp2, _dense_leq_lp(seed, m=m, n=n))
-        cold = tpulp_torch.solve_lp(lp2, device="cpu")
+        cold = tpulp_torch.solve_lp(to_port(lp2), device="cpu")
         assert out.status == cold.status
         assert out.objective == cold.objective
 
@@ -316,20 +321,20 @@ class TestSolveLpWarmStart:
 
     def test_garbage_basis_falls_back_to_cold(self):
         lp = _dense_leq_lp(5)
-        cold = tpulp_torch.solve_lp(lp, device="cpu")
+        cold = tpulp_torch.solve_lp(to_port(lp), device="cpu")
         fake = tpulp_torch.Solution(status="optimal", basis=[0] * 12)
-        warm = tpulp_torch.solve_lp(lp, warm_start=fake, device="cpu")
+        warm = tpulp_torch.solve_lp(to_port(lp), warm_start=fake, device="cpu")
         assert warm.status == "optimal"
         assert warm.objective == cold.objective and warm.niter == cold.niter
 
     def test_bad_warm_starts_raise(self):
-        sol = tpulp_torch.solve_lp(_dense_leq_lp(0), device="cpu")
+        sol = tpulp_torch.solve_lp(to_port(_dense_leq_lp(0)), device="cpu")
         with pytest.raises(ValueError, match="warm_basis"):
-            tpulp_torch.solve_lp(_dense_leq_lp(0, m=8, n=6),
+            tpulp_torch.solve_lp(to_port(_dense_leq_lp(0, m=8, n=6)),
                                  warm_start=sol, device="cpu")
         with pytest.raises(ValueError, match="no basis"):
-            tpulp_torch.solve_lp(
-                _dense_leq_lp(0), device="cpu",
+            tpulp_torch.solve_lp(to_port(
+                _dense_leq_lp(0)), device="cpu",
                 warm_start=tpulp_torch.Solution(status="infeasible"))
 
 
@@ -342,7 +347,7 @@ def test_warm_frame_check_uses_the_scaled_state():
     lp.maximize(LinExpr(1000, "x", 3, "y"))
     lp.addConstraint(LinExpr(4000, "x", 1, "y").constraintLeq(8000))
     lp.addConstraint(LinExpr(1, "x", "1/500", "y").constraintLeq(7))
-    sol = tpulp_torch.solve_lp(lp, device="cpu")
-    warm = tpulp_torch.solve_lp(lp, warm_start=sol, device="cpu")
+    sol = tpulp_torch.solve_lp(to_port(lp), device="cpu")
+    warm = tpulp_torch.solve_lp(to_port(lp), warm_start=sol, device="cpu")
     assert warm.status == sol.status == "optimal"
     assert warm.objective == sol.objective and warm.niter == 0

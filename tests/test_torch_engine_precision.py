@@ -19,6 +19,8 @@ from tpulp_torch.solve import (run_simplex_blocked, run_simplex_blocked_kernel,
                                run_simplex_refreshed)
 from tpulp_torch.solve.blocked_kernel import kernel_inputs
 
+from test_torch_model import to_port
+
 torch.set_num_threads(1)
 
 BACKENDS = torch.backends
@@ -185,10 +187,10 @@ def test_solve_lp_walk_ignores_caller_setting(driver, dtype, caller):
     sf = get_case("equality_heavy_24").lp().lower()
     kw = dict(device="cpu", driver=driver, dtype=getattr(torch, dtype),
               block=8)
-    out = tpulp_torch.solve_lp(sf, **kw)
+    out = tpulp_torch.solve_lp(to_port(sf), **kw)
     assert settings() == caller
     torch.set_float32_matmul_precision("highest")
-    ref = tpulp_torch.solve_lp(sf, **kw)
+    ref = tpulp_torch.solve_lp(to_port(sf), **kw)
     assert _walk(out) == _walk(ref)
     if dtype == "float64":
         tp = tpulp_solve.solve_lp(sf)

@@ -336,7 +336,8 @@ def test_launch_counters_stay_zero_on_cpu():
                        torch.zeros((2, ts.T.shape[1]), dtype=torch.float64),
                        torch.ones((ts.T.shape[1],), dtype=torch.int32),
                        1e-9, 1e-9)
-    assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0}
+    assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0,
+                        "fused_fma": 0}
 
 
 def test_nvcc_command_line():
@@ -352,7 +353,8 @@ def test_nvcc_command_line():
         (src,) = [pathlib.Path(x) for x in cmd if x.endswith(".cu")]
         sources.append(src)
         objects.append(cmd[cmd.index("-o") + 1])
-    assert sorted(p.name for p in sources) == ["flush.cu", "inner_block.cu"]
+    assert sorted(p.name for p in sources) == ["flush.cu", "fma.cu",
+                                               "inner_block.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link
@@ -363,6 +365,55 @@ def test_nvcc_command_line():
     assert out.relative_to(ROOT).parts[0] == "build"
     verbose, _ = build.nvcc_commands(out, verbose=True)
     assert all("-Xptxas=-v" in cmd for cmd in verbose)
+
+
+# the inner-block kernel's launch plan: the shapes chip_smoke.py runs, K at
+# its limit, and a tableau whose owned vectors overflow shared memory
+PLAN_CASES = {
+    "main_path_f64": ((1538, 3073, 128, torch.float64),
+                      ("resident", 97, 16, 32, 53_120)),
+    "bench_f32": ((4098, 8193, 256, torch.float32),
+                  ("resident", 132, 32, 64, 102_656)),
+    "bench_f64": ((4098, 8193, 256, torch.float64),
+                  ("resident", 132, 32, 64, 204_544)),
+    "bench_f32_k1024": ((4098, 8193, 1024, torch.float32),
+                        ("streaming", 132, 32, 64, 10_496)),
+    "bench_f64_k1024": ((4098, 8193, 1024, torch.float64),
+                        ("streaming", 132, 32, 64, 20_224)),
+    "tiny": ((4, 7, 8, torch.float64), ("resident", 1, 8, 8, 1_728)),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_inner_block_plan(case):
+    from tpulp_torch.kernels.block import SMEM_PER_BLOCK, inner_block_plan
+
+    (M, N, K, dt), want = PLAN_CASES[case]
+    plan = inner_block_plan(M, N, K, dt, 132)
+    got = (plan.variant, plan.grid, plan.rows, plan.cols, plan.smem)
+    assert got == want
+    assert plan.rows * plan.grid >= M and plan.cols * plan.grid >= N
+    assert plan.rows % 8 == 0 and plan.cols % 8 == 0
+    assert plan.smem < SMEM_PER_BLOCK and plan.barriers_per_pivot == 2
+    tsize = 4 if dt == torch.float32 else 8
+    slab = (plan.rows + plan.cols) * K * tsize
+    assert (plan.smem > slab) == (plan.variant == "resident")
+    # streaming can always be asked for; resident only where it fits
+    assert inner_block_plan(M, N, K, dt, 132,
+                            variant="streaming").variant == "streaming"
+    if plan.variant == "streaming":
+        with pytest.raises(ValueError, match="shared memory"):
+            inner_block_plan(M, N, K, dt, 132, variant="resident")
+
+
+def test_inner_block_plan_refuses():
+    from tpulp_torch.kernels.block import inner_block_plan
+
+    with pytest.raises(ValueError, match="shared memory"):
+        inner_block_plan(102, 2_000_000, 256, torch.float64, 132)
+    for K in (0, 1025):
+        with pytest.raises(ValueError, match="outside"):
+            inner_block_plan(4098, 8193, K, torch.float32, 132)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,8 @@ import tpulp_torch
 import tpulp_torch.milp.bnb as tbnb
 from tpulp import LinExpr, LinProg, LinVar
 
+from test_torch_model import to_port
+
 torch.set_num_threads(1)
 pytestmark = pytest.mark.filterwarnings(
     "error:There is a performance drop")
@@ -114,8 +116,8 @@ def fractional_objective():
 def both(make, **kw):
     """(tpulp's, the port's) (Solution, BnbStats) on the same program."""
     ref = jbnb.solve_milp(make(), return_stats=True, **kw)
-    out = tpulp_torch.solve_milp(make(), return_stats=True, device="cpu",
-                                 **kw)
+    out = tpulp_torch.solve_milp(to_port(make()), return_stats=True,
+                                 device="cpu", **kw)
     return ref, out
 
 
@@ -169,8 +171,9 @@ def test_same_tree_as_tpulp(case, audit):
 
 
 def test_chain_ran_and_children_warm_started():
-    _, stats = tpulp_torch.solve_milp(knapsack(18, 3)[0], batch_size=16,
-                                      return_stats=True, device="cpu")
+    _, stats = tpulp_torch.solve_milp(to_port(knapsack(18, 3)[0]),
+                                      batch_size=16, return_stats=True,
+                                      device="cpu")
     assert stats.gen_waves > 0 and stats.gen_nodes > 0
     assert 2 * stats.warm_nodes > stats.nodes_solved
     assert stats.warm_pivots < 12 * stats.warm_nodes
@@ -192,7 +195,7 @@ def test_pool_overflow_same_tree(monkeypatch, audit, cap, refine):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_float32_hits_the_dp_oracle(seed):
     lp, values, weights, cap = knapsack(18, seed)
-    sol, stats = tpulp_torch.solve_milp(lp, dtype=torch.float32,
+    sol, stats = tpulp_torch.solve_milp(to_port(lp), dtype=torch.float32,
                                         batch_size=32, return_stats=True,
                                         device="cpu")
     assert sol.status == "optimal" and sol.mip_gap == 0.0

@@ -16,6 +16,8 @@ from tpulp_torch.io import (load_bnb_frontier, load_state, save_bnb_frontier,
 
 from test_torch_milp import dp_oracle, knapsack
 
+from test_torch_model import to_port
+
 torch.set_num_threads(1)
 pytestmark = pytest.mark.filterwarnings(
     "error:There is a performance drop")
@@ -24,7 +26,7 @@ pytestmark = pytest.mark.filterwarnings(
 def test_node_limit_gap_equals_tpulps():
     lp = knapsack(16, 5)[0]
     ref = jbnb.solve_milp(lp, batch_size=4, max_nodes=6)
-    out = tpulp_torch.solve_milp(lp, batch_size=4, max_nodes=6,
+    out = tpulp_torch.solve_milp(to_port(lp), batch_size=4, max_nodes=6,
                                  device="cpu")
     assert out.status == ref.status == "node_limit"
     assert out.objective == ref.objective is not None
@@ -34,7 +36,7 @@ def test_node_limit_gap_equals_tpulps():
 def test_time_limit_zero_stops_before_a_wave():
     lp = knapsack(12, 7)[0]
     ref = jbnb.solve_milp(lp, time_limit=0.0)
-    out = tpulp_torch.solve_milp(lp, time_limit=0.0, device="cpu")
+    out = tpulp_torch.solve_milp(to_port(lp), time_limit=0.0, device="cpu")
     assert out.status == ref.status == "time_limit"
     assert out.x is None and out.mip_gap is None
 
@@ -42,7 +44,7 @@ def test_time_limit_zero_stops_before_a_wave():
 def test_gap_tol_returns_an_incumbent_within_the_gap():
     lp, values, weights, cap = knapsack(18, 7)
     ref = jbnb.solve_milp(lp, gap_tol=0.5, batch_size=4)
-    out = tpulp_torch.solve_milp(lp, gap_tol=0.5, batch_size=4,
+    out = tpulp_torch.solve_milp(to_port(lp), gap_tol=0.5, batch_size=4,
                                  device="cpu")
     assert out.status == ref.status
     assert out.objective == ref.objective
@@ -56,7 +58,7 @@ def test_gap_tol_returns_an_incumbent_within_the_gap():
 
 def test_generous_time_limit_proves_optimal():
     lp, values, weights, cap = knapsack(12, 7)
-    out = tpulp_torch.solve_milp(lp, time_limit=600.0, device="cpu")
+    out = tpulp_torch.solve_milp(to_port(lp), time_limit=600.0, device="cpu")
     assert out.status == "optimal" and out.mip_gap == 0.0
     assert out.objective == dp_oracle(values, weights, cap)
 
@@ -72,11 +74,11 @@ def test_resume_across_packages(tmp_path, writer):
               checkpoint_every=1)
     if writer == "tpulp":
         part = jbnb.solve_milp(lp, **kw)
-        sol, stats = tpulp_torch.solve_milp(lp, batch_size=16,
+        sol, stats = tpulp_torch.solve_milp(to_port(lp), batch_size=16,
                                             resume_from=ck,
                                             return_stats=True, device="cpu")
     else:
-        part = tpulp_torch.solve_milp(lp, device="cpu", **kw)
+        part = tpulp_torch.solve_milp(to_port(lp), device="cpu", **kw)
         sol, stats = jbnb.solve_milp(lp, batch_size=16, resume_from=ck,
                                      return_stats=True)
     assert part.status == "node_limit"
@@ -92,8 +94,8 @@ def test_both_packages_write_the_same_checkpoint(tmp_path):
     paths = {k: str(tmp_path / f"{k}.json") for k in ("tpulp", "port")}
     kw = dict(batch_size=8, max_nodes=20, checkpoint_every=1)
     jbnb.solve_milp(lp, checkpoint_path=paths["tpulp"], **kw)
-    tpulp_torch.solve_milp(lp, checkpoint_path=paths["port"], device="cpu",
-                           **kw)
+    tpulp_torch.solve_milp(to_port(lp), checkpoint_path=paths["port"],
+                           device="cpu", **kw)
     ref, out = (json.load(open(paths[k])) for k in ("tpulp", "port"))
     assert out == ref
 
@@ -114,7 +116,8 @@ def test_frontier_round_trip(tmp_path):
 def test_state_checkpoint_round_trip(tmp_path):
     from tpulp_torch.solve.api import state_from_standard_form
 
-    s = state_from_standard_form(knapsack(6, 0)[0].lower(), device="cpu")
+    s = state_from_standard_form(to_port(knapsack(6, 0)[0].lower()),
+                                 device="cpu")
     path = str(tmp_path / "s.npz")
     save_state(path, s)
     back = load_state(path, device="cpu")
@@ -129,19 +132,21 @@ def test_state_checkpoint_round_trip(tmp_path):
 ], ids=["mesh", "spans"])
 def test_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpulp_torch.solve_milp(knapsack(4, 0)[0], device="cpu", **option)
+        tpulp_torch.solve_milp(to_port(knapsack(4, 0)[0]), device="cpu",
+                               **option)
 
 
 def test_bad_arguments_raise_like_tpulp():
     lp = knapsack(4, 0)[0]
     with pytest.raises(TypeError):
-        tpulp_torch.solve_milp(lp.lower(), device="cpu")
+        tpulp_torch.solve_milp(to_port(lp.lower()), device="cpu")
     with pytest.raises(ValueError, match="branching"):
-        tpulp_torch.solve_milp(lp, branching="strongest", device="cpu")
+        tpulp_torch.solve_milp(to_port(lp), branching="strongest",
+                               device="cpu")
 
 
 def test_milp_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="cuda"):
-        tpulp_torch.solve_milp(knapsack(4, 0)[0])
+        tpulp_torch.solve_milp(to_port(knapsack(4, 0)[0]))

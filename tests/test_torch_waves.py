@@ -21,6 +21,8 @@ from tpulp_torch.core import Status
 from tpulp_torch.milp import bnb
 from tpulp_torch.solve import dual
 
+from test_torch_model import to_port
+
 torch.set_num_threads(1)
 pytestmark = pytest.mark.filterwarnings(
     "error:There is a performance drop")
@@ -93,7 +95,7 @@ class _Wave:
                                for bd in self.bounds])
         self.mask = np.array([1.0 if h < 0 else 0.0 for h in sf.basis_hint])
         self.jt = j_make_batched([sf] * B, dtype=jnp.float64)
-        self.tt = make_batched_states([sf] * B, device="cpu")
+        self.tt = make_batched_states(to_port([sf] * B), device="cpu")
         n_batched = self.jt.T.shape[2] - 1
         R, const = bnb._int_recover_matrix(sf, self.names, n_batched,
                                            np.float64)

@@ -1,19 +1,22 @@
 """tpulp_torch — the PyTorch / CUDA port of tpulp for one NVIDIA H100.
 
 A second package beside the JAX package ``tpulp``, which stays the
-reference. It imports torch and never jax. The modeling layer
-(``LinProg``, ``LinExpr``, lowering to ``StandardForm``) is tpulp's own,
-shared because it is pure Python. ``solve_lp(prog, device="cuda")`` solves
-one LP on the card: the rank-1, rank-K blocked, and kernel engines, the
-last running two CUDA kernels built for sm_90a at first use; with
+reference. It imports torch, and nothing of jax or of tpulp. Its modeling
+layer (``tpulp_torch.model``: ``LinProg``, ``LinExpr``, lowering to
+``StandardForm``), exact host simplex and corpus are copies of tpulp's
+pure-Python modules, with the same code; a tpulp program crosses over
+through the JSON schema (``model.serialize``). ``solve_lp(prog,
+device="cuda")`` solves one LP on the card: the rank-1, rank-K blocked,
+and kernel engines, the last running two CUDA kernels built for sm_90a at
+first use (a third fuses the pivots' multiply-adds); with
 ``warm_start=`` it re-solves from a prior basis (the dual simplex for an
 RHS change). ``solve_lp_batch`` solves a batch of LPs in one wave of
 lanes, and ``solve_milp`` solves a mixed-integer program by
 branch-and-bound over such waves.
 """
 
-from tpulp.model import (LinCon, LinExpr, LinProg, LinVar, StandardForm,
-                         lower_to_standard_form)
+from .model import (LinCon, LinExpr, LinProg, LinVar, StandardForm,
+                    lower_to_standard_form)
 
 from .batch import solve_lp_batch
 from .core import SimplexState, SolverOptions, Status, make_state

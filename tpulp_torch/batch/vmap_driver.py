@@ -24,9 +24,9 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from tpulp.model.lower import (StandardForm, lower_to_standard_form,
-                               materialize_simple_bounds)
-from tpulp.model.prog import MAX, LinProg
+from ..model.lower import (StandardForm, lower_to_standard_form,
+                           materialize_simple_bounds)
+from ..model.prog import MAX, LinProg
 
 from ..core.precision import full_precision
 from ..core.state import (SimplexState, SolverOptions, Status, _numpy_state,

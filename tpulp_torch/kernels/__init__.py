@@ -1,8 +1,9 @@
-"""The kernel engine's CUDA kernels, their plain versions and launch counts."""
+"""The port's CUDA kernels, their plain versions and launch counts."""
 
-from .block import (LAUNCHES, blocked_inner_block,
-                    blocked_inner_block_reference, fused_flush,
-                    fused_flush_reference, reset_launches)
+from .block import (blocked_inner_block, blocked_inner_block_reference,
+                    fused_flush, fused_flush_reference, inner_block_plan)
+from .fma import fused_fma
+from .launch import LAUNCHES, reset_launches
 
 __all__ = [
     "LAUNCHES",
@@ -11,4 +12,6 @@ __all__ = [
     "fused_flush_reference",
     "blocked_inner_block",
     "blocked_inner_block_reference",
+    "inner_block_plan",
+    "fused_fma",
 ]

@@ -11,7 +11,10 @@ The counterparts of ``tpulp.kernels.pallas_block``:
 Each has a plain PyTorch version beside it (``*_reference``), which the
 wrapper runs for a tensor on the CPU. For a CUDA tensor the wrapper
 launches the kernel or raises; it never falls back. ``LAUNCHES`` counts
-the kernel launches of each wrapper.
+the kernel launches of each wrapper. ``inner_block_plan`` decides how the
+inner-block kernel lays out a launch: its grid, the rows and columns each
+block owns, and whether the block's eta slices stay in shared memory
+("resident") or are read from L2 ("streaming").
 
 Shapes are unpadded: T (M, N) with M = m + 2 and the RHS at column N - 1;
 row0/row1/gamma (N,); bvec (M,); ca/ac (N,) int32, zero at the RHS column;
@@ -23,68 +26,36 @@ and the port needs neither.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from ..core.precision import full_precision
 from ..core.state import RULE_BLAND, RULE_DEVEX, SolverOptions, Status
+from .fma import fused_fma
+from .launch import LAUNCHES, check, lib_for, on_cpu, raise_on, \
+    reset_launches, stream_of, suffix
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_flush",
            "fused_flush_reference", "blocked_inner_block",
-           "blocked_inner_block_reference", "BIG_I", "DEVEX_RESET"]
+           "blocked_inner_block_reference", "inner_block_plan",
+           "InnerBlockPlan", "barrier_probe", "eta_sum", "BIG_I",
+           "DEVEX_RESET"]
 
 BIG_I = 2 ** 30
 DEVEX_RESET = 1e8  # re-anchor the devex reference framework past this
 
-# kernel launches per wrapper; a wrapper counts where it launches its
-# kernel and nowhere else
-LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0}
-
-
-def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-
-
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU; raises on a mix, or on a
-    device that has no kernel here."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError(f"tensors must all be on the CPU or on one CUDA "
-                     f"device; got {sorted(str(t.device) for t in tensors)}")
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype} {shape}, got "
-                         f"{t.dtype} {tuple(t.shape)}"
-                         f"{'' if t.is_contiguous() else ' (strided)'}")
-
-
-def _lib_for(device: torch.device):
-    from .build import load_library
-
-    lib = load_library()
-    _raise_on(lib, lib.tpulp_set_device(device.index or 0), "set device")
-    return lib
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.tpulp_error_string(err).decode()
-        raise RuntimeError(f"tpulp_torch {what}: CUDA error {err} ({msg})")
-
-
-def _suffix(dtype) -> str:
-    if dtype == torch.float32:
-        return "f32"
-    if dtype == torch.float64:
-        return "f64"
-    raise ValueError(f"kernels take float32 or float64, not {dtype}")
+# the inner-block kernel's limits (csrc/inner_block.cu) and the card's
+IB_MAX_K = 1024
+IB_MAX_GRID = 256
+SMEM_PER_BLOCK = 232_448  # bytes a block may use on sm_90 (227 KiB)
+# the kernel's static reduction scratch, held to this in chip_smoke.py
+# against ptxas's report
+IB_STATIC_SMEM = 2_048
+# the stages of a pivot that ``stage_cycles`` counts (csrc/inner_block.cu)
+INNER_BLOCK_STAGES = ("pick", "col_load", "col_dot", "col_reduce",
+                      "barrier1", "ratio", "row_load", "row_dot", "update",
+                      "update_reduce", "barrier2", "gather", "bookkeeping")
 
 
 # ---------------------------------------------------------------------------
@@ -106,19 +77,19 @@ def fused_flush_reference(T, U, V, ca, opt_tol: float, piv_tol: float):
 def fused_flush(T, U, V, ca, opt_tol: float, piv_tol: float):
     """``T += U^T V`` in place (full FP32/FP64 FMA, no TF32) and the
     (2, N) int32 ray-scan columns; returns ``(T, scan)``."""
-    if _on_cpu(T, U, V, ca):
+    if on_cpu(T, U, V, ca):
         return fused_flush_reference(T, U, V, ca, opt_tol, piv_tol)
     M, N = T.shape
     K = U.shape[0]
-    _check(T, "T", T.dtype, (M, N))
-    _check(U, "U", T.dtype, (K, M))
-    _check(V, "V", T.dtype, (K, N))
-    _check(ca, "ca", torch.int32, (N,))
-    lib = _lib_for(T.device)
+    check(T, "T", T.dtype, (M, N))
+    check(U, "U", T.dtype, (K, M))
+    check(V, "V", T.dtype, (K, N))
+    check(ca, "ca", torch.int32, (N,))
+    lib = lib_for(T.device)
     scan = torch.zeros((2, N), dtype=torch.int32, device=T.device)
-    stream = torch.cuda.current_stream(T.device).cuda_stream
-    fn = getattr(lib, f"tpulp_flush_{_suffix(T.dtype)}")
-    _raise_on(lib, fn(T.data_ptr(), U.data_ptr(), V.data_ptr(),
+    stream = stream_of(T.device)
+    fn = getattr(lib, f"tpulp_flush_{suffix(T.dtype)}")
+    raise_on(lib, fn(T.data_ptr(), U.data_ptr(), V.data_ptr(),
                       ca.data_ptr(), scan.data_ptr(), M, N, K,
                       float(opt_tol), float(piv_tol), stream), "flush")
     LAUNCHES["fused_flush"] += 1
@@ -129,6 +100,87 @@ def fused_flush(T, U, V, ca, opt_tol: float, piv_tol: float):
 # B2: K pivots of one block
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class InnerBlockPlan:
+    """How one launch of the inner-block kernel is laid out."""
+
+    variant: str       # "resident" or "streaming"
+    grid: int          # blocks, one per SM at most
+    rows: int          # rows each block owns (RB)
+    cols: int          # columns each block owns (CB)
+    smem: int          # dynamic shared memory per block, bytes
+    barriers_per_pivot: int = 2  # a cleanup or Bland pivot adds one
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem(rows: int, cols: int, K: int, resident: bool, tsize: int) -> int:
+    """Dynamic shared memory of a launch, as the kernel carves it: the eta
+    slices (resident only), the coefficient vector and the copy of
+    V[:, N - 1], five column vectors of T, two row vectors of T, and four
+    int vectors. The launch passes this figure, and the kernel refuses it
+    unless its own count (``inner_block_smem``) agrees."""
+    slab = (rows + cols) * K if resident else 0
+    return (tsize * (slab + 2 * K + 5 * cols + 2 * rows)
+            + 4 * (2 * cols + 2 * rows))
+
+
+def inner_block_plan(M: int, N: int, K: int, dtype, sms: int,
+                     variant: str | None = None) -> InnerBlockPlan:
+    """The launch plan of the inner-block kernel for a (M, N) tableau and K
+    pivots on a card with ``sms`` SMs: one block per SM (fewer for a small
+    tableau, one per 32 rows or columns), each owning ceil(M / G) rows and
+    ceil(N / G) columns rounded up to 8; "resident" when the block's eta
+    slices U[0:K, rows] and V[0:K, cols] fit in its shared memory, else
+    "streaming". ``variant`` forces one (a check runs both). Raises when
+    neither can launch."""
+    if not 1 <= K <= IB_MAX_K:
+        raise ValueError(f"inner block: K = {K} outside [1, {IB_MAX_K}]")
+    tsize = {torch.float32: 4, torch.float64: 8}[dtype]
+    grid = max(1, min(sms, IB_MAX_GRID, _ceil(max(M, N), 32)))
+    rows = 8 * _ceil(_ceil(M, grid), 8)
+    cols = 8 * _ceil(_ceil(N, grid), 8)
+    room = SMEM_PER_BLOCK - IB_STATIC_SMEM
+    fits = {v: _smem(rows, cols, K, v == "resident", tsize) <= room
+            for v in ("resident", "streaming")}
+    if variant is None:
+        variant = next((v for v in ("resident", "streaming") if fits[v]),
+                       None)
+    if variant is None or not fits.get(variant, False):
+        raise ValueError(
+            f"inner block: a {M} x {N} tableau at K = {K} ({dtype}) needs "
+            f"{_smem(rows, cols, K, variant == 'resident', tsize)} bytes of "
+            f"shared memory per block ({rows} rows, {cols} columns), over "
+            f"the {room} a block has")
+    return InnerBlockPlan(variant, grid, rows, cols,
+                          _smem(rows, cols, K, variant == "resident", tsize))
+
+
+LANES = 32  # a warp: the lanes of one eta sum in the kernel
+
+
+def eta_sum(coef: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """``coef @ X`` for float64 ``coef`` (t,) and ``X`` (t, n), in the
+    inner-block kernel's order: lane q of a warp accumulates k = q, q + 32,
+    ... with one fused multiply-add each, then the 32 sums are combined by
+    an xor butterfly (at distance 16, 8, 4, 2, 1). The plain version and
+    the kernel so agree bit for bit."""
+    t, n = X.shape
+    acc = torch.zeros((LANES, n), dtype=torch.float64, device=X.device)
+    lanes = torch.arange(LANES, device=X.device)
+    for k0 in range(0, t, LANES):
+        k = k0 + lanes
+        live = (k < t)[:, None]
+        kc = k.clamp(max=t - 1)
+        acc = torch.where(live, fused_fma(acc, coef[kc][:, None], X[kc]),
+                          acc)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[lanes ^ off]
+    return acc[0]
+
+
 def _first(mask: torch.Tensor) -> int:
     """Smallest index where ``mask`` holds, else BIG_I."""
     ids = torch.arange(mask.shape[0], device=mask.device)
@@ -138,12 +190,15 @@ def _first(mask: torch.Tensor) -> int:
 @full_precision()
 def blocked_inner_block_reference(T, row0, row1, bvec, ca, ac, basis, ab,
                                   gamma, iscal, fscal, opts: SolverOptions,
-                                  stall_limit: int, K: int):
+                                  stall_limit: int, K: int,
+                                  kernel_order: bool = False):
     """Plain version of ``blocked_inner_block``: the TPU kernel's pivot
     loop step by step, with its scalars on the host. Each eta correction
     (entering column, pivot row, cleanup row) accumulates in float64 and
     rounds once to the iterate dtype, as the CUDA kernel does, so that a
-    float32 walk does not depend on the order of a sum. Inputs are not
+    float32 walk does not depend on the order of a sum; with
+    ``kernel_order`` each is summed in the kernel's own order
+    (``eta_sum``), and the two agree bit for bit. Inputs are not
     modified; returns ``(U, V, row0, row1, bvec, ca, ac, basis, ab, gamma,
     iscal, fscal)``."""
     M, N = T.shape
@@ -158,6 +213,8 @@ def blocked_inner_block_reference(T, row0, row1, bvec, ca, ac, basis, ab,
     T64 = T.to(torch.float64)
 
     def eta(t0_vec, coef, X):
+        if kernel_order:
+            return (t0_vec + eta_sum(coef[:t], X[:t])).to(dt)
         return (t0_vec + coef @ X).to(dt)
 
     row0, row1, bvec = row0.clone(), row1.clone(), bvec.clone()
@@ -248,9 +305,9 @@ def blocked_inner_block_reference(T, row0, row1, bvec, ca, ac, basis, ab,
 
         # ---- running vectors -----------------------------------------------
         # fused multiply-adds (the compiled TPU kernel fuses these too)
-        row0 = torch.addcmul(row0, w[0], vrow)
-        row1 = torch.addcmul(row1, w[1], vrow)
-        bvec = torch.addcmul(bvec, w, vrow[N - 1])
+        row0 = fused_fma(row0, w[0], vrow)
+        row1 = fused_fma(row1, w[1], vrow)
+        bvec = fused_fma(bvec, w, vrow[N - 1])
         leaving = int(basis[r])
         j_is_art = 0 <= j < N and bool(ac_v[j])
         if act:
@@ -308,13 +365,19 @@ def blocked_inner_block_reference(T, row0, row1, bvec, ca, ac, basis, ab,
 
 def blocked_inner_block(T, row0, row1, bvec, ca, ac, basis, ab, gamma,
                         iscal, fscal, opts: SolverOptions, stall_limit: int,
-                        K: int):
+                        K: int, variant: str | None = None,
+                        stage_cycles: torch.Tensor | None = None):
     """Run up to K eta pivots of one block (see the module doc for the
     shapes). Inputs are not modified; returns ``(U, V, row0, row1, bvec,
     ca, ac, basis, ab, gamma, iscal, fscal)``. The pivot budget is the
-    caller's: a block may run past it by up to K pivots."""
+    caller's: a block may run past it by up to K pivots. ``variant``
+    overrides ``inner_block_plan``'s choice (a check runs both).
+    ``stage_cycles``, an int64
+    tensor of ``len(INNER_BLOCK_STAGES)`` on the card, accumulates block
+    0's SM cycles per stage of every pivot (a measurement; the kernel runs
+    the same walk)."""
     args = (T, row0, row1, bvec, ca, ac, basis, ab, gamma, iscal, fscal)
-    if _on_cpu(*args):
+    if on_cpu(*args):
         return blocked_inner_block_reference(*args, opts, stall_limit, K)
     M, N = T.shape
     m = M - 2
@@ -326,8 +389,12 @@ def blocked_inner_block(T, row0, row1, bvec, ca, ac, basis, ab, gamma,
             ("basis", basis, torch.int32, (m,)),
             ("ab", ab, torch.int32, (m,)), ("gamma", gamma, dt, (N,)),
             ("iscal", iscal, torch.int32, (8,)), ("fscal", fscal, dt, (2,))):
-        _check(x, name, dtype, shape)
-    lib = _lib_for(T.device)
+        check(x, name, dtype, shape)
+    suffix(dt)
+    plan = inner_block_plan(
+        M, N, K, dt, torch.cuda.get_device_properties(
+            T.device).multi_processor_count, variant)
+    lib = lib_for(T.device)
     kw = dict(dtype=dt, device=T.device)
     U = torch.zeros((K, M), **kw)
     V = torch.zeros((K, N), **kw)
@@ -340,18 +407,57 @@ def blocked_inner_block(T, row0, row1, bvec, ca, ac, basis, ab, gamma,
     slots = lib.tpulp_inner_block_slots()
     pv = torch.empty((slots,), **kw)
     pint = torch.empty((2 * slots,), dtype=torch.int32, device=T.device)
-    stream = torch.cuda.current_stream(T.device).cuda_stream
-    fn = getattr(lib, f"tpulp_inner_block_{_suffix(dt)}")
+    resident = plan.variant == "resident"
+    gslab = None if resident else torch.empty(
+        (plan.grid * (plan.rows + plan.cols) * K,), **kw)
+    bar = torch.zeros((1,), dtype=torch.int32, device=T.device)
+    if stage_cycles is not None:
+        check(stage_cycles, "stage_cycles", torch.int64,
+              (lib.tpulp_inner_block_stages(),))
+    stream = stream_of(T.device)
+    fn = getattr(lib, f"tpulp_inner_block_{suffix(dt)}")
     err = fn(T.data_ptr(), U.data_ptr(), V.data_ptr(), row0_o.data_ptr(),
              row1_o.data_ptr(), bvec_o.data_ptr(), ca_o.data_ptr(),
              ac_o.data_ptr(), basis_o.data_ptr(), ab_o.data_ptr(),
              gamma_o.data_ptr(), isc_o.data_ptr(), fsc_o.data_ptr(),
              colj.data_ptr(), rowd.data_ptr(), pv.data_ptr(),
-             pint.data_ptr(), M, N, m, K, int(stall_limit),
+             pint.data_ptr(), 0 if resident else gslab.data_ptr(),
+             bar.data_ptr(),
+             0 if stage_cycles is None else stage_cycles.data_ptr(),
+             M, N, m, K, plan.grid, plan.rows, plan.cols,
+             int(resident), plan.smem, int(stall_limit),
              int(opts.rule == RULE_BLAND), int(opts.rule == RULE_DEVEX),
              float(opts.opt_tol), float(opts.piv_tol),
              float(opts.infeas_tol), float(opts.degen_tol), stream)
-    _raise_on(lib, err, "inner block")
+    raise_on(lib, err, "inner block")
     LAUNCHES["blocked_inner_block"] += 1
     return (U, V, row0_o, row1_o, bvec_o, ca_o, ac_o, basis_o, ab_o,
             gamma_o, isc_o, fsc_o)
+
+
+def barrier_probe(n: int, barrier: str, device="cuda") -> float:
+    """Milliseconds of one grid barrier, ``"flag"`` (the inner-block
+    kernel's: a release/acquire counter) or ``"grid_sync"``
+    (cooperative_groups): a persistent cooperative launch of one 256-thread
+    block per SM that does ``n`` barriers and nothing else, timed with CUDA
+    events. A measurement tool, not part of any path."""
+    dev = torch.device(device)
+    lib = lib_for(dev)
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        bar.zero_()
+        raise_on(lib, lib.tpulp_barrier_probe(
+            bar.data_ptr(), n, int(barrier == "flag"), grid, stream),
+            "barrier probe")
+
+    launch()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n

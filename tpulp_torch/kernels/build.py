@@ -120,6 +120,7 @@ def build(verbose: bool = False) -> Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=1)
@@ -133,10 +134,18 @@ def load_library() -> ctypes.CDLL:
         fn.restype = _I
     for name in ("tpulp_inner_block_f32", "tpulp_inner_block_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [_P] * 17 + [_I] * 7 + [_D] * 4 + [_P]
+        fn.argtypes = [_P] * 20 + [_I] * 12 + [_D] * 4 + [_P]
+        fn.restype = _I
+    for name in ("tpulp_fma_f32", "tpulp_fma_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P, _D, _L, _P, _P]
         fn.restype = _I
     lib.tpulp_inner_block_slots.argtypes = []
     lib.tpulp_inner_block_slots.restype = _I
+    lib.tpulp_inner_block_stages.argtypes = []
+    lib.tpulp_inner_block_stages.restype = _I
+    lib.tpulp_barrier_probe.argtypes = [_P, _I, _I, _I, _P]
+    lib.tpulp_barrier_probe.restype = _I
     lib.tpulp_set_device.argtypes = [_I]
     lib.tpulp_set_device.restype = _I
     lib.tpulp_error_string.argtypes = [_I]

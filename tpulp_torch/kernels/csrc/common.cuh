@@ -1,6 +1,6 @@
-// Helpers shared by the two kernels of tpulp_torch (see flush.cu and
-// inner_block.cu): exact-rounding arithmetic, and (value, index)
-// reductions whose ties go to the smallest index.
+// Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
+// fma.cu): exact-rounding arithmetic, and the (value, index) comparison
+// whose ties go to the smallest index.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,57 +46,6 @@ __device__ __forceinline__ VI<V> better(VI<V> a, VI<V> b) {
   const bool take = MAX ? (b.v > a.v) : (b.v < a.v);
   if (take || (b.v == a.v && b.i < a.i)) return b;
   return a;
-}
-
-template <typename V, bool MAX>
-__device__ __forceinline__ VI<V> warp_best(VI<V> x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    VI<V> y;
-    y.v = __shfl_down_sync(0xffffffffu, x.v, off);
-    y.i = __shfl_down_sync(0xffffffffu, x.i, off);
-    x = better<V, MAX>(x, y);
-  }
-  return x;
-}
-
-// Block-wide best candidate, returned to every thread. ``sh`` holds at
-// least 32 entries; the function synchronises the block.
-template <typename V, bool MAX>
-__device__ VI<V> block_best(VI<V> x, VI<V> ident, VI<V>* sh) {
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  x = warp_best<V, MAX>(x);
-  __syncthreads();
-  if (lane == 0) sh[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    x = (lane < int(blockDim.x >> 5)) ? sh[lane] : ident;
-    x = warp_best<V, MAX>(x);
-    if (lane == 0) sh[0] = x;
-  }
-  __syncthreads();
-  return sh[0];
-}
-
-// Block-wide sum, returned to every thread (fixed order: deterministic).
-template <typename T>
-__device__ T block_sum(T x, T* sh) {
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = add_rn(x, __shfl_down_sync(0xffffffffu, x, off));
-  __syncthreads();
-  if (lane == 0) sh[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    x = (lane < int(blockDim.x >> 5)) ? sh[lane] : T(0);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x = add_rn(x, __shfl_down_sync(0xffffffffu, x, off));
-    if (lane == 0) sh[0] = x;
-  }
-  __syncthreads();
-  return sh[0];
 }
 
 }  // namespace tpulp

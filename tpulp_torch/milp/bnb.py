@@ -37,8 +37,8 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from tpulp.model.lower import StandardForm, lower_to_standard_form
-from tpulp.model.prog import LinProg
+from ..model.lower import StandardForm, lower_to_standard_form
+from ..model.prog import LinProg
 
 from ..batch.vmap_driver import (extract_batch_solutions, make_batched_states,
                                  run_simplex_batch)
@@ -271,7 +271,7 @@ def solve_milp(
         # exact root presolve (MILP-safe): it also re-runs on resume, since
         # it is a deterministic function of ``prog``; the checkpoint's
         # branch-variable list is validated below
-        from tpulp.model.presolve import presolve as _presolve
+        from ..model.presolve import presolve as _presolve
 
         res = _presolve(prog)
         if res.status is not None:

@@ -21,8 +21,8 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from tpulp.model.lower import StandardForm, lower_to_standard_form
-from tpulp.model.prog import MAX, LinProg
+from ..model.lower import StandardForm, lower_to_standard_form
+from ..model.prog import MAX, LinProg
 
 from ..core.state import RULE_DEVEX, SolverOptions, Status, make_state
 from .blocked import run_simplex_blocked
@@ -114,14 +114,14 @@ def solve_standard_form_host(sf: StandardForm, rule: str = "dantzig"
     of the precision ladder (tpulp's host classes, which use no jax)."""
     from fractions import Fraction as F
 
-    from tpulp.simplex import Simplex
-    from tpulp.tableau import Tableau
+    from ..simplex import Simplex
+    from ..tableau import Tableau
 
     if sf.trivially_infeasible:
         return Solution(status="infeasible")
     if sf.upper is not None:
         # the host oracle has no bounded ratio test: materialize the spans
-        from tpulp.model.lower import materialize_simple_bounds
+        from ..model.lower import materialize_simple_bounds
 
         sf = materialize_simple_bounds(sf)
     tab = Tableau.fromArrays(sf.c, sf.A, sf.b, names=sf.col_names)
@@ -237,9 +237,9 @@ def solve_standard_form(
     c_d, A_d, b_d = sf.to_dense(np.float64)
     col_scale = None  # x_original = col_scale * x_device
     if scale in ("auto", "force"):
-        from tpulp.model.equilibrate import (equilibration_powers_dense,
-                                             is_material_scaling,
-                                             scaled_dense)
+        from ..model.equilibrate import (equilibration_powers_dense,
+                                         is_material_scaling,
+                                         scaled_dense)
 
         rp, cp = equilibration_powers_dense(A_d, basis_hint=sf.basis_hint)
         if scale == "force" or is_material_scaling(rp, cp):

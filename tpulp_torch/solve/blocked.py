@@ -21,6 +21,7 @@ import torch
 from ..core.precision import full_precision
 from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status, eta_scaled_options)
+from ..kernels.fma import fused_fma
 from .driver import finish, first_true, put, ratio_rows, status_select, take
 
 __all__ = ["run_simplex_blocked"]
@@ -112,9 +113,9 @@ def _blocked_pivot(carry: _BlockCarry, opts: SolverOptions,
 
     # ---- maintain running vectors ----------------------------------------
     # fused multiply-adds, as XLA emits them for tpulp
-    row0 = torch.addcmul(carry.row0, w[0], vrow)
-    row1 = torch.addcmul(carry.row1, w[1], vrow)
-    bvec = torch.addcmul(carry.bvec, w, vrow[-1])
+    row0 = fused_fma(carry.row0, w[0], vrow)
+    row1 = fused_fma(carry.row1, w[1], vrow)
+    bvec = fused_fma(carry.bvec, w, vrow[-1])
 
     leaving = take(basis_l, r)
     basis = torch.where(act, put(s.basis, r, j), s.basis)

@@ -16,6 +16,7 @@ import torch
 
 from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
                           SimplexState, SolverOptions, Status)
+from ..kernels.fma import fused_fma
 
 __all__ = [
     "simplex_step",
@@ -65,10 +66,8 @@ def pivot_update(T: torch.Tensor, r_glob: torch.Tensor,
     colv = take(T, j, 1)
     is_r = (torch.arange(nrows, device=T.device) == r_glob)[:, None]
     is_j = (torch.arange(ncols, device=T.device) == j)[None, :]
-    # addcmul is one fused multiply-add per element on the CPU, as XLA
-    # emits it for tpulp; CUDA's rounds the product first, so f64 walks on
-    # the card can part from tpulp's (ROADMAP C)
-    Tn = torch.addcmul(T, colv[:, None], prow[None, :], value=-1.0)
+    # one fused multiply-add per element, as XLA emits it for tpulp
+    Tn = fused_fma(T, colv[:, None], prow[None, :], -1.0)
     Tn = torch.where(is_r, prow[None, :], Tn)
     return torch.where(is_j, is_r.to(T.dtype), Tn)
 

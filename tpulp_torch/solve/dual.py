@@ -37,6 +37,7 @@ import torch
 
 from ..core.precision import full_precision
 from ..core.state import SimplexState, SolverOptions, Status
+from ..kernels.fma import fused_fma
 from .driver import (finish, first_true, pivot_update, put, run_chunked,
                      simplex_step, take)
 
@@ -200,9 +201,8 @@ def _rhs_rewrite(T: torch.Tensor, cols: torch.Tensor, coef: torch.Tensor
     or surplus column, whose current column is ``+-B^-1 e_i``."""
     lanes = torch.arange(T.shape[0], device=T.device)
     colv = T[lanes, :, cols]                              # (B, m + 2)
-    # addcmul is one fused multiply-add per element on the CPU, as XLA
-    # emits it for tpulp; CUDA's rounds the product first (ROADMAP C)
-    T[:, :, -1] = torch.addcmul(T[:, :, -1], coef[:, None], colv)
+    # one fused multiply-add per element, as XLA emits it for tpulp
+    T[:, :, -1] = fused_fma(T[:, :, -1], coef[:, None], colv)
     return T
 
 

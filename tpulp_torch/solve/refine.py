@@ -21,7 +21,7 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from tpulp.model.lower import StandardForm
+from ..model.lower import StandardForm
 
 __all__ = [
     "refine_basis_solution",
@@ -200,7 +200,7 @@ def original_sensitivity(prog, sf: StandardForm, y_std):
       at-upper-bound variables. Exact Fractions when ``y_std`` is exact.
 
     """
-    from tpulp.model.prog import MAX as _MAX
+    from ..model.prog import MAX as _MAX
 
     sense_sign = -1 if sf.sense == _MAX else 1
     duals: Dict = {}
