@@ -26,8 +26,15 @@ the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
 and f64 optima, checked in Fractions) with every wave tensor checked to be
 on the card, times a batched pivot at B = 128, and runs ``solve_lp_batch``
 cold and warm over 64 RHS scenarios and ``solve_lp(warm_start=)`` at
-256 x 512; the f64 bench knapsack must explore tpulp's 789 nodes. Every
-phase that fails raises. The line before the last is a JSON summary of
+256 x 512; the f64 bench knapsack must explore tpulp's 789 nodes.
+Phase 8 solves a 1024 x 2048 box LP with ``simple_bounds`` (the
+bounded-variable simplex, certified, held against the row-lowered solve on
+the kernel engine), a batch of 256 box LPs with and without bound rows,
+a blocked batch of 8 LPs of 512 x 1024 against their solo solves, the
+corpus's infeasible and unbounded cases with verified certificates,
+Wyndor's ranging, ``find_iis`` with every oracle solve on the card, and
+``python -m tpulp_torch solve`` in a subprocess. Every phase that fails
+raises. The line before the last is a JSON summary of
 the kernels (each with its bound, its plain version's time and, where one
 exists, a library call's); the last line is ``{"ok": true, "device":
 {...}}``. Without CUDA the script exits non-zero and prints no result. It
@@ -36,6 +43,7 @@ imports nothing of jax or tpulp.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -77,6 +85,16 @@ FP64_FLOP_S = 34e12
 FP64_TC_FLOP_S = 67e12
 # the f64 bench knapsack's tree: tpulp's and the port's on the CPU
 KNAPSACK_F64_NODES = 789
+# phase 8, the bounded and exact layer: the box LP at full size, the box
+# batch, the blocked batch and the planted IIS
+BND_M, BND_N = 1024, 2048
+# the box LP's pricing: Dantzig's walk takes ~82k host-bound steps here
+# (~7 minutes a dtype on the card), devex far fewer
+BND_PRICING = "devex"
+BND_MAX_ITERS = 200_000
+BOX_M, BOX_N, BOX_LANES = 64, 128, 256
+BLK_M, BLK_N, BLK_LANES, BLK_K = 512, 1024, 8, 64
+IIS_VARS, IIS_ROWS = 10, 24
 
 
 def bound(nbytes: float, flops: float, flop_s: float):
@@ -793,6 +811,11 @@ FMA_CASES = [
     ("running_vector", [(3073,), (), (3073,)], 1.0, False),
     ("running_bvec_vmap", [(1538,), (1538,), ()], 1.0, True),
     ("rank1_pivot_big", [(1538, 3073), (1538, 1), (1, 3073)], -1.0, False),
+    # phase 8: the bounded driver's pivot and flip at the bounded LP's
+    # tableau (1026 x 3073), and the bounded batch's pivot (66 x 193)
+    ("bounded_pivot", [(1026, 3073), (1026, 1), (1, 3073)], -1.0, False),
+    ("bounded_flip_rhs", [(1026,), (1026,), ()], -1.0, False),
+    ("bounded_pivot_vmap", [(66, 193), (66, 1), (1, 193)], -1.0, True),
 ]
 
 
@@ -1335,6 +1358,18 @@ def scenario_form(A, b, c):
                                         axis=1), b, list(range(n, n + m)), n)
 
 
+def dense_leq_arrays(m: int, n: int, seed: int = 0):
+    """tests/test_warm_start.py's recipe: min c x, A x <= b, x >= 0 with
+    A = |N(0, 1)| + 0.1, b = A x0 + |N(0, 1)| + 0.5, c = -(|N(0, 1)| + 0.1).
+    Returns (A, b, c)."""
+    rng = np.random.default_rng(seed)
+    A = np.abs(rng.normal(size=(m, n))) + 0.1
+    x0 = np.abs(rng.normal(size=n))
+    b = A @ x0 + np.abs(rng.normal(size=m)) + 0.5
+    c = -(np.abs(rng.normal(size=n)) + 0.1)
+    return A, b, c
+
+
 def phase_batch_and_warm():
     """Phase 7c/7d: ``solve_lp_batch`` over SCEN_LANES RHS scenarios of one
     SCEN_M x SCEN_N integer LP, cold and with ``warm_start`` (statuses and
@@ -1374,11 +1409,7 @@ def phase_batch_and_warm():
         f"{piv['cold']}, warm {piv['warm']}; {times['cold']:.2f} s cold, "
         f"{times['warm']:.2f} s warm (exact refinement per lane included)")
 
-    rng = np.random.default_rng(0)
-    A = np.abs(rng.normal(size=(WARM_M, WARM_N))) + 0.1
-    x0 = np.abs(rng.normal(size=WARM_N))
-    b = A @ x0 + np.abs(rng.normal(size=WARM_M)) + 0.5
-    c = -(np.abs(rng.normal(size=WARM_N)) + 0.1)
+    A, b, c = dense_leq_arrays(WARM_M, WARM_N)
     sol = tpulp_torch.solve_lp(scenario_form(A, b, c), device="cuda")
     b2 = b.copy()
     b2[:3] *= 0.8
@@ -1402,6 +1433,444 @@ def phase_batch_and_warm():
     return {"batch_pivots": piv, "batch_seconds": times,
             "warm_lp": {"cold_niter": cold2.niter,
                         "warm_niter": warm2.niter}}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the bounded-variable simplex and the exact layer
+# ---------------------------------------------------------------------------
+
+def bounded_form(m: int, n: int, seed: int = 0):
+    """bench.py's instance recipe without its sum row (D ~ N(0, 1), b =
+    |D x0| + |N(0, 1)|, free-sign c ~ N(0, 1), slack basis) with a finite
+    upper bound u_j = 2 x0_j + 1 on every structural, as a simple_bounds
+    StandardForm (no bound rows). Returns (form, D, b, u)."""
+    rng = np.random.default_rng(seed)
+    D = rng.normal(size=(m, n))
+    x0 = np.abs(rng.normal(size=n))
+    b = np.abs(D @ x0) + np.abs(rng.normal(size=m))
+    c = rng.normal(size=n)
+    u = 2.0 * x0 + 1.0
+    sf = scenario_form(D, b, c)
+    return (dataclasses.replace(sf, upper=u.tolist() + [None] * m), D, b,
+            u)
+
+
+def flip_spy():
+    """Wraps the bounded step (the name the bounded driver calls) to count
+    on the card, without a host read, its entering flips (a step that adds
+    a pivot but keeps the basis) and its upper hits (a basis change that
+    flips a column). Returns (counts, restore): ``counts()`` reads the two
+    totals."""
+    import torch
+
+    import tpulp_torch.solve.bounded as bounded
+
+    real = bounded.bounded_simplex_step
+    total = []
+
+    def spy(bs, opts, stall_limit, max_iters=None):
+        nxt = real(bs, opts, stall_limit, max_iters)
+        same = (nxt.s.basis == bs.s.basis).all()
+        flip = (nxt.at_upper != bs.at_upper).any()
+        step = torch.stack([(nxt.s.niter > bs.s.niter) & same, ~same & flip])
+        total[:] = [step.int() + total[0] if total else step.int()]
+        return nxt
+
+    def restore():
+        bounded.bounded_simplex_step = real
+
+    bounded.bounded_simplex_step = spy
+    return (lambda: total[0].tolist() if total else [0, 0]), restore
+
+
+def bounded_step_window(sf, dev, dtype):
+    """(device ms, kernels, host ms) per bounded step (BND_PRICING), from
+    16 steps from the initial basis under torch.profiler."""
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core.state import RULE_DANTZIG, RULE_DEVEX
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.bounded import (bounded_simplex_step,
+                                           make_bounded_state)
+
+    devex = BND_PRICING == "devex"
+    opts = SolverOptions.for_dtype(
+        dtype, rule=RULE_DEVEX if devex else RULE_DANTZIG)
+    bs = make_bounded_state(state_from_standard_form(sf, dtype=dtype,
+                                                     device=dev), sf.upper)
+    if devex:
+        bs = bs._replace(gamma=torch.ones_like(bs.upper))
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+
+    def window(bs=bs):
+        for _ in range(16):
+            bs = bounded_simplex_step(bs, opts, stall, None)
+
+    window()
+    wall, busy, kernels = device_busy(window)
+    return {"device_ms_per_step": 1e3 * busy / 16,
+            "kernels_per_step": kernels / 16,
+            "host_ms_per_step": 1e3 * wall / 16}
+
+
+def phase_bounded_lp(dev):
+    """Phase 8a: solve_lp on the BND_M x BND_N box LP with simple_bounds
+    (a (BND_M + 2) x (BND_N + BND_M + 1) tableau, no bound rows, priced
+    by BND_PRICING) at f64:
+    optimal, the f64 bounded certificate, 0 <= x <= u and D x <= b within
+    1e-9 relative, columns at upper, and the objective within 1e-9 of the
+    row-lowered solve (3 BND_M rows), which takes the kernel engine. The
+    same LP at f32 prints its rung. Returns the numbers and the FMA
+    launches of the f64 solve."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.model.equilibrate import (equilibration_powers_dense,
+                                               is_material_scaling)
+    from tpulp_torch.model.lower import materialize_simple_bounds
+    from tpulp_torch.solve.refine import float_bounded_certificate
+
+    m, n = BND_M, BND_N
+    sf, D, b, u = bounded_form(m, n)
+    rp, cp = equilibration_powers_dense(
+        np.concatenate([D, np.eye(m)], axis=1), basis_hint=sf.basis_hint)
+    log(f"# bounded LP {m}x{n}: equilibration material: "
+        f"{is_material_scaling(rp, cp)}")
+    res = {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).replace("torch.", "")
+        window = bounded_step_window(sf, dev, dt)
+        counts, restore = flip_spy()
+        torch.cuda.synchronize()
+        # the bounded LP's main path: counts set to 0 just before the solve
+        # and read just after it
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            sol = tpulp_torch.solve_lp(sf, dtype=dt, device=dev,
+                                       pricing=BND_PRICING,
+                                       max_iters=BND_MAX_ITERS)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        secs = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        enter, up_hit = counts()
+        est_device = window["device_ms_per_step"] * sol.niter / 1e3
+        res[name] = {"status": sol.status, "rung": sol.rung,
+                     "niter": sol.niter, "seconds": secs,
+                     "launches": launches, "entering_flips": enter,
+                     "upper_hits": up_hit,
+                     "device_seconds_est": est_device, **window,
+                     "objective": float(sol.objective)
+                     if sol.objective is not None else None}
+        log(f"# bounded LP {m}x{n} {name} ({BND_PRICING}): {sol.status}, "
+            f"rung {sol.rung}, {sol.niter} steps = {enter} entering flips + {up_hit} upper "
+            f"hits + {sol.niter - enter - up_hit} plain pivots (the flip "
+            f"counts are over every walk the solve ran); {secs:.2f} s on "
+            f"the host clock (set-up, refinement and certificate included) "
+            f"against ~{est_device:.3f} s of device time "
+            f"({window['device_ms_per_step']:.4f} ms, "
+            f"{window['kernels_per_step']:.0f} kernels and "
+            f"{window['host_ms_per_step']:.3f} ms of host time a step, "
+            "torch.profiler over 16 steps); launches " + str(launches))
+        if dt == torch.float32:
+            continue
+        if sol.status != "optimal" or launches["fused_fma"] == 0:
+            raise AssertionError(f"bounded LP f64: {sol.status}, launches "
+                                 f"{launches}")
+        primal_ok, dual_ok = float_bounded_certificate(sf, sol.basis,
+                                                       sol.at_upper)
+        x = np.array([float(sol.x[f"x{j}"]) for j in range(n)])
+        lo_ok = bool((x >= -1e-9 * u).all())
+        hi_ok = bool((x <= u * (1.0 + 1e-9)).all())
+        row_ok = bool((D @ x <= b + 1e-9 * (np.abs(D) @ np.abs(x)
+                                            + np.abs(b))).all())
+        basic = set(sol.basis)
+        at_up = sum(1 for j in range(n) if sol.at_upper[j]
+                    and j not in basic)
+        if not (primal_ok and dual_ok and lo_ok and hi_ok and row_ok
+                and at_up > 0):
+            raise AssertionError(
+                f"bounded LP f64: certificate {primal_ok, dual_ok}, 0 <= x "
+                f"{lo_ok}, x <= u {hi_ok}, D x <= b {row_ok}, {at_up} "
+                "columns at upper")
+        log(f"# bounded LP f64: certified (float_bounded_certificate), "
+            f"0 <= x <= u and D x <= b within 1e-9, {at_up} nonbasic "
+            f"columns at upper; objective {sol.objective!r}")
+        res[name]["at_upper"] = at_up
+        # the row-lowered form of the same LP: 3m rows, the kernel engine
+        sfr = materialize_simple_bounds(sf)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = tpulp_torch.solve_lp(sfr, device=dev, driver="auto",
+                                    max_iters=BND_MAX_ITERS)
+        torch.cuda.synchronize()
+        rsecs = time.perf_counter() - t0
+        rl = dict(LAUNCHES)
+        rel = abs(float(rows.objective) - float(sol.objective)) / max(
+            1.0, abs(float(rows.objective)))
+        log(f"# row-lowered LP {sfr.m}x{sfr.n} ({(sfr.m + 2) * (sfr.n + 1):,}"
+            f" elements) f64: {rows.status}, rung {rows.rung}, "
+            f"{rows.niter} pivots, {rsecs:.2f} s, launches {rl}; objective "
+            f"{rows.objective!r}, relative difference {rel:.2e}")
+        if not (rows.status == "optimal" and rl["fused_flush"] > 0
+                and rl["blocked_inner_block"] > 0 and rel <= 1e-9):
+            raise AssertionError("bounded LP: the row-lowered solve on the "
+                                 "kernel engine disagrees")
+        res["row_lowered"] = {"niter": rows.niter, "seconds": rsecs,
+                              "launches": rl, "relative_difference": rel}
+    return res
+
+
+def box_form(seed: int, m: int, n: int):
+    """A seeded integer box LP: min c x, A x <= b, 0 <= x <= u with A in
+    [0, 9], u in [1, 5], b = A u // 2 + [1, 19] (x = u / 2 is feasible),
+    c in [-9, 0], as a simple_bounds StandardForm."""
+    rng = np.random.default_rng(seed)
+    A = rng.integers(0, 10, size=(m, n))
+    u = rng.integers(1, 6, size=n)
+    b = A @ u // 2 + rng.integers(1, 20, size=m)
+    c = -rng.integers(0, 10, size=n)
+    sf = scenario_form(A, b, c)
+    return dataclasses.replace(sf, upper=u.tolist() + [None] * m)
+
+
+def phase_bounded_batch(dev):
+    """Phase 8b: solve_lp_batch(simple_bounds=True) over BOX_LANES box LPs
+    of BOX_M x BOX_N against the row-lowered batch (BOX_M + BOX_N rows):
+    every lane optimal and the exact objectives equal lane for lane."""
+    import torch
+
+    import tpulp_torch
+
+    sfs = [box_form(s, BOX_M, BOX_N) for s in range(BOX_LANES)]
+    res = {}
+    sols = {}
+    for kind, bounded in (("bounded", True), ("rows", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sols[kind] = tpulp_torch.solve_lp_batch(sfs, simple_bounds=bounded,
+                                                device=dev)
+        secs = time.perf_counter() - t0
+        res[kind] = {"seconds": secs, "lanes_per_s": BOX_LANES / secs,
+                     "pivots": sum(s.niter for s in sols[kind])}
+    bad = [k for k, (a, r) in enumerate(zip(sols["bounded"], sols["rows"]))
+           if a.status != "optimal" or r.status != "optimal"
+           or a.objective != r.objective]
+    log(f"# solve_lp_batch {BOX_LANES} box LPs {BOX_M}x{BOX_N}: "
+        f"simple_bounds {res['bounded']['seconds']:.2f} s = "
+        f"{res['bounded']['lanes_per_s']:.1f} lanes/s "
+        f"({res['bounded']['pivots']} pivots and flips), row-lowered "
+        f"({BOX_M + BOX_N} rows) {res['rows']['seconds']:.2f} s = "
+        f"{res['rows']['lanes_per_s']:.1f} lanes/s ({res['rows']['pivots']}"
+        " pivots); exact refinement and certificate per lane included; "
+        f"exact objectives {'equal' if not bad else 'DIFFER'} lane for lane")
+    if bad:
+        raise AssertionError(f"bounded batch: lanes {bad[:8]} differ")
+    return res
+
+
+def phase_blocked_batch(dev):
+    """Phase 8c: solve_lp_batch(driver="blocked") over BLK_LANES LPs of
+    BLK_M x BLK_N at f64 (tests/test_warm_start.py's recipe, seeds 0 to
+    BLK_LANES - 1; bench.py's takes more than 10,000 pivots at this size),
+    each lane's objective within 1e-9 relative of the solo
+    solve_lp(driver="blocked")."""
+    import torch
+
+    import tpulp_torch
+
+    sfs = [scenario_form(*dense_leq_arrays(BLK_M, BLK_N, seed=s))
+           for s in range(BLK_LANES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = tpulp_torch.solve_lp_batch(sfs, driver="blocked", block=BLK_K,
+                                       device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = [tpulp_torch.solve_lp(sf, driver="blocked", block=BLK_K,
+                                 device=dev) for sf in sfs]
+    torch.cuda.synchronize()
+    solo_secs = time.perf_counter() - t0
+    rel = [abs(float(a.objective) - float(s.objective))
+           / max(1.0, abs(float(s.objective)))
+           if a.is_optimal and s.is_optimal else float("inf")
+           for a, s in zip(batch, solo)]
+    log(f"# solve_lp_batch(driver='blocked', block={BLK_K}) {BLK_LANES} "
+        f"LPs {BLK_M}x{BLK_N} f64: {secs:.2f} s (solo: {solo_secs:.2f} s "
+        f"for the {BLK_LANES}); niter batch {[s.niter for s in batch]}, "
+        f"solo {[s.niter for s in solo]}; max relative objective "
+        f"difference {max(rel):.2e}")
+    if max(rel) > 1e-9:
+        raise AssertionError(f"blocked batch: lanes differ from solo {rel}")
+    return {"seconds": secs, "solo_seconds": solo_secs,
+            "niter": [s.niter for s in batch],
+            "solo_niter": [s.niter for s in solo]}
+
+
+def wyndor_ranging_lp():
+    """The Wyndor LP: max 3x + 5y, x <= 4 (p1), 2y <= 12 (p2), 3x + 2y <=
+    18 (p3); optimum 36 at (2, 6)."""
+    from tpulp_torch import LinExpr, LinProg
+
+    lp = LinProg("wyndor")
+    lp.addVar("x")
+    lp.addVar("y")
+    lp.maximize(LinExpr(3, "x", 5, "y"))
+    lp.addConstraint(LinExpr(1, "x").constraintLeq(4), name="p1")
+    lp.addConstraint(LinExpr(2, "y").constraintLeq(12), name="p2")
+    lp.addConstraint(LinExpr(3, "x", 2, "y").constraintLeq(18), name="p3")
+    return lp
+
+
+def infeasible_lp():
+    """x >= 3 (hi), x <= 1 (lo), x <= 7: infeasible, IIS {hi, lo}."""
+    from tpulp_torch import LinExpr, LinProg
+
+    lp = LinProg("infeasible")
+    lp.addVar("x")
+    lp.minimize(LinExpr(1, "x"))
+    lp.addConstraint(LinExpr(1, "x").constraintGeq(3), name="hi")
+    lp.addConstraint(LinExpr(1, "x").constraintLeq(1), name="lo")
+    lp.addConstraint(LinExpr(1, "x").constraintLeq(7))
+    return lp
+
+
+def planted_iis_lp(seed: int = 0):
+    """IIS_ROWS constraints over IIS_VARS variables: IIS_ROWS - 2 random
+    rows A x <= b with A >= 0 that x = 0 and a point with x0 + x1 = 12
+    both satisfy, and the planted pair x0 + x1 >= 10 ("need10"),
+    x0 + x1 <= 5 ("cap5"). Every infeasible subset holds both, so the
+    pair is the only IIS."""
+    from tpulp_torch import LinExpr, LinProg
+
+    rng = np.random.default_rng(seed)
+    lp = LinProg("planted")
+    for j in range(IIS_VARS):
+        lp.addVar(f"v{j}")
+    lp.minimize(LinExpr())
+    point = np.zeros(IIS_VARS, dtype=np.int64)
+    point[:2] = 6
+    A = rng.integers(0, 4, size=(IIS_ROWS - 2, IIS_VARS))
+    b = A @ point + rng.integers(1, 10, size=IIS_ROWS - 2)
+    for i in range(IIS_ROWS - 2):
+        e = LinExpr()
+        for j in range(IIS_VARS):
+            if A[i, j]:
+                e += LinExpr(int(A[i, j]), f"v{j}")
+        lp.addConstraint(e.constraintLeq(int(b[i])))
+        if i == IIS_ROWS // 2:
+            lp.addConstraint(LinExpr(1, "v0", 1, "v1").constraintGeq(10),
+                             name="need10")
+    lp.addConstraint(LinExpr(1, "v0", 1, "v1").constraintLeq(5),
+                     name="cap5")
+    return lp
+
+
+def phase_exact_layer(dev):
+    """Phase 8d/8e: certificates (the corpus's infeasible and unbounded
+    cases; verify_farkas / verify_ray), Wyndor's ranging pins, find_iis
+    with host_max_m=0 on the planted LP (every oracle call a solve on the
+    card), and ``python -m tpulp_torch solve`` in a subprocess on Wyndor
+    (--ranging) and on an infeasible file (--certificates)."""
+    import os
+    import tempfile
+
+    import tpulp_torch
+    import tpulp_torch.solve.api as api
+    from tpulp_torch.corpus import CASES
+    from tpulp_torch.model.serialize import save_prog
+
+    res = {"certificates": {}}
+    for case in CASES:
+        if case.status not in ("infeasible", "unbounded"):
+            continue
+        # one program: a corpus builder may draw a new instance each call
+        lp = case.lp()
+        sol = tpulp_torch.solve_lp(lp, certificates=True, device=dev)
+        sf = lp.lower()
+        ok = sol.status == case.status and (
+            tpulp_torch.verify_farkas(sf, sol.farkas)
+            if case.status == "infeasible"
+            else tpulp_torch.verify_ray(sf, sol.ray))
+        log(f"# certificate {case.name}: {sol.status}, "
+            f"{'farkas' if sol.farkas else 'ray'} "
+            f"{'verified' if ok else 'WRONG'}")
+        if not ok:
+            raise AssertionError(f"certificate of {case.name} failed")
+        res["certificates"][case.name] = sol.status
+    sol = tpulp_torch.solve_lp(wyndor_ranging_lp(), ranging=True, device=dev)
+    pins = (sol.cost_ranging == {"x": (0, Fraction(15, 2)), "y": (2, None)}
+            and sol.rhs_ranging["p2"] == (6, 18)
+            and sol.rhs_ranging["p3"] == (12, 24))
+    log(f"# Wyndor ranging: objective {sol.objective}, cost "
+        f"{sol.cost_ranging}, rhs p2 {sol.rhs_ranging['p2']} p3 "
+        f"{sol.rhs_ranging['p3']}: {'the pins' if pins else 'WRONG'}")
+    if not (pins and sol.objective == 36):
+        raise AssertionError("Wyndor ranging differs from the pins")
+
+    calls = []
+    real = api.solve_lp
+
+    def spy(prog, **kw):
+        calls.append(kw.get("device"))
+        return real(prog, **kw)
+
+    api.solve_lp = spy
+    try:
+        t0 = time.perf_counter()
+        iis = tpulp_torch.find_iis(planted_iis_lp(), host_max_m=0,
+                                   device=dev)
+        secs = time.perf_counter() - t0
+    finally:
+        api.solve_lp = real
+    log(f"# find_iis(host_max_m=0) on {IIS_ROWS} constraints: {iis}, "
+        f"{len(calls)} oracle solves on {set(calls)}, {secs:.2f} s")
+    if sorted(iis) != ["cap5", "need10"] or len(calls) != IIS_ROWS + 1 \
+            or set(calls) != {dev}:
+        raise AssertionError("find_iis missed the planted conflict or "
+                             "solved off the card")
+    res["iis"] = {"set": iis, "oracle_solves": len(calls), "seconds": secs}
+
+    tmp = tempfile.mkdtemp()
+    paths = {}
+    for name, lp in (("wyndor", wyndor_ranging_lp()),
+                     ("infeasible", infeasible_lp())):
+        paths[name] = os.path.join(tmp, f"{name}.json")
+        save_prog(paths[name], lp)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for name, flag in (("wyndor", "--ranging"),
+                       ("infeasible", "--certificates")):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpulp_torch", "solve", paths[name],
+             flag], cwd=root, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI on {name}: {proc.stderr[-2000:]}")
+        out[name] = json.loads(proc.stdout)
+        log(f"# python -m tpulp_torch solve {name}.json {flag} (cuda, "
+            f"{time.perf_counter() - t0:.1f} s): {proc.stdout.strip()}")
+    w, bad = out["wyndor"], out["infeasible"]
+    golden = (w["status"] == "optimal" and w["objective"] == "36"
+              and w["cost_ranging"] == {"x": ["0", "15/2"],
+                                        "y": ["2", None]}
+              and w["rhs_ranging_by_name"]["p2"] == ["6", "18"]
+              and w["rhs_ranging_by_name"]["p3"] == ["12", "24"]
+              and bad["status"] == "infeasible"
+              and tpulp_torch.verify_farkas(
+                  infeasible_lp().lower(),
+                  [Fraction(v) for v in bad["farkas"]]))
+    if not golden:
+        raise AssertionError(f"CLI JSON differs from the golden values: "
+                             f"{out}")
+    res["cli"] = out
+    return res
 
 
 def main() -> int:
@@ -1471,6 +1940,24 @@ def main() -> int:
         + f"; kernel launches of the f64 bench knapsack's timed solve "
         f"{milp_launches}")
 
+    # 8: the bounded simplex and the exact layer; the f64 bounded LP's
+    # solve is that path's main run, its launch counts read right after it
+    secs8 = {}
+    t0 = time.perf_counter()
+    exact = {"bounded_lp": phase_bounded_lp(dev)}
+    secs8["bounded_lp"] = time.perf_counter() - t0
+    exact["bounded_batch"] = phase_bounded_batch(dev)
+    secs8["bounded_batch"] = time.perf_counter() - t0 - sum(secs8.values())
+    exact["blocked_batch"] = phase_blocked_batch(dev)
+    secs8["blocked_batch"] = time.perf_counter() - t0 - sum(secs8.values())
+    exact.update(phase_exact_layer(dev))
+    secs8["exact_layer"] = time.perf_counter() - t0 - sum(secs8.values())
+    bounded_launches = exact["bounded_lp"]["float64"]["launches"]
+    log("# phase 8 (bounded and exact layer): "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs8.items())
+        + f"; kernel launches of the f64 bounded LP's solve "
+        f"{bounded_launches}")
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith("jax.") or m == "tpulp"
                     or m.startswith("tpulp."))
@@ -1504,6 +1991,11 @@ def main() -> int:
                         "replaces": repl, "launches": counts[kname],
                         **{k: head.get(k) for k in keys},
                         "cases": cases})
+    # the FMA kernel runs on two main paths: MILP (its ``launches``) and
+    # the bounded LP of phase 8
+    kernels[2]["launches_by_path"] = {
+        "milp_bench_knapsack_float64": milp_launches["fused_fma"],
+        "bounded_lp_float64": bounded_launches["fused_fma"]}
     kernels[0]["flush_cases"] = flush_cases
     kernels[0]["sass"] = sass
     kernels[1]["barrier_probe"] = probe
@@ -1511,7 +2003,7 @@ def main() -> int:
         kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,
-                    "bench": bench, "milp": milp}))
+                    "bench": bench, "milp": milp, "exact": exact}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

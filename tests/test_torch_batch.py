@@ -244,12 +244,203 @@ class TestWarmBatch:
                            warm_start=tpulp_torch.Solution("infeasible"))
 
 
-@pytest.mark.parametrize("option", [
-    {"driver": "blocked"}, {"simple_bounds": True}, {"mesh": object()},
-], ids=["blocked", "simple_bounds", "mesh"])
+@pytest.mark.parametrize("option", [{"mesh": object()}], ids=["mesh"])
 def test_batch_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_lp_batch(to_port([_textbook()]), device="cpu", **option)
+
+
+def _box_lp(seed, nv=6, mc=4):
+    """tests/test_bounded.py's random box LP (integer data)."""
+    rng = np.random.default_rng(seed)
+    lp = LinProg()
+    obj = LinExpr()
+    for j in range(nv):
+        lp.addVar(f"v{j}", lb=0, ub=int(rng.integers(1, 9)))
+        obj += LinExpr(int(rng.integers(-9, 10)), f"v{j}")
+    lp.maximize(obj)
+    for _ in range(mc):
+        e = LinExpr()
+        for j in range(nv):
+            e += LinExpr(int(rng.integers(-3, 6)), f"v{j}")
+        lp.addConstraint(e.constraintLeq(int(rng.integers(5, 30))))
+    return lp
+
+
+def _box_mix():
+    """Box LPs of different shapes, an infeasible and an unbounded one."""
+    bad = LinProg()
+    bad.addVar("x", lb=0, ub=5)
+    bad.minimize(LinExpr(1, "x"))
+    bad.addConstraint(LinExpr(1, "x").constraintGeq(9))
+    ray = LinProg()
+    ray.addVar("x", lb=0, ub=5)
+    ray.addVar("free", lb=0)
+    ray.maximize(LinExpr(1, "x", 1, "free"))
+    ray.addConstraint(LinExpr(1, "x").constraintLeq(4))
+    return ([_box_lp(s) for s in range(6)] + [_box_lp(9, nv=8, mc=5), bad,
+                                             ray, _textbook()])
+
+
+class TestBoundedBatch:
+    """``solve_lp_batch(simple_bounds=True)``: the bounded step vmapped over
+    lanes of bound-free tableaus, against tpulp's batch lane by lane."""
+
+    def test_batched_bounded_states_match_tpulp(self):
+        from tpulp.batch.vmap_driver import \
+            make_batched_bounded_states as tpulp_make
+        from tpulp_torch.batch import make_batched_bounded_states
+
+        sfs = [lp.lower(simple_bounds=True) for lp in _box_mix()]
+        ref = tpulp_make(sfs, dtype=jnp.float64)
+        out = make_batched_bounded_states(to_port(sfs), device="cpu")
+        for r, o in zip(ref.s, to_numpy_state(out.s)):
+            assert np.array_equal(np.asarray(r), o)
+        assert np.array_equal(np.asarray(ref.upper), out.upper.numpy())
+        assert not out.at_upper.any() and out.gamma is None
+
+    @pytest.mark.parametrize("rule", ["dantzig", "devex"])
+    def test_walk_matches_tpulp(self, rule):
+        from tpulp.batch.vmap_driver import \
+            make_batched_bounded_states as tpulp_make
+        from tpulp.core.state import RULE_DEVEX
+        from tpulp.solve.bounded import \
+            run_simplex_bounded_batch as tpulp_run
+        from tpulp_torch.batch import make_batched_bounded_states
+        from tpulp_torch.solve import run_simplex_bounded_batch
+
+        r = RULE_DEVEX if rule == "devex" else 0
+        sfs = [lp.lower(simple_bounds=True) for lp in _box_mix()]
+        ref = tpulp_run(tpulp_make(sfs, dtype=jnp.float64),
+                        TpulpOptions.for_dtype(jnp.float64, rule=r,
+                                               max_iters=2000))
+        out = run_simplex_bounded_batch(
+            make_batched_bounded_states(to_port(sfs), device="cpu"),
+            SolverOptions.for_dtype(torch.float64, rule=r, max_iters=2000))
+        for name in ("status", "niter", "basis"):
+            assert np.array_equal(getattr(out.s, name).numpy(),
+                                  np.asarray(getattr(ref.s, name))), name
+        assert np.array_equal(out.at_upper.numpy(), np.asarray(ref.at_upper))
+        assert np.array_equal(out.s.T.numpy(), np.asarray(ref.s.T))
+        assert (out.gamma is None) == (rule == "dantzig")
+
+    def test_solve_lp_batch_matches_tpulp(self):
+        progs = _box_mix()
+        ref = tpulp_solve_batch(progs, simple_bounds=True)
+        out = solve_lp_batch(to_port(progs), simple_bounds=True,
+                             device="cpu")
+        _same_solutions(out, ref)
+        assert [s.status for s in out[-4:]] == [
+            "optimal", "infeasible", "unbounded", "optimal"]
+        # the row-lowered batch reaches the same exact optima
+        rows = solve_lp_batch(to_port(progs), device="cpu")
+        assert [s.objective for s in rows] == [s.objective for s in out]
+        state = solve_lp_batch(to_port(progs), simple_bounds=True,
+                               return_state=True, device="cpu")[1]
+        # no bound rows: the widest lane keeps its five constraint rows
+        assert state.T.shape[1] == 5 + 2
+
+    def test_warm_start_with_simple_bounds_raises(self):
+        sol = tpulp_torch.solve_lp(to_port(_box_lp(0)), device="cpu")
+        with pytest.raises(ValueError, match="no simple_bounds"):
+            solve_lp_batch(to_port([_box_lp(0)]), simple_bounds=True,
+                           warm_start=sol, device="cpu")
+
+
+def _lane(seed, m=12, n=20):
+    """tests/test_torch_drivers.py's random instance (a sum row on every
+    third seed, so some lanes are bounded and some unbounded) as a
+    LinProg."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n))
+    x0 = np.abs(rng.normal(size=n))
+    b = A @ x0 + np.abs(rng.normal(size=m))
+    c = rng.normal(size=n)
+    if seed % 3 == 0:
+        A[-1] = 1.0
+        b[-1] = 2.0 * x0.sum()
+    lp = LinProg()
+    for j in range(n):
+        lp.addVar(f"x{j}")
+    lp.minimize(sum((LinExpr(float(c[j]), f"x{j}") for j in range(n)),
+                    LinExpr()))
+    for i in range(m):
+        e = sum((LinExpr(float(A[i, j]), f"x{j}") for j in range(n)),
+                LinExpr())
+        lp.addConstraint(e.constraintLeq(float(b[i])))
+    return lp
+
+
+class TestBlockedBatch:
+    """``solve_lp_batch(driver="blocked")``: the rank-K blocked pivot
+    vmapped over the lanes, one batched flush and ray scan per block,
+    against tpulp's vmapped blocked driver. Lanes that end at different
+    blocks, and budgets inside a block, keep tpulp's walks."""
+
+    @pytest.mark.parametrize("rule", ["dantzig", "devex", "bland"])
+    @pytest.mark.parametrize("budget", [2000, 7])
+    @pytest.mark.parametrize("block", [4, 8])
+    def test_walk_matches_tpulp(self, block, budget, rule):
+        from tpulp.core.state import RULE_BLAND, RULE_DEVEX
+        from tpulp.solve.blocked import \
+            run_simplex_blocked_batch as tpulp_run
+        from tpulp_torch.solve import run_simplex_blocked_batch
+
+        r = {"dantzig": 0, "devex": RULE_DEVEX, "bland": RULE_BLAND}[rule]
+        sfs = [_lane(s).lower() for s in range(6)] + [
+            _lane(6, m=8, n=15).lower()]
+        ref = tpulp_run(tpulp_make_batched(sfs, dtype=jnp.float64),
+                        TpulpOptions.for_dtype(jnp.float64, rule=r,
+                                               max_iters=budget),
+                        block=block)
+        out = run_simplex_blocked_batch(
+            make_batched_states(to_port(sfs), device="cpu"),
+            SolverOptions.for_dtype(torch.float64, rule=r, max_iters=budget),
+            block=block)
+        for name in ("status", "niter", "basis", "phase", "art_cols"):
+            assert np.array_equal(getattr(out, name).numpy(),
+                                  np.asarray(getattr(ref, name))), name
+        np.testing.assert_allclose(out.T.numpy(), np.asarray(ref.T),
+                                   rtol=1e-9, atol=1e-9)
+        if budget == 2000:
+            assert len(set(out.niter.tolist())) > 1
+            assert {1, 2} <= set(out.status.tolist())
+
+    def test_finished_lane_keeps_its_state(self):
+        """A lane that ended in an earlier block is not touched by a later
+        one: its tableau and counters are those it ended with."""
+        from tpulp_torch.solve import run_simplex_blocked_batch
+
+        start = make_batched_states(
+            to_port([_lane(0).lower(), _lane(1).lower()]), device="cpu")
+        opts = SolverOptions.for_dtype(torch.float64, max_iters=2000)
+        both = run_simplex_blocked_batch(start, opts, block=4)
+        assert int(both.niter[0]) // 4 != int(both.niter[1]) // 4
+        for k in range(2):
+            alone = run_simplex_blocked_batch(
+                stack_states([unstack_state(start, k)]), opts, block=4)
+            for name in alone._fields:
+                a, b = getattr(alone, name)[0], getattr(both, name)[k]
+                if a.is_floating_point():
+                    # bit for bit: a flush of zeros would turn -0.0 into 0.0
+                    a, b = a.view(torch.int64), b.view(torch.int64)
+                assert torch.equal(a, b), name
+
+    def test_solve_lp_batch_matches_tpulp(self):
+        progs = [_lane(s) for s in range(6)] + [_textbook(), _infeasible()]
+        ref = tpulp_solve_batch(progs, driver="blocked", block=8)
+        out = solve_lp_batch(to_port(progs), driver="blocked", block=8,
+                             device="cpu")
+        _same_solutions(out, ref)
+        solo = [tpulp_torch.solve_lp(p, driver="blocked", block=8,
+                                     device="cpu")
+                for p in to_port(progs[:6])]
+        assert [s.objective for s in out[:6]] == [s.objective for s in solo]
+
+    def test_unknown_driver_raises(self):
+        with pytest.raises(ValueError, match="unknown batch driver"):
+            solve_lp_batch(to_port([_textbook()]), driver="pallas",
+                           device="cpu")
 
 
 def test_batch_without_a_card_raises():

@@ -15,7 +15,9 @@ from tpulp_torch.core import (SolverOptions, eta_scaled_options,
                               full_precision, make_state)
 from tpulp_torch.kernels import (blocked_inner_block_reference,
                                  fused_flush_reference)
-from tpulp_torch.solve import (run_simplex_blocked, run_simplex_blocked_kernel,
+from tpulp_torch.batch import stack_states
+from tpulp_torch.solve import (run_simplex_blocked, run_simplex_blocked_batch,
+                               run_simplex_blocked_kernel,
                                run_simplex_refreshed)
 from tpulp_torch.solve.blocked_kernel import kernel_inputs
 
@@ -116,6 +118,8 @@ def _refreshed():
 
 ENTRY_POINTS = {
     "run_simplex_blocked": lambda: run_simplex_blocked(_state(), block=8),
+    "run_simplex_blocked_batch": lambda: run_simplex_blocked_batch(
+        stack_states([_state(), _state()]), block=8),
     "run_simplex_blocked_kernel": lambda: run_simplex_blocked_kernel(
         _state(), block=8),
     "run_simplex_refreshed": _refreshed,

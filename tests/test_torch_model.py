@@ -36,7 +36,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 COPIES = [f"model/{name}.py" for name in
           ("__init__", "expr", "con", "var", "prog", "lower", "equilibrate",
            "presolve", "serialize")] + [
-    "tableau.py", "simplex.py", "corpus.py", "io/render.py", "io/mps.py"]
+    "tableau.py", "simplex.py", "corpus.py", "io/render.py", "io/mps.py",
+    "io/grid.py", "solve/refine.py", "solve/farkas.py", "solve/ranging.py"]
 
 
 def to_port(obj):

@@ -133,6 +133,30 @@ for rhs in (12, 10, 8):
     lps.append(p)
 sols = tpulp_torch.solve_lp_batch(lps, device="cpu")
 assert [s.objective for s in sols] == [480, 400, 320], sols
+box = LinProg()
+box.addVar("x", lb=0, ub=4)
+box.addVar("y", lb=0, ub=3)
+box.maximize(LinExpr(3, "x", 2, "y"))
+box.addConstraint(LinExpr(1, "x", 1, "y").constraintLeq(5))
+sol = solve_lp(box, simple_bounds=True, device="cpu")
+assert sol.objective == 14 and sol.at_upper[0], sol
+bad = LinProg()
+bad.addVar("x")
+bad.minimize(LinExpr(1, "x"))
+bad.addConstraint(LinExpr(1, "x").constraintGeq(3))
+bad.addConstraint(LinExpr(1, "x").constraintLeq(1))
+sol = solve_lp(bad, certificates=True, device="cpu")
+assert tpulp_torch.verify_farkas(bad.lower(), sol.farkas), sol
+import contextlib, io, json, os, tempfile
+from tpulp_torch.__main__ import main
+from tpulp_torch.model.serialize import save_prog
+path = os.path.join(tempfile.mkdtemp(), "bad.json")
+save_prog(path, bad)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    rc = main(["solve", path, "--certificates", "--iis",
+               "--torch-device", "cpu"])
+assert rc == 0 and len(json.loads(out.getvalue())["iis"]) == 2, out
 after = "jax" in sys.modules
 tpulp_side = sorted(m for m in sys.modules
                     if m == "tpulp" or m.startswith("tpulp."))
@@ -142,8 +166,9 @@ sys.exit(1 if (after and not before) or tpulp_side else 0)
 
 
 def test_package_solves_without_importing_jax():
-    """The port solves an LP, a batch and a MILP without loading jax or
-    any module of tpulp."""
+    """The port solves an LP, a batch, a MILP, a bounded LP, a certified
+    infeasible LP and a CLI call without loading jax or any module of
+    tpulp."""
     res = subprocess.run([sys.executable, "-c", WYNDOR], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

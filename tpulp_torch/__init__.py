@@ -10,9 +10,14 @@ device="cuda")`` solves one LP on the card: the rank-1, rank-K blocked,
 and kernel engines, the last running two CUDA kernels built for sm_90a at
 first use (a third fuses the pivots' multiply-adds); with
 ``warm_start=`` it re-solves from a prior basis (the dual simplex for an
-RHS change). ``solve_lp_batch`` solves a batch of LPs in one wave of
-lanes, and ``solve_milp`` solves a mixed-integer program by
-branch-and-bound over such waves.
+RHS change), with ``simple_bounds=True`` it enforces finite upper bounds
+in the ratio test of the bounded-variable simplex instead of tableau rows,
+and ``certificates=True`` / ``ranging=True`` add exact Farkas or ray
+proofs and sensitivity ranges; ``find_iis`` names the constraints of an
+infeasible model that conflict. ``solve_lp_batch`` solves a batch of LPs
+in one wave of lanes (rank-1, rank-K blocked or bounded), and
+``solve_milp`` solves a mixed-integer program by branch-and-bound over
+such waves. ``python -m tpulp_torch`` is the command line.
 """
 
 from .model import (LinCon, LinExpr, LinProg, LinVar, StandardForm,
@@ -21,10 +26,14 @@ from .model import (LinCon, LinExpr, LinProg, LinVar, StandardForm,
 from .batch import solve_lp_batch
 from .core import SimplexState, SolverOptions, Status, make_state
 from .milp import BnbStats, solve_milp
-from .solve import (Solution, run_dual_simplex, run_simplex,
-                    run_simplex_blocked, run_simplex_blocked_kernel,
+from .solve import (BoundedState, RangingReport, Solution,
+                    farkas_certificate, find_iis, ray_certificate,
+                    run_dual_simplex, run_simplex, run_simplex_blocked,
+                    run_simplex_blocked_batch, run_simplex_blocked_kernel,
+                    run_simplex_bounded, run_simplex_bounded_batch,
                     run_simplex_devex, run_simplex_refreshed, solve_lp,
-                    solve_standard_form, warm_state_from_basis)
+                    solve_standard_form, verify_farkas, verify_ray,
+                    warm_state_from_basis)
 
 __all__ = [
     "LinProg",
@@ -50,4 +59,14 @@ __all__ = [
     "run_simplex_refreshed",
     "run_dual_simplex",
     "warm_state_from_basis",
+    "BoundedState",
+    "run_simplex_bounded",
+    "run_simplex_bounded_batch",
+    "run_simplex_blocked_batch",
+    "find_iis",
+    "farkas_certificate",
+    "ray_certificate",
+    "verify_farkas",
+    "verify_ray",
+    "RangingReport",
 ]

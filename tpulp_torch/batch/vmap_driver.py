@@ -1,7 +1,7 @@
 """Batched simplex: many independent LPs in one wave of lanes.
 
-The counterpart of ``tpulp.batch.vmap_driver`` (the rank-1 route). A
-batched ``SimplexState`` carries a leading lane axis on every field;
+The counterpart of ``tpulp.batch.vmap_driver``. A batched
+``SimplexState`` carries a leading lane axis on every field;
 ``run_simplex_batch`` runs ``torch.func.vmap`` of the rank-1 step over it,
 and the step freezes each lane once it leaves RUNNING or reaches the
 budget, so lanes with different pivot counts share one loop. Problems of
@@ -9,10 +9,12 @@ different shapes are padded to one shape: each padded row gets its own
 unit "pad slack" basic column, extra columns are inactive, and padded
 artificial columns keep phase 1 uniform. The batch is the engine under
 ``tpulp_torch.milp``: every branch-and-bound wave is one batched solve.
+``solve_lp_batch(driver="blocked")`` runs the rank-K blocked driver over
+the lanes instead, and ``simple_bounds=True`` the bounded-variable step on
+a batched ``BoundedState`` (no bound rows in any lane's tableau).
 
-Not ported yet, and raising NotImplementedError: the blocked batch driver
-(``driver="blocked"``, ROADMAP item 9), the bounded batch
-(``simple_bounds=True``, item 8) and ``mesh`` (item 12).
+Not ported yet, and raising NotImplementedError: ``mesh`` (ROADMAP item
+12).
 """
 
 from __future__ import annotations
@@ -33,18 +35,24 @@ from ..core.state import (SimplexState, SolverOptions, Status, _numpy_state,
                           from_numpy_state, make_state)
 from ..solve.api import (Solution, _device, _not_ported,
                          solve_standard_form)
+from ..solve.blocked import run_simplex_blocked_batch
+from ..solve.bounded import BoundedState, run_simplex_bounded_batch
 from ..solve.driver import finish, simplex_step
 from ..solve.dual import run_lanes, run_warm_batch
-from ..solve.refine import (exact_basis_certificate, float_basis_certificate,
-                            refine_basis_solution)
+from ..solve.refine import (bounded_basis_certificate,
+                            exact_basis_certificate, float_basis_certificate,
+                            float_bounded_certificate, refine_basis_solution,
+                            refine_bounded_basis)
 
 __all__ = [
     "stack_states",
     "unstack_state",
     "make_batched_states",
+    "make_batched_bounded_states",
     "run_simplex_batch",
     "solve_lp_batch",
     "extract_batch_solutions",
+    "extract_batch_bounded_solutions",
 ]
 
 
@@ -113,6 +121,30 @@ def make_batched_states(sfs: Sequence[StandardForm], dtype=torch.float64,
     return state
 
 
+def make_batched_bounded_states(sfs: Sequence[StandardForm],
+                                dtype=torch.float64, device="cuda"
+                                ) -> BoundedState:
+    """A batched BoundedState from simple_bounds lowerings: the span
+    vectors are padded beside the tableaus, structural columns carrying
+    their finite spans and pad slacks, extra columns and artificials +inf
+    (they never flip)."""
+    plain = [dataclasses.replace(sf, upper=None) for sf in sfs]
+    batched = make_batched_states(plain, dtype=dtype, device=device)
+    n_batched = batched.T.shape[2] - 1
+    uppers = np.full((len(sfs), n_batched), np.inf)
+    for k, sf in enumerate(sfs):
+        for j, u in enumerate(sf.upper or []):
+            if u is not None:
+                uppers[k, j] = float(u)
+    dev = batched.T.device
+    return BoundedState(
+        s=batched,
+        upper=torch.tensor(uppers, device=dev).to(batched.T.dtype),
+        at_upper=torch.zeros((len(sfs), n_batched), dtype=torch.bool,
+                             device=dev),
+    )
+
+
 @full_precision()
 def run_simplex_batch(batched: SimplexState,
                       opts: SolverOptions | None = None) -> SimplexState:
@@ -136,6 +168,7 @@ def solve_lp_batch(
     return_state: bool = False,
     pad_to: int | None = None,
     driver: str = "rank1",
+    block: int = 32,
     simple_bounds: bool = False,
     mesh=None,
     warm_start: Optional[Solution] = None,
@@ -150,6 +183,14 @@ def solve_lp_batch(
     its basis in one dual-simplex wave (``run_warm_batch``), then refines
     and certifies as usual; a lane the wave does not settle re-solves solo
     through the ladder, so statuses keep ``solve_lp``'s confirmation.
+    The plain row-form batch only: with ``simple_bounds`` it raises.
+
+    ``driver="blocked"`` runs the rank-K blocked driver over the lanes
+    (``solve.blocked.run_simplex_blocked_batch``, eta blocks of
+    ``block``), for lanes whose tableaus are too large to rewrite whole
+    every pivot. ``simple_bounds=True`` lowers finite upper bounds without
+    rows and runs the bounded-variable step over the lanes; otherwise spans
+    become explicit bound rows (the same optimum).
 
     ``return_state=True`` returns ``(solutions, out_state, lane_of)``:
     the terminal batched state and the lane of each problem (-1 for a
@@ -158,39 +199,50 @@ def solve_lp_batch(
     never extracted."""
     if mesh is not None:
         raise _not_ported("solve_lp_batch(mesh=...)", "item 12, multi-GPU")
-    if simple_bounds:
-        raise _not_ported("solve_lp_batch(simple_bounds=True)",
-                          "item 8, bounded")
-    if driver == "blocked":
-        raise _not_ported("solve_lp_batch(driver='blocked')",
-                          "item 9, the batched blocked driver")
-    if driver != "rank1":
-        raise ValueError(f"unknown batch driver {driver!r}")
     dev = _device(device)
     if options is None:
         options = SolverOptions.for_dtype(dtype)
     if opt_overrides:
         options = dataclasses.replace(options, **opt_overrides)
-    sfs = [p if isinstance(p, StandardForm) else lower_to_standard_form(p)
+    sfs = [p if isinstance(p, StandardForm)
+           else lower_to_standard_form(p, simple_bounds=simple_bounds)
            for p in progs]
-    # simple_bounds lowerings become explicit bound rows (the same optimum)
-    sfs = [materialize_simple_bounds(sf) if sf.upper is not None else sf
-           for sf in sfs]
+    if not simple_bounds:
+        # simple_bounds lowerings become explicit bound rows (the same
+        # optimum): the unbounded batched drivers have no bounded ratio test
+        sfs = [materialize_simple_bounds(sf) if sf.upper is not None
+               else sf for sf in sfs]
     solvable = [i for i, sf in enumerate(sfs) if not sf.trivially_infeasible]
     results: List[Solution] = [Solution(status="infeasible")] * len(sfs)
     if not solvable:
         return (results, None, [-1] * len(sfs)) if return_state else results
     if warm_start is not None:
+        if simple_bounds:
+            raise ValueError(
+                "warm_start batching supports the plain row-form batch "
+                "path only (no mesh, no simple_bounds)")
         out = _solve_batch_warm(sfs, solvable, warm_start, options, dtype,
                                 refine, results, dev)
     else:
         sf_batch = [sfs[i] for i in solvable]
         if pad_to is not None and len(sf_batch) < pad_to:
             sf_batch = sf_batch + [sf_batch[0]] * (pad_to - len(sf_batch))
-        out = run_simplex_batch(
-            make_batched_states(sf_batch, dtype=dtype, device=dev), options)
-        extracted = extract_batch_solutions(
-            [sfs[i] for i in solvable], out, refine)
+        if simple_bounds:
+            bout = run_simplex_bounded_batch(make_batched_bounded_states(
+                sf_batch, dtype=dtype, device=dev), options)
+            out = bout.s
+            extracted = extract_batch_bounded_solutions(
+                [sfs[i] for i in solvable], bout, refine)
+        else:
+            batched = make_batched_states(sf_batch, dtype=dtype, device=dev)
+            if driver == "blocked":
+                out = run_simplex_blocked_batch(batched, options, block=block)
+            elif driver == "rank1":
+                out = run_simplex_batch(batched, options)
+            else:
+                raise ValueError(f"unknown batch driver {driver!r}")
+            extracted = extract_batch_solutions(
+                [sfs[i] for i in solvable], out, refine)
         for k, i in enumerate(solvable):
             results[i] = extracted[k]
     if return_state:
@@ -279,35 +331,93 @@ def extract_batch_solutions(sfs: Sequence[StandardForm], out: SimplexState,
     return results
 
 
-def _extract_one(sf: StandardForm, basis_cols, z_float, niter, refine,
-                 art_cols_lane: np.ndarray,
-                 rhs_lane: Optional[np.ndarray]) -> Solution:
-    """Refine and recover one lane's solution on the host."""
-    m = sf.m
+def _remap(sf: StandardForm, basis_cols, art_cols_lane: np.ndarray) -> list:
+    """One lane's basis in ``sf``'s own column space."""
     # only this problem's real rows; padded rows hold pad slacks or padded
     # artificials, which do not exist in sf's column space
-    basis = basis_cols[:m]
+    basis = [int(j) for j in basis_cols[:sf.m]]
     # batched column -> sf column: structural columns coincide ([0, sf.n));
     # this problem's artificials start at the first art column in the
     # batched layout but at sf.n in refine's convention
     n_batched = art_cols_lane.shape[0]
     art_start = int(art_cols_lane.argmax()) if bool(art_cols_lane.any()) \
         else n_batched
-    remapped = [j if j < sf.n else (sf.n + (j - art_start)
-                                    if j >= art_start else j)
-                for j in basis]
+    return [j if j < sf.n else (sf.n + (j - art_start)
+                                if j >= art_start else j)
+            for j in basis]
+
+
+def _recover_x(sf: StandardForm, col_values, zero) -> dict:
+    """The user's variables from standard-form column values."""
+    x = {}
+    for name, (terms, const) in sf.recover.items():
+        v = const
+        for col, coeff in terms:
+            v = v + coeff * col_values.get(col, zero)
+        x[name] = v
+    return x
+
+
+def extract_batch_bounded_solutions(sfs: Sequence[StandardForm],
+                                    bout: BoundedState, refine: str
+                                    ) -> List[Solution]:
+    """One Solution per StandardForm from a terminal batched BoundedState:
+    each lane's basis is remapped to its problem's columns as in
+    ``extract_batch_solutions``, then refined and certified by the bounded
+    functions (nonbasic at-upper columns sit exactly at their spans)."""
+    out = bout.s
+    statuses = out.status.cpu().numpy()
+    niters = out.niter.cpu().numpy()
+    bases = out.basis.cpu().numpy()
+    art_cols_np = out.art_cols.cpu().numpy()
+    at_upper_np = bout.at_upper.cpu().numpy()
+    mode = "float64" if refine == "none" else refine
+    results: List[Solution] = []
+    for k, sf in enumerate(sfs):
+        status = Status.NAMES.get(int(statuses[k]), "unknown")
+        niter = int(niters[k])
+        if status != "optimal":
+            results.append(Solution(status=status, niter=niter))
+            continue
+        remapped = _remap(sf, bases[k], art_cols_np[k])
+        # structural columns coincide in [0, sf.n); pads and artificials
+        # carry infinite spans and are never at upper
+        at_up = at_upper_np[k]
+        try:
+            col_values, z_min = refine_bounded_basis(sf, remapped, at_up,
+                                                     mode=mode)
+            if sf.m <= 192:
+                primal_ok, dual_ok = bounded_basis_certificate(
+                    sf, remapped, at_up)
+            else:
+                primal_ok, dual_ok = float_bounded_certificate(
+                    sf, remapped, at_up)
+        except (ZeroDivisionError, np.linalg.LinAlgError):
+            results.append(Solution(status="numerical_error", niter=niter))
+            continue
+        if not (primal_ok and dual_ok):
+            results.append(Solution(status="numerical_error", niter=niter))
+            continue
+        results.append(Solution(
+            status="optimal", objective=-z_min if sf.sense == MAX else z_min,
+            x=_recover_x(sf, col_values, Fraction(0)), niter=niter,
+            objective_min=z_min, col_values=dict(col_values),
+            basis=remapped))
+    return results
+
+
+def _extract_one(sf: StandardForm, basis_cols, z_float, niter, refine,
+                 art_cols_lane: np.ndarray,
+                 rhs_lane: Optional[np.ndarray]) -> Solution:
+    """Refine and recover one lane's solution on the host."""
+    remapped = _remap(sf, basis_cols, art_cols_lane)
     if refine == "none":
         z_min = z_float + float(sf.obj_const)
         obj = -z_min if sf.sense == MAX else z_min
-        b = rhs_lane[:m]
+        b = rhs_lane[:sf.m]
         vals = {j: float(b[k2]) for k2, j in enumerate(remapped) if j < sf.n}
-        x = {}
-        for name, (terms, const) in sf.recover.items():
-            v = const
-            for col, coeff in terms:
-                v = v + coeff * vals.get(col, 0.0)
-            x[name] = v
-        return Solution(status="optimal", objective=obj, x=x, niter=niter,
+        return Solution(status="optimal", objective=obj,
+                        x=_recover_x(sf, vals, 0.0), niter=niter,
                         objective_min=z_min, col_values=vals, basis=remapped)
     try:
         col_values, z_min = refine_basis_solution(sf, remapped, mode=refine)
@@ -329,12 +439,7 @@ def _extract_one(sf: StandardForm, basis_cols, z_float, niter, refine,
     if not (primal_ok and dual_ok):
         return Solution(status="numerical_error", niter=niter)
     obj = -z_min if sf.sense == MAX else z_min
-    x = {}
-    for name, (terms, const) in sf.recover.items():
-        v = const
-        for col, coeff in terms:
-            v = v + coeff * col_values.get(col, Fraction(0))
-        x[name] = v
-    return Solution(status="optimal", objective=obj, x=x, niter=niter,
+    return Solution(status="optimal", objective=obj,
+                    x=_recover_x(sf, col_values, Fraction(0)), niter=niter,
                     objective_min=z_min, col_values=dict(col_values),
                     basis=remapped)

@@ -2,14 +2,16 @@
 
 The counterpart of ``tpulp.solve.api``, for one LP on one device: lowering
 and equilibration, ``make_state``, the engine choice (rank-1, rank-K
-blocked, or the CUDA kernel engine for large tableaus), refinement of the
-final basis on the original data with the optimality certificate, and the
-precision ladder (refreshed rung at f64, then the exact host simplex).
+blocked, or the CUDA kernel engine for large tableaus; the bounded-variable
+driver for a ``simple_bounds`` lowering), refinement of the final basis on
+the original data with the optimality certificate, and the precision
+ladder (refreshed rung at f64, then the exact host simplex). On top of the
+solve: exact Farkas and ray certificates of non-optimal verdicts
+(``certificates=True``) and sensitivity ranging (``ranging=True``).
 
 ``device`` is explicit and defaults to ``"cuda"``; without CUDA that
-raises instead of quietly running on the CPU. Options that belong to
-slices not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+raises instead of quietly running on the CPU. ``mesh=`` is not ported yet
+and raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -21,18 +23,24 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from ..model.lower import StandardForm, lower_to_standard_form
+from ..model.lower import (StandardForm, lower_to_standard_form,
+                           materialize_simple_bounds)
 from ..model.prog import MAX, LinProg
 
 from ..core.state import RULE_DEVEX, SolverOptions, Status, make_state
 from .blocked import run_simplex_blocked
 from .blocked_kernel import run_simplex_blocked_kernel
+from .bounded import (extract_bounded_solution, make_bounded_state,
+                      run_simplex_bounded)
 from .devex import run_simplex_devex
 from .driver import extract_solution, run_simplex
 from .dual import run_dual_simplex, warm_state_from_basis
-from .refine import (basis_duals, exact_basis_certificate,
-                     float_basis_certificate, original_sensitivity,
-                     refine_basis_solution)
+from .farkas import farkas_certificate, ray_certificate
+from .ranging import original_ranging, standard_form_ranging
+from .refine import (basis_duals, bounded_basis_certificate,
+                     exact_basis_certificate, float_basis_certificate,
+                     float_bounded_certificate, original_sensitivity,
+                     refine_basis_solution, refine_bounded_basis)
 from .refresh import run_simplex_refreshed
 
 __all__ = [
@@ -61,7 +69,20 @@ class Solution:
     solve asked for them. ``mip_gap`` is a MILP's proven optimality gap
     (incumbent - best open bound) / max(|incumbent|, 1) in the
     minimization sense: 0 when proven optimal, set on the early exits.
-    ``rung`` names the precision-ladder rung that produced the answer."""
+    ``rung`` names the precision-ladder rung that produced the answer.
+
+    ``cost_ranging`` / ``rhs_ranging`` (``ranging=True``): per-variable
+    objective-coefficient and per-constraint rhs intervals ``(lo, hi)``
+    (None: unbounded on that side) over which the terminal basis stays
+    optimal, in the original problem's sense; a None value marks an entry
+    ranging cannot cover (a split free variable, a dropped constant row);
+    a StandardForm input is keyed by column and row index. ``at_upper``
+    (``simple_bounds`` solves): the terminal basis' at-upper flag of each
+    column. ``farkas`` / ``ray`` (``certificates=True``): exact proofs of
+    an infeasible verdict (y with ``y.A_j <= 0`` for every column and
+    ``y.b > 0`` over the span-materialized rows) or of an unbounded one (d
+    with ``A d = 0``, ``d >= 0``, ``c.d = -1``), checked by
+    ``verify_farkas`` / ``verify_ray``."""
 
     status: str
     objective: Optional[Union[float, Fraction]] = None
@@ -75,6 +96,11 @@ class Solution:
     reduced_costs: Optional[Dict[str, Any]] = None
     mip_gap: Optional[float] = None
     rung: Optional[str] = None
+    cost_ranging: Optional[Dict] = None
+    rhs_ranging: Optional[Dict] = None
+    at_upper: Optional[list] = None
+    farkas: Optional[list] = None
+    ray: Optional[list] = None
 
     @property
     def is_optimal(self) -> bool:
@@ -121,8 +147,6 @@ def solve_standard_form_host(sf: StandardForm, rule: str = "dantzig"
         return Solution(status="infeasible")
     if sf.upper is not None:
         # the host oracle has no bounded ratio test: materialize the spans
-        from ..model.lower import materialize_simple_bounds
-
         sf = materialize_simple_bounds(sf)
     tab = Tableau.fromArrays(sf.c, sf.A, sf.b, names=sf.col_names)
     sx = Simplex(tab, on_infeasible="status")
@@ -224,17 +248,25 @@ def solve_standard_form(
     CUDA device, blocked otherwise). ``fallback='auto'`` climbs the ladder
     on a numeric failure, a failed certificate, or an infeasible/unbounded
     verdict to confirm: the refreshed driver at f64, then the exact host
-    simplex; ``'none'`` reports ``numerical_error`` instead."""
+    simplex; ``'none'`` reports ``numerical_error`` instead.
+
+    A ``simple_bounds`` lowering (finite spans in ``sf.upper``) always runs
+    the bounded-variable driver, Dantzig or devex priced; its spans are
+    divided by the column scale under equilibration, its refinement and
+    certificate keep nonbasic at-upper columns at their spans, and its
+    ladder has no refreshed rung: a float32 failure retries the bounded
+    driver at float64, anything else goes to the exact host simplex on the
+    row-materialized form. ``warm_basis`` raises there (a bounded basis
+    carries at-upper flags)."""
     dev = _device(device)
     if options is None:
         options = SolverOptions.for_dtype(dtype)
     if sf.trivially_infeasible:
         return Solution(status="infeasible")
-    if sf.upper is not None and any(u is not None for u in sf.upper):
-        raise _not_ported("a simple_bounds lowering", "item 8, bounded")
     # ---- equilibration: the device sees scaled data, everything exact
     # (refine / certificate / duals) sees the original ---------------------
     c_d, A_d, b_d = sf.to_dense(np.float64)
+    upper_dev = sf.upper
     col_scale = None  # x_original = col_scale * x_device
     if scale in ("auto", "force"):
         from ..model.equilibrate import (equilibration_powers_dense,
@@ -245,10 +277,20 @@ def solve_standard_form(
         if scale == "force" or is_material_scaling(rp, cp):
             c_d, A_d, b_d = scaled_dense(c_d, A_d, b_d, rp, cp)
             col_scale = np.ldexp(1.0, cp.astype(np.int32))
+            if sf.upper is not None:
+                upper_dev = [
+                    None if u is None else float(u) / col_scale[j]
+                    for j, u in enumerate(sf.upper)]
     elif scale != "none":
         raise ValueError(f"unknown scale {scale!r}")
     state = make_state(c_d, A_d, b_d, sf.basis_hint, dtype=dtype, device=dev)
-    if pricing == "default":
+    bounded = sf.upper is not None and any(u is not None for u in sf.upper)
+    if warm_basis is not None and bounded:
+        raise ValueError(
+            "warm_basis is supported on the solo tableau path only "
+            "(bounded-variable bases carry at_upper flags and sharded "
+            "frames a distributed layout; re-solve cold there)")
+    if pricing == "default" and not bounded:
         art_rows = sum(1 for h in sf.basis_hint if h < 0)
         if state.m >= 64 and 2 * art_rows >= state.m:
             pricing = "devex"
@@ -260,11 +302,18 @@ def solve_standard_form(
         if pricing == "devex" else options
 
     warm_out = None
+    bout = None
     if warm_basis is not None:
         state, warm_out = _warm_frame(state, warm_basis, options)
     elems = (state.m + 2) * (state.n + 1)
     eng = _auto_engine(elems, dev) if driver == "auto" else driver
-    if warm_out is not None:
+    if bounded:
+        # finite spans never became tableau rows: the bounded-variable
+        # driver enforces them in its ratio test
+        bout = run_simplex_bounded(make_bounded_state(state, upper_dev),
+                                   opts_eng)
+        out = bout.s
+    elif warm_out is not None:
         # the RHS moved (the branch-and-bound child's shape): `warm_out` is
         # the dual simplex's terminal state
         out = warm_out
@@ -299,18 +348,24 @@ def solve_standard_form(
     def _escalate() -> Solution:
         if fallback == "none" or _depth >= 2:
             return Solution(status="numerical_error", niter=niter)
-        if _depth == 0:
+        opts1 = SolverOptions.for_dtype(
+            torch.float64, rule=options.rule, max_iters=options.max_iters,
+            degen_tol=options.degen_tol, stall_limit=options.stall_limit)
+        if _depth == 0 and not bounded:
             # rung 1: the refreshed driver at f64 — refactorization from
             # the original data repairs the drift behind the failure
-            opts1 = SolverOptions.for_dtype(
-                torch.float64, rule=options.rule,
-                max_iters=options.max_iters, degen_tol=options.degen_tol,
-                stall_limit=options.stall_limit)
             return solve_standard_form(
                 sf, options=opts1, dtype=torch.float64, refine=refine,
                 fallback=fallback, duals=duals, pricing=pricing,
                 driver="refreshed", block=block, scale=scale, device=dev,
                 _depth=1)
+        if _depth == 0 and state.T.dtype != torch.float64:
+            # the bounded driver has no refreshed rung (the refresh driver
+            # is tableau-form): retry it at f64
+            return solve_standard_form(
+                sf, options=opts1, dtype=torch.float64, refine=refine,
+                fallback=fallback, duals=duals, pricing=pricing,
+                scale=scale, device=dev, _depth=1)
         out_host = solve_standard_form_host(sf)
         if duals and out_host.status == "optimal":
             out_host = dataclasses.replace(
@@ -330,8 +385,10 @@ def solve_standard_form(
         return Solution(status=status, niter=niter, rung=rung_tag)
 
     basis = [int(j) for j in out.basis.cpu().tolist()]
+    at_upper_np = None if bout is None else bout.at_upper.cpu().numpy()
     if refine == "none":
-        x_dev, z_dev = extract_solution(out)
+        x_dev, z_dev = extract_solution(out) if bout is None \
+            else extract_bounded_solution(bout)
         x_np = x_dev.cpu().numpy()
         if col_scale is not None:
             # device values are in scaled coordinates: x = S x' (artificial
@@ -343,7 +400,12 @@ def solve_standard_form(
         z_min = float(z_dev) + float(sf.obj_const)
     else:
         try:
-            col_values, z_min = refine_basis_solution(sf, basis, mode=refine)
+            if bounded:
+                col_values, z_min = refine_bounded_basis(
+                    sf, basis, at_upper_np, mode=refine)
+            else:
+                col_values, z_min = refine_basis_solution(sf, basis,
+                                                          mode=refine)
         except (ZeroDivisionError, np.linalg.LinAlgError):
             # singular float basis: the iterates lied about feasibility
             return _escalate()
@@ -351,7 +413,13 @@ def solve_standard_form(
         # refinable sizes, f64 otherwise): float iterates can converge to a
         # feasible but suboptimal basis
         try:
-            if sf.m <= 192:
+            if bounded and sf.m <= 192:
+                primal_ok, dual_ok = bounded_basis_certificate(
+                    sf, basis, at_upper_np)
+            elif bounded:
+                primal_ok, dual_ok = float_bounded_certificate(
+                    sf, basis, at_upper_np)
+            elif sf.m <= 192:
                 primal_ok, dual_ok = exact_basis_certificate(sf, basis)
             else:
                 primal_ok, dual_ok = float_basis_certificate(sf, basis)
@@ -389,6 +457,8 @@ def solve_standard_form(
         basis=basis,
         y=y,
         rung=rung_tag,
+        at_upper=None if at_upper_np is None
+        else [bool(v) for v in at_upper_np],
     )
 
 
@@ -427,24 +497,35 @@ def solve_lp(
     from the still-feasible frame, and a basis that fits neither starts
     cold (see ``solve_standard_form``'s ``warm_basis``).
 
-    Not ported yet, and raising NotImplementedError: ``mesh``,
-    ``simple_bounds``, ``certificates`` and ``ranging``."""
+    ``simple_bounds=True`` lowers finite upper bounds without tableau rows
+    and solves with the bounded-variable simplex (``solve/bounded.py``).
+
+    ``certificates=True`` attaches an exact proof to an infeasible verdict
+    (``Solution.farkas``) or an unbounded one (``Solution.ray``), over the
+    span-materialized form. If the exact extraction disproves the verdict,
+    the exact host answer replaces it; a ray is attached only once the
+    system is shown feasible (no Farkas vector exists), since a ray proves
+    unboundedness only of a feasible system (an infeasible one gets the
+    host's answer and its Farkas vector).
+
+    ``ranging=True`` adds ``Solution.cost_ranging`` / ``rhs_ranging``
+    (``solve/ranging.py``), for bounded solves through the terminal
+    basis' at-upper flags. It raises ValueError where the answering rung
+    gives no basis to range: a bounded solve answered by the exact host
+    rung (no at-upper flags), or a basis with fewer rows than the form (the
+    host simplex drops linearly dependent rows).
+
+    ``mesh`` is not ported yet and raises NotImplementedError."""
     if mesh is not None:
         raise _not_ported("mesh=", "item 12, multi-GPU")
-    if simple_bounds:
-        raise _not_ported("simple_bounds=True", "item 8, bounded")
-    if certificates:
-        raise _not_ported("certificates=True", "item 11, exact-layer "
-                          "bindings")
-    if ranging:
-        raise _not_ported("ranging=True", "item 11, exact-layer bindings")
     dev = _device(device)
     if options is None:
         options = SolverOptions.for_dtype(dtype)
     if opt_overrides:
         options = dataclasses.replace(options, **opt_overrides)
     is_prog = not isinstance(prog, StandardForm)
-    sf = lower_to_standard_form(prog) if is_prog else prog
+    sf = lower_to_standard_form(prog, simple_bounds=simple_bounds) \
+        if is_prog else prog
     warm_basis = None
     if warm_start is not None:
         if warm_start.basis is None:
@@ -460,4 +541,55 @@ def solve_lp(
     if duals and is_prog and sol.y is not None:
         dmap, rc = original_sensitivity(prog, sf, sol.y)
         sol = dataclasses.replace(sol, duals=dmap, reduced_costs=rc)
+    bounded = sf.upper is not None and any(u is not None for u in sf.upper)
+    if certificates and sol.status in ("infeasible", "unbounded"):
+        sff = materialize_simple_bounds(sf) if bounded else sf
+        if not sff.trivially_infeasible:
+            sol = _with_certificate(sol, sff)
+    if ranging and sol.is_optimal and sol.basis is not None:
+        if bounded and sol.at_upper is None:
+            # the exact-host escalation rung materializes bound rows in a
+            # different column space and carries no at-upper flags
+            raise ValueError(
+                "ranging on this simple_bounds solve is unavailable: the "
+                "answer came from a rung without at_upper flags "
+                f"(rung={sol.rung!r}). Re-solve with simple_bounds=False "
+                "for ranging on the row-lowered form")
+        if len(sol.basis) != sf.m:
+            raise ValueError(
+                "ranging on this solve is unavailable: the answer came from "
+                f"the {sol.rung!r} rung, whose basis has {len(sol.basis)} "
+                f"rows for the form's {sf.m} (the exact host simplex drops "
+                "linearly dependent rows); remove the dependent constraints "
+                "and re-solve for ranging")
+        mode = "float64" if refine == "none" else refine
+        rep = standard_form_ranging(sf, sol.basis, mode=mode,
+                                    at_upper=sol.at_upper)
+        if is_prog:
+            crng, rrng = original_ranging(prog, sf, rep)
+        else:
+            crng = {j: r for j, r in enumerate(rep.cost)}
+            rrng = {i: r for i, r in enumerate(rep.rhs)}
+        sol = dataclasses.replace(sol, cost_ranging=crng, rhs_ranging=rrng)
     return sol
+
+
+def _with_certificate(sol: Solution, sff: StandardForm) -> Solution:
+    """``sol`` (infeasible or unbounded) with its exact proof attached, or
+    the exact host answer where the extraction disproves the verdict."""
+    if sol.status == "infeasible":
+        farkas = farkas_certificate(sff)
+        if farkas is not None:
+            return dataclasses.replace(sol, farkas=farkas)
+        # the system is feasible: the float status was false
+        return solve_standard_form_host(sff)
+    ray = ray_certificate(sff)
+    if ray is None:
+        # no improving ray: the float status was false
+        return solve_standard_form_host(sff)
+    farkas = farkas_certificate(sff)
+    if farkas is None:
+        return dataclasses.replace(sol, ray=ray)
+    # a ray proves unboundedness only of a feasible system, and this one
+    # is infeasible: the host's answer, with its proof
+    return dataclasses.replace(solve_standard_form_host(sff), farkas=farkas)

@@ -1,7 +1,8 @@
 """Rank-K blocked simplex driver on torch tensors.
 
-The counterpart of ``tpulp.solve.blocked`` (solo problems; the batch
-variant is not ported yet). K consecutive pivots leave the tableau alone
+The counterpart of ``tpulp.solve.blocked``: ``run_simplex_blocked`` for
+one problem, ``run_simplex_blocked_batch`` for a batch of lanes (the same
+pivot under ``torch.func.vmap``). K consecutive pivots leave the tableau alone
 and append eta pairs instead: ``U[t] = (e_r - u) / piv`` and ``V[t]`` = the
 current pivot row, so that the tableau after t pivots is ``T0 + U^T V``.
 The objective rows and the RHS column are kept up to date as vectors, the
@@ -24,7 +25,7 @@ from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
 from ..kernels.fma import fused_fma
 from .driver import finish, first_true, put, ratio_rows, status_select, take
 
-__all__ = ["run_simplex_blocked"]
+__all__ = ["run_simplex_blocked", "run_simplex_blocked_batch"]
 
 
 class _BlockCarry(NamedTuple):
@@ -229,3 +230,77 @@ def run_simplex_blocked(state: SimplexState,
         # devex weights persist across the flush
         carry = _fresh_carry(s, block, carry.gamma)
     return finish(carry.s)
+
+
+def _ray_scan(T: torch.Tensor, s: SimplexState, opts: SolverOptions):
+    """The per-block ray scan of every lane of a flushed batch: an improving
+    active phase-2 column with no entry above piv_tol, no artificial
+    basic, the lane still running."""
+    improving = s.col_active & (T[:, 0, :-1] < -opts.opt_tol)
+    blocked_col = (T[:, 2:, :-1] > opts.piv_tol).any(dim=1)
+    return ((improving & ~blocked_col).any(dim=1)
+            & ~torch.gather(s.art_cols, 1, s.basis.long()).any(dim=1)
+            & (s.phase == 2) & (s.status == Status.RUNNING))
+
+
+@full_precision()
+def run_simplex_blocked_batch(batched: SimplexState,
+                              opts: SolverOptions | None = None,
+                              block: int = 64) -> SimplexState:
+    """The rank-K blocked driver over every lane of a batched state:
+    ``block`` vmapped eta pivots, one batched flush ``T + U^T V``, the ray
+    scan per lane, and one host read of "any lane running" per block. A
+    lane that was not running at the start of a block keeps its whole
+    state through the block, as in tpulp's vmapped ``while_loop``."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(batched.T.dtype)
+    opts = eta_scaled_options(opts, batched.T.dtype)
+    m = batched.T.shape[1] - 2
+    n = batched.T.shape[2] - 1
+    stall_limit = opts.resolved_stall_limit(m, n)
+    max_iters = opts.max_iters
+    pivot = torch.func.vmap(
+        lambda c: _blocked_pivot(c, opts, stall_limit, max_iters))
+    carry = _fresh_batch(batched, block, torch.ones(
+        (batched.T.shape[0], n), dtype=batched.T.dtype,
+        device=batched.T.device))
+    while True:
+        s0, gamma0 = carry.s, carry.gamma
+        live = (s0.status == Status.RUNNING) & (s0.niter < max_iters)
+        if not bool(live.any()):
+            break
+        for _ in range(block):
+            carry = pivot(carry)
+        # one batched rank-K flush: T += U^T V on every lane
+        T = carry.s.T + carry.U.transpose(1, 2) @ carry.V
+        s = carry.s._replace(T=T)
+        s = s._replace(status=torch.where(_ray_scan(T, s, opts),
+                                          Status.UNBOUNDED,
+                                          s.status).to(torch.int32))
+        # lanes that were not running at the block start keep their state
+        s = SimplexState(*(torch.where(_lanes(live, new), new, old)
+                           for new, old in zip(s, s0)))
+        carry = _fresh_batch(s, block, torch.where(live[:, None],
+                                                   carry.gamma, gamma0))
+    return finish(carry.s)
+
+
+def _lanes(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-lane mask shaped to broadcast against ``like``."""
+    return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _fresh_batch(s: SimplexState, K: int, gamma) -> _BlockCarry:
+    """``_fresh_carry`` of every lane of a batched state."""
+    B, M, N = s.T.shape
+    kw = dict(dtype=s.T.dtype, device=s.T.device)
+    return _BlockCarry(
+        s=s,
+        U=torch.zeros((B, K, M), **kw),
+        V=torch.zeros((B, K, N), **kw),
+        t=torch.zeros((B,), dtype=torch.int32, device=s.T.device),
+        row0=s.T[:, 0, :].clone(),
+        row1=s.T[:, 1, :].clone(),
+        bvec=s.T[:, :, -1].clone(),
+        gamma=gamma,
+    )

@@ -142,10 +142,11 @@ def run_dual_simplex(state: SimplexState, opts: SolverOptions | None = None
     return finish(out)
 
 
-def run_lanes(step, state: SimplexState, max_iters: int) -> SimplexState:
+def run_lanes(step, state, max_iters: int, get_state=lambda s: s):
     """``step`` (a single-state transition that freezes finished lanes)
-    vmapped over the lane axis of ``state``, until no lane runs."""
-    return run_chunked(torch.func.vmap(step), state, lambda s: s, max_iters)
+    vmapped over the lane axis of ``state``, until no lane runs;
+    ``get_state`` finds the SimplexState in a carry that wraps one."""
+    return run_chunked(torch.func.vmap(step), state, get_state, max_iters)
 
 
 def _dual_then_primal(st: SimplexState, opts: SolverOptions,

@@ -5,9 +5,10 @@ solving ``B x_B = b`` against the ORIGINAL data (exactly, or in f64)
 recovers the objective to full precision whatever the iterate drift, and
 strong duality (``x_B >= 0`` and ``c_j - y.A_j >= 0``) certifies it.
 
-This module is a copy of the part of ``tpulp.solve.refine`` that the slice
-calls, unchanged in logic. It is pure numpy and Fraction code, but it
-cannot be imported from tpulp: importing ``tpulp.solve.refine`` runs
+This module is a copy of ``tpulp.solve.refine`` with the same code
+(``tests/test_torch_model.py`` holds the two equal), the bounded-variable
+refinement and certificates included. It is pure numpy and Fraction code,
+but it cannot be imported from tpulp: importing ``tpulp.solve.refine`` runs
 ``tpulp/solve/__init__.py``, which imports the JAX API module, and this
 package never imports jax.
 """
@@ -30,6 +31,9 @@ __all__ = [
     "exact_basis_certificate",
     "float_basis_certificate",
     "original_sensitivity",
+    "refine_bounded_basis",
+    "bounded_basis_certificate",
+    "float_bounded_certificate",
 ]
 
 ZERO = Fraction(0)
@@ -175,6 +179,162 @@ def basis_duals(sf: StandardForm, basis: Sequence[int], mode: str = "exact",
         else:
             B[art_rows[j - sf.n], k] = 1.0
     return list(np.linalg.solve(B.T, cb))
+
+
+def _bounded_sets(sf: StandardForm, basis, at_upper):
+    """(basic set, nonbasic-at-upper columns with exact spans)."""
+    bset = {int(j) for j in basis}
+    ups = []
+    for j, flag in enumerate(at_upper):
+        if flag and j not in bset and j < sf.n and sf.upper[j] is not None:
+            ups.append((j, sf.upper[j]))
+    return bset, ups
+
+
+def refine_bounded_basis(sf: StandardForm, basis, at_upper,
+                         mode: str = "auto", exact_max_m: int = 192):
+    """({col: TRUE value}, z_min) for a bounded-variable basis.
+
+    Nonbasic at-upper columns sit exactly at their span ``u_j``; basic true
+    values solve ``B x_B = b - sum_F u_j A_j`` (true space: the bounded
+    step's complement representation never leaks out here). Same mode
+    ladder as ``refine_basis_solution``."""
+    if mode == "auto":
+        mode = "exact" if sf.m <= exact_max_m else "float64"
+    _, ups = _bounded_sets(sf, basis, at_upper)
+    if mode == "exact":
+        rhs = list(sf.b)
+        for j, u in ups:
+            for i in range(sf.m):
+                rhs[i] = rhs[i] - u * sf.A[i][j]
+        cols = _basis_columns_exact(sf, basis)
+        xb = _exact_gauss_solve(cols, rhs)
+        values: Dict[int, Fraction] = {j: u for j, u in ups}
+        z = sf.obj_const + sum((sf.c[j] * u for j, u in ups), ZERO)
+        for k, j in enumerate(basis):
+            j = int(j)
+            if j < sf.n:
+                values[j] = xb[k]
+                z += sf.c[j] * xb[k]
+        return values, z
+    if mode != "float64":
+        raise ValueError(f"unknown refine mode {mode!r}")
+    c64, A64, b64 = sf.to_dense(np.float64)
+    for j, u in ups:
+        b64 = b64 - float(u) * A64[:, j]
+    m = sf.m
+    art_rows = _artificial_row_map(sf)
+    B = np.zeros((m, m))
+    for k, j in enumerate(basis):
+        j = int(j)
+        if j < sf.n:
+            B[:, k] = A64[:, j]
+        else:
+            B[art_rows[j - sf.n], k] = 1.0
+    xb = np.linalg.solve(B, b64)
+    values = {j: float(u) for j, u in ups}
+    z = float(sf.obj_const) + sum(float(c64[j]) * float(u) for j, u in ups)
+    for k, j in enumerate(basis):
+        j = int(j)
+        if j < sf.n:
+            values[j] = float(xb[k])
+            z += float(c64[j]) * float(xb[k])
+    return values, z
+
+
+def bounded_basis_certificate(sf: StandardForm, basis, at_upper
+                              ) -> Tuple[bool, bool]:
+    """Exact optimality certificate for a bounded-variable basis: primal
+    ``0 <= x_B <= u_B`` (artificial basics at 0) given nonbasic-at-upper
+    columns at their spans; dual ``c_j - y.A_j >= 0`` at lower and ``<= 0``
+    at upper (the KKT conditions of the box-constrained standard form)."""
+    m = sf.m
+    _, ups = _bounded_sets(sf, basis, at_upper)
+    rhs = list(sf.b)
+    for j, u in ups:
+        for i in range(m):
+            rhs[i] = rhs[i] - u * sf.A[i][j]
+    cols = _basis_columns_exact(sf, basis)
+    xb = _exact_gauss_solve(cols, rhs)
+    primal = True
+    for k, j in enumerate(basis):
+        j = int(j)
+        if j >= sf.n:
+            if xb[k] != 0:
+                primal = False
+        else:
+            if xb[k] < 0:
+                primal = False
+            u = sf.upper[j] if sf.upper is not None else None
+            if u is not None and xb[k] > u:
+                primal = False
+    cb = [sf.c[int(j)] if int(j) < sf.n else ZERO for j in basis]
+    bt_cols = [[cols[k][i] for k in range(m)] for i in range(m)]
+    y = _exact_gauss_solve(bt_cols, cb)
+    up_set = {j for j, _ in ups}
+    bset = {int(j) for j in basis}
+    dual = True
+    for j in range(sf.n):
+        if j in bset:
+            continue
+        s = sf.c[j] - sum(sf.A[i][j] * y[i] for i in range(m))
+        if j in up_set:
+            if s > 0:
+                dual = False
+                break
+        elif s < 0:
+            dual = False
+            break
+    return primal, dual
+
+
+def float_bounded_certificate(sf: StandardForm, basis, at_upper,
+                              tol: float = 1e-7) -> Tuple[bool, bool]:
+    """f64 version of ``bounded_basis_certificate`` for instances too large
+    to verify in rationals (tolerance-based: can only REJECT confidently)."""
+    c64, A64, b64 = sf.to_dense(np.float64)
+    m = sf.m
+    _, ups = _bounded_sets(sf, basis, at_upper)
+    for j, u in ups:
+        b64 = b64 - float(u) * A64[:, j]
+    art_rows = _artificial_row_map(sf)
+    B = np.zeros((m, m))
+    cb = np.zeros(m)
+    for k, j in enumerate(basis):
+        j = int(j)
+        if j < sf.n:
+            B[:, k] = A64[:, j]
+            cb[k] = c64[j]
+        else:
+            B[art_rows[j - sf.n], k] = 1.0
+    xb = np.linalg.solve(B, b64)
+    scale = max(float(np.abs(b64).max()), 1.0)
+    primal = bool((xb >= -tol * scale).all())
+    for k, j in enumerate(basis):
+        j = int(j)
+        if j >= sf.n:
+            if abs(xb[k]) > tol * scale:
+                primal = False
+        elif sf.upper is not None and sf.upper[j] is not None:
+            if xb[k] > float(sf.upper[j]) + tol * scale:
+                primal = False
+    y = np.linalg.solve(B.T, cb)
+    s = c64 - A64.T @ y
+    cscale = max(float(np.abs(c64).max()), 1.0)
+    up_set = {j for j, _ in ups}
+    bset = {int(j) for j in basis}
+    dual = True
+    for j in range(sf.n):
+        if j in bset:
+            continue
+        if j in up_set:
+            if s[j] > tol * cscale:
+                dual = False
+                break
+        elif s[j] < -tol * cscale:
+            dual = False
+            break
+    return primal, dual
 
 
 def original_sensitivity(prog, sf: StandardForm, y_std):
