@@ -33,8 +33,15 @@ the kernel engine), a batch of 256 box LPs with and without bound rows,
 a blocked batch of 8 LPs of 512 x 1024 against their solo solves, the
 corpus's infeasible and unbounded cases with verified certificates,
 Wyndor's ranging, ``find_iis`` with every oracle solve on the card, and
-``python -m tpulp_torch solve`` in a subprocess. Every phase that fails
-raises. The line before the last is a JSON summary of
+``python -m tpulp_torch solve`` in a subprocess. Phase 9 brings up a
+one-process NCCL group and ``make_mesh(1)``, solves phase 5's LP through
+``solve_lp(mesh=...)`` with the sharded blocked driver (which flushes each
+rank's block with the flush kernel) and the sharded rank-1 driver (each
+certified, the exact objective phase 5's), holds the sharded bounded
+driver's Dantzig walk on a 128 x 256 box LP to the solo walk, times the
+sharded machinery against the solo blocked driver at P = 1, and holds the
+flush against its plain version at the sharded block's shape. Every phase
+that fails raises. The line before the last is a JSON summary of
 the kernels (each with its bound, its plain version's time and, where one
 exists, a library call's); the last line is ``{"ok": true, "device":
 {...}}``. Without CUDA the script exits non-zero and prints no result. It
@@ -88,13 +95,29 @@ KNAPSACK_F64_NODES = 789
 # phase 8, the bounded and exact layer: the box LP at full size, the box
 # batch, the blocked batch and the planted IIS
 BND_M, BND_N = 1024, 2048
+# the f32 solve of the same LP fails its certificate and answers on the
+# ladder's f64 retry, which repeats the f64 walk (tpulp does the same,
+# tools/box_rung.py): the one run on the card of the f32-to-f64 retry
+BND_F32_RUNG = "device-float64"
 # the box LP's pricing: Dantzig's walk takes ~82k host-bound steps here
 # (~7 minutes a dtype on the card), devex far fewer
 BND_PRICING = "devex"
 BND_MAX_ITERS = 200_000
 BOX_M, BOX_N, BOX_LANES = 64, 128, 256
+# the row-lowered batch that 8b holds the box batch to: its first lanes
+# only (its exact refinement and certificate take ~0.6 s a lane on the
+# host, ~150-200 s for all 256), so that the full-size f32 box LP of 8a,
+# the card's one run of the ladder's f32-to-f64 retry, fits the time
+BOX_ROW_LANES = 64
 BLK_M, BLK_N, BLK_LANES, BLK_K = 512, 1024, 8, 64
 IIS_VARS, IIS_ROWS = 10, 24
+# phase 9, the sharded path over a one-process NCCL group: solve_lp's
+# shard_block; the box LP cut to a size Dantzig walks in seconds (PERF.md
+# §6: 428 s at 1024 x 2048); the bench shape's budget for the machinery
+# ratio
+SHARD_K = 64
+SHARD_BOX_M, SHARD_BOX_N = 128, 256
+SHARD_BENCH_PIVOTS = 1024
 
 
 def bound(nbytes: float, flops: float, flop_s: float):
@@ -680,7 +703,8 @@ def phase_main_path():
         f"{sol.niter / secs:.1f} pivots/s (lowering, set-up and refinement "
         f"included); launches {launches}")
     return launches, {"niter": sol.niter, "seconds": secs,
-                      "pivots_per_s": sol.niter / secs}
+                      "pivots_per_s": sol.niter / secs,
+                      "objective": str(sol.objective)}
 
 
 def phase_tf32_guard():
@@ -1521,8 +1545,9 @@ def phase_bounded_lp(dev):
     optimal, the f64 bounded certificate, 0 <= x <= u and D x <= b within
     1e-9 relative, columns at upper, and the objective within 1e-9 of the
     row-lowered solve (3 BND_M rows), which takes the kernel engine. The
-    same LP at f32 prints its rung. Returns the numbers and the FMA
-    launches of the f64 solve."""
+    same LP at f32: optimal on BND_F32_RUNG (the ladder's f64 retry), its
+    answer certified and equal to the f64 solve's. Returns the numbers and
+    the FMA launches of the f64 solve."""
     import torch
 
     import tpulp_torch
@@ -1567,8 +1592,9 @@ def phase_bounded_lp(dev):
                      "objective": float(sol.objective)
                      if sol.objective is not None else None}
         log(f"# bounded LP {m}x{n} {name} ({BND_PRICING}): {sol.status}, "
-            f"rung {sol.rung}, {sol.niter} steps = {enter} entering flips + {up_hit} upper "
-            f"hits + {sol.niter - enter - up_hit} plain pivots (the flip "
+            f"rung {sol.rung}, {sol.niter} steps = {enter} entering flips "
+            f"+ {up_hit} upper hits + {sol.niter - enter - up_hit} plain "
+            f"pivots (the flip "
             f"counts are over every walk the solve ran); {secs:.2f} s on "
             f"the host clock (set-up, refinement and certificate included) "
             f"against ~{est_device:.3f} s of device time "
@@ -1577,7 +1603,27 @@ def phase_bounded_lp(dev):
             f"{window['host_ms_per_step']:.3f} ms of host time a step, "
             "torch.profiler over 16 steps); launches " + str(launches))
         if dt == torch.float32:
+            # the retry's answer, certified again and held to the f64
+            # solve's objective
+            primal_ok, dual_ok = float_bounded_certificate(sf, sol.basis,
+                                                           sol.at_upper)
+            rel = abs(float(sol.objective) - float(f64_obj)) / max(
+                1.0, abs(float(f64_obj)))
+            if not (sol.status == "optimal" and sol.rung == BND_F32_RUNG
+                    and primal_ok and dual_ok and rel <= 1e-9
+                    and launches["fused_fma"] > 0):
+                raise AssertionError(
+                    f"bounded LP f32: {sol.status}, rung {sol.rung} (want "
+                    f"{BND_F32_RUNG}), certificate {primal_ok, dual_ok}, "
+                    f"relative difference to the f64 solve {rel:.2e}, "
+                    f"launches {launches}")
+            log(f"# bounded LP f32: answered on the ladder's f64 retry "
+                f"({sol.rung}), certified (float_bounded_certificate); "
+                f"objective {sol.objective!r}, relative difference to the "
+                f"f64 solve's {rel:.2e}")
+            res[name]["relative_difference"] = rel
             continue
+        f64_obj = sol.objective
         if sol.status != "optimal" or launches["fused_fma"] == 0:
             raise AssertionError(f"bounded LP f64: {sol.status}, launches "
                                  f"{launches}")
@@ -1641,8 +1687,9 @@ def box_form(seed: int, m: int, n: int):
 
 def phase_bounded_batch(dev):
     """Phase 8b: solve_lp_batch(simple_bounds=True) over BOX_LANES box LPs
-    of BOX_M x BOX_N against the row-lowered batch (BOX_M + BOX_N rows):
-    every lane optimal and the exact objectives equal lane for lane."""
+    of BOX_M x BOX_N against the row-lowered batch (BOX_M + BOX_N rows) of
+    the first BOX_ROW_LANES: every lane optimal and the exact objectives
+    equal lane for lane."""
     import torch
 
     import tpulp_torch
@@ -1650,22 +1697,26 @@ def phase_bounded_batch(dev):
     sfs = [box_form(s, BOX_M, BOX_N) for s in range(BOX_LANES)]
     res = {}
     sols = {}
-    for kind, bounded in (("bounded", True), ("rows", False)):
+    for kind, lanes in (("bounded", BOX_LANES), ("rows", BOX_ROW_LANES)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sols[kind] = tpulp_torch.solve_lp_batch(sfs, simple_bounds=bounded,
-                                                device=dev)
+        sols[kind] = tpulp_torch.solve_lp_batch(
+            sfs[:lanes], simple_bounds=kind == "bounded", device=dev)
         secs = time.perf_counter() - t0
-        res[kind] = {"seconds": secs, "lanes_per_s": BOX_LANES / secs,
+        res[kind] = {"seconds": secs, "lanes": lanes,
+                     "lanes_per_s": lanes / secs,
                      "pivots": sum(s.niter for s in sols[kind])}
-    bad = [k for k, (a, r) in enumerate(zip(sols["bounded"], sols["rows"]))
-           if a.status != "optimal" or r.status != "optimal"
-           or a.objective != r.objective]
+    rows = sols["rows"]
+    bad = [k for k, a in enumerate(sols["bounded"])
+           if a.status != "optimal" or (k < BOX_ROW_LANES and (
+               rows[k].status != "optimal"
+               or a.objective != rows[k].objective))]
     log(f"# solve_lp_batch {BOX_LANES} box LPs {BOX_M}x{BOX_N}: "
         f"simple_bounds {res['bounded']['seconds']:.2f} s = "
         f"{res['bounded']['lanes_per_s']:.1f} lanes/s "
         f"({res['bounded']['pivots']} pivots and flips), row-lowered "
-        f"({BOX_M + BOX_N} rows) {res['rows']['seconds']:.2f} s = "
+        f"({BOX_M + BOX_N} rows, the first {BOX_ROW_LANES} lanes) "
+        f"{res['rows']['seconds']:.2f} s = "
         f"{res['rows']['lanes_per_s']:.1f} lanes/s ({res['rows']['pivots']}"
         " pivots); exact refinement and certificate per lane included; "
         f"exact objectives {'equal' if not bad else 'DIFFER'} lane for lane")
@@ -1873,6 +1924,303 @@ def phase_exact_layer(dev):
     return res
 
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the sharded path (solve_lp(mesh=...)) on a one-process mesh
+# ---------------------------------------------------------------------------
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def collectives_per_step(counts, steps: int):
+    """{kind:dtype x elements: calls a step} from comm's call counts."""
+    return {f"{k}:{d}x{e}": c / max(steps, 1)
+            for (k, d, e), c in sorted(counts.items())}
+
+
+def first_block(sf, mesh, dtype):
+    """(run, flush): ``run()`` takes the sharded blocked driver through the
+    first SHARD_K pivots on ``sf`` and returns its carry (the block-start
+    block, U, Vl, ...), unflushed; ``flush(carry)`` ends the block."""
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.comm.collectives import MeshAxis
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.shard import to_sharded_state
+    from tpulp_torch.shard.sharded_blocked import (_flush, _fresh_carry,
+                                                   _sharded_blocked_pivot)
+    from tpulp_torch.solve.api import state_from_standard_form
+
+    st = state_from_standard_form(sf, dtype=dtype,
+                                  device=mesh.device_type)
+    sh = to_sharded_state(st, mesh)
+    lay = MeshAxis(mesh)
+    opts = eta_scaled_options(SolverOptions.for_dtype(dtype), dtype)
+    n_global = sh.T.shape[1] * lay.size
+    stall = opts.resolved_stall_limit(st.m, n_global)
+
+    def run():
+        carry = _fresh_carry(sh._replace(T=sh.T.clone()), SHARD_K, lay)
+        for _ in range(SHARD_K):
+            carry = _sharded_blocked_pivot(carry, opts, stall, n_global,
+                                           opts.max_iters, lay)
+        return carry
+
+    return run, lambda carry: _flush(carry, opts, lay), opts
+
+
+def sharded_window(sf, mesh, dtype):
+    """Host ms, device ms, kernels a pivot and the card's busy share of the
+    sharded blocked driver's first block (SHARD_K pivots and the flush)
+    under torch.profiler."""
+    run, flush, _ = first_block(sf, mesh, dtype)
+    flush(run())
+    wall, busy, kernels = device_busy(lambda: flush(run()))
+    return {"host_ms_per_pivot": 1e3 * wall / SHARD_K,
+            "busy_share": busy / wall, "kernels_per_pivot": kernels / SHARD_K,
+            "device_ms_per_pivot": 1e3 * busy / SHARD_K}
+
+
+def mesh_main_path(mesh, sf, driver: str, objective: str, dev="cuda"):
+    """9a / 9b: solve_lp(mesh=mesh, shard_driver=driver) on phase 5's LP:
+    optimal, float_basis_certificate, the exact objective equal to phase
+    5's; the launch and collective counts of that solve."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.comm import COUNTS, reset_counts
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.solve.refine import float_basis_certificate
+
+    sync(dev)
+    # the sharded path's main run: counts set to 0 just before, read after
+    reset_launches()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol = tpulp_torch.solve_lp(sf, device=dev, mesh=mesh,
+                               shard_driver=driver, shard_block=SHARD_K)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches, counts = dict(LAUNCHES), dict(COUNTS)
+    if sol.status != "optimal":
+        raise AssertionError(f"mesh {driver}: status {sol.status}")
+    primal_ok, dual_ok = float_basis_certificate(sf, sol.basis)
+    if not (primal_ok and dual_ok):
+        raise AssertionError(f"mesh {driver}: float_basis_certificate "
+                             "failed")
+    if str(sol.objective) != objective:
+        raise AssertionError(f"mesh {driver}: objective {sol.objective} is "
+                             f"not phase 5's {objective}")
+    fetch = "psum:float64x" + str(
+        (sf.m + 2) + (SHARD_K + 1 if driver == "blocked" else 0))
+    steps = sum(c for (k, d, e), c in counts.items()
+                if f"{k}:{d}x{e}" == fetch)
+    if dev == "cuda" and driver == "blocked" and launches["fused_flush"] == 0:
+        raise AssertionError(f"mesh blocked: fused_flush never launched "
+                             f"({launches})")
+    if dev == "cuda" and launches["fused_fma"] == 0:
+        raise AssertionError(f"mesh {driver}: fused_fma never launched")
+    per_step = collectives_per_step(counts, steps)
+    log(f"# 9{'a' if driver == 'blocked' else 'b'} solve_lp(mesh, "
+        f"shard_driver={driver!r}) {sf.m}x{sf.n} f64 at P = 1 (NCCL): "
+        f"optimal, certified, objective = phase 5's exactly; {sol.niter} "
+        f"pivots in {steps} steps, {secs:.2f} s ({1e3 * secs / sol.niter:.3f}"
+        f" ms a pivot, set-up and refinement included); launches "
+        f"{launches}; collectives a step {per_step}")
+    return {"niter": sol.niter, "steps": steps, "seconds": secs,
+            "launches": launches, "collectives_per_step": per_step,
+            "rung": sol.rung}
+
+
+def sharded_flip_spy():
+    """``flip_spy`` for the sharded bounded step: (counts, restore)."""
+    import torch
+
+    import tpulp_torch.shard.sharded_bounded as sb
+
+    real = sb._sharded_bounded_step
+    total = []
+
+    def spy(c, *args, **kw):
+        nxt = real(c, *args, **kw)
+        same = (nxt.s.basis == c.s.basis).all()
+        flip = (nxt.at_upper != c.at_upper).any()
+        step = torch.stack([(nxt.s.niter > c.s.niter) & same, ~same & flip])
+        total[:] = [step.int() + total[0] if total else step.int()]
+        return nxt
+
+    def restore():
+        sb._sharded_bounded_step = real
+
+    sb._sharded_bounded_step = spy
+    return (lambda: total[0].tolist() if total else [0, 0]), restore
+
+
+def mesh_bounded(mesh, dev="cuda"):
+    """9c: the sharded bounded driver (Dantzig) on phase 8a's box LP at
+    SHARD_BOX_M x SHARD_BOX_N, f64, against the solo bounded driver's walk
+    on the card: steps, flips, at-upper flags and basis equal, objectives
+    within 1e-9. The drivers run bare (at m <= 192 solve_lp's exact
+    refinement and certificate of this float data take ~30 s a solve on
+    the host)."""
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.shard import (from_sharded_bounded_state,
+                                   run_simplex_sharded_bounded,
+                                   to_sharded_bounded_state)
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.bounded import (make_bounded_state,
+                                           run_simplex_bounded)
+
+    sf = bounded_form(SHARD_BOX_M, SHARD_BOX_N)[0]
+    opts = SolverOptions.for_dtype(torch.float64)
+    res = {}
+    for kind in ("solo", "mesh"):
+        bs = make_bounded_state(state_from_standard_form(
+            sf, dtype=torch.float64, device=dev), sf.upper)
+        counts, restore = (flip_spy if kind == "solo"
+                           else sharded_flip_spy)()
+        sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            if kind == "solo":
+                out = run_simplex_bounded(bs, opts)
+            else:
+                out = from_sharded_bounded_state(run_simplex_sharded_bounded(
+                    to_sharded_bounded_state(bs, mesh), mesh, opts),
+                    bs.s.n, mesh)
+            sync(dev)
+        finally:
+            restore()
+        secs = time.perf_counter() - t0
+        res[kind] = {"status": int(out.s.status), "niter": int(out.s.niter),
+                     "flips": counts(), "seconds": secs,
+                     "launches": dict(LAUNCHES),
+                     "basis": out.s.basis.tolist(),
+                     "at_upper": out.at_upper.tolist(),
+                     "objective": float(out.s.objective())}
+    solo, msh = res["solo"], res["mesh"]
+    rel = abs(solo["objective"] - msh["objective"]) / max(
+        1.0, abs(solo["objective"]))
+    same = all(solo[k] == msh[k] for k in ("status", "niter", "flips",
+                                           "basis", "at_upper"))
+    log(f"# 9c sharded bounded driver (Dantzig) {SHARD_BOX_M}x{SHARD_BOX_N} "
+        f"f64: status {msh['status']}, {msh['niter']} steps (entering "
+        f"flips, upper hits) {msh['flips']}, {msh['seconds']:.2f} s against "
+        f"the solo walk's {solo['niter']} steps {solo['flips']} in "
+        f"{solo['seconds']:.2f} s; basis and at_upper "
+        f"{'equal' if same else 'DIFFER'}; objective relative difference "
+        f"{rel:.2e}; launches {msh['launches']}")
+    if not (same and msh["status"] == 1 and rel <= 1e-9
+            and (dev != "cuda" or msh["launches"]["fused_fma"] > 0)):
+        raise AssertionError("9c: the sharded bounded walk differs from the "
+                             "solo walk")
+    for r in res.values():
+        del r["basis"], r["at_upper"]
+    res["relative_difference"] = rel
+    return res
+
+
+def machinery_ratio(mesh, dev="cuda"):
+    """9d: the sharded blocked driver at P = 1 against the solo
+    run_simplex_blocked, per pivot: on tools/torch_scaling_overhead.py's
+    instance, and on the bench shape (f32, K = 256, SHARD_BENCH_PIVOTS)."""
+    import importlib.util
+    import os
+
+    import torch
+
+    from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.shard import run_simplex_sharded_blocked, to_sharded_state
+    from tpulp_torch.solve.blocked import run_simplex_blocked
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_scaling_overhead.py")
+    spec = importlib.util.spec_from_file_location("torch_scaling_overhead",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    small = tool.measure(dev)
+    log(f"# 9d machinery at P = 1, {tool.__name__}'s 66x513 f32 K=16: solo "
+        f"{small['solo_us']:.1f} us a pivot, sharded {small['p1_us']:.1f}, "
+        f"ratio {small['ratio']:.3f} ({small['pivots']} pivots)")
+    c, A, b, hint = bench_arrays(BENCH_M, BENCH_N)
+    st = make_state(c, A, b, hint, dtype=torch.float32, device=dev)
+    opts = SolverOptions.for_dtype(torch.float32,
+                                   max_iters=SHARD_BENCH_PIVOTS)
+    sh = to_sharded_state(st, mesh)
+    solo_us, n1 = tool._time_best(
+        lambda: run_simplex_blocked(st, opts, block=BENCH_K),
+        SHARD_BENCH_PIVOTS, 2, "solo bench", dev)
+    p1_us, n2 = tool._time_best(
+        lambda: run_simplex_sharded_blocked(sh, mesh, opts, block=BENCH_K),
+        SHARD_BENCH_PIVOTS, 2, "P=1 bench", dev)
+    if n1 != n2:
+        raise AssertionError(f"9d: solo {n1} and sharded {n2} pivots")
+    log(f"# 9d machinery at P = 1, bench shape {BENCH_M}x{BENCH_M + BENCH_N}"
+        f" f32 K={BENCH_K}, {n1} pivots: solo {solo_us:.1f} us a pivot, "
+        f"sharded {p1_us:.1f}, ratio {p1_us / solo_us:.3f}")
+    return {"scaling_overhead_instance": small,
+            "bench": {"solo_us": solo_us, "p1_us": p1_us,
+                      "ratio": p1_us / solo_us, "pivots": n1}}
+
+
+def phase_mesh(objective: str, dev="cuda"):
+    """Phase 9: a one-process NCCL group, ``make_mesh(1)``, and 9a-9e:
+    solve_lp(mesh) blocked and rank-1 on phase 5's LP, the sharded bounded
+    driver on a cut box LP, the machinery ratio, and the flush at the
+    sharded path's per-rank block. Returns the numbers; the group is
+    destroyed at the end."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from tpulp_torch.comm import init_distributed
+    from tpulp_torch.shard import make_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh(1, device=dev)
+        log(f"# phase 9: one-process NCCL group and make_mesh(1) in "
+            f"{time.perf_counter() - t0:.2f} s: {mesh}")
+        sf = main_path_form(MAIN_M, MAIN_N)
+        res = {"blocked": mesh_main_path(mesh, sf, "blocked", objective,
+                                         dev)}
+        window = sharded_window(sf, mesh, torch.float64)
+        res["blocked"]["window"] = window
+        log(f"# 9a first block under torch.profiler: "
+            f"{window['host_ms_per_pivot']:.3f} ms of host time, "
+            f"{window['device_ms_per_pivot']:.4f} ms of device time and "
+            f"{window['kernels_per_pivot']:.0f} kernels a pivot; the card "
+            f"{100 * window['busy_share']:.1f}% busy")
+        res["rank1"] = mesh_main_path(mesh, sf, "rank1", objective, dev)
+        res["bounded"] = mesh_bounded(mesh, dev)
+        res["ratio"] = machinery_ratio(mesh, dev)
+        # 9e: the flush at 9a's per-rank block, on its first block's etas
+        run, _, opts = first_block(sf, mesh, torch.float64)
+        carry = run()
+        res["flush"] = check_flush(
+            carry.s.T, carry.U, carry.Vl, carry.s.col_active.to(torch.int32),
+            opts.opt_tol, opts.piv_tol, "float64", RUNS)
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
 def main() -> int:
     import contextlib
     import io
@@ -1958,6 +2306,12 @@ def main() -> int:
         + f"; kernel launches of the f64 bounded LP's solve "
         f"{bounded_launches}")
 
+    # 9: the sharded path (solve_lp(mesh=...)) over a one-process NCCL
+    # group; each of its runs reads its own launch counts
+    t0 = time.perf_counter()
+    mesh = phase_mesh(main_path["objective"])
+    log(f"# phase 9 (mesh): {time.perf_counter() - t0:.1f} s")
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith("jax.") or m == "tpulp"
                     or m.startswith("tpulp."))
@@ -1995,7 +2349,21 @@ def main() -> int:
     # the bounded LP of phase 8
     kernels[2]["launches_by_path"] = {
         "milp_bench_knapsack_float64": milp_launches["fused_fma"],
-        "bounded_lp_float64": bounded_launches["fused_fma"]}
+        "bounded_lp_float64": bounded_launches["fused_fma"],
+        "sharded_blocked_p1_float64":
+            mesh["blocked"]["launches"]["fused_fma"],
+        "sharded_rank1_p1_float64": mesh["rank1"]["launches"]["fused_fma"],
+        "sharded_bounded_p1_float64":
+            mesh["bounded"]["mesh"]["launches"]["fused_fma"]}
+    # the flush runs on two main paths: the kernel engine of phase 5 (its
+    # ``launches``) and the sharded blocked driver of phase 9a, which
+    # flushes each rank's (m+2, n/P) block
+    kernels[0]["launches_by_path"] = {
+        "main_path_kernel_engine": launches["fused_flush"],
+        "sharded_blocked_p1_float64":
+            mesh["blocked"]["launches"]["fused_flush"]}
+    kernels[0]["sharded_block_case"] = {k: mesh["flush"].get(k)
+                                        for k in keys}
     kernels[0]["flush_cases"] = flush_cases
     kernels[0]["sass"] = sass
     kernels[1]["barrier_probe"] = probe
@@ -2003,7 +2371,8 @@ def main() -> int:
         kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,
-                    "bench": bench, "milp": milp, "exact": exact}))
+                    "bench": bench, "milp": milp, "exact": exact,
+                    "mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

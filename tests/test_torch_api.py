@@ -80,7 +80,9 @@ def test_every_engine_solves_wyndor(driver):
 
 @pytest.mark.parametrize("option", [{"mesh": object()}], ids=["mesh"])
 def test_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``mesh=`` is ported (tests/test_torch_shard.py): what is no
+    torch.distributed DeviceMesh raises before any work."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tpulp_torch.solve_lp(_port_wyndor(), device="cpu", **option)
 
 

@@ -283,3 +283,25 @@ def test_warm_basis_on_a_bounded_lowering_raises():
     with pytest.raises(ValueError, match="at_upper"):
         tpulp_torch.solve_lp(to_port(_box()), simple_bounds=True,
                              warm_start=sol, device="cpu")
+
+
+@pytest.mark.parametrize("pricing", ["devex", "dantzig"])
+def test_f32_box_lp_rung_equals_tpulps(pricing):
+    """chip_smoke's phase 8a box LP at m = 200 (tools/box_rung.py): the
+    f32 solve answers on the same rung, in the same steps, with the same
+    objective in both packages (at m = 1024 both answer on the float64
+    retry, in 14,953 devex steps: tpulp's behaviour too)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "box_rung.py"
+    spec = importlib.util.spec_from_file_location("box_rung", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    res = tool.rungs(200, pricing)
+    tp, port = res["tpulp"], res["port"]
+    assert port["status"] == tp["status"] == "optimal"
+    assert port["rung"] == tp["rung"] == "device-float32"
+    assert port["niter"] == tp["niter"]
+    assert port["objective"] == tp["objective"]

@@ -88,11 +88,12 @@ def test_options_mirror_tpulp():
 
 
 def test_no_jax_import_in_package_source():
-    """Neither the port nor chip_smoke.py imports jax or anything of tpulp
-    (the port carries its own copies of tpulp's pure-Python modules)."""
+    """Neither the port, its tools nor chip_smoke.py imports jax or
+    anything of tpulp (the port carries its own copies of tpulp's
+    pure-Python modules)."""
     pat = re.compile(r"^\s*(import|from) (jax|tpulp)(\.|\s|$)")
-    sources = sorted((ROOT / "tpulp_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+    sources = sorted((ROOT / "tpulp_torch").rglob("*.py")) + sorted(
+        (ROOT / "tools").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in sources
@@ -157,6 +158,24 @@ with contextlib.redirect_stdout(out):
     rc = main(["solve", path, "--certificates", "--iis",
                "--torch-device", "cpu"])
 assert rc == 0 and len(json.loads(out.getvalue())["iis"]) == 2, out
+import socket
+import torch.distributed as dist
+import tpulp_torch.comm, tpulp_torch.core.predicates, tpulp_torch.entry
+import tpulp_torch.shard.analysis, tpulp_torch.utils
+from tpulp_torch.shard import make_mesh
+os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+tpulp_torch.comm.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cpu")
+mesh = make_mesh(1, device="cpu")
+for kw in ({}, {"shard_driver": "rank1"}):
+    sol = solve_lp(lp, mesh=mesh, device="cpu", **kw)
+    assert sol.objective == 400, sol
+sol = solve_lp(box, mesh=mesh, simple_bounds=True, device="cpu")
+assert sol.objective == 14, sol
+tpulp_torch.shard.analysis.assert_fused_psum(mesh)
+dist.destroy_process_group()
 after = "jax" in sys.modules
 tpulp_side = sorted(m for m in sys.modules
                     if m == "tpulp" or m.startswith("tpulp."))
@@ -167,8 +186,9 @@ sys.exit(1 if (after and not before) or tpulp_side else 0)
 
 def test_package_solves_without_importing_jax():
     """The port solves an LP, a batch, a MILP, a bounded LP, a certified
-    infeasible LP and a CLI call without loading jax or any module of
-    tpulp."""
+    infeasible LP, a CLI call and LPs over a one-process mesh (with the
+    comm, shard, predicate, debug and entry modules loaded) without
+    loading jax or any module of tpulp."""
     res = subprocess.run([sys.executable, "-c", WYNDOR], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

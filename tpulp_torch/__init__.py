@@ -17,7 +17,10 @@ proofs and sensitivity ranges; ``find_iis`` names the constraints of an
 infeasible model that conflict. ``solve_lp_batch`` solves a batch of LPs
 in one wave of lanes (rank-1, rank-K blocked or bounded), and
 ``solve_milp`` solves a mixed-integer program by branch-and-bound over
-such waves. ``python -m tpulp_torch`` is the command line.
+such waves. ``python -m tpulp_torch`` is the command line. With
+``mesh=`` (``tpulp_torch.shard.make_mesh()`` over a ``torch.distributed``
+group, ``tpulp_torch.comm.init_distributed``) ``solve_lp`` column-shards
+one LP over the group's processes, one device each.
 """
 
 from .model import (LinCon, LinExpr, LinProg, LinVar, StandardForm,

@@ -13,8 +13,8 @@ artificial columns keep phase 1 uniform. The batch is the engine under
 the lanes instead, and ``simple_bounds=True`` the bounded-variable step on
 a batched ``BoundedState`` (no bound rows in any lane's tableau).
 
-Not ported yet, and raising NotImplementedError: ``mesh`` (ROADMAP item
-12).
+Not ported yet, and raising NotImplementedError: ``mesh`` (ROADMAP queue
+A, item 2: the batch half of multi-device solving).
 """
 
 from __future__ import annotations
@@ -198,7 +198,8 @@ def solve_lp_batch(
     replicates lane 0 up to a fixed batch width; padded lanes run but are
     never extracted."""
     if mesh is not None:
-        raise _not_ported("solve_lp_batch(mesh=...)", "item 12, multi-GPU")
+        raise _not_ported("solve_lp_batch(mesh=...)",
+                          "item 2, the batch half of multi-device solving")
     dev = _device(device)
     if options is None:
         options = SolverOptions.for_dtype(dtype)

@@ -20,8 +20,9 @@ and the same exact answers.
   and float64 with a pruning margin above; every incumbent is verified by
   an exact basis solve, so the reported optimum is exact either way.
 
-Not ported yet, and raising NotImplementedError: ``mesh`` (ROADMAP item
-12) and ``node_encoding='spans'`` (item 14).
+Not ported yet, and raising NotImplementedError: ``mesh`` (ROADMAP queue
+A, item 2: the batch half of multi-device solving) and
+``node_encoding='spans'`` (item 3).
 """
 
 from __future__ import annotations
@@ -246,10 +247,11 @@ def solve_milp(
     format of ``tpulp.io.checkpoint``); ``resume_from`` restarts from such
     a file, tpulp's included."""
     if mesh is not None:
-        raise _not_ported("solve_milp(mesh=...)", "item 12, multi-GPU")
+        raise _not_ported("solve_milp(mesh=...)",
+                          "item 2, the batch half of multi-device solving")
     if node_encoding == "spans":
         raise _not_ported("solve_milp(node_encoding='spans')",
-                          "item 14, span-encoded nodes")
+                          "item 3, span-encoded nodes")
     dev = _device(device)
     _t_solve0 = time.perf_counter()
 

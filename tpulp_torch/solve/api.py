@@ -10,8 +10,11 @@ solve: exact Farkas and ray certificates of non-optimal verdicts
 (``certificates=True``) and sensitivity ranging (``ranging=True``).
 
 ``device`` is explicit and defaults to ``"cuda"``; without CUDA that
-raises instead of quietly running on the CPU. ``mesh=`` is not ported yet
-and raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+raises instead of quietly running on the CPU. ``mesh=`` (a
+``torch.distributed`` ``DeviceMesh``, ``tpulp_torch.shard.make_mesh()``)
+column-shards the tableau over the mesh's processes and solves with the
+sharded drivers of ``tpulp_torch.shard``; every process calls ``solve_lp``
+with the same program and gets the same ``Solution``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..model.lower import (StandardForm, lower_to_standard_form,
                            materialize_simple_bounds)
@@ -211,6 +215,43 @@ def _auto_engine(elems: int, dev: torch.device) -> str:
     return "blocked"
 
 
+def _solve_sharded(state, upper, options: SolverOptions,
+                   opts_eng: SolverOptions, pricing: str, mesh, shard_axis,
+                   shard_driver: str, shard_block: int):
+    """(bout, out): the terminal state of the sharded driver that a mesh
+    solve runs, gathered on every process (``bout`` the bounded state, or
+    None)."""
+    from ..shard import (from_sharded_bounded_state, from_sharded_state,
+                         run_simplex_sharded, run_simplex_sharded_blocked,
+                         run_simplex_sharded_bounded, to_sharded_bounded_state,
+                         to_sharded_state)
+
+    if upper is not None:
+        if pricing == "devex":
+            raise ValueError(
+                "pricing='devex' is not implemented on the SHARDED "
+                "bounded-variable driver; use pricing='dantzig' with mesh, "
+                "or drop the mesh for the solo bounded devex driver")
+        sb = to_sharded_bounded_state(make_bounded_state(state, upper), mesh,
+                                      axis=shard_axis)
+        bout = from_sharded_bounded_state(
+            run_simplex_sharded_bounded(sb, mesh, options, axis=shard_axis),
+            state.n, mesh, shard_axis)
+        return bout, bout.s
+    if shard_driver not in ("blocked", "rank1"):
+        raise ValueError(f"unknown shard_driver {shard_driver!r}")
+    sh = to_sharded_state(state, mesh, axis=shard_axis)
+    if shard_driver == "blocked":
+        osh = run_simplex_sharded_blocked(sh, mesh, opts_eng,
+                                          block=shard_block, axis=shard_axis)
+    else:
+        if pricing == "devex":
+            raise ValueError("devex pricing on a mesh requires "
+                             "shard_driver='blocked'")
+        osh = run_simplex_sharded(sh, mesh, options, axis=shard_axis)
+    return None, from_sharded_state(osh, state.n, mesh, shard_axis)
+
+
 def solve_standard_form(
     sf: StandardForm,
     options: Optional[SolverOptions] = None,
@@ -223,6 +264,10 @@ def solve_standard_form(
     block: int = 64,
     scale: str = "auto",
     warm_basis=None,
+    mesh=None,
+    shard_axis="cols",
+    shard_driver: str = "blocked",
+    shard_block: int = 64,
     device="cuda",
     _depth: int = 0,
 ) -> Solution:
@@ -257,8 +302,26 @@ def solve_standard_form(
     ladder has no refreshed rung: a float32 failure retries the bounded
     driver at float64, anything else goes to the exact host simplex on the
     row-materialized form. ``warm_basis`` raises there (a bounded basis
-    carries at-upper flags)."""
+    carries at-upper flags).
+
+    ``mesh`` (a ``DeviceMesh`` whose device type is ``device``'s)
+    column-shards the tableau over the axis or axes ``shard_axis`` and
+    solves with the sharded drivers: ``shard_driver='blocked'`` (rank-K
+    etas of ``shard_block``, one fused psum a pivot, Dantzig or devex) or
+    ``'rank1'`` (Dantzig), and a ``simple_bounds`` lowering with the
+    sharded bounded driver (Dantzig; devex raises). The gathered terminal
+    state goes through the same refinement, certificate and ladder as a
+    solo solve, except that the ladder has no refreshed rung on a mesh: a
+    float32 failure retries the sharded solve at float64, anything else
+    goes to the exact host simplex. ``warm_basis`` raises with a mesh."""
     dev = _device(device)
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(tpulp_torch.shard.make_mesh()), not "
+                        f"{type(mesh).__name__}")
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"the mesh's devices are {mesh.device_type!r} and "
+                         f"device={device!r}")
     if options is None:
         options = SolverOptions.for_dtype(dtype)
     if sf.trivially_infeasible:
@@ -285,12 +348,13 @@ def solve_standard_form(
         raise ValueError(f"unknown scale {scale!r}")
     state = make_state(c_d, A_d, b_d, sf.basis_hint, dtype=dtype, device=dev)
     bounded = sf.upper is not None and any(u is not None for u in sf.upper)
-    if warm_basis is not None and bounded:
+    if warm_basis is not None and (bounded or mesh is not None):
         raise ValueError(
             "warm_basis is supported on the solo tableau path only "
             "(bounded-variable bases carry at_upper flags and sharded "
             "frames a distributed layout; re-solve cold there)")
-    if pricing == "default" and not bounded:
+    if pricing == "default" and not bounded and (
+            mesh is None or shard_driver == "blocked"):
         art_rows = sum(1 for h in sf.basis_hint if h < 0)
         if state.m >= 64 and 2 * art_rows >= state.m:
             pricing = "devex"
@@ -307,7 +371,11 @@ def solve_standard_form(
         state, warm_out = _warm_frame(state, warm_basis, options)
     elems = (state.m + 2) * (state.n + 1)
     eng = _auto_engine(elems, dev) if driver == "auto" else driver
-    if bounded:
+    if mesh is not None:
+        bout, out = _solve_sharded(state, upper_dev if bounded else None,
+                                   options, opts_eng, pricing, mesh,
+                                   shard_axis, shard_driver, shard_block)
+    elif bounded:
         # finite spans never became tableau rows: the bounded-variable
         # driver enforces them in its ratio test
         bout = run_simplex_bounded(make_bounded_state(state, upper_dev),
@@ -351,7 +419,7 @@ def solve_standard_form(
         opts1 = SolverOptions.for_dtype(
             torch.float64, rule=options.rule, max_iters=options.max_iters,
             degen_tol=options.degen_tol, stall_limit=options.stall_limit)
-        if _depth == 0 and not bounded:
+        if _depth == 0 and not bounded and mesh is None:
             # rung 1: the refreshed driver at f64 — refactorization from
             # the original data repairs the drift behind the failure
             return solve_standard_form(
@@ -360,12 +428,14 @@ def solve_standard_form(
                 driver="refreshed", block=block, scale=scale, device=dev,
                 _depth=1)
         if _depth == 0 and state.T.dtype != torch.float64:
-            # the bounded driver has no refreshed rung (the refresh driver
-            # is tableau-form): retry it at f64
+            # the bounded and sharded drivers have no refreshed rung (the
+            # refresh driver is tableau-form and solo): retry at f64
             return solve_standard_form(
                 sf, options=opts1, dtype=torch.float64, refine=refine,
                 fallback=fallback, duals=duals, pricing=pricing,
-                scale=scale, device=dev, _depth=1)
+                scale=scale, mesh=mesh, shard_axis=shard_axis,
+                shard_driver=shard_driver, shard_block=shard_block,
+                device=dev, _depth=1)
         out_host = solve_standard_form_host(sf)
         if duals and out_host.status == "optimal":
             out_host = dataclasses.replace(
@@ -472,6 +542,9 @@ def solve_lp(
     ranging: bool = False,
     certificates: bool = False,
     mesh=None,
+    shard_axis="cols",
+    shard_driver: str = "blocked",
+    shard_block: int = 64,
     simple_bounds: bool = False,
     pricing: str = "default",
     driver: str = "auto",
@@ -515,9 +588,13 @@ def solve_lp(
     rung (no at-upper flags), or a basis with fewer rows than the form (the
     host simplex drops linearly dependent rows).
 
-    ``mesh`` is not ported yet and raises NotImplementedError."""
-    if mesh is not None:
-        raise _not_ported("mesh=", "item 12, multi-GPU")
+    ``mesh=tpulp_torch.shard.make_mesh()`` makes this a solve over every
+    process of the mesh, one shard each: the tableau is column-sharded
+    over ``shard_axis`` and solved with the sharded drivers
+    (``shard_driver`` 'blocked' with ``shard_block`` etas, or 'rank1'),
+    then gathered, refined and certified like a solo solve (see
+    ``solve_standard_form``). Every process calls it with the same
+    program and gets the same ``Solution``."""
     dev = _device(device)
     if options is None:
         options = SolverOptions.for_dtype(dtype)
@@ -537,7 +614,10 @@ def solve_lp(
     sol = solve_standard_form(sf, options=options, dtype=dtype,
                               refine=refine, fallback=fallback, duals=duals,
                               pricing=pricing, driver=driver, block=block,
-                              scale=scale, warm_basis=warm_basis, device=dev)
+                              scale=scale, warm_basis=warm_basis, mesh=mesh,
+                              shard_axis=shard_axis,
+                              shard_driver=shard_driver,
+                              shard_block=shard_block, device=dev)
     if duals and is_prog and sol.y is not None:
         dmap, rc = original_sensitivity(prog, sf, sol.y)
         sol = dataclasses.replace(sol, duals=dmap, reduced_costs=rc)
