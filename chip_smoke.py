@@ -40,10 +40,18 @@ rank's block with the flush kernel) and the sharded rank-1 driver (each
 certified, the exact objective phase 5's), holds the sharded bounded
 driver's Dantzig walk on a 128 x 256 box LP to the solo walk, times the
 sharded machinery against the solo blocked driver at P = 1, and holds the
-flush against its plain version at the sharded block's shape. Every phase
-that fails raises. The line before the last is a JSON summary of
-the kernels (each with its bound, its plain version's time and, where one
-exists, a library call's); the last line is ``{"ok": true, "device":
+flush against its plain version at the sharded block's shape. Phase 10
+runs the batch half of multi-device solving over a one-process NCCL group,
+on a ``(batch, cols)`` mesh of shape (1, 1) and a 1-D ``("batch",)``
+mesh: ``solve_lp_batch(mesh=)`` over phase 7c's 64 scenarios (statuses,
+pivots and exact objectives equal to the solo batch's), ``solve_milp(mesh=)``
+on the bench knapsack (the DP oracle, every ``BnbStats`` counter equal to
+phase 7's f64 solve), the span-encoded knapsack (the DP oracle) and
+``tpulp_torch.entry.dryrun_multichip(1)``; every operand layout of those
+paths' FMA launches is held against the CPU's addcmul. Every phase that
+fails raises. The line before the last is a JSON summary of the kernels
+(each with its bound, its plain version's time and, where one exists, a
+library call's); the last line is ``{"ok": true, "device":
 {...}}``. Without CUDA the script exits non-zero and prints no result. It
 imports nothing of jax or tpulp.
 """
@@ -826,21 +834,43 @@ def phase_barrier_probe():
     return {"us_per_barrier": res, "faster": best, "inner_block_uses": "flag"}
 
 
-# (name, shapes of c, a, b, value): the engines' calls on the card; vmapped
-# cases batch a leading dimension of MILP_BATCH lanes
+# (name, shapes of c, a, b, value, lanes, view of c): the engines' calls on
+# the card; a case with lanes batches a leading dimension of that many
+# under vmap; a view takes c from a wider tensor of its shape, as the
+# lane-sharded step takes its block and RHS from each lane's frame
 FMA_CASES = [
-    ("rank1_pivot_vmap", [(59, 114), (59, 1), (1, 114)], -1.0, True),
+    ("rank1_pivot_vmap", [(59, 114), (59, 1), (1, 114)], -1.0, MILP_BATCH,
+     None),
     ("rhs_rewrite", [(MILP_BATCH, 59), (MILP_BATCH, 1), (MILP_BATCH, 59)],
-     1.0, False),
-    ("running_vector", [(3073,), (), (3073,)], 1.0, False),
-    ("running_bvec_vmap", [(1538,), (1538,), ()], 1.0, True),
-    ("rank1_pivot_big", [(1538, 3073), (1538, 1), (1, 3073)], -1.0, False),
+     1.0, None, None),
+    ("running_vector", [(3073,), (), (3073,)], 1.0, None, None),
+    ("running_bvec_vmap", [(1538,), (1538,), ()], 1.0, MILP_BATCH, None),
+    ("rank1_pivot_big", [(1538, 3073), (1538, 1), (1, 3073)], -1.0, None,
+     None),
     # phase 8: the bounded driver's pivot and flip at the bounded LP's
     # tableau (1026 x 3073), and the bounded batch's pivot (66 x 193)
-    ("bounded_pivot", [(1026, 3073), (1026, 1), (1, 3073)], -1.0, False),
-    ("bounded_flip_rhs", [(1026,), (1026,), ()], -1.0, False),
-    ("bounded_pivot_vmap", [(66, 193), (66, 1), (1, 193)], -1.0, True),
+    ("bounded_pivot", [(1026, 3073), (1026, 1), (1, 3073)], -1.0, None,
+     None),
+    ("bounded_flip_rhs", [(1026,), (1026,), ()], -1.0, None, None),
+    ("bounded_pivot_vmap", [(66, 193), (66, 1), (1, 193)], -1.0,
+     MILP_BATCH, None),
+    # phase 10 on the (1, 1) mesh: the lane-sharded pivot of each frame's
+    # coefficient block (a strided view) and of its RHS column, at 10a's
+    # 64 lanes of 66 x 193 frames and 10b's 128 of 59 x 114; 10c: the
+    # span-encoded knapsack's bounded batch, 128 lanes of 3 x 30, its pivot
+    # and its flip of the RHS column
+    ("lane_block_10a", [(66, 193), (66, 1), (1, 192)], -1.0, SCEN_LANES,
+     "block"),
+    ("lane_rhs_10a", [(66, 193), (66,), ()], -1.0, SCEN_LANES, "rhs"),
+    ("lane_block_10b", [(59, 114), (59, 1), (1, 113)], -1.0, MILP_BATCH,
+     "block"),
+    ("lane_rhs_10b", [(59, 114), (59,), ()], -1.0, MILP_BATCH, "rhs"),
+    ("spans_pivot_10c", [(3, 30), (3, 1), (1, 30)], -1.0, MILP_BATCH, None),
+    ("spans_flip_10c", [(3, 30), (3,), ()], -1.0, MILP_BATCH, "rhs"),
 ]
+# a frame's coefficient block and its RHS column
+FMA_VIEWS = {None: lambda x: x, "block": lambda x: x[..., :-1],
+             "rhs": lambda x: x[..., -1]}
 
 
 def phase_fma(dev):
@@ -857,13 +887,16 @@ def phase_fma(dev):
     stats = {}
     for dt in (torch.float32, torch.float64):
         name = str(dt).replace("torch.", "")
-        for case, shapes, value, vmapped in FMA_CASES:
+        for case, shapes, value, lanes, view in FMA_CASES:
             rng = np.random.default_rng(len(stats))
-            lead = (MILP_BATCH,) if vmapped else ()
+            lead = (lanes,) if lanes else ()
             cpu = [torch.tensor(rng.normal(size=lead + s)).to(dt)
                    for s in shapes]
+            # the view is taken on each device, so the card's c has the
+            # CPU's strides
             gpu = [x.to(dev) for x in cpu]
-            if vmapped:
+            cpu[0], gpu[0] = FMA_VIEWS[view](cpu[0]), FMA_VIEWS[view](gpu[0])
+            if lanes:
                 def kern(c, a, b):
                     return torch.func.vmap(
                         lambda c, a, b: fused_fma(c, a, b, value))(c, a, b)
@@ -898,16 +931,72 @@ def phase_fma(dev):
                 nbytes, 3 * got.numel(),
                 FP32_FLOP_S if dt == torch.float32 else FP64_FLOP_S)
             stats[f"{case} {name}"] = {
-                "shape": list(got.shape), "max_abs_err": 0.0, "ms": ms,
+                "shape": list(got.shape), "c_strides": list(gpu[0].stride()),
+                "max_abs_err": 0.0, "ms": ms,
                 "plain_ms": plain_ms, "plain_on": "cpu",
                 "cuda_addcmul_ms": lib_ms, "cuda_addcmul_differs": two,
                 "bound_ms": bound_ms, "bound_by": bound_by}
-            log(f"# FMA {case} {name} {tuple(got.shape)}: bit for bit the "
+            log(f"# FMA {case} {name} {tuple(got.shape)} (c's strides "
+                f"{tuple(gpu[0].stride())}): bit for bit the "
                 f"CPU's addcmul (CUDA addcmul differs at {two} of "
                 f"{got.numel()}); kernel {ms:.4f} ms, CUDA addcmul "
                 f"{lib_ms:.4f} ms, plain on the CPU {plain_ms:.4f} ms; "
                 f"bound {bound_ms:.5f} ms ({bound_by})")
     return stats
+
+
+def fma_layouts_held(dev, plans) -> int:
+    """Every operand layout of a path's FMA launches (the shapes and
+    strides of c, a and b, as the kernel's plan cache keys them), run again
+    on seeded data at f32 and f64 and both signs of ``value``: bit for bit
+    the CPU's addcmul on operands of the same strides. Returns the number
+    of layouts held."""
+    import torch
+
+    from tpulp_torch.kernels import fused_fma
+
+    rng = np.random.default_rng(1)
+    for key in plans:
+        shapes, strides = key[0::2], key[1::2]
+        for dt in (torch.float32, torch.float64):
+            cpu, gpu = [], []
+            for shape, stride in zip(shapes, strides):
+                size = 1 + sum(max(n - 1, 0) * st
+                               for n, st in zip(shape, stride))
+                base = torch.tensor(rng.normal(size=size)).to(dt)
+                cpu.append(base.as_strided(shape, stride))
+                gpu.append(base.to(dev).as_strided(shape, stride))
+            for value in (-1.0, 1.0):
+                got = fused_fma(*gpu, value).cpu()
+                want = torch.addcmul(*cpu, value=value)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"fused_fma at the layout {key} ({dt}, value "
+                        f"{value}): {int((got != want).sum())} of "
+                        f"{want.numel()} elements differ from the CPU's "
+                        "addcmul")
+    return len(plans)
+
+
+class FmaLayouts:
+    """The operand layouts of the FMA launches made inside the block: the
+    kernel's plan cache, emptied on entry, read on exit (launches on the
+    CPU make no plan)."""
+
+    def __enter__(self):
+        from tpulp_torch.kernels import fma
+
+        fma._PLANS.clear()
+        return self
+
+    def __exit__(self, *exc):
+        from tpulp_torch.kernels import fma
+
+        if len(fma._PLANS) >= fma._MAX_PLANS:
+            raise AssertionError("the FMA plan cache filled up: layouts "
+                                 "were dropped")
+        self.plans = list(fma._PLANS)
+        return False
 
 
 def check_machine_code(lib_path):
@@ -1104,6 +1193,12 @@ def milp_stats_line(stats, secs):
             f"verify {stats.t_verify:.3f} s")
 
 
+def bnb_counters(stats) -> dict:
+    """Every ``BnbStats`` counter (the wave-time splits left out)."""
+    return {f.name: getattr(stats, f.name)
+            for f in dataclasses.fields(stats) if not f.name.startswith("t_")}
+
+
 def device_busy(fn):
     """(wall s, device busy s, CUDA kernels) of ``fn()`` under
     torch.profiler, tracing the card only. Keep ``fn`` short: a whole MILP
@@ -1184,6 +1279,7 @@ def phase_milp_knapsacks():
                 f"{st.pool_bytes / 2**20:.2f} MiB; the untimed first solve "
                 f"took {first:.3f} s; {fma_launches} FMA kernel launches")
             res[f"bench_knapsack_{name}"] = {
+                "counters": bnb_counters(st),
                 "nodes": st.nodes_solved, "waves": st.waves,
                 "gen_waves": st.gen_waves, "warm_nodes": st.warm_nodes,
                 "warm_pivots": st.warm_pivots,
@@ -1394,6 +1490,19 @@ def dense_leq_arrays(m: int, n: int, seed: int = 0):
     return A, b, c
 
 
+def scenario_batch():
+    """(the SCEN_LANES RHS scenarios, the base form) of one SCEN_M x
+    SCEN_N integer LP, seed 0."""
+    rng = np.random.default_rng(0)
+    A = rng.integers(1, 10, size=(SCEN_M, SCEN_N))
+    b = A @ rng.integers(0, 3, size=SCEN_N) + rng.integers(1, 20,
+                                                           size=SCEN_M)
+    c = -rng.integers(1, 10, size=SCEN_N)
+    scens = [scenario_form(A, b - rng.integers(0, b // 10 + 2), c)
+             for _ in range(SCEN_LANES)]
+    return scens, scenario_form(A, b, c)
+
+
 def phase_batch_and_warm():
     """Phase 7c/7d: ``solve_lp_batch`` over SCEN_LANES RHS scenarios of one
     SCEN_M x SCEN_N integer LP, cold and with ``warm_start`` (statuses and
@@ -1405,14 +1514,8 @@ def phase_batch_and_warm():
 
     import tpulp_torch
 
-    rng = np.random.default_rng(0)
-    A = rng.integers(1, 10, size=(SCEN_M, SCEN_N))
-    b = A @ rng.integers(0, 3, size=SCEN_N) + rng.integers(1, 20,
-                                                           size=SCEN_M)
-    c = -rng.integers(1, 10, size=SCEN_N)
-    scens = [scenario_form(A, b - rng.integers(0, b // 10 + 2), c)
-             for _ in range(SCEN_LANES)]
-    base = tpulp_torch.solve_lp(scenario_form(A, b, c), device="cuda")
+    scens, base_form = scenario_batch()
+    base = tpulp_torch.solve_lp(base_form, device="cuda")
     times = {}
     t0 = time.perf_counter()
     cold = tpulp_torch.solve_lp_batch(scens, device="cuda")
@@ -2221,6 +2324,207 @@ def phase_mesh(objective: str, dev="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the batch half of multi-device solving
+# ---------------------------------------------------------------------------
+
+def mesh_axes(mesh) -> dict:
+    names = tuple(mesh.mesh_dim_names)
+    return {"batch_axis": "batch", "cols_axis": "cols"} if "cols" in names \
+        else {"batch_axis": "batch"}
+
+
+def mesh_lp_batch(mesh, label: str, scens, solo, t_solo: float,
+                  dev="cuda"):
+    """10a: ``solve_lp_batch(mesh=)`` over phase 7c's scenarios, f64:
+    statuses, pivots and exact objectives equal lane for lane to the solo
+    batch's (``solo``, which took ``t_solo`` s); the collectives a step and
+    the wall time."""
+    import tpulp_torch
+    from tpulp_torch.comm import COUNTS, reset_counts
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+
+    # this path's main run: counts set to 0 just before, read after
+    reset_launches()
+    reset_counts()
+    with FmaLayouts() as lay:
+        t0 = time.perf_counter()
+        out = tpulp_torch.solve_lp_batch(scens, mesh=mesh, device=dev,
+                                         **mesh_axes(mesh))
+        sync(dev)
+        secs = time.perf_counter() - t0
+    launches, counts = dict(LAUNCHES), dict(COUNTS)
+    held = fma_layouts_held(dev, lay.plans)
+    bad = [k for k, (a, b) in enumerate(zip(out, solo))
+           if (a.status, a.niter, a.objective) != (b.status, b.niter,
+                                                   b.objective)]
+    if bad or any(s.status != "optimal" for s in out):
+        raise AssertionError(f"10a {label}: lanes {bad} differ from the "
+                             "solo batch")
+    if dev == "cuda" and launches["fused_fma"] == 0:
+        raise AssertionError(f"10a {label}: fused_fma never launched")
+    # a lane-sharded primal step makes one (m,) int32 psum for every lane
+    steps = counts.get(("psum", "int32", SCEN_LANES * SCEN_M), 0)
+    per_step = collectives_per_step(counts, steps) if steps else counts
+    log(f"# 10a solve_lp_batch(mesh {label}) {SCEN_LANES} scenarios of "
+        f"{SCEN_M}x{SCEN_N} f64: statuses, pivots and exact objectives "
+        f"equal to the solo batch's lane for lane; {secs:.2f} s (solo "
+        f"{t_solo:.2f} s), {steps} lane-sharded steps; collectives "
+        f"{'a step ' if steps else ''}{per_step}; launches {launches}; "
+        f"the FMA's {held} operand layouts bit for bit the CPU's addcmul")
+    return {"seconds": secs, "solo_seconds": t_solo, "steps": steps,
+            "fma_layouts": held,
+            "collectives": {f"{k}:{d}x{e}": c
+                            for (k, d, e), c in counts.items()},
+            "launches": launches}
+
+
+def mesh_milp(mesh, label: str, solo: dict, dev="cuda"):
+    """10b: ``solve_milp(mesh=)`` on the bench knapsack, f64, default
+    chaining, an untimed solve then a timed one: the DP oracle and every
+    ``BnbStats`` counter of phase 7's solo f64 solve."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.comm import COUNTS, reset_counts
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+
+    values, weights, cap = bench_knapsack()
+    oracle = dp_knapsack(values, weights, cap)
+    lp = knapsack_lp(values, [weights], [cap])
+    kw = dict(dtype=torch.float64, batch_size=MILP_BATCH, mesh=mesh,
+              device=dev, **mesh_axes(mesh))
+    tpulp_torch.solve_milp(lp, **kw)
+    sync(dev)
+    reset_launches()
+    reset_counts()
+    with FmaLayouts() as lay:
+        t0 = time.perf_counter()
+        sol, st = tpulp_torch.solve_milp(lp, return_stats=True, **kw)
+        sync(dev)
+        secs = time.perf_counter() - t0
+    launches, counts = dict(LAUNCHES), dict(COUNTS)
+    held = fma_layouts_held(dev, lay.plans)
+    if not (sol.status == "optimal" and sol.objective == oracle):
+        raise AssertionError(f"10b {label}: {sol.status} {sol.objective}, "
+                             f"DP oracle {oracle}")
+    if bnb_counters(st) != solo["counters"]:
+        raise AssertionError(f"10b {label}: BnbStats {bnb_counters(st)} "
+                             f"differ from the solo solve's "
+                             f"{solo['counters']}")
+    if st.gen_waves == 0:
+        raise AssertionError(f"10b {label}: no device generation ran")
+    if dev == "cuda" and launches["fused_fma"] == 0:
+        raise AssertionError(f"10b {label}: fused_fma never launched")
+    log(f"# 10b solve_milp(mesh {label}) bench knapsack f64: optimal "
+        f"{sol.objective} = DP oracle, every BnbStats counter phase 7's; "
+        + milp_stats_line(st, secs)
+        + f" (phase 7 solo {solo['nodes_per_s']:.1f} nodes/s); "
+        f"{sum(counts.values())} collectives; launches {launches}; the "
+        f"FMA's {held} operand layouts bit for bit the CPU's addcmul")
+    return {"seconds": secs, "nodes": st.nodes_solved, "fma_layouts": held,
+            "nodes_per_s": st.nodes_solved / secs,
+            "solo_nodes_per_s": solo["nodes_per_s"],
+            "gen_waves": st.gen_waves, "collectives": sum(counts.values()),
+            "launches": launches}
+
+
+def spans_knapsack(dev="cuda"):
+    """10c: ``solve_milp(node_encoding="spans")`` on the bench knapsack,
+    f64: the DP oracle; nodes and nodes/s."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+
+    values, weights, cap = bench_knapsack()
+    oracle = dp_knapsack(values, weights, cap)
+    reset_launches()
+    with FmaLayouts() as lay:
+        t0 = time.perf_counter()
+        sol, st = tpulp_torch.solve_milp(
+            knapsack_lp(values, [weights], [cap]), dtype=torch.float64,
+            batch_size=MILP_BATCH, node_encoding="spans", return_stats=True,
+            device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    held = fma_layouts_held(dev, lay.plans)
+    if not (sol.status == "optimal" and sol.objective == oracle):
+        raise AssertionError(f"10c spans: {sol.status} {sol.objective}, "
+                             f"DP oracle {oracle}")
+    if dev == "cuda" and launches["fused_fma"] == 0:
+        raise AssertionError("10c spans: fused_fma never launched")
+    log(f"# 10c solve_milp(node_encoding='spans') bench knapsack f64: "
+        f"optimal {sol.objective} = DP oracle; {st.nodes_solved} nodes in "
+        f"{st.waves} cold waves, {secs:.2f} s = "
+        f"{st.nodes_solved / secs:.1f} nodes/s; launches {launches}; the "
+        f"FMA's {held} operand layouts bit for bit the CPU's addcmul")
+    return {"seconds": secs, "nodes": st.nodes_solved, "waves": st.waves,
+            "fma_layouts": held,
+            "nodes_per_s": st.nodes_solved / secs, "launches": launches}
+
+
+def phase_batch_mesh(milp_solo: dict, dev="cuda"):
+    """Phase 10: a one-process NCCL group, a (batch, cols) mesh of shape
+    (1, 1) and a 1-D ("batch",) mesh; 10a-10d. The group is destroyed at
+    the end."""
+    import os
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import tpulp_torch
+    from tpulp_torch.comm import init_distributed
+    from tpulp_torch.entry import dryrun_multichip
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device=dev)
+    res = {}
+    try:
+        meshes = {"1x1": init_device_mesh(dev, (1, 1),
+                                          mesh_dim_names=("batch", "cols")),
+                  "batch": init_device_mesh(dev, (1,),
+                                            mesh_dim_names=("batch",))}
+        scens, _ = scenario_batch()
+        sync(dev)
+        t0 = time.perf_counter()
+        solo = tpulp_torch.solve_lp_batch(scens, device=dev)
+        sync(dev)
+        t_solo = time.perf_counter() - t0
+        if dev == "cuda":
+            # a mesh of another device type than the state's raises
+            try:
+                tpulp_torch.solve_lp_batch(scens[:2], mesh=meshes["1x1"],
+                                           device="cpu")
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("a cuda mesh with device='cpu' did "
+                                     "not raise")
+        for label, mesh in meshes.items():
+            t0 = time.perf_counter()
+            res[f"lp_batch_{label}"] = mesh_lp_batch(mesh, label, scens,
+                                                     solo, t_solo, dev)
+            res[f"milp_{label}"] = mesh_milp(mesh, label, milp_solo, dev)
+            log(f"# 10a+10b on mesh {label}: "
+                f"{time.perf_counter() - t0:.1f} s")
+        res["spans"] = spans_knapsack(dev)
+        t0 = time.perf_counter()
+        dryrun_multichip(1, device=dev)
+        res["dryrun_seconds"] = time.perf_counter() - t0
+        log(f"# 10d dryrun_multichip(1) in process: "
+            f"{res['dryrun_seconds']:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
 def main() -> int:
     import contextlib
     import io
@@ -2312,6 +2616,12 @@ def main() -> int:
     mesh = phase_mesh(main_path["objective"])
     log(f"# phase 9 (mesh): {time.perf_counter() - t0:.1f} s")
 
+    # 10: the batch half of multi-device solving over a one-process NCCL
+    # group; each of its runs reads its own launch counts
+    t0 = time.perf_counter()
+    batch_mesh = phase_batch_mesh(milp["bench_knapsack_float64"])
+    log(f"# phase 10 (batch mesh): {time.perf_counter() - t0:.1f} s")
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m.startswith("jax.") or m == "tpulp"
                     or m.startswith("tpulp."))
@@ -2354,7 +2664,16 @@ def main() -> int:
             mesh["blocked"]["launches"]["fused_fma"],
         "sharded_rank1_p1_float64": mesh["rank1"]["launches"]["fused_fma"],
         "sharded_bounded_p1_float64":
-            mesh["bounded"]["mesh"]["launches"]["fused_fma"]}
+            mesh["bounded"]["mesh"]["launches"]["fused_fma"],
+        **{f"{path}_float64": batch_mesh[path]["launches"]["fused_fma"]
+           for path in ("lp_batch_1x1", "lp_batch_batch", "milp_1x1",
+                        "milp_batch", "spans")}}
+    # phase 10's paths: the operand layouts of their launches, each held
+    # bit for bit against the CPU's addcmul
+    kernels[2]["layouts_held_by_path"] = {
+        f"{path}_float64": batch_mesh[path]["fma_layouts"]
+        for path in ("lp_batch_1x1", "lp_batch_batch", "milp_1x1",
+                     "milp_batch", "spans")}
     # the flush runs on two main paths: the kernel engine of phase 5 (its
     # ``launches``) and the sharded blocked driver of phase 9a, which
     # flushes each rank's (m+2, n/P) block
@@ -2372,7 +2691,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,
                     "bench": bench, "milp": milp, "exact": exact,
-                    "mesh": mesh}))
+                    "mesh": mesh, "batch_mesh": batch_mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -246,7 +246,9 @@ class TestWarmBatch:
 
 @pytest.mark.parametrize("option", [{"mesh": object()}], ids=["mesh"])
 def test_batch_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``mesh=`` (ported since; tests/test_torch_mesh_batch.py runs it)
+    takes a DeviceMesh and nothing else."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         solve_lp_batch(to_port([_textbook()]), device="cpu", **option)
 
 

@@ -189,9 +189,14 @@ def test_save_and_warm_basis_round_trip(files):
 
 
 def test_spans_node_encoding_raises(files):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(port_cli, ["solve", files["milp"], "--node-encoding", "spans",
-                       *CPU])
+    """``--node-encoding spans`` (once a NotImplementedError here) gives
+    tpulp's JSON; tpulp's span-encoded run on the same file is the
+    reference."""
+    argv = ["solve", files["milp"], "--node-encoding", "spans"]
+    rc_j, ref, _ = run(tpulp_cli, argv)
+    rc_p, out, _ = run(port_cli, argv + CPU)
+    assert rc_j == rc_p == 0
+    assert out == ref and out["status"] == "optimal"
 
 
 def test_default_device_is_cuda(files):

@@ -58,3 +58,13 @@ def test_dryrun_multichip_two_gloo_processes(capfd):
     out = capfd.readouterr().out
     assert "dryrun_multichip(2) on cpu" in out
     assert "bit for bit" in out and "17-element psum" in out
+
+
+def test_dryrun_multichip_four_gloo_processes_both_halves(capfd):
+    """Both halves over four processes: the (batch 2, cols 2) mesh's
+    batched step, full solve and MILP wave, then the 1-D cols mesh's."""
+    port_entry.dryrun_multichip(4, device="cpu")
+    out = capfd.readouterr().out
+    assert "dryrun_multichip(4) on cpu: 2-D mesh (batch 2, cols 2)" in out
+    assert "step bit for bit the solo batched step's" in out
+    assert "MILP optimal z=16" in out and "17-element psum" in out

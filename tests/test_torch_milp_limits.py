@@ -14,7 +14,7 @@ import tpulp_torch
 from tpulp_torch.io import (load_bnb_frontier, load_state, save_bnb_frontier,
                             save_state)
 
-from test_torch_milp import dp_oracle, knapsack
+from test_torch_milp import COUNTERS, dp_oracle, knapsack
 
 from test_torch_model import to_port
 
@@ -131,9 +131,20 @@ def test_state_checkpoint_round_trip(tmp_path):
     {"mesh": object()}, {"node_encoding": "spans"},
 ], ids=["mesh", "spans"])
 def test_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpulp_torch.solve_milp(to_port(knapsack(4, 0)[0]), device="cpu",
-                               **option)
+    """The two options once refused here: ``mesh=`` takes a DeviceMesh and
+    nothing else, and ``node_encoding='spans'`` runs tpulp's tree."""
+    lp = knapsack(4, 0)[0]
+    if "mesh" in option:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            tpulp_torch.solve_milp(to_port(lp), device="cpu", **option)
+        return
+    ref, rst = jbnb.solve_milp(lp, return_stats=True, **option)
+    out, ost = tpulp_torch.solve_milp(to_port(lp), return_stats=True,
+                                      device="cpu", **option)
+    assert (out.status, out.objective, out.x) == \
+        (ref.status, ref.objective, ref.x)
+    assert {k: getattr(ost, k) for k in COUNTERS} == \
+        {k: getattr(rst, k) for k in COUNTERS}
 
 
 def test_bad_arguments_raise_like_tpulp():

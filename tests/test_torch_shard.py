@@ -748,13 +748,15 @@ def test_mesh_checks_its_type_and_device():
 
 @pytest.mark.parametrize("entry", ["solve_lp_batch", "solve_milp"])
 def test_batch_mesh_still_raises_naming_its_item(entry):
+    """The batch entries' ``mesh=`` (ported since:
+    tests/test_torch_mesh_batch.py) refuses anything but a DeviceMesh,
+    naming it, as ``solve_lp`` does."""
     import tpulp_torch
     from test_torch_model import to_port
 
     lp = to_port(_lp("textbook"))
     args = ([lp],) if entry == "solve_lp_batch" else (lp,)
-    with pytest.raises(NotImplementedError,
-                       match="item 2, the batch half of multi-device"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         getattr(tpulp_torch, entry)(*args, mesh=object(), device="cpu")
 
 

@@ -20,11 +20,15 @@ in one wave of lanes (rank-1, rank-K blocked or bounded), and
 such waves. ``python -m tpulp_torch`` is the command line. With
 ``mesh=`` (``tpulp_torch.shard.make_mesh()`` over a ``torch.distributed``
 group, ``tpulp_torch.comm.init_distributed``) ``solve_lp`` column-shards
-one LP over the group's processes, one device each.
+one LP over the group's processes, one device each, and
+``solve_lp_batch`` / ``solve_milp`` split their lanes over a ``batch``
+axis and each lane's columns over a ``cols`` axis of a ``DeviceMesh``.
 """
 
-from .model import (LinCon, LinExpr, LinProg, LinVar, StandardForm,
-                    lower_to_standard_form)
+from .model import (MAX, MIN, LinCon, LinExpr, LinProg, LinVar,
+                    StandardForm, lower_to_standard_form)
+from .simplex import Simplex, SolveStatus
+from .tableau import Tableau
 
 from .batch import solve_lp_batch
 from .core import SimplexState, SolverOptions, Status, make_state
@@ -37,8 +41,16 @@ from .solve import (BoundedState, RangingReport, Solution,
                     run_simplex_devex, run_simplex_refreshed, solve_lp,
                     solve_standard_form, verify_farkas, verify_ray,
                     warm_state_from_basis)
+from .io.mps import read_mps, write_mps
 
 __all__ = [
+    "Tableau",
+    "Simplex",
+    "SolveStatus",
+    "MIN",
+    "MAX",
+    "read_mps",
+    "write_mps",
     "LinProg",
     "LinExpr",
     "LinCon",

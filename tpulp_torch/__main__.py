@@ -152,7 +152,6 @@ def _cmd_solve(args) -> int:
         if args.branching != "most_fractional":
             kwargs["branching"] = args.branching
         if args.node_encoding != "rows":
-            # solve_milp raises NotImplementedError for 'spans'
             kwargs["node_encoding"] = args.node_encoding
         if args.device_generations is not None:
             kwargs["device_generations"] = args.device_generations
@@ -298,8 +297,10 @@ def main(argv=None) -> int:
                     help="MILP branch-variable rule")
     p1.add_argument("--node-encoding", default="rows",
                     choices=["rows", "spans"], dest="node_encoding",
-                    help="MILP node encoding; 'spans' is not ported and "
-                         "raises NotImplementedError")
+                    help="MILP node encoding. 'spans' (bound-free tableaus, "
+                         "cold waves of the bounded batch driver) is the "
+                         "experimental mode tpulp measured slower than "
+                         "'rows'; keep the default unless comparing them")
     p1.add_argument("--certificates", action="store_true",
                     help="attach an exact PROOF to a terminal LP verdict: "
                          "infeasible -> Farkas vector (y.A <= 0, y.b > 0), "

@@ -12,9 +12,9 @@ artificial columns keep phase 1 uniform. The batch is the engine under
 ``solve_lp_batch(driver="blocked")`` runs the rank-K blocked driver over
 the lanes instead, and ``simple_bounds=True`` the bounded-variable step on
 a batched ``BoundedState`` (no bound rows in any lane's tableau).
-
-Not ported yet, and raising NotImplementedError: ``mesh`` (ROADMAP queue
-A, item 2: the batch half of multi-device solving).
+``solve_lp_batch(mesh=...)`` splits the lanes over the mesh's ``batch``
+axis and each lane's columns over its ``cols`` axis
+(``shard.run_simplex_batch_gspmd``).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from ..model.prog import MAX, LinProg
 from ..core.precision import full_precision
 from ..core.state import (SimplexState, SolverOptions, Status, _numpy_state,
                           from_numpy_state, make_state)
-from ..solve.api import (Solution, _device, _not_ported,
+from ..solve.api import (Solution, _check_mesh, _device,
                          solve_standard_form)
 from ..solve.blocked import run_simplex_blocked_batch
 from ..solve.bounded import BoundedState, run_simplex_bounded_batch
@@ -50,6 +50,7 @@ __all__ = [
     "make_batched_states",
     "make_batched_bounded_states",
     "run_simplex_batch",
+    "pad_batched_columns",
     "solve_lp_batch",
     "extract_batch_solutions",
     "extract_batch_bounded_solutions",
@@ -145,6 +146,36 @@ def make_batched_bounded_states(sfs: Sequence[StandardForm],
     )
 
 
+def pad_batched_columns(batched: SimplexState, multiple: int
+                        ) -> SimplexState:
+    """The batched tableau's width ``n+1`` padded to a multiple of
+    ``multiple`` with zero columns inserted before the RHS column, never
+    priced (``col_active`` False) and never basic, so walks are unchanged:
+    the divisibility that ``shard.run_simplex_batch_gspmd`` needs of the
+    ``cols`` axis."""
+    width = batched.T.shape[2]
+    pad = (-width) % multiple
+    if pad == 0:
+        return batched
+    B, M, _ = batched.T.shape
+    T = torch.cat([batched.T[:, :, :-1],
+                   torch.zeros((B, M, pad), dtype=batched.T.dtype,
+                               device=batched.T.device),
+                   batched.T[:, :, -1:]], dim=2)
+    fmask = torch.zeros((B, pad), dtype=torch.bool, device=batched.T.device)
+    return batched._replace(
+        T=T,
+        col_active=torch.cat([batched.col_active, fmask], dim=1),
+        art_cols=torch.cat([batched.art_cols, fmask], dim=1))
+
+
+def mesh_axis_size(mesh, axis) -> int:
+    """The size of ``axis`` in ``mesh``; 1 where the mesh has no such
+    axis."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
 @full_precision()
 def run_simplex_batch(batched: SimplexState,
                       opts: SolverOptions | None = None) -> SimplexState:
@@ -171,6 +202,8 @@ def solve_lp_batch(
     block: int = 32,
     simple_bounds: bool = False,
     mesh=None,
+    batch_axis: str = "batch",
+    cols_axis: str = "cols",
     warm_start: Optional[Solution] = None,
     device="cuda",
     **opt_overrides,
@@ -192,15 +225,22 @@ def solve_lp_batch(
     rows and runs the bounded-variable step over the lanes; otherwise spans
     become explicit bound rows (the same optimum).
 
+    ``mesh`` (a ``DeviceMesh`` whose device type is ``device``'s, every
+    process calling alike) splits the lanes over ``batch_axis`` and each
+    lane's columns over ``cols_axis`` where the mesh has it
+    (``shard.run_simplex_batch_gspmd``): lanes are padded to a multiple of
+    the batch axis's size by replicating lane 0, the tableau width to the
+    cols axis's size, and every process extracts the same Solutions from
+    the gathered terminal state. It runs the rank-1 driver on row-form
+    bounds.
+
     ``return_state=True`` returns ``(solutions, out_state, lane_of)``:
     the terminal batched state and the lane of each problem (-1 for a
     trivially infeasible one that never reached the device). ``pad_to``
     replicates lane 0 up to a fixed batch width; padded lanes run but are
     never extracted."""
-    if mesh is not None:
-        raise _not_ported("solve_lp_batch(mesh=...)",
-                          "item 2, the batch half of multi-device solving")
     dev = _device(device)
+    _check_mesh(mesh, dev, device)
     if options is None:
         options = SolverOptions.for_dtype(dtype)
     if opt_overrides:
@@ -218,7 +258,7 @@ def solve_lp_batch(
     if not solvable:
         return (results, None, [-1] * len(sfs)) if return_state else results
     if warm_start is not None:
-        if simple_bounds:
+        if simple_bounds or mesh is not None:
             raise ValueError(
                 "warm_start batching supports the plain row-form batch "
                 "path only (no mesh, no simple_bounds)")
@@ -228,7 +268,29 @@ def solve_lp_batch(
         sf_batch = [sfs[i] for i in solvable]
         if pad_to is not None and len(sf_batch) < pad_to:
             sf_batch = sf_batch + [sf_batch[0]] * (pad_to - len(sf_batch))
-        if simple_bounds:
+        if mesh is not None:
+            if simple_bounds:
+                raise ValueError(
+                    "mesh batching has no sharded bounded-variable wave "
+                    "yet; use simple_bounds=False (bounds become explicit "
+                    "rows)")
+            if driver != "rank1":
+                raise ValueError(
+                    "mesh batching runs the lane-sharded rank-1 wave; use "
+                    "driver='rank1'")
+            from ..shard.sharded import run_simplex_batch_gspmd
+
+            lane_pad = (-len(sf_batch)) % mesh_axis_size(mesh, batch_axis)
+            sf_batch = sf_batch + [sf_batch[0]] * lane_pad
+            batched = pad_batched_columns(
+                make_batched_states(sf_batch, dtype=dtype, device=dev),
+                mesh_axis_size(mesh, cols_axis))
+            out = run_simplex_batch_gspmd(batched, mesh, options,
+                                          batch_axis=batch_axis,
+                                          cols_axis=cols_axis)
+            extracted = extract_batch_solutions(
+                [sfs[i] for i in solvable], out, refine)
+        elif simple_bounds:
             bout = run_simplex_bounded_batch(make_batched_bounded_states(
                 sf_batch, dtype=dtype, device=dev), options)
             out = bout.s

@@ -17,6 +17,12 @@ one for a whole solve.
 ``COUNTS`` counts every call by ``(kind, dtype, elements)``, where the
 elements are those one rank contributes; ``shard/analysis.py`` reads it
 to check the drivers' communication structure.
+
+Under ``torch.func.vmap`` (the lane-sharded steps of
+``shard/sharded_batch.py``) a collective goes through a ``torch.library``
+op whose vmap rule runs ONE collective on the whole batched tensor: the
+lanes of a rank share each call, and ``COUNTS`` counts that one call with
+every lane's elements.
 """
 
 from __future__ import annotations
@@ -81,6 +87,81 @@ def _count(kind: str, x: torch.Tensor) -> None:
     COUNTS[(kind, str(x.dtype).replace("torch.", ""), x.numel())] += 1
 
 
+_is_batched = torch._C._functorch.is_batchedtensor
+_REDUCE_OPS = {"psum": dist.ReduceOp.SUM, "pmin": dist.ReduceOp.MIN,
+               "pmax": dist.ReduceOp.MAX}
+# the process groups of the resolved axes, by key: a torch.library op
+# takes no group object, so the ops below name a group by its key
+_GROUPS: list = []
+
+
+def _group_key(group) -> int:
+    for key, g in enumerate(_GROUPS):
+        if g is group:
+            return key
+    _GROUPS.append(group)
+    return len(_GROUPS) - 1
+
+
+def _all_reduce(x: torch.Tensor, key: int, kind: str) -> torch.Tensor:
+    _count(kind, x)
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=_REDUCE_OPS[kind], group=_GROUPS[key])
+    return out
+
+
+def _all_gather(x: torch.Tensor, key: int, size: int) -> torch.Tensor:
+    _count("all_gather", x)
+    send = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
+    parts = [torch.empty_like(send) for _ in range(size)]
+    dist.all_gather(parts, send, group=_GROUPS[key])
+    out = torch.stack(parts)
+    return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+@torch.library.custom_op("tpulp_torch::all_reduce", mutates_args=())
+def all_reduce_op(x: torch.Tensor, key: int, kind: str) -> torch.Tensor:
+    """An all_reduce (``kind`` psum / pmin / pmax) over group ``key``, as
+    a ``torch.library`` op with a vmap rule."""
+    return _all_reduce(x, key, kind)
+
+
+@all_reduce_op.register_fake
+def _(x, key, kind):
+    return torch.empty_like(x)
+
+
+def _all_reduce_vmap(info, in_dims, x, key, kind):
+    # elementwise over the shards: the lanes ride along in place
+    return _all_reduce(x, key, kind), in_dims[0]
+
+
+all_reduce_op.register_vmap(_all_reduce_vmap)
+
+
+@torch.library.custom_op("tpulp_torch::all_gather", mutates_args=())
+def all_gather_op(x: torch.Tensor, key: int, size: int) -> torch.Tensor:
+    """Every shard's ``x`` stacked in shard order over group ``key``, as a
+    ``torch.library`` op with a vmap rule."""
+    return _all_gather(x, key, size)
+
+
+@all_gather_op.register_fake
+def _(x, key, size):
+    return x.new_empty((size,) + tuple(x.shape))
+
+
+def _all_gather_vmap(info, in_dims, x, key, size):
+    # lanes first, gathered behind the shard axis: (P, lanes, ...)
+    d = in_dims[0]
+    if d is None:
+        return _all_gather(x, key, size), None
+    return _all_gather(x.movedim(d, 0), key, size), 1
+
+
+all_gather_op.register_vmap(_all_gather_vmap)
+
+
 class MeshAxis:
     """One axis (or tuple of axes) of a mesh, resolved once."""
 
@@ -90,29 +171,26 @@ class MeshAxis:
         self.group = _group(mesh, axis)
         self.index = axis_index(mesh, axis)
         self.size = axis_size(mesh, axis)
+        self.key = _group_key(self.group)
 
-    def _reduce(self, x: torch.Tensor, op, kind: str) -> torch.Tensor:
-        _count(kind, x)
-        out = x.clone()
-        dist.all_reduce(out, op=op, group=self.group)
-        return out
+    def _reduce(self, x: torch.Tensor, kind: str) -> torch.Tensor:
+        if _is_batched(x):
+            return all_reduce_op(x, self.key, kind)
+        return _all_reduce(x, self.key, kind)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the shards, on every shard."""
-        return self._reduce(x, dist.ReduceOp.SUM, "psum")
+        return self._reduce(x, "psum")
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MIN, "pmin")
+        return self._reduce(x, "pmin")
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MAX, "pmax")
+        return self._reduce(x, "pmax")
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's ``x`` stacked in shard order: ``(P, *x.shape)``."""
-        _count("all_gather", x)
-        send = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-        parts = [torch.empty_like(send) for _ in range(self.size)]
-        dist.all_gather(parts, send, group=self.group)
-        out = torch.stack(parts)
-        return out.to(torch.bool) if x.dtype == torch.bool else out
+        if _is_batched(x):
+            return all_gather_op(x, self.key, self.size)
+        return _all_gather(x, self.key, self.size)
 

@@ -1,4 +1,5 @@
-"""Core state: tableau tensors, solver options and status codes."""
+"""Core state: tableau tensors, solver options, status codes and form
+predicates."""
 
 from .precision import full_precision
 from .state import (
@@ -11,10 +12,18 @@ from .state import (
     SimplexState,
     SolverOptions,
     Status,
+    canonical_dtype,
     eta_scaled_options,
     from_numpy_state,
     make_state,
     to_numpy_state,
+)
+from .predicates import (
+    is_canonical,
+    is_degenerate,
+    is_infeasible_form,
+    is_optimal,
+    is_unbounded,
 )
 
 __all__ = [
@@ -22,6 +31,7 @@ __all__ = [
     "SolverOptions",
     "Status",
     "make_state",
+    "canonical_dtype",
     "from_numpy_state",
     "to_numpy_state",
     "eta_scaled_options",
@@ -32,4 +42,9 @@ __all__ = [
     "RULE_DEVEX",
     "TIE_FIRST",
     "TIE_MAXPIV",
+    "is_canonical",
+    "is_degenerate",
+    "is_infeasible_form",
+    "is_optimal",
+    "is_unbounded",
 ]

@@ -152,6 +152,12 @@ def _torch_dtype(dtype) -> torch.dtype:
     raise ValueError(f"unsupported iterate dtype {dtype!r}")
 
 
+def canonical_dtype(dtype) -> torch.dtype:
+    """The torch dtype the port iterates in for ``dtype`` (tpulp's resolves
+    JAX's float64-to-float32 truncation; torch keeps float64)."""
+    return _torch_dtype(dtype)
+
+
 # rank-K engines rebuild the entering column from up to K etas; at f32 that
 # reconstruction carries ~1e-4 relative noise, so their ratio test needs
 # this pivot tolerance (the same floor as tpulp's)

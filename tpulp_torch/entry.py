@@ -2,13 +2,16 @@
 
 The counterpart of ``__graft_entry__.py``. ``entry()`` returns ``(fn,
 example_args)``: one ``simplex_step`` of the port on a small seeded
-state, the solver's "forward step". ``dryrun_multichip(n)`` runs the
-explicit column-sharded drivers over an n-process ``("cols",)`` mesh: one
-rank-1 step and one blocked pivot with its flush, each held against the
-solo driver, and the blocked driver's collective structure
-(``shard.analysis.assert_fused_psum``). tpulp's dry run also steps a
-batch over a 2-D ``(batch, cols)`` mesh and runs a MILP wave there; that
-half waits for the batch slice of multi-device solving (ROADMAP queue A).
+state, the solver's "forward step". ``dryrun_multichip(n)`` runs both
+halves of tpulp's dry run over n processes. On a 2-D ``(batch, cols)``
+mesh (``batch`` 2 when n is even and above 1): one lane-sharded batched
+step (every lane pivots, and the gathered batch equals the solo batched
+step's bit for bit), the full ``run_simplex_batch_gspmd`` (every lane
+terminates) and a 4-item knapsack MILP over the mesh (objective 16, the
+solo solve's). On a 1-D ``("cols",)`` mesh: one explicit rank-1 step and
+one blocked pivot with its flush, each held against the solo driver, and
+the blocked driver's collective structure
+(``shard.analysis.assert_fused_psum``).
 
     python -m tpulp_torch.entry [N] [--device cpu|cuda]
 """
@@ -59,6 +62,89 @@ def entry(dtype=torch.float32, device="cuda"):
     return fn, (state,)
 
 
+def _knapsack():
+    """The dry run's MILP: max 4a + 7b + 9c + 12d, 3a + 5b + 7c + 9d <= 12,
+    binary (``__graft_entry__``'s; the optimum is 16)."""
+    from .model import LinExpr, LinProg
+
+    lp = LinProg("dryrun_knapsack")
+    obj, con = LinExpr(), LinExpr()
+    for k, (w, v) in enumerate(zip([3, 5, 7, 9], [4, 7, 9, 12])):
+        lp.addVar(f"x{k}", integral=True, lb=0, ub=1)
+        obj += LinExpr(v, f"x{k}")
+        con += LinExpr(w, f"x{k}")
+    lp.maximize(obj)
+    lp.addConstraint(con.constraintLeq(12))
+    return lp
+
+
+def _dryrun_2d(device: str) -> str:
+    """The 2-D half: a ``(batch, cols)`` mesh over the group."""
+    from fractions import Fraction
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .batch.vmap_driver import stack_states
+    from .core import SolverOptions
+    from .milp import solve_milp
+    from .shard import run_simplex_batch_gspmd
+    from .shard.sharded_batch import (LaneMesh, join_frames,
+                                      run_simplex_batch_sharded,
+                                      split_frames)
+    from .solve.driver import simplex_step
+    from .solve.dual import run_lanes
+
+    n_dev = dist.get_world_size()
+    n_batch = 2 if n_dev % 2 == 0 and n_dev > 1 else 1
+    n_cols = n_dev // n_batch
+    mesh = init_device_mesh(device, (n_batch, n_cols),
+                            mesh_dim_names=("batch", "cols"))
+    opts = SolverOptions()
+    # the tableau width n+1 must divide the cols axis: pad the structural
+    # columns, as tpulp's dry run does
+    m, n_struct = 8, 12
+    pad = (-(n_struct + m + 1)) % n_cols
+    batched = stack_states([
+        _tiny_state(m=m, n=n_struct + pad, seed=i, device=device)
+        for i in range(2 * n_batch)])
+    n = batched.T.shape[2] - 1
+    stall = opts.resolved_stall_limit(m, n)
+
+    # one batched sharded step: every lane pivots, and the gathered batch
+    # is the solo batched step's, bit for bit
+    lm = LaneMesh(mesh)
+    one = run_simplex_batch_sharded(
+        split_frames(lm.to_frames(lm.mine(batched))), lm.lay_c, opts,
+        stall, max_iters=1)
+    one = lm.from_frames(lm.gather(join_frames(one)), n)
+    solo = run_lanes(lambda s: simplex_step(s, opts, stall, 1), batched, 1)
+    if not (int(one.niter.min()) >= 1 and torch.equal(one.T, solo.T)
+            and torch.equal(one.basis, solo.basis)):
+        raise AssertionError("the lane-sharded step differs from the solo "
+                             "batched step")
+    # the full batched solve: every lane terminates
+    full = run_simplex_batch_gspmd(batched, mesh, opts)
+    statuses = {int(v) for v in full.status.tolist()}
+    if not statuses <= {1, 2, 3}:
+        raise AssertionError(f"unterminated 2-D lanes: {statuses}")
+    # a MILP over the mesh: the solo optimum
+    bs = 2 * n_batch
+    sol, stats = solve_milp(_knapsack(), batch_size=bs, mesh=mesh,
+                            return_stats=True, device=device)
+    ref = solve_milp(_knapsack(), batch_size=bs, device=device)
+    if not (sol.status == ref.status == "optimal"
+            and sol.objective == ref.objective == Fraction(16)):
+        raise AssertionError(f"2-D mesh MILP: {sol.status} "
+                             f"{sol.objective}, solo {ref.status} "
+                             f"{ref.objective}")
+    return (f"2-D mesh (batch {n_batch}, cols {n_cols}): one lane-sharded "
+            f"step bit for bit the solo batched step's; the full batched "
+            f"solve's statuses {sorted(statuses)}; MILP {sol.status} "
+            f"z={sol.objective} ({stats.nodes_solved} nodes, the solo "
+            f"objective)")
+
+
 def _dryrun_body(device: str) -> str:
     """The dry run on this process, inside an initialised group."""
     import dataclasses
@@ -104,7 +190,9 @@ def _dryrun_body(device: str) -> str:
         raise AssertionError("the sharded blocked step differs from the "
                              "solo blocked step")
     comm = assert_fused_psum(mesh, m=6, n=10, block=8)
-    return (f"dryrun_multichip({n_dev}) on {mesh.device_type}: 1-D mesh "
+    half2d = _dryrun_2d(device)
+    return (f"dryrun_multichip({n_dev}) on {mesh.device_type}: {half2d}; "
+            f"1-D mesh "
             f"{tuple(mesh.mesh_dim_names)}; one rank-1 step bit for bit the "
             f"solo step's; one blocked pivot + flush equal to the solo "
             f"blocked driver's (status {int(blk.status)}); collectives a "
@@ -133,7 +221,7 @@ def _dryrun_rank(rank: int, n_devices: int, port: int, device: str) -> None:
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
-    """Run the sharded drivers' dry run over ``n_devices`` processes: in
+    """Run both halves of the dry run over ``n_devices`` processes: in
     this process when it already belongs to a group of that size (each
     process of the group calls it), else in ``n_devices`` processes it
     spawns on this host (gloo on ``cpu``, NCCL on ``cuda``, one card

@@ -19,10 +19,10 @@ and the same exact answers.
 * Bounds are exact rationals at ``m <= exact_max_m`` (``refine='auto'``)
   and float64 with a pruning margin above; every incumbent is verified by
   an exact basis solve, so the reported optimum is exact either way.
-
-Not ported yet, and raising NotImplementedError: ``mesh`` (ROADMAP queue
-A, item 2: the batch half of multi-device solving) and
-``node_encoding='spans'`` (item 3).
+* With ``mesh=`` the waves run over a ``(batch, cols)`` DeviceMesh
+  (``shard.sharded_waves``); every process runs this scheduler on
+  replicated values. ``node_encoding='spans'`` branches on bound vectors
+  instead of rows (``milp.spans``).
 """
 
 from __future__ import annotations
@@ -42,9 +42,11 @@ from ..model.lower import StandardForm, lower_to_standard_form
 from ..model.prog import LinProg
 
 from ..batch.vmap_driver import (extract_batch_solutions, make_batched_states,
+                                 mesh_axis_size, pad_batched_columns,
                                  run_simplex_batch)
 from ..core.state import SimplexState, SolverOptions, Status, _torch_dtype
-from ..solve.api import Solution, _device, _not_ported, solve_standard_form
+from ..solve.api import (Solution, _check_mesh, _device,
+                         solve_standard_form)
 from ..solve.dual import (new_pool, pack_wave_summary, pool_write,
                           run_expand_generation, run_warm_batch,
                           run_warm_wave)
@@ -88,7 +90,9 @@ class BnbStats:
     # without a host round trip, and the nodes they solved
     gen_waves: int = 0
     gen_nodes: int = 0
-    pool_bytes: int = 0  # device bytes of the state pool (sink row included)
+    # device bytes of the state pool (sink row included); on a mesh, this
+    # process's: its column shard of every slot
+    pool_bytes: int = 0
 
 
 Bounds = Dict[str, Tuple[Fraction, Fraction]]
@@ -215,6 +219,8 @@ def solve_milp(
     branching: str = "most_fractional",
     node_encoding: str = "rows",
     mesh=None,
+    batch_axis: str = "batch",
+    cols_axis: str = "cols",
     device_generations: int = 6,
     device="cuda",
     **opt_overrides,
@@ -245,14 +251,23 @@ def solve_milp(
     ``checkpoint_path`` writes the frontier and incumbent every
     ``checkpoint_every`` waves (exact 'p/q' JSON, ``tpulp_torch.io``, the
     format of ``tpulp.io.checkpoint``); ``resume_from`` restarts from such
-    a file, tpulp's included."""
-    if mesh is not None:
-        raise _not_ported("solve_milp(mesh=...)",
-                          "item 2, the batch half of multi-device solving")
-    if node_encoding == "spans":
-        raise _not_ported("solve_milp(node_encoding='spans')",
-                          "item 3, span-encoded nodes")
+    a file, tpulp's included.
+
+    ``mesh`` (a ``DeviceMesh`` whose device type is ``device``'s, every
+    process calling alike) runs every wave over it: the node template,
+    the state pool and the waves' states split each lane's columns over
+    ``cols_axis`` (where the mesh has it), and each wave's lanes over
+    ``batch_axis``; ``batch_size`` must be a multiple of that axis's size.
+    The scheduler, the pool bookkeeping, pruning and the exact incumbent
+    checks are unchanged, and every process returns the same Solution.
+
+    ``node_encoding='spans'`` (``milp.spans``) lowers the root with simple
+    bounds and branches by rewriting bound vectors: no bound rows, cold
+    waves of the bounded batch driver. It takes no checkpoint, resume,
+    ``time_limit`` or ``gap_tol``, nor a mesh, and needs a finite lower
+    bound on every integer variable."""
     dev = _device(device)
+    _check_mesh(mesh, dev, device)
     _t_solve0 = time.perf_counter()
 
     def _time_left():
@@ -260,6 +275,15 @@ def solve_milp(
         if time_limit is None:
             return None
         return max(0.0, time_limit - (time.perf_counter() - _t_solve0))
+
+    def _agree(flag: bool) -> bool:
+        """A host decision every process of the mesh takes alike: true if
+        it holds on any process (a clock read differs between them)."""
+        if mesh is None:
+            return flag
+        from ..shard.sharded_waves import any_process
+
+        return any_process(mesh, flag)
 
     if options is None:
         options = SolverOptions.for_dtype(dtype)
@@ -280,11 +304,14 @@ def solve_milp(
             sol = Solution(status=res.status)
             return (sol, BnbStats()) if return_stats else sol
         if res.unbounded_if_feasible:
+            # on the mesh, so that its time checks go through _agree
             feas = solve_milp(res.prog, options=options, dtype=dtype,
                               batch_size=batch_size, max_nodes=max_nodes,
                               time_limit=_time_left(),
                               refine=refine, exact_max_m=exact_max_m,
-                              int_tol=int_tol, presolve=False, device=dev)
+                              int_tol=int_tol, presolve=False, mesh=mesh,
+                              batch_axis=batch_axis, cols_axis=cols_axis,
+                              device=dev)
             if feas.status == "infeasible":
                 sol = Solution(status="infeasible")
             elif feas.status == "optimal" or feas.x is not None:
@@ -309,7 +336,8 @@ def solve_milp(
                              checkpoint_every=checkpoint_every,
                              resume_from=resume_from,
                              presolve=False, branching=branching,
-                             node_encoding=node_encoding,
+                             node_encoding=node_encoding, mesh=mesh,
+                             batch_axis=batch_axis, cols_axis=cols_axis,
                              device_generations=device_generations,
                              device=dev, **opt_overrides)
             sol, st = out if return_stats else (out, None)
@@ -327,6 +355,32 @@ def solve_milp(
         sol = solve_lp(prog, options=options, dtype=dtype, refine="exact",
                        device=dev)
         return (sol, stats) if return_stats else sol
+
+    if mesh is not None:
+        if node_encoding != "rows":
+            raise ValueError("mesh MILP solving supports node_encoding="
+                             "'rows' only")
+        bsz = mesh_axis_size(mesh, batch_axis)
+        if batch_size % bsz:
+            raise ValueError(
+                f"batch_size ({batch_size}) must be a multiple of the "
+                f"'{batch_axis}' mesh axis size ({bsz})")
+    if node_encoding == "spans":
+        # bound-vector node encoding over the batched bounded driver: no
+        # bound rows in any node tableau; cold waves (a documented mode of
+        # tpulp's, measured slower than 'rows' there)
+        if checkpoint_path is not None or resume_from is not None:
+            raise ValueError("node_encoding='spans' does not support "
+                             "checkpoint/resume yet; use 'rows'")
+        if time_limit is not None or gap_tol > 0.0:
+            raise ValueError("node_encoding='spans' does not support "
+                             "time_limit/gap_tol; use 'rows'")
+        from .spans import solve_milp_spans
+
+        return solve_milp_spans(
+            prog, options=options, dtype=dtype, batch_size=batch_size,
+            max_nodes=max_nodes, refine=refine, int_tol=int_tol,
+            return_stats=return_stats, device=dev)
     if node_encoding != "rows":
         raise ValueError(f"unknown node_encoding {node_encoding!r}")
 
@@ -436,6 +490,13 @@ def solve_milp(
     root_unbounded = False
     R_dev = const_dev = None  # device recover map for the integrality check
     template = art_row_mask = None  # device-resident batched wave template
+    root_T = root_masks = None  # the template's first lane, full width
+    # the wave engines: the solo ones, or a mesh's (chosen with the
+    # template)
+    cold_wave, warm_batch, warm_wave, expand_generation = (
+        run_simplex_batch, run_warm_batch, run_warm_wave,
+        run_expand_generation)
+    waves = None
     deferred = None   # (out, slots, lanes): pool writes riding the next wave
     last_out = None   # previous wave's terminal state (deferred-write source)
     warm_masks = None  # (col_active, art_cols) phase-2 masks of the root
@@ -455,7 +516,7 @@ def solve_milp(
     def _pool_init():
         nonlocal pool_T, pool_basis, pool_cap, free_slots
         bytes_per = ((root_sf.m + 2)
-                     * (template.T.shape[2]) * template.T.element_size())
+                     * (root_T.shape[1]) * template.T.element_size())
         pool_cap = int(min(POOL_CAP_MAX, max(4 * batch_size, 64),
                            max(64, 512_000_000 // max(bytes_per, 1))))
         pool_T, pool_basis = new_pool(pool_cap, template.T.shape[1:],
@@ -621,7 +682,7 @@ def solve_milp(
         tol_dev = torch.tensor(int_tol, dtype=gdt, device=dev)
         _tg0 = time.perf_counter()
         for _g in range(device_generations - 1):
-            outg, summg, actg, lbg, ubg, eg = run_expand_generation(
+            outg, summg, actg, lbg, ubg, eg = expand_generation(
                 cur_T, cur_b, cur_summ, cur_act, cur_lb, cur_ub,
                 warm_masks[0], warm_masks[1], le_c, le_s, ge_c, ge_s,
                 cut_dev, tol_dev, options.max_iters, R_dev, const_dev,
@@ -865,8 +926,8 @@ def solve_milp(
 
     stop_reason: Optional[str] = None
     while frontier and stats.nodes_solved < max_nodes:
-        if time_limit is not None and \
-                time.perf_counter() - _t_solve0 >= time_limit:
+        if time_limit is not None and _agree(
+                time.perf_counter() - _t_solve0 >= time_limit):
             stop_reason = "time_limit"
             break
         if gap_tol > 0.0 and incumbent is not None:
@@ -903,17 +964,36 @@ def solve_milp(
             template, art_cols_host = make_batched_states(
                 [sfs[0]] * batch_size, dtype=dtype, return_host_art=True,
                 device=dev)
+            if mesh is not None:
+                # the mesh waves: the template padded to the cols axis (as
+                # tpulp pads it) and split into this shard's frames, once;
+                # the refreshes, waves and pool inherit that layout
+                from ..shard.sharded_waves import MeshWaves
+
+                template = pad_batched_columns(
+                    template, mesh_axis_size(mesh, cols_axis))
+                art_cols_host = template.art_cols.cpu().numpy()
+                waves = MeshWaves(mesh, template.T.shape[2] - 1,
+                                  batch_axis, cols_axis)
+                cold_wave, warm_batch, warm_wave, expand_generation = (
+                    waves.cold_wave, waves.run_warm_batch,
+                    waves.run_warm_wave, waves.run_expand_generation)
             art_row_mask = torch.tensor(
                 [1.0 if h < 0 else 0.0 for h in root_sf.basis_hint],
                 dtype=template.T.dtype, device=dev)
             art0 = template.art_cols[0]
-            warm_masks = (template.col_active[0] & ~art0, art0)
+            root_T = template.T[0].clone()
+            root_masks = (template.col_active[0] & ~art0, art0)
+            warm_masks = root_masks
+            if waves is not None:
+                warm_masks = tuple(waves.block(x) for x in root_masks)
+                template = waves.to_frames(template)
             art_start_batched = int(art_cols_host[0].argmax()) \
                 if art_cols_host[0].any() else art_cols_host.shape[1]
             _pool_init()
             np_dtype = np.float32 if template.T.dtype == torch.float32 \
                 else np.float64
-            n_batched = template.T.shape[2] - 1
+            n_batched = root_T.shape[1] - 1
             if branch_names:
                 R_np, const_np = _int_recover_matrix(
                     root_sf, branch_names, n_batched, np_dtype)
@@ -964,7 +1044,7 @@ def solve_milp(
             batched = _refresh_template(
                 template, torch.as_tensor(b_mat, dtype=template.T.dtype,
                                           device=dev), art_row_mask)
-            cout = run_simplex_batch(batched, options)
+            cout = cold_wave(batched, options)
             outs.append((cold_idx, cout, False,
                          pack_wave_summary(cout, R_dev, const_dev)))
             t_eng += time.perf_counter() - _te0
@@ -972,16 +1052,14 @@ def solve_milp(
             # resumed nodes with a checkpointed parent basis: rebuild the
             # parent frame from (basis, b) and re-optimize with the dual
             # simplex
-            T0 = template.T[0]
             basis_mat = np.zeros((len(ck_idx), m_rows), np.int32)
             b_ck = np.zeros((len(ck_idx), m_rows), np.float64)
             for lane, k in enumerate(ck_idx):
                 basis_mat[lane] = wave[k][4]
                 b_ck[lane] = [float(v) for v in sfs[k].b]
             _te0 = time.perf_counter()
-            ckout = run_warm_batch(
-                T0[2:, :-1], T0[0, :-1], warm_masks[0],
-                template.art_cols[0], basis_mat,
+            ckout = warm_batch(
+                root_T[2:, :-1], root_T[0, :-1], *root_masks, basis_mat,
                 torch.as_tensor(b_ck, dtype=template.T.dtype, device=dev),
                 options)
             outs.append((ck_idx, ckout, True,
@@ -1011,7 +1089,7 @@ def solve_milp(
             ipack[:len(wlanes), 3] = wlanes
             deferred = None
             _te0 = time.perf_counter()
-            pool_T, pool_basis, wout, summ_w = run_warm_wave(
+            pool_T, pool_basis, wout, summ_w = warm_wave(
                 pool_T, pool_basis, *warm_masks,
                 prev_out.T, prev_out.basis, ipack,
                 R_dev, const_dev, options.max_iters, options)

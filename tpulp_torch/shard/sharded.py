@@ -28,9 +28,15 @@ column fetch under ``lax.cond``, this driver builds that column locally:
 costs no collective that only some processes would call, and leaves the
 block bit for bit.
 
-``make_mesh`` returns a ``torch.distributed`` ``DeviceMesh``; GSPMD's path
-A (``shard_state``, ``run_simplex_gspmd`` and the batched forms) has no
-counterpart yet.
+``make_mesh`` returns a ``torch.distributed`` ``DeviceMesh``.
+
+Path A's names keep tpulp's signatures: ``shard_state`` pads a state's
+width for a column axis, ``run_simplex_gspmd`` solves one LP and
+``run_simplex_batch_gspmd`` a batch over a ``(batch, cols)`` mesh, and
+``batch_state_sharding`` names each field's split. torch has no GSPMD:
+they run the lane-sharded drivers of ``shard/sharded_batch.py`` (path B's
+step over each lane's column blocks, the lanes split over ``batch``) and
+return the whole terminal state on every process.
 """
 
 from __future__ import annotations
@@ -41,12 +47,17 @@ import torch
 import torch.distributed as dist
 
 from ..comm.collectives import MeshAxis, axis_size
-from ..core.state import RULE_BLAND, SimplexState, SolverOptions, Status
+from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
+                          SimplexState, SolverOptions, Status)
 from ..kernels.fma import fused_fma
 from ..solve.driver import (BIG_I, finish, put, ratio_rows, run_chunked,
                              status_select, take)
 
 __all__ = [
+    "shard_state",
+    "run_simplex_gspmd",
+    "batch_state_sharding",
+    "run_simplex_batch_gspmd",
     "ShardedState",
     "to_sharded_state",
     "from_sharded_state",
@@ -80,6 +91,103 @@ def _axis_size(mesh, axis) -> int:
     axis (the ``(hosts, cols)`` layout, columns split host-major)."""
     return axis_size(mesh, axis)
 
+
+# ---------------------------------------------------------------------------
+# Path A: tpulp's GSPMD entry points, over the lane-sharded drivers
+# ---------------------------------------------------------------------------
+
+def shard_state(state: SimplexState, mesh, axis: str = "cols"
+                ) -> SimplexState:
+    """``state`` with its width ``n+1`` padded to a multiple of the
+    ``axis`` size: zero, costless, inactive columns inserted before the
+    RHS column, so they never enter pricing. The whole state stays on
+    every process (``run_simplex_gspmd`` splits it)."""
+    _check_device(state.T, mesh)
+    pad = (-(state.n + 1)) % _axis_size(mesh, axis)
+    if not pad:
+        return state
+    T = torch.cat([_pad_cols(state.T[:, :-1], pad, 0.0), state.T[:, -1:]],
+                  dim=1)
+    return state._replace(T=T,
+                          col_active=_pad_cols(state.col_active, pad, False),
+                          art_cols=_pad_cols(state.art_cols, pad, False))
+
+
+def _run_lanes_on_mesh(batched: SimplexState, mesh, opts, batch_axis,
+                       cols_axis, stall_limit: int) -> SimplexState:
+    """This process's lanes of ``batched`` split over ``cols``, solved by
+    the lane-sharded rank-1 driver, and the whole terminal batch gathered
+    on every process (one packed all_gather over ``batch``, then the
+    blocks over ``cols``)."""
+    from .sharded_batch import LaneMesh
+
+    _check_device(batched.T, mesh)
+    lm = LaneMesh(mesh, batch_axis, cols_axis)
+    fr = lm.to_frames(lm.mine(batched))
+    out = lm.gather(finish(lm.primal(fr, opts, stall_limit)))
+    return lm.from_frames(out, batched.T.shape[-1] - 1)
+
+
+def run_simplex_gspmd(state: SimplexState, mesh,
+                      opts: SolverOptions | None = None,
+                      axis: str = "cols") -> SimplexState:
+    """Solve one LP column-sharded over ``axis`` (every process of the mesh
+    calls it with the whole state, from ``shard_state``); returns the whole
+    terminal state on every process. The stall limit derives from the
+    padded width, as tpulp's."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(state.T.dtype)
+    stall_limit = opts.resolved_stall_limit(state.m, state.n)
+    out = _run_lanes_on_mesh(SimplexState(*(x[None] for x in state)), mesh,
+                             opts, None, axis, stall_limit)
+    return SimplexState(*(x[0] for x in out))
+
+
+def batch_state_sharding(mesh, batch_axis: str = "batch",
+                         cols_axis: str = "cols") -> SimplexState:
+    """The layout of each field of a batched state on a ``(batch, cols)``
+    mesh, tpulp's ``NamedSharding`` tuple as partition specs: the mesh
+    axis each dimension is split over (``None``: whole). Lanes split over
+    ``batch_axis``, the tableau's columns over ``cols_axis``; a mesh
+    without ``cols_axis`` leaves the columns whole."""
+    if cols_axis not in tuple(mesh.mesh_dim_names or ()):
+        cols_axis = None
+    lanes = (batch_axis,)
+    return SimplexState(T=(batch_axis, None, cols_axis), basis=lanes,
+                        col_active=lanes, art_cols=lanes, phase=lanes,
+                        status=lanes, niter=lanes, stuck=lanes, bland=lanes,
+                        last_z=lanes)
+
+
+def run_simplex_batch_gspmd(batched: SimplexState, mesh,
+                            opts: SolverOptions | None = None,
+                            batch_axis: str = "batch",
+                            cols_axis: str = "cols") -> SimplexState:
+    """The full batched solve over the ``(batch, cols)`` layout (every
+    process calls it with the whole batch): each process solves its
+    ``B / P_batch`` lanes, each lane column-sharded over ``cols``; returns
+    the whole terminal batch on every process. The lane count and the
+    tableau width ``n+1`` must divide their axes' sizes
+    (``batch.vmap_driver.pad_batched_columns`` pads the width); the stall
+    limit derives from the padded width, as tpulp's."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(batched.T.dtype)
+    names = tuple(mesh.mesh_dim_names or ())
+    width = batched.T.shape[-1]
+    if cols_axis in names and width % _axis_size(mesh, cols_axis):
+        raise ValueError(f"the tableau width {width} is no multiple of the "
+                         f"{cols_axis!r} axis size "
+                         f"{_axis_size(mesh, cols_axis)}: pad it "
+                         "(batch.vmap_driver.pad_batched_columns)")
+    m = batched.T.shape[1] - 2
+    stall_limit = opts.resolved_stall_limit(m, width - 1)
+    return _run_lanes_on_mesh(batched, mesh, opts, batch_axis, cols_axis,
+                              stall_limit)
+
+
+# ---------------------------------------------------------------------------
+# Path B: the explicit rank-1 driver
+# ---------------------------------------------------------------------------
 
 class ShardedState(NamedTuple):
     """This process's part of a column-sharded SimplexState: its (m+2,
@@ -226,12 +334,30 @@ def retire_dependent(s: ShardedState, cleanup, r_d, j_d, n_global: int,
     return has_elig, retire, torch.clamp_max(j_d, n_global - 1), art_cols
 
 
+def greatest_increase(T, rhs, c_eff, improving, piv_tol):
+    """Each local column's objective decrease under greatest-increase
+    pricing (``RULE_MAX_INCREASE``): ``-c_j`` times its min ratio over the
+    replicated RHS; +inf for an improving column with no positive entry,
+    -inf for the others (``driver.simplex_step``'s rule, column for
+    column)."""
+    inf = float("inf")
+    pos = T[2:] > piv_tol
+    ratio = torch.where(pos, rhs[2:, None] / torch.where(pos, T[2:], 1.0),
+                        inf).min(dim=0).values
+    return torch.where(improving,
+                       torch.where(ratio < inf, -c_eff * ratio, inf), -inf)
+
+
 def cleanup_and_price(s: ShardedState, art_basic, row_of, crow, running,
-                      opts, n_global: int, lay: MeshAxis):
+                      opts, n_global: int, lay: MeshAxis,
+                      max_increase: bool = False):
     """The cleanup scan and Dantzig/Bland pricing over the shards, from
     one ``gather_candidates``: (cleanup, r_d, j_d, has_elig, art_cols,
     j_price, has_improving, use_bland). ``art_basic`` is replicated;
-    ``row_of(r_d)`` is the local slice of the cleanup row."""
+    ``row_of(r_d)`` is the local slice of the cleanup row. With
+    ``max_increase`` each shard's candidate is its greatest decrease
+    (negated, so that the first minimum over the shards is the first
+    global maximum) in place of its least reduced cost."""
     n_local = s.T.shape[1]
     ids = local_ids(n_local, lay, s.T.device)
     cleanup = art_basic.any() & (s.phase == 2) & running
@@ -239,12 +365,18 @@ def cleanup_and_price(s: ShardedState, art_basic, row_of, crow, running,
     elig = s.col_active & ~s.art_cols & (row_of(r_d).abs() > opts.piv_tol)
     c_eff = torch.where(s.col_active, crow, float("inf"))
     improving = c_eff < -opts.opt_tol
+    if max_increase:
+        dec = greatest_increase(s.T, s.rhs, c_eff, improving, opts.piv_tol)
+        val, arg = -dec.max(), torch.argmax(dec)
+    else:
+        val, arg = c_eff.min(), torch.argmin(c_eff)
     g_vals, g_idxs, j_bland, j_d = gather_candidates(
-        c_eff.min(), torch.argmin(c_eff) + lay.index * n_local,
+        val, arg + lay.index * n_local,
         torch.where(improving, ids, n_global).min(),
         torch.where(elig, ids, BIG_I).min(), lay)
     k = torch.argmin(g_vals)  # the first minimum, in shard order
-    has_improving = take(g_vals, k) < -opts.opt_tol
+    has_improving = (j_bland < n_global) if max_increase \
+        else take(g_vals, k) < -opts.opt_tol
     use_bland = s.bland | (opts.rule == RULE_BLAND)
     j_price = torch.where(use_bland, torch.clamp_max(j_bland, n_global - 1),
                           take(g_idxs, k))
@@ -279,10 +411,15 @@ def unit_row2(nrows: int, like: torch.Tensor) -> torch.Tensor:
 
 def _sharded_step(s: ShardedState, opts: SolverOptions, stall_limit: int,
                   n_global: int, lay: MeshAxis,
-                  max_iters: int | None = None) -> ShardedState:
+                  max_iters: int | None = None,
+                  every_rule: bool = False) -> ShardedState:
     """One branchless transition; the decisions of ``simplex_step`` (and
     of tpulp's ``_sharded_step``) over the column-sharded layout. With
-    ``max_iters`` the step is a no-op once ``niter`` reaches it."""
+    ``max_iters`` the step is a no-op once ``niter`` reaches it. Path B,
+    as tpulp's, prices Dantzig or Bland with first-index ratio ties;
+    ``every_rule`` (the lane-sharded driver, which stands for tpulp's
+    GSPMD-partitioned ``simplex_step``) also honours greatest-increase
+    pricing and the largest-pivot tie break."""
     T = s.T
     inf = float("inf")
     running = s.status == Status.RUNNING
@@ -295,7 +432,8 @@ def _sharded_step(s: ShardedState, opts: SolverOptions, stall_limit: int,
     (cleanup, r_d, j_d, has_elig, art_cols, j_price, has_improving,
      use_bland) = cleanup_and_price(
         s, art_basic_scan(s, lay), lambda r: take(T, r + 2, 0), crow,
-        running, opts, n_global, lay)
+        running, opts, n_global, lay,
+        every_rule and opts.rule == RULE_MAX_INCREASE)
 
     # ---- phase bookkeeping --------------------------------------------------
     z1 = -s.rhs[1]
@@ -307,8 +445,9 @@ def _sharded_step(s: ShardedState, opts: SolverOptions, stall_limit: int,
     # ---- entering column by psum, replicated ratio test --------------------
     j = torch.where(cleanup, j_d, j_price)
     u = _fetch_column(T, j, lay)
-    has_ratio, r_price = ratio_rows(u[2:], s.rhs[2:], s.basis,
-                                    opts.piv_tol, use_bland)
+    has_ratio, r_price = ratio_rows(
+        u[2:], s.rhs[2:], s.basis, opts.piv_tol, use_bland,
+        every_rule and opts.tie_break == TIE_MAXPIV)
     became_unbounded = pricing_pivot & ~has_ratio & in_phase2 & running
     became_failed1 = pricing_pivot & ~has_ratio & ~in_phase2 & running
 

@@ -111,10 +111,17 @@ class Solution:
         return self.status == "optimal"
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to tpulp_torch yet (ROADMAP queue A, "
-        f"{item}); use tpulp.solve_lp for it meanwhile")
+def _check_mesh(mesh, dev: torch.device, device) -> None:
+    """A ``mesh=`` argument must be a DeviceMesh over ``device``'s kind."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(tpulp_torch.shard.make_mesh()), not "
+                        f"{type(mesh).__name__}")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh's devices are {mesh.device_type!r} and "
+                         f"device={device!r}")
 
 
 def _device(device) -> torch.device:
@@ -315,13 +322,7 @@ def solve_standard_form(
     float32 failure retries the sharded solve at float64, anything else
     goes to the exact host simplex. ``warm_basis`` raises with a mesh."""
     dev = _device(device)
-    if mesh is not None and not isinstance(mesh, DeviceMesh):
-        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
-                        f"(tpulp_torch.shard.make_mesh()), not "
-                        f"{type(mesh).__name__}")
-    if mesh is not None and mesh.device_type != dev.type:
-        raise ValueError(f"the mesh's devices are {mesh.device_type!r} and "
-                         f"device={device!r}")
+    _check_mesh(mesh, dev, device)
     if options is None:
         options = SolverOptions.for_dtype(dtype)
     if sf.trivially_infeasible:

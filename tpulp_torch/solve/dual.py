@@ -300,9 +300,11 @@ def _wave_summaries(out: SimplexState, R, const) -> torch.Tensor:
     recover ``R @ x + const`` per lane, reduced to the largest distance to
     an integer, the most fractional variable and its value."""
     T = out.T
-    B, _, n1 = T.shape
+    B = T.shape[0]
     dtype = T.dtype
-    x = torch.zeros((B, n1 - 1), dtype=dtype, device=T.device)
+    # R spans the batched columns: frames of a column shard (the mesh
+    # waves) are narrower than x, whose entries come from the basis
+    x = torch.zeros((B, R.shape[1]), dtype=dtype, device=T.device)
     x.scatter_(1, out.basis.long(), T[:, 2:, -1])
     vals = x @ R.T + const                                # (B, n_int)
     dist = (vals - torch.round(vals)).abs()
@@ -366,25 +368,16 @@ def run_warm_wave(pool_T, pool_basis, col_active, art_cols, prev_T,
     return pool_T, pool_basis, out, _wave_summaries(out, R, const)
 
 
-@full_precision()
-def run_expand_generation(prev_T, prev_basis, summ_prev, active, lbmat,
-                          ubmat, col_active, art_cols, le_col, le_sign,
-                          ge_col, ge_sign, corner_cut, int_tol,
-                          max_iters: int, R, const,
-                          opts: SolverOptions | None = None):
-    """One branch-and-bound generation on the device: every lane of a
-    solved wave that is active, optimal, fractional (maxdist > int_tol) and
-    whose corner lies strictly above ``corner_cut`` gets its down and up
-    child at lanes ``2 * cumsum_excl(expand)`` and ``+1`` (a floor/ceil
-    split of its most fractional variable, applied as the sparse b
-    rewrite); children past the batch width are dropped, and the host
-    re-queues them cold. The children are re-optimized. Returns
-    ``(out_state, summary_aug, next_active, lbmat, ubmat, expand_mask)``;
-    the summary gains two genealogy columns (parent lane, is_up)."""
-    if opts is None:
-        opts = SolverOptions.for_dtype(prev_T.dtype)
-    B, M, N = prev_T.shape
-    dtype, dev = prev_T.dtype, prev_T.device
+def expand_plan(summ_prev, active, lbmat, ubmat, le_col, le_sign, ge_col,
+                ge_sign, corner_cut, int_tol):
+    """The host-free bookkeeping of one device generation, on every lane
+    of the batch: which solved lanes expand (active, optimal, fractional
+    past ``int_tol``, corner strictly above ``corner_cut``), each child
+    lane's parent, side, RHS rewrite column and coefficient, and the
+    children's bounds. Returns ``(pp, col, coef, status, parent_of, is_up,
+    valid, lb_next, ub_next, e32)``."""
+    B = summ_prev.shape[0]
+    dev = summ_prev.device
     corner = summ_prev[:, 0]
     maxdist = summ_prev[:, 1]
     bval = summ_prev[:, 2]
@@ -417,8 +410,7 @@ def run_expand_generation(prev_T, prev_basis, summ_prev, active, lbmat,
     delta_b = torch.where(upb, (f + 1) - lbv, f - ubv)
     col = torch.where(upb, ge_col[v], le_col[v]).long()
     sgn = torch.where(upb, ge_sign[v], le_sign[v])
-    T = _rhs_rewrite(prev_T[pp], col,
-                     torch.where(valid, sgn * delta_b, 0.0))
+    coef = torch.where(valid, sgn * delta_b, 0.0)
     lb_next = torch.where(upb[:, None],
                           lb_p.scatter(1, v[:, None], (f + 1)[:, None]),
                           lb_p)
@@ -426,10 +418,44 @@ def run_expand_generation(prev_T, prev_basis, summ_prev, active, lbmat,
                           ub_p.scatter(1, v[:, None], f[:, None]))
     status = torch.where(valid, Status.RUNNING,
                          Status.INFEASIBLE).to(torch.int32)
+    return (pp, col, coef, status, parent_of, is_up, valid, lb_next,
+            ub_next, e32)
+
+
+def genealogy_summary(out: SimplexState, R, const, parent_of, is_up
+                      ) -> torch.Tensor:
+    """A generation's summary with its two genealogy columns (parent lane,
+    is_up)."""
+    dtype = out.T.dtype
+    return torch.cat([_wave_summaries(out, R, const),
+                      parent_of[:, None].to(dtype),
+                      is_up[:, None].to(dtype)], dim=1)
+
+
+@full_precision()
+def run_expand_generation(prev_T, prev_basis, summ_prev, active, lbmat,
+                          ubmat, col_active, art_cols, le_col, le_sign,
+                          ge_col, ge_sign, corner_cut, int_tol,
+                          max_iters: int, R, const,
+                          opts: SolverOptions | None = None):
+    """One branch-and-bound generation on the device: every lane of a
+    solved wave that is active, optimal, fractional (maxdist > int_tol) and
+    whose corner lies strictly above ``corner_cut`` gets its down and up
+    child at lanes ``2 * cumsum_excl(expand)`` and ``+1`` (a floor/ceil
+    split of its most fractional variable, applied as the sparse b
+    rewrite); children past the batch width are dropped, and the host
+    re-queues them cold. The children are re-optimized. Returns
+    ``(out_state, summary_aug, next_active, lbmat, ubmat, expand_mask)``;
+    the summary gains two genealogy columns (parent lane, is_up)."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(prev_T.dtype)
+    _, M, N = prev_T.shape
+    (pp, col, coef, status, parent_of, is_up, valid, lb_next, ub_next,
+     e32) = expand_plan(summ_prev, active, lbmat, ubmat, le_col, le_sign,
+                        ge_col, ge_sign, corner_cut, int_tol)
+    T = _rhs_rewrite(prev_T[pp], col, coef)
     st = _lanes(T, prev_basis[pp], col_active, art_cols, status=status)
     out = _dual_then_primal(st, opts, opts.resolved_stall_limit(M - 2, N - 1),
                             max_iters)
-    summary = torch.cat([_wave_summaries(out, R, const),
-                         parent_of[:, None].to(dtype),
-                         is_up[:, None].to(dtype)], dim=1)
+    summary = genealogy_summary(out, R, const, parent_of, is_up)
     return out, summary, valid, lb_next, ub_next, e32
