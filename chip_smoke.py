@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from tpulp_torch/kernels/csrc (and checks
+Builds the CUDA kernels from the four sources of tpulp_torch/kernels/csrc
+(flush, inner block, FMA and the two lane kernels; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -24,9 +25,18 @@ bench instance.
 Phase 7 drives ``solve_milp`` on bench.py's 28-item knapsack (f32 and f64,
 the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
 and f64 optima, checked in Fractions) with every wave tensor checked to be
-on the card, times a batched pivot at B = 128, and runs ``solve_lp_batch``
-cold and warm over 64 RHS scenarios and ``solve_lp(warm_start=)`` at
-256 x 512; the f64 bench knapsack must explore tpulp's 789 nodes.
+on the card; the bench knapsack's waves run the lane kernels (no vmapped
+step loop) and, timed beside them, the plain lane loops, which must give
+the same tree (every ``BnbStats`` counter); the f64 bench knapsack must
+explore tpulp's 789 nodes. Phase 7d holds both lane kernels bit for bit
+against the plain lane loops at f32 and f64 (the bench knapsack's cold
+wave and its warm frames with seeded RHS rewrites, a stall limit of 1, a
+NaN lane and an overflowing |b| sum, 7c's scenarios cold in phase 1 under
+Dantzig and under the greatest increase with largest-pivot ties, and 258 x
+513 frames on the streamed path) and times them. Phase 7 then times a
+batched pivot at B = 128 beside the lane kernels' us a step, and runs
+``solve_lp_batch`` cold and warm over 64 RHS scenarios and
+``solve_lp(warm_start=)`` at 256 x 512.
 Phase 8 solves a 1024 x 2048 box LP with ``simple_bounds`` (the
 bounded-variable simplex, certified, held against the row-lowered solve on
 the kernel engine), a batch of 256 box LPs with and without bound rows,
@@ -767,14 +777,39 @@ def check_static_smem(ptxas) -> None:
     fit the room ``inner_block_plan`` leaves beside the dynamic share it
     plans, or a plan that fits on paper would not launch."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
+    from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
 
     got = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k.startswith("inner_block")}
     if len(got) != 2 or max(got.values()) > IB_STATIC_SMEM:
         raise AssertionError(f"inner block static shared memory {got}: "
                              f"the plan leaves {IB_STATIC_SMEM} bytes")
+    lane = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+            if k.startswith("lane_")}
+    if len(lane) != len(LANE_KERNELS) or \
+            max(lane.values()) > LANE_STATIC_SMEM:
+        raise AssertionError(f"lane kernels' static shared memory {lane}: "
+                             f"the plan leaves {LANE_STATIC_SMEM} bytes")
     log(f"# inner block static shared memory {got} bytes, within the "
-        f"{IB_STATIC_SMEM} the plan leaves")
+        f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
+        f"within {LANE_STATIC_SMEM}")
+
+
+# the lane kernels' instantiations as their mangled names spell them:
+# <float or double, RESIDENT>
+LANE_KERNELS = tuple(f"lane_{kind}_kernelI{t}Lb{r}" for kind in
+                     ("dual", "primal") for t in "fd" for r in "10")
+
+
+def _ptxas_name(name: str) -> str:
+    """A readable kernel name: ``flush_kernel<float>``,
+    ``lane_dual_kernel<double,resident>``."""
+    t = "float" if "kernelIf" in name else "double"
+    head = name.split("kernelI")[0] + "kernel" if "kernelI" in name \
+        else name
+    if name.startswith("lane_"):
+        return f"{head}<{t},{'resident' if name.endswith('1') else 'streamed'}>"
+    return f"{head}<{t}>" if "kernelI" in name else head
 
 
 def ptxas_report(text: str):
@@ -796,11 +831,11 @@ def ptxas_report(text: str):
                                  "inner_block_kernelId",
                                  "flush_kernelIf", "flush_kernelId",
                                  "fma_kernelIf", "fma_kernelId",
-                                 "barrier_probe_kernel") if k in fn), None)
+                                 "barrier_probe_kernel", *LANE_KERNELS)
+                     if k in fn), None)
         if name is None:
             continue
-        rec = out.setdefault(name.replace("kernelIf", "kernel<float>")
-                             .replace("kernelId", "kernel<double>"), {})
+        rec = out.setdefault(_ptxas_name(name), {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -1180,6 +1215,57 @@ def spy_wave_devices():
     return calls, restore
 
 
+class PlainLaneLoops:
+    """Within the block the lane loops of the waves and batches run as the
+    plain vmapped steps on the card (``*_lanes_reference``), for phase 7's
+    nodes/s without the lane kernels in the same run."""
+
+    SITES = ("tpulp_torch.solve.dual", "tpulp_torch.batch.vmap_driver",
+             "tpulp_torch.shard.sharded_batch")
+
+    def __enter__(self):
+        import importlib
+
+        from tpulp_torch.solve import lanes
+
+        self.saved = []
+        for site in self.SITES:
+            mod = importlib.import_module(site)
+            for fn, ref in (("dual_lanes", lanes.dual_lanes_reference),
+                            ("primal_lanes", lanes.primal_lanes_reference)):
+                if hasattr(mod, fn):
+                    self.saved.append((mod, fn, getattr(mod, fn)))
+                    setattr(mod, fn, ref)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, saved in self.saved:
+            setattr(mod, fn, saved)
+
+
+class VmapCalls:
+    """Counts the calls of ``torch.func.vmap`` within the block (every
+    vmapped step loop of the port starts with one)."""
+
+    def __enter__(self):
+        import torch
+
+        self.n = 0
+        self.saved = torch.func.vmap
+
+        def spy(*args, **kw):
+            self.n += 1
+            return self.saved(*args, **kw)
+
+        torch.func.vmap = spy
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.func.vmap = self.saved
+
+
 def milp_stats_line(stats, secs):
     warm = max(stats.warm_nodes, 1)
     return (f"{stats.nodes_solved} nodes in {stats.waves} waves "
@@ -1250,18 +1336,37 @@ def phase_milp_knapsacks():
             # the MILP main path: counts set to 0 just before the timed
             # solve and read just after it
             reset_launches()
-            t0 = time.perf_counter()
-            sol, st = tpulp_torch.solve_milp(lp, dtype=dt,
-                                             batch_size=MILP_BATCH,
-                                             return_stats=True,
-                                             device="cuda")
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+            with VmapCalls() as vm:
+                t0 = time.perf_counter()
+                sol, st = tpulp_torch.solve_milp(lp, dtype=dt,
+                                                 batch_size=MILP_BATCH,
+                                                 return_stats=True,
+                                                 device="cuda")
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
             launches = dict(LAUNCHES)
             fma_launches = launches["fused_fma"]
-            if fma_launches == 0:
+            if fma_launches == 0 or launches["lane_dual"] == 0 \
+                    or launches["lane_primal"] == 0:
                 raise AssertionError(f"bench knapsack {name}: solve_milp "
-                                     "never launched the FMA kernel")
+                                     "never launched the FMA kernel or a "
+                                     f"lane kernel: {launches}")
+            if vm.n:
+                raise AssertionError(f"bench knapsack {name}: {vm.n} "
+                                     "vmapped step loops on the card")
+            # the same solve with the plain lane loops: the same tree
+            with PlainLaneLoops(), VmapCalls() as vm_plain:
+                t0 = time.perf_counter()
+                _, st_plain = tpulp_torch.solve_milp(
+                    lp, dtype=dt, batch_size=MILP_BATCH, return_stats=True,
+                    device="cuda")
+                torch.cuda.synchronize()
+                secs_plain = time.perf_counter() - t0
+            if bnb_counters(st_plain) != bnb_counters(st) or not vm_plain.n:
+                raise AssertionError(
+                    f"bench knapsack {name}: the plain lane loops' tree "
+                    f"{bnb_counters(st_plain)} differs from the kernels' "
+                    f"{bnb_counters(st)}")
             peak = torch.cuda.max_memory_allocated()
             if not (sol.status == "optimal" and sol.objective == oracle):
                 raise AssertionError(f"bench knapsack {name}: {sol.status} "
@@ -1277,7 +1382,10 @@ def phase_milp_knapsacks():
                 + milp_stats_line(st, secs)
                 + f"; peak device memory {peak / 2**20:.1f} MiB, pool "
                 f"{st.pool_bytes / 2**20:.2f} MiB; the untimed first solve "
-                f"took {first:.3f} s; {fma_launches} FMA kernel launches")
+                f"took {first:.3f} s; launches {launches}, no vmapped step "
+                f"loop; with the plain lane loops the same tree in "
+                f"{secs_plain:.3f} s = {st.nodes_solved / secs_plain:.1f} "
+                f"nodes/s ({vm_plain.n} vmapped loops)")
             res[f"bench_knapsack_{name}"] = {
                 "counters": bnb_counters(st),
                 "nodes": st.nodes_solved, "waves": st.waves,
@@ -1285,6 +1393,8 @@ def phase_milp_knapsacks():
                 "warm_pivots": st.warm_pivots,
                 "solo_resolves": st.solo_resolves, "seconds": secs,
                 "nodes_per_s": st.nodes_solved / secs,
+                "plain_loops_seconds": secs_plain,
+                "plain_loops_nodes_per_s": st.nodes_solved / secs_plain,
                 "t_assemble": st.t_assemble, "t_device": st.t_device,
                 "t_process": st.t_process, "t_verify": st.t_verify,
                 "peak_bytes": peak, "launches": launches}
@@ -1415,11 +1525,13 @@ def phase_drop_scatters():
                              "the card and the CPU disagree")
 
 
-def batched_pivot_ms():
+def batched_pivot_ms(lane_cases):
     """ms per batched step (one pivot on every lane) at B = MILP_BATCH on
     the bench knapsack's node tableau, rank-1 and dual, f32 and f64: host
     clock around PIVOT_STEPS synchronised steps, and the device time and
-    kernel count per step under torch.profiler."""
+    kernel count per step under torch.profiler; beside them the lane
+    kernels' us a step on the knapsack's cold and warm waves (phase 7d's
+    ``lane_cases``: the launch's time over its longest lane's steps)."""
     import torch
 
     from tpulp_torch import SolverOptions, lower_to_standard_form
@@ -1458,15 +1570,312 @@ def batched_pivot_ms():
 
             wall, busy, kernels = device_busy(run)
             key = f"{kind} {name}"
+            lane = lane_cases[name]["knapsack_cold" if kind == "rank-1"
+                                    else "knapsack_warm"]
             res[key] = {"ms": ms, "device_ms": 1e3 * busy / 16,
                         "kernels": kernels / 16,
-                        "busy_share": busy / wall}
+                        "busy_share": busy / wall,
+                        "kernel_us_per_step": lane["us_per_step"],
+                        "kernel_steps": lane["steps"]}
             log(f"# batched {kind} step, B={MILP_BATCH}, tableau "
                 f"{tuple(state.T.shape[1:])} {name}: {ms:.3f} ms per step "
                 f"(host clock, mean of {PIVOT_STEPS}); "
                 f"device {1e3 * busy / 16:.3f} ms and {kernels / 16:.0f} "
                 f"kernels per step, the card busy {100 * busy / wall:.1f}% "
-                "of the traced 16 steps (torch.profiler)")
+                "of the traced 16 steps (torch.profiler); the lane kernel "
+                f"{lane['us_per_step']:.2f} us a step ({lane['steps']} "
+                "steps in one launch, CUDA events)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: the lane kernels against the plain lane loops
+# ---------------------------------------------------------------------------
+
+# the streamed case: lanes of dense_leq_arrays(LANE_STREAM_M, LANE_STREAM_N)
+# with their slacks, (258, 513) frames past a block's shared memory
+LANE_STREAM_LANES, LANE_STREAM_M, LANE_STREAM_N = 8, 256, 256
+# the clean-up case: lanes of small mixed-sign LPs, every row artificial,
+# with a redundant row; phase 2 starts with artificials basic at zero
+LANE_MIXED_LANES, LANE_MIXED_M, LANE_MIXED_N = 128, 16, 24
+LANE_SEED = 7
+# the card's sleep before a launch timed alone (~2.5 ms at the H100's
+# clock): longer than the host's work for one wrapper call
+SLEEP_CYCLES = 5_000_000
+
+
+def lanes_equal(k, p) -> float:
+    """Raise unless the lane kernel's state ``k`` equals the plain loop's
+    ``p`` bit for bit in every field (floats compared as ``x + 0.0``, NaN
+    equal to NaN); returns the largest |difference| over the tableau
+    entries finite in both."""
+    import torch
+
+    for name, a, b in zip(k._fields, k, p):
+        a, b = a.cpu(), b.cpu()
+        if a.shape != b.shape:
+            raise AssertionError(f"lane field {name}: shapes {a.shape} and "
+                                 f"{b.shape}")
+        if a.is_floating_point():
+            if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                raise AssertionError(f"lane field {name}: NaN entries of "
+                                     "the kernel and the plain loop differ")
+            ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+            a = (a.nan_to_num(0.0, posinf=np.inf, neginf=-np.inf) + 0.0
+                 ).view(ints)
+            b = (b.nan_to_num(0.0, posinf=np.inf, neginf=-np.inf) + 0.0
+                 ).view(ints)
+        if not torch.equal(a, b):
+            raise AssertionError(f"lane field {name}: the kernel and the "
+                                 "plain loop differ")
+    fin = torch.isfinite(k.T) & torch.isfinite(p.T)
+    return float((k.T - p.T).abs()[fin].max()) if bool(fin.any()) else 0.0
+
+
+def device_time_ms(fn, runs: int) -> float:
+    """Median over ``runs`` of ``fn()``'s time on the card alone: the card
+    sleeps while the host does the call's own work, so the CUDA events
+    bracket the launches and not the host time between them."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def lane_run(kind: str, st, opts, runs: int, plain_runs: int,
+             dev="cuda"):
+    """Phase 7d's check of one loop on one batched state: the kernel and
+    its plain loop, held bit for bit; CUDA-event medians of ``runs``
+    kernel calls and ``plain_runs`` plain calls (the call time, host work
+    included) and of ``runs`` kernel calls on the card alone
+    (``device_time_ms``); the steps (the longest lane's pivots), the
+    pivots, the bound. Returns (kernel state, plain state, stats)."""
+    import torch
+
+    from tpulp_torch.kernels import lane_plan
+    from tpulp_torch.solve import lanes
+
+    fn = lanes.dual_lanes if kind == "dual" else lanes.primal_lanes
+    ref_fn = (lanes.dual_lanes_reference if kind == "dual"
+              else lanes.primal_lanes_reference)
+    B, M, N = st.T.shape
+    stall = opts.resolved_stall_limit(M - 2, N - 1)
+    k = fn(st, opts, stall, opts.max_iters)
+    p = ref_fn(st, opts, stall, opts.max_iters)
+    sync(dev)
+    err = lanes_equal(k, p)
+    # a CPU rehearsal times nothing
+    timed = cuda_time_ms if dev == "cuda" else lambda fn, runs: None
+    ms = timed(lambda: fn(st, opts, stall, opts.max_iters), runs)
+    plain_ms = timed(lambda: ref_fn(st, opts, stall, opts.max_iters),
+                     plain_runs)
+    device_ms = None if dev != "cuda" else device_time_ms(
+        lambda: fn(st, opts, stall, opts.max_iters), runs)
+    dn = (k.niter - st.niter).cpu()
+    steps, pivots = int(dn.max()), int(dn.sum())
+    es = st.T.element_size()
+    flop_s = FP64_FLOP_S if st.T.dtype == torch.float64 else FP32_FLOP_S
+    # each frame read and written once; one fma a tableau entry a pivot
+    bound_ms, bound_by = bound(2.0 * B * M * N * es, 2.0 * pivots * M * N,
+                               flop_s)
+    plan = lane_plan(M, N, st.T.dtype)
+    statuses = {int(v): int(c) for v, c in
+                zip(*np.unique(k.status.cpu().numpy(), return_counts=True))}
+    return k, p, {
+        "kind": kind, "lanes": B, "frame": [M, N],
+        "resident": plan.resident,
+        "threads": plan.threads, "smem": plan.smem, "steps": steps,
+        "pivots": pivots, "statuses": statuses, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "us_per_step": 1e3 * ms / steps if steps and ms else None,
+        "device_ms": device_ms,
+        "device_us_per_step": (1e3 * device_ms / steps
+                               if steps and device_ms else None),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase1_lanes(rows, dt, dev):
+    """A batched phase-1 state (every row artificial) of the (c, A, b)
+    ``rows`` on ``dev``."""
+    from tpulp_torch.core.state import Status, _numpy_state, from_numpy_state
+
+    leaves = [_numpy_state(c, A, b, [-1] * A.shape[0], 0)
+              + (Status.RUNNING, 0, 0, False, np.inf) for c, A, b in rows]
+    return from_numpy_state([np.stack([x[i] for x in leaves])
+                             for i in range(10)], device=dev, dtype=dt)
+
+
+def mixed_rows(rng):
+    """LANE_MIXED_LANES small LPs with mixed-sign rows at a sparse integer
+    vertex, the last row the sum of the first two: (c, A, b) each."""
+    m, n = LANE_MIXED_M, LANE_MIXED_N
+    rows = []
+    for _ in range(LANE_MIXED_LANES):
+        A = rng.integers(-2, 4, size=(m, n)).astype(np.float64)
+        x0 = rng.integers(0, 3, size=n).astype(np.float64)
+        x0[rng.random(n) < 0.5] = 0.0
+        A[A @ x0 < 0] *= -1.0
+        A[-1] = A[0] + A[1]
+        c = rng.integers(-5, 5, size=n).astype(np.float64)
+        rows.append((c, A, A @ x0))
+    return rows
+
+
+def lane_inputs(dt, dev="cuda"):
+    """Phase 7d's batched states on the card at ``dt``: the bench
+    knapsack's cold wave (MILP_BATCH lanes, seeded bound fixings), 7c's
+    scenarios cold in phase 1 (every row artificial), the streamed lanes
+    and the clean-up lanes. Returns (knapsack cold, knapsack standard
+    form, scenarios, streamed, mixed)."""
+    import torch
+
+    from tpulp_torch import lower_to_standard_form
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.milp import bnb
+
+    rng = np.random.default_rng(LANE_SEED)
+    values, weights, cap = bench_knapsack()
+    sf = lower_to_standard_form(knapsack_lp(values, [weights], [cap]),
+                                integer_bound_rows=True)
+    names = list(sf.int_bound_rows)
+    b_mat = []
+    for _ in range(MILP_BATCH):
+        fix = rng.choice(len(names), size=3, replace=False)
+        bd = {names[i]: (v, v) for i, v in
+              zip(fix, (int(x) for x in rng.integers(0, 2, size=3)))}
+        b_mat.append([float(v) for v in bnb._node_standard_form(sf, bd).b])
+    f = dict(dtype=dt, device=dev)
+    mask = torch.tensor([1.0 if h < 0 else 0.0 for h in sf.basis_hint], **f)
+    cold = bnb._refresh_template(make_batched_states([sf] * MILP_BATCH, **f),
+                                 torch.tensor(b_mat, **f), mask)
+
+    A, rhs, _, c = scenario_arrays()
+    m = A.shape[0]
+    Afull = np.concatenate([A, np.eye(m)], axis=1).astype(np.float64)
+    cfull = np.concatenate([c, np.zeros(m)]).astype(np.float64)
+    scen = phase1_lanes([(cfull, Afull, r.astype(np.float64)) for r in rhs],
+                        dt, dev)
+
+    streamed = make_batched_states(
+        [scenario_form(*dense_leq_arrays(LANE_STREAM_M, LANE_STREAM_N,
+                                         seed=k))
+         for k in range(LANE_STREAM_LANES)], **f)
+    return cold, sf, scen, streamed, phase1_lanes(mixed_rows(rng), dt, dev)
+
+
+def rewritten(solved, cols, coef):
+    """Warm frames: the terminal frames of ``solved`` with b moved through
+    columns ``cols`` by ``coef`` (the waves' sparse RHS rewrite), phase-2
+    lanes with the wave's broadcast masks."""
+    from tpulp_torch.solve.dual import _lanes, _rhs_rewrite
+
+    art0 = solved.art_cols[0]
+    return _lanes(_rhs_rewrite(solved.T.clone(), cols, coef), solved.basis,
+                  solved.col_active[0] & ~art0, art0)
+
+
+def reopened(st):
+    import torch
+
+    from tpulp_torch.core import Status
+
+    return st._replace(status=torch.where(st.status == Status.OPTIMAL,
+                                          Status.RUNNING, st.status))
+
+
+def phase_lane_kernels(dev="cuda"):
+    """Phase 7d: ``lane_dual`` and ``lane_primal`` bit for bit against the
+    plain lane loops (``*_lanes_reference``) at f32 and f64: the bench
+    knapsack's cold wave (primal) and its warm frames with seeded RHS
+    rewrites (the dual loop, then the clean-up), the same under a stall
+    limit of 1 (the Bland switch), a NaN lane and an overflowing |b| sum
+    (NUMERIC), 7c's scenarios cold in phase 1 under Dantzig and under the
+    greatest increase with largest-pivot ties, small mixed-sign LPs whose
+    phase 2 pivots basic artificials out and retires others, and lanes of
+    258 x 513 (the streamed path, primal then dual). Each case is timed (CUDA events);
+    the knapsack's cold and warm waves at f64 are the headline."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core.state import RULE_MAX_INCREASE, TIE_MAXPIV, Status
+
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        rng = np.random.default_rng(LANE_SEED)
+        opts = SolverOptions.for_dtype(dt)
+        stall_opts = dc.replace(opts, stall_limit=1, degen_tol=1e300)
+        cold, sf, scen, streamed, mixed = lane_inputs(dt, dev)
+        f = dict(dtype=dt, device=dev)
+        cases = {}
+
+        def run(label, kind, st, o, runs=5, plain_runs=1):
+            k, p, stats = lane_run(kind, st, o, runs, plain_runs, dev)
+            cases[label] = stats
+            log(f"# 7d {label} {name}: {kind} loop, {stats['lanes']} lanes "
+                f"of {tuple(stats['frame'])} "
+                f"({'resident' if stats['resident'] else 'streamed'}), "
+                f"bit for bit the plain loop; {stats['steps']} steps, "
+                f"{stats['pivots']} pivots, statuses {stats['statuses']}; "
+                f"kernel {stats['ms']} ms a call, {stats['us_per_step']} "
+                f"us a step (device {stats['device_ms']} ms, "
+                f"{stats['device_us_per_step']} us a step), plain "
+                f"{stats['plain_ms']} ms, bound "
+                f"{stats['bound_ms']:.5f} ms ({stats['bound_by']})")
+            return k, p
+
+        _, solved = run("knapsack_cold", "primal", cold, opts, RUNS, 5)
+        slack = [j for j, nm in enumerate(sf.col_names)
+                 if j >= sf.n_struct and nm[:2] in ("_s", "_e")]
+        cols = torch.tensor(rng.choice(slack, size=MILP_BATCH), device=dev)
+        coef = torch.tensor(rng.uniform(-1.5, -0.25, size=MILP_BATCH), **f)
+        warm = rewritten(solved, cols, coef)
+        _, d = run("knapsack_warm", "dual", warm, opts, RUNS, 5)
+        run("knapsack_warm_cleanup", "primal", reopened(d), opts)
+        _, d = run("knapsack_warm_stall", "dual", warm, stall_opts)
+        run("knapsack_warm_stall_cleanup", "primal", reopened(d), stall_opts)
+        T = warm.T.clone()
+        T[0, 3, -1] = float("nan")
+        T[1, 3:5, -1] = torch.finfo(dt).max / 1.5
+        k, _ = run("knapsack_numeric", "dual", warm._replace(T=T), opts)
+        if k.status[:2].tolist() != [Status.NUMERIC] * 2:
+            raise AssertionError(f"7d knapsack_numeric {name}: statuses "
+                                 f"{k.status[:2].tolist()}, not NUMERIC")
+        run("scenarios_phase1", "primal", scen, opts)
+        run("scenarios_max_increase_maxpiv", "primal", scen,
+            dc.replace(opts, rule=RULE_MAX_INCREASE, tie_break=TIE_MAXPIV))
+        k, _ = run("mixed_cleanup", "primal", mixed, opts)
+        if not bool((mixed.art_cols & ~k.art_cols).any()):
+            raise AssertionError(f"7d mixed_cleanup {name}: no artificial "
+                                 "was retired")
+        _, solved = run("streamed_cold", "primal", streamed, opts)
+        # each lane's row tightened by 0.5 to 1.5 times its largest b,
+        # through the row's slack column
+        rows = rng.integers(0, LANE_STREAM_M, size=LANE_STREAM_LANES)
+        scale = torch.tensor(rng.uniform(0.5, 1.5, size=LANE_STREAM_LANES),
+                             **f)
+        warm_s = rewritten(
+            solved, torch.as_tensor(LANE_STREAM_N + rows, device=dev),
+            -scale * solved.T[:, 2:, -1].abs().amax(dim=1))
+        _, d = run("streamed_warm", "dual", warm_s, opts)
+        run("streamed_warm_cleanup", "primal", reopened(d), opts)
+        if cases["streamed_cold"]["resident"] or \
+                not cases["knapsack_cold"]["resident"]:
+            raise AssertionError("7d: the knapsack's frames must be resident "
+                                 "and the 258 x 513 frames streamed")
+        res[name] = cases
     return res
 
 
@@ -1490,21 +1899,27 @@ def dense_leq_arrays(m: int, n: int, seed: int = 0):
     return A, b, c
 
 
-def scenario_batch():
-    """(the SCEN_LANES RHS scenarios, the base form) of one SCEN_M x
+def scenario_arrays():
+    """(A, the SCEN_LANES scenario RHS, the base RHS, c) of one SCEN_M x
     SCEN_N integer LP, seed 0."""
     rng = np.random.default_rng(0)
     A = rng.integers(1, 10, size=(SCEN_M, SCEN_N))
     b = A @ rng.integers(0, 3, size=SCEN_N) + rng.integers(1, 20,
                                                            size=SCEN_M)
     c = -rng.integers(1, 10, size=SCEN_N)
-    scens = [scenario_form(A, b - rng.integers(0, b // 10 + 2), c)
-             for _ in range(SCEN_LANES)]
-    return scens, scenario_form(A, b, c)
+    rhs = [b - rng.integers(0, b // 10 + 2) for _ in range(SCEN_LANES)]
+    return A, rhs, b, c
+
+
+def scenario_batch():
+    """(the SCEN_LANES RHS scenarios, the base form) of one SCEN_M x
+    SCEN_N integer LP, seed 0."""
+    A, rhs, b, c = scenario_arrays()
+    return [scenario_form(A, r, c) for r in rhs], scenario_form(A, b, c)
 
 
 def phase_batch_and_warm():
-    """Phase 7c/7d: ``solve_lp_batch`` over SCEN_LANES RHS scenarios of one
+    """Phase 7c: ``solve_lp_batch`` over SCEN_LANES RHS scenarios of one
     SCEN_M x SCEN_N integer LP, cold and with ``warm_start`` (statuses and
     exact objectives equal lane for lane, fewer pivots warm), then
     ``solve_lp(warm_start=)`` on tests/test_warm_start.py's recipe at
@@ -2361,8 +2776,11 @@ def mesh_lp_batch(mesh, label: str, scens, solo, t_solo: float,
     if bad or any(s.status != "optimal" for s in out):
         raise AssertionError(f"10a {label}: lanes {bad} differ from the "
                              "solo batch")
-    if dev == "cuda" and launches["fused_fma"] == 0:
-        raise AssertionError(f"10a {label}: fused_fma never launched")
+    # the (1, 1) mesh's lane-sharded steps pivot with the FMA kernel; the
+    # ("batch",) mesh's whole lanes run the lane kernel
+    need = "fused_fma" if label == "1x1" else "lane_primal"
+    if dev == "cuda" and launches[need] == 0:
+        raise AssertionError(f"10a {label}: {need} never launched")
     # a lane-sharded primal step makes one (m,) int32 psum for every lane
     steps = counts.get(("psum", "int32", SCEN_LANES * SCEN_M), 0)
     per_step = collectives_per_step(counts, steps) if steps else counts
@@ -2414,8 +2832,10 @@ def mesh_milp(mesh, label: str, solo: dict, dev="cuda"):
                              f"{solo['counters']}")
     if st.gen_waves == 0:
         raise AssertionError(f"10b {label}: no device generation ran")
-    if dev == "cuda" and launches["fused_fma"] == 0:
-        raise AssertionError(f"10b {label}: fused_fma never launched")
+    needs = ("fused_fma",) if label == "1x1" else ("lane_dual",
+                                                   "lane_primal")
+    if dev == "cuda" and not all(launches[k] for k in needs):
+        raise AssertionError(f"10b {label}: {needs} not all launched")
     log(f"# 10b solve_milp(mesh {label}) bench knapsack f64: optimal "
         f"{sol.objective} = DP oracle, every BnbStats counter phase 7's; "
         + milp_stats_line(st, secs)
@@ -2582,8 +3002,10 @@ def main() -> int:
     milp = phase_milp_knapsacks()
     phase_drop_scatters()
     secs["milp"] = time.perf_counter() - t0
-    milp["batched_pivot"] = batched_pivot_ms()
-    secs["pivot"] = time.perf_counter() - t0 - secs["milp"]
+    lane_cases = phase_lane_kernels()
+    secs["lanes"] = time.perf_counter() - t0 - sum(secs.values())
+    milp["batched_pivot"] = batched_pivot_ms(lane_cases)
+    secs["pivot"] = time.perf_counter() - t0 - sum(secs.values())
     milp.update(phase_batch_and_warm())
     secs["batch+warm"] = time.perf_counter() - t0 - sum(secs.values())
     milp_launches = milp["bench_knapsack_float64"]["launches"]
@@ -2636,6 +3058,15 @@ def main() -> int:
         "fused_fma": ("tpulp_torch/kernels/csrc/fma.cu",
                       "none: XLA's fusion of the rank-1 update "
                       "(tpulp/solve/driver.py)", milp_launches),
+        "lane_dual": ("tpulp_torch/kernels/csrc/lanes.cu",
+                      "none: XLA's vmapped lax.while_loop over "
+                      "dual_simplex_step (tpulp/solve/dual.py:263, 404, "
+                      "520, 579)", milp_launches),
+        "lane_primal": ("tpulp_torch/kernels/csrc/lanes.cu",
+                        "none: XLA's vmapped lax.while_loop over "
+                        "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
+                        "592; tpulp/batch/vmap_driver.py:250)",
+                        milp_launches),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -2645,6 +3076,14 @@ def main() -> int:
             head = dict(fma_cases["rank1_pivot_vmap float64"])
             head["library_ms"] = None  # CUDA addcmul rounds twice
             cases = fma_cases
+        elif kname.startswith("lane_"):
+            # the headline: the f64 bench knapsack's warm wave (the dual
+            # loop) and cold wave (the primal loop), 128 lanes of 59 x 114
+            head = lane_cases["float64"]["knapsack_warm" if kname ==
+                                         "lane_dual" else "knapsack_cold"]
+            kind = kname[len("lane_"):]
+            cases = {f"{case} {dt}": st for dt, by in lane_cases.items()
+                     for case, st in by.items() if st["kind"] == kind}
         else:
             # the headline numbers are taken at the main path's own shape;
             # the bench shape's ride along
@@ -2686,7 +3125,18 @@ def main() -> int:
     kernels[0]["flush_cases"] = flush_cases
     kernels[0]["sass"] = sass
     kernels[1]["barrier_probe"] = probe
-    for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma")):
+    for k, kname in ((3, "lane_dual"), (4, "lane_primal")):
+        kernels[k]["launches_by_path"] = {
+            "milp_bench_knapsack_float64": milp_launches[kname],
+            **{f"{path}_float64": batch_mesh[path]["launches"][kname]
+               for path in ("lp_batch_batch", "milp_batch")}}
+        head = lane_cases["float64"]["knapsack_warm" if k == 3
+                                     else "knapsack_cold"]
+        kernels[k].update({key: head[key] for key in (
+            "us_per_step", "device_ms", "device_us_per_step", "steps",
+            "pivots")})
+    for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma"),
+                     (3, "lane_dual"), (4, "lane_primal")):
         kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,

@@ -2,9 +2,11 @@
 
 The counterpart of ``tpulp.batch.vmap_driver``. A batched
 ``SimplexState`` carries a leading lane axis on every field;
-``run_simplex_batch`` runs ``torch.func.vmap`` of the rank-1 step over it,
-and the step freezes each lane once it leaves RUNNING or reaches the
-budget, so lanes with different pivot counts share one loop. Problems of
+``run_simplex_batch`` runs every lane's rank-1 loop to its own exit
+(``solve.lanes.primal_lanes``: on the card one launch of the lane kernel,
+a block per lane; on the CPU the rank-1 step vmapped over the lanes, each
+lane frozen once it leaves RUNNING or reaches the budget), so lanes with
+different pivot counts share one call. Problems of
 different shapes are padded to one shape: each padded row gets its own
 unit "pad slack" basic column, extra columns are inactive, and padded
 artificial columns keep phase 1 uniform. The batch is the engine under
@@ -37,8 +39,9 @@ from ..solve.api import (Solution, _check_mesh, _device,
                          solve_standard_form)
 from ..solve.blocked import run_simplex_blocked_batch
 from ..solve.bounded import BoundedState, run_simplex_bounded_batch
-from ..solve.driver import finish, simplex_step
-from ..solve.dual import run_lanes, run_warm_batch
+from ..solve.driver import finish
+from ..solve.dual import run_warm_batch
+from ..solve.lanes import primal_lanes
 from ..solve.refine import (bounded_basis_certificate,
                             exact_basis_certificate, float_basis_certificate,
                             float_bounded_certificate, refine_basis_solution,
@@ -185,10 +188,7 @@ def run_simplex_batch(batched: SimplexState,
     m = batched.T.shape[1] - 2
     n = batched.T.shape[2] - 1
     stall_limit = opts.resolved_stall_limit(m, n)
-    out = run_lanes(
-        lambda s: simplex_step(s, opts, stall_limit, opts.max_iters),
-        batched, opts.max_iters)
-    return finish(out)
+    return finish(primal_lanes(batched, opts, stall_limit, opts.max_iters))
 
 
 def solve_lp_batch(

@@ -93,7 +93,7 @@ def _dryrun_2d(device: str) -> str:
                                       run_simplex_batch_sharded,
                                       split_frames)
     from .solve.driver import simplex_step
-    from .solve.dual import run_lanes
+    from .solve.lanes import run_lanes
 
     n_dev = dist.get_world_size()
     n_batch = 2 if n_dev % 2 == 0 and n_dev > 1 else 1

@@ -3,6 +3,7 @@
 from .block import (blocked_inner_block, blocked_inner_block_reference,
                     fused_flush, fused_flush_reference, inner_block_plan)
 from .fma import fused_fma
+from .lanes import lane_dual, lane_plan, lane_primal
 from .launch import LAUNCHES, reset_launches
 
 __all__ = [
@@ -14,4 +15,7 @@ __all__ = [
     "blocked_inner_block_reference",
     "inner_block_plan",
     "fused_fma",
+    "lane_dual",
+    "lane_primal",
+    "lane_plan",
 ]

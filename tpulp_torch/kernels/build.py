@@ -140,6 +140,11 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P, _D, _L, _P, _P]
         fn.restype = _I
+    for name in ("tpulp_lane_dual_f32", "tpulp_lane_dual_f64",
+                 "tpulp_lane_primal_f32", "tpulp_lane_primal_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P]
+        fn.restype = _I
     lib.tpulp_inner_block_slots.argtypes = []
     lib.tpulp_inner_block_slots.restype = _I
     lib.tpulp_inner_block_stages.argtypes = []

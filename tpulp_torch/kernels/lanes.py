@@ -1,0 +1,178 @@
+"""``lane_dual`` / ``lane_primal``: the launch of ``csrc/lanes.cu``.
+
+One block per lane steps the lane's dual-simplex loop
+(``solve.dual.dual_simplex_step``) or rank-1 primal loop
+(``solve.driver.simplex_step``) to the lane's own exit (status leaves
+RUNNING or ``niter`` reaches ``max_iters``), in one launch with no host
+read. ``lane_plan`` says whether a lane's frame fits the block's shared
+memory ("resident") or is worked on in place in device memory
+("streamed"), with the block size and the shared-memory bytes.
+
+The wrapper takes CUDA tensors only (``solve.lanes`` runs the plain loops
+on CPU tensors) and raises on what the kernel does not take. It reads the
+masks through their strides, so the broadcast rows of ``dual._lanes``
+(lane stride 0) are never expanded; it allocates a new output state with
+``torch.empty`` and never writes the caller's tensors (pool slots and the
+scheduler's frames stay live).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..core.state import SimplexState, SolverOptions
+from .launch import LAUNCHES, lib_for, raise_on, stream_of, suffix
+
+__all__ = ["LanePlan", "lane_plan", "lane_dual", "lane_primal",
+           "LANE_SMEM_LIMIT", "LANE_STATIC_SMEM", "LANE_THREADS"]
+
+# the static shared memory left to the kernels' reduction scratch
+# (chip_smoke.py holds ptxas's figures to it), and the dynamic shared
+# memory a block may then take on an H100: the opt-in maximum, 232,448
+# bytes, less that
+LANE_STATIC_SMEM = 2_048
+LANE_SMEM_LIMIT = 232_448 - LANE_STATIC_SMEM
+LANE_THREADS = 256
+# the largest frame side the kernels index (basis values go through the
+# tableau's type in Bland's tie rule: exact in float32 below 2^24)
+_MAX_SIDE = 1 << 24
+_NARGS, _NINTS, _NTOLS = 30, 10, 5
+_ARGS = ctypes.c_longlong * _NARGS
+_INTS = ctypes.c_int * _NINTS
+_TOLS = ctypes.c_double * _NTOLS
+_INT_MAX = 2 ** 31 - 1
+
+
+class LanePlan(NamedTuple):
+    resident: bool  # the frame lives in shared memory
+    threads: int    # threads a block
+    smem: int       # dynamic shared-memory bytes a block
+
+
+def _align(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def lane_plan(M: int, N: int, dtype) -> LanePlan:
+    """The launch plan of lanes with (M, N) = (m + 2, n + 1) frames:
+    resident when the frame and the per-lane vectors fit
+    ``LANE_SMEM_LIMIT``, else streamed; ``LANE_THREADS`` a block. The
+    byte count is the kernel's own layout (the launch refuses a plan that
+    disagrees)."""
+    es = {torch.float32: 4, torch.float64: 8}.get(dtype)
+    if es is None:
+        raise ValueError(f"lane kernels take float32 or float64, not {dtype}")
+    if M < 3 or N < 2 or max(M, N) >= _MAX_SIDE:
+        raise ValueError(f"lane frame {M} x {N} outside 3..2^24 x 2..2^24")
+    m, n = M - 2, N - 1
+    vectors = (_align(M * es) + _align(N * es) + _align(4 * m)
+               + 2 * _align(n))
+    resident = vectors + _align(M * N * es)
+    if resident <= LANE_SMEM_LIMIT:
+        return LanePlan(True, LANE_THREADS, resident)
+    if vectors > LANE_SMEM_LIMIT:
+        raise ValueError(f"lane frame {M} x {N}: its vectors need {vectors} "
+                         f"bytes of shared memory, above {LANE_SMEM_LIMIT}")
+    return LanePlan(False, LANE_THREADS, vectors)
+
+
+def _vector(x: torch.Tensor, name: str, B: int, width: int, dtype) -> int:
+    """The lane stride of a (B, width) operand whose rows are contiguous
+    (a lane stride of 0 is a broadcast row)."""
+    if x.dtype != dtype or tuple(x.shape) != (B, width):
+        raise ValueError(f"{name}: expected {dtype} {(B, width)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if width > 1 and x.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be contiguous, stride "
+                         f"{x.stride()}")
+    return x.stride(0)
+
+
+def _scalar(x: torch.Tensor, name: str, B: int, dtype) -> int:
+    if x.dtype != dtype or tuple(x.shape) != (B,):
+        raise ValueError(f"{name}: expected {dtype} ({B},), got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    return x.stride(0)
+
+
+def _launch(primal: bool, st: SimplexState, opts: SolverOptions,
+            stall_limit: int, max_iters: int) -> SimplexState:
+    T = st.T
+    if T.device.type != "cuda" or any(x.device != T.device for x in st):
+        raise ValueError("lane kernels take the state's tensors on one CUDA "
+                         f"device; got {sorted({str(x.device) for x in st})}")
+    if T.dim() != 3:
+        raise ValueError(f"T: expected (B, m + 2, n + 1) frames, got "
+                         f"{tuple(T.shape)}")
+    B, M, N = T.shape
+    if T.stride(1) != N or T.stride(2) != 1:
+        raise ValueError(f"T: each lane's frame must be contiguous, stride "
+                         f"{T.stride()}")
+    dtype = T.dtype
+    plan = lane_plan(M, N, dtype)
+    m, n = M - 2, N - 1
+    strides = [T.stride(0),
+               _vector(st.basis, "basis", B, m, torch.int32),
+               _vector(st.col_active, "col_active", B, n, torch.bool),
+               _vector(st.art_cols, "art_cols", B, n, torch.bool)]
+    for name, dt in (("phase", torch.int32), ("status", torch.int32),
+                     ("niter", torch.int32), ("stuck", torch.int32),
+                     ("bland", torch.bool), ("last_z", dtype)):
+        strides.append(_scalar(getattr(st, name), name, B, dt))
+    dev = T.device
+    # one allocation for the int32 fields and one for the bool ones: each
+    # allocation is host time on the waves' path
+    ints = torch.empty((B * (4 + m),), dtype=torch.int32, device=dev)
+    bools = torch.empty((B * (1 + 2 * n * primal),), dtype=torch.bool,
+                        device=dev)
+    out = SimplexState(
+        T=torch.empty((B, M, N), dtype=dtype, device=dev),
+        basis=ints[4 * B:].view(B, m),
+        col_active=(bools[B:B + B * n].view(B, n) if primal
+                    else st.col_active),
+        art_cols=(bools[B + B * n:].view(B, n) if primal
+                  else st.art_cols),
+        phase=ints[:B], status=ints[B:2 * B], niter=ints[2 * B:3 * B],
+        stuck=ints[3 * B:4 * B], bland=bools[:B],
+        last_z=torch.empty((B,), dtype=dtype, device=dev))
+    ins = [st.T, out.T, st.basis, out.basis, st.col_active, st.art_cols]
+    ins += ([out.col_active, out.art_cols] if primal else [None, None])
+    ins += [st.phase, st.status, st.niter, st.stuck, st.bland, st.last_z,
+            out.phase, out.status, out.niter, out.stuck, out.bland,
+            out.last_z]
+    args = _ARGS(*(0 if x is None else x.data_ptr() for x in ins), *strides)
+    iargs = _INTS(B, M, N, min(int(stall_limit), _INT_MAX),
+                  min(int(max_iters), _INT_MAX), int(opts.rule),
+                  int(opts.tie_break), int(plan.resident), plan.threads,
+                  plan.smem)
+    tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
+                 opts.infeas_tol, opts.feas_tol)
+    lib = lib_for(dev)
+    fn = getattr(lib, f"tpulp_lane_{'primal' if primal else 'dual'}_"
+                      f"{suffix(dtype)}")
+    err = fn(args, iargs, tols, stream_of(dev))
+    if err:
+        raise_on(lib, err, "lane kernel")
+    LAUNCHES["lane_primal" if primal else "lane_dual"] += 1
+    return out
+
+
+def lane_dual(state: SimplexState, opts: SolverOptions, stall_limit: int,
+              max_iters: int) -> SimplexState:
+    """The dual-simplex loop of every lane of ``state`` (a batched state on
+    one CUDA device) to its exit; RUNNING lanes at the budget stay
+    RUNNING. The masks of the result are the input's."""
+    return _launch(False, state, opts, stall_limit, max_iters)
+
+
+def lane_primal(state: SimplexState, opts: SolverOptions, stall_limit: int,
+                max_iters: int) -> SimplexState:
+    """The rank-1 primal loop of every lane of ``state`` to its exit (both
+    phases, the artificial clean-up, Dantzig / Bland / greatest-increase
+    pricing with first-index or largest-pivot ratio ties; devex prices as
+    Dantzig, as ``simplex_step`` does)."""
+    return _launch(True, state, opts, stall_limit, max_iters)
+

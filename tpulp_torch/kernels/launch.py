@@ -15,7 +15,8 @@ _SELECTED = threading.local()
 
 # kernel launches per wrapper; a wrapper counts where it launches its
 # kernel and nowhere else
-LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0}
+LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0,
+            "lane_dual": 0, "lane_primal": 0}
 
 
 def reset_launches() -> None:

@@ -21,8 +21,8 @@ and multi-controller, one process per device:
   dual step three, whatever the lanes per process;
 * a mesh without ``cols`` leaves columns whole (``WHOLE``, an axis of one
   shard that does not communicate): its frames are the solo layout, so
-  its lanes run the solo batched steps (``driver.simplex_step``,
-  ``dual.dual_simplex_step``), with no collective in the loop.
+  its lanes run the solo lane loops (``solve.lanes``: on the card the
+  lane kernels, one launch a loop), with no collective in the loop.
 
 Pricing and ratio ties keep first-index semantics across shards, and the
 entering column's psum adds exact zeros from the shards that do not own
@@ -48,8 +48,8 @@ import torch
 
 from ..comm.collectives import MeshAxis
 from ..core.state import SimplexState, SolverOptions, Status
-from ..solve.driver import BIG_I, finish, first_true, put, simplex_step, take
-from ..solve.dual import dual_simplex_step, run_lanes
+from ..solve.driver import BIG_I, finish, first_true, put, take
+from ..solve.lanes import dual_lanes, primal_lanes, run_lanes
 from .sharded import (ShardedState, _fetch_column, _gather_cols,
                       _local_block, _pad_cols, _sharded_step,
                       gather_candidates, local_ids, pivot_local, unit_row2)
@@ -300,9 +300,7 @@ class LaneMesh:
                ) -> SimplexState:
         if self.lay_c is WHOLE:
             max_iters = opts.max_iters if max_iters is None else max_iters
-            return run_lanes(
-                lambda s: simplex_step(s, opts, stall_limit, max_iters), fr,
-                max_iters)
+            return primal_lanes(fr, opts, stall_limit, max_iters)
         return join_frames(run_simplex_batch_sharded(
             split_frames(fr), self.lay_c, opts, stall_limit, max_iters))
 
@@ -310,9 +308,7 @@ class LaneMesh:
              max_iters: Optional[int] = None) -> SimplexState:
         if self.lay_c is WHOLE:
             max_iters = opts.max_iters if max_iters is None else max_iters
-            return run_lanes(
-                lambda s: dual_simplex_step(s, opts, stall_limit, max_iters),
-                fr, max_iters)
+            return dual_lanes(fr, opts, stall_limit, max_iters)
         return join_frames(run_dual_batch_sharded(
             split_frames(fr), self.lay_c, opts, stall_limit, max_iters))
 

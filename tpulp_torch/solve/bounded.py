@@ -29,7 +29,7 @@ from ..core.state import RULE_DEVEX, SimplexState, SolverOptions, Status
 from ..kernels.fma import fused_fma
 from .driver import (finish, first_true, pivot_update, put, run_chunked,
                      status_select, take)
-from .dual import run_lanes
+from .lanes import run_lanes
 
 __all__ = ["BoundedState", "make_bounded_state", "bounded_simplex_step",
            "run_simplex_bounded", "run_simplex_bounded_batch",

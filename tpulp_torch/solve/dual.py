@@ -9,13 +9,14 @@ stall limit switched to Bland), the entering column the smallest
 ``c_j / -T[r, j]`` over ``T[r, j] < -piv_tol`` with first-index ties; no
 eligible column proves the row infeasible.
 
-tpulp vmaps ``lax.while_loop``s over lanes. Here ``torch.func.vmap`` of
-the single-state steps runs over a leading lane axis, in the chunked loop
-of ``driver.run_chunked`` (one host read of "any lane running" per chunk);
-the steps freeze a lane once it leaves RUNNING or reaches the budget. The
+tpulp vmaps ``lax.while_loop``s over lanes. Here ``solve.lanes`` runs
+them: on the card one lane kernel per loop (``kernels.lanes``, one block
+per lane, each lane stepped to its own exit in one launch with no host
+read), on the CPU the single-state steps vmapped over the lane axis. The
 warm waves run two loops that share one ``niter`` budget: the dual
 simplex, then a primal clean-up (OPTIMAL lanes are reopened as RUNNING,
-and lanes still RUNNING at the end become ITERATION_LIMIT).
+and lanes still RUNNING at the end become ITERATION_LIMIT), so a wave's
+loops are two launches on the card.
 
 Three scatters of tpulp drop out-of-range indices (``mode="drop"``); torch
 has no such mode. The state pool therefore carries one sink row at index
@@ -38,8 +39,8 @@ import torch
 from ..core.precision import full_precision
 from ..core.state import SimplexState, SolverOptions, Status
 from ..kernels.fma import fused_fma
-from .driver import (finish, first_true, pivot_update, put, run_chunked,
-                     simplex_step, take)
+from .driver import finish, first_true, pivot_update, put, run_chunked, take
+from .lanes import dual_lanes, primal_lanes
 
 __all__ = [
     "dual_simplex_step",
@@ -142,26 +143,15 @@ def run_dual_simplex(state: SimplexState, opts: SolverOptions | None = None
     return finish(out)
 
 
-def run_lanes(step, state, max_iters: int, get_state=lambda s: s):
-    """``step`` (a single-state transition that freezes finished lanes)
-    vmapped over the lane axis of ``state``, until no lane runs;
-    ``get_state`` finds the SimplexState in a carry that wraps one."""
-    return run_chunked(torch.func.vmap(step), state, get_state, max_iters)
-
-
 def _dual_then_primal(st: SimplexState, opts: SolverOptions,
                       stall_limit: int, max_iters: int) -> SimplexState:
     """The warm waves' two loops over lanes: the dual simplex, then the
     primal clean-up (f32 drift can leave slightly negative reduced costs;
     the primal step ends at once on a lane that is already optimal)."""
-    st = run_lanes(
-        lambda s: dual_simplex_step(s, opts, stall_limit, max_iters),
-        st, max_iters)
+    st = dual_lanes(st, opts, stall_limit, max_iters)
     st = st._replace(status=torch.where(
         st.status == Status.OPTIMAL, Status.RUNNING, st.status))
-    st = run_lanes(lambda s: simplex_step(s, opts, stall_limit, max_iters),
-                   st, max_iters)
-    return finish(st)
+    return finish(primal_lanes(st, opts, stall_limit, max_iters))
 
 
 def _lanes(T, basis, col_active, art_cols, status=None) -> SimplexState:
