@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the four sources of tpulp_torch/kernels/csrc
-(flush, inner block, FMA and the two lane kernels; and checks
+Builds the CUDA kernels from the five sources of tpulp_torch/kernels/csrc
+(flush, inner block, FMA, the two lane kernels and the bounded step's four
+launches; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -38,8 +39,14 @@ batched pivot at B = 128 beside the lane kernels' us a step, and runs
 ``solve_lp_batch`` cold and warm over 64 RHS scenarios and
 ``solve_lp(warm_start=)`` at 256 x 512.
 Phase 8 solves a 1024 x 2048 box LP with ``simple_bounds`` (the
-bounded-variable simplex, certified, held against the row-lowered solve on
-the kernel engine), a batch of 256 box LPs with and without bound rows,
+bounded-variable simplex on the bounded kernels, four launches a step and
+no FMA launch, certified, held against the row-lowered solve on the kernel
+engine; at f32 answered on the ladder's f64 retry), holds the kernels'
+whole f64 devex walk, the f32 walk's first 2,048 steps and a Dantzig walk
+that switches to Bland against the plain loop in every field, and each of
+the four launches against its plain stage on a step with an upper hit and
+one with an entering flip, and times a kernel step on the card; then it
+solves a batch of 256 box LPs with and without bound rows,
 a blocked batch of 8 LPs of 512 x 1024 against their solo solves, the
 corpus's infeasible and unbounded cases with verified certificates,
 Wyndor's ranging, ``find_iis`` with every oracle solve on the card, and
@@ -121,6 +128,12 @@ BND_F32_RUNG = "device-float64"
 # (~7 minutes a dtype on the card), devex far fewer
 BND_PRICING = "devex"
 BND_MAX_ITERS = 200_000
+# the f32 walks 8a holds to the plain loop: the devex walk's first steps,
+# and a Dantzig walk whose stall limit of 1 switches it to Bland; the step
+# the kernels are timed from and the steps timed
+BND_F32_WINDOW = 2048
+BND_BLAND_STEPS = 1024
+BND_TIMED_FROM, BND_TIMED_STEPS = 2000, 64
 BOX_M, BOX_N, BOX_LANES = 64, 128, 256
 # the row-lowered batch that 8b holds the box batch to: its first lanes
 # only (its exact refinement and certificate take ~0.6 s a lane on the
@@ -775,7 +788,9 @@ def phase_tf32_guard():
 def check_static_smem(ptxas) -> None:
     """The inner-block kernel's static shared memory (ptxas's report) must
     fit the room ``inner_block_plan`` leaves beside the dynamic share it
-    plans, or a plan that fits on paper would not launch."""
+    plans, or a plan that fits on paper would not launch. The lane
+    kernels' must fit the room ``lane_plan`` leaves, and each of the eight
+    bounded kernels' the 33 slots of its block reduction."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
 
@@ -790,15 +805,28 @@ def check_static_smem(ptxas) -> None:
             max(lane.values()) > LANE_STATIC_SMEM:
         raise AssertionError(f"lane kernels' static shared memory {lane}: "
                              f"the plan leaves {LANE_STATIC_SMEM} bytes")
+    bnd = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k.startswith("bounded_")}
+    if len(bnd) != len(BOUNDED_KERNELS) or \
+            max(bnd.values()) > BOUNDED_STATIC_SMEM:
+        raise AssertionError(f"bounded kernels' static shared memory {bnd}: "
+                             f"their reductions take {BOUNDED_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
-        f"within {LANE_STATIC_SMEM}")
+        f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} "
+        f"bytes, within {BOUNDED_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
 # <float or double, RESIDENT>
 LANE_KERNELS = tuple(f"lane_{kind}_kernelI{t}Lb{r}" for kind in
                      ("dual", "primal") for t in "fd" for r in "10")
+# the bounded step's four kernels, <float or double>
+BOUNDED_KERNELS = tuple(f"{stage}_kernelI{t}" for stage in
+                        ("price", "ratio", "update", "finish") for t in "fd")
+# the static shared memory of a single-block bounded kernel: the block
+# reduction's 33 slots (common.cuh's Red<double>: 32 bytes each)
+BOUNDED_STATIC_SMEM = 33 * 32
 
 
 def _ptxas_name(name: str) -> str:
@@ -809,6 +837,8 @@ def _ptxas_name(name: str) -> str:
         else name
     if name.startswith("lane_"):
         return f"{head}<{t},{'resident' if name.endswith('1') else 'streamed'}>"
+    if name in BOUNDED_KERNELS:
+        return f"bounded_{head}<{t}>"
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -831,7 +861,8 @@ def ptxas_report(text: str):
                                  "inner_block_kernelId",
                                  "flush_kernelIf", "flush_kernelId",
                                  "fma_kernelIf", "fma_kernelId",
-                                 "barrier_probe_kernel", *LANE_KERNELS)
+                                 "barrier_probe_kernel", *LANE_KERNELS,
+                                 *BOUNDED_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -1997,52 +2028,200 @@ def bounded_form(m: int, n: int, seed: int = 0):
             u)
 
 
-def flip_spy():
-    """Wraps the bounded step (the name the bounded driver calls) to count
-    on the card, without a host read, its entering flips (a step that adds
-    a pivot but keeps the basis) and its upper hits (a basis change that
-    flips a column). Returns (counts, restore): ``counts()`` reads the two
-    totals."""
-    import torch
-
-    import tpulp_torch.solve.bounded as bounded
-
-    real = bounded.bounded_simplex_step
-    total = []
-
-    def spy(bs, opts, stall_limit, max_iters=None):
-        nxt = real(bs, opts, stall_limit, max_iters)
-        same = (nxt.s.basis == bs.s.basis).all()
-        flip = (nxt.at_upper != bs.at_upper).any()
-        step = torch.stack([(nxt.s.niter > bs.s.niter) & same, ~same & flip])
-        total[:] = [step.int() + total[0] if total else step.int()]
-        return nxt
-
-    def restore():
-        bounded.bounded_simplex_step = real
-
-    bounded.bounded_simplex_step = spy
-    return (lambda: total[0].tolist() if total else [0, 0]), restore
-
-
-def bounded_step_window(sf, dev, dtype):
-    """(device ms, kernels, host ms) per bounded step (BND_PRICING), from
-    16 steps from the initial basis under torch.profiler."""
+def bounded_state(sf, dev, dtype, devex: bool = True, **kw):
+    """(state, options) of the bounded walk of ``sf`` from its initial
+    basis, devex (weights at 1) or Dantzig, options overridden by
+    ``kw``."""
     import torch
 
     from tpulp_torch import SolverOptions
     from tpulp_torch.core.state import RULE_DANTZIG, RULE_DEVEX
     from tpulp_torch.solve.api import state_from_standard_form
-    from tpulp_torch.solve.bounded import (bounded_simplex_step,
-                                           make_bounded_state)
+    from tpulp_torch.solve.bounded import make_bounded_state
 
-    devex = BND_PRICING == "devex"
     opts = SolverOptions.for_dtype(
-        dtype, rule=RULE_DEVEX if devex else RULE_DANTZIG)
+        dtype, rule=RULE_DEVEX if devex else RULE_DANTZIG, **kw)
     bs = make_bounded_state(state_from_standard_form(sf, dtype=dtype,
                                                      device=dev), sf.upper)
     if devex:
         bs = bs._replace(gamma=torch.ones_like(bs.upper))
+    return bs, opts
+
+
+def bounded_equal(k, p) -> float:
+    """Raise unless two bounded states agree in every field (the tableau
+    as ``T + 0.0``, NaN equal to NaN; at_upper, gamma); returns the largest
+    |difference| of the tableaus' entries finite in both."""
+    import torch
+
+    err = lanes_equal(k.s, p.s)
+    if not torch.equal(k.at_upper.cpu(), p.at_upper.cpu()):
+        raise AssertionError("bounded walk: at_upper differs")
+    if (k.gamma is None) != (p.gamma is None) or (
+            k.gamma is not None and not torch.equal(
+                k.gamma.cpu() + 0.0, p.gamma.cpu() + 0.0)):
+        raise AssertionError("bounded walk: gamma differs")
+    return err
+
+
+def bounded_walk_check(sf, dev, dtype, label: str, devex: bool = True,
+                       **kw):
+    """One bounded walk from the initial basis through the kernels
+    (``run_simplex_bounded`` on the card) and through the plain loop
+    (``run_simplex_bounded_reference``), held equal in every field;
+    returns the kernels' walk's numbers."""
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.bounded import FLIPS
+    from tpulp_torch.solve.bounded import (run_simplex_bounded,
+                                           run_simplex_bounded_reference)
+
+    bs, opts = bounded_state(sf, dev, dtype, devex, **kw)
+    sync(dev)
+    flips0 = dict(FLIPS)
+    reset_launches()
+    t0 = time.perf_counter()
+    k = run_simplex_bounded(bs, opts)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    p = run_simplex_bounded_reference(bs, opts)
+    sync(dev)
+    plain_secs = time.perf_counter() - t0
+    err = bounded_equal(k, p)
+    niter = int(k.s.niter)
+    res = {"status": int(k.s.status), "niter": niter,
+           "bland": bool(k.s.bland), "seconds": secs,
+           "plain_seconds": plain_secs, "max_abs_err": err,
+           "bounded_step": launches["bounded_step"],
+           "fused_fma": launches["fused_fma"],
+           **{key: FLIPS[key] - flips0[key] for key in FLIPS}}
+    log(f"# 8a {label}: the kernels' walk equals the plain walk in every "
+        f"field (status {res['status']}, {niter} steps, bland "
+        f"{res['bland']}, {res['entering_flips']} entering flips and "
+        f"{res['upper_hits']} upper hits); {secs:.3f} s against the plain "
+        f"walk's {plain_secs:.2f} s; {launches['bounded_step']} steps "
+        f"enqueued, {launches['fused_fma']} FMA launches")
+    if dev == "cuda" and not (launches["bounded_step"] > 0
+                              and launches["fused_fma"] == 0):
+        raise AssertionError(f"8a {label}: launches {launches}")
+    return res
+
+
+def bounded_step_us(sf, dev, dtype, advance: int = BND_TIMED_FROM,
+                    steps: int = BND_TIMED_STEPS):
+    """(device us, host us, split) a kernel step of the devex walk
+    ``advance`` steps in: the device time of ``steps`` steps enqueued by
+    one C call (CUDA events after a sleep that covers the host's enqueue,
+    as ``device_time_ms``), the host's time to enqueue them, and the
+    device us of the price and ratio launches alone (``steps`` launches of
+    each on the same record: both write only the verdict and the
+    snapshot) beside the rest of the step (update and finish)."""
+    import torch
+
+    from tpulp_torch.kernels import bounded as kb
+
+    bs, opts = bounded_state(sf, dev, dtype)
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    rec = kb.make_record(bs)
+    kb.enqueue_steps(rec, opts, stall, opts.max_iters, advance)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        stop.record()
+        stop.synchronize()
+        return 1e3 * start.elapsed_time(stop) / steps, 1e6 * host / steps
+
+    dev_us, host_us, split = [], [], {"price": [], "ratio": []}
+    for _ in range(3):
+        for stage in split:
+            split[stage].append(timed(lambda: [
+                kb.bounded_stage(rec, stage, opts, stall, opts.max_iters)
+                for _ in range(steps)])[0])
+        n0 = int(rec.ints[kb.NITER])
+        d, h = timed(lambda: kb.enqueue_steps(rec, opts, stall,
+                                              opts.max_iters, steps))
+        if int(rec.ints[kb.NITER]) - n0 != steps:
+            raise AssertionError("8a: the timed steps ran past the walk")
+        dev_us.append(d)
+        host_us.append(h)
+    split = {k: float(np.median(v)) for k, v in split.items()}
+    split["update_and_finish"] = float(np.median(dev_us)) - sum(
+        split.values())
+    return float(np.median(dev_us)), float(np.median(host_us)), split
+
+
+def bounded_stage_checks(bs, opts, label: str, want, min_step: int,
+                         max_steps: int):
+    """Each launch of a step held against its plain stage on the card, on
+    the first step at or past ``min_step`` of each kind in ``want``
+    ("upper": a pivot whose leaving column flips; "enter": an entering
+    flip). The record walks on through the kernels' stages; price and
+    ratio write only the verdict and the snapshot, so they can run
+    again from the same state. Returns {kind: step}."""
+    import torch
+
+    from tpulp_torch.kernels import bounded as kb
+
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    mi = opts.max_iters
+    rec = kb.make_record(bs)
+    found = {}
+    for step in range(max_steps):
+        for stage in ("price", "ratio"):
+            kb.bounded_stage(rec, stage, opts, stall, mi)
+        iv = rec.ints.tolist()
+        if iv[kb.STATUS] != 0:
+            break
+        kind = ("enter" if iv[kb.DO_FLIP_ENTER] else "upper"
+                if iv[kb.DO_PIVOT] and iv[kb.DO_FLIP] else None)
+        if step >= min_step and kind in want and kind not in found:
+            base = kb.clone_record(rec)
+            for stage in kb.STAGES:
+                k, p = kb.clone_record(base), kb.clone_record(base)
+                kb.bounded_stage(k, stage, opts, stall, mi)
+                kb.bounded_stage_reference(p, stage, opts, stall, mi)
+                torch.cuda.synchronize()
+                for name, a, b in zip(kb.BoundedRecord._fields, k, p):
+                    if a is None:
+                        continue
+                    a, b = a.cpu(), b.cpu()
+                    if a.is_floating_point():
+                        a, b = a.nan_to_num(0.5) + 0.0, b.nan_to_num(0.5) + 0.0
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"8a {label}: the {stage} launch of step {step} "
+                            f"({kind}) differs from its plain stage in "
+                            f"{name}")
+                base = p
+            found[kind] = step
+        for stage in ("update", "finish"):
+            kb.bounded_stage(rec, stage, opts, stall, mi)
+        if set(found) == set(want):
+            break
+    if set(found) != set(want):
+        raise AssertionError(f"8a {label}: no step of kinds "
+                             f"{set(want) - set(found)} in {max_steps}")
+    log(f"# 8a stages, {label}: price, ratio, update and finish each equal "
+        f"their plain stage on the card (every record field) at step "
+        + ", ".join(f"{s} ({k})" for k, s in found.items()))
+    return found
+
+
+def bounded_step_window(sf, dev, dtype):
+    """(device ms, kernels, host ms) per plain bounded step
+    (BND_PRICING), from 16 steps from the initial basis under
+    torch.profiler: the plain step the kernels replace."""
+    from tpulp_torch.solve.bounded import bounded_simplex_step
+
+    bs, opts = bounded_state(sf, dev, dtype, BND_PRICING == "devex")
     stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
 
     def window(bs=bs):
@@ -2051,25 +2230,32 @@ def bounded_step_window(sf, dev, dtype):
 
     window()
     wall, busy, kernels = device_busy(window)
-    return {"device_ms_per_step": 1e3 * busy / 16,
-            "kernels_per_step": kernels / 16,
-            "host_ms_per_step": 1e3 * wall / 16}
+    return {"plain_device_ms_per_step": 1e3 * busy / 16,
+            "plain_kernels_per_step": kernels / 16,
+            "plain_host_ms_per_step": 1e3 * wall / 16}
 
 
 def phase_bounded_lp(dev):
     """Phase 8a: solve_lp on the BND_M x BND_N box LP with simple_bounds
     (a (BND_M + 2) x (BND_N + BND_M + 1) tableau, no bound rows, priced
-    by BND_PRICING) at f64:
-    optimal, the f64 bounded certificate, 0 <= x <= u and D x <= b within
-    1e-9 relative, columns at upper, and the objective within 1e-9 of the
-    row-lowered solve (3 BND_M rows), which takes the kernel engine. The
-    same LP at f32: optimal on BND_F32_RUNG (the ladder's f64 retry), its
-    answer certified and equal to the f64 solve's. Returns the numbers and
-    the FMA launches of the f64 solve."""
+    by BND_PRICING) at f64: the bounded kernels' walk (``bounded_step``
+    launches, no FMA launch), optimal, the f64 bounded certificate,
+    0 <= x <= u and D x <= b within 1e-9 relative, columns at upper, and
+    the objective within 1e-9 of the row-lowered solve (3 BND_M rows),
+    which takes the kernel engine. The same LP at f32: on the kernels,
+    optimal on BND_F32_RUNG (the ladder's f64 retry), its answer
+    certified and equal to the f64 solve's. Then the kernels against the
+    plain loop: the whole f64 devex walk, the f32 walk's first
+    BND_F32_WINDOW steps and a Dantzig f32 walk that switches to Bland,
+    every field equal; each of the four launches against its plain stage
+    on a step with an upper hit (this LP) and one with an entering flip
+    (8b's first box LP); and the kernels' device and host us a step.
+    Returns the numbers and the launches of the f64 solve."""
     import torch
 
     import tpulp_torch
     from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.bounded import FLIPS
     from tpulp_torch.model.equilibrate import (equilibration_powers_dense,
                                                is_material_scaling)
     from tpulp_torch.model.lower import materialize_simple_bounds
@@ -2085,41 +2271,37 @@ def phase_bounded_lp(dev):
     for dt in (torch.float64, torch.float32):
         name = str(dt).replace("torch.", "")
         window = bounded_step_window(sf, dev, dt)
-        counts, restore = flip_spy()
         torch.cuda.synchronize()
+        flips0 = dict(FLIPS)
         # the bounded LP's main path: counts set to 0 just before the solve
         # and read just after it
         reset_launches()
         t0 = time.perf_counter()
-        try:
-            sol = tpulp_torch.solve_lp(sf, dtype=dt, device=dev,
-                                       pricing=BND_PRICING,
-                                       max_iters=BND_MAX_ITERS)
-            torch.cuda.synchronize()
-        finally:
-            restore()
+        sol = tpulp_torch.solve_lp(sf, dtype=dt, device=dev,
+                                   pricing=BND_PRICING,
+                                   max_iters=BND_MAX_ITERS)
+        torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(LAUNCHES)
-        enter, up_hit = counts()
-        est_device = window["device_ms_per_step"] * sol.niter / 1e3
+        enter, up_hit = (FLIPS[k] - flips0[k] for k in FLIPS)
         res[name] = {"status": sol.status, "rung": sol.rung,
                      "niter": sol.niter, "seconds": secs,
                      "launches": launches, "entering_flips": enter,
-                     "upper_hits": up_hit,
-                     "device_seconds_est": est_device, **window,
+                     "upper_hits": up_hit, **window,
                      "objective": float(sol.objective)
                      if sol.objective is not None else None}
         log(f"# bounded LP {m}x{n} {name} ({BND_PRICING}): {sol.status}, "
             f"rung {sol.rung}, {sol.niter} steps = {enter} entering flips "
             f"+ {up_hit} upper hits + {sol.niter - enter - up_hit} plain "
-            f"pivots (the flip "
-            f"counts are over every walk the solve ran); {secs:.2f} s on "
-            f"the host clock (set-up, refinement and certificate included) "
-            f"against ~{est_device:.3f} s of device time "
-            f"({window['device_ms_per_step']:.4f} ms, "
-            f"{window['kernels_per_step']:.0f} kernels and "
-            f"{window['host_ms_per_step']:.3f} ms of host time a step, "
-            "torch.profiler over 16 steps); launches " + str(launches))
+            f"pivots (the record's counters, over every walk the solve "
+            f"ran); {secs:.2f} s on the host clock (set-up, refinement and "
+            f"certificate included); launches {launches}; the plain step "
+            f"it replaces: {window['plain_device_ms_per_step']:.4f} ms, "
+            f"{window['plain_kernels_per_step']:.0f} kernels and "
+            f"{window['plain_host_ms_per_step']:.3f} ms of host time a "
+            "step (torch.profiler over 16 steps)")
+        kernel_path = (launches["bounded_step"] > 0
+                       and launches["fused_fma"] == 0)
         if dt == torch.float32:
             # the retry's answer, certified again and held to the f64
             # solve's objective
@@ -2129,7 +2311,7 @@ def phase_bounded_lp(dev):
                 1.0, abs(float(f64_obj)))
             if not (sol.status == "optimal" and sol.rung == BND_F32_RUNG
                     and primal_ok and dual_ok and rel <= 1e-9
-                    and launches["fused_fma"] > 0):
+                    and kernel_path):
                 raise AssertionError(
                     f"bounded LP f32: {sol.status}, rung {sol.rung} (want "
                     f"{BND_F32_RUNG}), certificate {primal_ok, dual_ok}, "
@@ -2142,7 +2324,7 @@ def phase_bounded_lp(dev):
             res[name]["relative_difference"] = rel
             continue
         f64_obj = sol.objective
-        if sol.status != "optimal" or launches["fused_fma"] == 0:
+        if sol.status != "optimal" or not kernel_path:
             raise AssertionError(f"bounded LP f64: {sol.status}, launches "
                                  f"{launches}")
         primal_ok, dual_ok = float_bounded_certificate(sf, sol.basis,
@@ -2187,6 +2369,61 @@ def phase_bounded_lp(dev):
                                  "kernel engine disagrees")
         res["row_lowered"] = {"niter": rows.niter, "seconds": rsecs,
                               "launches": rl, "relative_difference": rel}
+
+    # the kernels against the plain loop, on the card
+    walks = {
+        "f64_devex": bounded_walk_check(sf, dev, torch.float64,
+                                        "the whole f64 devex walk",
+                                        max_iters=BND_MAX_ITERS),
+        "f32_devex_window": bounded_walk_check(
+            sf, dev, torch.float32,
+            f"the f32 devex walk's first {BND_F32_WINDOW} steps",
+            max_iters=BND_F32_WINDOW),
+        "f32_dantzig_bland": bounded_walk_check(
+            sf, dev, torch.float32,
+            f"the f32 Dantzig walk's first {BND_BLAND_STEPS} steps, stall "
+            "limit 1 (every pivot stalls: Bland from the second)",
+            devex=False, stall_limit=1, degen_tol=1e30,
+            max_iters=BND_BLAND_STEPS)}
+    if not walks["f32_dantzig_bland"]["bland"]:
+        raise AssertionError("8a: the Bland switch did not fire")
+    f64 = walks["f64_devex"]
+    if f64["status"] != 1 or f64["niter"] != res["float64"]["niter"]:
+        raise AssertionError(f"8a: the f64 devex walk {f64} is not the "
+                             "solve's")
+    bs, opts = bounded_state(sf, dev, torch.float64)
+    stages = {"box_lp_f64": bounded_stage_checks(
+        bs, opts, f"{m}x{n} f64 devex", ("upper",), 100, 3000)}
+    for dt in (torch.float64, torch.float32):
+        bs, opts = bounded_state(box_form(0, BOX_M, BOX_N), dev, dt, False)
+        stages[f"box_batch_lane0_{dt}".replace("torch.", "")] = \
+            bounded_stage_checks(bs, opts, f"8b's first box LP ({BOX_M}x"
+                                 f"{BOX_N}, Dantzig, {dt})",
+                                 ("upper", "enter"), 5, 400)
+    us = {}
+    for dt in (torch.float64, torch.float32):
+        dev_us, host_us, split = bounded_step_us(sf, dev, dt)
+        es = 8 if dt == torch.float64 else 4
+        bound_us = 1e3 * bound(2.0 * (m + 2) * (n + m + 1) * es, 0.0,
+                               FP64_FLOP_S)[0]
+        us[str(dt).replace("torch.", "")] = {
+            "device_us_per_step": dev_us, "host_us_per_step": host_us,
+            "bound_us_per_step": bound_us, "device_us_by_stage": split}
+        log(f"# 8a bounded kernels {dt}: {dev_us:.2f} us a step on the card "
+            f"(CUDA events over {BND_TIMED_STEPS} steps from step "
+            f"{BND_TIMED_FROM}; price {split['price']:.2f}, ratio "
+            f"{split['ratio']:.2f}, update and finish "
+            f"{split['update_and_finish']:.2f}), {host_us:.2f} us of host "
+            f"time to enqueue one (four launches); bound {bound_us:.2f} us "
+            "(the tableau read and written once at 3.35 TB/s)")
+    f64.update(us["float64"])
+    log(f"# 8a the f64 devex walk: {f64['seconds']:.3f} s for {f64['niter']}"
+        f" steps = {1e6 * f64['seconds'] / f64['niter']:.2f} us a step on "
+        f"the host clock; {f64['device_us_per_step']:.2f} us on the card, "
+        f"{f64['host_us_per_step']:.2f} us to enqueue, bound "
+        f"{f64['bound_us_per_step']:.2f} us; {f64['bounded_step']} steps "
+        f"enqueued ({4 * f64['bounded_step']} launches)")
+    res.update(walks=walks, stages=stages, step_us=us)
     return res
 
 
@@ -2554,7 +2791,10 @@ def mesh_main_path(mesh, sf, driver: str, objective: str, dev="cuda"):
 
 
 def sharded_flip_spy():
-    """``flip_spy`` for the sharded bounded step: (counts, restore)."""
+    """Wraps the sharded bounded step to count on the card, without a host
+    read, its entering flips (a step that adds a pivot but keeps the
+    basis) and its upper hits (a basis change that flips a column).
+    Returns (counts, restore): ``counts()`` reads the two totals."""
     import torch
 
     import tpulp_torch.shard.sharded_bounded as sb
@@ -2575,6 +2815,15 @@ def sharded_flip_spy():
 
     sb._sharded_bounded_step = spy
     return (lambda: total[0].tolist() if total else [0, 0]), restore
+
+
+def record_flips():
+    """The solo walk's (counts, restore), as ``sharded_flip_spy`` gives
+    them, from the bounded kernels' record counters (``FLIPS``)."""
+    from tpulp_torch.kernels.bounded import FLIPS
+
+    before = dict(FLIPS)
+    return (lambda: [FLIPS[k] - before[k] for k in FLIPS]), (lambda: None)
 
 
 def mesh_bounded(mesh, dev="cuda"):
@@ -2601,7 +2850,7 @@ def mesh_bounded(mesh, dev="cuda"):
     for kind in ("solo", "mesh"):
         bs = make_bounded_state(state_from_standard_form(
             sf, dtype=torch.float64, device=dev), sf.upper)
-        counts, restore = (flip_spy if kind == "solo"
+        counts, restore = (record_flips if kind == "solo"
                            else sharded_flip_spy)()
         sync(dev)
         reset_launches()
@@ -3067,6 +3316,10 @@ def main() -> int:
                         "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
                         "592; tpulp/batch/vmap_driver.py:250)",
                         milp_launches),
+        "bounded_step": ("tpulp_torch/kernels/csrc/bounded.cu",
+                         "none: XLA's compiled lax.while_loop over "
+                         "bounded_simplex_step (tpulp/solve/bounded.py:"
+                         "86-276, 278-307)", bounded_launches),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3076,6 +3329,26 @@ def main() -> int:
             head = dict(fma_cases["rank1_pivot_vmap float64"])
             head["library_ms"] = None  # CUDA addcmul rounds twice
             cases = fma_cases
+        elif kname == "bounded_step":
+            # per step of the f64 devex walk of 8a: the walk's host-clock
+            # time, the plain step's, the tableau's bytes
+            bl = exact["bounded_lp"]
+            cases = {}
+            for dt, walk in (("float64", "f64_devex"),
+                             ("float32", "f32_devex_window")):
+                w = bl["walks"][walk]
+                cases[dt] = {
+                    "max_abs_err": w["max_abs_err"],
+                    "ms": 1e3 * w["seconds"] / w["niter"],
+                    "plain_ms": 1e3 * w["plain_seconds"] / w["niter"],
+                    "bound_ms": bl["step_us"][dt]["bound_us_per_step"] / 1e3,
+                    "bound_by": "bytes", "library_ms": None,
+                    "device_ms": bl["step_us"][dt]["device_us_per_step"]
+                    / 1e3,
+                    "host_enqueue_ms":
+                        bl["step_us"][dt]["host_us_per_step"] / 1e3,
+                    "steps": w["niter"]}
+            head = cases["float64"]
         elif kname.startswith("lane_"):
             # the headline: the f64 bench knapsack's warm wave (the dual
             # loop) and cold wave (the primal loop), 128 lanes of 59 x 114
@@ -3094,8 +3367,11 @@ def main() -> int:
                         "replaces": repl, "launches": counts[kname],
                         **{k: head.get(k) for k in keys},
                         "cases": cases})
-    # the FMA kernel runs on two main paths: MILP (its ``launches``) and
-    # the bounded LP of phase 8
+    if bounded_launches["fused_fma"] != 0:
+        raise AssertionError("the f64 bounded LP's solve launched the FMA "
+                             "kernel")
+    # the FMA kernel's main path is MILP (its ``launches``); the bounded
+    # LP of phase 8 runs the bounded kernels and no FMA
     kernels[2]["launches_by_path"] = {
         "milp_bench_knapsack_float64": milp_launches["fused_fma"],
         "bounded_lp_float64": bounded_launches["fused_fma"],
@@ -3135,8 +3411,18 @@ def main() -> int:
         kernels[k].update({key: head[key] for key in (
             "us_per_step", "device_ms", "device_us_per_step", "steps",
             "pivots")})
+    kernels[5].update({key: kernels[5]["cases"]["float64"][key] for key in (
+        "device_ms", "host_enqueue_ms", "steps")})
+    kernels[5]["launches_by_path"] = {
+        "bounded_lp_float64": bounded_launches["bounded_step"],
+        "bounded_lp_float32": exact["bounded_lp"]["float32"]["launches"][
+            "bounded_step"],
+        "sharded_bounded_solo_float64":
+            mesh["bounded"]["solo"]["launches"]["bounded_step"]}
+    kernels[5]["walks"] = exact["bounded_lp"]["walks"]
+    kernels[5]["stages_held_at_step"] = exact["bounded_lp"]["stages"]
     for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma"),
-                     (3, "lane_dual"), (4, "lane_primal")):
+                     (3, "lane_dual"), (4, "lane_primal"), (5, "bounded")):
         kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,

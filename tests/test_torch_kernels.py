@@ -337,7 +337,8 @@ def test_launch_counters_stay_zero_on_cpu():
                        torch.ones((ts.T.shape[1],), dtype=torch.int32),
                        1e-9, 1e-9)
     assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0,
-                        "fused_fma": 0, "lane_dual": 0, "lane_primal": 0}
+                        "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
+                        "bounded_step": 0, "bounded_stage": 0}
 
 
 def test_nvcc_command_line():
@@ -353,8 +354,9 @@ def test_nvcc_command_line():
         (src,) = [pathlib.Path(x) for x in cmd if x.endswith(".cu")]
         sources.append(src)
         objects.append(cmd[cmd.index("-o") + 1])
-    assert sorted(p.name for p in sources) == ["flush.cu", "fma.cu",
-                                               "inner_block.cu", "lanes.cu"]
+    assert sorted(p.name for p in sources) == ["bounded.cu", "flush.cu",
+                                               "fma.cu", "inner_block.cu",
+                                               "lanes.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link

@@ -2,6 +2,7 @@
 
 from .block import (blocked_inner_block, blocked_inner_block_reference,
                     fused_flush, fused_flush_reference, inner_block_plan)
+from .bounded import bounded_stage, bounded_steps
 from .fma import fused_fma
 from .lanes import lane_dual, lane_plan, lane_primal
 from .launch import LAUNCHES, reset_launches
@@ -18,4 +19,6 @@ __all__ = [
     "lane_dual",
     "lane_primal",
     "lane_plan",
+    "bounded_steps",
+    "bounded_stage",
 ]

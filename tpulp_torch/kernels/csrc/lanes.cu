@@ -34,16 +34,14 @@
 // vector. The scalars are held by every thread alike (each computes them
 // from the same reduction results); the finiteness sums are added in a
 // fixed order (per thread, then the warp tree, then across warps) in the
-// tableau's type.
-
-#include <cfloat>
+// tableau's type. The block reductions (Red, offer, block_reduce,
+// finite_val) live in common.cuh, which bounded.cu shares.
 
 #include "common.cuh"
 
 namespace tpulp {
 
 constexpr int LANE_MAX_THREADS = 256;
-constexpr unsigned LANE_FULL = 0xffffffffu;
 // status codes and pricing rules (tpulp_torch.core.state)
 constexpr int ST_RUNNING = 0, ST_OPTIMAL = 1, ST_UNBOUNDED = 2, ST_INFEASIBLE = 3,
               ST_NUMERIC = 5;
@@ -90,88 +88,6 @@ struct LaneParams {
   // Python floats, which torch rounds to the tensor's type
   T opt_tol, piv_tol, degen_tol, infeas_tol, feas_tol;
 };
-
-template <typename T> __device__ __forceinline__ bool finite_val(T v);
-template <> __device__ __forceinline__ bool finite_val<float>(float v) { return fabsf(v) <= FLT_MAX; }
-template <> __device__ __forceinline__ bool finite_val<double>(double v) { return fabs(v) <= DBL_MAX; }
-
-// One block-wide reduction carries every quantity a scan needs: a
-// (value, index) pick, two first-index minima and a sum.
-template <typename V>
-struct Red {
-  V v;
-  int i;
-  int a;
-  int b;
-  V s;
-};
-
-template <typename V>
-__device__ __forceinline__ Red<V> red_identity(bool mx) {
-  Red<V> x;
-  x.v = mx ? -pos_inf<V>() : pos_inf<V>();
-  x.i = BIG_I;
-  x.a = BIG_I;
-  x.b = BIG_I;
-  x.s = V(0);
-  return x;
-}
-
-// torch's argmin (mx false) / argmax (mx true): the first NaN wins; else
-// the extreme value, ties to the smaller index
-template <typename V>
-__device__ __forceinline__ void offer(Red<V>& x, V v, int i, bool mx) {
-  const bool xn = is_nan(x.v), yn = is_nan(v);
-  bool take;
-  if (xn || yn)
-    take = yn && (!xn || i < x.i);
-  else
-    take = (mx ? v > x.v : v < x.v) || (v == x.v && i < x.i);
-  if (take) {
-    x.v = v;
-    x.i = i;
-  }
-}
-
-template <typename V>
-__device__ __forceinline__ void combine(Red<V>& x, const Red<V>& y, bool mx) {
-  offer(x, y.v, y.i, mx);
-  x.a = min(x.a, y.a);
-  x.b = min(x.b, y.b);
-  x.s = add_rn(x.s, y.s);
-}
-
-template <typename V>
-__device__ __forceinline__ Red<V> warp_reduce(Red<V> x, bool mx) {
-  for (int off = 16; off > 0; off >>= 1) {
-    Red<V> y;
-    y.v = __shfl_down_sync(LANE_FULL, x.v, off);
-    y.i = __shfl_down_sync(LANE_FULL, x.i, off);
-    y.a = __shfl_down_sync(LANE_FULL, x.a, off);
-    y.b = __shfl_down_sync(LANE_FULL, x.b, off);
-    y.s = __shfl_down_sync(LANE_FULL, x.s, off);
-    combine(x, y, mx);
-  }
-  return x;
-}
-
-// The block's reduction, returned to every thread. The tree is fixed for a
-// block size, so the sums come out the same in every run.
-template <typename V>
-__device__ Red<V> block_reduce(Red<V> x, Red<V>* scratch, bool mx) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  x = warp_reduce(x, mx);
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    x = lane < nw ? scratch[lane] : red_identity<V>(mx);
-    x = warp_reduce(x, mx);
-    if (lane == 0) scratch[32] = x;
-  }
-  __syncthreads();
-  return scratch[32];
-}
 
 __host__ __device__ __forceinline__ long long align16(long long x) { return (x + 15) / 16 * 16; }
 

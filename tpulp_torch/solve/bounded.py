@@ -13,9 +13,12 @@ and one (possibly no-op) column flip, as tensor selects, so the step is
 branchless and ``torch.func.vmap`` batches it. Phase-1 artificials carry
 infinite spans, so the two-phase layout of ``core/state.py`` is unchanged.
 
-``run_simplex_bounded`` runs the step in the chunked Python loop of
-``solve/driver.py`` (one host read of the status per chunk);
-``run_simplex_bounded_batch`` runs it vmapped over a lane axis.
+``run_simplex_bounded`` runs the walk on CUDA tensors as four hand-written
+launches a step (``kernels.bounded.bounded_steps``, the walk's state kept
+on the card) and on CPU tensors as this step in the chunked Python loop of
+``solve/driver.py`` (``run_simplex_bounded_reference``; one host read of
+the status per chunk). ``run_simplex_bounded_batch`` runs the step vmapped
+over a lane axis, on either device.
 """
 
 from __future__ import annotations
@@ -26,17 +29,17 @@ import numpy as np
 import torch
 
 from ..core.state import RULE_DEVEX, SimplexState, SolverOptions, Status
+from ..kernels.bounded import BIG_I, DEVEX_RESET_ABOVE, bounded_steps
 from ..kernels.fma import fused_fma
+from ..kernels.launch import on_cpu
 from .driver import (finish, first_true, pivot_update, put, run_chunked,
                      status_select, take)
 from .lanes import run_lanes
 
 __all__ = ["BoundedState", "make_bounded_state", "bounded_simplex_step",
-           "run_simplex_bounded", "run_simplex_bounded_batch",
-           "extract_bounded_solution"]
-
-BIG_I = 2 ** 30
-DEVEX_RESET_ABOVE = 1e8  # re-anchor the devex frame past this weight
+           "run_simplex_bounded", "run_simplex_bounded_reference",
+           "run_simplex_bounded_batch", "extract_bounded_solution",
+           "BIG_I", "DEVEX_RESET_ABOVE"]
 
 
 class BoundedState(NamedTuple):
@@ -256,11 +259,16 @@ def _finish(bs: BoundedState) -> BoundedState:
     return bs._replace(s=finish(bs.s))
 
 
-def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
-                        ) -> BoundedState:
-    """Run the bounded-variable driver to termination or to
-    ``opts.max_iters`` (single problem); ``RULE_DEVEX`` prices with devex
-    weights."""
+def _tensors(bs: BoundedState) -> list:
+    return [x for x in (*bs.s, bs.upper, bs.at_upper, bs.gamma)
+            if x is not None]
+
+
+def run_simplex_bounded_reference(bs: BoundedState,
+                                  opts: SolverOptions | None = None
+                                  ) -> BoundedState:
+    """The plain walk: ``bounded_simplex_step`` in ``run_chunked``'s
+    chunks, to termination or to ``opts.max_iters``."""
     if opts is None:
         opts = SolverOptions.for_dtype(bs.s.T.dtype)
     stall_limit = opts.resolved_stall_limit(bs.s.m, bs.s.n)
@@ -268,6 +276,21 @@ def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
         lambda c: bounded_simplex_step(c, opts, stall_limit, opts.max_iters),
         _with_gamma(bs, opts), lambda c: c.s, opts.max_iters)
     return _finish(out)
+
+
+def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
+                        ) -> BoundedState:
+    """Run the bounded-variable driver to termination or to
+    ``opts.max_iters`` (single problem); ``RULE_DEVEX`` prices with devex
+    weights. On CUDA tensors the walk runs in the bounded kernels (four
+    launches a step), on CPU tensors in the plain loop."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(bs.s.T.dtype)
+    bs = _with_gamma(bs, opts)
+    if on_cpu(*_tensors(bs)):
+        return run_simplex_bounded_reference(bs, opts)
+    stall_limit = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    return _finish(bounded_steps(bs, opts, stall_limit, opts.max_iters))
 
 
 def run_simplex_bounded_batch(bs: BoundedState,
