@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the five sources of tpulp_torch/kernels/csrc
-(flush, inner block, FMA, the two lane kernels and the bounded step's four
-launches; and checks
+Builds the CUDA kernels from the six sources of tpulp_torch/kernels/csrc
+(flush, inner block, FMA, the two lane kernels, the bounded step's four
+launches and the rank-1 step's five; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -23,6 +23,21 @@ at a real size (a 1536 x 1536 LP through ``solve_lp(driver="auto")``,
 which must take the kernel engine), checks that a caller's TF32 setting
 does not reach the engines' products, and runs the kernel engine on the
 bench instance.
+Phase 5c drives the solo walks on their kernels: ``solve_lp(driver=
+"auto")`` on phase 7c's 256 x 512 LP (the rank-1 step, no FMA launch) and
+on two artificial LPs that auto prices with devex (one unbounded, one
+optimal with no FMA launch), the walks held against the plain walks in
+every field at f32 and f64 (Dantzig, devex past its ray-scan and probe
+ticks, Bland, the greatest increase and largest-pivot ties on a resident
+frame, where ``lane_primal`` runs the walk at B = 1, and on the 258 x 769
+frame), each of the rank-1 step's launches against its plain stage (a
+clean-up, a phase change with its devex reset, both devex ticks, a
+greatest-increase step, a dual pivot and a dual exit), the warm re-solves
+(``lane_dual`` at B = 1 on a resident frame, the rank-1 step's dual walk on
+the 258 x 769 frame and on phase 5's 1538 x 3073 one),
+``solve_lp(driver="rank1")`` on phase 5's LP and the refreshed rung's
+rank-1 segments; it times the rank-1 step by launch and the plain step,
+and solves a bounded state whose tableau is a strided view.
 Phase 7 drives ``solve_milp`` on bench.py's 28-item knapsack (f32 and f64,
 the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
 and f64 optima, checked in Fractions) with every wave tensor checked to be
@@ -785,12 +800,555 @@ def phase_tf32_guard():
     return {"status": out[0], "niter": out[1], "rung": out[3]}
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: the solo walks on their kernels
+# ---------------------------------------------------------------------------
+
+# (b): artificial_arrays(256, n) at the largest n whose frame, 258 x (n +
+# 257), stays under solve_lp's rank-1 limit of 200k elements; the optimal
+# devex LP: its 256 independent rows at n = 384 with c >= 0 (258 x 641)
+SOLO_DEVEX_N = 518
+SOLO_DEVEX_OPT_N = 384
+# (e): the deeper warm re-solves halve the RHS of the first 1 / SOLO_CUT
+# of the rows
+SOLO_CUT = 4
+# (c): a frame that lane_plan keeps resident in one block (42 x 121)
+SOLO_RESIDENT_M, SOLO_RESIDENT_N = 40, 80
+# the steps timed by launch (at most), after a few untimed ones
+SOLO_TIMED_STEPS, SOLO_ADVANCE = 32, 8
+# (f): the plain walk held beside the kernels' over its first steps
+SOLO_MAIN_WINDOW = 384
+# (c): Bland's walk on the 258 x 769 frame runs past 10,000 pivots; it is
+# held over its first steps
+SOLO_BLAND_WINDOW = 1024
+
+
+def equality_form(c, A, b):
+    """min c x, A x = b, x >= 0 with every row on an artificial, as a
+    StandardForm."""
+    from tpulp_torch import StandardForm
+
+    m, n = A.shape
+    return StandardForm(
+        c=c.tolist(), A=A.tolist(), b=b.tolist(),
+        col_names=[f"x{j}" for j in range(n)], obj_const=Fraction(0),
+        sense="min", basis_hint=[-1] * m,
+        recover={f"x{j}": ([(j, Fraction(1))], Fraction(0))
+                 for j in range(n)},
+        n_struct=n, row_provenance=[("con", i, 1) for i in range(m)])
+
+
+def solo_plain(walk: str, state, opts):
+    """The plain walk (the CPU path's loop, here on the card): (state,
+    devex weights or None, seconds)."""
+    from tpulp_torch.solve.devex import devex_simplex_step, make_devex_state
+    from tpulp_torch.solve.driver import finish, run_chunked, simplex_step
+    from tpulp_torch.solve.dual import dual_simplex_step
+
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    sync(state.T.device)
+    t0 = time.perf_counter()
+    if walk == "devex":
+        out = run_chunked(
+            lambda c: devex_simplex_step(c, opts, stall, opts.max_iters),
+            make_devex_state(state), lambda c: c.s, opts.max_iters)
+        s, g = finish(out.s), out.gamma
+    else:
+        step = dual_simplex_step if walk == "dual" else simplex_step
+        s, g = finish(run_chunked(
+            lambda x: step(x, opts, stall, opts.max_iters), state,
+            lambda x: x, opts.max_iters)), None
+    sync(state.T.device)
+    return s, g, time.perf_counter() - t0
+
+
+def solo_kernel(walk: str, state, opts):
+    """The kernels' walk through the solo drivers (``run_simplex``,
+    ``run_dual_simplex``; devex through ``rank1_steps``, which
+    ``run_simplex_devex`` calls, for its weights): (state, weights,
+    seconds, launches)."""
+    import torch
+
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.rank1 import rank1_steps
+    from tpulp_torch.solve import run_dual_simplex, run_simplex
+    from tpulp_torch.solve.driver import finish
+
+    sync(state.T.device)
+    reset_launches()
+    t0 = time.perf_counter()
+    g = None
+    if walk == "devex":
+        stall = opts.resolved_stall_limit(state.m, state.n)
+        s, g = rank1_steps(state, opts, stall, opts.max_iters, torch.ones(
+            (state.n,), dtype=state.T.dtype, device=state.T.device))
+        s = finish(s)
+    elif walk == "dual":
+        s = run_dual_simplex(state, opts)
+    else:
+        s = run_simplex(state, opts)
+    sync(state.T.device)
+    return s, g, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def solo_walk_check(walk: str, state, opts, label: str, route: str):
+    """One solo walk on its kernels and as the plain loop, held equal in
+    every field (``T + 0.0``, the basis, the masks, every scalar, the
+    devex weights); the launches must be the route's alone (one launch a
+    walk on a lane route) and no FMA. Returns the numbers."""
+    import torch
+
+    k, gk, secs, launches = solo_kernel(walk, state, opts)
+    p, gp, plain_secs = solo_plain(walk, state, opts)
+    err = lanes_equal(k, p)
+    if gk is not None and not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
+        raise AssertionError(f"5c {label}: the devex weights differ")
+    others = {key: v for key, v in launches.items() if key != route and v}
+    want = 1 if route.startswith("lane_") else None
+    if others or not launches[route] or (want and launches[route] != want):
+        raise AssertionError(f"5c {label}: launches {launches}, want "
+                             f"{route} alone")
+    niter = int(k.niter) - int(state.niter)
+    M, N = state.T.shape
+    flop_s = FP64_FLOP_S if state.T.dtype == torch.float64 else FP32_FLOP_S
+    # the walk: the frame read and written once, one fma an entry a pivot
+    bound_ms, bound_by = bound(2.0 * M * N * state.T.element_size(),
+                               2.0 * M * N * niter, flop_s)
+    res = {"status": int(k.status), "niter": niter, "bland": bool(k.bland),
+           "seconds": secs, "plain_seconds": plain_secs,
+           "max_abs_err": err, "launches": launches[route], "route": route,
+           "ms_per_step": 1e3 * secs / max(niter, 1),
+           "plain_ms_per_step": 1e3 * plain_secs / max(niter, 1),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if route.startswith("lane_") and state.T.device.type == "cuda":
+        # one launch a walk (no host read): its time on the card alone
+        from tpulp_torch.solve import run_dual_simplex, run_simplex
+
+        run = run_dual_simplex if walk == "dual" else run_simplex
+        res["device_ms"] = device_time_ms(lambda: run(state, opts), 5)
+        res["device_us_per_step"] = 1e3 * res["device_ms"] / max(niter, 1)
+    log(f"# 5c {label} {tuple(state.T.shape)} {str(state.T.dtype)[6:]}: "
+        f"{route} x {launches[route]}, the walk equals the plain walk in "
+        f"every field (status {res['status']}, {niter} pivots, bland "
+        f"{res['bland']}); {1e3 * secs:.2f} ms = "
+        f"{1e3 * res['ms_per_step']:.1f} us a pivot on the host clock"
+        + (f" ({res['device_us_per_step']:.2f} on the card)"
+           if "device_ms" in res else "")
+        + f", the plain walk {res['plain_ms_per_step']:.3f} ms a pivot")
+    return res
+
+
+def rank1_step_us(state, opts, gamma, label: str, niter: int,
+                  dual: bool = False):
+    """A kernel step of a walk of ``niter`` pivots (the dual walk with
+    ``dual``), up to ``SOLO_ADVANCE`` steps in: the device us a step of
+    ``steps`` steps enqueued by one C call
+    (``launches_us``), the host's us to enqueue one, the device us of the
+    scan, price and ratio launches alone (``steps`` launches of each on the
+    same record: they write only the partials, the verdict and the
+    snapshot) beside the rest (update and finish), and the bound; three
+    rounds, medians. The walk must run through every timed step."""
+    import torch
+
+    from tpulp_torch.kernels import rank1 as kr
+
+    advance = min(SOLO_ADVANCE, niter // 4)
+    steps = max(1, min(SOLO_TIMED_STEPS, (niter - advance) // 4))
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    rec = kr.make_record(state, opts, gamma, dual)
+    kr.enqueue_steps(rec, opts, stall, opts.max_iters, advance)
+    stages = (("scan",) if rec.scan is not None else ()) + ("price",
+                                                             "ratio")
+    dev_us, host_us, split = [], [], {stage: [] for stage in stages}
+    for _ in range(3):
+        for stage in stages:
+            split[stage].append(launches_us(lambda: [
+                kr.rank1_stage(rec, stage, opts, stall, opts.max_iters)
+                for _ in range(steps)], steps)[0])
+        d, h = launches_us(lambda: kr.enqueue_steps(rec, opts, stall,
+                                                    opts.max_iters, steps),
+                           steps)
+        if int(rec.ints[kr.STATUS]) != 0:
+            raise AssertionError("5c: the timed steps ran past the walk")
+        dev_us.append(d)
+        host_us.append(h)
+    split = {k: float(np.median(v)) for k, v in split.items()}
+    dev_us, host_us = float(np.median(dev_us)), float(np.median(host_us))
+    split["update_and_finish"] = dev_us - sum(split.values())
+    M, N = state.T.shape
+    flop_s = FP64_FLOP_S if state.T.dtype == torch.float64 else FP32_FLOP_S
+    # the update: the tableau read and written once, one fma an entry
+    bound_ms, bound_by = bound(2.0 * M * N * state.T.element_size(),
+                               2.0 * M * N, flop_s)
+    log(f"# 5c rank1_step {label} {M}x{N} {str(state.T.dtype)[6:]}: "
+        f"{dev_us:.2f} us a step on the card (CUDA events over "
+        f"{steps} steps from step {advance}; "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"), {host_us:.2f} us of host time to enqueue one; bound "
+        f"{1e3 * bound_ms:.3f} us (the tableau read and written once at "
+        "3.35 TB/s)")
+    return {"device_us_per_step": dev_us, "host_us_per_step": host_us,
+            "bound_us_per_step": 1e3 * bound_ms, "bound_by": bound_by,
+            "device_us_by_stage": split, "steps_timed": steps}
+
+
+def rank1_stage_checks(state, opts, gamma, label: str, want,
+                       min_step: int = 0, max_steps: int = 5000,
+                       dual: bool = False):
+    """Each launch of a step held against its plain stage on the card
+    (every record field), on the first step at or past ``min_step`` of
+    each kind in ``want``: "cleanup" (a clean-up pivot or retire),
+    "phase_change", "devex_reset" (the phase change's, under devex),
+    "ray_scan" and "probe" (devex's ticks), "max_increase" (a
+    greatest-increase step), "dual_pivot" and "dual_exit" (with ``dual``:
+    a dual walk's pivot and its optimal step).
+    The record walks on through the kernels' stages. Returns {kind:
+    step}."""
+    import torch
+
+    from tpulp_torch.kernels import rank1 as kr
+
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    mi = opts.max_iters
+    rec = kr.make_record(state, opts, gamma, dual)
+    devex = rec.walk == "devex"
+    head = ("scan", "price") if rec.scan is not None else ("price",)
+    found = {}
+    for step in range(max_steps):
+        for stage in head:
+            kr.rank1_stage(rec, stage, opts, stall, mi)
+        iv = rec.ints.tolist()
+        if iv[kr.STATUS] != 0:
+            break
+        tick = iv[kr.NITER] % kr.RAY_SCAN_EVERY
+        plain2 = iv[kr.PHASE] == 2 and not iv[kr.CLEANUP]
+        kinds = {
+            "cleanup": iv[kr.CLEANUP],
+            "phase_change": iv[kr.TO_PHASE2],
+            "devex_reset": devex and iv[kr.TO_PHASE2],
+            "ray_scan": devex and plain2 and tick == 0,
+            "probe": devex and plain2 and not iv[kr.BLAND]
+            and tick == kr.RAY_SCAN_EVERY // 2,
+            "max_increase": rec.scan is not None and not devex,
+            "dual_pivot": dual and not iv[kr.FEASIBLE],
+            "dual_exit": dual and iv[kr.FEASIBLE]}
+        new = {k for k, v in kinds.items() if v and k in want
+               and k not in found}
+        if step >= min_step and new:
+            base = kr.clone_record(rec)
+            for stage in kr.STAGES:
+                if stage == "scan" and base.scan is None:
+                    continue
+                k, p = kr.clone_record(base), kr.clone_record(base)
+                kr.rank1_stage(k, stage, opts, stall, mi)
+                kr.rank1_stage_reference(p, stage, opts, stall, mi)
+                torch.cuda.synchronize()
+                for (name, a), (_, b) in zip(kr.record_tensors(k),
+                                             kr.record_tensors(p)):
+                    a, b = a.cpu(), b.cpu()
+                    if a.is_floating_point():
+                        a, b = a.nan_to_num(0.5) + 0.0, b.nan_to_num(0.5) + 0.0
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"5c {label}: the {stage} launch of step {step} "
+                            f"({sorted(new)}) differs from its plain stage "
+                            f"in {name}")
+                base = p
+            for kind in new:
+                found[kind] = step
+        for stage in ("ratio", "update", "finish"):
+            kr.rank1_stage(rec, stage, opts, stall, mi)
+        if set(found) == set(want):
+            break
+    if set(found) != set(want):
+        raise AssertionError(f"5c {label}: no step of kinds "
+                             f"{set(want) - set(found)} in {step + 1}")
+    log(f"# 5c stages, {label}: "
+        + ("price, ratio, update and finish" if rec.scan is None
+           else "scan, price, ratio, update and finish")
+        + " each equal their plain stage on the card (every record field) "
+        "at step "
+        + ", ".join(f"{s} ({k})" for k, s in sorted(found.items(),
+                                                    key=lambda x: x[1])))
+    return found
+
+
+def solo_solve(sf, dt, driver: str, label: str, route: str,
+               optimal: bool = True, dev="cuda", **kw):
+    """``solve_lp`` with the launch counts set to 0 just before it and read
+    just after: the route's kernel launched and, with ``optimal``, the
+    answer optimal with no FMA launch (an answer that is not optimal is
+    re-derived on the refreshed rung, whose devex segments run the
+    blocked engine and its FMA launches)."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    sol = tpulp_torch.solve_lp(sf, dtype=dt, device=dev, driver=driver,
+                               **kw)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    log(f"# 5c solve_lp {label} {str(dt)[6:]} (driver={driver!r}): "
+        f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
+        f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
+    if not (launches[route] > 0
+            and (launches["fused_fma"] == 0 or not optimal)):
+        raise AssertionError(f"5c {label}: launches {launches}, want "
+                             f"{route} and no FMA")
+    if optimal and sol.status != "optimal":
+        raise AssertionError(f"5c {label}: {sol.status}")
+    return sol, {"status": sol.status, "rung": sol.rung,
+                 "niter": sol.niter, "seconds": secs, "launches": launches,
+                 "objective": str(sol.objective)}
+
+
+def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
+    """Phase 5c: the solo rank-1, devex and dual walks on their kernels,
+    each held against its plain walk in every field at f64 and f32: (a)
+    ``solve_lp(driver="auto")`` on phase 7c's LP (258 x 769, the top of the
+    rank-1 engine's range) on ``rank1_step``; (b) the devex walk of the
+    largest artificial LP under 200k elements, past a ray-scan and a probe
+    tick, and an optimal devex LP whose solve launches no FMA; (c) Bland,
+    the greatest increase and largest-pivot ties on a resident frame
+    (``lane_primal`` at B = 1) and on (a)'s; (d) each launch against its
+    plain stage; (e) the warm re-solves: phase 7c's and a deeper one on
+    ``rank1_step``'s dual walk, a resident one on ``lane_dual`` at B = 1,
+    and one on phase 5's 1538 x 3073 frame; (f) ``solve_lp(driver=
+    "rank1")`` on phase 5's LP; (g) the refreshed rung's rank-1 segments.
+    Also the bounded walk of a strided tableau. Returns the numbers;
+    ``launches`` are (a)'s f64 solve's."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.core.state import (RULE_BLAND, RULE_DEVEX,
+                                        RULE_MAX_INCREASE, TIE_MAXPIV)
+    from tpulp_torch.kernels import lane_plan
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.bounded import run_simplex_bounded
+    from tpulp_torch.solve.dual import warm_state_from_basis
+    from tpulp_torch.solve.refresh import stabilized_options
+
+    def warm_frame(form, sol, dt):
+        """The dual simplex's frame of ``form`` from ``sol``'s basis."""
+        s2 = state_from_standard_form(form, dtype=dt, device=dev)
+        return warm_state_from_basis(
+            s2.T[2:, :-1], s2.T[0, :-1], s2.col_active & ~s2.art_cols,
+            s2.art_cols, np.asarray(sol.basis, np.int32), s2.T[2:, -1])
+
+    def cut(b):
+        """The RHS with the first 1 / SOLO_CUT of its rows halved (rounded
+        down on integer data)."""
+        b2, k = b.copy(), len(b) // SOLO_CUT
+        b2[:k] = b2[:k] // 2 if b.dtype.kind == "i" else b2[:k] * 0.5
+        return b2
+
+    res = {"walks": {}, "stages": {}, "step_us": {}, "solves": {}}
+    A, b, c = dense_leq_arrays(WARM_M, WARM_N)
+    sf_a = scenario_form(A, b, c)
+    ca, Aa, ba, _ = artificial_arrays(WARM_M, SOLO_DEVEX_N)
+    sf_b = equality_form(ca, Aa, ba)
+    # the optimal devex LP: artificial_arrays without its four dependent
+    # rows, c >= 0
+    co, Ao, bo, _ = artificial_arrays(WARM_M + 4, SOLO_DEVEX_OPT_N)
+    sf_bo = equality_form(np.abs(co), Ao[:WARM_M], bo[:WARM_M])
+    Ar, br, cr = dense_leq_arrays(SOLO_RESIDENT_M, SOLO_RESIDENT_N, seed=3)
+    sf_c = scenario_form(Ar, br, cr)
+    # the resident warm re-solve: integer data (solve_lp refines a basis of
+    # at most 192 rows in rationals)
+    ci, Ai, bi, hi = main_path_arrays(SOLO_RESIDENT_M, SOLO_RESIDENT_N,
+                                      seed=3)
+    sf_ci = standard_form(ci, Ai, bi, hi, SOLO_RESIDENT_N)
+    sf_ci2 = standard_form(ci, Ai, cut(bi), hi, SOLO_RESIDENT_N)
+    objective = {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        if not lane_plan(SOLO_RESIDENT_M + 2, SOLO_RESIDENT_M
+                         + SOLO_RESIDENT_N + 1, dt).resident:
+            raise AssertionError("5c: the resident frame is not resident")
+        # (a) the rank-1 engine's main case
+        sol, res["solves"][f"a_{name}"] = solo_solve(
+            sf_a, dt, "auto", f"(a) {WARM_M}x{WARM_N + WARM_M}",
+            "rank1_step", dev=dev)
+        objective[name] = sol.objective
+        if name == "float64":
+            res["launches"] = res["solves"]["a_float64"]["launches"]
+        st = state_from_standard_form(sf_a, dtype=dt, device=dev)
+        opts = SolverOptions.for_dtype(dt)
+        w = solo_walk_check("primal", st, opts, "(a) Dantzig", "rank1_step")
+        if w["status"] != 1:
+            raise AssertionError(f"5c (a): status {w['status']}")
+        res["walks"][f"a_{name}"] = w
+        res["step_us"][f"a_{name}"] = rank1_step_us(
+            st, opts, None, "(a)", w["niter"])
+        # (b) devex, chosen by solve_lp for the artificial LP (unbounded at
+        # f64 past 13 ray-scan ticks in phase 2; at f32 phase 1 ends
+        # infeasible)
+        _, res["solves"][f"b_{name}"] = solo_solve(
+            sf_b, dt, "auto", f"(b) {WARM_M}x{SOLO_DEVEX_N}",
+            "rank1_step", optimal=False, dev=dev)
+        sb = state_from_standard_form(sf_b, dtype=dt, device=dev)
+        ob = SolverOptions.for_dtype(dt, rule=RULE_DEVEX)
+        wb = solo_walk_check("devex", sb, ob, "(b) devex", "rank1_step")
+        res["walks"][f"b_{name}"] = wb
+        ones = torch.ones((sb.n,), dtype=dt, device=dev)
+        if name == "float64":
+            # (d) on the devex walk: the clean-up, the phase change and
+            # its reset of the weights, the ray-scan and probe ticks
+            res["stages"]["b_float64"] = rank1_stage_checks(
+                sb, ob, ones, "(b) devex float64",
+                ("cleanup", "phase_change", "devex_reset", "ray_scan",
+                 "probe"))
+        res["step_us"][f"b_{name}"] = rank1_step_us(
+            sb, ob, ones, "(b) devex", wb["niter"])
+        # (b) the optimal devex LP: solve_lp's answer on the rank-1 step
+        # with no FMA launch, and its walk
+        _, res["solves"][f"b_optimal_{name}"] = solo_solve(
+            sf_bo, dt, "auto", f"(b) optimal {WARM_M}x{SOLO_DEVEX_OPT_N}",
+            "rank1_step", dev=dev)
+        so = state_from_standard_form(sf_bo, dtype=dt, device=dev)
+        wo = solo_walk_check("devex", so, ob, "(b) optimal devex",
+                             "rank1_step")
+        if wo["status"] != 1:
+            raise AssertionError(f"5c (b) optimal: status {wo['status']}")
+        res["walks"][f"b_optimal_{name}"] = wo
+        # (c) the other rules and ties, resident and not
+        sc = state_from_standard_form(sf_c, dtype=dt, device=dev)
+        for rule, over in (("bland", {"rule": RULE_BLAND}),
+                           ("max_increase", {"rule": RULE_MAX_INCREASE}),
+                           ("maxpiv", {"tie_break": TIE_MAXPIV})):
+            o = SolverOptions.for_dtype(dt, **over)
+            res["walks"][f"c_{rule}_resident_{name}"] = solo_walk_check(
+                "primal", sc, o, f"(c) {rule}, resident", "lane_primal")
+            if rule == "bland":
+                o = dc.replace(o, max_iters=SOLO_BLAND_WINDOW)
+            res["walks"][f"c_{rule}_{name}"] = solo_walk_check(
+                "primal", st, o, f"(c) {rule}", "rank1_step")
+        om = SolverOptions.for_dtype(dt, rule=RULE_MAX_INCREASE)
+        res["stages"][f"a_max_increase_{name}"] = rank1_stage_checks(
+            st, om, None, f"(a) greatest increase {name}",
+            ("max_increase",), min_step=5)
+        res["step_us"][f"a_max_increase_{name}"] = rank1_step_us(
+            st, om, None, "(a) greatest increase",
+            res["walks"][f"c_max_increase_{name}"]["niter"])
+        # (e) the warm re-solves: phase 7c's (three rows x 0.8) and a
+        # deeper one on rank1_step's dual walk, a resident one on lane_dual
+        # at B = 1
+        b2 = b.copy()
+        b2[:3] *= 0.8
+        form2 = scenario_form(A, b2, c)
+        warm, res["solves"][f"e_{name}"] = solo_solve(
+            form2, dt, "auto", "(e) warm_start", "rank1_step", dev=dev,
+            warm_start=sol)
+        if not warm.niter < sol.niter:
+            raise AssertionError("5c (e): no fewer pivots warm")
+        frame = warm_frame(form2, sol, dt)
+        res["walks"][f"e_{name}"] = solo_walk_check(
+            "dual", frame, opts, "(e) warm dual", "rank1_step")
+        form3 = scenario_form(A, cut(b), c)
+        _, res["solves"][f"e_deep_{name}"] = solo_solve(
+            form3, dt, "auto", "(e) deeper warm_start", "rank1_step",
+            dev=dev, warm_start=sol)
+        frame3 = warm_frame(form3, sol, dt)
+        w3 = solo_walk_check("dual", frame3, opts, "(e) deeper warm dual",
+                             "rank1_step")
+        res["walks"][f"e_deep_{name}"] = w3
+        res["step_us"][f"e_deep_{name}"] = rank1_step_us(
+            frame3, opts, None, "(e) dual", w3["niter"], dual=True)
+        if name == "float64":
+            # (d) on the dual walk: a pivot and the optimal exit
+            res["stages"]["e_float64"] = rank1_stage_checks(
+                frame3, opts, None, "(e) dual float64",
+                ("dual_pivot", "dual_exit"), dual=True)
+        solc, res["solves"][f"e_resident_cold_{name}"] = solo_solve(
+            sf_ci, dt, "auto", "(e) resident cold", "lane_primal", dev=dev)
+        _, res["solves"][f"e_resident_{name}"] = solo_solve(
+            sf_ci2, dt, "auto", "(e) resident warm_start", "lane_dual",
+            dev=dev, warm_start=solc)
+        res["walks"][f"e_resident_{name}"] = solo_walk_check(
+            "dual", warm_frame(sf_ci2, solc, dt), opts,
+            "(e) resident warm dual", "lane_dual")
+        # (g) the refreshed rung's rank-1 segments (largest-pivot ties)
+        ref, res["solves"][f"g_{name}"] = solo_solve(
+            sf_a, dt, "refreshed", "(g) refreshed", "rank1_step", dev=dev)
+        if ref.objective != objective[name]:
+            raise AssertionError(f"5c (g): objective {ref.objective!r}, "
+                                 f"(a) {objective[name]!r}")
+        res["walks"][f"g_{name}"] = solo_walk_check(
+            "primal", st, stabilized_options(opts), "(g) TIE_MAXPIV",
+            "rank1_step")
+        del st, sb, sc, so, frame, frame3
+        torch.cuda.empty_cache()
+
+    # (f) phase 5's LP on the rank-1 engine: measured only
+    sf_f = main_path_form(MAIN_M, MAIN_N)
+    sol_f, res["solves"]["f_float64"] = solo_solve(
+        sf_f, torch.float64, "rank1", f"(f) {MAIN_M}x{MAIN_M + MAIN_N}",
+        "rank1_step", dev=dev)
+    sfl = res["solves"]["f_float64"]
+    sfl["pivots_per_s"] = sfl["niter"] / sfl["seconds"]
+    log(f"# 5c (f): driver='rank1' {sfl['pivots_per_s']:.1f} pivots/s "
+        f"against phase 5's kernel engine {main_pivots_per_s:.1f} "
+        "(lowering, set-up and refinement included in both)")
+    sm = make_state(*main_path_arrays(MAIN_M, MAIN_N), dtype=torch.float64,
+                    device=dev)
+    of = SolverOptions.for_dtype(torch.float64, max_iters=SOLO_MAIN_WINDOW)
+    res["walks"]["f_window_float64"] = solo_walk_check(
+        "primal", sm, of, f"(f) the first {SOLO_MAIN_WINDOW} steps",
+        "rank1_step")
+    res["step_us"]["f_float64"] = rank1_step_us(
+        sm, SolverOptions.for_dtype(torch.float64), None, "(f)",
+        sfl["niter"])
+    del sm
+    # (e) at (f)'s size: the warm re-solve of phase 5's LP with a quarter
+    # of its RHS halved, on rank1_step's dual walk
+    cf, Af, bf, hf = main_path_arrays(MAIN_M, MAIN_N)
+    sf_f2 = standard_form(cf, Af, cut(bf), hf, MAIN_N)
+    _, res["solves"]["e_main_float64"] = solo_solve(
+        sf_f2, torch.float64, "rank1",
+        f"(e) warm_start {MAIN_M}x{MAIN_M + MAIN_N}", "rank1_step", dev=dev,
+        warm_start=sol_f)
+    o64 = SolverOptions.for_dtype(torch.float64)
+    frame_f = warm_frame(sf_f2, sol_f, torch.float64)
+    wf = solo_walk_check("dual", frame_f, o64,
+                         f"(e) warm dual {MAIN_M}x{MAIN_M + MAIN_N}",
+                         "rank1_step")
+    res["walks"]["e_main_float64"] = wf
+    res["step_us"]["e_main_float64"] = rank1_step_us(
+        frame_f, o64, None, "(e) dual main", wf["niter"], dual=True)
+    del frame_f
+    torch.cuda.empty_cache()
+
+    # the bounded walk of a strided tableau (a transposed view) equals the
+    # contiguous one's
+    bs, bo = bounded_state(box_form(0, BOX_M, BOX_N), dev, torch.float64,
+                           False)
+    strided = bs._replace(s=bs.s._replace(T=bs.s.T.t().contiguous().t()))
+    if strided.s.T.is_contiguous():
+        raise AssertionError("5c: the transposed view is contiguous")
+    err = bounded_equal(run_simplex_bounded(strided, bo),
+                        run_simplex_bounded(bs, bo))
+    log(f"# 5c the bounded walk of a strided tableau (stride "
+        f"{strided.s.T.stride()}) equals the contiguous one's (max |err| "
+        f"{err})")
+    res["strided_bounded"] = {"stride": list(strided.s.T.stride()),
+                              "max_abs_err": err}
+    return res
+
+
 def check_static_smem(ptxas) -> None:
     """The inner-block kernel's static shared memory (ptxas's report) must
     fit the room ``inner_block_plan`` leaves beside the dynamic share it
     plans, or a plan that fits on paper would not launch. The lane
     kernels' must fit the room ``lane_plan`` leaves, and each of the eight
-    bounded kernels' the 33 slots of its block reduction."""
+    bounded kernels' and the sixteen rank-1 kernels' the 33 slots of its
+    block reduction."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
 
@@ -811,20 +1369,42 @@ def check_static_smem(ptxas) -> None:
             max(bnd.values()) > BOUNDED_STATIC_SMEM:
         raise AssertionError(f"bounded kernels' static shared memory {bnd}: "
                              f"their reductions take {BOUNDED_STATIC_SMEM}")
+    rk1 = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k.startswith("rank1_")}
+    if len(rk1) != len(RANK1_KERNELS) or \
+            max(rk1.values()) > BOUNDED_STATIC_SMEM:
+        raise AssertionError(f"rank-1 kernels' static shared memory {rk1}: "
+                             f"their reductions take {BOUNDED_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
-        f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} "
-        f"bytes, within {BOUNDED_STATIC_SMEM}")
+        f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} and rank-1 "
+        f"kernels {rk1} bytes, within {BOUNDED_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
 # <float or double, RESIDENT>
 LANE_KERNELS = tuple(f"lane_{kind}_kernelI{t}Lb{r}" for kind in
                      ("dual", "primal") for t in "fd" for r in "10")
-# the bounded step's four kernels, <float or double>
-BOUNDED_KERNELS = tuple(f"{stage}_kernelI{t}" for stage in
-                        ("price", "ratio", "update", "finish") for t in "fd")
-# the static shared memory of a single-block bounded kernel: the block
+
+
+def _walk_kernels(ns: str, stages) -> dict:
+    """{mangled-name fragment: readable name} of a stream-ordered walk's
+    kernels in namespace ``tpulp::<ns>``, <float or double> (the namespace
+    tells bounded.cu's price_kernel from rank1.cu's)."""
+    prefix = {"bnd": "bounded", "rk1": "rank1"}[ns]
+    return {f"{len(ns)}{ns}{len(k)}{k}I{t}":
+            f"{prefix}_{k}<{'float' if t == 'f' else 'double'}>"
+            for k in (f"{stage}_kernel" for stage in stages) for t in "fd"}
+
+
+# the bounded step's four kernels and the rank-1 step's eight (five, and
+# the dual walk's price, ratio and finish)
+BOUNDED_KERNELS = _walk_kernels("bnd", ("price", "ratio", "update",
+                                        "finish"))
+RANK1_KERNELS = _walk_kernels("rk1", ("scan", "price", "ratio", "update",
+                                      "finish", "dual_price", "dual_ratio",
+                                      "dual_finish"))
+# the static shared memory of a single-block walk kernel: the block
 # reduction's 33 slots (common.cuh's Red<double>: 32 bytes each)
 BOUNDED_STATIC_SMEM = 33 * 32
 
@@ -838,7 +1418,9 @@ def _ptxas_name(name: str) -> str:
     if name.startswith("lane_"):
         return f"{head}<{t},{'resident' if name.endswith('1') else 'streamed'}>"
     if name in BOUNDED_KERNELS:
-        return f"bounded_{head}<{t}>"
+        return BOUNDED_KERNELS[name]
+    if name in RANK1_KERNELS:
+        return RANK1_KERNELS[name]
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -862,7 +1444,7 @@ def ptxas_report(text: str):
                                  "flush_kernelIf", "flush_kernelId",
                                  "fma_kernelIf", "fma_kernelId",
                                  "barrier_probe_kernel", *LANE_KERNELS,
-                                 *BOUNDED_KERNELS)
+                                 *BOUNDED_KERNELS, *RANK1_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -1633,6 +2215,9 @@ LANE_SEED = 7
 # the card's sleep before a launch timed alone (~2.5 ms at the H100's
 # clock): longer than the host's work for one wrapper call
 SLEEP_CYCLES = 5_000_000
+# the sleep before a run of single-stage launches from Python is timed
+# (~10 ms): 64 of them take the host up to ~2.5 ms on a slow host
+STEPS_SLEEP_CYCLES = 4 * SLEEP_CYCLES
 
 
 def lanes_equal(k, p) -> float:
@@ -2108,6 +2693,26 @@ def bounded_walk_check(sf, dev, dtype, label: str, devex: bool = True,
     return res
 
 
+def launches_us(fn, steps: int):
+    """(device us, host us) a step of ``fn()``, which enqueues ``steps``
+    steps with no host read: CUDA events after a sleep of the card that
+    outlasts the host's enqueue (``STEPS_SLEEP_CYCLES``), so that they
+    bracket the launches alone; and the host's time to enqueue them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(STEPS_SLEEP_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    stop.record()
+    stop.synchronize()
+    return 1e3 * start.elapsed_time(stop) / steps, 1e6 * host / steps
+
+
 def bounded_step_us(sf, dev, dtype, advance: int = BND_TIMED_FROM,
                     steps: int = BND_TIMED_STEPS):
     """(device us, host us, split) a kernel step of the devex walk
@@ -2117,8 +2722,6 @@ def bounded_step_us(sf, dev, dtype, advance: int = BND_TIMED_FROM,
     device us of the price and ratio launches alone (``steps`` launches of
     each on the same record: both write only the verdict and the
     snapshot) beside the rest of the step (update and finish)."""
-    import torch
-
     from tpulp_torch.kernels import bounded as kb
 
     bs, opts = bounded_state(sf, dev, dtype)
@@ -2126,28 +2729,16 @@ def bounded_step_us(sf, dev, dtype, advance: int = BND_TIMED_FROM,
     rec = kb.make_record(bs)
     kb.enqueue_steps(rec, opts, stall, opts.max_iters, advance)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        fn()
-        host = time.perf_counter() - t0
-        stop.record()
-        stop.synchronize()
-        return 1e3 * start.elapsed_time(stop) / steps, 1e6 * host / steps
-
     dev_us, host_us, split = [], [], {"price": [], "ratio": []}
     for _ in range(3):
         for stage in split:
-            split[stage].append(timed(lambda: [
+            split[stage].append(launches_us(lambda: [
                 kb.bounded_stage(rec, stage, opts, stall, opts.max_iters)
-                for _ in range(steps)])[0])
+                for _ in range(steps)], steps)[0])
         n0 = int(rec.ints[kb.NITER])
-        d, h = timed(lambda: kb.enqueue_steps(rec, opts, stall,
-                                              opts.max_iters, steps))
+        d, h = launches_us(lambda: kb.enqueue_steps(rec, opts, stall,
+                                                    opts.max_iters, steps),
+                           steps)
         if int(rec.ints[kb.NITER]) - n0 != steps:
             raise AssertionError("8a: the timed steps ran past the walk")
         dev_us.append(d)
@@ -2450,17 +3041,21 @@ def phase_bounded_batch(dev):
     import tpulp_torch
 
     sfs = [box_form(s, BOX_M, BOX_N) for s in range(BOX_LANES)]
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+
     res = {}
     sols = {}
     for kind, lanes in (("bounded", BOX_LANES), ("rows", BOX_ROW_LANES)):
         torch.cuda.synchronize()
+        reset_launches()
         t0 = time.perf_counter()
         sols[kind] = tpulp_torch.solve_lp_batch(
             sfs[:lanes], simple_bounds=kind == "bounded", device=dev)
         secs = time.perf_counter() - t0
         res[kind] = {"seconds": secs, "lanes": lanes,
                      "lanes_per_s": lanes / secs,
-                     "pivots": sum(s.niter for s in sols[kind])}
+                     "pivots": sum(s.niter for s in sols[kind]),
+                     "launches": dict(LAUNCHES)}
     rows = sols["rows"]
     bad = [k for k, a in enumerate(sols["bounded"])
            if a.status != "optimal" or (k < BOX_ROW_LANES and (
@@ -2474,7 +3069,8 @@ def phase_bounded_batch(dev):
         f"{res['rows']['seconds']:.2f} s = "
         f"{res['rows']['lanes_per_s']:.1f} lanes/s ({res['rows']['pivots']}"
         " pivots); exact refinement and certificate per lane included; "
-        f"exact objectives {'equal' if not bad else 'DIFFER'} lane for lane")
+        f"exact objectives {'equal' if not bad else 'DIFFER'} lane for lane;"
+        f" launches of the bounded batch {res['bounded']['launches']}")
     if bad:
         raise AssertionError(f"bounded batch: lanes {bad[:8]} differ")
     return res
@@ -3241,6 +3837,12 @@ def main() -> int:
     # 5: the LP main path; its launch counts are read right after it
     launches, main_path = phase_main_path()
     tf32 = phase_tf32_guard()
+    # 5c: the solo walks on their kernels; each solve reads its own launch
+    # counts, (a)'s f64 solve is the rank-1 step's main path
+    t0 = time.perf_counter()
+    solo = phase_solo_walks(main_path["pivots_per_s"])
+    log(f"# phase 5c (solo walks): {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches of (a)'s f64 solve {solo['launches']}")
     bench = phase_bench(dev)
 
     # 7: MILP, the batched waves and warm starts (the batched pivots run
@@ -3320,6 +3922,12 @@ def main() -> int:
                          "none: XLA's compiled lax.while_loop over "
                          "bounded_simplex_step (tpulp/solve/bounded.py:"
                          "86-276, 278-307)", bounded_launches),
+        "rank1_step": ("tpulp_torch/kernels/csrc/rank1.cu",
+                       "none: XLA's compiled lax.while_loop over "
+                       "simplex_step, devex_simplex_step and "
+                       "dual_simplex_step (tpulp/solve/driver.py:74, "
+                       "252-293; tpulp/solve/devex.py:75, 240-262; "
+                       "tpulp/solve/dual.py:62)", solo["launches"]),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3349,6 +3957,38 @@ def main() -> int:
                         bl["step_us"][dt]["host_us_per_step"] / 1e3,
                     "steps": w["niter"]}
             head = cases["float64"]
+        elif kname == "rank1_step":
+            # per step of 5c's walks: the walk's host-clock time, the plain
+            # step's, the tableau's bytes, the launches on the card alone
+            cases = {}
+            for case, walk, us in (
+                    ("float64", "a_float64", "a_float64"),
+                    ("float32", "a_float32", "a_float32"),
+                    ("devex float64", "b_float64", "b_float64"),
+                    ("devex float32", "b_float32", "b_float32"),
+                    ("greatest increase float64", "c_max_increase_float64",
+                     "a_max_increase_float64"),
+                    ("greatest increase float32", "c_max_increase_float32",
+                     "a_max_increase_float32"),
+                    ("main 1538x3073 float64", "f_window_float64",
+                     "f_float64"),
+                    ("dual float64", "e_deep_float64", "e_deep_float64"),
+                    ("dual float32", "e_deep_float32", "e_deep_float32"),
+                    ("dual main 1538x3073 float64", "e_main_float64",
+                     "e_main_float64")):
+                w, u = solo["walks"][walk], solo["step_us"][us]
+                cases[case] = {
+                    "max_abs_err": w["max_abs_err"], "ms": w["ms_per_step"],
+                    "plain_ms": w["plain_ms_per_step"],
+                    "bound_ms": u["bound_us_per_step"] / 1e3,
+                    "bound_by": u["bound_by"], "library_ms": None,
+                    "device_ms": u["device_us_per_step"] / 1e3,
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        u["device_us_by_stage"].items()},
+                    "host_enqueue_ms": u["host_us_per_step"] / 1e3,
+                    "steps": w["niter"]}
+            head = cases["float64"]
         elif kname.startswith("lane_"):
             # the headline: the f64 bench knapsack's warm wave (the dual
             # loop) and cold wave (the primal loop), 128 lanes of 59 x 114
@@ -3375,6 +4015,8 @@ def main() -> int:
     kernels[2]["launches_by_path"] = {
         "milp_bench_knapsack_float64": milp_launches["fused_fma"],
         "bounded_lp_float64": bounded_launches["fused_fma"],
+        "bounded_batch_8b_float64":
+            exact["bounded_batch"]["bounded"]["launches"]["fused_fma"],
         "sharded_blocked_p1_float64":
             mesh["blocked"]["launches"]["fused_fma"],
         "sharded_rank1_p1_float64": mesh["rank1"]["launches"]["fused_fma"],
@@ -3421,11 +4063,39 @@ def main() -> int:
             mesh["bounded"]["solo"]["launches"]["bounded_step"]}
     kernels[5]["walks"] = exact["bounded_lp"]["walks"]
     kernels[5]["stages_held_at_step"] = exact["bounded_lp"]["stages"]
+    kernels[6].update({key: kernels[6]["cases"]["float64"][key] for key in (
+        "device_ms", "host_enqueue_ms", "steps")})
+    kernels[6]["launches_by_path"] = {
+        f"5c_{case}": solo["solves"][case]["launches"]["rank1_step"]
+        for case in ("a_float64", "a_float32", "b_float64", "b_float32",
+                     "b_optimal_float64", "b_optimal_float32", "e_float64",
+                     "e_float32", "e_deep_float64", "e_deep_float32",
+                     "e_main_float64", "g_float64", "g_float32",
+                     "f_float64")}
+    kernels[6]["walks"] = {k: v for k, v in solo["walks"].items()
+                           if v["route"] == "rank1_step"}
+    kernels[6]["stages_held_at_step"] = solo["stages"]
+    # the lane kernels at B = 1: one launch a solo walk
+    kernels[3]["launches_by_path"].update({
+        f"5c_resident_warm_resolve_{dt}": solo["solves"][
+            f"e_resident_{dt}"]["launches"]["lane_dual"]
+        for dt in ("float64", "float32")})
+    kernels[3]["solo_walks"] = {k: v for k, v in solo["walks"].items()
+                                if v["route"] == "lane_dual"}
+    kernels[4]["launches_by_path"].update({
+        f"5c_{k}": v["launches"] for k, v in solo["walks"].items()
+        if v["route"] == "lane_primal"})
+    kernels[4]["solo_walks"] = {k: v for k, v in solo["walks"].items()
+                                if v["route"] == "lane_primal"}
+    kernels[2]["launches_by_path"]["solo_rank1_5c_a_float64"] = \
+        solo["launches"]["fused_fma"]
     for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma"),
-                     (3, "lane_dual"), (4, "lane_primal"), (5, "bounded")):
+                     (3, "lane_dual"), (4, "lane_primal"), (5, "bounded"),
+                     (6, "rank1")):
         kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,
+                    "solo_walks": solo,
                     "bench": bench, "milp": milp, "exact": exact,
                     "mesh": mesh, "batch_mesh": batch_mesh}))
     print(json.dumps({"ok": True, "device": {

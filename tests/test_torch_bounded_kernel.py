@@ -318,6 +318,27 @@ def test_bounded_steps_raises_on_a_strided_tableau():
         kb.bounded_steps(strided, opts, 10, 10)
 
 
+def test_dispatch_hands_the_kernels_a_contiguous_tableau(monkeypatch):
+    """``run_simplex_bounded`` takes a strided tableau on either device (as
+    tpulp's does): on the card it hands ``bounded_steps``, which refuses
+    one, a contiguous copy (the CUDA dispatch, ``on_cpu`` patched)."""
+    seen = []
+
+    def spy(bs, opts, stall_limit, max_iters):
+        seen.append(bs.s.T)
+        return bs
+
+    monkeypatch.setattr(pbounded, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(pbounded, "bounded_steps", spy)
+    bs, opts = _small()
+    strided = bs._replace(s=bs.s._replace(T=bs.s.T.t().contiguous().t()))
+    assert not strided.s.T.is_contiguous()
+    out = run_simplex_bounded(strided, opts)
+    (T,) = seen
+    assert T.is_contiguous() and torch.equal(T, bs.s.T)
+    assert torch.equal(out.s.T, bs.s.T)
+
+
 def test_bounded_steps_raises_on_devex_without_gamma():
     bs, _ = _small()
     opts = SolverOptions.for_dtype(torch.float64, rule=RULE_DEVEX)

@@ -6,6 +6,7 @@ from .bounded import bounded_stage, bounded_steps
 from .fma import fused_fma
 from .lanes import lane_dual, lane_plan, lane_primal
 from .launch import LAUNCHES, reset_launches
+from .rank1 import rank1_stage, rank1_steps
 
 __all__ = [
     "LAUNCHES",
@@ -21,4 +22,6 @@ __all__ = [
     "lane_plan",
     "bounded_steps",
     "bounded_stage",
+    "rank1_steps",
+    "rank1_stage",
 ]

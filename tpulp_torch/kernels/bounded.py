@@ -60,7 +60,7 @@ __all__ = ["BoundedRecord", "make_record", "record_state", "clone_record",
            "bounded_price_reference",
            "bounded_ratio_reference", "bounded_update_reference",
            "bounded_finish_reference", "bounded_stage_reference",
-           "bounded_step_reference",
+           "bounded_step_reference", "noop_exact",
            "STAGES", "FLIPS", "BIG_I", "DEVEX_RESET_ABOVE"]
 
 BIG_I = 2 ** 30
@@ -211,7 +211,7 @@ def bounded_price_reference(rec: BoundedRecord, opts: SolverOptions,
         rec.ints[k] = int(v)
 
 
-def _noop_exact(T: torch.Tensor, jb: int) -> bool:
+def noop_exact(T: torch.Tensor, jb: int) -> bool:
     """Whether the redirected pivot on (row 2, ``jb``) can change no more
     than the sign of a zero: row 2 finite and column ``jb`` exactly the
     unit vector on row 2."""
@@ -266,7 +266,7 @@ def bounded_ratio_reference(rec: BoundedRecord, opts: SolverOptions,
         pv, rg, jp = True, r + 2, j
     else:
         rg, jp = 2, int(rec.basis[0])
-        pv = not _noop_exact(T, jp)
+        pv = not noop_exact(T, jp)
     verdict = {DO_PIVOT: do_pivot, DO_PRICE: do_price, DO_FLIP: do_flip,
                DO_FLIP_ENTER: do_flip_enter, KIND_FLIP: kind_flip, R: r,
                LEAVING: leaving, FCOL: fcol, PV: pv, RG: rg, JP: jp,

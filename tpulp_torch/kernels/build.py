@@ -153,6 +153,14 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
+    for name in ("tpulp_rank1_steps_f32", "tpulp_rank1_steps_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _I, _P]
+        fn.restype = _I
+    for name in ("tpulp_rank1_stage_f32", "tpulp_rank1_stage_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P]
+        fn.restype = _I
     lib.tpulp_inner_block_slots.argtypes = []
     lib.tpulp_inner_block_slots.restype = _I
     lib.tpulp_inner_block_stages.argtypes = []

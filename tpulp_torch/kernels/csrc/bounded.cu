@@ -36,8 +36,11 @@
 //   change, the finiteness sums, the status and the counters.
 // Every launch returns at once unless the record's status is RUNNING and
 // niter < max_iters, so steps enqueued past the walk's exit are no-ops.
-// The arithmetic is the plain step's (lanes.cu's rules): one rounding per
-// product in the decisions (*_rn), IEEE division, prow = row * (1 / piv),
+// The shared parts (the status gate, the clean-up scan, the snapshot with
+// the redirected pivot, the pivoted entry, the devex weights) live in
+// common.cuh, which rank1.cu shares. The arithmetic is the plain step's
+// (lanes.cu's rules): one rounding per product in the decisions (*_rn),
+// IEEE division, prow = row * (1 / piv),
 // comparisons in the tableau's type against tolerances rounded to it,
 // torch's NaN-first argmin/argmax with first-index ties and fixed-order
 // sums (common.cuh's block reductions).
@@ -87,18 +90,6 @@ struct Params {
   T opt_tol, piv_tol, degen_tol, infeas_tol, reset_above;
 };
 
-__device__ __forceinline__ bool live(const int* rec, int max_iters) {
-  return rec[STATUS] == ST_RUNNING && rec[NITER] < max_iters;
-}
-
-// torch.minimum / torch.maximum: NaN if either is NaN
-template <typename T> __device__ __forceinline__ T nan_min(T a, T b) {
-  return is_nan(a) ? a : is_nan(b) ? b : (b < a ? b : a);
-}
-template <typename T> __device__ __forceinline__ T nan_max(T a, T b) {
-  return is_nan(a) ? a : is_nan(b) ? b : (b > a ? b : a);
-}
-
 // ---------------------------------------------------------------------------
 // price: clean-up scan, pricing, phase bookkeeping
 // ---------------------------------------------------------------------------
@@ -113,13 +104,10 @@ __global__ void __launch_bounds__(ONE_BLOCK) price_kernel(Params<T> p) {
   const bool bland = rec[BLAND] != 0;
   const T inf = pos_inf<T>();
 
-  // the first row whose basic column is artificial (a)
-  Red<T> rows = red_identity<T>(false);
-  for (int i = threadIdx.x; i < m; i += blockDim.x)
-    if (p.art[p.basis[i]]) rows.a = min(rows.a, i);
-  rows = block_reduce(rows, scratch, false);
-  const bool cleanup = rows.a != BIG_I && phase == 2;
-  const int r_d = rows.a != BIG_I ? rows.a : 0;
+  // the first row whose basic column is artificial
+  const int ra = first_artificial_row<T>(p.basis, p.art, m, scratch);
+  const bool cleanup = ra != BIG_I && phase == 2;
+  const int r_d = ra != BIG_I ? ra : 0;
 
   // over the columns: Dantzig's argmin of c_eff or devex's argmax of the
   // score (v, i); the first improving column (a); the first clean-up-
@@ -229,28 +217,10 @@ __global__ void __launch_bounds__(ONE_BLOCK) ratio_kernel(Params<T> p) {
 
   // the pivot of the update: the real one, or the plain step's redirected
   // one on (row 2, basis[0]) unless that is an exact no-op
-  int rg = r + 2, jp = j;
-  bool pv = do_pivot;
-  if (!do_pivot) {
-    rg = 2;
-    jp = p.basis[0];
-    Red<T> chk = red_identity<T>(false);
-    for (int k = threadIdx.x; k < N; k += blockDim.x)
-      if (!finite_val(p.tab[2LL * N + k])) chk.a = min(chk.a, k);
-    for (int i = threadIdx.x; i < M; i += blockDim.x)
-      if (p.tab[(long long)i * N + jp] != (i == 2 ? T(1) : T(0))) chk.b = min(chk.b, i);
-    chk = block_reduce(chk, scratch, false);
-    pv = chk.a != BIG_I || chk.b != BIG_I;
-  }
-  T* colj = p.snap;
-  T* prow = p.snap + M;
   T* colf = p.snap + M + N;
-  if (pv) {
-    const T rinv = div_rn(T(1), p.tab[(long long)rg * N + jp]);
-    for (int i = threadIdx.x; i < M; i += blockDim.x) colj[i] = p.tab[(long long)i * N + jp];
-    for (int k = threadIdx.x; k < N; k += blockDim.x)
-      prow[k] = mul_rn(p.tab[(long long)rg * N + k], rinv);
-  }
+  int rg, jp;
+  const bool pv = pivot_snapshot(p.tab, M, N, do_pivot, r, j, p.basis[0], p.snap, p.snap + M,
+                                 scratch, rg, jp);
   for (int i = threadIdx.x; i < M; i += blockDim.x) colf[i] = p.tab[(long long)i * N + fcol];
   if (threadIdx.x != 0) return;
   const bool in_phase2 = phase == 2;
@@ -275,14 +245,6 @@ __global__ void __launch_bounds__(ONE_BLOCK) ratio_kernel(Params<T> p) {
 // ---------------------------------------------------------------------------
 // update: the pivot, the flip's RHS and the flipped column, in place
 // ---------------------------------------------------------------------------
-
-// entry (i, k) after the pivot on (rg, jp), from its pre-step value t
-template <typename T>
-__device__ __forceinline__ T pivoted(const T* colj, const T* prow, int rg, int jp, int i, int k,
-                                     T t) {
-  if (i == rg) return k == jp ? T(1) : prow[k];
-  return k == jp ? T(0) : fma(-colj[i], prow[k], t);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(UPD_THREADS) update_kernel(Params<T> p) {
@@ -347,27 +309,12 @@ __global__ void __launch_bounds__(ONE_BLOCK) finish_kernel(Params<T> p) {
   const int n_enter = rec[N_ENTER], n_uphit = rec[N_UPHIT];
   T last_z = p.vals[LAST_Z];
 
-  // the devex weights in place (v: their NaN-first maximum), the sum of
-  // the post-step |b| (s)
+  // the devex weights in place (v: their NaN-first maximum; alpha is the
+  // post-pivot row r before the flip), the sum of the post-step |b| (s)
   Red<T> x = red_identity<T>(true);
-  if (p.devex) {
-    const bool upd = do_price && !kind_flip;
-    const T gq = p.vals[GAMMA_Q], piv = p.vals[PIV];
-    const T q = div_rn(gq, mul_rn(piv, piv));
-    const T leave = is_nan(q) ? q : (q < T(1) ? T(1) : q);
-    const T* prow = p.snap + M;
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      T g = p.gamma[k];
-      if (upd) {
-        // alpha: the post-pivot row r (pre-flip), column j snapped to 1
-        const T a = k == jp ? T(1) : prow[k];
-        g = nan_max(g, mul_rn(mul_rn(a, a), gq));
-        if (k == leaving) g = leave;
-      }
-      p.gamma[k] = g;
-      offer(x, g, k, true);
-    }
-  }
+  if (p.devex)
+    devex_weights(p.gamma, p.snap + M, n, jp, leaving, do_price && !kind_flip, p.vals[GAMMA_Q],
+                  p.vals[PIV], x);
   for (int i = 2 + threadIdx.x; i < M; i += blockDim.x)
     x.s = add_rn(x.s, T(fabs(p.tab[(long long)i * N + N - 1])));
   x = block_reduce(x, scratch, true);

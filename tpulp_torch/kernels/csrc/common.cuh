@@ -1,9 +1,12 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
-// fma.cu, lanes.cu, bounded.cu): exact-rounding arithmetic, the (value,
-// index) comparison whose ties go to the smallest index, and the
+// fma.cu, lanes.cu, bounded.cu, rank1.cu): exact-rounding arithmetic, the
+// (value, index) comparison whose ties go to the smallest index, the
 // block-wide reductions of the single-block simplex loops (lanes.cu,
-// bounded.cu): torch's NaN-first argmin/argmax with first-index ties, two
-// first-index minima and a sum in a fixed tree, in one pass.
+// bounded.cu, rank1.cu): torch's NaN-first argmin/argmax with first-index
+// ties, two first-index minima and a sum in a fixed tree, in one pass;
+// and what the stream-ordered walks (bounded.cu, rank1.cu) share: the
+// record's status gate, the clean-up scan, the pivot's snapshot (with the
+// redirected no-op pivot), the pivoted entry and the devex weights.
 #pragma once
 
 #include <cfloat>
@@ -136,6 +139,106 @@ __device__ Red<V> block_reduce(Red<V> x, Red<V>* scratch, bool mx) {
   }
   __syncthreads();
   return scratch[32];
+}
+
+// ---------------------------------------------------------------------------
+// the stream-ordered walks (bounded.cu, rank1.cu)
+// ---------------------------------------------------------------------------
+
+// Both walk records open with the same int32 fields: phase, status, niter.
+constexpr int REC_PHASE = 0, REC_STATUS = 1, REC_NITER = 2;
+constexpr int WALK_RUNNING = 0;
+
+// A launch works only while the walk runs below its budget: steps enqueued
+// past the walk's exit are no-ops, and the budget holds exactly.
+__device__ __forceinline__ bool live(const int* rec, int max_iters) {
+  return rec[REC_STATUS] == WALK_RUNNING && rec[REC_NITER] < max_iters;
+}
+
+// torch.minimum / torch.maximum: NaN if either is NaN
+template <typename T> __device__ __forceinline__ T nan_min(T a, T b) {
+  return is_nan(a) ? a : is_nan(b) ? b : (b < a ? b : a);
+}
+template <typename T> __device__ __forceinline__ T nan_max(T a, T b) {
+  return is_nan(a) ? a : is_nan(b) ? b : (b > a ? b : a);
+}
+
+// The clean-up scan: the first of the m rows whose basic column is
+// artificial, BIG_I if none; returned to every thread of the block.
+template <typename T>
+__device__ int first_artificial_row(const int* basis, const unsigned char* art, int m,
+                                    Red<T>* scratch) {
+  Red<T> rows = red_identity<T>(false);
+  for (int i = threadIdx.x; i < m; i += blockDim.x)
+    if (art[basis[i]]) rows.a = min(rows.a, i);
+  rows = block_reduce(rows, scratch, false);
+  return rows.a;
+}
+
+// The pivot of a step's update on the (M, N) tableau: (r + 2, j) when the
+// step pivots; otherwise the plain step's redirected pivot on (row 2,
+// basis0), unless that is an exact no-op (row 2 finite and column basis0
+// exactly the unit vector on row 2: it could then change only the sign of
+// a zero). Sets (rg, jp); when the update pivots (the result), snapshots
+// the pivot's column into colj and its row times 1 / pivot into prow, so
+// that the update runs in place. Called by every thread of one block.
+template <typename T>
+__device__ bool pivot_snapshot(const T* tab, int M, int N, bool do_pivot, int r, int j,
+                               int basis0, T* colj, T* prow, Red<T>* scratch, int& rg,
+                               int& jp) {
+  rg = r + 2;
+  jp = j;
+  bool pv = do_pivot;
+  if (!do_pivot) {
+    rg = 2;
+    jp = basis0;
+    Red<T> chk = red_identity<T>(false);
+    for (int k = threadIdx.x; k < N; k += blockDim.x)
+      if (!finite_val(tab[2LL * N + k])) chk.a = min(chk.a, k);
+    for (int i = threadIdx.x; i < M; i += blockDim.x)
+      if (tab[(long long)i * N + jp] != (i == 2 ? T(1) : T(0))) chk.b = min(chk.b, i);
+    chk = block_reduce(chk, scratch, false);
+    pv = chk.a != BIG_I || chk.b != BIG_I;
+  }
+  if (pv) {
+    const T rinv = div_rn(T(1), tab[(long long)rg * N + jp]);
+    for (int i = threadIdx.x; i < M; i += blockDim.x) colj[i] = tab[(long long)i * N + jp];
+    for (int k = threadIdx.x; k < N; k += blockDim.x)
+      prow[k] = mul_rn(tab[(long long)rg * N + k], rinv);
+  }
+  return pv;
+}
+
+// Entry (i, k) after the pivot on (rg, jp), from its pre-step value t and
+// the snapshot: fma(-col[i], prow[k], t), row rg set to prow, column jp to
+// the exact unit vector.
+template <typename T>
+__device__ __forceinline__ T pivoted(const T* colj, const T* prow, int rg, int jp, int i, int k,
+                                     T t) {
+  if (i == rg) return k == jp ? T(1) : prow[k];
+  return k == jp ? T(0) : fma(-colj[i], prow[k], t);
+}
+
+// The devex weights of the n columns in place after a step: on a pricing
+// pivot (upd) gamma = max(gamma, alpha^2 gamma_q), alpha the post-pivot
+// row (prow, column jp snapped to 1), then gamma[leaving] = max(gamma_q /
+// piv^2, 1), with torch's NaN rules. Each weight is offered to x's
+// NaN-first maximum (v), which the caller's reset reads.
+template <typename T>
+__device__ void devex_weights(T* gamma, const T* prow, int n, int jp, int leaving, bool upd, T gq,
+                              T piv, Red<T>& x) {
+  const T q = div_rn(gq, mul_rn(piv, piv));
+  const T leave = is_nan(q) ? q : (q < T(1) ? T(1) : q);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    T g = gamma[k];
+    if (upd) {
+      const T a = k == jp ? T(1) : prow[k];
+      g = nan_max(g, mul_rn(mul_rn(a, a), gq));
+      if (k == leaving) g = leave;
+    }
+    gamma[k] = g;
+    offer(x, g, k, true);
+  }
 }
 
 }  // namespace tpulp

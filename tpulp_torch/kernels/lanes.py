@@ -9,7 +9,9 @@ memory ("resident") or is worked on in place in device memory
 ("streamed"), with the block size and the shared-memory bytes.
 
 The wrapper takes CUDA tensors only (``solve.lanes`` runs the plain loops
-on CPU tensors) and raises on what the kernel does not take. It reads the
+on CPU tensors) and raises on what the kernel does not take. Besides the
+batches, ``solve.driver`` runs the solo rank-1 and dual walks of a
+resident frame through it as a batch of one lane. It reads the
 masks through their strides, so the broadcast rows of ``dual._lanes``
 (lane stride 0) are never expanded; it allocates a new output state with
 ``torch.empty`` and never writes the caller's tensors (pool slots and the

@@ -14,11 +14,12 @@ __all__ = ["LAUNCHES", "reset_launches"]
 _SELECTED = threading.local()
 
 # kernel launches per wrapper; a wrapper counts where it launches its
-# kernel and nowhere else ("bounded_step" counts steps of four launches;
-# "bounded_stage" the single stages launched to check them)
+# kernel and nowhere else ("bounded_step" counts steps of four launches,
+# "rank1_step" steps of four or five; "*_stage" the single stages launched
+# to check them)
 LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0,
             "lane_dual": 0, "lane_primal": 0, "bounded_step": 0,
-            "bounded_stage": 0}
+            "bounded_stage": 0, "rank1_step": 0, "rank1_stage": 0}
 
 
 def reset_launches() -> None:

@@ -283,13 +283,15 @@ def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
     """Run the bounded-variable driver to termination or to
     ``opts.max_iters`` (single problem); ``RULE_DEVEX`` prices with devex
     weights. On CUDA tensors the walk runs in the bounded kernels (four
-    launches a step), on CPU tensors in the plain loop."""
+    launches a step; a strided tableau is handed to them contiguous), on
+    CPU tensors in the plain loop."""
     if opts is None:
         opts = SolverOptions.for_dtype(bs.s.T.dtype)
     bs = _with_gamma(bs, opts)
     if on_cpu(*_tensors(bs)):
         return run_simplex_bounded_reference(bs, opts)
     stall_limit = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    bs = bs._replace(s=bs.s._replace(T=bs.s.T.contiguous()))
     return _finish(bounded_steps(bs, opts, stall_limit, opts.max_iters))
 
 

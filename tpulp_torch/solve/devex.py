@@ -6,7 +6,8 @@ the phase change), a periodic exposed-ray scan and a half-period Dantzig
 probe every ``RAY_SCAN_EVERY`` pivots. The step is the same branchless
 transition as ``driver.simplex_step``, carrying the weights beside the
 state. ``solve_lp`` picks it for equality-heavy shapes on the rank-1
-engine.
+engine. On CUDA tensors the walk runs on ``kernels.rank1`` (the route
+rule of ``solve/driver.py``), on CPU tensors in the plain loop.
 """
 
 from __future__ import annotations
@@ -16,14 +17,15 @@ from typing import NamedTuple
 import torch
 
 from ..core.state import SimplexState, SolverOptions, Status
+from ..kernels.launch import on_cpu
+# the devex frame's reset (past 1e8) and the exposed-ray scan / Dantzig
+# probe cadence (64 pivots), shared with the kernels
+from ..kernels.rank1 import RAY_SCAN_EVERY, RESET_ABOVE
 from .driver import (finish, first_true, pivot_update, put, ratio_rows,
-                     run_chunked, status_select, take)
+                     run_chunked, solo_walk, status_select, take)
 
 __all__ = ["DevexState", "make_devex_state", "devex_simplex_step",
            "run_simplex_devex"]
-
-RESET_ABOVE = 1e8  # re-anchor the reference framework past this weight
-RAY_SCAN_EVERY = 64  # exposed-ray scan / Dantzig probe cadence
 
 
 class DevexState(NamedTuple):
@@ -171,10 +173,13 @@ def devex_simplex_step(ds: DevexState, opts: SolverOptions,
 def run_simplex_devex(state: SimplexState,
                       opts: SolverOptions | None = None) -> SimplexState:
     """Run the devex-priced rank-1 driver; returns the terminal state (the
-    weights are internal)."""
+    weights are internal). The plain loop on CPU tensors, ``rank1_step``
+    on CUDA tensors."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
     stall_limit = opts.resolved_stall_limit(state.m, state.n)
+    if not on_cpu(*state):
+        return finish(solo_walk("devex", state, opts, stall_limit))
     out = run_chunked(
         lambda c: devex_simplex_step(c, opts, stall_limit, opts.max_iters),
         make_devex_state(state), lambda c: c.s, opts.max_iters)

@@ -8,6 +8,28 @@ waits for the host. torch has no ``lax.while_loop``: ``run_simplex`` runs
 the step in a Python loop and reads the status on the host once per chunk
 of steps. The step freezes itself once ``niter`` reaches the budget, so a
 chunk cannot run past it and the pivot count equals tpulp's.
+
+That loop is the CPU path. On CUDA tensors the solo walks run on
+hand-written kernels, with no host read inside a chunk, by one rule
+(``solo_route``, for an (M, N) = (m + 2, n + 1) tableau):
+
+- ``run_simplex`` (Dantzig, Bland, the greatest increase, ``RULE_DEVEX``
+  priced as Dantzig; first-index or largest-pivot ties): ``lane_primal``
+  at B = 1 (the whole walk in one launch, ``kernels.lanes``) when the frame
+  is resident in one block (``lane_plan(M, N, dtype).resident``), else
+  ``rank1_step`` (``kernels.rank1``: four stream-ordered launches a step,
+  five with the greatest increase's column pass);
+- ``devex.run_simplex_devex``: ``rank1_step`` at any size (the lane
+  kernels take no devex weights);
+- ``dual.run_dual_simplex``: ``lane_dual`` at B = 1 when the frame is
+  resident, else ``rank1_step``'s dual walk (three stream-ordered launches
+  a step on the grid and one block; a streamed lane kernel would walk a
+  large frame with one block).
+
+Each gets the plain loop's ``stall_limit`` and ``opts.max_iters``, so
+``finish`` and the absolute ``niter`` budgets of ``refresh.py`` hold, and
+a contiguous tableau. There is no fallback: a build or launch failure
+raises.
 """
 
 from __future__ import annotations
@@ -17,6 +39,9 @@ import torch
 from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
                           SimplexState, SolverOptions, Status)
 from ..kernels.fma import fused_fma
+from ..kernels.lanes import lane_dual, lane_plan, lane_primal
+from ..kernels.launch import on_cpu
+from ..kernels.rank1 import rank1_steps
 
 __all__ = [
     "simplex_step",
@@ -24,6 +49,9 @@ __all__ = [
     "extract_solution",
     "pivot_update",
     "find_pivot_all",
+    "solo_route",
+    "solo_walk",
+    "one_lane",
 ]
 
 BIG_I = 2 ** 30
@@ -246,12 +274,60 @@ def finish(s: SimplexState) -> SimplexState:
         s.status == Status.RUNNING, Status.ITERATION_LIMIT, s.status))
 
 
+def solo_route(walk: str, M: int, N: int, dtype) -> str:
+    """The kernel that runs a solo ``walk`` ("primal", "devex" or "dual")
+    of an (M, N) tableau of ``dtype`` on the card: "lane_primal",
+    "lane_dual" or "rank1_step" (the module's rule)."""
+    if walk not in ("primal", "devex", "dual"):
+        raise ValueError(f"unknown walk {walk!r}")
+    if walk != "devex" and _resident(M, N, dtype):
+        return "lane_primal" if walk == "primal" else "lane_dual"
+    return "rank1_step"
+
+
+def _resident(M: int, N: int, dtype) -> bool:
+    try:
+        return lane_plan(M, N, dtype).resident
+    except ValueError:  # a frame past the lane kernels' shared memory
+        return False
+
+
+def one_lane(loop, state: SimplexState, opts: SolverOptions,
+             stall_limit: int, max_iters: int) -> SimplexState:
+    """``loop`` (a lanes loop: ``lane_primal``, ``lane_dual`` or their
+    plain versions in ``solve.lanes``) on ``state`` as a batch of one
+    lane."""
+    lanes = SimplexState(*(x.contiguous().unsqueeze(0) for x in state))
+    return SimplexState(*(x[0] for x in loop(lanes, opts, stall_limit,
+                                             max_iters)))
+
+
+def solo_walk(walk: str, state: SimplexState, opts: SolverOptions,
+              stall_limit: int) -> SimplexState:
+    """The solo ``walk`` of ``state`` (on one CUDA device) on the kernel of
+    ``solo_route``, to its exit or to ``opts.max_iters`` (a RUNNING exit at
+    the budget stays RUNNING)."""
+    state = state._replace(T=state.T.contiguous())
+    route = solo_route(walk, *state.T.shape, state.T.dtype)
+    if route == "rank1_step":
+        gamma = torch.ones((state.n,), dtype=state.T.dtype,
+                           device=state.T.device) if walk == "devex" \
+            else None
+        return rank1_steps(state, opts, stall_limit, opts.max_iters,
+                           gamma, dual=walk == "dual")[0]
+    loop = lane_primal if route == "lane_primal" else lane_dual
+    return one_lane(loop, state, opts, stall_limit, opts.max_iters)
+
+
 def run_simplex(state: SimplexState, opts: SolverOptions | None = None
                 ) -> SimplexState:
-    """Run the rank-1 driver to termination or to ``opts.max_iters``."""
+    """Run the rank-1 driver to termination or to ``opts.max_iters``: the
+    plain loop on CPU tensors, the route's kernel on CUDA tensors."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
     stall_limit = opts.resolved_stall_limit(state.m, state.n)
+    if not on_cpu(*state):
+        return finish(solo_walk("primal", state, opts, stall_limit))
     out = run_chunked(
         lambda s: simplex_step(s, opts, stall_limit, opts.max_iters),
         state, lambda s: s, opts.max_iters)

@@ -39,7 +39,9 @@ import torch
 from ..core.precision import full_precision
 from ..core.state import SimplexState, SolverOptions, Status
 from ..kernels.fma import fused_fma
-from .driver import finish, first_true, pivot_update, put, run_chunked, take
+from ..kernels.launch import on_cpu
+from .driver import (finish, first_true, pivot_update, put, run_chunked,
+                     solo_walk, take)
 from .lanes import dual_lanes, primal_lanes
 
 __all__ = [
@@ -133,10 +135,14 @@ def dual_simplex_step(state: SimplexState, opts: SolverOptions,
 @full_precision()
 def run_dual_simplex(state: SimplexState, opts: SolverOptions | None = None
                      ) -> SimplexState:
-    """Run the dual simplex on one problem to termination or the budget."""
+    """Run the dual simplex on one problem to termination or the budget:
+    the plain loop on CPU tensors; on CUDA tensors ``lane_dual`` at B = 1
+    or ``rank1_step``'s dual walk (the route rule of ``solve/driver.py``)."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
     stall_limit = opts.resolved_stall_limit(state.m, state.n)
+    if not on_cpu(*state):
+        return finish(solo_walk("dual", state, opts, stall_limit))
     out = run_chunked(
         lambda s: dual_simplex_step(s, opts, stall_limit, opts.max_iters),
         state, lambda s: s, opts.max_iters)
