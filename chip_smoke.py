@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the six sources of tpulp_torch/kernels/csrc
+Builds the CUDA kernels from the seven sources of tpulp_torch/kernels/csrc
 (flush, inner block, FMA, the two lane kernels, the bounded step's four
-launches and the rank-1 step's five; and checks
+launches, the rank-1 step's five and the blocked engine's seven; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -38,6 +38,22 @@ the 258 x 769 frame and on phase 5's 1538 x 3073 one),
 ``solve_lp(driver="rank1")`` on phase 5's LP and the refreshed rung's
 rank-1 segments; it times the rank-1 step by launch and the plain step,
 and solves a bounded state whose tableau is a strided view.
+Phase 5d drives the solo rank-K blocked engine on its kernels (six
+launches a pivot slot, B1's flush and one ray launch a block):
+``solve_lp(driver="auto")`` on a 512 x 1024 LP (514 x 1537, certified, the
+eager engine's objective exactly, no FMA and no B2 launch), devex on an
+artificial LP at 512 rows (optimal and certified, with the eager engine's
+objective) and on its variant with four dependent rows (its status
+recorded beside the eager engine's and those of other walks; within 1e-9
+of the eager engine's at f64), the refreshed rung's blocked segments, each
+walk held against its plain-stage walk flushed by the same B1 in every
+field at f32 and f64; each of the seven launches against its plain stage (a
+Dantzig pivot, a budget stop inside a block, Bland, a largest-pivot tie, a
+clean-up pivot, a retire, the phase change with devex's reset, the 1e8
+reset, the ray launch with and without an artificial basic); it times a
+slot by launch, B1 at the blocked shapes beside ``addmm``, and the rank-1
+walk, the blocked engine and the kernel engine at four sizes around the
+`auto` thresholds.
 Phase 7 drives ``solve_milp`` on bench.py's 28-item knapsack (f32 and f64,
 the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
 and f64 optima, checked in Fractions) with every wave tensor checked to be
@@ -72,7 +88,9 @@ rank's block with the flush kernel) and the sharded rank-1 driver (each
 certified, the exact objective phase 5's), holds the sharded bounded
 driver's Dantzig walk on a 128 x 256 box LP to the solo walk, times the
 sharded machinery against the solo blocked driver at P = 1, and holds the
-flush against its plain version at the sharded block's shape. Phase 10
+flush against its plain version at the sharded block's shape (9d's solo
+baseline is the eager blocked loop, ``run_simplex_blocked_reference``, with
+the blocked kernels timed beside it). Phase 10
 runs the batch half of multi-device solving over a one-process NCCL group,
 on a ``(batch, cols)`` mesh of shape (1, 1) and a 1-D ``("batch",)``
 mesh: ``solve_lp_batch(mesh=)`` over phase 7c's 64 scenarios (statuses,
@@ -1079,7 +1097,7 @@ def solo_solve(sf, dt, driver: str, label: str, route: str,
     just after: the route's kernel launched and, with ``optimal``, the
     answer optimal with no FMA launch (an answer that is not optimal is
     re-derived on the refreshed rung, whose devex segments run the
-    blocked engine and its FMA launches)."""
+    blocked engine's kernels)."""
     import torch
 
     import tpulp_torch
@@ -1342,13 +1360,619 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: the blocked engine on its kernel
+# ---------------------------------------------------------------------------
+
+# solve_lp's block, the eta slots of the blocked engine
+BLK5_K = 64
+# (b): artificial_arrays at 512 + 4 rows and this many columns: 518 x 1285
+# with the four dependent rows, 514 x 1281 without (past 200k elements)
+BLK5_ART_N = 768
+# the plain walk held beside the kernels' over its first blocks where the
+# whole walk is long
+BLK5_WINDOW = 1024
+# (d): the stage checks' block (block ends fall inside the clean-up), the
+# budget that stops a walk inside a block, and cleanup_arrays' size (154 x
+# 369; at 538 x 1329 the f32 walk pivots on its dependent rows' roundoff
+# instead of retiring them) with its rows "-x_j = 0" that keep artificials
+# basic into phase 2
+BLK5_STAGE_K = 16
+BLK5_BUDGET = 100
+BLK5_CLEANUP_M, BLK5_CLEANUP_N, BLK5_CLEANUP_ROWS = 128, 192, 24
+# (f): bench.py's recipe at (m, n), the tableau (m + 2) x (n + m + 1), and
+# the pivots timed on each engine
+THRESH_SHAPES = ((256, 512), (512, 512), (1024, 1024), (1536, 1536))
+THRESH_PIVOTS = 384
+
+
+def cleanup_arrays(m: int, n: int, extra: int = BLK5_CLEANUP_ROWS,
+                   seed: int = 1):
+    """An integer equality LP on artificials whose phase 2 opens with
+    clean-up pivots and retires: m rows of small integers over n columns
+    (its last two rows 2 x row 0 and row 1 + row 2, dependent), then
+    ``extra`` rows "-x_j = 0" on columns of their own, whose artificials
+    phase 1 never prices out (their columns' phase-1 reduced cost is +1).
+    Returns (c, A, b)."""
+    rng = np.random.default_rng(seed)
+    A = rng.integers(0, 4, size=(m - 2, n))
+    x0 = rng.integers(1, 4, size=n) * (rng.random(n) < 0.5)
+    A = np.vstack([A, 2 * A[0], A[1] + A[2]])
+    b = np.concatenate([A @ x0, np.zeros(extra, dtype=A.dtype)])
+    A = np.block([[A, np.zeros((m, extra), dtype=A.dtype)],
+                  [np.zeros((extra, n), dtype=A.dtype),
+                   -np.eye(extra, dtype=A.dtype)]])
+    c = rng.integers(-5, 6, size=n + extra)
+    return c.astype(float), A.astype(float), b.astype(float)
+
+
+def blocked_plain(state, opts, K: int, max_iters=None):
+    """The plain-stage walk (the launches' plain versions, flushed by B1 as
+    the kernels' walk is): (state, devex weights, seconds)."""
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels.blocked import blocked_walk_reference
+    from tpulp_torch.kernels.block import fused_flush
+    from tpulp_torch.solve.driver import finish
+
+    opts = eta_scaled_options(opts, state.T.dtype)
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    sync(state.T.device)
+    t0 = time.perf_counter()
+    s, g = blocked_walk_reference(state, opts, stall, max_iters or
+                                  opts.max_iters, K, flush=fused_flush)
+    sync(state.T.device)
+    return finish(s), g, time.perf_counter() - t0
+
+
+def blocked_kernel_walk(state, opts, K: int):
+    """The kernels' walk through ``blocked_steps`` (what
+    ``run_simplex_blocked`` calls on the card, with its weights): (state,
+    weights, seconds, launches)."""
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.blocked import blocked_steps
+    from tpulp_torch.solve.driver import finish
+
+    opts = eta_scaled_options(opts, state.T.dtype)
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    sync(state.T.device)
+    reset_launches()
+    t0 = time.perf_counter()
+    s, g = blocked_steps(state, opts, stall, opts.max_iters, K)
+    sync(state.T.device)
+    return finish(s), g, time.perf_counter() - t0, dict(LAUNCHES)
+
+
+def blocked_walk_check(state, opts, label: str, K: int = BLK5_K,
+                       window: int | None = BLK5_WINDOW):
+    """The kernels' walk and the plain-stage walk held equal in every field
+    (``T + 0.0``, NaN equal, the devex weights too), over the whole walk or
+    over its first ``window`` pivots (the budget of both, a multiple of K);
+    the launches must be ``blocked_step`` slots, one ray launch and one B1
+    flush a block, and nothing else. Returns the numbers."""
+    import dataclasses as dc
+
+    import torch
+
+    if window is not None:
+        opts = dc.replace(opts, max_iters=min(opts.max_iters, window))
+    k, gk, secs, launches = blocked_kernel_walk(state, opts, K)
+    p, gp, plain_secs = blocked_plain(state, opts, K)
+    err = lanes_equal(k, p)
+    if not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
+        raise AssertionError(f"5d {label}: the devex weights differ")
+    blocks = launches["blocked_ray"]
+    others = {key: v for key, v in launches.items() if v and key not in (
+        "blocked_step", "blocked_ray", "fused_flush")}
+    if others or not blocks or launches["fused_flush"] != blocks or \
+            launches["blocked_step"] != K * blocks:
+        raise AssertionError(f"5d {label}: launches {launches}")
+    niter = int(k.niter) - int(state.niter)
+    res = {"status": int(k.status), "niter": niter, "bland": bool(k.bland),
+           "blocks": blocks, "seconds": secs, "plain_seconds": plain_secs,
+           "max_abs_err": err, "launches": launches["blocked_step"],
+           "us_per_pivot": 1e6 * secs / max(niter, 1),
+           "plain_ms_per_pivot": 1e3 * plain_secs / max(niter, 1),
+           "window": window}
+    log(f"# 5d {label} {tuple(state.T.shape)} {str(state.T.dtype)[6:]} "
+        f"K={K}: the kernels' walk equals the plain-stage walk in every field"
+        f" (status {res['status']}, {niter} pivots in {blocks} blocks"
+        + (f", the first {window} pivots" if window else "")
+        + f"); {1e3 * secs:.2f} ms = {res['us_per_pivot']:.1f} us a pivot on "
+        f"the host clock, the plain walk {res['plain_ms_per_pivot']:.3f} ms "
+        "a pivot")
+    return res
+
+
+def blocked_stage_checks(state, opts, label: str, want, K: int,
+                         max_slots: int = 6000):
+    """Each launch held against its plain stage on the card (every record
+    field, ``T + 0.0``), on the first slot or block end of each kind in
+    ``want``: "pivot" (a pricing pivot, not under Bland), "bland" (one
+    under Bland), "maxpiv_tie" (a pricing pivot with two or more rows in
+    the min-ratio tie under largest-pivot ties), "cleanup", "retire",
+    "devex_reset" (a phase change under devex), "reset_1e8" (the weights
+    past 1e8), "budget_stop" (a slot the budget stops), and at a block's
+    end "ray_art" / "ray_clear" (the ray launch in phase 2 with an
+    artificial basic / with none). The record walks on through the
+    kernels' launches. Returns {kind: slot}."""
+    import torch
+
+    from tpulp_torch.core import Status, eta_scaled_options
+    from tpulp_torch.core.state import RULE_BLAND, RULE_DEVEX, TIE_MAXPIV
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels.block import fused_flush
+
+    opts = eta_scaled_options(opts, state.T.dtype)
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    mi = opts.max_iters
+    devex = opts.rule == RULE_DEVEX
+    M, N = state.T.shape
+    G = kb.partials(M, N)
+    rec = kb.make_record(state, K)
+    found = {}
+
+    def held(base, stages, kinds, scan=None):
+        for stage in stages:
+            k, p = kb.clone_record(base), kb.clone_record(base)
+            kb.blocked_stage(k, stage, opts, stall, mi, scan)
+            kb.blocked_stage_reference(p, stage, opts, stall, mi, scan)
+            torch.cuda.synchronize()
+            for (name, a), (_, b) in zip(kb.record_tensors(k),
+                                         kb.record_tensors(p)):
+                a, b = a.cpu(), b.cpu()
+                if a.is_floating_point():
+                    a, b = a.nan_to_num(0.5) + 0.0, b.nan_to_num(0.5) + 0.0
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"5d {label}: the {stage} launch differs from its "
+                        f"plain stage in {name} ({sorted(kinds)})")
+            base = p
+
+    slot = 0
+    while slot < max_slots and set(found) != set(want):
+        iv = rec.ints.tolist()
+        if iv[kb.STATUS] != Status.RUNNING or iv[kb.NITER] >= mi:
+            break
+        for _ in range(K):
+            before = kb.clone_record(rec)
+            for stage in kb.SLOT_STAGES:
+                kb.blocked_stage(rec, stage, opts, stall, mi)
+            b, a = before.ints.tolist(), rec.ints.tolist()
+            if b[kb.STATUS] == Status.RUNNING:
+                pricing = bool(a[kb.DO_PRICING] and a[kb.ACT])
+                under_bland = bool(b[kb.BLAND]) or opts.rule == RULE_BLAND
+                ties = 0
+                if pricing and opts.tie_break == TIE_MAXPIV:
+                    col, bv = rec.scratch[2:M], before.bvec[2:]
+                    pos = col > opts.piv_tol
+                    ratios = torch.where(pos, bv / torch.where(pos, col, 1.0),
+                                         float("inf"))
+                    ties = int((ratios <= ratios.min()).sum())
+                kinds = {
+                    "pivot": pricing and not under_bland,
+                    "bland": pricing and under_bland,
+                    "maxpiv_tie": ties >= 2,
+                    "cleanup": bool(a[kb.DO_CLEANUP] and a[kb.ACT]),
+                    "retire": bool(a[kb.RETIRE]),
+                    "devex_reset": devex and bool(a[kb.TO_PHASE2]),
+                    "reset_1e8": devex and bool(
+                        rec.scratch[M + N:M + N + G].max() > 1e8),
+                    "budget_stop": bool(a[kb.DO_CLEANUP] or a[kb.DO_PRICING])
+                    and not a[kb.ACT]}
+                new = {k for k, v in kinds.items() if v and k in want
+                       and k not in found}
+                if new:
+                    held(before, kb.SLOT_STAGES, new)
+                    for kind in new:
+                        found[kind] = slot
+            slot += 1
+        _, scan = fused_flush(*kb.flush_inputs(rec), float(opts.opt_tol),
+                              float(opts.piv_tol))
+        iv = rec.ints.tolist()
+        new = set()
+        if iv[kb.STATUS] == Status.RUNNING and iv[kb.PHASE] == 2:
+            kind = "ray_art" if iv[kb.ART_ROW] != kb.BIG_I else "ray_clear"
+            if kind in want and kind not in found:
+                new = {kind}
+        if new:
+            held(kb.clone_record(rec), ("ray",), new, scan)
+            found.update({kind: slot for kind in new})
+        kb.blocked_stage(rec, "ray", opts, stall, mi, scan)
+    if set(found) != set(want):
+        raise AssertionError(f"5d {label}: no slot of kinds "
+                             f"{set(want) - set(found)} in {slot}")
+    log(f"# 5d stages, {label} {tuple(state.T.shape)} "
+        f"{str(state.T.dtype)[6:]} K={K}: each launch equals its plain "
+        "stage on the card (every record field) at slot "
+        + ", ".join(f"{s} ({k})" for k, s in sorted(found.items(),
+                                                    key=lambda x: x[1])))
+    return found
+
+
+def blocked_slot_us(state, opts, label: str, K: int = BLK5_K):
+    """A kernel slot of the walk of ``state``, half a block into its second
+    block: device us a slot of a whole block's K slots enqueued by one C
+    call (``launches_us``, on a copy of the record at the block's start),
+    the host's us to enqueue one, the device us of the cleanup, price,
+    column, ratio and row launches alone (32 launches of each on a copy)
+    beside the finish, the flush and ray launches a block, and the bound;
+    three rounds, medians."""
+    import torch
+
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.core.state import RULE_DEVEX
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels.block import fused_flush
+
+    opts = eta_scaled_options(opts, state.T.dtype)
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    mi = opts.max_iters
+    rec = kb.make_record(state, K)
+    kb.blocked_block(rec, opts, stall, mi)
+    start = kb.clone_record(rec)
+    kb.enqueue_slots(rec, opts, stall, mi, K // 2)
+    steps = 32
+    stages = kb.SLOT_STAGES[:-1]
+    dev_us, host_us, block_us = [], [], []
+    split = {stage: [] for stage in stages}
+    for _ in range(3):
+        for stage in stages:
+            c = kb.clone_record(rec)
+            split[stage].append(launches_us(lambda: [
+                kb.blocked_stage(c, stage, opts, stall, mi)
+                for _ in range(steps)], steps)[0])
+        c = kb.clone_record(start)
+        d, h = launches_us(lambda: kb.enqueue_slots(c, opts, stall, mi, K),
+                           K)
+        if int(c.ints[kb.STATUS]) != 0 or int(c.ints[kb.SLOT]) != K:
+            raise AssertionError("5d: the timed slots ran past the walk")
+        dev_us.append(d)
+        host_us.append(h)
+
+        def end():
+            _, scan = fused_flush(*kb.flush_inputs(c), float(opts.opt_tol),
+                                  float(opts.piv_tol))
+            kb.blocked_stage(c, "ray", opts, stall, mi, scan)
+
+        block_us.append(launches_us(end, 1)[0])
+    split = {k: float(np.median(v)) for k, v in split.items()}
+    dev_us, host_us = float(np.median(dev_us)), float(np.median(host_us))
+    split["finish"] = dev_us - sum(split.values())
+    M, N = state.T.shape
+    size = state.T.element_size()
+    # a slot at the block's mean slot index t = (K - 1) / 2: T0's column
+    # and row, the t slots of U and V written before it, U[t] and V[t]
+    # written, row0, row1 (N) and bvec (M) read and written, and under
+    # devex the weights (N - 1) read and written; one fma an entry of
+    # each eta sum
+    t_mean = (K - 1) / 2
+    devex = opts.rule == RULE_DEVEX
+    nbytes = size * ((M + N) * (2 + t_mean) + 2 * (2 * N + M)
+                     + (2 * (N - 1) if devex else 0))
+    bound_ms, bound_by = bound(nbytes, 2.0 * t_mean * (M + N),
+                               FP64_FLOP_S if size == 8 else FP32_FLOP_S)
+    res = {"device_us_per_slot": dev_us, "host_us_per_slot": host_us,
+           "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
+           "device_us_by_stage": split,
+           "flush_and_ray_us_per_block": float(np.median(block_us))}
+    log(f"# 5d blocked_step {label} {M}x{N} {str(state.T.dtype)[6:]} K={K}: "
+        f"{dev_us:.2f} us a slot on the card (CUDA events over a block of "
+        f"{K} slots; " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"), {host_us:.2f} us of host time to enqueue one; B1's flush and "
+        f"the ray launch {res['flush_and_ray_us_per_block']:.1f} us a block; "
+        f"bound {1e3 * bound_ms:.3f} us a slot ({bound_by})")
+    return res
+
+
+def blocked_flush_case(state, K: int = BLK5_K):
+    """B1 at the blocked engine's shape: the flush of the walk's first
+    block of K slots against its plain version, with ``addmm`` beside
+    it."""
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.core import SolverOptions
+    from tpulp_torch.kernels import blocked as kb
+
+    opts = eta_scaled_options(SolverOptions.for_dtype(state.T.dtype),
+                              state.T.dtype)
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    rec = kb.make_record(state, K)
+    kb.enqueue_slots(rec, opts, stall, opts.max_iters, K)
+    T, U, V, ca = kb.flush_inputs(rec)
+    return check_flush(T.clone(), U, V, ca, opts.opt_tol, opts.piv_tol,
+                       str(state.T.dtype)[6:], RUNS)
+
+
+def threshold_table(dev="cuda"):
+    """5d (f): us a pivot of the rank-1 walk, the blocked engine and the
+    kernel engine on bench.py's recipe at each of THRESH_SHAPES, f64, over
+    THRESH_PIVOTS pivots (the better of two runs, host clock): the data
+    for the `auto` thresholds, which stay as they are."""
+    import torch
+
+    from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.solve import (run_simplex, run_simplex_blocked,
+                                   run_simplex_blocked_kernel)
+
+    engines = {"rank1": lambda s, o: run_simplex(s, o),
+               "blocked": lambda s, o: run_simplex_blocked(s, o, BLK5_K),
+               "kernel": lambda s, o: run_simplex_blocked_kernel(
+                   s, o, max(BLK5_K, 128))}
+    table = {}
+    for m, n in THRESH_SHAPES:
+        st = make_state(*bench_arrays(m, n), dtype=torch.float64,
+                        device=dev)
+        opts = SolverOptions.for_dtype(torch.float64,
+                                       max_iters=THRESH_PIVOTS)
+        row = {}
+        for name, run in engines.items():
+            best = None
+            for _ in range(2):
+                sync(dev)
+                t0 = time.perf_counter()
+                out = run(st, opts)
+                sync(dev)
+                secs = time.perf_counter() - t0
+                niter = int(out.niter)
+                us = 1e6 * secs / max(niter, 1)
+                if best is None or us < best["us_per_pivot"]:
+                    best = {"us_per_pivot": us, "niter": niter,
+                            "status": int(out.status)}
+            row[name] = best
+        key = f"{m + 2}x{n + m + 1}"
+        table[key] = row
+        log(f"# 5d (f) {key} f64 ({(m + 2) * (n + m + 1)} elements), "
+            f"{THRESH_PIVOTS} pivots: " + ", ".join(
+                f"{k} {v['us_per_pivot']:.1f} us a pivot ({v['niter']})"
+                for k, v in row.items()))
+        del st
+        torch.cuda.empty_cache()
+    return table
+
+
+def blocked_solve(sf, dt, driver: str, label: str, optimal: bool = True,
+                  dev="cuda"):
+    """``solve_lp`` with the launch counts set to 0 just before it and read
+    just after: the blocked kernels launched (``blocked_step`` slots, one
+    ray launch a B1 flush), no FMA, no B2; with ``optimal`` the answer
+    optimal and certified (``float_basis_certificate``)."""
+    import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.solve.refine import float_basis_certificate
+
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    sol = tpulp_torch.solve_lp(sf, dtype=dt, device=dev, driver=driver)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    log(f"# 5d solve_lp {label} {str(dt)[6:]} (driver={driver!r}): "
+        f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
+        f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
+    if not (launches["blocked_step"] > 0 and launches["fused_fma"] == 0
+            and launches["blocked_inner_block"] == 0
+            and launches["fused_flush"] == launches["blocked_ray"] > 0):
+        raise AssertionError(f"5d {label}: launches {launches}, want the "
+                             "blocked kernels and B1, no FMA, no B2")
+    out = {"status": sol.status, "rung": sol.rung, "niter": sol.niter,
+           "seconds": secs, "launches": launches,
+           "objective": str(sol.objective)}
+    if optimal:
+        if sol.status != "optimal":
+            raise AssertionError(f"5d {label}: {sol.status}")
+        primal_ok, dual_ok = float_basis_certificate(sf, sol.basis)
+        if not (primal_ok and dual_ok):
+            raise AssertionError(f"5d {label}: float_basis_certificate "
+                                 f"({primal_ok}, {dual_ok})")
+        out["certified"] = True
+    return sol, out
+
+
+def eager_solve(sol, sf, dt, driver: str, label: str, out: dict,
+                dev="cuda", same_walk: bool = True):
+    """The same ``solve_lp`` with the blocked engine's eager loop
+    (``run_simplex_blocked_reference``) in place of its kernels, in the
+    solve and in the refreshed rung's segments. Where the two walk the
+    same pivots at f64 (``same_walk``) the status and objective must be
+    ``sol``'s exactly there, and at f32, where the eta sums' order can
+    part the walks, both answers must be optimal and within 1e-9 relative
+    (two optimal bases refined in f64: 2e-15 seen). Where the walks part
+    at f64 too, that limit holds at f64 and at f32 both statuses are
+    recorded. Adds its numbers to ``out`` (the kernels' solve's
+    record)."""
+    import tpulp_torch
+    from tpulp_torch.solve import api, blocked
+
+    kernels = blocked.run_simplex_blocked
+    api.run_simplex_blocked = blocked.run_simplex_blocked = \
+        blocked.run_simplex_blocked_reference
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        eager = tpulp_torch.solve_lp(sf, dtype=dt, device=dev, driver=driver)
+        sync(dev)
+    finally:
+        api.run_simplex_blocked = blocked.run_simplex_blocked = kernels
+    secs = time.perf_counter() - t0
+    rel = abs(float(eager.objective) - float(sol.objective)) / max(
+        1.0, abs(float(sol.objective))) if eager.objective is not None \
+        and sol.objective is not None else float("inf")
+    f64 = str(dt) == "torch.float64"
+    if f64 and same_walk:
+        bad = eager.status != sol.status or eager.objective != sol.objective
+    else:
+        bad = (f64 or same_walk) and not (
+            sol.status == eager.status == "optimal" and rel <= 1e-9)
+    if bad:
+        raise AssertionError(f"5d {label} {str(dt)[6:]}: {sol.status}, "
+                             f"objective {sol.objective!r}, the eager "
+                             f"engine's {eager.status}, {eager.objective!r}")
+    out["eager"] = {"status": eager.status, "seconds": secs,
+                    "niter": eager.niter, "rung": eager.rung,
+                    "objective": str(eager.objective), "rel_diff": rel}
+    log(f"# 5d {label} {str(dt)[6:]}: the eager engine's solve {secs:.2f} "
+        f"s, {eager.status}, {eager.niter} pivots, rung {eager.rung}, "
+        f"objective {eager.objective!r} (relative difference {rel:.1e})")
+
+
+def other_walks(state, opts, label: str):
+    """The walk of ``state`` on the blocked kernels at blocks of 16 and of
+    1 eta and on the devex rank-1 walk: (status, pivots) each, recorded
+    beside the solve's to tell a stall of the LP at a dtype from one of
+    the blocked engine's sum order."""
+    from tpulp_torch.solve import run_simplex_blocked, run_simplex_devex
+
+    out = {}
+    for name, run in (("blocked_K16", lambda: run_simplex_blocked(
+            state, opts, 16)), ("blocked_K1", lambda: run_simplex_blocked(
+                state, opts, 1)), ("rank1_devex", lambda: run_simplex_devex(
+                    state, opts))):
+        o = run()
+        out[name] = {"status": int(o.status), "niter": int(o.niter)}
+    log(f"# 5d {label} {str(state.T.dtype)[6:]}, the other walks: "
+        + ", ".join(f"{k} status {v['status']} in {v['niter']} pivots"
+                    for k, v in out.items()))
+    return out
+
+
+def phase_blocked_engine(dev="cuda"):
+    """Phase 5d: the solo rank-K blocked engine on its kernels
+    (``blocked_step``, B1 a block), each walk held against the plain-stage
+    walk flushed by the same B1 in every field at f64 and f32: (a)
+    ``solve_lp(driver="auto")`` on phase 8c's recipe, one LP of 512 x 1024
+    (514 x 1537, the blocked engine: optimal, certified, the eager engine's
+    objective exactly); (b) devex, which auto picks for the artificial LP
+    at 512 + 4 rows: its independent rows with c >= 0 (optimal, certified)
+    and the variant with its dependent rows (the retire; its status beside
+    the eager engine's and those of ``other_walks``); (c) the
+    refreshed rung's blocked segments (largest-pivot ties); (d) each launch
+    against its plain stage on a Dantzig pivot and a budget stop inside a
+    block ((a)'s LP), Bland, a largest-pivot tie, a clean-up pivot, a
+    retire, the phase change with its devex reset and the ray launch with
+    and without an artificial basic (``cleanup_arrays``), and the 1e8 reset
+    (a pivot on 2e-4); (e) the device us a
+    slot by launch, the host's enqueue, the plain step, B1 at the blocked
+    shapes beside ``addmm``; (f) the `auto` thresholds' table. Returns the
+    numbers; ``launches`` are (a)'s f64 solve's."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.core.state import RULE_BLAND, RULE_DEVEX, TIE_MAXPIV
+    from tpulp_torch.solve.api import (RANK1_BELOW, KERNEL_FROM,
+                                       _auto_engine, state_from_standard_form)
+    from tpulp_torch.solve.refresh import stabilized_options
+
+    res = {"solves": {}, "walks": {}, "stages": {}, "slot_us": {},
+           "flush": {}}
+    A, b, c = dense_leq_arrays(BLK_M, BLK_N)
+    sf_a = scenario_form(A, b, c)
+    M, N = BLK_M + 2, BLK_M + BLK_N + 1
+    if _auto_engine(M * N, torch.device(dev)) != "blocked" or not \
+            RANK1_BELOW <= M * N < KERNEL_FROM:
+        raise AssertionError(f"5d: auto does not pick the blocked engine "
+                             f"at {M} x {N}")
+    co, Ao, bo, _ = artificial_arrays(BLK_M + 4, BLK5_ART_N)
+    sf_b = equality_form(co, Ao, bo)
+    sf_bo = equality_form(np.abs(co), Ao[:BLK_M], bo[:BLK_M])
+    # the clean-up pivots, the retire and the ray launch's gate
+    sf_d = equality_form(*cleanup_arrays(BLK5_CLEANUP_M, BLK5_CLEANUP_N))
+    # the 1e8 reset: devex's first pivot on 2e-4 in a row that holds a 3
+    Ar, br, cr = dense_leq_arrays(64, 128, seed=5)
+    Ar[:, 0], Ar[:, 1], cr[0] = 2e-4, 3.0, -100.0
+    sf_r = scenario_form(Ar, br, cr)
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        opts = SolverOptions.for_dtype(dt)
+        ob = SolverOptions.for_dtype(dt, rule=RULE_DEVEX)
+        # (a) the blocked engine's main case
+        sol, res["solves"][f"a_{name}"] = blocked_solve(
+            sf_a, dt, "auto", f"(a) {BLK_M}x{BLK_N}", dev=dev)
+        if name == "float64":
+            res["launches"] = res["solves"]["a_float64"]["launches"]
+        eager_solve(sol, sf_a, dt, "auto", "(a)", res["solves"][f"a_{name}"],
+                    dev)
+        st = state_from_standard_form(sf_a, dtype=dt, device=dev)
+        w = blocked_walk_check(st, opts, "(a) Dantzig", window=None)
+        if w["status"] != 1:
+            raise AssertionError(f"5d (a): status {w['status']}")
+        res["walks"][f"a_{name}"] = w
+        res["slot_us"][f"a_{name}"] = blocked_slot_us(st, opts, "(a)")
+        # (b) devex: the optimal LP, then the one with dependent rows
+        solo, res["solves"][f"b_optimal_{name}"] = blocked_solve(
+            sf_bo, dt, "auto", f"(b) optimal {BLK_M}x{BLK5_ART_N}", dev=dev)
+        eager_solve(solo, sf_bo, dt, "auto", "(b) optimal",
+                    res["solves"][f"b_optimal_{name}"], dev)
+        so = state_from_standard_form(sf_bo, dtype=dt, device=dev)
+        res["walks"][f"b_optimal_{name}"] = blocked_walk_check(
+            so, ob, "(b) optimal devex")
+        res["slot_us"][f"b_{name}"] = blocked_slot_us(so, ob, "(b) devex")
+        solb, res["solves"][f"b_{name}"] = blocked_solve(
+            sf_b, dt, "auto", f"(b) {BLK_M + 4}x{BLK5_ART_N}", optimal=False,
+            dev=dev)
+        eager_solve(solb, sf_b, dt, "auto", "(b) dependent rows",
+                    res["solves"][f"b_{name}"], dev, same_walk=False)
+        sb = state_from_standard_form(sf_b, dtype=dt, device=dev)
+        res["solves"][f"b_{name}"]["other_walks"] = other_walks(
+            sb, ob, "(b) dependent rows")
+        res["walks"][f"b_{name}"] = blocked_walk_check(
+            sb, ob, "(b) devex, dependent rows")
+        # (c) the refreshed rung's blocked segments
+        ref, res["solves"][f"c_{name}"] = blocked_solve(
+            sf_a, dt, "refreshed", "(c) refreshed", dev=dev)
+        eager_solve(ref, sf_a, dt, "refreshed", "(c) refreshed",
+                    res["solves"][f"c_{name}"], dev)
+        # a basis of the same optimum: (a)'s objective to rounding
+        rel = abs(float(ref.objective) - float(sol.objective)) / max(
+            1.0, abs(float(sol.objective)))
+        if rel > 1e-9:
+            raise AssertionError(f"5d (c): objective {ref.objective!r}, (a) "
+                                 f"{sol.objective!r}")
+        res["walks"][f"c_{name}"] = blocked_walk_check(
+            st, stabilized_options(opts), "(c) TIE_MAXPIV", window=None)
+        # (d) each launch against its plain stage
+        res["stages"][f"a_{name}"] = blocked_stage_checks(
+            st, dc.replace(opts, max_iters=BLK5_BUDGET), "(a) Dantzig",
+            ("pivot", "budget_stop"), BLK5_K)
+        res["stages"][f"a_bland_{name}"] = blocked_stage_checks(
+            st, SolverOptions.for_dtype(dt, rule=RULE_BLAND), "(a) Bland",
+            ("bland",), BLK5_K)
+        sd = state_from_standard_form(sf_d, dtype=dt, device=dev)
+        res["stages"][f"cleanup_{name}"] = blocked_stage_checks(
+            sd, dc.replace(ob, tie_break=TIE_MAXPIV),
+            "clean-up LP, devex, largest-pivot ties",
+            ("cleanup", "retire", "devex_reset", "maxpiv_tie", "ray_art",
+             "ray_clear"), BLK5_STAGE_K)
+        sr = state_from_standard_form(sf_r, dtype=dt, device=dev)
+        res["stages"][f"reset_{name}"] = blocked_stage_checks(
+            sr, ob, "a pivot on 2e-4", ("reset_1e8",), BLK5_STAGE_K)
+        # (e) B1 at the blocked engine's shape
+        res["flush"][f"a_{name}"] = blocked_flush_case(st)
+        del st, so, sb, sd, sr
+        torch.cuda.empty_cache()
+    # (e) at bench.py's 1024 x 1024: the slot and B1
+    s1 = make_state(*bench_arrays(1024, 1024), dtype=torch.float64,
+                    device=dev)
+    res["slot_us"]["bench_1026x2049_float64"] = blocked_slot_us(
+        s1, SolverOptions.for_dtype(torch.float64), "bench")
+    res["flush"]["bench_1026x2049_float64"] = blocked_flush_case(s1)
+    del s1
+    torch.cuda.empty_cache()
+    # (f) the thresholds, measured
+    res["thresholds"] = threshold_table(dev)
+    return res
+
+
 def check_static_smem(ptxas) -> None:
     """The inner-block kernel's static shared memory (ptxas's report) must
     fit the room ``inner_block_plan`` leaves beside the dynamic share it
     plans, or a plan that fits on paper would not launch. The lane
     kernels' must fit the room ``lane_plan`` leaves, and each of the eight
     bounded kernels' and the sixteen rank-1 kernels' the 33 slots of its
-    block reduction."""
+    block reduction, and each of the fourteen blocked kernels' those and
+    its eta coefficients."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
 
@@ -1375,10 +1999,17 @@ def check_static_smem(ptxas) -> None:
             max(rk1.values()) > BOUNDED_STATIC_SMEM:
         raise AssertionError(f"rank-1 kernels' static shared memory {rk1}: "
                              f"their reductions take {BOUNDED_STATIC_SMEM}")
+    blk = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k.startswith("blocked_")}
+    if len(blk) != len(BLOCKED_KERNELS) or \
+            max(blk.values()) > BLOCKED_STATIC_SMEM:
+        raise AssertionError(f"blocked kernels' static shared memory {blk}: "
+                             f"at most {BLOCKED_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
         f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} and rank-1 "
-        f"kernels {rk1} bytes, within {BOUNDED_STATIC_SMEM}")
+        f"kernels {rk1} bytes, within {BOUNDED_STATIC_SMEM}; blocked "
+        f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
@@ -1391,7 +2022,7 @@ def _walk_kernels(ns: str, stages) -> dict:
     """{mangled-name fragment: readable name} of a stream-ordered walk's
     kernels in namespace ``tpulp::<ns>``, <float or double> (the namespace
     tells bounded.cu's price_kernel from rank1.cu's)."""
-    prefix = {"bnd": "bounded", "rk1": "rank1"}[ns]
+    prefix = {"bnd": "bounded", "rk1": "rank1", "blk": "blocked"}[ns]
     return {f"{len(ns)}{ns}{len(k)}{k}I{t}":
             f"{prefix}_{k}<{'float' if t == 'f' else 'double'}>"
             for k in (f"{stage}_kernel" for stage in stages) for t in "fd"}
@@ -1404,9 +2035,15 @@ BOUNDED_KERNELS = _walk_kernels("bnd", ("price", "ratio", "update",
 RANK1_KERNELS = _walk_kernels("rk1", ("scan", "price", "ratio", "update",
                                       "finish", "dual_price", "dual_ratio",
                                       "dual_finish"))
+# the blocked engine's seven kernels
+BLOCKED_KERNELS = _walk_kernels("blk", ("cleanup", "price", "column",
+                                        "ratio", "row", "finish", "ray"))
 # the static shared memory of a single-block walk kernel: the block
-# reduction's 33 slots (common.cuh's Red<double>: 32 bytes each)
+# reduction's 33 slots (common.cuh's Red<double>: 32 bytes each); a blocked
+# kernel's adds at most MAX_K eta coefficients of 8 bytes and a scalar or
+# two
 BOUNDED_STATIC_SMEM = 33 * 32
+BLOCKED_STATIC_SMEM = BOUNDED_STATIC_SMEM + 1024 * 8 + 16
 
 
 def _ptxas_name(name: str) -> str:
@@ -1421,6 +2058,8 @@ def _ptxas_name(name: str) -> str:
         return BOUNDED_KERNELS[name]
     if name in RANK1_KERNELS:
         return RANK1_KERNELS[name]
+    if name in BLOCKED_KERNELS:
+        return BLOCKED_KERNELS[name]
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -1444,7 +2083,8 @@ def ptxas_report(text: str):
                                  "flush_kernelIf", "flush_kernelId",
                                  "fma_kernelIf", "fma_kernelId",
                                  "barrier_probe_kernel", *LANE_KERNELS,
-                                 *BOUNDED_KERNELS, *RANK1_KERNELS)
+                                 *BOUNDED_KERNELS, *RANK1_KERNELS,
+                                 *BLOCKED_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -3491,9 +4131,12 @@ def mesh_bounded(mesh, dev="cuda"):
 
 
 def machinery_ratio(mesh, dev="cuda"):
-    """9d: the sharded blocked driver at P = 1 against the solo
-    run_simplex_blocked, per pivot: on tools/torch_scaling_overhead.py's
-    instance, and on the bench shape (f32, K = 256, SHARD_BENCH_PIVOTS)."""
+    """9d: the sharded blocked driver at P = 1 against the solo eager
+    blocked driver (``run_simplex_blocked_reference``: the same eager pivot
+    and matrix-product flush, so like is compared with like), per pivot: on
+    tools/torch_scaling_overhead.py's instance, and on the bench shape (f32,
+    K = 256, SHARD_BENCH_PIVOTS); the solo blocked kernels
+    (``run_simplex_blocked`` on the card) beside them."""
     import importlib.util
     import os
 
@@ -3501,7 +4144,7 @@ def machinery_ratio(mesh, dev="cuda"):
 
     from tpulp_torch import SolverOptions, make_state
     from tpulp_torch.shard import run_simplex_sharded_blocked, to_sharded_state
-    from tpulp_torch.solve.blocked import run_simplex_blocked
+    from tpulp_torch.solve import blocked as solo
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
                         "torch_scaling_overhead.py")
@@ -3509,29 +4152,50 @@ def machinery_ratio(mesh, dev="cuda"):
                                                   path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    small = tool.measure(dev)
+    # the tool times solve.blocked.run_simplex_blocked as its solo driver:
+    # the eager loop here, the kernels after
+    kernels = solo.run_simplex_blocked
+    solo.run_simplex_blocked = solo.run_simplex_blocked_reference
+    try:
+        small = tool.measure(dev)
+    finally:
+        solo.run_simplex_blocked = kernels
+    st_small = tool.build_state(dev)
+    o_small = SolverOptions.for_dtype(torch.float32,
+                                      max_iters=small["pivots"])
+    small["kernel_us"], _ = tool._time_best(
+        lambda: solo.run_simplex_blocked(st_small, o_small, block=16),
+        small["pivots"], 5, "solo kernels", dev)
     log(f"# 9d machinery at P = 1, {tool.__name__}'s 66x513 f32 K=16: solo "
-        f"{small['solo_us']:.1f} us a pivot, sharded {small['p1_us']:.1f}, "
-        f"ratio {small['ratio']:.3f} ({small['pivots']} pivots)")
+        f"eager {small['solo_us']:.1f} us a pivot, sharded "
+        f"{small['p1_us']:.1f}, ratio {small['ratio']:.3f} "
+        f"({small['pivots']} pivots); the solo blocked kernels "
+        f"{small['kernel_us']:.1f}")
     c, A, b, hint = bench_arrays(BENCH_M, BENCH_N)
     st = make_state(c, A, b, hint, dtype=torch.float32, device=dev)
     opts = SolverOptions.for_dtype(torch.float32,
                                    max_iters=SHARD_BENCH_PIVOTS)
     sh = to_sharded_state(st, mesh)
     solo_us, n1 = tool._time_best(
-        lambda: run_simplex_blocked(st, opts, block=BENCH_K),
+        lambda: solo.run_simplex_blocked_reference(st, opts, block=BENCH_K),
         SHARD_BENCH_PIVOTS, 2, "solo bench", dev)
     p1_us, n2 = tool._time_best(
         lambda: run_simplex_sharded_blocked(sh, mesh, opts, block=BENCH_K),
         SHARD_BENCH_PIVOTS, 2, "P=1 bench", dev)
-    if n1 != n2:
-        raise AssertionError(f"9d: solo {n1} and sharded {n2} pivots")
+    kernel_us, n3 = tool._time_best(
+        lambda: solo.run_simplex_blocked(st, opts, block=BENCH_K),
+        SHARD_BENCH_PIVOTS, 2, "solo kernels bench", dev)
+    if not n1 == n2 == n3:
+        raise AssertionError(f"9d: solo {n1}, sharded {n2} and kernel {n3} "
+                             "pivots")
     log(f"# 9d machinery at P = 1, bench shape {BENCH_M}x{BENCH_M + BENCH_N}"
-        f" f32 K={BENCH_K}, {n1} pivots: solo {solo_us:.1f} us a pivot, "
-        f"sharded {p1_us:.1f}, ratio {p1_us / solo_us:.3f}")
+        f" f32 K={BENCH_K}, {n1} pivots: solo eager {solo_us:.1f} us a "
+        f"pivot, sharded {p1_us:.1f}, ratio {p1_us / solo_us:.3f}; the solo "
+        f"blocked kernels {kernel_us:.1f}")
     return {"scaling_overhead_instance": small,
             "bench": {"solo_us": solo_us, "p1_us": p1_us,
-                      "ratio": p1_us / solo_us, "pivots": n1}}
+                      "ratio": p1_us / solo_us, "pivots": n1,
+                      "kernel_us": kernel_us}}
 
 
 def phase_mesh(objective: str, dev="cuda"):
@@ -3843,6 +4507,12 @@ def main() -> int:
     solo = phase_solo_walks(main_path["pivots_per_s"])
     log(f"# phase 5c (solo walks): {time.perf_counter() - t0:.1f} s; kernel "
         f"launches of (a)'s f64 solve {solo['launches']}")
+    # 5d: the blocked engine on its kernels; each solve reads its own
+    # launch counts, (a)'s f64 solve is the blocked engine's main path
+    t0 = time.perf_counter()
+    blocked = phase_blocked_engine()
+    log(f"# phase 5d (blocked engine): {time.perf_counter() - t0:.1f} s; "
+        f"kernel launches of (a)'s f64 solve {blocked['launches']}")
     bench = phase_bench(dev)
 
     # 7: MILP, the batched waves and warm starts (the batched pivots run
@@ -3928,6 +4598,10 @@ def main() -> int:
                        "dual_simplex_step (tpulp/solve/driver.py:74, "
                        "252-293; tpulp/solve/devex.py:75, 240-262; "
                        "tpulp/solve/dual.py:62)", solo["launches"]),
+        "blocked_step": ("tpulp_torch/kernels/csrc/blocked.cu",
+                         "none: XLA's compiled lax.while_loop over "
+                         "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
+                         "247-315)", blocked["launches"]),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -3987,6 +4661,31 @@ def main() -> int:
                         k: v / 1e3 for k, v in
                         u["device_us_by_stage"].items()},
                     "host_enqueue_ms": u["host_us_per_step"] / 1e3,
+                    "steps": w["niter"]}
+            head = cases["float64"]
+        elif kname == "blocked_step":
+            # per pivot of 5d's walks: the walk's host-clock time, the plain
+            # walk's, a slot's bytes, the launches on the card alone
+            cases = {}
+            for case, walk, us in (
+                    ("float64", "a_float64", "a_float64"),
+                    ("float32", "a_float32", "a_float32"),
+                    ("devex float64", "b_optimal_float64", "b_float64"),
+                    ("devex float32", "b_optimal_float32", "b_float32")):
+                w, u = blocked["walks"][walk], blocked["slot_us"][us]
+                cases[case] = {
+                    "max_abs_err": w["max_abs_err"],
+                    "ms": w["us_per_pivot"] / 1e3,
+                    "plain_ms": w["plain_ms_per_pivot"],
+                    "bound_ms": u["bound_us_per_slot"] / 1e3,
+                    "bound_by": u["bound_by"], "library_ms": None,
+                    "device_ms": u["device_us_per_slot"] / 1e3,
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        u["device_us_by_stage"].items()},
+                    "host_enqueue_ms": u["host_us_per_slot"] / 1e3,
+                    "flush_and_ray_ms_per_block":
+                        u["flush_and_ray_us_per_block"] / 1e3,
                     "steps": w["niter"]}
             head = cases["float64"]
         elif kname.startswith("lane_"):
@@ -4089,13 +4788,33 @@ def main() -> int:
                                 if v["route"] == "lane_primal"}
     kernels[2]["launches_by_path"]["solo_rank1_5c_a_float64"] = \
         solo["launches"]["fused_fma"]
+    # the blocked engine: its slots, ray launches and B1 flushes by path,
+    # and no FMA
+    kernels[2]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
+        blocked["launches"]["fused_fma"]
+    kernels[0]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
+        blocked["launches"]["fused_flush"]
+    kernels[7].update({key: kernels[7]["cases"]["float64"][key] for key in (
+        "device_ms", "host_enqueue_ms", "steps")})
+    kernels[7]["launches_by_path"] = {
+        f"5d_{case}": blocked["solves"][case]["launches"]["blocked_step"]
+        for case in ("a_float64", "a_float32", "b_optimal_float64",
+                     "b_optimal_float32", "b_float64", "b_float32",
+                     "c_float64", "c_float32")}
+    kernels[7]["ray_launches_by_path"] = {
+        f"5d_{case}": blocked["solves"][case]["launches"]["blocked_ray"]
+        for case in ("a_float64", "c_float64")}
+    kernels[7]["walks"] = blocked["walks"]
+    kernels[7]["stages_held_at_slot"] = blocked["stages"]
+    kernels[7]["slot_us"] = blocked["slot_us"]
+    kernels[0]["blocked_cases"] = blocked["flush"]
     for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma"),
                      (3, "lane_dual"), (4, "lane_primal"), (5, "bounded"),
-                     (6, "rank1")):
+                     (6, "rank1"), (7, "blocked_")):
         kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,
-                    "solo_walks": solo,
+                    "solo_walks": solo, "blocked_engine": blocked,
                     "bench": bench, "milp": milp, "exact": exact,
                     "mesh": mesh, "batch_mesh": batch_mesh}))
     print(json.dumps({"ok": True, "device": {

@@ -339,7 +339,9 @@ def test_launch_counters_stay_zero_on_cpu():
     assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0,
                         "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
                         "bounded_step": 0, "bounded_stage": 0,
-                        "rank1_step": 0, "rank1_stage": 0}
+                        "rank1_step": 0, "rank1_stage": 0,
+                        "blocked_step": 0, "blocked_ray": 0,
+                        "blocked_stage": 0}
 
 
 def test_nvcc_command_line():
@@ -355,9 +357,10 @@ def test_nvcc_command_line():
         (src,) = [pathlib.Path(x) for x in cmd if x.endswith(".cu")]
         sources.append(src)
         objects.append(cmd[cmd.index("-o") + 1])
-    assert sorted(p.name for p in sources) == ["bounded.cu", "flush.cu",
-                                               "fma.cu", "inner_block.cu",
-                                               "lanes.cu", "rank1.cu"]
+    assert sorted(p.name for p in sources) == ["blocked.cu", "bounded.cu",
+                                               "flush.cu", "fma.cu",
+                                               "inner_block.cu", "lanes.cu",
+                                               "rank1.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link

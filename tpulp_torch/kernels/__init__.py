@@ -2,6 +2,7 @@
 
 from .block import (blocked_inner_block, blocked_inner_block_reference,
                     fused_flush, fused_flush_reference, inner_block_plan)
+from .blocked import blocked_stage, blocked_steps
 from .bounded import bounded_stage, bounded_steps
 from .fma import fused_fma
 from .lanes import lane_dual, lane_plan, lane_primal
@@ -24,4 +25,6 @@ __all__ = [
     "bounded_stage",
     "rank1_steps",
     "rank1_stage",
+    "blocked_steps",
+    "blocked_stage",
 ]

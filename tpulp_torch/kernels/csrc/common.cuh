@@ -1,11 +1,12 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
-// fma.cu, lanes.cu, bounded.cu, rank1.cu): exact-rounding arithmetic, the
-// (value, index) comparison whose ties go to the smallest index, the
-// block-wide reductions of the single-block simplex loops (lanes.cu,
-// bounded.cu, rank1.cu): torch's NaN-first argmin/argmax with first-index
-// ties, two first-index minima and a sum in a fixed tree, in one pass;
-// and what the stream-ordered walks (bounded.cu, rank1.cu) share: the
-// record's status gate, the clean-up scan, the pivot's snapshot (with the
+// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu): exact-rounding
+// arithmetic, the (value, index) comparison whose ties go to the smallest
+// index, the block-wide reductions of the single-block simplex loops
+// (lanes.cu, bounded.cu, rank1.cu, blocked.cu): torch's NaN-first
+// argmin/argmax with first-index ties, two first-index minima and a sum in
+// a fixed tree, in one pass; and what the stream-ordered walks (bounded.cu,
+// rank1.cu, blocked.cu) share: the record's status gate, the clean-up
+// scan, the ratio test over one column, the pivot's snapshot (with the
 // redirected no-op pivot), the pivoted entry and the devex weights.
 #pragma once
 
@@ -142,10 +143,10 @@ __device__ Red<V> block_reduce(Red<V> x, Red<V>* scratch, bool mx) {
 }
 
 // ---------------------------------------------------------------------------
-// the stream-ordered walks (bounded.cu, rank1.cu)
+// the stream-ordered walks (bounded.cu, rank1.cu, blocked.cu)
 // ---------------------------------------------------------------------------
 
-// Both walk records open with the same int32 fields: phase, status, niter.
+// The walk records open with the same int32 fields: phase, status, niter.
 constexpr int REC_PHASE = 0, REC_STATUS = 1, REC_NITER = 2;
 constexpr int WALK_RUNNING = 0;
 
@@ -173,6 +174,44 @@ __device__ int first_artificial_row(const int* basis, const unsigned char* art, 
     if (art[basis[i]]) rows.a = min(rows.a, i);
   rows = block_reduce(rows, scratch, false);
   return rows.a;
+}
+
+// driver.ratio_rows over one entering column of m rows (col[i * cs], the
+// RHS b[i * bs]): whether an entry exceeds piv_tol (has_ratio), and the
+// leaving row: among the tie set {b / col <= min} over col > piv_tol (the
+// minimum NaN-propagating, so a NaN leaves no tie), Bland's smallest basic
+// index (use_bland), else the largest pivot element (max_piv), else the
+// first row; torch's argmin/argmax give 0 where nothing qualifies.
+// Returned to every thread of the block.
+template <typename T>
+__device__ int ratio_row(const T* col, long long cs, const T* b, long long bs, const int* basis,
+                         int m, T piv_tol, bool use_bland, bool max_piv, Red<T>* scratch,
+                         bool& has_ratio) {
+  const T inf = pos_inf<T>();
+  // the NaN-first argmin of the ratios (v, i), the first row above piv_tol (a)
+  Red<T> rq = red_identity<T>(false);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const T c = col[i * cs];
+    const bool pos = c > piv_tol;
+    if (pos) rq.a = min(rq.a, i);
+    offer(rq, pos ? div_rn(b[i * bs], c) : inf, i, false);
+  }
+  rq = block_reduce(rq, scratch, false);
+  has_ratio = rq.a != BIG_I;
+  const bool min_nan = is_nan(rq.v);
+  if (!use_bland && !max_piv) return min_nan ? 0 : rq.i;
+  Red<T> rt = red_identity<T>(!use_bland);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const T c = col[i * cs];
+    const T q = c > piv_tol ? div_rn(b[i * bs], c) : inf;
+    const bool tie = !min_nan && q <= rq.v;
+    if (use_bland)
+      offer(rt, tie ? T(basis[i]) : T(BIG_I), i, false);
+    else
+      offer(rt, tie ? c : -inf, i, true);
+  }
+  rt = block_reduce(rt, scratch, !use_bland);
+  return rt.i;
 }
 
 // The pivot of a step's update on the (M, N) tableau: (r + 2, j) when the

@@ -249,42 +249,14 @@ __global__ void __launch_bounds__(ONE_BLOCK) ratio_kernel(Params<T> p) {
   const bool use_bland = rec[BLAND] != 0 || p.bland_rule;
   const bool cleanup = rec[CLEANUP] != 0, has_elig = rec[HAS_ELIG] != 0;
   const bool pricing_pivot = rec[PRICING_PIVOT] != 0;
-  const T inf = pos_inf<T>();
 
-  // over column j (driver.ratio_rows): the NaN-first argmin of the ratios
-  // (v, i), the first row above piv_tol (a); then the tie set {ratio <=
-  // min}: Bland's smallest basic index, or the largest pivot element
+  // over column j (common.cuh's ratio_row)
   bool has_ratio = false;
   int r_price = 0;
   if (pricing_pivot) {
-    Red<T> rq = red_identity<T>(false);
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const T* row = p.tab + (long long)(i + 2) * N;
-      const T c = row[j];
-      const bool pos = c > p.piv_tol;
-      if (pos) rq.a = min(rq.a, i);
-      offer(rq, pos ? div_rn(row[N - 1], c) : inf, i, false);
-    }
-    rq = block_reduce(rq, scratch, false);
-    has_ratio = rq.a != BIG_I;
-    const bool min_nan = is_nan(rq.v);
-    if (!use_bland && !p.max_piv) {
-      r_price = min_nan ? 0 : rq.i;
-    } else {
-      Red<T> rt = red_identity<T>(!use_bland);
-      for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        const T* row = p.tab + (long long)(i + 2) * N;
-        const T c = row[j];
-        const T q = c > p.piv_tol ? div_rn(row[N - 1], c) : inf;
-        const bool tie = !min_nan && q <= rq.v;
-        if (use_bland)
-          offer(rt, tie ? T(p.basis[i]) : T(BIG_I), i, false);
-        else
-          offer(rt, tie ? c : -inf, i, true);
-      }
-      rt = block_reduce(rt, scratch, !use_bland);
-      r_price = rt.i;
-    }
+    const T* col = p.tab + 2LL * N;
+    r_price = ratio_row(col + j, N, col + (N - 1), N, p.basis, m, p.piv_tol, use_bland, p.max_piv,
+                        scratch, has_ratio);
   }
   const bool do_cleanup = cleanup && has_elig;
   const bool do_pricing = pricing_pivot && has_ratio;

@@ -9,8 +9,18 @@ The objective rows and the RHS column are kept up to date as vectors, the
 entering column is ``T0[:, j] + V[:, j]^T U`` and the pivot row
 ``T0[r] + U[:, r]^T V``. One rank-K flush ``T += U^T V`` per block is then
 the only full pass over the tableau. The per-pivot decision logic is the
-rank-1 driver's, and it is the semantics that the kernel engine
-(``tpulp_torch.solve.blocked_kernel``) reproduces.
+rank-1 driver's. The kernel engine (``tpulp_torch.solve.blocked_kernel``)
+walks the same pivots with two differences, both tpulp's: its ray scan has
+no gate on basic artificials, and it breaks ratio ties by first index
+whatever ``SolverOptions.tie_break`` says (ROADMAP C (a), (b)).
+
+``run_simplex_blocked`` runs the walk on CUDA tensors on the hand-written
+kernels (``kernels.blocked.blocked_steps``: six stream-ordered launches a
+pivot slot on a walk record kept on the card, B1's flush and one ray
+launch a block, one host read a block) and on CPU tensors as the eager loop
+below (``run_simplex_blocked_reference``: ``_blocked_pivot`` K times, a
+matrix-product flush and the ray scan, one host read a block). The batch
+and the sharded driver run the eager pivot on either device.
 """
 
 from __future__ import annotations
@@ -22,10 +32,13 @@ import torch
 from ..core.precision import full_precision
 from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status, eta_scaled_options)
+from ..kernels.blocked import RESET_ABOVE, blocked_steps
 from ..kernels.fma import fused_fma
+from ..kernels.launch import on_cpu
 from .driver import finish, first_true, put, ratio_rows, status_select, take
 
-__all__ = ["run_simplex_blocked", "run_simplex_blocked_batch"]
+__all__ = ["run_simplex_blocked", "run_simplex_blocked_reference",
+           "run_simplex_blocked_batch"]
 
 
 class _BlockCarry(NamedTuple):
@@ -131,7 +144,8 @@ def _blocked_pivot(carry: _BlockCarry, opts: SolverOptions,
                             carry.gamma)
         leave_val = torch.clamp_min(gamma_q / (safe_piv * safe_piv), 1.0)
         gamma = torch.where(upd, put(gamma, leaving, leave_val), gamma)
-        gamma = torch.where(gamma.max() > 1e8, torch.ones_like(gamma), gamma)
+        gamma = torch.where(gamma.max() > RESET_ABOVE, torch.ones_like(gamma),
+                            gamma)
     else:
         gamma = carry.gamma
 
@@ -199,8 +213,30 @@ def _fresh_carry(s: SimplexState, K: int, gamma=None) -> _BlockCarry:
 def run_simplex_blocked(state: SimplexState,
                         opts: SolverOptions | None = None,
                         block: int = 64) -> SimplexState:
-    """Run the rank-K blocked driver to termination (single problem). The
-    host reads the status once per block of ``block`` pivots."""
+    """Run the rank-K blocked driver to termination or to
+    ``opts.max_iters`` (single problem), in blocks of ``block`` pivots with
+    one host read of the status a block: on the blocked kernels for CUDA
+    tensors (a strided tableau is handed to them contiguous; a build or
+    launch failure raises), as the eager loop for CPU tensors."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(state.T.dtype)
+    opts = eta_scaled_options(opts, state.T.dtype)
+    if on_cpu(*state):
+        return run_simplex_blocked_reference(state, opts, block)
+    stall_limit = opts.resolved_stall_limit(state.m, state.n)
+    out, _ = blocked_steps(state._replace(T=state.T.contiguous()), opts,
+                           stall_limit, opts.max_iters, block)
+    return finish(out)
+
+
+@full_precision()
+def run_simplex_blocked_reference(state: SimplexState,
+                                  opts: SolverOptions | None = None,
+                                  block: int = 64) -> SimplexState:
+    """The eager rank-K blocked driver on any device: ``block`` eager
+    pivots, the flush ``T + U^T V`` as a matrix product and the ray scan,
+    with one host read of the status a block. ``run_simplex_blocked``'s
+    CPU path."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
     opts = eta_scaled_options(opts, state.T.dtype)
@@ -214,22 +250,25 @@ def run_simplex_blocked(state: SimplexState,
             break
         for _ in range(block):
             carry = _blocked_pivot(carry, opts, stall_limit, max_iters)
-        # one rank-K flush: T += U^T V
-        T = carry.s.T + carry.U.T @ carry.V
-        s = carry.s._replace(T=T)
-        # per-block ray scan on the flushed tableau: an improving active
-        # phase-2 column with no entry above piv_tol certifies
-        # unboundedness, once no artificial is basic
-        improving = s.col_active & (T[0, :-1] < -opts.opt_tol)
-        blocked_col = (T[2:, :-1] > opts.piv_tol).any(dim=0)
-        ray = ((improving & ~blocked_col).any()
-               & ~s.art_cols[s.basis.long()].any()
-               & (s.phase == 2) & (s.status == Status.RUNNING))
-        s = s._replace(status=torch.where(ray, Status.UNBOUNDED,
-                                          s.status).to(torch.int32))
         # devex weights persist across the flush
-        carry = _fresh_carry(s, block, carry.gamma)
+        carry = _fresh_carry(_flush(carry, opts), block, carry.gamma)
     return finish(carry.s)
+
+
+def _flush(carry: _BlockCarry, opts: SolverOptions) -> SimplexState:
+    """The block's end: one rank-K flush ``T += U^T V``, then the per-block
+    ray scan on the flushed tableau: an improving active phase-2 column
+    with no entry above piv_tol certifies unboundedness, once no
+    artificial is basic."""
+    T = carry.s.T + carry.U.T @ carry.V
+    s = carry.s._replace(T=T)
+    improving = s.col_active & (T[0, :-1] < -opts.opt_tol)
+    blocked_col = (T[2:, :-1] > opts.piv_tol).any(dim=0)
+    ray = ((improving & ~blocked_col).any()
+           & ~s.art_cols[s.basis.long()].any()
+           & (s.phase == 2) & (s.status == Status.RUNNING))
+    return s._replace(status=torch.where(ray, Status.UNBOUNDED,
+                                         s.status).to(torch.int32))
 
 
 def _ray_scan(T: torch.Tensor, s: SimplexState, opts: SolverOptions):
