@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the seven sources of tpulp_torch/kernels/csrc
+Builds the CUDA kernels from the eight sources of tpulp_torch/kernels/csrc
 (flush, inner block, FMA, the two lane kernels, the bounded step's four
-launches, the rank-1 step's five and the blocked engine's seven; and checks
+launches, the rank-1 step's five, the blocked engine's seven and the
+cluster walk's one; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -24,20 +25,25 @@ which must take the kernel engine), checks that a caller's TF32 setting
 does not reach the engines' products, and runs the kernel engine on the
 bench instance.
 Phase 5c drives the solo walks on their kernels: ``solve_lp(driver=
-"auto")`` on phase 7c's 256 x 512 LP (the rank-1 step, no FMA launch) and
-on two artificial LPs that auto prices with devex (one unbounded, one
-optimal with no FMA launch), the walks held against the plain walks in
-every field at f32 and f64 (Dantzig, devex past its ray-scan and probe
-ticks, Bland, the greatest increase and largest-pivot ties on a resident
-frame, where ``lane_primal`` runs the walk at B = 1, and on the 258 x 769
-frame), each of the rank-1 step's launches against its plain stage (a
-clean-up, a phase change with its devex reset, both devex ticks, a
-greatest-increase step, a dual pivot and a dual exit), the warm re-solves
-(``lane_dual`` at B = 1 on a resident frame, the rank-1 step's dual walk on
-the 258 x 769 frame and on phase 5's 1538 x 3073 one),
-``solve_lp(driver="rank1")`` on phase 5's LP and the refreshed rung's
-rank-1 segments; it times the rank-1 step by launch and the plain step,
-and solves a bounded state whose tableau is a strided view.
+"auto")`` on phase 7c's 256 x 512 LP (one ``rank1_cluster`` launch a walk,
+no ``rank1_step`` and no FMA launch) and on two artificial LPs that auto
+prices with devex (one unbounded, one optimal with no FMA launch), the
+walks held in every field at f32 and f64 against their plain versions
+(``rank1_cluster_reference`` on the cluster route; the plain loop on the
+lane routes) and, on the cluster route, against ``rank1_steps``' walk on
+the same frame, timed beside it in turns (Dantzig, devex past its
+ray-scan and probe ticks, Bland, the greatest increase and largest-pivot
+ties on a resident frame, where ``lane_primal`` runs the walk at B = 1, and
+on the 258 x 769 frame), each of the rank-1 step's launches against its
+plain stage (a clean-up, a phase change with its devex reset, both devex
+ticks, a greatest-increase step, a dual pivot and a dual exit), the warm
+re-solves (``lane_dual`` at B = 1 on a resident frame, the cluster's dual
+walk on the 258 x 769 frame and ``rank1_step``'s on phase 5's 1538 x 3073
+one), ``solve_lp(driver="rank1")`` on phase 5's LP (on ``rank1_step``) and
+the refreshed rung's rank-1 segments; it prints the cluster plans,
+``cudaOccupancyMaxActiveClusters`` and the cluster kernel's stages, times
+the rank-1 step by launch and the plain step, and solves a bounded state
+whose tableau is a strided view.
 Phase 5d drives the solo rank-K blocked engine on its kernels (six
 launches a pivot slot, B1's flush and one ray launch a block):
 ``solve_lp(driver="auto")`` on a 512 x 1024 LP (514 x 1537, certified, the
@@ -832,6 +838,10 @@ SOLO_DEVEX_OPT_N = 384
 SOLO_CUT = 4
 # (c): a frame that lane_plan keeps resident in one block (42 x 121)
 SOLO_RESIDENT_M, SOLO_RESIDENT_N = 40, 80
+# the 5c solves on the frames a cluster holds, f64 and f32
+SOLO_SOLVES = tuple(f"{case}_{dt}" for case in ("a", "b", "b_optimal", "e",
+                                                "e_deep", "g")
+                    for dt in ("float64", "float32"))
 # the steps timed by launch (at most), after a few untimed ones
 SOLO_TIMED_STEPS, SOLO_ADVANCE = 32, 8
 # (f): the plain walk held beside the kernels' over its first steps
@@ -880,14 +890,15 @@ def solo_plain(walk: str, state, opts):
     return s, g, time.perf_counter() - t0
 
 
-def solo_kernel(walk: str, state, opts):
+def solo_kernel(walk: str, state, opts, route: str):
     """The kernels' walk through the solo drivers (``run_simplex``,
-    ``run_dual_simplex``; devex through ``rank1_steps``, which
-    ``run_simplex_devex`` calls, for its weights): (state, weights,
-    seconds, launches)."""
+    ``run_dual_simplex``; devex through the route's wrapper,
+    ``rank1_cluster`` or ``rank1_steps``, which ``run_simplex_devex``
+    calls, for its weights): (state, weights, seconds, launches)."""
     import torch
 
     from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import rank1_cluster as kc
     from tpulp_torch.kernels.rank1 import rank1_steps
     from tpulp_torch.solve import run_dual_simplex, run_simplex
     from tpulp_torch.solve.driver import finish
@@ -898,7 +909,8 @@ def solo_kernel(walk: str, state, opts):
     g = None
     if walk == "devex":
         stall = opts.resolved_stall_limit(state.m, state.n)
-        s, g = rank1_steps(state, opts, stall, opts.max_iters, torch.ones(
+        run = kc.rank1_cluster if route == "rank1_cluster" else rank1_steps
+        s, g = run(state, opts, stall, opts.max_iters, torch.ones(
             (state.n,), dtype=state.T.dtype, device=state.T.device))
         s = finish(s)
     elif walk == "dual":
@@ -909,20 +921,54 @@ def solo_kernel(walk: str, state, opts):
     return s, g, time.perf_counter() - t0, dict(LAUNCHES)
 
 
-def solo_walk_check(walk: str, state, opts, label: str, route: str):
-    """One solo walk on its kernels and as the plain loop, held equal in
-    every field (``T + 0.0``, the basis, the masks, every scalar, the
-    devex weights); the launches must be the route's alone (one launch a
-    walk on a lane route) and no FMA. Returns the numbers."""
+def cluster_plain(walk: str, state, opts):
+    """``rank1_cluster_reference`` on the card, on the plan's cluster size:
+    (state, devex weights or None, seconds)."""
     import torch
 
-    k, gk, secs, launches = solo_kernel(walk, state, opts)
-    p, gp, plain_secs = solo_plain(walk, state, opts)
-    err = lanes_equal(k, p)
-    if gk is not None and not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
+    from tpulp_torch.kernels import rank1_cluster as kc
+    from tpulp_torch.solve.driver import finish
+
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    gamma = torch.ones((state.n,), dtype=state.T.dtype,
+                       device=state.T.device) if walk == "devex" else None
+    C = kc.cluster_plan(*state.T.shape, state.T.dtype).blocks
+    sync(state.T.device)
+    t0 = time.perf_counter()
+    s, g = kc.rank1_cluster_reference(state, opts, stall, opts.max_iters,
+                                      gamma, walk == "dual", C)
+    s = finish(s)
+    sync(state.T.device)
+    return s, g, time.perf_counter() - t0
+
+
+def weights_equal(gk, gp, label: str) -> None:
+    import torch
+
+    if (gk is None) != (gp is None) or (
+            gk is not None and not torch.equal(gk.cpu() + 0.0,
+                                               gp.cpu() + 0.0)):
         raise AssertionError(f"5c {label}: the devex weights differ")
+
+
+def solo_walk_check(walk: str, state, opts, label: str, route: str):
+    """One solo walk on its kernels and as its plain version (the plain
+    loop; on the cluster route ``rank1_cluster_reference``), held equal in
+    every field (``T + 0.0``, the basis, the masks, every scalar, the
+    devex weights); the launches must be the route's alone (one launch a
+    walk on a lane or cluster route) and no FMA. On the cluster route the
+    walk is also held equal to ``rank1_steps``' and timed beside it
+    (``cluster_vs_step``). Returns the numbers."""
+    import torch
+
+    k, gk, secs, launches = solo_kernel(walk, state, opts, route)
+    plain = cluster_plain if route == "rank1_cluster" else solo_plain
+    p, gp, plain_secs = plain(walk, state, opts)
+    err = lanes_equal(k, p)
+    weights_equal(gk, gp, label)
     others = {key: v for key, v in launches.items() if key != route and v}
-    want = 1 if route.startswith("lane_") else None
+    want = 1 if route.startswith("lane_") or route == "rank1_cluster" \
+        else None
     if others or not launches[route] or (want and launches[route] != want):
         raise AssertionError(f"5c {label}: launches {launches}, want "
                              f"{route} alone")
@@ -946,14 +992,101 @@ def solo_walk_check(walk: str, state, opts, label: str, route: str):
         res["device_ms"] = device_time_ms(lambda: run(state, opts), 5)
         res["device_us_per_step"] = 1e3 * res["device_ms"] / max(niter, 1)
     log(f"# 5c {label} {tuple(state.T.shape)} {str(state.T.dtype)[6:]}: "
-        f"{route} x {launches[route]}, the walk equals the plain walk in "
-        f"every field (status {res['status']}, {niter} pivots, bland "
+        f"{route} x {launches[route]}, the walk equals "
+        + ("rank1_cluster_reference" if route == "rank1_cluster"
+           else "the plain walk")
+        + f" in every field (status {res['status']}, {niter} pivots, bland "
         f"{res['bland']}); {1e3 * secs:.2f} ms = "
         f"{1e3 * res['ms_per_step']:.1f} us a pivot on the host clock"
         + (f" ({res['device_us_per_step']:.2f} on the card)"
            if "device_ms" in res else "")
         + f", the plain walk {res['plain_ms_per_step']:.3f} ms a pivot")
+    if route == "rank1_cluster":
+        res.update(cluster_vs_step(walk, state, opts, k, gk, label, res))
     return res
+
+
+def cluster_vs_step(walk: str, state, opts, k, gk, label: str, res: dict):
+    """The cluster kernel's walk beside ``rank1_step``'s on the same frame:
+    ``rank1_steps``' walk held equal to the cluster's in every field; both
+    timed on the host clock in turns (cluster, step, step, cluster, twice);
+    the cluster's launch on the card alone (CUDA events after a sleep), its
+    load and store alone (a launch with no step), its stages (block 0's
+    clock, as shares of the launch), its plan and
+    ``cudaOccupancyMaxActiveClusters``; ``rank1_step``'s launches a walk."""
+    import torch
+
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import rank1_cluster as kc
+    from tpulp_torch.kernels.rank1 import rank1_steps
+    from tpulp_torch.solve.driver import finish
+
+    dev = state.T.device
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    gamma = torch.ones((state.n,), dtype=state.T.dtype, device=dev) \
+        if walk == "devex" else None
+    dual = walk == "dual"
+    M, N = state.T.shape
+    plan = kc.cluster_plan(M, N, state.T.dtype)
+    occ = kc.cluster_occupancy(M, N, state.T.dtype,
+                               "primal" if walk == "primal" else walk, dev)
+    runs = {"cluster": lambda: kc.rank1_cluster(
+                state, opts, stall, opts.max_iters, gamma, dual),
+            "step": lambda: rank1_steps(state, opts, stall, opts.max_iters,
+                                        gamma, dual)}
+    reset_launches()
+    s, g = runs["step"]()
+    sync(dev)
+    step_launches = LAUNCHES["rank1_step"]
+    err = lanes_equal(k, finish(s))
+    weights_equal(gk, g, f"{label} against rank1_step")
+    host = {"cluster": [], "step": []}
+    for name in ("cluster", "step", "step", "cluster") * 2:
+        sync(dev)
+        t0 = time.perf_counter()
+        runs[name]()
+        sync(dev)
+        host[name].append(time.perf_counter() - t0)
+    niter = max(res["niter"], 1)
+    dev_ms = device_time_ms(runs["cluster"], 5)
+    # a budget already spent: the launch loads and stores the frame only
+    # (read on the host here, not inside the timed call)
+    spent = int(state.niter)
+    ls_ms = device_time_ms(lambda: kc.rank1_cluster(
+        state, opts, stall, spent, gamma, dual), 5)
+    cyc = torch.zeros((len(kc.CLUSTER_STAGES),), dtype=torch.int64,
+                      device=dev)
+    kc.rank1_cluster(state, opts, stall, opts.max_iters, gamma, dual,
+                     stage_cycles=cyc)
+    share = (cyc.double() / cyc.sum().double().clamp_min(1)).tolist()
+    stage_us = {name: 1e3 * dev_ms * f / niter
+                for name, f in zip(kc.CLUSTER_STAGES, share)
+                if name not in ("load", "store")}
+    cl_us = 1e6 * float(np.median(host["cluster"])) / niter
+    st_us = 1e6 * float(np.median(host["step"])) / niter
+    log(f"# 5c {label} {M}x{N} {str(state.T.dtype)[6:]}: rank1_cluster on "
+        f"{plan.blocks} blocks of {plan.width} columns ({plan.smem} bytes "
+        f"of shared memory a block; cudaOccupancyMaxActiveClusters {occ}): "
+        f"{cl_us:.2f} us a pivot on the host clock, "
+        f"{1e3 * dev_ms / niter:.2f} on the card (1 launch; the load and "
+        f"store {1e3 * ls_ms:.1f} us a walk; "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_us.items())
+        + f"); rank1_step's walk equal in every field, {st_us:.2f} us a "
+        f"pivot on the host clock ({step_launches} steps), in turns")
+    # the table's convention for a step: the tableau read and written once
+    # from device memory
+    step_bound_ms, _ = bound(2.0 * M * N * state.T.element_size(), 0.0,
+                             FP64_FLOP_S)
+    return {"blocks": plan.blocks, "width": plan.width, "smem": plan.smem,
+            "occupancy": occ, "host_us_per_step": cl_us,
+            "step_bound_ms": step_bound_ms,
+            "device_ms": dev_ms,
+            "device_us_per_step": 1e3 * dev_ms / niter,
+            "load_store_ms": ls_ms, "device_us_by_stage": stage_us,
+            "rank1_step": {"max_abs_err": err, "ms_per_step": st_us / 1e3,
+                           "plain_ms_per_step": res["plain_ms_per_step"],
+                           "steps": step_launches,
+                           "niter": res["niter"]}}
 
 
 def rank1_step_us(state, opts, gamma, label: str, niter: int,
@@ -1114,10 +1247,14 @@ def solo_solve(sf, dt, driver: str, label: str, route: str,
     log(f"# 5c solve_lp {label} {str(dt)[6:]} (driver={driver!r}): "
         f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
         f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
+    # the solo walks of the other rank-1 route: none
+    other = {"rank1_cluster": "rank1_step",
+             "rank1_step": "rank1_cluster"}.get(route)
     if not (launches[route] > 0
-            and (launches["fused_fma"] == 0 or not optimal)):
+            and (launches["fused_fma"] == 0 or not optimal)
+            and (other is None or launches[other] == 0)):
         raise AssertionError(f"5c {label}: launches {launches}, want "
-                             f"{route} and no FMA")
+                             f"{route}, no {other} and no FMA")
     if optimal and sol.status != "optimal":
         raise AssertionError(f"5c {label}: {sol.status}")
     return sol, {"status": sol.status, "rung": sol.rung,
@@ -1125,21 +1262,97 @@ def solo_solve(sf, dt, driver: str, label: str, route: str,
                  "objective": str(sol.objective)}
 
 
+def cluster_edge_cases(dt, dev="cuda"):
+    """``rank1_cluster`` at every cluster size that holds a 22 x 61 frame,
+    against ``rank1_cluster_reference`` in every field: a redirected
+    exit pivot that is no no-op (column ``basis[0]`` off the unit vector;
+    with row 2 infinite too), an infinite b, a NaN in the pricing row, a
+    warm dual frame, its NaN in b and its redirected exit; primal cases
+    also under devex. Returns the number of walks held."""
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.kernels import rank1_cluster as kc
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.driver import run_simplex
+    from tpulp_torch.solve.dual import warm_state_from_basis
+
+    A, b, c = dense_leq_arrays(20, 40, seed=7)
+    st = state_from_standard_form(scenario_form(A, b, c), dtype=dt,
+                                  device="cpu")
+    o = SolverOptions.for_dtype(dt)
+    stall = o.resolved_stall_limit(st.m, st.n)
+    fin = run_simplex(st, o)
+    j0 = int(fin.basis[0])
+
+    def edit(s, *cells, reopen=False):
+        T = s.T.clone()
+        for i, j, v in cells:
+            T[i, j] = v
+        s = s._replace(T=T)
+        return s._replace(status=torch.zeros_like(s.status)) if reopen \
+            else s
+
+    b2 = st.T[2:, -1].clone()
+    b2[:6] *= 0.3
+    fr = warm_state_from_basis(
+        st.T[2:, :-1], st.T[0, :-1], st.col_active & ~st.art_cols,
+        st.art_cols, fin.basis.numpy(), b2)
+    cases = [("redirected", edit(fin, (5, j0, 1e-3), reopen=True), False),
+             ("row 2 infinite", edit(fin, (5, j0, 1e-3), (2, 7, np.inf),
+                                     reopen=True), False),
+             ("infinite b", edit(st, (6, -1, np.inf)), False),
+             ("NaN in c", edit(st, (0, 3, np.nan)), False),
+             ("dual", fr, True),
+             ("dual NaN in b", edit(fr, (4, -1, np.nan)), True),
+             ("dual redirected", edit(fr, (5, int(fr.basis[0]), 1e-3)),
+              True)]
+    held = 0
+    for label, s, dual in cases:
+        for devex in (False,) if dual else (False, True):
+            g = torch.ones(s.n, dtype=dt) if devex else None
+            for C in kc.CLUSTER_SIZES:
+                k, kg = kc.rank1_cluster(
+                    type(s)(*(x.to(dev) for x in s)), o, stall,
+                    o.max_iters, None if g is None else g.to(dev), dual,
+                    blocks=C)
+                p, pg = kc.rank1_cluster_reference(s, o, stall, o.max_iters,
+                                                   g, dual, C)
+                sync(dev)
+                lanes_equal(type(k)(*(x.cpu() for x in k)), p)
+                if g is not None and not torch.equal(
+                        kg.cpu().nan_to_num(0.5) + 0.0,
+                        pg.nan_to_num(0.5) + 0.0):
+                    raise AssertionError(f"5c edge {label}: the devex "
+                                         "weights differ")
+                held += 1
+    log(f"# 5c rank1_cluster on edge cases, {str(dt)[6:]} (22 x 61, "
+        f"C = 1, 2, 4, 8): {held} walks equal their plain version in "
+        "every field (" + ", ".join(c[0] for c in cases) + ")")
+    return held
+
+
 def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
     """Phase 5c: the solo rank-1, devex and dual walks on their kernels,
-    each held against its plain walk in every field at f64 and f32: (a)
-    ``solve_lp(driver="auto")`` on phase 7c's LP (258 x 769, the top of the
-    rank-1 engine's range) on ``rank1_step``; (b) the devex walk of the
-    largest artificial LP under 200k elements, past a ray-scan and a probe
-    tick, and an optimal devex LP whose solve launches no FMA; (c) Bland,
-    the greatest increase and largest-pivot ties on a resident frame
-    (``lane_primal`` at B = 1) and on (a)'s; (d) each launch against its
-    plain stage; (e) the warm re-solves: phase 7c's and a deeper one on
-    ``rank1_step``'s dual walk, a resident one on ``lane_dual`` at B = 1,
-    and one on phase 5's 1538 x 3073 frame; (f) ``solve_lp(driver=
-    "rank1")`` on phase 5's LP; (g) the refreshed rung's rank-1 segments.
-    Also the bounded walk of a strided tableau. Returns the numbers;
-    ``launches`` are (a)'s f64 solve's."""
+    each held against its plain version in every field at f64 and f32
+    (``rank1_cluster_reference`` on the cluster route, the plain loop on
+    the others) and, on the cluster route, against ``rank1_steps``' walk
+    on the same frame, timed beside it in turns: (a) ``solve_lp(driver=
+    "auto")`` on phase 7c's LP (258 x 769, the top of the rank-1 engine's
+    range) on ``rank1_cluster`` (no ``rank1_step``, no FMA); (b) the devex
+    walk of the largest artificial LP under 200k elements, past a ray-scan
+    and a probe tick, and an optimal devex LP whose solve launches no FMA;
+    (c) Bland, the greatest increase and largest-pivot ties on a resident
+    frame (``lane_primal`` at B = 1) and on (a)'s; (d) each of
+    ``rank1_step``'s launches against its plain stage, on (a)'s and (b)'s
+    frames; (e) the warm re-solves: phase 7c's and a deeper one on the
+    cluster's dual walk, a resident one on ``lane_dual`` at B = 1, and one
+    on phase 5's 1538 x 3073 frame on ``rank1_step``'s; (f) ``solve_lp(
+    driver="rank1")`` on phase 5's LP, on ``rank1_step``; (g) the refreshed
+    rung's rank-1 segments. ``rank1_step`` is timed by launch on (a), (b),
+    (e) and (f). Also the cluster walk on edge cases at every cluster size
+    (``cluster_edge_cases``) and the bounded walk of a strided tableau.
+    Returns the numbers; ``launches`` are (a)'s f64 solve's."""
     import dataclasses as dc
 
     import torch
@@ -1193,13 +1406,14 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         # (a) the rank-1 engine's main case
         sol, res["solves"][f"a_{name}"] = solo_solve(
             sf_a, dt, "auto", f"(a) {WARM_M}x{WARM_N + WARM_M}",
-            "rank1_step", dev=dev)
+            "rank1_cluster", dev=dev)
         objective[name] = sol.objective
         if name == "float64":
             res["launches"] = res["solves"]["a_float64"]["launches"]
         st = state_from_standard_form(sf_a, dtype=dt, device=dev)
         opts = SolverOptions.for_dtype(dt)
-        w = solo_walk_check("primal", st, opts, "(a) Dantzig", "rank1_step")
+        w = solo_walk_check("primal", st, opts, "(a) Dantzig",
+                            "rank1_cluster")
         if w["status"] != 1:
             raise AssertionError(f"5c (a): status {w['status']}")
         res["walks"][f"a_{name}"] = w
@@ -1210,10 +1424,10 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         # infeasible)
         _, res["solves"][f"b_{name}"] = solo_solve(
             sf_b, dt, "auto", f"(b) {WARM_M}x{SOLO_DEVEX_N}",
-            "rank1_step", optimal=False, dev=dev)
+            "rank1_cluster", optimal=False, dev=dev)
         sb = state_from_standard_form(sf_b, dtype=dt, device=dev)
         ob = SolverOptions.for_dtype(dt, rule=RULE_DEVEX)
-        wb = solo_walk_check("devex", sb, ob, "(b) devex", "rank1_step")
+        wb = solo_walk_check("devex", sb, ob, "(b) devex", "rank1_cluster")
         res["walks"][f"b_{name}"] = wb
         ones = torch.ones((sb.n,), dtype=dt, device=dev)
         if name == "float64":
@@ -1229,10 +1443,10 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         # with no FMA launch, and its walk
         _, res["solves"][f"b_optimal_{name}"] = solo_solve(
             sf_bo, dt, "auto", f"(b) optimal {WARM_M}x{SOLO_DEVEX_OPT_N}",
-            "rank1_step", dev=dev)
+            "rank1_cluster", dev=dev)
         so = state_from_standard_form(sf_bo, dtype=dt, device=dev)
         wo = solo_walk_check("devex", so, ob, "(b) optimal devex",
-                             "rank1_step")
+                             "rank1_cluster")
         if wo["status"] != 1:
             raise AssertionError(f"5c (b) optimal: status {wo['status']}")
         res["walks"][f"b_optimal_{name}"] = wo
@@ -1247,7 +1461,7 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
             if rule == "bland":
                 o = dc.replace(o, max_iters=SOLO_BLAND_WINDOW)
             res["walks"][f"c_{rule}_{name}"] = solo_walk_check(
-                "primal", st, o, f"(c) {rule}", "rank1_step")
+                "primal", st, o, f"(c) {rule}", "rank1_cluster")
         om = SolverOptions.for_dtype(dt, rule=RULE_MAX_INCREASE)
         res["stages"][f"a_max_increase_{name}"] = rank1_stage_checks(
             st, om, None, f"(a) greatest increase {name}",
@@ -1262,20 +1476,20 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         b2[:3] *= 0.8
         form2 = scenario_form(A, b2, c)
         warm, res["solves"][f"e_{name}"] = solo_solve(
-            form2, dt, "auto", "(e) warm_start", "rank1_step", dev=dev,
+            form2, dt, "auto", "(e) warm_start", "rank1_cluster", dev=dev,
             warm_start=sol)
         if not warm.niter < sol.niter:
             raise AssertionError("5c (e): no fewer pivots warm")
         frame = warm_frame(form2, sol, dt)
         res["walks"][f"e_{name}"] = solo_walk_check(
-            "dual", frame, opts, "(e) warm dual", "rank1_step")
+            "dual", frame, opts, "(e) warm dual", "rank1_cluster")
         form3 = scenario_form(A, cut(b), c)
         _, res["solves"][f"e_deep_{name}"] = solo_solve(
-            form3, dt, "auto", "(e) deeper warm_start", "rank1_step",
+            form3, dt, "auto", "(e) deeper warm_start", "rank1_cluster",
             dev=dev, warm_start=sol)
         frame3 = warm_frame(form3, sol, dt)
         w3 = solo_walk_check("dual", frame3, opts, "(e) deeper warm dual",
-                             "rank1_step")
+                             "rank1_cluster")
         res["walks"][f"e_deep_{name}"] = w3
         res["step_us"][f"e_deep_{name}"] = rank1_step_us(
             frame3, opts, None, "(e) dual", w3["niter"], dual=True)
@@ -1294,13 +1508,15 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
             "(e) resident warm dual", "lane_dual")
         # (g) the refreshed rung's rank-1 segments (largest-pivot ties)
         ref, res["solves"][f"g_{name}"] = solo_solve(
-            sf_a, dt, "refreshed", "(g) refreshed", "rank1_step", dev=dev)
+            sf_a, dt, "refreshed", "(g) refreshed", "rank1_cluster", dev=dev)
         if ref.objective != objective[name]:
             raise AssertionError(f"5c (g): objective {ref.objective!r}, "
                                  f"(a) {objective[name]!r}")
         res["walks"][f"g_{name}"] = solo_walk_check(
             "primal", st, stabilized_options(opts), "(g) TIE_MAXPIV",
-            "rank1_step")
+            "rank1_cluster")
+        res["edge_walks_held"] = res.get("edge_walks_held", 0) + \
+            cluster_edge_cases(dt, dev)
         del st, sb, sc, so, frame, frame3
         torch.cuda.empty_cache()
 
@@ -1975,6 +2191,7 @@ def check_static_smem(ptxas) -> None:
     its eta coefficients."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
+    from tpulp_torch.kernels.rank1_cluster import CLUSTER_STATIC_SMEM
 
     got = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k.startswith("inner_block")}
@@ -1999,6 +2216,12 @@ def check_static_smem(ptxas) -> None:
             max(rk1.values()) > BOUNDED_STATIC_SMEM:
         raise AssertionError(f"rank-1 kernels' static shared memory {rk1}: "
                              f"their reductions take {BOUNDED_STATIC_SMEM}")
+    clu = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k.startswith("cluster_kernel")}
+    if len(clu) != len(CLUSTER_KERNELS) or \
+            max(clu.values()) > CLUSTER_STATIC_SMEM:
+        raise AssertionError(f"rank1_cluster's static shared memory {clu}: "
+                             f"the plan leaves {CLUSTER_STATIC_SMEM}")
     blk = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k.startswith("blocked_")}
     if len(blk) != len(BLOCKED_KERNELS) or \
@@ -2009,7 +2232,8 @@ def check_static_smem(ptxas) -> None:
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
         f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} and rank-1 "
         f"kernels {rk1} bytes, within {BOUNDED_STATIC_SMEM}; blocked "
-        f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}")
+        f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
+        f"{clu} bytes, within {CLUSTER_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
@@ -2038,6 +2262,11 @@ RANK1_KERNELS = _walk_kernels("rk1", ("scan", "price", "ratio", "update",
 # the blocked engine's seven kernels
 BLOCKED_KERNELS = _walk_kernels("blk", ("cleanup", "price", "column",
                                         "ratio", "row", "finish", "ray"))
+# the cluster walk's instantiations: <float or double, the walk>
+CLUSTER_KERNELS = {f"3rkc14cluster_kernelI{t}Li{w}E":
+                   f"cluster_kernel<{'float' if t == 'f' else 'double'},"
+                   f"{walk}>" for t in "fd"
+                   for w, walk in enumerate(("primal", "devex", "dual"))}
 # the static shared memory of a single-block walk kernel: the block
 # reduction's 33 slots (common.cuh's Red<double>: 32 bytes each); a blocked
 # kernel's adds at most MAX_K eta coefficients of 8 bytes and a scalar or
@@ -2060,6 +2289,8 @@ def _ptxas_name(name: str) -> str:
         return RANK1_KERNELS[name]
     if name in BLOCKED_KERNELS:
         return BLOCKED_KERNELS[name]
+    if name in CLUSTER_KERNELS:
+        return CLUSTER_KERNELS[name]
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -2084,7 +2315,7 @@ def ptxas_report(text: str):
                                  "fma_kernelIf", "fma_kernelId",
                                  "barrier_probe_kernel", *LANE_KERNELS,
                                  *BOUNDED_KERNELS, *RANK1_KERNELS,
-                                 *BLOCKED_KERNELS)
+                                 *BLOCKED_KERNELS, *CLUSTER_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -4491,6 +4722,13 @@ def main() -> int:
         f"registers / spills: {ptxas}")
     sass = check_machine_code(lib_path)
     check_static_smem(ptxas)
+    from tpulp_torch.kernels.rank1_cluster import CLUSTER_THREADS
+    log(f"# rank1_cluster (ptxas -v, {CLUSTER_THREADS} threads a block): "
+        + "; ".join(f"{k} {v.get('registers')} registers, "
+                    f"{v.get('spill_bytes')} bytes of spills, "
+                    f"{v.get('static_smem')} bytes of static shared memory"
+                    for k, v in ptxas.items()
+                    if k.startswith("cluster_kernel")))
 
     # 3: the kernels against their plain versions
     kstats = phase_kernels(dev)
@@ -4602,7 +4840,17 @@ def main() -> int:
                          "none: XLA's compiled lax.while_loop over "
                          "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
                          "247-315)", blocked["launches"]),
+        "rank1_cluster": ("tpulp_torch/kernels/csrc/rank1_cluster.cu",
+                          "none: XLA's compiled lax.while_loop over "
+                          "simplex_step, devex_simplex_step and "
+                          "dual_simplex_step (tpulp/solve/driver.py:74, "
+                          "286; tpulp/solve/devex.py:75, 255; "
+                          "tpulp/solve/dual.py:62, 162)", solo["launches"]),
     }
+    # rank1_step's main path since the cluster kernel took the frames a
+    # cluster holds: (f)'s driver="rank1" solve at 1538 x 3073
+    sources["rank1_step"] = sources["rank1_step"][:2] + (
+        solo["solves"]["f_float64"]["launches"],)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -4651,6 +4899,8 @@ def main() -> int:
                     ("dual main 1538x3073 float64", "e_main_float64",
                      "e_main_float64")):
                 w, u = solo["walks"][walk], solo["step_us"][us]
+                # on the cluster route: rank1_step's walk timed beside it
+                w = w.get("rank1_step", w)
                 cases[case] = {
                     "max_abs_err": w["max_abs_err"], "ms": w["ms_per_step"],
                     "plain_ms": w["plain_ms_per_step"],
@@ -4661,6 +4911,51 @@ def main() -> int:
                         k: v / 1e3 for k, v in
                         u["device_us_by_stage"].items()},
                     "host_enqueue_ms": u["host_us_per_step"] / 1e3,
+                    "steps": w["niter"]}
+            head = cases["main 1538x3073 float64"]
+        elif kname == "rank1_cluster":
+            # a pivot of 5c's walks on the cluster kernel: the host clock
+            # (in turns with rank1_step), the launch on the card, the plain
+            # version's walk, the walk's bound (the frame read and written
+            # once, one fma an entry a pivot) a pivot
+            cases = {}
+            for case, walk in (
+                    ("float64", "a_float64"), ("float32", "a_float32"),
+                    ("devex float64", "b_float64"),
+                    ("devex float32", "b_float32"),
+                    ("devex optimal float64", "b_optimal_float64"),
+                    ("devex optimal float32", "b_optimal_float32"),
+                    ("greatest increase float64", "c_max_increase_float64"),
+                    ("greatest increase float32", "c_max_increase_float32"),
+                    ("largest-pivot ties float64", "c_maxpiv_float64"),
+                    ("largest-pivot ties float32", "c_maxpiv_float32"),
+                    ("bland window float64", "c_bland_float64"),
+                    ("bland window float32", "c_bland_float32"),
+                    ("dual float64", "e_deep_float64"),
+                    ("dual float32", "e_deep_float32"),
+                    ("warm re-solve float64", "e_float64"),
+                    ("warm re-solve float32", "e_float32"),
+                    ("refreshed ties float64", "g_float64"),
+                    ("refreshed ties float32", "g_float32")):
+                w = solo["walks"][walk]
+                steps = max(w["niter"], 1)
+                cases[case] = {
+                    "max_abs_err": w["max_abs_err"],
+                    "ms": w["host_us_per_step"] / 1e3,
+                    "plain_ms": w["plain_ms_per_step"],
+                    "bound_ms": w["bound_ms"] / steps,
+                    "bound_by": w["bound_by"], "library_ms": None,
+                    "device_ms": w["device_us_per_step"] / 1e3,
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        w["device_us_by_stage"].items()},
+                    "walk_ms": w["host_us_per_step"] * steps / 1e6,
+                    "load_store_ms": w["load_store_ms"],
+                    "step_bound_ms": w["step_bound_ms"],
+                    "rank1_step_ms": w["rank1_step"]["ms_per_step"],
+                    "rank1_step_steps": w["rank1_step"]["steps"],
+                    "blocks": w["blocks"], "width": w["width"],
+                    "smem": w["smem"], "occupancy": w["occupancy"],
                     "steps": w["niter"]}
             head = cases["float64"]
         elif kname == "blocked_step":
@@ -4762,18 +5057,25 @@ def main() -> int:
             mesh["bounded"]["solo"]["launches"]["bounded_step"]}
     kernels[5]["walks"] = exact["bounded_lp"]["walks"]
     kernels[5]["stages_held_at_step"] = exact["bounded_lp"]["stages"]
-    kernels[6].update({key: kernels[6]["cases"]["float64"][key] for key in (
+    kernels[6].update({key: kernels[6]["cases"][
+        "main 1538x3073 float64"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
+    # the 5c solves: 0 on the frames a cluster holds (a, b, e, g) since the
+    # cluster kernel took them; (f) and (e)'s warm re-solve at 1538 x 3073
     kernels[6]["launches_by_path"] = {
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_step"]
-        for case in ("a_float64", "a_float32", "b_float64", "b_float32",
-                     "b_optimal_float64", "b_optimal_float32", "e_float64",
-                     "e_float32", "e_deep_float64", "e_deep_float32",
-                     "e_main_float64", "g_float64", "g_float32",
-                     "f_float64")}
+        for case in SOLO_SOLVES + ("e_main_float64", "f_float64")}
     kernels[6]["walks"] = {k: v for k, v in solo["walks"].items()
                            if v["route"] == "rank1_step"}
     kernels[6]["stages_held_at_step"] = solo["stages"]
+    kernels[8].update({key: kernels[8]["cases"]["float64"][key] for key in (
+        "device_ms", "load_store_ms", "blocks", "occupancy", "steps")})
+    kernels[8]["launches_by_path"] = {
+        f"5c_{case}": solo["solves"][case]["launches"]["rank1_cluster"]
+        for case in SOLO_SOLVES + ("e_main_float64", "f_float64")}
+    kernels[8]["walks"] = {k: v for k, v in solo["walks"].items()
+                           if v["route"] == "rank1_cluster"}
+    kernels[8]["edge_walks_held"] = solo["edge_walks_held"]
     # the lane kernels at B = 1: one launch a solo walk
     kernels[3]["launches_by_path"].update({
         f"5c_resident_warm_resolve_{dt}": solo["solves"][
@@ -4810,7 +5112,7 @@ def main() -> int:
     kernels[0]["blocked_cases"] = blocked["flush"]
     for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma"),
                      (3, "lane_dual"), (4, "lane_primal"), (5, "bounded"),
-                     (6, "rank1"), (7, "blocked_")):
+                     (6, "rank1"), (7, "blocked_"), (8, "cluster_kernel")):
         kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,

@@ -340,7 +340,7 @@ def test_launch_counters_stay_zero_on_cpu():
                         "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
                         "bounded_step": 0, "bounded_stage": 0,
                         "rank1_step": 0, "rank1_stage": 0,
-                        "blocked_step": 0, "blocked_ray": 0,
+                        "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
                         "blocked_stage": 0}
 
 
@@ -360,7 +360,7 @@ def test_nvcc_command_line():
     assert sorted(p.name for p in sources) == ["blocked.cu", "bounded.cu",
                                                "flush.cu", "fma.cu",
                                                "inner_block.cu", "lanes.cu",
-                                               "rank1.cu"]
+                                               "rank1.cu", "rank1_cluster.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link

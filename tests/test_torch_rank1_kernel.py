@@ -469,14 +469,15 @@ def test_dual_lanes_at_one_lane_equal_the_solo_walk(seed):
 @pytest.mark.parametrize("case", [
     ("primal", 60, 200, torch.float64, "lane_primal"),
     ("primal", 60, 200, torch.float32, "lane_primal"),
-    ("primal", 258, 769, torch.float64, "rank1_step"),
-    ("primal", 258, 769, torch.float32, "rank1_step"),
+    # past one block, within a cluster of 8 (kernels.rank1_cluster)
+    ("primal", 258, 769, torch.float64, "rank1_cluster"),
+    ("primal", 258, 769, torch.float32, "rank1_cluster"),
     ("primal", 1538, 3073, torch.float64, "rank1_step"),
-    ("devex", 60, 200, torch.float64, "rank1_step"),
-    ("devex", 258, 775, torch.float32, "rank1_step"),
+    ("devex", 60, 200, torch.float64, "rank1_cluster"),
+    ("devex", 258, 775, torch.float32, "rank1_cluster"),
     ("dual", 60, 200, torch.float64, "lane_dual"),
     ("dual", 60, 200, torch.float32, "lane_dual"),
-    ("dual", 258, 769, torch.float64, "rank1_step"),
+    ("dual", 258, 769, torch.float64, "rank1_cluster"),
     ("dual", 1538, 3073, torch.float64, "rank1_step"),
     # past the lane kernels' shared memory for their vectors
     ("dual", 8002, 24001, torch.float64, "rank1_step"),
@@ -489,7 +490,8 @@ def test_solo_route(case):
 
 def test_solo_route_follows_the_lane_plan():
     """The rank-1 and dual walks leave the lane kernels exactly where a
-    frame stops being resident in one block; devex never takes them."""
+    frame stops being resident in one block, for the cluster kernel (these
+    frames fit a cluster); devex never takes them."""
     from tpulp_torch.kernels import lane_plan
 
     for dtype in (torch.float32, torch.float64):
@@ -497,9 +499,9 @@ def test_solo_route_follows_the_lane_plan():
             resident = lane_plan(M, N, dtype).resident
             for walk, lane in (("primal", "lane_primal"),
                                ("dual", "lane_dual")):
-                want = lane if resident else "rank1_step"
+                want = lane if resident else "rank1_cluster"
                 assert solo_route(walk, M, N, dtype) == want
-            assert solo_route("devex", M, N, dtype) == "rank1_step"
+            assert solo_route("devex", M, N, dtype) == "rank1_cluster"
     with pytest.raises(ValueError, match="walk"):
         solo_route("bounded", 10, 10, torch.float64)
 

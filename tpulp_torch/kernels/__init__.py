@@ -8,6 +8,8 @@ from .fma import fused_fma
 from .lanes import lane_dual, lane_plan, lane_primal
 from .launch import LAUNCHES, reset_launches
 from .rank1 import rank1_stage, rank1_steps
+# the module, not its wrapper of the same name: rank1_cluster.rank1_cluster
+from .rank1_cluster import cluster_plan
 
 __all__ = [
     "LAUNCHES",
@@ -25,6 +27,7 @@ __all__ = [
     "bounded_stage",
     "rank1_steps",
     "rank1_stage",
+    "cluster_plan",
     "blocked_steps",
     "blocked_stage",
 ]

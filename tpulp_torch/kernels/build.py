@@ -163,6 +163,15 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
+    for name in ("tpulp_rank1_cluster_f32", "tpulp_rank1_cluster_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P]
+        fn.restype = _I
+    for name in ("tpulp_rank1_cluster_occupancy_f32",
+                 "tpulp_rank1_cluster_occupancy_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P]
+        fn.restype = _I
     lib.tpulp_inner_block_slots.argtypes = []
     lib.tpulp_inner_block_slots.restype = _I
     lib.tpulp_inner_block_stages.argtypes = []

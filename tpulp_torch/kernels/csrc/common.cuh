@@ -1,5 +1,6 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
-// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu): exact-rounding
+// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu, rank1_cluster.cu):
+// exact-rounding
 // arithmetic, the (value, index) comparison whose ties go to the smallest
 // index, the block-wide reductions of the single-block simplex loops
 // (lanes.cu, bounded.cu, rank1.cu, blocked.cu): torch's NaN-first

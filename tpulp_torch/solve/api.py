@@ -55,8 +55,10 @@ __all__ = [
     "state_from_standard_form",
 ]
 
-# tableau sizes (elements) of the 'auto' engine choice, kept from tpulp:
-# they encode the TPU's compile-time trade-offs and await H100 measurement
+# tableau sizes (elements) of the 'auto' engine choice, kept from tpulp.
+# chip_smoke.py's phase 5d (f) times the rank-1 walk, the blocked engine
+# and the kernel engine on the H100 at four sizes around them (PERF.md);
+# the choice between the two rank-K engines is still open, so they stay
 RANK1_BELOW = 200_000
 KERNEL_FROM = 4_000_000
 

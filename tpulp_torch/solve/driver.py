@@ -11,20 +11,22 @@ chunk cannot run past it and the pivot count equals tpulp's.
 
 That loop is the CPU path. On CUDA tensors the solo walks run on
 hand-written kernels, with no host read inside a chunk, by one rule
-(``solo_route``, for an (M, N) = (m + 2, n + 1) tableau):
+(``solo_route``, for an (M, N) = (m + 2, n + 1) tableau), for the walks
+of ``run_simplex`` (Dantzig, Bland, the greatest increase, ``RULE_DEVEX``
+priced as Dantzig; first-index or largest-pivot ties),
+``devex.run_simplex_devex`` and ``dual.run_dual_simplex``:
 
-- ``run_simplex`` (Dantzig, Bland, the greatest increase, ``RULE_DEVEX``
-  priced as Dantzig; first-index or largest-pivot ties): ``lane_primal``
-  at B = 1 (the whole walk in one launch, ``kernels.lanes``) when the frame
-  is resident in one block (``lane_plan(M, N, dtype).resident``), else
-  ``rank1_step`` (``kernels.rank1``: four stream-ordered launches a step,
-  five with the greatest increase's column pass);
-- ``devex.run_simplex_devex``: ``rank1_step`` at any size (the lane
-  kernels take no devex weights);
-- ``dual.run_dual_simplex``: ``lane_dual`` at B = 1 when the frame is
-  resident, else ``rank1_step``'s dual walk (three stream-ordered launches
-  a step on the grid and one block; a streamed lane kernel would walk a
-  large frame with one block).
+1. the primal or dual walk of a frame resident in one block
+   (``lane_plan(M, N, dtype).resident``): ``lane_primal`` / ``lane_dual``
+   at B = 1 (the whole walk in one launch, ``kernels.lanes``; they take no
+   devex weights);
+2. otherwise, a frame that a thread-block cluster of at most 8 blocks
+   holds (``cluster_plan`` fits): ``rank1_cluster`` (the whole walk in one
+   launch of one cluster, the frame in the blocks' shared memory,
+   ``kernels.rank1_cluster``);
+3. otherwise ``rank1_step`` (``kernels.rank1``: four stream-ordered
+   launches a step, five with the greatest increase's and devex's column
+   pass; the dual walk's three on one block and one on the grid).
 
 Each gets the plain loop's ``stall_limit`` and ``opts.max_iters``, so
 ``finish`` and the absolute ``niter`` budgets of ``refresh.py`` hold, and
@@ -42,6 +44,7 @@ from ..kernels.fma import fused_fma
 from ..kernels.lanes import lane_dual, lane_plan, lane_primal
 from ..kernels.launch import on_cpu
 from ..kernels.rank1 import rank1_steps
+from ..kernels.rank1_cluster import cluster_plan, rank1_cluster
 
 __all__ = [
     "simplex_step",
@@ -277,11 +280,13 @@ def finish(s: SimplexState) -> SimplexState:
 def solo_route(walk: str, M: int, N: int, dtype) -> str:
     """The kernel that runs a solo ``walk`` ("primal", "devex" or "dual")
     of an (M, N) tableau of ``dtype`` on the card: "lane_primal",
-    "lane_dual" or "rank1_step" (the module's rule)."""
+    "lane_dual", "rank1_cluster" or "rank1_step" (the module's rule)."""
     if walk not in ("primal", "devex", "dual"):
         raise ValueError(f"unknown walk {walk!r}")
     if walk != "devex" and _resident(M, N, dtype):
         return "lane_primal" if walk == "primal" else "lane_dual"
+    if _fits_cluster(M, N, dtype):
+        return "rank1_cluster"
     return "rank1_step"
 
 
@@ -290,6 +295,14 @@ def _resident(M: int, N: int, dtype) -> bool:
         return lane_plan(M, N, dtype).resident
     except ValueError:  # a frame past the lane kernels' shared memory
         return False
+
+
+def _fits_cluster(M: int, N: int, dtype) -> bool:
+    try:
+        cluster_plan(M, N, dtype)
+    except ValueError:  # a frame past 8 blocks' shared memory
+        return False
+    return True
 
 
 def one_lane(loop, state: SimplexState, opts: SolverOptions,
@@ -309,12 +322,13 @@ def solo_walk(walk: str, state: SimplexState, opts: SolverOptions,
     the budget stays RUNNING)."""
     state = state._replace(T=state.T.contiguous())
     route = solo_route(walk, *state.T.shape, state.T.dtype)
-    if route == "rank1_step":
+    if route in ("rank1_cluster", "rank1_step"):
         gamma = torch.ones((state.n,), dtype=state.T.dtype,
                            device=state.T.device) if walk == "devex" \
             else None
-        return rank1_steps(state, opts, stall_limit, opts.max_iters,
-                           gamma, dual=walk == "dual")[0]
+        run = rank1_cluster if route == "rank1_cluster" else rank1_steps
+        return run(state, opts, stall_limit, opts.max_iters, gamma,
+                   dual=walk == "dual")[0]
     loop = lane_primal if route == "lane_primal" else lane_dual
     return one_lane(loop, state, opts, stall_limit, opts.max_iters)
 
