@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the eight sources of tpulp_torch/kernels/csrc
+Builds the CUDA kernels from the nine sources of tpulp_torch/kernels/csrc
 (flush, inner block, FMA, the two lane kernels, the bounded step's four
-launches, the rank-1 step's five, the blocked engine's seven and the
-cluster walk's one; and checks
+launches, the rank-1 step's five, the blocked engine's seven, the cluster
+walk's one and the blocked engine's cluster launch; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -44,22 +44,33 @@ the refreshed rung's rank-1 segments; it prints the cluster plans,
 ``cudaOccupancyMaxActiveClusters`` and the cluster kernel's stages, times
 the rank-1 step by launch and the plain step, and solves a bounded state
 whose tableau is a strided view.
-Phase 5d drives the solo rank-K blocked engine on its kernels (six
-launches a pivot slot, B1's flush and one ray launch a block):
-``solve_lp(driver="auto")`` on a 512 x 1024 LP (514 x 1537, certified, the
-eager engine's objective exactly, no FMA and no B2 launch), devex on an
+Phase 5d drives the solo rank-K blocked engine on its kernels (where a
+cluster holds a block's eta factors, one ``blocked_cluster`` launch a
+block of 64 slots, else ``blocked_step``'s six launches a slot; B1's flush
+and one ray launch a block): ``solve_lp(driver="auto")`` on a 512 x 1024
+LP (514 x 1537 on the cluster route: one ``blocked_cluster`` launch a
+block and no ``blocked_step``, certified, the eager engine's objective
+exactly, no FMA and no B2 launch), devex on an
 artificial LP at 512 rows (optimal and certified, with the eager engine's
 objective) and on its variant with four dependent rows (its status
 recorded beside the eager engine's and those of other walks; within 1e-9
 of the eager engine's at f64), the refreshed rung's blocked segments, each
-walk held against its plain-stage walk flushed by the same B1 in every
-field at f32 and f64; each of the seven launches against its plain stage (a
+cluster walk held in every field at f32 and f64 against
+``blocked_cluster_reference`` and ``blocked_steps``' walk (timed in turns,
+with its plan, ``cudaOccupancyMaxActiveClusters`` and its stages on block
+0's clock), and ``blocked_steps``' walk against its plain-stage walk, each
+flushed by the same B1; the cluster's edge walks (a budget stop inside a
+block, a slot past the budget that ends the walk, the clean-up, retire and
+ray-gate LP, the 1e8 reset) at every cluster size; a wide LP past the
+cluster's plan (258 x 14,257) on ``blocked_step``; each of the seven
+launches against its plain stage (a
 Dantzig pivot, a budget stop inside a block, Bland, a largest-pivot tie, a
 clean-up pivot, a retire, the phase change with devex's reset, the 1e8
 reset, the ray launch with and without an artificial basic); it times a
-slot by launch, B1 at the blocked shapes beside ``addmm``, and the rank-1
-walk, the blocked engine and the kernel engine at four sizes around the
-`auto` thresholds.
+slot by launch (and the cluster's by stage), B1 at the blocked shapes
+beside ``addmm``, and the rank-1 walk, the blocked engine on its route and
+on ``blocked_step``, and the kernel engine at four sizes around the `auto`
+thresholds.
 Phase 7 drives ``solve_milp`` on bench.py's 28-item knapsack (f32 and f64,
 the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
 and f64 optima, checked in Fractions) with every wave tensor checked to be
@@ -1586,8 +1597,9 @@ BLK5_K = 64
 # with the four dependent rows, 514 x 1281 without (past 200k elements)
 BLK5_ART_N = 768
 # the plain walk held beside the kernels' over its first blocks where the
-# whole walk is long
+# whole walk is long; the cluster's plain version over fewer
 BLK5_WINDOW = 1024
+BLK5_CLUSTER_WINDOW = 512
 # (d): the stage checks' block (block ends fall inside the clean-up), the
 # budget that stops a walk inside a block, and cleanup_arrays' size (154 x
 # 369; at 538 x 1329 the f32 walk pivots on its dependent rows' roundoff
@@ -1596,6 +1608,11 @@ BLK5_WINDOW = 1024
 BLK5_STAGE_K = 16
 BLK5_BUDGET = 100
 BLK5_CLEANUP_M, BLK5_CLEANUP_N, BLK5_CLEANUP_ROWS = 128, 192, 24
+# (g): a wide LP in auto's blocked range (258 x 14,257, 3.7M elements)
+# whose block of 64 eta slots no cluster holds: blocked_step's route
+BLK5_WIDE_M, BLK5_WIDE_N = 256, 14_000
+# the first pivots of (g)'s walk held against the plain-stage walk
+BLK5_WIDE_WINDOW = 512
 # (f): bench.py's recipe at (m, n), the tableau (m + 2) x (n + m + 1), and
 # the pivots timed on each engine
 THRESH_SHAPES = ((256, 512), (512, 512), (1024, 1024), (1536, 1536))
@@ -1856,18 +1873,7 @@ def blocked_slot_us(state, opts, label: str, K: int = BLK5_K):
     dev_us, host_us = float(np.median(dev_us)), float(np.median(host_us))
     split["finish"] = dev_us - sum(split.values())
     M, N = state.T.shape
-    size = state.T.element_size()
-    # a slot at the block's mean slot index t = (K - 1) / 2: T0's column
-    # and row, the t slots of U and V written before it, U[t] and V[t]
-    # written, row0, row1 (N) and bvec (M) read and written, and under
-    # devex the weights (N - 1) read and written; one fma an entry of
-    # each eta sum
-    t_mean = (K - 1) / 2
-    devex = opts.rule == RULE_DEVEX
-    nbytes = size * ((M + N) * (2 + t_mean) + 2 * (2 * N + M)
-                     + (2 * (N - 1) if devex else 0))
-    bound_ms, bound_by = bound(nbytes, 2.0 * t_mean * (M + N),
-                               FP64_FLOP_S if size == 8 else FP32_FLOP_S)
+    bound_ms, bound_by = slot_bound(state, opts, K)
     res = {"device_us_per_slot": dev_us, "host_us_per_slot": host_us,
            "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
            "device_us_by_stage": split,
@@ -1879,6 +1885,281 @@ def blocked_slot_us(state, opts, label: str, K: int = BLK5_K):
         f"the ray launch {res['flush_and_ray_us_per_block']:.1f} us a block; "
         f"bound {1e3 * bound_ms:.3f} us a slot ({bound_by})")
     return res
+
+
+def slot_bound(state, opts, K: int = BLK5_K):
+    """(bound_ms, bound_by) of a pivot slot of ``blocked_step``, whose six
+    launches a slot read their operands from device memory, at the block's
+    mean slot index t = (K - 1) / 2: T0's column and row, the t slots of U
+    and V written before it, U[t] and V[t] written, row0, row1 (N) and bvec
+    (M) read and written, and under devex the weights (N - 1) read and
+    written; one fma an entry of each eta sum."""
+    from tpulp_torch.core.state import RULE_DEVEX
+
+    M, N = state.T.shape
+    size = state.T.element_size()
+    t_mean = (K - 1) / 2
+    devex = opts.rule == RULE_DEVEX
+    nbytes = size * ((M + N) * (2 + t_mean) + 2 * (2 * N + M)
+                     + (2 * (N - 1) if devex else 0))
+    return bound(nbytes, 2.0 * t_mean * (M + N),
+                 FP64_FLOP_S if size == 8 else FP32_FLOP_S)
+
+
+def cluster_bound(state, opts, K: int = BLK5_K):
+    """(bound_ms, bound_by) a slot of one ``blocked_cluster`` launch of K
+    slots, which keeps U and V in shared memory for the whole launch: a
+    slot reads T0's column and row; the launch loads and stores U and V
+    (K (M + N)) once, reads and writes row0, row1 (N), bvec (M), the basis
+    (int32, M - 2) and under devex the weights (N - 1) once; divided by K.
+    The operations are ``slot_bound``'s: one fma an entry of each eta sum
+    at the mean slot index t = (K - 1) / 2."""
+    from tpulp_torch.core.state import RULE_DEVEX
+
+    M, N = state.T.shape
+    size = state.T.element_size()
+    devex = opts.rule == RULE_DEVEX
+    launch = size * (2 * K * (M + N) + 2 * (2 * N + M)
+                     + (2 * (N - 1) if devex else 0)) + 2 * 4 * (M - 2)
+    nbytes = size * (M + N) + launch / K
+    return bound(nbytes, 2.0 * (K - 1) / 2 * (M + N),
+                 FP64_FLOP_S if size == 8 else FP32_FLOP_S)
+
+
+def cluster_walk_check(state, opts, label: str, K: int = BLK5_K,
+                       window: int | None = BLK5_CLUSTER_WINDOW):
+    """``blocked_cluster``'s walk on its plan's cluster (what
+    ``run_simplex_blocked`` runs on the card where the plan fits) held
+    equal in every field (``T + 0.0``, NaN equal, the devex weights too) to
+    ``blocked_cluster_reference`` on the same cluster size, flushed by the
+    same B1, and to ``blocked_steps``' walk, over the whole walk or its
+    first ``window`` pivots; its launches one ``blocked_cluster``, one B1
+    flush and one ray launch a block and nothing else; the two kernels'
+    walks timed on the host clock in turns (cluster, step, step, cluster,
+    twice). Returns the numbers, and under "plain" the plain version's
+    (state, weights)."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.kernels.block import fused_flush
+    from tpulp_torch.solve.driver import finish
+
+    dt, dev = state.T.dtype, state.T.device
+    o = eta_scaled_options(opts, dt)
+    if window is not None:
+        o = dc.replace(o, max_iters=min(o.max_iters, window))
+    stall = o.resolved_stall_limit(state.m, state.n)
+    M, N = state.T.shape
+    plan = kbc.blocked_cluster_plan(M, N, K, dt)
+    occ = kbc.blocked_cluster_occupancy(M, N, K, dt, dev)
+    runs = {"cluster": lambda: kbc.blocked_cluster(state, o, stall,
+                                                   o.max_iters, K),
+            "step": lambda: kb.blocked_steps(state, o, stall, o.max_iters,
+                                             K)}
+    sync(dev)
+    reset_launches()
+    k, gk = runs["cluster"]()
+    sync(dev)
+    launches = dict(LAUNCHES)
+    blocks = launches["blocked_cluster"]
+    others = {key: v for key, v in launches.items() if v and key not in (
+        "blocked_cluster", "blocked_ray", "fused_flush")}
+    if others or not blocks or launches["fused_flush"] != blocks or \
+            launches["blocked_ray"] != blocks:
+        raise AssertionError(f"5d {label}: the cluster walk's launches "
+                             f"{launches}")
+    sp, gs = runs["step"]()
+    sync(dev)
+    t0 = time.perf_counter()
+    p, gp = kbc.blocked_cluster_reference(state, o, stall, o.max_iters, K,
+                                          plan.blocks, flush=fused_flush)
+    sync(dev)
+    plain_secs = time.perf_counter() - t0
+    k, sp, p = finish(k), finish(sp), finish(p)
+    err = lanes_equal(k, p)
+    lanes_equal(k, sp)
+    for g, what in ((gp, "blocked_cluster_reference"),
+                    (gs, "blocked_steps")):
+        if not torch.equal(gk.cpu() + 0.0, g.cpu() + 0.0):
+            raise AssertionError(f"5d {label}: the devex weights differ "
+                                 f"from {what}'s")
+    host = {"cluster": [], "step": []}
+    for name in ("cluster", "step", "step", "cluster") * 2:
+        sync(dev)
+        t0 = time.perf_counter()
+        runs[name]()
+        sync(dev)
+        host[name].append(time.perf_counter() - t0)
+    niter = max(int(k.niter) - int(state.niter), 1)
+    res = {"status": int(k.status), "niter": niter, "blocks": blocks,
+           "cluster": plan.blocks, "width": plan.width,
+           "height": plan.height, "smem": plan.smem, "occupancy": occ,
+           "max_abs_err": err,
+           "us_per_pivot": 1e6 * float(np.median(host["cluster"])) / niter,
+           "step_us_per_pivot": 1e6 * float(np.median(host["step"])) / niter,
+           "plain_ms_per_pivot": 1e3 * plain_secs / niter,
+           "window": window, "plain": (p, gp)}
+    log(f"# 5d {label} {M}x{N} {str(dt)[6:]} K={K}: blocked_cluster on "
+        f"{plan.blocks} blocks ({plan.width} columns, {plan.height} rows, "
+        f"{plan.smem} bytes of shared memory a block; "
+        f"cudaOccupancyMaxActiveClusters {occ}), {blocks} launches: its walk"
+        f" equals blocked_cluster_reference and blocked_steps' walk in every"
+        f" field (status {res['status']}, {niter} pivots"
+        + (f", the first {window}" if window else "")
+        + f"); {res['us_per_pivot']:.2f} us a pivot on the host clock, "
+        f"blocked_step {res['step_us_per_pivot']:.2f} in turns; the plain "
+        f"version {res['plain_ms_per_pivot']:.3f} ms a pivot")
+    return res
+
+
+def cluster_slot_us(state, opts, label: str, K: int = BLK5_K):
+    """A cluster launch of the walk of ``state``, its second block: device
+    us a slot (CUDA events after a sleep over the launch of a block's K
+    slots, on a copy of the record at the block's start), the host's us to
+    launch it, the stage split (block 0's clock, as shares of the launch),
+    B1 and the ray launch a block, and the slot's bound; three rounds,
+    medians."""
+    import torch
+
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_cluster as kbc
+
+    o = eta_scaled_options(opts, state.T.dtype)
+    stall = o.resolved_stall_limit(state.m, state.n)
+    mi = o.max_iters
+    rec = kb.make_record(state, K)
+    kbc.blocked_cluster_block(rec, o, stall, mi)
+    kb.flush_and_ray(rec, o, stall, mi)
+    start = kb.clone_record(rec)
+    dev_us, host_us, block_us = [], [], []
+    for _ in range(3):
+        c = kb.clone_record(start)
+        d, h = launches_us(lambda: kbc.blocked_cluster_block(c, o, stall,
+                                                             mi), K)
+        if int(c.ints[kb.STATUS]) != 0 or int(c.ints[kb.SLOT]) != K:
+            raise AssertionError("5d: the timed slots ran past the walk")
+        dev_us.append(d)
+        host_us.append(h)
+        block_us.append(launches_us(lambda: kb.flush_and_ray(c, o, stall,
+                                                             mi), 1)[0])
+    cyc = torch.zeros((len(kbc.BLOCKED_CLUSTER_STAGES),), dtype=torch.int64,
+                      device=state.T.device)
+    kbc.blocked_cluster_block(kb.clone_record(start), o, stall, mi,
+                              stage_cycles=cyc)
+    share = (cyc.double() / cyc.sum().double().clamp_min(1)).tolist()
+    dev_us, host_us = float(np.median(dev_us)), float(np.median(host_us))
+    split = {name: dev_us * f for name, f in
+             zip(kbc.BLOCKED_CLUSTER_STAGES, share)}
+    bound_ms, bound_by = cluster_bound(state, opts, K)
+    M, N = state.T.shape
+    res = {"device_us_per_slot": dev_us, "host_us_per_slot": host_us,
+           "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
+           "device_us_by_stage": split,
+           "flush_and_ray_us_per_block": float(np.median(block_us))}
+    log(f"# 5d blocked_cluster {label} {M}x{N} {str(state.T.dtype)[6:]} "
+        f"K={K}: {dev_us:.2f} us a slot on the card (CUDA events over one "
+        f"launch of {K} slots; block 0's clock: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"), {host_us:.3f} us of host time a slot to launch; B1's flush "
+        f"and the ray launch {res['flush_and_ray_us_per_block']:.1f} us a "
+        f"block; bound {1e3 * bound_ms:.3f} us a slot ({bound_by})")
+    return res
+
+
+def cluster_edge_walks(dt, sf_a, sf_d, sf_r, a_walk, dev="cuda"):
+    """``blocked_cluster`` at every cluster size whose plan holds the LP
+    (1, 2, 4, 8, 16; the plan's own among them, and a size whose plan fits
+    but the card holds no such cluster fails) held in every field against
+    ``blocked_cluster_reference``: (a)'s LP to a budget that stops inside a
+    block (BLK5_BUDGET) and to the budget of its walk's last pivot (inside
+    a block: the slot past it still ends the walk, OPTIMAL; held to the
+    plain version of the whole walk, ``a_walk``'s, which it equals), the
+    clean-up LP under devex with largest-pivot ties (K = 16:
+    the clean-up pivots, a retire, the phase change with devex's reset, the
+    ray launch's gate with an artificial basic and without), and devex's
+    first pivot on 2e-4 (the 1e8 reset). Returns {walk: numbers}."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core import Status, eta_scaled_options
+    from tpulp_torch.core.state import RULE_DEVEX, TIE_MAXPIV
+    from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.kernels.block import fused_flush
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.driver import finish
+
+    plain = SolverOptions.for_dtype(dt)
+    devex = SolverOptions.for_dtype(dt, rule=RULE_DEVEX)
+    cases = {
+        "budget_inside_a_block": (sf_a, plain, BLK5_K, BLK5_BUDGET),
+        "slot_past_the_budget": (sf_a, plain, BLK5_K, a_walk["niter"]),
+        "cleanup_retire_devex_reset_ray_gate": (
+            sf_d, dc.replace(devex, tie_break=TIE_MAXPIV), BLK5_STAGE_K,
+            None),
+        "reset_1e8": (sf_r, devex, BLK5_STAGE_K, None)}
+    out = {}
+    for name, (sf, opts, K, budget) in cases.items():
+        st = state_from_standard_form(sf, dtype=dt, device=dev)
+        o = eta_scaled_options(opts, dt)
+        if budget is not None:
+            o = dc.replace(o, max_iters=budget)
+        stall = o.resolved_stall_limit(st.m, st.n)
+        M, N = st.T.shape
+        plan = kbc.blocked_cluster_plan(M, N, K, dt)
+        if name == "slot_past_the_budget":
+            p, gp = a_walk["plain"]
+        else:
+            p, gp = kbc.blocked_cluster_reference(
+                st, o, stall, o.max_iters, K, plan.blocks, flush=fused_flush)
+            p = finish(p)
+        sizes = []
+        for C in kbc.BLOCKED_CLUSTER_SIZES:
+            try:
+                kbc.blocked_cluster_plan(M, N, K, dt, C)
+            except ValueError:
+                continue
+            occ = kbc.blocked_cluster_occupancy(M, N, K, dt, st.T.device,
+                                                C)
+            if occ < 1:
+                raise AssertionError(f"5d edge walk {name}: the card holds "
+                                     f"no cluster of {C} blocks whose plan "
+                                     f"fits ({occ})")
+            k, gk = kbc.blocked_cluster(st, o, stall, o.max_iters, K,
+                                        blocks=C)
+            sync(dev)
+            lanes_equal(finish(k), p)
+            if not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
+                raise AssertionError(f"5d edge walk {name} C={C}: the devex "
+                                     "weights differ")
+            sizes.append(C)
+        if plan.blocks not in sizes:
+            raise AssertionError(f"5d edge walk {name}: the plan's cluster "
+                                 f"of {plan.blocks} did not run ({sizes})")
+        status, niter = int(p.status), int(p.niter)
+        if name == "budget_inside_a_block" and (
+                niter != budget or status != Status.ITERATION_LIMIT):
+            raise AssertionError(f"5d edge walk {name}: {status}, {niter}")
+        if name == "slot_past_the_budget" and (
+                niter != budget or status != Status.OPTIMAL
+                or budget % K == 0):
+            raise AssertionError(f"5d edge walk {name}: {status}, {niter}, "
+                                 f"budget {budget}")
+        out[name] = {"status": status, "niter": niter, "K": K,
+                     "sizes": sizes, "shape": [M, N]}
+    log(f"# 5d blocked_cluster edge walks, {str(dt)[6:]}: each equals "
+        "blocked_cluster_reference in every field at every cluster size "
+        "that holds it: " + "; ".join(
+            f"{k} {tuple(v['shape'])} K={v['K']} (status {v['status']}, "
+            f"{v['niter']} pivots; C {v['sizes']})" for k, v in out.items()))
+    return out
 
 
 def blocked_flush_case(state, K: int = BLK5_K):
@@ -1900,18 +2181,31 @@ def blocked_flush_case(state, K: int = BLK5_K):
 
 
 def threshold_table(dev="cuda"):
-    """5d (f): us a pivot of the rank-1 walk, the blocked engine and the
-    kernel engine on bench.py's recipe at each of THRESH_SHAPES, f64, over
-    THRESH_PIVOTS pivots (the better of two runs, host clock): the data
-    for the `auto` thresholds, which stay as they are."""
+    """5d (f): us a pivot of the rank-1 walk, the blocked engine on its
+    route (``blocked_cluster`` where its plan fits), the blocked engine on
+    ``blocked_step`` and the kernel engine on bench.py's recipe at each of
+    THRESH_SHAPES, f64, over THRESH_PIVOTS pivots (the better of two runs,
+    host clock): the data for the `auto` thresholds, which stay as they
+    are."""
     import torch
 
     from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels.blocked import blocked_steps
     from tpulp_torch.solve import (run_simplex, run_simplex_blocked,
                                    run_simplex_blocked_kernel)
+    from tpulp_torch.solve.blocked import blocked_route
+    from tpulp_torch.solve.driver import finish
+
+    def on_steps(s, o):
+        o = eta_scaled_options(o, s.T.dtype)
+        out, _ = blocked_steps(s, o, o.resolved_stall_limit(s.m, s.n),
+                               o.max_iters, BLK5_K)
+        return finish(out)
 
     engines = {"rank1": lambda s, o: run_simplex(s, o),
                "blocked": lambda s, o: run_simplex_blocked(s, o, BLK5_K),
+               "blocked_step": on_steps,
                "kernel": lambda s, o: run_simplex_blocked_kernel(
                    s, o, max(BLK5_K, 128))}
     table = {}
@@ -1936,22 +2230,27 @@ def threshold_table(dev="cuda"):
                             "status": int(out.status)}
             row[name] = best
         key = f"{m + 2}x{n + m + 1}"
+        row["blocked_route"] = blocked_route(m + 2, n + m + 1, BLK5_K,
+                                             torch.float64, st.T.device)
         table[key] = row
         log(f"# 5d (f) {key} f64 ({(m + 2) * (n + m + 1)} elements), "
             f"{THRESH_PIVOTS} pivots: " + ", ".join(
                 f"{k} {v['us_per_pivot']:.1f} us a pivot ({v['niter']})"
-                for k, v in row.items()))
+                for k, v in row.items() if k != "blocked_route")
+            + f"; the blocked engine's route {row['blocked_route']}")
         del st
         torch.cuda.empty_cache()
     return table
 
 
 def blocked_solve(sf, dt, driver: str, label: str, optimal: bool = True,
-                  dev="cuda"):
+                  dev="cuda", route: str = "blocked_cluster"):
     """``solve_lp`` with the launch counts set to 0 just before it and read
-    just after: the blocked kernels launched (``blocked_step`` slots, one
-    ray launch a B1 flush), no FMA, no B2; with ``optimal`` the answer
-    optimal and certified (``float_basis_certificate``)."""
+    just after: the blocked engine's kernels on ``route`` launched (one
+    ``blocked_cluster`` launch a block, or ``blocked_step`` slots), one ray
+    launch and one B1 flush a block, nothing of the other route, no FMA, no
+    B2; with ``optimal`` the answer optimal and certified
+    (``float_basis_certificate``)."""
     import tpulp_torch
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.solve.refine import float_basis_certificate
@@ -1966,13 +2265,21 @@ def blocked_solve(sf, dt, driver: str, label: str, optimal: bool = True,
     log(f"# 5d solve_lp {label} {str(dt)[6:]} (driver={driver!r}): "
         f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
         f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
-    if not (launches["blocked_step"] > 0 and launches["fused_fma"] == 0
+    other = "blocked_step" if route == "blocked_cluster" else \
+        "blocked_cluster"
+    blocks = launches["blocked_ray"]
+    if not (launches[route] > 0 and launches[other] == 0
+            and launches["fused_fma"] == 0
             and launches["blocked_inner_block"] == 0
-            and launches["fused_flush"] == launches["blocked_ray"] > 0):
-        raise AssertionError(f"5d {label}: launches {launches}, want the "
-                             "blocked kernels and B1, no FMA, no B2")
+            and launches["fused_flush"] == blocks > 0
+            and (route == "blocked_step"
+                 or launches["blocked_cluster"] == blocks)):
+        raise AssertionError(f"5d {label}: launches {launches}, want "
+                             f"{route} (one launch a block for the cluster),"
+                             " one B1 flush and one ray launch a block, no "
+                             f"{other}, no FMA, no B2")
     out = {"status": sol.status, "rung": sol.rung, "niter": sol.niter,
-           "seconds": secs, "launches": launches,
+           "seconds": secs, "launches": launches, "route": route,
            "objective": str(sol.objective)}
     if optimal:
         if sol.status != "optimal":
@@ -2053,24 +2360,35 @@ def other_walks(state, opts, label: str):
 
 
 def phase_blocked_engine(dev="cuda"):
-    """Phase 5d: the solo rank-K blocked engine on its kernels
-    (``blocked_step``, B1 a block), each walk held against the plain-stage
-    walk flushed by the same B1 in every field at f64 and f32: (a)
-    ``solve_lp(driver="auto")`` on phase 8c's recipe, one LP of 512 x 1024
-    (514 x 1537, the blocked engine: optimal, certified, the eager engine's
-    objective exactly); (b) devex, which auto picks for the artificial LP
-    at 512 + 4 rows: its independent rows with c >= 0 (optimal, certified)
-    and the variant with its dependent rows (the retire; its status beside
-    the eager engine's and those of ``other_walks``); (c) the
-    refreshed rung's blocked segments (largest-pivot ties); (d) each launch
-    against its plain stage on a Dantzig pivot and a budget stop inside a
-    block ((a)'s LP), Bland, a largest-pivot tie, a clean-up pivot, a
-    retire, the phase change with its devex reset and the ray launch with
-    and without an artificial basic (``cleanup_arrays``), and the 1e8 reset
-    (a pivot on 2e-4); (e) the device us a
-    slot by launch, the host's enqueue, the plain step, B1 at the blocked
-    shapes beside ``addmm``; (f) the `auto` thresholds' table. Returns the
-    numbers; ``launches`` are (a)'s f64 solve's."""
+    """Phase 5d: the solo rank-K blocked engine on its kernels: on the
+    cluster route (``blocked_cluster``, one launch a block of 64 slots,
+    where its plan fits) and on ``blocked_step`` (six launches a slot), B1
+    and the ray launch a block. (a) ``solve_lp(driver="auto")`` on phase
+    8c's recipe, one LP of 512 x 1024 (514 x 1537, the blocked engine on
+    the cluster route: one ``blocked_cluster`` launch a block, no
+    ``blocked_step``; optimal, certified, the eager engine's objective
+    exactly); (b) devex, which auto picks for the artificial LP at 512 + 4
+    rows: its independent rows with c >= 0 (optimal, certified) and the
+    variant with its dependent rows (the retire; its status beside the
+    eager engine's and those of ``other_walks``); (c) the refreshed rung's
+    blocked segments (largest-pivot ties). Each walk on the cluster held in
+    every field at f64 and f32 against ``blocked_cluster_reference`` and
+    ``blocked_steps``' walk, and ``blocked_steps``' walk against the
+    plain-stage walk, each flushed by the same B1; the two kernels timed in
+    turns. (d) each of ``blocked_step``'s launches against its plain stage
+    on a Dantzig pivot and a budget stop inside a block ((a)'s LP), Bland,
+    a largest-pivot tie, a clean-up pivot, a retire, the phase change with
+    its devex reset and the ray launch with and without an artificial basic
+    (``cleanup_arrays``), and the 1e8 reset (a pivot on 2e-4); the cluster's
+    edge walks on the same LPs at every cluster size. (e) the device us a
+    slot, by launch for ``blocked_step`` and by stage for the cluster
+    (block 0's clock), the host's enqueue, B1 at the blocked shapes beside
+    ``addmm``; (f) the `auto` thresholds' table; (g) the route past the
+    plan: ``solve_lp(driver="auto")`` on a wide LP (258 x 14,257) runs
+    ``blocked_step`` at f64 and f32, whose walk there is held against the
+    plain-stage walk over its first BLK5_WIDE_WINDOW pivots and whose slot
+    is timed there. Returns the numbers; ``launches`` are (a)'s f64
+    solve's, ``step_launches`` (g)'s f64 solve's."""
     import dataclasses as dc
 
     import torch
@@ -2082,7 +2400,8 @@ def phase_blocked_engine(dev="cuda"):
     from tpulp_torch.solve.refresh import stabilized_options
 
     res = {"solves": {}, "walks": {}, "stages": {}, "slot_us": {},
-           "flush": {}}
+           "flush": {}, "cluster_walks": {}, "cluster_slot_us": {},
+           "edge_walks": {}}
     A, b, c = dense_leq_arrays(BLK_M, BLK_N)
     sf_a = scenario_form(A, b, c)
     M, N = BLK_M + 2, BLK_M + BLK_N + 1
@@ -2111,6 +2430,12 @@ def phase_blocked_engine(dev="cuda"):
         eager_solve(sol, sf_a, dt, "auto", "(a)", res["solves"][f"a_{name}"],
                     dev)
         st = state_from_standard_form(sf_a, dtype=dt, device=dev)
+        cw = cluster_walk_check(st, opts, "(a) Dantzig", window=None)
+        if cw["status"] != 1:
+            raise AssertionError(f"5d (a): status {cw['status']}")
+        res["cluster_walks"][f"a_{name}"] = cw
+        res["cluster_slot_us"][f"a_{name}"] = cluster_slot_us(st, opts,
+                                                              "(a)")
         w = blocked_walk_check(st, opts, "(a) Dantzig", window=None)
         if w["status"] != 1:
             raise AssertionError(f"5d (a): status {w['status']}")
@@ -2122,6 +2447,10 @@ def phase_blocked_engine(dev="cuda"):
         eager_solve(solo, sf_bo, dt, "auto", "(b) optimal",
                     res["solves"][f"b_optimal_{name}"], dev)
         so = state_from_standard_form(sf_bo, dtype=dt, device=dev)
+        res["cluster_walks"][f"b_optimal_{name}"] = cluster_walk_check(
+            so, ob, "(b) optimal devex")
+        res["cluster_slot_us"][f"b_{name}"] = cluster_slot_us(
+            so, ob, "(b) devex")
         res["walks"][f"b_optimal_{name}"] = blocked_walk_check(
             so, ob, "(b) optimal devex")
         res["slot_us"][f"b_{name}"] = blocked_slot_us(so, ob, "(b) devex")
@@ -2133,6 +2462,8 @@ def phase_blocked_engine(dev="cuda"):
         sb = state_from_standard_form(sf_b, dtype=dt, device=dev)
         res["solves"][f"b_{name}"]["other_walks"] = other_walks(
             sb, ob, "(b) dependent rows")
+        res["cluster_walks"][f"b_{name}"] = cluster_walk_check(
+            sb, ob, "(b) devex, dependent rows")
         res["walks"][f"b_{name}"] = blocked_walk_check(
             sb, ob, "(b) devex, dependent rows")
         # (c) the refreshed rung's blocked segments
@@ -2146,6 +2477,8 @@ def phase_blocked_engine(dev="cuda"):
         if rel > 1e-9:
             raise AssertionError(f"5d (c): objective {ref.objective!r}, (a) "
                                  f"{sol.objective!r}")
+        res["cluster_walks"][f"c_{name}"] = cluster_walk_check(
+            st, stabilized_options(opts), "(c) TIE_MAXPIV", window=None)
         res["walks"][f"c_{name}"] = blocked_walk_check(
             st, stabilized_options(opts), "(c) TIE_MAXPIV", window=None)
         # (d) each launch against its plain stage
@@ -2164,6 +2497,11 @@ def phase_blocked_engine(dev="cuda"):
         sr = state_from_standard_form(sf_r, dtype=dt, device=dev)
         res["stages"][f"reset_{name}"] = blocked_stage_checks(
             sr, ob, "a pivot on 2e-4", ("reset_1e8",), BLK5_STAGE_K)
+        # (d) the cluster's edge walks on the same LPs
+        res["edge_walks"][name] = cluster_edge_walks(
+            dt, sf_a, sf_d, sf_r, cw, dev)
+        for walk in res["cluster_walks"].values():
+            walk.pop("plain", None)
         # (e) B1 at the blocked engine's shape
         res["flush"][f"a_{name}"] = blocked_flush_case(st)
         del st, so, sb, sd, sr
@@ -2178,7 +2516,47 @@ def phase_blocked_engine(dev="cuda"):
     torch.cuda.empty_cache()
     # (f) the thresholds, measured
     res["thresholds"] = threshold_table(dev)
+    # (g) the route past the plan: a wide LP in auto's blocked range
+    wide_route(res, dev)
+    res["step_launches"] = res["solves"]["g_wide_float64"]["launches"]
     return res
+
+
+def wide_route(res, dev="cuda"):
+    """5d (g): ``solve_lp(driver="auto")`` on a wide LP in auto's blocked
+    range past the cluster's plan (258 x 14,257) at f64 and f32 runs
+    ``blocked_step``; its walk there held against the plain-stage walk
+    over the first BLK5_WIDE_WINDOW pivots, and its slot timed there.
+    Adds to ``res``'s "solves", "walks" and "slot_us"."""
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.solve.api import _auto_engine, state_from_standard_form
+    from tpulp_torch.solve.blocked import blocked_route
+
+    Aw, bw, cw = dense_leq_arrays(BLK5_WIDE_M, BLK5_WIDE_N, seed=2)
+    Mw, Nw = BLK5_WIDE_M + 2, BLK5_WIDE_M + BLK5_WIDE_N + 1
+    if _auto_engine(Mw * Nw, torch.device(dev)) != "blocked":
+        raise AssertionError(f"5d (g): {Mw} x {Nw} is not on auto's "
+                             "blocked engine")
+    sf_w = scenario_form(Aw, bw, cw)
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        if blocked_route(Mw, Nw, BLK5_K, dt, torch.device(dev)) != \
+                "blocked_step":
+            raise AssertionError(f"5d (g): {Mw} x {Nw} {name} is not past "
+                                 "the cluster's plan")
+        label = f"(g) wide {BLK5_WIDE_M}x{BLK5_WIDE_N}"
+        _, res["solves"][f"g_wide_{name}"] = blocked_solve(
+            sf_w, dt, "auto", label, dev=dev, route="blocked_step")
+        # blocked_step held and timed at the shape its route gives it
+        sw = state_from_standard_form(sf_w, dtype=dt, device=dev)
+        opts = SolverOptions.for_dtype(dt)
+        res["walks"][f"g_wide_{name}"] = blocked_walk_check(
+            sw, opts, label, window=BLK5_WIDE_WINDOW)
+        res["slot_us"][f"g_wide_{name}"] = blocked_slot_us(sw, opts, label)
+        del sw
+        torch.cuda.empty_cache()
 
 
 def check_static_smem(ptxas) -> None:
@@ -2188,8 +2566,11 @@ def check_static_smem(ptxas) -> None:
     kernels' must fit the room ``lane_plan`` leaves, and each of the eight
     bounded kernels' and the sixteen rank-1 kernels' the 33 slots of its
     block reduction, and each of the fourteen blocked kernels' those and
-    its eta coefficients."""
+    its eta coefficients, and the two cluster kernels' the room their plans
+    leave."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
+    from tpulp_torch.kernels.blocked_cluster import \
+        BLOCKED_CLUSTER_STATIC_SMEM
     from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
     from tpulp_torch.kernels.rank1_cluster import CLUSTER_STATIC_SMEM
 
@@ -2223,17 +2604,24 @@ def check_static_smem(ptxas) -> None:
         raise AssertionError(f"rank1_cluster's static shared memory {clu}: "
                              f"the plan leaves {CLUSTER_STATIC_SMEM}")
     blk = {k: v.get("static_smem", 0) for k, v in ptxas.items()
-           if k.startswith("blocked_")}
+           if k in BLOCKED_KERNELS.values()}
     if len(blk) != len(BLOCKED_KERNELS) or \
             max(blk.values()) > BLOCKED_STATIC_SMEM:
         raise AssertionError(f"blocked kernels' static shared memory {blk}: "
                              f"at most {BLOCKED_STATIC_SMEM}")
+    bkc = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k in BLOCKED_CLUSTER_KERNELS.values()}
+    if len(bkc) != len(BLOCKED_CLUSTER_KERNELS) or \
+            max(bkc.values()) > BLOCKED_CLUSTER_STATIC_SMEM:
+        raise AssertionError(f"blocked_cluster's static shared memory {bkc}:"
+                             f" the plan leaves {BLOCKED_CLUSTER_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
         f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} and rank-1 "
         f"kernels {rk1} bytes, within {BOUNDED_STATIC_SMEM}; blocked "
         f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
-        f"{clu} bytes, within {CLUSTER_STATIC_SMEM}")
+        f"{clu} bytes, within {CLUSTER_STATIC_SMEM}; blocked_cluster {bkc} "
+        f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
@@ -2267,6 +2655,11 @@ CLUSTER_KERNELS = {f"3rkc14cluster_kernelI{t}Li{w}E":
                    f"cluster_kernel<{'float' if t == 'f' else 'double'},"
                    f"{walk}>" for t in "fd"
                    for w, walk in enumerate(("primal", "devex", "dual"))}
+# the blocked cluster's instantiations: <float or double>
+BLOCKED_CLUSTER_KERNELS = {
+    f"3bkc14cluster_kernelI{t}E":
+    f"blocked_cluster_kernel<{'float' if t == 'f' else 'double'}>"
+    for t in "fd"}
 # the static shared memory of a single-block walk kernel: the block
 # reduction's 33 slots (common.cuh's Red<double>: 32 bytes each); a blocked
 # kernel's adds at most MAX_K eta coefficients of 8 bytes and a scalar or
@@ -2291,6 +2684,8 @@ def _ptxas_name(name: str) -> str:
         return BLOCKED_KERNELS[name]
     if name in CLUSTER_KERNELS:
         return CLUSTER_KERNELS[name]
+    if name in BLOCKED_CLUSTER_KERNELS:
+        return BLOCKED_CLUSTER_KERNELS[name]
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -2315,7 +2710,8 @@ def ptxas_report(text: str):
                                  "fma_kernelIf", "fma_kernelId",
                                  "barrier_probe_kernel", *LANE_KERNELS,
                                  *BOUNDED_KERNELS, *RANK1_KERNELS,
-                                 *BLOCKED_KERNELS, *CLUSTER_KERNELS)
+                                 *BLOCKED_KERNELS, *CLUSTER_KERNELS,
+                                 *BLOCKED_CLUSTER_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -4729,6 +5125,13 @@ def main() -> int:
                     f"{v.get('static_smem')} bytes of static shared memory"
                     for k, v in ptxas.items()
                     if k.startswith("cluster_kernel")))
+    from tpulp_torch.kernels.blocked_cluster import BLOCKED_CLUSTER_THREADS
+    log(f"# blocked_cluster (ptxas -v, {BLOCKED_CLUSTER_THREADS} threads a "
+        "block): " + "; ".join(
+            f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} "
+            f"bytes of spills, {v.get('static_smem')} bytes of static shared"
+            " memory" for k, v in ptxas.items()
+            if k in BLOCKED_CLUSTER_KERNELS.values()))
 
     # 3: the kernels against their plain versions
     kstats = phase_kernels(dev)
@@ -4839,13 +5242,18 @@ def main() -> int:
         "blocked_step": ("tpulp_torch/kernels/csrc/blocked.cu",
                          "none: XLA's compiled lax.while_loop over "
                          "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
-                         "247-315)", blocked["launches"]),
+                         "247-315)", blocked["step_launches"]),
         "rank1_cluster": ("tpulp_torch/kernels/csrc/rank1_cluster.cu",
                           "none: XLA's compiled lax.while_loop over "
                           "simplex_step, devex_simplex_step and "
                           "dual_simplex_step (tpulp/solve/driver.py:74, "
                           "286; tpulp/solve/devex.py:75, 255; "
                           "tpulp/solve/dual.py:62, 162)", solo["launches"]),
+        "blocked_cluster": ("tpulp_torch/kernels/csrc/blocked_cluster.cu",
+                            "none: XLA's compiled lax.while_loop over "
+                            "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
+                            "one block of the fori_loop 272-275)",
+                            blocked["launches"]),
     }
     # rank1_step's main path since the cluster kernel took the frames a
     # cluster holds: (f)'s driver="rank1" solve at 1538 x 3073
@@ -4960,9 +5368,12 @@ def main() -> int:
             head = cases["float64"]
         elif kname == "blocked_step":
             # per pivot of 5d's walks: the walk's host-clock time, the plain
-            # walk's, a slot's bytes, the launches on the card alone
+            # walk's, a slot's bytes, the launches on the card alone; the
+            # headline at the shape its route gives it, (g)'s wide LP
             cases = {}
             for case, walk, us in (
+                    ("wide float64", "g_wide_float64", "g_wide_float64"),
+                    ("wide float32", "g_wide_float32", "g_wide_float32"),
                     ("float64", "a_float64", "a_float64"),
                     ("float32", "a_float32", "a_float32"),
                     ("devex float64", "b_optimal_float64", "b_float64"),
@@ -4982,6 +5393,42 @@ def main() -> int:
                     "flush_and_ray_ms_per_block":
                         u["flush_and_ray_us_per_block"] / 1e3,
                     "steps": w["niter"]}
+            head = cases["wide float64"]
+        elif kname == "blocked_cluster":
+            # per pivot of 5d's walks on the cluster: the walk's host-clock
+            # time (in turns with blocked_step), the plain version's walk,
+            # a slot's share of a launch's bytes (cluster_bound), a launch
+            # of K slots on the card alone, by stage (block 0's clock)
+            cases = {}
+            for case, walk, us in (
+                    ("float64", "a_float64", "a_float64"),
+                    ("float32", "a_float32", "a_float32"),
+                    ("devex float64", "b_optimal_float64", "b_float64"),
+                    ("devex float32", "b_optimal_float32", "b_float32"),
+                    ("largest-pivot ties float64", "c_float64", None),
+                    ("largest-pivot ties float32", "c_float32", None)):
+                w = blocked["cluster_walks"][walk]
+                u = blocked["cluster_slot_us"][us] if us else {}
+                cases[case] = {
+                    "max_abs_err": w["max_abs_err"],
+                    "ms": w["us_per_pivot"] / 1e3,
+                    "plain_ms": w["plain_ms_per_pivot"],
+                    "bound_ms": (u or blocked["cluster_slot_us"][
+                        walk.replace("c_", "a_")])["bound_us_per_slot"] / 1e3,
+                    "bound_by": (u or blocked["cluster_slot_us"][
+                        walk.replace("c_", "a_")])["bound_by"],
+                    "library_ms": None,
+                    "blocked_step_ms": w["step_us_per_pivot"] / 1e3,
+                    "device_ms": u["device_us_per_slot"] / 1e3 if u
+                    else None,
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        u["device_us_by_stage"].items()} if u else None,
+                    "flush_and_ray_ms_per_block":
+                        u["flush_and_ray_us_per_block"] / 1e3 if u
+                        else None,
+                    "blocks": w["cluster"], "smem": w["smem"],
+                    "occupancy": w["occupancy"], "steps": w["niter"]}
             head = cases["float64"]
         elif kname.startswith("lane_"):
             # the headline: the f64 bench knapsack's warm wave (the dual
@@ -5096,24 +5543,41 @@ def main() -> int:
         blocked["launches"]["fused_fma"]
     kernels[0]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
         blocked["launches"]["fused_flush"]
-    kernels[7].update({key: kernels[7]["cases"]["float64"][key] for key in (
-        "device_ms", "host_enqueue_ms", "steps")})
+    kernels[7].update({key: kernels[7]["cases"]["wide float64"][key]
+                       for key in ("device_ms", "host_enqueue_ms", "steps")})
+    # the 5d solves: 0 where the cluster's plan fits (a, b, c);
+    # (g)'s wide LP runs blocked_step (its ``launches``)
+    solves5d = ("a_float64", "a_float32", "b_optimal_float64",
+                "b_optimal_float32", "b_float64", "b_float32", "c_float64",
+                "c_float32", "g_wide_float64", "g_wide_float32")
     kernels[7]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_step"]
-        for case in ("a_float64", "a_float32", "b_optimal_float64",
-                     "b_optimal_float32", "b_float64", "b_float32",
-                     "c_float64", "c_float32")}
+        for case in solves5d}
     kernels[7]["ray_launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_ray"]
-        for case in ("a_float64", "c_float64")}
+        for case in ("a_float64", "c_float64", "g_wide_float64",
+                     "g_wide_float32")}
     kernels[7]["walks"] = blocked["walks"]
     kernels[7]["stages_held_at_slot"] = blocked["stages"]
     kernels[7]["slot_us"] = blocked["slot_us"]
+    kernels[9].update({key: kernels[9]["cases"]["float64"][key] for key in (
+        "device_ms", "device_ms_by_stage", "blocks", "smem", "occupancy",
+        "blocked_step_ms", "steps")})
+    kernels[9]["launches_by_path"] = {
+        f"5d_{case}": blocked["solves"][case]["launches"]["blocked_cluster"]
+        for case in solves5d}
+    kernels[9]["walks"] = blocked["cluster_walks"]
+    kernels[9]["slot_us"] = blocked["cluster_slot_us"]
+    kernels[9]["edge_walks_held"] = blocked["edge_walks"]
     kernels[0]["blocked_cases"] = blocked["flush"]
-    for k, kname in ((0, "flush"), (1, "inner_block"), (2, "fma"),
+    for k, names in ((0, "flush"), (1, "inner_block"), (2, "fma"),
                      (3, "lane_dual"), (4, "lane_primal"), (5, "bounded"),
-                     (6, "rank1"), (7, "blocked_"), (8, "cluster_kernel")):
-        kernels[k]["ptxas"] = {f: v for f, v in ptxas.items() if kname in f}
+                     (6, "rank1"), (7, tuple(BLOCKED_KERNELS.values())),
+                     (8, tuple(CLUSTER_KERNELS.values())),
+                     (9, tuple(BLOCKED_CLUSTER_KERNELS.values()))):
+        kernels[k]["ptxas"] = {
+            f: v for f, v in ptxas.items()
+            if (f in names if isinstance(names, tuple) else names in f)}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,
                     "main_path": main_path, "tf32_guard": tf32,
                     "solo_walks": solo, "blocked_engine": blocked,

@@ -414,9 +414,11 @@ def test_record_launches_raise_on_cpu_records():
 
 def test_cuda_dispatch_takes_the_kernels_with_no_fallback(monkeypatch):
     """``run_simplex_blocked`` on a state it must treat as on the card
-    (``on_cpu`` patched): ``blocked_steps`` gets a contiguous tableau, the
-    eager loop is never entered, its error propagates, and a RUNNING exit
-    becomes ITERATION_LIMIT."""
+    (``on_cpu`` patched), on the ``blocked_step`` route (``blocked_route``
+    patched; tests/test_torch_blocked_cluster.py holds the route itself):
+    ``blocked_steps`` gets a contiguous tableau, the eager loop is never
+    entered, its error propagates, and a RUNNING exit becomes
+    ITERATION_LIMIT."""
     def refuse(*args, **kw):
         raise AssertionError("the eager loop ran for a CUDA state")
 
@@ -428,6 +430,7 @@ def test_cuda_dispatch_takes_the_kernels_with_no_fallback(monkeypatch):
         return state, None
 
     monkeypatch.setattr(pb, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(pb, "blocked_route", lambda *a: "blocked_step")
     monkeypatch.setattr(pb, "run_simplex_blocked_reference", refuse)
     monkeypatch.setattr(pb, "_blocked_pivot", refuse)
     monkeypatch.setattr(pb, "blocked_steps", spy)

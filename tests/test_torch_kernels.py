@@ -341,7 +341,7 @@ def test_launch_counters_stay_zero_on_cpu():
                         "bounded_step": 0, "bounded_stage": 0,
                         "rank1_step": 0, "rank1_stage": 0,
                         "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
-                        "blocked_stage": 0}
+                        "blocked_stage": 0, "blocked_cluster": 0}
 
 
 def test_nvcc_command_line():
@@ -357,10 +357,12 @@ def test_nvcc_command_line():
         (src,) = [pathlib.Path(x) for x in cmd if x.endswith(".cu")]
         sources.append(src)
         objects.append(cmd[cmd.index("-o") + 1])
-    assert sorted(p.name for p in sources) == ["blocked.cu", "bounded.cu",
-                                               "flush.cu", "fma.cu",
-                                               "inner_block.cu", "lanes.cu",
-                                               "rank1.cu", "rank1_cluster.cu"]
+    assert sorted(p.name for p in sources) == ["blocked.cu",
+                                               "blocked_cluster.cu",
+                                               "bounded.cu", "flush.cu",
+                                               "fma.cu", "inner_block.cu",
+                                               "lanes.cu", "rank1.cu",
+                                               "rank1_cluster.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link

@@ -3,6 +3,7 @@
 from .block import (blocked_inner_block, blocked_inner_block_reference,
                     fused_flush, fused_flush_reference, inner_block_plan)
 from .blocked import blocked_stage, blocked_steps
+from .blocked_cluster import blocked_cluster_plan
 from .bounded import bounded_stage, bounded_steps
 from .fma import fused_fma
 from .lanes import lane_dual, lane_plan, lane_primal
@@ -30,4 +31,5 @@ __all__ = [
     "cluster_plan",
     "blocked_steps",
     "blocked_stage",
+    "blocked_cluster_plan",
 ]

@@ -74,6 +74,7 @@ from .launch import LAUNCHES, lib_for, raise_on, stream_of, suffix
 
 __all__ = ["BlockedRecord", "make_record", "record_state", "record_tensors",
            "clone_record", "blocked_steps", "enqueue_slots", "blocked_block",
+           "flush_and_ray",
            "blocked_stage", "blocked_cleanup_reference",
            "blocked_price_reference", "blocked_column_reference",
            "blocked_ratio_reference", "blocked_row_reference",
@@ -640,15 +641,21 @@ def _launch(rec: BlockedRecord, stage: str, opts: SolverOptions,
         raise_on(lib, err, f"blocked {stage}")
 
 
-def blocked_block(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
+def flush_and_ray(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
                   max_iters: int) -> None:
-    """One block on the card: K slots, B1's flush, the ray launch (counted
+    """A block's end on the card: B1's flush, then the ray launch (counted
     in ``LAUNCHES["blocked_ray"]``)."""
-    enqueue_slots(rec, opts, stall_limit, max_iters, rec.U.shape[0])
     _, scan = fused_flush(*flush_inputs(rec), float(opts.opt_tol),
                           float(opts.piv_tol))
     _launch(rec, "ray", opts, stall_limit, max_iters, scan)
     LAUNCHES["blocked_ray"] += 1
+
+
+def blocked_block(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
+                  max_iters: int) -> None:
+    """One block on the card: K slots, B1's flush, the ray launch."""
+    enqueue_slots(rec, opts, stall_limit, max_iters, rec.U.shape[0])
+    flush_and_ray(rec, opts, stall_limit, max_iters)
 
 
 def blocked_steps(state: SimplexState, opts: SolverOptions, stall_limit: int,

@@ -163,12 +163,15 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
-    for name in ("tpulp_rank1_cluster_f32", "tpulp_rank1_cluster_f64"):
+    for name in ("tpulp_rank1_cluster_f32", "tpulp_rank1_cluster_f64",
+                 "tpulp_blocked_cluster_f32", "tpulp_blocked_cluster_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
     for name in ("tpulp_rank1_cluster_occupancy_f32",
-                 "tpulp_rank1_cluster_occupancy_f64"):
+                 "tpulp_rank1_cluster_occupancy_f64",
+                 "tpulp_blocked_cluster_occupancy_f32",
+                 "tpulp_blocked_cluster_occupancy_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P]
         fn.restype = _I

@@ -16,14 +16,14 @@ _SELECTED = threading.local()
 # kernel launches per wrapper; a wrapper counts where it launches its
 # kernel and nowhere else ("bounded_step" counts steps of four launches,
 # "rank1_step" steps of four or five, "rank1_cluster" walks (one launch
-# each), "blocked_step" pivot slots of six and "blocked_ray" the blocked
-# engine's launch after each flush; "*_stage" the single stages launched to
-# check them)
+# each), "blocked_step" pivot slots of six, "blocked_cluster" blocks of K
+# slots (one launch each) and "blocked_ray" the blocked engine's launch
+# after each flush; "*_stage" the single stages launched to check them)
 LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0,
             "lane_dual": 0, "lane_primal": 0, "bounded_step": 0,
             "bounded_stage": 0, "rank1_step": 0, "rank1_stage": 0,
             "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
-            "blocked_stage": 0}
+            "blocked_stage": 0, "blocked_cluster": 0}
 
 
 def reset_launches() -> None:

@@ -52,7 +52,8 @@ from .rank1 import (CROW_OK, PHASE, RAY_SCAN_EVERY, RESET_ABOVE, WALKS,
                     record_state)
 
 __all__ = ["ClusterPlan", "cluster_plan", "cluster_occupancy",
-           "rank1_cluster", "rank1_cluster_reference", "CLUSTER_SIZES",
+           "rank1_cluster", "rank1_cluster_reference", "slab_sum",
+           "block_sum", "cluster_sum", "CLUSTER_SIZES",
            "CLUSTER_THREADS", "CLUSTER_SMEM_LIMIT", "CLUSTER_STATIC_SMEM",
            "CLUSTER_STAGES"]
 
@@ -225,41 +226,50 @@ def rank1_cluster(state: SimplexState, opts: SolverOptions,
 # the plain version
 # ---------------------------------------------------------------------------
 
+def slab_sum(x: torch.Tensor, width: int, C: int,
+             threads: int = CLUSTER_THREADS) -> torch.Tensor:
+    """The sum of the 1-d ``x`` as a cluster of C blocks of ``threads``
+    threads takes it (common.cuh's block_reduce): block b's slab ``x[b
+    width:(b + 1) width]``, thread t adding x[t], x[t + threads], ... in
+    turn, then the warp tree, then the same tree over the warps' sums (all
+    blocks at once); then the blocks' sums added in rank order."""
+    rounds = max(1, -(-width // threads))
+    slabs = x.new_zeros((C, rounds * threads))
+    for b in range(C):
+        part = x[b * width:(b + 1) * width]
+        slabs[b, :part.numel()] = part
+    acc = x.new_zeros((C, threads))
+    for r in range(rounds):
+        acc = acc + slabs[:, r * threads:(r + 1) * threads]
+    lanes = acc.view(C, threads // _WARP, _WARP)
+    span = _WARP
+    while span > 1:
+        span //= 2
+        lanes = lanes[..., :span] + lanes[..., span:2 * span]
+    warps = x.new_zeros((C, _WARP))
+    warps[:, :threads // _WARP] = lanes[..., 0]
+    span = _WARP
+    while span > 1:
+        span //= 2
+        warps = warps[:, :span] + warps[:, span:2 * span]
+    total = warps[0, 0]
+    for b in range(1, C):
+        total = total + warps[b, 0]
+    return total
+
+
 def block_sum(x: torch.Tensor, threads: int = CLUSTER_THREADS
               ) -> torch.Tensor:
-    """The sum of the 1-d ``x`` as a block of ``threads`` threads takes it
-    (common.cuh's block_reduce): thread t adds x[t], x[t + threads], ...
-    in turn, then the warp tree, then the same tree over the warps'
-    sums."""
-    rounds = max(1, -(-x.numel() // threads))
-    acc = torch.zeros((threads,), dtype=x.dtype, device=x.device)
-    padded = torch.cat([x, x.new_zeros(rounds * threads - x.numel())])
-    for row in padded.view(rounds, threads):
-        acc = acc + row
-    lanes = acc.view(threads // _WARP, _WARP)
-    width = _WARP
-    while width > 1:
-        width //= 2
-        lanes = lanes[:, :width] + lanes[:, width:2 * width]
-    warps = lanes[:, 0]
-    warps = torch.cat([warps, warps.new_zeros(_WARP - warps.numel())])
-    width = _WARP
-    while width > 1:
-        width //= 2
-        warps = warps[:width] + warps[width:2 * width]
-    return warps[0]
+    """The sum of the 1-d ``x`` as one block of ``threads`` threads takes
+    it (``slab_sum`` of one block)."""
+    return slab_sum(x, x.numel(), 1, threads)
 
 
 def cluster_sum(x: torch.Tensor, C: int) -> torch.Tensor:
     """The sum of the ``n`` columns' values ``x`` as the cluster takes it:
-    each block's slab of ``W = ceil((n + 1) / C)`` columns summed by
-    ``block_sum``, then the blocks' sums added in rank order."""
-    W = -(-(x.numel() + 1) // C)
-    total = None
-    for b in range(C):
-        part = block_sum(x[b * W:(b + 1) * W])
-        total = part if total is None else total + part
-    return total
+    each block's slab of ``W = ceil((n + 1) / C)`` columns, then the blocks'
+    sums in rank order (``slab_sum``)."""
+    return slab_sum(x, -(-(x.numel() + 1) // C), C)
 
 
 def _crow_ok(rec, C: int) -> bool:

@@ -15,10 +15,14 @@ no gate on basic artificials, and it breaks ratio ties by first index
 whatever ``SolverOptions.tie_break`` says (ROADMAP C (a), (b)).
 
 ``run_simplex_blocked`` runs the walk on CUDA tensors on the hand-written
-kernels (``kernels.blocked.blocked_steps``: six stream-ordered launches a
-pivot slot on a walk record kept on the card, B1's flush and one ray
-launch a block, one host read a block) and on CPU tensors as the eager loop
-below (``run_simplex_blocked_reference``: ``_blocked_pivot`` K times, a
+kernels, on the route of ``blocked_route``: where a thread-block cluster
+holds the block's eta factors (``kernels.blocked_cluster``'s plan, and the
+card holds such a cluster), ``blocked_cluster``: the K slots of a block in
+one cluster launch; else ``kernels.blocked.blocked_steps``: six
+stream-ordered launches a pivot slot. Either keeps a walk record on the
+card, flushes it with B1 and one ray launch a block, and reads it once a
+block. On CPU tensors it runs the eager loop below
+(``run_simplex_blocked_reference``: ``_blocked_pivot`` K times, a
 matrix-product flush and the ray scan, one host read a block). The batch
 and the sharded driver run the eager pivot on either device.
 """
@@ -33,12 +37,15 @@ from ..core.precision import full_precision
 from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status, eta_scaled_options)
 from ..kernels.blocked import RESET_ABOVE, blocked_steps
+from ..kernels.blocked_cluster import (blocked_cluster,
+                                       blocked_cluster_occupancy,
+                                       blocked_cluster_plan)
 from ..kernels.fma import fused_fma
 from ..kernels.launch import on_cpu
 from .driver import finish, first_true, put, ratio_rows, status_select, take
 
 __all__ = ["run_simplex_blocked", "run_simplex_blocked_reference",
-           "run_simplex_blocked_batch"]
+           "run_simplex_blocked_batch", "blocked_route"]
 
 
 class _BlockCarry(NamedTuple):
@@ -209,23 +216,43 @@ def _fresh_carry(s: SimplexState, K: int, gamma=None) -> _BlockCarry:
     )
 
 
+def blocked_route(M: int, N: int, K: int, dtype,
+                  device: torch.device) -> str:
+    """The kernel that runs a solo blocked walk in blocks of ``K`` on an (M,
+    N) tableau of ``dtype`` on the CUDA ``device``: "blocked_cluster" where
+    its plan fits (K, the cluster's size and shared memory) and the card
+    holds one such cluster (``cudaOccupancyMaxActiveClusters`` >= 1), else
+    "blocked_step"."""
+    try:
+        blocked_cluster_plan(M, N, K, dtype)
+    except ValueError:  # factors past 16 blocks' shared memory, a K past it
+        return "blocked_step"
+    if blocked_cluster_occupancy(M, N, K, dtype, device) < 1:
+        return "blocked_step"
+    return "blocked_cluster"
+
+
 @full_precision()
 def run_simplex_blocked(state: SimplexState,
                         opts: SolverOptions | None = None,
                         block: int = 64) -> SimplexState:
     """Run the rank-K blocked driver to termination or to
     ``opts.max_iters`` (single problem), in blocks of ``block`` pivots with
-    one host read of the status a block: on the blocked kernels for CUDA
-    tensors (a strided tableau is handed to them contiguous; a build or
-    launch failure raises), as the eager loop for CPU tensors."""
+    one host read of the status a block: on the kernel of ``blocked_route``
+    for CUDA tensors (a strided tableau is handed to it contiguous; a build
+    or launch failure raises), as the eager loop for CPU tensors."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
     opts = eta_scaled_options(opts, state.T.dtype)
     if on_cpu(*state):
         return run_simplex_blocked_reference(state, opts, block)
     stall_limit = opts.resolved_stall_limit(state.m, state.n)
-    out, _ = blocked_steps(state._replace(T=state.T.contiguous()), opts,
-                           stall_limit, opts.max_iters, block)
+    state = state._replace(T=state.T.contiguous())
+    M, N = state.T.shape
+    run = blocked_cluster if blocked_route(
+        M, N, block, state.T.dtype, state.T.device) == "blocked_cluster" \
+        else blocked_steps
+    out, _ = run(state, opts, stall_limit, opts.max_iters, block)
     return finish(out)
 
 
