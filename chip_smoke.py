@@ -95,7 +95,11 @@ that switches to Bland against the plain loop in every field, and each of
 the four launches against its plain stage on a step with an upper hit and
 one with an entering flip, and times a kernel step on the card; then it
 solves a batch of 256 box LPs with and without bound rows,
-a blocked batch of 8 LPs of 512 x 1024 against their solo solves, the
+a blocked batch of 8 LPs of 512 x 1024 on ``blocked_cluster`` with a lane
+axis (f64 and f32: every lane equal to its solo cluster walk bit for bit,
+one cluster, B1 and ray launch a block, the eager batch timed beside it),
+a small batch held to its plain version at every cluster size, a batch of
+more lanes than the card holds clusters and a wide one past the plan, the
 corpus's infeasible and unbounded cases with verified certificates,
 Wyndor's ranging, ``find_iis`` with every oracle solve on the card, and
 ``python -m tpulp_torch solve`` in a subprocess. Phase 9 brings up a
@@ -191,6 +195,18 @@ BOX_M, BOX_N, BOX_LANES = 64, 128, 256
 # the card's one run of the ladder's f32-to-f64 retry, fits the time
 BOX_ROW_LANES = 64
 BLK_M, BLK_N, BLK_LANES, BLK_K = 512, 1024, 8, 64
+# 8c (iii): a small batch held to its plain version on the card at every
+# cluster size, in blocks of BLK_SMALL_K: BLK_SMALL_LANES LPs of
+# BLK_SMALL_M x BLK_SMALL_N (66 x 193 tableaus), whole and to a budget
+# inside a block, with one lane ended and one at its budget at the start
+BLK_SMALL_M, BLK_SMALL_N, BLK_SMALL_LANES, BLK_SMALL_K = 64, 128, 6, 8
+BLK_SMALL_BUDGET = 37
+BLK_SMALL_SIZES = (1, 2, 4, 8)
+# (iv): more lanes than the card holds clusters at once (130 x 385)
+BLK_OCC_M, BLK_OCC_N, BLK_OCC_LANES = 128, 256, 24
+# (v): lanes of 5d (g)'s wide LP, past the cluster's plan, cut to a budget
+# of three blocks
+BLK_WIDE_LANES, BLK_WIDE_BUDGET = 2, 3 * BLK_K
 IIS_VARS, IIS_ROWS = 10, 24
 # phase 9, the sharded path over a one-process NCCL group: solve_lp's
 # shard_block; the box LP cut to a size Dantzig walks in seconds (PERF.md
@@ -2668,9 +2684,18 @@ BOUNDED_STATIC_SMEM = 33 * 32
 BLOCKED_STATIC_SMEM = BOUNDED_STATIC_SMEM + 1024 * 8 + 16
 
 
+# the flush's instantiations: <float or double, LANES> (B1 batched: LANES)
+FLUSH_KERNELS = {f"flush_kernelI{t}Lb{b}E":
+                 f"flush_kernel<{'float' if t == 'f' else 'double'}"
+                 f"{',lanes' if b == '1' else ''}>"
+                 for t in "fd" for b in "01"}
+
+
 def _ptxas_name(name: str) -> str:
     """A readable kernel name: ``flush_kernel<float>``,
     ``lane_dual_kernel<double,resident>``."""
+    if name in FLUSH_KERNELS:
+        return FLUSH_KERNELS[name]
     t = "float" if "kernelIf" in name else "double"
     head = name.split("kernelI")[0] + "kernel" if "kernelI" in name \
         else name
@@ -2705,8 +2730,7 @@ def ptxas_report(text: str):
         if fn is None:
             continue
         name = next((k for k in ("inner_block_kernelIf",
-                                 "inner_block_kernelId",
-                                 "flush_kernelIf", "flush_kernelId",
+                                 "inner_block_kernelId", *FLUSH_KERNELS,
                                  "fma_kernelIf", "fma_kernelId",
                                  "barrier_probe_kernel", *LANE_KERNELS,
                                  *BOUNDED_KERNELS, *RANK1_KERNELS,
@@ -2939,21 +2963,25 @@ def check_machine_code(lib_path):
         if not words or words[0].startswith("/*"):
             continue
         op = words[0]
-        kind = "f64" if "flush_kernelIdE" in fn else "f32"
+        # flush_kernel<T, LANES>: the solo flush and B1 batched
+        kind = ("f64" if "flush_kernelId" in fn else "f32") + (
+            " lanes" if "Lb1E" in fn else "")
         c = counts.setdefault(kind, {"DMMA": 0, "HMMA": 0, "FFMA": 0,
                                      "DFMA": 0})
         for key in c:
             if op.startswith(key):
                 c[key] += 1
     log(f"# machine code of the flush: {counts}")
-    if set(counts) != {"f32", "f64"}:
+    if set(counts) != {"f32", "f64", "f32 lanes", "f64 lanes"}:
         raise AssertionError(f"flush kernels not found in the SASS: {counts}")
-    if counts["f64"]["DMMA"] == 0:
-        raise AssertionError("the f64 flush issues no DMMA")
-    if counts["f32"]["HMMA"] or counts["f32"]["DMMA"]:
-        raise AssertionError("the f32 flush issues tensor-core instructions")
-    if counts["f32"]["FFMA"] == 0:
-        raise AssertionError("the f32 flush issues no FFMA")
+    for lanes in ("", " lanes"):
+        if counts["f64" + lanes]["DMMA"] == 0:
+            raise AssertionError(f"the f64{lanes} flush issues no DMMA")
+        if counts["f32" + lanes]["HMMA"] or counts["f32" + lanes]["DMMA"]:
+            raise AssertionError(f"the f32{lanes} flush issues tensor-core "
+                                 "instructions")
+        if counts["f32" + lanes]["FFMA"] == 0:
+            raise AssertionError(f"the f32{lanes} flush issues no FFMA")
     return counts
 
 
@@ -4343,43 +4371,512 @@ def phase_bounded_batch(dev):
     return res
 
 
-def phase_blocked_batch(dev):
-    """Phase 8c: solve_lp_batch(driver="blocked") over BLK_LANES LPs of
-    BLK_M x BLK_N at f64 (tests/test_warm_start.py's recipe, seeds 0 to
-    BLK_LANES - 1; bench.py's takes more than 10,000 pivots at this size),
-    each lane's objective within 1e-9 relative of the solo
-    solve_lp(driver="blocked")."""
+def batch_forms(m: int, n: int, lanes: int, seed0: int = 0):
+    """``lanes`` LPs of ``dense_leq_arrays(m, n)`` (seeds seed0, seed0 +
+    1, ...) as StandardForms."""
+    return [scenario_form(*dense_leq_arrays(m, n, seed=seed0 + s))
+            for s in range(lanes)]
+
+
+def batch_opts(dt, max_iters=None):
+    """The options ``run_simplex_blocked_batch`` walks with by default (a
+    budget of ``max_iters`` where given)."""
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core import eta_scaled_options
+
+    kw = {} if max_iters is None else {"max_iters": max_iters}
+    return eta_scaled_options(SolverOptions.for_dtype(dt, **kw), dt)
+
+
+def raw_equal(a, b) -> bool:
+    """Two tensors equal bit for bit, the sign of a zero and NaN payloads
+    included."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+        a, b = a.view(ints[a.dtype]), b.view(ints[b.dtype])
+    return bool(torch.equal(a, b))
+
+
+def solo_lane_walks(batched, opts, K: int, route: str = "blocked_cluster"):
+    """The solo walk of each padded lane of ``batched`` on ``route``
+    ("blocked_cluster" or "blocked_step"), as ``run_simplex_blocked``
+    would run it: (finished states, blocks each lane took, weights)."""
+    from tpulp_torch.batch import unstack_state
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.solve.driver import finish
+
+    B, M, N = batched.T.shape
+    stall = opts.resolved_stall_limit(M - 2, N - 1)
+    run = kbc.blocked_cluster if route == "blocked_cluster" \
+        else kb.blocked_steps
+    outs, blocks, gammas = [], [], []
+    for k in range(B):
+        reset_launches()
+        s, g = run(unstack_state(batched, k), opts, stall, opts.max_iters, K)
+        sync(batched.T.device)
+        outs.append(finish(s))
+        gammas.append(g)
+        blocks.append(LAUNCHES["blocked_cluster" if route == "blocked_cluster"
+                               else "blocked_ray"])
+    return outs, blocks, gammas
+
+
+def batch_equals_solo(out, solos, label: str) -> None:
+    """Raise unless every lane of the batch's terminal state equals its
+    solo walk in every field, bit for bit."""
+    for k, solo in enumerate(solos):
+        for name, a, b in zip(out._fields, out, solo):
+            if not raw_equal(a[k], b):
+                raise AssertionError(f"8c {label}: lane {k}'s {name} differs "
+                                     "from its solo walk's")
+
+
+def blocked_batch_solve(sfs, dt, dev):
+    """8c (i): ``solve_lp_batch(driver="blocked")`` over ``sfs`` at ``dt``,
+    cold and then timed warm, and its walk alone
+    (``run_simplex_blocked_batch`` on the batched state, the second of two
+    runs); every lane's terminal state equal to the solo
+    ``blocked_cluster`` walk of its padded lane bit for bit; its launches
+    one ``blocked_cluster_batch``, one ``fused_flush_batch`` and one
+    ``blocked_ray_batch`` a block (as many as the longest solo walk's) and
+    nothing else."""
     import torch
 
     import tpulp_torch
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.solve import run_simplex_blocked_batch
 
-    sfs = [scenario_form(*dense_leq_arrays(BLK_M, BLK_N, seed=s))
-           for s in range(BLK_LANES)]
-    torch.cuda.synchronize()
+    name = str(dt)[6:]
+    secs = {}
+    for run in ("cold", "warm"):
+        sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        sols, out, _ = tpulp_torch.solve_lp_batch(
+            sfs, driver="blocked", block=BLK_K, device=dev, dtype=dt,
+            return_state=True)
+        sync(dev)
+        secs[run] = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    batched = make_batched_states(sfs, dtype=dt, device=dev)
+    for _ in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        run_simplex_blocked_batch(batched, None, block=BLK_K)
+        sync(dev)
+        walk = time.perf_counter() - t0
+    solos, blocks, _ = solo_lane_walks(batched, batch_opts(dt), BLK_K)
+    batch_equals_solo(out, solos, f"(i) {name}")
+    nb = max(blocks)
+    kinds = ("blocked_cluster_batch", "fused_flush_batch",
+             "blocked_ray_batch")
+    others = {k: v for k, v in launches.items() if v and k not in kinds}
+    if others or any(launches[k] != nb for k in kinds):
+        raise AssertionError(f"8c (i) {name}: launches {launches}, the "
+                             f"longest solo walk {nb} blocks")
+    del batched
+    torch.cuda.empty_cache()
+    res = {"seconds": secs["warm"], "cold_seconds": secs["cold"],
+           "walk_seconds": walk, "niter": [s.niter for s in sols],
+           "status": [s.status for s in sols],
+           "objective": [float(s.objective) if s.is_optimal else None
+                         for s in sols],
+           "blocks": nb, "blocks_by_lane": blocks, "launches": launches}
+    log(f"# 8c (i) solve_lp_batch(driver='blocked', block={BLK_K}) "
+        f"{len(sfs)} LPs {BLK_M}x{BLK_N} {name}: {secs['warm']:.3f} s warm "
+        f"({secs['cold']:.3f} cold), the walk alone {walk:.4f} s; niter "
+        f"{res['niter']}; {nb} blocks: launches {launches}; every lane "
+        "equal to its solo blocked_cluster walk bit for bit")
+    return res
+
+
+def with_frozen_lanes(batched, max_iters: int):
+    """``batched`` with every zero of its last two lanes made -0.0, the
+    second last ended (OPTIMAL) and the last running at ``max_iters``."""
+    from tpulp_torch.core import Status
+
+    T = batched.T.clone()
+    for k in (-2, -1):
+        T[k][T[k] == 0] = -0.0
+    status, niter = batched.status.clone(), batched.niter.clone()
+    status[-2] = Status.OPTIMAL
+    niter[-1] = max_iters
+    return batched._replace(T=T, status=status, niter=niter)
+
+
+def small_batch_checks(dev):
+    """8c (iii): BLK_SMALL_LANES LPs of 66 x 193 in blocks of BLK_SMALL_K,
+    whole and to a budget inside a block, with one lane ended and one at
+    its budget at the start: ``blocked_cluster_batch`` on clusters of 1, 2,
+    4 and 8 against ``blocked_cluster_batch_reference`` on the same cluster
+    size (flushed by B1) in every field and the devex weights, at f64 and
+    f32; the frozen lanes bit for bit as they went in."""
+    import torch
+
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.kernels.block import fused_flush
+
+    sfs = batch_forms(BLK_SMALL_M, BLK_SMALL_N, BLK_SMALL_LANES, seed0=100)
+    K = BLK_SMALL_K
+    res = {}
+    for dt in (torch.float64, torch.float32):
+        base = make_batched_states(sfs, dtype=dt, device=dev)
+        for budget in (None, BLK_SMALL_BUDGET):
+            o = batch_opts(dt, budget)
+            st = with_frozen_lanes(base, o.max_iters)
+            stall = o.resolved_stall_limit(st.T.shape[1] - 2,
+                                           st.T.shape[2] - 1)
+            for C in BLK_SMALL_SIZES:
+                label = f"{str(dt)[6:]} budget {budget} C {C}"
+                reset_launches()
+                out, g = kbc.blocked_cluster_batch(st, o, stall, o.max_iters,
+                                                   K, blocks=C)
+                sync(dev)
+                launches = LAUNCHES["blocked_cluster_batch"]
+                t0 = time.perf_counter()
+                ref, gr = kbc.blocked_cluster_batch_reference(
+                    st, o, stall, o.max_iters, K, C, flush=fused_flush)
+                sync(dev)
+                plain = time.perf_counter() - t0
+                err = lanes_equal(out, ref)
+                if not torch.equal(g.cpu() + 0.0, gr.cpu() + 0.0):
+                    raise AssertionError(f"8c (iii) {label}: the devex "
+                                         "weights differ")
+                for k in (-2, -1):
+                    for name, a, b in zip(out._fields, out, st):
+                        if not raw_equal(a[k], b[k]):
+                            raise AssertionError(
+                                f"8c (iii) {label}: frozen lane {k}'s "
+                                f"{name} changed")
+                live = out.niter[:-2].tolist()
+                if budget is not None and max(live) != budget:
+                    raise AssertionError(f"8c (iii) {label}: no lane "
+                                         f"stopped at the budget: {live}")
+                if budget is None and len({n // K for n in live}) < 2:
+                    raise AssertionError(f"8c (iii) {label}: every lane "
+                                         f"ended in one block: {live}")
+                res[label] = {"launches": launches, "niter": live,
+                              "max_abs_err": err, "plain_seconds": plain}
+        del base
+    log("# 8c (iii) " + f"{BLK_SMALL_LANES} LPs {BLK_SMALL_M}x{BLK_SMALL_N}"
+        f" K={K}: blocked_cluster_batch equals blocked_cluster_batch_"
+        "reference in every field at "
+        + "; ".join(f"{k} ({v['launches']} launches, niter {v['niter']})"
+                    for k, v in res.items())
+        + "; the ended lane and the lane at its budget bit for bit")
+    return res
+
+
+def occupancy_batch(dev):
+    """8c (iv): BLK_OCC_LANES LPs of 130 x 385, more lanes than the card
+    holds clusters at once: ``run_simplex_blocked_batch`` on
+    ``blocked_cluster_batch``, every lane equal to its solo walk bit for
+    bit."""
+    import torch
+
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.solve import run_simplex_blocked_batch
+
+    dt = torch.float64
+    st = make_batched_states(batch_forms(BLK_OCC_M, BLK_OCC_N, BLK_OCC_LANES,
+                                         seed0=200), dtype=dt, device=dev)
+    _, M, N = st.T.shape
+    occ = kbc.blocked_cluster_occupancy(M, N, BLK_K, dt, st.T.device)
+    plan = kbc.blocked_cluster_plan(M, N, BLK_K, dt)
+    if occ >= BLK_OCC_LANES:
+        raise AssertionError(f"8c (iv): the card holds {occ} clusters, not "
+                             f"fewer than {BLK_OCC_LANES}")
+    sync(dev)
+    reset_launches()
     t0 = time.perf_counter()
-    batch = tpulp_torch.solve_lp_batch(sfs, driver="blocked", block=BLK_K,
-                                       device=dev)
-    torch.cuda.synchronize()
+    out = run_simplex_blocked_batch(st, None, block=BLK_K)
+    sync(dev)
     secs = time.perf_counter() - t0
+    launches = LAUNCHES["blocked_cluster_batch"]
+    solos, blocks, _ = solo_lane_walks(st, batch_opts(dt), BLK_K)
+    batch_equals_solo(out, solos, "(iv)")
+    if launches != max(blocks):
+        raise AssertionError(f"8c (iv): {launches} launches, {max(blocks)} "
+                             "blocks")
+    log(f"# 8c (iv) {BLK_OCC_LANES} LPs {M}x{N} f64: clusters of "
+        f"{plan.blocks}, cudaOccupancyMaxActiveClusters {occ}; "
+        f"{launches} launches, {secs:.3f} s; every lane equal to its solo "
+        f"walk bit for bit (niter {out.niter.tolist()})")
+    return {"occupancy": occ, "lanes": BLK_OCC_LANES, "launches": launches,
+            "seconds": secs, "niter": out.niter.tolist()}
+
+
+def wide_batch(dev):
+    """8c (v): BLK_WIDE_LANES lanes of 5d (g)'s wide LP (258 x 14,257),
+    past the cluster's plan, to a budget of BLK_WIDE_BUDGET pivots:
+    ``run_simplex_blocked_batch`` runs each lane on ``blocked_steps`` (no
+    batch launch), every lane equal to its solo walk bit for bit."""
+    import torch
+
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.solve import run_simplex_blocked_batch
+    from tpulp_torch.solve.blocked import blocked_route
+
+    dt = torch.float64
+    sfs = [scenario_form(*dense_leq_arrays(BLK5_WIDE_M, BLK5_WIDE_N,
+                                           seed=2 + s))
+           for s in range(BLK_WIDE_LANES)]
+    st = make_batched_states(sfs, dtype=dt, device=dev)
+    _, M, N = st.T.shape
+    if blocked_route(M, N, BLK_K, dt, st.T.device) != "blocked_step":
+        raise AssertionError(f"8c (v): {M} x {N} is not past the plan")
+    o = batch_opts(dt, BLK_WIDE_BUDGET)
+    sync(dev)
+    reset_launches()
+    out = run_simplex_blocked_batch(st, o, block=BLK_K)
+    sync(dev)
+    launches = dict(LAUNCHES)
+    if not launches["blocked_step"] or any(launches[k] for k in (
+            "blocked_cluster_batch", "fused_flush_batch", "blocked_ray_batch",
+            "blocked_cluster", "fused_fma")):
+        raise AssertionError(f"8c (v): launches {launches}")
+    solos, _, _ = solo_lane_walks(st, o, BLK_K, route="blocked_step")
+    batch_equals_solo(out, solos, "(v)")
+    log(f"# 8c (v) {BLK_WIDE_LANES} LPs {M}x{N} f64, budget "
+        f"{BLK_WIDE_BUDGET}: past the plan, each lane on blocked_steps "
+        f"(launches {launches}), every lane equal to its solo walk bit for "
+        "bit")
+    del st
+    torch.cuda.empty_cache()
+    return {"launches": launches, "niter": out.niter.tolist()}
+
+
+def batch_block_times(sfs, dt, dev):
+    """8c (vi): the second block of the batch's walk at ``dt``: one
+    ``blocked_cluster_batch`` launch over every lane (CUDA events after a
+    sleep, the host's time to launch it, lane 0's block 0 clock by stage)
+    against the plain version's block on the card (held equal in every
+    field of the carry); B1 batched against ``torch.baddbmm`` on the same
+    operands and against its plain version; the ray launch over the lanes
+    against its plain version; each with its bound."""
+    import torch
+
+    from tpulp_torch.batch import make_batched_states, unstack_state
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.kernels.block import (fused_flush_batch,
+                                           fused_flush_batch_reference)
+
+    name = str(dt)[6:]
+    st = make_batched_states(sfs, dtype=dt, device=dev)
+    B, M, N = st.T.shape
+    K = BLK_K
+    o = batch_opts(dt)
+    stall = o.resolved_stall_limit(M - 2, N - 1)
+    mi = o.max_iters
+    C = kbc.blocked_cluster_plan(M, N, K, dt).blocks
+    rec = kb.make_batch_record(st, K)
+    kbc.blocked_cluster_batch_block(rec, o, stall, mi)
+    kb.flush_and_ray_batch(rec, o, stall, mi)
+    start = kb.clone_record(rec)
+    dev_ms, host_ms = [], []
+    for _ in range(3):
+        c = kb.clone_record(start)
+        d, h = launches_us(lambda: kbc.blocked_cluster_batch_block(
+            c, o, stall, mi), 1)
+        dev_ms.append(d / 1e3)
+        host_ms.append(h / 1e3)
+    if c.ints[:, kb.STATUS].any() or not bool(
+            (c.ints[:, kb.SLOT] == K).all()):
+        raise AssertionError(f"8c (vi) {name}: the timed block did not run "
+                             f"{K} slots in every lane")
+    cyc = torch.zeros((len(kbc.BLOCKED_CLUSTER_STAGES),), dtype=torch.int64,
+                      device=st.T.device)
+    kbc.blocked_cluster_batch_block(kb.clone_record(start), o, stall, mi,
+                                    stage_cycles=cyc)
+    p = kb.clone_record(start)
+    sync(dev)
+    t0 = time.perf_counter()
+    for k in range(B):
+        kbc.blocked_cluster_block_reference(kb.lane_record(p, k), o, stall,
+                                            mi, C)
+    sync(dev)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = lanes_equal(kb.record_state(c), kb.record_state(p))
+    for f in ("U", "V", "row0", "row1", "bvec", "gamma"):
+        if not torch.equal(getattr(c, f).cpu() + 0.0,
+                           getattr(p, f).cpu() + 0.0):
+            raise AssertionError(f"8c (vi) {name}: the launch's {f} differs "
+                                 "from the plain block's")
+    dev_ms = float(np.median(dev_ms))
+    share = (cyc.double() / cyc.sum().double().clamp_min(1)).tolist()
+    split = {s: dev_ms * f for s, f in zip(kbc.BLOCKED_CLUSTER_STAGES,
+                                           share)}
+    slot_ms, by = cluster_bound(unstack_state(st, 0), o, K)
+    res = {"cluster": {
+        "max_abs_err": err, "ms": dev_ms, "plain_ms": plain_ms,
+        "bound_ms": B * K * slot_ms, "bound_by": by, "library_ms": None,
+        "host_ms": float(np.median(host_ms)), "device_ms_by_stage": split,
+        "lanes": B, "blocks": C}}
+    # B1 over the lanes, on the carry after the timed launch (every lane
+    # live); the library's batched product on the same operands
+    T, U, V, ca = kb.flush_inputs(c)
+    live = c.ints[:, kb.LIVE]
+    ot, pt = float(o.opt_tol), float(o.piv_tol)
+    Tk, Tp = T.clone(), T.clone()
+    _, scan = fused_flush_batch(Tk, U, V, ca, live, ot, pt)
+    fused_flush_batch_reference(Tp, U, V, ca, live, ot, pt)
+    sync(dev)
+    # the scan columns of the kernel's own flushed lanes (the two products
+    # sum in different orders, so a reduced cost within rounding of a
+    # tolerance may fall on either side of it)
+    for k in range(B):
+        if not torch.equal(scan[k].cpu(), scan_of(Tk[k], ca[k], ot,
+                                                  pt).cpu()):
+            raise AssertionError(f"8c (vi) {name}: B1 batched's scan "
+                                 f"columns of lane {k} are not its T's")
+    flush_err = float((Tk - Tp).abs().max())
+    tol = 1e-9 if dt == torch.float64 else 1e-3
+    if not flush_err <= tol * max(1.0, float(Tp.abs().max())):
+        raise AssertionError(f"8c (vi) {name}: B1 batched differs from the "
+                             f"plain version by {flush_err}")
+    Tw = T.clone()
+    es = T.element_size()
+    res["flush"] = {
+        "max_abs_err": flush_err,
+        "ms": device_time_ms(lambda: fused_flush_batch(Tw, U, V, ca, live,
+                                                       ot, pt), RUNS),
+        "plain_ms": cuda_time_ms(lambda: fused_flush_batch_reference(
+            Tw, U, V, ca, live, ot, pt), 5),
+        "library_ms": device_time_ms(lambda: torch.baddbmm(
+            T, U.transpose(1, 2), V), RUNS)}
+    res["flush"]["bound_ms"], res["flush"]["bound_by"] = bound(
+        B * (es * (2 * M * N + K * (M + N)) + 4 * 3 * N),
+        2.0 * B * M * N * K,
+        FP64_TC_FLOP_S if dt == torch.float64 else FP32_FLOP_S)
+    # the ray launch over the lanes, after the flush
+    ck = kb.clone_record(c)
+    ck.T.copy_(Tk)
+    cp = kb.clone_record(ck)
+    kb.ray_batch(ck, scan, o, stall, mi)
+    for k in range(B):
+        kb.blocked_ray_reference(kb.lane_record(cp, k), scan[k], o)
+    sync(dev)
+    for f, a, b in zip(ck._fields, ck, cp):
+        if f != "scratch" and not raw_equal(a, b):
+            raise AssertionError(f"8c (vi) {name}: the ray launch's {f} "
+                                 "differs from the plain stage's")
+    cw = kb.clone_record(ck)
+
+    def plain_ray():
+        for k in range(B):
+            kb.blocked_ray_reference(kb.lane_record(cw, k), scan[k], o)
+
+    res["ray"] = {
+        "max_abs_err": 0.0,
+        "ms": device_time_ms(lambda: kb.ray_batch(cw, scan, o, stall, mi),
+                             RUNS),
+        "plain_ms": cuda_time_ms(plain_ray, 5), "library_ms": None}
+    res["ray"]["bound_ms"], res["ray"]["bound_by"] = bound(
+        B * (es * (2 * (2 * N + M) + K * (M + N)) + 4 * 2 * N), 0.0,
+        FP64_FLOP_S)
+    log(f"# 8c (vi) {B} LPs {M}x{N} {name} K={K} C={C}: one "
+        f"blocked_cluster_batch launch {dev_ms:.4f} ms on the card (host "
+        f"{res['cluster']['host_ms']:.4f} ms to launch; lane 0's block 0: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"), the plain block {plain_ms:.1f} ms, bound "
+        f"{res['cluster']['bound_ms']:.5f} ms ({by}); B1 batched "
+        f"{res['flush']['ms']:.4f} ms, torch.baddbmm "
+        f"{res['flush']['library_ms']:.4f}, plain "
+        f"{res['flush']['plain_ms']:.4f}, bound "
+        f"{res['flush']['bound_ms']:.5f} ({res['flush']['bound_by']}), "
+        f"max |diff| {flush_err:.2e}; the ray launch {res['ray']['ms']:.4f} "
+        f"ms, plain {res['ray']['plain_ms']:.3f}, bound "
+        f"{res['ray']['bound_ms']:.5f}")
+    del st, rec, start, c, p, ck, cp, cw, Tk, Tp, Tw
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_blocked_batch(dev):
+    """Phase 8c: the blocked batch on the card. (i)
+    ``solve_lp_batch(driver="blocked", block=BLK_K)`` over BLK_LANES LPs of
+    BLK_M x BLK_N (tests/test_warm_start.py's recipe, seeds 0 to BLK_LANES
+    - 1) at f64 and f32, timed: every lane equal to the solo
+    ``blocked_cluster`` walk of its padded lane bit for bit, one
+    ``blocked_cluster_batch``, ``fused_flush_batch`` and
+    ``blocked_ray_batch`` launch a block and no other; each f64 objective
+    within 1e-9 relative of the solo ``solve_lp(driver="blocked")``'s; (ii)
+    the eager batch (``run_simplex_blocked_batch_reference``) on the card
+    once at f64, timed, its objectives within 1e-9 of the kernels'; (iii)
+    a small batch against its plain version at every cluster size
+    (``small_batch_checks``); (iv) more lanes than the card holds clusters
+    (``occupancy_batch``); (v) a wide batch past the plan
+    (``wide_batch``); (vi) a block's launches timed, each beside its plain
+    version, B1 beside ``torch.baddbmm`` (``batch_block_times``)."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.solve.blocked import run_simplex_blocked_batch_reference
+
+    sfs = batch_forms(BLK_M, BLK_N, BLK_LANES)
+    res = {"solves": {str(dt)[6:]: blocked_batch_solve(sfs, dt, dev)
+                      for dt in (torch.float64, torch.float32)}}
+    main = res["solves"]["float64"]
+    sync(dev)
     t0 = time.perf_counter()
     solo = [tpulp_torch.solve_lp(sf, driver="blocked", block=BLK_K,
                                  device=dev) for sf in sfs]
-    torch.cuda.synchronize()
+    sync(dev)
     solo_secs = time.perf_counter() - t0
-    rel = [abs(float(a.objective) - float(s.objective))
-           / max(1.0, abs(float(s.objective)))
-           if a.is_optimal and s.is_optimal else float("inf")
-           for a, s in zip(batch, solo)]
-    log(f"# solve_lp_batch(driver='blocked', block={BLK_K}) {BLK_LANES} "
-        f"LPs {BLK_M}x{BLK_N} f64: {secs:.2f} s (solo: {solo_secs:.2f} s "
-        f"for the {BLK_LANES}); niter batch {[s.niter for s in batch]}, "
-        f"solo {[s.niter for s in solo]}; max relative objective "
-        f"difference {max(rel):.2e}")
+    rel = [abs(a - float(s.objective)) / max(1.0, abs(float(s.objective)))
+           if a is not None and s.is_optimal else float("inf")
+           for a, s in zip(main["objective"], solo)]
     if max(rel) > 1e-9:
         raise AssertionError(f"blocked batch: lanes differ from solo {rel}")
-    return {"seconds": secs, "solo_seconds": solo_secs,
-            "niter": [s.niter for s in batch],
-            "solo_niter": [s.niter for s in solo]}
+    batched = make_batched_states(sfs, dtype=torch.float64, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    eager = run_simplex_blocked_batch_reference(batched, None, BLK_K)
+    sync(dev)
+    eager_secs = time.perf_counter() - t0
+    eager_obj = (-eager.T[:, 0, -1]).tolist()
+    erel = [abs(a - e) / max(1.0, abs(e)) if a is not None else float("inf")
+            for a, e in zip(main["objective"], eager_obj)]
+    if max(erel) > 1e-9 or [s == "optimal" for s in main["status"]] != [
+            int(x) == 1 for x in eager.status.tolist()]:
+        raise AssertionError(f"8c (ii): the eager batch differs: {erel}, "
+                             f"status {eager.status.tolist()}")
+    del batched, eager
+    torch.cuda.empty_cache()
+    log(f"# solve_lp_batch(driver='blocked', block={BLK_K}) {BLK_LANES} "
+        f"LPs {BLK_M}x{BLK_N} f64: {main['seconds']:.3f} s on "
+        f"blocked_cluster_batch (f32 {res['solves']['float32']['seconds']:.3f}"
+        f" s), its walk {main['walk_seconds']:.4f} s; the eager batch's "
+        f"walk {eager_secs:.2f} s; solo: {solo_secs:.2f} s "
+        f"for the {BLK_LANES}; niter batch {main['niter']}, solo "
+        f"{[s.niter for s in solo]}; max relative objective difference "
+        f"{max(rel):.2e} (solo), {max(erel):.2e} (eager)")
+    res.update({"seconds": main["seconds"], "solo_seconds": solo_secs,
+                "eager_seconds": eager_secs, "niter": main["niter"],
+                "solo_niter": [s.niter for s in solo],
+                "max_rel_objective": max(rel),
+                "max_rel_objective_eager": max(erel)})
+    res["small"] = small_batch_checks(dev)
+    res["occupancy"] = occupancy_batch(dev)
+    res["wide"] = wide_batch(dev)
+    res["times"] = {str(dt)[6:]: batch_block_times(sfs, dt, dev)
+                    for dt in (torch.float64, torch.float32)}
+    return res
 
 
 def wyndor_ranging_lp():
@@ -5211,6 +5708,7 @@ def main() -> int:
                     or m.startswith("tpulp."))
     if loaded:
         raise AssertionError(f"jax or tpulp modules were imported: {loaded}")
+    batch_launches = exact["blocked_batch"]["solves"]["float64"]["launches"]
     sources = {
         "fused_flush": ("tpulp_torch/kernels/csrc/flush.cu",
                         "tpulp/kernels/pallas_block.py:491", launches),
@@ -5254,6 +5752,21 @@ def main() -> int:
                             "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
                             "one block of the fori_loop 272-275)",
                             blocked["launches"]),
+        "blocked_cluster_batch": (
+            "tpulp_torch/kernels/csrc/blocked_cluster.cu",
+            "none: XLA's vmapped lax.while_loop over _blocked_pivot "
+            "(tpulp/solve/blocked.py:61-245, the batch 335-366)",
+            batch_launches),
+        "fused_flush_batch": (
+            "tpulp_torch/kernels/csrc/flush.cu",
+            "tpulp/kernels/pallas_block.py:491 (B1, here with a lane axis: "
+            "tpulp's vmapped batch flushes with XLA's product, "
+            "tpulp/solve/blocked.py:335-366)", batch_launches),
+        "blocked_ray_batch": (
+            "tpulp_torch/kernels/csrc/blocked.cu",
+            "none: the per-lane ray scan and carry reset of tpulp's "
+            "vmapped blocked batch (tpulp/solve/blocked.py:335-366)",
+            batch_launches),
     }
     # rank1_step's main path since the cluster kernel took the frames a
     # cluster holds: (f)'s driver="rank1" solve at 1538 x 3073
@@ -5261,6 +5774,8 @@ def main() -> int:
         solo["solves"]["f_float64"]["launches"],)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    batch_part = {"blocked_cluster_batch": "cluster",
+                  "fused_flush_batch": "flush", "blocked_ray_batch": "ray"}
     kernels = []
     for kname, (src, repl, counts) in sources.items():
         if kname == "fused_fma":
@@ -5430,6 +5945,13 @@ def main() -> int:
                     "blocks": w["cluster"], "smem": w["smem"],
                     "occupancy": w["occupancy"], "steps": w["niter"]}
             head = cases["float64"]
+        elif kname in batch_part:
+            # a block of 8c's batch (8 lanes of 514 x 1025, K 64): the
+            # launch over the lanes on the card, beside its plain version
+            times = exact["blocked_batch"]["times"]
+            cases = {dt: times[dt][batch_part[kname]]
+                     for dt in ("float64", "float32")}
+            head = cases["float64"]
         elif kname.startswith("lane_"):
             # the headline: the f64 bench knapsack's warm wave (the dual
             # loop) and cold wave (the primal loop), 128 lanes of 59 x 114
@@ -5570,11 +6092,30 @@ def main() -> int:
     kernels[9]["slot_us"] = blocked["cluster_slot_us"]
     kernels[9]["edge_walks_held"] = blocked["edge_walks"]
     kernels[0]["blocked_cases"] = blocked["flush"]
-    for k, names in ((0, "flush"), (1, "inner_block"), (2, "fma"),
+    # the blocked batch (8c): its three launches a block by path; past the
+    # plan its lanes run blocked_step
+    bb = exact["blocked_batch"]
+    for k in (10, 11, 12):
+        kernels[k]["launches_by_path"] = {
+            "8c_float32": bb["solves"]["float32"]["launches"][
+                kernels[k]["name"]],
+            "8c_wide_float64": bb["wide"]["launches"][kernels[k]["name"]]}
+    kernels[10]["launches_by_path"]["8c_occupancy_float64"] = \
+        bb["occupancy"]["launches"]
+    kernels[10]["small_batch_held"] = bb["small"]
+    kernels[7]["launches_by_path"]["8c_wide_float64"] = \
+        bb["wide"]["launches"]["blocked_step"]
+    for k, names in ((0, ("flush_kernel<float>", "flush_kernel<double>")),
+                     (1, "inner_block"), (2, "fma"),
                      (3, "lane_dual"), (4, "lane_primal"), (5, "bounded"),
                      (6, "rank1"), (7, tuple(BLOCKED_KERNELS.values())),
                      (8, tuple(CLUSTER_KERNELS.values())),
-                     (9, tuple(BLOCKED_CLUSTER_KERNELS.values()))):
+                     (9, tuple(BLOCKED_CLUSTER_KERNELS.values())),
+                     (10, tuple(BLOCKED_CLUSTER_KERNELS.values())),
+                     (11, ("flush_kernel<float,lanes>",
+                           "flush_kernel<double,lanes>")),
+                     (12, ("blocked_ray_kernel<float>",
+                           "blocked_ray_kernel<double>"))):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

@@ -341,7 +341,9 @@ def test_launch_counters_stay_zero_on_cpu():
                         "bounded_step": 0, "bounded_stage": 0,
                         "rank1_step": 0, "rank1_stage": 0,
                         "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
-                        "blocked_stage": 0, "blocked_cluster": 0}
+                        "blocked_stage": 0, "blocked_cluster": 0,
+                        "blocked_cluster_batch": 0, "fused_flush_batch": 0,
+                        "blocked_ray_batch": 0}
 
 
 def test_nvcc_command_line():

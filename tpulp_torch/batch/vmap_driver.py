@@ -221,9 +221,15 @@ def solve_lp_batch(
     ``driver="blocked"`` runs the rank-K blocked driver over the lanes
     (``solve.blocked.run_simplex_blocked_batch``, eta blocks of
     ``block``), for lanes whose tableaus are too large to rewrite whole
-    every pivot. ``simple_bounds=True`` lowers finite upper bounds without
-    rows and runs the bounded-variable step over the lanes; otherwise spans
-    become explicit bound rows (the same optimum).
+    every pivot. On the card a block of every lane is one launch of
+    ``blocked_cluster`` with a lane axis (one thread-block cluster a lane),
+    one B1 flush and one ray launch over the lanes, with one host read of
+    the lanes' status a block; past the cluster's plan (a wide LP, a
+    ``block`` past it) each lane's solo walk runs on ``blocked_steps`` in
+    turn. On the CPU it is the eager vmapped loop. ``simple_bounds=True``
+    lowers finite upper bounds without rows and runs the bounded-variable
+    step over the lanes; otherwise spans become explicit bound rows (the
+    same optimum).
 
     ``mesh`` (a ``DeviceMesh`` whose device type is ``device``'s, every
     process calling alike) splits the lanes over ``batch_axis`` and each

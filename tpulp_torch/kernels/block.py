@@ -3,7 +3,9 @@
 The counterparts of ``tpulp.kernels.pallas_block``:
 
 * ``fused_flush`` (CUDA ``csrc/flush.cu``): the once-per-block
-  ``T += U^T V`` in place, with the (2, N) int32 ray-scan columns.
+  ``T += U^T V`` in place, with the (2, N) int32 ray-scan columns;
+  ``fused_flush_batch`` the same over the lanes of a batched record in one
+  launch, skipping the lanes that are not live.
 * ``blocked_inner_block`` (CUDA ``csrc/inner_block.cu``): up to K two-phase
   simplex pivots on the implicit tableau ``T0 + U^T V``, all scalars on
   the device.
@@ -37,7 +39,8 @@ from .launch import LAUNCHES, check, lib_for, on_cpu, raise_on, \
     reset_launches, stream_of, suffix
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_flush",
-           "fused_flush_reference", "blocked_inner_block",
+           "fused_flush_reference", "fused_flush_batch",
+           "fused_flush_batch_reference", "blocked_inner_block",
            "blocked_inner_block_reference", "inner_block_plan",
            "InnerBlockPlan", "barrier_probe", "eta_sum", "BIG_I",
            "DEVEX_RESET"]
@@ -93,6 +96,50 @@ def fused_flush(T, U, V, ca, opt_tol: float, piv_tol: float):
                       ca.data_ptr(), scan.data_ptr(), M, N, K,
                       float(opt_tol), float(piv_tol), stream), "flush")
     LAUNCHES["fused_flush"] += 1
+    return T, scan
+
+
+@full_precision()
+def fused_flush_batch_reference(T, U, V, ca, live, opt_tol: float,
+                                piv_tol: float):
+    """Plain version of ``fused_flush_batch``: ``fused_flush_reference`` of
+    each lane whose ``live`` flag is set, in place; the other lanes' T stays
+    as it was, bit for bit, and their scan columns are zero."""
+    B, _, N = T.shape
+    scan = torch.zeros((B, 2, N), dtype=torch.int32, device=T.device)
+    for k, on in enumerate(live.tolist()):
+        if on:
+            scan[k] = fused_flush_reference(T[k], U[k], V[k], ca[k], opt_tol,
+                                            piv_tol)[1]
+    return T, scan
+
+
+def fused_flush_batch(T, U, V, ca, live, opt_tol: float, piv_tol: float):
+    """``fused_flush`` of every lane of a batched record in one launch: T
+    (B, M, N), U (B, K, M), V (B, K, N), ca (B, N) int32, each contiguous;
+    ``live`` (B,) int32 (any stride: the record's ``LIVE`` column) skips
+    each lane whose flag is 0 whole. Returns ``(T, scan)``, scan (B, 2, N)
+    int32, zero on a skipped lane."""
+    if on_cpu(T, U, V, ca, live):
+        return fused_flush_batch_reference(T, U, V, ca, live, opt_tol,
+                                           piv_tol)
+    B, M, N = T.shape
+    K = U.shape[1]
+    check(T, "T", T.dtype, (B, M, N))
+    check(U, "U", T.dtype, (B, K, M))
+    check(V, "V", T.dtype, (B, K, N))
+    check(ca, "ca", torch.int32, (B, N))
+    if live.dtype != torch.int32 or tuple(live.shape) != (B,):
+        raise ValueError(f"live: expected int32 ({B},), got {live.dtype} "
+                         f"{tuple(live.shape)}")
+    lib = lib_for(T.device)
+    scan = torch.zeros((B, 2, N), dtype=torch.int32, device=T.device)
+    fn = getattr(lib, f"tpulp_flush_batch_{suffix(T.dtype)}")
+    raise_on(lib, fn(T.data_ptr(), U.data_ptr(), V.data_ptr(),
+                      ca.data_ptr(), scan.data_ptr(), live.data_ptr(),
+                      live.stride(0), M, N, K, B, float(opt_tol),
+                      float(piv_tol), stream_of(T.device)), "flush batch")
+    LAUNCHES["fused_flush_batch"] += 1
     return T, scan
 
 

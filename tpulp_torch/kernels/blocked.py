@@ -38,7 +38,12 @@ engine and resets the carry for the next block (``row0``, ``row1``,
 The record (``BlockedRecord``) holds the walk's state (copies of the
 caller's tensors, which are never written), the block's eta factors and
 running vectors, the slot's verdict (``ints`` past the scalars, ``vals``)
-and the scratch one launch passes to the next. Every slot launch returns at
+and the scratch one launch passes to the next. A batched record
+(``make_batch_record``) holds the same fields with a leading lane axis,
+contiguous, for ``blocked_cluster_batch``: there ``LIVE`` is each lane's
+verdict at the block's start (running within its budget), which its
+cluster launch writes and B1 and the ray launch obey; a solo record is
+always live. Every slot launch returns at
 once unless the record's status is RUNNING: the eager pivot's own gate. The
 budget enters as it does there, through ``act``, so a slot past the budget
 pivots nowhere and still records what ``_blocked_pivot`` records (an exit,
@@ -66,15 +71,16 @@ import torch
 
 from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status)
-from .block import fused_flush, fused_flush_reference
+from .block import fused_flush, fused_flush_batch, fused_flush_reference
 # the devex frame is re-anchored past this weight, as in the bounded walk
 from .bounded import BIG_I, DEVEX_RESET_ABOVE as RESET_ABOVE
 from .fma import fused_fma
 from .launch import LAUNCHES, lib_for, raise_on, stream_of, suffix
 
 __all__ = ["BlockedRecord", "make_record", "record_state", "record_tensors",
-           "clone_record", "blocked_steps", "enqueue_slots", "blocked_block",
-           "flush_and_ray",
+           "clone_record", "make_batch_record", "lane_record",
+           "blocked_steps", "enqueue_slots", "blocked_block",
+           "flush_and_ray", "flush_and_ray_batch", "ray_batch",
            "blocked_stage", "blocked_cleanup_reference",
            "blocked_price_reference", "blocked_column_reference",
            "blocked_ratio_reference", "blocked_row_reference",
@@ -89,12 +95,13 @@ GRID_THREADS = 256  # threads of the grid launches (csrc/blocked.cu)
 
 # the record's int32 fields: the walk's scalars, the slot t and the first
 # row whose basic column is artificial; the slot's verdict (price writes
-# CLEANUP..RETIRE, ratio the rest); then one partial a cleanup block
+# CLEANUP..RETIRE, ratio the rest); the lane's verdict at the block's start
+# (LIVE); then one partial a cleanup block
 PHASE, STATUS, NITER, STUCK, BLAND, SLOT, ART_ROW = range(7)
 (CLEANUP, R_D, HAS_ELIG, J, HAS_IMPROVING, INFEASIBLE, TO_PHASE2,
  PRICING_PIVOT, CROW_OK, RETIRE, DO_CLEANUP, DO_PRICING, ACT, R, LEAVING,
- UNBOUNDED, FAILED1, RAY) = range(7, 25)
-NI = 25
+ UNBOUNDED, FAILED1, RAY, LIVE) = range(7, 26)
+NI = 26
 # the record's values in the tableau's type
 LAST_Z, PIV, GAMMA_Q = range(3)
 NV = 3
@@ -109,6 +116,8 @@ _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
 _TOLS = ctypes.c_double * _NTOLS
 _INT_MAX = 2 ** 31 - 1
+# lanes of a batched launch (a grid's y and z extent)
+_MAX_LANES = 65_535
 # basis values go through the tableau's type in Bland's row tie: exact in
 # float32 below 2^24
 _MAX_SIDE = 1 << 24
@@ -126,7 +135,8 @@ def partials(M: int, N: int) -> int:
 
 class BlockedRecord(NamedTuple):
     """One walk's state and its current block on one device, updated in
-    place by the stages."""
+    place by the stages (a batched record: every field with a leading lane
+    axis)."""
 
     T: torch.Tensor           # (M, N) T0, the block-start tableau
     U: torch.Tensor           # (K, M) eta vectors (zero beyond t)
@@ -148,31 +158,54 @@ def make_record(state: SimplexState, K: int) -> BlockedRecord:
     """A record of ``state`` for blocks of ``K`` pivots: copies of its
     tensors and the first block's carry (``solve.blocked._fresh_carry``:
     the etas zero, the devex weights ones)."""
+    return _make(state, K, ())
+
+
+def make_batch_record(batched: SimplexState, K: int) -> BlockedRecord:
+    """``make_record`` of every lane of a batched state, as one record
+    with a leading lane axis, each field contiguous."""
+    return _make(batched, K, tuple(batched.T.shape[:1]))
+
+
+def _make(state: SimplexState, K: int, lanes: tuple) -> BlockedRecord:
     T = state.T
-    M, N = T.shape
+    M, N = T.shape[-2:]
     n = N - 1
     dev, dt = T.device, T.dtype
     i32 = dict(dtype=torch.int32, device=dev)
     T = T.clone(memory_format=torch.contiguous_format)
-    art_basic = state.art_cols[state.basis.long()]
-    ints = torch.zeros((NI + _cdiv(n, GRID_THREADS),), **i32)
-    first_art = torch.where(art_basic.any(),
-                            torch.argmax(art_basic.to(torch.int32)), BIG_I)
-    ints[:ART_ROW + 1] = torch.stack([x.to(torch.int32) for x in (
+    art_basic = torch.gather(state.art_cols, -1, state.basis.long())
+    ints = torch.zeros(lanes + (NI + _cdiv(n, GRID_THREADS),), **i32)
+    first_art = torch.where(art_basic.any(-1),
+                            torch.argmax(art_basic.to(torch.int32), -1),
+                            BIG_I)
+    ints[..., :ART_ROW + 1] = torch.stack([x.to(torch.int32) for x in (
         state.phase, state.status, state.niter, state.stuck, state.bland,
-        torch.zeros((), **i32), first_art)])
-    vals = torch.zeros((NV,), dtype=dt, device=dev)
-    vals[LAST_Z] = state.last_z
+        torch.zeros(lanes, **i32), first_art)], -1)
+    ints[..., LIVE] = 1
+    vals = torch.zeros(lanes + (NV,), dtype=dt, device=dev)
+    vals[..., LAST_Z] = state.last_z
     kw = dict(dtype=dt, device=dev)
     return BlockedRecord(
-        T=T, U=torch.zeros((K, M), **kw), V=torch.zeros((K, N), **kw),
-        row0=T[0].clone(), row1=T[1].clone(), bvec=T[:, -1].clone(),
-        gamma=torch.ones((n,), **kw),
+        T=T, U=torch.zeros(lanes + (K, M), **kw),
+        V=torch.zeros(lanes + (K, N), **kw), row0=_copy(T[..., 0, :]),
+        row1=_copy(T[..., 1, :]), bvec=_copy(T[..., :, -1]),
+        gamma=torch.ones(lanes + (n,), **kw),
         basis=state.basis.to(torch.int32).clone(),
         col_active=state.col_active.clone(),
         art_cols=state.art_cols.clone(),
-        ca=torch.zeros((N,), **i32), ints=ints, vals=vals,
-        scratch=torch.zeros((M + N + 2 * partials(M, N),), **kw))
+        ca=torch.zeros(lanes + (N,), **i32), ints=ints, vals=vals,
+        scratch=torch.zeros(lanes + (M + N + 2 * partials(M, N),), **kw))
+
+
+def _copy(x: torch.Tensor) -> torch.Tensor:
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def lane_record(rec: BlockedRecord, k: int) -> BlockedRecord:
+    """Lane ``k`` of a batched record: views, which the plain stages
+    update in place."""
+    return BlockedRecord(*(x[k] for x in rec))
 
 
 def record_tensors(rec: BlockedRecord):
@@ -186,13 +219,15 @@ def clone_record(rec: BlockedRecord) -> BlockedRecord:
 
 def record_state(rec: BlockedRecord) -> SimplexState:
     """The walk's state with the record's fields (T is the block-start
-    tableau: the walk's own after the flush that ends its block)."""
+    tableau: the walk's own after the flush that ends its block); of a
+    batched record, the batched state."""
     ints = rec.ints
     return SimplexState(
         T=rec.T, basis=rec.basis, col_active=rec.col_active,
-        art_cols=rec.art_cols, phase=ints[PHASE], status=ints[STATUS],
-        niter=ints[NITER], stuck=ints[STUCK], bland=ints[BLAND] != 0,
-        last_z=rec.vals[LAST_Z])
+        art_cols=rec.art_cols, phase=ints[..., PHASE],
+        status=ints[..., STATUS], niter=ints[..., NITER],
+        stuck=ints[..., STUCK], bland=ints[..., BLAND] != 0,
+        last_z=rec.vals[..., LAST_Z])
 
 
 # ---------------------------------------------------------------------------
@@ -469,6 +504,8 @@ def blocked_ray_reference(rec: BlockedRecord, scan: torch.Tensor,
     block's carry: ``row0``, ``row1``, ``bvec`` from the flushed T, the
     etas zero, ``t = 0``."""
     iv = rec.ints.tolist()
+    if not iv[LIVE]:
+        return
     ray = (bool(((scan[0] > 0) & ~(scan[1] > 0)).any())
            and iv[ART_ROW] == BIG_I and iv[PHASE] == 2 and _running(iv))
     rec.ints[RAY] = int(ray)
@@ -510,7 +547,7 @@ def blocked_pivot_reference(rec: BlockedRecord, opts: SolverOptions,
 def flush_inputs(rec: BlockedRecord):
     """B1's operands ``(T, U, V, ca)`` of the record's block, ``ca`` set
     from the record's ``col_active`` (0 at the RHS)."""
-    rec.ca[:-1].copy_(rec.col_active)
+    rec.ca[..., :-1].copy_(rec.col_active)
     return rec.T, rec.U, rec.V, rec.ca
 
 
@@ -537,6 +574,15 @@ def _walk(rec: BlockedRecord, max_iters: int, block) -> None:
         block(rec)
 
 
+def _walk_batch(rec: BlockedRecord, max_iters: int, block) -> None:
+    """``block(rec)`` on a batched record while any lane is running within
+    ``max_iters``: one host read of every lane's (status, niter) a block,
+    as the eager batch."""
+    while any(status == Status.RUNNING and niter < max_iters
+              for status, niter in rec.ints[:, STATUS:NITER + 1].tolist()):
+        block(rec)
+
+
 def blocked_walk_reference(state: SimplexState, opts: SolverOptions,
                            stall_limit: int, max_iters: int, K: int,
                            flush=fused_flush_reference):
@@ -554,16 +600,21 @@ def blocked_walk_reference(state: SimplexState, opts: SolverOptions,
 # the kernels
 # ---------------------------------------------------------------------------
 
-def _check(state: SimplexState, K: int) -> None:
+def _check(state: SimplexState, K: int, batched: bool = False) -> None:
     """Raise on a state the kernels do not take: a dtype other than f32 /
     f64, a strided tableau, a field of the wrong type or length, a tensor
-    off the card or on another card, a block past ``MAX_K``."""
+    off the card or on another card, a block past ``MAX_K``; ``batched``:
+    the same with a leading lane axis on every field."""
     T = state.T
     suffix(T.dtype)
-    if T.dim() != 2 or not T.is_contiguous():
-        raise ValueError(f"T: expected a contiguous (m + 2, n + 1) tableau, "
-                         f"got {tuple(T.shape)} stride {T.stride()}")
-    M, N = T.shape
+    lanes = tuple(T.shape[:1]) if batched else ()
+    if T.dim() != 2 + len(lanes) or not T.is_contiguous():
+        shape = "(B, m + 2, n + 1)" if batched else "(m + 2, n + 1)"
+        raise ValueError(f"T: expected a contiguous {shape} tableau, got "
+                         f"{tuple(T.shape)} stride {T.stride()}")
+    if batched and not 1 <= T.shape[0] <= _MAX_LANES:
+        raise ValueError(f"{T.shape[0]} lanes outside 1..{_MAX_LANES}")
+    M, N = T.shape[-2:]
     if M < 3 or N < 2 or max(M, N) >= _MAX_SIDE:
         raise ValueError(f"tableau {M} x {N} outside 3..2^24 x 2..2^24")
     if not 1 <= K <= MAX_K:
@@ -579,6 +630,7 @@ def _check(state: SimplexState, K: int) -> None:
             ("stuck", state.stuck, torch.int32, ()),
             ("bland", state.bland, torch.bool, ()),
             ("last_z", state.last_z, T.dtype, ())):
+        shape = lanes + shape
         if x.dtype != dt or tuple(x.shape) != shape:
             raise ValueError(f"{name}: expected {dt} {shape}, got "
                              f"{x.dtype} {tuple(x.shape)}")
@@ -591,20 +643,27 @@ def _check(state: SimplexState, K: int) -> None:
 def _entry(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
            max_iters: int, scan: torch.Tensor | None = None):
     """(library, the entry's argument arrays) for a record of
-    ``make_record`` on one CUDA device."""
+    ``make_record`` (or ``make_batch_record``) on one CUDA device."""
     T = rec.T
-    M, N = T.shape
-    K = rec.U.shape[0]
+    M, N = T.shape[-2:]
+    K = rec.U.shape[-2]
+    lanes = tuple(T.shape[:-2])
     tensors = list(rec) + ([] if scan is None else [scan])
     if T.device.type != "cuda" or any(x.device != T.device or
                                       not x.is_contiguous()
                                       for x in tensors):
         raise ValueError("the blocked kernels take a record of contiguous "
                          "tensors on one CUDA device")
-    if (rec.ints.numel() != NI + _cdiv(N - 1, GRID_THREADS)
-            or rec.scratch.numel() != M + N + 2 * partials(M, N)
-            or tuple(rec.V.shape) != (K, N) or not 1 <= K <= MAX_K):
-        raise ValueError("not a record of make_record")
+    if (len(lanes) > 1 or tuple(rec.ints.shape) != lanes + (
+            NI + _cdiv(N - 1, GRID_THREADS),)
+            or tuple(rec.scratch.shape) != lanes + (
+                M + N + 2 * partials(M, N),)
+            or tuple(rec.U.shape) != lanes + (K, M)
+            or tuple(rec.V.shape) != lanes + (K, N)
+            or tuple(rec.vals.shape) != lanes + (NV,)
+            or any(tuple(x.shape[:len(lanes)]) != lanes for x in rec)
+            or not 1 <= K <= MAX_K):
+        raise ValueError("not a record of make_record or make_batch_record")
     args = _ARGS(*(0 if x is None else x.data_ptr() for x in (
         T, rec.U, rec.V, rec.row0, rec.row1, rec.bvec, rec.gamma, rec.basis,
         rec.col_active, rec.art_cols, rec.ints, rec.vals, rec.scratch,
@@ -641,6 +700,26 @@ def _launch(rec: BlockedRecord, stage: str, opts: SolverOptions,
         raise_on(lib, err, f"blocked {stage}")
 
 
+def ray_batch(rec: BlockedRecord, scan: torch.Tensor, opts: SolverOptions,
+              stall_limit: int, max_iters: int) -> None:
+    """The ray launch of every lane of a batched record on the card, each
+    lane on its B1 scan columns ``scan[lane]`` (B, 2, N); a lane that is not
+    ``LIVE`` is left as it is (counted in ``LAUNCHES["blocked_ray_batch"]``,
+    one a launch)."""
+    B, N = rec.T.shape[0], rec.T.shape[-1]
+    if rec.T.dim() != 3 or tuple(scan.shape) != (B, 2, N) \
+            or scan.dtype != torch.int32:
+        raise ValueError(f"ray_batch: expected a batched record and (B, 2, "
+                         f"N) int32 scan columns, got {tuple(rec.T.shape)} "
+                         f"and {scan.dtype} {tuple(scan.shape)}")
+    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters, scan)
+    fn = getattr(lib, f"tpulp_blocked_ray_batch_{suffix(rec.T.dtype)}")
+    err = fn(args, iargs, tols, B, stream_of(rec.T.device))
+    if err:
+        raise_on(lib, err, "blocked ray batch")
+    LAUNCHES["blocked_ray_batch"] += 1
+
+
 def flush_and_ray(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
                   max_iters: int) -> None:
     """A block's end on the card: B1's flush, then the ray launch (counted
@@ -649,6 +728,16 @@ def flush_and_ray(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
                           float(opts.piv_tol))
     _launch(rec, "ray", opts, stall_limit, max_iters, scan)
     LAUNCHES["blocked_ray"] += 1
+
+
+def flush_and_ray_batch(rec: BlockedRecord, opts: SolverOptions,
+                        stall_limit: int, max_iters: int) -> None:
+    """A block's end on the card for every lane of a batched record: one B1
+    launch (``block.fused_flush_batch``) and one ray launch over the lanes,
+    both skipping a lane whose ``LIVE`` is 0."""
+    _, scan = fused_flush_batch(*flush_inputs(rec), rec.ints[:, LIVE],
+                                float(opts.opt_tol), float(opts.piv_tol))
+    ray_batch(rec, scan, opts, stall_limit, max_iters)
 
 
 def blocked_block(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,

@@ -22,6 +22,18 @@ and f64, a block whose factors 16 blocks cannot hold, a plan whose cluster
 the card cannot hold: ``cudaOccupancyMaxActiveClusters`` reports 0). It
 never writes the caller's tensors.
 
+``blocked_cluster_batch`` is the same walk over every lane of a batched
+state (``solve.blocked.run_simplex_blocked_batch`` on the card): a block is
+one launch of one cluster a lane (``kernels.blocked.make_batch_record``'s
+record, lane y on cluster y), one B1 launch over the lanes
+(``block.fused_flush_batch``) and one ray launch over them
+(``kernels.blocked.ray_batch``), with one host read of every lane's
+(status, niter). A lane that is not running within its budget at a
+block's start is frozen through that block, as in tpulp's vmapped
+``while_loop``: its cluster returns at once and B1 and the ray launch skip
+it (the record's ``LIVE``), so each lane walks exactly its solo walk.
+``blocked_cluster_batch_reference`` is its plain version, lane by lane.
+
 ``blocked_cluster_reference`` is the same walk in plain torch: the plain
 stages of ``kernels.blocked`` composed slot by slot (which equal
 ``blocked.cu``'s launches bit for bit), flushed by B1's plain version. The
@@ -45,7 +57,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.state import SimplexState, SolverOptions
+from ..core.state import SimplexState, SolverOptions, Status
 from . import blocked as kb
 from .block import fused_flush_reference
 from .launch import LAUNCHES, check, lib_for, raise_on, stream_of, suffix
@@ -54,7 +66,9 @@ from .rank1_cluster import slab_sum
 __all__ = ["BlockedClusterPlan", "blocked_cluster_plan",
            "blocked_cluster_occupancy", "blocked_cluster",
            "blocked_cluster_block", "blocked_cluster_block_reference",
-           "blocked_cluster_reference", "BLOCKED_CLUSTER_SIZES",
+           "blocked_cluster_reference", "blocked_cluster_batch",
+           "blocked_cluster_batch_block", "blocked_cluster_batch_reference",
+           "BLOCKED_CLUSTER_SIZES",
            "BLOCKED_CLUSTER_THREADS", "BLOCKED_CLUSTER_SMEM_LIMIT",
            "BLOCKED_CLUSTER_STATIC_SMEM", "BLOCKED_CLUSTER_STAGES"]
 
@@ -78,7 +92,7 @@ BLOCKED_CLUSTER_SMEM_LIMIT = 232_448 - BLOCKED_CLUSTER_STATIC_SMEM
 BLOCKED_CLUSTER_STAGES = ("load", "price", "barrier1", "fetch1", "column",
                           "ratio", "barrier2", "fetch2", "row", "reduce",
                           "barrier3", "finish", "store")
-_NARGS, _NINTS = 13, 10
+_NARGS, _NINTS = 13, 13
 _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
 
@@ -136,8 +150,13 @@ def blocked_cluster_plan(M: int, N: int, K: int, dtype,
                      f"above {BLOCKED_CLUSTER_SMEM_LIMIT}")
 
 
-def _plan_ints(plan: BlockedClusterPlan, M: int, N: int, K: int):
-    return _INTS(M, N, K, 0, 0, 0, 0, plan.blocks, plan.threads, plan.smem)
+def _plan_ints(plan: BlockedClusterPlan, M: int, N: int, K: int,
+               lanes: int = 1):
+    """The launch's int arguments (csrc/blocked_cluster.cu's Int) but the
+    walk's: the shape, the plan, the lanes and the record's per-lane
+    extents (``ints`` and ``vals``)."""
+    return _INTS(M, N, K, 0, 0, 0, 0, plan.blocks, plan.threads, plan.smem,
+                 lanes, kb.NI + kb._cdiv(N - 1, kb.GRID_THREADS), kb.NV)
 
 
 @functools.lru_cache(maxsize=64)
@@ -171,6 +190,32 @@ def _check_cycles(stage_cycles, device) -> None:
             raise ValueError(f"stage_cycles: expected a tensor on {device}")
 
 
+def _launch(rec: kb.BlockedRecord, opts: SolverOptions, stall_limit: int,
+            max_iters: int, blocks: int | None, stage_cycles,
+            batch: bool) -> None:
+    lib, args, iargs, tols = kb._entry(rec, opts, stall_limit, max_iters)
+    T = rec.T
+    if T.dim() != (3 if batch else 2):
+        raise ValueError(f"expected a {'batched' if batch else 'solo'} "
+                         f"record, got a tableau of {tuple(T.shape)}")
+    M, N = T.shape[-2:]
+    K = rec.U.shape[-2]
+    _check_cycles(stage_cycles, T.device)
+    plan = blocked_cluster_plan(M, N, K, T.dtype, blocks)
+    cargs = _ARGS(*(0 if x is None else x.data_ptr() for x in (
+        T, rec.U, rec.V, rec.row0, rec.row1, rec.bvec, rec.gamma, rec.basis,
+        rec.col_active, rec.art_cols, rec.ints, rec.vals, stage_cycles)))
+    ci = _plan_ints(plan, M, N, K, T.shape[0] if batch else 1)
+    for k in range(3, 7):  # stall, budget, rule, tie break: as kb's
+        ci[k] = iargs[k]
+    kind = "blocked_cluster_batch" if batch else "blocked_cluster"
+    fn = getattr(lib, f"tpulp_{kind}_{suffix(T.dtype)}")
+    err = fn(cargs, ci, tols, stream_of(T.device))
+    if err:
+        raise_on(lib, err, kind)
+    LAUNCHES[kind] += 1
+
+
 def blocked_cluster_block(rec: kb.BlockedRecord, opts: SolverOptions,
                           stall_limit: int, max_iters: int,
                           blocks: int | None = None,
@@ -178,26 +223,34 @@ def blocked_cluster_block(rec: kb.BlockedRecord, opts: SolverOptions,
     """The K slots of the record's block in one cluster launch (counted in
     ``LAUNCHES["blocked_cluster"]``), in place: what the six launches of
     ``kernels.blocked.enqueue_slots`` compute, K at a time; the record's
-    scratch and verdict fields are left as they were. ``blocks`` forces the
-    cluster's size; ``stage_cycles`` (int64, ``len(BLOCKED_CLUSTER_STAGES)``
-    on the card) accumulates block 0's SM cycles by stage."""
-    lib, args, iargs, tols = kb._entry(rec, opts, stall_limit, max_iters)
-    T = rec.T
-    M, N = T.shape
-    K = rec.U.shape[0]
-    _check_cycles(stage_cycles, T.device)
-    plan = blocked_cluster_plan(M, N, K, T.dtype, blocks)
-    cargs = _ARGS(*(0 if x is None else x.data_ptr() for x in (
-        T, rec.U, rec.V, rec.row0, rec.row1, rec.bvec, rec.gamma, rec.basis,
-        rec.col_active, rec.art_cols, rec.ints, rec.vals, stage_cycles)))
-    ci = _plan_ints(plan, M, N, K)
-    for k in range(3, 7):  # stall, budget, rule, tie break: as kb's
-        ci[k] = iargs[k]
-    fn = getattr(lib, f"tpulp_blocked_cluster_{suffix(T.dtype)}")
-    err = fn(cargs, ci, tols, stream_of(T.device))
-    if err:
-        raise_on(lib, err, "blocked_cluster")
-    LAUNCHES["blocked_cluster"] += 1
+    scratch and verdict fields are left as they were, but ``LIVE``. A
+    record that is not running within ``max_iters`` is left as it is, but
+    ``LIVE = 0``. ``blocks`` forces the cluster's size; ``stage_cycles``
+    (int64, ``len(BLOCKED_CLUSTER_STAGES)`` on the card) accumulates block
+    0's SM cycles by stage."""
+    _launch(rec, opts, stall_limit, max_iters, blocks, stage_cycles, False)
+
+
+def blocked_cluster_batch_block(rec: kb.BlockedRecord, opts: SolverOptions,
+                                stall_limit: int, max_iters: int,
+                                blocks: int | None = None,
+                                stage_cycles: torch.Tensor | None = None
+                                ) -> None:
+    """``blocked_cluster_block`` of every lane of a batched record in one
+    launch, one cluster a lane (counted in
+    ``LAUNCHES["blocked_cluster_batch"]``); ``stage_cycles`` counts lane
+    0's block 0."""
+    _launch(rec, opts, stall_limit, max_iters, blocks, stage_cycles, True)
+
+
+def _require_cluster(M: int, N: int, K: int, dtype, device,
+                     blocks: int | None) -> None:
+    """Raise unless the card holds one cluster of the plan."""
+    plan = blocked_cluster_plan(M, N, K, dtype, blocks)
+    if blocked_cluster_occupancy(M, N, K, dtype, device, blocks) == 0:
+        raise RuntimeError(f"blocked_cluster: the card holds no cluster of "
+                           f"{plan.blocks} blocks with {plan.smem} bytes of "
+                           f"shared memory each ({M} x {N} {dtype}, K {K})")
 
 
 def blocked_cluster(state: SimplexState, opts: SolverOptions,
@@ -215,12 +268,7 @@ def blocked_cluster(state: SimplexState, opts: SolverOptions,
     T = state.T
     M, N = T.shape
     _check_cycles(stage_cycles, T.device)
-    plan = blocked_cluster_plan(M, N, K, T.dtype, blocks)
-    if blocked_cluster_occupancy(M, N, K, T.dtype, T.device, blocks) == 0:
-        raise RuntimeError(f"blocked_cluster: the card holds no cluster of "
-                           f"{plan.blocks} blocks with {plan.smem} bytes of "
-                           f"shared memory each ({M} x {N} {T.dtype}, K "
-                           f"{K})")
+    _require_cluster(M, N, K, T.dtype, T.device, blocks)
     rec = kb.make_record(state, K)
 
     def block(r):
@@ -229,6 +277,36 @@ def blocked_cluster(state: SimplexState, opts: SolverOptions,
         kb.flush_and_ray(r, opts, stall_limit, max_iters)
 
     kb._walk(rec, max_iters, block)
+    return kb.record_state(rec), rec.gamma
+
+
+def blocked_cluster_batch(batched: SimplexState, opts: SolverOptions,
+                          stall_limit: int, max_iters: int, K: int,
+                          blocks: int | None = None,
+                          stage_cycles: torch.Tensor | None = None):
+    """``blocked_cluster``'s walk of every lane of ``batched`` (B lanes of
+    one shape on one CUDA device) in blocks of ``K`` pivots, while any lane
+    runs within ``max_iters``: a block is one cluster launch over every
+    lane, one B1 launch and one ray launch over them, with one host read of
+    every lane's (status, niter); a lane that is not running within the
+    budget at a block's start keeps its whole state through the block.
+    ``blocks`` forces the cluster's size; ``stage_cycles`` counts lane 0's
+    block 0. Returns (batched state, devex weights (B, n)); the caller's
+    tensors are never written. Clusters past the card's
+    ``cudaOccupancyMaxActiveClusters`` wait for a free slot."""
+    kb._check(batched, K, batched=True)
+    T = batched.T
+    M, N = T.shape[-2:]
+    _check_cycles(stage_cycles, T.device)
+    _require_cluster(M, N, K, T.dtype, T.device, blocks)
+    rec = kb.make_batch_record(batched, K)
+
+    def block(r):
+        blocked_cluster_batch_block(r, opts, stall_limit, max_iters, blocks,
+                                    stage_cycles)
+        kb.flush_and_ray_batch(r, opts, stall_limit, max_iters)
+
+    kb._walk_batch(rec, max_iters, block)
     return kb.record_state(rec), rec.gamma
 
 
@@ -261,9 +339,16 @@ def blocked_cluster_block_reference(rec: kb.BlockedRecord,
     ``C`` blocks (any C >= 1), in place: ``kernels.blocked``'s plain stages
     slot by slot, the two finiteness sums in the kernel's order (the
     record's scratch holds them as the plain stages leave it, except that
-    its row partials hold the |bvec[2:]| sum in its first slot)."""
+    its row partials hold the |bvec[2:]| sum in its first slot). A record
+    that is not running within ``max_iters`` is left as it is, but ``LIVE
+    = 0``."""
     M, N = rec.T.shape
     G = kb.partials(M, N)
+    status, niter = rec.ints[kb.STATUS:kb.NITER + 1].tolist()
+    live = status == Status.RUNNING and niter < max_iters
+    rec.ints[kb.LIVE] = int(live)
+    if not live:
+        return
     for _ in range(rec.U.shape[0]):
         if not kb._running(rec.ints.tolist()):
             return
@@ -299,3 +384,29 @@ def blocked_cluster_reference(state: SimplexState, opts: SolverOptions,
     kb._walk(rec, max_iters, block)
     return kb.record_state(rec), rec.gamma
 
+
+def blocked_cluster_batch_reference(batched: SimplexState,
+                                    opts: SolverOptions, stall_limit: int,
+                                    max_iters: int, K: int, C: int,
+                                    flush=fused_flush_reference):
+    """``blocked_cluster_batch``'s walk in plain torch on clusters of ``C``
+    blocks: a block is ``blocked_cluster_block_reference`` of every lane
+    (each frozen unless running within ``max_iters`` at the block's start),
+    then ``flush`` (B1's plain version or ``block.fused_flush``) and the ray
+    stage of every live lane. Returns (batched state, devex weights); the
+    caller's tensors are never written."""
+    rec = kb.make_batch_record(batched, K)
+    lanes = [kb.lane_record(rec, k) for k in range(rec.T.shape[0])]
+
+    def block(r):
+        for lane in lanes:
+            blocked_cluster_block_reference(lane, opts, stall_limit,
+                                            max_iters, C)
+        for lane in lanes:
+            if int(lane.ints[kb.LIVE]):
+                _, scan = flush(*kb.flush_inputs(lane), float(opts.opt_tol),
+                                float(opts.piv_tol))
+                kb.blocked_ray_reference(lane, scan, opts)
+
+    kb._walk_batch(rec, max_iters, block)
+    return kb.record_state(rec), rec.gamma

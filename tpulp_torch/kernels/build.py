@@ -132,6 +132,11 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _P]
         fn.restype = _I
+    for name in ("tpulp_flush_batch_f32", "tpulp_flush_batch_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _D, _D,
+                       _P]
+        fn.restype = _I
     for name in ("tpulp_inner_block_f32", "tpulp_inner_block_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P] * 20 + [_I] * 12 + [_D] * 4 + [_P]
@@ -154,7 +159,9 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
     for name in ("tpulp_rank1_steps_f32", "tpulp_rank1_steps_f64",
-                 "tpulp_blocked_steps_f32", "tpulp_blocked_steps_f64"):
+                 "tpulp_blocked_steps_f32", "tpulp_blocked_steps_f64",
+                 "tpulp_blocked_ray_batch_f32",
+                 "tpulp_blocked_ray_batch_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _I, _P]
         fn.restype = _I
@@ -164,7 +171,9 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
     for name in ("tpulp_rank1_cluster_f32", "tpulp_rank1_cluster_f64",
-                 "tpulp_blocked_cluster_f32", "tpulp_blocked_cluster_f64"):
+                 "tpulp_blocked_cluster_f32", "tpulp_blocked_cluster_f64",
+                 "tpulp_blocked_cluster_batch_f32",
+                 "tpulp_blocked_cluster_batch_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I

@@ -50,7 +50,12 @@
 // - ray (grid; once a block, after B1's flush): the gated ray scan on B1's
 //   scan columns (an improving active column with no entry above piv_tol,
 //   no artificial basic, phase 2, running), and the next block's carry:
-//   row0, row1 and bvec from the flushed T, the etas zero, t = 0.
+//   row0, row1 and bvec from the flushed T, the etas zero, t = 0. With a
+//   lane axis (the batch on blocked_cluster.cu, blockIdx.y = lane, the
+//   batched record contiguous with a leading lane axis) it acts only on a
+//   lane whose record the block's cluster launch found live (LIVE); a
+//   frozen lane keeps its whole record. The solo walk's record is always
+//   live (make_record's LIVE, never cleared on a walk that still runs).
 // Every slot launch returns at once unless the record's status is RUNNING:
 // the eager pivot's own gate. The budget enters as in _blocked_pivot,
 // through act (niter < max_iters), so a slot past the budget pivots nowhere
@@ -87,7 +92,7 @@ constexpr int RAY_GRID = 1024;  // most blocks of the ray launch (grid-stride)
 enum Field {
   PHASE, STATUS, NITER, STUCK, BLAND, SLOT, ART_ROW,
   CLEANUP, R_D, HAS_ELIG, J, HAS_IMPROVING, INFEASIBLE, TO_PHASE2, PRICING_PIVOT, CROW_OK, RETIRE,
-  DO_CLEANUP, DO_PRICING, ACT, R, LEAVING, UNBOUNDED, FAILED1, RAY, NI
+  DO_CLEANUP, DO_PRICING, ACT, R, LEAVING, UNBOUNDED, FAILED1, RAY, LIVE, NI
 };
 enum Val { LAST_Z, PIV, GAMMA_Q, NV };
 enum Arg {
@@ -437,14 +442,25 @@ __global__ void __launch_bounds__(ONE_BLOCK) finish_kernel(Params<T> p) {
 template <typename T>
 __global__ void __launch_bounds__(GRID_THREADS) ray_kernel(Params<T> p) {
   __shared__ Red<T> scratch[33];
-  int* rec = p.rec;
   const int M = p.M, N = p.N;
+  // lane blockIdx.y: its record (NI fields and the cleanup partials) and
+  // arrays at the lane times their per-lane extents
+  const long long ln = blockIdx.y, K = p.K;
+  int* rec = p.rec + ln * (NI + (N - 1 + GRID_THREADS - 1) / GRID_THREADS);
+  if (!rec[LIVE]) return;
+  const T* tab = p.tab + ln * M * N;
+  const int* scan = p.scan + ln * 2 * N;
+  T* U = p.U + ln * K * M;
+  T* V = p.V + ln * K * N;
+  T* row0 = p.row0 + ln * N;
+  T* row1 = p.row1 + ln * N;
+  T* bvec = p.bvec + ln * M;
   if (blockIdx.x == 0) {
     // an improving active column (scan row 0) with no entry above piv_tol
     // (scan row 1), once no artificial is basic
     Red<T> x = red_identity<T>(false);
     for (int k = threadIdx.x; k < N; k += blockDim.x)
-      if (p.scan[k] && !p.scan[N + k]) x.a = min(x.a, k);
+      if (scan[k] && !scan[N + k]) x.a = min(x.a, k);
     x = block_reduce(x, scratch, false);
     if (threadIdx.x == 0) {
       const bool ray = x.a != BIG_I && rec[ART_ROW] == BIG_I && rec[PHASE] == 2 &&
@@ -455,16 +471,16 @@ __global__ void __launch_bounds__(GRID_THREADS) ray_kernel(Params<T> p) {
     }
   }
   // row0, row1 and bvec from the flushed tableau, the etas zero
-  const long long KM = (long long)p.K * M, KN = (long long)p.K * N;
+  const long long KM = K * M, KN = K * N;
   const long long total = KM > KN ? KM : KN, stride = (long long)gridDim.x * blockDim.x;
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-    if (e < KM) p.U[e] = T(0);
-    if (e < KN) p.V[e] = T(0);
+    if (e < KM) U[e] = T(0);
+    if (e < KN) V[e] = T(0);
     if (e < N) {
-      p.row0[e] = p.tab[e];
-      p.row1[e] = p.tab[N + e];
+      row0[e] = tab[e];
+      row1[e] = tab[N + e];
     }
-    if (e < M) p.bvec[e] = p.tab[e * N + N - 1];
+    if (e < M) bvec[e] = tab[e * N + N - 1];
   }
 }
 
@@ -512,8 +528,10 @@ bool valid(const Params<T>& p) {
          p.row1 && p.bvec && p.gamma && p.basis && p.act && p.art && p.rec && p.vals && p.scratch;
 }
 
+// one launch of ``stage``; the ray launch over ``lanes`` lanes of a batched
+// record (1: a solo record)
 template <typename T>
-int enqueue(const Params<T>& p, int stage, cudaStream_t s) {
+int enqueue(const Params<T>& p, int stage, cudaStream_t s, int lanes = 1) {
   const int n = p.N - 1;
   switch (stage) {
     case S_CLEANUP:
@@ -538,7 +556,7 @@ int enqueue(const Params<T>& p, int stage, cudaStream_t s) {
       if (!p.scan) return (int)cudaErrorInvalidValue;
       const long long e = (long long)p.K * std::max(p.M, p.N);
       const int grid = (int)std::min<long long>((e + GRID_THREADS - 1) / GRID_THREADS, RAY_GRID);
-      ray_kernel<T><<<grid, GRID_THREADS, 0, s>>>(p);
+      ray_kernel<T><<<dim3(grid, lanes), GRID_THREADS, 0, s>>>(p);
       break;
     }
     default:
@@ -569,6 +587,16 @@ int blocked_stage(const long long* a, const int* in, const double* tol, void* st
   return enqueue(p, in[I_STAGE], (cudaStream_t)stream);
 }
 
+// the ray launch of every lane of a batched record (each lane's scan
+// columns B1's of that lane)
+template <typename T>
+int blocked_ray_batch(const long long* a, const int* in, const double* tol, int lanes,
+                      void* stream) {
+  const Params<T> p = make_params<T>(a, in, tol);
+  if (!valid(p) || lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  return enqueue(p, S_RAY, (cudaStream_t)stream, lanes);
+}
+
 }  // namespace blk
 }  // namespace tpulp
 
@@ -587,4 +615,12 @@ extern "C" int tpulp_blocked_stage_f32(const long long* a, const int* in, const 
 extern "C" int tpulp_blocked_stage_f64(const long long* a, const int* in, const double* tol,
                                        void* stream) {
   return tpulp::blk::blocked_stage<double>(a, in, tol, stream);
+}
+extern "C" int tpulp_blocked_ray_batch_f32(const long long* a, const int* in, const double* tol,
+                                           int lanes, void* stream) {
+  return tpulp::blk::blocked_ray_batch<float>(a, in, tol, lanes, stream);
+}
+extern "C" int tpulp_blocked_ray_batch_f64(const long long* a, const int* in, const double* tol,
+                                           int lanes, void* stream) {
+  return tpulp::blk::blocked_ray_batch<double>(a, in, tol, lanes, stream);
 }

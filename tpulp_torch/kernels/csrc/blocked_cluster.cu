@@ -80,16 +80,32 @@
 // blocked.cu's. The factors' slabs are loaded once and written back once,
 // with the running vectors, the basis, the masks, the weights and the
 // scalars (what B1, the ray launch and record_state read); the launch ends
-// with a cluster barrier, so no block leaves while a peer may read its
-// shared memory. The arithmetic is blocked.cu's: every eta sum runs k = 0
-// .. t, one fma a slot, in the tableau's type; one rounding per operation;
-// comparisons against tolerances rounded to the tableau's type. The sums
-// that feed finiteness checks only (the pre-step |c| over the active
-// columns, the post-step |bvec[2:]|) are taken per block (per thread, the
-// warp tree, across warps) and across blocks in rank order:
+// with a cluster barrier, so no block of a live lane leaves while a peer
+// may read its shared memory. The arithmetic is blocked.cu's: every eta
+// sum runs k = 0 .. t, one fma a slot, in the tableau's type; one rounding
+// per operation; comparisons against tolerances rounded to the tableau's
+// type. The sums that feed finiteness checks only (the pre-step |c| over
+// the active columns, the post-step |bvec[2:]|) are taken per block (per
+// thread, the warp tree, across warps) and across blocks in rank order:
 // kernels/blocked_cluster.py's plain version takes them in that order. A
 // block has 512 threads (rank1_cluster.cu: at 1,024 the f64 walks
 // spilled).
+//
+// The lane axis (solve/blocked.py's batch: tpulp's vmapped while_loop over
+// _blocked_pivot, tpulp/solve/blocked.py:335-366): a launch of B lanes is a
+// grid of (C, B) blocks with clusters of (C, 1, 1), so cluster y is lane y
+// and its blocks' ranks are blockIdx.x. The batched record is contiguous
+// with a leading lane axis: each of the lane's arrays sits at the lane
+// times its per-lane extent (Lane, lane_arrays). A lane that is not live at
+// the launch's start (status RUNNING and niter < max_iters, read by every
+// block of its cluster alike before anything else) keeps its whole state
+// through the block, as the vmapped loop's torch.where(live, new, old):
+// its blocks return before the first cluster barrier and before any access
+// to a peer's shared memory, since the slot loop below would otherwise let
+// a slot past the budget record an exit. Rank 0 writes the verdict into
+// the record (LIVE), where B1 and the ray launch read it. Lanes never wait
+// on one another, so clusters past cudaOccupancyMaxActiveClusters simply
+// wait for a free slot on the card. The solo launch is the case B = 1.
 
 #include <cooperative_groups.h>
 
@@ -112,16 +128,19 @@ constexpr int MAX_K = 1024;      // eta slots of a block (kernels/blocked.py's M
 // columns)
 constexpr int SCAN_WARP = 14;
 
-// the record (kernels/blocked.py's BlockedRecord): its int32 scalars and
-// values
-enum Field { PHASE, STATUS, NITER, STUCK, BLAND, SLOT, ART_ROW };
+// the record (kernels/blocked.py's BlockedRecord): its int32 scalars, the
+// lane's verdict at the launch's start, and values
+enum Field { PHASE, STATUS, NITER, STUCK, BLAND, SLOT, ART_ROW, LIVE = 25 };
 enum Val { LAST_Z };
 // the wrapper's argument arrays (tpulp_torch/kernels/blocked_cluster.py)
 enum Arg {
   A_T, A_U, A_V, A_ROW0, A_ROW1, A_BVEC, A_GAMMA, A_BASIS, A_ACT, A_ART, A_INTS, A_VALS,
   A_CYCLES, A_NARGS
 };
-enum Int { I_M, I_N, I_K, I_STALL, I_MAXIT, I_RULE, I_TIE, I_BLOCKS, I_THREADS, I_SMEM, I_NINTS };
+enum Int {
+  I_M, I_N, I_K, I_STALL, I_MAXIT, I_RULE, I_TIE, I_BLOCKS, I_THREADS, I_SMEM, I_LANES,
+  I_INTS_STRIDE, I_VALS_STRIDE, I_NINTS
+};
 enum Tol { D_OPT, D_PIV, D_DEGEN, D_INFEAS, D_RESET, D_NTOLS };
 // the stages that ``cycles`` splits a launch into (block 0's clock; summed
 // over the slots): the load, then a slot's clean-up and pricing, barrier
@@ -134,8 +153,9 @@ enum Stage {
   C_FINISH, C_STORE, C_NSTAGES
 };
 
+// a lane's arrays; Params holds lane 0's
 template <typename T>
-struct Params {
+struct Lane {
   const T* tab;  // (M, N) T0, the block-start tableau (never written)
   T* U;          // (K, M) eta vectors
   T* V;          // (K, N) pivot rows
@@ -148,13 +168,38 @@ struct Params {
   unsigned char* art;
   int* rec;
   T* vals;
-  long long* cycles;  // (C_NSTAGES,) SM cycles per stage (block 0), or null
+};
+
+template <typename T>
+struct Params : Lane<T> {
+  long long* cycles;  // (C_NSTAGES,) SM cycles per stage (block 0 of lane 0), or null
+  long long ints_stride, vals_stride;  // the record's per-lane extents
   int M, N, K, W, H, stall_limit, max_iters;
   bool devex, bland_rule, max_piv;
   // the tolerances rounded to T, as torch rounds a Python float against a
   // tensor of T; devex's reset threshold
   T opt_tol, piv_tol, degen_tol, infeas_tol, reset_above;
 };
+
+// lane b's arrays: lane 0's moved by b times each per-lane extent
+template <typename T>
+__device__ Lane<T> lane_arrays(const Params<T>& p, long long b) {
+  const long long M = p.M, N = p.N, K = p.K, m = M - 2, n = N - 1;
+  Lane<T> g;
+  g.tab = p.tab + b * M * N;
+  g.U = p.U + b * K * M;
+  g.V = p.V + b * K * N;
+  g.row0 = p.row0 + b * N;
+  g.row1 = p.row1 + b * N;
+  g.bvec = p.bvec + b * M;
+  g.gamma = p.gamma + b * n;
+  g.basis = p.basis + b * m;
+  g.act = p.act + b * n;
+  g.art = p.art + b * n;
+  g.rec = p.rec + b * p.ints_stride;
+  g.vals = p.vals + b * p.vals_stride;
+  return g;
+}
 
 __host__ __device__ __forceinline__ long long align16(long long x) { return (x + 15) / 16 * 16; }
 
@@ -327,8 +372,9 @@ __global__ void __launch_bounds__(THREADS, 1) cluster_kernel(Params<T> p) {
   __shared__ Comb<T> comb;
   __shared__ Laps laps;  // thread 0's, on block 0 only
   // the layout's pointers live in shared memory, not in 30 registers a
-  // thread
+  // thread, and so do the lane's arrays
   __shared__ Layout<T> L;
+  __shared__ Lane<T> G;
   extern __shared__ __align__(16) unsigned char cluster_dyn[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
@@ -337,49 +383,59 @@ __global__ void __launch_bounds__(THREADS, 1) cluster_kernel(Params<T> p) {
   // this block's columns [k0, k0 + wk) and rows [i0, i0 + hi)
   const int k0 = rank * W, wk = max(0, min(N, k0 + W) - k0);
   const int i0 = rank * H, hi = max(0, min(M, i0 + H) - i0);
-  const T* tab = p.tab;
   const T inf = pos_inf<T>();
   const bool devex = p.devex;
+  {
+    // the block-start freeze (the header): every block of the lane's
+    // cluster reads the same two fields before any barrier; rank 0 records
+    // the verdict
+    int* rec = p.rec + (long long)blockIdx.y * p.ints_stride;
+    const bool live = rec[STATUS] == ST_RUNNING && rec[NITER] < p.max_iters;
+    if (rank == 0 && tid == 0) rec[LIVE] = live;
+    if (!live) return;
+  }
   if (tid == 0) {
     L = layout<T>(M, K, W, H, cluster_dyn);
-    laps.on = p.cycles != nullptr && rank == 0;
+    G = lane_arrays(p, blockIdx.y);
+    laps.on = p.cycles != nullptr && rank == 0 && blockIdx.y == 0;
     laps.last = clock64();
     for (int k = 0; k < C_NSTAGES; ++k) laps.cyc[k] = 0;
   }
   __syncthreads();
+  const T* tab = G.tab;
 
   // ---- load: the factors' slabs (element by element over the whole
   // slab, so that every thread's loads are in flight at once), the running
   // vectors, the replicated state, the scalars ----
   for (int e = tid; e < K * wk; e += THREADS) {
     const int k = e / wk, kk = e - k * wk;
-    L.V[(long long)k * W + kk] = p.V[(long long)k * N + k0 + kk];
+    L.V[(long long)k * W + kk] = G.V[(long long)k * N + k0 + kk];
   }
   for (int e = tid; e < K * hi; e += THREADS) {
     const int k = e / hi, ii = e - k * hi;
-    L.U[(long long)k * H + ii] = p.U[(long long)k * M + i0 + ii];
+    L.U[(long long)k * H + ii] = G.U[(long long)k * M + i0 + ii];
   }
   for (int k = tid; k < K; k += THREADS) {
-    L.u0[k] = p.U[(long long)k * M];
-    L.u1[k] = p.U[(long long)k * M + 1];
-    L.vlst[k] = p.V[(long long)k * N + N - 1];
+    L.u0[k] = G.U[(long long)k * M];
+    L.u1[k] = G.U[(long long)k * M + 1];
+    L.vlst[k] = G.V[(long long)k * N + N - 1];
   }
   for (int kk = tid; kk < wk; kk += THREADS) {
     const int k = k0 + kk;
-    L.row0[kk] = p.row0[k];
-    L.row1[kk] = p.row1[k];
-    L.gamma[kk] = k < n ? p.gamma[k] : T(1);
-    L.act[kk] = k < n && p.act[k] != 0;
+    L.row0[kk] = G.row0[k];
+    L.row1[kk] = G.row1[k];
+    L.gamma[kk] = k < n ? G.gamma[k] : T(1);
+    L.act[kk] = k < n && G.act[k] != 0;
   }
-  for (int ii = tid; ii < hi; ii += THREADS) L.bvec[ii] = p.bvec[i0 + ii];
-  for (int i = tid; i < m; i += THREADS) L.basis[i] = p.basis[i];
-  for (int k = tid; k < n; k += THREADS) L.art[k] = p.art[k] != 0;
-  int phase = p.rec[PHASE], status = p.rec[STATUS], niter = p.rec[NITER];
-  int stuck = p.rec[STUCK], slot = p.rec[SLOT], ar = p.rec[ART_ROW];
-  bool bland = p.rec[BLAND] != 0;
-  T last_z = p.vals[LAST_Z];
+  for (int ii = tid; ii < hi; ii += THREADS) L.bvec[ii] = G.bvec[i0 + ii];
+  for (int i = tid; i < m; i += THREADS) L.basis[i] = G.basis[i];
+  for (int k = tid; k < n; k += THREADS) L.art[k] = G.art[k] != 0;
+  int phase = G.rec[PHASE], status = G.rec[STATUS], niter = G.rec[NITER];
+  int stuck = G.rec[STUCK], slot = G.rec[SLOT], ar = G.rec[ART_ROW];
+  bool bland = G.rec[BLAND] != 0;
+  T last_z = G.vals[LAST_Z];
   // the objectives' entries, row0[N - 1] and row1[N - 1]
-  T z0 = p.row0[N - 1], z1 = p.row1[N - 1];
+  T z0 = G.row0[N - 1], z1 = G.row1[N - 1];
   // the slot whose w waits in wpend (-1: none)
   int pend_t = -1;
   __syncthreads();
@@ -758,33 +814,33 @@ __global__ void __launch_bounds__(THREADS, 1) cluster_kernel(Params<T> p) {
   __syncthreads();
   for (int e = tid; e < K * wk; e += THREADS) {
     const int k = e / wk, kk = e - k * wk;
-    p.V[(long long)k * N + k0 + kk] = L.V[(long long)k * W + kk];
+    G.V[(long long)k * N + k0 + kk] = L.V[(long long)k * W + kk];
   }
   for (int e = tid; e < K * hi; e += THREADS) {
     const int k = e / hi, ii = e - k * hi;
-    p.U[(long long)k * M + i0 + ii] = L.U[(long long)k * H + ii];
+    G.U[(long long)k * M + i0 + ii] = L.U[(long long)k * H + ii];
   }
   for (int kk = tid; kk < wk; kk += THREADS) {
     const int k = k0 + kk;
-    p.row0[k] = L.row0[kk];
-    p.row1[k] = L.row1[kk];
+    G.row0[k] = L.row0[kk];
+    G.row1[k] = L.row1[kk];
     if (k >= n) continue;
-    p.gamma[k] = L.gamma[kk];
-    p.act[k] = L.act[kk];
-    p.art[k] = L.art[k];
+    G.gamma[k] = L.gamma[kk];
+    G.act[k] = L.act[kk];
+    G.art[k] = L.art[k];
   }
-  for (int ii = tid; ii < hi; ii += THREADS) p.bvec[i0 + ii] = L.bvec[ii];
+  for (int ii = tid; ii < hi; ii += THREADS) G.bvec[i0 + ii] = L.bvec[ii];
   if (rank == 0) {
-    for (int i = tid; i < m; i += THREADS) p.basis[i] = L.basis[i];
+    for (int i = tid; i < m; i += THREADS) G.basis[i] = L.basis[i];
     if (tid == 0) {
-      p.rec[PHASE] = phase;
-      p.rec[STATUS] = status;
-      p.rec[NITER] = niter;
-      p.rec[STUCK] = stuck;
-      p.rec[BLAND] = bland;
-      p.rec[SLOT] = slot;
-      p.rec[ART_ROW] = ar;
-      p.vals[LAST_Z] = last_z;
+      G.rec[PHASE] = phase;
+      G.rec[STATUS] = status;
+      G.rec[NITER] = niter;
+      G.rec[STUCK] = stuck;
+      G.rec[BLAND] = bland;
+      G.rec[SLOT] = slot;
+      G.rec[ART_ROW] = ar;
+      G.vals[LAST_Z] = last_z;
     }
   }
   if (tid == 0 && laps.on) {
@@ -816,6 +872,8 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
   p.rec = (int*)a[A_INTS];
   p.vals = (T*)a[A_VALS];
   p.cycles = (long long*)a[A_CYCLES];
+  p.ints_stride = in[I_INTS_STRIDE];
+  p.vals_stride = in[I_VALS_STRIDE];
   p.M = in[I_M];
   p.N = in[I_N];
   p.K = in[I_K];
@@ -836,12 +894,14 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
 }
 
 // The plan's figures against this layout: a cluster of 1, 2, 4, 8 or 16
-// blocks of THREADS threads, K eta slots, the bytes smem_bytes counts.
+// blocks of THREADS threads, K eta slots, the bytes smem_bytes counts; 1
+// to 65,535 lanes, each with its record past LIVE.
 template <typename T>
 bool plan_ok(const int* in) {
   const int M = in[I_M], N = in[I_N], K = in[I_K], C = in[I_BLOCKS];
   if (M < 3 || N < 2 || K < 1 || K > MAX_K || in[I_THREADS] != THREADS ||
-      (C != 1 && C != 2 && C != 4 && C != 8 && C != 16))
+      (C != 1 && C != 2 && C != 4 && C != 8 && C != 16) || in[I_LANES] < 1 ||
+      in[I_LANES] > 65535 || in[I_INTS_STRIDE] <= LIVE || in[I_VALS_STRIDE] <= LAST_Z)
     return false;
   return (long long)in[I_SMEM] == smem_bytes<T>(M, N, K, (N + C - 1) / C, (M + C - 1) / C);
 }
@@ -853,9 +913,9 @@ bool pointers_ok(const Params<T>& p) {
 }
 
 template <typename T>
-cudaLaunchConfig_t config(int C, int smem, cudaStream_t s, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t config(int C, int lanes, int smem, cudaStream_t s, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
+  cfg.gridDim = dim3(C, lanes, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = s;
@@ -888,6 +948,7 @@ int prepare(int smem) {
   return 0;
 }
 
+// one launch of in[I_LANES] lanes (the solo entries: 1)
 template <typename T>
 int blocked_cluster(const long long* a, const int* in, const double* tol, void* stream) {
   if (!plan_ok<T>(in)) return (int)cudaErrorInvalidValue;
@@ -897,7 +958,7 @@ int blocked_cluster(const long long* a, const int* in, const double* tol, void* 
   const int err = prepare<T>(smem);
   if (err) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config<T>(C, smem, (cudaStream_t)stream, &attr);
+  const cudaLaunchConfig_t cfg = config<T>(C, in[I_LANES], smem, (cudaStream_t)stream, &attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, cluster_kernel<T>, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -912,7 +973,7 @@ int blocked_cluster_occupancy(const int* in, int* clusters) {
   const int err = prepare<T>(smem);
   if (err) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config<T>(C, smem, 0, &attr);
+  const cudaLaunchConfig_t cfg = config<T>(C, 1, smem, 0, &attr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)cluster_kernel<T>, &cfg);
 }
 
@@ -921,10 +982,20 @@ int blocked_cluster_occupancy(const int* in, int* clusters) {
 
 extern "C" int tpulp_blocked_cluster_f32(const long long* a, const int* in, const double* tol,
                                          void* stream) {
-  return tpulp::bkc::blocked_cluster<float>(a, in, tol, stream);
+  return in[tpulp::bkc::I_LANES] != 1 ? (int)cudaErrorInvalidValue
+                                      : tpulp::bkc::blocked_cluster<float>(a, in, tol, stream);
 }
 extern "C" int tpulp_blocked_cluster_f64(const long long* a, const int* in, const double* tol,
                                          void* stream) {
+  return in[tpulp::bkc::I_LANES] != 1 ? (int)cudaErrorInvalidValue
+                                      : tpulp::bkc::blocked_cluster<double>(a, in, tol, stream);
+}
+extern "C" int tpulp_blocked_cluster_batch_f32(const long long* a, const int* in,
+                                               const double* tol, void* stream) {
+  return tpulp::bkc::blocked_cluster<float>(a, in, tol, stream);
+}
+extern "C" int tpulp_blocked_cluster_batch_f64(const long long* a, const int* in,
+                                               const double* tol, void* stream) {
   return tpulp::bkc::blocked_cluster<double>(a, in, tol, stream);
 }
 extern "C" int tpulp_blocked_cluster_occupancy_f32(const int* in, int* clusters) {

@@ -53,6 +53,16 @@
 // Hopper inner-block kernel reads column j of the row-major T directly,
 // so Tt is gone: one M x N array less and half of the flush's writes.
 // Tt was the bit-exact transpose, so the walk is the same without it.
+//
+// The lane axis (the blocked batch, kernels/blocked_cluster.py): the
+// instantiation LANES = true flushes B lanes of a batched record in one
+// launch, blockIdx.z = lane, each lane's T, U, V, ca and scan at the lane
+// times its extent (M N, K M, K N, N, 2 N). A lane whose ``live`` flag is 0
+// (the block's cluster launch found it frozen) is skipped whole, its tiles
+// returning at once: even a flush of zero factors would turn a -0.0 of its
+// T into +0.0. The tile code is the solo one's, so a lane's flush equals
+// the solo flush of that lane bit for bit; the solo instantiation (LANES =
+// false) has no lane arithmetic at all.
 
 #include "common.cuh"
 
@@ -292,13 +302,22 @@ template <typename T> struct Math;
 template <> struct Math<float> { using type = MathF32; };
 template <> struct Math<double> { using type = MathF64; };
 
-template <typename T>
+template <typename T, bool LANES>
 __global__ void __launch_bounds__(Tile<T>::THREADS, Tile<T>::MIN_BLOCKS)
 flush_kernel(T* __restrict__ Tab, const T* __restrict__ U,
              const T* __restrict__ V, const int* __restrict__ ca,
              int* __restrict__ scan, int M, int N, int K, T opt_tol,
-             T piv_tol) {
+             T piv_tol, const int* __restrict__ live, long long live_stride) {
   using G = Tile<T>;
+  if (LANES) {
+    const long long z = blockIdx.z;
+    if (!live[z * live_stride]) return;
+    Tab += z * M * N;
+    U += z * K * M;
+    V += z * K * N;
+    ca += z * N;
+    scan += z * 2 * N;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   T* As = smem;                                   // [STAGES][BK][LDA]
@@ -367,34 +386,44 @@ flush_kernel(T* __restrict__ Tab, const T* __restrict__ U,
 
 constexpr int kMaxDevices = 64;
 
+// lanes > 0: a batched record of that many lanes with their live flags at
+// live[lane * live_stride]; 0: the solo flush
 template <typename T>
 int launch_flush(void* Tab, const void* U, const void* V, const void* ca,
                  void* scan, int M, int N, int K, double opt_tol,
-                 double piv_tol, void* stream) {
+                 double piv_tol, void* stream, int lanes = 0,
+                 const void* live = nullptr, long long live_stride = 0) {
   using G = Tile<T>;
+  if (lanes < 0 || lanes > 65535 || (lanes > 0 && !live))
+    return (int)cudaErrorInvalidValue;
   // the ring and the staging area exceed the default 48 KB: raise the
   // kernel's dynamic shared-memory limit, and ask for the largest carveout
   // so that MIN_BLOCKS blocks fit on an SM, once per device
-  static bool configured[kMaxDevices] = {};
+  static bool configured[2][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(flush_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const void* fn = lanes > 0 ? (const void*)flush_kernel<T, true>
+                             : (const void*)flush_kernel<T, false>;
+  if (!configured[lanes > 0][dev]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)G::SMEM);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(flush_kernel<T>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
+    configured[lanes > 0][dev] = true;
   }
-  dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
-  flush_kernel<T><<<grid, G::THREADS, G::SMEM, (cudaStream_t)stream>>>(
-      (T*)Tab, (const T*)U, (const T*)V, (const int*)ca, (int*)scan, M, N, K,
-      (T)opt_tol, (T)piv_tol);
+  dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM, lanes > 0 ? lanes : 1);
+  if (lanes > 0)
+    flush_kernel<T, true><<<grid, G::THREADS, G::SMEM, (cudaStream_t)stream>>>(
+        (T*)Tab, (const T*)U, (const T*)V, (const int*)ca, (int*)scan, M, N, K,
+        (T)opt_tol, (T)piv_tol, (const int*)live, live_stride);
+  else
+    flush_kernel<T, false><<<grid, G::THREADS, G::SMEM, (cudaStream_t)stream>>>(
+        (T*)Tab, (const T*)U, (const T*)V, (const int*)ca, (int*)scan, M, N, K,
+        (T)opt_tol, (T)piv_tol, nullptr, 0);
   return (int)cudaGetLastError();
 }
 
@@ -415,4 +444,28 @@ extern "C" int tpulp_flush_f64(void* Tab, const void* U, const void* V,
                                void* stream) {
   return tpulp::launch_flush<double>(Tab, U, V, ca, scan, M, N, K, opt_tol,
                                      piv_tol, stream);
+}
+
+extern "C" int tpulp_flush_batch_f32(void* Tab, const void* U, const void* V,
+                                     const void* ca, void* scan,
+                                     const void* live, long long live_stride,
+                                     int M, int N, int K, int lanes,
+                                     double opt_tol, double piv_tol,
+                                     void* stream) {
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  return tpulp::launch_flush<float>(Tab, U, V, ca, scan, M, N, K, opt_tol,
+                                    piv_tol, stream, lanes, live,
+                                    live_stride);
+}
+
+extern "C" int tpulp_flush_batch_f64(void* Tab, const void* U, const void* V,
+                                     const void* ca, void* scan,
+                                     const void* live, long long live_stride,
+                                     int M, int N, int K, int lanes,
+                                     double opt_tol, double piv_tol,
+                                     void* stream) {
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  return tpulp::launch_flush<double>(Tab, U, V, ca, scan, M, N, K, opt_tol,
+                                     piv_tol, stream, lanes, live,
+                                     live_stride);
 }

@@ -18,12 +18,15 @@ _SELECTED = threading.local()
 # "rank1_step" steps of four or five, "rank1_cluster" walks (one launch
 # each), "blocked_step" pivot slots of six, "blocked_cluster" blocks of K
 # slots (one launch each) and "blocked_ray" the blocked engine's launch
-# after each flush; "*_stage" the single stages launched to check them)
+# after each flush; "*_batch" one launch each for every lane of a batch;
+# "*_stage" the single stages launched to check them)
 LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0,
             "lane_dual": 0, "lane_primal": 0, "bounded_step": 0,
             "bounded_stage": 0, "rank1_step": 0, "rank1_stage": 0,
             "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
-            "blocked_stage": 0, "blocked_cluster": 0}
+            "blocked_stage": 0, "blocked_cluster": 0,
+            "blocked_cluster_batch": 0, "fused_flush_batch": 0,
+            "blocked_ray_batch": 0}
 
 
 def reset_launches() -> None:

@@ -23,8 +23,17 @@ stream-ordered launches a pivot slot. Either keeps a walk record on the
 card, flushes it with B1 and one ray launch a block, and reads it once a
 block. On CPU tensors it runs the eager loop below
 (``run_simplex_blocked_reference``: ``_blocked_pivot`` K times, a
-matrix-product flush and the ray scan, one host read a block). The batch
-and the sharded driver run the eager pivot on either device.
+matrix-product flush and the ray scan, one host read a block).
+
+``run_simplex_blocked_batch`` runs every lane's walk on CUDA tensors on the
+same route: ``kernels.blocked_cluster.blocked_cluster_batch`` (one cluster
+launch a block for every lane, one B1 launch and one ray launch over the
+lanes, one host read of every lane's (status, niter) a block); past the
+cluster's plan, each lane's solo walk on ``blocked_steps`` in turn (a lane
+frozen by the batch is a stopped solo walk, so the walks are the same). On
+CPU tensors it runs the eager vmapped loop
+(``run_simplex_blocked_batch_reference``). The sharded driver runs the
+eager pivot on either device.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status, eta_scaled_options)
 from ..kernels.blocked import RESET_ABOVE, blocked_steps
 from ..kernels.blocked_cluster import (blocked_cluster,
+                                       blocked_cluster_batch,
                                        blocked_cluster_occupancy,
                                        blocked_cluster_plan)
 from ..kernels.fma import fused_fma
@@ -45,7 +55,8 @@ from ..kernels.launch import on_cpu
 from .driver import finish, first_true, put, ratio_rows, status_select, take
 
 __all__ = ["run_simplex_blocked", "run_simplex_blocked_reference",
-           "run_simplex_blocked_batch", "blocked_route"]
+           "run_simplex_blocked_batch", "run_simplex_blocked_batch_reference",
+           "blocked_route"]
 
 
 class _BlockCarry(NamedTuple):
@@ -313,11 +324,44 @@ def _ray_scan(T: torch.Tensor, s: SimplexState, opts: SolverOptions):
 def run_simplex_blocked_batch(batched: SimplexState,
                               opts: SolverOptions | None = None,
                               block: int = 64) -> SimplexState:
-    """The rank-K blocked driver over every lane of a batched state:
-    ``block`` vmapped eta pivots, one batched flush ``T + U^T V``, the ray
-    scan per lane, and one host read of "any lane running" per block. A
-    lane that was not running at the start of a block keeps its whole
-    state through the block, as in tpulp's vmapped ``while_loop``."""
+    """The rank-K blocked driver over every lane of a batched state, in
+    blocks of ``block`` pivots with one host read of every lane's status a
+    block; a lane that was not running within the budget at the start of a
+    block keeps its whole state through the block, as in tpulp's vmapped
+    ``while_loop``. On CUDA tensors every lane's walk runs on the kernel of
+    ``blocked_route`` (``blocked_cluster_batch``, else each lane on
+    ``blocked_steps`` in turn; a build or launch failure raises), on CPU
+    tensors as the eager vmapped loop."""
+    if opts is None:
+        opts = SolverOptions.for_dtype(batched.T.dtype)
+    opts = eta_scaled_options(opts, batched.T.dtype)
+    if on_cpu(*batched):
+        return run_simplex_blocked_batch_reference(batched, opts, block)
+    B, M, N = batched.T.shape
+    stall_limit = opts.resolved_stall_limit(M - 2, N - 1)
+    batched = batched._replace(T=batched.T.contiguous())
+    if blocked_route(M, N, block, batched.T.dtype,
+                     batched.T.device) == "blocked_cluster":
+        out, _ = blocked_cluster_batch(batched, opts, stall_limit,
+                                       opts.max_iters, block)
+    else:
+        lanes = [blocked_steps(SimplexState(*(x[k] for x in batched)), opts,
+                               stall_limit, opts.max_iters, block)[0]
+                 for k in range(B)]
+        out = SimplexState(*(torch.stack(xs) for xs in zip(*lanes)))
+    return finish(out)
+
+
+@full_precision()
+def run_simplex_blocked_batch_reference(batched: SimplexState,
+                                        opts: SolverOptions | None = None,
+                                        block: int = 64) -> SimplexState:
+    """The eager rank-K blocked driver over every lane of a batched state
+    on any device: ``block`` vmapped eta pivots, one batched flush ``T +
+    U^T V``, the ray scan per lane, and one host read of "any lane running"
+    per block; a lane that was not running within the budget at the start
+    of a block keeps its whole state through the block, as in tpulp's
+    vmapped ``while_loop``. ``run_simplex_blocked_batch``'s CPU path."""
     if opts is None:
         opts = SolverOptions.for_dtype(batched.T.dtype)
     opts = eta_scaled_options(opts, batched.T.dtype)
