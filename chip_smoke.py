@@ -94,8 +94,12 @@ whole f64 devex walk, the f32 walk's first 2,048 steps and a Dantzig walk
 that switches to Bland against the plain loop in every field, and each of
 the four launches against its plain stage on a step with an upper hit and
 one with an entering flip, and times a kernel step on the card; then it
-solves a batch of 256 box LPs with and without bound rows,
-a blocked batch of 8 LPs of 512 x 1024 on ``blocked_cluster`` with a lane
+solves a batch of 256 box LPs with and without bound rows (the bounded
+batch's walk one ``lane_bounded`` launch, timed apart from its per-lane
+extraction) and holds ``lane_bounded`` bit for bit against the plain
+lane loop at f64 and f32 (Dantzig, devex, a budget, the Bland switch, a
+NaN lane, span-encoded nodes, streamed 258 x 513 lanes; timed on the
+card), a blocked batch of 8 LPs of 512 x 1024 on ``blocked_cluster`` with a lane
 axis (f64 and f32: every lane equal to its solo cluster walk bit for bit,
 one cluster, B1 and ray launch a block, the eager batch timed beside it),
 a small batch held to its plain version at every cluster size, a batch of
@@ -117,7 +121,8 @@ on a ``(batch, cols)`` mesh of shape (1, 1) and a 1-D ``("batch",)``
 mesh: ``solve_lp_batch(mesh=)`` over phase 7c's 64 scenarios (statuses,
 pivots and exact objectives equal to the solo batch's), ``solve_milp(mesh=)``
 on the bench knapsack (the DP oracle, every ``BnbStats`` counter equal to
-phase 7's f64 solve), the span-encoded knapsack (the DP oracle) and
+phase 7's f64 solve), the span-encoded knapsack (the DP oracle; one
+``lane_bounded`` launch a wave, the waves' walks timed) and
 ``tpulp_torch.entry.dryrun_multichip(1)``; every operand layout of those
 paths' FMA launches is held against the CPU's addcmul. Every phase that
 fails raises. The line before the last is a JSON summary of the kernels
@@ -2643,7 +2648,8 @@ def check_static_smem(ptxas) -> None:
 # the lane kernels' instantiations as their mangled names spell them:
 # <float or double, RESIDENT>
 LANE_KERNELS = tuple(f"lane_{kind}_kernelI{t}Lb{r}" for kind in
-                     ("dual", "primal") for t in "fd" for r in "10")
+                     ("dual", "primal", "bounded") for t in "fd"
+                     for r in "10")
 
 
 def _walk_kernels(ns: str, stages) -> dict:
@@ -3515,32 +3521,43 @@ SLEEP_CYCLES = 5_000_000
 STEPS_SLEEP_CYCLES = 4 * SLEEP_CYCLES
 
 
-def lanes_equal(k, p) -> float:
-    """Raise unless the lane kernel's state ``k`` equals the plain loop's
-    ``p`` bit for bit in every field (floats compared as ``x + 0.0``, NaN
-    equal to NaN); returns the largest |difference| over the tableau
-    entries finite in both."""
+def tensors_equal(label: str, a, b) -> None:
+    """Raise unless the tensors ``a`` and ``b`` are equal bit for bit
+    (floats compared as ``x + 0.0``, NaN equal to NaN)."""
     import torch
 
+    a, b = a.cpu(), b.cpu()
+    if a.shape != b.shape:
+        raise AssertionError(f"{label}: shapes {a.shape} and {b.shape}")
+    if a.is_floating_point():
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"{label}: NaN entries of the kernel and "
+                                 "the plain loop differ")
+        ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a = (a.nan_to_num(0.0, posinf=np.inf, neginf=-np.inf) + 0.0
+             ).view(ints)
+        b = (b.nan_to_num(0.0, posinf=np.inf, neginf=-np.inf) + 0.0
+             ).view(ints)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{label}: the kernel and the plain loop "
+                             "differ")
+
+
+def max_finite_diff(a, b) -> float:
+    """The largest |a - b| over the entries finite in both."""
+    import torch
+
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a - b).abs()[fin].max()) if bool(fin.any()) else 0.0
+
+
+def lanes_equal(k, p) -> float:
+    """Raise unless the lane kernel's state ``k`` equals the plain loop's
+    ``p`` bit for bit in every field (``tensors_equal``); returns the
+    largest |difference| over the tableau entries finite in both."""
     for name, a, b in zip(k._fields, k, p):
-        a, b = a.cpu(), b.cpu()
-        if a.shape != b.shape:
-            raise AssertionError(f"lane field {name}: shapes {a.shape} and "
-                                 f"{b.shape}")
-        if a.is_floating_point():
-            if not torch.equal(torch.isnan(a), torch.isnan(b)):
-                raise AssertionError(f"lane field {name}: NaN entries of "
-                                     "the kernel and the plain loop differ")
-            ints = torch.int64 if a.dtype == torch.float64 else torch.int32
-            a = (a.nan_to_num(0.0, posinf=np.inf, neginf=-np.inf) + 0.0
-                 ).view(ints)
-            b = (b.nan_to_num(0.0, posinf=np.inf, neginf=-np.inf) + 0.0
-                 ).view(ints)
-        if not torch.equal(a, b):
-            raise AssertionError(f"lane field {name}: the kernel and the "
-                                 "plain loop differ")
-    fin = torch.isfinite(k.T) & torch.isfinite(p.T)
-    return float((k.T - p.T).abs()[fin].max()) if bool(fin.any()) else 0.0
+        tensors_equal(f"lane field {name}", a, b)
+    return max_finite_diff(k.T, p.T)
 
 
 def device_time_ms(fn, runs: int) -> float:
@@ -4330,14 +4347,22 @@ def phase_bounded_batch(dev):
     """Phase 8b: solve_lp_batch(simple_bounds=True) over BOX_LANES box LPs
     of BOX_M x BOX_N against the row-lowered batch (BOX_M + BOX_N rows) of
     the first BOX_ROW_LANES: every lane optimal and the exact objectives
-    equal lane for lane."""
+    equal lane for lane. The bounded batch's walk is one ``lane_bounded``
+    launch and no FMA launch; the solve split into the batched state's
+    build, the walk and the per-lane extraction (refinement and
+    certificate); then ``bounded_lane_cases``."""
     import torch
 
     import tpulp_torch
-
-    sfs = [box_form(s, BOX_M, BOX_N) for s in range(BOX_LANES)]
+    from tpulp_torch.batch import (extract_batch_bounded_solutions,
+                                   make_batched_bounded_states)
     from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.solve import run_simplex_bounded_batch
 
+    # "cuda" or "cpu": main passes a torch.device, and the checks and
+    # timers below key on the name
+    dev = torch.device(dev).type
+    sfs = [box_form(s, BOX_M, BOX_N) for s in range(BOX_LANES)]
     res = {}
     sols = {}
     for kind, lanes in (("bounded", BOX_LANES), ("rows", BOX_ROW_LANES)):
@@ -4356,6 +4381,7 @@ def phase_bounded_batch(dev):
            if a.status != "optimal" or (k < BOX_ROW_LANES and (
                rows[k].status != "optimal"
                or a.objective != rows[k].objective))]
+    launches = res["bounded"]["launches"]
     log(f"# solve_lp_batch {BOX_LANES} box LPs {BOX_M}x{BOX_N}: "
         f"simple_bounds {res['bounded']['seconds']:.2f} s = "
         f"{res['bounded']['lanes_per_s']:.1f} lanes/s "
@@ -4365,9 +4391,274 @@ def phase_bounded_batch(dev):
         f"{res['rows']['lanes_per_s']:.1f} lanes/s ({res['rows']['pivots']}"
         " pivots); exact refinement and certificate per lane included; "
         f"exact objectives {'equal' if not bad else 'DIFFER'} lane for lane;"
-        f" launches of the bounded batch {res['bounded']['launches']}")
+        f" launches of the bounded batch {launches}")
     if bad:
         raise AssertionError(f"bounded batch: lanes {bad[:8]} differ")
+    if dev == "cuda" and (launches["lane_bounded"] != 1
+                          or launches["fused_fma"] != 0):
+        raise AssertionError(f"8b: the bounded batch launched lane_bounded "
+                             f"{launches['lane_bounded']} times and the FMA "
+                             f"{launches['fused_fma']} times, not 1 and 0")
+
+    # the same solve by parts, each part ending in a synchronisation
+    split = {}
+    sync(dev)
+    t0 = time.perf_counter()
+    bs = make_batched_bounded_states(sfs, dtype=torch.float64, device=dev)
+    sync(dev)
+    split["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = run_simplex_bounded_batch(bs)
+    sync(dev)
+    split["walk_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = extract_batch_bounded_solutions(sfs, out, "auto")
+    split["extract_s"] = time.perf_counter() - t0
+    if [p.objective for p in parts] != [a.objective
+                                         for a in sols["bounded"]]:
+        raise AssertionError("8b: the solve by parts differs from "
+                             "solve_lp_batch's")
+    res["split"] = split
+    total = sum(split.values())
+    log(f"# 8b the bounded batch by parts (f64): build {split['build_s']:.4f}"
+        f" s, walk {split['walk_s']:.4f} s, extraction (per-lane "
+        f"refinement and certificate) {split['extract_s']:.3f} s "
+        f"({100 * split['extract_s'] / total:.1f}% of {total:.3f} s)")
+    res["kernel"] = bounded_lane_cases(dev)
+    return res
+
+
+# phase 8b's checks of lane_bounded: the streamed lanes (258 x 513 frames,
+# past a block's shared memory), the budget of the budget case, and that of
+# the stall case (a stall limit of 1 turns every lane to Bland's rule,
+# whose walks run ~30x longer)
+BOX_STREAM_LANES, BOX_STREAM_M, BOX_STREAM_N = 8, 256, 256
+BOX_BUDGET, BOX_STALL_BUDGET = 7, 300
+SPAN_SEED = 3
+
+
+def bounded_fields(bs) -> list:
+    """(name, tensor) of a batched BoundedState: the ten state fields, the
+    spans, the at-upper flags and the devex weights."""
+    return list(zip(bs.s._fields, bs.s)) + [
+        ("upper", bs.upper), ("at_upper", bs.at_upper), ("gamma", bs.gamma)]
+
+
+def bounded_lanes_equal(k, p) -> float:
+    """Raise unless lane_bounded's state ``k`` equals the plain loop's ``p``
+    bit for bit in every field (``tensors_equal``); returns the largest
+    |difference| over the tableau entries finite in both."""
+    for (name, a), (_, b) in zip(bounded_fields(k), bounded_fields(p)):
+        if (a is None) != (b is None):
+            raise AssertionError(f"bounded lane field {name}: present in "
+                                 "one state only")
+        if a is not None:
+            tensors_equal(f"bounded lane field {name}", a, b)
+    return max_finite_diff(k.s.T, p.s.T)
+
+
+def bounded_pivots(bs, opts, stall: int) -> int:
+    """The lanes' pivots, the steps that change a basis (an entering flip
+    changes none): the plain step vmapped over the lanes, stepped to the
+    last lane's exit, counting."""
+    import torch
+
+    from tpulp_torch.core.state import Status
+    from tpulp_torch.solve.bounded import BoundedState, bounded_simplex_step
+
+    width = 4 if bs.gamma is not None else 3
+    step = torch.func.vmap(lambda c: tuple(bounded_simplex_step(
+        BoundedState(*c), opts, stall, opts.max_iters))[:width])
+    c = tuple(bs)[:width]
+    pivots = torch.zeros((), dtype=torch.int64, device=bs.s.T.device)
+    while bool(((c[0].status == Status.RUNNING)
+                & (c[0].niter < opts.max_iters)).any()):
+        nxt = step(c)
+        pivots += (nxt[0].basis != c[0].basis).any(dim=1).sum()
+        c = nxt
+    return int(pivots)
+
+
+def bounded_lane_run(bs, opts, runs: int, plain_runs: int, dev="cuda",
+                     timed: bool = True):
+    """One check of ``lane_bounded`` on a batched BoundedState: the kernel
+    and the plain loop (``bounded_lanes_reference``) held bit for bit; with
+    ``timed``, CUDA-event medians of ``runs`` kernel calls (host work
+    included) and of ``plain_runs`` plain calls, ``runs`` launches on the
+    card alone (``device_time_ms``), the longest lane's steps, the
+    pivots and flips, and the bound. Returns (kernel state, stats)."""
+    import torch
+
+    from tpulp_torch.core.state import RULE_DEVEX
+    from tpulp_torch.kernels import lane_bounded_plan
+    from tpulp_torch.solve import lanes
+
+    if opts.rule == RULE_DEVEX and bs.gamma is None:
+        bs = bs._replace(gamma=torch.ones_like(bs.upper))
+    B, M, N = bs.s.T.shape
+    stall = opts.resolved_stall_limit(M - 2, N - 1)
+
+    def kernel():
+        return lanes.bounded_lanes(bs, opts, stall, opts.max_iters)
+
+    def plain():
+        return lanes.bounded_lanes_reference(bs, opts, stall, opts.max_iters)
+
+    k, p = kernel(), plain()
+    sync(dev)
+    err = bounded_lanes_equal(k, p)
+    dn = (k.s.niter - bs.s.niter).cpu()
+    plan = lane_bounded_plan(M, N, bs.s.T.dtype)
+    statuses = {int(v): int(c) for v, c in
+                zip(*np.unique(k.s.status.cpu().numpy(), return_counts=True))}
+    stats = {"lanes": B, "frame": [M, N], "resident": plan.resident,
+             "threads": plan.threads, "smem": plan.smem,
+             "steps": int(dn.max()), "acts": int(dn.sum()),
+             "statuses": statuses, "max_abs_err": err, "library_ms": None}
+    if not timed:
+        return k, stats
+    # a CPU rehearsal times nothing
+    timer = cuda_time_ms if dev == "cuda" else lambda fn, runs: None
+    stats["ms"] = timer(kernel, runs)
+    stats["plain_ms"] = timer(plain, plain_runs)
+    stats["device_ms"] = (device_time_ms(kernel, runs) if dev == "cuda"
+                          else None)
+    steps = max(stats["steps"], 1)
+    stats["us_per_step"] = (1e3 * stats["ms"] / steps if stats["ms"]
+                            else None)
+    stats["device_us_per_step"] = (1e3 * stats["device_ms"] / steps
+                                   if stats["device_ms"] else None)
+    pivots = bounded_pivots(bs, opts, stall)
+    stats["pivots"] = pivots
+    es = bs.s.T.element_size()
+    m, n = M - 2, N - 1
+    devex = bs.gamma is not None
+    # a lane's frame, basis, masks, at-upper flags and scalars read and
+    # written once, its spans read, its devex weights read and written;
+    # an fma a tableau entry a pivot, an fma a row an entering flip
+    per_lane = (2 * (M * N * es + 4 * m + 3 * n + 17 + es) + n * es
+                + 2 * devex * n * es)
+    flops = 2.0 * M * N * pivots + 2.0 * M * (stats["acts"] - pivots)
+    stats["bound_ms"], stats["bound_by"] = bound(
+        B * per_lane, flops,
+        FP64_FLOP_S if bs.s.T.dtype == torch.float64 else FP32_FLOP_S)
+    return k, stats
+
+
+def span_nodes(dt, dev="cuda", seed: int = SPAN_SEED):
+    """10c's batched state at ``dt``: MILP_BATCH span-encoded nodes of the
+    bench knapsack (3 x 30 frames, no bound rows), each with three seeded
+    items fixed."""
+    from tpulp_torch.batch import make_batched_bounded_states
+    from tpulp_torch.milp.spans import _int_columns, _node_sf
+    from tpulp_torch.model.lower import lower_to_standard_form
+
+    values, weights, cap = bench_knapsack()
+    prog = knapsack_lp(values, [weights], [cap])
+    root = lower_to_standard_form(prog, simple_bounds=True)
+    names = [nm for nm, v in prog.vars.items() if v.isint]
+    cols = _int_columns(root, names)
+    bounds0 = {nm: (prog.vars[nm].lb, prog.vars[nm].ub) for nm in names}
+    rng = np.random.default_rng(seed)
+    sfs = []
+    for _ in range(MILP_BATCH):
+        node = dict(bounds0)
+        for i in rng.choice(len(names), size=3, replace=False):
+            v = int(rng.integers(0, 2))
+            node[names[i]] = (v, v)
+        sfs.append(_node_sf(root, cols, bounds0, node))
+    return make_batched_bounded_states(sfs, dtype=dt, device=dev)
+
+
+def bounded_lane_cases(dev="cuda"):
+    """8b's checks of ``lane_bounded``, each bit for bit against the plain
+    loop on the card, at f64 and f32: the BOX_LANES box LPs under Dantzig
+    and devex (timed), to a budget of BOX_BUDGET, under a stall limit of 1
+    (the Bland switch; to BOX_STALL_BUDGET), with a NaN lane and an
+    overflowing |b| sum (both NUMERIC); 10c's span nodes (timed); and
+    BOX_STREAM_LANES box LPs of 258 x 513 (streamed, timed). Then a launch
+    whose plan disagrees with the kernel's byte count is refused."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.batch import make_batched_bounded_states
+    from tpulp_torch.core.state import RULE_DEVEX, Status
+    from tpulp_torch.kernels import lanes as klanes
+
+    res = {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).replace("torch.", "")
+        opts = SolverOptions.for_dtype(dt)
+        devex = dc.replace(opts, rule=RULE_DEVEX)
+        box = make_batched_bounded_states(
+            [box_form(s, BOX_M, BOX_N) for s in range(BOX_LANES)], dtype=dt,
+            device=dev)
+        T = box.s.T.clone()
+        T[0, 4, -1] = float("nan")
+        T[1, 3:5, -1] = torch.finfo(dt).max / 1.5
+        numeric = box._replace(s=box.s._replace(T=T))
+        wide = make_batched_bounded_states(
+            [box_form(s, BOX_STREAM_M, BOX_STREAM_N)
+             for s in range(BOX_STREAM_LANES)], dtype=dt, device=dev)
+        cases = {}
+        for label, bs, o, timed in (
+                ("box", box, opts, True), ("box_devex", box, devex, True),
+                ("box_budget", box, dc.replace(opts, max_iters=BOX_BUDGET),
+                 False),
+                ("box_stall", box, dc.replace(
+                    opts, stall_limit=1, degen_tol=1e300,
+                    max_iters=BOX_STALL_BUDGET), False),
+                ("box_numeric", numeric, devex, False),
+                ("spans", span_nodes(dt, dev), opts, True),
+                ("streamed", wide, opts, True),
+                ("streamed_devex", wide, devex, False)):
+            k, st = bounded_lane_run(bs, o, RUNS, 1, dev, timed)
+            cases[label] = st
+            log(f"# 8b lane_bounded {label} {name}: {st['lanes']} lanes of "
+                f"{tuple(st['frame'])} "
+                f"({'resident' if st['resident'] else 'streamed'}, "
+                f"{st['smem']} bytes), bit for bit the plain loop; "
+                f"{st['steps']} steps, {st['acts']} pivots and flips, "
+                f"statuses {st['statuses']}"
+                + ("" if not timed else
+                   f"; {st['pivots']} pivots; kernel {st['ms']} ms a call, "
+                   f"{st['us_per_step']} us a step (device "
+                   f"{st['device_ms']} ms, {st['device_us_per_step']} us a "
+                   f"step), plain {st['plain_ms']} ms, bound "
+                   f"{st['bound_ms']:.5f} ms ({st['bound_by']})"))
+            if label == "box_budget" and \
+                    int(k.s.niter.max()) != BOX_BUDGET:
+                raise AssertionError(f"8b box_budget {name}: niter "
+                                     f"{int(k.s.niter.max())}")
+            if label == "box_stall" and not bool(k.s.bland.all()):
+                raise AssertionError(f"8b box_stall {name}: a lane did not "
+                                     "switch to Bland's rule")
+            if label == "box_numeric" and \
+                    k.s.status[:2].tolist() != [Status.NUMERIC] * 2:
+                raise AssertionError(f"8b box_numeric {name}: statuses "
+                                     f"{k.s.status[:2].tolist()}")
+        if cases["streamed"]["resident"] or not cases["box"]["resident"]:
+            raise AssertionError("8b: the box LPs' frames must be resident "
+                                 "and the 258 x 513 frames streamed")
+        res[name] = cases
+    if dev == "cuda":
+        # a plan whose byte count is not the kernel's: the launch refuses it
+        real = klanes.lane_bounded_plan
+        klanes.lane_bounded_plan = lambda M, N, dt: real(M, N, dt)._replace(
+            smem=real(M, N, dt).smem + 16)
+        try:
+            bounded_lane_run(box, opts, 1, 1, dev, False)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("8b: a plan of the wrong byte count was "
+                                 "launched")
+        finally:
+            klanes.lane_bounded_plan = real
+        log("# 8b lane_bounded refuses a plan whose byte count is not the "
+            "kernel's")
     return res
 
 
@@ -5484,16 +5775,33 @@ def mesh_milp(mesh, label: str, solo: dict, dev="cuda"):
 
 def spans_knapsack(dev="cuda"):
     """10c: ``solve_milp(node_encoding="spans")`` on the bench knapsack,
-    f64: the DP oracle; nodes and nodes/s."""
+    f64: the DP oracle; nodes and nodes/s. Each cold wave's walk is one
+    ``lane_bounded`` launch and no FMA launch (the FMA's span layouts stay
+    held by phase 3d's ``spans_*_10c`` cases); the waves' walks are timed
+    (host clock, each ending in a synchronisation) beside the solve."""
     import torch
 
     import tpulp_torch
     from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.solve import bounded
 
+    dev = torch.device(dev).type
     values, weights, cap = bench_knapsack()
     oracle = dp_knapsack(values, weights, cap)
+    walks = []
+    # milp.spans imports the batch driver at each solve
+    run = bounded.run_simplex_bounded_batch
+
+    def timed_walk(bs, opts=None):
+        t0 = time.perf_counter()
+        out = run(bs, opts)
+        sync(dev)
+        walks.append(time.perf_counter() - t0)
+        return out
+
     reset_launches()
-    with FmaLayouts() as lay:
+    bounded.run_simplex_bounded_batch = timed_walk
+    try:
         t0 = time.perf_counter()
         sol, st = tpulp_torch.solve_milp(
             knapsack_lp(values, [weights], [cap]), dtype=torch.float64,
@@ -5501,20 +5809,30 @@ def spans_knapsack(dev="cuda"):
             device=dev)
         sync(dev)
         secs = time.perf_counter() - t0
+    finally:
+        bounded.run_simplex_bounded_batch = run
     launches = dict(LAUNCHES)
-    held = fma_layouts_held(dev, lay.plans)
     if not (sol.status == "optimal" and sol.objective == oracle):
         raise AssertionError(f"10c spans: {sol.status} {sol.objective}, "
                              f"DP oracle {oracle}")
-    if dev == "cuda" and launches["fused_fma"] == 0:
-        raise AssertionError("10c spans: fused_fma never launched")
+    if len(walks) != st.waves:
+        raise AssertionError(f"10c spans: {len(walks)} walks timed for "
+                             f"{st.waves} waves")
+    if dev == "cuda" and (launches["lane_bounded"] != st.waves
+                          or launches["fused_fma"] != 0):
+        raise AssertionError(f"10c spans: lane_bounded launched "
+                             f"{launches['lane_bounded']} times for "
+                             f"{st.waves} waves, fused_fma "
+                             f"{launches['fused_fma']} times")
+    walk_s = sum(walks)
     log(f"# 10c solve_milp(node_encoding='spans') bench knapsack f64: "
         f"optimal {sol.objective} = DP oracle; {st.nodes_solved} nodes in "
         f"{st.waves} cold waves, {secs:.2f} s = "
-        f"{st.nodes_solved / secs:.1f} nodes/s; launches {launches}; the "
-        f"FMA's {held} operand layouts bit for bit the CPU's addcmul")
+        f"{st.nodes_solved / secs:.1f} nodes/s; the waves' walks "
+        f"{walk_s:.4f} s ({1e3 * walk_s / st.waves:.3f} ms a wave, "
+        f"{100 * walk_s / secs:.1f}% of the solve); launches {launches}")
     return {"seconds": secs, "nodes": st.nodes_solved, "waves": st.waves,
-            "fma_layouts": held,
+            "walk_seconds": walk_s, "walk_seconds_by_wave": walks,
             "nodes_per_s": st.nodes_solved / secs, "launches": launches}
 
 
@@ -5622,6 +5940,10 @@ def main() -> int:
                     f"{v.get('static_smem')} bytes of static shared memory"
                     for k, v in ptxas.items()
                     if k.startswith("cluster_kernel")))
+    log("# lane_bounded (ptxas -v): " + "; ".join(
+        f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} bytes "
+        f"of spills, {v.get('static_smem')} bytes of static shared memory"
+        for k, v in ptxas.items() if k.startswith("lane_bounded")))
     from tpulp_torch.kernels.blocked_cluster import BLOCKED_CLUSTER_THREADS
     log(f"# blocked_cluster (ptxas -v, {BLOCKED_CLUSTER_THREADS} threads a "
         "block): " + "; ".join(
@@ -5767,6 +6089,12 @@ def main() -> int:
             "none: the per-lane ray scan and carry reset of tpulp's "
             "vmapped blocked batch (tpulp/solve/blocked.py:335-366)",
             batch_launches),
+        "lane_bounded": (
+            "tpulp_torch/kernels/csrc/lanes.cu",
+            "none: XLA's jax.jit(jax.vmap(_compiled_bounded_driver)), a "
+            "vmapped lax.while_loop over bounded_simplex_step "
+            "(tpulp/solve/bounded.py:308-330, 86-275)",
+            exact["bounded_batch"]["bounded"]["launches"]),
     }
     # rank1_step's main path since the cluster kernel took the frames a
     # cluster holds: (f)'s driver="rank1" solve at 1538 x 3073
@@ -5952,6 +6280,13 @@ def main() -> int:
             cases = {dt: times[dt][batch_part[kname]]
                      for dt in ("float64", "float32")}
             head = cases["float64"]
+        elif kname == "lane_bounded":
+            # the headline: 8b's 256 box LPs of 66 x 193, f64, Dantzig;
+            # 10c's span nodes and the streamed lanes ride along
+            kc = exact["bounded_batch"]["kernel"]
+            head = kc["float64"]["box"]
+            cases = {f"{case} {dt}": st for dt, by in kc.items()
+                     for case, st in by.items()}
         elif kname.startswith("lane_"):
             # the headline: the f64 bench knapsack's warm wave (the dual
             # loop) and cold wave (the primal loop), 128 lanes of 59 x 114
@@ -5993,7 +6328,7 @@ def main() -> int:
     kernels[2]["layouts_held_by_path"] = {
         f"{path}_float64": batch_mesh[path]["fma_layouts"]
         for path in ("lp_batch_1x1", "lp_batch_batch", "milp_1x1",
-                     "milp_batch", "spans")}
+                     "milp_batch")}
     # the flush runs on two main paths: the kernel engine of phase 5 (its
     # ``launches``) and the sharded blocked driver of phase 9a, which
     # flushes each rank's (m+2, n/P) block
@@ -6105,9 +6440,24 @@ def main() -> int:
     kernels[10]["small_batch_held"] = bb["small"]
     kernels[7]["launches_by_path"]["8c_wide_float64"] = \
         bb["wide"]["launches"]["blocked_step"]
+    # the bounded batch's walk: one launch a batch (8b), one a cold wave
+    # (10c)
+    kernels[13]["launches_by_path"] = {
+        "8b_float64": exact["bounded_batch"]["bounded"]["launches"][
+            "lane_bounded"],
+        "10c_spans_float64": batch_mesh["spans"]["launches"]["lane_bounded"]}
+    kernels[13].update({key: kernels[13]["cases"]["box float64"][key]
+                        for key in ("us_per_step", "device_ms",
+                                    "device_us_per_step", "steps", "acts",
+                                    "pivots")})
+    kernels[13]["split_8b"] = exact["bounded_batch"]["split"]
+    kernels[13]["walk_10c"] = {
+        key: batch_mesh["spans"][key] for key in ("walk_seconds", "waves",
+                                                  "seconds", "nodes_per_s")}
     for k, names in ((0, ("flush_kernel<float>", "flush_kernel<double>")),
                      (1, "inner_block"), (2, "fma"),
-                     (3, "lane_dual"), (4, "lane_primal"), (5, "bounded"),
+                     (3, "lane_dual"), (4, "lane_primal"),
+                     (5, tuple(BOUNDED_KERNELS.values())),
                      (6, "rank1"), (7, tuple(BLOCKED_KERNELS.values())),
                      (8, tuple(CLUSTER_KERNELS.values())),
                      (9, tuple(BLOCKED_CLUSTER_KERNELS.values())),
@@ -6115,7 +6465,8 @@ def main() -> int:
                      (11, ("flush_kernel<float,lanes>",
                            "flush_kernel<double,lanes>")),
                      (12, ("blocked_ray_kernel<float>",
-                           "blocked_ray_kernel<double>"))):
+                           "blocked_ray_kernel<double>")),
+                     (13, "lane_bounded")):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

@@ -338,7 +338,8 @@ def test_launch_counters_stay_zero_on_cpu():
                        1e-9, 1e-9)
     assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0,
                         "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
-                        "bounded_step": 0, "bounded_stage": 0,
+                        "lane_bounded": 0, "bounded_step": 0,
+                        "bounded_stage": 0,
                         "rank1_step": 0, "rank1_stage": 0,
                         "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
                         "blocked_stage": 0, "blocked_cluster": 0,

@@ -6,7 +6,8 @@ from .blocked import blocked_stage, blocked_steps
 from .blocked_cluster import blocked_cluster_plan
 from .bounded import bounded_stage, bounded_steps
 from .fma import fused_fma
-from .lanes import lane_dual, lane_plan, lane_primal
+from .lanes import (lane_bounded, lane_bounded_plan, lane_dual, lane_plan,
+                    lane_primal)
 from .launch import LAUNCHES, reset_launches
 from .rank1 import rank1_stage, rank1_steps
 # the module, not its wrapper of the same name: rank1_cluster.rank1_cluster
@@ -24,6 +25,8 @@ __all__ = [
     "lane_dual",
     "lane_primal",
     "lane_plan",
+    "lane_bounded",
+    "lane_bounded_plan",
     "bounded_steps",
     "bounded_stage",
     "rank1_steps",

@@ -36,9 +36,10 @@
 //   change, the finiteness sums, the status and the counters.
 // Every launch returns at once unless the record's status is RUNNING and
 // niter < max_iters, so steps enqueued past the walk's exit are no-ops.
-// The shared parts (the status gate, the clean-up scan, the snapshot with
-// the redirected pivot, the pivoted entry, the devex weights) live in
-// common.cuh, which rank1.cu shares. The arithmetic is the plain step's
+// The shared parts (the status gate, the clean-up scan, the pricing and
+// the three-way ratio test, the snapshot with the redirected pivot, the
+// pivoted entry, the devex weights) live in common.cuh, which rank1.cu
+// and lanes.cu's lane_bounded share. The arithmetic is the plain step's
 // (lanes.cu's rules): one rounding per product in the decisions (*_rn),
 // IEEE division, prow = row * (1 / piv),
 // comparisons in the tableau's type against tolerances rounded to it,
@@ -102,7 +103,6 @@ __global__ void __launch_bounds__(ONE_BLOCK) price_kernel(Params<T> p) {
   const int N = p.N, m = p.M - 2, n = p.N - 1;
   const int phase = rec[PHASE];
   const bool bland = rec[BLAND] != 0;
-  const T inf = pos_inf<T>();
 
   // the first row whose basic column is artificial
   const int ra = first_artificial_row<T>(p.basis, p.art, m, scratch);
@@ -112,23 +112,9 @@ __global__ void __launch_bounds__(ONE_BLOCK) price_kernel(Params<T> p) {
   // over the columns: Dantzig's argmin of c_eff or devex's argmax of the
   // score (v, i); the first improving column (a); the first clean-up-
   // eligible column (b); the sum of |crow| over the active columns (s)
-  const T* rowd = p.tab + (long long)(r_d + 2) * N;
-  const T* crow = p.tab + (phase == 1 ? N : 0);
-  Red<T> cols = red_identity<T>(p.devex);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const bool act = p.act[k] != 0;
-    const T c = crow[k];
-    const T c_eff = act ? c : inf;
-    const bool improving = c_eff < -p.opt_tol;
-    if (improving) cols.a = min(cols.a, k);
-    if (act && !p.art[k] && T(fabs(rowd[k])) > p.piv_tol) cols.b = min(cols.b, k);
-    if (act) cols.s = add_rn(cols.s, T(fabs(c)));
-    if (p.devex)
-      offer(cols, improving ? div_rn(mul_rn(c, c), p.gamma[k]) : -inf, k, true);
-    else
-      offer(cols, c_eff, k, false);
-  }
-  cols = block_reduce(cols, scratch, p.devex);
+  const Red<T> cols = bounded_price(p.tab + (phase == 1 ? N : 0), p.tab + (long long)(r_d + 2) * N,
+                                    p.act, p.art, p.gamma, n, p.devex, p.opt_tol, p.piv_tol,
+                                    scratch);
   if (threadIdx.x != 0) return;
   const bool has_improving = cols.a != BIG_I;
   const bool has_elig = cols.b != BIG_I;
@@ -152,19 +138,6 @@ __global__ void __launch_bounds__(ONE_BLOCK) price_kernel(Params<T> p) {
 // ratio: the three-way ratio test, the pivot and the flip, the snapshot
 // ---------------------------------------------------------------------------
 
-// row i's candidates over column j: a lower hit t_lo, an upper hit t_up
-// (neg: the row may hit its upper bound)
-template <typename T>
-__device__ __forceinline__ void ratios(const Params<T>& p, int i, int j, T& tl, T& tu, bool& neg) {
-  const T inf = pos_inf<T>();
-  const T* row = p.tab + (long long)(i + 2) * p.N;
-  const T c = row[j], b = row[p.N - 1];
-  const T ub = p.upper[p.basis[i]];
-  tl = c > p.piv_tol ? div_rn(b, c) : inf;
-  neg = c < -p.piv_tol && finite_val(ub);
-  tu = neg ? div_rn(sub_rn(ub, b), -c) : inf;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(ONE_BLOCK) ratio_kernel(Params<T> p) {
   __shared__ Red<T> scratch[33];
@@ -175,36 +148,11 @@ __global__ void __launch_bounds__(ONE_BLOCK) ratio_kernel(Params<T> p) {
   const bool bland = rec[BLAND] != 0, cleanup = rec[CLEANUP] != 0;
   const bool has_elig = rec[HAS_ELIG] != 0, pricing_pivot = rec[PRICING_PIVOT] != 0;
 
-  // the minima of t_lo and t_up (NaN-propagating, as torch's min)
-  Red<T> lo = red_identity<T>(false), up = red_identity<T>(false);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    T tl, tu;
-    bool neg;
-    ratios(p, i, j, tl, tu, neg);
-    offer(lo, tl, i, false);
-    offer(up, tu, i, false);
-  }
-  lo = block_reduce(lo, scratch, false);
-  up = block_reduce(up, scratch, false);
-  const T t_star = nan_min(nan_min(lo.v, up.v), p.upper[j]);
-  const bool has_ratio = finite_val(t_star);
-  const bool kind_lo = lo.v <= t_star;
-  const bool kind_up = !kind_lo && up.v <= t_star;
-  const bool kind_flip = !kind_lo && !kind_up;
-
-  // the winning kind's ties: the first (a), Bland's smallest basic index
-  // (v, i); none ties (a NaN t_star): row 0, as torch's argmax/argmin
-  Red<T> tie = red_identity<T>(false);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    T tl, tu;
-    bool neg;
-    ratios(p, i, j, tl, tu, neg);
-    const bool t = kind_lo ? tl <= t_star : (neg && tu <= t_star);
-    if (t) tie.a = min(tie.a, i);
-    offer(tie, t ? T(p.basis[i]) : T(BIG_I), i, false);
-  }
-  tie = block_reduce(tie, scratch, false);
-  const int r_price = bland ? tie.i : (tie.a != BIG_I ? tie.a : 0);
+  // the three-way ratio test: the kind and the leaving row
+  const BoundedRatio rt =
+      bounded_ratio(p.tab, N, m, j, p.basis, p.upper, p.piv_tol, bland, scratch);
+  const bool has_ratio = rt.has_ratio, kind_up = rt.kind_up, kind_flip = rt.kind_flip;
+  const int r_price = rt.r_price;
 
   const bool do_cleanup = cleanup && has_elig;
   const bool do_price = pricing_pivot && has_ratio;

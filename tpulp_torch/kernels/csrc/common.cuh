@@ -6,9 +6,11 @@
 // (lanes.cu, bounded.cu, rank1.cu, blocked.cu): torch's NaN-first
 // argmin/argmax with first-index ties, two first-index minima and a sum in
 // a fixed tree, in one pass; and what the stream-ordered walks (bounded.cu,
-// rank1.cu, blocked.cu) share: the record's status gate, the clean-up
-// scan, the ratio test over one column, the pivot's snapshot (with the
-// redirected no-op pivot), the pivoted entry and the devex weights.
+// rank1.cu, blocked.cu) and the lane kernels share: the record's status
+// gate, the clean-up scan, the ratio test over one column, the bounded
+// step's pricing and three-way ratio test (bounded.cu, lanes.cu), the
+// pivot's snapshot (with the redirected no-op pivot), the pivoted entry
+// and the devex weights.
 #pragma once
 
 #include <cfloat>
@@ -213,6 +215,102 @@ __device__ int ratio_row(const T* col, long long cs, const T* b, long long bs, c
   }
   rt = block_reduce(rt, scratch, !use_bland);
   return rt.i;
+}
+
+// ---------------------------------------------------------------------------
+// the bounded-variable step (bounded.cu's launches, lanes.cu's lane_bounded)
+// ---------------------------------------------------------------------------
+
+// Pricing of solve/bounded.py::bounded_simplex_step over the n columns of
+// the pricing row crow: Dantzig's NaN-first argmin of c_eff (v, i), or
+// devex's argmax of c^2 / gamma over the improving columns; the first
+// improving column (a); the first column eligible for the clean-up pivot
+// on row rowd (b); the sum of |crow| over the active columns (s).
+// Returned to every thread of the block.
+template <typename T>
+__device__ Red<T> bounded_price(const T* crow, const T* rowd, const unsigned char* act,
+                                const unsigned char* art, const T* gamma, int n, bool devex,
+                                T opt_tol, T piv_tol, Red<T>* scratch) {
+  const T inf = pos_inf<T>();
+  Red<T> cols = red_identity<T>(devex);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const bool a = act[k] != 0;
+    const T c = crow[k];
+    const T c_eff = a ? c : inf;
+    const bool improving = c_eff < -opt_tol;
+    if (improving) cols.a = min(cols.a, k);
+    if (a && !art[k] && T(fabs(rowd[k])) > piv_tol) cols.b = min(cols.b, k);
+    if (a) cols.s = add_rn(cols.s, T(fabs(c)));
+    if (devex)
+      offer(cols, improving ? div_rn(mul_rn(c, c), gamma[k]) : -inf, k, true);
+    else
+      offer(cols, c_eff, k, false);
+  }
+  return block_reduce(cols, scratch, devex);
+}
+
+// A row's candidates over the entering column (its entry c, its RHS b, its
+// basic variable's span ub): a lower hit tl (c > piv_tol), an upper hit tu
+// (neg: c < -piv_tol and a finite span), else +inf.
+template <typename T>
+__device__ __forceinline__ void bounded_ratios(T c, T b, T ub, T piv_tol, T& tl, T& tu,
+                                               bool& neg) {
+  const T inf = pos_inf<T>();
+  tl = c > piv_tol ? div_rn(b, c) : inf;
+  neg = c < -piv_tol && finite_val(ub);
+  tu = neg ? div_rn(sub_rn(ub, b), -c) : inf;
+}
+
+struct BoundedRatio {
+  bool has_ratio, kind_up, kind_flip;
+  int r_price;
+};
+
+// The three-way ratio test of bounded_simplex_step over column j of the m
+// rows below the two objective rows of tab (row stride N, the RHS in
+// column N - 1, the basic variables' spans upper[basis[i]]) and the
+// entering variable's own span upper[j]: the minima of the lower and the
+// upper hits (NaN-propagating, as torch's min); on exact ties a lower hit,
+// then an upper hit, then the flip; the leaving row among the winning
+// kind's ties, the first or Bland's smallest basic index (row 0 where none
+// ties, as torch's argmax / argmin). Returned to every thread of the block.
+template <typename T>
+__device__ BoundedRatio bounded_ratio(const T* tab, int N, int m, int j, const int* basis,
+                                      const T* upper, T piv_tol, bool bland, Red<T>* scratch) {
+  Red<T> lo = red_identity<T>(false), up = red_identity<T>(false);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const T* row = tab + (long long)(i + 2) * N;
+    T tl, tu;
+    bool neg;
+    bounded_ratios(row[j], row[N - 1], upper[basis[i]], piv_tol, tl, tu, neg);
+    offer(lo, tl, i, false);
+    offer(up, tu, i, false);
+  }
+  lo = block_reduce(lo, scratch, false);
+  up = block_reduce(up, scratch, false);
+  const T t_star = nan_min(nan_min(lo.v, up.v), upper[j]);
+  const bool kind_lo = lo.v <= t_star;
+  const bool kind_up = !kind_lo && up.v <= t_star;
+
+  // the winning kind's ties: the first (a), Bland's smallest basic index
+  // (v, i); none ties (a NaN t_star): row 0, as torch's argmax/argmin
+  Red<T> tie = red_identity<T>(false);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const T* row = tab + (long long)(i + 2) * N;
+    T tl, tu;
+    bool neg;
+    bounded_ratios(row[j], row[N - 1], upper[basis[i]], piv_tol, tl, tu, neg);
+    const bool t = kind_lo ? tl <= t_star : (neg && tu <= t_star);
+    if (t) tie.a = min(tie.a, i);
+    offer(tie, t ? T(basis[i]) : T(BIG_I), i, false);
+  }
+  tie = block_reduce(tie, scratch, false);
+  BoundedRatio out;
+  out.has_ratio = finite_val(t_star);
+  out.kind_up = kind_up;
+  out.kind_flip = !kind_lo && !kind_up;
+  out.r_price = bland ? tie.i : (tie.a != BIG_I ? tie.a : 0);
+  return out;
 }
 
 // The pivot of a step's update on the (M, N) tableau: (r + 2, j) when the

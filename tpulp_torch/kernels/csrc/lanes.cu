@@ -1,14 +1,20 @@
-// lane_dual_kernel / lane_primal_kernel: the branch-and-bound waves' and
-// the rank-1 batch's simplex loops, one block per lane, each lane stepped
-// to its own exit in one launch.
+// lane_dual_kernel / lane_primal_kernel / lane_bounded_kernel: the
+// branch-and-bound waves', the rank-1 batch's and the bounded batch's
+// simplex loops, one block per lane, each lane stepped to its own exit in
+// one launch.
 //
 // Replaces no Pallas kernel: in tpulp these loops are XLA's compiled
 // ``lax.while_loop`` over ``dual_simplex_step`` / ``simplex_step``, vmapped
 // over the lanes (tpulp/solve/dual.py: _compiled_warm_carry,
 // _compiled_warm_wave, _compiled_expand_generation and the batched warm
-// start; tpulp/batch/vmap_driver.py: _batched_driver). The port ran them
-// as eager vmapped steps of 100-170 small kernels each, with a host read
-// of "any lane running" before every chunk of steps.
+// start; tpulp/batch/vmap_driver.py: _batched_driver), and
+// ``jax.jit(jax.vmap(_compiled_bounded_driver))`` over
+// ``bounded_simplex_step`` (tpulp/solve/bounded.py: 308-330 the batch,
+// 86-275 the step), which solve_lp_batch(simple_bounds=True) and the
+// span-encoded branch-and-bound (milp/spans.py) run. The port ran them as
+// eager vmapped steps of 100-250 small kernels each (the bounded step's
+// pivot and flip two FMA launches), with a host read of "any lane
+// running" before every chunk of steps.
 //
 // What bounds it on the H100: the chain of dependent block-wide
 // reductions in every step (the leaving row, the entering column, the
@@ -36,6 +42,29 @@
 // fixed order (per thread, then the warp tree, then across warps) in the
 // tableau's type. The block reductions (Red, offer, block_reduce,
 // finite_val) live in common.cuh, which bounded.cu shares.
+//
+// lane_bounded_kernel steps bounded_simplex_step (solve/bounded.py) the
+// same way: the clean-up scan and the retire; Dantzig or devex pricing
+// (c^2 / gamma over the improving columns) with the Bland switch, every
+// other rule priced as Dantzig; the three-way ratio test (a lower hit, then
+// an upper hit, then the entering flip on exact ties; the first or Bland's
+// smallest basic index among the winning kind's ties); one pivot; the devex
+// update and its two resets; one column flip (the RHS fma(-Tn[i, fcol], uf,
+// Tn[i, -1]) with one rounding, then the column negated); the stall
+// counter, the Bland switch, the finiteness sums and the status. Its
+// pricing and ratio test are bounded.cu's (common.cuh: bounded_price,
+// bounded_ratio). The spans, the at-upper flags and the devex weights sit
+// in shared memory beside the lane's vectors, resident or not. After the
+// pivot's barrier the thread that owns row i updates T[i, -1] and
+// T[i, fcol], so the flip needs no snapshot. Like bounded.cu it skips the
+// plain step's redirected pivot on (row 2, basis[0]) where that is an
+// exact no-op (it could change only a zero's sign); elsewhere it runs it.
+// What bounds it is the same chain of reductions: a step makes the clean-up
+// scan, the price, the two minima, the tie pick and the post-step sums
+// (plus the no-op check on a step that does not pivot), six or seven
+// block reductions of two barriers each, and three or four more barriers
+// around the pivot and the flip; the bytes are each frame read and written
+// once a launch (256 lanes of 66 x 193 f64: 0.016 ms at 3.35 TB/s).
 
 #include "common.cuh"
 
@@ -45,7 +74,10 @@ constexpr int LANE_MAX_THREADS = 256;
 // status codes and pricing rules (tpulp_torch.core.state)
 constexpr int ST_RUNNING = 0, ST_OPTIMAL = 1, ST_UNBOUNDED = 2, ST_INFEASIBLE = 3,
               ST_NUMERIC = 5;
-constexpr int RULE_BLAND_ = 1, RULE_MAX_INCREASE_ = 2;
+constexpr int RULE_BLAND_ = 1, RULE_MAX_INCREASE_ = 2, RULE_DEVEX_ = 3;
+// re-anchor the devex frame past this weight (kernels/bounded.py:
+// DEVEX_RESET_ABOVE)
+constexpr double DEVEX_RESET_ABOVE_ = 1e8;
 
 // the wrapper's argument arrays (tpulp_torch/kernels/lanes.py)
 enum LanePtr {
@@ -55,6 +87,12 @@ enum LanePtr {
   // lane strides in elements of the inputs
   A_ST_T, A_ST_BASIS, A_ST_ACT, A_ST_ART, A_ST_PHASE, A_ST_STATUS, A_ST_NITER, A_ST_STUCK,
   A_ST_BLAND, A_ST_LASTZ, A_NARGS
+};
+// the bounded lanes' arrays after those: the spans, the at-upper flags and
+// the devex weights, in and out, and their lane strides
+enum BoundedPtr {
+  A_UPPER = A_NARGS, A_AT_IN, A_AT_OUT, A_GAMMA_IN, A_GAMMA_OUT, A_ST_UPPER, A_ST_AT,
+  A_ST_GAMMA, A_BNARGS
 };
 enum LaneInt { I_B, I_M, I_N, I_STALL, I_MAXIT, I_RULE, I_TIE, I_RESIDENT, I_THREADS, I_SMEM, I_NINTS };
 enum LaneTol { D_OPT, D_PIV, D_DEGEN, D_INFEAS, D_FEAS, D_NTOLS };
@@ -100,6 +138,14 @@ __host__ __device__ __forceinline__ long long lane_smem_bytes(int M, int N, bool
                     align16(4 * m) + 2 * align16(n);
   if (resident) bytes += align16((long long)M * N * sizeof(T));
   return bytes;
+}
+
+// A bounded lane's shared memory: the lane's, then the spans and the devex
+// weights (n of T each) and the at-upper flags (n bytes).
+template <typename T>
+__host__ __device__ __forceinline__ long long bounded_lane_smem_bytes(int M, int N, bool resident) {
+  const long long n = N - 1;
+  return lane_smem_bytes<T>(M, N, resident) + 2 * align16(n * (long long)sizeof(T)) + align16(n);
 }
 
 template <typename T>
@@ -448,6 +494,163 @@ __global__ void __launch_bounds__(LANE_MAX_THREADS) lane_primal_kernel(LaneParam
 }
 
 // ---------------------------------------------------------------------------
+// the bounded-variable simplex (solve/bounded.py::bounded_simplex_step)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+struct BoundedLaneParams {
+  LaneParams<T> l;
+  const T* upper;
+  const unsigned char* at_in;
+  unsigned char* at_out;
+  const T* gamma_in;  // devex only
+  T* gamma_out;       // devex only
+  long long st_upper, st_at, st_gamma;
+  bool devex;
+  T reset_above;
+};
+
+template <typename T, bool RESIDENT>
+__global__ void __launch_bounds__(LANE_MAX_THREADS) lane_bounded_kernel(BoundedLaneParams<T> q) {
+  __shared__ Red<T> scratch[33];
+  extern __shared__ __align__(16) unsigned char lane_dyn[];
+  const LaneParams<T>& p = q.l;
+  const Lane<T> L = lane_layout<T, RESIDENT>(p, lane_dyn);
+  const int M = p.M, N = p.N, m = p.M - 2, n = p.N - 1;
+  const long long lane = blockIdx.x;
+  const T inf = pos_inf<T>();
+  // the spans, the devex weights and the at-upper flags after the lane's
+  // own segments
+  unsigned char* vec = lane_dyn + lane_smem_bytes<T>(M, N, RESIDENT);
+  T* upper = (T*)vec;
+  T* gamma = (T*)(vec + align16((long long)n * sizeof(T)));
+  unsigned char* at_upper = vec + 2 * align16((long long)n * sizeof(T));
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    upper[k] = q.upper[lane * q.st_upper + k];
+    at_upper[k] = q.at_in[lane * q.st_at + k] != 0;
+    if (q.devex) gamma[k] = q.gamma_in[lane * q.st_gamma + k];
+  }
+  load_lane(p, L);
+  T last_z;
+  Scalars s = load_scalars(p, last_z);
+
+  while (s.status == ST_RUNNING && s.niter < p.max_iters) {
+    // the clean-up scan: a basic artificial in phase 2
+    const bool in_phase2 = s.phase == 2;
+    const int ra = first_artificial_row<T>(L.basis, L.art, m, scratch);
+    const bool cleanup = ra != BIG_I && in_phase2;
+    const int r_d = ra != BIG_I ? ra : 0;
+    // pricing (v, i), the first improving column (a), the first clean-up-
+    // eligible column (b), the pre-step |crow| sum over the active columns
+    const Red<T> cols =
+        bounded_price(L.tab + (s.phase == 1 ? N : 0), L.tab + (long long)(r_d + 2) * N, L.act,
+                      L.art, gamma, n, q.devex, p.opt_tol, p.piv_tol, scratch);
+    const bool has_improving = cols.a != BIG_I;
+    const bool has_elig = cols.b != BIG_I;
+    const int j_price = s.bland ? (has_improving ? cols.a : n - 1) : cols.i;
+    const bool retire = cleanup && !has_elig;
+
+    // phase bookkeeping
+    const bool phase1_done = s.phase == 1 && !has_improving;
+    const bool became_infeasible = phase1_done && -L.tab[(long long)N + N - 1] > p.infeas_tol;
+    const bool to_phase2 = phase1_done && !became_infeasible;
+    const bool pricing_pivot = has_improving && !cleanup && !phase1_done;
+    const int j = cleanup ? (has_elig ? cols.b : n - 1) : j_price;
+
+    // the three-way ratio test over column j, run on every step as the
+    // plain step runs it: its row names the flip's column even where
+    // nothing moves
+    const BoundedRatio rt =
+        bounded_ratio(L.tab, N, m, j, L.basis, upper, p.piv_tol, s.bland, scratch);
+    const bool do_cleanup = cleanup && has_elig;
+    const bool do_price = pricing_pivot && rt.has_ratio;
+    const bool do_pivot = do_cleanup || (do_price && !rt.kind_flip);
+    const bool do_flip_enter = do_price && rt.kind_flip;
+    const int r = do_cleanup ? r_d : rt.r_price;
+    const int leaving = L.basis[r];
+    const bool do_flip = (do_price && rt.kind_up && !cleanup) || do_flip_enter;
+    const int fcol = do_flip_enter ? j : leaving;
+    const T uf = do_flip ? upper[fcol] : T(0);
+    const T piv = L.tab[(long long)(r + 2) * N + j];
+    const T gq = q.devex ? gamma[j] : T(0);
+    const int basis0 = L.basis[0];
+    const bool became_unbounded = pricing_pivot && !rt.has_ratio && in_phase2;
+    const bool became_failed1 = pricing_pivot && !rt.has_ratio && !in_phase2;
+
+    // the retire and the phase change write the masks (never in one step:
+    // a retire needs phase 2, the phase change phase 1)
+    if (retire && threadIdx.x == 0) L.art[L.basis[r_d]] = 0;
+    if (to_phase2)
+      for (int k = threadIdx.x; k < n; k += blockDim.x) L.act[k] = L.act[k] && !L.art[k];
+
+    // one pivot in place from the snapshot of its column and row: the real
+    // one, or the redirected one on (row 2, basis[0]) unless an exact no-op
+    int rg, jp;
+    const bool pv = pivot_snapshot(L.tab, M, N, do_pivot, r, j, basis0, L.colv, L.prow, scratch,
+                                   rg, jp);
+    __syncthreads();
+    if (pv) {
+      const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+      for (int i = warp; i < M; i += nw) {
+        T* row = L.tab + (long long)i * N;
+        for (int k = ln; k < N; k += 32) row[k] = pivoted(L.colv, L.prow, rg, jp, i, k, row[k]);
+      }
+      if (do_pivot && threadIdx.x == 0) L.basis[r] = j;
+      __syncthreads();
+    }
+
+    // one column flip (uf = 0 where none: the RHS still takes the plain
+    // step's fma), each thread on its rows; the post-step |b| sum (s) and
+    // the devex weights' NaN-first maximum (v) in one reduction
+    Red<T> x = red_identity<T>(true);
+    for (int i = threadIdx.x; i < M; i += blockDim.x) {
+      T* row = L.tab + (long long)i * N;
+      const T tf = row[fcol];
+      const T b = fma(-tf, uf, row[N - 1]);
+      row[N - 1] = b;
+      if (do_flip) row[fcol] = -tf;
+      if (i >= 2) x.s = add_rn(x.s, T(fabs(b)));
+    }
+    if (do_flip && threadIdx.x == 0) at_upper[fcol] = !at_upper[fcol];
+    // the weights move on a pricing pivot only (alpha: the post-pivot row r
+    // before the flip, the weights being sign-invariant)
+    if (q.devex) devex_weights(gamma, L.prow, n, jp, leaving, do_price && !rt.kind_flip, gq, piv, x);
+    x = block_reduce(x, scratch, true);
+    if (q.devex && (x.v > q.reset_above || to_phase2))
+      for (int k = threadIdx.x; k < n; k += blockDim.x) gamma[k] = T(1);
+
+    // stall / Bland switch against the step's objective, the phase, status
+    const bool act = do_pivot || do_flip_enter;
+    const T z = -L.tab[s.phase == 1 ? (long long)N + N - 1 : (long long)N - 1];
+    if (do_price && act) {
+      s.stuck = sub_rn(last_z, z) > p.degen_tol ? 0 : s.stuck + 1;
+      last_z = z;
+    }
+    s.bland = s.bland || s.stuck >= p.stall_limit;
+    if (to_phase2) {
+      s.phase = 2;
+      s.stuck = 0;
+      last_z = inf;
+    }
+    const bool finished_opt = in_phase2 && !has_improving && !cleanup;
+    const bool finite_ok = finite_val(z) && finite_val(x.s) && finite_val(cols.s);
+    s.status = !finite_ok ? ST_NUMERIC
+               : (became_infeasible || became_failed1) ? ST_INFEASIBLE
+               : became_unbounded ? ST_UNBOUNDED
+               : finished_opt ? ST_OPTIMAL
+                              : ST_RUNNING;
+    s.niter += act;
+  }
+  __syncthreads();
+  store_lane<T, RESIDENT>(p, L, true);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    q.at_out[lane * n + k] = at_upper[k];
+    if (q.devex) q.gamma_out[lane * n + k] = gamma[k];
+  }
+  store_scalars(p, s, last_z);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -498,38 +701,85 @@ LaneParams<T> lane_params(const long long* a, const int* in, const double* tol) 
   return p;
 }
 
-// the kernel for (PRIMAL, RESIDENT), its dynamic shared memory raised to
-// ``smem`` where that is above the default 48 KB
-template <typename T, bool PRIMAL, bool RESIDENT>
-int launch_lane_kernel(const LaneParams<T>& p, int B, int threads, int smem, cudaStream_t stream) {
-  const void* kern = PRIMAL ? (const void*)lane_primal_kernel<T, RESIDENT>
-                            : (const void*)lane_dual_kernel<T, RESIDENT>;
-  static int raised = 48 * 1024;  // per instantiation
+// ``kern`` over B blocks with the argument ``p``, its dynamic shared memory
+// raised to ``smem`` where that is above what ``raised`` (one a kernel)
+// records, the default 48 KB at first
+template <typename P>
+int launch_per_lane(const void* kern, int& raised, const P& p, int B, int threads, int smem,
+                    cudaStream_t stream) {
   if (smem > raised) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     raised = smem;
   }
-  LaneParams<T> arg = p;
+  P arg = p;
   void* args[] = {&arg};
   const cudaError_t e = cudaLaunchKernel(kern, dim3(B), dim3(threads), args, (size_t)smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// the kernel for (PRIMAL, RESIDENT)
+template <typename T, bool PRIMAL, bool RESIDENT>
+int launch_lane_kernel(const LaneParams<T>& p, int B, int threads, int smem, cudaStream_t stream) {
+  const void* kern = PRIMAL ? (const void*)lane_primal_kernel<T, RESIDENT>
+                            : (const void*)lane_dual_kernel<T, RESIDENT>;
+  static int raised = 48 * 1024;  // per instantiation
+  return launch_per_lane(kern, raised, p, B, threads, smem, stream);
+}
+
+template <typename T, bool RESIDENT>
+int launch_bounded_kernel(const BoundedLaneParams<T>& q, int B, int threads, int smem,
+                          cudaStream_t stream) {
+  static int raised = 48 * 1024;  // per instantiation
+  return launch_per_lane((const void*)lane_bounded_kernel<T, RESIDENT>, raised, q, B, threads,
+                         smem, stream);
+}
+
+// the launch's shape: the wrapper's plan must agree with the kernel's layout
+inline bool lanes_shape_ok(int B, int M, int N, int threads) {
+  return B > 0 && M >= 3 && N >= 2 && threads % 32 == 0 && threads >= 32 &&
+         threads <= LANE_MAX_THREADS;
+}
+
 template <typename T, bool PRIMAL>
 int launch_lanes(const long long* a, const int* in, const double* tol, void* stream) {
   const int B = in[I_B], M = in[I_M], N = in[I_N], threads = in[I_THREADS], smem = in[I_SMEM];
   const bool resident = in[I_RESIDENT] != 0;
-  // the wrapper's plan must agree with this layout
-  if (B <= 0 || M < 3 || N < 2 || threads % 32 != 0 || threads < 32 ||
-      threads > LANE_MAX_THREADS || (long long)smem != lane_smem_bytes<T>(M, N, resident))
+  if (!lanes_shape_ok(B, M, N, threads) || (long long)smem != lane_smem_bytes<T>(M, N, resident))
     return (int)cudaErrorInvalidValue;
   const LaneParams<T> p = lane_params<T>(a, in, tol);
   const cudaStream_t s = (cudaStream_t)stream;
   return resident ? launch_lane_kernel<T, PRIMAL, true>(p, B, threads, smem, s)
                   : launch_lane_kernel<T, PRIMAL, false>(p, B, threads, smem, s);
+}
+
+template <typename T>
+int launch_bounded_lanes(const long long* a, const int* in, const double* tol, void* stream) {
+  const int B = in[I_B], M = in[I_M], N = in[I_N], threads = in[I_THREADS], smem = in[I_SMEM];
+  const bool resident = in[I_RESIDENT] != 0;
+  if (!lanes_shape_ok(B, M, N, threads) ||
+      (long long)smem != bounded_lane_smem_bytes<T>(M, N, resident))
+    return (int)cudaErrorInvalidValue;
+  BoundedLaneParams<T> q;
+  q.l = lane_params<T>(a, in, tol);
+  q.upper = (const T*)a[A_UPPER];
+  q.at_in = (const unsigned char*)a[A_AT_IN];
+  q.at_out = (unsigned char*)a[A_AT_OUT];
+  q.gamma_in = (const T*)a[A_GAMMA_IN];
+  q.gamma_out = (T*)a[A_GAMMA_OUT];
+  q.st_upper = a[A_ST_UPPER];
+  q.st_at = a[A_ST_AT];
+  q.st_gamma = a[A_ST_GAMMA];
+  q.devex = in[I_RULE] == RULE_DEVEX_;
+  q.reset_above = (T)DEVEX_RESET_ABOVE_;
+  if (!q.l.act_out || !q.l.art_out || !q.upper || !q.at_in || !q.at_out ||
+      (q.devex && (!q.gamma_in || !q.gamma_out)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return resident ? launch_bounded_kernel<T, true>(q, B, threads, smem, s)
+                  : launch_bounded_kernel<T, false>(q, B, threads, smem, s);
 }
 
 }  // namespace tpulp
@@ -543,3 +793,12 @@ TPULP_LANE_ENTRY(tpulp_lane_dual_f32, float, false)
 TPULP_LANE_ENTRY(tpulp_lane_dual_f64, double, false)
 TPULP_LANE_ENTRY(tpulp_lane_primal_f32, float, true)
 TPULP_LANE_ENTRY(tpulp_lane_primal_f64, double, true)
+
+extern "C" int tpulp_lane_bounded_f32(const long long* a, const int* in, const double* tol,
+                                      void* stream) {
+  return tpulp::launch_bounded_lanes<float>(a, in, tol, stream);
+}
+extern "C" int tpulp_lane_bounded_f64(const long long* a, const int* in, const double* tol,
+                                      void* stream) {
+  return tpulp::launch_bounded_lanes<double>(a, in, tol, stream);
+}

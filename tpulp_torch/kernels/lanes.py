@@ -1,21 +1,24 @@
-"""``lane_dual`` / ``lane_primal``: the launch of ``csrc/lanes.cu``.
+"""``lane_dual`` / ``lane_primal`` / ``lane_bounded``: the launch of
+``csrc/lanes.cu``.
 
 One block per lane steps the lane's dual-simplex loop
-(``solve.dual.dual_simplex_step``) or rank-1 primal loop
-(``solve.driver.simplex_step``) to the lane's own exit (status leaves
-RUNNING or ``niter`` reaches ``max_iters``), in one launch with no host
-read. ``lane_plan`` says whether a lane's frame fits the block's shared
-memory ("resident") or is worked on in place in device memory
-("streamed"), with the block size and the shared-memory bytes.
+(``solve.dual.dual_simplex_step``), rank-1 primal loop
+(``solve.driver.simplex_step``) or bounded-variable loop
+(``solve.bounded.bounded_simplex_step``, on a batched ``BoundedState``) to
+the lane's own exit (status leaves RUNNING or ``niter`` reaches
+``max_iters``), in one launch with no host read. ``lane_plan`` and
+``lane_bounded_plan`` say whether a lane's frame fits the block's shared
+memory beside its vectors ("resident") or is worked on in place in device
+memory ("streamed"), with the block size and the shared-memory bytes.
 
-The wrapper takes CUDA tensors only (``solve.lanes`` runs the plain loops
-on CPU tensors) and raises on what the kernel does not take. Besides the
+The wrappers take CUDA tensors only (``solve.lanes`` runs the plain loops
+on CPU tensors) and raise on what the kernels do not take. Besides the
 batches, ``solve.driver`` runs the solo rank-1 and dual walks of a
-resident frame through it as a batch of one lane. It reads the
-masks through their strides, so the broadcast rows of ``dual._lanes``
-(lane stride 0) are never expanded; it allocates a new output state with
-``torch.empty`` and never writes the caller's tensors (pool slots and the
-scheduler's frames stay live).
+resident frame through them as a batch of one lane. They read the
+masks, spans and weights through their strides, so the broadcast rows of
+``dual._lanes`` (lane stride 0) are never expanded; they allocate a new
+output state with ``torch.empty`` and never write the caller's tensors
+(pool slots and the scheduler's frames stay live).
 """
 
 from __future__ import annotations
@@ -25,11 +28,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.state import SimplexState, SolverOptions
+from ..core.state import RULE_DEVEX, SimplexState, SolverOptions
 from .launch import LAUNCHES, lib_for, raise_on, stream_of, suffix
 
-__all__ = ["LanePlan", "lane_plan", "lane_dual", "lane_primal",
-           "LANE_SMEM_LIMIT", "LANE_STATIC_SMEM", "LANE_THREADS"]
+__all__ = ["LanePlan", "lane_plan", "lane_bounded_plan", "lane_dual",
+           "lane_primal", "lane_bounded", "LANE_SMEM_LIMIT",
+           "LANE_STATIC_SMEM", "LANE_THREADS"]
 
 # the static shared memory left to the kernels' reduction scratch
 # (chip_smoke.py holds ptxas's figures to it), and the dynamic shared
@@ -42,7 +46,11 @@ LANE_THREADS = 256
 # tableau's type in Bland's tie rule: exact in float32 below 2^24)
 _MAX_SIDE = 1 << 24
 _NARGS, _NINTS, _NTOLS = 30, 10, 5
+# the bounded lanes' further pointers and strides (spans, at-upper flags
+# and devex weights)
+_BOUNDED_NARGS = _NARGS + 8
 _ARGS = ctypes.c_longlong * _NARGS
+_BOUNDED_ARGS = ctypes.c_longlong * _BOUNDED_NARGS
 _INTS = ctypes.c_int * _NINTS
 _TOLS = ctypes.c_double * _NTOLS
 _INT_MAX = 2 ** 31 - 1
@@ -58,12 +66,7 @@ def _align(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def lane_plan(M: int, N: int, dtype) -> LanePlan:
-    """The launch plan of lanes with (M, N) = (m + 2, n + 1) frames:
-    resident when the frame and the per-lane vectors fit
-    ``LANE_SMEM_LIMIT``, else streamed; ``LANE_THREADS`` a block. The
-    byte count is the kernel's own layout (the launch refuses a plan that
-    disagrees)."""
+def _plan(M: int, N: int, dtype, bounded: bool) -> LanePlan:
     es = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if es is None:
         raise ValueError(f"lane kernels take float32 or float64, not {dtype}")
@@ -72,6 +75,8 @@ def lane_plan(M: int, N: int, dtype) -> LanePlan:
     m, n = M - 2, N - 1
     vectors = (_align(M * es) + _align(N * es) + _align(4 * m)
                + 2 * _align(n))
+    if bounded:
+        vectors += 2 * _align(n * es) + _align(n)
     resident = vectors + _align(M * N * es)
     if resident <= LANE_SMEM_LIMIT:
         return LanePlan(True, LANE_THREADS, resident)
@@ -79,6 +84,22 @@ def lane_plan(M: int, N: int, dtype) -> LanePlan:
         raise ValueError(f"lane frame {M} x {N}: its vectors need {vectors} "
                          f"bytes of shared memory, above {LANE_SMEM_LIMIT}")
     return LanePlan(False, LANE_THREADS, vectors)
+
+
+def lane_plan(M: int, N: int, dtype) -> LanePlan:
+    """The launch plan of lanes with (M, N) = (m + 2, n + 1) frames:
+    resident when the frame and the per-lane vectors fit
+    ``LANE_SMEM_LIMIT``, else streamed; ``LANE_THREADS`` a block. The
+    byte count is the kernel's own layout (the launch refuses a plan that
+    disagrees)."""
+    return _plan(M, N, dtype, bounded=False)
+
+
+def lane_bounded_plan(M: int, N: int, dtype) -> LanePlan:
+    """``lane_plan`` for ``lane_bounded``: the per-lane vectors also hold
+    the spans and the devex weights (n of the tableau's type each) and the
+    at-upper flags (n bytes)."""
+    return _plan(M, N, dtype, bounded=True)
 
 
 def _vector(x: torch.Tensor, name: str, B: int, width: int, dtype) -> int:
@@ -100,12 +121,15 @@ def _scalar(x: torch.Tensor, name: str, B: int, dtype) -> int:
     return x.stride(0)
 
 
-def _launch(primal: bool, st: SimplexState, opts: SolverOptions,
-            stall_limit: int, max_iters: int) -> SimplexState:
+def _pointers(xs) -> list:
+    return [0 if x is None else x.data_ptr() for x in xs]
+
+
+def _launch(kind: str, st: SimplexState, opts: SolverOptions,
+            stall_limit: int, max_iters: int, bs=None):
+    """The launch of the ``kind`` ("dual", "primal" or "bounded") loop;
+    ``bs`` is the batched ``BoundedState`` of a bounded launch."""
     T = st.T
-    if T.device.type != "cuda" or any(x.device != T.device for x in st):
-        raise ValueError("lane kernels take the state's tensors on one CUDA "
-                         f"device; got {sorted({str(x.device) for x in st})}")
     if T.dim() != 3:
         raise ValueError(f"T: expected (B, m + 2, n + 1) frames, got "
                          f"{tuple(T.shape)}")
@@ -114,7 +138,9 @@ def _launch(primal: bool, st: SimplexState, opts: SolverOptions,
         raise ValueError(f"T: each lane's frame must be contiguous, stride "
                          f"{T.stride()}")
     dtype = T.dtype
-    plan = lane_plan(M, N, dtype)
+    bounded = kind == "bounded"
+    masks = kind != "dual"  # the loops that write the masks
+    plan = (lane_bounded_plan if bounded else lane_plan)(M, N, dtype)
     m, n = M - 2, N - 1
     strides = [T.stride(0),
                _vector(st.basis, "basis", B, m, torch.int32),
@@ -124,28 +150,54 @@ def _launch(primal: bool, st: SimplexState, opts: SolverOptions,
                      ("niter", torch.int32), ("stuck", torch.int32),
                      ("bland", torch.bool), ("last_z", dtype)):
         strides.append(_scalar(getattr(st, name), name, B, dt))
+    devex = bounded and opts.rule == RULE_DEVEX
+    operands = list(st)
+    if bounded:
+        operands += [bs.upper, bs.at_upper]
+        strides += [_vector(bs.upper, "upper", B, n, dtype),
+                    _vector(bs.at_upper, "at_upper", B, n, torch.bool)]
+        if devex:
+            operands.append(bs.gamma)
+            strides.append(_vector(bs.gamma, "gamma", B, n, dtype))
+        else:
+            strides.append(0)
+    if T.device.type != "cuda" or any(x.device != T.device
+                                      for x in operands):
+        raise ValueError(
+            "lane kernels take the state's tensors on one CUDA device; got "
+            f"{sorted({str(x.device) for x in operands})}")
     dev = T.device
     # one allocation for the int32 fields and one for the bool ones: each
     # allocation is host time on the waves' path
     ints = torch.empty((B * (4 + m),), dtype=torch.int32, device=dev)
-    bools = torch.empty((B * (1 + 2 * n * primal),), dtype=torch.bool,
-                        device=dev)
+    bools = torch.empty((B * (1 + (2 * masks + bounded) * n),),
+                        dtype=torch.bool, device=dev)
     out = SimplexState(
         T=torch.empty((B, M, N), dtype=dtype, device=dev),
         basis=ints[4 * B:].view(B, m),
-        col_active=(bools[B:B + B * n].view(B, n) if primal
+        col_active=(bools[B:B + B * n].view(B, n) if masks
                     else st.col_active),
-        art_cols=(bools[B + B * n:].view(B, n) if primal
+        art_cols=(bools[B + B * n:B + 2 * B * n].view(B, n) if masks
                   else st.art_cols),
         phase=ints[:B], status=ints[B:2 * B], niter=ints[2 * B:3 * B],
         stuck=ints[3 * B:4 * B], bland=bools[:B],
         last_z=torch.empty((B,), dtype=dtype, device=dev))
     ins = [st.T, out.T, st.basis, out.basis, st.col_active, st.art_cols]
-    ins += ([out.col_active, out.art_cols] if primal else [None, None])
+    ins += ([out.col_active, out.art_cols] if masks else [None, None])
     ins += [st.phase, st.status, st.niter, st.stuck, st.bland, st.last_z,
             out.phase, out.status, out.niter, out.stuck, out.bland,
             out.last_z]
-    args = _ARGS(*(0 if x is None else x.data_ptr() for x in ins), *strides)
+    extra = []
+    if bounded:
+        at_upper = bools[B + 2 * B * n:].view(B, n)
+        gamma = (torch.empty((B, n), dtype=dtype, device=dev) if devex
+                 else bs.gamma)
+        extra = [bs.upper, bs.at_upper, at_upper,
+                 bs.gamma if devex else None, gamma if devex else None]
+    # the C side's order: the lanes' 20 pointers and 10 strides, then the
+    # bounded lanes' 5 pointers and 3 strides
+    args = (_BOUNDED_ARGS if bounded else _ARGS)(
+        *_pointers(ins), *strides[:10], *_pointers(extra), *strides[10:])
     iargs = _INTS(B, M, N, min(int(stall_limit), _INT_MAX),
                   min(int(max_iters), _INT_MAX), int(opts.rule),
                   int(opts.tie_break), int(plan.resident), plan.threads,
@@ -153,12 +205,13 @@ def _launch(primal: bool, st: SimplexState, opts: SolverOptions,
     tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
                  opts.infeas_tol, opts.feas_tol)
     lib = lib_for(dev)
-    fn = getattr(lib, f"tpulp_lane_{'primal' if primal else 'dual'}_"
-                      f"{suffix(dtype)}")
+    fn = getattr(lib, f"tpulp_lane_{kind}_{suffix(dtype)}")
     err = fn(args, iargs, tols, stream_of(dev))
     if err:
         raise_on(lib, err, "lane kernel")
-    LAUNCHES["lane_primal" if primal else "lane_dual"] += 1
+    LAUNCHES[f"lane_{kind}"] += 1
+    if bounded:
+        return bs._replace(s=out, at_upper=at_upper, gamma=gamma)
     return out
 
 
@@ -167,7 +220,7 @@ def lane_dual(state: SimplexState, opts: SolverOptions, stall_limit: int,
     """The dual-simplex loop of every lane of ``state`` (a batched state on
     one CUDA device) to its exit; RUNNING lanes at the budget stay
     RUNNING. The masks of the result are the input's."""
-    return _launch(False, state, opts, stall_limit, max_iters)
+    return _launch("dual", state, opts, stall_limit, max_iters)
 
 
 def lane_primal(state: SimplexState, opts: SolverOptions, stall_limit: int,
@@ -176,5 +229,18 @@ def lane_primal(state: SimplexState, opts: SolverOptions, stall_limit: int,
     phases, the artificial clean-up, Dantzig / Bland / greatest-increase
     pricing with first-index or largest-pivot ratio ties; devex prices as
     Dantzig, as ``simplex_step`` does)."""
-    return _launch(True, state, opts, stall_limit, max_iters)
+    return _launch("primal", state, opts, stall_limit, max_iters)
 
+
+def lane_bounded(bs, opts: SolverOptions, stall_limit: int, max_iters: int):
+    """The bounded-variable loop (``bounded_simplex_step``) of every lane of
+    the batched ``BoundedState`` ``bs`` (one CUDA device) to its exit:
+    both phases, the clean-up, Dantzig or devex pricing (every other rule
+    priced as Dantzig, as the step does) with the Bland switch, the
+    three-way ratio test, the pivot and the column flips. RUNNING lanes at
+    the budget stay RUNNING. The spans are the input's; ``gamma`` is
+    required under ``RULE_DEVEX`` and passed through otherwise."""
+    if opts.rule == RULE_DEVEX and bs.gamma is None:
+        raise ValueError("lane_bounded: devex pricing needs the weights "
+                         "gamma")
+    return _launch("bounded", bs.s, opts, stall_limit, max_iters, bs)

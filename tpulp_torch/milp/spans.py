@@ -18,8 +18,9 @@ bounded-variable waves"): the root is lowered with ``simple_bounds=True``
   (lower-branch moves re-shift the column to its new lower bound),
 
 so a knapsack node's tableau is 1 row instead of 29. Waves run COLD through
-the vmapped bounded-variable driver (no dual warm start exists for bounded
-states yet; tpulp measured the tradeoff); incumbents come from
+the batched bounded-variable driver, one ``lane_bounded`` launch a wave on
+the card (no dual warm start exists for bounded states yet; tpulp measured
+the tradeoff); incumbents come from
 the batched extractor's exact refinement + bounded KKT certificate, so the
 reported optimum is exact, as in the rows encoding.
 

@@ -17,8 +17,11 @@ infinite spans, so the two-phase layout of ``core/state.py`` is unchanged.
 launches a step (``kernels.bounded.bounded_steps``, the walk's state kept
 on the card) and on CPU tensors as this step in the chunked Python loop of
 ``solve/driver.py`` (``run_simplex_bounded_reference``; one host read of
-the status per chunk). ``run_simplex_bounded_batch`` runs the step vmapped
-over a lane axis, on either device.
+the status per chunk). ``run_simplex_bounded_batch`` runs every lane of a
+batched state to its exit through ``lanes.bounded_lanes``: on CUDA
+tensors one ``lane_bounded`` launch (a block a lane, the whole walk in the
+launch), on CPU tensors this step vmapped over the lanes in the chunked
+loop (``lanes.bounded_lanes_reference``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from ..kernels.fma import fused_fma
 from ..kernels.launch import on_cpu
 from .driver import (finish, first_true, pivot_update, put, run_chunked,
                      status_select, take)
-from .lanes import run_lanes
+from .lanes import bounded_lanes
 
 __all__ = ["BoundedState", "make_bounded_state", "bounded_simplex_step",
            "run_simplex_bounded", "run_simplex_bounded_reference",
@@ -298,27 +301,18 @@ def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
 def run_simplex_bounded_batch(bs: BoundedState,
                               opts: SolverOptions | None = None
                               ) -> BoundedState:
-    """The bounded step vmapped over the lane axis of a batched
-    BoundedState: a wave of box LPs with no bound rows in any lane's
-    tableau, finished lanes frozen by the step itself."""
+    """Every lane of a batched BoundedState (a wave of box LPs with no
+    bound rows in any lane's tableau) to its exit or to ``opts.max_iters``:
+    the lane kernel on CUDA tensors, the plain vmapped loop on CPU tensors
+    (``lanes.bounded_lanes``)."""
     if opts is None:
         opts = SolverOptions.for_dtype(bs.s.T.dtype)
     m = bs.s.T.shape[1] - 2
     n = bs.s.T.shape[2] - 1
     stall_limit = opts.resolved_stall_limit(m, n)
     bs = _with_gamma(bs, opts)
-    # vmap maps tensors only: without devex weights the carry is the
-    # first three fields, and the step sees gamma=None
-    width = 4 if bs.gamma is not None else 3
-
-    def step(c):
-        out = bounded_simplex_step(BoundedState(*c), opts, stall_limit,
-                                   opts.max_iters)
-        return tuple(out)[:width]
-
-    out = run_lanes(step, tuple(bs)[:width], opts.max_iters,
-                    get_state=lambda c: c[0])
-    return _finish(BoundedState(*out))
+    bs = bs._replace(s=bs.s._replace(T=bs.s.T.contiguous()))
+    return _finish(bounded_lanes(bs, opts, stall_limit, opts.max_iters))
 
 
 def extract_bounded_solution(bs: BoundedState):
