@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the nine sources of tpulp_torch/kernels/csrc
+Builds the CUDA kernels from the ten sources of tpulp_torch/kernels/csrc
 (flush, inner block, FMA, the two lane kernels, the bounded step's four
 launches, the rank-1 step's five, the blocked engine's seven, the cluster
-walk's one and the blocked engine's cluster launch; and checks
+walk's one, the blocked engine's cluster launch and the bounded walk's
+cooperative launch; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -87,13 +88,18 @@ batched pivot at B = 128 beside the lane kernels' us a step, and runs
 ``solve_lp_batch`` cold and warm over 64 RHS scenarios and
 ``solve_lp(warm_start=)`` at 256 x 512.
 Phase 8 solves a 1024 x 2048 box LP with ``simple_bounds`` (the
-bounded-variable simplex on the bounded kernels, four launches a step and
-no FMA launch, certified, held against the row-lowered solve on the kernel
-engine; at f32 answered on the ladder's f64 retry), holds the kernels'
-whole f64 devex walk, the f32 walk's first 2,048 steps and a Dantzig walk
-that switches to Bland against the plain loop in every field, and each of
-the four launches against its plain stage on a step with an upper hit and
-one with an entering flip, and times a kernel step on the card; then it
+bounded-variable simplex on ``bounded_grid``, one cooperative launch a walk
+with the tableau's column slabs in the SMs' shared memory, no
+``bounded_step`` and no FMA launch, certified, held against the
+row-lowered solve on the kernel engine; at f32 answered on the ladder's f64
+retry), holds the grid walk and ``bounded_steps``' walk (four launches a
+step) on the whole f64 devex walk, the f32 walk's first 2,048 steps and a
+Dantzig walk that switches to Bland against one plain loop in every field,
+the grid kernel against its plain version ``bounded_grid_reference`` on the
+card, and each of the four launches against its plain stage on a step with
+an upper hit and one with an entering flip; times both kernels' steps on
+the card and on the host clock in turns, with the grid's stage split; and
+solves a 2048 x 2048 box LP past the grid's plan on ``bounded_step``; then it
 solves a batch of 256 box LPs with and without bound rows (the bounded
 batch's walk one ``lane_bounded`` launch, timed apart from its per-lane
 extraction) and holds ``lane_bounded`` bit for bit against the plain
@@ -193,6 +199,13 @@ BND_MAX_ITERS = 200_000
 BND_F32_WINDOW = 2048
 BND_BLAND_STEPS = 1024
 BND_TIMED_FROM, BND_TIMED_STEPS = 2000, 64
+# the grid walk: the steps of one timed launch (from BND_TIMED_FROM), the
+# steps held against its plain version on the card at full size, and the
+# box LP past the grid's plan (2050 x 4097: slabs of 32 columns, 525 KB at
+# f64), which runs bounded_step, held to the plain loop over a window
+BND_GRID_TIMED_STEPS = 1024
+BND_GRID_REF_WINDOW = 96
+BND_WIDE_M, BND_WIDE_N, BND_WIDE_WINDOW = 2048, 2048, 192
 BOX_M, BOX_N, BOX_LANES = 64, 128, 256
 # the row-lowered batch that 8b holds the box batch to: its first lanes
 # only (its exact refinement and certificate take ~0.6 s a lane on the
@@ -2587,11 +2600,12 @@ def check_static_smem(ptxas) -> None:
     kernels' must fit the room ``lane_plan`` leaves, and each of the eight
     bounded kernels' and the sixteen rank-1 kernels' the 33 slots of its
     block reduction, and each of the fourteen blocked kernels' those and
-    its eta coefficients, and the two cluster kernels' the room their plans
-    leave."""
+    its eta coefficients, and the two cluster kernels' and the bounded
+    grid's the room their plans leave."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.blocked_cluster import \
         BLOCKED_CLUSTER_STATIC_SMEM
+    from tpulp_torch.kernels.bounded_grid import GRID_STATIC_SMEM
     from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
     from tpulp_torch.kernels.rank1_cluster import CLUSTER_STATIC_SMEM
 
@@ -2630,6 +2644,12 @@ def check_static_smem(ptxas) -> None:
             max(blk.values()) > BLOCKED_STATIC_SMEM:
         raise AssertionError(f"blocked kernels' static shared memory {blk}: "
                              f"at most {BLOCKED_STATIC_SMEM}")
+    bgr = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k in BOUNDED_GRID_KERNELS.values()}
+    if len(bgr) != len(BOUNDED_GRID_KERNELS) or \
+            max(bgr.values()) > GRID_STATIC_SMEM:
+        raise AssertionError(f"bounded_grid's static shared memory {bgr}: "
+                             f"the plan leaves {GRID_STATIC_SMEM}")
     bkc = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k in BLOCKED_CLUSTER_KERNELS.values()}
     if len(bkc) != len(BLOCKED_CLUSTER_KERNELS) or \
@@ -2642,7 +2662,8 @@ def check_static_smem(ptxas) -> None:
         f"kernels {rk1} bytes, within {BOUNDED_STATIC_SMEM}; blocked "
         f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
         f"{clu} bytes, within {CLUSTER_STATIC_SMEM}; blocked_cluster {bkc} "
-        f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}")
+        f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}; bounded_grid {bgr} "
+        f"bytes, within {GRID_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
@@ -2677,6 +2698,11 @@ CLUSTER_KERNELS = {f"3rkc14cluster_kernelI{t}Li{w}E":
                    f"cluster_kernel<{'float' if t == 'f' else 'double'},"
                    f"{walk}>" for t in "fd"
                    for w, walk in enumerate(("primal", "devex", "dual"))}
+# the bounded grid walk's instantiations: <float or double, devex>
+BOUNDED_GRID_KERNELS = {
+    f"3bgr11grid_kernelI{t}Lb{d}E":
+    f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
+    f"{'devex' if d == '1' else 'dantzig'}>" for t in "fd" for d in "01"}
 # the blocked cluster's instantiations: <float or double>
 BLOCKED_CLUSTER_KERNELS = {
     f"3bkc14cluster_kernelI{t}E":
@@ -2717,6 +2743,8 @@ def _ptxas_name(name: str) -> str:
         return CLUSTER_KERNELS[name]
     if name in BLOCKED_CLUSTER_KERNELS:
         return BLOCKED_CLUSTER_KERNELS[name]
+    if name in BOUNDED_GRID_KERNELS:
+        return BOUNDED_GRID_KERNELS[name]
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -2741,7 +2769,8 @@ def ptxas_report(text: str):
                                  "barrier_probe_kernel", *LANE_KERNELS,
                                  *BOUNDED_KERNELS, *RANK1_KERNELS,
                                  *BLOCKED_KERNELS, *CLUSTER_KERNELS,
-                                 *BLOCKED_CLUSTER_KERNELS)
+                                 *BLOCKED_CLUSTER_KERNELS,
+                                 *BOUNDED_GRID_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -3961,12 +3990,28 @@ def bounded_equal(k, p) -> float:
     return err
 
 
+def steps_walk(bs, opts):
+    """``run_simplex_bounded``'s walk on ``bounded_steps`` (its route past
+    the grid's plan), whatever the frame: the four-launch step held and
+    timed beside the grid on the same frames."""
+    from tpulp_torch.kernels.bounded import bounded_steps
+    from tpulp_torch.solve import bounded as pbounded
+
+    bs = pbounded._with_gamma(bs, opts)
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    return pbounded._finish(bounded_steps(bs, opts, stall, opts.max_iters))
+
+
 def bounded_walk_check(sf, dev, dtype, label: str, devex: bool = True,
                        **kw):
-    """One bounded walk from the initial basis through the kernels
-    (``run_simplex_bounded`` on the card) and through the plain loop
-    (``run_simplex_bounded_reference``), held equal in every field;
-    returns the kernels' walk's numbers."""
+    """One bounded walk from the initial basis through ``run_simplex_bounded``
+    on the card (``bounded_route``'s kernel: ``bounded_grid`` within the
+    plan, one launch and no other), through ``bounded_steps`` (the four
+    launches a step), and once through the plain loop
+    (``run_simplex_bounded_reference``); both kernels' walks held equal to
+    it in every field, and timed on the host clock in turns (grid, steps,
+    steps, grid). Returns the numbers, the four-launch step's under
+    "bounded_step"."""
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels.bounded import FLIPS
     from tpulp_torch.solve.bounded import (run_simplex_bounded,
@@ -3974,35 +4019,88 @@ def bounded_walk_check(sf, dev, dtype, label: str, devex: bool = True,
 
     bs, opts = bounded_state(sf, dev, dtype, devex, **kw)
     sync(dev)
-    flips0 = dict(FLIPS)
-    reset_launches()
-    t0 = time.perf_counter()
-    k = run_simplex_bounded(bs, opts)
-    sync(dev)
-    secs = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    runs = {"grid": [], "steps": []}
+    walks, launches, flips = {}, {}, {}
+    for kind in ("grid", "steps", "steps", "grid"):
+        flips0 = dict(FLIPS)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run_simplex_bounded(bs, opts) if kind == "grid" \
+            else steps_walk(bs, opts)
+        sync(dev)
+        runs[kind].append(time.perf_counter() - t0)
+        walks[kind], launches[kind] = out, dict(LAUNCHES)
+        flips[kind] = {key: FLIPS[key] - flips0[key] for key in FLIPS}
     t0 = time.perf_counter()
     p = run_simplex_bounded_reference(bs, opts)
     sync(dev)
     plain_secs = time.perf_counter() - t0
-    err = bounded_equal(k, p)
+    errs = {kind: bounded_equal(walks[kind], p) for kind in walks}
+    k = walks["grid"]
     niter = int(k.s.niter)
+    if flips["grid"] != flips["steps"]:
+        raise AssertionError(f"8a {label}: flips {flips}")
+    secs, step_secs = min(runs["grid"]), min(runs["steps"])
     res = {"status": int(k.s.status), "niter": niter,
            "bland": bool(k.s.bland), "seconds": secs,
-           "plain_seconds": plain_secs, "max_abs_err": err,
-           "bounded_step": launches["bounded_step"],
-           "fused_fma": launches["fused_fma"],
-           **{key: FLIPS[key] - flips0[key] for key in FLIPS}}
-    log(f"# 8a {label}: the kernels' walk equals the plain walk in every "
-        f"field (status {res['status']}, {niter} steps, bland "
-        f"{res['bland']}, {res['entering_flips']} entering flips and "
-        f"{res['upper_hits']} upper hits); {secs:.3f} s against the plain "
-        f"walk's {plain_secs:.2f} s; {launches['bounded_step']} steps "
-        f"enqueued, {launches['fused_fma']} FMA launches")
-    if dev == "cuda" and not (launches["bounded_step"] > 0
-                              and launches["fused_fma"] == 0):
+           "seconds_turns": runs["grid"], "plain_seconds": plain_secs,
+           "max_abs_err": errs["grid"],
+           "bounded_grid": launches["grid"]["bounded_grid"],
+           "fused_fma": launches["grid"]["fused_fma"], **flips["grid"],
+           "bounded_step": {
+               "seconds": step_secs, "seconds_turns": runs["steps"],
+               "max_abs_err": errs["steps"],
+               "launches": launches["steps"]["bounded_step"]}}
+    log(f"# 8a {label}: the grid walk and bounded_steps' walk each equal the "
+        f"plain walk in every field (status {res['status']}, {niter} steps, "
+        f"bland {res['bland']}, {res['entering_flips']} entering flips and "
+        f"{res['upper_hits']} upper hits); host clock in turns: grid "
+        f"{runs['grid']} s, bounded_steps {runs['steps']} s, the plain walk "
+        f"{plain_secs:.2f} s; launches: grid {launches['grid']['bounded_grid']}"
+        f" (bounded_step {launches['grid']['bounded_step']}, FMA "
+        f"{launches['grid']['fused_fma']}), steps "
+        f"{launches['steps']['bounded_step']}")
+    if dev == "cuda" and not (launches["grid"]["bounded_grid"] == 1
+                              and launches["grid"]["bounded_step"] == 0
+                              and launches["grid"]["fused_fma"] == 0
+                              and launches["steps"]["bounded_step"] > 0):
         raise AssertionError(f"8a {label}: launches {launches}")
     return res
+
+
+def grid_reference_check(sf, dev, dtype, label: str, window: int,
+                         devex: bool = True):
+    """``bounded_grid`` on the plan's grid against its plain version
+    ``bounded_grid_reference`` on the same slabs, on the card, over the
+    devex (or Dantzig) walk's first ``window`` steps: every field equal,
+    the entering flips and upper hits too. Returns the largest |difference|
+    of the tableaus' finite entries and the plain version's ms a step."""
+    from tpulp_torch.kernels import bounded_grid as kg
+    from tpulp_torch.kernels.bounded import FLIPS
+    from tpulp_torch.kernels.launch import sm_count
+
+    bs, opts = bounded_state(sf, dev, dtype, devex)
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    plan = kg.bounded_grid_plan(*bs.s.T.shape, dtype, sm_count(bs.s.T.device)
+                                if dev == "cuda" else kg.GRID_SMS)
+    flips0 = dict(FLIPS)
+    k = kg.bounded_grid(bs, opts, stall, window) if dev == "cuda" else \
+        kg.bounded_grid_reference(bs, opts, stall, window, plan.blocks)[0]
+    sync(dev)
+    kflips = {key: FLIPS[key] - flips0[key] for key in FLIPS}
+    t0 = time.perf_counter()
+    p, counts = kg.bounded_grid_reference(bs, opts, stall, window,
+                                          plan.blocks)
+    sync(dev)
+    plain_ms = 1e3 * (time.perf_counter() - t0) / max(1, int(p.s.niter))
+    err = bounded_equal(k, p)
+    if dev == "cuda" and kflips != counts:
+        raise AssertionError(f"8a {label}: flips {kflips} against {counts}")
+    log(f"# 8a {label}: bounded_grid (G {plan.blocks}, W {plan.width}) "
+        f"equals bounded_grid_reference on the card in every field over "
+        f"{int(k.s.niter)} steps; the plain version {plain_ms:.3f} ms a step")
+    return {"max_abs_err": err, "plain_ms_per_step": plain_ms,
+            "steps": int(k.s.niter)}
 
 
 def launches_us(fn, steps: int):
@@ -4138,22 +4236,249 @@ def bounded_step_window(sf, dev, dtype):
             "plain_host_ms_per_step": 1e3 * wall / 16}
 
 
+def grid_edge_walks(dev="cuda"):
+    """8a (e): ``bounded_grid`` bit for bit against ``bounded_grid_reference``
+    (on CPU copies, the same slabs) at f64 and f32 on small frames (8b's
+    first box LP, 12 x 20 and 40 x 90 box LPs) under Dantzig, devex, a
+    stall limit of 1 (Bland), a budget of 7, a NaN in the RHS (NUMERIC),
+    devex weights above the reset threshold and a basic column that is
+    not a unit vector (every step through barrier C), each on the plan's
+    grid and on 3 blocks, devex also on 1, 2 and 7; the flips too. Returns
+    the cases' count."""
+    import torch
+
+    from tpulp_torch.kernels import bounded_grid as kg
+    from tpulp_torch.kernels.bounded import FLIPS
+    from tpulp_torch.kernels.launch import sm_count
+
+    sms = sm_count(torch.device(dev)) if dev == "cuda" else kg.GRID_SMS
+
+    def cpu(bs):
+        return bs._replace(s=type(bs.s)(*(x.cpu() for x in bs.s)), **{
+            k: None if getattr(bs, k) is None else getattr(bs, k).cpu()
+            for k in ("upper", "at_upper", "gamma")})
+
+    forms = {"box64x128": box_form(0, 64, 128),
+             "box12x20": box_form(3, 12, 20),
+             "bnd40x90": bounded_form(40, 90)[0]}
+    rules = {"dantzig": {}, "devex": {},
+             "bland": dict(stall_limit=1, degen_tol=1e300, max_iters=300),
+             "budget7": dict(max_iters=7), "numeric": {}, "big_weights": {},
+             "not_unit": {}}
+    count = 0
+    for dt in (torch.float64, torch.float32):
+        tiny = 1e-300 if dt == torch.float64 else 1e-30
+        for fname, sf in forms.items():
+            for rule, kw in rules.items():
+                devex = rule in ("devex", "numeric", "big_weights")
+                bs, opts = bounded_state(sf, dev, dt, devex, **kw)
+                T = bs.s.T.clone()
+                if rule == "numeric":
+                    T[4, -1] = float("nan")
+                if rule == "not_unit":
+                    T[0, int(bs.s.basis[1])] = tiny
+                bs = bs._replace(s=bs.s._replace(T=T))
+                if rule == "big_weights":
+                    g = bs.gamma.clone()
+                    g[::3] = 3e8
+                    bs = bs._replace(gamma=g)
+                stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+                for blocks in (None, 3) + ((1, 2, 7) if rule == "devex"
+                                           else ()):
+                    plan = kg.bounded_grid_plan(*bs.s.T.shape, dt, sms,
+                                                blocks=blocks)
+                    flips0 = dict(FLIPS)
+                    k = kg.bounded_grid(bs, opts, stall, opts.max_iters,
+                                        blocks=blocks) if dev == "cuda" \
+                        else kg.bounded_grid_reference(
+                            bs, opts, stall, opts.max_iters, plan.blocks)[0]
+                    sync(dev)
+                    p, counts = kg.bounded_grid_reference(
+                        cpu(bs), opts, stall, opts.max_iters, plan.blocks)
+                    bounded_equal(cpu(k), p)
+                    got = {key: FLIPS[key] - flips0[key] for key in FLIPS}
+                    if dev == "cuda" and got != counts:
+                        raise AssertionError(f"8a (e) {fname} {rule} {dt} "
+                                             f"G {plan.blocks}: flips {got} "
+                                             f"against {counts}")
+                    count += 1
+    log(f"# 8a (e) bounded_grid equals bounded_grid_reference in every field "
+        f"(the flips too) on {count} small walks: 3 frames x f64, f32 x "
+        "Dantzig, devex, Bland, a budget, a NaN, weights above 1e8, a basic "
+        "column that is not a unit vector; the plan's grid and 3 blocks, "
+        "devex also 1, 2 and 7")
+    return count
+
+
+def grid_bounds(M: int, N: int, es: int, G: int, steps: int, clock_hz: float):
+    """A grid step's bounds, ms: (the walk's, by bytes or operations:
+    the frame read and written once a walk over 3.35 TB/s and one fma an
+    entry a step at the FP64 / FP32 peak, the larger; the kernel's own
+    convention: the frame loaded and stored once a launch over 3.35 TB/s
+    divided by the steps, plus a step's vector traffic (every block reads
+    the G mailboxes of 48 bytes, column j and the verdict; they are written
+    once) over 3.35 TB/s, plus the slab read and written from shared memory
+    at 128 bytes a clock on 132 SMs; the table's step convention: the
+    tableau read and written once a step over 3.35 TB/s)."""
+    frame = 2.0 * M * N * es
+    walk = bound(frame / steps, 2.0 * M * N,
+                 FP64_FLOP_S if es == 8 else FP32_FLOP_S)
+    vectors = G * (G * 48 + M * es + 32) + G * 48 + M * es + 32
+    smem_rate = 132 * 128 * clock_hz
+    own = 1e3 * ((frame / steps + vectors) / HBM_BYTES_S + frame / smem_rate)
+    step = bound(frame, 0.0, FP64_FLOP_S)[0]
+    return walk, own, step
+
+
+def bounded_grid_us(sf, dev, dtype, devex: bool = True,
+                    advance: int = BND_TIMED_FROM,
+                    steps: int = BND_GRID_TIMED_STEPS, **kw):
+    """One ``bounded_grid`` launch of ``steps`` steps of the devex (or
+    Dantzig; options overridden by ``kw``) walk ``advance`` steps in, on
+    the card alone (CUDA events after a sleep that
+    covers the host's work; median of three), by stage: block 0's cycles
+    of each stage (``stage_cycles``) as a share of the launch's, times its
+    device time, so that no SM clock is assumed; the ratio test on the
+    clock of the block that owns the entering column apart ("owner").
+    With the plan (G, W, shared memory) and the occupancy."""
+    import torch
+
+    from tpulp_torch.kernels import bounded_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+
+    bs, opts = bounded_state(sf, dev, dtype, devex, **kw)
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    M, N = bs.s.T.shape
+    plan = kg.bounded_grid_plan(M, N, dtype, sm_count(bs.s.T.device))
+    mid = kg.bounded_grid(bs, opts, stall, advance)
+    if int(mid.s.niter) != advance:
+        raise AssertionError(f"8a: the grid walk ended before step {advance}")
+    dev_us, host_us = [], []
+    for _ in range(3):
+        d, h = launches_us(lambda: kg.bounded_grid(mid, opts, stall,
+                                                   advance + steps), steps)
+        dev_us.append(d)
+        host_us.append(h)
+    cyc = torch.zeros(len(kg.GRID_STAGES), dtype=torch.int64, device=dev)
+    out = kg.bounded_grid(mid, opts, stall, advance + steps,
+                          stage_cycles=cyc)
+    if int(out.s.niter) != advance + steps:
+        raise AssertionError("8a: the timed grid steps ran past the walk")
+    c = dict(zip(kg.GRID_STAGES, cyc.tolist()))
+    owner = c.pop("owner")
+    total = sum(c.values())
+    us = float(np.median(dev_us))
+    per_cycle = us * steps / total
+    split = {k: v * per_cycle / steps for k, v in c.items()
+             if k not in ("load", "store")}
+    split["load_and_store_per_launch"] = (c["load"] + c["store"]) * per_cycle
+    split["owner"] = owner * per_cycle / steps
+    return {"device_us_per_step": us,
+            "host_us_per_step": float(np.median(host_us)),
+            "device_us_by_stage": split, "blocks": plan.blocks,
+            "width": plan.width, "smem": plan.smem,
+            "steps": steps, "advance": advance,
+            "es": bs.s.T.element_size(),
+            "occupancy": kg.bounded_grid_occupancy(
+                M, N, dtype, devex, bs.s.T.device)}
+
+
+def wide_bounded_lp(dev):
+    """8a (w): ``solve_lp`` on a BND_WIDE_M x BND_WIDE_N box LP, whose
+    frame is past the grid's plan at f64 (``bounded_route``:
+    "bounded_step"): optimal on the device rung and certified, on
+    ``bounded_step`` (no ``bounded_grid`` and no FMA launch); its walk's
+    first BND_WIDE_WINDOW steps held to the plain loop in every field, and
+    the four-launch step timed there."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve.bounded import (bounded_route,
+                                           run_simplex_bounded,
+                                           run_simplex_bounded_reference)
+    from tpulp_torch.solve.refine import float_bounded_certificate
+
+    m, n = BND_WIDE_M, BND_WIDE_N
+    sf = bounded_form(m, n, seed=1)[0]
+    M, N = m + 2, n + m + 1
+    sms = sm_count(torch.device(dev)) if dev == "cuda" else 132
+    route = bounded_route(M, N, torch.float64, sms)
+    if route != "bounded_step":
+        raise AssertionError(f"8a (w): {M} x {N} takes {route}")
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    sol = tpulp_torch.solve_lp(sf, dtype=torch.float64, device=dev,
+                               pricing=BND_PRICING, max_iters=BND_MAX_ITERS)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    primal_ok, dual_ok = float_bounded_certificate(sf, sol.basis,
+                                                   sol.at_upper)
+    bs, opts = bounded_state(sf, dev, torch.float64,
+                             max_iters=BND_WIDE_WINDOW)
+    t0 = time.perf_counter()
+    k = run_simplex_bounded(bs, opts)
+    sync(dev)
+    walk_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = run_simplex_bounded_reference(bs, opts)
+    sync(dev)
+    plain_secs = time.perf_counter() - t0
+    err = bounded_equal(k, p)
+    steps = int(k.s.niter)
+    dev_us, host_us, split = bounded_step_us(sf, dev, torch.float64,
+                                             advance=BND_WIDE_WINDOW,
+                                             steps=BND_TIMED_STEPS)
+    log(f"# 8a (w) box LP {m}x{n} ({M} x {N}, past the grid's plan: "
+        f"{route}) f64: {sol.status}, rung {sol.rung}, {sol.niter} steps, "
+        f"{secs:.2f} s, certificate {primal_ok, dual_ok}, launches "
+        f"{launches}; its first {steps} steps equal the plain walk in every "
+        f"field ({walk_secs:.3f} s against {plain_secs:.2f} s); "
+        f"bounded_step {dev_us:.2f} us a step on the card ({split}), "
+        f"{host_us:.2f} us to enqueue")
+    if not (sol.status == "optimal" and sol.rung == "device-float64"
+            and primal_ok and dual_ok and (dev != "cuda" or (
+                launches["bounded_step"] > 0
+                and launches["bounded_grid"] == 0
+                and launches["fused_fma"] == 0))):
+        raise AssertionError(f"8a (w): {sol.status}, rung {sol.rung}, "
+                             f"certificate {primal_ok, dual_ok}, launches "
+                             f"{launches}")
+    return {"status": sol.status, "rung": sol.rung, "niter": sol.niter,
+            "seconds": secs, "launches": launches, "route": route,
+            "window": {"steps": steps, "seconds": walk_secs,
+                       "plain_seconds": plain_secs, "max_abs_err": err},
+            "device_us_per_step": dev_us, "host_us_per_step": host_us,
+            "device_us_by_stage": split,
+            "bound_us_per_step": 1e3 * bound(2.0 * M * N * 8, 0.0,
+                                             FP64_FLOP_S)[0]}
+
+
 def phase_bounded_lp(dev):
     """Phase 8a: solve_lp on the BND_M x BND_N box LP with simple_bounds
     (a (BND_M + 2) x (BND_N + BND_M + 1) tableau, no bound rows, priced
-    by BND_PRICING) at f64: the bounded kernels' walk (``bounded_step``
-    launches, no FMA launch), optimal, the f64 bounded certificate,
-    0 <= x <= u and D x <= b within 1e-9 relative, columns at upper, and
-    the objective within 1e-9 of the row-lowered solve (3 BND_M rows),
-    which takes the kernel engine. The same LP at f32: on the kernels,
-    optimal on BND_F32_RUNG (the ladder's f64 retry), its answer
-    certified and equal to the f64 solve's. Then the kernels against the
-    plain loop: the whole f64 devex walk, the f32 walk's first
-    BND_F32_WINDOW steps and a Dantzig f32 walk that switches to Bland,
-    every field equal; each of the four launches against its plain stage
-    on a step with an upper hit (this LP) and one with an entering flip
-    (8b's first box LP); and the kernels' device and host us a step.
-    Returns the numbers and the launches of the f64 solve."""
+    by BND_PRICING) at f64: the walk on ``bounded_grid`` (launches >= 1, no
+    ``bounded_step`` and no FMA launch), optimal, the f64 bounded
+    certificate, 0 <= x <= u and D x <= b within 1e-9 relative, columns at
+    upper, and the objective within 1e-9 of the row-lowered solve (3 BND_M
+    rows), which takes the kernel engine. The same LP at f32: on the grid
+    kernel, optimal on BND_F32_RUNG (the ladder's f64 retry), its answer
+    certified and equal to the f64 solve's. Then both kernels (the grid and
+    ``bounded_steps``) against one plain loop each walk: the whole f64
+    devex walk, the f32 walk's first BND_F32_WINDOW steps and a Dantzig f32
+    walk that switches to Bland, every field equal, timed in turns; the
+    grid against ``bounded_grid_reference`` on the card over the first
+    BND_GRID_REF_WINDOW steps of the devex walks and the f64 Dantzig walk,
+    and on small frames' edge cases (e); each of the four launches against
+    its plain stage on a step with an upper hit (this LP) and one with an
+    entering flip (8b's first box LP); both kernels' device and host us a
+    step, the grid's by stage (devex at f64 and f32, the f64 Dantzig walk,
+    the f32 Bland window); and (w), the box LP past the grid's plan on
+    ``bounded_step``. Returns the numbers and the launches of the f64
+    solve."""
     import torch
 
     import tpulp_torch
@@ -4203,7 +4528,8 @@ def phase_bounded_lp(dev):
             f"{window['plain_kernels_per_step']:.0f} kernels and "
             f"{window['plain_host_ms_per_step']:.3f} ms of host time a "
             "step (torch.profiler over 16 steps)")
-        kernel_path = (launches["bounded_step"] > 0
+        kernel_path = (launches["bounded_grid"] > 0
+                       and launches["bounded_step"] == 0
                        and launches["fused_fma"] == 0)
         if dt == torch.float32:
             # the retry's answer, certified again and held to the f64
@@ -4290,6 +4616,14 @@ def phase_bounded_lp(dev):
             max_iters=BND_BLAND_STEPS)}
     if not walks["f32_dantzig_bland"]["bland"]:
         raise AssertionError("8a: the Bland switch did not fire")
+    reference = {str(dt).replace("torch.", ""): grid_reference_check(
+        sf, dev, dt, f"the {dt} devex walk's first {BND_GRID_REF_WINDOW} "
+        "steps", BND_GRID_REF_WINDOW)
+        for dt in (torch.float64, torch.float32)}
+    reference["dantzig float64"] = grid_reference_check(
+        sf, dev, torch.float64, "the torch.float64 Dantzig walk's first "
+        f"{BND_GRID_REF_WINDOW} steps", BND_GRID_REF_WINDOW, devex=False)
+    reference["edge_walks"] = grid_edge_walks(dev)
     f64 = walks["f64_devex"]
     if f64["status"] != 1 or f64["niter"] != res["float64"]["niter"]:
         raise AssertionError(f"8a: the f64 devex walk {f64} is not the "
@@ -4303,30 +4637,69 @@ def phase_bounded_lp(dev):
             bounded_stage_checks(bs, opts, f"8b's first box LP ({BOX_M}x"
                                  f"{BOX_N}, Dantzig, {dt})",
                                  ("upper", "enter"), 5, 400)
-    us = {}
+    us, grid_us = {}, {}
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+    def grid_timing(name, dt, walk_steps, devex=True, **kw):
+        # one timed launch (bounded_grid_us) with its bounds, the frame's
+        # load and store spread over ``walk_steps``
+        g = bounded_grid_us(sf, dev, dt, devex, **kw)
+        wb, own, step_b = grid_bounds(m + 2, n + m + 1, g["es"],
+                                      g["blocks"], walk_steps, clock_hz)
+        g.update(bound_ms=wb[0], bound_by=wb[1], grid_bound_ms=own,
+                 step_bound_ms=step_b, sm_clock_hz=clock_hz)
+        log(f"# 8a bounded_grid {name}: {g['device_us_per_step']:.3f} us a "
+            f"step on the card (one launch of {g['steps']} steps from step "
+            f"{g['advance']}; by stage "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        g["device_us_by_stage"].items())
+            + f"); G {g['blocks']}, W {g['width']}, {g['smem']} bytes of "
+            f"shared memory a block, occupancy {g['occupancy']} a SM; "
+            f"bounds a step: {1e3 * wb[0]:.4f} us ({wb[1]}), "
+            f"{1e3 * own:.3f} us (the kernel's convention), "
+            f"{1e3 * step_b:.2f} us (the table's step convention)")
+        return g
+
     for dt in (torch.float64, torch.float32):
+        name = str(dt).replace("torch.", "")
         dev_us, host_us, split = bounded_step_us(sf, dev, dt)
         es = 8 if dt == torch.float64 else 4
         bound_us = 1e3 * bound(2.0 * (m + 2) * (n + m + 1) * es, 0.0,
                                FP64_FLOP_S)[0]
-        us[str(dt).replace("torch.", "")] = {
+        us[name] = {
             "device_us_per_step": dev_us, "host_us_per_step": host_us,
             "bound_us_per_step": bound_us, "device_us_by_stage": split}
-        log(f"# 8a bounded kernels {dt}: {dev_us:.2f} us a step on the card "
+        log(f"# 8a bounded_step {dt}: {dev_us:.2f} us a step on the card "
             f"(CUDA events over {BND_TIMED_STEPS} steps from step "
             f"{BND_TIMED_FROM}; price {split['price']:.2f}, ratio "
             f"{split['ratio']:.2f}, update and finish "
             f"{split['update_and_finish']:.2f}), {host_us:.2f} us of host "
             f"time to enqueue one (four launches); bound {bound_us:.2f} us "
             "(the tableau read and written once at 3.35 TB/s)")
+        walk = walks["f64_devex" if es == 8 else "f32_devex_window"]
+        grid_us[name] = grid_timing(name, dt, walk["niter"])
+    # the Dantzig instantiations: the f64 walk a window in, and the f32
+    # Bland walk within the window held above (from its 64th step)
+    grid_us["dantzig float64"] = grid_timing(
+        "dantzig float64", torch.float64, BND_GRID_TIMED_STEPS, devex=False)
+    grid_us["bland float32"] = grid_timing(
+        "bland float32", torch.float32, BND_BLAND_STEPS - 64, devex=False,
+        advance=64, steps=BND_BLAND_STEPS - 64, stall_limit=1,
+        degen_tol=1e30)
     f64.update(us["float64"])
-    log(f"# 8a the f64 devex walk: {f64['seconds']:.3f} s for {f64['niter']}"
-        f" steps = {1e6 * f64['seconds'] / f64['niter']:.2f} us a step on "
-        f"the host clock; {f64['device_us_per_step']:.2f} us on the card, "
-        f"{f64['host_us_per_step']:.2f} us to enqueue, bound "
-        f"{f64['bound_us_per_step']:.2f} us; {f64['bounded_step']} steps "
-        f"enqueued ({4 * f64['bounded_step']} launches)")
-    res.update(walks=walks, stages=stages, step_us=us)
+    log(f"# 8a the f64 devex walk: bounded_grid {f64['seconds']:.4f} s for "
+        f"{f64['niter']} steps = {1e6 * f64['seconds'] / f64['niter']:.2f} "
+        f"us a step on the host clock ({grid_us['float64']['device_us_per_step']:.2f}"
+        f" on the card); bounded_steps {f64['bounded_step']['seconds']:.4f} "
+        f"s = {1e6 * f64['bounded_step']['seconds'] / f64['niter']:.2f} us "
+        f"a step ({f64['device_us_per_step']:.2f} on the card, "
+        f"{f64['host_us_per_step']:.2f} to enqueue; bound "
+        f"{f64['bound_us_per_step']:.2f} us)")
+    res.update(walks=walks, stages=stages, step_us=us, grid_us=grid_us,
+               reference=reference, wide=wide_bounded_lp(dev))
     return res
 
 
@@ -5480,7 +5853,8 @@ def record_flips():
 def mesh_bounded(mesh, dev="cuda"):
     """9c: the sharded bounded driver (Dantzig) on phase 8a's box LP at
     SHARD_BOX_M x SHARD_BOX_N, f64, against the solo bounded driver's walk
-    on the card: steps, flips, at-upper flags and basis equal, objectives
+    on the card (one ``bounded_grid`` launch: the frame is within the
+    grid's plan): steps, flips, at-upper flags and basis equal, objectives
     within 1e-9. The drivers run bare (at m <= 192 solve_lp's exact
     refinement and certificate of this float data take ~30 s a solve on
     the host)."""
@@ -5536,7 +5910,10 @@ def mesh_bounded(mesh, dev="cuda"):
         f"{'equal' if same else 'DIFFER'}; objective relative difference "
         f"{rel:.2e}; launches {msh['launches']}")
     if not (same and msh["status"] == 1 and rel <= 1e-9
-            and (dev != "cuda" or msh["launches"]["fused_fma"] > 0)):
+            and (dev != "cuda" or (msh["launches"]["fused_fma"] > 0
+                                   and solo["launches"]["bounded_grid"] == 1
+                                   and solo["launches"]["bounded_step"]
+                                   == 0))):
         raise AssertionError("9c: the sharded bounded walk differs from the "
                              "solo walk")
     for r in res.values():
@@ -5951,6 +6328,13 @@ def main() -> int:
             f"bytes of spills, {v.get('static_smem')} bytes of static shared"
             " memory" for k, v in ptxas.items()
             if k in BLOCKED_CLUSTER_KERNELS.values()))
+    from tpulp_torch.kernels.bounded_grid import GRID_THREADS
+    log(f"# bounded_grid (ptxas -v, {GRID_THREADS} threads a block): "
+        + "; ".join(f"{k} {v.get('registers')} registers, "
+                    f"{v.get('spill_bytes')} bytes of spills, "
+                    f"{v.get('static_smem')} bytes of static shared memory"
+                    for k, v in ptxas.items()
+                    if k in BOUNDED_GRID_KERNELS.values()))
 
     # 3: the kernels against their plain versions
     kstats = phase_kernels(dev)
@@ -6049,10 +6433,13 @@ def main() -> int:
                         "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
                         "592; tpulp/batch/vmap_driver.py:250)",
                         milp_launches),
+        # bounded_step's main path since bounded_grid took 8a's frame: (w),
+        # the box LP past the grid's plan
         "bounded_step": ("tpulp_torch/kernels/csrc/bounded.cu",
                          "none: XLA's compiled lax.while_loop over "
                          "bounded_simplex_step (tpulp/solve/bounded.py:"
-                         "86-276, 278-307)", bounded_launches),
+                         "86-276, 278-307)",
+                         exact["bounded_lp"]["wide"]["launches"]),
         "rank1_step": ("tpulp_torch/kernels/csrc/rank1.cu",
                        "none: XLA's compiled lax.while_loop over "
                        "simplex_step, devex_simplex_step and "
@@ -6095,6 +6482,10 @@ def main() -> int:
             "vmapped lax.while_loop over bounded_simplex_step "
             "(tpulp/solve/bounded.py:308-330, 86-275)",
             exact["bounded_batch"]["bounded"]["launches"]),
+        "bounded_grid": (
+            "tpulp_torch/kernels/csrc/bounded_grid.cu",
+            "none: XLA's compiled lax.while_loop over bounded_simplex_step "
+            "(tpulp/solve/bounded.py:86-276, 278-307)", bounded_launches),
     }
     # rank1_step's main path since the cluster kernel took the frames a
     # cluster holds: (f)'s driver="rank1" solve at 1538 x 3073
@@ -6111,16 +6502,18 @@ def main() -> int:
             head["library_ms"] = None  # CUDA addcmul rounds twice
             cases = fma_cases
         elif kname == "bounded_step":
-            # per step of the f64 devex walk of 8a: the walk's host-clock
-            # time, the plain step's, the tableau's bytes
+            # per step of 8a's f64 devex walk (called directly on the frame,
+            # held equal and timed beside the grid): the walk's host-clock
+            # time, the plain step's, the tableau's bytes; the headline at
+            # the shape its route gives it, (w)'s box LP
             bl = exact["bounded_lp"]
             cases = {}
             for dt, walk in (("float64", "f64_devex"),
                              ("float32", "f32_devex_window")):
                 w = bl["walks"][walk]
                 cases[dt] = {
-                    "max_abs_err": w["max_abs_err"],
-                    "ms": 1e3 * w["seconds"] / w["niter"],
+                    "max_abs_err": w["bounded_step"]["max_abs_err"],
+                    "ms": 1e3 * w["bounded_step"]["seconds"] / w["niter"],
                     "plain_ms": 1e3 * w["plain_seconds"] / w["niter"],
                     "bound_ms": bl["step_us"][dt]["bound_us_per_step"] / 1e3,
                     "bound_by": "bytes", "library_ms": None,
@@ -6129,6 +6522,69 @@ def main() -> int:
                     "host_enqueue_ms":
                         bl["step_us"][dt]["host_us_per_step"] / 1e3,
                     "steps": w["niter"]}
+            wd = bl["wide"]
+            cases["wide float64"] = {
+                "max_abs_err": wd["window"]["max_abs_err"],
+                "ms": 1e3 * wd["window"]["seconds"] / wd["window"]["steps"],
+                "plain_ms": 1e3 * wd["window"]["plain_seconds"]
+                / wd["window"]["steps"],
+                "bound_ms": wd["bound_us_per_step"] / 1e3,
+                "bound_by": "bytes", "library_ms": None,
+                "device_ms": wd["device_us_per_step"] / 1e3,
+                "host_enqueue_ms": wd["host_us_per_step"] / 1e3,
+                "steps": wd["window"]["steps"], "solve_steps": wd["niter"],
+                "solve_seconds": wd["seconds"]}
+            head = cases["wide float64"]
+        elif kname == "bounded_grid":
+            # per step of 8a's walks on the grid: the walk's host-clock time
+            # (in turns with bounded_steps), the plain version's, one launch
+            # on the card by stage (the same rule and type as the walk), the
+            # walk's bound (the frame read and written once, an fma an
+            # entry a step) beside the kernel's own convention and the
+            # table's step convention; the f64 Dantzig instantiation by its
+            # timed launch and its window against the plain version
+            bl = exact["bounded_lp"]
+
+            def grid_case(g, **extra):
+                return {
+                    "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
+                    "library_ms": None,
+                    "grid_bound_ms": g["grid_bound_ms"],
+                    "step_bound_ms": g["step_bound_ms"],
+                    "device_ms": g["device_us_per_step"] / 1e3,
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        g["device_us_by_stage"].items()},
+                    "blocks": g["blocks"], "width": g["width"],
+                    "smem": g["smem"], "occupancy": g["occupancy"],
+                    **extra}
+
+            cases = {}
+            for dt, walk in (("float64", "f64_devex"),
+                             ("float32", "f32_devex_window"),
+                             ("bland float32", "f32_dantzig_bland")):
+                w = bl["walks"][walk]
+                steps = max(1, w["niter"])
+                if dt.startswith("bland"):
+                    err, plain = w["max_abs_err"], \
+                        1e3 * w["plain_seconds"] / steps
+                else:
+                    ref = bl["reference"][dt]
+                    err = max(w["max_abs_err"], ref["max_abs_err"])
+                    plain = ref["plain_ms_per_step"]
+                cases[dt] = grid_case(
+                    bl["grid_us"][dt], max_abs_err=err,
+                    ms=1e3 * w["seconds"] / steps, plain_ms=plain,
+                    bounded_step_ms=1e3 * w["bounded_step"]["seconds"]
+                    / steps, walk_seconds=w["seconds"],
+                    bounded_step_walk_seconds=w["bounded_step"]["seconds"],
+                    plain_walk_seconds=w["plain_seconds"], steps=w["niter"])
+            g, ref = bl["grid_us"]["dantzig float64"], \
+                bl["reference"]["dantzig float64"]
+            cases["dantzig float64"] = grid_case(
+                g, max_abs_err=ref["max_abs_err"],
+                ms=g["device_us_per_step"] / 1e3,
+                plain_ms=ref["plain_ms_per_step"], steps=g["steps"])
             head = cases["float64"]
         elif kname == "rank1_step":
             # per step of 5c's walks: the walk's host-clock time, the plain
@@ -6353,7 +6809,11 @@ def main() -> int:
             "pivots")})
     kernels[5].update({key: kernels[5]["cases"]["float64"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
+    # bounded_step: 0 on 8a's solves and 9c's solo walk since the grid took
+    # their frames; (w)'s box LP past the plan
     kernels[5]["launches_by_path"] = {
+        "8a_wide_float64": exact["bounded_lp"]["wide"]["launches"][
+            "bounded_step"],
         "bounded_lp_float64": bounded_launches["bounded_step"],
         "bounded_lp_float32": exact["bounded_lp"]["float32"]["launches"][
             "bounded_step"],
@@ -6361,6 +6821,18 @@ def main() -> int:
             mesh["bounded"]["solo"]["launches"]["bounded_step"]}
     kernels[5]["walks"] = exact["bounded_lp"]["walks"]
     kernels[5]["stages_held_at_step"] = exact["bounded_lp"]["stages"]
+    kernels[14].update({key: kernels[14]["cases"]["float64"][key] for key in (
+        "device_ms", "device_ms_by_stage", "blocks", "width", "smem",
+        "occupancy", "grid_bound_ms", "step_bound_ms", "bounded_step_ms",
+        "steps")})
+    kernels[14]["launches_by_path"] = {
+        "bounded_lp_float64": bounded_launches["bounded_grid"],
+        "bounded_lp_float32": exact["bounded_lp"]["float32"]["launches"][
+            "bounded_grid"],
+        "sharded_bounded_solo_float64":
+            mesh["bounded"]["solo"]["launches"]["bounded_grid"],
+        "8a_wide_float64": exact["bounded_lp"]["wide"]["launches"][
+            "bounded_grid"]}
     kernels[6].update({key: kernels[6]["cases"][
         "main 1538x3073 float64"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
@@ -6466,7 +6938,8 @@ def main() -> int:
                            "flush_kernel<double,lanes>")),
                      (12, ("blocked_ray_kernel<float>",
                            "blocked_ray_kernel<double>")),
-                     (13, "lane_bounded")):
+                     (13, "lane_bounded"),
+                     (14, tuple(BOUNDED_GRID_KERNELS.values()))):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

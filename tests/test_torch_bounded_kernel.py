@@ -320,8 +320,10 @@ def test_bounded_steps_raises_on_a_strided_tableau():
 
 def test_dispatch_hands_the_kernels_a_contiguous_tableau(monkeypatch):
     """``run_simplex_bounded`` takes a strided tableau on either device (as
-    tpulp's does): on the card it hands ``bounded_steps``, which refuses
-    one, a contiguous copy (the CUDA dispatch, ``on_cpu`` patched)."""
+    tpulp's does): on the card it hands the kernel of ``bounded_route``
+    (``bounded_grid`` at this size, ``bounded_steps`` past the grid's plan;
+    both refuse one) a contiguous copy (the CUDA dispatch, ``on_cpu``
+    patched)."""
     seen = []
 
     def spy(bs, opts, stall_limit, max_iters):
@@ -329,6 +331,8 @@ def test_dispatch_hands_the_kernels_a_contiguous_tableau(monkeypatch):
         return bs
 
     monkeypatch.setattr(pbounded, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(pbounded, "sm_count", lambda device: 132)
+    monkeypatch.setattr(pbounded, "bounded_grid", spy)
     monkeypatch.setattr(pbounded, "bounded_steps", spy)
     bs, opts = _small()
     strided = bs._replace(s=bs.s._replace(T=bs.s.T.t().contiguous().t()))

@@ -339,7 +339,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0,
                         "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
                         "lane_bounded": 0, "bounded_step": 0,
-                        "bounded_stage": 0,
+                        "bounded_grid": 0, "bounded_stage": 0,
                         "rank1_step": 0, "rank1_stage": 0,
                         "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
                         "blocked_stage": 0, "blocked_cluster": 0,
@@ -362,7 +362,8 @@ def test_nvcc_command_line():
         objects.append(cmd[cmd.index("-o") + 1])
     assert sorted(p.name for p in sources) == ["blocked.cu",
                                                "blocked_cluster.cu",
-                                               "bounded.cu", "flush.cu",
+                                               "bounded.cu",
+                                               "bounded_grid.cu", "flush.cu",
                                                "fma.cu", "inner_block.cu",
                                                "lanes.cu", "rank1.cu",
                                                "rank1_cluster.cu"]

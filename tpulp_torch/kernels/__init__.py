@@ -5,6 +5,8 @@ from .block import (blocked_inner_block, blocked_inner_block_reference,
 from .blocked import blocked_stage, blocked_steps
 from .blocked_cluster import blocked_cluster_plan
 from .bounded import bounded_stage, bounded_steps
+# the module, not its wrapper of the same name: bounded_grid.bounded_grid
+from .bounded_grid import bounded_grid_plan
 from .fma import fused_fma
 from .lanes import (lane_bounded, lane_bounded_plan, lane_dual, lane_plan,
                     lane_primal)
@@ -29,6 +31,7 @@ __all__ = [
     "lane_bounded_plan",
     "bounded_steps",
     "bounded_stage",
+    "bounded_grid_plan",
     "rank1_steps",
     "rank1_stage",
     "cluster_plan",

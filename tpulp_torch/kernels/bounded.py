@@ -1,5 +1,10 @@
 """``bounded_steps``: the solo bounded-variable walk as four launches a step
 (``csrc/bounded.cu``), and the plain versions of the four, stage by stage.
+On the card ``solve.bounded.bounded_route`` sends a walk here only for the
+frames past ``kernels.bounded_grid``'s plan (whose one cooperative launch
+runs the whole walk with the tableau in the SMs' shared memory); the
+four-launch step serves those frames, and is held and timed beside the
+grid on the frames it takes.
 
 ``solve.bounded.bounded_simplex_step`` is one branchless transition of
 ~250 small tensor ops. Its work has three global dependencies: the
@@ -41,7 +46,10 @@ is an exact no-op (row 2 finite, column ``basis[0]`` exactly the unit
 vector on row 2): it could then change only the sign of a zero. Otherwise
 the redirected pivot runs, as in the plain step. Nothing on the solver's
 path calls the plain stages: ``solve.bounded.run_simplex_bounded`` runs
-the plain step on CPU tensors and ``bounded_steps`` on CUDA tensors.
+the plain step on CPU tensors and, on CUDA tensors, the kernel that
+``bounded_route`` chooses (``bounded_grid`` within its plan,
+``bounded_steps`` past it). ``kernels.bounded_grid``'s plain version
+composes these stages.
 """
 
 from __future__ import annotations
@@ -312,10 +320,13 @@ def bounded_update_reference(rec: BoundedRecord, max_iters: int) -> None:
 
 
 def bounded_finish_reference(rec: BoundedRecord, opts: SolverOptions,
-                             stall_limit: int, max_iters: int) -> None:
+                             stall_limit: int, max_iters: int,
+                             rhs_ok: bool | None = None) -> None:
     """The finish launch's plain version: the basis, the at-upper flags,
     the devex weights, the stall counter and the Bland switch, the phase
-    change, the finiteness sums and the status."""
+    change, the finiteness sums and the status. ``rhs_ok``, where given, is
+    the finiteness of the post-step |b| sum taken in a kernel's order (else
+    torch's sum's)."""
     iv = rec.ints.tolist()
     if not _live(iv, max_iters):
         return
@@ -357,9 +368,9 @@ def bounded_finish_reference(rec: BoundedRecord, opts: SolverOptions,
         phase, stuck, last_z = 2, 0, torch.full_like(last_z, inf)
         rec.col_active.copy_(rec.col_active & ~rec.art_cols)
 
-    finite_ok = (bool(torch.isfinite(z))
-                 and bool(torch.isfinite(T[2:, -1].abs().sum()))
-                 and bool(iv[CROW_OK]))
+    if rhs_ok is None:
+        rhs_ok = bool(torch.isfinite(T[2:, -1].abs().sum()))
+    finite_ok = bool(torch.isfinite(z)) and rhs_ok and bool(iv[CROW_OK])
     finished_opt = (iv[PHASE] == 2 and not iv[HAS_IMPROVING]
                     and not iv[CLEANUP])
     if not finite_ok:

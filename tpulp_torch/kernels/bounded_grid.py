@@ -1,0 +1,308 @@
+"""``bounded_grid``: the solo bounded-variable walk in one persistent
+cooperative launch (``csrc/bounded_grid.cu``), its launch plan and its
+plain version.
+
+``kernels.bounded`` runs a step of ``solve.bounded.bounded_simplex_step``
+as four stream-ordered launches, the tableau through device memory each
+step and one host enqueue a step. Where the frame's column slabs fit the
+SMs' shared memory, the whole walk runs in one launch instead: G blocks
+(at most one an SM) each keep the structural columns ``[g W, min(n, (g +
+1) W))`` of all M rows in shared memory, price them, and combine their
+candidates in slab order after a grid barrier; the owner of the entering
+column runs the three-way ratio test and publishes the verdict and its
+column before a second barrier; every block then updates its slab and its
+copy of the RHS in place. A third barrier runs only where a basic column
+is not an exact unit vector (csrc/bounded_grid.cu's header).
+``bounded_grid_plan`` picks W (at least ``GRID_MIN_ENTRIES`` entries a
+slab, so that small frames take few blocks) and G, and counts the
+kernel's shared memory; it refuses a frame whose slabs do not fit.
+``solve.bounded.bounded_route`` sends a walk here where the plan holds,
+to ``kernels.bounded.bounded_steps`` past it.
+
+``bounded_grid`` takes a state on one CUDA device and raises on anything
+else (CPU tensors, mixed devices, a strided tableau, a type other than f32
+and f64, devex without weights, a frame past the plan, a grid the card
+cannot hold at once). It allocates the output state and never writes the
+caller's tensors. The entering flips and upper hits of the walk are added
+to ``kernels.bounded.FLIPS`` (one host read a walk).
+
+``bounded_grid_reference`` is the same walk cut into G slabs, in plain
+torch: the plain stages of ``kernels.bounded`` (pricing, whose first-index
+argmin is the slabs' candidates combined in slab order; the ratio test on
+the entering column; the update from its snapshot: the mailbox's colj and
+colf; the finish), with the finiteness sums in the kernel's order
+(``grid_sum``, ``block_sum``). It equals ``bounded_simplex_step`` walked step by step, bit
+for bit. Nothing on the solver's path calls it: ``solve.bounded`` runs the
+plain loop on CPU tensors and the kernels on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from ..core.state import RULE_DEVEX, SimplexState, SolverOptions
+from . import bounded as kb
+from .launch import (LAUNCHES, check, lib_for, raise_on, sm_count,
+                     stream_of, suffix)
+from .rank1_cluster import block_sum, block_sums
+
+__all__ = ["GridPlan", "bounded_grid_plan", "bounded_grid_occupancy",
+           "bounded_grid", "bounded_grid_reference", "grid_slabs",
+           "grid_sum", "GRID_THREADS", "GRID_SMS", "GRID_MIN_ENTRIES",
+           "GRID_SMEM_LIMIT", "GRID_STATIC_SMEM", "GRID_STAGES"]
+
+GRID_THREADS = 512
+# the SMs of an H100 SXM: the plan's default
+GRID_SMS = 132
+# the fewest entries a block's slab holds (8 a thread), so that a small
+# frame takes few blocks: W >= ceil(GRID_MIN_ENTRIES / M) (32 columns at
+# 130 rows), not ceil(n / SMs)
+GRID_MIN_ENTRIES = 4_096
+# the static shared memory left to the kernel's reductions and mailbox
+# copies (chip_smoke.py holds ptxas's figure to it), and the dynamic shared
+# memory a block may then take on an H100: the opt-in maximum, 232,448
+# bytes, less that
+GRID_STATIC_SMEM = 3_072
+GRID_SMEM_LIMIT = 232_448 - GRID_STATIC_SMEM
+# the stages that ``stage_cycles`` splits a walk into (csrc/bounded_grid.cu's
+# Stage; block 0's clock): the load; a step's price, barrier A, the
+# combine, the ratio test and its publication where block 0 owns the
+# entering column, barrier B, barrier C, the fetch of the verdict and the
+# entering column with the pivot row, the update, the finish; the store;
+# then "owner": the ratio test and its publication on the clock of the
+# block that owns the entering column, whichever it is
+GRID_STAGES = ("load", "price", "barrier_a", "combine", "ratio",
+               "barrier_b", "barrier_c", "fetch", "update", "finish",
+               "store", "owner")
+# the mailbox: three regions of a slot a block (a step's candidates, the
+# repricing after a devex reset, the last weights' maxima) and the verdict
+_SLOT, _REGIONS = 64, 3
+# ints_out: phase, status, niter, stuck, entering flips, upper hits
+_NOUT = 6
+_NARGS, _NINTS, _NTOLS = 26, 10, 5
+_ARGS = ctypes.c_longlong * _NARGS
+_INTS = ctypes.c_int * _NINTS
+_TOLS = ctypes.c_double * _NTOLS
+_INT_MAX = 2 ** 31 - 1
+
+
+class GridPlan(NamedTuple):
+    blocks: int   # G, the blocks of the grid
+    width: int    # W, the structural columns of a block's slab
+    threads: int  # threads a block
+    smem: int     # dynamic shared-memory bytes a block
+    mail: int     # bytes of the mailbox in device memory
+
+
+def _align(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _smem(M: int, N: int, W: int, es: int) -> int:
+    """csrc/bounded_grid.cu's smem_bytes: the slab, the RHS and the pivot's
+    column, the pivot row's and the weights' segments, the basic variables'
+    spans, the basis, the segment's active mask, the artificial mask."""
+    m, n = M - 2, N - 1
+    return (_align(M * W * es) + 2 * _align(M * es) + 2 * _align(W * es)
+            + _align(m * es) + _align(4 * m) + _align(W) + _align(n))
+
+
+def grid_slabs(n: int, blocks: int) -> tuple[int, int]:
+    """(W, G): ``blocks`` slabs of the n structural columns, W = ceil(n /
+    blocks) each and G = ceil(n / W) of them (the last may be narrower;
+    none is empty)."""
+    W = -(-n // blocks)
+    return W, -(-n // W)
+
+
+@functools.lru_cache(maxsize=256)
+def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
+                      blocks: int | None = None) -> GridPlan:
+    """The launch plan of a walk on an (M, N) = (m + 2, n + 1) frame on a
+    card of ``sms`` SMs: W = max(ceil(n / sms), ceil(GRID_MIN_ENTRIES / M))
+    columns a block and G = ceil(n / W) blocks (with ``blocks``,
+    ``grid_slabs(n, blocks)``: another grid, to hold the kernel there), and
+    the dynamic shared memory a block needs. Raises for a frame whose
+    blocks need more than ``GRID_SMEM_LIMIT`` bytes."""
+    es = {torch.float32: 4, torch.float64: 8}.get(dtype)
+    if es is None:
+        raise ValueError(f"bounded_grid takes float32 or float64, not "
+                         f"{dtype}")
+    if M < 3 or N < 2 or max(M, N) >= kb._MAX_SIDE:
+        raise ValueError(f"frame {M} x {N} outside 3..2^24 x 2..2^24")
+    n = N - 1
+    if blocks is None:
+        W = min(n, max(-(-n // sms), -(-GRID_MIN_ENTRIES // M)))
+        G = -(-n // W)
+    else:
+        if not 1 <= blocks <= min(sms, GRID_THREADS):
+            raise ValueError(f"a grid of {blocks} blocks: expected 1 to "
+                             f"{min(sms, GRID_THREADS)}")
+        W, G = grid_slabs(n, blocks)
+    smem = _smem(M, N, W, es)
+    if smem > GRID_SMEM_LIMIT:
+        raise ValueError(f"frame {M} x {N} {dtype}: a block of {W} columns "
+                         f"needs {smem} bytes of shared memory, above "
+                         f"{GRID_SMEM_LIMIT}")
+    return GridPlan(G, W, GRID_THREADS, smem, _SLOT * (_REGIONS * G + 1))
+
+
+def _plan_ints(plan: GridPlan, M: int, N: int, devex: bool):
+    return _INTS(M, N, 0, 0, int(devex), plan.blocks, plan.width,
+                 plan.threads, plan.smem, plan.mail)
+
+
+@functools.lru_cache(maxsize=64)
+def _occupancy(index: int, plan: GridPlan, M: int, N: int, dtype,
+               devex: bool) -> int:
+    lib = lib_for(torch.device("cuda", index))
+    out = ctypes.c_int(0)
+    fn = getattr(lib, f"tpulp_bounded_grid_occupancy_{suffix(dtype)}")
+    raise_on(lib, fn(_plan_ints(plan, M, N, devex), ctypes.byref(out)),
+             "bounded_grid occupancy")
+    return out.value
+
+
+def bounded_grid_occupancy(M: int, N: int, dtype, devex: bool = True,
+                           device: torch.device | None = None,
+                           blocks: int | None = None) -> int:
+    """``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the walk's
+    launch on an (M, N) frame (the plan on ``device``'s SMs): the blocks an
+    SM holds at once (asked once a plan and device)."""
+    device = torch.device("cuda", 0) if device is None else device
+    plan = bounded_grid_plan(M, N, dtype, sm_count(device), blocks=blocks)
+    return _occupancy(device.index or 0, plan, M, N, dtype, devex)
+
+
+def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
+                 blocks: int | None = None,
+                 stage_cycles: torch.Tensor | None = None):
+    """The bounded walk of ``bs`` (a ``solve.bounded.BoundedState`` on one
+    CUDA device) to its exit or to ``max_iters`` in one cooperative launch;
+    a RUNNING exit at the budget stays RUNNING. ``blocks`` forces another
+    grid (``bounded_grid_plan``'s by default). ``stage_cycles``, an int64
+    tensor of ``len(GRID_STAGES)`` on the card, accumulates block 0's SM
+    cycles by stage (a measurement; the kernel walks the same). Returns the
+    walk's state; the caller's tensors are never written."""
+    kb._check(bs, opts)
+    s = bs.s
+    T = s.T
+    M, N = T.shape
+    m, n = M - 2, N - 1
+    dtype, dev = T.dtype, T.device
+    if stage_cycles is not None:
+        check(stage_cycles, "stage_cycles", torch.int64, (len(GRID_STAGES),))
+        if stage_cycles.device != dev:
+            raise ValueError(f"stage_cycles: expected a tensor on {dev}")
+    devex = opts.rule == RULE_DEVEX
+    plan = bounded_grid_plan(M, N, dtype, sm_count(dev), blocks=blocks)
+    # one allocation for the int32 fields, one for the bool ones
+    ints = torch.empty((_NOUT + m,), dtype=torch.int32, device=dev)
+    bools = torch.empty((1 + 3 * n,), dtype=torch.bool, device=dev)
+    out = SimplexState(
+        T=torch.empty((M, N), dtype=dtype, device=dev), basis=ints[_NOUT:],
+        col_active=bools[1:1 + n], art_cols=bools[1 + n:1 + 2 * n],
+        phase=ints[0], status=ints[1], niter=ints[2], stuck=ints[3],
+        bland=bools[0], last_z=torch.empty((), dtype=dtype, device=dev))
+    at_upper = bools[1 + 2 * n:]
+    g_in = bs.gamma.contiguous() if devex else None
+    g_out = torch.empty_like(g_in) if devex else None
+    mail = torch.empty((plan.mail,), dtype=torch.uint8, device=dev)
+    cols = torch.empty((3 * M,), dtype=dtype, device=dev)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    ins = [x.contiguous() for x in s]
+    ptrs = (ins[0], out.T, ins[1], out.basis, ins[2], out.col_active, ins[3],
+            out.art_cols, bs.upper.contiguous(), bs.at_upper.contiguous(),
+            at_upper, g_in, g_out, *ins[4:], ints, out.bland, out.last_z,
+            mail, cols, bar, stage_cycles)
+    args = _ARGS(*(0 if x is None else x.data_ptr() for x in ptrs))
+    iargs = _plan_ints(plan, M, N, devex)
+    iargs[2] = min(int(stall_limit), _INT_MAX)
+    iargs[3] = min(int(max_iters), _INT_MAX)
+    tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
+                 opts.infeas_tol, kb.DEVEX_RESET_ABOVE)
+    lib = lib_for(dev)
+    fn = getattr(lib, f"tpulp_bounded_grid_{suffix(dtype)}")
+    err = fn(args, iargs, tols, stream_of(dev))
+    if err:
+        raise_on(lib, err, "bounded_grid")
+    LAUNCHES["bounded_grid"] += 1
+    enter, uphit = ints[4:6].tolist()
+    kb.FLIPS["entering_flips"] += enter
+    kb.FLIPS["upper_hits"] += uphit
+    return bs._replace(s=out, at_upper=at_upper,
+                       gamma=g_out if devex else bs.gamma)
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+def grid_sum(x: torch.Tensor, width: int, blocks: int) -> torch.Tensor:
+    """The sum of the 1-d ``x`` as the grid takes it: each block's slab of
+    ``width`` entries as one block of GRID_THREADS threads adds it
+    (``block_sums``); then lane l of a warp adds the sums of blocks l, l +
+    32, l + 64, ... in turn, and the warp's shuffle tree (distance 16, 8,
+    4, 2, 1) adds the lanes."""
+    parts = block_sums(x, width, blocks, GRID_THREADS)
+    rounds = -(-blocks // 32)
+    padded = parts.new_zeros((rounds * 32,))
+    padded[:blocks] = parts
+    lanes = parts.new_zeros((32,))
+    for r in range(rounds):
+        lanes = lanes + padded[r * 32:(r + 1) * 32]
+    span = 32
+    while span > 1:
+        span //= 2
+        lanes = lanes[:span] + lanes[span:2 * span]
+    return lanes[0]
+
+
+def _grid_price(rec: kb.BoundedRecord, opts: SolverOptions, max_iters: int,
+                W: int, G: int) -> None:
+    """The plain price stage with the |c| sum's finiteness in the kernel's
+    order (``grid_sum``). The kernel combines the slabs' candidates (each
+    slab's NaN-first argmin of c_eff, or devex's argmax of c^2 / gamma,
+    first index on ties) in slab order: that is the first-index argmin
+    (argmax) over all columns, so the plain stage's entering column is the
+    kernel's."""
+    kb.bounded_price_reference(rec, opts, max_iters)
+    iv = rec.ints.tolist()
+    if not kb._live(iv, max_iters):
+        return
+    crow = rec.T[1, :-1] if iv[kb.PHASE] == 1 else rec.T[0, :-1]
+    absc = torch.where(rec.col_active, crow.abs(), 0.0)
+    rec.ints[kb.CROW_OK] = int(bool(torch.isfinite(grid_sum(absc, W, G))))
+
+
+def bounded_grid_reference(bs, opts: SolverOptions, stall_limit: int,
+                           max_iters: int, blocks: int = 1):
+    """``bounded_grid``'s walk in plain torch on ``blocks`` slabs
+    (``grid_slabs``; any count >= 1): the plain price, ratio, update and
+    finish stages of
+    ``kernels.bounded`` (the update from the entering column and the flip's
+    column, as the kernel's mailbox holds them), the finiteness sums in the
+    kernel's order. Returns (state, {"entering_flips": e, "upper_hits":
+    u}); the caller's tensors are never written."""
+    devex = opts.rule == RULE_DEVEX
+    if devex and bs.gamma is None:
+        raise ValueError("devex pricing needs the state's gamma")
+    work = bs if devex else bs._replace(gamma=None)
+    W, G = grid_slabs(bs.s.T.shape[1] - 1, blocks)
+    rec = kb.make_record(work)
+    while kb._live(rec.ints.tolist(), max_iters):
+        _grid_price(rec, opts, max_iters, W, G)
+        kb.bounded_ratio_reference(rec, opts, max_iters)
+        kb.bounded_update_reference(rec, max_iters)
+        rhs_ok = bool(torch.isfinite(block_sum(rec.T[2:, -1].abs(),
+                                               GRID_THREADS)))
+        kb.bounded_finish_reference(rec, opts, stall_limit, max_iters,
+                                    rhs_ok=rhs_ok)
+    out = kb.record_state(rec, work)
+    counts = {"entering_flips": int(rec.ints[kb.N_ENTER]),
+              "upper_hits": int(rec.ints[kb.N_UPHIT])}
+    return out._replace(gamma=out.gamma if devex else bs.gamma), counts

@@ -171,6 +171,7 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
     for name in ("tpulp_rank1_cluster_f32", "tpulp_rank1_cluster_f64",
+                 "tpulp_bounded_grid_f32", "tpulp_bounded_grid_f64",
                  "tpulp_blocked_cluster_f32", "tpulp_blocked_cluster_f64",
                  "tpulp_blocked_cluster_batch_f32",
                  "tpulp_blocked_cluster_batch_f64"):
@@ -179,6 +180,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = _I
     for name in ("tpulp_rank1_cluster_occupancy_f32",
                  "tpulp_rank1_cluster_occupancy_f64",
+                 "tpulp_bounded_grid_occupancy_f32",
+                 "tpulp_bounded_grid_occupancy_f64",
                  "tpulp_blocked_cluster_occupancy_f32",
                  "tpulp_blocked_cluster_occupancy_f64"):
         fn = getattr(lib, name)

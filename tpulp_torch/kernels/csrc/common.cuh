@@ -1,6 +1,7 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
-// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu, rank1_cluster.cu):
-// exact-rounding
+// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu, rank1_cluster.cu,
+// bounded_grid.cu): the grid barrier and the order-preserving keys of
+// the cooperative kernels (inner_block.cu, bounded_grid.cu), exact-rounding
 // arithmetic, the (value, index) comparison whose ties go to the smallest
 // index, the block-wide reductions of the single-block simplex loops
 // (lanes.cu, bounded.cu, rank1.cu, blocked.cu): torch's NaN-first
@@ -15,12 +16,42 @@
 
 #include <cfloat>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+namespace cg = cooperative_groups;
 
 namespace tpulp {
 
 constexpr int BIG_I = 1 << 30;
+
+// ---------------------------------------------------------------------------
+// grid barriers
+// ---------------------------------------------------------------------------
+
+struct GridBarrier {
+  unsigned* bar;
+  unsigned target;
+  int flag;
+
+  __device__ __forceinline__ void sync() {
+    if (!flag) {
+      cg::this_grid().sync();
+      return;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      target += gridDim.x;
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar) : "memory");
+      unsigned v;
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(bar) : "memory");
+      } while (v < target);
+    }
+    __syncthreads();
+  }
+};
 
 // Separate multiply and add, each rounded to nearest. nvcc contracts a*b+c
 // into one fma by default; the decision arithmetic of a pivot must round
@@ -62,6 +93,58 @@ __device__ __forceinline__ VI<V> better(VI<V> a, VI<V> b) {
 
 
 constexpr unsigned LANE_FULL = 0xffffffffu;
+
+// Order-preserving unsigned keys of values, so that an argmin or argmax
+// over a warp is a few redux.sync instructions: the extreme key, then the
+// smallest index holding it. -0 folds into +0 (they compare equal), and a
+// NaN takes the key that wins (the first of MIN, the last of MAX), as in
+// better(), where a NaN carries index BIG_I. (inner_block.cu,
+// bounded_grid.cu)
+template <typename T> struct KeyOf;
+template <> struct KeyOf<float> { using type = unsigned; };
+template <> struct KeyOf<double> { using type = unsigned long long; };
+
+__device__ __forceinline__ unsigned okey(float v, bool mx) {
+  if (v != v) return mx ? 0xFFFFFFFFu : 0u;
+  const unsigned u = __float_as_uint(__fadd_rn(v, 0.0f));
+  return (u >> 31) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ unsigned long long okey(double v, bool mx) {
+  if (v != v) return mx ? ~0ull : 0ull;
+  const unsigned long long u = (unsigned long long)__double_as_longlong(__dadd_rn(v, 0.0));
+  return (u >> 63) ? ~u : (u | (1ull << 63));
+}
+__device__ __forceinline__ float key_value(unsigned k, bool mx) {
+  if (k == (mx ? 0xFFFFFFFFu : 0u)) return __int_as_float(0x7fc00000);
+  return __uint_as_float((k >> 31) ? (k & 0x7FFFFFFFu) : ~k);
+}
+__device__ __forceinline__ double key_value(unsigned long long k, bool mx) {
+  if (k == (mx ? ~0ull : 0ull)) return __longlong_as_double(0x7ff8000000000000ll);
+  return __longlong_as_double((long long)((k >> 63) ? (k & ~(1ull << 63)) : ~k));
+}
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NO_IDX = 0xffffffffu;
+
+__device__ __forceinline__ unsigned wred(unsigned x, bool mx) {
+  return mx ? __reduce_max_sync(FULL, x) : __reduce_min_sync(FULL, x);
+}
+
+// (key, idx) <- the warp's extreme key and the smallest index holding it,
+// the same in every lane
+__device__ __forceinline__ void warp_arg(unsigned& key, unsigned& idx, bool mx) {
+  const unsigned k = wred(key, mx);
+  idx = __reduce_min_sync(FULL, key == k ? idx : NO_IDX);
+  key = k;
+}
+__device__ __forceinline__ void warp_arg(unsigned long long& key, unsigned& idx, bool mx) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned h = wred(hi, mx);
+  const unsigned l = wred(hi == h ? lo : (mx ? 0u : 0xFFFFFFFFu), mx);
+  const unsigned long long k = ((unsigned long long)h << 32) | l;
+  idx = __reduce_min_sync(FULL, key == k ? idx : NO_IDX);
+  key = k;
+}
 
 template <typename T> __device__ __forceinline__ bool finite_val(T v);
 template <> __device__ __forceinline__ bool finite_val<float>(float v) { return fabsf(v) <= FLT_MAX; }
@@ -222,31 +305,42 @@ __device__ int ratio_row(const T* col, long long cs, const T* b, long long bs, c
 // ---------------------------------------------------------------------------
 
 // Pricing of solve/bounded.py::bounded_simplex_step over the n columns of
-// the pricing row crow: Dantzig's NaN-first argmin of c_eff (v, i), or
-// devex's argmax of c^2 / gamma over the improving columns; the first
-// improving column (a); the first column eligible for the clean-up pivot
-// on row rowd (b); the sum of |crow| over the active columns (s).
-// Returned to every thread of the block.
+// the pricing row crow (entry k at crow[k * cs]; the columns k0 + k of the
+// frame, which the results name): Dantzig's NaN-first argmin of c_eff (v,
+// i), or devex's argmax of c^2 / gamma over the improving columns; the
+// first improving column (a); the first column eligible for the clean-up
+// pivot on row rowd (b); the sum of |crow| over the active columns (s).
+// This thread's share (bounded_price_scan), then the block's (returned to
+// every thread by bounded_price).
 template <typename T>
-__device__ Red<T> bounded_price(const T* crow, const T* rowd, const unsigned char* act,
-                                const unsigned char* art, const T* gamma, int n, bool devex,
-                                T opt_tol, T piv_tol, Red<T>* scratch) {
+__device__ Red<T> bounded_price_scan(const T* crow, const T* rowd, const unsigned char* act,
+                                     const unsigned char* art, const T* gamma, int n,
+                                     bool devex, T opt_tol, T piv_tol, long long cs = 1,
+                                     int k0 = 0) {
   const T inf = pos_inf<T>();
   Red<T> cols = red_identity<T>(devex);
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     const bool a = act[k] != 0;
-    const T c = crow[k];
+    const T c = crow[k * cs];
     const T c_eff = a ? c : inf;
     const bool improving = c_eff < -opt_tol;
-    if (improving) cols.a = min(cols.a, k);
-    if (a && !art[k] && T(fabs(rowd[k])) > piv_tol) cols.b = min(cols.b, k);
+    if (improving) cols.a = min(cols.a, k0 + k);
+    if (a && !art[k] && T(fabs(rowd[k * cs])) > piv_tol) cols.b = min(cols.b, k0 + k);
     if (a) cols.s = add_rn(cols.s, T(fabs(c)));
     if (devex)
-      offer(cols, improving ? div_rn(mul_rn(c, c), gamma[k]) : -inf, k, true);
+      offer(cols, improving ? div_rn(mul_rn(c, c), gamma[k]) : -inf, k0 + k, true);
     else
-      offer(cols, c_eff, k, false);
+      offer(cols, c_eff, k0 + k, false);
   }
-  return block_reduce(cols, scratch, devex);
+  return cols;
+}
+
+template <typename T>
+__device__ Red<T> bounded_price(const T* crow, const T* rowd, const unsigned char* act,
+                                const unsigned char* art, const T* gamma, int n, bool devex,
+                                T opt_tol, T piv_tol, Red<T>* scratch) {
+  return block_reduce(bounded_price_scan(crow, rowd, act, art, gamma, n, devex, opt_tol, piv_tol),
+                      scratch, devex);
 }
 
 // A row's candidates over the entering column (its entry c, its RHS b, its

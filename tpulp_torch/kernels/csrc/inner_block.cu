@@ -134,32 +134,8 @@ struct IBParams {
   T opt_tol, piv_tol, infeas_tol, degen_tol;
 };
 
-// ---------------------------------------------------------------------------
-// grid barriers
-// ---------------------------------------------------------------------------
-
-struct GridBarrier {
-  unsigned* bar;
-  unsigned target;
-  int flag;
-
-  __device__ __forceinline__ void sync() {
-    if (!flag) {
-      cg::this_grid().sync();
-      return;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      target += gridDim.x;
-      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar) : "memory");
-      unsigned v;
-      do {
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(bar) : "memory");
-      } while (v < target);
-    }
-    __syncthreads();
-  }
-};
+// (the grid barrier, GridBarrier, lives in common.cuh: bounded_grid.cu
+// shares it)
 
 // n grid barriers and nothing else: the latency floor of a pivot's stages
 __global__ void __launch_bounds__(IB_THREADS, 1) barrier_probe_kernel(unsigned* bar, int n,
@@ -243,56 +219,8 @@ __device__ __forceinline__ Pricing<T> pricing_ident(bool devex) {
   return x;
 }
 
-// Order-preserving unsigned keys of values, so that an argmin or argmax
-// over a warp is a few redux.sync instructions: the extreme key, then the
-// smallest index holding it. -0 folds into +0 (they compare equal), and a
-// NaN takes the key that wins (the first of MIN, the last of MAX), as in
-// better(), where a NaN carries index BIG_I.
-template <typename T> struct KeyOf;
-template <> struct KeyOf<float> { using type = unsigned; };
-template <> struct KeyOf<double> { using type = unsigned long long; };
-
-__device__ __forceinline__ unsigned okey(float v, bool mx) {
-  if (v != v) return mx ? 0xFFFFFFFFu : 0u;
-  const unsigned u = __float_as_uint(__fadd_rn(v, 0.0f));
-  return (u >> 31) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ unsigned long long okey(double v, bool mx) {
-  if (v != v) return mx ? ~0ull : 0ull;
-  const unsigned long long u = (unsigned long long)__double_as_longlong(__dadd_rn(v, 0.0));
-  return (u >> 63) ? ~u : (u | (1ull << 63));
-}
-__device__ __forceinline__ float key_value(unsigned k, bool mx) {
-  if (k == (mx ? 0xFFFFFFFFu : 0u)) return __int_as_float(0x7fc00000);
-  return __uint_as_float((k >> 31) ? (k & 0x7FFFFFFFu) : ~k);
-}
-__device__ __forceinline__ double key_value(unsigned long long k, bool mx) {
-  if (k == (mx ? ~0ull : 0ull)) return __longlong_as_double(0x7ff8000000000000ll);
-  return __longlong_as_double((long long)((k >> 63) ? (k & ~(1ull << 63)) : ~k));
-}
-
-constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned NO_IDX = 0xffffffffu;
-
-__device__ __forceinline__ unsigned wred(unsigned x, bool mx) {
-  return mx ? __reduce_max_sync(FULL, x) : __reduce_min_sync(FULL, x);
-}
-
-// (key, idx) <- the warp's extreme key and the smallest index holding it,
-// the same in every lane
-__device__ __forceinline__ void warp_arg(unsigned& key, unsigned& idx, bool mx) {
-  const unsigned k = wred(key, mx);
-  idx = __reduce_min_sync(FULL, key == k ? idx : NO_IDX);
-  key = k;
-}
-__device__ __forceinline__ void warp_arg(unsigned long long& key, unsigned& idx, bool mx) {
-  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
-  const unsigned h = wred(hi, mx);
-  const unsigned l = wred(hi == h ? lo : (mx ? 0u : 0xFFFFFFFFu), mx);
-  const unsigned long long k = ((unsigned long long)h << 32) | l;
-  idx = __reduce_min_sync(FULL, key == k ? idx : NO_IDX);
-  key = k;
-}
+// (the order-preserving keys and warp_arg live in common.cuh, shared with
+// bounded_grid.cu)
 
 template <typename T>
 struct RedShared {

@@ -3,11 +3,12 @@ CPU-or-one-card rule, argument checks and the CUDA error report."""
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches"]
+__all__ = ["LAUNCHES", "reset_launches", "sm_count"]
 
 # the device last selected in the library's runtime, per thread (the
 # runtime's current device is per thread)
@@ -16,14 +17,14 @@ _SELECTED = threading.local()
 # kernel launches per wrapper; a wrapper counts where it launches its
 # kernel and nowhere else ("lane_*" one launch each for every lane of a
 # batch, "bounded_step" counts steps of four launches,
-# "rank1_step" steps of four or five, "rank1_cluster" walks (one launch
-# each), "blocked_step" pivot slots of six, "blocked_cluster" blocks of K
+# "rank1_step" steps of four or five, "rank1_cluster" and "bounded_grid"
+# walks (one launch each), "blocked_step" pivot slots of six, "blocked_cluster" blocks of K
 # slots (one launch each) and "blocked_ray" the blocked engine's launch
 # after each flush; "*_batch" one launch each for every lane of a batch;
 # "*_stage" the single stages launched to check them)
 LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0,
             "lane_dual": 0, "lane_primal": 0, "lane_bounded": 0,
-            "bounded_step": 0,
+            "bounded_step": 0, "bounded_grid": 0,
             "bounded_stage": 0, "rank1_step": 0, "rank1_stage": 0,
             "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
             "blocked_stage": 0, "blocked_cluster": 0,
@@ -69,6 +70,17 @@ def lib_for(device: torch.device):
         raise_on(lib, lib.tpulp_set_device(index), "set device")
         _SELECTED.index = index
     return lib
+
+
+@functools.lru_cache(maxsize=16)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of the CUDA ``device`` (asked once a
+    device)."""
+    return _sms(device.index or 0)
 
 
 def stream_of(device: torch.device) -> int:

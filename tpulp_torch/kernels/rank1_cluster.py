@@ -53,6 +53,7 @@ from .rank1 import (CROW_OK, PHASE, RAY_SCAN_EVERY, RESET_ABOVE, WALKS,
 
 __all__ = ["ClusterPlan", "cluster_plan", "cluster_occupancy",
            "rank1_cluster", "rank1_cluster_reference", "slab_sum",
+           "block_sums",
            "block_sum", "cluster_sum", "CLUSTER_SIZES",
            "CLUSTER_THREADS", "CLUSTER_SMEM_LIMIT", "CLUSTER_STATIC_SMEM",
            "CLUSTER_STAGES"]
@@ -226,18 +227,18 @@ def rank1_cluster(state: SimplexState, opts: SolverOptions,
 # the plain version
 # ---------------------------------------------------------------------------
 
-def slab_sum(x: torch.Tensor, width: int, C: int,
-             threads: int = CLUSTER_THREADS) -> torch.Tensor:
-    """The sum of the 1-d ``x`` as a cluster of C blocks of ``threads``
-    threads takes it (common.cuh's block_reduce): block b's slab ``x[b
+def block_sums(x: torch.Tensor, width: int, C: int,
+               threads: int = CLUSTER_THREADS) -> torch.Tensor:
+    """The (C,) sums of the 1-d ``x``'s slabs as C blocks of ``threads``
+    threads take them (common.cuh's block_reduce): block b's slab ``x[b
     width:(b + 1) width]``, thread t adding x[t], x[t + threads], ... in
     turn, then the warp tree, then the same tree over the warps' sums (all
-    blocks at once); then the blocks' sums added in rank order."""
+    blocks at once)."""
     rounds = max(1, -(-width // threads))
+    flat = x.new_zeros((C * width,))
+    flat[:x.numel()] = x
     slabs = x.new_zeros((C, rounds * threads))
-    for b in range(C):
-        part = x[b * width:(b + 1) * width]
-        slabs[b, :part.numel()] = part
+    slabs[:, :width] = flat.view(C, width)
     acc = x.new_zeros((C, threads))
     for r in range(rounds):
         acc = acc + slabs[:, r * threads:(r + 1) * threads]
@@ -252,9 +253,18 @@ def slab_sum(x: torch.Tensor, width: int, C: int,
     while span > 1:
         span //= 2
         warps = warps[:, :span] + warps[:, span:2 * span]
-    total = warps[0, 0]
+    return warps[:, 0]
+
+
+def slab_sum(x: torch.Tensor, width: int, C: int,
+             threads: int = CLUSTER_THREADS) -> torch.Tensor:
+    """The sum of the 1-d ``x`` as a cluster of C blocks of ``threads``
+    threads takes it: each block's slab (``block_sums``), then the blocks'
+    sums added in rank order."""
+    sums = block_sums(x, width, C, threads)
+    total = sums[0]
     for b in range(1, C):
-        total = total + warps[b, 0]
+        total = total + sums[b]
     return total
 
 

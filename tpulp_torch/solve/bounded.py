@@ -13,11 +13,15 @@ and one (possibly no-op) column flip, as tensor selects, so the step is
 branchless and ``torch.func.vmap`` batches it. Phase-1 artificials carry
 infinite spans, so the two-phase layout of ``core/state.py`` is unchanged.
 
-``run_simplex_bounded`` runs the walk on CUDA tensors as four hand-written
-launches a step (``kernels.bounded.bounded_steps``, the walk's state kept
-on the card) and on CPU tensors as this step in the chunked Python loop of
-``solve/driver.py`` (``run_simplex_bounded_reference``; one host read of
-the status per chunk). ``run_simplex_bounded_batch`` runs every lane of a
+``run_simplex_bounded`` runs the walk on CUDA tensors on the kernel that
+``bounded_route`` chooses: ``kernels.bounded_grid.bounded_grid`` (the whole
+walk in one cooperative launch, the tableau's column slabs in the SMs'
+shared memory) where ``bounded_grid_plan`` holds, else
+``kernels.bounded.bounded_steps`` (four hand-written launches a step, the
+walk's state kept on the card) for the frames past it; on CPU tensors it
+runs this step in the chunked Python loop of ``solve/driver.py``
+(``run_simplex_bounded_reference``; one host read of the status per
+chunk). ``run_simplex_bounded_batch`` runs every lane of a
 batched state to its exit through ``lanes.bounded_lanes``: on CUDA
 tensors one ``lane_bounded`` launch (a block a lane, the whole walk in the
 launch), on CPU tensors this step vmapped over the lanes in the chunked
@@ -33,14 +37,16 @@ import torch
 
 from ..core.state import RULE_DEVEX, SimplexState, SolverOptions, Status
 from ..kernels.bounded import BIG_I, DEVEX_RESET_ABOVE, bounded_steps
+from ..kernels.bounded_grid import GRID_SMS, bounded_grid, bounded_grid_plan
 from ..kernels.fma import fused_fma
-from ..kernels.launch import on_cpu
+from ..kernels.launch import on_cpu, sm_count
 from .driver import (finish, first_true, pivot_update, put, run_chunked,
                      status_select, take)
 from .lanes import bounded_lanes
 
 __all__ = ["BoundedState", "make_bounded_state", "bounded_simplex_step",
            "run_simplex_bounded", "run_simplex_bounded_reference",
+           "bounded_route",
            "run_simplex_bounded_batch", "extract_bounded_solution",
            "BIG_I", "DEVEX_RESET_ABOVE"]
 
@@ -281,12 +287,26 @@ def run_simplex_bounded_reference(bs: BoundedState,
     return _finish(out)
 
 
+def bounded_route(M: int, N: int, dtype, sms: int = GRID_SMS) -> str:
+    """The kernel that runs a solo bounded walk of an (M, N) tableau of
+    ``dtype`` on a card of ``sms`` SMs: "bounded_grid" where
+    ``bounded_grid_plan`` holds (every block's column slab in its shared
+    memory), else "bounded_step" (four launches a step)."""
+    try:
+        bounded_grid_plan(M, N, dtype, sms)
+    except ValueError:  # slabs past a block's shared memory
+        return "bounded_step"
+    return "bounded_grid"
+
+
 def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
                         ) -> BoundedState:
     """Run the bounded-variable driver to termination or to
     ``opts.max_iters`` (single problem); ``RULE_DEVEX`` prices with devex
-    weights. On CUDA tensors the walk runs in the bounded kernels (four
-    launches a step; a strided tableau is handed to them contiguous), on
+    weights. On CUDA tensors the walk runs on ``bounded_route``'s kernel:
+    ``bounded_grid`` (one launch a walk) where its plan holds, else the
+    four-launch step ``bounded_steps`` for the frames past it (a strided
+    tableau is handed to either contiguous; a launch failure raises); on
     CPU tensors in the plain loop."""
     if opts is None:
         opts = SolverOptions.for_dtype(bs.s.T.dtype)
@@ -294,8 +314,13 @@ def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
     if on_cpu(*_tensors(bs)):
         return run_simplex_bounded_reference(bs, opts)
     stall_limit = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-    bs = bs._replace(s=bs.s._replace(T=bs.s.T.contiguous()))
-    return _finish(bounded_steps(bs, opts, stall_limit, opts.max_iters))
+    T = bs.s.T.contiguous()
+    bs = bs._replace(s=bs.s._replace(T=T))
+    M, N = T.shape
+    run = bounded_grid if bounded_route(
+        M, N, T.dtype, sm_count(T.device)) == "bounded_grid" \
+        else bounded_steps
+    return _finish(run(bs, opts, stall_limit, opts.max_iters))
 
 
 def run_simplex_bounded_batch(bs: BoundedState,
