@@ -98,8 +98,13 @@ Dantzig walk that switches to Bland against one plain loop in every field,
 the grid kernel against its plain version ``bounded_grid_reference`` on the
 card, and each of the four launches against its plain stage on a step with
 an upper hit and one with an entering flip; times both kernels' steps on
-the card and on the host clock in turns, with the grid's stage split; and
-solves a 2048 x 2048 box LP past the grid's plan on ``bounded_step``; then it
+the card and on the host clock in turns, with the grid's stage split;
+solves a 2048 x 2048 box LP past the resident slab in one streamed
+``bounded_grid`` launch (its rows past R through device memory; certified;
+its f64 and f32 windows held to the plain walk and the plain version; the
+launch timed by stage in turns with ``bounded_steps``), holds the grid at
+forced splits on small frames, and walks a 7000 x 64 box LP past the
+streamed plan on ``bounded_step``; then it
 solves a batch of 256 box LPs with and without bound rows (the bounded
 batch's walk one ``lane_bounded`` launch, timed apart from its per-lane
 extraction) and holds ``lane_bounded`` bit for bit against the plain
@@ -201,11 +206,18 @@ BND_BLAND_STEPS = 1024
 BND_TIMED_FROM, BND_TIMED_STEPS = 2000, 64
 # the grid walk: the steps of one timed launch (from BND_TIMED_FROM), the
 # steps held against its plain version on the card at full size, and the
-# box LP past the grid's plan (2050 x 4097: slabs of 32 columns, 525 KB at
-# f64), which runs bounded_step, held to the plain loop over a window
+# box LP past the resident slab (2050 x 4097: slabs of 32 columns, 525 KB
+# at f64), whose walk streams the rows past a block's shared memory (461
+# of 2,050 rows resident at f64, 1,117 at f32), held to the plain loop and
+# the plain version over a window at f64 and f32
 BND_GRID_TIMED_STEPS = 1024
 BND_GRID_REF_WINDOW = 96
 BND_WIDE_M, BND_WIDE_N, BND_WIDE_WINDOW = 2048, 2048, 192
+# (x): a box LP past the streamed plan at f64 (7002 x 7065: the replicated
+# vectors alone pass a block's shared memory), walked on bounded_step to a
+# budget and held to the plain loop; BND_PAST_TIMED steps timed from its
+# eighth
+BND_PAST_M, BND_PAST_N, BND_PAST_STEPS, BND_PAST_TIMED = 7000, 64, 64, 16
 BOX_M, BOX_N, BOX_LANES = 64, 128, 256
 # the row-lowered batch that 8b holds the box batch to: its first lanes
 # only (its exact refinement and certificate take ~0.6 s a lane on the
@@ -2698,11 +2710,13 @@ CLUSTER_KERNELS = {f"3rkc14cluster_kernelI{t}Li{w}E":
                    f"cluster_kernel<{'float' if t == 'f' else 'double'},"
                    f"{walk}>" for t in "fd"
                    for w, walk in enumerate(("primal", "devex", "dual"))}
-# the bounded grid walk's instantiations: <float or double, devex>
+# the bounded grid walk's instantiations: <float or double, devex,
+# streamed>
 BOUNDED_GRID_KERNELS = {
-    f"3bgr11grid_kernelI{t}Lb{d}E":
+    f"3bgr11grid_kernelI{t}Lb{d}ELb{r}E":
     f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
-    f"{'devex' if d == '1' else 'dantzig'}>" for t in "fd" for d in "01"}
+    f"{'devex' if d == '1' else 'dantzig'}{',streamed' if r == '1' else ''}>"
+    for t in "fd" for d in "01" for r in "01"}
 # the blocked cluster's instantiations: <float or double>
 BLOCKED_CLUSTER_KERNELS = {
     f"3bkc14cluster_kernelI{t}E":
@@ -3938,17 +3952,22 @@ def phase_batch_and_warm():
 # phase 8: the bounded-variable simplex and the exact layer
 # ---------------------------------------------------------------------------
 
-def bounded_form(m: int, n: int, seed: int = 0):
+def bounded_arrays(m: int, n: int, seed: int = 0):
     """bench.py's instance recipe without its sum row (D ~ N(0, 1), b =
-    |D x0| + |N(0, 1)|, free-sign c ~ N(0, 1), slack basis) with a finite
-    upper bound u_j = 2 x0_j + 1 on every structural, as a simple_bounds
-    StandardForm (no bound rows). Returns (form, D, b, u)."""
+    |D x0| + |N(0, 1)|, free-sign c ~ N(0, 1)) with a finite upper bound
+    u_j = 2 x0_j + 1 on every structural: (D, b, c, u)."""
     rng = np.random.default_rng(seed)
     D = rng.normal(size=(m, n))
     x0 = np.abs(rng.normal(size=n))
     b = np.abs(D @ x0) + np.abs(rng.normal(size=m))
     c = rng.normal(size=n)
-    u = 2.0 * x0 + 1.0
+    return D, b, c, 2.0 * x0 + 1.0
+
+
+def bounded_form(m: int, n: int, seed: int = 0):
+    """``bounded_arrays``' LP with a slack basis as a simple_bounds
+    StandardForm (no bound rows). Returns (form, D, b, u)."""
+    D, b, c, u = bounded_arrays(m, n, seed)
     sf = scenario_form(D, b, c)
     return (dataclasses.replace(sf, upper=u.tolist() + [None] * m), D, b,
             u)
@@ -4070,11 +4089,12 @@ def bounded_walk_check(sf, dev, dtype, label: str, devex: bool = True,
 
 def grid_reference_check(sf, dev, dtype, label: str, window: int,
                          devex: bool = True):
-    """``bounded_grid`` on the plan's grid against its plain version
-    ``bounded_grid_reference`` on the same slabs, on the card, over the
-    devex (or Dantzig) walk's first ``window`` steps: every field equal,
-    the entering flips and upper hits too. Returns the largest |difference|
-    of the tableaus' finite entries and the plain version's ms a step."""
+    """``bounded_grid`` on the plan's grid (resident or streamed) against
+    its plain version ``bounded_grid_reference`` on the same slabs, on the
+    card, over the devex (or Dantzig) walk's first ``window`` steps: every
+    field equal, the entering flips and upper hits too. Returns the largest
+    |difference| of the tableaus' finite entries, the plain version's ms a
+    step and the plan's resident rows."""
     from tpulp_torch.kernels import bounded_grid as kg
     from tpulp_torch.kernels.bounded import FLIPS
     from tpulp_torch.kernels.launch import sm_count
@@ -4096,11 +4116,12 @@ def grid_reference_check(sf, dev, dtype, label: str, window: int,
     err = bounded_equal(k, p)
     if dev == "cuda" and kflips != counts:
         raise AssertionError(f"8a {label}: flips {kflips} against {counts}")
-    log(f"# 8a {label}: bounded_grid (G {plan.blocks}, W {plan.width}) "
-        f"equals bounded_grid_reference on the card in every field over "
+    log(f"# 8a {label}: bounded_grid (G {plan.blocks}, W {plan.width}, "
+        f"{plan.rows} of {bs.s.T.shape[0]} rows in shared memory) equals "
+        f"bounded_grid_reference on the card in every field over "
         f"{int(k.s.niter)} steps; the plain version {plain_ms:.3f} ms a step")
     return {"max_abs_err": err, "plain_ms_per_step": plain_ms,
-            "steps": int(k.s.niter)}
+            "steps": int(k.s.niter), "rows": plan.rows}
 
 
 def launches_us(fn, steps: int):
@@ -4124,17 +4145,18 @@ def launches_us(fn, steps: int):
 
 
 def bounded_step_us(sf, dev, dtype, advance: int = BND_TIMED_FROM,
-                    steps: int = BND_TIMED_STEPS):
+                    steps: int = BND_TIMED_STEPS, state=None):
     """(device us, host us, split) a kernel step of the devex walk
     ``advance`` steps in: the device time of ``steps`` steps enqueued by
     one C call (CUDA events after a sleep that covers the host's enqueue,
     as ``device_time_ms``), the host's time to enqueue them, and the
     device us of the price and ratio launches alone (``steps`` launches of
     each on the same record: both write only the verdict and the
-    snapshot) beside the rest of the step (update and finish)."""
+    snapshot) beside the rest of the step (update and finish). ``state``,
+    a (state, options) pair, walks in place of ``sf``'s."""
     from tpulp_torch.kernels import bounded as kb
 
-    bs, opts = bounded_state(sf, dev, dtype)
+    bs, opts = bounded_state(sf, dev, dtype) if state is None else state
     stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
     rec = kb.make_record(bs)
     kb.enqueue_steps(rec, opts, stall, opts.max_iters, advance)
@@ -4242,9 +4264,12 @@ def grid_edge_walks(dev="cuda"):
     first box LP, 12 x 20 and 40 x 90 box LPs) under Dantzig, devex, a
     stall limit of 1 (Bland), a budget of 7, a NaN in the RHS (NUMERIC),
     devex weights above the reset threshold and a basic column that is
-    not a unit vector (every step through barrier C), each on the plan's
-    grid and on 3 blocks, devex also on 1, 2 and 7; the flips too. Returns
-    the cases' count."""
+    not a unit vector (every step through barrier C): each resident on the
+    plan's grid and on 3 blocks, devex also on 1, 2 and 7; and streamed at
+    forced splits (rows 3, M // 2 and M - 1 in shared memory) on 1, 3 and 7
+    blocks in turn, devex on the plan's grid and 1, 2, 3 and 7 blocks at
+    each split; the flips too. Returns the cases' counts (resident,
+    streamed)."""
     import torch
 
     from tpulp_torch.kernels import bounded_grid as kg
@@ -4265,7 +4290,8 @@ def grid_edge_walks(dev="cuda"):
              "bland": dict(stall_limit=1, degen_tol=1e300, max_iters=300),
              "budget7": dict(max_iters=7), "numeric": {}, "big_weights": {},
              "not_unit": {}}
-    count = 0
+    count = {"resident": 0, "streamed": 0}
+    t0 = time.perf_counter()
     for dt in (torch.float64, torch.float32):
         tiny = 1e-300 if dt == torch.float64 else 1e-30
         for fname, sf in forms.items():
@@ -4283,14 +4309,20 @@ def grid_edge_walks(dev="cuda"):
                     g[::3] = 3e8
                     bs = bs._replace(gamma=g)
                 stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-                for blocks in (None, 3) + ((1, 2, 7) if rule == "devex"
-                                           else ()):
+                M = bs.s.T.shape[0]
+                splits = [(None, blocks) for blocks in (None, 3) + (
+                    (1, 2, 7) if rule == "devex" else ())]
+                for q, rows in enumerate((3, M // 2, M - 1)):
+                    splits += [(rows, blocks) for blocks in (
+                        (None, 1, 2, 3, 7) if rule == "devex"
+                        else ((1, 3, 7)[q],))]
+                for rows, blocks in splits:
                     plan = kg.bounded_grid_plan(*bs.s.T.shape, dt, sms,
-                                                blocks=blocks)
+                                                blocks=blocks, rows=rows)
                     flips0 = dict(FLIPS)
                     k = kg.bounded_grid(bs, opts, stall, opts.max_iters,
-                                        blocks=blocks) if dev == "cuda" \
-                        else kg.bounded_grid_reference(
+                                        blocks=blocks, rows=rows) \
+                        if dev == "cuda" else kg.bounded_grid_reference(
                             bs, opts, stall, opts.max_iters, plan.blocks)[0]
                     sync(dev)
                     p, counts = kg.bounded_grid_reference(
@@ -4299,33 +4331,43 @@ def grid_edge_walks(dev="cuda"):
                     got = {key: FLIPS[key] - flips0[key] for key in FLIPS}
                     if dev == "cuda" and got != counts:
                         raise AssertionError(f"8a (e) {fname} {rule} {dt} "
-                                             f"G {plan.blocks}: flips {got} "
-                                             f"against {counts}")
-                    count += 1
+                                             f"G {plan.blocks} R {plan.rows}"
+                                             f": flips {got} against "
+                                             f"{counts}")
+                    count["resident" if rows is None else "streamed"] += 1
     log(f"# 8a (e) bounded_grid equals bounded_grid_reference in every field "
-        f"(the flips too) on {count} small walks: 3 frames x f64, f32 x "
+        f"(the flips too) on {count['resident']} resident and "
+        f"{count['streamed']} streamed small walks: 3 frames x f64, f32 x "
         "Dantzig, devex, Bland, a budget, a NaN, weights above 1e8, a basic "
-        "column that is not a unit vector; the plan's grid and 3 blocks, "
-        "devex also 1, 2 and 7")
+        "column that is not a unit vector; resident on the plan's grid and "
+        "3 blocks, devex also 1, 2 and 7; streamed at rows 3, M // 2 and "
+        "M - 1 on 1, 3 and 7 blocks in turn, devex on the plan's grid and "
+        f"1, 2, 3 and 7 at each ({time.perf_counter() - t0:.1f} s)")
     return count
 
 
-def grid_bounds(M: int, N: int, es: int, G: int, steps: int, clock_hz: float):
+def grid_bounds(M: int, N: int, es: int, G: int, steps: int, clock_hz: float,
+                rows: int | None = None):
     """A grid step's bounds, ms: (the walk's, by bytes or operations:
     the frame read and written once a walk over 3.35 TB/s and one fma an
     entry a step at the FP64 / FP32 peak, the larger; the kernel's own
     convention: the frame loaded and stored once a launch over 3.35 TB/s
     divided by the steps, plus a step's vector traffic (every block reads
     the G mailboxes of 48 bytes, column j and the verdict; they are written
-    once) over 3.35 TB/s, plus the slab read and written from shared memory
-    at 128 bytes a clock on 132 SMs; the table's step convention: the
-    tableau read and written once a step over 3.35 TB/s)."""
+    once) over 3.35 TB/s, plus the slab's resident rows (``rows``, all by
+    default) read and written from shared memory at 128 bytes a clock on
+    132 SMs and its streamed rows read and written once over 3.35 TB/s;
+    the table's step convention: the tableau read and written once a step
+    over 3.35 TB/s)."""
     frame = 2.0 * M * N * es
+    R = M if rows is None else rows
     walk = bound(frame / steps, 2.0 * M * N,
                  FP64_FLOP_S if es == 8 else FP32_FLOP_S)
     vectors = G * (G * 48 + M * es + 32) + G * 48 + M * es + 32
     smem_rate = 132 * 128 * clock_hz
-    own = 1e3 * ((frame / steps + vectors) / HBM_BYTES_S + frame / smem_rate)
+    streamed = 2.0 * (M - R) * N * es
+    own = 1e3 * ((frame / steps + vectors + streamed) / HBM_BYTES_S
+                 + 2.0 * R * N * es / smem_rate)
     step = bound(frame, 0.0, FP64_FLOP_S)[0]
     return walk, own, step
 
@@ -4376,24 +4418,30 @@ def bounded_grid_us(sf, dev, dtype, devex: bool = True,
     return {"device_us_per_step": us,
             "host_us_per_step": float(np.median(host_us)),
             "device_us_by_stage": split, "blocks": plan.blocks,
-            "width": plan.width, "smem": plan.smem,
+            "width": plan.width, "smem": plan.smem, "rows": plan.rows,
+            "scratch": plan.scratch,
             "steps": steps, "advance": advance,
             "es": bs.s.T.element_size(),
             "occupancy": kg.bounded_grid_occupancy(
                 M, N, dtype, devex, bs.s.T.device)}
 
 
-def wide_bounded_lp(dev):
+def wide_bounded_lp(dev, clock_hz: float):
     """8a (w): ``solve_lp`` on a BND_WIDE_M x BND_WIDE_N box LP, whose
-    frame is past the grid's plan at f64 (``bounded_route``:
-    "bounded_step"): optimal on the device rung and certified, on
-    ``bounded_step`` (no ``bounded_grid`` and no FMA launch); its walk's
-    first BND_WIDE_WINDOW steps held to the plain loop in every field, and
-    the four-launch step timed there."""
+    frame is past the resident slab at f64 and f32 (``bounded_route``:
+    "bounded_grid" on a streamed plan): optimal on the device rung and
+    certified in one ``bounded_grid`` launch (no ``bounded_step`` and no
+    FMA launch); its walk's first BND_WIDE_WINDOW steps, at f64 and f32,
+    held to the plain loop (the grid's walk and ``bounded_steps``') and to
+    ``bounded_grid_reference`` on the card in every field; the streamed
+    launch (BND_GRID_TIMED_STEPS steps from BND_TIMED_FROM) timed by stage
+    in turns with ``bounded_steps`` (BND_TIMED_STEPS steps from there) on
+    the same frame, with its bounds."""
     import torch
 
     import tpulp_torch
     from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import bounded_grid as kg
     from tpulp_torch.kernels.launch import sm_count
     from tpulp_torch.solve.bounded import (bounded_route,
                                            run_simplex_bounded,
@@ -4405,8 +4453,11 @@ def wide_bounded_lp(dev):
     M, N = m + 2, n + m + 1
     sms = sm_count(torch.device(dev)) if dev == "cuda" else 132
     route = bounded_route(M, N, torch.float64, sms)
-    if route != "bounded_step":
-        raise AssertionError(f"8a (w): {M} x {N} takes {route}")
+    plans = {dt: kg.bounded_grid_plan(M, N, dt, sms)
+             for dt in (torch.float64, torch.float32)}
+    if route != "bounded_grid" or any(p.rows >= M for p in plans.values()):
+        raise AssertionError(f"8a (w): {M} x {N} takes {route}, plans "
+                             f"{plans}")
     sync(dev)
     reset_launches()
     t0 = time.perf_counter()
@@ -4417,42 +4468,161 @@ def wide_bounded_lp(dev):
     launches = dict(LAUNCHES)
     primal_ok, dual_ok = float_bounded_certificate(sf, sol.basis,
                                                    sol.at_upper)
-    bs, opts = bounded_state(sf, dev, torch.float64,
-                             max_iters=BND_WIDE_WINDOW)
+    log(f"# 8a (w) box LP {m}x{n} ({M} x {N}, streamed: "
+        f"{plans[torch.float64].rows} rows a slab resident at f64, "
+        f"{plans[torch.float32].rows} at f32, {plans[torch.float64].scratch}"
+        f" bytes streamed at f64) f64: {sol.status}, rung {sol.rung}, "
+        f"{sol.niter} steps, {secs:.2f} s, certificate {primal_ok, dual_ok}"
+        f", launches {launches}")
+    if not (sol.status == "optimal" and sol.rung == "device-float64"
+            and primal_ok and dual_ok and (dev != "cuda" or (
+                launches["bounded_grid"] == 1
+                and launches["bounded_step"] == 0
+                and launches["fused_fma"] == 0))):
+        raise AssertionError(f"8a (w): {sol.status}, rung {sol.rung}, "
+                             f"certificate {primal_ok, dual_ok}, launches "
+                             f"{launches}")
+    windows = {}
+    for dt in (torch.float64, torch.float32):
+        name = str(dt).replace("torch.", "")
+        bs, opts = bounded_state(sf, dev, dt, max_iters=BND_WIDE_WINDOW)
+        walks = {}
+        for kind in ("grid", "steps"):
+            t0 = time.perf_counter()
+            walks[kind] = run_simplex_bounded(bs, opts) if kind == "grid" \
+                else steps_walk(bs, opts)
+            sync(dev)
+            walks[kind + "_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = run_simplex_bounded_reference(bs, opts)
+        sync(dev)
+        plain_secs = time.perf_counter() - t0
+        steps = int(walks["grid"].s.niter)
+        ref = grid_reference_check(sf, dev, dt, f"(w) the {name} devex "
+                                   f"walk's first {BND_WIDE_WINDOW} steps",
+                                   BND_WIDE_WINDOW)
+        windows[name] = {
+            "steps": steps, "seconds": walks["grid_seconds"],
+            "steps_seconds": walks["steps_seconds"],
+            "plain_seconds": plain_secs,
+            "max_abs_err": max(bounded_equal(walks["grid"], p),
+                               ref["max_abs_err"]),
+            "steps_max_abs_err": bounded_equal(walks["steps"], p),
+            "plain_ms_per_step": ref["plain_ms_per_step"]}
+        log(f"# 8a (w) {name}: the first {steps} steps on the streamed grid "
+            f"and on bounded_steps each equal the plain walk in every field "
+            f"({walks['grid_seconds']:.3f} s and "
+            f"{walks['steps_seconds']:.3f} s against {plain_secs:.2f} s)")
+    # the streamed launch in turns with bounded_steps on the same frame
+    grid_runs, step_runs = [], []
+    for kind in ("grid", "steps", "steps", "grid"):
+        if kind == "grid":
+            grid_runs.append(bounded_grid_us(sf, dev, torch.float64))
+        else:
+            step_runs.append(bounded_step_us(sf, dev, torch.float64))
+    g = dict(grid_runs[0])
+    g["device_us_per_step"] = float(np.mean(
+        [r["device_us_per_step"] for r in grid_runs]))
+    g["device_us_turns"] = [r["device_us_per_step"] for r in grid_runs]
+    g["device_us_by_stage"] = {
+        k: float(np.mean([r["device_us_by_stage"][k] for r in grid_runs]))
+        for k in grid_runs[0]["device_us_by_stage"]}
+    wb, own, step_b = grid_bounds(M, N, 8, g["blocks"], sol.niter, clock_hz,
+                                  rows=g["rows"])
+    g.update(bound_ms=wb[0], bound_by=wb[1], grid_bound_ms=own,
+             step_bound_ms=step_b, sm_clock_hz=clock_hz)
+    dev_us = float(np.mean([r[0] for r in step_runs]))
+    host_us = float(np.mean([r[1] for r in step_runs]))
+    split = {k: float(np.mean([r[2][k] for r in step_runs]))
+             for k in step_runs[0][2]}
+    log(f"# 8a (w) bounded_grid streamed float64: "
+        f"{g['device_us_per_step']:.3f} us a step on the card (turns "
+        f"{g['device_us_turns']}; one launch of {g['steps']} steps from step "
+        f"{g['advance']}; by stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in g["device_us_by_stage"].items())
+        + f"); G {g['blocks']}, W {g['width']}, R {g['rows']}, {g['smem']} "
+        f"bytes of shared memory a block, {g['scratch']} bytes streamed, "
+        f"occupancy {g['occupancy']}; bounds a step: {1e3 * wb[0]:.4f} us "
+        f"({wb[1]}), {1e3 * own:.3f} us (the streamed convention: the "
+        f"streamed rows through device memory, the resident ones through "
+        f"shared memory), {1e3 * step_b:.2f} us (the table's step "
+        f"convention); in turns, bounded_steps {dev_us:.2f} us a step on "
+        f"the card ({[r[0] for r in step_runs]}; {split}), {host_us:.2f} us "
+        "to enqueue")
+    return {"status": sol.status, "rung": sol.rung, "niter": sol.niter,
+            "seconds": secs, "launches": launches, "route": route,
+            "plans": {str(dt).replace("torch.", ""): p._asdict()
+                      for dt, p in plans.items()},
+            "window": windows["float64"], "window_float32":
+            windows["float32"], "grid_us": g,
+            "device_us_per_step": dev_us, "host_us_per_step": host_us,
+            "device_us_by_stage": split,
+            "bound_us_per_step": 1e3 * bound(2.0 * M * N * 8, 0.0,
+                                             FP64_FLOP_S)[0]}
+
+
+def past_streamed_lp(dev):
+    """8a (x): ``run_simplex_bounded`` on a BND_PAST_M x BND_PAST_N box LP
+    (``bounded_arrays``' recipe, a slack basis, devex) whose frame is past
+    the streamed plan at f64 (``bounded_route``: "bounded_step"), to a
+    budget of BND_PAST_STEPS steps: on ``bounded_steps`` (no
+    ``bounded_grid`` and no FMA launch), held to the plain loop in every
+    field; the four-launch step timed from the walk's start."""
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core.state import RULE_DEVEX, make_state
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve.bounded import (bounded_route, make_bounded_state,
+                                           run_simplex_bounded,
+                                           run_simplex_bounded_reference)
+
+    m, n = BND_PAST_M, BND_PAST_N
+    D, b, c, u = bounded_arrays(m, n, seed=2)
+    M, N = m + 2, n + m + 1
+    sms = sm_count(torch.device(dev)) if dev == "cuda" else 132
+    route = bounded_route(M, N, torch.float64, sms)
+    if route != "bounded_step":
+        raise AssertionError(f"8a (x): {M} x {N} takes {route}")
+    state = make_state(np.concatenate([c, np.zeros(m)]),
+                       np.concatenate([D, np.eye(m)], axis=1), b,
+                       list(range(n, n + m)), dtype=torch.float64,
+                       device=dev)
+    bs = make_bounded_state(state, u.tolist() + [None] * m)
+    bs = bs._replace(gamma=torch.ones_like(bs.upper))
+    opts = SolverOptions.for_dtype(torch.float64, rule=RULE_DEVEX,
+                                   max_iters=BND_PAST_STEPS)
+    sync(dev)
+    reset_launches()
     t0 = time.perf_counter()
     k = run_simplex_bounded(bs, opts)
     sync(dev)
-    walk_secs = time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
     t0 = time.perf_counter()
     p = run_simplex_bounded_reference(bs, opts)
     sync(dev)
     plain_secs = time.perf_counter() - t0
     err = bounded_equal(k, p)
     steps = int(k.s.niter)
-    dev_us, host_us, split = bounded_step_us(sf, dev, torch.float64,
-                                             advance=BND_WIDE_WINDOW,
-                                             steps=BND_TIMED_STEPS)
-    log(f"# 8a (w) box LP {m}x{n} ({M} x {N}, past the grid's plan: "
-        f"{route}) f64: {sol.status}, rung {sol.rung}, {sol.niter} steps, "
-        f"{secs:.2f} s, certificate {primal_ok, dual_ok}, launches "
-        f"{launches}; its first {steps} steps equal the plain walk in every "
-        f"field ({walk_secs:.3f} s against {plain_secs:.2f} s); "
-        f"bounded_step {dev_us:.2f} us a step on the card ({split}), "
-        f"{host_us:.2f} us to enqueue")
-    if not (sol.status == "optimal" and sol.rung == "device-float64"
-            and primal_ok and dual_ok and (dev != "cuda" or (
-                launches["bounded_step"] > 0
-                and launches["bounded_grid"] == 0
-                and launches["fused_fma"] == 0))):
-        raise AssertionError(f"8a (w): {sol.status}, rung {sol.rung}, "
-                             f"certificate {primal_ok, dual_ok}, launches "
-                             f"{launches}")
-    return {"status": sol.status, "rung": sol.rung, "niter": sol.niter,
-            "seconds": secs, "launches": launches, "route": route,
-            "window": {"steps": steps, "seconds": walk_secs,
-                       "plain_seconds": plain_secs, "max_abs_err": err},
-            "device_us_per_step": dev_us, "host_us_per_step": host_us,
-            "device_us_by_stage": split,
+    dev_us, host_us, split = bounded_step_us(
+        None, dev, torch.float64, advance=8, steps=BND_PAST_TIMED,
+        state=(bs, opts))
+    log(f"# 8a (x) box LP {m}x{n} ({M} x {N}, past the streamed plan: "
+        f"{route}) f64: its first {steps} steps through run_simplex_bounded "
+        f"equal the plain walk in every field ({secs:.3f} s against "
+        f"{plain_secs:.2f} s); launches {launches}; bounded_step "
+        f"{dev_us:.2f} us a step on the card ({split}), {host_us:.2f} us to "
+        "enqueue")
+    if steps != BND_PAST_STEPS or (dev == "cuda" and not (
+            launches["bounded_step"] > 0 and launches["bounded_grid"] == 0
+            and launches["fused_fma"] == 0)):
+        raise AssertionError(f"8a (x): {steps} steps, launches {launches}")
+    return {"route": route, "steps": steps, "seconds": secs,
+            "plain_seconds": plain_secs, "max_abs_err": err,
+            "launches": launches, "device_us_per_step": dev_us,
+            "host_us_per_step": host_us, "device_us_by_stage": split,
             "bound_us_per_step": 1e3 * bound(2.0 * M * N * 8, 0.0,
                                              FP64_FLOP_S)[0]}
 
@@ -4476,7 +4646,8 @@ def phase_bounded_lp(dev):
     its plain stage on a step with an upper hit (this LP) and one with an
     entering flip (8b's first box LP); both kernels' device and host us a
     step, the grid's by stage (devex at f64 and f32, the f64 Dantzig walk,
-    the f32 Bland window); and (w), the box LP past the grid's plan on
+    the f32 Bland window); (w), the box LP past the resident slab on the
+    streamed grid; and (x), a frame past the streamed plan on
     ``bounded_step``. Returns the numbers and the launches of the f64
     solve."""
     import torch
@@ -4699,7 +4870,8 @@ def phase_bounded_lp(dev):
         f"{f64['host_us_per_step']:.2f} to enqueue; bound "
         f"{f64['bound_us_per_step']:.2f} us)")
     res.update(walks=walks, stages=stages, step_us=us, grid_us=grid_us,
-               reference=reference, wide=wide_bounded_lp(dev))
+               reference=reference, wide=wide_bounded_lp(dev, clock_hz),
+               past=past_streamed_lp(dev))
     return res
 
 
@@ -6433,13 +6605,13 @@ def main() -> int:
                         "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
                         "592; tpulp/batch/vmap_driver.py:250)",
                         milp_launches),
-        # bounded_step's main path since bounded_grid took 8a's frame: (w),
-        # the box LP past the grid's plan
+        # bounded_step's main path since the streamed grid took (w): (x),
+        # the box LP past the streamed plan
         "bounded_step": ("tpulp_torch/kernels/csrc/bounded.cu",
                          "none: XLA's compiled lax.while_loop over "
                          "bounded_simplex_step (tpulp/solve/bounded.py:"
                          "86-276, 278-307)",
-                         exact["bounded_lp"]["wide"]["launches"]),
+                         exact["bounded_lp"]["past"]["launches"]),
         "rank1_step": ("tpulp_torch/kernels/csrc/rank1.cu",
                        "none: XLA's compiled lax.while_loop over "
                        "simplex_step, devex_simplex_step and "
@@ -6505,7 +6677,7 @@ def main() -> int:
             # per step of 8a's f64 devex walk (called directly on the frame,
             # held equal and timed beside the grid): the walk's host-clock
             # time, the plain step's, the tableau's bytes; the headline at
-            # the shape its route gives it, (w)'s box LP
+            # the shape its route gives it, (x)'s box LP
             bl = exact["bounded_lp"]
             cases = {}
             for dt, walk in (("float64", "f64_devex"),
@@ -6522,19 +6694,37 @@ def main() -> int:
                     "host_enqueue_ms":
                         bl["step_us"][dt]["host_us_per_step"] / 1e3,
                     "steps": w["niter"]}
+            # (w) on bounded_steps (its route until the streamed grid): the
+            # window's walk held and timed beside the grid's, the launch
+            # timed in turns with the grid's
             wd = bl["wide"]
             cases["wide float64"] = {
-                "max_abs_err": wd["window"]["max_abs_err"],
-                "ms": 1e3 * wd["window"]["seconds"] / wd["window"]["steps"],
+                "max_abs_err": wd["window"]["steps_max_abs_err"],
+                "ms": 1e3 * wd["window"]["steps_seconds"]
+                / wd["window"]["steps"],
                 "plain_ms": 1e3 * wd["window"]["plain_seconds"]
                 / wd["window"]["steps"],
                 "bound_ms": wd["bound_us_per_step"] / 1e3,
                 "bound_by": "bytes", "library_ms": None,
                 "device_ms": wd["device_us_per_step"] / 1e3,
+                "device_ms_by_stage": {k: v / 1e3 for k, v in
+                                       wd["device_us_by_stage"].items()},
                 "host_enqueue_ms": wd["host_us_per_step"] / 1e3,
-                "steps": wd["window"]["steps"], "solve_steps": wd["niter"],
-                "solve_seconds": wd["seconds"]}
-            head = cases["wide float64"]
+                "steps": wd["window"]["steps"]}
+            # the route's shape: (x), past the streamed plan
+            px = bl["past"]
+            cases["past the streamed plan float64 (x)"] = {
+                "max_abs_err": px["max_abs_err"],
+                "ms": 1e3 * px["seconds"] / px["steps"],
+                "plain_ms": 1e3 * px["plain_seconds"] / px["steps"],
+                "bound_ms": px["bound_us_per_step"] / 1e3,
+                "bound_by": "bytes", "library_ms": None,
+                "device_ms": px["device_us_per_step"] / 1e3,
+                "device_ms_by_stage": {k: v / 1e3 for k, v in
+                                       px["device_us_by_stage"].items()},
+                "host_enqueue_ms": px["host_us_per_step"] / 1e3,
+                "steps": px["steps"]}
+            head = cases["past the streamed plan float64 (x)"]
         elif kname == "bounded_grid":
             # per step of 8a's walks on the grid: the walk's host-clock time
             # (in turns with bounded_steps), the plain version's, one launch
@@ -6585,6 +6775,26 @@ def main() -> int:
                 g, max_abs_err=ref["max_abs_err"],
                 ms=g["device_us_per_step"] / 1e3,
                 plain_ms=ref["plain_ms_per_step"], steps=g["steps"])
+            # the streamed plan: (w)'s f64 devex walk, one launch of 1,024
+            # steps from step 2,000 in turns with bounded_steps; its window
+            # against the plain walk and the plain version
+            wd = bl["wide"]
+            win = wd["window"]
+            cases["streamed float64 (w)"] = grid_case(
+                wd["grid_us"], max_abs_err=win["max_abs_err"],
+                ms=1e3 * win["seconds"] / win["steps"],
+                plain_ms=win["plain_ms_per_step"],
+                bounded_step_ms=1e3 * win["steps_seconds"] / win["steps"],
+                bounded_step_device_ms=wd["device_us_per_step"] / 1e3,
+                device_ms_turns=[v / 1e3 for v in
+                                 wd["grid_us"]["device_us_turns"]],
+                rows=wd["grid_us"]["rows"], scratch=wd["grid_us"]["scratch"],
+                steps=wd["grid_us"]["steps"], solve_steps=wd["niter"],
+                solve_seconds=wd["seconds"],
+                window_float32_max_abs_err=wd["window_float32"][
+                    "max_abs_err"],
+                window_float32_plain_ms=wd["window_float32"][
+                    "plain_ms_per_step"])
             head = cases["float64"]
         elif kname == "rank1_step":
             # per step of 5c's walks: the walk's host-clock time, the plain
@@ -6807,11 +7017,14 @@ def main() -> int:
         kernels[k].update({key: head[key] for key in (
             "us_per_step", "device_ms", "device_us_per_step", "steps",
             "pivots")})
-    kernels[5].update({key: kernels[5]["cases"]["float64"][key] for key in (
+    kernels[5].update({key: kernels[5]["cases"][
+        "past the streamed plan float64 (x)"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
     # bounded_step: 0 on 8a's solves and 9c's solo walk since the grid took
-    # their frames; (w)'s box LP past the plan
+    # their frames, 0 on (w) since the streamed grid; (x)'s walk past it
     kernels[5]["launches_by_path"] = {
+        "8a_past_streamed_float64": exact["bounded_lp"]["past"]["launches"][
+            "bounded_step"],
         "8a_wide_float64": exact["bounded_lp"]["wide"]["launches"][
             "bounded_step"],
         "bounded_lp_float64": bounded_launches["bounded_step"],
@@ -6833,6 +7046,8 @@ def main() -> int:
             mesh["bounded"]["solo"]["launches"]["bounded_grid"],
         "8a_wide_float64": exact["bounded_lp"]["wide"]["launches"][
             "bounded_grid"]}
+    kernels[14]["edge_walks_held"] = exact["bounded_lp"]["reference"][
+        "edge_walks"]
     kernels[6].update({key: kernels[6]["cases"][
         "main 1538x3073 float64"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})

@@ -7,10 +7,13 @@ and f32, under Dantzig, devex and a stall limit of 1 (Bland), it equals
 phase 1 with a retire, a phase-2 clean-up, upper hits, entering flips, a
 devex reset, the redirected pivot both skipped and run, and budgets of 1
 and 7 steps; at f64 it ends where tpulp's jitted bounded walk does
-(status, pivots, basis, objective). ``bounded_grid_plan``'s arithmetic,
-``bounded_route``, the wrapper's refusals and the CPU dispatch are held
-here too. The kernel itself runs on the card only (the ``cuda`` test;
-chip_smoke.py's phase 8a holds it at full size)."""
+(status, pivots, basis, objective), also on the grid of a streamed plan
+(the slabs' rows split between shared and device memory).
+``bounded_grid_plan``'s arithmetic (resident and streamed plans, forced
+splits, the shared-memory refusal), ``bounded_route``, the wrapper's
+refusals and the CPU dispatch are held here too. The kernel itself runs
+on the card only (the ``cuda`` tests; chip_smoke.py's phase 8a holds it at
+full size)."""
 
 import dataclasses
 import math
@@ -180,6 +183,29 @@ def test_reference_ends_where_tpulp_does(case, rule):
     assert float(out.s.objective()) == float(ref.s.objective())
 
 
+@pytest.mark.parametrize("rule", list(RULES))
+def test_reference_at_a_forced_split_ends_where_tpulp_does(rule):
+    """On the grid of a streamed plan (rows 0-2 in shared memory, the rest
+    streamed) the plain walk ends where tpulp's jitted bounded walk does at
+    f64: status, pivots, basis and the tableau itself."""
+    case = CASES[1]
+    sf = case_lp(case).lower(simple_bounds=True)
+    jo = TpulpOptions.for_dtype(jnp.float64, **RULES[rule])
+    ref = tpulp_run(tpulp_bounded(tpulp_state(sf), sf.upper), jo)
+    bs, opts = port_state(case, torch.float64, RULES[rule])
+    plan = kg.bounded_grid_plan(*bs.s.T.shape, torch.float64, 132, blocks=3,
+                                rows=3)
+    assert plan.rows == 3 and plan.scratch > 0
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    out, _ = kg.bounded_grid_reference(bs, opts, stall, opts.max_iters,
+                                       plan.blocks)
+    out = pbounded._finish(out)
+    for name in ("status", "niter", "basis"):
+        assert np.array_equal(getattr(out.s, name).numpy(),
+                              np.asarray(getattr(ref.s, name))), name
+    assert np.array_equal(out.s.T.numpy() + 0.0, np.asarray(ref.s.T) + 0.0)
+
+
 @pytest.mark.parametrize("blocks", [7, 40, 100])
 def test_grid_sum_is_the_kernel_order(blocks):
     """``grid_sum`` adds each slab as one block of GRID_THREADS threads
@@ -231,28 +257,123 @@ def test_plan_width_floor_on_small_frames():
         (7, 28)
 
 
+# the last m (n = 2m: an (m + 2) x (2m + 1) frame) that a streamed plan
+# takes on 132 SMs, by type (bounded_grid_plan's docstring)
+STREAMED_LAST_M = {torch.float64: 6_282, torch.float32: 10_798}
+
+
 def test_plan_refuses_frames_past_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        kg.bounded_grid_plan(2050, 6145, torch.float64, 132)
-    with pytest.raises(ValueError, match="shared memory"):
-        kg.bounded_grid_plan(2050, 4097, torch.float32, 132)
-    with pytest.raises(ValueError, match="float32 or float64"):
+    """The streamed plan's edge: the last frame it takes keeps rows 0-2 in
+    shared memory, the next is refused with ``GridPlanTooLarge`` (a
+    ValueError); another type and an out-of-range grid are refused with
+    plain ValueErrors."""
+    for dtype, m in STREAMED_LAST_M.items():
+        plan = kg.bounded_grid_plan(m + 2, 2 * m + 1, dtype, 132)
+        assert plan.rows == 3 and plan.stages == kg.GRID_RING_STAGES
+        with pytest.raises(kg.GridPlanTooLarge, match="shared memory"):
+            kg.bounded_grid_plan(m + 3, 2 * m + 3, dtype, 132)
+    # 2050 x 6145 f64 (slabs of 47 columns) streams; 8,000 rows of a
+    # narrow frame do not fit their replicated vectors
+    assert kg.bounded_grid_plan(2050, 6145, torch.float64, 132).rows < 2050
+    with pytest.raises(kg.GridPlanTooLarge):
+        kg.bounded_grid_plan(8000, 3, torch.float64, 132)
+    with pytest.raises(ValueError, match="float32 or float64") as err:
         kg.bounded_grid_plan(130, 385, torch.float16)
-    with pytest.raises(ValueError, match="blocks"):
+    assert not isinstance(err.value, kg.GridPlanTooLarge)
+    with pytest.raises(ValueError, match="blocks") as err:
         kg.bounded_grid_plan(130, 385, torch.float64, 132, blocks=200)
+    assert not isinstance(err.value, kg.GridPlanTooLarge)
 
 
 def test_route_on_each_side_of_the_plan():
-    assert bounded_route(1026, 3073, torch.float64) == "bounded_grid"
-    assert bounded_route(1026, 3073, torch.float32) == "bounded_grid"
-    assert bounded_route(130, 385, torch.float64) == "bounded_grid"
-    # 1024 rows and 4096 columns: 32 columns a block fit at f32 only
-    assert bounded_route(1026, 4097, torch.float32) == "bounded_grid"
-    assert bounded_route(1026, 4097, torch.float64) == "bounded_step"
-    assert bounded_route(2050, 4097, torch.float64) == "bounded_step"
-    # fewer SMs: wider slabs
-    assert bounded_route(1026, 3073, torch.float64, sms=100) == \
-        "bounded_step"
+    """Every frame the plan takes, resident or streamed, routes to the
+    grid; past the streamed plan's edge, to the four-launch step."""
+    for M, N, dtype, sms in ((1026, 3073, torch.float64, 132),
+                             (1026, 3073, torch.float32, 132),
+                             (130, 385, torch.float64, 132),
+                             (1026, 4097, torch.float32, 132),
+                             (1026, 4097, torch.float64, 132),
+                             (2050, 4097, torch.float64, 132),
+                             (2050, 4097, torch.float32, 132),
+                             # fewer SMs (an H100 PCIe has 114): wider slabs
+                             (1026, 3073, torch.float64, 100),
+                             (1026, 3073, torch.float64, 114)):
+        assert bounded_route(M, N, dtype, sms=sms) == "bounded_grid"
+    for dtype, m in STREAMED_LAST_M.items():
+        assert bounded_route(m + 2, 2 * m + 1, dtype) == "bounded_grid"
+        assert bounded_route(m + 3, 2 * m + 3, dtype) == "bounded_step"
+
+
+def test_route_raises_on_other_refusals():
+    """Only the plan's shared-memory refusal routes to the four-launch
+    step: a float16 frame or one outside 2^24 raises."""
+    with pytest.raises(ValueError, match="float32 or float64"):
+        bounded_route(130, 385, torch.float16)
+    with pytest.raises(ValueError, match="outside"):
+        bounded_route(2, 385, torch.float64)
+    with pytest.raises(ValueError, match="outside"):
+        bounded_route(130, 2 ** 24, torch.float64)
+
+
+@pytest.mark.parametrize("M,N,dtype,rows,tile_rows,scratch", [
+    (2050, 4097, torch.float64, 461, 64, 52_428_800),
+    (2050, 4097, torch.float32, 1117, 128, 16_777_216),
+    (1026, 4097, torch.float64, 573, 64, 16_777_216),
+], ids=["w_f64", "w_f32", "1026x4097_f64"])
+def test_plan_streams_past_shared_memory(M, N, dtype, rows, tile_rows,
+                                         scratch):
+    """Past the resident slab: W and G as the resident plan would take
+    them; R the most rows that fit beside the ring of GRID_RING_STAGES
+    tiles and the replicated vectors (``_smem``'s arithmetic: one row more
+    does not fit); tiles of TR rows (a power of two, about
+    GRID_TILE_BYTES); the scratch G regions of ceil((M - R) / TR)
+    tiles."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    plan = kg.bounded_grid_plan(M, N, dtype, 132)
+    n = N - 1
+    W = max(-(-n // 132), -(-kg.GRID_MIN_ENTRIES // M))
+    assert (plan.blocks, plan.width) == (-(-n // W), W)
+    S = kg.GRID_RING_STAGES
+    tile = kg._align(plan.tile_rows * W * es)
+    assert (plan.rows, plan.stages, plan.tile_rows, plan.scratch) == \
+        (rows, S, tile_rows, scratch)
+    assert tile_rows * W * es == kg.GRID_TILE_BYTES
+    assert plan.smem == kg._smem(M, N, W, es, rows, S, tile) <= \
+        kg.GRID_SMEM_LIMIT
+    assert kg._smem(M, N, W, es, rows + 1, S, tile) > kg.GRID_SMEM_LIMIT
+    # the replicated vectors: 62,016 bytes at (w) f64
+    if (M, N, dtype) == (2050, 4097, torch.float64):
+        assert kg._smem(M, N, W, es, 0) == 62_016
+    assert plan.scratch == plan.blocks * -(-(M - rows) // tile_rows) * tile
+
+
+def test_plan_rows_forced():
+    """``rows=`` forces R: 3 to M - 1 give streamed plans of that R (the
+    tiles no taller than the streamed rows need), M the resident plan;
+    below 3, above M and above the most that fit are refused."""
+    M, N = 66, 193
+    resident = kg.bounded_grid_plan(M, N, torch.float64, 132)
+    assert (resident.rows, resident.stages, resident.scratch) == (M, 0, 0)
+    assert kg.bounded_grid_plan(M, N, torch.float64, 132, rows=M) == resident
+    for rows in (3, M // 2, M - 1):
+        for blocks in (None, 1, 3, 7):
+            plan = kg.bounded_grid_plan(M, N, torch.float64, 132,
+                                        blocks=blocks, rows=rows)
+            assert plan.rows == rows and plan.stages == kg.GRID_RING_STAGES
+            assert plan[:2] == kg.bounded_grid_plan(
+                M, N, torch.float64, 132, blocks=blocks)[:2]
+            assert plan.tile_rows <= 2 * (M - rows)
+            tiles = -(-(M - rows) // plan.tile_rows)
+            assert plan.scratch == plan.blocks * tiles * kg._align(
+                plan.tile_rows * plan.width * 8)
+    for rows in (2, M + 1):
+        with pytest.raises(ValueError, match="rows") as err:
+            kg.bounded_grid_plan(M, N, torch.float64, 132, rows=rows)
+        assert not isinstance(err.value, kg.GridPlanTooLarge)
+    with pytest.raises(kg.GridPlanTooLarge, match="rows=462"):
+        kg.bounded_grid_plan(2050, 4097, torch.float64, 132, rows=462)
+    with pytest.raises(kg.GridPlanTooLarge, match="resident"):
+        kg.bounded_grid_plan(2050, 4097, torch.float64, 132, rows=2050)
 
 
 # ---------------------------------------------------------------------------
@@ -305,8 +426,9 @@ def test_bounded_grid_raises_on_devex_without_gamma():
 
 def test_dispatch_takes_the_route(monkeypatch):
     """On the card ``run_simplex_bounded`` hands ``bounded_route``'s kernel
-    a contiguous tableau: ``bounded_grid`` within the plan, ``bounded_steps``
-    past it (the CUDA dispatch, ``on_cpu`` patched)."""
+    a contiguous tableau: ``bounded_grid`` within the plan, resident or
+    streamed, ``bounded_steps`` past it (the CUDA dispatch, ``on_cpu``
+    patched)."""
     seen = []
 
     def spy(name):
@@ -327,12 +449,13 @@ def test_dispatch_takes_the_route(monkeypatch):
     assert name == "bounded_grid"
     assert T.is_contiguous() and torch.equal(T, bs.s.T)
     seen.clear()
-    # a frame past the plan (2050 x 4097 at f64)
-    wide = bs._replace(s=bs.s._replace(
-        T=torch.zeros((2050, 4097), dtype=torch.float64)))
+    # a frame past the resident plan (2050 x 4097 at f64): streamed; one
+    # past the streamed plan too (8,000 rows whose vectors do not fit)
     monkeypatch.setattr(pbounded, "_finish", lambda b: b)
-    run_simplex_bounded(wide, opts)
-    assert [name for name, _ in seen] == ["bounded_steps"]
+    for shape in ((2050, 4097), (8000, 3)):
+        run_simplex_bounded(bs._replace(s=bs.s._replace(
+            T=torch.zeros(shape, dtype=torch.float64))), opts)
+    assert [name for name, _ in seen] == ["bounded_grid", "bounded_steps"]
 
 
 def test_cpu_walk_never_reaches_the_kernels(monkeypatch):
@@ -396,3 +519,33 @@ def test_cuda_bounded_grid_matches_its_plain_version(dtype):
             ref = run_simplex_bounded_reference(
                 bs, dataclasses.replace(opts, max_iters=400))
             assert_same_state(_on_cpu(out), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_streamed_grid_matches_its_plain_version(dtype):
+    """The streamed kernel at forced splits (rows 3, M // 2 and M - 1 in
+    shared memory), on 1, 3 and 7 blocks, Dantzig and devex, to the exit
+    and to a budget: every field equal to ``bounded_grid_reference``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py's phase 8a runs these "
+                    "checks at full size)")
+    tt = getattr(torch, dtype)
+    for case in CASES:
+        for rule in ("dantzig", "devex"):
+            bs, opts = port_state(case, tt, RULES[rule])
+            stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+            M = bs.s.T.shape[0]
+            for rows in (3, M // 2, M - 1):
+                for blocks in (1, 3, 7):
+                    for budget in (400, 7):
+                        before = dict(kb.FLIPS)
+                        out = kg.bounded_grid(_on_card(bs), opts, stall,
+                                              budget, blocks=blocks,
+                                              rows=rows)
+                        ref, counts = kg.bounded_grid_reference(
+                            bs, opts, stall, budget, blocks)
+                        torch.cuda.synchronize()
+                        assert_same_state(_on_cpu(out), ref)
+                        assert {k: kb.FLIPS[k] - before[k]
+                                for k in kb.FLIPS} == counts

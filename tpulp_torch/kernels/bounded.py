@@ -1,10 +1,13 @@
 """``bounded_steps``: the solo bounded-variable walk as four launches a step
 (``csrc/bounded.cu``), and the plain versions of the four, stage by stage.
 On the card ``solve.bounded.bounded_route`` sends a walk here only for the
-frames past ``kernels.bounded_grid``'s plan (whose one cooperative launch
-runs the whole walk with the tableau in the SMs' shared memory); the
-four-launch step serves those frames, and is held and timed beside the
-grid on the frames it takes.
+frames past ``kernels.bounded_grid``'s plan, whose one cooperative launch
+runs the whole walk with the tableau's slabs in the SMs' shared memory or,
+past it, their first rows there and the rest streamed through device
+memory: frames whose replicated vectors pass a block's shared memory
+(beyond 6,284 rows at f64 and 10,800 at f32 with n = 2m). The four-launch
+step serves those frames, and is held and timed beside the grid on the
+frames it takes.
 
 ``solve.bounded.bounded_simplex_step`` is one branchless transition of
 ~250 small tensor ops. Its work has three global dependencies: the

@@ -4,20 +4,26 @@ plain version.
 
 ``kernels.bounded`` runs a step of ``solve.bounded.bounded_simplex_step``
 as four stream-ordered launches, the tableau through device memory each
-step and one host enqueue a step. Where the frame's column slabs fit the
-SMs' shared memory, the whole walk runs in one launch instead: G blocks
-(at most one an SM) each keep the structural columns ``[g W, min(n, (g +
-1) W))`` of all M rows in shared memory, price them, and combine their
+step and one host enqueue a step. Here the whole walk runs in one launch
+instead: G blocks (at most one an SM) each own the structural columns
+``[g W, min(n, (g + 1) W))`` of all M rows, price them, and combine their
 candidates in slab order after a grid barrier; the owner of the entering
 column runs the three-way ratio test and publishes the verdict and its
 column before a second barrier; every block then updates its slab and its
 copy of the RHS in place. A third barrier runs only where a basic column
-is not an exact unit vector (csrc/bounded_grid.cu's header).
+is not an exact unit vector (csrc/bounded_grid.cu's header). Where the
+column slabs fit the SMs' shared memory, all M rows of a slab live there
+(a resident plan); past that, its first R rows do, and rows [R, M) are
+streamed each step through device memory, tile by tile, through a ring
+of ``GRID_RING_STAGES`` tiles of about ``GRID_TILE_BYTES`` in shared
+memory (a streamed plan).
 ``bounded_grid_plan`` picks W (at least ``GRID_MIN_ENTRIES`` entries a
-slab, so that small frames take few blocks) and G, and counts the
-kernel's shared memory; it refuses a frame whose slabs do not fit.
-``solve.bounded.bounded_route`` sends a walk here where the plan holds,
-to ``kernels.bounded.bounded_steps`` past it.
+slab, so that small frames take few blocks) and G, counts the kernel's
+shared memory and, past the resident slab, R and the streamed buffer; it
+refuses (``GridPlanTooLarge``) a frame whose replicated vectors, first
+three rows and ring do not fit a block. ``solve.bounded.bounded_route``
+sends a walk here where the plan holds, to
+``kernels.bounded.bounded_steps`` past it.
 
 ``bounded_grid`` takes a state on one CUDA device and raises on anything
 else (CPU tensors, mixed devices, a strided tableau, a type other than f32
@@ -27,7 +33,9 @@ caller's tensors. The entering flips and upper hits of the walk are added
 to ``kernels.bounded.FLIPS`` (one host read a walk).
 
 ``bounded_grid_reference`` is the same walk cut into G slabs, in plain
-torch: the plain stages of ``kernels.bounded`` (pricing, whose first-index
+torch (the resident and streamed plans alike: the split of a slab's rows
+between shared and device memory changes no entry's arithmetic, an
+entry's update being one fma of its own pre-step value): the plain stages of ``kernels.bounded`` (pricing, whose first-index
 argmin is the slabs' candidates combined in slab order; the ratio test on
 the entering column; the update from its snapshot: the mailbox's colj and
 colf; the finish), with the finiteness sums in the kernel's order
@@ -50,10 +58,12 @@ from .launch import (LAUNCHES, check, lib_for, raise_on, sm_count,
                      stream_of, suffix)
 from .rank1_cluster import block_sum, block_sums
 
-__all__ = ["GridPlan", "bounded_grid_plan", "bounded_grid_occupancy",
-           "bounded_grid", "bounded_grid_reference", "grid_slabs",
-           "grid_sum", "GRID_THREADS", "GRID_SMS", "GRID_MIN_ENTRIES",
-           "GRID_SMEM_LIMIT", "GRID_STATIC_SMEM", "GRID_STAGES"]
+__all__ = ["GridPlan", "GridPlanTooLarge", "bounded_grid_plan",
+           "bounded_grid_occupancy", "bounded_grid",
+           "bounded_grid_reference", "grid_slabs", "grid_sum",
+           "GRID_THREADS", "GRID_SMS", "GRID_MIN_ENTRIES", "GRID_SMEM_LIMIT",
+           "GRID_STATIC_SMEM", "GRID_STAGES", "GRID_RING_STAGES",
+           "GRID_TILE_BYTES"]
 
 GRID_THREADS = 512
 # the SMs of an H100 SXM: the plan's default
@@ -68,22 +78,31 @@ GRID_MIN_ENTRIES = 4_096
 # bytes, less that
 GRID_STATIC_SMEM = 3_072
 GRID_SMEM_LIMIT = 232_448 - GRID_STATIC_SMEM
+# a streamed plan's ring: its slots, and the bytes a tile aims at (TR rows
+# of the slab's W columns, TR the largest power of two that fits, at most
+# GRID_THREADS): while a block updates one tile, the loads of the next
+# GRID_RING_STAGES - 1 are in flight (32 KB, its share of 3.35 TB/s at ~1.5
+# us of latency)
+GRID_RING_STAGES = 3
+GRID_TILE_BYTES = 16_384
+_MAX_STAGES = 8  # csrc/bounded_grid.cu's MAX_STAGES
 # the stages that ``stage_cycles`` splits a walk into (csrc/bounded_grid.cu's
 # Stage; block 0's clock): the load; a step's price, barrier A, the
 # combine, the ratio test and its publication where block 0 owns the
 # entering column, barrier B, barrier C, the fetch of the verdict and the
-# entering column with the pivot row, the update, the finish; the store;
-# then "owner": the ratio test and its publication on the clock of the
-# block that owns the entering column, whichever it is
+# entering column with the pivot row, the update of the resident rows and
+# the RHS, the streamed rows' update (0 on a resident plan), the finish;
+# the store; then "owner": the ratio test and its publication on the clock
+# of the block that owns the entering column, whichever it is
 GRID_STAGES = ("load", "price", "barrier_a", "combine", "ratio",
-               "barrier_b", "barrier_c", "fetch", "update", "finish",
-               "store", "owner")
+               "barrier_b", "barrier_c", "fetch", "update", "stream",
+               "finish", "store", "owner")
 # the mailbox: three regions of a slot a block (a step's candidates, the
 # repricing after a devex reset, the last weights' maxima) and the verdict
 _SLOT, _REGIONS = 64, 3
 # ints_out: phase, status, niter, stuck, entering flips, upper hits
 _NOUT = 6
-_NARGS, _NINTS, _NTOLS = 26, 10, 5
+_NARGS, _NINTS, _NTOLS = 27, 14, 5
 _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
 _TOLS = ctypes.c_double * _NTOLS
@@ -96,19 +115,45 @@ class GridPlan(NamedTuple):
     threads: int  # threads a block
     smem: int     # dynamic shared-memory bytes a block
     mail: int     # bytes of the mailbox in device memory
+    rows: int     # R, the slab's rows in shared memory (M: resident)
+    stages: int   # the tile ring's slots (0: resident)
+    tile_rows: int  # TR, rows a streamed tile (0: resident)
+    scratch: int  # bytes of the streamed rows' buffer (0: resident)
+
+
+class GridPlanTooLarge(ValueError):
+    """The frame's replicated vectors, first three rows and tile ring do
+    not fit a block's shared memory (``bounded_route`` then takes
+    ``bounded_steps``)."""
 
 
 def _align(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def _smem(M: int, N: int, W: int, es: int) -> int:
-    """csrc/bounded_grid.cu's smem_bytes: the slab, the RHS and the pivot's
-    column, the pivot row's and the weights' segments, the basic variables'
-    spans, the basis, the segment's active mask, the artificial mask."""
+def _smem(M: int, N: int, W: int, es: int, rows: int | None = None,
+          stages: int = 0, tile: int = 0) -> int:
+    """csrc/bounded_grid.cu's smem_bytes: the slab's ``rows`` resident rows
+    (all M by default), the ring (``stages`` tiles of ``tile`` bytes), the
+    RHS and the pivot's column, the pivot row's and the weights' segments,
+    the basic variables' spans, the basis, the segment's active mask, the
+    artificial mask and the ring's mbarriers."""
     m, n = M - 2, N - 1
-    return (_align(M * W * es) + 2 * _align(M * es) + 2 * _align(W * es)
-            + _align(m * es) + _align(4 * m) + _align(W) + _align(n))
+    R = M if rows is None else rows
+    return (_align(R * W * es) + stages * tile + 2 * _align(M * es)
+            + 2 * _align(W * es) + _align(m * es) + _align(4 * m)
+            + _align(W) + _align(n) + _align(8 * stages))
+
+
+def _tile_rows(W: int, es: int, cap: int) -> int:
+    """TR: the largest power of two of at most ``cap`` rows (and
+    GRID_THREADS) whose W columns take at most GRID_TILE_BYTES (1 where a
+    row takes more)."""
+    tr = 1
+    while (2 * tr <= min(cap, GRID_THREADS)
+           and 2 * tr * W * es <= GRID_TILE_BYTES):
+        tr *= 2
+    return tr
 
 
 def grid_slabs(n: int, blocks: int) -> tuple[int, int]:
@@ -121,13 +166,28 @@ def grid_slabs(n: int, blocks: int) -> tuple[int, int]:
 
 @functools.lru_cache(maxsize=256)
 def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
-                      blocks: int | None = None) -> GridPlan:
+                      blocks: int | None = None,
+                      rows: int | None = None) -> GridPlan:
     """The launch plan of a walk on an (M, N) = (m + 2, n + 1) frame on a
     card of ``sms`` SMs: W = max(ceil(n / sms), ceil(GRID_MIN_ENTRIES / M))
     columns a block and G = ceil(n / W) blocks (with ``blocks``,
     ``grid_slabs(n, blocks)``: another grid, to hold the kernel there), and
-    the dynamic shared memory a block needs. Raises for a frame whose
-    blocks need more than ``GRID_SMEM_LIMIT`` bytes."""
+    the dynamic shared memory a block needs.
+
+    Where a block's whole slab fits ``GRID_SMEM_LIMIT`` the plan is
+    resident (``rows`` = M). Past it, the plan is streamed: the ring of
+    GRID_RING_STAGES tiles of TR rows (``_tile_rows``) and the replicated
+    vectors take their bytes, and R, the most rows that the rest holds (at
+    most M - 1), stay in shared memory; rows [R, M) of each slab live in a
+    ``scratch`` buffer of G regions of ceil((M - R) / TR) tiles.
+    ``rows`` forces R (3 to M; M asks for the resident plan): the split
+    that the tests and chip_smoke.py's edge walks hold at small frames.
+
+    Raises ``GridPlanTooLarge`` where even rows 0-2 with the ring do not
+    fit (or a forced R does not): with n = 2m, past 6,284 rows (m =
+    6,282) at f64 and 10,800 (m = 10,798) at f32 on 132 SMs
+    (``tests/test_torch_bounded_grid.py`` holds both edges); ValueError for
+    another type, a frame outside 2^24, a grid or an R out of range."""
     es = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if es is None:
         raise ValueError(f"bounded_grid takes float32 or float64, not "
@@ -143,17 +203,48 @@ def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
             raise ValueError(f"a grid of {blocks} blocks: expected 1 to "
                              f"{min(sms, GRID_THREADS)}")
         W, G = grid_slabs(n, blocks)
+    if rows is not None and not 3 <= rows <= M:
+        raise ValueError(f"rows={rows}: a slab keeps 3 to {M} rows in "
+                         "shared memory")
+    mail = _SLOT * (_REGIONS * G + 1)
     smem = _smem(M, N, W, es)
-    if smem > GRID_SMEM_LIMIT:
-        raise ValueError(f"frame {M} x {N} {dtype}: a block of {W} columns "
-                         f"needs {smem} bytes of shared memory, above "
-                         f"{GRID_SMEM_LIMIT}")
-    return GridPlan(G, W, GRID_THREADS, smem, _SLOT * (_REGIONS * G + 1))
+    if rows is None or rows == M:
+        if smem <= GRID_SMEM_LIMIT:
+            return GridPlan(G, W, GRID_THREADS, smem, mail, M, 0, 0, 0)
+        if rows == M:
+            raise GridPlanTooLarge(
+                f"frame {M} x {N} {dtype}: a resident block of {W} columns "
+                f"needs {smem} bytes of shared memory, above "
+                f"{GRID_SMEM_LIMIT}")
+    S = GRID_RING_STAGES
+    tr = _tile_rows(W, es, GRID_THREADS)
+    # the most rows the bytes left beside the ring and the vectors hold
+    free = GRID_SMEM_LIMIT - _smem(M, N, W, es, 0, S, _align(tr * W * es))
+    R = min(M - 1, max(free, 0) // (W * es))
+    while R > 0 and _align(R * W * es) > free:
+        R -= 1
+    if R < 3 or (rows is not None and rows > R):
+        raise GridPlanTooLarge(
+            f"frame {M} x {N} {dtype}: a block of {W} columns keeps "
+            f"{R} of its rows in {GRID_SMEM_LIMIT} bytes of shared memory "
+            f"beside a ring of {S} tiles of {tr} rows"
+            + ("" if rows is None else f", not rows={rows}")
+            + " (at least 3)")
+    if rows is not None:
+        R = rows
+    # no tile taller than the streamed rows need
+    tr = _tile_rows(W, es, M - R)
+    tile = _align(tr * W * es)
+    scratch = G * -(-(M - R) // tr) * tile
+    return GridPlan(G, W, GRID_THREADS, _smem(M, N, W, es, R, S, tile),
+                    mail, R, S, tr, scratch)
 
 
-def _plan_ints(plan: GridPlan, M: int, N: int, devex: bool):
+def _plan_ints(plan: GridPlan, M: int, N: int, dtype, devex: bool):
+    es = 4 if dtype == torch.float32 else 8
     return _INTS(M, N, 0, 0, int(devex), plan.blocks, plan.width,
-                 plan.threads, plan.smem, plan.mail)
+                 plan.threads, plan.smem, plan.mail, plan.rows, plan.stages,
+                 plan.tile_rows, _align(plan.tile_rows * plan.width * es))
 
 
 @functools.lru_cache(maxsize=64)
@@ -162,7 +253,8 @@ def _occupancy(index: int, plan: GridPlan, M: int, N: int, dtype,
     lib = lib_for(torch.device("cuda", index))
     out = ctypes.c_int(0)
     fn = getattr(lib, f"tpulp_bounded_grid_occupancy_{suffix(dtype)}")
-    raise_on(lib, fn(_plan_ints(plan, M, N, devex), ctypes.byref(out)),
+    raise_on(lib, fn(_plan_ints(plan, M, N, dtype, devex),
+                     ctypes.byref(out)),
              "bounded_grid occupancy")
     return out.value
 
@@ -180,11 +272,14 @@ def bounded_grid_occupancy(M: int, N: int, dtype, devex: bool = True,
 
 def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
                  blocks: int | None = None,
-                 stage_cycles: torch.Tensor | None = None):
+                 stage_cycles: torch.Tensor | None = None,
+                 rows: int | None = None):
     """The bounded walk of ``bs`` (a ``solve.bounded.BoundedState`` on one
     CUDA device) to its exit or to ``max_iters`` in one cooperative launch;
     a RUNNING exit at the budget stays RUNNING. ``blocks`` forces another
-    grid (``bounded_grid_plan``'s by default). ``stage_cycles``, an int64
+    grid and ``rows`` another split of the slabs' rows
+    (``bounded_grid_plan``'s by default; a streamed plan allocates its
+    scratch buffer here). ``stage_cycles``, an int64
     tensor of ``len(GRID_STAGES)`` on the card, accumulates block 0's SM
     cycles by stage (a measurement; the kernel walks the same). Returns the
     walk's state; the caller's tensors are never written."""
@@ -199,7 +294,8 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
         if stage_cycles.device != dev:
             raise ValueError(f"stage_cycles: expected a tensor on {dev}")
     devex = opts.rule == RULE_DEVEX
-    plan = bounded_grid_plan(M, N, dtype, sm_count(dev), blocks=blocks)
+    plan = bounded_grid_plan(M, N, dtype, sm_count(dev), blocks=blocks,
+                             rows=rows)
     # one allocation for the int32 fields, one for the bool ones
     ints = torch.empty((_NOUT + m,), dtype=torch.int32, device=dev)
     bools = torch.empty((1 + 3 * n,), dtype=torch.bool, device=dev)
@@ -214,13 +310,15 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
     mail = torch.empty((plan.mail,), dtype=torch.uint8, device=dev)
     cols = torch.empty((3 * M,), dtype=dtype, device=dev)
     bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=dev) \
+        if plan.scratch else None
     ins = [x.contiguous() for x in s]
     ptrs = (ins[0], out.T, ins[1], out.basis, ins[2], out.col_active, ins[3],
             out.art_cols, bs.upper.contiguous(), bs.at_upper.contiguous(),
             at_upper, g_in, g_out, *ins[4:], ints, out.bland, out.last_z,
-            mail, cols, bar, stage_cycles)
+            mail, cols, bar, stage_cycles, scratch)
     args = _ARGS(*(0 if x is None else x.data_ptr() for x in ptrs))
-    iargs = _plan_ints(plan, M, N, devex)
+    iargs = _plan_ints(plan, M, N, dtype, devex)
     iargs[2] = min(int(stall_limit), _INT_MAX)
     iargs[3] = min(int(max_iters), _INT_MAX)
     tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,

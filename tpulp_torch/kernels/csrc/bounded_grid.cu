@@ -1,28 +1,34 @@
 // bounded_grid: the solo bounded-variable walk (solve/bounded.py::
 // bounded_simplex_step) stepped to its exit or to max_iters in one
 // persistent cooperative launch of G blocks, each keeping a column slab of
-// the tableau in its shared memory.
+// the tableau in its shared memory, or, past the shared memory, the slab's
+// first R rows there and the rest streamed through device memory.
 //
 // Replaces no Pallas kernel: in tpulp the walk is XLA's compiled
 // ``lax.while_loop`` over ``bounded_simplex_step`` (tpulp/solve/bounded.py:
 // 86-276 the step, 278-307 the driver). It redesigns bounded.cu's four
 // stream-ordered launches a step (price, ratio and finish on one block
-// each, the whole tableau through device memory a step, one host enqueue a
-// step) for the frames whose slabs fit the SMs' shared memory
-// (kernels/bounded_grid.py::bounded_grid_plan); bounded.cu keeps the
-// larger frames.
+// each, the whole tableau through device memory twice a step, one host
+// enqueue a step) for every frame whose replicated vectors, first three
+// rows and tile ring fit a block's shared memory
+// (kernels/bounded_grid.py::bounded_grid_plan: up to 6,284 rows at f64
+// with n = 2m); bounded.cu keeps the larger frames.
 //
 // What bounds it on the H100: the frame crosses device memory twice a walk
-// (loaded, stored); a step reads and writes it once from shared memory (2
-// x 1026 x 3073 x 8 B = 50 MB at 8a's f64 frame: ~1.5 us at 128 B a clock
-// on 132 SMs) with one fma an entry. What sets the pace is the chain of a
+// (loaded, stored); a step reads and writes the resident rows once from
+// shared memory (2 x 1026 x 3073 x 8 B = 50 MB at 8a's f64 frame: ~1.5 us
+// at 128 B a clock on 132 SMs) with one fma an entry, and the streamed
+// rows once from device memory (~50 MB each way at 2050 x 4097 f64: ~30 us
+// at 3.35 TB/s). On resident frames what sets the pace is the chain of a
 // step's decisions: two grid barriers (~1 us each on the H100), the block
-// reductions and the L2 round trips around them.
+// reductions and the L2 round trips around them; on streamed ones the
+// streamed rows' bytes.
 //
 // Design: G blocks of 512 threads, one an SM. Block g owns the structural
-// columns [g W, min(n, (g + 1) W)) of all M rows, column-major in its
-// dynamic shared memory (a column is contiguous), with their active mask
-// and devex weights. Every block holds the RHS column, the basis, the basic
+// columns [g W, min(n, (g + 1) W)) of all M rows, with their active mask
+// and devex weights. Rows [0, R) of its slab live column-major in its
+// dynamic shared memory (a column is contiguous; R = M on a resident
+// plan). Every block holds the RHS column, the basis, the basic
 // variables' spans and the artificial mask alike, and every thread the
 // walk's scalars, computed from the same values in every block: every
 // branch, budget and exit is the same in every block, and no block leaves
@@ -69,6 +75,46 @@
 // not an exact no-op, as in bounded.cu. A mailbox is written once a step
 // and read before its reader arrives at the next barrier, so no slot is
 // rewritten while a peer may still read it.
+//
+// The streamed rows (STREAMED; kernels/bounded_grid.py's plan gives R,
+// the ring's S stages and TR, a power of two, rows a tile): rows [R, M) of
+// block g's slab live in the wrapper's scratch buffer, one contiguous
+// region a block, in tiles of TR rows x W columns (column-major within the
+// tile, each tile contiguous, TS bytes). The launch's load copies them
+// there and its store back to T_out, so the frame still crosses device
+// memory twice a launch beyond the steps. A step's update runs the
+// resident rows from shared memory as above, then walks the block's tiles
+// through a ring of S tiles in shared memory: thread 0 moves a tile in with
+// a 1-D bulk async copy (cp.async.bulk ... mbarrier::complete_tx::bytes,
+// completion on the slot's mbarrier), every thread updates its entries with
+// the same arithmetic (the update is per entry, so the tile's thread
+// mapping changes no bit), and thread 0 writes it back with
+// cp.async.bulk.global.shared::cta and reloads the slot with the tile S
+// places on. The first S tiles are asked for at the step's start, so their
+// loads overlap the decisions; the tiles go in the reverse order every
+// other step, so that the first ones a step reads are the last ones the
+// previous step wrote (the ones L2 still holds). A step that pivots nowhere
+// leaves the tiles as they are (the flipped column, if the block owns it,
+// is negated in place in the scratch). Every other read of a streamed row
+// (the owner's column j and its pivot element, the pivot row, the columns
+// of barrier C, the clean-up's row, the unit-column checks, the load and
+// the store) goes through one accessor (Slab::at), through L2 (__ldcg:
+// L1 is not coherent with the bulk copies' writes). Only a block reads its
+// own scratch. Hazards, each where it is handled:
+// - a generic-proxy write to shared memory that a bulk store then reads
+//   needs fence.proxy.async.shared::cta (each writing thread, then the
+//   block's barrier, then thread 0's store);
+// - generic writes to the scratch (the load, an in-place flip) need
+//   fence.proxy.async.global before the bulk loads that read them;
+// - a bulk store must be complete (cp.async.bulk.wait_group 0, not .read)
+//   before any thread reads those rows generically in the next step:
+//   thread 0 waits at the step's start, before a barrier; a slot is
+//   reloaded only after .read says the store has read it;
+// - a slot's mbarrier completes one phase a use, so the parity a thread
+//   waits for flips per tile through the steps (each thread keeps the
+//   ring's slot and parity bits, the same in every thread);
+// - every block still takes every barrier: the streamed part is local.
+//
 // The frame is loaded once and stored once, with the basis, the masks, the
 // weights, the scalars and the two counters (entering flips, upper hits);
 // the host reads them once a walk. The arithmetic is bounded.cu's
@@ -92,15 +138,25 @@ constexpr int ST_RUNNING = 0, ST_OPTIMAL = 1, ST_UNBOUNDED = 2, ST_INFEASIBLE = 
 constexpr int THREADS = 512;  // a block
 constexpr int WARPS = THREADS / 32;
 constexpr int SLOT = 64;  // bytes of a mailbox slot
+constexpr int MAX_STAGES = 8;  // the tile ring's slots, at most
+// SM cycles a thread waits on a tile before it gives the launch up
+// (__trap: an error the wrapper raises, not a hang): ~9 s at 1.98 GHz
+constexpr long long TILE_TIMEOUT = 1LL << 34;
 
 // the wrapper's argument arrays (tpulp_torch/kernels/bounded_grid.py)
 enum Arg {
   A_T_IN, A_T_OUT, A_BASIS_IN, A_BASIS_OUT, A_ACT_IN, A_ACT_OUT, A_ART_IN, A_ART_OUT, A_UPPER,
   A_AT_UPPER_IN, A_AT_UPPER_OUT, A_GAMMA_IN, A_GAMMA_OUT, A_PHASE_IN, A_STATUS_IN, A_NITER_IN,
   A_STUCK_IN, A_BLAND_IN, A_LASTZ_IN, A_INTS_OUT, A_BLAND_OUT, A_LASTZ_OUT, A_MAIL, A_COLS,
-  A_BAR, A_CYCLES, A_NARGS
+  A_BAR, A_CYCLES, A_SCRATCH, A_NARGS
 };
-enum Int { I_M, I_N, I_STALL, I_MAXIT, I_DEVEX, I_BLOCKS, I_WIDTH, I_THREADS, I_SMEM, I_MAIL, I_NINTS };
+// I_ROWS: R, the slab's rows in shared memory (M on a resident plan);
+// I_STAGES: the tile ring's slots; I_TROWS: TR, rows a tile; I_TILE: TS,
+// bytes a tile (the last three 0 on a resident plan)
+enum Int {
+  I_M, I_N, I_STALL, I_MAXIT, I_DEVEX, I_BLOCKS, I_WIDTH, I_THREADS, I_SMEM, I_MAIL, I_ROWS,
+  I_STAGES, I_TROWS, I_TILE, I_NINTS
+};
 enum Tol { D_OPT, D_PIV, D_DEGEN, D_INFEAS, D_RESET, D_NTOLS };
 // the int32 fields written back (ints_out)
 enum Out { O_PHASE, O_STATUS, O_NITER, O_STUCK, O_N_ENTER, O_N_UPHIT, O_NOUT };
@@ -108,12 +164,13 @@ enum Out { O_PHASE, O_STATUS, O_NITER, O_STUCK, O_N_ENTER, O_N_UPHIT, O_NOUT };
 // over the steps): the load, then a step's price, barrier A (A' with it),
 // the combine (and the repricing), the ratio test and the publication
 // (where block 0 owns j), barrier B, barrier C, the fetch of the verdict
-// and column j with the pivot row and the devex weights, the update, the
+// and column j with the pivot row and the devex weights, the update of the
+// resident rows (and the RHS), the streamed rows' update (STREAMED), the
 // finish; then the store; and apart, the ratio test and the publication
 // on the clock of the block that owns j, whichever it is
 enum Stage {
-  C_LOAD, C_PRICE, C_A, C_COMBINE, C_RATIO, C_B, C_C, C_FETCH, C_UPDATE, C_FINISH, C_STORE,
-  C_OWNER, C_NSTAGES
+  C_LOAD, C_PRICE, C_A, C_COMBINE, C_RATIO, C_B, C_C, C_FETCH, C_UPDATE, C_STREAM, C_FINISH,
+  C_STORE, C_OWNER, C_NSTAGES
 };
 // a mailbox's flags: row 2 has an entry that is not finite; column basis[0]
 // is not the unit vector on row 2; a basic column is not a unit vector
@@ -148,7 +205,10 @@ struct Params {
   T* cols;              // (3 M,): column j | column fcol | column basis[0]
   unsigned* bar;        // the grid barrier's counter, zeroed by the wrapper
   long long* cycles;    // (C_NSTAGES,) SM cycles per stage (block 0), or null
+  T* scratch;           // STREAMED: G regions of NT tiles of TS bytes
   int M, N, W, stall_limit, max_iters;
+  int R, S, TR;  // resident rows, the ring's slots, rows a tile (STREAMED)
+  int TS;        // bytes a tile (STREAMED)
   // the tolerances rounded to T; devex's reset threshold
   T opt_tol, piv_tol, degen_tol, infeas_tol, reset_above;
 };
@@ -156,17 +216,19 @@ struct Params {
 __host__ __device__ __forceinline__ long long align16(long long x) { return (x + 15) / 16 * 16; }
 
 // The dynamic shared memory of a block, each segment 16-byte aligned: the
-// slab (M x W, column-major), the RHS and the pivot's column (M each), the
-// pivot row's and the devex weights' segments (W each), the basic
-// variables' spans (m), the basis (m ints), the segment's active mask (W)
-// and the artificial mask (n). The wrapper's bounded_grid_plan counts the
-// same bytes; the launch refuses a plan that disagrees.
+// slab's R resident rows (R x W, column-major), the tile ring (S tiles of
+// TS bytes), the RHS and the pivot's column (M each), the pivot row's and
+// the devex weights' segments (W each), the basic variables' spans (m),
+// the basis (m ints), the segment's active mask (W), the artificial mask
+// (n) and the ring's mbarriers (S). A resident plan has R = M and S = TS =
+// 0. The wrapper's bounded_grid_plan counts the same bytes; the launch
+// refuses a plan that disagrees.
 template <typename T>
-__host__ __device__ long long smem_bytes(int M, int N, int W) {
+__host__ __device__ long long smem_bytes(int M, int N, int W, int R, int S, int TS) {
   const long long m = M - 2, n = N - 1, es = sizeof(T);
-  return align16((long long)M * W * es) + 2 * align16((long long)M * es) +
+  return align16((long long)R * W * es) + (long long)S * TS + 2 * align16((long long)M * es) +
          2 * align16((long long)W * es) + align16(m * es) + align16(4 * m) + align16(W) +
-         align16(n);
+         align16(n) + align16(8LL * S);
 }
 
 __host__ __device__ __forceinline__ long long mail_bytes(int G) {
@@ -176,6 +238,7 @@ __host__ __device__ __forceinline__ long long mail_bytes(int G) {
 template <typename T>
 struct Layout {
   T* slab;
+  T* ring;
   T* b;
   T* colj;
   T* prow;
@@ -184,15 +247,18 @@ struct Layout {
   int* basis;
   unsigned char* act;
   unsigned char* art;
+  unsigned long long* mbar;  // the ring's S mbarriers (STREAMED)
 };
 
 template <typename T>
-__device__ Layout<T> layout(int M, int N, int W, unsigned char* dyn) {
+__device__ Layout<T> layout(int M, int N, int W, int R, int S, int TS, unsigned char* dyn) {
   Layout<T> L;
   const long long es = sizeof(T);
   long long off = 0;
   L.slab = (T*)(dyn + off);
-  off += align16((long long)M * W * es);
+  off += align16((long long)R * W * es);
+  L.ring = (T*)(dyn + off);
+  off += (long long)S * TS;
   L.b = (T*)(dyn + off);
   off += align16((long long)M * es);
   L.colj = (T*)(dyn + off);
@@ -208,6 +274,8 @@ __device__ Layout<T> layout(int M, int N, int W, unsigned char* dyn) {
   L.act = dyn + off;
   off += align16(W);
   L.art = dyn + off;
+  off += align16(N - 1);
+  L.mbar = (unsigned long long*)(dyn + off);
   return L;
 }
 
@@ -503,6 +571,110 @@ __device__ __forceinline__ T pivot_entry(T cj, T pk, int rg, int jp, int i, int 
   return k == jp ? T(0) : fma(-cj, pk, t);
 }
 
+// ---- the streamed rows: bulk async copies through a ring of tiles ----
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)), "r"(count)
+               : "memory");
+}
+
+// the mbarriers' initialisation made visible to the async proxy (then the
+// block's barrier, before any copy completes on them)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Thread 0: ask for a tile of ``bytes`` from device memory into shared
+// memory, completing on the slot's mbarrier (which expects the bytes).
+__device__ __forceinline__ void tile_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Thread 0: write a tile back from shared memory, as one bulk group.
+__device__ __forceinline__ void tile_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// every bulk store of this thread complete: its writes done (not only its
+// reads of shared memory)
+__device__ __forceinline__ void stores_done() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// every bulk store of this thread has read its shared memory: the slot may
+// be loaded again
+__device__ __forceinline__ void stores_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// this thread's generic accesses to shared (global) memory ordered with
+// later async-proxy accesses (the bulk copies), and the reverse
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// Wait until the mbarrier's phase of parity ``parity`` has completed; past
+// TILE_TIMEOUT cycles the launch traps (a lost copy would hang the grid).
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  long long t0 = 0;
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > TILE_TIMEOUT)
+      __trap();
+  }
+}
+
+// The block's slab: entry (i, kk) of its column kk, row i. Rows [0, R)
+// live column-major in shared memory (stride R); on a streamed plan rows
+// [R, M) in the block's tiles in device memory (row i in tile (i - R) / TR,
+// at (i - R) mod TR of its column kk), read through L2. The one accessor of
+// the slab outside the update's own loops.
+template <typename T, bool STREAMED>
+struct Slab {
+  T* sh;
+  T* scr;   // the block's first tile (STREAMED)
+  int R;    // rows in shared memory (M when resident)
+  int lg;   // log2 TR
+  long long tse;  // elements a tile
+
+  __device__ __forceinline__ T* tile_entry(int i, int kk) const {
+    const int q = i - R;
+    return scr + (long long)(q >> lg) * tse + ((long long)kk << lg) + (q & ((1 << lg) - 1));
+  }
+  __device__ __forceinline__ T at(int i, int kk) const {
+    if (!STREAMED || i < R) return sh[(long long)kk * R + i];
+    return __ldcg(tile_entry(i, kk));
+  }
+};
+
 // Block 0's clock, split by stage (Stage) when the caller asks for it:
 // thread 0 of block 0 adds the cycles since its last lap to the stage.
 struct Laps {
@@ -518,7 +690,7 @@ __device__ __forceinline__ void lap(Laps* t, int stage) {
   t->last = now;
 }
 
-template <typename T, bool DEVEX>
+template <typename T, bool DEVEX, bool STREAMED>
 __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   // the warps' shares of the price, ratio (two passes) and finish
   // reductions, each its own
@@ -534,7 +706,16 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   const int M = p.M, N = p.N, W = p.W, m = M - 2, n = N - 1;
   // this block's structural columns [k0, k0 + wk)
   const int k0 = g * W, wk = max(0, min(n, k0 + W) - k0);
-  const Layout<T> L = layout<T>(M, N, W, grid_dyn);
+  // the slab's rows in shared memory (its column stride); the ring
+  const int R = STREAMED ? p.R : M;
+  const int S = STREAMED ? p.S : 0, TR = STREAMED ? p.TR : 1;
+  const int lg = STREAMED ? __ffs(TR) - 1 : 0;
+  const long long tse = STREAMED ? p.TS / (long long)sizeof(T) : 0;
+  // the block's tiles of rows [R, M)
+  const int NT = STREAMED ? (M - R + TR - 1) / TR : 0;
+  const Layout<T> L = layout<T>(M, N, W, R, S, STREAMED ? p.TS : 0, grid_dyn);
+  const Slab<T, STREAMED> slab{L.slab, STREAMED ? p.scratch + (long long)g * NT * tse : nullptr,
+                               R, lg, tse};
   const T inf = pos_inf<T>();
   T* const colJ = p.cols;          // column j, pre-step (the owner of j)
   T* const colF = p.cols + M;      // column fcol (its owner, on barrier C)
@@ -543,12 +724,25 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     laps.on = p.cycles != nullptr && g == 0;
     laps.last = clock64();
     for (int k = 0; k < C_NSTAGES; ++k) laps.cyc[k] = 0;
+    if (STREAMED) {
+      for (int q = 0; q < S; ++q) mbar_init(L.mbar + q, 1);
+      mbar_init_fence();
+    }
   }
 
   // ---- load: the slab, the replicated vectors, the scalars ----
-  for (int i = warp; i < M; i += WARPS)
+  for (int i = warp; i < R; i += WARPS)
     for (int kk = lane; kk < wk; kk += 32)
-      L.slab[(long long)kk * M + i] = p.T_in[(long long)i * N + k0 + kk];
+      L.slab[(long long)kk * R + i] = p.T_in[(long long)i * N + k0 + kk];
+  if (STREAMED) {
+    // the streamed rows into the block's tiles (generic writes that the
+    // bulk loads read: the proxy fence, then the barrier below)
+    for (int i = R + warp; i < M; i += WARPS)
+      for (int kk = lane; kk < wk; kk += 32)
+        *slab.tile_entry(i, kk) = p.T_in[(long long)i * N + k0 + kk];
+    __threadfence_block();
+    fence_async_global();
+  }
   for (int i = tid; i < M; i += THREADS) L.b[i] = p.T_in[(long long)i * N + N - 1];
   for (int i = tid; i < m; i += THREADS) {
     L.basis[i] = p.basis_in[i];
@@ -572,8 +766,12 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   for (int i = warp; i < m; i += WARPS) {
     const int k = L.basis[i];
     if (k < k0 || k >= k0 + wk) continue;
-    const T* col = L.slab + (long long)(k - k0) * M;
-    for (int r = lane; r < M; r += 32) units_bad = units_bad || col[r] != T(r == i + 2);
+    // (the column's resident rows through a hoisted pointer: the accessor
+    // in this loop cost the resident instantiations registers)
+    const T* col = L.slab + (long long)(k - k0) * R;
+    for (int r = lane; r < M; r += 32)
+      units_bad = units_bad ||
+                  (STREAMED && r >= R ? slab.at(r, k - k0) : col[r]) != T(r == i + 2);
   }
   units_bad = __syncthreads_or(units_bad) != 0;
 
@@ -590,24 +788,59 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   int ra = x.a;
   T gmax_own = x.v;
   bool first = true, units_ok = true;
+  // the ring: the slot of the next tile to update, each slot's parity, the
+  // tiles' order this step (forward on even steps of the launch)
+  int slot = 0;
+  unsigned parity = 0;
+  bool forward = true;
   if (tid == 0) lap(&laps, C_LOAD);
 
   while (status == ST_RUNNING && niter < p.max_iters) {
+    // the first tiles of the step's update, asked for before its decisions:
+    // the previous step's stores complete first (their rows are read
+    // generically from here on)
+    const int nload = min(S, NT);
+    if (STREAMED) {
+      if (tid == 0) {
+        stores_done();
+        fence_async_global();
+        for (int t = 0; t < nload; ++t) {
+          const int q = slot + t < S ? slot + t : slot + t - S;
+          const int ti = forward ? t : NT - 1 - t;
+          tile_load(L.ring + q * tse, slab.scr + ti * tse, (unsigned)p.TS, L.mbar + q);
+        }
+      }
+      __syncthreads();
+    }
     // ---- 1. price over the own columns; published; barrier A ----
     const bool cleanup = ra != BIG_I && phase == 2;
     const int r_d = ra != BIG_I ? ra : 0;
     const T* crow = L.slab + (phase == 1 ? 1 : 0);
-    Red<T> cols = key_reduce(bounded_price_scan(crow, L.slab + r_d + 2, L.act, L.art + k0,
-                                                L.gamma, wk, DEVEX, p.opt_tol, p.piv_tol,
-                                                (long long)M, k0),
+    // the clean-up's row r_d + 2 (read where it decides: under clean-up);
+    // a streamed one staged in the pivot row's segment, free until the
+    // fetch
+    const T* rowd = L.slab + r_d + 2;
+    long long rstride = -1;  // rowd's entries R apart, as crow's
+    if (STREAMED && r_d + 2 >= R) {
+      rowd = L.slab + 2;
+      if (cleanup) {
+        for (int kk = tid; kk < wk; kk += THREADS) L.prow[kk] = slab.at(r_d + 2, kk);
+        __syncthreads();
+        rowd = L.prow;
+        rstride = 1;
+      }
+    }
+    Red<T> cols = key_reduce(bounded_price_scan(crow, rowd, L.act, L.art + k0, L.gamma, wk, DEVEX,
+                                                p.opt_tol, p.piv_tol, (long long)R, k0, rstride),
                              DEVEX, kr[0]);
     bool bad2 = false, unit0 = false;
     for (int kk = tid; kk < wk; kk += THREADS)
-      bad2 = bad2 || !finite_val(L.slab[(long long)kk * M + 2]);
+      bad2 = bad2 || !finite_val(L.slab[(long long)kk * R + 2]);
     const int b0 = L.basis[0];
     if ((first || !units_ok) && b0 >= k0 && b0 < k0 + wk) {
-      const T* col = L.slab + (long long)(b0 - k0) * M;
-      for (int i = tid; i < M; i += THREADS) unit0 = unit0 || col[i] != T(i == 2);
+      const T* col = L.slab + (long long)(b0 - k0) * R;
+      for (int i = tid; i < M; i += THREADS)
+        unit0 = unit0 || (STREAMED && i >= R ? slab.at(i, b0 - k0) : col[i]) != T(i == 2);
     }
     const int flags = (__syncthreads_or(bad2) ? F_ROW2_BAD : 0) |
                       (__syncthreads_or(unit0) ? F_UNIT0_BAD : 0) |
@@ -630,9 +863,10 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
       // again under unit weights (the pick alone changes)
       for (int kk = tid; kk < wk; kk += THREADS) L.gamma[kk] = T(1);
       __syncthreads();
-      cols = key_reduce(bounded_price_scan(crow, L.slab + r_d + 2, L.act, L.art + k0, L.gamma,
-                                           wk, true, p.opt_tol, p.piv_tol, (long long)M, k0),
-                        true, kr[1]);
+      cols = key_reduce(
+          bounded_price_scan(crow, STREAMED ? rowd : L.slab + r_d + 2, L.act, L.art + k0, L.gamma,
+                             wk, true, p.opt_tol, p.piv_tol, (long long)R, k0, rstride),
+          true, kr[1]);
       if (tid == 0) {
         post(mail_slot(p, R_R, g), cols, T(1), 0);
         lap(&laps, C_COMBINE);
@@ -660,8 +894,32 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     const bool do_cleanup = cleanup && has_elig;
     if (j >= k0 && j < k0 + wk) {
       const long long t0 = p.cycles && tid == 0 ? clock64() : 0;
-      const T* col = L.slab + (long long)(j - k0) * M;
-      for (int i = tid; i < M; i += THREADS) colJ[i] = col[i];
+      // the column the ratio test reads: the slab's (resident), or column
+      // j gathered into L.colj, which every block overwrites from the
+      // mailbox after barrier B with the same values (streamed)
+      const T* col = L.slab + (long long)(j - k0) * R;
+      if (STREAMED) {
+        // the streamed rows through L2, four a thread at a time, their
+        // loads issued before any store; then column j published whole
+        for (int i0 = R + tid; i0 < M; i0 += 4 * THREADS) {
+          T v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (i0 + u * THREADS < M) v[u] = __ldcg(slab.tile_entry(i0 + u * THREADS, j - k0));
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (i0 + u * THREADS < M) L.colj[i0 + u * THREADS] = v[u];
+        }
+        __syncthreads();
+        for (int i = tid; i < M; i += THREADS) {
+          if (i < R) L.colj[i] = col[i];
+          colJ[i] = L.colj[i];
+        }
+        __syncthreads();
+        col = L.colj;
+      } else {
+        for (int i = tid; i < M; i += THREADS) colJ[i] = col[i];
+      }
       const BoundedRatio rt = grid_ratio(col + 2, L.b + 2, L.ub, m, p.upper[j], L.basis,
                                          p.piv_tol, bland, kr[1], kr[2]);
       if (tid == 0) {
@@ -729,9 +987,9 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     T cjr = do_pivot ? piv : T(1);  // the pivot element
     if (own_p || own_f) {
       if (own_p && b0 >= k0 && b0 < k0 + wk)
-        for (int i = tid; i < M; i += THREADS) colP[i] = L.slab[(long long)(b0 - k0) * M + i];
+        for (int i = tid; i < M; i += THREADS) colP[i] = slab.at(i, b0 - k0);
       if (own_f && fcol >= k0 && fcol < k0 + wk)
-        for (int i = tid; i < M; i += THREADS) colF[i] = L.slab[(long long)(fcol - k0) * M + i];
+        for (int i = tid; i < M; i += THREADS) colF[i] = slab.at(i, fcol - k0);
       gb.sync();
       if (tid == 0) lap(&laps, C_C);
       if (own_p) {
@@ -752,8 +1010,7 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     T rinv = T(1), pf = T(0), prhs = T(0);
     if (pv) {
       rinv = div_rn(T(1), cjr);
-      for (int kk = tid; kk < wk; kk += THREADS)
-        L.prow[kk] = mul_rn(L.slab[(long long)kk * M + rg], rinv);
+      for (int kk = tid; kk < wk; kk += THREADS) L.prow[kk] = mul_rn(slab.at(rg, kk), rinv);
       // (column j's entry on row rg is the pivot element: L.colj's copy of
       // it belongs to another thread)
       pf = mul_rn(cf_from == 1 ? piv : cf_at(rg), rinv);
@@ -771,38 +1028,42 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     // row i by thread i mod THREADS (the copy's mapping): the pivot over
     // the own columns (row rg set to prow, the other rows fma(-col[i],
     // prow[k], T[i, k])), then the pivot's column set to the unit vector
-    // and the flipped column negated by their owners, then the RHS
+    // and the flipped column negated by their owners, then the RHS; the
+    // resident rows only (the streamed ones tile by tile below)
     const bool jp_own = pv && jp >= k0 && jp < k0 + wk;
     const bool flip_own = do_flip && fcol >= k0 && fcol < k0 + wk;
     bool cj_bad = false;
     for (int i = tid; i < M; i += THREADS) {
       const T cj = !pv ? T(0) : cj_sh ? L.colj[i] : T(i == 2);
       cj_bad = cj_bad || !finite_val(cj);
-      if (pv) {
-        // four columns at a time, their loads issued before any store
-        const T nc = -cj;
-        const bool on_r = i == rg;
-        T* e = L.slab + i;
-        int kk = 0;
-        for (; kk + 4 <= wk; kk += 4) {
-          T v[4], pk[4];
+      if (!STREAMED || i < R) {
+        if (pv) {
+          // four columns at a time, their loads issued before any store
+          const T nc = -cj;
+          const bool on_r = i == rg;
+          T* e = L.slab + i;
+          int kk = 0;
+          for (; kk + 4 <= wk; kk += 4) {
+            T v[4], pk[4];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            v[u] = e[(long long)(kk + u) * M];
-            pk[u] = L.prow[kk + u];
+            for (int u = 0; u < 4; ++u) {
+              v[u] = e[(long long)(kk + u) * R];
+              pk[u] = L.prow[kk + u];
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              e[(long long)(kk + u) * R] = on_r ? pk[u] : fma(nc, pk[u], v[u]);
           }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) e[(long long)(kk + u) * M] = on_r ? pk[u] : fma(nc, pk[u], v[u]);
+          for (; kk < wk; ++kk) {
+            T* ek = e + (long long)kk * R;
+            *ek = on_r ? L.prow[kk] : fma(nc, L.prow[kk], *ek);
+          }
         }
-        for (; kk < wk; ++kk) {
-          T* ek = e + (long long)kk * M;
-          *ek = on_r ? L.prow[kk] : fma(nc, L.prow[kk], *ek);
+        if (jp_own) L.slab[(long long)(jp - k0) * R + i] = T(i == rg);
+        if (flip_own) {
+          T* e = L.slab + (long long)(fcol - k0) * R + i;
+          *e = -*e;
         }
-      }
-      if (jp_own) L.slab[(long long)(jp - k0) * M + i] = T(i == rg);
-      if (flip_own) {
-        T* e = L.slab + (long long)(fcol - k0) * M + i;
-        *e = -*e;
       }
       const T cf = cf_at(i);
       const T tnf = pv ? pivot_entry(cj, pf, rg, jp, i, fcol, cf) : cf;
@@ -814,6 +1075,61 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     const bool any_bad = __syncthreads_or(cj_bad) != 0;
     if (pv && (any_bad || !finite_val(rinv))) units_ok = false;
     if (tid == 0) lap(&laps, C_UPDATE);
+
+    if (STREAMED) {
+      // ---- the streamed rows: the block's tiles through the ring ----
+      // (thread t takes row t mod TR of a tile and every (THREADS / TR)-th
+      // column from t / TR; the same per-entry arithmetic as above)
+      const int ii = tid & (TR - 1), kq = tid >> lg, ks = THREADS >> lg;
+      const int jpk = jp_own ? jp - k0 : -1, fk = flip_own ? fcol - k0 : -1;
+      const int nwait = pv ? NT : nload;
+      for (int t = 0; t < nwait; ++t) {
+        const int q = slot;
+        mbar_wait(L.mbar + q, (parity >> q) & 1u);
+        parity ^= 1u << q;
+        slot = q + 1 == S ? 0 : q + 1;
+        if (!pv) continue;  // the first tiles drained: nothing to update
+        const int ti = forward ? t : NT - 1 - t;
+        T* tile = L.ring + q * tse;
+        const int i = R + ti * TR + ii;
+        if (i < M) {
+          const T cj = cj_sh ? L.colj[i] : T(i == 2);
+          const T nc = -cj;
+          const bool on_r = i == rg;
+          for (int kk = kq; kk < wk; kk += ks) {
+            T* e = tile + ((long long)kk << lg) + ii;
+            T v = on_r ? L.prow[kk] : fma(nc, L.prow[kk], *e);
+            if (kk == jpk) v = T(i == rg);
+            if (kk == fk) v = -v;
+            *e = v;
+          }
+        }
+        // the tile's generic writes before the bulk store reads it
+        fence_async_shared();
+        __syncthreads();
+        if (tid == 0) {
+          tile_store(slab.scr + ti * tse, tile, (unsigned)p.TS);
+          if (t + S < NT) {
+            const int tn = t + S, tin = forward ? tn : NT - 1 - tn;
+            stores_read();
+            tile_load(tile, slab.scr + tin * tse, (unsigned)p.TS, L.mbar + q);
+          }
+        }
+      }
+      // a step that pivots nowhere: the flipped column's streamed rows
+      // negated in place by its owner (the ring's loads have landed; the
+      // next step's loads read the writes after the proxy fence and the
+      // step's barriers)
+      if (!pv && flip_own) {
+        for (int q = tid; q < M - R; q += THREADS) {
+          T* e = slab.tile_entry(R + q, fk);
+          __stcg(e, -__ldcg(e));
+        }
+        fence_async_global();
+      }
+      forward = !forward;
+      if (tid == 0) lap(&laps, C_STREAM);
+    }
 
     // ---- the finish ----
     if (tid == 0) {
@@ -873,9 +1189,17 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
 
   // ---- write back: the slab, the RHS, the masks' and weights' shares,
   // the basis and the scalars ----
+  if (STREAMED) {
+    // the last step's stores complete before the tiles are read back
+    if (tid == 0) {
+      stores_done();
+      fence_async_global();
+    }
+    __syncthreads();
+  }
   for (int i = warp; i < M; i += WARPS)
     for (int kk = lane; kk < wk; kk += 32)
-      p.T_out[(long long)i * N + k0 + kk] = L.slab[(long long)kk * M + i];
+      p.T_out[(long long)i * N + k0 + kk] = slab.at(i, kk);
   if (g == (int)gridDim.x - 1)
     for (int i = tid; i < M; i += THREADS) p.T_out[(long long)i * N + N - 1] = L.b[i];
   for (int kk = tid; kk < wk; kk += THREADS) {
@@ -936,11 +1260,16 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
   p.cols = (T*)a[A_COLS];
   p.bar = (unsigned*)a[A_BAR];
   p.cycles = (long long*)a[A_CYCLES];
+  p.scratch = (T*)a[A_SCRATCH];
   p.M = in[I_M];
   p.N = in[I_N];
   p.W = in[I_WIDTH];
   p.stall_limit = in[I_STALL];
   p.max_iters = in[I_MAXIT];
+  p.R = in[I_ROWS];
+  p.S = in[I_STAGES];
+  p.TR = in[I_TROWS];
+  p.TS = in[I_TILE];
   p.opt_tol = (T)tol[D_OPT];
   p.piv_tol = (T)tol[D_PIV];
   p.degen_tol = (T)tol[D_DEGEN];
@@ -949,16 +1278,30 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
   return p;
 }
 
+// A streamed plan: R in [3, M), 1 to MAX_STAGES slots, TR a power of two
+// up to THREADS, TS the tile's bytes rounded up to 16 (the bulk copies'
+// unit).
+bool streamed_ok(const int* in, long long es) {
+  const int M = in[I_M], W = in[I_WIDTH], R = in[I_ROWS], S = in[I_STAGES], TR = in[I_TROWS];
+  return R >= 3 && R < M && S >= 1 && S <= MAX_STAGES && TR >= 1 && TR <= THREADS &&
+         (TR & (TR - 1)) == 0 && (long long)in[I_TILE] == align16((long long)TR * W * es);
+}
+
 // The plan's figures against this layout: G blocks of THREADS threads, W
 // columns a block (G = ceil(n / W), at most one mailbox a thread), the
-// bytes smem_bytes and mail_bytes count.
+// slab's rows resident (all, or a streamed plan's), the bytes smem_bytes
+// and mail_bytes count.
 template <typename T>
 bool plan_ok(const int* in) {
   const int M = in[I_M], N = in[I_N], G = in[I_BLOCKS], W = in[I_WIDTH];
   if (M < 3 || N < 2 || W < 1 || G < 1 || G > THREADS || in[I_THREADS] != THREADS)
     return false;
   if ((long long)G != ((long long)N - 1 + W - 1) / W) return false;
-  return (long long)in[I_SMEM] == smem_bytes<T>(M, N, W) &&
+  const bool resident = in[I_ROWS] == M && in[I_STAGES] == 0 && in[I_TROWS] == 0 &&
+                        in[I_TILE] == 0;
+  if (!resident && !streamed_ok(in, sizeof(T))) return false;
+  return (long long)in[I_SMEM] ==
+             smem_bytes<T>(M, N, W, in[I_ROWS], in[I_STAGES], in[I_TILE]) &&
          (long long)in[I_MAIL] == mail_bytes(G);
 }
 
@@ -967,22 +1310,23 @@ bool pointers_ok(const Params<T>& p, bool devex) {
   return p.T_in && p.T_out && p.basis_in && p.basis_out && p.act_in && p.act_out && p.art_in &&
          p.art_out && p.upper && p.at_upper_in && p.at_upper_out && p.phase_in && p.status_in &&
          p.niter_in && p.stuck_in && p.bland_in && p.lastz_in && p.ints_out && p.bland_out &&
-         p.lastz_out && p.mail && p.cols && p.bar && (!devex || (p.gamma_in && p.gamma_out));
+         p.lastz_out && p.mail && p.cols && p.bar && (!devex || (p.gamma_in && p.gamma_out)) &&
+         (p.R == p.M || p.scratch);
 }
 
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor of the instantiation at
 // smem bytes of dynamic shared memory, after raising its limit to them
-template <typename T, bool DEVEX>
+template <typename T, bool DEVEX, bool STREAMED>
 int occupancy_of(int smem, int* blocks) {
-  cudaError_t e = cudaFuncSetAttribute((const void*)grid_kernel<T, DEVEX>,
+  cudaError_t e = cudaFuncSetAttribute((const void*)grid_kernel<T, DEVEX, STREAMED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, grid_kernel<T, DEVEX>, THREADS,
-                                                    (size_t)smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, grid_kernel<T, DEVEX, STREAMED>,
+                                                    THREADS, (size_t)smem);
   return (int)e;
 }
 
-template <typename T, bool DEVEX>
+template <typename T, bool DEVEX, bool STREAMED>
 int launch_walk(const Params<T>& p, int G, int smem, cudaStream_t s) {
   int dev = 0, coop = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -990,13 +1334,13 @@ int launch_walk(const Params<T>& p, int G, int smem, cudaStream_t s) {
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int err = occupancy_of<T, DEVEX>(smem, &occ);
+  const int err = occupancy_of<T, DEVEX, STREAMED>(smem, &occ);
   if (err) return err;
   if (occ < 1 || G > occ * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
   Params<T> q = p;
   void* args[] = {&q};
-  e = cudaLaunchCooperativeKernel((const void*)grid_kernel<T, DEVEX>, dim3(G), dim3(THREADS), args,
-                                  (size_t)smem, s);
+  e = cudaLaunchCooperativeKernel((const void*)grid_kernel<T, DEVEX, STREAMED>, dim3(G),
+                                  dim3(THREADS), args, (size_t)smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1005,18 +1349,26 @@ template <typename T>
 int bounded_grid(const long long* a, const int* in, const double* tol, void* stream) {
   if (!plan_ok<T>(in)) return (int)cudaErrorInvalidValue;
   const Params<T> p = make_params<T>(a, in, tol);
-  const bool devex = in[I_DEVEX] != 0;
+  const bool devex = in[I_DEVEX] != 0, streamed = in[I_ROWS] < in[I_M];
   if (!pointers_ok(p, devex)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (devex) return launch_walk<T, true>(p, in[I_BLOCKS], in[I_SMEM], s);
-  return launch_walk<T, false>(p, in[I_BLOCKS], in[I_SMEM], s);
+  const int G = in[I_BLOCKS], smem = in[I_SMEM];
+  if (streamed)
+    return devex ? launch_walk<T, true, true>(p, G, smem, s)
+                 : launch_walk<T, false, true>(p, G, smem, s);
+  return devex ? launch_walk<T, true, false>(p, G, smem, s)
+               : launch_walk<T, false, false>(p, G, smem, s);
 }
 
 template <typename T>
 int bounded_grid_occupancy(const int* in, int* blocks) {
   if (!plan_ok<T>(in) || !blocks) return (int)cudaErrorInvalidValue;
-  if (in[I_DEVEX]) return occupancy_of<T, true>(in[I_SMEM], blocks);
-  return occupancy_of<T, false>(in[I_SMEM], blocks);
+  const bool devex = in[I_DEVEX] != 0, streamed = in[I_ROWS] < in[I_M];
+  if (streamed)
+    return devex ? occupancy_of<T, true, true>(in[I_SMEM], blocks)
+                 : occupancy_of<T, false, true>(in[I_SMEM], blocks);
+  return devex ? occupancy_of<T, true, false>(in[I_SMEM], blocks)
+               : occupancy_of<T, false, false>(in[I_SMEM], blocks);
 }
 
 }  // namespace bgr

@@ -311,13 +311,15 @@ __device__ int ratio_row(const T* col, long long cs, const T* b, long long bs, c
 // first improving column (a); the first column eligible for the clean-up
 // pivot on row rowd (b); the sum of |crow| over the active columns (s).
 // This thread's share (bounded_price_scan), then the block's (returned to
-// every thread by bounded_price).
+// every thread by bounded_price). crow's entries are cs apart, rowd's cd
+// apart (cs where cd is negative).
 template <typename T>
 __device__ Red<T> bounded_price_scan(const T* crow, const T* rowd, const unsigned char* act,
                                      const unsigned char* art, const T* gamma, int n,
                                      bool devex, T opt_tol, T piv_tol, long long cs = 1,
-                                     int k0 = 0) {
+                                     int k0 = 0, long long cd = -1) {
   const T inf = pos_inf<T>();
+  const long long ds = cd < 0 ? cs : cd;
   Red<T> cols = red_identity<T>(devex);
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     const bool a = act[k] != 0;
@@ -325,7 +327,7 @@ __device__ Red<T> bounded_price_scan(const T* crow, const T* rowd, const unsigne
     const T c_eff = a ? c : inf;
     const bool improving = c_eff < -opt_tol;
     if (improving) cols.a = min(cols.a, k0 + k);
-    if (a && !art[k] && T(fabs(rowd[k * cs])) > piv_tol) cols.b = min(cols.b, k0 + k);
+    if (a && !art[k] && T(fabs(rowd[k * ds])) > piv_tol) cols.b = min(cols.b, k0 + k);
     if (a) cols.s = add_rn(cols.s, T(fabs(c)));
     if (devex)
       offer(cols, improving ? div_rn(mul_rn(c, c), gamma[k]) : -inf, k0 + k, true);

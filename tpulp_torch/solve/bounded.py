@@ -16,7 +16,9 @@ infinite spans, so the two-phase layout of ``core/state.py`` is unchanged.
 ``run_simplex_bounded`` runs the walk on CUDA tensors on the kernel that
 ``bounded_route`` chooses: ``kernels.bounded_grid.bounded_grid`` (the whole
 walk in one cooperative launch, the tableau's column slabs in the SMs'
-shared memory) where ``bounded_grid_plan`` holds, else
+shared memory, or past it their first rows there and the rest streamed
+through device memory) where ``bounded_grid_plan`` holds (up to 6,284
+rows at f64 and 10,800 at f32 with n = 2m), else
 ``kernels.bounded.bounded_steps`` (four hand-written launches a step, the
 walk's state kept on the card) for the frames past it; on CPU tensors it
 runs this step in the chunked Python loop of ``solve/driver.py``
@@ -37,7 +39,8 @@ import torch
 
 from ..core.state import RULE_DEVEX, SimplexState, SolverOptions, Status
 from ..kernels.bounded import BIG_I, DEVEX_RESET_ABOVE, bounded_steps
-from ..kernels.bounded_grid import GRID_SMS, bounded_grid, bounded_grid_plan
+from ..kernels.bounded_grid import (GRID_SMS, GridPlanTooLarge,
+                                    bounded_grid, bounded_grid_plan)
 from ..kernels.fma import fused_fma
 from ..kernels.launch import on_cpu, sm_count
 from .driver import (finish, first_true, pivot_update, put, run_chunked,
@@ -290,11 +293,13 @@ def run_simplex_bounded_reference(bs: BoundedState,
 def bounded_route(M: int, N: int, dtype, sms: int = GRID_SMS) -> str:
     """The kernel that runs a solo bounded walk of an (M, N) tableau of
     ``dtype`` on a card of ``sms`` SMs: "bounded_grid" where
-    ``bounded_grid_plan`` holds (every block's column slab in its shared
-    memory), else "bounded_step" (four launches a step)."""
+    ``bounded_grid_plan`` holds (resident or streamed), "bounded_step"
+    (four launches a step) where it refuses the frame for shared memory.
+    Raises the plan's other errors (a type other than f32 and f64, a frame
+    out of range)."""
     try:
         bounded_grid_plan(M, N, dtype, sms)
-    except ValueError:  # slabs past a block's shared memory
+    except GridPlanTooLarge:  # rows 0-2 and the ring past a block's
         return "bounded_step"
     return "bounded_grid"
 
@@ -304,7 +309,8 @@ def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
     """Run the bounded-variable driver to termination or to
     ``opts.max_iters`` (single problem); ``RULE_DEVEX`` prices with devex
     weights. On CUDA tensors the walk runs on ``bounded_route``'s kernel:
-    ``bounded_grid`` (one launch a walk) where its plan holds, else the
+    ``bounded_grid`` (one launch a walk, resident or streamed) where its
+    plan holds, else the
     four-launch step ``bounded_steps`` for the frames past it (a strided
     tableau is handed to either contiguous; a launch failure raises); on
     CPU tensors in the plain loop."""
