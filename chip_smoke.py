@@ -39,12 +39,16 @@ on the 258 x 769 frame), each of the rank-1 step's launches against its
 plain stage (a clean-up, a phase change with its devex reset, both devex
 ticks, a greatest-increase step, a dual pivot and a dual exit), the warm
 re-solves (``lane_dual`` at B = 1 on a resident frame, the cluster's dual
-walk on the 258 x 769 frame and ``rank1_step``'s on phase 5's 1538 x 3073
-one), ``solve_lp(driver="rank1")`` on phase 5's LP (on ``rank1_step``) and
-the refreshed rung's rank-1 segments; it prints the cluster plans,
-``cudaOccupancyMaxActiveClusters`` and the cluster kernel's stages, times
-the rank-1 step by launch and the plain step, and solves a bounded state
-whose tableau is a strided view.
+walk on the 258 x 769 frame, ``rank1_grid``'s on phase 5's 1538 x 3073 one
+and on a 514 x 1537 one), ``solve_lp(driver="rank1")`` on phase 5's LP
+(one ``rank1_grid`` launch, streamed at f64) and the refreshed rung's
+rank-1 segments; each grid walk is held whole against ``rank1_steps``' and
+over a window against ``rank1_grid_reference`` at f32 and f64, with 210
+small grid walks at forced splits; ``rank1_step`` runs alone past the
+grid's plan (a 10002 x 10513 frame). It prints the cluster and grid plans,
+their occupancy and stages, times the grid and the rank-1 step by launch
+in turns and the plain step, and solves a bounded state whose tableau is
+a strided view.
 Phase 5d drives the solo rank-K blocked engine on its kernels (where a
 cluster holds a block's eta factors, one ``blocked_cluster`` launch a
 block of 64 slots, else ``blocked_step``'s six launches a slot; B1's flush
@@ -901,8 +905,6 @@ SOLO_SOLVES = tuple(f"{case}_{dt}" for case in ("a", "b", "b_optimal", "e",
                     for dt in ("float64", "float32"))
 # the steps timed by launch (at most), after a few untimed ones
 SOLO_TIMED_STEPS, SOLO_ADVANCE = 32, 8
-# (f): the plain walk held beside the kernels' over its first steps
-SOLO_MAIN_WINDOW = 384
 # (c): Bland's walk on the 258 x 769 frame runs past 10,000 pivots; it is
 # held over its first steps
 SOLO_BLAND_WINDOW = 1024
@@ -950,13 +952,15 @@ def solo_plain(walk: str, state, opts):
 def solo_kernel(walk: str, state, opts, route: str):
     """The kernels' walk through the solo drivers (``run_simplex``,
     ``run_dual_simplex``; devex through the route's wrapper,
-    ``rank1_cluster`` or ``rank1_steps``, which ``run_simplex_devex``
-    calls, for its weights): (state, weights, seconds, launches)."""
+    ``rank1_cluster``, ``rank1_grid`` or ``rank1_steps``, which
+    ``run_simplex_devex`` calls, for its weights): (state, weights,
+    seconds, launches)."""
     import torch
 
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels import rank1_cluster as kc
     from tpulp_torch.kernels.rank1 import rank1_steps
+    from tpulp_torch.kernels.rank1_grid import rank1_grid
     from tpulp_torch.solve import run_dual_simplex, run_simplex
     from tpulp_torch.solve.driver import finish
 
@@ -966,7 +970,8 @@ def solo_kernel(walk: str, state, opts, route: str):
     g = None
     if walk == "devex":
         stall = opts.resolved_stall_limit(state.m, state.n)
-        run = kc.rank1_cluster if route == "rank1_cluster" else rank1_steps
+        run = {"rank1_cluster": kc.rank1_cluster,
+               "rank1_grid": rank1_grid}.get(route, rank1_steps)
         s, g = run(state, opts, stall, opts.max_iters, torch.ones(
             (state.n,), dtype=state.T.dtype, device=state.T.device))
         s = finish(s)
@@ -1304,14 +1309,14 @@ def solo_solve(sf, dt, driver: str, label: str, route: str,
     log(f"# 5c solve_lp {label} {str(dt)[6:]} (driver={driver!r}): "
         f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
         f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
-    # the solo walks of the other rank-1 route: none
-    other = {"rank1_cluster": "rank1_step",
-             "rank1_step": "rank1_cluster"}.get(route)
+    # the solo walks of the other rank-1 routes: none
+    rank1 = ("rank1_cluster", "rank1_grid", "rank1_step")
+    others = [r for r in rank1 if r != route] if route in rank1 else []
     if not (launches[route] > 0
             and (launches["fused_fma"] == 0 or not optimal)
-            and (other is None or launches[other] == 0)):
+            and not any(launches[r] for r in others)):
         raise AssertionError(f"5c {label}: launches {launches}, want "
-                             f"{route}, no {other} and no FMA")
+                             f"{route}, none of {others} and no FMA")
     if optimal and sol.status != "optimal":
         raise AssertionError(f"5c {label}: {sol.status}")
     return sol, {"status": sol.status, "rung": sol.rung,
@@ -1389,6 +1394,398 @@ def cluster_edge_cases(dt, dev="cuda"):
     return held
 
 
+# the grid walks of 5c (rank1_grid): their windows held against
+# rank1_grid_reference on the card, f64 and f32; one timed launch of
+# SOLO_GRID_TIMED steps from step SOLO_GRID_ADVANCE; the resident warm
+# re-solve's LP (514 x 1537); the LP past the grid's plan (10002 x 10513,
+# rank1_step's route since the grid) and its budget
+SOLO_GRID_WINDOW, SOLO_GRID_WINDOW_F32 = 256, 96
+SOLO_GRID_TIMED, SOLO_GRID_ADVANCE = 1024, 8
+GRID_RES_M, GRID_RES_N = 512, 1024
+RANK1_PAST_M, RANK1_PAST_N, RANK1_PAST_STEPS = 10000, 512, 64
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi), for the shared-memory
+    bounds."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def grid_walk(walk: str, state, opts, max_iters=None, **kw):
+    """``rank1_grid``'s walk of ``state`` (devex from unit weights):
+    (state, weights)."""
+    import torch
+
+    from tpulp_torch.kernels.rank1_grid import rank1_grid
+
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    gamma = torch.ones((state.n,), dtype=state.T.dtype,
+                       device=state.T.device) if walk == "devex" else None
+    return rank1_grid(state, opts, stall,
+                      opts.max_iters if max_iters is None else max_iters,
+                      gamma, walk == "dual", **kw)
+
+
+def grid_walk_check(walk: str, state, opts, label: str, window: int):
+    """5c: a walk on ``rank1_grid`` through the solo drivers (one launch, no
+    other kernel), held equal in every field to ``rank1_steps``' walk of
+    the same frame, whole, and over its first ``window`` steps to
+    ``rank1_grid_reference`` on the card (the plan's G); both kernels'
+    whole walks timed on the host clock in turns (grid, steps, steps,
+    grid, twice). Returns the numbers."""
+    import torch
+
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import rank1_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.kernels.rank1 import rank1_steps
+    from tpulp_torch.solve.driver import finish
+
+    dev = state.T.device
+    M, N = state.T.shape
+    dual = walk == "dual"
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    gamma = torch.ones((state.n,), dtype=state.T.dtype, device=dev) \
+        if walk == "devex" else None
+    k, gk, secs, launches = solo_kernel(walk, state, opts, "rank1_grid")
+    others = {key: v for key, v in launches.items()
+              if key != "rank1_grid" and v}
+    if others or launches["rank1_grid"] != 1:
+        raise AssertionError(f"5c {label}: launches {launches}, want one "
+                             "rank1_grid launch alone")
+    reset_launches()
+    s, g = rank1_steps(state, opts, stall, opts.max_iters, gamma, dual)
+    sync(dev)
+    step_launches = LAUNCHES["rank1_step"]
+    err = lanes_equal(k, finish(s))
+    weights_equal(gk, g, f"{label} against rank1_step")
+    # the window against the plain version
+    budget = int(state.niter) + window
+    kw, kgw = grid_walk(walk, state, opts, budget)
+    plan = kg.rank1_grid_plan(M, N, state.T.dtype, sm_count(dev))
+    sync(dev)
+    t0 = time.perf_counter()
+    pw, pg = kg.rank1_grid_reference(state, opts, stall, budget, gamma,
+                                     dual, plan.blocks)
+    sync(dev)
+    plain_secs = time.perf_counter() - t0
+    err = max(err, lanes_equal(kw, pw))
+    weights_equal(kgw, pg, f"{label} against rank1_grid_reference")
+    wsteps = max(int(pw.niter) - int(state.niter), 1)
+    runs = {"grid": lambda: grid_walk(walk, state, opts),
+            "step": lambda: rank1_steps(state, opts, stall, opts.max_iters,
+                                        gamma, dual)}
+    host = {"grid": [], "step": []}
+    for name in ("grid", "step", "step", "grid") * 2:
+        sync(dev)
+        t0 = time.perf_counter()
+        runs[name]()
+        sync(dev)
+        host[name].append(time.perf_counter() - t0)
+    niter = max(int(k.niter) - int(state.niter), 1)
+    flop_s = FP64_FLOP_S if state.T.dtype == torch.float64 else FP32_FLOP_S
+    bound_ms, bound_by = bound(2.0 * M * N * state.T.element_size(),
+                               2.0 * M * N * niter, flop_s)
+    res = {"status": int(k.status), "niter": niter, "bland": bool(k.bland),
+           "route": "rank1_grid", "launches": launches["rank1_grid"],
+           "seconds": float(np.median(host["grid"])),
+           "first_seconds": secs,
+           "ms_per_step": 1e3 * float(np.median(host["grid"])) / niter,
+           "max_abs_err": err, "window_steps": wsteps,
+           "plain_seconds": plain_secs,
+           "plain_ms_per_step": 1e3 * plain_secs / wsteps,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "blocks": plan.blocks, "width": plan.width, "rows": plan.rows,
+           "smem": plan.smem, "scratch": plan.scratch,
+           "rank1_step": {"max_abs_err": err, "steps": step_launches,
+                          "plain_ms_per_step": 1e3 * plain_secs / wsteps,
+                          "seconds": float(np.median(host["step"])),
+                          "ms_per_step": 1e3 * float(np.median(
+                              host["step"])) / niter,
+                          "niter": niter}}
+    log(f"# 5c {label} {M}x{N} {str(state.T.dtype)[6:]}: rank1_grid x 1 "
+        f"(G {plan.blocks}, W {plan.width}, R {plan.rows}, "
+        f"{plan.scratch} bytes streamed), status {res['status']}, {niter} "
+        f"pivots: the walk equals rank1_steps' in every field, and its "
+        f"first {wsteps} steps rank1_grid_reference's; "
+        f"{1e3 * res['seconds']:.2f} ms = {1e3 * res['ms_per_step']:.2f} us "
+        f"a pivot on the host clock, rank1_steps "
+        f"{1e3 * res['rank1_step']['seconds']:.2f} ms = "
+        f"{1e3 * res['rank1_step']['ms_per_step']:.2f} us ({step_launches} "
+        f"steps), in turns; the plain version "
+        f"{res['plain_ms_per_step']:.3f} ms a pivot")
+    return res
+
+
+def rank1_grid_us(walk: str, state, opts, label: str, niter: int,
+                  clock_hz: float, steps: int = SOLO_GRID_TIMED,
+                  advance: int = SOLO_GRID_ADVANCE):
+    """One ``rank1_grid`` launch of up to ``steps`` steps of a walk of
+    ``niter`` pivots, ``advance`` steps in, on the card alone (CUDA events
+    after a sleep; median of three), by stage (block 0's cycles of each
+    stage as a share of the launch's time; the owner's ratio test apart),
+    with the plan, the occupancy and the bounds (``grid_bounds``: the
+    walk's, the kernel's own convention and the table's step
+    convention)."""
+    import torch
+
+    from tpulp_torch.kernels import rank1_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+
+    dev = state.T.device
+    M, N = state.T.shape
+    dtype = state.T.dtype
+    start = int(state.niter)
+    steps = max(1, min(steps, niter - advance - 1))
+    mid, mg = grid_walk(walk, state, opts, start + advance)
+    if int(mid.niter) != start + advance:
+        raise AssertionError(f"5c {label}: the grid walk ended before step "
+                             f"{advance}")
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    dual = walk == "dual"
+
+    def launch(**kw):
+        return kg.rank1_grid(mid, opts, stall, start + advance + steps, mg,
+                             dual, **kw)
+
+    dev_us, host_us = [], []
+    for _ in range(3):
+        d, h = launches_us(launch, steps)
+        dev_us.append(d)
+        host_us.append(h)
+    cyc = torch.zeros(len(kg.RANK1_GRID_STAGES), dtype=torch.int64,
+                      device=dev)
+    out, _ = launch(stage_cycles=cyc)
+    if int(out.niter) != start + advance + steps:
+        raise AssertionError(f"5c {label}: the timed grid steps ran past "
+                             "the walk")
+    c = dict(zip(kg.RANK1_GRID_STAGES, cyc.tolist()))
+    owner = c.pop("owner")
+    total = max(sum(c.values()), 1)
+    us = float(np.median(dev_us))
+    per_cycle = us * steps / total
+    split = {k: v * per_cycle / steps for k, v in c.items()
+             if k not in ("load", "store")}
+    split["load_and_store_per_launch"] = (c["load"] + c["store"]) * per_cycle
+    split["owner"] = owner * per_cycle / steps
+    plan = kg.rank1_grid_plan(M, N, dtype, sm_count(dev))
+    es = state.T.element_size()
+    wb, own, step_b = grid_bounds(M, N, es, plan.blocks, niter, clock_hz,
+                                  rows=plan.rows)
+    occ = kg.rank1_grid_occupancy(M, N, dtype, walk, dev)
+    res = {"device_us_per_step": us,
+           "host_us_per_step": float(np.median(host_us)),
+           "device_us_by_stage": split, "blocks": plan.blocks,
+           "width": plan.width, "rows": plan.rows, "smem": plan.smem,
+           "scratch": plan.scratch, "occupancy": occ, "steps": steps,
+           "advance": advance, "bound_ms": wb[0], "bound_by": wb[1],
+           "grid_bound_ms": own, "step_bound_ms": step_b,
+           "sm_clock_hz": clock_hz}
+    log(f"# 5c rank1_grid {label} {M}x{N} {str(dtype)[6:]}: {us:.3f} us a "
+        f"step on the card (one launch of {steps} steps from step "
+        f"{advance}; by stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"); G {plan.blocks}, W {plan.width}, R {plan.rows} of {M} rows "
+        f"resident, {plan.scratch} bytes streamed, {plan.smem} bytes of "
+        f"shared memory a block, occupancy {occ}; bounds a step: "
+        f"{1e3 * wb[0]:.4f} us ({wb[1]}), {1e3 * own:.3f} us (the kernel's "
+        f"convention), {1e3 * step_b:.2f} us (the table's step convention)")
+    return res
+
+
+def grid_and_step_us(walk: str, state, opts, label: str, niter: int,
+                     clock_hz: float):
+    """``rank1_grid_us`` and ``rank1_step_us`` on the same walk in turns
+    (grid, steps, steps, grid): the grid's figures with its turns, and
+    ``rank1_step``'s (the means)."""
+    dual = walk == "dual"
+    grids, steps = [], []
+    for kind in ("grid", "step", "step", "grid"):
+        if kind == "grid":
+            grids.append(rank1_grid_us(walk, state, opts, label, niter,
+                                       clock_hz))
+        else:
+            steps.append(rank1_step_us(state, opts, None, label, niter,
+                                       dual=dual))
+    g = dict(grids[0])
+    g["device_us_turns"] = [r["device_us_per_step"] for r in grids]
+    g["device_us_per_step"] = float(np.mean(g["device_us_turns"]))
+    g["device_us_by_stage"] = {
+        k: float(np.mean([r["device_us_by_stage"][k] for r in grids]))
+        for k in grids[0]["device_us_by_stage"]}
+    s = dict(steps[0])
+    s["device_us_turns"] = [r["device_us_per_step"] for r in steps]
+    s["device_us_per_step"] = float(np.mean(s["device_us_turns"]))
+    s["device_us_by_stage"] = {
+        k: float(np.mean([r["device_us_by_stage"][k] for r in steps]))
+        for k in steps[0]["device_us_by_stage"]}
+    log(f"# 5c {label}, in turns: rank1_grid {g['device_us_turns']} us a "
+        f"step on the card, rank1_step {s['device_us_turns']}")
+    return g, s
+
+
+def grid_edge_cases(dt, dev="cuda"):
+    """``rank1_grid`` bit for bit against ``rank1_grid_reference`` (on CPU
+    copies, the same slabs) on small frames: 22 x 61 (``dense_leq_arrays``)
+    under Dantzig, Bland, the greatest increase, largest-pivot ties, a
+    stall limit of 1, devex and a budget of 7, with devex weights above
+    1e8, a NaN in b, a redirected exit pivot that is no no-op (column
+    ``basis[0]`` off the unit vector: barrier C) and a warm dual frame (its
+    Bland switch and NaN too); 42 x 131 (``artificial_arrays``: phase 1,
+    the clean-up and a retire) under Dantzig and devex. Each on the plan's
+    grid and on 1, 3 and 7 blocks resident, and streamed at forced splits
+    (rows 3, M // 2, M - 1) on 1, 3 and 7 blocks in turn. Returns the
+    counts (resident, streamed)."""
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core.state import (RULE_BLAND, RULE_MAX_INCREASE,
+                                        TIE_MAXPIV)
+    from tpulp_torch.kernels import rank1_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.driver import run_simplex
+    from tpulp_torch.solve.dual import warm_state_from_basis
+
+    sms = sm_count(torch.device(dev)) if dev == "cuda" else kg.GRID_SMS
+    A, b, c = dense_leq_arrays(20, 40, seed=7)
+    st = state_from_standard_form(scenario_form(A, b, c), dtype=dt,
+                                  device="cpu")
+    ca, Aa, ba, _ = artificial_arrays(40, 90, seed=2)
+    sa = state_from_standard_form(equality_form(ca, Aa, ba), dtype=dt,
+                                  device="cpu")
+    o = SolverOptions.for_dtype(dt)
+    fin = run_simplex(st, o)
+    j0 = int(fin.basis[0])
+
+    def edit(s, *cells, reopen=False):
+        T = s.T.clone()
+        for i, j, v in cells:
+            T[i, j] = v
+        s = s._replace(T=T)
+        return s._replace(status=torch.zeros_like(s.status)) if reopen \
+            else s
+
+    b2 = st.T[2:, -1].clone()
+    b2[:6] *= 0.3
+    fr = warm_state_from_basis(
+        st.T[2:, :-1], st.T[0, :-1], st.col_active & ~st.art_cols,
+        st.art_cols, fin.basis.numpy(), b2)
+    big = torch.ones(st.n, dtype=dt)
+    big[::3] = 3e8
+    # (label, state, walk, options, weights)
+    cases = [("dantzig", st, "primal", o, None),
+             ("bland", st, "primal",
+              SolverOptions.for_dtype(dt, rule=RULE_BLAND), None),
+             ("max_increase", st, "primal",
+              SolverOptions.for_dtype(dt, rule=RULE_MAX_INCREASE), None),
+             ("maxpiv", st, "primal",
+              SolverOptions.for_dtype(dt, tie_break=TIE_MAXPIV), None),
+             ("stall 1", st, "primal",
+              SolverOptions.for_dtype(dt, stall_limit=1, degen_tol=1e30),
+              None),
+             ("devex", st, "devex", o, torch.ones(st.n, dtype=dt)),
+             ("budget 7", st, "devex", dataclasses.replace(o, max_iters=7),
+              torch.ones(st.n, dtype=dt)),
+             ("weights past 1e8", st, "devex", o, big),
+             ("NaN in b", edit(st, (6, -1, np.nan)), "primal", o, None),
+             ("redirected", edit(fin, (5, j0, 1e-3), reopen=True), "primal",
+              o, None),
+             ("phase 1", sa, "primal", o, None),
+             ("phase 1 devex", sa, "devex", o, torch.ones(sa.n, dtype=dt)),
+             ("dual", fr, "dual", o, None),
+             ("dual bland", fr, "dual",
+              SolverOptions.for_dtype(dt, stall_limit=1, degen_tol=1e30),
+              None),
+             ("dual NaN in b", edit(fr, (4, -1, np.nan)), "dual", o, None)]
+    count = {"resident": 0, "streamed": 0}
+    t0 = time.perf_counter()
+    for label, s, walk, opts, g in cases:
+        stall = opts.resolved_stall_limit(s.m, s.n)
+        M = s.T.shape[0]
+        splits = [(None, blocks) for blocks in (None, 1, 3, 7)]
+        splits += [(rows, (1, 3, 7)[q])
+                   for q, rows in enumerate((3, M // 2, M - 1))]
+        for rows, blocks in splits:
+            plan = kg.rank1_grid_plan(*s.T.shape, dt, sms, blocks=blocks,
+                                      rows=rows)
+            if dev == "cuda":
+                k, kgw = kg.rank1_grid(
+                    type(s)(*(x.to(dev) for x in s)), opts, stall,
+                    opts.max_iters, None if g is None else g.to(dev),
+                    walk == "dual", blocks=blocks, rows=rows)
+            else:
+                k, kgw = kg.rank1_grid_reference(s, opts, stall,
+                                                 opts.max_iters, g,
+                                                 walk == "dual",
+                                                 plan.blocks)
+            p, pg = kg.rank1_grid_reference(s, opts, stall, opts.max_iters,
+                                            g, walk == "dual", plan.blocks)
+            sync(dev)
+            try:
+                lanes_equal(type(k)(*(x.cpu() for x in k)), p)
+                if g is not None:
+                    tensors_equal("weights", kgw, pg)
+            except AssertionError as err:
+                raise AssertionError(
+                    f"5c grid edge {label} {str(dt)[6:]} G {plan.blocks} "
+                    f"R {plan.rows}: {err}") from None
+            count["resident" if rows is None else "streamed"] += 1
+    log(f"# 5c rank1_grid on edge cases, {str(dt)[6:]} (22 x 61, 42 x 131): "
+        f"{count['resident']} resident and {count['streamed']} streamed "
+        "walks equal rank1_grid_reference in every field ("
+        + ", ".join(c[0] for c in cases) + f"; resident on the plan's grid "
+        "and 1, 3, 7 blocks, streamed at rows 3, M // 2, M - 1 on 1, 3, 7 "
+        f"blocks; {time.perf_counter() - t0:.1f} s)")
+    return count
+
+
+def past_grid_walk(dev="cuda"):
+    """5c (x): ``run_simplex`` on a RANK1_PAST_M x RANK1_PAST_N LP
+    (``main_path_arrays``, a slack basis, 10002 x 10513 at f64) past the
+    grid's plan (``solo_route``: "rank1_step"), to a budget of
+    RANK1_PAST_STEPS pivots: on ``rank1_steps`` (no ``rank1_grid`` and no
+    FMA launch), held to the plain loop in every field; the step timed by
+    launch."""
+    import torch
+
+    from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve.driver import solo_route
+
+    m, n = RANK1_PAST_M, RANK1_PAST_N
+    state = make_state(*main_path_arrays(m, n, seed=4), dtype=torch.float64,
+                       device=dev)
+    M, N = state.T.shape
+    route = solo_route("primal", M, N, torch.float64,
+                       sm_count(torch.device(dev)), torch.device(dev))
+    if route != "rank1_step":
+        raise AssertionError(f"5c (x): {M} x {N} takes {route}")
+    opts = SolverOptions.for_dtype(torch.float64,
+                                   max_iters=RANK1_PAST_STEPS)
+    k, _, secs, launches = solo_kernel("primal", state, opts, "rank1_step")
+    p, _, plain_secs = solo_plain("primal", state, opts)
+    err = lanes_equal(k, p)
+    steps = int(k.niter)
+    if steps != RANK1_PAST_STEPS or launches["rank1_step"] == 0 or \
+            launches["rank1_grid"] or launches["fused_fma"]:
+        raise AssertionError(f"5c (x): {steps} pivots, launches {launches}")
+    u = rank1_step_us(state, SolverOptions.for_dtype(torch.float64), None,
+                      "(x) past the grid's plan", 4 * RANK1_PAST_STEPS)
+    log(f"# 5c (x) {m}x{n} ({M} x {N}, past the grid's plan: {route}) "
+        f"f64: its first {steps} pivots through run_simplex equal the plain "
+        f"walk in every field ({secs:.3f} s against {plain_secs:.2f} s); "
+        f"launches {launches}")
+    return {"route": route, "steps": steps, "seconds": secs,
+            "plain_seconds": plain_secs, "max_abs_err": err,
+            "launches": launches, "step_us": u,
+            "ms_per_step": 1e3 * secs / steps,
+            "plain_ms_per_step": 1e3 * plain_secs / steps}
+
+
 def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
     """Phase 5c: the solo rank-1, devex and dual walks on their kernels,
     each held against its plain version in every field at f64 and f32
@@ -1403,13 +1800,20 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
     frame (``lane_primal`` at B = 1) and on (a)'s; (d) each of
     ``rank1_step``'s launches against its plain stage, on (a)'s and (b)'s
     frames; (e) the warm re-solves: phase 7c's and a deeper one on the
-    cluster's dual walk, a resident one on ``lane_dual`` at B = 1, and one
-    on phase 5's 1538 x 3073 frame on ``rank1_step``'s; (f) ``solve_lp(
-    driver="rank1")`` on phase 5's LP, on ``rank1_step``; (g) the refreshed
-    rung's rank-1 segments. ``rank1_step`` is timed by launch on (a), (b),
-    (e) and (f). Also the cluster walk on edge cases at every cluster size
-    (``cluster_edge_cases``) and the bounded walk of a strided tableau.
-    Returns the numbers; ``launches`` are (a)'s f64 solve's."""
+    cluster's dual walk, a resident one on ``lane_dual`` at B = 1, one on
+    phase 5's 1538 x 3073 frame on ``rank1_grid``'s streamed plan (f64;
+    resident at f32) and one of a 514 x 1537 LP on its resident plan;
+    (f) ``solve_lp(driver="rank1")`` on phase 5's LP, on ``rank1_grid``;
+    (g) the refreshed rung's rank-1 segments. The grid's walks (one launch
+    each) are held whole against ``rank1_steps``' and over a window against
+    ``rank1_grid_reference`` (``grid_walk_check``), and one launch of up to
+    1,024 steps is timed by stage in turns with ``rank1_step``
+    (``grid_and_step_us``); (x) a 10002 x 10513 LP past the grid's plan
+    runs ``rank1_step`` (``past_grid_walk``). ``rank1_step`` is timed by
+    launch on (a), (b), (e), (f) and (x). Also the cluster walk on edge
+    cases at every cluster size (``cluster_edge_cases``), the grid's at
+    forced splits (``grid_edge_cases``) and the bounded walk of a strided
+    tableau. Returns the numbers; ``launches`` are (a)'s f64 solve's."""
     import dataclasses as dc
 
     import torch
@@ -1437,7 +1841,8 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         b2[:k] = b2[:k] // 2 if b.dtype.kind == "i" else b2[:k] * 0.5
         return b2
 
-    res = {"walks": {}, "stages": {}, "step_us": {}, "solves": {}}
+    res = {"walks": {}, "stages": {}, "step_us": {}, "grid_us": {},
+           "solves": {}}
     A, b, c = dense_leq_arrays(WARM_M, WARM_N)
     sf_a = scenario_form(A, b, c)
     ca, Aa, ba, _ = artificial_arrays(WARM_M, SOLO_DEVEX_N)
@@ -1577,43 +1982,80 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         del st, sb, sc, so, frame, frame3
         torch.cuda.empty_cache()
 
-    # (f) phase 5's LP on the rank-1 engine: measured only
+    # (f) phase 5's LP on the rank-1 engine: rank1_grid (streamed at f64,
+    # resident at f32), one launch a walk
+    clock_hz = sm_clock_hz()
     sf_f = main_path_form(MAIN_M, MAIN_N)
     sol_f, res["solves"]["f_float64"] = solo_solve(
         sf_f, torch.float64, "rank1", f"(f) {MAIN_M}x{MAIN_M + MAIN_N}",
-        "rank1_step", dev=dev)
+        "rank1_grid", dev=dev)
     sfl = res["solves"]["f_float64"]
     sfl["pivots_per_s"] = sfl["niter"] / sfl["seconds"]
     log(f"# 5c (f): driver='rank1' {sfl['pivots_per_s']:.1f} pivots/s "
         f"against phase 5's kernel engine {main_pivots_per_s:.1f} "
         "(lowering, set-up and refinement included in both)")
-    sm = make_state(*main_path_arrays(MAIN_M, MAIN_N), dtype=torch.float64,
-                    device=dev)
-    of = SolverOptions.for_dtype(torch.float64, max_iters=SOLO_MAIN_WINDOW)
-    res["walks"]["f_window_float64"] = solo_walk_check(
-        "primal", sm, of, f"(f) the first {SOLO_MAIN_WINDOW} steps",
-        "rank1_step")
-    res["step_us"]["f_float64"] = rank1_step_us(
-        sm, SolverOptions.for_dtype(torch.float64), None, "(f)",
-        sfl["niter"])
-    del sm
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        sm = make_state(*main_path_arrays(MAIN_M, MAIN_N), dtype=dt,
+                        device=dev)
+        of = SolverOptions.for_dtype(dt)
+        w = grid_walk_check(
+            "primal", sm, of, "(f) the rank-1 walk",
+            SOLO_GRID_WINDOW if dt == torch.float64 else SOLO_GRID_WINDOW_F32)
+        res["walks"][f"f_{name}"] = w
+        if dt == torch.float64:
+            res["grid_us"]["f_float64"], res["step_us"]["f_float64"] = \
+                grid_and_step_us("primal", sm, of, "(f)", w["niter"],
+                                 clock_hz)
+        del sm
+        torch.cuda.empty_cache()
     # (e) at (f)'s size: the warm re-solve of phase 5's LP with a quarter
-    # of its RHS halved, on rank1_step's dual walk
+    # of its RHS halved, on the grid's dual walk
     cf, Af, bf, hf = main_path_arrays(MAIN_M, MAIN_N)
     sf_f2 = standard_form(cf, Af, cut(bf), hf, MAIN_N)
     _, res["solves"]["e_main_float64"] = solo_solve(
         sf_f2, torch.float64, "rank1",
-        f"(e) warm_start {MAIN_M}x{MAIN_M + MAIN_N}", "rank1_step", dev=dev,
+        f"(e) warm_start {MAIN_M}x{MAIN_M + MAIN_N}", "rank1_grid", dev=dev,
         warm_start=sol_f)
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        frame_f = warm_frame(sf_f2, sol_f, dt)
+        od = SolverOptions.for_dtype(dt)
+        wf = grid_walk_check(
+            "dual", frame_f, od, "(e) the warm dual walk",
+            SOLO_GRID_WINDOW if dt == torch.float64 else SOLO_GRID_WINDOW_F32)
+        res["walks"][f"e_main_{name}"] = wf
+        if dt == torch.float64:
+            res["grid_us"]["e_main_float64"], \
+                res["step_us"]["e_main_float64"] = grid_and_step_us(
+                    "dual", frame_f, od, "(e) dual main", wf["niter"],
+                    clock_hz)
+        del frame_f
+        torch.cuda.empty_cache()
+    # (e) resident on the grid: a warm re-solve of a 514 x 1537 LP, f64
     o64 = SolverOptions.for_dtype(torch.float64)
-    frame_f = warm_frame(sf_f2, sol_f, torch.float64)
-    wf = solo_walk_check("dual", frame_f, o64,
-                         f"(e) warm dual {MAIN_M}x{MAIN_M + MAIN_N}",
-                         "rank1_step")
-    res["walks"]["e_main_float64"] = wf
-    res["step_us"]["e_main_float64"] = rank1_step_us(
-        frame_f, o64, None, "(e) dual main", wf["niter"], dual=True)
-    del frame_f
+    cr, Ar, br, hr = main_path_arrays(GRID_RES_M, GRID_RES_N, seed=5)
+    sf_r = standard_form(cr, Ar, br, hr, GRID_RES_N)
+    sf_r2 = standard_form(cr, Ar, cut(br), hr, GRID_RES_N)
+    size = f"{GRID_RES_M}x{GRID_RES_M + GRID_RES_N}"
+    sol_r, res["solves"]["e_grid_resident_cold_float64"] = solo_solve(
+        sf_r, torch.float64, "rank1", f"(e) resident grid cold {size}",
+        "rank1_grid", dev=dev)
+    _, res["solves"]["e_grid_resident_float64"] = solo_solve(
+        sf_r2, torch.float64, "rank1", f"(e) resident grid warm {size}",
+        "rank1_grid", dev=dev, warm_start=sol_r)
+    frame_r = warm_frame(sf_r2, sol_r, torch.float64)
+    wr = grid_walk_check("dual", frame_r, o64,
+                         "(e) the resident warm dual walk", SOLO_GRID_WINDOW)
+    res["walks"]["e_grid_resident_float64"] = wr
+    if wr["niter"] > 4 * SOLO_GRID_ADVANCE:
+        res["grid_us"]["e_grid_resident_float64"] = rank1_grid_us(
+            "dual", frame_r, o64, "(e) resident dual", wr["niter"], clock_hz)
+    del frame_r
+    # the grid on edge cases at forced splits; rank1_step past its plan
+    res["edge_grid"] = {str(dt)[6:]: grid_edge_cases(dt, dev)
+                        for dt in (torch.float64, torch.float32)}
+    res["past"] = past_grid_walk(dev)
     torch.cuda.empty_cache()
 
     # the bounded walk of a strided tableau (a transposed view) equals the
@@ -2227,8 +2669,9 @@ def blocked_flush_case(state, K: int = BLK5_K):
 
 
 def threshold_table(dev="cuda"):
-    """5d (f): us a pivot of the rank-1 walk, the blocked engine on its
-    route (``blocked_cluster`` where its plan fits), the blocked engine on
+    """5d (f): us a pivot of the rank-1 walk on its route
+    (``rank1_cluster``, ``rank1_grid``) and on ``rank1_step``, the blocked
+    engine on its route (``blocked_cluster`` where its plan fits), on
     ``blocked_step`` and the kernel engine on bench.py's recipe at each of
     THRESH_SHAPES, f64, over THRESH_PIVOTS pivots (the better of two runs,
     host clock): the data for the `auto` thresholds, which stay as they
@@ -2238,10 +2681,12 @@ def threshold_table(dev="cuda"):
     from tpulp_torch import SolverOptions, make_state
     from tpulp_torch.core import eta_scaled_options
     from tpulp_torch.kernels.blocked import blocked_steps
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.kernels.rank1 import rank1_steps
     from tpulp_torch.solve import (run_simplex, run_simplex_blocked,
                                    run_simplex_blocked_kernel)
     from tpulp_torch.solve.blocked import blocked_route
-    from tpulp_torch.solve.driver import finish
+    from tpulp_torch.solve.driver import finish, solo_route
 
     def on_steps(s, o):
         o = eta_scaled_options(o, s.T.dtype)
@@ -2249,7 +2694,13 @@ def threshold_table(dev="cuda"):
                                o.max_iters, BLK5_K)
         return finish(out)
 
+    def on_rank1_steps(s, o):
+        out, _ = rank1_steps(s, o, o.resolved_stall_limit(s.m, s.n),
+                             o.max_iters)
+        return finish(out)
+
     engines = {"rank1": lambda s, o: run_simplex(s, o),
+               "rank1_step": on_rank1_steps,
                "blocked": lambda s, o: run_simplex_blocked(s, o, BLK5_K),
                "blocked_step": on_steps,
                "kernel": lambda s, o: run_simplex_blocked_kernel(
@@ -2278,12 +2729,15 @@ def threshold_table(dev="cuda"):
         key = f"{m + 2}x{n + m + 1}"
         row["blocked_route"] = blocked_route(m + 2, n + m + 1, BLK5_K,
                                              torch.float64, st.T.device)
+        row["rank1_route"] = solo_route("primal", m + 2, n + m + 1,
+                                        torch.float64, sm_count(st.T.device))
         table[key] = row
         log(f"# 5d (f) {key} f64 ({(m + 2) * (n + m + 1)} elements), "
             f"{THRESH_PIVOTS} pivots: " + ", ".join(
                 f"{k} {v['us_per_pivot']:.1f} us a pivot ({v['niter']})"
-                for k, v in row.items() if k != "blocked_route")
-            + f"; the blocked engine's route {row['blocked_route']}")
+                for k, v in row.items() if not k.endswith("_route"))
+            + f"; the blocked engine's route {row['blocked_route']}, the "
+            f"rank-1 walk's {row['rank1_route']}")
         del st
         torch.cuda.empty_cache()
     return table
@@ -2612,8 +3066,8 @@ def check_static_smem(ptxas) -> None:
     kernels' must fit the room ``lane_plan`` leaves, and each of the eight
     bounded kernels' and the sixteen rank-1 kernels' the 33 slots of its
     block reduction, and each of the fourteen blocked kernels' those and
-    its eta coefficients, and the two cluster kernels' and the bounded
-    grid's the room their plans leave."""
+    its eta coefficients, and the two cluster kernels' and the two grid
+    walks' the room their plans leave."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.blocked_cluster import \
         BLOCKED_CLUSTER_STATIC_SMEM
@@ -2662,6 +3116,12 @@ def check_static_smem(ptxas) -> None:
             max(bgr.values()) > GRID_STATIC_SMEM:
         raise AssertionError(f"bounded_grid's static shared memory {bgr}: "
                              f"the plan leaves {GRID_STATIC_SMEM}")
+    rgr = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k in RANK1_GRID_KERNELS.values()}
+    if len(rgr) != len(RANK1_GRID_KERNELS) or \
+            max(rgr.values()) > GRID_STATIC_SMEM:
+        raise AssertionError(f"rank1_grid's static shared memory {rgr}: "
+                             f"the plan leaves {GRID_STATIC_SMEM}")
     bkc = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k in BLOCKED_CLUSTER_KERNELS.values()}
     if len(bkc) != len(BLOCKED_CLUSTER_KERNELS) or \
@@ -2675,7 +3135,7 @@ def check_static_smem(ptxas) -> None:
         f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
         f"{clu} bytes, within {CLUSTER_STATIC_SMEM}; blocked_cluster {bkc} "
         f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}; bounded_grid {bgr} "
-        f"bytes, within {GRID_STATIC_SMEM}")
+        f"and rank1_grid {rgr} bytes, within {GRID_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
@@ -2717,6 +3177,14 @@ BOUNDED_GRID_KERNELS = {
     f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
     f"{'devex' if d == '1' else 'dantzig'}{',streamed' if r == '1' else ''}>"
     for t in "fd" for d in "01" for r in "01"}
+# the rank-1 grid walk's instantiations: <float or double, the walk,
+# streamed>
+RANK1_GRID_KERNELS = {
+    f"3rgr11grid_kernelI{t}Li{w}ELb{r}E":
+    f"rgrid_kernel<{'float' if t == 'f' else 'double'},{walk}"
+    f"{',streamed' if r == '1' else ''}>"
+    for t in "fd" for w, walk in enumerate(("primal", "devex", "dual"))
+    for r in "01"}
 # the blocked cluster's instantiations: <float or double>
 BLOCKED_CLUSTER_KERNELS = {
     f"3bkc14cluster_kernelI{t}E":
@@ -2759,6 +3227,8 @@ def _ptxas_name(name: str) -> str:
         return BLOCKED_CLUSTER_KERNELS[name]
     if name in BOUNDED_GRID_KERNELS:
         return BOUNDED_GRID_KERNELS[name]
+    if name in RANK1_GRID_KERNELS:
+        return RANK1_GRID_KERNELS[name]
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -2784,7 +3254,7 @@ def ptxas_report(text: str):
                                  *BOUNDED_KERNELS, *RANK1_KERNELS,
                                  *BLOCKED_KERNELS, *CLUSTER_KERNELS,
                                  *BLOCKED_CLUSTER_KERNELS,
-                                 *BOUNDED_GRID_KERNELS)
+                                 *BOUNDED_GRID_KERNELS, *RANK1_GRID_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -6507,6 +6977,12 @@ def main() -> int:
                     f"{v.get('static_smem')} bytes of static shared memory"
                     for k, v in ptxas.items()
                     if k in BOUNDED_GRID_KERNELS.values()))
+    log(f"# rank1_grid (ptxas -v, {GRID_THREADS} threads a block): "
+        + "; ".join(f"{k} {v.get('registers')} registers, "
+                    f"{v.get('spill_bytes')} bytes of spills, "
+                    f"{v.get('static_smem')} bytes of static shared memory"
+                    for k, v in ptxas.items()
+                    if k in RANK1_GRID_KERNELS.values()))
 
     # 3: the kernels against their plain versions
     kstats = phase_kernels(dev)
@@ -6658,11 +7134,19 @@ def main() -> int:
             "tpulp_torch/kernels/csrc/bounded_grid.cu",
             "none: XLA's compiled lax.while_loop over bounded_simplex_step "
             "(tpulp/solve/bounded.py:86-276, 278-307)", bounded_launches),
+        # the main path: (f)'s driver="rank1" solve at 1538 x 3073
+        "rank1_grid": ("tpulp_torch/kernels/csrc/rank1_grid.cu",
+                       "none: XLA's compiled lax.while_loop over "
+                       "simplex_step, devex_simplex_step and "
+                       "dual_simplex_step (tpulp/solve/driver.py:74, "
+                       "252-293; tpulp/solve/devex.py:75, 240-262; "
+                       "tpulp/solve/dual.py:62, 143-170)",
+                       solo["solves"]["f_float64"]["launches"]),
     }
-    # rank1_step's main path since the cluster kernel took the frames a
-    # cluster holds: (f)'s driver="rank1" solve at 1538 x 3073
+    # rank1_step's main path since the grid took every frame a cluster
+    # does not hold up to its plan: (x)'s walk past the plan
     sources["rank1_step"] = sources["rank1_step"][:2] + (
-        solo["solves"]["f_float64"]["launches"],)
+        solo["past"]["launches"],)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     batch_part = {"blocked_cluster_batch": "cluster",
@@ -6809,14 +7293,14 @@ def main() -> int:
                      "a_max_increase_float64"),
                     ("greatest increase float32", "c_max_increase_float32",
                      "a_max_increase_float32"),
-                    ("main 1538x3073 float64", "f_window_float64",
-                     "f_float64"),
+                    ("main 1538x3073 float64", "f_float64", "f_float64"),
                     ("dual float64", "e_deep_float64", "e_deep_float64"),
                     ("dual float32", "e_deep_float32", "e_deep_float32"),
                     ("dual main 1538x3073 float64", "e_main_float64",
                      "e_main_float64")):
                 w, u = solo["walks"][walk], solo["step_us"][us]
-                # on the cluster route: rank1_step's walk timed beside it
+                # on the cluster and grid routes: rank1_step's walk timed
+                # beside it
                 w = w.get("rank1_step", w)
                 cases[case] = {
                     "max_abs_err": w["max_abs_err"], "ms": w["ms_per_step"],
@@ -6829,7 +7313,65 @@ def main() -> int:
                         u["device_us_by_stage"].items()},
                     "host_enqueue_ms": u["host_us_per_step"] / 1e3,
                     "steps": w["niter"]}
-            head = cases["main 1538x3073 float64"]
+            # the route's shape since the grid: (x), past its plan
+            px, u = solo["past"], solo["past"]["step_us"]
+            cases["past the grid's plan float64 (x)"] = {
+                "max_abs_err": px["max_abs_err"], "ms": px["ms_per_step"],
+                "plain_ms": px["plain_ms_per_step"],
+                "bound_ms": u["bound_us_per_step"] / 1e3,
+                "bound_by": u["bound_by"], "library_ms": None,
+                "device_ms": u["device_us_per_step"] / 1e3,
+                "device_ms_by_stage": {
+                    k: v / 1e3 for k, v in u["device_us_by_stage"].items()},
+                "host_enqueue_ms": u["host_us_per_step"] / 1e3,
+                "steps": px["steps"]}
+            head = cases["past the grid's plan float64 (x)"]
+        elif kname == "rank1_grid":
+            # a pivot of 5c's grid walks: the host clock (in turns with
+            # rank1_step's walk of the same frame), one launch of up to
+            # 1,024 steps on the card by stage, the plain version's window,
+            # the walk's bound (the frame read and written once, an fma an
+            # entry a pivot) beside the kernel's own convention and the
+            # table's step convention
+            cases = {}
+            for case, walk, us in (
+                    ("float64", "f_float64", "f_float64"),
+                    ("float32", "f_float32", None),
+                    ("dual float64", "e_main_float64", "e_main_float64"),
+                    ("dual float32", "e_main_float32", None),
+                    ("resident dual 514x1537 float64",
+                     "e_grid_resident_float64", "e_grid_resident_float64")):
+                w = solo["walks"][walk]
+                g = solo["grid_us"].get(us) if us else None
+                steps = max(w["niter"], 1)
+                cases[case] = {
+                    "max_abs_err": w["max_abs_err"], "ms": w["ms_per_step"],
+                    "plain_ms": w["plain_ms_per_step"],
+                    "bound_ms": g["bound_ms"] if g else w["bound_ms"] / steps,
+                    "bound_by": g["bound_by"] if g else w["bound_by"],
+                    "library_ms": None,
+                    "rank1_step_ms": w["rank1_step"]["ms_per_step"],
+                    "walk_seconds": w["seconds"],
+                    "rank1_step_walk_seconds": w["rank1_step"]["seconds"],
+                    "blocks": w["blocks"], "width": w["width"],
+                    "rows": w["rows"], "smem": w["smem"],
+                    "scratch": w["scratch"], "steps": w["niter"]}
+                if g:
+                    cases[case].update(
+                        device_ms=g["device_us_per_step"] / 1e3,
+                        device_ms_turns=[v / 1e3 for v in
+                                         g.get("device_us_turns", [])],
+                        device_ms_by_stage={
+                            k: v / 1e3 for k, v in
+                            g["device_us_by_stage"].items()},
+                        grid_bound_ms=g["grid_bound_ms"],
+                        step_bound_ms=g["step_bound_ms"],
+                        occupancy=g["occupancy"],
+                        timed_steps=g["steps"])
+                    if us in solo["step_us"]:
+                        cases[case]["rank1_step_device_ms"] = \
+                            solo["step_us"][us]["device_us_per_step"] / 1e3
+            head = cases["float64"]
         elif kname == "rank1_cluster":
             # a pivot of 5c's walks on the cluster kernel: the host clock
             # (in turns with rank1_step), the launch on the card, the plain
@@ -7049,13 +7591,19 @@ def main() -> int:
     kernels[14]["edge_walks_held"] = exact["bounded_lp"]["reference"][
         "edge_walks"]
     kernels[6].update({key: kernels[6]["cases"][
-        "main 1538x3073 float64"][key] for key in (
+        "past the grid's plan float64 (x)"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
     # the 5c solves: 0 on the frames a cluster holds (a, b, e, g) since the
-    # cluster kernel took them; (f) and (e)'s warm re-solve at 1538 x 3073
+    # cluster kernel took them, 0 on (f) and (e) at 1538 x 3073 since the
+    # grid; (x)'s walk past the grid's plan
+    solves5c = SOLO_SOLVES + ("e_main_float64", "f_float64",
+                              "e_grid_resident_cold_float64",
+                              "e_grid_resident_float64")
     kernels[6]["launches_by_path"] = {
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_step"]
-        for case in SOLO_SOLVES + ("e_main_float64", "f_float64")}
+        for case in solves5c}
+    kernels[6]["launches_by_path"]["5c_past_grid_float64"] = \
+        solo["past"]["launches"]["rank1_step"]
     kernels[6]["walks"] = {k: v for k, v in solo["walks"].items()
                            if v["route"] == "rank1_step"}
     kernels[6]["stages_held_at_step"] = solo["stages"]
@@ -7063,7 +7611,23 @@ def main() -> int:
         "device_ms", "load_store_ms", "blocks", "occupancy", "steps")})
     kernels[8]["launches_by_path"] = {
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_cluster"]
-        for case in SOLO_SOLVES + ("e_main_float64", "f_float64")}
+        for case in solves5c}
+    # the grid: one launch a walk on (f), (e) at 1538 x 3073 and the
+    # resident re-solve; 0 on the cluster's frames and past its plan
+    kernels[15].update({key: kernels[15]["cases"]["float64"].get(key)
+                        for key in ("device_ms", "device_ms_by_stage",
+                                    "blocks", "width", "rows", "smem",
+                                    "scratch", "occupancy", "grid_bound_ms",
+                                    "step_bound_ms", "rank1_step_ms",
+                                    "steps")})
+    kernels[15]["launches_by_path"] = {
+        f"5c_{case}": solo["solves"][case]["launches"]["rank1_grid"]
+        for case in solves5c}
+    kernels[15]["launches_by_path"]["5c_past_grid_float64"] = \
+        solo["past"]["launches"]["rank1_grid"]
+    kernels[15]["walks"] = {k: v for k, v in solo["walks"].items()
+                            if v["route"] == "rank1_grid"}
+    kernels[15]["edge_walks_held"] = solo["edge_grid"]
     kernels[8]["walks"] = {k: v for k, v in solo["walks"].items()
                            if v["route"] == "rank1_cluster"}
     kernels[8]["edge_walks_held"] = solo["edge_walks_held"]
@@ -7154,7 +7718,8 @@ def main() -> int:
                      (12, ("blocked_ray_kernel<float>",
                            "blocked_ray_kernel<double>")),
                      (13, "lane_bounded"),
-                     (14, tuple(BOUNDED_GRID_KERNELS.values()))):
+                     (14, tuple(BOUNDED_GRID_KERNELS.values())),
+                     (15, tuple(RANK1_GRID_KERNELS.values()))):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

@@ -341,7 +341,8 @@ def test_launch_counters_stay_zero_on_cpu():
                         "lane_bounded": 0, "bounded_step": 0,
                         "bounded_grid": 0, "bounded_stage": 0,
                         "rank1_step": 0, "rank1_stage": 0,
-                        "rank1_cluster": 0, "blocked_step": 0, "blocked_ray": 0,
+                        "rank1_cluster": 0, "rank1_grid": 0,
+                        "blocked_step": 0, "blocked_ray": 0,
                         "blocked_stage": 0, "blocked_cluster": 0,
                         "blocked_cluster_batch": 0, "fused_flush_batch": 0,
                         "blocked_ray_batch": 0}
@@ -366,7 +367,8 @@ def test_nvcc_command_line():
                                                "bounded_grid.cu", "flush.cu",
                                                "fma.cu", "inner_block.cu",
                                                "lanes.cu", "rank1.cu",
-                                               "rank1_cluster.cu"]
+                                               "rank1_cluster.cu",
+                                               "rank1_grid.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link

@@ -331,10 +331,10 @@ def test_cluster_plan_refusals():
     ("devex", 258, 775, torch.float64, "rank1_cluster"),
     ("dual", 258, 769, torch.float64, "rank1_cluster"),
     ("primal", 200, 400, torch.float64, "rank1_cluster"),
-    ("devex", 1538, 3073, torch.float64, "rank1_step"),
-    ("primal", 1538, 3073, torch.float64, "rank1_step"),
-    ("dual", 1538, 3073, torch.float64, "rank1_step"),
-    ("primal", 2000, 100, torch.float64, "rank1_step"),
+    ("devex", 1538, 3073, torch.float64, "rank1_grid"),
+    ("primal", 1538, 3073, torch.float64, "rank1_grid"),
+    ("dual", 1538, 3073, torch.float64, "rank1_grid"),
+    ("primal", 2000, 100, torch.float64, "rank1_grid"),
 ], ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-{str(c[3])[6:]}")
 def test_solo_route_takes_the_cluster(case):
     walk, M, N, dtype, route = case
@@ -344,7 +344,8 @@ def test_solo_route_takes_the_cluster(case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_solo_route_rule(dtype):
     """The lane kernels where one block holds the primal or dual frame, else
-    the cluster where 8 blocks hold it, else ``rank1_step``."""
+    the cluster where 8 blocks hold it, else the grid (every frame here is
+    within its plan)."""
     for M, N in ((40, 300), (100, 280), (200, 400), (258, 769), (514, 1537),
                  (3000, 60), (1538, 3073)):
         resident = lane_plan(M, N, dtype).resident
@@ -353,7 +354,7 @@ def test_solo_route_rule(dtype):
             fits = True
         except ValueError:
             fits = False
-        big = "rank1_cluster" if fits else "rank1_step"
+        big = "rank1_cluster" if fits else "rank1_grid"
         for walk, lane in (("primal", "lane_primal"), ("dual", "lane_dual"),
                            ("devex", None)):
             want = lane if resident and lane else big

@@ -472,16 +472,18 @@ def test_dual_lanes_at_one_lane_equal_the_solo_walk(seed):
     # past one block, within a cluster of 8 (kernels.rank1_cluster)
     ("primal", 258, 769, torch.float64, "rank1_cluster"),
     ("primal", 258, 769, torch.float32, "rank1_cluster"),
-    ("primal", 1538, 3073, torch.float64, "rank1_step"),
+    # past a cluster, within the grid's plan (kernels.rank1_grid)
+    ("primal", 1538, 3073, torch.float64, "rank1_grid"),
     ("devex", 60, 200, torch.float64, "rank1_cluster"),
     ("devex", 258, 775, torch.float32, "rank1_cluster"),
     ("dual", 60, 200, torch.float64, "lane_dual"),
     ("dual", 60, 200, torch.float32, "lane_dual"),
     ("dual", 258, 769, torch.float64, "rank1_cluster"),
-    ("dual", 1538, 3073, torch.float64, "rank1_step"),
-    # past the lane kernels' shared memory for their vectors
-    ("dual", 8002, 24001, torch.float64, "rank1_step"),
-    ("primal", 8002, 24001, torch.float64, "rank1_step"),
+    ("dual", 1538, 3073, torch.float64, "rank1_grid"),
+    # past the lane kernels' shared memory for their vectors, within the
+    # grid's streamed plan
+    ("dual", 8002, 24001, torch.float64, "rank1_grid"),
+    ("primal", 8002, 24001, torch.float64, "rank1_grid"),
 ])
 def test_solo_route(case):
     walk, M, N, dtype, route = case

@@ -14,6 +14,8 @@ from .launch import LAUNCHES, reset_launches
 from .rank1 import rank1_stage, rank1_steps
 # the module, not its wrapper of the same name: rank1_cluster.rank1_cluster
 from .rank1_cluster import cluster_plan
+# the module, not its wrapper of the same name: rank1_grid.rank1_grid
+from .rank1_grid import rank1_grid_plan
 
 __all__ = [
     "LAUNCHES",
@@ -35,6 +37,7 @@ __all__ = [
     "rank1_steps",
     "rank1_stage",
     "cluster_plan",
+    "rank1_grid_plan",
     "blocked_steps",
     "blocked_stage",
     "blocked_cluster_plan",

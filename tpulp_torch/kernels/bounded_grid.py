@@ -58,7 +58,7 @@ from .launch import (LAUNCHES, check, lib_for, raise_on, sm_count,
                      stream_of, suffix)
 from .rank1_cluster import block_sum, block_sums
 
-__all__ = ["GridPlan", "GridPlanTooLarge", "bounded_grid_plan",
+__all__ = ["GridPlan", "GridPlanTooLarge", "bounded_grid_plan", "plan_grid",
            "bounded_grid_occupancy", "bounded_grid",
            "bounded_grid_reference", "grid_slabs", "grid_sum",
            "GRID_THREADS", "GRID_SMS", "GRID_MIN_ENTRIES", "GRID_SMEM_LIMIT",
@@ -124,7 +124,7 @@ class GridPlan(NamedTuple):
 class GridPlanTooLarge(ValueError):
     """The frame's replicated vectors, first three rows and tile ring do
     not fit a block's shared memory (``bounded_route`` then takes
-    ``bounded_steps``)."""
+    ``bounded_steps``, ``solve.driver.solo_route`` ``rank1_steps``)."""
 
 
 def _align(x: int) -> int:
@@ -188,10 +188,17 @@ def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
     6,282) at f64 and 10,800 (m = 10,798) at f32 on 132 SMs
     (``tests/test_torch_bounded_grid.py`` holds both edges); ValueError for
     another type, a frame outside 2^24, a grid or an R out of range."""
+    return plan_grid(M, N, dtype, sms, blocks, rows, _smem, "bounded_grid")
+
+
+def plan_grid(M: int, N: int, dtype, sms: int, blocks: int | None,
+              rows: int | None, smem, name: str) -> GridPlan:
+    """The plan of a grid walk (``bounded_grid_plan``'s rule) whose kernel
+    counts a block's dynamic shared memory as ``smem(M, N, W, es, rows=M,
+    stages=0, tile=0)`` does; ``name`` names the kernel in the refusals."""
     es = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if es is None:
-        raise ValueError(f"bounded_grid takes float32 or float64, not "
-                         f"{dtype}")
+        raise ValueError(f"{name} takes float32 or float64, not {dtype}")
     if M < 3 or N < 2 or max(M, N) >= kb._MAX_SIDE:
         raise ValueError(f"frame {M} x {N} outside 3..2^24 x 2..2^24")
     n = N - 1
@@ -207,19 +214,19 @@ def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
         raise ValueError(f"rows={rows}: a slab keeps 3 to {M} rows in "
                          "shared memory")
     mail = _SLOT * (_REGIONS * G + 1)
-    smem = _smem(M, N, W, es)
+    full = smem(M, N, W, es)
     if rows is None or rows == M:
-        if smem <= GRID_SMEM_LIMIT:
-            return GridPlan(G, W, GRID_THREADS, smem, mail, M, 0, 0, 0)
+        if full <= GRID_SMEM_LIMIT:
+            return GridPlan(G, W, GRID_THREADS, full, mail, M, 0, 0, 0)
         if rows == M:
             raise GridPlanTooLarge(
                 f"frame {M} x {N} {dtype}: a resident block of {W} columns "
-                f"needs {smem} bytes of shared memory, above "
+                f"needs {full} bytes of shared memory, above "
                 f"{GRID_SMEM_LIMIT}")
     S = GRID_RING_STAGES
     tr = _tile_rows(W, es, GRID_THREADS)
     # the most rows the bytes left beside the ring and the vectors hold
-    free = GRID_SMEM_LIMIT - _smem(M, N, W, es, 0, S, _align(tr * W * es))
+    free = GRID_SMEM_LIMIT - smem(M, N, W, es, 0, S, _align(tr * W * es))
     R = min(M - 1, max(free, 0) // (W * es))
     while R > 0 and _align(R * W * es) > free:
         R -= 1
@@ -236,7 +243,7 @@ def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
     tr = _tile_rows(W, es, M - R)
     tile = _align(tr * W * es)
     scratch = G * -(-(M - R) // tr) * tile
-    return GridPlan(G, W, GRID_THREADS, _smem(M, N, W, es, R, S, tile),
+    return GridPlan(G, W, GRID_THREADS, smem(M, N, W, es, R, S, tile),
                     mail, R, S, tr, scratch)
 
 

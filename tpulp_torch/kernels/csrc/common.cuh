@@ -1,9 +1,10 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
-// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu, rank1_cluster.cu,
-// bounded_grid.cu): the grid barrier and the order-preserving keys of
-// the cooperative kernels (inner_block.cu, bounded_grid.cu), exact-rounding
-// arithmetic, the (value, index) comparison whose ties go to the smallest
-// index, the block-wide reductions of the single-block simplex loops
+// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu, rank1_cluster.cu and,
+// through grid.cuh, bounded_grid.cu and rank1_grid.cu): the grid barrier
+// and the order-preserving keys of the cooperative kernels (inner_block.cu
+// and the grid walks), exact-rounding arithmetic, the (value, index)
+// comparison whose ties go to the smallest index, the block-wide
+// reductions of the single-block simplex loops
 // (lanes.cu, bounded.cu, rank1.cu, blocked.cu): torch's NaN-first
 // argmin/argmax with first-index ties, two first-index minima and a sum in
 // a fixed tree, in one pass; and what the stream-ordered walks (bounded.cu,

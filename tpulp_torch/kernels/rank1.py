@@ -412,7 +412,7 @@ def _dual_ratio(rec: Rank1Record, iv, opts: SolverOptions) -> None:
 
 
 def _dual_finish(rec: Rank1Record, iv, opts: SolverOptions,
-                 stall_limit: int) -> None:
+                 stall_limit: int, rhs_ok: bool | None) -> None:
     """The dual walk's finish: the basis, the stall counter against the
     dual objective, the Bland switch, the finiteness sums and the
     status."""
@@ -427,8 +427,7 @@ def _dual_finish(rec: Rank1Record, iv, opts: SolverOptions,
         stuck = 0 if bool((z - last_z) > opts.degen_tol) else stuck + 1
         last_z = z
     bland = bool(iv[BLAND]) or stuck >= stall_limit
-    finite_ok = (bool(torch.isfinite(z))
-                 and bool(torch.isfinite(T[2:, -1].abs().sum()))
+    finite_ok = (bool(torch.isfinite(z)) and _rhs_ok(T, rhs_ok)
                  and bool(iv[CROW_OK]))
     if not finite_ok:
         status = Status.NUMERIC
@@ -442,6 +441,14 @@ def _dual_finish(rec: Rank1Record, iv, opts: SolverOptions,
     for k, v in ((STATUS, status), (NITER, iv[NITER] + do_pivot),
                  (STUCK, stuck), (BLAND, bland)):
         rec.ints[k] = int(v)
+
+
+def _rhs_ok(T: torch.Tensor, rhs_ok: bool | None) -> bool:
+    """The finiteness of the post-step |b| sum: ``rhs_ok`` where a caller
+    took the sum in a kernel's order, else torch's sum's."""
+    if rhs_ok is None:
+        return bool(torch.isfinite(T[2:, -1].abs().sum()))
+    return rhs_ok
 
 
 def rank1_update_reference(rec: Rank1Record, max_iters: int) -> None:
@@ -461,16 +468,18 @@ def rank1_update_reference(rec: Rank1Record, max_iters: int) -> None:
 
 
 def rank1_finish_reference(rec: Rank1Record, opts: SolverOptions,
-                           stall_limit: int, max_iters: int) -> None:
+                           stall_limit: int, max_iters: int,
+                           rhs_ok: bool | None = None) -> None:
     """The finish launch's plain version: the basis, the retire, the devex
     weights, the stall counter and the Bland switch, the phase change, the
     finiteness sums and the status; on the dual walk the basis, the stall
-    counter, the Bland switch and the status."""
+    counter, the Bland switch and the status. ``rhs_ok``, where given, is
+    the finiteness of the post-step |b| sum taken in a kernel's order."""
     iv = rec.ints.tolist()
     if not _live(iv, max_iters):
         return
     if rec.walk == "dual":
-        _dual_finish(rec, iv, opts, stall_limit)
+        _dual_finish(rec, iv, opts, stall_limit, rhs_ok)
         return
     T, inf = rec.T, float("inf")
     M, N = T.shape
@@ -505,8 +514,7 @@ def rank1_finish_reference(rec: Rank1Record, opts: SolverOptions,
         phase, stuck, last_z = 2, 0, torch.full_like(last_z, inf)
         rec.col_active.copy_(rec.col_active & ~rec.art_cols)
 
-    finite_ok = (bool(torch.isfinite(z))
-                 and bool(torch.isfinite(T[2:, -1].abs().sum()))
+    finite_ok = (bool(torch.isfinite(z)) and _rhs_ok(T, rhs_ok)
                  and bool(iv[CROW_OK]))
     finished_opt = (iv[PHASE] == 2 and not iv[HAS_IMPROVING]
                     and not iv[CLEANUP])

@@ -24,14 +24,21 @@ priced as Dantzig; first-index or largest-pivot ties),
    holds (``cluster_plan`` fits): ``rank1_cluster`` (the whole walk in one
    launch of one cluster, the frame in the blocks' shared memory,
    ``kernels.rank1_cluster``);
-3. otherwise ``rank1_step`` (``kernels.rank1``: four stream-ordered
-   launches a step, five with the greatest increase's and devex's column
-   pass; the dual walk's three on one block and one on the grid).
+3. otherwise, where ``rank1_grid_plan`` holds on the card's SMs (resident,
+   or past the shared memory streamed) and the card holds at least one
+   block of it an SM (``rank1_grid_occupancy``): ``rank1_grid`` (the whole
+   walk in one persistent cooperative launch on the whole card, a column
+   slab of the frame in each SM's shared memory, the rows past it streamed
+   through device memory, ``kernels.rank1_grid``);
+4. only where ``rank1_grid_plan`` refuses the frame (``GridPlanTooLarge``)
+   ``rank1_step`` (``kernels.rank1``: four stream-ordered launches a step,
+   five with the greatest increase's and devex's column pass; the dual
+   walk's three on one block and one on the grid).
 
 Each gets the plain loop's ``stall_limit`` and ``opts.max_iters``, so
 ``finish`` and the absolute ``niter`` budgets of ``refresh.py`` hold, and
 a contiguous tableau. There is no fallback: a build or launch failure
-raises.
+raises, and so does a grid plan that the card cannot hold.
 """
 
 from __future__ import annotations
@@ -40,11 +47,14 @@ import torch
 
 from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
                           SimplexState, SolverOptions, Status)
+from ..kernels.bounded_grid import GRID_SMS, GridPlanTooLarge
 from ..kernels.fma import fused_fma
 from ..kernels.lanes import lane_dual, lane_plan, lane_primal
-from ..kernels.launch import on_cpu
+from ..kernels.launch import on_cpu, sm_count
 from ..kernels.rank1 import rank1_steps
 from ..kernels.rank1_cluster import cluster_plan, rank1_cluster
+from ..kernels.rank1_grid import (rank1_grid, rank1_grid_occupancy,
+                                  rank1_grid_plan)
 
 __all__ = [
     "simplex_step",
@@ -277,17 +287,31 @@ def finish(s: SimplexState) -> SimplexState:
         s.status == Status.RUNNING, Status.ITERATION_LIMIT, s.status))
 
 
-def solo_route(walk: str, M: int, N: int, dtype) -> str:
+def solo_route(walk: str, M: int, N: int, dtype, sms: int = GRID_SMS,
+               device: torch.device | None = None) -> str:
     """The kernel that runs a solo ``walk`` ("primal", "devex" or "dual")
-    of an (M, N) tableau of ``dtype`` on the card: "lane_primal",
-    "lane_dual", "rank1_cluster" or "rank1_step" (the module's rule)."""
+    of an (M, N) tableau of ``dtype`` on a card of ``sms`` SMs:
+    "lane_primal", "lane_dual", "rank1_cluster", "rank1_grid" or
+    "rank1_step" (the module's rule). With ``device`` (a CUDA device) the
+    grid's occupancy there is asked, and a grid plan that the card cannot
+    hold raises RuntimeError; the plan's other refusals (a type other than
+    f32 and f64, a frame out of range) raise ValueError."""
     if walk not in ("primal", "devex", "dual"):
         raise ValueError(f"unknown walk {walk!r}")
     if walk != "devex" and _resident(M, N, dtype):
         return "lane_primal" if walk == "primal" else "lane_dual"
     if _fits_cluster(M, N, dtype):
         return "rank1_cluster"
-    return "rank1_step"
+    try:
+        plan = rank1_grid_plan(M, N, dtype, sms)
+    except GridPlanTooLarge:  # rows 0-2 and the ring past a block's
+        return "rank1_step"
+    if device is not None and rank1_grid_occupancy(
+            M, N, dtype, walk, device) < 1:
+        raise RuntimeError(f"rank1_grid: the card holds no block of "
+                           f"{plan.smem} bytes of shared memory an SM "
+                           f"({M} x {N} {dtype}, {walk})")
+    return "rank1_grid"
 
 
 def _resident(M: int, N: int, dtype) -> bool:
@@ -320,15 +344,17 @@ def solo_walk(walk: str, state: SimplexState, opts: SolverOptions,
     """The solo ``walk`` of ``state`` (on one CUDA device) on the kernel of
     ``solo_route``, to its exit or to ``opts.max_iters`` (a RUNNING exit at
     the budget stays RUNNING)."""
-    state = state._replace(T=state.T.contiguous())
-    route = solo_route(walk, *state.T.shape, state.T.dtype)
-    if route in ("rank1_cluster", "rank1_step"):
-        gamma = torch.ones((state.n,), dtype=state.T.dtype,
-                           device=state.T.device) if walk == "devex" \
-            else None
-        run = rank1_cluster if route == "rank1_cluster" else rank1_steps
-        return run(state, opts, stall_limit, opts.max_iters, gamma,
-                   dual=walk == "dual")[0]
+    T = state.T.contiguous()
+    state = state._replace(T=T)
+    route = solo_route(walk, *T.shape, T.dtype, sm_count(T.device),
+                       T.device)
+    runs = {"rank1_cluster": rank1_cluster, "rank1_grid": rank1_grid,
+            "rank1_step": rank1_steps}
+    if route in runs:
+        gamma = torch.ones((state.n,), dtype=T.dtype, device=T.device) \
+            if walk == "devex" else None
+        return runs[route](state, opts, stall_limit, opts.max_iters, gamma,
+                           dual=walk == "dual")[0]
     loop = lane_primal if route == "lane_primal" else lane_dual
     return one_lane(loop, state, opts, stall_limit, opts.max_iters)
 
