@@ -2097,10 +2097,17 @@ BLK5_STAGE_K = 16
 BLK5_BUDGET = 100
 BLK5_CLEANUP_M, BLK5_CLEANUP_N, BLK5_CLEANUP_ROWS = 128, 192, 24
 # (g): a wide LP in auto's blocked range (258 x 14,257, 3.7M elements)
-# whose block of 64 eta slots no cluster holds: blocked_step's route
+# whose block of 64 eta slots no cluster holds: blocked_grid's route
 BLK5_WIDE_M, BLK5_WIDE_N = 256, 14_000
-# the first pivots of (g)'s walk held against the plain-stage walk
+# the first pivots of (g)'s walk held against blocked_grid_reference
 BLK5_WIDE_WINDOW = 512
+# (p): (g)'s LP in blocks of BLK5_PAST_K slots, whose slabs pass a block's
+# shared memory (the grid's plan refuses it): blocked_step's route, walked
+# to a budget (the plain-stage walk held beside it runs every slot of its
+# block, so the budget stays small) and its first slots timed
+BLK5_PAST_K, BLK5_PAST_BUDGET, BLK5_PAST_TIMED = 256, 96, 32
+# the grid's edge walks: Bland's walk of the 64 x 128 LP cut to a budget
+BLK5_GRID_BLAND = 200
 # (f): bench.py's recipe at (m, n), the tableau (m + 2) x (n + m + 1), and
 # the pivots timed on each engine
 THRESH_SHAPES = ((256, 512), (512, 512), (1024, 1024), (1536, 1536))
@@ -2650,6 +2657,428 @@ def cluster_edge_walks(dt, sf_a, sf_d, sf_r, a_walk, dev="cuda"):
     return out
 
 
+def grid_walk_blocked(state, opts, K: int = BLK5_K, max_iters=None,
+                      **kw):
+    """``blocked_grid``'s walk of ``state`` (eta-scaled ``opts``):
+    (finished state, weights)."""
+    from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.solve.driver import finish
+
+    stall = opts.resolved_stall_limit(state.m, state.n)
+    s, g = kg.blocked_grid(state, opts, stall, opts.max_iters if max_iters
+                           is None else max_iters, K, **kw)
+    return finish(s), g
+
+
+def blocked_grid_check(state, opts, label: str, K: int = BLK5_K,
+                       window: int = BLK5_WIDE_WINDOW):
+    """5d (g): ``blocked_grid``'s walk on its plan's grid (what
+    ``run_simplex_blocked`` runs on the card past the cluster's plan) held
+    equal in every field (``T + 0.0``, NaN equal, the devex weights too) to
+    ``blocked_steps``' whole walk, and over its first ``window`` pivots to
+    ``blocked_grid_reference`` on the card (the plan's G, flushed by the
+    same B1); its launches one ``blocked_grid``, one B1 flush and one ray
+    launch a block and nothing else; the two kernels' whole walks timed on
+    the host clock in turns (grid, step, step, grid, twice). Returns the
+    numbers."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.kernels.block import fused_flush
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve.driver import finish
+
+    dt, dev = state.T.dtype, state.T.device
+    o = eta_scaled_options(opts, dt)
+    stall = o.resolved_stall_limit(state.m, state.n)
+    M, N = state.T.shape
+    plan = kg.blocked_grid_plan(M, N, K, dt, sm_count(dev))
+    occ = kg.blocked_grid_occupancy(M, N, K, dt, dev)
+    runs = {"grid": lambda: grid_walk_blocked(state, o, K),
+            "step": lambda: kb.blocked_steps(state, o, stall, o.max_iters,
+                                             K)}
+    sync(dev)
+    reset_launches()
+    k, gk = runs["grid"]()
+    sync(dev)
+    launches = dict(LAUNCHES)
+    blocks = launches["blocked_grid"]
+    others = {key: v for key, v in launches.items() if v and key not in (
+        "blocked_grid", "blocked_ray", "fused_flush")}
+    if others or not blocks or launches["fused_flush"] != blocks or \
+            launches["blocked_ray"] != blocks:
+        raise AssertionError(f"5d {label}: the grid walk's launches "
+                             f"{launches}")
+    sp, gs = runs["step"]()
+    sync(dev)
+    err = lanes_equal(k, finish(sp))
+    if not torch.equal(gk.cpu() + 0.0, gs.cpu() + 0.0):
+        raise AssertionError(f"5d {label}: the devex weights differ from "
+                             "blocked_steps'")
+    # the window against the plain version
+    ow = dc.replace(o, max_iters=min(o.max_iters, int(state.niter) + window))
+    kw_, gkw = grid_walk_blocked(state, ow, K)
+    sync(dev)
+    t0 = time.perf_counter()
+    pw, gpw = kg.blocked_grid_reference(state, ow, stall, ow.max_iters, K,
+                                        plan.blocks, flush=fused_flush)
+    sync(dev)
+    plain_secs = time.perf_counter() - t0
+    err = max(err, lanes_equal(kw_, finish(pw)))
+    if not torch.equal(gkw.cpu() + 0.0, gpw.cpu() + 0.0):
+        raise AssertionError(f"5d {label}: the devex weights differ from "
+                             "blocked_grid_reference's")
+    wsteps = max(int(pw.niter) - int(state.niter), 1)
+    host = {"grid": [], "step": []}
+    for name in ("grid", "step", "step", "grid") * 2:
+        sync(dev)
+        t0 = time.perf_counter()
+        runs[name]()
+        sync(dev)
+        host[name].append(time.perf_counter() - t0)
+    niter = max(int(k.niter) - int(state.niter), 1)
+    res = {"status": int(k.status), "niter": niter, "blocks": blocks,
+           "grid": plan.blocks, "width": plan.width, "height": plan.height,
+           "smem": plan.smem, "mail": plan.mail, "occupancy": occ,
+           "max_abs_err": err, "window": wsteps,
+           "walk_seconds": float(np.median(host["grid"])),
+           "step_walk_seconds": float(np.median(host["step"])),
+           "us_per_pivot": 1e6 * float(np.median(host["grid"])) / niter,
+           "step_us_per_pivot": 1e6 * float(np.median(host["step"])) / niter,
+           "plain_ms_per_pivot": 1e3 * plain_secs / wsteps}
+    log(f"# 5d {label} {M}x{N} {str(dt)[6:]} K={K}: blocked_grid on "
+        f"{plan.blocks} blocks ({plan.width} columns, {plan.height} rows, "
+        f"{plan.smem} bytes of shared memory a block, {plan.mail} bytes of "
+        f"mailboxes; occupancy {occ} a block an SM), {blocks} launches: its "
+        f"walk equals blocked_steps' whole walk in every field (status "
+        f"{res['status']}, {niter} pivots) and its first {wsteps} pivots "
+        f"blocked_grid_reference's; {res['us_per_pivot']:.2f} us a pivot on "
+        f"the host clock, blocked_step {res['step_us_per_pivot']:.2f} in "
+        f"turns; the plain version {res['plain_ms_per_pivot']:.3f} ms a "
+        "pivot")
+    return res
+
+
+def grid_slot_bound(state, K: int, G: int, clock_hz: float):
+    """The kernel's own convention for a ``blocked_grid`` slot, ms: T0's
+    column and row read through 3.35 TB/s, the launch's load and store of U
+    and V (K (M + N)) and of the running vectors through 3.35 TB/s divided
+    by K, and the eta sums' U and V entries (t + 1) (M + N) at the mean slot
+    t = (K - 1) / 2 read from shared memory at 128 bytes a clock on the G
+    SMs used."""
+    M, N = state.T.shape
+    es = state.T.element_size()
+    hbm = es * (M + N) + es * (2 * K * (M + N) + 2 * (2 * N + M)) / K
+    smem = es * ((K - 1) / 2 + 1) * (M + N)
+    return 1e3 * (hbm / HBM_BYTES_S + smem / (128 * G * clock_hz))
+
+
+def grid_slot_us(state, opts, label: str, clock_hz: float,
+                 K: int = BLK5_K):
+    """One ``blocked_grid`` launch of the walk's second block (K slots, on
+    a copy of the record at the block's start) on the card alone, in turns
+    with ``blocked_step``'s K slots enqueued from the same record (grid,
+    step, step, grid; CUDA events after a sleep that covers the host's
+    enqueue): device us a slot of each, the grid's host us to launch, its
+    stage split (block 0's cycles as shares of the launch), the plan and
+    occupancy, and the slot's bounds: the table's step convention
+    (``slot_bound``), the contract's (``cluster_bound``: each input read
+    once a launch) and the kernel's own (``grid_slot_bound``)."""
+    import torch
+
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+
+    o = eta_scaled_options(opts, state.T.dtype)
+    stall = o.resolved_stall_limit(state.m, state.n)
+    mi = o.max_iters
+    dev = state.T.device
+    M, N = state.T.shape
+    plan = kg.blocked_grid_plan(M, N, K, state.T.dtype, sm_count(dev))
+    work = kg.blocked_grid_work(plan, dev)
+    rec = kb.make_record(state, K)
+    kg.blocked_grid_block(rec, o, stall, mi, work=work)
+    kb.flush_and_ray(rec, o, stall, mi)
+    start = kb.clone_record(rec)
+    grid_us, step_us, host_us = [], [], []
+    for kind in ("grid", "step", "step", "grid") * 2:
+        c = kb.clone_record(start)
+        if kind == "grid":
+            d, h = launches_us(lambda: kg.blocked_grid_block(
+                c, o, stall, mi, work=work), K)
+            grid_us.append(d)
+            host_us.append(h)
+        else:
+            step_us.append(launches_us(lambda: kb.enqueue_slots(
+                c, o, stall, mi, K), K)[0])
+        if int(c.ints[kb.STATUS]) != 0 or int(c.ints[kb.SLOT]) != K:
+            raise AssertionError("5d: the timed slots ran past the walk")
+    cyc = torch.zeros((len(kg.BLOCKED_GRID_STAGES),), dtype=torch.int64,
+                      device=dev)
+    kg.blocked_grid_block(kb.clone_record(start), o, stall, mi,
+                          stage_cycles=cyc, work=work)
+    share = (cyc.double() / cyc.sum().double().clamp_min(1)).tolist()
+    us = float(np.mean(grid_us))
+    split = {name: us * f for name, f in zip(kg.BLOCKED_GRID_STAGES, share)}
+    step_ms, step_by = slot_bound(state, opts, K)
+    bound_ms, bound_by = cluster_bound(state, opts, K)
+    own_ms = grid_slot_bound(state, K, plan.blocks, clock_hz)
+    res = {"device_us_per_slot": us, "device_us_turns": grid_us,
+           "step_device_us_per_slot": float(np.mean(step_us)),
+           "step_device_us_turns": step_us,
+           "host_us_per_slot": float(np.median(host_us)),
+           "device_us_by_stage": split, "blocks": plan.blocks,
+           "width": plan.width, "height": plan.height, "smem": plan.smem,
+           "occupancy": kg.blocked_grid_occupancy(M, N, K, state.T.dtype,
+                                                  dev),
+           "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
+           "step_bound_us_per_slot": 1e3 * step_ms,
+           "grid_bound_us_per_slot": 1e3 * own_ms, "sm_clock_hz": clock_hz}
+    log(f"# 5d blocked_grid {label} {M}x{N} {str(state.T.dtype)[6:]} "
+        f"K={K}: {us:.2f} us a slot on the card (CUDA events over one launch "
+        f"of {K} slots, in turns: {[round(x, 3) for x in grid_us]}), "
+        f"blocked_step {res['step_device_us_per_slot']:.2f} "
+        f"({[round(x, 3) for x in step_us]}); block 0's clock: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"; {res['host_us_per_slot']:.3f} us of host time a slot to "
+        f"launch; G {plan.blocks}, W {plan.width}, H {plan.height}, "
+        f"{plan.smem} bytes of shared memory a block, occupancy "
+        f"{res['occupancy']}; bounds a slot: {1e3 * bound_ms:.4f} us "
+        f"({bound_by}, each input once a launch), {1e3 * own_ms:.4f} us (the "
+        f"kernel's convention), {1e3 * step_ms:.3f} us (the table's step "
+        "convention)")
+    return res
+
+
+def grid_vs_cluster_us(state, opts, label: str, K: int = BLK5_K):
+    """At a shape both hold ((a)'s 514 x 1537): one ``blocked_grid`` launch
+    and one ``blocked_cluster`` launch of the walk's second block on the
+    card alone, in turns (cluster, grid, grid, cluster, twice; CUDA events
+    after a sleep, one untimed launch of each first): device us a slot of
+    each, and the two blocks equal."""
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+
+    o = eta_scaled_options(opts, state.T.dtype)
+    stall = o.resolved_stall_limit(state.m, state.n)
+    mi = o.max_iters
+    dev = state.T.device
+    M, N = state.T.shape
+    plan = kg.blocked_grid_plan(M, N, K, state.T.dtype, sm_count(dev))
+    work = kg.blocked_grid_work(plan, dev)
+    rec = kb.make_record(state, K)
+    kbc.blocked_cluster_block(rec, o, stall, mi)
+    kb.flush_and_ray(rec, o, stall, mi)
+    start = kb.clone_record(rec)
+    # one untimed launch of each first (the grid's first launch at a plan
+    # raises its shared-memory limit)
+    for fn in (lambda c: kg.blocked_grid_block(c, o, stall, mi, work=work),
+               lambda c: kbc.blocked_cluster_block(c, o, stall, mi)):
+        fn(kb.clone_record(start))
+    out = {"grid": [], "cluster": []}
+    ends = {}
+    for kind in ("cluster", "grid", "grid", "cluster") * 2:
+        c = kb.clone_record(start)
+        fn = (lambda: kg.blocked_grid_block(c, o, stall, mi, work=work)) \
+            if kind == "grid" else \
+            (lambda: kbc.blocked_cluster_block(c, o, stall, mi))
+        out[kind].append(launches_us(fn, K)[0])
+        ends[kind] = c
+        if int(c.ints[kb.STATUS]) != 0 or int(c.ints[kb.SLOT]) != K:
+            raise AssertionError("5d: the timed slots ran past the walk")
+    for name, a, b in zip(kb.BlockedRecord._fields, ends["grid"],
+                          ends["cluster"]):
+        if name not in ("scratch", "ints") and not raw_equal(
+                a + 0.0 if a.is_floating_point() else a,
+                b + 0.0 if b.is_floating_point() else b):
+            raise AssertionError(f"5d {label}: the grid's block and the "
+                                 f"cluster's differ in {name}")
+    res = {"grid_us_per_slot": float(np.mean(out["grid"])),
+           "cluster_us_per_slot": float(np.mean(out["cluster"])),
+           "grid_turns": out["grid"], "cluster_turns": out["cluster"],
+           "grid": plan.blocks}
+    log(f"# 5d {label} {M}x{N} {str(state.T.dtype)[6:]} K={K}, one launch "
+        f"of the second block in turns: blocked_grid "
+        f"{res['grid_us_per_slot']:.2f} us a slot on the card "
+        f"({[round(x, 3) for x in out['grid']]}; G {plan.blocks}), "
+        f"blocked_cluster {res['cluster_us_per_slot']:.2f} "
+        f"({[round(x, 3) for x in out['cluster']]}); the two blocks equal")
+    return res
+
+
+def blocked_grid_edge_walks(dt, sf_d, sf_r, dev="cuda"):
+    """``blocked_grid`` on grids of 1, 2, 3, 7 blocks and the plan's held in
+    every field against ``blocked_grid_reference`` on the card (the plan's
+    G, flushed by the same B1): the clean-up LP under devex with
+    largest-pivot ties (K = 16: the clean-up pivots, barrier C, a retire,
+    the phase change with devex's reset, the ray launch's gate with an
+    artificial basic and without), devex's first pivot on 2e-4 (K = 16: the
+    1e8 reset, its pick under unit weights), and on a 64 x 128 LP (K = 8)
+    Bland's walk to BLK5_GRID_BLAND pivots, a budget inside a block and the
+    budget of the walk's last pivot (the slot past it still ends the walk).
+    Returns {walk: numbers}."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core import Status, eta_scaled_options
+    from tpulp_torch.core.state import RULE_BLAND, RULE_DEVEX, TIE_MAXPIV
+    from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.kernels.block import fused_flush
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.driver import finish
+
+    plain = SolverOptions.for_dtype(dt)
+    devex = SolverOptions.for_dtype(dt, rule=RULE_DEVEX)
+    # a walk of a few blocks (66 x 193: 27 pivots under Dantzig at f64)
+    sf_s = scenario_form(*dense_leq_arrays(64, 128, seed=3))
+    st_s = state_from_standard_form(sf_s, dtype=dt, device=dev)
+    last = int(grid_walk_blocked(st_s, eta_scaled_options(plain, dt),
+                                 8)[0].niter)
+    cases = {
+        "cleanup_retire_devex_reset_ray_gate": (
+            sf_d, dc.replace(devex, tie_break=TIE_MAXPIV), BLK5_STAGE_K,
+            None),
+        "reset_1e8": (sf_r, devex, BLK5_STAGE_K, None),
+        "bland": (sf_s, SolverOptions.for_dtype(dt, rule=RULE_BLAND), 8,
+                  BLK5_GRID_BLAND),
+        "budget_inside_a_block": (sf_s, plain, 8, 13),
+        "slot_past_the_budget": (sf_s, plain, 8, last)}
+    out = {}
+    for name, (sf, opts, K, budget) in cases.items():
+        st = state_from_standard_form(sf, dtype=dt, device=dev)
+        o = eta_scaled_options(opts, dt)
+        if budget is not None:
+            o = dc.replace(o, max_iters=budget)
+        stall = o.resolved_stall_limit(st.m, st.n)
+        M, N = st.T.shape
+        G = kg.blocked_grid_plan(M, N, K, dt, sm_count(st.T.device)).blocks
+        p, gp = kg.blocked_grid_reference(st, o, stall, o.max_iters, K, G,
+                                          flush=fused_flush)
+        p = finish(p)
+        for blocks in (1, 2, 3, 7, None):
+            k, gk = grid_walk_blocked(st, o, K, blocks=blocks)
+            sync(dev)
+            lanes_equal(k, p)
+            if not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
+                raise AssertionError(f"5d grid edge walk {name} G={blocks}: "
+                                     "the devex weights differ")
+        status, niter = int(p.status), int(p.niter)
+        if name == "budget_inside_a_block" and (
+                niter != budget or status != Status.ITERATION_LIMIT):
+            raise AssertionError(f"5d grid edge walk {name}: {status}, "
+                                 f"{niter}")
+        if name == "slot_past_the_budget" and (
+                niter != budget or status != Status.OPTIMAL
+                or budget % K == 0):
+            raise AssertionError(f"5d grid edge walk {name}: {status}, "
+                                 f"{niter}, budget {budget}")
+        out[name] = {"status": status, "niter": niter, "K": K,
+                     "grids": [1, 2, 3, 7, G], "shape": [M, N]}
+    log(f"# 5d blocked_grid edge walks, {str(dt)[6:]}: each equals "
+        "blocked_grid_reference in every field on grids of 1, 2, 3, 7 and the"
+        " plan's: " + "; ".join(
+            f"{k} {tuple(v['shape'])} K={v['K']} (status {v['status']}, "
+            f"{v['niter']} pivots; plan G {v['grids'][-1]})"
+            for k, v in out.items()))
+    return out
+
+
+def past_grid_blocked(dev="cuda"):
+    """5d (p): (g)'s wide LP in blocks of BLK5_PAST_K slots, past the grid's
+    plan (its slabs pass a block's shared memory): ``run_simplex_blocked``
+    runs ``blocked_step`` (counts set to 0 just before it, read just after:
+    slots, no ``blocked_grid``) to a budget of BLK5_PAST_BUDGET pivots, its
+    walk held in every field to the plain-stage walk flushed by the same
+    B1, and its slots timed on the card (the first BLK5_PAST_TIMED slots
+    enqueued by one C call, CUDA events after a sleep), with the table's
+    step bound at their mean slot."""
+    import dataclasses as dc
+
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve import run_simplex_blocked
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.blocked import blocked_route
+
+    dt = torch.float64
+    Aw, bw, cw = dense_leq_arrays(BLK5_WIDE_M, BLK5_WIDE_N, seed=2)
+    st = state_from_standard_form(scenario_form(Aw, bw, cw), dtype=dt,
+                                  device=dev)
+    M, N = st.T.shape
+    K = BLK5_PAST_K
+    try:
+        kg.blocked_grid_plan(M, N, K, dt, sm_count(st.T.device))
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"5d (p): the grid's plan holds K = {K}")
+    if blocked_route(M, N, K, dt, st.T.device) != "blocked_step":
+        raise AssertionError(f"5d (p): {M} x {N} K={K} is not on "
+                             "blocked_step's route")
+    o = eta_scaled_options(dc.replace(SolverOptions.for_dtype(dt),
+                                      max_iters=BLK5_PAST_BUDGET), dt)
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    k = run_simplex_blocked(st, o, K)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if launches["blocked_grid"] or launches["blocked_cluster"] or \
+            launches["blocked_step"] != K * launches["blocked_ray"] or \
+            not launches["blocked_step"]:
+        raise AssertionError(f"5d (p): launches {launches}")
+    p, _, plain_secs = blocked_plain(st, o, K)
+    err = lanes_equal(k, p)
+    niter = max(int(k.niter), 1)
+    stall = o.resolved_stall_limit(st.m, st.n)
+    rec = kb.make_record(st, K)
+    dev_us, host_us = [], []
+    for _ in range(3):
+        c = kb.clone_record(rec)
+        d, h = launches_us(lambda: kb.enqueue_slots(
+            c, o, stall, o.max_iters, BLK5_PAST_TIMED), BLK5_PAST_TIMED)
+        dev_us.append(d)
+        host_us.append(h)
+    # the table's step convention at the timed slots' mean slot index
+    bound_ms, bound_by = slot_bound(st, o, BLK5_PAST_TIMED)
+    res = {"launches": launches, "status": int(k.status), "niter": niter,
+           "seconds": secs, "plain_seconds": plain_secs,
+           "max_abs_err": err, "ms_per_pivot": 1e3 * secs / niter,
+           "plain_ms_per_pivot": 1e3 * plain_secs / niter,
+           "device_us_per_slot": float(np.median(dev_us)),
+           "host_us_per_slot": float(np.median(host_us)),
+           "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
+           "timed_slots": BLK5_PAST_TIMED, "K": K, "refused": refused}
+    log(f"# 5d (p) {M}x{N} f64 K={K}, past the grid's plan ({refused}): "
+        f"run_simplex_blocked runs blocked_step (launches {launches}), "
+        f"{niter} pivots to the budget in {1e3 * secs:.1f} ms, equal to the "
+        f"plain-stage walk in every field; {res['device_us_per_slot']:.2f} "
+        f"us a slot on the card over its first {BLK5_PAST_TIMED} slots "
+        f"({res['host_us_per_slot']:.2f} us of host time to enqueue one); "
+        f"bound {1e3 * bound_ms:.4f} us a slot ({bound_by})")
+    return res
+
+
 def blocked_flush_case(state, K: int = BLK5_K):
     """B1 at the blocked engine's shape: the flush of the walk's first
     block of K slots against its plain version, with ``addmm`` beside
@@ -2747,10 +3176,10 @@ def blocked_solve(sf, dt, driver: str, label: str, optimal: bool = True,
                   dev="cuda", route: str = "blocked_cluster"):
     """``solve_lp`` with the launch counts set to 0 just before it and read
     just after: the blocked engine's kernels on ``route`` launched (one
-    ``blocked_cluster`` launch a block, or ``blocked_step`` slots), one ray
-    launch and one B1 flush a block, nothing of the other route, no FMA, no
-    B2; with ``optimal`` the answer optimal and certified
-    (``float_basis_certificate``)."""
+    ``blocked_cluster`` or ``blocked_grid`` launch a block, or
+    ``blocked_step`` slots), one ray launch and one B1 flush a block,
+    nothing of the other routes, no FMA, no B2; with ``optimal`` the answer
+    optimal and certified (``float_basis_certificate``)."""
     import tpulp_torch
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.solve.refine import float_basis_certificate
@@ -2765,19 +3194,18 @@ def blocked_solve(sf, dt, driver: str, label: str, optimal: bool = True,
     log(f"# 5d solve_lp {label} {str(dt)[6:]} (driver={driver!r}): "
         f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
         f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
-    other = "blocked_step" if route == "blocked_cluster" else \
-        "blocked_cluster"
+    others = [r for r in ("blocked_cluster", "blocked_grid",
+                          "blocked_step") if r != route]
     blocks = launches["blocked_ray"]
-    if not (launches[route] > 0 and launches[other] == 0
+    if not (launches[route] > 0 and not any(launches[r] for r in others)
             and launches["fused_fma"] == 0
             and launches["blocked_inner_block"] == 0
             and launches["fused_flush"] == blocks > 0
-            and (route == "blocked_step"
-                 or launches["blocked_cluster"] == blocks)):
+            and (route == "blocked_step" or launches[route] == blocks)):
         raise AssertionError(f"5d {label}: launches {launches}, want "
-                             f"{route} (one launch a block for the cluster),"
-                             " one B1 flush and one ray launch a block, no "
-                             f"{other}, no FMA, no B2")
+                             f"{route} (one launch a block for the cluster "
+                             "and the grid), one B1 flush and one ray launch "
+                             f"a block, none of {others}, no FMA, no B2")
     out = {"status": sol.status, "rung": sol.rung, "niter": sol.niter,
            "seconds": secs, "launches": launches, "route": route,
            "objective": str(sol.objective)}
@@ -2862,8 +3290,9 @@ def other_walks(state, opts, label: str):
 def phase_blocked_engine(dev="cuda"):
     """Phase 5d: the solo rank-K blocked engine on its kernels: on the
     cluster route (``blocked_cluster``, one launch a block of 64 slots,
-    where its plan fits) and on ``blocked_step`` (six launches a slot), B1
-    and the ray launch a block. (a) ``solve_lp(driver="auto")`` on phase
+    where its plan fits), on the grid route past it (``blocked_grid``, one
+    cooperative launch a block) and on ``blocked_step`` (six launches a
+    slot, past the grid's plan), B1 and the ray launch a block. (a) ``solve_lp(driver="auto")`` on phase
     8c's recipe, one LP of 512 x 1024 (514 x 1537, the blocked engine on
     the cluster route: one ``blocked_cluster`` launch a block, no
     ``blocked_step``; optimal, certified, the eager engine's objective
@@ -2880,15 +3309,19 @@ def phase_blocked_engine(dev="cuda"):
     a largest-pivot tie, a clean-up pivot, a retire, the phase change with
     its devex reset and the ray launch with and without an artificial basic
     (``cleanup_arrays``), and the 1e8 reset (a pivot on 2e-4); the cluster's
-    edge walks on the same LPs at every cluster size. (e) the device us a
-    slot, by launch for ``blocked_step`` and by stage for the cluster
-    (block 0's clock), the host's enqueue, B1 at the blocked shapes beside
-    ``addmm``; (f) the `auto` thresholds' table; (g) the route past the
-    plan: ``solve_lp(driver="auto")`` on a wide LP (258 x 14,257) runs
-    ``blocked_step`` at f64 and f32, whose walk there is held against the
-    plain-stage walk over its first BLK5_WIDE_WINDOW pivots and whose slot
-    is timed there. Returns the numbers; ``launches`` are (a)'s f64
-    solve's, ``step_launches`` (g)'s f64 solve's."""
+    edge walks on the same LPs at every cluster size, the grid's on grids of
+    1, 2, 3, 7 and the plan's. (e) the device us a slot, by launch for
+    ``blocked_step`` and by stage for the cluster (block 0's clock), the
+    host's enqueue, B1 at the blocked shapes beside ``addmm``, the grid and
+    the cluster in turns at (a)'s shape; (f) the `auto` thresholds' table;
+    (g) past the cluster's plan: ``solve_lp(driver="auto")`` on a wide LP
+    (258 x 14,257) runs ``blocked_grid`` at f64 and f32, whose walk there is
+    held against ``blocked_steps``' and, over its first BLK5_WIDE_WINDOW
+    pivots, ``blocked_grid_reference``, and whose slot is timed in turns
+    with ``blocked_step``'s; (p) past the grid's plan (the same LP in blocks
+    of BLK5_PAST_K) ``blocked_step`` runs and holds. Returns the numbers;
+    ``launches`` are (a)'s f64 solve's, ``grid_launches`` (g)'s f64
+    solve's, ``step_launches`` (p)'s walk's."""
     import dataclasses as dc
 
     import torch
@@ -2901,7 +3334,8 @@ def phase_blocked_engine(dev="cuda"):
 
     res = {"solves": {}, "walks": {}, "stages": {}, "slot_us": {},
            "flush": {}, "cluster_walks": {}, "cluster_slot_us": {},
-           "edge_walks": {}}
+           "edge_walks": {}, "grid_walks": {}, "grid_slot_us": {},
+           "grid_edge_walks": {}}
     A, b, c = dense_leq_arrays(BLK_M, BLK_N)
     sf_a = scenario_form(A, b, c)
     M, N = BLK_M + 2, BLK_M + BLK_N + 1
@@ -2936,6 +3370,9 @@ def phase_blocked_engine(dev="cuda"):
         res["cluster_walks"][f"a_{name}"] = cw
         res["cluster_slot_us"][f"a_{name}"] = cluster_slot_us(st, opts,
                                                               "(a)")
+        if name == "float64":
+            # the grid and the cluster at a shape both hold, in turns
+            res["grid_vs_cluster"] = grid_vs_cluster_us(st, opts, "(a)")
         w = blocked_walk_check(st, opts, "(a) Dantzig", window=None)
         if w["status"] != 1:
             raise AssertionError(f"5d (a): status {w['status']}")
@@ -2997,9 +3434,11 @@ def phase_blocked_engine(dev="cuda"):
         sr = state_from_standard_form(sf_r, dtype=dt, device=dev)
         res["stages"][f"reset_{name}"] = blocked_stage_checks(
             sr, ob, "a pivot on 2e-4", ("reset_1e8",), BLK5_STAGE_K)
-        # (d) the cluster's edge walks on the same LPs
+        # (d) the cluster's and the grid's edge walks on the same LPs
         res["edge_walks"][name] = cluster_edge_walks(
             dt, sf_a, sf_d, sf_r, cw, dev)
+        res["grid_edge_walks"][name] = blocked_grid_edge_walks(
+            dt, sf_d, sf_r, dev)
         for walk in res["cluster_walks"].values():
             walk.pop("plain", None)
         # (e) B1 at the blocked engine's shape
@@ -3016,18 +3455,24 @@ def phase_blocked_engine(dev="cuda"):
     torch.cuda.empty_cache()
     # (f) the thresholds, measured
     res["thresholds"] = threshold_table(dev)
-    # (g) the route past the plan: a wide LP in auto's blocked range
+    # (g) past the cluster's plan: a wide LP in auto's blocked range on the
+    # grid; (p) past the grid's plan on blocked_step
     wide_route(res, dev)
-    res["step_launches"] = res["solves"]["g_wide_float64"]["launches"]
+    res["grid_launches"] = res["solves"]["g_wide_float64"]["launches"]
+    res["step_launches"] = res["past"]["launches"]
     return res
 
 
 def wide_route(res, dev="cuda"):
     """5d (g): ``solve_lp(driver="auto")`` on a wide LP in auto's blocked
     range past the cluster's plan (258 x 14,257) at f64 and f32 runs
-    ``blocked_step``; its walk there held against the plain-stage walk
-    over the first BLK5_WIDE_WINDOW pivots, and its slot timed there.
-    Adds to ``res``'s "solves", "walks" and "slot_us"."""
+    ``blocked_grid``, one launch a block, and no ``blocked_step``; its walk
+    there held against ``blocked_steps``' whole walk and
+    ``blocked_grid_reference`` over the first BLK5_WIDE_WINDOW pivots
+    (``blocked_grid_check``), its slot timed in turns with
+    ``blocked_step``'s (``grid_slot_us``); (p) the route past the grid's
+    plan (``past_grid_blocked``). Adds to ``res``'s "solves",
+    "grid_walks", "grid_slot_us" and "past"."""
     import torch
 
     from tpulp_torch import SolverOptions
@@ -3040,23 +3485,25 @@ def wide_route(res, dev="cuda"):
         raise AssertionError(f"5d (g): {Mw} x {Nw} is not on auto's "
                              "blocked engine")
     sf_w = scenario_form(Aw, bw, cw)
+    clock_hz = sm_clock_hz()
     for dt in (torch.float64, torch.float32):
         name = str(dt)[6:]
         if blocked_route(Mw, Nw, BLK5_K, dt, torch.device(dev)) != \
-                "blocked_step":
-            raise AssertionError(f"5d (g): {Mw} x {Nw} {name} is not past "
-                                 "the cluster's plan")
+                "blocked_grid":
+            raise AssertionError(f"5d (g): {Mw} x {Nw} {name} is not on the "
+                                 "grid's route")
         label = f"(g) wide {BLK5_WIDE_M}x{BLK5_WIDE_N}"
         _, res["solves"][f"g_wide_{name}"] = blocked_solve(
-            sf_w, dt, "auto", label, dev=dev, route="blocked_step")
-        # blocked_step held and timed at the shape its route gives it
+            sf_w, dt, "auto", label, dev=dev, route="blocked_grid")
         sw = state_from_standard_form(sf_w, dtype=dt, device=dev)
         opts = SolverOptions.for_dtype(dt)
-        res["walks"][f"g_wide_{name}"] = blocked_walk_check(
-            sw, opts, label, window=BLK5_WIDE_WINDOW)
-        res["slot_us"][f"g_wide_{name}"] = blocked_slot_us(sw, opts, label)
+        res["grid_walks"][f"g_wide_{name}"] = blocked_grid_check(
+            sw, opts, label)
+        res["grid_slot_us"][f"g_wide_{name}"] = grid_slot_us(
+            sw, opts, label, clock_hz)
         del sw
         torch.cuda.empty_cache()
+    res["past"] = past_grid_blocked(dev)
 
 
 def check_static_smem(ptxas) -> None:
@@ -3066,11 +3513,12 @@ def check_static_smem(ptxas) -> None:
     kernels' must fit the room ``lane_plan`` leaves, and each of the eight
     bounded kernels' and the sixteen rank-1 kernels' the 33 slots of its
     block reduction, and each of the fourteen blocked kernels' those and
-    its eta coefficients, and the two cluster kernels' and the two grid
+    its eta coefficients, and the two cluster kernels' and the three grid
     walks' the room their plans leave."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.blocked_cluster import \
         BLOCKED_CLUSTER_STATIC_SMEM
+    from tpulp_torch.kernels.blocked_grid import BLOCKED_GRID_STATIC_SMEM
     from tpulp_torch.kernels.bounded_grid import GRID_STATIC_SMEM
     from tpulp_torch.kernels.lanes import LANE_STATIC_SMEM
     from tpulp_torch.kernels.rank1_cluster import CLUSTER_STATIC_SMEM
@@ -3128,6 +3576,12 @@ def check_static_smem(ptxas) -> None:
             max(bkc.values()) > BLOCKED_CLUSTER_STATIC_SMEM:
         raise AssertionError(f"blocked_cluster's static shared memory {bkc}:"
                              f" the plan leaves {BLOCKED_CLUSTER_STATIC_SMEM}")
+    bgd = {k: v.get("static_smem", 0) for k, v in ptxas.items()
+           if k in BLOCKED_GRID_KERNELS.values()}
+    if len(bgd) != len(BLOCKED_GRID_KERNELS) or \
+            max(bgd.values()) > BLOCKED_GRID_STATIC_SMEM:
+        raise AssertionError(f"blocked_grid's static shared memory {bgd}: "
+                             f"the plan leaves {BLOCKED_GRID_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
         f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} and rank-1 "
@@ -3135,7 +3589,8 @@ def check_static_smem(ptxas) -> None:
         f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
         f"{clu} bytes, within {CLUSTER_STATIC_SMEM}; blocked_cluster {bkc} "
         f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}; bounded_grid {bgr} "
-        f"and rank1_grid {rgr} bytes, within {GRID_STATIC_SMEM}")
+        f"and rank1_grid {rgr} bytes, within {GRID_STATIC_SMEM}; "
+        f"blocked_grid {bgd} bytes, within {BLOCKED_GRID_STATIC_SMEM}")
 
 
 # the lane kernels' instantiations as their mangled names spell them:
@@ -3190,6 +3645,11 @@ BLOCKED_CLUSTER_KERNELS = {
     f"3bkc14cluster_kernelI{t}E":
     f"blocked_cluster_kernel<{'float' if t == 'f' else 'double'}>"
     for t in "fd"}
+# the blocked grid's instantiations: <float or double>
+BLOCKED_GRID_KERNELS = {
+    f"3bgd19blocked_grid_kernelI{t}E":
+    f"blocked_grid_kernel<{'float' if t == 'f' else 'double'}>"
+    for t in "fd"}
 # the static shared memory of a single-block walk kernel: the block
 # reduction's 33 slots (common.cuh's Red<double>: 32 bytes each); a blocked
 # kernel's adds at most MAX_K eta coefficients of 8 bytes and a scalar or
@@ -3225,6 +3685,8 @@ def _ptxas_name(name: str) -> str:
         return CLUSTER_KERNELS[name]
     if name in BLOCKED_CLUSTER_KERNELS:
         return BLOCKED_CLUSTER_KERNELS[name]
+    if name in BLOCKED_GRID_KERNELS:
+        return BLOCKED_GRID_KERNELS[name]
     if name in BOUNDED_GRID_KERNELS:
         return BOUNDED_GRID_KERNELS[name]
     if name in RANK1_GRID_KERNELS:
@@ -3254,6 +3716,7 @@ def ptxas_report(text: str):
                                  *BOUNDED_KERNELS, *RANK1_KERNELS,
                                  *BLOCKED_KERNELS, *CLUSTER_KERNELS,
                                  *BLOCKED_CLUSTER_KERNELS,
+                                 *BLOCKED_GRID_KERNELS,
                                  *BOUNDED_GRID_KERNELS, *RANK1_GRID_KERNELS)
                      if k in fn), None)
         if name is None:
@@ -4734,12 +5197,12 @@ def grid_edge_walks(dev="cuda"):
     first box LP, 12 x 20 and 40 x 90 box LPs) under Dantzig, devex, a
     stall limit of 1 (Bland), a budget of 7, a NaN in the RHS (NUMERIC),
     devex weights above the reset threshold and a basic column that is
-    not a unit vector (every step through barrier C): each resident on the
-    plan's grid and on 3 blocks, devex also on 1, 2 and 7; and streamed at
-    forced splits (rows 3, M // 2 and M - 1 in shared memory) on 1, 3 and 7
-    blocks in turn, devex on the plan's grid and 1, 2, 3 and 7 blocks at
-    each split; the flips too. Returns the cases' counts (resident,
-    streamed)."""
+    not a unit vector (every step through barrier C): each of the 21 walks
+    resident on the plan's grid at each type; and every forced split once
+    at each type, spread over the walks (stride 8 of 21): resident on 3, 1,
+    2 and 7 blocks, streamed at rows 3, M // 2 and M - 1 in shared memory
+    on the plan's grid and on 1, 2, 3 and 7 blocks; the flips too. Returns
+    the cases' counts (resident, streamed)."""
     import torch
 
     from tpulp_torch.kernels import bounded_grid as kg
@@ -4760,59 +5223,60 @@ def grid_edge_walks(dev="cuda"):
              "bland": dict(stall_limit=1, degen_tol=1e300, max_iters=300),
              "budget7": dict(max_iters=7), "numeric": {}, "big_weights": {},
              "not_unit": {}}
+    pairs = [(f, r) for f in forms for r in rules]
+    # the forced splits: resident on G blocks, streamed at split q (rows 3,
+    # M // 2, M - 1) on G blocks (None: the plan's)
+    forced = [(None, b) for b in (3, 1, 2, 7)] + [
+        (q, b) for q in range(3) for b in (None, 1, 2, 3, 7)]
     count = {"resident": 0, "streamed": 0}
     t0 = time.perf_counter()
-    for dt in (torch.float64, torch.float32):
+    for off, dt in enumerate((torch.float64, torch.float32)):
         tiny = 1e-300 if dt == torch.float64 else 1e-30
-        for fname, sf in forms.items():
-            for rule, kw in rules.items():
-                devex = rule in ("devex", "numeric", "big_weights")
-                bs, opts = bounded_state(sf, dev, dt, devex, **kw)
-                T = bs.s.T.clone()
-                if rule == "numeric":
-                    T[4, -1] = float("nan")
-                if rule == "not_unit":
-                    T[0, int(bs.s.basis[1])] = tiny
-                bs = bs._replace(s=bs.s._replace(T=T))
-                if rule == "big_weights":
-                    g = bs.gamma.clone()
-                    g[::3] = 3e8
-                    bs = bs._replace(gamma=g)
-                stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-                M = bs.s.T.shape[0]
-                splits = [(None, blocks) for blocks in (None, 3) + (
-                    (1, 2, 7) if rule == "devex" else ())]
-                for q, rows in enumerate((3, M // 2, M - 1)):
-                    splits += [(rows, blocks) for blocks in (
-                        (None, 1, 2, 3, 7) if rule == "devex"
-                        else ((1, 3, 7)[q],))]
-                for rows, blocks in splits:
-                    plan = kg.bounded_grid_plan(*bs.s.T.shape, dt, sms,
-                                                blocks=blocks, rows=rows)
-                    flips0 = dict(FLIPS)
-                    k = kg.bounded_grid(bs, opts, stall, opts.max_iters,
-                                        blocks=blocks, rows=rows) \
-                        if dev == "cuda" else kg.bounded_grid_reference(
-                            bs, opts, stall, opts.max_iters, plan.blocks)[0]
-                    sync(dev)
-                    p, counts = kg.bounded_grid_reference(
-                        cpu(bs), opts, stall, opts.max_iters, plan.blocks)
-                    bounded_equal(cpu(k), p)
-                    got = {key: FLIPS[key] - flips0[key] for key in FLIPS}
-                    if dev == "cuda" and got != counts:
-                        raise AssertionError(f"8a (e) {fname} {rule} {dt} "
-                                             f"G {plan.blocks} R {plan.rows}"
-                                             f": flips {got} against "
-                                             f"{counts}")
-                    count["resident" if rows is None else "streamed"] += 1
+        walks = [(f, r, None, None) for f, r in pairs] + [
+            (*pairs[(8 * i + 3 * off) % len(pairs)], q, b)
+            for i, (q, b) in enumerate(forced)]
+        for fname, rule, q, blocks in walks:
+            kw = rules[rule]
+            devex = rule in ("devex", "numeric", "big_weights")
+            bs, opts = bounded_state(forms[fname], dev, dt, devex, **kw)
+            T = bs.s.T.clone()
+            if rule == "numeric":
+                T[4, -1] = float("nan")
+            if rule == "not_unit":
+                T[0, int(bs.s.basis[1])] = tiny
+            bs = bs._replace(s=bs.s._replace(T=T))
+            if rule == "big_weights":
+                g = bs.gamma.clone()
+                g[::3] = 3e8
+                bs = bs._replace(gamma=g)
+            stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+            M = bs.s.T.shape[0]
+            rows = None if q is None else (3, M // 2, M - 1)[q]
+            plan = kg.bounded_grid_plan(*bs.s.T.shape, dt, sms,
+                                        blocks=blocks, rows=rows)
+            flips0 = dict(FLIPS)
+            k = kg.bounded_grid(bs, opts, stall, opts.max_iters,
+                                blocks=blocks, rows=rows) \
+                if dev == "cuda" else kg.bounded_grid_reference(
+                    bs, opts, stall, opts.max_iters, plan.blocks)[0]
+            sync(dev)
+            p, counts = kg.bounded_grid_reference(
+                cpu(bs), opts, stall, opts.max_iters, plan.blocks)
+            bounded_equal(cpu(k), p)
+            got = {key: FLIPS[key] - flips0[key] for key in FLIPS}
+            if dev == "cuda" and got != counts:
+                raise AssertionError(f"8a (e) {fname} {rule} {dt} "
+                                     f"G {plan.blocks} R {plan.rows}: flips "
+                                     f"{got} against {counts}")
+            count["resident" if rows is None else "streamed"] += 1
     log(f"# 8a (e) bounded_grid equals bounded_grid_reference in every field "
         f"(the flips too) on {count['resident']} resident and "
-        f"{count['streamed']} streamed small walks: 3 frames x f64, f32 x "
-        "Dantzig, devex, Bland, a budget, a NaN, weights above 1e8, a basic "
-        "column that is not a unit vector; resident on the plan's grid and "
-        "3 blocks, devex also 1, 2 and 7; streamed at rows 3, M // 2 and "
-        "M - 1 on 1, 3 and 7 blocks in turn, devex on the plan's grid and "
-        f"1, 2, 3 and 7 at each ({time.perf_counter() - t0:.1f} s)")
+        f"{count['streamed']} streamed small walks: 3 frames x Dantzig, "
+        "devex, Bland, a budget, a NaN, weights above 1e8, a basic column "
+        "that is not a unit vector, each on the plan's grid at f64 and f32; "
+        "every forced split once a type: resident on 3, 1, 2 and 7 blocks, "
+        "streamed at rows 3, M // 2 and M - 1 on the plan's grid and 1, 2, 3"
+        f" and 7 blocks ({time.perf_counter() - t0:.1f} s)")
     return count
 
 
@@ -5710,18 +6174,21 @@ def raw_equal(a, b) -> bool:
 
 def solo_lane_walks(batched, opts, K: int, route: str = "blocked_cluster"):
     """The solo walk of each padded lane of ``batched`` on ``route``
-    ("blocked_cluster" or "blocked_step"), as ``run_simplex_blocked``
-    would run it: (finished states, blocks each lane took, weights)."""
+    ("blocked_cluster", "blocked_grid" or "blocked_step"), as
+    ``run_simplex_blocked`` would run it: (finished states, blocks each
+    lane took, weights)."""
     from tpulp_torch.batch import unstack_state
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels import blocked as kb
     from tpulp_torch.kernels import blocked_cluster as kbc
+    from tpulp_torch.kernels import blocked_grid as kg
     from tpulp_torch.solve.driver import finish
 
     B, M, N = batched.T.shape
     stall = opts.resolved_stall_limit(M - 2, N - 1)
-    run = kbc.blocked_cluster if route == "blocked_cluster" \
-        else kb.blocked_steps
+    run = {"blocked_cluster": kbc.blocked_cluster,
+           "blocked_grid": kg.blocked_grid,
+           "blocked_step": kb.blocked_steps}[route]
     outs, blocks, gammas = [], [], []
     for k in range(B):
         reset_launches()
@@ -5927,8 +6394,9 @@ def occupancy_batch(dev):
 def wide_batch(dev):
     """8c (v): BLK_WIDE_LANES lanes of 5d (g)'s wide LP (258 x 14,257),
     past the cluster's plan, to a budget of BLK_WIDE_BUDGET pivots:
-    ``run_simplex_blocked_batch`` runs each lane on ``blocked_steps`` (no
-    batch launch), every lane equal to its solo walk bit for bit."""
+    ``run_simplex_blocked_batch`` runs each lane on ``blocked_grid`` in turn
+    (one launch a block, no batch launch, no ``blocked_step``), every lane
+    equal to its solo walk bit for bit."""
     import torch
 
     from tpulp_torch.batch import make_batched_states
@@ -5942,24 +6410,26 @@ def wide_batch(dev):
            for s in range(BLK_WIDE_LANES)]
     st = make_batched_states(sfs, dtype=dt, device=dev)
     _, M, N = st.T.shape
-    if blocked_route(M, N, BLK_K, dt, st.T.device) != "blocked_step":
-        raise AssertionError(f"8c (v): {M} x {N} is not past the plan")
+    if blocked_route(M, N, BLK_K, dt, st.T.device) != "blocked_grid":
+        raise AssertionError(f"8c (v): {M} x {N} is not on the grid's route")
     o = batch_opts(dt, BLK_WIDE_BUDGET)
     sync(dev)
     reset_launches()
     out = run_simplex_blocked_batch(st, o, block=BLK_K)
     sync(dev)
     launches = dict(LAUNCHES)
-    if not launches["blocked_step"] or any(launches[k] for k in (
-            "blocked_cluster_batch", "fused_flush_batch", "blocked_ray_batch",
-            "blocked_cluster", "fused_fma")):
+    if not launches["blocked_grid"] or launches["blocked_grid"] != \
+            launches["blocked_ray"] or any(launches[k] for k in (
+                "blocked_cluster_batch", "fused_flush_batch",
+                "blocked_ray_batch", "blocked_cluster", "blocked_step",
+                "fused_fma")):
         raise AssertionError(f"8c (v): launches {launches}")
-    solos, _, _ = solo_lane_walks(st, o, BLK_K, route="blocked_step")
+    solos, _, _ = solo_lane_walks(st, o, BLK_K, route="blocked_grid")
     batch_equals_solo(out, solos, "(v)")
     log(f"# 8c (v) {BLK_WIDE_LANES} LPs {M}x{N} f64, budget "
-        f"{BLK_WIDE_BUDGET}: past the plan, each lane on blocked_steps "
-        f"(launches {launches}), every lane equal to its solo walk bit for "
-        "bit")
+        f"{BLK_WIDE_BUDGET}: past the cluster's plan, each lane on "
+        f"blocked_grid in turn (launches {launches}), every lane equal to "
+        "its solo walk bit for bit")
     del st
     torch.cuda.empty_cache()
     return {"launches": launches, "niter": out.niter.tolist()}
@@ -6125,8 +6595,8 @@ def phase_blocked_batch(dev):
     once at f64, timed, its objectives within 1e-9 of the kernels'; (iii)
     a small batch against its plain version at every cluster size
     (``small_batch_checks``); (iv) more lanes than the card holds clusters
-    (``occupancy_batch``); (v) a wide batch past the plan
-    (``wide_batch``); (vi) a block's launches timed, each beside its plain
+    (``occupancy_batch``); (v) a wide batch past the cluster's plan, on
+    the grid (``wide_batch``); (vi) a block's launches timed, each beside its plain
     version, B1 beside ``torch.baddbmm`` (``batch_block_times``)."""
     import torch
 
@@ -6983,6 +7453,12 @@ def main() -> int:
                     f"{v.get('static_smem')} bytes of static shared memory"
                     for k, v in ptxas.items()
                     if k in RANK1_GRID_KERNELS.values()))
+    log(f"# blocked_grid (ptxas -v, {GRID_THREADS} threads a block): "
+        + "; ".join(f"{k} {v.get('registers')} registers, "
+                    f"{v.get('spill_bytes')} bytes of spills, "
+                    f"{v.get('static_smem')} bytes of static shared memory"
+                    for k, v in ptxas.items()
+                    if k in BLOCKED_GRID_KERNELS.values()))
 
     # 3: the kernels against their plain versions
     kstats = phase_kernels(dev)
@@ -7142,6 +7618,12 @@ def main() -> int:
                        "252-293; tpulp/solve/devex.py:75, 240-262; "
                        "tpulp/solve/dual.py:62, 143-170)",
                        solo["solves"]["f_float64"]["launches"]),
+        # the main path: (g)'s f64 solve_lp(driver="auto") past the cluster
+        "blocked_grid": ("tpulp_torch/kernels/csrc/blocked_grid.cu",
+                         "none: XLA's compiled lax.while_loop over "
+                         "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
+                         "one block of the fori_loop 272-275)",
+                         blocked["grid_launches"]),
     }
     # rank1_step's main path since the grid took every frame a cluster
     # does not hold up to its plan: (x)'s walk past the plan
@@ -7420,11 +7902,32 @@ def main() -> int:
         elif kname == "blocked_step":
             # per pivot of 5d's walks: the walk's host-clock time, the plain
             # walk's, a slot's bytes, the launches on the card alone; the
-            # headline at the shape its route gives it, (g)'s wide LP
-            cases = {}
+            # headline at the shape its route gives it since the grid, (p):
+            # (g)'s LP past the grid's plan
+            px = blocked["past"]
+            cases = {"past the grid's plan float64 (p)": {
+                "max_abs_err": px["max_abs_err"], "ms": px["ms_per_pivot"],
+                "plain_ms": px["plain_ms_per_pivot"],
+                "bound_ms": px["bound_us_per_slot"] / 1e3,
+                "bound_by": px["bound_by"], "library_ms": None,
+                "device_ms": px["device_us_per_slot"] / 1e3,
+                "host_enqueue_ms": px["host_us_per_slot"] / 1e3,
+                "K": px["K"], "steps": px["niter"]}}
+            # (g) on blocked_steps, in turns with the grid that took it
+            for dt in ("float64", "float32"):
+                w = blocked["grid_walks"][f"g_wide_{dt}"]
+                u = blocked["grid_slot_us"][f"g_wide_{dt}"]
+                cases[f"wide {dt} (g), in turns with blocked_grid"] = {
+                    "max_abs_err": w["max_abs_err"],
+                    "ms": w["step_us_per_pivot"] / 1e3,
+                    "plain_ms": w["plain_ms_per_pivot"],
+                    "bound_ms": u["step_bound_us_per_slot"] / 1e3,
+                    "bound_by": "bytes", "library_ms": None,
+                    "device_ms": u["step_device_us_per_slot"] / 1e3,
+                    "device_ms_turns": [v / 1e3 for v in
+                                        u["step_device_us_turns"]],
+                    "steps": w["niter"]}
             for case, walk, us in (
-                    ("wide float64", "g_wide_float64", "g_wide_float64"),
-                    ("wide float32", "g_wide_float32", "g_wide_float32"),
                     ("float64", "a_float64", "a_float64"),
                     ("float32", "a_float32", "a_float32"),
                     ("devex float64", "b_optimal_float64", "b_float64"),
@@ -7444,7 +7947,57 @@ def main() -> int:
                     "flush_and_ray_ms_per_block":
                         u["flush_and_ray_us_per_block"] / 1e3,
                     "steps": w["niter"]}
-            head = cases["wide float64"]
+            head = cases["past the grid's plan float64 (p)"]
+        elif kname == "blocked_grid":
+            # per pivot of (g)'s walks on the grid: the walk's host-clock
+            # time (in turns with blocked_step), the plain version's window,
+            # one launch of K slots on the card (in turns with blocked_step's
+            # K slots) by stage; the bounds: each input once a launch (the
+            # contract's), the kernel's own convention, the table's step
+            # convention; beside blocked_cluster at a shape both hold
+            cases = {}
+            for dt in ("float64", "float32"):
+                w = blocked["grid_walks"][f"g_wide_{dt}"]
+                u = blocked["grid_slot_us"][f"g_wide_{dt}"]
+                cases[dt] = {
+                    "max_abs_err": w["max_abs_err"],
+                    "ms": w["us_per_pivot"] / 1e3,
+                    "plain_ms": w["plain_ms_per_pivot"],
+                    "bound_ms": u["bound_us_per_slot"] / 1e3,
+                    "bound_by": u["bound_by"], "library_ms": None,
+                    "grid_bound_ms": u["grid_bound_us_per_slot"] / 1e3,
+                    "step_bound_ms": u["step_bound_us_per_slot"] / 1e3,
+                    "device_ms": u["device_us_per_slot"] / 1e3,
+                    "device_ms_turns": [v / 1e3 for v in
+                                        u["device_us_turns"]],
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        u["device_us_by_stage"].items()},
+                    "host_launch_ms_per_slot": u["host_us_per_slot"] / 1e3,
+                    "blocked_step_ms": w["step_us_per_pivot"] / 1e3,
+                    "blocked_step_device_ms":
+                        u["step_device_us_per_slot"] / 1e3,
+                    "walk_seconds": w["walk_seconds"],
+                    "blocked_step_walk_seconds": w["step_walk_seconds"],
+                    "blocks": u["blocks"], "width": u["width"],
+                    "height": u["height"], "smem": u["smem"],
+                    "mail": w["mail"], "occupancy": u["occupancy"],
+                    "window": w["window"], "steps": w["niter"]}
+            gc = blocked["grid_vs_cluster"]
+            cw = blocked["cluster_walks"]["a_float64"]
+            cu = blocked["cluster_slot_us"]["a_float64"]
+            cases["cluster shape 514x1537 float64 (a)"] = {
+                "max_abs_err": 0.0, "ms": gc["grid_us_per_slot"] / 1e3,
+                "plain_ms": cw["plain_ms_per_pivot"],
+                "bound_ms": cu["bound_us_per_slot"] / 1e3,
+                "bound_by": cu["bound_by"], "library_ms": None,
+                "device_ms": gc["grid_us_per_slot"] / 1e3,
+                "device_ms_turns": [v / 1e3 for v in gc["grid_turns"]],
+                "blocked_cluster_device_ms": gc["cluster_us_per_slot"] / 1e3,
+                "blocked_cluster_device_ms_turns": [
+                    v / 1e3 for v in gc["cluster_turns"]],
+                "blocks": gc["grid"]}
+            head = cases["float64"]
         elif kname == "blocked_cluster":
             # per pivot of 5d's walks on the cluster: the walk's host-clock
             # time (in turns with blocked_step), the plain version's walk,
@@ -7651,16 +8204,20 @@ def main() -> int:
         blocked["launches"]["fused_fma"]
     kernels[0]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
         blocked["launches"]["fused_flush"]
-    kernels[7].update({key: kernels[7]["cases"]["wide float64"][key]
-                       for key in ("device_ms", "host_enqueue_ms", "steps")})
-    # the 5d solves: 0 where the cluster's plan fits (a, b, c);
-    # (g)'s wide LP runs blocked_step (its ``launches``)
+    kernels[7].update({key: kernels[7]["cases"][
+        "past the grid's plan float64 (p)"][key]
+        for key in ("device_ms", "host_enqueue_ms", "steps")})
+    # the 5d solves: 0 where the cluster's plan fits (a, b, c), 0 on (g)'s
+    # wide LP since the grid took it; (p)'s walk past the grid's plan (its
+    # ``launches``)
     solves5d = ("a_float64", "a_float32", "b_optimal_float64",
                 "b_optimal_float32", "b_float64", "b_float32", "c_float64",
                 "c_float32", "g_wide_float64", "g_wide_float32")
     kernels[7]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_step"]
         for case in solves5d}
+    kernels[7]["launches_by_path"]["5d_past_grid_float64"] = \
+        blocked["past"]["launches"]["blocked_step"]
     kernels[7]["ray_launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_ray"]
         for case in ("a_float64", "c_float64", "g_wide_float64",
@@ -7677,6 +8234,23 @@ def main() -> int:
     kernels[9]["walks"] = blocked["cluster_walks"]
     kernels[9]["slot_us"] = blocked["cluster_slot_us"]
     kernels[9]["edge_walks_held"] = blocked["edge_walks"]
+    # the grid: one launch a block of (g)'s solves and of 8c (v)'s lanes, 0
+    # on the cluster's LPs and past its plan
+    kernels[16].update({key: kernels[16]["cases"]["float64"][key] for key in (
+        "device_ms", "device_ms_by_stage", "blocks", "width", "height",
+        "smem", "occupancy", "grid_bound_ms", "step_bound_ms",
+        "blocked_step_ms", "blocked_step_device_ms", "steps")})
+    kernels[16]["launches_by_path"] = {
+        f"5d_{case}": blocked["solves"][case]["launches"]["blocked_grid"]
+        for case in solves5d}
+    kernels[16]["launches_by_path"]["5d_past_grid_float64"] = \
+        blocked["past"]["launches"]["blocked_grid"]
+    kernels[16]["launches_by_path"]["8c_wide_float64"] = \
+        exact["blocked_batch"]["wide"]["launches"]["blocked_grid"]
+    kernels[16]["walks"] = blocked["grid_walks"]
+    kernels[16]["slot_us"] = blocked["grid_slot_us"]
+    kernels[16]["edge_walks_held"] = blocked["grid_edge_walks"]
+    kernels[16]["grid_vs_cluster"] = blocked["grid_vs_cluster"]
     kernels[0]["blocked_cases"] = blocked["flush"]
     # the blocked batch (8c): its three launches a block by path; past the
     # plan its lanes run blocked_step
@@ -7719,7 +8293,8 @@ def main() -> int:
                            "blocked_ray_kernel<double>")),
                      (13, "lane_bounded"),
                      (14, tuple(BOUNDED_GRID_KERNELS.values())),
-                     (15, tuple(RANK1_GRID_KERNELS.values()))):
+                     (15, tuple(RANK1_GRID_KERNELS.values())),
+                     (16, tuple(BLOCKED_GRID_KERNELS.values()))):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

@@ -386,7 +386,7 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     (``on_cpu`` and the occupancy patched): the cluster batch gets a
     contiguous tableau, the stall limit, the budget and the block; the
     eager loop and ``blocked_steps`` never run; its failure raises. With
-    occupancy 0 (past the plan) each lane's solo walk runs on
+    occupancy 0 (no cluster and no grid) each lane's solo walk runs on
     ``blocked_steps`` in turn, stacked in lane order."""
     def refuse(*args, **kw):
         raise AssertionError("another route ran")
@@ -405,6 +405,9 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     occ = [15]
     monkeypatch.setattr(pb, "on_cpu", lambda *t: False)
     monkeypatch.setattr(pb, "blocked_cluster_occupancy", lambda *a: occ[0])
+    monkeypatch.setattr(pb, "blocked_grid_occupancy", lambda *a: occ[0])
+    monkeypatch.setattr(pb, "sm_count", lambda device: 132)
+    monkeypatch.setattr(pb, "blocked_grid", refuse)
     monkeypatch.setattr(pb, "run_simplex_blocked_batch_reference", refuse)
     monkeypatch.setattr(pb, "_blocked_pivot", refuse)
     monkeypatch.setattr(pb, "blocked_steps", refuse)

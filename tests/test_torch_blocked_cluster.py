@@ -403,14 +403,15 @@ def test_blocked_cluster_plan_refusals():
     (514, 1537, 64, torch.float32, 15, "blocked_cluster"),
     (1538, 2600, 64, torch.float64, 7, "blocked_cluster"),
     (514, 1537, 64, torch.float64, 0, "blocked_step"),
-    (258, 15000, 64, torch.float64, 15, "blocked_step"),
-    (514, 1537, 1024, torch.float64, 15, "blocked_step"),
-    (4098, 8193, 64, torch.float32, 15, "blocked_step"),
+    (258, 15000, 64, torch.float64, 15, "blocked_grid"),
+    (514, 1537, 1024, torch.float64, 15, "blocked_grid"),
+    (4098, 8193, 64, torch.float32, 15, "blocked_grid"),
 ], ids=lambda c: f"{c[0]}x{c[1]}-K{c[2]}-{str(c[3])[6:]}-occ{c[4]}")
 def test_blocked_route(monkeypatch, case):
     """The cluster where its plan fits and the card holds one cluster
-    (occupancy patched), else ``blocked_step``; occupancy is asked only of
-    a plan that fits."""
+    (occupancy patched), else the grid where its plan fits and the card
+    holds its grid (the same occupancy, 132 SMs), else ``blocked_step``;
+    the cluster's occupancy is asked only of a plan that fits."""
     M, N, Kb, dtype, occ, want = case
     asked = []
 
@@ -419,6 +420,8 @@ def test_blocked_route(monkeypatch, case):
         return occ
 
     monkeypatch.setattr(pb, "blocked_cluster_occupancy", occupancy)
+    monkeypatch.setattr(pb, "blocked_grid_occupancy", lambda *a: occ)
+    monkeypatch.setattr(pb, "sm_count", lambda device: 132)
     assert pb.blocked_route(M, N, Kb, dtype,
                             torch.device("cuda", 0)) == want
     fits = True
@@ -434,7 +437,8 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     (``on_cpu`` and the occupancy patched): the cluster route gets a
     contiguous tableau and the options, ``blocked_steps`` and the eager
     loop are never entered, and the cluster's launch failure raises; with
-    occupancy 0 the same state goes to ``blocked_steps``."""
+    occupancy 0 (no cluster and no grid) the same state goes to
+    ``blocked_steps``."""
     def refuse(*args, **kw):
         raise AssertionError("another route ran")
 
@@ -451,6 +455,9 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     monkeypatch.setattr(pb, "on_cpu", lambda *t: False)
     monkeypatch.setattr(pb, "blocked_cluster_occupancy",
                         lambda *a: occ[0])
+    monkeypatch.setattr(pb, "blocked_grid_occupancy", lambda *a: occ[0])
+    monkeypatch.setattr(pb, "sm_count", lambda device: 132)
+    monkeypatch.setattr(pb, "blocked_grid", refuse)
     monkeypatch.setattr(pb, "run_simplex_blocked_reference", refuse)
     monkeypatch.setattr(pb, "_blocked_pivot", refuse)
     monkeypatch.setattr(pb, "blocked_steps", refuse)

@@ -344,6 +344,7 @@ def test_launch_counters_stay_zero_on_cpu():
                         "rank1_cluster": 0, "rank1_grid": 0,
                         "blocked_step": 0, "blocked_ray": 0,
                         "blocked_stage": 0, "blocked_cluster": 0,
+                        "blocked_grid": 0,
                         "blocked_cluster_batch": 0, "fused_flush_batch": 0,
                         "blocked_ray_batch": 0}
 
@@ -363,6 +364,7 @@ def test_nvcc_command_line():
         objects.append(cmd[cmd.index("-o") + 1])
     assert sorted(p.name for p in sources) == ["blocked.cu",
                                                "blocked_cluster.cu",
+                                               "blocked_grid.cu",
                                                "bounded.cu",
                                                "bounded_grid.cu", "flush.cu",
                                                "fma.cu", "inner_block.cu",

@@ -4,6 +4,8 @@ from .block import (blocked_inner_block, blocked_inner_block_reference,
                     fused_flush, fused_flush_reference, inner_block_plan)
 from .blocked import blocked_stage, blocked_steps
 from .blocked_cluster import blocked_cluster_plan
+# the module, not its wrapper of the same name: blocked_grid.blocked_grid
+from .blocked_grid import blocked_grid_plan
 from .bounded import bounded_stage, bounded_steps
 # the module, not its wrapper of the same name: bounded_grid.bounded_grid
 from .bounded_grid import bounded_grid_plan
@@ -41,4 +43,5 @@ __all__ = [
     "blocked_steps",
     "blocked_stage",
     "blocked_cluster_plan",
+    "blocked_grid_plan",
 ]

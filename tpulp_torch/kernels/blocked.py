@@ -76,6 +76,7 @@ from .block import fused_flush, fused_flush_batch, fused_flush_reference
 from .bounded import BIG_I, DEVEX_RESET_ABOVE as RESET_ABOVE
 from .fma import fused_fma
 from .launch import LAUNCHES, lib_for, raise_on, stream_of, suffix
+from .sums import block_sums
 
 __all__ = ["BlockedRecord", "make_record", "record_state", "record_tensors",
            "clone_record", "make_batch_record", "lane_record",
@@ -253,18 +254,8 @@ def _eta(coef: torch.Tensor, X: torch.Tensor, t: int) -> torch.Tensor:
 
 def _block_sum(x: torch.Tensor) -> torch.Tensor:
     """The sums of ``x`` (G, GRID_THREADS), a value a thread, as the grid
-    launches' block reduction adds them: a warp's 32 by the shuffle tree
-    (distance 16, 8, 4, 2, 1), then the warps' sums the same way, padded
-    with zeros to 32."""
-    def tree(v):
-        for off in (16, 8, 4, 2, 1):
-            v = v[..., :off] + v[..., off:2 * off]
-        return v[..., 0]
-
-    warps = tree(x.view(x.shape[0], GRID_THREADS // 32, 32))
-    pad = torch.zeros((x.shape[0], 32), dtype=x.dtype, device=x.device)
-    pad[:, :warps.shape[1]] = warps
-    return tree(pad)
+    launches' block reduction adds them (``sums.block_sums``)."""
+    return block_sums(x.reshape(-1), GRID_THREADS, x.shape[0], GRID_THREADS)
 
 
 def _w(rec: BlockedRecord, iv) -> torch.Tensor:

@@ -39,7 +39,7 @@ stages of ``kernels.blocked`` composed slot by slot (which equal
 ``blocked.cu``'s launches bit for bit), flushed by B1's plain version. The
 kernel's sums that feed finiteness checks only, the pre-step ``|c|`` over
 the active columns and the post-step ``|bvec[2:]|``, are taken per block
-(per thread, the warp tree, across warps: ``rank1_cluster.slab_sum``) and
+(per thread, the warp tree, across warps: ``sums.slab_sum``) and
 across blocks in rank order; the plain version takes them in that order.
 ``kernels.blocked``'s plain stages take them in the launches' order, so the
 two plain versions can part only where one order overflows to infinity and
@@ -61,7 +61,7 @@ from ..core.state import SimplexState, SolverOptions, Status
 from . import blocked as kb
 from .block import fused_flush_reference
 from .launch import LAUNCHES, check, lib_for, raise_on, stream_of, suffix
-from .rank1_cluster import slab_sum
+from .sums import slab_sum
 
 __all__ = ["BlockedClusterPlan", "blocked_cluster_plan",
            "blocked_cluster_occupancy", "blocked_cluster",

@@ -56,7 +56,7 @@ from ..core.state import RULE_DEVEX, SimplexState, SolverOptions
 from . import bounded as kb
 from .launch import (LAUNCHES, check, lib_for, raise_on, sm_count,
                      stream_of, suffix)
-from .rank1_cluster import block_sum, block_sums
+from .sums import block_sum, grid_sum
 
 __all__ = ["GridPlan", "GridPlanTooLarge", "bounded_grid_plan", "plan_grid",
            "bounded_grid_occupancy", "bounded_grid",
@@ -346,26 +346,6 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
 # ---------------------------------------------------------------------------
 # the plain version
 # ---------------------------------------------------------------------------
-
-def grid_sum(x: torch.Tensor, width: int, blocks: int) -> torch.Tensor:
-    """The sum of the 1-d ``x`` as the grid takes it: each block's slab of
-    ``width`` entries as one block of GRID_THREADS threads adds it
-    (``block_sums``); then lane l of a warp adds the sums of blocks l, l +
-    32, l + 64, ... in turn, and the warp's shuffle tree (distance 16, 8,
-    4, 2, 1) adds the lanes."""
-    parts = block_sums(x, width, blocks, GRID_THREADS)
-    rounds = -(-blocks // 32)
-    padded = parts.new_zeros((rounds * 32,))
-    padded[:blocks] = parts
-    lanes = parts.new_zeros((32,))
-    for r in range(rounds):
-        lanes = lanes + padded[r * 32:(r + 1) * 32]
-    span = 32
-    while span > 1:
-        span //= 2
-        lanes = lanes[:span] + lanes[span:2 * span]
-    return lanes[0]
-
 
 def _grid_price(rec: kb.BoundedRecord, opts: SolverOptions, max_iters: int,
                 W: int, G: int) -> None:

@@ -174,7 +174,8 @@ def load_library() -> ctypes.CDLL:
                  "tpulp_bounded_grid_f32", "tpulp_bounded_grid_f64",
                  "tpulp_blocked_cluster_f32", "tpulp_blocked_cluster_f64",
                  "tpulp_blocked_cluster_batch_f32",
-                 "tpulp_blocked_cluster_batch_f64"):
+                 "tpulp_blocked_cluster_batch_f64",
+                 "tpulp_blocked_grid_f32", "tpulp_blocked_grid_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
@@ -183,7 +184,9 @@ def load_library() -> ctypes.CDLL:
                  "tpulp_bounded_grid_occupancy_f32",
                  "tpulp_bounded_grid_occupancy_f64",
                  "tpulp_blocked_cluster_occupancy_f32",
-                 "tpulp_blocked_cluster_occupancy_f64"):
+                 "tpulp_blocked_cluster_occupancy_f64",
+                 "tpulp_blocked_grid_occupancy_f32",
+                 "tpulp_blocked_grid_occupancy_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P]
         fn.restype = _I

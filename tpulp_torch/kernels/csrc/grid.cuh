@@ -186,7 +186,7 @@ __device__ void key_pick2(T& v1, int& i1, T& v2, int& i2, KeyRed<T>* sh) {
 // together) and combines them in that order, then the warp by keys and
 // the shuffle tree: the pick (v, i) (an argmax where MX; offer's order is
 // total: the sequential argmin exactly), the first indices, the |c| sums
-// (in kernels/bounded_grid.py::grid_sum's order), the largest weight (NaN
+// (in kernels/sums.py::grid_sum's order), the largest weight (NaN
 // first) and the flags. Called by every thread; the result is in out,
 // gmax, flags after its barrier.
 template <typename T>

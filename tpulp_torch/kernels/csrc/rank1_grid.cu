@@ -88,7 +88,7 @@
 // against tolerances rounded to it, torch's NaN-first argmin / argmax with
 // first-index ties, status_select's precedence. The sums feed finiteness
 // checks only: the |c| sum per block and then across blocks
-// (kernels/bounded_grid.py::grid_sum's order), the |b| sum over the
+// (kernels/sums.py::grid_sum's order), the |b| sum over the
 // replicated RHS in one block's order (block_sum).
 
 #include "grid.cuh"

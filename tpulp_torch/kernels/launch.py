@@ -18,17 +18,18 @@ _SELECTED = threading.local()
 # kernel and nowhere else ("lane_*" one launch each for every lane of a
 # batch, "bounded_step" counts steps of four launches,
 # "rank1_step" steps of four or five, "rank1_cluster", "rank1_grid" and
-# "bounded_grid" walks (one launch each), "blocked_step" pivot slots of six, "blocked_cluster" blocks of K
-# slots (one launch each) and "blocked_ray" the blocked engine's launch
-# after each flush; "*_batch" one launch each for every lane of a batch;
-# "*_stage" the single stages launched to check them)
+# "bounded_grid" walks (one launch each), "blocked_step" pivot slots of six,
+# "blocked_cluster" and "blocked_grid" blocks of K slots (one launch each)
+# and "blocked_ray" the blocked engine's launch after each flush;
+# "*_batch" one launch each for every lane of a batch; "*_stage" the single
+# stages launched to check them)
 LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0,
             "lane_dual": 0, "lane_primal": 0, "lane_bounded": 0,
             "bounded_step": 0, "bounded_grid": 0,
             "bounded_stage": 0, "rank1_step": 0, "rank1_stage": 0,
             "rank1_cluster": 0, "rank1_grid": 0, "blocked_step": 0,
             "blocked_ray": 0,
-            "blocked_stage": 0, "blocked_cluster": 0,
+            "blocked_stage": 0, "blocked_cluster": 0, "blocked_grid": 0,
             "blocked_cluster_batch": 0, "fused_flush_batch": 0,
             "blocked_ray_batch": 0}
 

@@ -50,6 +50,7 @@ from .rank1 import (CROW_OK, PHASE, RAY_SCAN_EVERY, RESET_ABOVE, WALKS,
                     rank1_price_reference, rank1_ratio_reference,
                     rank1_scan_reference, rank1_update_reference,
                     record_state)
+from .sums import block_sum, block_sums, slab_sum
 
 __all__ = ["ClusterPlan", "cluster_plan", "cluster_occupancy",
            "rank1_cluster", "rank1_cluster_reference", "slab_sum",
@@ -73,7 +74,6 @@ CLUSTER_SMEM_LIMIT = 232_448 - CLUSTER_STATIC_SMEM
 # update, the finish, barrier A2's wait and what follows it; the store
 CLUSTER_STAGES = ("load", "price", "barrier1", "ratio", "row", "update",
                   "finish", "barrier2", "store")
-_WARP = 32
 _NARGS, _NINTS, _NTOLS = 20, 11, 6
 _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
@@ -226,54 +226,6 @@ def rank1_cluster(state: SimplexState, opts: SolverOptions,
 # ---------------------------------------------------------------------------
 # the plain version
 # ---------------------------------------------------------------------------
-
-def block_sums(x: torch.Tensor, width: int, C: int,
-               threads: int = CLUSTER_THREADS) -> torch.Tensor:
-    """The (C,) sums of the 1-d ``x``'s slabs as C blocks of ``threads``
-    threads take them (common.cuh's block_reduce): block b's slab ``x[b
-    width:(b + 1) width]``, thread t adding x[t], x[t + threads], ... in
-    turn, then the warp tree, then the same tree over the warps' sums (all
-    blocks at once)."""
-    rounds = max(1, -(-width // threads))
-    flat = x.new_zeros((C * width,))
-    flat[:x.numel()] = x
-    slabs = x.new_zeros((C, rounds * threads))
-    slabs[:, :width] = flat.view(C, width)
-    acc = x.new_zeros((C, threads))
-    for r in range(rounds):
-        acc = acc + slabs[:, r * threads:(r + 1) * threads]
-    lanes = acc.view(C, threads // _WARP, _WARP)
-    span = _WARP
-    while span > 1:
-        span //= 2
-        lanes = lanes[..., :span] + lanes[..., span:2 * span]
-    warps = x.new_zeros((C, _WARP))
-    warps[:, :threads // _WARP] = lanes[..., 0]
-    span = _WARP
-    while span > 1:
-        span //= 2
-        warps = warps[:, :span] + warps[:, span:2 * span]
-    return warps[:, 0]
-
-
-def slab_sum(x: torch.Tensor, width: int, C: int,
-             threads: int = CLUSTER_THREADS) -> torch.Tensor:
-    """The sum of the 1-d ``x`` as a cluster of C blocks of ``threads``
-    threads takes it: each block's slab (``block_sums``), then the blocks'
-    sums added in rank order."""
-    sums = block_sums(x, width, C, threads)
-    total = sums[0]
-    for b in range(1, C):
-        total = total + sums[b]
-    return total
-
-
-def block_sum(x: torch.Tensor, threads: int = CLUSTER_THREADS
-              ) -> torch.Tensor:
-    """The sum of the 1-d ``x`` as one block of ``threads`` threads takes
-    it (``slab_sum`` of one block)."""
-    return slab_sum(x, x.numel(), 1, threads)
-
 
 def cluster_sum(x: torch.Tensor, C: int) -> torch.Tensor:
     """The sum of the ``n`` columns' values ``x`` as the cluster takes it:

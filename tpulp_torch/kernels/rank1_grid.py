@@ -50,8 +50,7 @@ import torch
 from ..core.state import SimplexState, SolverOptions
 from .bounded import _live
 from .bounded_grid import (GRID_SMS, GRID_THREADS, GridPlan,
-                           GridPlanTooLarge, _align, grid_slabs, grid_sum,
-                           plan_grid)
+                           GridPlanTooLarge, _align, grid_slabs, plan_grid)
 from .launch import (LAUNCHES, check, lib_for, raise_on, sm_count,
                      stream_of, suffix)
 from .rank1 import (CROW_OK, PHASE, RAY_SCAN_EVERY, RESET_ABOVE, WALKS,
@@ -59,7 +58,7 @@ from .rank1 import (CROW_OK, PHASE, RAY_SCAN_EVERY, RESET_ABOVE, WALKS,
                     rank1_price_reference, rank1_ratio_reference,
                     rank1_scan_reference, rank1_update_reference,
                     record_state)
-from .rank1_cluster import block_sum
+from .sums import block_sum, grid_sum
 
 __all__ = ["rank1_grid_plan", "rank1_grid_occupancy", "rank1_grid",
            "rank1_grid_reference", "RANK1_GRID_STAGES", "GridPlanTooLarge"]

@@ -18,22 +18,24 @@ whatever ``SolverOptions.tie_break`` says (ROADMAP C (a), (b)).
 kernels, on the route of ``blocked_route``: where a thread-block cluster
 holds the block's eta factors (``kernels.blocked_cluster``'s plan, and the
 card holds such a cluster), ``blocked_cluster``: the K slots of a block in
-one cluster launch; else ``kernels.blocked.blocked_steps``: six
-stream-ordered launches a pivot slot. Either keeps a walk record on the
-card, flushes it with B1 and one ray launch a block, and reads it once a
-block. On CPU tensors it runs the eager loop below
-(``run_simplex_blocked_reference``: ``_blocked_pivot`` K times, a
-matrix-product flush and the ray scan, one host read a block).
+one cluster launch; else, where the grid's plan holds them
+(``kernels.blocked_grid``'s, and the card holds its grid at once),
+``blocked_grid``: the K slots in one cooperative launch on the whole card;
+else ``kernels.blocked.blocked_steps``: six stream-ordered launches a pivot
+slot. Each keeps a walk record on the card, flushes it with B1 and one ray
+launch a block, and reads it once a block. On CPU tensors it runs the
+eager loop below (``run_simplex_blocked_reference``: ``_blocked_pivot`` K
+times, a matrix-product flush and the ray scan, one host read a block).
 
 ``run_simplex_blocked_batch`` runs every lane's walk on CUDA tensors on the
 same route: ``kernels.blocked_cluster.blocked_cluster_batch`` (one cluster
 launch a block for every lane, one B1 launch and one ray launch over the
 lanes, one host read of every lane's (status, niter) a block); past the
-cluster's plan, each lane's solo walk on ``blocked_steps`` in turn (a lane
-frozen by the batch is a stopped solo walk, so the walks are the same). On
-CPU tensors it runs the eager vmapped loop
-(``run_simplex_blocked_batch_reference``). The sharded driver runs the
-eager pivot on either device.
+cluster's plan, each lane's solo walk on the route's kernel
+(``blocked_grid``, else ``blocked_steps``) in turn (a lane frozen by the
+batch is a stopped solo walk, so the walks are the same). On CPU tensors
+it runs the eager vmapped loop (``run_simplex_blocked_batch_reference``).
+The sharded driver runs the eager pivot on either device.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ from ..kernels.blocked_cluster import (blocked_cluster,
                                        blocked_cluster_batch,
                                        blocked_cluster_occupancy,
                                        blocked_cluster_plan)
+from ..kernels.blocked_grid import (blocked_grid, blocked_grid_occupancy,
+                                    blocked_grid_plan)
 from ..kernels.fma import fused_fma
-from ..kernels.launch import on_cpu
+from ..kernels.launch import on_cpu, sm_count
 from .driver import finish, first_true, put, ratio_rows, status_select, take
 
 __all__ = ["run_simplex_blocked", "run_simplex_blocked_reference",
@@ -233,14 +237,30 @@ def blocked_route(M: int, N: int, K: int, dtype,
     N) tableau of ``dtype`` on the CUDA ``device``: "blocked_cluster" where
     its plan fits (K, the cluster's size and shared memory) and the card
     holds one such cluster (``cudaOccupancyMaxActiveClusters`` >= 1), else
+    "blocked_grid" where the grid's plan fits the card's SMs and the card
+    holds the whole grid at once (its occupancy times the SMs), else
     "blocked_step"."""
     try:
         blocked_cluster_plan(M, N, K, dtype)
     except ValueError:  # factors past 16 blocks' shared memory, a K past it
+        pass
+    else:
+        if blocked_cluster_occupancy(M, N, K, dtype, device) >= 1:
+            return "blocked_cluster"
+    sms = sm_count(device)
+    try:
+        plan = blocked_grid_plan(M, N, K, dtype, sms)
+    except ValueError:  # slabs past a block's shared memory
         return "blocked_step"
-    if blocked_cluster_occupancy(M, N, K, dtype, device) < 1:
+    if blocked_grid_occupancy(M, N, K, dtype, device) * sms < plan.blocks:
         return "blocked_step"
-    return "blocked_cluster"
+    return "blocked_grid"
+
+
+def _solo_walk(route: str):
+    """The solo walk of ``route``."""
+    return {"blocked_cluster": blocked_cluster, "blocked_grid": blocked_grid,
+            "blocked_step": blocked_steps}[route]
 
 
 @full_precision()
@@ -260,9 +280,8 @@ def run_simplex_blocked(state: SimplexState,
     stall_limit = opts.resolved_stall_limit(state.m, state.n)
     state = state._replace(T=state.T.contiguous())
     M, N = state.T.shape
-    run = blocked_cluster if blocked_route(
-        M, N, block, state.T.dtype, state.T.device) == "blocked_cluster" \
-        else blocked_steps
+    run = _solo_walk(blocked_route(M, N, block, state.T.dtype,
+                                   state.T.device))
     out, _ = run(state, opts, stall_limit, opts.max_iters, block)
     return finish(out)
 
@@ -330,8 +349,8 @@ def run_simplex_blocked_batch(batched: SimplexState,
     block keeps its whole state through the block, as in tpulp's vmapped
     ``while_loop``. On CUDA tensors every lane's walk runs on the kernel of
     ``blocked_route`` (``blocked_cluster_batch``, else each lane on
-    ``blocked_steps`` in turn; a build or launch failure raises), on CPU
-    tensors as the eager vmapped loop."""
+    ``blocked_grid`` or ``blocked_steps`` in turn; a build or launch failure
+    raises), on CPU tensors as the eager vmapped loop."""
     if opts is None:
         opts = SolverOptions.for_dtype(batched.T.dtype)
     opts = eta_scaled_options(opts, batched.T.dtype)
@@ -340,13 +359,14 @@ def run_simplex_blocked_batch(batched: SimplexState,
     B, M, N = batched.T.shape
     stall_limit = opts.resolved_stall_limit(M - 2, N - 1)
     batched = batched._replace(T=batched.T.contiguous())
-    if blocked_route(M, N, block, batched.T.dtype,
-                     batched.T.device) == "blocked_cluster":
+    route = blocked_route(M, N, block, batched.T.dtype, batched.T.device)
+    if route == "blocked_cluster":
         out, _ = blocked_cluster_batch(batched, opts, stall_limit,
                                        opts.max_iters, block)
     else:
-        lanes = [blocked_steps(SimplexState(*(x[k] for x in batched)), opts,
-                               stall_limit, opts.max_iters, block)[0]
+        run = _solo_walk(route)
+        lanes = [run(SimplexState(*(x[k] for x in batched)), opts,
+                     stall_limit, opts.max_iters, block)[0]
                  for k in range(B)]
         out = SimplexState(*(torch.stack(xs) for xs in zip(*lanes)))
     return finish(out)
