@@ -107,8 +107,12 @@ solves a 2048 x 2048 box LP past the resident slab in one streamed
 ``bounded_grid`` launch (its rows past R through device memory; certified;
 its f64 and f32 windows held to the plain walk and the plain version; the
 launch timed by stage in turns with ``bounded_steps``), holds the grid at
-forced splits on small frames, and walks a 7000 x 64 box LP past the
-streamed plan on ``bounded_step``; then it
+forced splits on small frames, walks a 7000 x 64 box LP at f64 and a
+12000 x 64 one at f32, past the streamed plan, on the grid's plan with the
+per-row vectors in device memory (held to the plain walk and to
+``bounded_steps``' walk, timed in turns with it), and runs the grid's
+``cuda`` tests (tests/test_torch_bounded_grid_card.py) in a pytest process
+of their own; then it
 solves a batch of 256 box LPs with and without bound rows (the bounded
 batch's walk one ``lane_bounded`` launch, timed apart from its per-lane
 extraction) and holds ``lane_bounded`` bit for bit against the plain
@@ -218,10 +222,20 @@ BND_GRID_TIMED_STEPS = 1024
 BND_GRID_REF_WINDOW = 96
 BND_WIDE_M, BND_WIDE_N, BND_WIDE_WINDOW = 2048, 2048, 192
 # (x): a box LP past the streamed plan at f64 (7002 x 7065: the replicated
-# vectors alone pass a block's shared memory), walked on bounded_step to a
-# budget and held to the plain loop; BND_PAST_TIMED steps timed from its
-# eighth
+# vectors alone pass a block's shared memory), walked on the grid's
+# device-vector plan to a budget and held to the plain loop and to
+# bounded_step's walk; BND_PAST_TIMED steps of bounded_step and one grid
+# launch of BND_PAST_GRID_TIMED steps timed from its eighth, in turns;
+# (y): the same recipe at f32 with BND_PAST32_M rows (12,002 x 12,065,
+# past the f32 streamed plan)
 BND_PAST_M, BND_PAST_N, BND_PAST_STEPS, BND_PAST_TIMED = 7000, 64, 64, 16
+BND_PAST_GRID_TIMED = 64
+BND_PAST32_M = 12_000
+# (z): a box LP too wide for every plan of the grid at f64 (18 x 409,601:
+# slabs of 3,104 columns on 132 SMs, past the device-vector plan's 3,098),
+# the one route of bounded_step: walked to BND_PAST_STEPS steps on it and
+# held to the plain loop; BND_PAST_TIMED steps timed from the eighth
+BND_WIDEST_M, BND_WIDEST_N = 16, 409_584
 BOX_M, BOX_N, BOX_LANES = 64, 128, 256
 # the row-lowered batch that 8b holds the box batch to: its first lanes
 # only (its exact refinement and certificate take ~0.6 s a lane on the
@@ -3299,7 +3313,8 @@ def phase_blocked_engine(dev="cuda"):
     exactly); (b) devex, which auto picks for the artificial LP at 512 + 4
     rows: its independent rows with c >= 0 (optimal, certified) and the
     variant with its dependent rows (the retire; its status beside the
-    eager engine's and those of ``other_walks``); (c) the refreshed rung's
+    eager engine's, at f64, and those of ``other_walks``); (c) the
+    refreshed rung's
     blocked segments (largest-pivot ties). Each walk on the cluster held in
     every field at f64 and f32 against ``blocked_cluster_reference`` and
     ``blocked_steps``' walk, and ``blocked_steps``' walk against the
@@ -3381,8 +3396,11 @@ def phase_blocked_engine(dev="cuda"):
         # (b) devex: the optimal LP, then the one with dependent rows
         solo, res["solves"][f"b_optimal_{name}"] = blocked_solve(
             sf_bo, dt, "auto", f"(b) optimal {BLK_M}x{BLK5_ART_N}", dev=dev)
-        eager_solve(solo, sf_bo, dt, "auto", "(b) optimal",
-                    res["solves"][f"b_optimal_{name}"], dev)
+        # (the eager engine's f32 solves of (b), ~30-40 s each, cut for
+        # the script's time; its f64 ones and (a)'s and (c)'s f32 stay)
+        if name == "float64":
+            eager_solve(solo, sf_bo, dt, "auto", "(b) optimal",
+                        res["solves"][f"b_optimal_{name}"], dev)
         so = state_from_standard_form(sf_bo, dtype=dt, device=dev)
         res["cluster_walks"][f"b_optimal_{name}"] = cluster_walk_check(
             so, ob, "(b) optimal devex")
@@ -3394,8 +3412,9 @@ def phase_blocked_engine(dev="cuda"):
         solb, res["solves"][f"b_{name}"] = blocked_solve(
             sf_b, dt, "auto", f"(b) {BLK_M + 4}x{BLK5_ART_N}", optimal=False,
             dev=dev)
-        eager_solve(solb, sf_b, dt, "auto", "(b) dependent rows",
-                    res["solves"][f"b_{name}"], dev, same_walk=False)
+        if name == "float64":
+            eager_solve(solb, sf_b, dt, "auto", "(b) dependent rows",
+                        res["solves"][f"b_{name}"], dev, same_walk=False)
         sb = state_from_standard_form(sf_b, dtype=dt, device=dev)
         res["solves"][f"b_{name}"]["other_walks"] = other_walks(
             sb, ob, "(b) dependent rows")
@@ -3626,12 +3645,14 @@ CLUSTER_KERNELS = {f"3rkc14cluster_kernelI{t}Li{w}E":
                    f"{walk}>" for t in "fd"
                    for w, walk in enumerate(("primal", "devex", "dual"))}
 # the bounded grid walk's instantiations: <float or double, devex,
-# streamed>
+# streamed, the per-row vectors in device memory (always streamed)>
 BOUNDED_GRID_KERNELS = {
-    f"3bgr11grid_kernelI{t}Lb{d}ELb{r}E":
+    f"3bgr11grid_kernelI{t}Lb{d}ELb{r}ELb{v}E":
     f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
-    f"{'devex' if d == '1' else 'dantzig'}{',streamed' if r == '1' else ''}>"
-    for t in "fd" for d in "01" for r in "01"}
+    f"{'devex' if d == '1' else 'dantzig'}{',streamed' if r == '1' else ''}"
+    f"{',device_vectors' if v == '1' else ''}>"
+    for t in "fd" for d in "01" for r, v in (("0", "0"), ("1", "0"),
+                                             ("1", "1"))}
 # the rank-1 grid walk's instantiations: <float or double, the walk,
 # streamed>
 RANK1_GRID_KERNELS = {
@@ -5198,11 +5219,13 @@ def grid_edge_walks(dev="cuda"):
     stall limit of 1 (Bland), a budget of 7, a NaN in the RHS (NUMERIC),
     devex weights above the reset threshold and a basic column that is
     not a unit vector (every step through barrier C): each of the 21 walks
-    resident on the plan's grid at each type; and every forced split once
-    at each type, spread over the walks (stride 8 of 21): resident on 3, 1,
-    2 and 7 blocks, streamed at rows 3, M // 2 and M - 1 in shared memory
-    on the plan's grid and on 1, 2, 3 and 7 blocks; the flips too. Returns
-    the cases' counts (resident, streamed)."""
+    resident on the plan's grid at each type, and again on the
+    device-vector plan forced (rows 3 or M - 1 in shared memory, on the
+    plan's grid or 3 or 7 blocks, in turn); and every forced split once at
+    each type, spread over the walks (stride 8 of 21): resident on 3, 1, 2
+    and 7 blocks, streamed at rows 3, M // 2 and M - 1 in shared memory on
+    the plan's grid and on 1, 2, 3 and 7 blocks; the flips too. Returns the
+    cases' counts (resident, streamed, device vectors)."""
     import torch
 
     from tpulp_torch.kernels import bounded_grid as kg
@@ -5228,14 +5251,16 @@ def grid_edge_walks(dev="cuda"):
     # M // 2, M - 1) on G blocks (None: the plan's)
     forced = [(None, b) for b in (3, 1, 2, 7)] + [
         (q, b) for q in range(3) for b in (None, 1, 2, 3, 7)]
-    count = {"resident": 0, "streamed": 0}
+    count = {"resident": 0, "streamed": 0, "device": 0}
     t0 = time.perf_counter()
     for off, dt in enumerate((torch.float64, torch.float32)):
         tiny = 1e-300 if dt == torch.float64 else 1e-30
-        walks = [(f, r, None, None) for f, r in pairs] + [
-            (*pairs[(8 * i + 3 * off) % len(pairs)], q, b)
-            for i, (q, b) in enumerate(forced)]
-        for fname, rule, q, blocks in walks:
+        walks = [(f, r, None, None, None) for f, r in pairs] + [
+            (*pairs[(8 * i + 3 * off) % len(pairs)], q, b, None)
+            for i, (q, b) in enumerate(forced)] + [
+            (f, r, (0, 2)[i % 2], (None, 3, 7)[i % 3], "device")
+            for i, (f, r) in enumerate(pairs)]
+        for fname, rule, q, blocks, vectors in walks:
             kw = rules[rule]
             devex = rule in ("devex", "numeric", "big_weights")
             bs, opts = bounded_state(forms[fname], dev, dt, devex, **kw)
@@ -5253,30 +5278,35 @@ def grid_edge_walks(dev="cuda"):
             M = bs.s.T.shape[0]
             rows = None if q is None else (3, M // 2, M - 1)[q]
             plan = kg.bounded_grid_plan(*bs.s.T.shape, dt, sms,
-                                        blocks=blocks, rows=rows)
+                                        blocks=blocks, rows=rows,
+                                        vectors=vectors)
             flips0 = dict(FLIPS)
             k = kg.bounded_grid(bs, opts, stall, opts.max_iters,
-                                blocks=blocks, rows=rows) \
+                                blocks=blocks, rows=rows, vectors=vectors) \
                 if dev == "cuda" else kg.bounded_grid_reference(
-                    bs, opts, stall, opts.max_iters, plan.blocks)[0]
+                    bs, opts, stall, opts.max_iters, plan.blocks,
+                    plan.vectors)[0]
             sync(dev)
             p, counts = kg.bounded_grid_reference(
-                cpu(bs), opts, stall, opts.max_iters, plan.blocks)
+                cpu(bs), opts, stall, opts.max_iters, plan.blocks,
+                plan.vectors)
             bounded_equal(cpu(k), p)
             got = {key: FLIPS[key] - flips0[key] for key in FLIPS}
             if dev == "cuda" and got != counts:
                 raise AssertionError(f"8a (e) {fname} {rule} {dt} "
                                      f"G {plan.blocks} R {plan.rows}: flips "
                                      f"{got} against {counts}")
-            count["resident" if rows is None else "streamed"] += 1
+            count["device" if vectors else "resident" if rows is None
+                  else "streamed"] += 1
     log(f"# 8a (e) bounded_grid equals bounded_grid_reference in every field "
-        f"(the flips too) on {count['resident']} resident and "
-        f"{count['streamed']} streamed small walks: 3 frames x Dantzig, "
-        "devex, Bland, a budget, a NaN, weights above 1e8, a basic column "
-        "that is not a unit vector, each on the plan's grid at f64 and f32; "
-        "every forced split once a type: resident on 3, 1, 2 and 7 blocks, "
-        "streamed at rows 3, M // 2 and M - 1 on the plan's grid and 1, 2, 3"
-        f" and 7 blocks ({time.perf_counter() - t0:.1f} s)")
+        f"(the flips too) on {count['resident']} resident, "
+        f"{count['streamed']} streamed and {count['device']} device-vector "
+        "small walks: 3 frames x Dantzig, devex, Bland, a budget, a NaN, "
+        "weights above 1e8, a basic column that is not a unit vector, each "
+        "on the plan's grid and on the device-vector plan forced at f64 and "
+        "f32; every forced split once a type: resident on 3, 1, 2 and 7 "
+        "blocks, streamed at rows 3, M // 2 and M - 1 on the plan's grid and "
+        f"1, 2, 3 and 7 blocks ({time.perf_counter() - t0:.1f} s)")
     return count
 
 
@@ -5308,21 +5338,25 @@ def grid_bounds(M: int, N: int, es: int, G: int, steps: int, clock_hz: float,
 
 def bounded_grid_us(sf, dev, dtype, devex: bool = True,
                     advance: int = BND_TIMED_FROM,
-                    steps: int = BND_GRID_TIMED_STEPS, **kw):
+                    steps: int = BND_GRID_TIMED_STEPS, state=None, **kw):
     """One ``bounded_grid`` launch of ``steps`` steps of the devex (or
     Dantzig; options overridden by ``kw``) walk ``advance`` steps in, on
     the card alone (CUDA events after a sleep that
     covers the host's work; median of three), by stage: block 0's cycles
     of each stage (``stage_cycles``) as a share of the launch's, times its
     device time, so that no SM clock is assumed; the ratio test on the
-    clock of the block that owns the entering column apart ("owner").
-    With the plan (G, W, shared memory) and the occupancy."""
+    clock of the block that owns the entering column apart ("owner"; the
+    device-vector plan's spans under their own names, ``grid_stages``).
+    With the plan (G, W, R, TR, scratch, the vectors' place, shared
+    memory) and the occupancy. ``state``, a (state, options) pair, walks
+    in place of ``sf``'s."""
     import torch
 
     from tpulp_torch.kernels import bounded_grid as kg
     from tpulp_torch.kernels.launch import sm_count
 
-    bs, opts = bounded_state(sf, dev, dtype, devex, **kw)
+    bs, opts = bounded_state(sf, dev, dtype, devex, **kw) if state is None \
+        else state
     stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
     M, N = bs.s.T.shape
     plan = kg.bounded_grid_plan(M, N, dtype, sm_count(bs.s.T.device))
@@ -5340,20 +5374,22 @@ def bounded_grid_us(sf, dev, dtype, devex: bool = True,
                           stage_cycles=cyc)
     if int(out.s.niter) != advance + steps:
         raise AssertionError("8a: the timed grid steps ran past the walk")
-    c = dict(zip(kg.GRID_STAGES, cyc.tolist()))
-    owner = c.pop("owner")
+    names = kg.grid_stages(plan)
+    c = dict(zip(names, cyc.tolist()))
+    owner = c.pop(names[-1])
     total = sum(c.values())
     us = float(np.median(dev_us))
     per_cycle = us * steps / total
     split = {k: v * per_cycle / steps for k, v in c.items()
              if k not in ("load", "store")}
     split["load_and_store_per_launch"] = (c["load"] + c["store"]) * per_cycle
-    split["owner"] = owner * per_cycle / steps
+    split[names[-1]] = owner * per_cycle / steps
     return {"device_us_per_step": us,
             "host_us_per_step": float(np.median(host_us)),
             "device_us_by_stage": split, "blocks": plan.blocks,
             "width": plan.width, "smem": plan.smem, "rows": plan.rows,
-            "scratch": plan.scratch,
+            "scratch": plan.scratch, "tile_rows": plan.tile_rows,
+            "vectors": plan.vectors,
             "steps": steps, "advance": advance,
             "es": bs.s.T.element_size(),
             "occupancy": kg.bounded_grid_occupancy(
@@ -5495,38 +5531,176 @@ def wide_bounded_lp(dev, clock_hz: float):
                                              FP64_FLOP_S)[0]}
 
 
-def past_streamed_lp(dev):
-    """8a (x): ``run_simplex_bounded`` on a BND_PAST_M x BND_PAST_N box LP
-    (``bounded_arrays``' recipe, a slack basis, devex) whose frame is past
-    the streamed plan at f64 (``bounded_route``: "bounded_step"), to a
-    budget of BND_PAST_STEPS steps: on ``bounded_steps`` (no
-    ``bounded_grid`` and no FMA launch), held to the plain loop in every
-    field; the four-launch step timed from the walk's start."""
+def past_state(dev, m: int, dtype, seed: int, n: int = BND_PAST_N):
+    """(state, options) of the devex walk of an m x n box LP
+    (``bounded_arrays``' recipe, seed ``seed``) from its slack basis, to a
+    budget of BND_PAST_STEPS steps: 8a (x), (y) and (z)'s frames."""
     import torch
 
     from tpulp_torch import SolverOptions
     from tpulp_torch.core.state import RULE_DEVEX, make_state
+    from tpulp_torch.solve.bounded import make_bounded_state
+
+    D, b, c, u = bounded_arrays(m, n, seed=seed)
+    state = make_state(np.concatenate([c, np.zeros(m)]),
+                       np.concatenate([D, np.eye(m)], axis=1), b,
+                       list(range(n, n + m)), dtype=dtype, device=dev)
+    bs = make_bounded_state(state, u.tolist() + [None] * m)
+    bs = bs._replace(gamma=torch.ones_like(bs.upper))
+    return bs, SolverOptions.for_dtype(dtype, rule=RULE_DEVEX,
+                                       max_iters=BND_PAST_STEPS)
+
+
+def past_streamed_lp(dev, label: str, m: int, dtype, clock_hz: float,
+                     seed: int = 2):
+    """8a (x) and (y): ``run_simplex_bounded`` on an m x BND_PAST_N box LP
+    (``bounded_arrays``' recipe, a slack basis, devex) whose frame is past
+    the streamed plan at ``dtype`` (``bounded_route``: "bounded_grid" on
+    the plan with the per-row vectors in device memory), to a budget of
+    BND_PAST_STEPS steps: one ``bounded_grid`` launch (no ``bounded_step``
+    and no FMA launch), held to the plain loop and to ``bounded_steps``'
+    walk on the same budget in every field, the flips too; then, in turns
+    (grid, steps, steps, grid), one grid launch of BND_PAST_GRID_TIMED
+    steps from the walk's eighth step by stage and BND_PAST_TIMED steps of
+    ``bounded_steps`` from there, with the plan and the grid's bounds."""
+    import torch
+
     from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import bounded_grid as kg
+    from tpulp_torch.kernels.bounded import FLIPS
     from tpulp_torch.kernels.launch import sm_count
-    from tpulp_torch.solve.bounded import (bounded_route, make_bounded_state,
+    from tpulp_torch.solve.bounded import (bounded_route,
                                            run_simplex_bounded,
                                            run_simplex_bounded_reference)
 
-    m, n = BND_PAST_M, BND_PAST_N
-    D, b, c, u = bounded_arrays(m, n, seed=2)
+    n = BND_PAST_N
     M, N = m + 2, n + m + 1
-    sms = sm_count(torch.device(dev)) if dev == "cuda" else 132
-    route = bounded_route(M, N, torch.float64, sms)
+    name = str(dtype).replace("torch.", "")
+    es = 8 if dtype == torch.float64 else 4
+    sms = sm_count(torch.device(dev)) if dev == "cuda" else kg.GRID_SMS
+    route = bounded_route(M, N, dtype, sms,
+                          torch.device(dev) if dev == "cuda" else None)
+    plan = kg.bounded_grid_plan(M, N, dtype, sms)
+    if route != "bounded_grid" or plan.vectors != "device":
+        raise AssertionError(f"8a {label}: {M} x {N} takes {route}, plan "
+                             f"{plan}")
+    bs, opts = past_state(dev, m, dtype, seed)
+    sync(dev)
+    flips0 = dict(FLIPS)
+    reset_launches()
+    t0 = time.perf_counter()
+    k = run_simplex_bounded(bs, opts)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    flips = {key: FLIPS[key] - flips0[key] for key in FLIPS}
+    t0 = time.perf_counter()
+    p = run_simplex_bounded_reference(bs, opts)
+    sync(dev)
+    plain_secs = time.perf_counter() - t0
+    err = bounded_equal(k, p)
+    flips0 = dict(FLIPS)
+    reset_launches()
+    t0 = time.perf_counter()
+    s = steps_walk(bs, opts)
+    sync(dev)
+    step_secs = time.perf_counter() - t0
+    step_launches = LAUNCHES["bounded_step"]
+    step_flips = {key: FLIPS[key] - flips0[key] for key in FLIPS}
+    step_err = bounded_equal(s, p)
+    bounded_equal(k, s)
+    steps = int(k.s.niter)
+    if steps != BND_PAST_STEPS or flips != step_flips or (
+            dev == "cuda" and not (launches["bounded_grid"] >= 1
+                                   and launches["bounded_step"] == 0
+                                   and launches["fused_fma"] == 0
+                                   and step_launches > 0)):
+        raise AssertionError(f"8a {label}: {steps} steps, launches "
+                             f"{launches}, flips {flips} against "
+                             f"bounded_steps' {step_flips}")
+    # the grid's launch in turns with bounded_steps', from the eighth step
+    grid_runs, step_runs = [], []
+    for kind in ("grid", "steps", "steps", "grid"):
+        if kind == "grid":
+            grid_runs.append(bounded_grid_us(
+                None, dev, dtype, advance=8, steps=BND_PAST_GRID_TIMED,
+                state=(bs, opts)))
+        else:
+            step_runs.append(bounded_step_us(
+                None, dev, dtype, advance=8, steps=BND_PAST_TIMED,
+                state=(bs, opts)))
+    g = dict(grid_runs[0])
+    g["device_us_turns"] = [r["device_us_per_step"] for r in grid_runs]
+    g["device_us_per_step"] = float(np.mean(g["device_us_turns"]))
+    g["device_us_by_stage"] = {
+        key: float(np.mean([r["device_us_by_stage"][key]
+                            for r in grid_runs]))
+        for key in grid_runs[0]["device_us_by_stage"]}
+    wb, own, step_b = grid_bounds(M, N, es, g["blocks"], BND_PAST_STEPS,
+                                  clock_hz, rows=g["rows"])
+    g.update(bound_ms=wb[0], bound_by=wb[1], grid_bound_ms=own,
+             step_bound_ms=step_b, sm_clock_hz=clock_hz)
+    dev_us = float(np.mean([r[0] for r in step_runs]))
+    host_us = float(np.mean([r[1] for r in step_runs]))
+    split = {key: float(np.mean([r[2][key] for r in step_runs]))
+             for key in step_runs[0][2]}
+    bound_us = 1e3 * bound(2.0 * M * N * es, 0.0, FP64_FLOP_S)[0]
+    log(f"# 8a {label} box LP {m}x{n} ({M} x {N} {name}, past the streamed "
+        f"plan: {route}, the per-row vectors in device memory; G "
+        f"{plan.blocks}, W {plan.width}, R {plan.rows}, tiles of "
+        f"{plan.tile_rows} rows, {plan.scratch} bytes streamed, {plan.smem} "
+        f"bytes of shared memory a block, occupancy {g['occupancy']}): its "
+        f"first {steps} steps through run_simplex_bounded ({secs:.3f} s, "
+        f"launches {launches}) equal the plain walk ({plain_secs:.2f} s) "
+        f"and bounded_steps' walk ({step_secs:.3f} s, {step_launches} "
+        f"launches) in every field, flips {flips}; in turns: bounded_grid "
+        f"{g['device_us_per_step']:.3f} us a step on the card (turns "
+        f"{g['device_us_turns']}; one launch of {g['steps']} steps from step "
+        f"{g['advance']}; by stage "
+        + ", ".join(f"{key} {v:.3f}" for key, v in
+                    g["device_us_by_stage"].items())
+        + f"), bounded_step {dev_us:.2f} us a step ({[r[0] for r in step_runs]}"
+        f"; {split}), {host_us:.2f} us to enqueue; bounds a step: "
+        f"{1e3 * wb[0]:.4f} us ({wb[1]}, the walk's), {1e3 * own:.3f} us "
+        f"(the kernel's convention), {bound_us:.2f} us (the table's step "
+        "convention: the tableau read and written once)")
+    return {"route": route, "plan": plan._asdict(), "steps": steps,
+            "seconds": secs, "plain_seconds": plain_secs,
+            "max_abs_err": err, "launches": launches, **flips,
+            "grid_us": g, "bound_us_per_step": bound_us,
+            "bounded_step": {
+                "seconds": step_secs, "max_abs_err": step_err,
+                "launches": step_launches, "device_us_per_step": dev_us,
+                "host_us_per_step": host_us, "device_us_by_stage": split}}
+
+
+def too_wide_lp(dev):
+    """8a (z): ``run_simplex_bounded`` on a BND_WIDEST_M x BND_WIDEST_N box
+    LP (``past_state``'s recipe, devex) whose slabs are too wide for every
+    plan of the grid at f64 (``bounded_route``: "bounded_step"), to a
+    budget of BND_PAST_STEPS steps: ``bounded_step``'s main path (launches
+    set to 0 just before the walk and read just after: >= 1, no grid and
+    no FMA launch), held to the plain loop in every field; then
+    BND_PAST_TIMED steps from the eighth timed on the card, with the
+    bound."""
+    import torch
+
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import bounded_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+    from tpulp_torch.solve.bounded import (bounded_route,
+                                           run_simplex_bounded,
+                                           run_simplex_bounded_reference)
+
+    m, n = BND_WIDEST_M, BND_WIDEST_N
+    M, N = m + 2, n + m + 1
+    dtype = torch.float64
+    sms = sm_count(torch.device(dev)) if dev == "cuda" else kg.GRID_SMS
+    route = bounded_route(M, N, dtype, sms,
+                          torch.device(dev) if dev == "cuda" else None)
     if route != "bounded_step":
-        raise AssertionError(f"8a (x): {M} x {N} takes {route}")
-    state = make_state(np.concatenate([c, np.zeros(m)]),
-                       np.concatenate([D, np.eye(m)], axis=1), b,
-                       list(range(n, n + m)), dtype=torch.float64,
-                       device=dev)
-    bs = make_bounded_state(state, u.tolist() + [None] * m)
-    bs = bs._replace(gamma=torch.ones_like(bs.upper))
-    opts = SolverOptions.for_dtype(torch.float64, rule=RULE_DEVEX,
-                                   max_iters=BND_PAST_STEPS)
+        raise AssertionError(f"8a (z): {M} x {N} takes {route}")
+    bs, opts = past_state(dev, m, dtype, 4, n)
     sync(dev)
     reset_launches()
     t0 = time.perf_counter()
@@ -5540,25 +5714,26 @@ def past_streamed_lp(dev):
     plain_secs = time.perf_counter() - t0
     err = bounded_equal(k, p)
     steps = int(k.s.niter)
+    if steps != BND_PAST_STEPS or (
+            dev == "cuda" and not (launches["bounded_step"] >= 1
+                                   and launches["bounded_grid"] == 0
+                                   and launches["fused_fma"] == 0)):
+        raise AssertionError(f"8a (z): {steps} steps, launches {launches}")
     dev_us, host_us, split = bounded_step_us(
-        None, dev, torch.float64, advance=8, steps=BND_PAST_TIMED,
-        state=(bs, opts))
-    log(f"# 8a (x) box LP {m}x{n} ({M} x {N}, past the streamed plan: "
-        f"{route}) f64: its first {steps} steps through run_simplex_bounded "
-        f"equal the plain walk in every field ({secs:.3f} s against "
-        f"{plain_secs:.2f} s); launches {launches}; bounded_step "
-        f"{dev_us:.2f} us a step on the card ({split}), {host_us:.2f} us to "
-        "enqueue")
-    if steps != BND_PAST_STEPS or (dev == "cuda" and not (
-            launches["bounded_step"] > 0 and launches["bounded_grid"] == 0
-            and launches["fused_fma"] == 0)):
-        raise AssertionError(f"8a (x): {steps} steps, launches {launches}")
+        None, dev, dtype, advance=8, steps=BND_PAST_TIMED, state=(bs, opts))
+    bound_us = 1e3 * bound(2.0 * M * N * 8, 0.0, FP64_FLOP_S)[0]
+    log(f"# 8a (z) box LP {m}x{n} ({M} x {N} float64, too wide for every "
+        f"plan of the grid: {route}): its first {steps} steps through "
+        f"run_simplex_bounded ({secs:.3f} s, launches {launches}) equal the "
+        f"plain walk ({plain_secs:.2f} s) in every field; bounded_step "
+        f"{dev_us:.2f} us a step on the card ({BND_PAST_TIMED} steps from "
+        f"step 8; {split}), {host_us:.2f} us to enqueue; bound "
+        f"{bound_us:.2f} us a step (the tableau read and written once)")
     return {"route": route, "steps": steps, "seconds": secs,
             "plain_seconds": plain_secs, "max_abs_err": err,
             "launches": launches, "device_us_per_step": dev_us,
             "host_us_per_step": host_us, "device_us_by_stage": split,
-            "bound_us_per_step": 1e3 * bound(2.0 * M * N * 8, 0.0,
-                                             FP64_FLOP_S)[0]}
+            "bound_us_per_step": bound_us}
 
 
 def phase_bounded_lp(dev):
@@ -5581,9 +5756,10 @@ def phase_bounded_lp(dev):
     entering flip (8b's first box LP); both kernels' device and host us a
     step, the grid's by stage (devex at f64 and f32, the f64 Dantzig walk,
     the f32 Bland window); (w), the box LP past the resident slab on the
-    streamed grid; and (x), a frame past the streamed plan on
-    ``bounded_step``. Returns the numbers and the launches of the f64
-    solve."""
+    streamed grid; (x) and (y), frames past the streamed plan at f64 and
+    f32 on the grid's device-vector plan; (z), a frame too wide for every
+    plan, on ``bounded_step``; and (t), the grid's ``cuda`` tests. Returns
+    the numbers and the launches of the f64 solve."""
     import torch
 
     import tpulp_torch
@@ -5594,6 +5770,10 @@ def phase_bounded_lp(dev):
     from tpulp_torch.model.lower import materialize_simple_bounds
     from tpulp_torch.solve.refine import float_bounded_certificate
 
+    # "cuda" or "cpu": main passes a torch.device, and the checks below
+    # (the launch gates, the kernel against its plain version) key on the
+    # name
+    dev = torch.device(dev).type
     m, n = BND_M, BND_N
     sf, D, b, u = bounded_form(m, n)
     rp, cp = equilibration_powers_dense(
@@ -5601,6 +5781,15 @@ def phase_bounded_lp(dev):
     log(f"# bounded LP {m}x{n}: equilibration material: "
         f"{is_material_scaling(rp, cp)}")
     res = {}
+    # the seconds of each part of the phase (host clock)
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[name] = now - t_part
+        t_part = now
+
     for dt in (torch.float64, torch.float32):
         name = str(dt).replace("torch.", "")
         window = bounded_step_window(sf, dev, dt)
@@ -5704,6 +5893,7 @@ def phase_bounded_lp(dev):
         res["row_lowered"] = {"niter": rows.niter, "seconds": rsecs,
                               "launches": rl, "relative_difference": rel}
 
+    part("solves")
     # the kernels against the plain loop, on the card
     walks = {
         "f64_devex": bounded_walk_check(sf, dev, torch.float64,
@@ -5721,6 +5911,7 @@ def phase_bounded_lp(dev):
             max_iters=BND_BLAND_STEPS)}
     if not walks["f32_dantzig_bland"]["bland"]:
         raise AssertionError("8a: the Bland switch did not fire")
+    part("walks")
     reference = {str(dt).replace("torch.", ""): grid_reference_check(
         sf, dev, dt, f"the {dt} devex walk's first {BND_GRID_REF_WINDOW} "
         "steps", BND_GRID_REF_WINDOW)
@@ -5728,7 +5919,9 @@ def phase_bounded_lp(dev):
     reference["dantzig float64"] = grid_reference_check(
         sf, dev, torch.float64, "the torch.float64 Dantzig walk's first "
         f"{BND_GRID_REF_WINDOW} steps", BND_GRID_REF_WINDOW, devex=False)
+    part("reference")
     reference["edge_walks"] = grid_edge_walks(dev)
+    part("edge_walks")
     f64 = walks["f64_devex"]
     if f64["status"] != 1 or f64["niter"] != res["float64"]["niter"]:
         raise AssertionError(f"8a: the f64 devex walk {f64} is not the "
@@ -5742,6 +5935,7 @@ def phase_bounded_lp(dev):
             bounded_stage_checks(bs, opts, f"8b's first box LP ({BOX_M}x"
                                  f"{BOX_N}, Dantzig, {dt})",
                                  ("upper", "enter"), 5, 400)
+    part("stages")
     us, grid_us = {}, {}
     clock_hz = 1e6 * float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -5803,10 +5997,52 @@ def phase_bounded_lp(dev):
         f"a step ({f64['device_us_per_step']:.2f} on the card, "
         f"{f64['host_us_per_step']:.2f} to enqueue; bound "
         f"{f64['bound_us_per_step']:.2f} us)")
+    part("timing")
     res.update(walks=walks, stages=stages, step_us=us, grid_us=grid_us,
-               reference=reference, wide=wide_bounded_lp(dev, clock_hz),
-               past=past_streamed_lp(dev))
+               reference=reference, wide=wide_bounded_lp(dev, clock_hz))
+    part("(w)")
+    res["past"] = past_streamed_lp(dev, "(x)", BND_PAST_M, torch.float64,
+                                   clock_hz)
+    part("(x)")
+    res["past_float32"] = past_streamed_lp(dev, "(y)", BND_PAST32_M,
+                                           torch.float32, clock_hz, seed=3)
+    part("(y)")
+    res["too_wide"] = too_wide_lp(dev)
+    part("(z)")
+    res["card_tests"] = bounded_grid_card_tests(dev)
+    part("(t)")
+    res["seconds_by_part"] = parts
+    log("# 8a seconds by part (host clock): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
     return res
+
+
+def bounded_grid_card_tests(dev):
+    """8a (t): tests/test_torch_bounded_grid_card.py, the bounded grid's
+    ``cuda`` tests (the kernel against its plain version on the CPU's
+    small walks: the plan's grid, forced grids and splits, the
+    device-vector plan forced), run on the card in a process of their own;
+    a failure, or a test that skips, fails the run."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+           "-q", "-p", "no:cacheprovider",
+           "tests/test_torch_bounded_grid_card.py"]
+    if dev != "cuda":
+        return {"skipped": "no card"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    log(f"# 8a (t) {' '.join(cmd[2:])}: exit {proc.returncode}, "
+        f"{tail[0]} ({secs:.1f} s)")
+    if proc.returncode != 0 or "skipped" in tail[0] or \
+            "passed" not in tail[0]:
+        raise AssertionError(f"8a (t): the bounded grid's card tests: "
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return {"summary": tail[0], "seconds": secs}
 
 
 def box_form(seed: int, m: int, n: int):
@@ -7557,13 +7793,15 @@ def main() -> int:
                         "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
                         "592; tpulp/batch/vmap_driver.py:250)",
                         milp_launches),
-        # bounded_step's main path since the streamed grid took (w): (x),
-        # the box LP past the streamed plan
+        # bounded_step's route since the device-vector grid took (x): a
+        # frame too wide for every plan of the grid, (z)'s walk (on the
+        # other frames it is called directly beside the grid, as the
+        # yardstick)
         "bounded_step": ("tpulp_torch/kernels/csrc/bounded.cu",
                          "none: XLA's compiled lax.while_loop over "
                          "bounded_simplex_step (tpulp/solve/bounded.py:"
                          "86-276, 278-307)",
-                         exact["bounded_lp"]["past"]["launches"]),
+                         exact["bounded_lp"]["too_wide"]["launches"]),
         "rank1_step": ("tpulp_torch/kernels/csrc/rank1.cu",
                        "none: XLA's compiled lax.while_loop over "
                        "simplex_step, devex_simplex_step and "
@@ -7643,7 +7881,7 @@ def main() -> int:
             # per step of 8a's f64 devex walk (called directly on the frame,
             # held equal and timed beside the grid): the walk's host-clock
             # time, the plain step's, the tableau's bytes; the headline at
-            # the shape its route gives it, (x)'s box LP
+            # the shape its route gives it, (z)'s box LP
             bl = exact["bounded_lp"]
             cases = {}
             for dt, walk in (("float64", "f64_devex"),
@@ -7677,20 +7915,43 @@ def main() -> int:
                                        wd["device_us_by_stage"].items()},
                 "host_enqueue_ms": wd["host_us_per_step"] / 1e3,
                 "steps": wd["window"]["steps"]}
-            # the route's shape: (x), past the streamed plan
-            px = bl["past"]
-            cases["past the streamed plan float64 (x)"] = {
-                "max_abs_err": px["max_abs_err"],
-                "ms": 1e3 * px["seconds"] / px["steps"],
-                "plain_ms": 1e3 * px["plain_seconds"] / px["steps"],
-                "bound_ms": px["bound_us_per_step"] / 1e3,
+            # (x) and (y), past the streamed plan (its route until the
+            # device-vector grid took them): the walk held and timed
+            # beside the grid's, its steps timed in turns with the grid's
+            # launch
+            for case, key in (("past the streamed plan float64 (x)",
+                               "past"),
+                              ("past the streamed plan float32 (y)",
+                               "past_float32")):
+                px = bl[key]
+                st = px["bounded_step"]
+                cases[case] = {
+                    "max_abs_err": st["max_abs_err"],
+                    "ms": 1e3 * st["seconds"] / px["steps"],
+                    "plain_ms": 1e3 * px["plain_seconds"] / px["steps"],
+                    "bound_ms": px["bound_us_per_step"] / 1e3,
+                    "bound_by": "bytes", "library_ms": None,
+                    "device_ms": st["device_us_per_step"] / 1e3,
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        st["device_us_by_stage"].items()},
+                    "host_enqueue_ms": st["host_us_per_step"] / 1e3,
+                    "grid_device_ms": px["grid_us"]["device_us_per_step"]
+                    / 1e3, "steps": px["steps"]}
+            # (z), too wide for every plan: its route, the headline
+            z = bl["too_wide"]
+            cases["too wide for the grid float64 (z)"] = {
+                "max_abs_err": z["max_abs_err"],
+                "ms": 1e3 * z["seconds"] / z["steps"],
+                "plain_ms": 1e3 * z["plain_seconds"] / z["steps"],
+                "bound_ms": z["bound_us_per_step"] / 1e3,
                 "bound_by": "bytes", "library_ms": None,
-                "device_ms": px["device_us_per_step"] / 1e3,
-                "device_ms_by_stage": {k: v / 1e3 for k, v in
-                                       px["device_us_by_stage"].items()},
-                "host_enqueue_ms": px["host_us_per_step"] / 1e3,
-                "steps": px["steps"]}
-            head = cases["past the streamed plan float64 (x)"]
+                "device_ms": z["device_us_per_step"] / 1e3,
+                "device_ms_by_stage": {
+                    k: v / 1e3 for k, v in z["device_us_by_stage"].items()},
+                "host_enqueue_ms": z["host_us_per_step"] / 1e3,
+                "steps": z["steps"]}
+            head = cases["too wide for the grid float64 (z)"]
         elif kname == "bounded_grid":
             # per step of 8a's walks on the grid: the walk's host-clock time
             # (in turns with bounded_steps), the plain version's, one launch
@@ -7761,6 +8022,31 @@ def main() -> int:
                     "max_abs_err"],
                 window_float32_plain_ms=wd["window_float32"][
                     "plain_ms_per_step"])
+            # the device-vector plan: (x) and (y), past the streamed plan,
+            # one launch of BND_PAST_GRID_TIMED steps from step 8 in turns
+            # with bounded_steps; the walk against the plain walk and
+            # bounded_steps' walk; the bound by the table's step convention
+            # beside the walk's and the kernel's own
+            for case, key in (("device vectors float64 (x)", "past"),
+                              ("device vectors float32 (y)",
+                               "past_float32")):
+                px = bl[key]
+                gx = px["grid_us"]
+                cases[case] = grid_case(
+                    gx, max_abs_err=px["max_abs_err"],
+                    ms=1e3 * px["seconds"] / px["steps"],
+                    plain_ms=1e3 * px["plain_seconds"] / px["steps"],
+                    table_step_bound_ms=px["bound_us_per_step"] / 1e3,
+                    bounded_step_ms=1e3 * px["bounded_step"]["seconds"]
+                    / px["steps"],
+                    bounded_step_device_ms=px["bounded_step"][
+                        "device_us_per_step"] / 1e3,
+                    device_ms_turns=[v / 1e3 for v in
+                                     gx["device_us_turns"]],
+                    rows=gx["rows"], tile_rows=gx["tile_rows"],
+                    scratch=gx["scratch"], vectors=gx["vectors"],
+                    steps=gx["steps"], solve_steps=px["steps"],
+                    launches=px["launches"]["bounded_grid"])
             head = cases["float64"]
         elif kname == "rank1_step":
             # per step of 5c's walks: the walk's host-clock time, the plain
@@ -8113,13 +8399,19 @@ def main() -> int:
             "us_per_step", "device_ms", "device_us_per_step", "steps",
             "pivots")})
     kernels[5].update({key: kernels[5]["cases"][
-        "past the streamed plan float64 (x)"][key] for key in (
+        "too wide for the grid float64 (z)"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
     # bounded_step: 0 on 8a's solves and 9c's solo walk since the grid took
-    # their frames, 0 on (w) since the streamed grid; (x)'s walk past it
+    # their frames, 0 on (w) since the streamed grid, 0 on (x) and (y)
+    # since the device-vector grid; its route is (z)'s frame, too wide for
+    # every plan
     kernels[5]["launches_by_path"] = {
+        "8a_too_wide_float64": exact["bounded_lp"]["too_wide"]["launches"][
+            "bounded_step"],
         "8a_past_streamed_float64": exact["bounded_lp"]["past"]["launches"][
             "bounded_step"],
+        "8a_past_streamed_float32": exact["bounded_lp"]["past_float32"][
+            "launches"]["bounded_step"],
         "8a_wide_float64": exact["bounded_lp"]["wide"]["launches"][
             "bounded_step"],
         "bounded_lp_float64": bounded_launches["bounded_step"],
@@ -8140,9 +8432,14 @@ def main() -> int:
         "sharded_bounded_solo_float64":
             mesh["bounded"]["solo"]["launches"]["bounded_grid"],
         "8a_wide_float64": exact["bounded_lp"]["wide"]["launches"][
-            "bounded_grid"]}
+            "bounded_grid"],
+        "8a_past_streamed_float64": exact["bounded_lp"]["past"]["launches"][
+            "bounded_grid"],
+        "8a_past_streamed_float32": exact["bounded_lp"]["past_float32"][
+            "launches"]["bounded_grid"]}
     kernels[14]["edge_walks_held"] = exact["bounded_lp"]["reference"][
         "edge_walks"]
+    kernels[14]["card_tests"] = exact["bounded_lp"]["card_tests"]
     kernels[6].update({key: kernels[6]["cases"][
         "past the grid's plan float64 (x)"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})

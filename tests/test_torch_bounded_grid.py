@@ -8,14 +8,16 @@ phase 1 with a retire, a phase-2 clean-up, upper hits, entering flips, a
 devex reset, the redirected pivot both skipped and run, and budgets of 1
 and 7 steps; at f64 it ends where tpulp's jitted bounded walk does
 (status, pivots, basis, objective), also on the grid of a streamed plan
-(the slabs' rows split between shared and device memory).
-``bounded_grid_plan``'s arithmetic (resident and streamed plans, forced
-splits, the shared-memory refusal), ``bounded_route``, the wrapper's
-refusals and the CPU dispatch are held here too. The kernel itself runs
-on the card only (the ``cuda`` tests; chip_smoke.py's phase 8a holds it at
-full size)."""
+(the slabs' rows split between shared and device memory) and of the
+device-vector plan (the per-row vectors in device memory, the |b| sum in
+its order), which equals the plain loop bit for bit at f64 and f32 and
+tpulp's solve at f32. ``bounded_grid_plan``'s arithmetic (resident,
+streamed and device-vector plans, forced splits and kinds, the edges),
+``bounded_route``, the wrapper's refusals and the CPU dispatch are held
+here too. The kernel itself runs on the card only
+(``tests/test_torch_bounded_grid_card.py``, which chip_smoke.py's phase 8a
+runs there; 8a also holds it at full size)."""
 
-import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -264,19 +266,27 @@ STREAMED_LAST_M = {torch.float64: 6_282, torch.float32: 10_798}
 
 def test_plan_refuses_frames_past_shared_memory():
     """The streamed plan's edge: the last frame it takes keeps rows 0-2 in
-    shared memory, the next is refused with ``GridPlanTooLarge`` (a
-    ValueError); another type and an out-of-range grid are refused with
-    plain ValueErrors."""
+    shared memory beside the replicated vectors; the next gets the
+    device-vector plan, and the shared-vector plan forced there is refused
+    with ``GridPlanTooLarge`` (a ValueError); another type and an
+    out-of-range grid are refused with plain ValueErrors."""
     for dtype, m in STREAMED_LAST_M.items():
         plan = kg.bounded_grid_plan(m + 2, 2 * m + 1, dtype, 132)
         assert plan.rows == 3 and plan.stages == kg.GRID_RING_STAGES
+        assert plan.vectors == "shared"
+        past = kg.bounded_grid_plan(m + 3, 2 * m + 3, dtype, 132)
+        assert past.vectors == "device" and past.rows > 3
         with pytest.raises(kg.GridPlanTooLarge, match="shared memory"):
-            kg.bounded_grid_plan(m + 3, 2 * m + 3, dtype, 132)
+            kg.bounded_grid_plan(m + 3, 2 * m + 3, dtype, 132,
+                                 vectors="shared")
     # 2050 x 6145 f64 (slabs of 47 columns) streams; 8,000 rows of a
-    # narrow frame do not fit their replicated vectors
+    # narrow frame do not fit their replicated vectors: the device-vector
+    # plan keeps all but one row of its two one-column slabs
     assert kg.bounded_grid_plan(2050, 6145, torch.float64, 132).rows < 2050
+    narrow = kg.bounded_grid_plan(8000, 3, torch.float64, 132)
+    assert (narrow.vectors, narrow.blocks, narrow.rows) == ("device", 2, 7999)
     with pytest.raises(kg.GridPlanTooLarge):
-        kg.bounded_grid_plan(8000, 3, torch.float64, 132)
+        kg.bounded_grid_plan(8000, 3, torch.float64, 132, vectors="shared")
     with pytest.raises(ValueError, match="float32 or float64") as err:
         kg.bounded_grid_plan(130, 385, torch.float16)
     assert not isinstance(err.value, kg.GridPlanTooLarge)
@@ -286,8 +296,8 @@ def test_plan_refuses_frames_past_shared_memory():
 
 
 def test_route_on_each_side_of_the_plan():
-    """Every frame the plan takes, resident or streamed, routes to the
-    grid; past the streamed plan's edge, to the four-launch step."""
+    """Every frame routes to the grid: resident, streamed, and past the
+    streamed plan's edge on the device-vector plan."""
     for M, N, dtype, sms in ((1026, 3073, torch.float64, 132),
                              (1026, 3073, torch.float32, 132),
                              (130, 385, torch.float64, 132),
@@ -301,18 +311,74 @@ def test_route_on_each_side_of_the_plan():
         assert bounded_route(M, N, dtype, sms=sms) == "bounded_grid"
     for dtype, m in STREAMED_LAST_M.items():
         assert bounded_route(m + 2, 2 * m + 1, dtype) == "bounded_grid"
-        assert bounded_route(m + 3, 2 * m + 3, dtype) == "bounded_step"
+        assert bounded_route(m + 3, 2 * m + 3, dtype) == "bounded_grid"
+    assert bounded_route(8000, 3, torch.float64) == "bounded_grid"
 
 
 def test_route_raises_on_other_refusals():
-    """Only the plan's shared-memory refusal routes to the four-launch
-    step: a float16 frame or one outside 2^24 raises."""
+    """Only a frame too wide for every plan routes to the four-launch step
+    (``test_route_past_the_device_vector_plan``): a float16 frame or one
+    outside 2^24 raises."""
     with pytest.raises(ValueError, match="float32 or float64"):
         bounded_route(130, 385, torch.float16)
     with pytest.raises(ValueError, match="outside"):
         bounded_route(2, 385, torch.float64)
     with pytest.raises(ValueError, match="outside"):
         bounded_route(130, 2 ** 24, torch.float64)
+
+
+# the device-vector plan's width edge on 132 SMs, by type: the widest slab
+# (W) whose rows 0-2, ring of GRID_DEVICE_STAGES one-row tiles, row and
+# weight segments and masks fit a block, and its frame's structural
+# columns (n = 132 W)
+DEVICE_LAST_W = {torch.float64: 3_098, torch.float32: 6_032}
+
+
+@pytest.mark.parametrize("M", [102, 1002])
+@pytest.mark.parametrize("dtype,smem,scratch_row", [
+    (torch.float64, 229_312, 24_784),
+    (torch.float32, 229_264, 24_128),
+], ids=["f64", "f32"])
+def test_device_vector_plan_width_edge(M, dtype, smem, scratch_row):
+    """The device-vector plan's last frame keeps rows 0-2 of a slab of
+    DEVICE_LAST_W columns (one-row tiles); a column more widens every slab
+    by one and is refused with ``GridPlanTooLarge``, whatever the rows."""
+    W = DEVICE_LAST_W[dtype]
+    plan = kg.bounded_grid_plan(M, 132 * W + 1, dtype, 132)
+    assert (plan.vectors, plan.blocks, plan.width, plan.rows, plan.stages,
+            plan.tile_rows, plan.smem) == ("device", 132, W, 3,
+                                           kg.GRID_DEVICE_STAGES, 1, smem)
+    assert plan.smem <= kg.GRID_SMEM_LIMIT
+    assert plan.scratch == 132 * (M - 3) * scratch_row
+    with pytest.raises(kg.GridPlanTooLarge, match="device memory"):
+        kg.bounded_grid_plan(M, 132 * W + 2, dtype, 132)
+    with pytest.raises(kg.GridPlanTooLarge, match="device memory"):
+        kg.bounded_grid_plan(M, 132 * W + 2, dtype, 132, vectors="device")
+
+
+def test_route_past_the_device_vector_plan(monkeypatch):
+    """At the device-vector plan's width edge the route is the grid; a
+    column past it, the four-launch step, on the card too, where the
+    grid's occupancy is not asked for a frame it has no plan for."""
+    asked = []
+
+    def occupancy(M, N, dtype, devex, device):
+        asked.append((M, N))
+        return 1
+
+    monkeypatch.setattr(pbounded, "bounded_grid_occupancy", occupancy)
+    cuda = torch.device("cuda", 0)
+    for dtype, W in DEVICE_LAST_W.items():
+        for M in (102, 1002):
+            last, past = 132 * W + 1, 132 * W + 2
+            assert bounded_route(M, last, dtype) == "bounded_grid"
+            assert bounded_route(M, past, dtype) == "bounded_step"
+            assert bounded_route(M, last, dtype, 132,
+                                 device=cuda) == "bounded_grid"
+            assert bounded_route(M, past, dtype, 132,
+                                 device=cuda) == "bounded_step"
+    assert asked == [(M, 132 * W + 1) for W in DEVICE_LAST_W.values()
+                     for M in (102, 1002)]
 
 
 @pytest.mark.parametrize("M,N,dtype,rows,tile_rows,scratch", [
@@ -376,6 +442,181 @@ def test_plan_rows_forced():
         kg.bounded_grid_plan(2050, 4097, torch.float64, 132, rows=2050)
 
 
+@pytest.mark.parametrize("M,N,dtype,blocks,width,smem,rows,tile_rows,scratch", [
+    (7002, 7065, torch.float64, 131, 54, 229_200, 399, 32, 374_865_408),
+    (12_002, 12_065, torch.float32, 132, 92, 229_376, 492, 32, 559_595_520),
+], ids=["x_f64", "y_f32"])
+def test_device_vector_plan_past_the_streamed_plan(M, N, dtype, blocks, width,
+                                                   smem, rows, tile_rows,
+                                                   scratch):
+    """chip_smoke.py's (x) and (y), past the streamed plan: W and G as the
+    other plans take them; the per-row vectors in device memory, so a
+    block holds its R resident rows, the ring, the row and weight
+    segments, column j's entries of two tiles and its W mask entries
+    beside a ring of GRID_DEVICE_STAGES tiles (``_smem_device``'s
+    arithmetic: one row more does not fit); the scratch G regions of
+    ceil((M - R) / TR) tiles."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    plan = kg.bounded_grid_plan(M, N, dtype, 132)
+    n = N - 1
+    W = max(-(-n // 132), -(-kg.GRID_MIN_ENTRIES // M))
+    assert (plan.blocks, plan.width, plan.threads) == (blocks, width, 512)
+    assert W == width and blocks == -(-n // W)
+    S = kg.GRID_DEVICE_STAGES
+    assert (plan.vectors, plan.smem, plan.rows, plan.stages,
+            plan.tile_rows, plan.scratch) == ("device", smem, rows, S,
+                                              tile_rows, scratch)
+    tile = kg._align(tile_rows * W * es)
+    assert plan.smem == kg._smem_device(W, es, rows, S, tile, tile_rows) <= \
+        kg.GRID_SMEM_LIMIT
+    assert kg._smem_device(W, es, rows + 1, S, tile, tile_rows) > \
+        kg.GRID_SMEM_LIMIT
+    assert plan.scratch == blocks * -(-(M - rows) // tile_rows) * tile
+    assert plan.mail == 64 * (3 * blocks + 1)
+    with pytest.raises(kg.GridPlanTooLarge, match="shared memory"):
+        kg.bounded_grid_plan(M, N, dtype, 132, vectors="shared")
+
+
+def test_device_vector_plan_forced():
+    """``vectors="device"`` forces the device-vector plan at any frame: R
+    the most rows that fit (at most M - 1, at least one row streamed), or
+    ``rows`` 3 to M - 1; M, and a kind the kernel does not have, are
+    refused; the shared-vector plans and rank1_grid's stay as they
+    were."""
+    M, N = 66, 193
+    plan = kg.bounded_grid_plan(M, N, torch.float64, 132, vectors="device")
+    assert (plan.vectors, plan.rows) == ("device", M - 1)
+    assert plan[:2] == kg.bounded_grid_plan(M, N, torch.float64, 132)[:2]
+    for rows in (3, M // 2, M - 1):
+        for blocks in (None, 1, 3, 7):
+            forced = kg.bounded_grid_plan(M, N, torch.float64, 132,
+                                          blocks=blocks, rows=rows,
+                                          vectors="device")
+            assert (forced.vectors, forced.rows) == ("device", rows)
+            assert forced.stages == kg.GRID_DEVICE_STAGES
+            assert forced.tile_rows <= 2 * (M - rows)
+            assert forced.scratch == forced.blocks * -(
+                -(M - rows) // forced.tile_rows) * kg._align(
+                forced.tile_rows * forced.width * 8)
+    with pytest.raises(ValueError, match="streams"):
+        kg.bounded_grid_plan(M, N, torch.float64, 132, rows=M,
+                             vectors="device")
+    with pytest.raises(ValueError, match="vectors"):
+        kg.bounded_grid_plan(M, N, torch.float64, 132, vectors="host")
+    assert kg.bounded_grid_plan(M, N, torch.float64, 132,
+                                vectors="shared").vectors == "shared"
+    with pytest.raises(ValueError, match="vectors"):
+        kg.plan_grid(M, N, torch.float64, 132, None, None, kg._smem,
+                     "rank1_grid", None, "device")
+    with pytest.raises(ValueError, match="vectors"):
+        kg.bounded_grid_reference(*_small(), 10, 10, vectors="host")
+
+
+def test_stage_names_are_each_plans_own():
+    """``stage_cycles`` has one counter layout, named by the plan: the
+    device-vector plan's spans that differ from the other plans' take
+    names of their own, so that a name means one span on every plan."""
+    shared = kg.bounded_grid_plan(2050, 4097, torch.float64, 132)
+    device = kg.bounded_grid_plan(7002, 7065, torch.float64, 132)
+    assert kg.grid_stages(shared) == kg.GRID_STAGES
+    assert kg.grid_stages(device) == kg.GRID_DEVICE_VECTOR_STAGES
+    assert len(kg.GRID_STAGES) == len(kg.GRID_DEVICE_VECTOR_STAGES) == 14
+    same = {a for a, b in zip(kg.GRID_STAGES, kg.GRID_DEVICE_VECTOR_STAGES)
+            if a == b}
+    assert same == {"load", "price", "barrier_a", "barrier_c", "stream",
+                    "barrier_d", "store"}
+    assert not (set(kg.GRID_STAGES) - same) & set(
+        kg.GRID_DEVICE_VECTOR_STAGES)
+
+
+def test_route_raises_where_the_card_holds_no_grid(monkeypatch):
+    """Given a CUDA device, ``bounded_route`` asks the grid's occupancy
+    there (for the walk's instantiation); an occupancy of 0 raises
+    RuntimeError (the step is no fallback), on every plan; a frame past
+    every plan takes the step, with no occupancy asked."""
+    asked = []
+
+    def occupancy(M, N, dtype, devex, device):
+        asked.append((M, N, devex))
+        return 0
+
+    monkeypatch.setattr(pbounded, "bounded_grid_occupancy", occupancy)
+    cuda = torch.device("cuda", 0)
+    for M, N, dtype in ((1026, 3073, torch.float64),
+                        (2050, 4097, torch.float64),
+                        (7002, 7065, torch.float64),
+                        (12_002, 12_065, torch.float32)):
+        with pytest.raises(RuntimeError, match="holds no block"):
+            bounded_route(M, N, dtype, 132, device=cuda, devex=False)
+    assert asked[-1] == (12_002, 12_065, False)
+    # a frame past every plan takes the step, with no occupancy asked
+    assert bounded_route(102, 408_938, torch.float64, 132,
+                         device=cuda) == "bounded_step"
+    assert asked[-1] == (12_002, 12_065, False)
+    monkeypatch.setattr(pbounded, "bounded_grid_occupancy",
+                        lambda *args: 1)
+    assert bounded_route(7002, 7065, torch.float64, 132,
+                         device=cuda) == "bounded_grid"
+    # no occupancy is asked off the card
+    assert bounded_route(7002, 7065, torch.float64, 132,
+                         device=torch.device("cpu")) == "bounded_grid"
+
+
+# the device-vector plan forced at a small frame: rows 0-4 resident
+DEVICE_ROWS = 5
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("rule", list(RULES))
+def test_device_vector_plan_walks_equal_the_plain_loop(rule, dtype):
+    """On the device-vector plan forced at a small frame (phase 1, the
+    retire, upper hits; rows 0-4 resident) on grids of 1, 3 and 7 blocks,
+    and with an RHS whose |b| sum overflows: ``bounded_grid_reference``
+    (the |b| sum in that plan's order) equals
+    ``run_simplex_bounded_reference`` in every field, bit for bit."""
+    tt = getattr(torch, dtype)
+    bs, opts = port_state(CASES[4], tt, RULES[rule])
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    M, N = bs.s.T.shape
+    T = bs.s.T.clone()
+    T[3:5, -1] = torch.finfo(tt).max / 1.5
+    numeric = bs._replace(s=bs.s._replace(T=T))
+    for state in (bs, numeric):
+        want = run_simplex_bounded_reference(state, opts)
+        for blocks in (1, 3, 7):
+            plan = kg.bounded_grid_plan(M, N, tt, 132, blocks=blocks,
+                                        rows=DEVICE_ROWS, vectors="device")
+            assert plan.vectors == "device" and plan.scratch > 0
+            out, _ = kg.bounded_grid_reference(state, opts, stall,
+                                               opts.max_iters, plan.blocks,
+                                               vectors="device")
+            assert_same_state(pbounded._finish(out), want)
+    assert int(want.s.status) == Status.NUMERIC
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("rule", list(RULES))
+def test_device_vector_plan_ends_where_tpulp_does(rule, dtype):
+    """The device-vector plan's walk (3 slabs) ends where tpulp's jitted
+    bounded walk on the JAX CPU backend does, at f64 and at f32: status,
+    pivots, basis and objective, exactly (the tolerance
+    tests/test_torch_bounded.py states for both types: none)."""
+    case = CASES[4]
+    sf = case_lp(case).lower(simple_bounds=True)
+    jt = getattr(jnp, dtype)
+    jo = TpulpOptions.for_dtype(jt, **RULES[rule])
+    ref = tpulp_run(tpulp_bounded(tpulp_state(sf, dtype=jt), sf.upper), jo)
+    bs, opts = port_state(case, getattr(torch, dtype), RULES[rule])
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    out, _ = kg.bounded_grid_reference(bs, opts, stall, opts.max_iters, 3,
+                                       vectors="device")
+    out = pbounded._finish(out)
+    for name in ("status", "niter", "basis"):
+        assert np.array_equal(getattr(out.s, name).numpy(),
+                              np.asarray(getattr(ref.s, name))), name
+    assert float(out.s.objective()) == float(ref.s.objective())
+
+
 # ---------------------------------------------------------------------------
 # the wrapper and the dispatch
 # ---------------------------------------------------------------------------
@@ -426,9 +667,10 @@ def test_bounded_grid_raises_on_devex_without_gamma():
 
 def test_dispatch_takes_the_route(monkeypatch):
     """On the card ``run_simplex_bounded`` hands ``bounded_route``'s kernel
-    a contiguous tableau: ``bounded_grid`` within the plan, resident or
-    streamed, ``bounded_steps`` past it (the CUDA dispatch, ``on_cpu``
-    patched)."""
+    a contiguous tableau: ``bounded_grid`` on every plan, resident,
+    streamed or with the vectors in device memory; ``bounded_steps`` only
+    past them, for a frame too wide for the device-vector plan (the CUDA
+    dispatch, ``on_cpu`` patched)."""
     seen = []
 
     def spy(name):
@@ -450,12 +692,15 @@ def test_dispatch_takes_the_route(monkeypatch):
     assert T.is_contiguous() and torch.equal(T, bs.s.T)
     seen.clear()
     # a frame past the resident plan (2050 x 4097 at f64): streamed; one
-    # past the streamed plan too (8,000 rows whose vectors do not fit)
+    # past the streamed plan too (8,000 rows whose vectors do not fit):
+    # the device-vector plan; one whose slabs are too wide for that (W
+    # 3,099 at f64): the step
     monkeypatch.setattr(pbounded, "_finish", lambda b: b)
-    for shape in ((2050, 4097), (8000, 3)):
+    for shape in ((2050, 4097), (8000, 3), (4, 132 * 3_099 + 1)):
         run_simplex_bounded(bs._replace(s=bs.s._replace(
             T=torch.zeros(shape, dtype=torch.float64))), opts)
-    assert [name for name, _ in seen] == ["bounded_grid", "bounded_steps"]
+    assert [name for name, _ in seen] == ["bounded_grid", "bounded_grid",
+                                          "bounded_steps"]
 
 
 def test_cpu_walk_never_reaches_the_kernels(monkeypatch):
@@ -464,9 +709,10 @@ def test_cpu_walk_never_reaches_the_kernels(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("a bounded kernel was called on the CPU")
 
-    for name in ("bounded_grid", "bounded_steps"):
-        monkeypatch.setattr(pbounded, name, refuse)
+    monkeypatch.setattr(pbounded, "bounded_grid", refuse)
     monkeypatch.setattr(kg, "bounded_grid", refuse)
+    monkeypatch.setattr(pbounded, "bounded_steps", refuse)
+    monkeypatch.setattr(kb, "bounded_steps", refuse)
     reset_launches()
     bs, opts = port_state(CASES[3], torch.float64, {"rule": RULE_DEVEX})
     out = run_simplex_bounded(bs._replace(gamma=None), opts)
@@ -477,75 +723,3 @@ def test_cpu_walk_never_reaches_the_kernels(monkeypatch):
                                simple_bounds=True, device="cpu")
     assert sol.status == "optimal"
     assert LAUNCHES["bounded_grid"] == LAUNCHES["bounded_step"] == 0
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernel against its plain version
-# ---------------------------------------------------------------------------
-
-def _on_card(bs):
-    return type(bs)(*(None if x is None else x.cuda() for x in bs))
-
-
-def _on_cpu(bs):
-    return type(bs)(*(None if x is None else x.cpu() for x in bs))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_bounded_grid_matches_its_plain_version(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 8a runs these "
-                    "checks at full size)")
-    tt = getattr(torch, dtype)
-    for case in CASES:
-        for rule in RULES:
-            bs, opts = port_state(case, tt, RULES[rule])
-            stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-            for blocks in SLABS:
-                for budget in (400, 7):
-                    before = dict(kb.FLIPS)
-                    out = kg.bounded_grid(_on_card(bs), opts, stall, budget,
-                                          blocks=blocks)
-                    ref, counts = kg.bounded_grid_reference(
-                        bs, opts, stall, budget, blocks)
-                    torch.cuda.synchronize()
-                    assert_same_state(_on_cpu(out), ref)
-                    assert {k: kb.FLIPS[k] - before[k]
-                            for k in kb.FLIPS} == counts
-            out = run_simplex_bounded(_on_card(bs),
-                                      dataclasses.replace(opts,
-                                                          max_iters=400))
-            ref = run_simplex_bounded_reference(
-                bs, dataclasses.replace(opts, max_iters=400))
-            assert_same_state(_on_cpu(out), ref)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_streamed_grid_matches_its_plain_version(dtype):
-    """The streamed kernel at forced splits (rows 3, M // 2 and M - 1 in
-    shared memory), on 1, 3 and 7 blocks, Dantzig and devex, to the exit
-    and to a budget: every field equal to ``bounded_grid_reference``."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 8a runs these "
-                    "checks at full size)")
-    tt = getattr(torch, dtype)
-    for case in CASES:
-        for rule in ("dantzig", "devex"):
-            bs, opts = port_state(case, tt, RULES[rule])
-            stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-            M = bs.s.T.shape[0]
-            for rows in (3, M // 2, M - 1):
-                for blocks in (1, 3, 7):
-                    for budget in (400, 7):
-                        before = dict(kb.FLIPS)
-                        out = kg.bounded_grid(_on_card(bs), opts, stall,
-                                              budget, blocks=blocks,
-                                              rows=rows)
-                        ref, counts = kg.bounded_grid_reference(
-                            bs, opts, stall, budget, blocks)
-                        torch.cuda.synchronize()
-                        assert_same_state(_on_cpu(out), ref)
-                        assert {k: kb.FLIPS[k] - before[k]
-                                for k in kb.FLIPS} == counts

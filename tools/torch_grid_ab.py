@@ -10,8 +10,11 @@ own kernels: one ``bounded_grid`` launch of 1,024 steps from step 2,000
 timed on the card (``chip_smoke.bounded_grid_us``: CUDA events after a
 sleep, median of three, by stage) on 8a's resident frame (1026 x 3073,
 f64, devex and Dantzig) and, where the tree has the streamed plan, on
-(w)'s streamed frame (2050 x 4097, devex, f64 and f32); with ptxas's
-registers and spills of the grid's instantiations. MODE ``fixed_order``
+(w)'s streamed frame (2050 x 4097, devex, f64 and f32) and, where the
+tree has the device-vector plan, one launch of 64 steps from step 8 on
+(x)'s and (y)'s frames past the streamed plan (7002 x 7065 f64, 12002 x
+12065 f32); with ptxas's registers and spills of the grid's
+instantiations. MODE ``fixed_order``
 runs a copy of the tree (under its ``build/``) whose streamed update
 walks the tiles in the same order every step, where the kernel reverses
 it every other step. Prints one JSON line a run. Needs one CUDA card.
@@ -60,6 +63,14 @@ if "STREAMED" in src:
         name = "w " + str(dt).replace("torch.", "")
         out[name] = g["device_us_per_step"]
         out[name + " by stage"] = g["device_us_by_stage"]
+if "DVEC" in src:
+    for label, m, dt, seed in (("x", cs.BND_PAST_M, torch.float64, 2),
+                               ("y", cs.BND_PAST32_M, torch.float32, 3)):
+        g = cs.bounded_grid_us(None, "cuda", dt, advance=8,
+                               steps=cs.BND_PAST_GRID_TIMED,
+                               state=cs.past_state("cuda", m, dt, seed))
+        out[label] = g["device_us_per_step"]
+        out[label + " by stage"] = g["device_us_by_stage"]
 print("RESULT " + json.dumps(out))
 """
 

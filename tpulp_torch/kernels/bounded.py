@@ -1,13 +1,12 @@
 """``bounded_steps``: the solo bounded-variable walk as four launches a step
 (``csrc/bounded.cu``), and the plain versions of the four, stage by stage.
-On the card ``solve.bounded.bounded_route`` sends a walk here only for the
-frames past ``kernels.bounded_grid``'s plan, whose one cooperative launch
-runs the whole walk with the tableau's slabs in the SMs' shared memory or,
-past it, their first rows there and the rest streamed through device
-memory: frames whose replicated vectors pass a block's shared memory
-(beyond 6,284 rows at f64 and 10,800 at f32 with n = 2m). The four-launch
-step serves those frames, and is held and timed beside the grid on the
-frames it takes.
+No solver path sends a walk here: on the card ``solve.bounded.bounded_route``
+sends every solo walk to ``kernels.bounded_grid``, whose one cooperative
+launch runs the whole walk (the tableau's slabs in the SMs' shared memory,
+past it their first rows there and the rest streamed through device
+memory, and past ~6,300 rows at f64 the per-row vectors in device memory
+too). The four-launch step stays as the yardstick that chip_smoke.py
+holds and times beside the grid on the same frames.
 
 ``solve.bounded.bounded_simplex_step`` is one branchless transition of
 ~250 small tensor ops. Its work has three global dependencies: the
@@ -50,9 +49,8 @@ vector on row 2): it could then change only the sign of a zero. Otherwise
 the redirected pivot runs, as in the plain step. Nothing on the solver's
 path calls the plain stages: ``solve.bounded.run_simplex_bounded`` runs
 the plain step on CPU tensors and, on CUDA tensors, the kernel that
-``bounded_route`` chooses (``bounded_grid`` within its plan,
-``bounded_steps`` past it). ``kernels.bounded_grid``'s plain version
-composes these stages.
+``bounded_route`` chooses (``bounded_grid``). ``kernels.bounded_grid``'s
+plain version composes these stages.
 """
 
 from __future__ import annotations

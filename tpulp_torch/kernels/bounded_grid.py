@@ -16,20 +16,28 @@ column slabs fit the SMs' shared memory, all M rows of a slab live there
 (a resident plan); past that, its first R rows do, and rows [R, M) are
 streamed each step through device memory, tile by tile, through a ring
 of ``GRID_RING_STAGES`` tiles of about ``GRID_TILE_BYTES`` in shared
-memory (a streamed plan).
+memory (a streamed plan). Where every block's copy of the per-row vectors
+(the RHS, the basis, the spans, the artificial mask) leaves rows 0-2 and
+the ring no room, those vectors live in device memory instead (two
+copies, a step reading one and writing the other), every block updating
+its share of the RHS rows and taking its share of the ratio test's rows,
+and a block keeps R rows as large as what is left (the device-vector
+plan, always streamed, with a ring of ``GRID_DEVICE_STAGES``; two more
+grid barriers a step).
 ``bounded_grid_plan`` picks W (at least ``GRID_MIN_ENTRIES`` entries a
 slab, so that small frames take few blocks) and G, counts the kernel's
 shared memory and, past the resident slab, R and the streamed buffer; it
-refuses (``GridPlanTooLarge``) a frame whose replicated vectors, first
-three rows and ring do not fit a block. ``solve.bounded.bounded_route``
-sends a walk here where the plan holds, to
-``kernels.bounded.bounded_steps`` past it.
+refuses (``GridPlanTooLarge``) only a frame so wide that a slab's rows
+0-2 and the ring do not fit a block (past slabs of 3,098 columns at f64
+and 6,032 at f32). ``solve.bounded.bounded_route`` sends every other solo
+walk on the card here, and those to ``kernels.bounded.bounded_steps``.
 
 ``bounded_grid`` takes a state on one CUDA device and raises on anything
 else (CPU tensors, mixed devices, a strided tableau, a type other than f32
 and f64, devex without weights, a frame past the plan, a grid the card
-cannot hold at once). It allocates the output state and never writes the
-caller's tensors. The entering flips and upper hits of the walk are added
+cannot hold at once; a frame and scratch past the card's memory raise
+torch's allocation error). It allocates the output state and never writes
+the caller's tensors. The entering flips and upper hits of the walk are added
 to ``kernels.bounded.FLIPS`` (one host read a walk).
 
 ``bounded_grid_reference`` is the same walk cut into G slabs, in plain
@@ -39,9 +47,11 @@ entry's update being one fma of its own pre-step value): the plain stages of ``k
 argmin is the slabs' candidates combined in slab order; the ratio test on
 the entering column; the update from its snapshot: the mailbox's colj and
 colf; the finish), with the finiteness sums in the kernel's order
-(``grid_sum``, ``block_sum``). It equals ``bounded_simplex_step`` walked step by step, bit
-for bit. Nothing on the solver's path calls it: ``solve.bounded`` runs the
-plain loop on CPU tensors and the kernels on CUDA tensors.
+(``grid_sum``, ``block_sum``; the device-vector plan adds |b| as
+``grid_sum`` over slabs of ceil(m / G) rows). It equals
+``bounded_simplex_step`` walked step by step, bit for bit. Nothing on the
+solver's path calls it: ``solve.bounded`` runs the plain loop on CPU
+tensors and the kernels on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -62,8 +72,8 @@ __all__ = ["GridPlan", "GridPlanTooLarge", "bounded_grid_plan", "plan_grid",
            "bounded_grid_occupancy", "bounded_grid",
            "bounded_grid_reference", "grid_slabs", "grid_sum",
            "GRID_THREADS", "GRID_SMS", "GRID_MIN_ENTRIES", "GRID_SMEM_LIMIT",
-           "GRID_STATIC_SMEM", "GRID_STAGES", "GRID_RING_STAGES",
-           "GRID_TILE_BYTES"]
+           "GRID_STATIC_SMEM", "GRID_STAGES", "GRID_DEVICE_VECTOR_STAGES",
+           "GRID_RING_STAGES", "GRID_TILE_BYTES", "grid_stages"]
 
 GRID_THREADS = 512
 # the SMs of an H100 SXM: the plan's default
@@ -85,24 +95,46 @@ GRID_SMEM_LIMIT = 232_448 - GRID_STATIC_SMEM
 # us of latency)
 GRID_RING_STAGES = 3
 GRID_TILE_BYTES = 16_384
+# the device-vector plan's ring, its own: it streams most of a frame, so
+# it takes a slot more (each slot is reloaded a tile after its store); on
+# an NVIDIA H100 80GB HBM3 at 700 W, at chip_smoke's 8a (x), 4 slots of
+# 16 KB beat 3, 6 and 8 of them, 4 of 32 KB and 6 of 8 KB (PERF.md)
+GRID_DEVICE_STAGES = 4
 _MAX_STAGES = 8  # csrc/bounded_grid.cu's MAX_STAGES
-# the stages that ``stage_cycles`` splits a walk into (csrc/bounded_grid.cu's
-# Stage; block 0's clock): the load; a step's price, barrier A, the
-# combine, the ratio test and its publication where block 0 owns the
-# entering column, barrier B, barrier C, the fetch of the verdict and the
-# entering column with the pivot row, the update of the resident rows and
-# the RHS, the streamed rows' update (0 on a resident plan), the finish;
-# the store; then "owner": the ratio test and its publication on the clock
-# of the block that owns the entering column, whichever it is
+# the stages that ``stage_cycles`` splits a walk into on the resident and
+# streamed plans (csrc/bounded_grid.cu's Stage; block 0's clock): the load;
+# a step's price, barrier A, the combine, the ratio test and its
+# publication where block 0 owns the entering column, barrier B, barrier
+# C, the fetch of the verdict and the entering column with the pivot row,
+# the update of the resident rows and the RHS, the streamed rows' update
+# (0 on a resident plan), the finish, barrier D (0: the device-vector plan
+# only); the store; then "owner": the ratio test and its publication on
+# the clock of the block that owns the entering column, whichever it is
 GRID_STAGES = ("load", "price", "barrier_a", "combine", "ratio",
                "barrier_b", "barrier_c", "fetch", "update", "stream",
-               "finish", "store", "owner")
+               "finish", "barrier_d", "store", "owner")
+# the same counters on the device-vector plan, whose spans differ, under
+# names of their own: the load, the price, barrier A; "combine_ties" the
+# combine, the combine of the blocks' ratio picks and the pass over the
+# block's rows for the winning kind's ties; "ratio_picks" the first pass
+# over the block's rows (its two picks) and their publication;
+# "barriers_b" barriers B and B'; barrier C; "ties_fetch" the ties'
+# combine, the pivot row and the devex weights; "update_resident" the
+# resident rows' update (the RHS is the finish's); the streamed rows'
+# update; "finish_rhs" the finish with the block's share of the RHS rows,
+# the basis and the spans and, after barrier D, the |b| sums' combine;
+# barrier D; the store; "owner_picks" the first pass on the clock of the
+# block that owns the entering column
+GRID_DEVICE_VECTOR_STAGES = (
+    "load", "price", "barrier_a", "combine_ties", "ratio_picks",
+    "barriers_b", "barrier_c", "ties_fetch", "update_resident", "stream",
+    "finish_rhs", "barrier_d", "store", "owner_picks")
 # the mailbox: three regions of a slot a block (a step's candidates, the
 # repricing after a devex reset, the last weights' maxima) and the verdict
 _SLOT, _REGIONS = 64, 3
 # ints_out: phase, status, niter, stuck, entering flips, upper hits
 _NOUT = 6
-_NARGS, _NINTS, _NTOLS = 27, 14, 5
+_NARGS, _NINTS, _NTOLS = 28, 15, 5
 _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
 _TOLS = ctypes.c_double * _NTOLS
@@ -119,12 +151,18 @@ class GridPlan(NamedTuple):
     stages: int   # the tile ring's slots (0: resident)
     tile_rows: int  # TR, rows a streamed tile (0: resident)
     scratch: int  # bytes of the streamed rows' buffer (0: resident)
+    # where the per-row vectors live: "shared" (every block's copy) or
+    # "device" (one copy in device memory; bounded_grid only)
+    vectors: str = "shared"
 
 
 class GridPlanTooLarge(ValueError):
-    """The frame's replicated vectors, first three rows and tile ring do
-    not fit a block's shared memory (``bounded_route`` then takes
-    ``bounded_steps``, ``solve.driver.solo_route`` ``rank1_steps``)."""
+    """A block's shared memory does not hold the frame's first three slab
+    rows and tile ring (beside the replicated vectors, where the kernel
+    keeps them there): ``solve.driver.solo_route`` then takes
+    ``rank1_steps``, and ``bounded_route`` ``bounded_steps`` (past the
+    device-vector plan's slabs of 3,098 columns at f64 and 6,032 at f32:
+    n past 408,936 and 796,224 on 132 SMs)."""
 
 
 def _align(x: int) -> int:
@@ -143,6 +181,16 @@ def _smem(M: int, N: int, W: int, es: int, rows: int | None = None,
     return (_align(R * W * es) + stages * tile + 2 * _align(M * es)
             + 2 * _align(W * es) + _align(m * es) + _align(4 * m)
             + _align(W) + _align(n) + _align(8 * stages))
+
+
+def _smem_device(W: int, es: int, rows: int, stages: int, tile: int,
+                 tile_rows: int) -> int:
+    """csrc/bounded_grid.cu's smem_bytes_dv, the device-vector plan's
+    block: the slab's ``rows`` resident rows, the ring, the pivot row's and
+    the weights' segments, column j's entries of two tiles, the segment's
+    active and artificial masks and the ring's mbarriers."""
+    return (_align(rows * W * es) + stages * tile + 2 * _align(W * es)
+            + _align(2 * tile_rows * es) + 2 * _align(W) + _align(8 * stages))
 
 
 def _tile_rows(W: int, es: int, cap: int) -> int:
@@ -167,7 +215,8 @@ def grid_slabs(n: int, blocks: int) -> tuple[int, int]:
 @functools.lru_cache(maxsize=256)
 def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
                       blocks: int | None = None,
-                      rows: int | None = None) -> GridPlan:
+                      rows: int | None = None,
+                      vectors: str | None = None) -> GridPlan:
     """The launch plan of a walk on an (M, N) = (m + 2, n + 1) frame on a
     card of ``sms`` SMs: W = max(ceil(n / sms), ceil(GRID_MIN_ENTRIES / M))
     columns a block and G = ceil(n / W) blocks (with ``blocks``,
@@ -183,24 +232,42 @@ def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
     ``rows`` forces R (3 to M; M asks for the resident plan): the split
     that the tests and chip_smoke.py's edge walks hold at small frames.
 
-    Raises ``GridPlanTooLarge`` where even rows 0-2 with the ring do not
-    fit (or a forced R does not): with n = 2m, past 6,284 rows (m =
-    6,282) at f64 and 10,800 (m = 10,798) at f32 on 132 SMs
-    (``tests/test_torch_bounded_grid.py`` holds both edges); ValueError for
-    another type, a frame outside 2^24, a grid or an R out of range."""
-    return plan_grid(M, N, dtype, sms, blocks, rows, _smem, "bounded_grid")
+    Where even rows 0-2 with the ring do not fit beside the replicated
+    vectors (with n = 2m, past 6,284 rows (m = 6,282) at f64 and 10,800
+    (m = 10,798) at f32 on 132 SMs), the plan keeps the vectors in device
+    memory (``vectors`` "device"): the same W and G, the ring, and R the
+    most rows the rest of a block holds (at most M - 1). ``vectors``
+    forces the kind: "shared" the plans above (refused past them, as a
+    forced R is), "device" the device-vector plan at any frame (``rows``,
+    3 to M - 1, forces its R).
+
+    Raises ``GridPlanTooLarge`` where a shared-vector plan is forced past
+    its edge, or where even the device-vector plan's rows 0-2 and ring do
+    not fit (a slab past 3,098 columns at f64 and 6,032 at f32: n past
+    408,936 and 796,224 on 132 SMs);
+    ValueError for another type, a frame outside 2^24, a grid, an R or a
+    kind out of range."""
+    return plan_grid(M, N, dtype, sms, blocks, rows, _smem, "bounded_grid",
+                     _smem_device, vectors)
 
 
 def plan_grid(M: int, N: int, dtype, sms: int, blocks: int | None,
-              rows: int | None, smem, name: str) -> GridPlan:
+              rows: int | None, smem, name: str, device_smem=None,
+              vectors: str | None = None) -> GridPlan:
     """The plan of a grid walk (``bounded_grid_plan``'s rule) whose kernel
     counts a block's dynamic shared memory as ``smem(M, N, W, es, rows=M,
-    stages=0, tile=0)`` does; ``name`` names the kernel in the refusals."""
+    stages=0, tile=0)`` does and, where it has a device-vector plan, as
+    ``device_smem(W, es, rows, stages, tile, tile_rows)`` there (None: it
+    has none, and ``vectors`` stays None or "shared"); ``name`` names the
+    kernel in the refusals."""
     es = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if es is None:
         raise ValueError(f"{name} takes float32 or float64, not {dtype}")
     if M < 3 or N < 2 or max(M, N) >= kb._MAX_SIDE:
         raise ValueError(f"frame {M} x {N} outside 3..2^24 x 2..2^24")
+    if vectors not in (None, "shared", "device") or (
+            vectors == "device" and device_smem is None):
+        raise ValueError(f"{name}: vectors={vectors!r}")
     n = N - 1
     if blocks is None:
         W = min(n, max(-(-n // sms), -(-GRID_MIN_ENTRIES // M)))
@@ -214,6 +281,21 @@ def plan_grid(M: int, N: int, dtype, sms: int, blocks: int | None,
         raise ValueError(f"rows={rows}: a slab keeps 3 to {M} rows in "
                          "shared memory")
     mail = _SLOT * (_REGIONS * G + 1)
+    if vectors == "device":
+        return _device_plan(M, W, G, es, rows, mail, name, device_smem)
+    try:
+        return _shared_plan(M, N, W, G, es, rows, mail, dtype, smem)
+    except GridPlanTooLarge:
+        # a forced split, or a kernel without the device-vector plan
+        if vectors == "shared" or rows is not None or device_smem is None:
+            raise
+    return _device_plan(M, W, G, es, None, mail, name, device_smem)
+
+
+def _shared_plan(M: int, N: int, W: int, G: int, es: int,
+                 rows: int | None, mail: int, dtype, smem) -> GridPlan:
+    """The resident or streamed plan, every block holding the per-row
+    vectors (``plan_grid``'s W and G)."""
     full = smem(M, N, W, es)
     if rows is None or rows == M:
         if full <= GRID_SMEM_LIMIT:
@@ -247,11 +329,52 @@ def plan_grid(M: int, N: int, dtype, sms: int, blocks: int | None,
                     mail, R, S, tr, scratch)
 
 
+def _device_plan(M: int, W: int, G: int, es: int, rows: int | None,
+                 mail: int, name: str, device_smem) -> GridPlan:
+    """The device-vector plan (``plan_grid``'s W and G): the ring of
+    GRID_DEVICE_STAGES tiles and the block's segments take their bytes,
+    and R, the most rows the rest holds (at most M - 1; ``rows`` forces
+    it), stay in shared memory; rows [R, M) stream as on the streamed
+    plan."""
+    if rows == M:
+        raise ValueError(f"rows={rows}: the device-vector plan streams at "
+                         f"least one row (3 to {M - 1})")
+    S = GRID_DEVICE_STAGES
+    tr = _tile_rows(W, es, GRID_THREADS)
+    free = GRID_SMEM_LIMIT - device_smem(W, es, 0, S, _align(tr * W * es),
+                                         tr)
+    R = min(M - 1, max(free, 0) // (W * es))
+    while R > 0 and _align(R * W * es) > free:
+        R -= 1
+    if R < 3 or (rows is not None and rows > R):
+        raise GridPlanTooLarge(
+            f"{name}: a block of {W} columns keeps {R} of its rows in "
+            f"{GRID_SMEM_LIMIT} bytes of shared memory beside a ring of "
+            f"{S} tiles of {tr} rows, the vectors in device memory"
+            + ("" if rows is None else f", not rows={rows}")
+            + " (at least 3)")
+    if rows is not None:
+        R = rows
+    tr = _tile_rows(W, es, M - R)
+    tile = _align(tr * W * es)
+    scratch = G * -(-(M - R) // tr) * tile
+    return GridPlan(G, W, GRID_THREADS, device_smem(W, es, R, S, tile, tr),
+                    mail, R, S, tr, scratch, "device")
+
+
+def grid_stages(plan: GridPlan) -> tuple[str, ...]:
+    """The names of ``stage_cycles``' counters on ``plan``: the last is
+    the owner's clock."""
+    return GRID_DEVICE_VECTOR_STAGES if plan.vectors == "device" \
+        else GRID_STAGES
+
+
 def _plan_ints(plan: GridPlan, M: int, N: int, dtype, devex: bool):
     es = 4 if dtype == torch.float32 else 8
     return _INTS(M, N, 0, 0, int(devex), plan.blocks, plan.width,
                  plan.threads, plan.smem, plan.mail, plan.rows, plan.stages,
-                 plan.tile_rows, _align(plan.tile_rows * plan.width * es))
+                 plan.tile_rows, _align(plan.tile_rows * plan.width * es),
+                 int(plan.vectors == "device"))
 
 
 @functools.lru_cache(maxsize=64)
@@ -280,15 +403,17 @@ def bounded_grid_occupancy(M: int, N: int, dtype, devex: bool = True,
 def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
                  blocks: int | None = None,
                  stage_cycles: torch.Tensor | None = None,
-                 rows: int | None = None):
+                 rows: int | None = None, vectors: str | None = None):
     """The bounded walk of ``bs`` (a ``solve.bounded.BoundedState`` on one
     CUDA device) to its exit or to ``max_iters`` in one cooperative launch;
     a RUNNING exit at the budget stays RUNNING. ``blocks`` forces another
-    grid and ``rows`` another split of the slabs' rows
-    (``bounded_grid_plan``'s by default; a streamed plan allocates its
-    scratch buffer here). ``stage_cycles``, an int64
+    grid, ``rows`` another split of the slabs' rows and ``vectors`` the
+    plan's kind (``bounded_grid_plan``'s by default; a streamed plan
+    allocates its scratch buffer here, the device-vector plan its RHS and
+    spans too). ``stage_cycles``, an int64
     tensor of ``len(GRID_STAGES)`` on the card, accumulates block 0's SM
-    cycles by stage (a measurement; the kernel walks the same). Returns the
+    cycles by stage (``grid_stages(plan)`` names them; a measurement, the
+    kernel walks the same). Returns the
     walk's state; the caller's tensors are never written."""
     kb._check(bs, opts)
     s = bs.s
@@ -302,7 +427,7 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
             raise ValueError(f"stage_cycles: expected a tensor on {dev}")
     devex = opts.rule == RULE_DEVEX
     plan = bounded_grid_plan(M, N, dtype, sm_count(dev), blocks=blocks,
-                             rows=rows)
+                             rows=rows, vectors=vectors)
     # one allocation for the int32 fields, one for the bool ones
     ints = torch.empty((_NOUT + m,), dtype=torch.int32, device=dev)
     bools = torch.empty((1 + 3 * n,), dtype=torch.bool, device=dev)
@@ -315,7 +440,13 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
     g_in = bs.gamma.contiguous() if devex else None
     g_out = torch.empty_like(g_in) if devex else None
     mail = torch.empty((plan.mail,), dtype=torch.uint8, device=dev)
-    cols = torch.empty((3 * M,), dtype=dtype, device=dev)
+    # the mailbox's columns; the device-vector plan's two copies of the RHS
+    # and of the spans after them, and of the basis apart
+    dvec = plan.vectors == "device"
+    cols = torch.empty(((3 * M + 2 * M + 2 * m) if dvec else 3 * M,),
+                       dtype=dtype, device=dev)
+    bvec = torch.empty((2 * m,), dtype=torch.int32, device=dev) \
+        if dvec else None
     bar = torch.zeros((1,), dtype=torch.int32, device=dev)
     scratch = torch.empty((plan.scratch,), dtype=torch.uint8, device=dev) \
         if plan.scratch else None
@@ -323,7 +454,7 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
     ptrs = (ins[0], out.T, ins[1], out.basis, ins[2], out.col_active, ins[3],
             out.art_cols, bs.upper.contiguous(), bs.at_upper.contiguous(),
             at_upper, g_in, g_out, *ins[4:], ints, out.bland, out.last_z,
-            mail, cols, bar, stage_cycles, scratch)
+            mail, cols, bar, stage_cycles, scratch, bvec)
     args = _ARGS(*(0 if x is None else x.data_ptr() for x in ptrs))
     iargs = _plan_ints(plan, M, N, dtype, devex)
     iargs[2] = min(int(stall_limit), _INT_MAX)
@@ -365,26 +496,34 @@ def _grid_price(rec: kb.BoundedRecord, opts: SolverOptions, max_iters: int,
 
 
 def bounded_grid_reference(bs, opts: SolverOptions, stall_limit: int,
-                           max_iters: int, blocks: int = 1):
+                           max_iters: int, blocks: int = 1,
+                           vectors: str = "shared"):
     """``bounded_grid``'s walk in plain torch on ``blocks`` slabs
     (``grid_slabs``; any count >= 1): the plain price, ratio, update and
     finish stages of
     ``kernels.bounded`` (the update from the entering column and the flip's
     column, as the kernel's mailbox holds them), the finiteness sums in the
-    kernel's order. Returns (state, {"entering_flips": e, "upper_hits":
-    u}); the caller's tensors are never written."""
+    kernel's order: ``vectors`` "device" takes the device-vector plan's
+    |b| sum (``grid_sum`` over G slabs of ceil(m / G) rows), "shared" the
+    other plans' (one block's). Returns (state, {"entering_flips": e,
+    "upper_hits": u}); the caller's tensors are never written."""
+    if vectors not in ("shared", "device"):
+        raise ValueError(f"bounded_grid_reference: vectors={vectors!r}")
     devex = opts.rule == RULE_DEVEX
     if devex and bs.gamma is None:
         raise ValueError("devex pricing needs the state's gamma")
     work = bs if devex else bs._replace(gamma=None)
     W, G = grid_slabs(bs.s.T.shape[1] - 1, blocks)
+    m = bs.s.T.shape[0] - 2
     rec = kb.make_record(work)
     while kb._live(rec.ints.tolist(), max_iters):
         _grid_price(rec, opts, max_iters, W, G)
         kb.bounded_ratio_reference(rec, opts, max_iters)
         kb.bounded_update_reference(rec, max_iters)
-        rhs_ok = bool(torch.isfinite(block_sum(rec.T[2:, -1].abs(),
-                                               GRID_THREADS)))
+        absb = rec.T[2:, -1].abs()
+        rhs_ok = bool(torch.isfinite(
+            grid_sum(absb, -(-m // G), G) if vectors == "device"
+            else block_sum(absb, GRID_THREADS)))
         kb.bounded_finish_reference(rec, opts, stall_limit, max_iters,
                                     rhs_ok=rhs_ok)
     out = kb.record_state(rec, work)

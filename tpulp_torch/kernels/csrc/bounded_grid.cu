@@ -9,10 +9,11 @@
 // 86-276 the step, 278-307 the driver). It redesigns bounded.cu's four
 // stream-ordered launches a step (price, ratio and finish on one block
 // each, the whole tableau through device memory twice a step, one host
-// enqueue a step) for every frame whose replicated vectors, first three
-// rows and tile ring fit a block's shared memory
-// (kernels/bounded_grid.py::bounded_grid_plan: up to 6,284 rows at f64
-// with n = 2m); bounded.cu keeps the larger frames.
+// enqueue a step) for every frame the card's memory holds whose slab's
+// first three rows and tile ring fit a block's shared memory
+// (kernels/bounded_grid.py::bounded_grid_plan): past the frames whose
+// replicated vectors also fit (up to 6,284 rows at f64 with n = 2m), the
+// per-row vectors live in device memory (DVEC, below).
 //
 // What bounds it on the H100: the frame crosses device memory twice a walk
 // (loaded, stored); a step reads and writes the resident rows once from
@@ -115,6 +116,41 @@
 //   ring's slot and parity bits, the same in every thread);
 // - every block still takes every barrier: the streamed part is local.
 //
+// The per-row vectors in device memory (DVEC, always streamed; the plan
+// takes it where the replicated vectors leave rows 0-2 and the ring no
+// room, or where it is forced): the RHS, the basis and the basic
+// variables' spans live in device memory, two copies each (a step reads
+// copy cur, which no block writes before barrier D, and its owners write
+// copy cur ^ 1), and a block keeps only its own columns' artificial flags
+// (the device copy is art_out). Block g owns the basic rows [g H, (g + 1)
+// H), H = ceil(m / G) (block 0 the two objective rows too): it loads them,
+// and in the finish updates their RHS entries with the same fma, operands
+// and order as above, writes their basis and spans (row r the entering
+// column's) and the retired artificial's flag where it owns r_d, and sums
+// its rows' |b| in block_reduce's order with their first artificial basic
+// row. It posts both to the mailbox; a fourth grid barrier (D) ends the
+// step, and the combine adds the blocks' sums in grid_sum's order (the
+// plain version's |b| check takes the same order: grid_sum over slabs of H
+// rows). The ratio test is split over the blocks: the owner of j takes
+// column j's resident rows [2, R) (and publishes rows [0, R) of it), every
+// block its share's streamed rows, read through L2 from the owner's tiles
+// (and publishes them); each block posts its two argmins (common.cuh's
+// bounded_ratios, lower and upper hits), combined in block order by keys
+// after barrier B, then its picks of the winning kind's ties (Bland's
+// smallest basic index, the first tie), combined after barrier B' (the
+// same picks as grid_ratio's two key reductions: pick's order is total).
+// Every block then reads the pre-step column j entry, b[r + 2], basis[r],
+// its span and basis[r_d] itself; the owner's mailbox brings j's devex
+// weight and the blocks' flags whether column j is finite. Every block
+// reads b[1] and b[2] after barrier A and the step's objective row after
+// barrier D, and keeps basis[0] in a register. The update reads column j
+// from device memory: a resident row its own entry, a tile its TR entries
+// staged in shared memory by TR threads one tile ahead. The ring has a
+// slot more, and a slot is reloaded a tile after its store, so that no
+// thread waits for the store of the tile it has just updated. Every read
+// of a vector that another block writes goes through L2 (__ldcg), after
+// the barrier that orders the write.
+//
 // The frame is loaded once and stored once, with the basis, the masks, the
 // weights, the scalars and the two counters (entering flips, upper hits);
 // the host reads them once a walk. The arithmetic is bounded.cu's
@@ -142,14 +178,15 @@ enum Arg {
   A_T_IN, A_T_OUT, A_BASIS_IN, A_BASIS_OUT, A_ACT_IN, A_ACT_OUT, A_ART_IN, A_ART_OUT, A_UPPER,
   A_AT_UPPER_IN, A_AT_UPPER_OUT, A_GAMMA_IN, A_GAMMA_OUT, A_PHASE_IN, A_STATUS_IN, A_NITER_IN,
   A_STUCK_IN, A_BLAND_IN, A_LASTZ_IN, A_INTS_OUT, A_BLAND_OUT, A_LASTZ_OUT, A_MAIL, A_COLS,
-  A_BAR, A_CYCLES, A_SCRATCH, A_NARGS
+  A_BAR, A_CYCLES, A_SCRATCH, A_BVEC, A_NARGS
 };
 // I_ROWS: R, the slab's rows in shared memory (M on a resident plan);
 // I_STAGES: the tile ring's slots; I_TROWS: TR, rows a tile; I_TILE: TS,
-// bytes a tile (the last three 0 on a resident plan)
+// bytes a tile (the last three 0 on a resident plan); I_VECS: 1 where the
+// per-row vectors live in device memory (DVEC)
 enum Int {
   I_M, I_N, I_STALL, I_MAXIT, I_DEVEX, I_BLOCKS, I_WIDTH, I_THREADS, I_SMEM, I_MAIL, I_ROWS,
-  I_STAGES, I_TROWS, I_TILE, I_NINTS
+  I_STAGES, I_TROWS, I_TILE, I_VECS, I_NINTS
 };
 enum Tol { D_OPT, D_PIV, D_DEGEN, D_INFEAS, D_RESET, D_NTOLS };
 // the int32 fields written back (ints_out)
@@ -160,11 +197,17 @@ enum Out { O_PHASE, O_STATUS, O_NITER, O_STUCK, O_N_ENTER, O_N_UPHIT, O_NOUT };
 // (where block 0 owns j), barrier B, barrier C, the fetch of the verdict
 // and column j with the pivot row and the devex weights, the update of the
 // resident rows (and the RHS), the streamed rows' update (STREAMED), the
-// finish; then the store; and apart, the ratio test and the publication
-// on the clock of the block that owns j, whichever it is
+// finish (DVEC: with the RHS share), barrier D (DVEC); then the store; and
+// apart, the ratio test and the publication on the clock of the block that
+// owns j, whichever it is. DVEC: the ratio stage is the first pass over the
+// block's rows, the combine stage takes the first pass's combine and the
+// second pass too, barrier B is B and B', the fetch stage takes the second
+// combine, the update stage leaves the RHS to the finish, and "owner" is
+// the owner of j's first pass (bounded_grid.py's GRID_DEVICE_VECTOR_STAGES
+// names these spans apart).
 enum Stage {
   C_LOAD, C_PRICE, C_A, C_COMBINE, C_RATIO, C_B, C_C, C_FETCH, C_UPDATE, C_STREAM, C_FINISH,
-  C_STORE, C_OWNER, C_NSTAGES
+  C_D, C_STORE, C_OWNER, C_NSTAGES
 };
 
 template <typename T>
@@ -189,10 +232,13 @@ struct Params {
   unsigned char* bland_out;
   T* lastz_out;
   unsigned char* mail;  // mail_bytes(G)
-  T* cols;              // (3 M,): column j | column fcol | column basis[0]
+  T* cols;              // (3 M,): column j | column fcol | column basis[0];
+                        // DVEC (5 M + 2 m,): then two copies of the RHS
+                        // (M) and of the spans (m)
   unsigned* bar;        // the grid barrier's counter, zeroed by the wrapper
   long long* cycles;    // (C_NSTAGES,) SM cycles per stage (block 0), or null
   T* scratch;           // STREAMED: G regions of NT tiles of TS bytes
+  int* bvec;            // DVEC: the basis, two copies of m
   int M, N, W, stall_limit, max_iters;
   int R, S, TR;  // resident rows, the ring's slots, rows a tile (STREAMED)
   int TS;        // bytes a tile (STREAMED)
@@ -231,6 +277,7 @@ struct Layout {
   unsigned char* act;
   unsigned char* art;
   unsigned long long* mbar;  // the ring's S mbarriers (STREAMED)
+  T* cjs;                    // DVEC: column j's entries of two tiles' rows
 };
 
 template <typename T>
@@ -262,10 +309,103 @@ __device__ Layout<T> layout(int M, int N, int W, int R, int S, int TS, unsigned 
   return L;
 }
 
+// The dynamic shared memory of a DVEC block: the slab's R resident rows,
+// the tile ring, the pivot row's and the devex weights' segments (W each),
+// column j's entries of two tiles (2 TR), the segment's active and
+// artificial masks (W each) and the mbarriers.
+template <typename T>
+__host__ __device__ long long smem_bytes_dv(int W, int R, int S, int TS, int TR) {
+  const long long es = sizeof(T);
+  return align16((long long)R * W * es) + (long long)S * TS + 2 * align16((long long)W * es) +
+         align16(2LL * TR * es) + 2 * align16(W) + align16(8LL * S);
+}
 
+template <typename T>
+__device__ Layout<T> layout_dv(int W, int R, int S, int TS, int TR, unsigned char* dyn) {
+  Layout<T> L;
+  const long long es = sizeof(T);
+  long long off = 0;
+  L.slab = (T*)(dyn + off);
+  off += align16((long long)R * W * es);
+  L.ring = (T*)(dyn + off);
+  off += (long long)S * TS;
+  L.prow = (T*)(dyn + off);
+  off += align16((long long)W * es);
+  L.gamma = (T*)(dyn + off);
+  off += align16((long long)W * es);
+  L.cjs = (T*)(dyn + off);
+  off += align16(2LL * TR * es);
+  L.act = dyn + off;
+  off += align16(W);
+  L.art = dyn + off;
+  off += align16(W);
+  L.mbar = (unsigned long long*)(dyn + off);
+  L.b = L.colj = L.ub = nullptr;
+  L.basis = nullptr;
+  return L;
+}
 
+// A DVEC step's verdict, the same in every block: the ratio test's row
+// and kinds (from the two combines), column j's entry on row r + 2, the
+// entering column's devex weight (from its owner's mailbox), and the
+// pre-step basis[r], its span, b[r + 2] and basis[r_d]; whether column j
+// has an entry that is not finite.
+template <typename T>
+struct DvVerdict {
+  T piv, gq, brow, ulv;
+  int r, leaving, bd, has_ratio, kind_up, kind_flip, colj_bad;
+};
 
-
+// Two NaN-first argmin picks over the G mailboxes of a region (DVEC's
+// ratio test: each block's two candidates in v, i and s, a), combined as
+// combine_mail combines its pick: lane l of warp 0 takes blocks l, l + 32,
+// ... in turn, then the warp by keys; with the largest gmax (NaN first)
+// and the flags' union. Called by every thread; the result is in out
+// (v, i, s as the second pick's value, a as its index), gmax and flags
+// after its barrier.
+template <typename T>
+__device__ void combine_picks(unsigned char* mail, int region, Red<T>* out, T* gmax,
+                              int* flags) {
+  constexpr int U = 4;  // blocks a lane loads at once
+  const int lane = threadIdx.x & 31, G = gridDim.x;
+  if (threadIdx.x < 32) {
+    const T inf = pos_inf<T>();
+    T v1 = inf, v2 = inf, gm = -inf;
+    int i1 = BIG_I, i2 = BIG_I, fl = 0;
+    for (int q0 = 0; q0 < G; q0 += 32 * U) {
+      Mail<T> mb[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = q0 + u * 32 + lane;
+        if (q < G) mb[u] = load_cg(mail_slot<T>(mail, region, q));
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (q0 + u * 32 + lane >= G) continue;
+        pick(v1, i1, mb[u].v, mb[u].i);
+        pick(v2, i2, mb[u].s, mb[u].a);
+        gm = nan_max(gm, mb[u].gmax);
+        fl |= mb[u].flags;
+      }
+    }
+    using K = typename KeyOf<T>::type;
+    K k1 = okey(v1, false), k2 = okey(v2, false), kg = okey(gm, true);
+    unsigned j1 = (unsigned)i1, j2 = (unsigned)i2, ig = 0;
+    warp_arg(k1, j1, false);
+    warp_arg(k2, j2, false);
+    warp_arg(kg, ig, true);
+    fl = (int)__reduce_or_sync(FULL, (unsigned)fl);
+    if (lane == 0) {
+      out->v = key_value(k1, false);
+      out->i = (int)j1;
+      out->s = key_value(k2, false);
+      out->a = (int)j2;
+      *gmax = key_value(kg, true);
+      *flags = fl;
+    }
+  }
+  __syncthreads();
+}
 
 // common.cuh's bounded_ratio over the m rows of the block's column col
 // (col[i], the replicated RHS b[i] and the basic variables' spans ub[i],
@@ -348,8 +488,9 @@ __device__ __forceinline__ T pivot_entry(T cj, T pk, int rg, int jp, int i, int 
 }
 
 
-template <typename T, bool DEVEX, bool STREAMED>
+template <typename T, bool DEVEX, bool STREAMED, bool DVEC>
 __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
+  static_assert(STREAMED || !DVEC, "the per-row vectors in device memory stream the slab");
   // the warps' shares of the price, ratio (two passes) and finish
   // reductions, each its own
   __shared__ KeyRed<T> kr[4][WARPS];
@@ -357,6 +498,10 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   __shared__ T comb_g;
   __shared__ int comb_f;
   __shared__ Verdict<T> vsh;  // the step's verdict, read by thread 0
+  __shared__ DvVerdict<T> dsh;  // DVEC: the step's verdict
+  // DVEC: b[1] and b[2] before the step's update, and the objective row
+  // after it (thread 0's reads through L2)
+  __shared__ T bsh[3];
   __shared__ Laps<C_NSTAGES> laps;    // thread 0's, on block 0 only
   extern __shared__ __align__(16) unsigned char grid_dyn[];
   GridBarrier gb{p.bar, 0u, 1};
@@ -371,13 +516,22 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   const long long tse = STREAMED ? p.TS / (long long)sizeof(T) : 0;
   // the block's tiles of rows [R, M)
   const int NT = STREAMED ? (M - R + TR - 1) / TR : 0;
-  const Layout<T> L = layout<T>(M, N, W, R, S, STREAMED ? p.TS : 0, grid_dyn);
+  const Layout<T> L = DVEC ? layout_dv<T>(W, R, S, p.TS, TR, grid_dyn)
+                           : layout<T>(M, N, W, R, S, STREAMED ? p.TS : 0, grid_dyn);
   const Slab<T, STREAMED> slab{L.slab, STREAMED ? p.scratch + (long long)g * NT * tse : nullptr,
                                R, lg, tse};
   const T inf = pos_inf<T>();
   T* const colJ = p.cols;          // column j, pre-step (the owner of j)
   T* const colF = p.cols + M;      // column fcol (its owner, on barrier C)
   T* const colP = p.cols + 2 * M;  // column basis[0] (its owner, on barrier C)
+  // DVEC: the RHS, the spans and the basis in device memory, two copies
+  // each: a step reads copy cur and writes copy cur ^ 1; the basic rows
+  // [q0, q1) this block owns
+  T* const rhsV = p.cols + 3 * M;       // 2 x M
+  T* const ubV = p.cols + 5 * M;        // 2 x m
+  int cur = 0;
+  const int H = DVEC ? (m + (int)gridDim.x - 1) / (int)gridDim.x : 0;
+  const int q0 = DVEC ? min(m, g * H) : 0, q1 = DVEC ? min(m, q0 + H) : 0;
   if (tid == 0) {
     laps.on = p.cycles != nullptr && g == 0;
     laps.last = clock64();
@@ -401,28 +555,47 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     __threadfence_block();
     fence_async_global();
   }
-  for (int i = tid; i < M; i += THREADS) L.b[i] = p.T_in[(long long)i * N + N - 1];
-  for (int i = tid; i < m; i += THREADS) {
-    L.basis[i] = p.basis_in[i];
-    L.ub[i] = p.upper[p.basis_in[i]];
+  if (DVEC) {
+    // the own basic rows' RHS entries, basis and spans (block 0 the
+    // objective rows' RHS too)
+    for (int q = q0 + tid; q < q1; q += THREADS) {
+      const int k = p.basis_in[q];
+      p.bvec[q] = k;
+      ubV[q] = p.upper[k];
+      rhsV[q + 2] = p.T_in[(long long)(q + 2) * N + N - 1];
+    }
+    if (g == 0 && tid < 2) rhsV[tid] = p.T_in[(long long)tid * N + N - 1];
+  } else {
+    for (int i = tid; i < M; i += THREADS) L.b[i] = p.T_in[(long long)i * N + N - 1];
+    for (int i = tid; i < m; i += THREADS) {
+      L.basis[i] = p.basis_in[i];
+      L.ub[i] = p.upper[p.basis_in[i]];
+    }
+    for (int k = tid; k < n; k += THREADS) L.art[k] = p.art_in[k] != 0;
   }
-  for (int k = tid; k < n; k += THREADS) L.art[k] = p.art_in[k] != 0;
   for (int kk = tid; kk < wk; kk += THREADS) {
     const int k = k0 + kk;
     L.act[kk] = p.act_in[k] != 0;
     L.gamma[kk] = DEVEX ? p.gamma_in[k] : T(1);
     p.at_upper_out[k] = p.at_upper_in[k];
+    if (DVEC) {
+      // the own flags, and their device copy
+      const unsigned char a = p.art_in[k] != 0;
+      L.art[kk] = a;
+      p.art_out[k] = a;
+    }
   }
   int phase = *p.phase_in, status = *p.status_in, niter = *p.niter_in, stuck = *p.stuck_in;
   bool bland = *p.bland_in != 0;
   T last_z = *p.lastz_in;
   int n_enter = 0, n_uphit = 0;
+  int b0d = DVEC ? p.basis_in[0] : 0;  // DVEC: basis[0], in every thread
   __syncthreads();
   // every basic column this block owns exactly the unit vector on its row
   // (a warp a row of the basis)
   bool units_bad = false;
   for (int i = warp; i < m; i += WARPS) {
-    const int k = L.basis[i];
+    const int k = DVEC ? p.basis_in[i] : L.basis[i];
     if (k < k0 || k >= k0 + wk) continue;
     // (the column's resident rows through a hoisted pointer: the accessor
     // in this loop cost the resident instantiations registers)
@@ -437,6 +610,11 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   // first row whose basic column is artificial (a), the largest weight (v)
   Red<T> x = red_identity<T>(true);
   for (int i = tid; i < m; i += THREADS) {
+    if (DVEC) {
+      // (the inputs: no block writes them)
+      if (p.art_in[p.basis_in[i]]) x.a = min(x.a, i);
+      continue;
+    }
     x.s = add_rn(x.s, T(fabs(L.b[i + 2])));
     if (L.art[L.basis[i]]) x.a = min(x.a, i);
   }
@@ -488,13 +666,13 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
         rstride = 1;
       }
     }
-    Red<T> cols = key_reduce(bounded_price_scan(crow, rowd, L.act, L.art + k0, L.gamma, wk, DEVEX,
+    Red<T> cols = key_reduce(bounded_price_scan(crow, rowd, L.act, DVEC ? L.art : L.art + k0, L.gamma, wk, DEVEX,
                                                 p.opt_tol, p.piv_tol, (long long)R, k0, rstride),
                              DEVEX, kr[0]);
     bool bad2 = false, unit0 = false;
     for (int kk = tid; kk < wk; kk += THREADS)
       bad2 = bad2 || !finite_val(L.slab[(long long)kk * R + 2]);
-    const int b0 = L.basis[0];
+    const int b0 = DVEC ? b0d : L.basis[0];
     if ((first || !units_ok) && b0 >= k0 && b0 < k0 + wk) {
       const T* col = L.slab + (long long)(b0 - k0) * R;
       for (int i = tid; i < M; i += THREADS)
@@ -512,6 +690,18 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
 
     // ---- 2. the combine; the previous step's devex reset; the ratio
     // test by the owner of j; barrier B ----
+    // (DVEC: this step's copy of the vectors, read-only until barrier D,
+    // and the next step's, written by their owners in the finish)
+    const T* const rhsC = rhsV + cur * M;
+    T* const rhsN = rhsV + (cur ^ 1) * M;
+    const T* const ubC = ubV + cur * m;
+    T* const ubN = ubV + (cur ^ 1) * m;
+    const int* const basC = p.bvec + cur * m;
+    int* const basN = p.bvec + (cur ^ 1) * m;
+    if (DVEC && tid == 0) {
+      bsh[0] = __ldcg(rhsC + 1);
+      bsh[1] = __ldcg(rhsC + 2);
+    }
     combine_mail<T>(p.mail, R_A, DEVEX, &comb, &comb_g, &comb_f);
     Red<T> all = comb;
     const int aflags = comb_f;
@@ -522,8 +712,9 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
       for (int kk = tid; kk < wk; kk += THREADS) L.gamma[kk] = T(1);
       __syncthreads();
       cols = key_reduce(
-          bounded_price_scan(crow, STREAMED ? rowd : L.slab + r_d + 2, L.act, L.art + k0, L.gamma,
-                             wk, true, p.opt_tol, p.piv_tol, (long long)R, k0, rstride),
+          bounded_price_scan(crow, STREAMED ? rowd : L.slab + r_d + 2, L.act,
+                             DVEC ? L.art : L.art + k0, L.gamma, wk, true, p.opt_tol,
+                             p.piv_tol, (long long)R, k0, rstride),
           true, kr[1]);
       if (tid == 0) {
         post(mail_slot<T>(p.mail, R_R, g), cols, T(1), 0);
@@ -539,7 +730,7 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     const bool has_elig = all.b != BIG_I;
     const int j_price = bland ? (has_improving ? all.a : n - 1) : all.i;
     const bool phase1_done = phase == 1 && !has_improving;
-    const bool infeasible1 = phase1_done && -L.b[1] > p.infeas_tol;
+    const bool infeasible1 = phase1_done && -(DVEC ? bsh[0] : L.b[1]) > p.infeas_tol;
     const bool to_phase2 = phase1_done && !infeasible1;
     const bool pricing_pivot = has_improving && !cleanup && !phase1_done;
     const bool retire = cleanup && !has_elig;
@@ -550,7 +741,117 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     // the step's decisions the owner of j needs for r (the same in every
     // block)
     const bool do_cleanup = cleanup && has_elig;
-    if (j >= k0 && j < k0 + wk) {
+    if (DVEC) {
+      // the ratio test over the blocks' rows: the owner of j its resident
+      // rows [2, R) (and publishes rows [0, R) of column j), every block its
+      // share's streamed rows, read from the owner's tiles (and publishes
+      // them); each block's two picks combined in block order after
+      // barrier B (its region R_F), the winning kind's ties after a second
+      // barrier B' (region A), as grid_ratio takes them
+      const long long t0 = p.cycles && tid == 0 ? clock64() : 0;
+      const bool own_j = j >= k0 && j < k0 + wk;
+      const int go = j / W;
+      const Slab<T, true> jslab{nullptr, p.scratch + (long long)go * NT * tse, R, lg, tse};
+      const int kj = j - go * W;
+      const T* const colr = L.slab + (long long)(j - k0) * R;  // own_j
+      const int qs = max(q0, R - 2);  // the share's streamed rows [qs, q1)
+      const T t_flip = p.upper[j];
+      T lv = inf, uv = inf;
+      int li = BIG_I, ui = BIG_I;
+      bool bad = false;
+      if (own_j)
+        for (int i = tid; i < R; i += THREADS) {
+          const T c = colr[i];
+          colJ[i] = c;
+          bad = bad || !finite_val(c);
+          if (i >= 2) {
+            T x, y;
+            bool neg;
+            bounded_ratios(c, __ldcg(rhsC + i), __ldcg(ubC + i - 2), p.piv_tol, x, y, neg);
+            pick(lv, li, x, i - 2);
+            pick(uv, ui, y, i - 2);
+          }
+        }
+      for (int q = qs + tid; q < q1; q += THREADS) {
+        const T c = __ldcg(jslab.tile_entry(q + 2, kj));
+        colJ[q + 2] = c;
+        bad = bad || !finite_val(c);
+        T x, y;
+        bool neg;
+        bounded_ratios(c, __ldcg(rhsC + q + 2), __ldcg(ubC + q), p.piv_tol, x, y, neg);
+        pick(lv, li, x, q);
+        pick(uv, ui, y, q);
+      }
+      key_pick2(lv, li, uv, ui, kr[1]);
+      const bool any = __syncthreads_or(bad) != 0;
+      if (tid == 0) {
+        Red<T> c1;
+        c1.v = lv;
+        c1.i = li;
+        c1.s = uv;
+        c1.a = ui;
+        c1.b = BIG_I;
+        post(mail_slot<T>(p.mail, R_F, g), c1, own_j && DEVEX ? L.gamma[j - k0] : -inf,
+             any ? 1 : 0);
+        if (p.cycles && own_j)
+          atomicAdd((unsigned long long*)p.cycles + C_OWNER,
+                    (unsigned long long)(clock64() - t0));
+        lap(&laps, C_RATIO);
+      }
+      gb.sync();
+      if (tid == 0) lap(&laps, C_B);
+      combine_picks<T>(p.mail, R_F, &comb, &comb_g, &comb_f);
+      const T t_star = nan_min(nan_min(comb.v, comb.s), t_flip);
+      const bool kind_lo = comb.v <= t_star;
+      const bool kind_up = !kind_lo && comb.s <= t_star;
+      const T gq = comb_g;
+      const int colj_bad = comb_f;
+      // the winning kind's ties: Bland's smallest basic index (bv, bi; row
+      // 0 where none ties), the first tie (fv, fi)
+      T bv = inf, fv = inf;
+      int bi = BIG_I, fi = BIG_I;
+      const auto tie = [&](int q, T c) {
+        T x, y;
+        bool neg;
+        bounded_ratios(c, __ldcg(rhsC + q + 2), __ldcg(ubC + q), p.piv_tol, x, y, neg);
+        const bool t = kind_lo ? x <= t_star : (neg && y <= t_star);
+        pick(bv, bi, t ? T(__ldcg(basC + q)) : T(BIG_I), q);
+        if (t) pick(fv, fi, T(0), q);
+      };
+      if (own_j)
+        for (int i = 2 + tid; i < R; i += THREADS) tie(i - 2, colr[i]);
+      for (int q = qs + tid; q < q1; q += THREADS) tie(q, __ldcg(colJ + q + 2));
+      key_pick2(bv, bi, fv, fi, kr[2]);
+      if (tid == 0) {
+        Red<T> c2;
+        c2.v = bv;
+        c2.i = bi;
+        c2.s = fv;
+        c2.a = fi;
+        c2.b = BIG_I;
+        post(mail_slot<T>(p.mail, R_A, g), c2, -inf, 0);
+        lap(&laps, C_COMBINE);
+      }
+      gb.sync();
+      if (tid == 0) lap(&laps, C_B);
+      combine_picks<T>(p.mail, R_A, &comb, &comb_g, &comb_f);
+      if (tid == 0) {
+        const int r = do_cleanup ? r_d : bland ? comb.i : (comb.a != BIG_I ? comb.a : 0);
+        // this step's copies: no block writes them before barrier D
+        dsh.piv = __ldcg(colJ + r + 2);
+        dsh.brow = __ldcg(rhsC + r + 2);
+        dsh.ulv = __ldcg(ubC + r);
+        dsh.leaving = __ldcg(basC + r);
+        dsh.bd = __ldcg(basC + r_d);
+        dsh.gq = gq;
+        dsh.r = r;
+        dsh.has_ratio = finite_val(t_star);
+        dsh.kind_up = kind_up;
+        dsh.kind_flip = !kind_lo && !kind_up;
+        dsh.colj_bad = colj_bad;
+      }
+    }
+    if (!DVEC && j >= k0 && j < k0 + wk) {
       const long long t0 = p.cycles && tid == 0 ? clock64() : 0;
       // the column the ratio test reads: the slab's (resident), or column
       // j gathered into L.colj, which every block overwrites from the
@@ -595,16 +896,18 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
       }
     }
     const T u_j = p.upper[j];
-    if (tid == 0) lap(&laps, C_RATIO);
-    gb.sync();
-    if (tid == 0) lap(&laps, C_B);
+    if (!DVEC) {
+      if (tid == 0) lap(&laps, C_RATIO);
+      gb.sync();
+      if (tid == 0) lap(&laps, C_B);
+    }
 
     // ---- 3. the verdict; barrier C where needed; the update ----
     // (thread 0 reads the verdict for the block: a line that every block
     // reads is a hot spot in L2; each thread copies the rows of column j it
     // updates, the update's mapping)
-    if (tid == 0) vsh = load_cg(verdict_slot<T>(p.mail));
-    for (int i0 = tid; i0 < M; i0 += 4 * THREADS) {
+    if (!DVEC && tid == 0) vsh = load_cg(verdict_slot<T>(p.mail));
+    for (int i0 = tid; !DVEC && i0 < M; i0 += 4 * THREADS) {
       T v[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
@@ -614,23 +917,24 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
         if (i0 + u * THREADS < M) L.colj[i0 + u * THREADS] = v[u];
     }
     __syncthreads();
-    const int r = vsh.r;
-    const bool has_ratio = vsh.has_ratio != 0, kind_up = vsh.kind_up != 0;
-    const bool kind_flip = vsh.kind_flip != 0;
-    const T gq = vsh.gq, piv = vsh.piv;
+    const int r = DVEC ? dsh.r : vsh.r;
+    const bool has_ratio = (DVEC ? dsh.has_ratio : vsh.has_ratio) != 0;
+    const bool kind_up = (DVEC ? dsh.kind_up : vsh.kind_up) != 0;
+    const bool kind_flip = (DVEC ? dsh.kind_flip : vsh.kind_flip) != 0;
+    const T gq = DVEC ? dsh.gq : vsh.gq, piv = DVEC ? dsh.piv : vsh.piv;
     const bool in_phase2 = phase == 2;
     const bool do_price = pricing_pivot && has_ratio;
     const bool do_pivot = do_cleanup || (do_price && !kind_flip);
     const bool do_flip_enter = do_price && kind_flip;
-    const int leaving = L.basis[r];
-    const T u_leave = L.ub[r];
+    const int leaving = DVEC ? dsh.leaving : L.basis[r];
+    const T u_leave = DVEC ? dsh.ulv : L.ub[r];
     const bool do_flip = (do_price && kind_up && !cleanup) || do_flip_enter;
     const int fcol = do_flip_enter ? j : leaving;
     const bool unbounded = pricing_pivot && !has_ratio && in_phase2;
     const bool failed1 = pricing_pivot && !has_ratio && !in_phase2;
     // the update's pivot: (r + 2, j), else the plain step's redirected one
     // on (row 2, basis[0]) unless that is an exact no-op
-    const bool noop = !(aflags & F_ROW2_BAD) && finite_val(L.b[2]) &&
+    const bool noop = !(aflags & F_ROW2_BAD) && finite_val(DVEC ? bsh[1] : L.b[2]) &&
                       (units_ok || !(aflags & F_UNIT0_BAD));
     const bool pv = do_pivot || !noop;
     const int rg = do_pivot ? r + 2 : 2, jp = do_pivot ? j : b0;
@@ -639,7 +943,7 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     // L.colj; or basis[0]: e_2 where every basic column is a unit vector)
     // and the flip's (column j; or the basic column basis[r]: e_{r+2}
     // likewise); else their owners publish them before barrier C, and
-    // basis[0]'s goes to L.colj
+    // basis[0]'s goes to L.colj (DVEC: read from colP)
     const bool own_p = pv && !do_pivot && !units_ok;
     const bool own_f = fcol != j && !units_ok;
     T cjr = do_pivot ? piv : T(1);  // the pivot element
@@ -651,14 +955,15 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
       gb.sync();
       if (tid == 0) lap(&laps, C_C);
       if (own_p) {
-        for (int i = tid; i < M; i += THREADS) L.colj[i] = __ldcg(colP + i);
+        for (int i = tid; !DVEC && i < M; i += THREADS) L.colj[i] = __ldcg(colP + i);
         cjr = __ldcg(colP + 2);
       }
     }
     const bool cj_sh = do_pivot || own_p;  // else e_2
+    const T* const cjd = own_p ? colP : colJ;  // DVEC: that column
     // column fcol, pre-step: column j (in L.colj on a pivot, else from the
-    // mailbox), fcol's owner's copy, or e_{r+2}
-    const int cf_from = fcol == j ? (do_pivot ? 1 : 2) : own_f ? 3 : 0;
+    // mailbox; DVEC: from the mailbox), fcol's owner's copy, or e_{r+2}
+    const int cf_from = fcol == j ? (do_pivot && !DVEC ? 1 : 2) : own_f ? 3 : 0;
     const auto cf_at = [&](int i) -> T {
       return cf_from == 1 ? L.colj[i]
              : cf_from == 2 ? __ldcg(colJ + i)
@@ -672,7 +977,7 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
       // (column j's entry on row rg is the pivot element: L.colj's copy of
       // it belongs to another thread)
       pf = mul_rn(cf_from == 1 ? piv : cf_at(rg), rinv);
-      prhs = mul_rn(L.b[rg], rinv);
+      prhs = mul_rn(DVEC ? (do_pivot ? dsh.brow : bsh[1]) : L.b[rg], rinv);
     }
     // the devex weights of the own columns (alpha: the post-pivot row,
     // column j snapped to 1; each thread reads the prow entries it wrote)
@@ -691,8 +996,8 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     const bool jp_own = pv && jp >= k0 && jp < k0 + wk;
     const bool flip_own = do_flip && fcol >= k0 && fcol < k0 + wk;
     bool cj_bad = false;
-    for (int i = tid; i < M; i += THREADS) {
-      const T cj = !pv ? T(0) : cj_sh ? L.colj[i] : T(i == 2);
+    for (int i = tid; i < (DVEC ? R : M); i += THREADS) {
+      const T cj = !pv ? T(0) : cj_sh ? (DVEC ? __ldcg(cjd + i) : L.colj[i]) : T(i == 2);
       cj_bad = cj_bad || !finite_val(cj);
       if (!STREAMED || i < R) {
         if (pv) {
@@ -723,14 +1028,29 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
           *e = -*e;
         }
       }
+      if (DVEC) continue;  // the RHS: its owners', in the finish
       const T cf = cf_at(i);
       const T tnf = pv ? pivot_entry(cj, pf, rg, jp, i, fcol, cf) : cf;
       const T bi = pv ? pivot_entry(cj, prhs, rg, jp, i, N - 1, L.b[i]) : L.b[i];
       L.b[i] = fma(-tnf, uf, bi);
     }
+    // DVEC: column j's entries of the first tile's rows, staged (the
+    // streamed update reads them)
+    if (DVEC && pv && cj_sh && tid < TR && NT > 0) {
+      const int i = R + (forward ? 0 : NT - 1) * TR + tid;
+      L.cjs[tid] = i < M ? __ldcg(cjd + i) : T(0);
+    }
     // a pivot keeps every basic column a unit vector while its column and
-    // 1 / pivot are finite (the same verdict in every block)
-    const bool any_bad = __syncthreads_or(cj_bad) != 0;
+    // 1 / pivot are finite (the same verdict in every block; DVEC: column
+    // j's, from the blocks' flags, the only column that matters while
+    // units_ok)
+    bool any_bad;
+    if (DVEC) {
+      __syncthreads();
+      any_bad = do_pivot && dsh.colj_bad != 0;
+    } else {
+      any_bad = __syncthreads_or(cj_bad) != 0;
+    }
     if (pv && (any_bad || !finite_val(rinv))) units_ok = false;
     if (tid == 0) lap(&laps, C_UPDATE);
 
@@ -742,6 +1062,14 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
       const int jpk = jp_own ? jp - k0 : -1, fk = flip_own ? fcol - k0 : -1;
       const int nwait = pv ? NT : nload;
       for (int t = 0; t < nwait; ++t) {
+        // DVEC: column j's entries of the next tile's rows, asked for
+        // before this tile's wait and staged after its update
+        const bool stage = DVEC && pv && cj_sh && tid < TR && t + 1 < NT;
+        T cj_next = T(0);
+        if (stage) {
+          const int in = R + (forward ? t + 1 : NT - 2 - t) * TR + tid;
+          if (in < M) cj_next = __ldcg(cjd + in);
+        }
         const int q = slot;
         mbar_wait(L.mbar + q, (parity >> q) & 1u);
         parity ^= 1u << q;
@@ -751,7 +1079,7 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
         T* tile = L.ring + q * tse;
         const int i = R + ti * TR + ii;
         if (i < M) {
-          const T cj = cj_sh ? L.colj[i] : T(i == 2);
+          const T cj = cj_sh ? (DVEC ? L.cjs[(t & 1) * TR + ii] : L.colj[i]) : T(i == 2);
           const T nc = -cj;
           const bool on_r = i == rg;
           for (int kk = kq; kk < wk; kk += ks) {
@@ -762,12 +1090,22 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
             *e = v;
           }
         }
+        if (stage) L.cjs[((t + 1) & 1) * TR + tid] = cj_next;
         // the tile's generic writes before the bulk store reads it
         fence_async_shared();
         __syncthreads();
         if (tid == 0) {
           tile_store(slab.scr + ti * tse, tile, (unsigned)p.TS);
-          if (t + S < NT) {
+          if (DVEC) {
+            // (DVEC) the previous tile's slot, reloaded once its store has
+            // read it: this tile's store is not waited for
+            if (t >= 1 && t - 1 + S < NT) {
+              const int qp = q == 0 ? S - 1 : q - 1;
+              const int tn = t - 1 + S, tin = forward ? tn : NT - 1 - tn;
+              stores_read_but_one();
+              tile_load(L.ring + qp * tse, slab.scr + tin * tse, (unsigned)p.TS, L.mbar + qp);
+            }
+          } else if (t + S < NT) {
             const int tn = t + S, tin = forward ? tn : NT - 1 - tn;
             stores_read();
             tile_load(tile, slab.scr + tin * tse, (unsigned)p.TS, L.mbar + q);
@@ -791,28 +1129,83 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
 
     // ---- the finish ----
     if (tid == 0) {
-      if (do_pivot) {
+      if (!DVEC && do_pivot) {
         L.basis[r] = j;
         L.ub[r] = u_j;
       }
-      // a retire pivots nowhere: the basis is the pre-step one
-      if (retire) L.art[L.basis[r_d]] = 0;
+      // a retire pivots nowhere: the basis is the pre-step one (DVEC: the
+      // retired column's owner clears its flag, the row's its device copy)
+      if (!DVEC && retire) L.art[L.basis[r_d]] = 0;
+      if (DVEC && retire && dsh.bd >= k0 && dsh.bd < k0 + wk) L.art[dsh.bd - k0] = 0;
       if (flip_own) p.at_upper_out[fcol] = !p.at_upper_out[fcol];
     }
+    if (DVEC && do_pivot && r == 0) b0d = j;
     if (DEVEX && to_phase2)
       for (int kk = tid; kk < wk; kk += THREADS) L.gamma[kk] = T(1);
     __syncthreads();
     if (to_phase2)
-      for (int kk = tid; kk < wk; kk += THREADS) L.act[kk] = L.act[kk] && !L.art[k0 + kk];
-    for (int i = tid; i < m; i += THREADS) {
-      x.s = add_rn(x.s, T(fabs(L.b[i + 2])));
-      if (L.art[L.basis[i]]) x.a = min(x.a, i);
+      for (int kk = tid; kk < wk; kk += THREADS)
+        L.act[kk] = L.act[kk] && !L.art[DVEC ? kk : k0 + kk];
+    if (DVEC) {
+      // the own rows of the next copies: the RHS (the update above, row by
+      // row: column j's and column fcol's entries through L2), the basis
+      // and the spans (row r the entering column's); the retired
+      // artificial's flag; the rows' |b| sum (in block_reduce's order) and
+      // their first artificial basic row
+      const auto rhs_row = [&](int i) -> T {
+        const T b_i = __ldcg(rhsC + i);
+        const T cj = !pv ? T(0) : cj_sh ? __ldcg(cjd + i) : T(i == 2);
+        const T cf = cf_at(i);
+        const T tnf = pv ? pivot_entry(cj, pf, rg, jp, i, fcol, cf) : cf;
+        const T bi = pv ? pivot_entry(cj, prhs, rg, jp, i, N - 1, b_i) : b_i;
+        const T v = fma(-tnf, uf, bi);
+        rhsN[i] = v;
+        return v;
+      };
+      if (g == 0 && tid < 2) rhs_row(tid);
+      for (int q = q0 + tid; q < q1; q += THREADS) {
+        x.s = add_rn(x.s, T(fabs(rhs_row(q + 2))));
+        const bool in = do_pivot && q == r;
+        const int k = in ? j : __ldcg(basC + q);
+        basN[q] = k;
+        ubN[q] = in ? u_j : __ldcg(ubC + q);
+        bool a;
+        if (retire && q == r_d) {
+          p.art_out[k] = 0;
+          a = false;
+        } else {
+          a = __ldcg(p.art_out + k) != 0;
+        }
+        if (a) x.a = min(x.a, q);
+      }
+    } else {
+      for (int i = tid; i < m; i += THREADS) {
+        x.s = add_rn(x.s, T(fabs(L.b[i + 2])));
+        if (L.art[L.basis[i]]) x.a = min(x.a, i);
+      }
     }
     x = key_reduce(x, true, kr[3]);
+    if (DVEC) {
+      // the blocks' sums and first rows, combined after barrier D (the
+      // repricing's region: its next use follows barrier A); the step's
+      // objective row, updated by block 0
+      if (tid == 0) {
+        post(mail_slot<T>(p.mail, R_R, g), x, T(0), 0);
+        lap(&laps, C_FINISH);
+      }
+      gb.sync();
+      if (tid == 0) {
+        lap(&laps, C_D);
+        bsh[2] = __ldcg(rhsN + (phase == 1 ? 1 : 0));
+      }
+      combine_mail<T>(p.mail, R_R, true, &comb, &comb_g, &comb_f);
+      x.s = comb.s;
+      x.a = comb.a;
+    }
     ra = x.a;
     gmax_own = DEVEX && to_phase2 ? T(1) : x.v;
     const bool act = do_pivot || do_flip_enter;
-    const T z = -L.b[phase == 1 ? 1 : 0];
+    const T z = -(DVEC ? bsh[2] : L.b[phase == 1 ? 1 : 0]);
     if (do_price && act) {
       stuck = sub_rn(last_z, z) > p.degen_tol ? 0 : stuck + 1;
       last_z = z;
@@ -833,6 +1226,7 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
     n_enter += do_flip_enter;
     n_uphit += do_pivot && do_flip;
     first = false;
+    if (DVEC) cur ^= 1;
     if (tid == 0) lap(&laps, C_FINISH);
   }
 
@@ -858,16 +1252,24 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
   for (int i = warp; i < M; i += WARPS)
     for (int kk = lane; kk < wk; kk += 32)
       p.T_out[(long long)i * N + k0 + kk] = slab.at(i, kk);
-  if (g == (int)gridDim.x - 1)
+  if (DVEC) {
+    // the own rows of the RHS and the basis, from the last copies
+    for (int q = q0 + tid; q < q1; q += THREADS) {
+      p.T_out[(long long)(q + 2) * N + N - 1] = __ldcg(rhsV + cur * M + q + 2);
+      p.basis_out[q] = __ldcg(p.bvec + cur * m + q);
+    }
+    if (g == 0 && tid < 2) p.T_out[(long long)tid * N + N - 1] = __ldcg(rhsV + cur * M + tid);
+  } else if (g == (int)gridDim.x - 1) {
     for (int i = tid; i < M; i += THREADS) p.T_out[(long long)i * N + N - 1] = L.b[i];
+  }
   for (int kk = tid; kk < wk; kk += THREADS) {
     const int k = k0 + kk;
     p.act_out[k] = L.act[kk];
-    p.art_out[k] = L.art[k];
+    p.art_out[k] = L.art[DVEC ? kk : k];
     if (DEVEX) p.gamma_out[k] = L.gamma[kk];
   }
   if (g == 0) {
-    for (int i = tid; i < m; i += THREADS) p.basis_out[i] = L.basis[i];
+    for (int i = tid; !DVEC && i < m; i += THREADS) p.basis_out[i] = L.basis[i];
     if (tid == 0) {
       p.ints_out[O_PHASE] = phase;
       p.ints_out[O_STATUS] = status;
@@ -919,6 +1321,7 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
   p.bar = (unsigned*)a[A_BAR];
   p.cycles = (long long*)a[A_CYCLES];
   p.scratch = (T*)a[A_SCRATCH];
+  p.bvec = (int*)a[A_BVEC];
   p.M = in[I_M];
   p.N = in[I_N];
   p.W = in[I_WIDTH];
@@ -955,36 +1358,39 @@ bool plan_ok(const int* in) {
   if (M < 3 || N < 2 || W < 1 || G < 1 || G > THREADS || in[I_THREADS] != THREADS)
     return false;
   if ((long long)G != ((long long)N - 1 + W - 1) / W) return false;
+  if ((long long)in[I_MAIL] != mail_bytes(G) || in[I_VECS] < 0 || in[I_VECS] > 1) return false;
+  if (in[I_VECS])
+    return streamed_ok(in, sizeof(T)) &&
+           (long long)in[I_SMEM] ==
+               smem_bytes_dv<T>(W, in[I_ROWS], in[I_STAGES], in[I_TILE], in[I_TROWS]);
   const bool resident = in[I_ROWS] == M && in[I_STAGES] == 0 && in[I_TROWS] == 0 &&
                         in[I_TILE] == 0;
   if (!resident && !streamed_ok(in, sizeof(T))) return false;
-  return (long long)in[I_SMEM] ==
-             smem_bytes<T>(M, N, W, in[I_ROWS], in[I_STAGES], in[I_TILE]) &&
-         (long long)in[I_MAIL] == mail_bytes(G);
+  return (long long)in[I_SMEM] == smem_bytes<T>(M, N, W, in[I_ROWS], in[I_STAGES], in[I_TILE]);
 }
 
 template <typename T>
-bool pointers_ok(const Params<T>& p, bool devex) {
+bool pointers_ok(const Params<T>& p, bool devex, bool dvec) {
   return p.T_in && p.T_out && p.basis_in && p.basis_out && p.act_in && p.act_out && p.art_in &&
          p.art_out && p.upper && p.at_upper_in && p.at_upper_out && p.phase_in && p.status_in &&
          p.niter_in && p.stuck_in && p.bland_in && p.lastz_in && p.ints_out && p.bland_out &&
          p.lastz_out && p.mail && p.cols && p.bar && (!devex || (p.gamma_in && p.gamma_out)) &&
-         (p.R == p.M || p.scratch);
+         (p.R == p.M || p.scratch) && (!dvec || p.bvec);
 }
 
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor of the instantiation at
 // smem bytes of dynamic shared memory, after raising its limit to them
-template <typename T, bool DEVEX, bool STREAMED>
+template <typename T, bool DEVEX, bool STREAMED, bool DVEC>
 int occupancy_of(int smem, int* blocks) {
-  cudaError_t e = cudaFuncSetAttribute((const void*)grid_kernel<T, DEVEX, STREAMED>,
+  cudaError_t e = cudaFuncSetAttribute((const void*)grid_kernel<T, DEVEX, STREAMED, DVEC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, grid_kernel<T, DEVEX, STREAMED>,
-                                                    THREADS, (size_t)smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, grid_kernel<T, DEVEX, STREAMED, DVEC>, THREADS, (size_t)smem);
   return (int)e;
 }
 
-template <typename T, bool DEVEX, bool STREAMED>
+template <typename T, bool DEVEX, bool STREAMED, bool DVEC>
 int launch_walk(const Params<T>& p, int G, int smem, cudaStream_t s) {
   int dev = 0, coop = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -992,12 +1398,12 @@ int launch_walk(const Params<T>& p, int G, int smem, cudaStream_t s) {
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int err = occupancy_of<T, DEVEX, STREAMED>(smem, &occ);
+  const int err = occupancy_of<T, DEVEX, STREAMED, DVEC>(smem, &occ);
   if (err) return err;
   if (occ < 1 || G > occ * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
   Params<T> q = p;
   void* args[] = {&q};
-  e = cudaLaunchCooperativeKernel((const void*)grid_kernel<T, DEVEX, STREAMED>, dim3(G),
+  e = cudaLaunchCooperativeKernel((const void*)grid_kernel<T, DEVEX, STREAMED, DVEC>, dim3(G),
                                   dim3(THREADS), args, (size_t)smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1008,25 +1414,31 @@ int bounded_grid(const long long* a, const int* in, const double* tol, void* str
   if (!plan_ok<T>(in)) return (int)cudaErrorInvalidValue;
   const Params<T> p = make_params<T>(a, in, tol);
   const bool devex = in[I_DEVEX] != 0, streamed = in[I_ROWS] < in[I_M];
-  if (!pointers_ok(p, devex)) return (int)cudaErrorInvalidValue;
+  if (!pointers_ok(p, devex, in[I_VECS] != 0)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int G = in[I_BLOCKS], smem = in[I_SMEM];
+  if (in[I_VECS])
+    return devex ? launch_walk<T, true, true, true>(p, G, smem, s)
+                 : launch_walk<T, false, true, true>(p, G, smem, s);
   if (streamed)
-    return devex ? launch_walk<T, true, true>(p, G, smem, s)
-                 : launch_walk<T, false, true>(p, G, smem, s);
-  return devex ? launch_walk<T, true, false>(p, G, smem, s)
-               : launch_walk<T, false, false>(p, G, smem, s);
+    return devex ? launch_walk<T, true, true, false>(p, G, smem, s)
+                 : launch_walk<T, false, true, false>(p, G, smem, s);
+  return devex ? launch_walk<T, true, false, false>(p, G, smem, s)
+               : launch_walk<T, false, false, false>(p, G, smem, s);
 }
 
 template <typename T>
 int bounded_grid_occupancy(const int* in, int* blocks) {
   if (!plan_ok<T>(in) || !blocks) return (int)cudaErrorInvalidValue;
   const bool devex = in[I_DEVEX] != 0, streamed = in[I_ROWS] < in[I_M];
+  if (in[I_VECS])
+    return devex ? occupancy_of<T, true, true, true>(in[I_SMEM], blocks)
+                 : occupancy_of<T, false, true, true>(in[I_SMEM], blocks);
   if (streamed)
-    return devex ? occupancy_of<T, true, true>(in[I_SMEM], blocks)
-                 : occupancy_of<T, false, true>(in[I_SMEM], blocks);
-  return devex ? occupancy_of<T, true, false>(in[I_SMEM], blocks)
-               : occupancy_of<T, false, false>(in[I_SMEM], blocks);
+    return devex ? occupancy_of<T, true, true, false>(in[I_SMEM], blocks)
+                 : occupancy_of<T, false, true, false>(in[I_SMEM], blocks);
+  return devex ? occupancy_of<T, true, false, false>(in[I_SMEM], blocks)
+               : occupancy_of<T, false, false, false>(in[I_SMEM], blocks);
 }
 
 }  // namespace bgr

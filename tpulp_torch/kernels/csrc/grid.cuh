@@ -310,6 +310,11 @@ __device__ __forceinline__ void fence_async_global() {
   asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
+// every bulk store of this thread but the last has read its shared memory
+__device__ __forceinline__ void stores_read_but_one() {
+  asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+}
+
 // Wait until the mbarrier's phase of parity ``parity`` has completed; past
 // TILE_TIMEOUT cycles the launch traps (a lost copy would hang the grid).
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
