@@ -4577,6 +4577,52 @@ def device_time_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
+def primal_plans(st, opts, stall: int, p, dev="cuda") -> dict:
+    """7d's further holds of one primal case: the plan ``primal_lanes``
+    takes (its route); on a resident frame ``lane_primal`` on one warp and
+    on 256 threads, past it the one-block streamed plan, each bit for bit
+    the plain loop ``p``; the route's stage split on block 0's clock (lane
+    0's steps: us a stage a step, the block barriers a step)."""
+    import torch
+
+    from tpulp_torch.kernels import lanes as kl
+    from tpulp_torch.kernels.rank1_cluster import (CLUSTER_STAGES,
+                                                   rank1_cluster_lanes)
+    from tpulp_torch.solve.lanes import primal_lanes_route
+
+    B, M, N = st.T.shape
+    route = primal_lanes_route(M, N, st.T.dtype)
+    out = {"route": route, "held": []}
+    if route == "resident":
+        others = {f"threads {th}": dict(threads=th) for th in (32, 256)}
+    else:
+        others = {"streamed": dict(resident=False)}
+    for label, kw in others.items():
+        lanes_equal(kl.lane_primal(st, opts, stall, opts.max_iters, **kw), p)
+        out["held"].append(label)
+    if dev != "cuda":
+        return out
+    steps0 = max(1, int(p.niter[0] - st.niter[0]))
+    if route == "cluster":
+        names = CLUSTER_STAGES
+        cyc = torch.zeros(len(names), dtype=torch.int64, device=dev)
+        rank1_cluster_lanes(st, opts, stall, opts.max_iters,
+                            stage_cycles=cyc)
+    else:
+        names = kl.LANE_STAGES
+        cyc = torch.zeros(len(names), dtype=torch.int64, device=dev)
+        kl.lane_primal(st, opts, stall, opts.max_iters, stage_cycles=cyc)
+    sync(dev)
+    hz = sm_clock_hz()
+    vals = dict(zip(names, cyc.tolist()))
+    if "barriers" in vals:
+        out["barriers_per_step"] = vals.pop("barriers") / steps0
+    out["stage_us_per_step"] = {k: 1e6 * v / hz / steps0
+                                for k, v in vals.items()}
+    out["lane0_steps"] = steps0
+    return out
+
+
 def lane_run(kind: str, st, opts, runs: int, plain_runs: int,
              dev="cuda"):
     """Phase 7d's check of one loop on one batched state: the kernel and
@@ -4587,18 +4633,25 @@ def lane_run(kind: str, st, opts, runs: int, plain_runs: int,
     pivots, the bound. Returns (kernel state, plain state, stats)."""
     import torch
 
-    from tpulp_torch.kernels import lane_plan
+    from tpulp_torch.kernels import lane_dual_plan, lane_plan
     from tpulp_torch.solve import lanes
+
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
 
     fn = lanes.dual_lanes if kind == "dual" else lanes.primal_lanes
     ref_fn = (lanes.dual_lanes_reference if kind == "dual"
               else lanes.primal_lanes_reference)
     B, M, N = st.T.shape
     stall = opts.resolved_stall_limit(M - 2, N - 1)
+    sync(dev)
+    reset_launches()
     k = fn(st, opts, stall, opts.max_iters)
+    sync(dev)
+    launches = {name: v for name, v in LAUNCHES.items() if v}
     p = ref_fn(st, opts, stall, opts.max_iters)
     sync(dev)
     err = lanes_equal(k, p)
+    extra = {} if kind == "dual" else primal_plans(st, opts, stall, p, dev)
     # a CPU rehearsal times nothing
     timed = cuda_time_ms if dev == "cuda" else lambda fn, runs: None
     ms = timed(lambda: fn(st, opts, stall, opts.max_iters), runs)
@@ -4613,12 +4666,13 @@ def lane_run(kind: str, st, opts, runs: int, plain_runs: int,
     # each frame read and written once; one fma a tableau entry a pivot
     bound_ms, bound_by = bound(2.0 * B * M * N * es, 2.0 * pivots * M * N,
                                flop_s)
-    plan = lane_plan(M, N, st.T.dtype)
+    plan = (lane_plan if kind == "primal" else lane_dual_plan)(
+        M, N, st.T.dtype)
     statuses = {int(v): int(c) for v, c in
                 zip(*np.unique(k.status.cpu().numpy(), return_counts=True))}
     return k, p, {
         "kind": kind, "lanes": B, "frame": [M, N],
-        "resident": plan.resident,
+        "resident": plan.resident, "launches": launches, **extra,
         "threads": plan.threads, "smem": plan.smem, "steps": steps,
         "pivots": pivots, "statuses": statuses, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
@@ -4727,8 +4781,16 @@ def phase_lane_kernels(dev="cuda"):
     (NUMERIC), 7c's scenarios cold in phase 1 under Dantzig and under the
     greatest increase with largest-pivot ties, small mixed-sign LPs whose
     phase 2 pivots basic artificials out and retires others, and lanes of
-    258 x 513 (the streamed path, primal then dual). Each case is timed (CUDA events);
-    the knapsack's cold and warm waves at f64 are the headline."""
+    258 x 513 (primal then dual). Each primal case runs ``primal_lanes``'
+    route (resident: ``lane_primal``; the 258 x 513 frames: the cluster
+    lanes, with 0 one-block launches) and is held again on the other plans
+    (resident: one warp and 256 threads; else the one-block streamed plan),
+    with the route's stage split on block 0's clock. Each case is timed
+    (CUDA events); the knapsack's cold and warm waves at f64 are the
+    headline. Then (w) 128 lanes of 258 x 513 on both plans past a block in
+    turns, (t) tests/test_torch_lanes_card.py in a pytest process of its
+    own, and (m) the cluster lanes' main path, ``solve_lp_batch`` over
+    258 x 513 frames."""
     import dataclasses as dc
 
     import torch
@@ -4749,9 +4811,17 @@ def phase_lane_kernels(dev="cuda"):
         def run(label, kind, st, o, runs=5, plain_runs=1):
             k, p, stats = lane_run(kind, st, o, runs, plain_runs, dev)
             cases[label] = stats
+            plan = stats.get("route") or (
+                "resident" if stats["resident"] else "streamed")
+            split = "" if "stage_us_per_step" not in stats else (
+                f"; held too: {stats['held']}; stages (block 0, us a step) "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            stats["stage_us_per_step"].items())
+                + (f", {stats['barriers_per_step']:.2f} block barriers a "
+                   "step" if "barriers_per_step" in stats else ""))
             log(f"# 7d {label} {name}: {kind} loop, {stats['lanes']} lanes "
-                f"of {tuple(stats['frame'])} "
-                f"({'resident' if stats['resident'] else 'streamed'}), "
+                f"of {tuple(stats['frame'])} ({plan}, {stats['threads']} "
+                f"threads a block; launches {stats['launches']}){split}, "
                 f"bit for bit the plain loop; {stats['steps']} steps, "
                 f"{stats['pivots']} pivots, statuses {stats['statuses']}; "
                 f"kernel {stats['ms']} ms a call, {stats['us_per_step']} "
@@ -4796,12 +4866,153 @@ def phase_lane_kernels(dev="cuda"):
             -scale * solved.T[:, 2:, -1].abs().amax(dim=1))
         _, d = run("streamed_warm", "dual", warm_s, opts)
         run("streamed_warm_cleanup", "primal", reopened(d), opts)
-        if cases["streamed_cold"]["resident"] or \
-                not cases["knapsack_cold"]["resident"]:
-            raise AssertionError("7d: the knapsack's frames must be resident "
-                                 "and the 258 x 513 frames streamed")
+        for label, st in cases.items():
+            if st["kind"] != "primal":
+                continue
+            want = "cluster" if label.startswith("streamed") else "resident"
+            one_block = st["launches"].get("lane_primal", 0)
+            clusters = st["launches"].get("rank1_cluster_lanes", 0)
+            counted = dev == "cuda" and ((want == "cluster" and (
+                one_block or clusters != 1)) or (want == "resident" and (
+                    one_block != 1 or clusters)))
+            if st["route"] != want or counted:
+                raise AssertionError(
+                    f"7d {label} {name}: the route {st['route']} with "
+                    f"launches {st['launches']}; the knapsack's frames "
+                    "must run lane_primal's resident plan and the 258 x "
+                    "513 frames the cluster lanes, with 0 one-block "
+                    "launches")
+        if dt == torch.float64:
+            cases["wide_128"] = wide_lanes_turns(dev)
         res[name] = cases
+    res["card_tests"] = lanes_card_tests(dev)
+    res["cluster_main_path"] = cluster_lanes_main_path(dev)
     return res
+
+
+# 7d's 128 lanes of 258 x 513 frames (LANE_STREAM_M x LANE_STREAM_N), timed
+# on the cluster lanes and on lane_primal's one-block streamed plan in turns
+LANE_WIDE_LANES = 128
+
+
+def wide_lanes_turns(dev="cuda") -> dict:
+    """7d (w): LANE_WIDE_LANES lanes of 258 x 513 f64 on both plans past a
+    block's shared memory, the cluster lanes (primal_lanes' route) and
+    lane_primal's one block a lane, each held bit for bit against the
+    plain loop, then timed on the card alone in turns (cluster, one block,
+    one block, cluster)."""
+    import torch
+
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.batch import make_batched_states
+    from tpulp_torch.solve import lanes
+
+    dt = torch.float64
+    st = make_batched_states(
+        [scenario_form(*dense_leq_arrays(LANE_STREAM_M, LANE_STREAM_N,
+                                         seed=k))
+         for k in range(LANE_WIDE_LANES)], dtype=dt, device=dev)
+    opts = SolverOptions.for_dtype(dt)
+    stall = opts.resolved_stall_limit(LANE_STREAM_M, LANE_STREAM_M
+                                      + LANE_STREAM_N)
+    p = lanes.primal_lanes_reference(st, opts, stall, opts.max_iters)
+    routes = {"cluster": None, "streamed": None}
+    for route in routes:
+        routes[route] = lanes.primal_lanes(st, opts, stall, opts.max_iters,
+                                           route=route)
+        sync(dev)
+        lanes_equal(routes[route], p)
+    steps = int((p.niter - st.niter).max())
+    pivots = int((p.niter - st.niter).sum())
+    B, M, N = st.T.shape
+    # each frame read and written once; one fma a tableau entry a pivot
+    bound_ms, bound_by = bound(2.0 * B * M * N * 8, 2.0 * pivots * M * N,
+                               FP64_FLOP_S)
+    out = {"lanes": LANE_WIDE_LANES, "frame": [M, N], "steps": steps,
+           "pivots": pivots, "bound_ms": bound_ms, "bound_by": bound_by,
+           "route": lanes.primal_lanes_route(M, N, dt)}
+    if dev != "cuda":
+        return out
+    turns = {"cluster": [], "streamed": []}
+    for route in ("cluster", "streamed", "streamed", "cluster"):
+        turns[route].append(device_time_ms(lambda: lanes.primal_lanes(
+            st, opts, stall, opts.max_iters, route=route), 5))
+    for route, ms in turns.items():
+        out[route] = {"device_ms": ms,
+                      "us_per_step": [1e3 * t / steps for t in ms]}
+    log(f"# 7d (w) {LANE_WIDE_LANES} lanes of {tuple(out['frame'])} f64, "
+        f"{steps} steps, {pivots} pivots (bound {bound_ms:.5f} ms, "
+        f"{bound_by}), each plan bit for bit the plain loop: the cluster "
+        f"lanes {turns['cluster']} ms, lane_primal's one block a lane "
+        f"{turns['streamed']} ms (device, in turns); the route "
+        f"{out['route']}")
+    return out
+
+
+def lanes_card_tests(dev):
+    """7d (t): tests/test_torch_lanes_card.py, the lane kernels' and the
+    cluster lanes' ``cuda`` tests (each against its plain version on the
+    CPU's small cases: both resident plans, the streamed plan, every
+    cluster size, frozen lanes, a budget of 1, broadcast masks), run on the
+    card in a process of their own; a failure, or a test that skips, fails
+    the run."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+           "-q", "-p", "no:cacheprovider", "tests/test_torch_lanes_card.py"]
+    if dev != "cuda":
+        return {"skipped": "no card"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    log(f"# 7d (t) {' '.join(cmd[2:])}: exit {proc.returncode}, "
+        f"{tail[0]} ({secs:.1f} s)")
+    if proc.returncode != 0 or "skipped" in tail[0] or \
+            "passed" not in tail[0]:
+        raise AssertionError(f"7d (t): the lane kernels' card tests: "
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return {"summary": tail[0], "seconds": secs}
+
+
+def cluster_lanes_main_path(dev="cuda") -> dict:
+    """7d (m): the cluster lanes' main path, ``solve_lp_batch`` over
+    LANE_STREAM_LANES LPs of 256 x 256 (258 x 513 frames, past a block's
+    shared memory): the launch counts set to 0 just before it and read
+    just after (one rank1_cluster_lanes launch, no one-block lane_primal
+    launch), every lane optimal and its objective equal to the solo
+    solve's (solve_lp, on rank1_cluster)."""
+    import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+
+    forms = [scenario_form(*dense_leq_arrays(LANE_STREAM_M, LANE_STREAM_N,
+                                             seed=k))
+             for k in range(LANE_STREAM_LANES)]
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    sols = tpulp_torch.solve_lp_batch(forms, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    solo = [tpulp_torch.solve_lp(f, device=dev) for f in forms]
+    bad = [k for k, (a, s) in enumerate(zip(sols, solo))
+           if a.status != "optimal" or a.objective != s.objective]
+    log(f"# 7d (m) solve_lp_batch {LANE_STREAM_LANES} LPs of "
+        f"{LANE_STREAM_M}x{LANE_STREAM_N}: {secs:.3f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; objectives "
+        f"{'equal to the solo solves' if not bad else 'DIFFER'}")
+    if bad:
+        raise AssertionError(f"7d (m): lanes {bad} differ from their solo "
+                             "solves")
+    if dev == "cuda" and (launches.get("rank1_cluster_lanes", 0) < 1
+                          or launches.get("lane_primal", 0) != 0):
+        raise AssertionError(f"7d (m): launches {launches}: the batch must "
+                             "run the cluster lanes and no one-block "
+                             "lane_primal")
+    return {"seconds": secs, "launches": launches}
 
 
 def scenario_form(A, b, c):
@@ -6206,6 +6417,7 @@ def bounded_lane_run(bs, opts, runs: int, plain_runs: int, dev="cuda",
 
     from tpulp_torch.core.state import RULE_DEVEX
     from tpulp_torch.kernels import lane_bounded_plan
+    from tpulp_torch.kernels import lanes as klanes
     from tpulp_torch.solve import lanes
 
     if opts.rule == RULE_DEVEX and bs.gamma is None:
@@ -6224,14 +6436,36 @@ def bounded_lane_run(bs, opts, runs: int, plain_runs: int, dev="cuda",
     err = bounded_lanes_equal(k, p)
     dn = (k.s.niter - bs.s.niter).cpu()
     plan = lane_bounded_plan(M, N, bs.s.T.dtype)
+    # the other resident plans: one warp and 256 threads
+    held = []
+    if plan.resident:
+        for th in (32, 256):
+            bounded_lanes_equal(klanes.lane_bounded(bs, opts, stall,
+                                                    opts.max_iters,
+                                                    threads=th), p)
+            held.append(f"threads {th}")
     statuses = {int(v): int(c) for v, c in
                 zip(*np.unique(k.s.status.cpu().numpy(), return_counts=True))}
     stats = {"lanes": B, "frame": [M, N], "resident": plan.resident,
-             "threads": plan.threads, "smem": plan.smem,
+             "threads": plan.threads, "smem": plan.smem, "held": held,
              "steps": int(dn.max()), "acts": int(dn.sum()),
              "statuses": statuses, "max_abs_err": err, "library_ms": None}
     if not timed:
         return k, stats
+    if dev == "cuda":
+        # block 0's clock by stage (lane 0's steps) and its block barriers
+        cyc = torch.zeros(len(klanes.LANE_STAGES), dtype=torch.int64,
+                          device=dev)
+        klanes.lane_bounded(bs, opts, stall, opts.max_iters,
+                            stage_cycles=cyc)
+        sync(dev)
+        steps0 = max(1, int(p.s.niter[0] - bs.s.niter[0]))
+        vals = dict(zip(klanes.LANE_STAGES, cyc.tolist()))
+        stats["barriers_per_step"] = vals.pop("barriers") / steps0
+        hz = sm_clock_hz()
+        stats["stage_us_per_step"] = {key: 1e6 * v / hz / steps0
+                                      for key, v in vals.items()}
+        stats["lane0_steps"] = steps0
     # a CPU rehearsal times nothing
     timer = cuda_time_ms if dev == "cuda" else lambda fn, runs: None
     stats["ms"] = timer(kernel, runs)
@@ -6291,8 +6525,10 @@ def bounded_lane_cases(dev="cuda"):
     and devex (timed), to a budget of BOX_BUDGET, under a stall limit of 1
     (the Bland switch; to BOX_STALL_BUDGET), with a NaN lane and an
     overflowing |b| sum (both NUMERIC); 10c's span nodes (timed); and
-    BOX_STREAM_LANES box LPs of 258 x 513 (streamed, timed). Then a launch
-    whose plan disagrees with the kernel's byte count is refused."""
+    BOX_STREAM_LANES box LPs of 258 x 513 (streamed, timed). Each resident
+    case is held again on one warp and on 256 threads a block; each timed
+    one gives block 0's stage split. Then a launch whose plan disagrees
+    with the kernel's byte count is refused."""
     import dataclasses as dc
 
     import torch
@@ -6331,10 +6567,16 @@ def bounded_lane_cases(dev="cuda"):
                 ("streamed_devex", wide, devex, False)):
             k, st = bounded_lane_run(bs, o, RUNS, 1, dev, timed)
             cases[label] = st
+            split = "" if "stage_us_per_step" not in st else (
+                "; stages (block 0, us a step) " + ", ".join(
+                    f"{key} {v:.3f}" for key, v in
+                    st["stage_us_per_step"].items())
+                + f", {st['barriers_per_step']:.2f} block barriers a step")
             log(f"# 8b lane_bounded {label} {name}: {st['lanes']} lanes of "
                 f"{tuple(st['frame'])} "
                 f"({'resident' if st['resident'] else 'streamed'}, "
-                f"{st['smem']} bytes), bit for bit the plain loop; "
+                f"{st['threads']} threads a block, {st['smem']} bytes; held "
+                f"too: {st['held']}){split}, bit for bit the plain loop; "
                 f"{st['steps']} steps, {st['acts']} pivots and flips, "
                 f"statuses {st['statuses']}"
                 + ("" if not timed else
@@ -6361,8 +6603,8 @@ def bounded_lane_cases(dev="cuda"):
     if dev == "cuda":
         # a plan whose byte count is not the kernel's: the launch refuses it
         real = klanes.lane_bounded_plan
-        klanes.lane_bounded_plan = lambda M, N, dt: real(M, N, dt)._replace(
-            smem=real(M, N, dt).smem + 16)
+        klanes.lane_bounded_plan = lambda M, N, dt, *a: real(
+            M, N, dt, *a)._replace(smem=real(M, N, dt, *a).smem + 16)
         try:
             bounded_lane_run(box, opts, 1, 1, dev, False)
         except RuntimeError:
@@ -7665,6 +7907,10 @@ def main() -> int:
                     f"{v.get('static_smem')} bytes of static shared memory"
                     for k, v in ptxas.items()
                     if k.startswith("cluster_kernel")))
+    log("# lane_primal (ptxas -v): " + "; ".join(
+        f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} bytes "
+        f"of spills, {v.get('static_smem')} bytes of static shared memory"
+        for k, v in ptxas.items() if k.startswith("lane_primal")))
     log("# lane_bounded (ptxas -v): " + "; ".join(
         f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} bytes "
         f"of spills, {v.get('static_smem')} bytes of static shared memory"
@@ -7862,6 +8108,12 @@ def main() -> int:
                          "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
                          "one block of the fori_loop 272-275)",
                          blocked["grid_launches"]),
+        # the main path: 7d (m)'s solve_lp_batch of 258 x 513 frames
+        "rank1_cluster_lanes": (
+            "tpulp_torch/kernels/csrc/rank1_cluster.cu",
+            "none: XLA's vmapped lax.while_loop over simplex_step "
+            "(tpulp/batch/vmap_driver.py:249-252; tpulp/solve/dual.py:271, "
+            "409, 525, 592)", lane_cases["cluster_main_path"]["launches"]),
     }
     # rank1_step's main path since the grid took every frame a cluster
     # does not hold up to its plan: (x)'s walk past the plan
@@ -8334,14 +8586,24 @@ def main() -> int:
             head = kc["float64"]["box"]
             cases = {f"{case} {dt}": st for dt, by in kc.items()
                      for case, st in by.items()}
+        elif kname == "rank1_cluster_lanes":
+            # the headline: 7d's 8 lanes of 258 x 513, f64, cold; the
+            # other frames past a block's shared memory and (w)'s 128
+            # lanes ride along
+            head = lane_cases["float64"]["streamed_cold"]
+            cases = {f"{case} {dt}": st for dt in ("float64", "float32")
+                     for case, st in lane_cases[dt].items()
+                     if st.get("route") == "cluster"}
+            cases["wide_128 float64"] = lane_cases["float64"]["wide_128"]
         elif kname.startswith("lane_"):
             # the headline: the f64 bench knapsack's warm wave (the dual
             # loop) and cold wave (the primal loop), 128 lanes of 59 x 114
             head = lane_cases["float64"]["knapsack_warm" if kname ==
                                          "lane_dual" else "knapsack_cold"]
             kind = kname[len("lane_"):]
-            cases = {f"{case} {dt}": st for dt, by in lane_cases.items()
-                     for case, st in by.items() if st["kind"] == kind}
+            cases = {f"{case} {dt}": st for dt in ("float64", "float32")
+                     for case, st in lane_cases[dt].items()
+                     if st.get("kind") == kind}
         else:
             # the headline numbers are taken at the main path's own shape;
             # the bench shape's ride along
@@ -8573,6 +8835,23 @@ def main() -> int:
                                     "device_us_per_step", "steps", "acts",
                                     "pivots")})
     kernels[13]["split_8b"] = exact["bounded_batch"]["split"]
+    # the cluster lanes: one launch a batch of frames past a block's shared
+    # memory (7d (m)'s solve_lp_batch, the main path; 7d's 258 x 513 cases)
+    kernels[17].update({key: lane_cases["float64"]["streamed_cold"].get(key)
+                        for key in ("us_per_step", "device_ms",
+                                    "device_us_per_step", "steps", "pivots",
+                                    "stage_us_per_step")})
+    kernels[17]["launches_by_path"] = {
+        f"7d_{case}_{dt}": lane_cases[dt][case]["launches"].get(
+            "rank1_cluster_lanes", 0)
+        for dt in ("float64", "float32") for case in ("streamed_cold",
+                                                      "streamed_warm_cleanup")}
+    kernels[4]["one_block_launches_on_the_cluster_route"] = {
+        f"7d_{case}_{dt}": lane_cases[dt][case]["launches"].get(
+            "lane_primal", 0)
+        for dt in ("float64", "float32") for case in ("streamed_cold",
+                                                      "streamed_warm_cleanup")}
+    kernels[4]["card_tests"] = lane_cases["card_tests"]
     kernels[13]["walk_10c"] = {
         key: batch_mesh["spans"][key] for key in ("walk_seconds", "waves",
                                                   "seconds", "nodes_per_s")}
@@ -8591,7 +8870,9 @@ def main() -> int:
                      (13, "lane_bounded"),
                      (14, tuple(BOUNDED_GRID_KERNELS.values())),
                      (15, tuple(RANK1_GRID_KERNELS.values())),
-                     (16, tuple(BLOCKED_GRID_KERNELS.values()))):
+                     (16, tuple(BLOCKED_GRID_KERNELS.values())),
+                     (17, tuple(v for v in CLUSTER_KERNELS.values()
+                                if v.endswith("primal>")))):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

@@ -341,7 +341,8 @@ def test_launch_counters_stay_zero_on_cpu():
                         "lane_bounded": 0, "bounded_step": 0,
                         "bounded_grid": 0, "bounded_stage": 0,
                         "rank1_step": 0, "rank1_stage": 0,
-                        "rank1_cluster": 0, "rank1_grid": 0,
+                        "rank1_cluster": 0, "rank1_cluster_lanes": 0,
+                        "rank1_grid": 0,
                         "blocked_step": 0, "blocked_ray": 0,
                         "blocked_stage": 0, "blocked_cluster": 0,
                         "blocked_grid": 0,

@@ -4,7 +4,8 @@ against tpulp's vmapped bounded driver at float64, bit for bit.
 On CPU tensors ``bounded_lanes`` runs the plain loop,
 ``bounded_lanes_reference`` (``bounded_simplex_step`` vmapped over the
 lanes); the kernel ``lane_bounded`` of ``kernels/lanes.py`` runs on the
-card only (the ``cuda`` test below, and chip_smoke.py's phase 8b). Every
+card only (tests/test_torch_lanes_card.py, and chip_smoke.py's phase
+8b). Every
 comparison is exact: ``T + 0.0`` (the plain loop steps finished lanes
 with the redirected no-op pivot, which may turn a -0.0 into +0.0), the
 basis, the masks, the at-upper flags, the devex weights and every scalar,
@@ -319,12 +320,12 @@ def test_batch_goes_through_bounded_lanes(monkeypatch):
 
 PLAN_CASES = {
     # 8b's box LPs, 10c's span nodes and 8b's streamed lanes in
-    # chip_smoke.py
-    "box_f64": ((66, 193, torch.float64), (True, 256, 107_888)),
-    "box_f32": ((66, 193, torch.float32), (True, 256, 54_384)),
-    "spans_f64": ((3, 30, torch.float64), (True, 256, 1_584)),
-    "streamed_f64": ((258, 513, torch.float64), (False, 256, 16_928)),
-    "streamed_f32": ((258, 513, torch.float32), (False, 256, 9_760)),
+    # chip_smoke.py: the block from the frame's width (one warp at 3 x 30)
+    "box_f64": ((66, 193, torch.float64), (True, 192, 108_704)),
+    "box_f32": ((66, 193, torch.float32), (True, 192, 54_944)),
+    "spans_f64": ((3, 30, torch.float64), (True, 32, 1_472)),
+    "streamed_f64": ((258, 513, torch.float64), (False, 256, 22_096)),
+    "streamed_f32": ((258, 513, torch.float32), (False, 256, 12_880)),
 }
 
 
@@ -335,13 +336,14 @@ def test_lane_bounded_plan(case):
 
 
 def test_lane_bounded_plan_counts_the_bounded_vectors():
-    """The lane kernels' layout plus the spans and weights in the
-    tableau's type and the at-upper flags in bytes, each 16-byte
-    aligned."""
+    """lane_primal's layout plus the spans and weights in the tableau's
+    type, the at-upper flags in bytes and two snapshot columns of M, each
+    16-byte aligned."""
     for M, N, dt, es in ((66, 193, torch.float64, 8),
                          (9, 17, torch.float32, 4), (3, 30, torch.float64, 8)):
         n = N - 1
-        extra = 2 * ((n * es + 15) // 16 * 16) + (n + 15) // 16 * 16
+        extra = 2 * ((n * es + 15) // 16 * 16) + (n + 15) // 16 * 16 \
+            + 2 * ((M * es + 15) // 16 * 16)
         assert lane_bounded_plan(M, N, dt).smem == \
             lane_plan(M, N, dt).smem + extra
 
@@ -400,41 +402,3 @@ def test_lane_bounded_refusals():
     # CPU tensors go the plain way and never reach the kernel
     lanes.bounded_lanes(tbs, to, 10, 10)
     assert LAUNCHES["lane_bounded"] == 0
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernel against the plain loop
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_lane_bounded_matches_plain_loop(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 8b runs these "
-                    "checks at the main path's shapes)")
-    tt = getattr(torch, dtype)
-    for leaves, kw in ((_phase1_leaves(12), dict(rule=RULE_DEVEX)),
-                       (_box_leaves(range(70, 78)), dict(stall_limit=1,
-                                                         degen_tol=1e300)),
-                       (_span_leaves(), dict(max_iters=4))):
-        _, tbs = _pair(leaves)
-        tbs = BoundedState(
-            s=SimplexState(*(x.to(tt).cuda() if x.is_floating_point()
-                             else x.cuda() for x in tbs.s)),
-            upper=tbs.upper.to(tt).cuda(), at_upper=tbs.at_upper.cuda())
-        to = dataclasses.replace(SolverOptions.for_dtype(tt),
-                                 **{"max_iters": 200, **kw})
-        if to.rule == RULE_DEVEX:
-            tbs = tbs._replace(gamma=torch.ones_like(tbs.upper))
-        stall = to.resolved_stall_limit(tbs.s.T.shape[1] - 2,
-                                        tbs.s.T.shape[2] - 1)
-        k = lanes.bounded_lanes(tbs, to, stall, to.max_iters)
-        p = lanes.bounded_lanes_reference(tbs, to, stall, to.max_iters)
-        torch.cuda.synchronize()
-        _same(_host(k), _host(p))
-
-
-def _host(bs: BoundedState) -> BoundedState:
-    return BoundedState(s=SimplexState(*(x.cpu() for x in bs.s)),
-                        upper=bs.upper.cpu(), at_upper=bs.at_upper.cpu(),
-                        gamma=None if bs.gamma is None else bs.gamma.cpu())

@@ -2,8 +2,8 @@
 vmapped ``lax.while_loop`` at float64, bit for bit.
 
 On CPU tensors ``dual_lanes`` / ``primal_lanes`` run the plain loops; the
-lane kernels of ``kernels/lanes.py`` run on the card only (the ``cuda``
-test below, and chip_smoke.py's phase 7d). Every comparison is exact:
+lane kernels of ``kernels/lanes.py`` run on the card only
+(tests/test_torch_lanes_card.py, and chip_smoke.py's phase 7d). Every comparison is exact:
 ``T + 0.0`` (the plain loops step finished lanes with the no-op unit
 pivot, which may turn a -0.0 into +0.0), the basis, the masks and every
 scalar, NaN equal to NaN. The cases: cold phase-1 batches with artificial
@@ -15,7 +15,6 @@ and contiguous masks; the wave entries (``run_warm_batch``,
 ``run_simplex_batch``) and the ``("batch",)`` mesh's lane loops, which
 all go through them; and the kernels' launch plan."""
 
-import dataclasses
 import types
 
 import jax
@@ -34,8 +33,8 @@ from tpulp_torch.core import SolverOptions, Status
 from tpulp_torch.core.state import (RULE_BLAND, RULE_DANTZIG, RULE_DEVEX,
                                     RULE_MAX_INCREASE, TIE_FIRST, TIE_MAXPIV,
                                     SimplexState, _numpy_state)
-from tpulp_torch.kernels import LAUNCHES, lane_dual, lane_plan, \
-    reset_launches
+from tpulp_torch.kernels import LAUNCHES, lane_dual, lane_dual_plan, \
+    lane_plan, reset_launches
 from tpulp_torch.kernels.lanes import LANE_SMEM_LIMIT
 from tpulp_torch.shard.sharded_batch import LaneMesh
 from tpulp_torch.solve import dual, lanes
@@ -440,7 +439,19 @@ def test_batch_mesh_lane_loops_bit_for_bit(wave):
 
 PLAN_CASES = {
     # the bench knapsack's frames, phase 7c's and 10a's scenarios, and the
-    # streamed case of chip_smoke.py's phase 7d
+    # streamed case of chip_smoke.py's phase 7d: lane_primal's layout (the
+    # frame's n columns at an odd pitch, the RHS and the basis twice) and
+    # its block from the frame's width
+    "knapsack_f64": ((59, 114, torch.float64), (True, 256, 55_520)),
+    "knapsack_f32": ((59, 114, torch.float32), (True, 256, 28_128)),
+    "scenarios_f64": ((66, 193, torch.float64), (True, 192, 104_384)),
+    "streamed_f64": ((258, 513, torch.float64), (False, 256, 9_264)),
+    "streamed_f32": ((258, 513, torch.float32), (False, 256, 6_192)),
+    "small_f64": ((14, 23, torch.float64), (True, 32, 3_072)),
+}
+
+# lane_dual's plan: the frame whole, 256 threads
+DUAL_PLAN_CASES = {
     "knapsack_f64": ((59, 114, torch.float64), (True, 256, 55_696)),
     "knapsack_f32": ((59, 114, torch.float32), (True, 256, 28_112)),
     "scenarios_f64": ((66, 193, torch.float64), (True, 256, 104_624)),
@@ -454,6 +465,12 @@ PLAN_CASES = {
 def test_lane_plan(case):
     (M, N, dt), want = PLAN_CASES[case]
     assert tuple(lane_plan(M, N, dt)) == want
+
+
+@pytest.mark.parametrize("case", DUAL_PLAN_CASES)
+def test_lane_dual_plan(case):
+    (M, N, dt), want = DUAL_PLAN_CASES[case]
+    assert tuple(lane_dual_plan(M, N, dt)) == want
 
 
 def test_lane_plan_resident_up_to_the_limit():
@@ -481,40 +498,3 @@ def test_lane_kernel_refuses_cpu_tensors():
         lane_dual(ts, to, 10, 10)
     lanes.dual_lanes(ts, to, 10, 10)
     assert LAUNCHES["lane_dual"] == LAUNCHES["lane_primal"] == 0
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the lane kernels against the plain loops
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_lane_kernels_match_plain_loops(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 7d runs these "
-                    "checks at the main path's shapes)")
-    tt = getattr(torch, dtype)
-    for leaves, fn, ref_fn, kw in (
-            (_cold_leaves(10), lanes.primal_lanes,
-             lanes.primal_lanes_reference, dict(rule=RULE_MAX_INCREASE,
-                                                tie_break=TIE_MAXPIV)),
-            (_dual_leaves(numeric=True), lanes.dual_lanes,
-             lanes.dual_lanes_reference, dict(stall_limit=2,
-                                              degen_tol=1e300))):
-        _, ts = _pair(leaves)
-        ts = SimplexState(*(x.to(tt) if x.is_floating_point() else x
-                            for x in ts))
-        ts = SimplexState(*(x.cuda() for x in ts))
-        to = dataclasses.replace(SolverOptions.for_dtype(tt), max_iters=200,
-                                 **kw)
-        stall = to.resolved_stall_limit(ts.T.shape[1] - 2,
-                                        ts.T.shape[2] - 1)
-        k = fn(ts, to, stall, to.max_iters)
-        p = ref_fn(ts, to, stall, to.max_iters)
-        torch.cuda.synchronize()
-        for a, b in zip(k, p):
-            a, b = a.cpu(), b.cpu()
-            if a.is_floating_point():
-                assert torch.equal(torch.isnan(a), torch.isnan(b))
-                a, b = a.nan_to_num(0.0) + 0.0, b.nan_to_num(0.0) + 0.0
-            assert torch.equal(a, b)

@@ -12,8 +12,8 @@ exactly. The kernel's sums feed finiteness checks only (the |c| sum in the
 kernel's order, ``cluster_sum``), so the walk does not depend on the
 cluster's size. ``cluster_plan``'s arithmetic, the route rule, the
 wrapper's refusals and the CPU dispatch are held here too. The kernel
-itself runs on the card only (the ``cuda`` test; chip_smoke.py's phase 5c
-holds it at full size)."""
+itself runs on the card only (tests/test_torch_lanes_card.py; chip_smoke.py's
+phase 5c holds it at full size)."""
 
 import math
 
@@ -448,39 +448,3 @@ def test_cpu_walks_never_reach_the_cluster_kernel(monkeypatch):
     sol = tpulp_torch.solve_lp(_wyndor(12), pricing="devex", device="cpu")
     assert sol.objective == 400
     assert not any(LAUNCHES.values())
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernel against its plain version
-# ---------------------------------------------------------------------------
-
-def _on_card(x):
-    return None if x is None else x.cuda()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_rank1_cluster_matches_its_plain_version(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 5c runs these "
-                    "checks at full size)")
-    tt = getattr(torch, dtype)
-    cases = [("primal", i, r) for i in INSTANCES for r in RULES] + \
-        [("dual", i, r) for i in DUAL_INSTANCES for r in DUAL_RULES]
-    for case in cases:
-        state, opts, stall, gamma, dual = case_inputs(*case, tt)
-        M, N = state.T.shape
-        for C in kc.CLUSTER_SIZES:
-            try:
-                kc.cluster_plan(M, N, tt, C)
-            except ValueError:
-                continue
-            for budget in (opts.max_iters, 1):
-                out, g = kc.rank1_cluster(
-                    type(state)(*(x.cuda() for x in state)), opts, stall,
-                    budget, _on_card(gamma), dual, blocks=C)
-                ref, rg = kc.rank1_cluster_reference(state, opts, stall,
-                                                     budget, gamma, dual, C)
-                torch.cuda.synchronize()
-                assert_same(type(out)(*(x.cpu() for x in out)), ref,
-                            None if g is None else g.cpu(), rg)

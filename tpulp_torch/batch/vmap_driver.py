@@ -4,7 +4,9 @@ The counterpart of ``tpulp.batch.vmap_driver``. A batched
 ``SimplexState`` carries a leading lane axis on every field;
 ``run_simplex_batch`` runs every lane's rank-1 loop to its own exit
 (``solve.lanes.primal_lanes``: on the card one launch of the lane kernel,
-a block per lane; on the CPU the rank-1 step vmapped over the lanes, each
+a block per lane, or past a block's shared memory of the cluster lanes, a
+thread-block cluster per lane; on the CPU the rank-1 step vmapped over the
+lanes, each
 lane frozen once it leaves RUNNING or reaches the budget), so lanes with
 different pivot counts share one call. Problems of
 different shapes are padded to one shape: each padded row gets its own

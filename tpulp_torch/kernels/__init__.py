@@ -10,8 +10,8 @@ from .bounded import bounded_stage, bounded_steps
 # the module, not its wrapper of the same name: bounded_grid.bounded_grid
 from .bounded_grid import bounded_grid_plan
 from .fma import fused_fma
-from .lanes import (lane_bounded, lane_bounded_plan, lane_dual, lane_plan,
-                    lane_primal)
+from .lanes import (lane_bounded, lane_bounded_plan, lane_dual, lane_dual_plan,
+                    lane_plan, lane_primal)
 from .launch import LAUNCHES, reset_launches
 from .rank1 import rank1_stage, rank1_steps
 # the module, not its wrapper of the same name: rank1_cluster.rank1_cluster
@@ -31,6 +31,7 @@ __all__ = [
     "lane_dual",
     "lane_primal",
     "lane_plan",
+    "lane_dual_plan",
     "lane_bounded",
     "lane_bounded_plan",
     "bounded_steps",

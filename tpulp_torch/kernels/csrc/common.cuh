@@ -1,8 +1,9 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
 // fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu, rank1_cluster.cu and,
-// through grid.cuh, bounded_grid.cu and rank1_grid.cu): the grid barrier
-// and the order-preserving keys of the cooperative kernels (inner_block.cu
-// and the grid walks), exact-rounding arithmetic, the (value, index)
+// through grid.cuh, the grid walks): the grid barrier and the
+// order-preserving keys of the cooperative kernels (inner_block.cu, the
+// grid walks, lanes.cu's lane_primal and lane_bounded) with a warp's share
+// of a reduction by keys, exact-rounding arithmetic, the (value, index)
 // comparison whose ties go to the smallest index, the block-wide
 // reductions of the single-block simplex loops
 // (lanes.cu, bounded.cu, rank1.cu, blocked.cu): torch's NaN-first
@@ -227,6 +228,23 @@ __device__ Red<V> block_reduce(Red<V> x, Red<V>* scratch, bool mx) {
   }
   __syncthreads();
   return scratch[32];
+}
+
+// A warp's share of a block reduction by keys (okey and warp_arg: a few
+// redux.sync instructions a pick): up to two (key, index) picks, two first
+// indices and a sum (grid.cuh's key reductions; lanes.cu's).
+template <typename T>
+struct KeyRed {
+  typename KeyOf<T>::type k1, k2;
+  unsigned i1, i2, u1, u2;
+  T s;
+};
+
+// The warp's shuffle tree of block_reduce's sums: the sum in lane 0.
+template <typename T>
+__device__ __forceinline__ T warp_tree_sum(T s) {
+  for (int off = 16; off > 0; off >>= 1) s = add_rn(s, __shfl_down_sync(FULL, s, off));
+  return s;
 }
 
 // ---------------------------------------------------------------------------

@@ -89,16 +89,6 @@ __device__ __forceinline__ void post(Mail<T>* mb, const Red<T>& c, T gmax, int f
   mb->flags = flags;
 }
 
-// A warp's share of a block reduction by keys (common.cuh's okey and
-// warp_arg: a few redux.sync instructions a pick): up to two (key, index)
-// picks, two first indices and a sum.
-template <typename T>
-struct KeyRed {
-  typename KeyOf<T>::type k1, k2;
-  unsigned i1, i2, u1, u2;
-  T s;
-};
-
 // The sum of a block's values in common.cuh's block_reduce's tree (the
 // warp's shuffle tree, then the same over the warps' sums padded to 32),
 // from the warps' sums in sh; to every lane.
@@ -108,12 +98,6 @@ __device__ __forceinline__ T warps_sum(const KeyRed<T>* sh) {
   T s = lane < WARPS ? sh[lane].s : T(0);
   for (int off = 16; off > 0; off >>= 1) s = add_rn(s, __shfl_down_sync(FULL, s, off));
   return __shfl_sync(FULL, s, 0);
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_tree_sum(T s) {
-  for (int off = 16; off > 0; off >>= 1) s = add_rn(s, __shfl_down_sync(FULL, s, off));
-  return s;
 }
 
 // common.cuh's block_reduce of a Red by keys, returned to every thread:

@@ -11,60 +11,77 @@
 // ``jax.jit(jax.vmap(_compiled_bounded_driver))`` over
 // ``bounded_simplex_step`` (tpulp/solve/bounded.py: 308-330 the batch,
 // 86-275 the step), which solve_lp_batch(simple_bounds=True) and the
-// span-encoded branch-and-bound (milp/spans.py) run. The port ran them as
-// eager vmapped steps of 100-250 small kernels each (the bounded step's
-// pivot and flip two FMA launches), with a host read of "any lane
-// running" before every chunk of steps.
+// span-encoded branch-and-bound (milp/spans.py) run.
 //
-// What bounds it on the H100: the chain of dependent block-wide
-// reductions in every step (the leaving row, the entering column, the
-// pivot, the finiteness sums), each a few __syncthreads; the bytes (each
-// lane's frame read and written once) are microseconds of the card's
-// rate. The lanes are independent and small (a 59 x 114 f64 frame is
-// 53.8 KB), so one block owns one lane: no grid barrier and no cooperative
-// launch.
+// What bounds it on the H100: the chain of dependent block-wide decisions
+// in every step (the entering column, the leaving row, the pivot, the
+// finiteness sums); the bytes (each lane's frame read and written once)
+// are microseconds of the card's rate. The lanes are independent and
+// small (a 59 x 114 f64 frame is 53.8 KB), so one block owns one lane: no
+// grid barrier and no cooperative launch.
 //
-// Design: block b loads lane b's frame, its basis and masks, and its
-// scalars (phase, status, niter, stuck, bland, last_z), then steps while
-// status == RUNNING and niter < max_iters, and writes the lane back once.
-// Every step pivots, retires an artificial, changes phase, or leaves
-// RUNNING, so the budget bounds the launch. With RESIDENT the frame lives
-// in dynamic shared memory; otherwise the block works on its output frame
-// in device memory (through L2), with the same code. Each step is the
-// plain step's statement for statement: first-index ties in every
-// (value, index) reduction, NaN-propagating argmin/argmax as torch's
-// (the first NaN wins), comparisons in the tableau's type against the
-// tolerances rounded to it, IEEE division and one rounding per product,
-// and the pivot as the plain version computes it: prow = row * (1 / piv),
-// fma(-col[i], prow[k], T[i, k]), row r set to prow, column j to the unit
-// vector. The scalars are held by every thread alike (each computes them
-// from the same reduction results); the finiteness sums are added in a
-// fixed order (per thread, then the warp tree, then across warps) in the
-// tableau's type. The block reductions (Red, offer, block_reduce,
-// finite_val) live in common.cuh, which bounded.cu shares.
+// Each step is the plain step's statement for statement: first-index ties
+// in every (value, index) reduction, NaN-propagating argmin/argmax as
+// torch's (the first NaN wins), comparisons in the tableau's type against
+// the tolerances rounded to it, IEEE division and one rounding per
+// product, and the pivot as the plain version computes it: prow = row *
+// (1 / piv), fma(-col[i], prow[k], T[i, k]), row r set to prow, column j
+// to the unit vector. The scalars are held by every thread alike (each
+// computes them from the same reduction results). Block b loads lane b's
+// frame, basis, masks and scalars, steps while status == RUNNING and niter
+// < max_iters (every step pivots, retires an artificial, changes phase, or
+// leaves RUNNING, so the budget bounds the launch), and writes the lane
+// back once; with RESIDENT the frame lives in dynamic shared memory,
+// otherwise the block works on its output frame in device memory (through
+// L2), with the same code.
 //
-// lane_bounded_kernel steps bounded_simplex_step (solve/bounded.py) the
-// same way: the clean-up scan and the retire; Dantzig or devex pricing
-// (c^2 / gamma over the improving columns) with the Bland switch, every
-// other rule priced as Dantzig; the three-way ratio test (a lower hit, then
-// an upper hit, then the entering flip on exact ties; the first or Bland's
-// smallest basic index among the winning kind's ties); one pivot; the devex
-// update and its two resets; one column flip (the RHS fma(-Tn[i, fcol], uf,
-// Tn[i, -1]) with one rounding, then the column negated); the stall
-// counter, the Bland switch, the finiteness sums and the status. Its
-// pricing and ratio test are bounded.cu's (common.cuh: bounded_price,
-// bounded_ratio). The spans, the at-upper flags and the devex weights sit
-// in shared memory beside the lane's vectors, resident or not. After the
-// pivot's barrier the thread that owns row i updates T[i, -1] and
-// T[i, fcol], so the flip needs no snapshot. Like bounded.cu it skips the
-// plain step's redirected pivot on (row 2, basis[0]) where that is an
-// exact no-op (it could change only a zero's sign); elsewhere it runs it.
-// What bounds it is the same chain of reductions: a step makes the clean-up
-// scan, the price, the two minima, the tie pick and the post-step sums
-// (plus the no-op check on a step that does not pivot), six or seven
-// block reductions of two barriers each, and three or four more barriers
-// around the pivot and the flip; the bytes are each frame read and written
-// once a launch (256 lanes of 66 x 193 f64: 0.016 ms at 3.35 TB/s).
+// lane_dual_kernel (solve/dual.py::dual_simplex_step) reduces with
+// common.cuh's block_reduce (two barriers a reduction; 256 threads).
+//
+// lane_primal_kernel (solve/driver.py::simplex_step) and
+// lane_bounded_kernel (solve/bounded.py::bounded_simplex_step) take one
+// barrier a decision:
+// - Key reductions (common.cuh's okey and warp_arg over redux.sync: the
+//   sequential argmin exactly, NaN first, ties to the first index) into
+//   scratch owned by each call site; on a block of one warp no block
+//   barrier at all. The finiteness sums are taken in block_reduce's tree
+//   only where a term is near the overflow (otherwise finite in any
+//   order).
+// - The update has no barrier before it: each thread pivots its own
+//   columns (k = its slot, slot + slots, ...; it reads its pivot-row entry
+//   before it writes, and where the block's threads cover the columns
+//   twice two lanes of one warp split a column's rows), and the thread of
+//   row i writes that row's RHS into the other of two RHS buffers, its
+//   basis entry into the other of two basis buffers, and adds |b| and the
+//   first artificial row for the next step. The next step's price pass
+//   (each column by the lane that updated its first rows) and those row
+//   partials go into one reduction, after which the previous step's
+//   objective, stall counter and status are finished: a Dantzig step
+//   passes two block barriers.
+// - The frame's n columns sit at an odd row pitch, the RHS and the pivot's
+//   column in vectors of their own, so that a warp reading a column (a
+//   thread a row) meets every bank once.
+// - A block has 32 to 256 threads from the frame's width
+//   (kernels/lanes.py::lane_threads), so 10c's 3 x 30 nodes run one warp.
+//
+// lane_bounded_kernel steps the bounded step the same way: the clean-up
+// and the retire; Dantzig or devex pricing (c^2 / gamma over the improving
+// columns; the pass also prices under unit weights, for the previous
+// step's reset on its largest weight, which that step leaves pending) with
+// the Bland switch, every other rule priced as Dantzig; the three-way
+// ratio test (a lower hit, then an upper hit, then the entering flip on
+// exact ties; the winning kind's first index, or Bland's smallest basic
+// index among its ties) with its two minima in one reduction; one pivot;
+// the devex update and its two resets; one column flip (the RHS
+// fma(-Tn[i, fcol], uf, Tn[i, -1]) with one rounding, then the column
+// negated). While every basic column is the unit vector on its row (as
+// bounded_grid.cu keeps it: checked at the launch, kept by every pivot
+// whose column and 1 / pivot are finite) the flip's column and basis[0]'s
+// are known without a read, so the row's thread computes its RHS whole;
+// otherwise the rows snapshot both columns behind a barrier. Like
+// bounded.cu it skips the plain step's redirected pivot on (row 2,
+// basis[0]) where that is an exact no-op (it could change only a zero's
+// sign); elsewhere it runs it.
 
 #include "common.cuh"
 
@@ -94,6 +111,8 @@ enum BoundedPtr {
   A_UPPER = A_NARGS, A_AT_IN, A_AT_OUT, A_GAMMA_IN, A_GAMMA_OUT, A_ST_UPPER, A_ST_AT,
   A_ST_GAMMA, A_BNARGS
 };
+// then (every kind; lane_dual ignores it) block 0's stage clock, or null
+enum ClockPtr { A_CYCLES = A_BNARGS, A_ALLARGS };
 enum LaneInt { I_B, I_M, I_N, I_STALL, I_MAXIT, I_RULE, I_TIE, I_RESIDENT, I_THREADS, I_SMEM, I_NINTS };
 enum LaneTol { D_OPT, D_PIV, D_DEGEN, D_INFEAS, D_FEAS, D_NTOLS };
 
@@ -121,6 +140,7 @@ struct LaneParams {
   T* lastz_out;
   long long st_T, st_basis, st_act, st_art, st_phase, st_status, st_niter, st_stuck, st_bland,
       st_lastz;
+  long long* cycles;  // (S_NSTAGES,) lane_primal / lane_bounded: block 0's clock, or null
   int M, N, stall_limit, max_iters, rule, tie;
   // the tolerances rounded to T: the plain step compares T tensors with
   // Python floats, which torch rounds to the tensor's type
@@ -138,14 +158,6 @@ __host__ __device__ __forceinline__ long long lane_smem_bytes(int M, int N, bool
                     align16(4 * m) + 2 * align16(n);
   if (resident) bytes += align16((long long)M * N * sizeof(T));
   return bytes;
-}
-
-// A bounded lane's shared memory: the lane's, then the spans and the devex
-// weights (n of T each) and the at-upper flags (n bytes).
-template <typename T>
-__host__ __device__ __forceinline__ long long bounded_lane_smem_bytes(int M, int N, bool resident) {
-  const long long n = N - 1;
-  return lane_smem_bytes<T>(M, N, resident) + 2 * align16(n * (long long)sizeof(T)) + align16(n);
 }
 
 template <typename T>
@@ -338,117 +350,701 @@ __global__ void __launch_bounds__(LANE_MAX_THREADS) lane_dual_kernel(LaneParams<
 }
 
 // ---------------------------------------------------------------------------
+// lane_primal and lane_bounded: one barrier a decision
+// ---------------------------------------------------------------------------
+
+constexpr int LANE_MAX_WARPS = LANE_MAX_THREADS / 32;
+// the stages that ``cycles`` splits a launch into (block 0's clock; summed
+// over the steps), then the block barriers block 0 passed: the load; a
+// step's price pass and its reduction (with the pending step's finish);
+// the clean-up pass, the ratio test and the ties; the update; the store
+enum WalkStage { S_LOAD, S_PRICE, S_RATIO, S_UPDATE, S_STORE, S_BARRIERS, S_NSTAGES };
+
+// The block's barrier: a warp's where the block is one warp (its threads
+// then need no block barrier, only the warp's memory order).
+__device__ __forceinline__ void block_sync() {
+  if (blockDim.x <= 32)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// The row pitch of a resident frame's n columns: n rounded up to an odd
+// number, so that a warp reading a column (a thread a row) meets every
+// bank once.
+__host__ __device__ __forceinline__ int walk_pitch(int N) { return (N - 1) | 1; }
+
+// The dynamic shared memory of a primal or bounded lane (kernels/lanes.py's
+// lane_plan and lane_bounded_plan count the same bytes), each segment
+// 16-byte aligned: [the frame's n columns at walk_pitch (RESIDENT)], the
+// RHS twice (a step reads one and writes the other), the pivot's column,
+// the basis twice, the active and the artificial masks; a bounded lane's
+// then the spans and the devex weights (n of T each), the at-upper flags
+// (n bytes) and two columns of M (basis[0]'s and the flip's, snapshotted
+// where a basic column is not a unit vector).
+template <typename T>
+__host__ __device__ __forceinline__ long long walk_smem_bytes(int M, int N, bool resident,
+                                                             bool bounded) {
+  const long long m = M - 2, n = N - 1, es = sizeof(T);
+  long long bytes = 3 * align16(M * es) + 2 * align16(4 * m) + 2 * align16(n);
+  if (bounded) bytes += 2 * align16(n * es) + align16(n) + 2 * align16(M * es);
+  if (resident) bytes += align16((long long)M * walk_pitch(N) * es);
+  return bytes;
+}
+
+template <typename T>
+struct Walk {
+  T* tab;     // the frame's n columns: shared memory (RESIDENT) or the output
+              // in device memory (its column N - 1 written at the end)
+  int pitch;  // the frame's row pitch in elements
+  T* rhs[2];
+  T* colv;
+  int* basis[2];
+  unsigned char* act;
+  unsigned char* art;
+  T* upper;  // bounded only
+  T* gamma;
+  unsigned char* at;
+  T* colb;
+  T* colf;
+};
+
+template <typename T, bool RESIDENT>
+__device__ Walk<T> walk_layout(const LaneParams<T>& p, unsigned char* dyn, bool bounded) {
+  Walk<T> L;
+  const long long M = p.M, m = p.M - 2, n = p.N - 1, es = sizeof(T);
+  long long off = 0;
+  if (RESIDENT) {
+    L.tab = (T*)dyn;
+    L.pitch = walk_pitch(p.N);
+    off = align16(M * L.pitch * es);
+  } else {
+    L.tab = p.T_out + (long long)blockIdx.x * M * p.N;
+    L.pitch = p.N;
+  }
+  for (int q = 0; q < 2; ++q) {
+    L.rhs[q] = (T*)(dyn + off);
+    off += align16(M * es);
+  }
+  L.colv = (T*)(dyn + off);
+  off += align16(M * es);
+  for (int q = 0; q < 2; ++q) {
+    L.basis[q] = (int*)(dyn + off);
+    off += align16(4 * m);
+  }
+  L.act = dyn + off;
+  off += align16(n);
+  L.art = dyn + off;
+  off += align16(n);
+  L.upper = L.gamma = L.colb = L.colf = nullptr;
+  L.at = nullptr;
+  if (bounded) {
+    L.upper = (T*)(dyn + off);
+    off += align16(n * es);
+    L.gamma = (T*)(dyn + off);
+    off += align16(n * es);
+    L.at = dyn + off;
+    off += align16(n);
+    L.colb = (T*)(dyn + off);
+    off += align16(M * es);
+    L.colf = (T*)(dyn + off);
+  }
+  return L;
+}
+
+// The lane's frame (a warp a row: its n columns, and column N - 1 into the
+// first RHS), basis and masks from the inputs; the caller's barrier follows.
+template <typename T>
+__device__ void load_walk(const LaneParams<T>& p, const Walk<T>& L) {
+  const long long lane = blockIdx.x;
+  const int M = p.M, N = p.N, m = M - 2, n = N - 1;
+  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const T* src = p.T_in + lane * p.st_T;
+  for (int i = warp; i < M; i += nw) {
+    const T* row = src + (long long)i * N;
+    T* dst = L.tab + (long long)i * L.pitch;
+    for (int k = ln; k < n; k += 32) dst[k] = row[k];
+    if (ln == 0) L.rhs[0][i] = row[N - 1];
+  }
+  for (int i = threadIdx.x; i < m; i += blockDim.x) L.basis[0][i] = p.basis_in[lane * p.st_basis + i];
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    L.act[k] = p.act_in[lane * p.st_act + k] != 0;
+    L.art[k] = p.art_in[lane * p.st_art + k] != 0;
+  }
+}
+
+// The frame (RESIDENT: all of it; else its RHS column), the basis and the
+// masks back to the outputs (the masks a thread its columns, as it owns
+// them in the steps).
+template <typename T, bool RESIDENT>
+__device__ void store_walk(const LaneParams<T>& p, const Walk<T>& L, int cur) {
+  const long long lane = blockIdx.x;
+  const int M = p.M, N = p.N, m = M - 2, n = N - 1;
+  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  T* dst = p.T_out + lane * M * N;
+  for (int i = warp; i < M; i += nw) {
+    if (RESIDENT) {
+      const T* row = L.tab + (long long)i * L.pitch;
+      for (int k = ln; k < n; k += 32) dst[(long long)i * N + k] = row[k];
+    }
+    if (ln == 0) dst[(long long)i * N + N - 1] = L.rhs[cur][i];
+  }
+  for (int i = threadIdx.x; i < m; i += blockDim.x) p.basis_out[lane * m + i] = L.basis[cur][i];
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    p.act_out[lane * n + k] = L.act[k];
+    p.art_out[lane * n + k] = L.art[k];
+  }
+}
+
+// Block 0's clock by WalkStage when the caller asks for it (thread 0 adds
+// the cycles since its last lap to the stage) and the barriers it passed.
+struct WalkClock {
+  bool on;
+  long long last;
+  long long cyc[S_NSTAGES];
+};
+
+__device__ __forceinline__ void walk_lap(WalkClock* t, int stage) {
+  if (!t->on || threadIdx.x != 0) return;
+  const long long now = clock64();
+  t->cyc[stage] += now - t->last;
+  t->last = now;
+}
+
+__device__ __forceinline__ void walk_bar(WalkClock* t) {
+  if (t->on && threadIdx.x == 0) t->cyc[S_BARRIERS] += 1;
+}
+
+// A thread's share of a step's first reduction (and the block's result):
+// the pick (v1, i1) and, under devex, the pick under unit weights (v2,
+// i2); the first improving column (a); the pricing row's |c| sum over the
+// active columns (sc); beside them the previous update's partials: the
+// first row whose basic column is artificial (r), the |b| sum (sb), the
+// devex weights' NaN-first maximum (g) and the first non-finite entry of
+// row 2 (f, n for its RHS).
+template <typename T>
+struct StepRed {
+  T v1, v2, g, sc, sb;
+  int i1, i2;
+  unsigned a, r, f;
+  unsigned big;  // a |c| term (1) or a |b| term (2) not below sum_safe
+};
+
+template <typename T>
+struct StepKeys {
+  typename KeyOf<T>::type k1, k2, kg;
+  unsigned i1, i2, a, r, f, big;
+  T sc, sb;
+};
+
+// The sums feed finiteness checks only. Below this bound every term keeps
+// a sum of at most 2^24 of them finite in any order, so block_reduce's sum
+// is finite; a term at or above it (or not finite) makes the block take
+// the sum in block_reduce's tree, behind a second barrier.
+template <typename T> __device__ __forceinline__ T sum_safe();
+template <> __device__ __forceinline__ float sum_safe<float>() { return FLT_MAX / 1073741824.0f; }
+template <> __device__ __forceinline__ double sum_safe<double>() { return DBL_MAX / 1073741824.0; }
+
+template <typename T>
+__device__ __forceinline__ T add_term(T s, T v, unsigned& big, unsigned bit) {
+  const T a = T(fabs(v));
+  if (!(a < sum_safe<T>())) big |= bit;
+  return add_rn(s, a);
+}
+
+template <typename T>
+__device__ __forceinline__ StepRed<T> step_identity(bool mx) {
+  StepRed<T> x;
+  x.v1 = x.v2 = mx ? -pos_inf<T>() : pos_inf<T>();
+  x.i1 = x.i2 = BIG_I;
+  x.g = -pos_inf<T>();
+  x.sc = x.sb = T(0);
+  x.a = x.r = x.f = NO_IDX;
+  x.big = 0;
+  return x;
+}
+
+// torch's argmin (mx false) / argmax (mx true) as offer takes it
+template <typename T>
+__device__ __forceinline__ void pick_vi(T& v, int& i, T yv, int yi, bool mx) {
+  const bool xn = is_nan(v), yn = is_nan(yv);
+  const bool take = (xn || yn) ? yn && (!xn || yi < i) : (mx ? yv > v : yv < v) || (yv == v && yi < i);
+  if (take) {
+    v = yv;
+    i = yi;
+  }
+}
+
+// The block's StepRed, to every thread, by keys (common.cuh's okey and
+// warp_arg) behind one barrier. sh (a slot a warp) is this call site's
+// own. BOUNDED adds the second pick (under devex only), the weights'
+// maximum and row 2's flag. A block of one warp has its result after the
+// warp's own reductions. The sums: 0 where every term was below sum_safe
+// (then block_reduce's sums are finite), else block_reduce's (the warp's
+// tree, then the same over the warps' sums padded to 32).
+template <typename T, bool BOUNDED>
+__device__ StepRed<T> step_reduce(const StepRed<T>& x, bool mx, bool devex, StepKeys<T>* sh) {
+  using K = typename KeyOf<T>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  K k1 = okey(x.v1, mx), k2 = 0, kg = 0;
+  unsigned i1 = (unsigned)x.i1, i2 = NO_IDX, ig = 0, f = NO_IDX;
+  warp_arg(k1, i1, mx);
+  if (BOUNDED) {
+    if (devex) {
+      k2 = okey(x.v2, mx);
+      i2 = (unsigned)x.i2;
+      warp_arg(k2, i2, mx);
+    }
+    kg = okey(x.g, true);
+    warp_arg(kg, ig, true);
+    f = __reduce_min_sync(FULL, x.f);
+  }
+  unsigned a = __reduce_min_sync(FULL, x.a), r = __reduce_min_sync(FULL, x.r),
+           big = __reduce_or_sync(FULL, x.big);
+  if (nw > 1) {
+    if (lane == 0) {
+      StepKeys<T>& s = sh[warp];
+      s.k1 = k1;
+      s.k2 = k2;
+      s.kg = kg;
+      s.i1 = i1;
+      s.i2 = i2;
+      s.a = a;
+      s.r = r;
+      s.f = f;
+      s.big = big;
+    }
+    __syncthreads();
+    const bool in = lane < nw;
+    const K lose = mx ? K(0) : ~K(0);
+    k1 = in ? sh[lane].k1 : lose;
+    i1 = in ? sh[lane].i1 : NO_IDX;
+    warp_arg(k1, i1, mx);
+    if (BOUNDED) {
+      if (devex) {
+        k2 = in ? sh[lane].k2 : lose;
+        i2 = in ? sh[lane].i2 : NO_IDX;
+        warp_arg(k2, i2, mx);
+      }
+      kg = in ? sh[lane].kg : K(0);
+      ig = 0;
+      warp_arg(kg, ig, true);
+      f = __reduce_min_sync(FULL, in ? sh[lane].f : NO_IDX);
+    }
+    a = __reduce_min_sync(FULL, in ? sh[lane].a : NO_IDX);
+    r = __reduce_min_sync(FULL, in ? sh[lane].r : NO_IDX);
+    big = __reduce_or_sync(FULL, in ? sh[lane].big : 0u);
+  } else {
+    __syncwarp();
+  }
+  StepRed<T> out;
+  out.sc = out.sb = T(0);
+  if (big) {
+    // a term near the overflow or not finite: the sums in block_reduce's
+    // tree (the block's flag is the same in every thread)
+    T sc = warp_tree_sum(x.sc), sb = warp_tree_sum(x.sb);
+    if (nw > 1) {
+      if (lane == 0) {
+        sh[warp].sc = sc;
+        sh[warp].sb = sb;
+      }
+      __syncthreads();
+      const bool in = lane < nw;
+      sc = warp_tree_sum(in ? sh[lane].sc : T(0));
+      sb = warp_tree_sum(in ? sh[lane].sb : T(0));
+    } else {
+      // block_reduce's second level over one warp's sum: s + 0 + ... + 0
+      sc = add_rn(sc, T(0));
+      sb = add_rn(sb, T(0));
+    }
+    out.sc = __shfl_sync(FULL, sc, 0);
+    out.sb = __shfl_sync(FULL, sb, 0);
+  }
+  out.v1 = key_value(k1, mx);
+  out.i1 = (int)i1;
+  out.v2 = BOUNDED && devex ? key_value(k2, mx) : out.v1;
+  out.i2 = BOUNDED && devex ? (int)i2 : out.i1;
+  out.g = BOUNDED ? key_value(kg, true) : -pos_inf<T>();
+  out.a = a;
+  out.r = r;
+  out.f = f;
+  out.big = big;
+  return out;
+}
+
+// One NaN-first argmin / argmax pick (PICK) and one first index u over the
+// block by keys, to every thread; one barrier (none on one warp), sh this
+// call site's own.
+template <typename T, bool PICK>
+__device__ void pick_reduce(T& v, int& i, bool mx, unsigned& u, KeyRed<T>* sh) {
+  using K = typename KeyOf<T>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  K k = 0;
+  unsigned j = NO_IDX;
+  if (PICK) {
+    k = okey(v, mx);
+    j = (unsigned)i;
+    warp_arg(k, j, mx);
+  }
+  u = __reduce_min_sync(FULL, u);
+  if (nw > 1) {
+    if (lane == 0) {
+      sh[warp].k1 = k;
+      sh[warp].i1 = j;
+      sh[warp].u1 = u;
+    }
+    __syncthreads();
+    const bool in = lane < nw;
+    if (PICK) {
+      k = in ? sh[lane].k1 : (mx ? K(0) : ~K(0));
+      j = in ? sh[lane].i1 : NO_IDX;
+      warp_arg(k, j, mx);
+    }
+    u = __reduce_min_sync(FULL, in ? sh[lane].u1 : NO_IDX);
+  } else {
+    __syncwarp();
+  }
+  if (PICK) {
+    v = key_value(k, mx);
+    i = (int)j;
+  }
+}
+
+// Two NaN-first argmins and a first index over the block by keys, to every
+// thread: key_pick2 with a flag (u) beside it; one barrier (none on one
+// warp).
+template <typename T>
+__device__ void pick2_flag(T& v1, int& i1, T& v2, int& i2, unsigned& u, KeyRed<T>* sh) {
+  using K = typename KeyOf<T>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  K k1 = okey(v1, false), k2 = okey(v2, false);
+  unsigned j1 = (unsigned)i1, j2 = (unsigned)i2;
+  warp_arg(k1, j1, false);
+  warp_arg(k2, j2, false);
+  u = __reduce_min_sync(FULL, u);
+  if (nw > 1) {
+    if (lane == 0) {
+      sh[warp].k1 = k1;
+      sh[warp].k2 = k2;
+      sh[warp].i1 = j1;
+      sh[warp].i2 = j2;
+      sh[warp].u1 = u;
+    }
+    __syncthreads();
+    const bool in = lane < nw;
+    k1 = in ? sh[lane].k1 : ~K(0);
+    k2 = in ? sh[lane].k2 : ~K(0);
+    j1 = in ? sh[lane].i1 : NO_IDX;
+    j2 = in ? sh[lane].i2 : NO_IDX;
+    warp_arg(k1, j1, false);
+    warp_arg(k2, j2, false);
+    u = __reduce_min_sync(FULL, in ? sh[lane].u1 : NO_IDX);
+  } else {
+    __syncwarp();
+  }
+  v1 = key_value(k1, false);
+  v2 = key_value(k2, false);
+  i1 = (int)j1;
+  i2 = (int)j2;
+}
+
+__device__ __forceinline__ bool block_or(bool v) {
+  if (blockDim.x <= 32) return __any_sync(FULL, v);
+  return __syncthreads_or(v) != 0;
+}
+
+// The row slices of a column: where the block's threads cover the
+// frame's n columns twice, a column's rows split over two lanes of one
+// warp, lanes l and l + 16 (so that each half-warp still reads 16
+// consecutive columns of a row: one f64 wavefront, no bank conflict). A
+// thread takes column slot s (its warp's 16 or 32 slots) and rows rs, rs +
+// R, ...; the slot's columns are k = s, s + slots, ... and its first lane
+// owns their masks, spans and weights.
+struct Slices {
+  int R, slot, slots, rs;
+  unsigned mask;  // the slot's lanes
+};
+
+__device__ __forceinline__ Slices row_slices(int n) {
+  Slices s;
+  const int nt = blockDim.x, ln = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  s.R = nt / 2 >= n ? 2 : 1;
+  const int per = 32 / s.R;  // a warp's slots
+  s.slot = warp * per + ln % per;
+  s.slots = nt / s.R;
+  s.rs = ln / per;
+  s.mask = s.R == 2 ? (1u << (ln % per)) | (1u << (ln % per + per)) : 1u << ln;
+  return s;
+}
+
+// Column k of the frame (entries col[i * P]) after the pivot on row rg,
+// rows rs, rs + R, ... of it: row rg set to pk (its entry times 1 / pivot,
+// which every lane of the column read first), the others fma(-cp[i], pk,
+// T[i, k]) with cp the pivot's pre-step column (null: e_2, the unit vector
+// of a redirected pivot on a unit column); eight rows at a time, their
+// loads issued before any store.
+template <typename T, int R>
+__device__ __forceinline__ void pivot_rows(T* __restrict__ col, int P, int M, int rg, T pk,
+                                           const T* __restrict__ cp, int rs) {
+  constexpr int U = 8;
+  int i = rs;
+  for (; i + (U - 1) * R < M; i += U * R) {
+    T v[U], c[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = i + u * R;
+      v[u] = col[(long long)r * P];
+      c[u] = cp ? cp[r] : T(r == 2);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = i + u * R == rg ? pk : fma(-c[u], pk, v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) col[(long long)(i + u * R) * P] = v[u];
+  }
+  for (; i < M; i += R) {
+    T* e = col + (long long)i * P;
+    const T c = cp ? cp[i] : T(i == 2);
+    *e = i == rg ? pk : fma(-c, pk, *e);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void pivot_column(T* col, int P, int M, int rg, T pk, const T* cp,
+                                             const Slices& sl) {
+  if (sl.R == 2)
+    pivot_rows<T, 2>(col, P, M, rg, pk, cp, sl.rs);
+  else
+    pivot_rows<T, 1>(col, P, M, rg, pk, cp, 0);
+}
+
+// The first column eligible for the clean-up's pivot on row r_d (active,
+// not artificial, |T[r_d + 2, k]| > piv_tol), NO_IDX if none; one
+// reduction (sh this call site's own).
+template <typename T>
+__device__ unsigned cleanup_column(const Walk<T>& L, int r_d, int n, T piv_tol, KeyRed<T>* sh) {
+  const T* rowd = L.tab + (long long)(r_d + 2) * L.pitch;
+  unsigned e = NO_IDX;
+  for (int k = threadIdx.x; k < n; k += blockDim.x)
+    if (L.act[k] && !L.art[k] && T(fabs(rowd[k])) > piv_tol) e = min(e, (unsigned)k);
+  T ev = T(0);
+  int ei = 0;
+  pick_reduce<T, false>(ev, ei, false, e, sh);
+  return e;
+}
+
+// This thread's rows' partials of the loaded state (the first RHS and
+// basis): the |b| sum and its flag, the first row whose basic column is
+// artificial.
+template <typename T>
+__device__ void row_partials(const Walk<T>& L, int M, T& sb, unsigned& sbig, unsigned& ra) {
+  for (int g = threadIdx.x; g < M; g += blockDim.x) {
+    if (g < 2) continue;
+    sb = add_term(sb, L.rhs[0][g], sbig, 2u);
+    if (L.art[L.basis[0][g - 2]]) ra = min(ra, (unsigned)(g - 2));
+  }
+}
+
+// The pending step: decided and updated, its objective, stall counter and
+// status waiting for the next reduction (the post-step |b| sum).
+struct Pending {
+  bool on, stall, infeasible, unbounded, optimal, crow_ok;
+  int zrow;
+};
+
+// The pending step's finish (solve/driver.py::simplex_step's and
+// solve/bounded.py::bounded_simplex_step's last lines): the stall counter
+// and the Bland switch against its objective z (the RHS of row zrow after
+// it), then its status from the |b| sum sb after it.
+template <typename T>
+__device__ __forceinline__ void finish_pending(Pending& pd, Scalars& s, T& last_z, T z, T sb,
+                                               const LaneParams<T>& p) {
+  if (pd.stall) {
+    s.stuck = sub_rn(last_z, z) > p.degen_tol ? 0 : s.stuck + 1;
+    last_z = z;
+    s.bland = s.bland || s.stuck >= p.stall_limit;
+  }
+  const bool finite_ok = finite_val(z) && finite_val(sb) && pd.crow_ok;
+  s.status = !finite_ok ? ST_NUMERIC
+             : pd.infeasible ? ST_INFEASIBLE
+             : pd.unbounded ? ST_UNBOUNDED
+             : pd.optimal ? ST_OPTIMAL
+                          : ST_RUNNING;
+  pd.on = false;
+}
+
+// The step's end that needs no reduction: the pivot count, the Bland
+// switch of a step that does not price-pivot (its counter unchanged), the
+// phase change; the rest pends.
+__device__ __forceinline__ void end_step(Pending& pd, Scalars& s, bool act, bool stall,
+                                         bool to_phase2, int stall_limit) {
+  s.niter += act;
+  pd.stall = stall;
+  if (!stall) s.bland = s.bland || s.stuck >= stall_limit;
+  if (to_phase2) {
+    s.phase = 2;
+    s.stuck = 0;
+  }
+  pd.on = true;
+}
+
+// ---------------------------------------------------------------------------
 // the rank-1 primal simplex (solve/driver.py::simplex_step)
 // ---------------------------------------------------------------------------
 
-// Over the rows: the sum of |b| (s) and the first row whose basic column
-// is artificial (a).
-template <typename T>
-__device__ Red<T> primal_rows(const LaneParams<T>& p, const Lane<T>& L, Red<T>* scratch) {
-  const int N = p.N, m = p.M - 2;
-  Red<T> x = red_identity<T>(false);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    x.s = add_rn(x.s, T(fabs(L.tab[(long long)(i + 2) * N + N - 1])));
-    if (L.art[L.basis[i]]) x.a = min(x.a, i);
-  }
-  return block_reduce(x, scratch, false);
-}
-
+// A step of lane_primal_kernel: the price pass (a thread its columns: k =
+// t, t + T, ...; the columns' masks are its own), then ONE reduction that
+// also takes the previous update's row partials; the pending step's
+// finish; the ratio test over column j (a thread its rows: g = t, t + T,
+// ..., which snapshot column j) and one reduction (a second for Bland's or
+// the largest pivot's ties); then the update with no barrier before it:
+// each thread pivots its own columns (it reads its pivot-row entry before
+// it writes the column), and its rows' RHS into the other RHS buffer with
+// their basis entries, adding |b| and the first artificial row for the
+// next reduction. A Dantzig step passes two barriers; the clean-up adds
+// two, a retire one, and a step that takes neither the ratio test nor the
+// clean-up one (so that no warp rewrites the first reduction's scratch
+// while another still reads it).
 template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(LANE_MAX_THREADS) lane_primal_kernel(LaneParams<T> p) {
-  __shared__ Red<T> scratch[33];
+  __shared__ StepKeys<T> sh_step[LANE_MAX_WARPS];
+  __shared__ KeyRed<T> sh_ratio[LANE_MAX_WARPS], sh_tie[LANE_MAX_WARPS], sh_clean[LANE_MAX_WARPS];
+  __shared__ WalkClock clk;
   extern __shared__ __align__(16) unsigned char lane_dyn[];
-  const Lane<T> L = lane_layout<T, RESIDENT>(p, lane_dyn);
-  const int M = p.M, N = p.N, m = p.M - 2, n = p.N - 1;
+  const Walk<T> L = walk_layout<T, RESIDENT>(p, lane_dyn, false);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int M = p.M, N = p.N, m = M - 2, n = N - 1, P = L.pitch;
   const T inf = pos_inf<T>();
   const bool max_inc = p.rule == RULE_MAX_INCREASE_;
   const bool max_piv = p.tie != 0;
-  load_lane(p, L);
+  const Slices sl = row_slices(n);
+  if (tid == 0) {
+    clk.on = p.cycles != nullptr && blockIdx.x == 0;
+    clk.last = clock64();
+    for (int k = 0; k < S_NSTAGES; ++k) clk.cyc[k] = 0;
+  }
+  load_walk(p, L);
   T last_z;
   Scalars s = load_scalars(p, last_z);
-
-  Red<T> rows = primal_rows(p, L, scratch);
-  while (s.status == ST_RUNNING && s.niter < p.max_iters) {
-    // cleanup scan: a basic artificial in phase 2
-    const bool in_phase2 = s.phase == 2;
-    const bool cleanup = rows.a != BIG_I && in_phase2;
-    const int r_d = rows.a != BIG_I ? rows.a : 0;
-    const T* rowd = L.tab + (long long)(r_d + 2) * N;
-    const T* crow = L.tab + (s.phase == 1 ? N : 0);
-    // pricing over the columns: Dantzig's argmin of c_eff (devex priced
-    // as Dantzig) or the greatest increase's argmax (v, i); the first
-    // improving column (a); the first cleanup-eligible column (b); the sum
-    // of |crow| over the active columns (s)
-    Red<T> cols = red_identity<T>(max_inc);
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+  block_sync();
+  walk_lap(&clk, S_LOAD);
+  int cur = 0;
+  // this thread's rows' partials of the current state: the |b| sum, the
+  // first row whose basic column is artificial
+  T sb = T(0);
+  unsigned sbig = 0, ra = NO_IDX;
+  row_partials(L, M, sb, sbig, ra);
+  Pending pd = {false, false, false, false, false, true, 0};
+  while (pd.on || (s.status == ST_RUNNING && s.niter < p.max_iters)) {
+    // the greatest increase's column pass reads the rows' RHS
+    if (max_inc) {
+      block_sync();
+      walk_bar(&clk);
+    }
+    // ---- the price pass over the own columns; one reduction ----
+    StepRed<T> x = step_identity<T>(max_inc);
+    x.sb = sb;
+    x.big = sbig;
+    x.r = ra;
+    const T* crow = L.tab + (s.phase == 1 ? P : 0);
+    __syncwarp();  // the slot's rows, from its other lanes
+    for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) {
       const bool act = L.act[k];
       const T c = crow[k];
       const T c_eff = act ? c : inf;
       const bool improving = c_eff < -p.opt_tol;
-      if (improving) cols.a = min(cols.a, k);
-      if (act) cols.s = add_rn(cols.s, T(fabs(c)));
-      if (cleanup && act && !L.art[k] && T(fabs(rowd[k])) > p.piv_tol) cols.b = min(cols.b, k);
+      if (improving) x.a = min(x.a, (unsigned)k);
+      if (act) x.sc = add_term(x.sc, c, x.big, 1u);
       if (max_inc) {
-        // every column's minimum ratio (NaN-propagating, as torch's min)
+        // the column's minimum ratio (NaN-propagating, as torch's min)
         T ratio = inf;
-        for (int i = 0; i < m; ++i) {
-          const T a = L.tab[(long long)(i + 2) * N + k];
-          const T q = a > p.piv_tol ? div_rn(L.tab[(long long)(i + 2) * N + N - 1], a) : inf;
+        const T* col = L.tab + k;
+        for (int i = 2; i < M; ++i) {
+          const T a = col[(long long)i * P];
+          const T q = a > p.piv_tol ? div_rn(L.rhs[cur][i], a) : inf;
           if (!is_nan(ratio) && (is_nan(q) || q < ratio)) ratio = q;
         }
-        const T dec = improving ? (ratio < inf ? mul_rn(-c_eff, ratio) : inf) : -inf;
-        offer(cols, dec, k, true);
+        pick_vi(x.v1, x.i1, improving ? (ratio < inf ? mul_rn(-c_eff, ratio) : inf) : -inf, k, true);
       } else {
-        offer(cols, c_eff, k, false);
+        pick_vi(x.v1, x.i1, c_eff, k, false);
       }
     }
-    cols = block_reduce(cols, scratch, max_inc);
-    const bool has_improving = cols.a != BIG_I;
-    const bool use_bland = s.bland || p.rule == RULE_BLAND_;
-    const int j_price = use_bland ? (has_improving ? cols.a : n - 1) : cols.i;
-    const bool has_elig = cols.b != BIG_I;
-    const int j_d = has_elig ? cols.b : n - 1;
-    const bool retire = cleanup && !has_elig;
+    const StepRed<T> R = step_reduce<T, false>(x, max_inc, false, sh_step);
+    walk_bar(&clk);
+    if (pd.on) {
+      finish_pending(pd, s, last_z, -L.rhs[cur][pd.zrow], R.sb, p);
+      if (!(s.status == ST_RUNNING && s.niter < p.max_iters)) break;
+    }
+    walk_lap(&clk, S_PRICE);
 
-    // phase bookkeeping
-    const T z1 = -L.tab[(long long)N + N - 1];
+    // ---- the decisions ----
+    const bool in_phase2 = s.phase == 2;
+    const bool cleanup = R.r != NO_IDX && in_phase2;
+    const int r_d = R.r != NO_IDX ? (int)R.r : 0;
+    const bool has_improving = R.a != NO_IDX;
+    const bool use_bland = s.bland || p.rule == RULE_BLAND_;
+    const int j_price = use_bland ? (has_improving ? (int)R.a : n - 1) : R.i1;
+    // the clean-up's first eligible column: a pass over the own columns of
+    // row r_d
+    bool has_elig = false;
+    int j_d = n - 1;
+    if (cleanup) {
+      const unsigned e = cleanup_column(L, r_d, n, p.piv_tol, sh_clean);
+      walk_bar(&clk);
+      has_elig = e != NO_IDX;
+      if (has_elig) j_d = (int)e;
+    }
+    const bool retire = cleanup && !has_elig;
     const bool phase1_done = s.phase == 1 && !has_improving;
-    const bool became_infeasible = phase1_done && z1 > p.infeas_tol;
+    const bool became_infeasible = phase1_done && -L.rhs[cur][1] > p.infeas_tol;
     const bool to_phase2 = phase1_done && !became_infeasible;
     const bool pricing_pivot = has_improving && !cleanup && !phase1_done;
     const int j = cleanup ? j_d : j_price;
 
-    // ratio test over column j (driver.ratio_rows)
+    // ---- the ratio test over column j (driver.ratio_rows), its rows'
+    // snapshot of the column ----
     bool has_ratio = false;
     int r_price = 0;
     if (pricing_pivot) {
-      Red<T> rq = red_identity<T>(false);
-      for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        const T c = L.tab[(long long)(i + 2) * N + j];
+      // (each row's ratio kept in the other RHS buffer for the ties: the
+      // update overwrites it from the same thread)
+      T* qs = L.rhs[cur ^ 1];
+      T qv = inf;
+      int qi = BIG_I;
+      unsigned first_pos = NO_IDX;
+      for (int g = tid; g < M; g += nt) {
+        const T c = L.tab[(long long)g * P + j];
+        L.colv[g] = c;
+        if (g < 2) continue;
         const bool pos = c > p.piv_tol;
-        if (pos) rq.a = min(rq.a, i);
-        offer(rq, pos ? div_rn(L.tab[(long long)(i + 2) * N + N - 1], c) : inf, i, false);
+        if (pos) first_pos = min(first_pos, (unsigned)(g - 2));
+        const T q = pos ? div_rn(L.rhs[cur][g], c) : inf;
+        qs[g] = q;
+        pick_vi(qv, qi, q, g - 2, false);
       }
-      rq = block_reduce(rq, scratch, false);
-      has_ratio = rq.a != BIG_I;
-      const bool nan_min = is_nan(rq.v);
+      pick_reduce<T, true>(qv, qi, false, first_pos, sh_ratio);
+      walk_bar(&clk);
+      has_ratio = first_pos != NO_IDX;
+      const bool nan_min = is_nan(qv);
       if (!use_bland && !max_piv) {
-        r_price = nan_min ? 0 : rq.i;
+        r_price = nan_min ? 0 : qi;
       } else {
         // the tie set {ratio <= min}: Bland's smallest basic index, or the
         // largest pivot element
-        Red<T> rt = red_identity<T>(!use_bland);
-        for (int i = threadIdx.x; i < m; i += blockDim.x) {
-          const T c = L.tab[(long long)(i + 2) * N + j];
-          const T q = c > p.piv_tol ? div_rn(L.tab[(long long)(i + 2) * N + N - 1], c) : inf;
-          const bool tie = !nan_min && q <= rq.v;
+        T tv = use_bland ? inf : -inf;
+        int ti = BIG_I;
+        unsigned none = NO_IDX;
+        for (int g = tid; g < M; g += nt) {
+          if (g < 2) continue;
+          const T c = L.colv[g];
+          const bool tie = !nan_min && qs[g] <= qv;
           if (use_bland)
-            offer(rt, tie ? T(L.basis[i]) : T(BIG_I), i, false);
+            pick_vi(tv, ti, tie ? T(L.basis[cur][g - 2]) : T(BIG_I), g - 2, false);
           else
-            offer(rt, tie ? c : -inf, i, true);
+            pick_vi(tv, ti, tie ? c : -inf, g - 2, true);
         }
-        rt = block_reduce(rt, scratch, !use_bland);
-        r_price = rt.i;
+        pick_reduce<T, true>(tv, ti, !use_bland, none, sh_tie);
+        walk_bar(&clk);
+        r_price = ti;
       }
     }
     const bool became_unbounded = pricing_pivot && !has_ratio && in_phase2;
@@ -459,38 +1055,74 @@ __global__ void __launch_bounds__(LANE_MAX_THREADS) lane_primal_kernel(LaneParam
     const int r = do_cleanup ? r_d : r_price;
 
     // the retire and the phase change write the masks (never in one step:
-    // a retire needs phase 2, the phase change phase 1)
-    if (retire && threadIdx.x == 0) L.art[L.basis[r_d]] = 0;
+    // a retire needs phase 2, the phase change phase 1); the clean-up's
+    // pivot snapshots its column
+    if (retire) {
+      if (tid == 0) L.art[L.basis[cur][r_d]] = 0;
+      block_sync();
+      walk_bar(&clk);
+      ra = NO_IDX;
+      for (int g = tid; g < M; g += nt)
+        if (g >= 2 && L.art[L.basis[cur][g - 2]]) ra = min(ra, (unsigned)(g - 2));
+    }
     if (to_phase2)
-      for (int k = threadIdx.x; k < n; k += blockDim.x) L.act[k] = L.act[k] && !L.art[k];
-    __syncthreads();
-    if (do_pivot) pivot(L, M, N, r + 2, j);
+      for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) L.act[k] = L.act[k] && !L.art[k];
+    if (do_cleanup) {
+      for (int g = tid; g < M; g += nt) L.colv[g] = L.tab[(long long)g * P + j];
+      block_sync();
+      walk_bar(&clk);
+    }
+    if (!pricing_pivot && !cleanup) {
+      block_sync();
+      walk_bar(&clk);
+    }
+    walk_lap(&clk, S_RATIO);
 
-    // stall / Bland switch against the current objective
-    const T z = s.phase == 1 ? -L.tab[(long long)N + N - 1] : -L.tab[N - 1];
-    if (do_pricing) {
-      const bool improved = sub_rn(last_z, z) > p.degen_tol;
-      s.stuck = improved ? 0 : s.stuck + 1;
-      last_z = z;
+    // ---- the pivot (driver.pivot_update): no barrier before it ----
+    if (do_pivot) {
+      const int rg = r + 2, nx = cur ^ 1;
+      const T rinv = div_rn(T(1), L.colv[rg]);
+      for (int k = sl.slot; k < n; k += sl.slots) {
+        T* col = L.tab + k;
+        if (k == j) {
+          for (int i = sl.rs; i < M; i += sl.R) col[(long long)i * P] = T(i == rg);
+        } else {
+          const T pk = mul_rn(col[(long long)rg * P], rinv);
+          __syncwarp(sl.mask);  // every lane of the slot has read row rg
+          pivot_column(col, P, M, rg, pk, L.colv, sl);
+        }
+      }
+      const T prhs = mul_rn(L.rhs[cur][rg], rinv);
+      sb = T(0);
+      sbig = 0;
+      ra = NO_IDX;
+      for (int g = tid; g < M; g += nt) {
+        const T b = g == rg ? prhs : fma(-L.colv[g], prhs, L.rhs[cur][g]);
+        L.rhs[nx][g] = b;
+        if (g < 2) continue;
+        const int bv = g == rg ? j : L.basis[cur][g - 2];
+        L.basis[nx][g - 2] = bv;
+        sb = add_term(sb, b, sbig, 2u);
+        if (L.art[bv]) ra = min(ra, (unsigned)(g - 2));
+      }
+      cur = nx;
     }
-    s.bland = s.bland || s.stuck >= p.stall_limit;
-    if (to_phase2) {
-      s.phase = 2;
-      s.stuck = 0;
-      last_z = inf;
-    }
-    const bool finished_opt = in_phase2 && !has_improving && !cleanup;
-    rows = primal_rows(p, L, scratch);
-    const bool finite_ok = finite_val(z) && finite_val(rows.s) && finite_val(cols.s);
-    s.status = !finite_ok ? ST_NUMERIC
-               : (became_infeasible || became_failed1) ? ST_INFEASIBLE
-               : became_unbounded ? ST_UNBOUNDED
-               : finished_opt ? ST_OPTIMAL
-                              : ST_RUNNING;
-    s.niter += do_pivot;
+    walk_lap(&clk, S_UPDATE);
+    pd.zrow = s.phase == 1 ? 1 : 0;
+    pd.crow_ok = finite_val(R.sc);
+    pd.infeasible = became_infeasible || became_failed1;
+    pd.unbounded = became_unbounded;
+    pd.optimal = in_phase2 && !has_improving && !cleanup;
+    end_step(pd, s, do_pivot, do_pricing, to_phase2, p.stall_limit);
+    if (to_phase2) last_z = inf;
   }
-  store_lane<T, RESIDENT>(p, L, true);
+  walk_lap(&clk, S_PRICE);
+  store_walk<T, RESIDENT>(p, L, cur);
   store_scalars(p, s, last_z);
+  if (clk.on && tid == 0) {
+    walk_lap(&clk, S_STORE);
+    for (int k = 0; k < S_NSTAGES; ++k) p.cycles[k] += clk.cyc[k];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -510,144 +1142,314 @@ struct BoundedLaneParams {
   T reset_above;
 };
 
+// A step of lane_bounded_kernel: lane_primal_kernel's machinery. The first
+// reduction also takes the largest devex weight after the previous update
+// (whose reset the previous step left pending: the pass prices under the
+// weights and under unit ones) and whether row 2 is finite (the redirected
+// pivot's no-op test). The three-way ratio test runs every step, its two
+// minima in one reduction: on ties the first index of the winning kind is
+// its minimum's (Bland's ties take a second). The update needs no barrier
+// while every basic column is the unit vector on its row (checked at the
+// launch, kept by every pivot whose column and 1 / pivot are finite, as
+// bounded_grid.cu keeps it): the flip's column (column j, or the leaving
+// basic column e_{r+2}) and basis[0]'s (e_2) are then known without
+// reading them, so a row's thread computes its RHS whole (the pivot's
+// fma, then the flip's fma(-Tn[i, fcol], uf, b)) while the column's owner
+// negates the column. Where a basic column is not a unit vector the rows
+// snapshot both columns behind a barrier first (and the redirected pivot's
+// no-op test takes a second).
 template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(LANE_MAX_THREADS) lane_bounded_kernel(BoundedLaneParams<T> q) {
-  __shared__ Red<T> scratch[33];
+  __shared__ StepKeys<T> sh_step[LANE_MAX_WARPS];
+  __shared__ KeyRed<T> sh_ratio[LANE_MAX_WARPS], sh_tie[LANE_MAX_WARPS], sh_clean[LANE_MAX_WARPS];
+  __shared__ WalkClock clk;
   extern __shared__ __align__(16) unsigned char lane_dyn[];
   const LaneParams<T>& p = q.l;
-  const Lane<T> L = lane_layout<T, RESIDENT>(p, lane_dyn);
-  const int M = p.M, N = p.N, m = p.M - 2, n = p.N - 1;
+  const Walk<T> L = walk_layout<T, RESIDENT>(p, lane_dyn, true);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int M = p.M, N = p.N, m = M - 2, n = N - 1, P = L.pitch;
   const long long lane = blockIdx.x;
   const T inf = pos_inf<T>();
-  // the spans, the devex weights and the at-upper flags after the lane's
-  // own segments
-  unsigned char* vec = lane_dyn + lane_smem_bytes<T>(M, N, RESIDENT);
-  T* upper = (T*)vec;
-  T* gamma = (T*)(vec + align16((long long)n * sizeof(T)));
-  unsigned char* at_upper = vec + 2 * align16((long long)n * sizeof(T));
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    upper[k] = q.upper[lane * q.st_upper + k];
-    at_upper[k] = q.at_in[lane * q.st_at + k] != 0;
-    if (q.devex) gamma[k] = q.gamma_in[lane * q.st_gamma + k];
+  const bool devex = q.devex;
+  const Slices sl = row_slices(n);
+  if (tid == 0) {
+    clk.on = p.cycles != nullptr && blockIdx.x == 0;
+    clk.last = clock64();
+    for (int k = 0; k < S_NSTAGES; ++k) clk.cyc[k] = 0;
   }
-  load_lane(p, L);
+  // the spans, the flags and the weights, each slot's first lane its
+  // columns'
+  T gpart = -inf;  // the NaN-first maximum of the own weights
+  for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) {
+    L.upper[k] = q.upper[lane * q.st_upper + k];
+    L.at[k] = q.at_in[lane * q.st_at + k] != 0;
+    if (devex) {
+      L.gamma[k] = q.gamma_in[lane * q.st_gamma + k];
+      gpart = nan_max(gpart, L.gamma[k]);
+    }
+  }
+  load_walk(p, L);
   T last_z;
   Scalars s = load_scalars(p, last_z);
+  block_sync();
+  // whether every basic column is the unit vector on its row (a thread the
+  // basic columns of its rows)
+  bool bad = false;
+  for (int ii = tid; ii < m; ii += nt) {
+    const T* col = L.tab + L.basis[0][ii];
+    for (int i = 0; i < M && !bad; ++i) bad = col[(long long)i * P] != T(i == ii + 2);
+  }
+  bool units_ok = !block_or(bad);
+  walk_lap(&clk, S_LOAD);
+  int cur = 0;
+  T sb = T(0);
+  unsigned sbig = 0, ra = NO_IDX;
+  row_partials(L, M, sb, sbig, ra);
+  Pending pd = {false, false, false, false, false, true, 0};
+  while (pd.on || (s.status == ST_RUNNING && s.niter < p.max_iters)) {
+    // ---- the price pass (common.cuh's bounded_price_scan over the own
+    // columns; devex also under unit weights) and row 2's finiteness; one
+    // reduction ----
+    StepRed<T> x = step_identity<T>(devex);
+    x.sb = sb;
+    x.big = sbig;
+    x.r = ra;
+    x.g = gpart;
+    const T* crow = L.tab + (s.phase == 1 ? P : 0);
+    const T* row2 = L.tab + 2LL * P;
+    __syncwarp();  // the slot's rows, from its other lanes
+    for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) {
+      const bool a = L.act[k] != 0;
+      const T c = crow[k];
+      const T c_eff = a ? c : inf;
+      const bool improving = c_eff < -p.opt_tol;
+      if (improving) x.a = min(x.a, (unsigned)k);
+      if (a) x.sc = add_term(x.sc, c, x.big, 1u);
+      if (devex) {
+        const T cc = mul_rn(c, c);
+        pick_vi(x.v1, x.i1, improving ? div_rn(cc, L.gamma[k]) : -inf, k, true);
+        pick_vi(x.v2, x.i2, improving ? div_rn(cc, T(1)) : -inf, k, true);
+      } else {
+        pick_vi(x.v1, x.i1, c_eff, k, false);
+      }
+      if (!finite_val(row2[k])) x.f = min(x.f, (unsigned)k);
+    }
+    if (tid == 2 && !finite_val(L.rhs[cur][2])) x.f = min(x.f, (unsigned)n);
+    const StepRed<T> R = step_reduce<T, true>(x, devex, devex, sh_step);
+    walk_bar(&clk);
+    // the previous step's devex reset on its largest weight (NaN: none)
+    bool reset = false;
+    if (pd.on) {
+      reset = devex && R.g > q.reset_above;
+      if (reset) {
+        for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) L.gamma[k] = T(1);
+        gpart = sl.rs == 0 && sl.slot < n ? T(1) : -inf;
+      }
+      finish_pending(pd, s, last_z, -L.rhs[cur][pd.zrow], R.sb, p);
+      if (!(s.status == ST_RUNNING && s.niter < p.max_iters)) break;
+    }
+    walk_lap(&clk, S_PRICE);
 
-  while (s.status == ST_RUNNING && s.niter < p.max_iters) {
-    // the clean-up scan: a basic artificial in phase 2
+    // ---- the decisions ----
     const bool in_phase2 = s.phase == 2;
-    const int ra = first_artificial_row<T>(L.basis, L.art, m, scratch);
-    const bool cleanup = ra != BIG_I && in_phase2;
-    const int r_d = ra != BIG_I ? ra : 0;
-    // pricing (v, i), the first improving column (a), the first clean-up-
-    // eligible column (b), the pre-step |crow| sum over the active columns
-    const Red<T> cols =
-        bounded_price(L.tab + (s.phase == 1 ? N : 0), L.tab + (long long)(r_d + 2) * N, L.act,
-                      L.art, gamma, n, q.devex, p.opt_tol, p.piv_tol, scratch);
-    const bool has_improving = cols.a != BIG_I;
-    const bool has_elig = cols.b != BIG_I;
-    const int j_price = s.bland ? (has_improving ? cols.a : n - 1) : cols.i;
+    const bool cleanup = R.r != NO_IDX && in_phase2;
+    const int r_d = R.r != NO_IDX ? (int)R.r : 0;
+    const bool has_improving = R.a != NO_IDX;
+    const int j_price = s.bland ? (has_improving ? (int)R.a : n - 1) : (reset ? R.i2 : R.i1);
+    bool has_elig = false;
+    int j_d = n - 1;
+    if (cleanup) {
+      const unsigned e = cleanup_column(L, r_d, n, p.piv_tol, sh_clean);
+      walk_bar(&clk);
+      has_elig = e != NO_IDX;
+      if (has_elig) j_d = (int)e;
+    }
     const bool retire = cleanup && !has_elig;
-
-    // phase bookkeeping
     const bool phase1_done = s.phase == 1 && !has_improving;
-    const bool became_infeasible = phase1_done && -L.tab[(long long)N + N - 1] > p.infeas_tol;
+    const bool became_infeasible = phase1_done && -L.rhs[cur][1] > p.infeas_tol;
     const bool to_phase2 = phase1_done && !became_infeasible;
     const bool pricing_pivot = has_improving && !cleanup && !phase1_done;
-    const int j = cleanup ? (has_elig ? cols.b : n - 1) : j_price;
+    const int j = cleanup ? j_d : j_price;
 
-    // the three-way ratio test over column j, run on every step as the
-    // plain step runs it: its row names the flip's column even where
-    // nothing moves
-    const BoundedRatio rt =
-        bounded_ratio(L.tab, N, m, j, L.basis, upper, p.piv_tol, s.bland, scratch);
-    const bool do_cleanup = cleanup && has_elig;
-    const bool do_price = pricing_pivot && rt.has_ratio;
-    const bool do_pivot = do_cleanup || (do_price && !rt.kind_flip);
-    const bool do_flip_enter = do_price && rt.kind_flip;
-    const int r = do_cleanup ? r_d : rt.r_price;
-    const int leaving = L.basis[r];
-    const bool do_flip = (do_price && rt.kind_up && !cleanup) || do_flip_enter;
-    const int fcol = do_flip_enter ? j : leaving;
-    const T uf = do_flip ? upper[fcol] : T(0);
-    const T piv = L.tab[(long long)(r + 2) * N + j];
-    const T gq = q.devex ? gamma[j] : T(0);
-    const int basis0 = L.basis[0];
-    const bool became_unbounded = pricing_pivot && !rt.has_ratio && in_phase2;
-    const bool became_failed1 = pricing_pivot && !rt.has_ratio && !in_phase2;
-
-    // the retire and the phase change write the masks (never in one step:
-    // a retire needs phase 2, the phase change phase 1)
-    if (retire && threadIdx.x == 0) L.art[L.basis[r_d]] = 0;
-    if (to_phase2)
-      for (int k = threadIdx.x; k < n; k += blockDim.x) L.act[k] = L.act[k] && !L.art[k];
-
-    // one pivot in place from the snapshot of its column and row: the real
-    // one, or the redirected one on (row 2, basis[0]) unless an exact no-op
-    int rg, jp;
-    const bool pv = pivot_snapshot(L.tab, M, N, do_pivot, r, j, basis0, L.colv, L.prow, scratch,
-                                   rg, jp);
-    __syncthreads();
-    if (pv) {
-      const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-      for (int i = warp; i < M; i += nw) {
-        T* row = L.tab + (long long)i * N;
-        for (int k = ln; k < N; k += 32) row[k] = pivoted(L.colv, L.prow, rg, jp, i, k, row[k]);
+    // ---- the three-way ratio test over column j (common.cuh's
+    // bounded_ratios), run on every step as the plain step runs it; its
+    // rows' snapshot of the column and whether it is finite ----
+    T lov = inf, upv = inf;
+    int loi = BIG_I, upi = BIG_I;
+    unsigned cbad = NO_IDX;
+    for (int g = tid; g < M; g += nt) {
+      const T c = L.tab[(long long)g * P + j];
+      L.colv[g] = c;
+      if (!finite_val(c)) cbad = min(cbad, (unsigned)g);
+      if (g < 2) continue;
+      T tl, tu;
+      bool neg;
+      bounded_ratios(c, L.rhs[cur][g], L.upper[L.basis[cur][g - 2]], p.piv_tol, tl, tu, neg);
+      pick_vi(lov, loi, tl, g - 2, false);
+      pick_vi(upv, upi, tu, g - 2, false);
+    }
+    pick2_flag(lov, loi, upv, upi, cbad, sh_ratio);
+    walk_bar(&clk);
+    const T t_star = nan_min(nan_min(lov, upv), L.upper[j]);
+    const bool kind_lo = lov <= t_star;
+    const bool kind_up = !kind_lo && upv <= t_star;
+    const bool kind_flip = !kind_lo && !kind_up;
+    const bool has_ratio = finite_val(t_star);
+    // the leaving row among the winning kind's ties: its minimum's first
+    // index (row 0 where none ties), or Bland's smallest basic index
+    int r_price = kind_lo ? loi : kind_up ? upi : 0;
+    if (s.bland) {
+      T tv = inf;
+      int ti = BIG_I;
+      unsigned none = NO_IDX;
+      for (int g = tid; g < M; g += nt) {
+        if (g < 2) continue;
+        const int bv = L.basis[cur][g - 2];
+        T tl, tu;
+        bool neg;
+        bounded_ratios(L.colv[g], L.rhs[cur][g], L.upper[bv], p.piv_tol, tl, tu, neg);
+        const bool t = kind_lo ? tl <= t_star : (neg && tu <= t_star);
+        pick_vi(tv, ti, t ? T(bv) : T(BIG_I), g - 2, false);
       }
-      if (do_pivot && threadIdx.x == 0) L.basis[r] = j;
-      __syncthreads();
+      pick_reduce<T, true>(tv, ti, false, none, sh_tie);
+      walk_bar(&clk);
+      r_price = ti;
     }
+    const bool do_cleanup = cleanup && has_elig;
+    const bool do_price = pricing_pivot && has_ratio;
+    const bool do_pivot = do_cleanup || (do_price && !kind_flip);
+    const bool do_flip_enter = do_price && kind_flip;
+    const int r = do_cleanup ? r_d : r_price;
+    const int leaving = L.basis[cur][r];
+    const bool do_flip = (do_price && kind_up && !cleanup) || do_flip_enter;
+    const int fcol = do_flip_enter ? j : leaving;
+    const T uf = do_flip ? L.upper[fcol] : T(0);
+    const T piv = L.colv[r + 2];
+    const T gq = devex ? L.gamma[j] : T(0);
+    const int basis0 = L.basis[cur][0];
+    const bool became_unbounded = pricing_pivot && !has_ratio && in_phase2;
+    const bool became_failed1 = pricing_pivot && !has_ratio && !in_phase2;
 
-    // one column flip (uf = 0 where none: the RHS still takes the plain
-    // step's fma), each thread on its rows; the post-step |b| sum (s) and
-    // the devex weights' NaN-first maximum (v) in one reduction
-    Red<T> x = red_identity<T>(true);
-    for (int i = threadIdx.x; i < M; i += blockDim.x) {
-      T* row = L.tab + (long long)i * N;
-      const T tf = row[fcol];
-      const T b = fma(-tf, uf, row[N - 1]);
-      row[N - 1] = b;
-      if (do_flip) row[fcol] = -tf;
-      if (i >= 2) x.s = add_rn(x.s, T(fabs(b)));
+    if (retire) {
+      if (tid == 0) L.art[L.basis[cur][r_d]] = 0;
+      block_sync();
+      walk_bar(&clk);
     }
-    if (do_flip && threadIdx.x == 0) at_upper[fcol] = !at_upper[fcol];
-    // the weights move on a pricing pivot only (alpha: the post-pivot row r
-    // before the flip, the weights being sign-invariant)
-    if (q.devex) devex_weights(gamma, L.prow, n, jp, leaving, do_price && !rt.kind_flip, gq, piv, x);
-    x = block_reduce(x, scratch, true);
-    if (q.devex && (x.v > q.reset_above || to_phase2))
-      for (int k = threadIdx.x; k < n; k += blockDim.x) gamma[k] = T(1);
+    if (to_phase2)
+      for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) L.act[k] = L.act[k] && !L.art[k];
 
-    // stall / Bland switch against the step's objective, the phase, status
+    // ---- the update's pivot: (r + 2, j), else the plain step's redirected
+    // one on (row 2, basis[0]) unless that is an exact no-op ----
+    const int rg = do_pivot ? r + 2 : 2, jp = do_pivot ? j : basis0;
+    bool pv = do_pivot || R.f != NO_IDX;
+    if (!units_ok) {
+      // the pre-step columns basis[0] and fcol, snapshotted by the rows
+      for (int g = tid; g < M; g += nt) {
+        L.colb[g] = L.tab[(long long)g * P + basis0];
+        L.colf[g] = L.tab[(long long)g * P + fcol];
+      }
+      block_sync();
+      walk_bar(&clk);
+      if (!do_pivot && !pv) {
+        bool not_unit = false;
+        for (int g = tid; g < M; g += nt) not_unit = not_unit || L.colb[g] != T(g == 2);
+        pv = block_or(not_unit);
+        walk_bar(&clk);
+      }
+    }
+    walk_lap(&clk, S_RATIO);
+    // the pivot's pre-step column (null: e_2) and element, the flip's
+    // pre-step column (null: e_{r+2})
+    const T* cp = do_pivot ? L.colv : units_ok ? nullptr : L.colb;
+    const T cjr = do_pivot ? piv : units_ok ? T(1) : L.colb[2];
+    const T* cf = fcol == j ? L.colv : units_ok ? nullptr : L.colf;
+    const T rinv = pv ? div_rn(T(1), cjr) : T(1);
+    // the columns: a thread its own (the pivot, the flip's negation, the
+    // at-upper flag, the devex weights and their maximum)
+    const bool upd = devex && do_price && !kind_flip;
+    const T qv = upd ? div_rn(gq, mul_rn(piv, piv)) : T(1);
+    const T leave = is_nan(qv) ? qv : (qv < T(1) ? T(1) : qv);
+    T gp = -inf;
+    for (int k = sl.slot; k < n; k += sl.slots) {
+      T* col = L.tab + k;
+      T pk = T(0);
+      if (pv) {
+        if (k == jp) {
+          for (int i = sl.rs; i < M; i += sl.R) col[(long long)i * P] = T(i == rg);
+        } else {
+          pk = mul_rn(col[(long long)rg * P], rinv);
+          __syncwarp(sl.mask);  // every lane of the slot has read row rg
+          pivot_column(col, P, M, rg, pk, cp, sl);
+        }
+      }
+      if (do_flip && k == fcol) {
+        for (int i = sl.rs; i < M; i += sl.R) col[(long long)i * P] = -col[(long long)i * P];
+        if (sl.rs == 0) L.at[k] = !L.at[k];
+      }
+      if (devex && sl.rs == 0) {
+        T gk = L.gamma[k];
+        if (upd) {
+          const T a = k == jp ? T(1) : pk;
+          gk = nan_max(gk, mul_rn(mul_rn(a, a), gq));
+          if (k == leaving) gk = leave;
+        }
+        if (to_phase2) gk = T(1);
+        L.gamma[k] = gk;
+        gp = nan_max(gp, gk);
+      }
+    }
+    if (devex) gpart = gp;
+    // the rows: a thread its own (the RHS after the pivot and the flip,
+    // into the other buffer; the basis; the partials of the next state)
+    const int nx = cur ^ 1;
+    const T prhs = pv ? mul_rn(L.rhs[cur][rg], rinv) : T(0);
+    const T cfr = cf ? cf[rg] : T(rg == r + 2);
+    const T pf = pv ? mul_rn(cfr, rinv) : T(0);
+    sb = T(0);
+    sbig = 0;
+    ra = NO_IDX;
+    for (int g = tid; g < M; g += nt) {
+      const T cfg = cf ? cf[g] : T(g == r + 2);
+      const T cpg = cp ? cp[g] : T(g == 2);
+      const T b0 = L.rhs[cur][g];
+      T tnf = cfg, bp = b0;
+      if (pv) {
+        tnf = g == rg ? (fcol == jp ? T(1) : pf) : (fcol == jp ? T(0) : fma(-cpg, pf, cfg));
+        bp = g == rg ? prhs : fma(-cpg, prhs, b0);
+      }
+      const T b = fma(-tnf, uf, bp);
+      L.rhs[nx][g] = b;
+      if (g < 2) continue;
+      const int bv = do_pivot && g == rg ? j : L.basis[cur][g - 2];
+      L.basis[nx][g - 2] = bv;
+      sb = add_term(sb, b, sbig, 2u);
+      if (L.art[bv]) ra = min(ra, (unsigned)(g - 2));
+    }
+    cur = nx;
+    // a pivot keeps every basic column a unit vector while its column and
+    // 1 / pivot are finite
+    if (do_pivot && (cbad != NO_IDX || !finite_val(rinv))) units_ok = false;
+    walk_lap(&clk, S_UPDATE);
     const bool act = do_pivot || do_flip_enter;
-    const T z = -L.tab[s.phase == 1 ? (long long)N + N - 1 : (long long)N - 1];
-    if (do_price && act) {
-      s.stuck = sub_rn(last_z, z) > p.degen_tol ? 0 : s.stuck + 1;
-      last_z = z;
-    }
-    s.bland = s.bland || s.stuck >= p.stall_limit;
-    if (to_phase2) {
-      s.phase = 2;
-      s.stuck = 0;
-      last_z = inf;
-    }
-    const bool finished_opt = in_phase2 && !has_improving && !cleanup;
-    const bool finite_ok = finite_val(z) && finite_val(x.s) && finite_val(cols.s);
-    s.status = !finite_ok ? ST_NUMERIC
-               : (became_infeasible || became_failed1) ? ST_INFEASIBLE
-               : became_unbounded ? ST_UNBOUNDED
-               : finished_opt ? ST_OPTIMAL
-                              : ST_RUNNING;
-    s.niter += act;
+    pd.zrow = s.phase == 1 ? 1 : 0;
+    pd.crow_ok = finite_val(R.sc);
+    pd.infeasible = became_infeasible || became_failed1;
+    pd.unbounded = became_unbounded;
+    pd.optimal = in_phase2 && !has_improving && !cleanup;
+    end_step(pd, s, act, do_price && act, to_phase2, p.stall_limit);
+    if (to_phase2) last_z = inf;
   }
-  __syncthreads();
-  store_lane<T, RESIDENT>(p, L, true);
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    q.at_out[lane * n + k] = at_upper[k];
-    if (q.devex) q.gamma_out[lane * n + k] = gamma[k];
+  walk_lap(&clk, S_PRICE);
+  store_walk<T, RESIDENT>(p, L, cur);
+  for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) {
+    q.at_out[lane * n + k] = L.at[k];
+    if (devex) q.gamma_out[lane * n + k] = L.gamma[k];
   }
   store_scalars(p, s, last_z);
+  if (clk.on && tid == 0) {
+    walk_lap(&clk, S_STORE);
+    for (int k = 0; k < S_NSTAGES; ++k) p.cycles[k] += clk.cyc[k];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -687,6 +1489,7 @@ LaneParams<T> lane_params(const long long* a, const int* in, const double* tol) 
   p.st_stuck = a[A_ST_STUCK];
   p.st_bland = a[A_ST_BLAND];
   p.st_lastz = a[A_ST_LASTZ];
+  p.cycles = (long long*)a[A_CYCLES];
   p.M = in[I_M];
   p.N = in[I_N];
   p.stall_limit = in[I_STALL];
@@ -747,7 +1550,9 @@ template <typename T, bool PRIMAL>
 int launch_lanes(const long long* a, const int* in, const double* tol, void* stream) {
   const int B = in[I_B], M = in[I_M], N = in[I_N], threads = in[I_THREADS], smem = in[I_SMEM];
   const bool resident = in[I_RESIDENT] != 0;
-  if (!lanes_shape_ok(B, M, N, threads) || (long long)smem != lane_smem_bytes<T>(M, N, resident))
+  const long long want = PRIMAL ? walk_smem_bytes<T>(M, N, resident, false)
+                                : lane_smem_bytes<T>(M, N, resident);
+  if (!lanes_shape_ok(B, M, N, threads) || (long long)smem != want)
     return (int)cudaErrorInvalidValue;
   const LaneParams<T> p = lane_params<T>(a, in, tol);
   const cudaStream_t s = (cudaStream_t)stream;
@@ -760,7 +1565,7 @@ int launch_bounded_lanes(const long long* a, const int* in, const double* tol, v
   const int B = in[I_B], M = in[I_M], N = in[I_N], threads = in[I_THREADS], smem = in[I_SMEM];
   const bool resident = in[I_RESIDENT] != 0;
   if (!lanes_shape_ok(B, M, N, threads) ||
-      (long long)smem != bounded_lane_smem_bytes<T>(M, N, resident))
+      (long long)smem != walk_smem_bytes<T>(M, N, resident, true))
     return (int)cudaErrorInvalidValue;
   BoundedLaneParams<T> q;
   q.l = lane_params<T>(a, in, tol);

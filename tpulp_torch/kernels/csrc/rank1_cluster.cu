@@ -2,7 +2,14 @@
 // simplex_step, solve/devex.py::devex_simplex_step, solve/dual.py::
 // dual_simplex_step) of a frame that fits one thread-block cluster, stepped
 // to the walk's exit or to max_iters in one launch, with the frame resident
-// in the cluster's distributed shared memory.
+// in the cluster's distributed shared memory; and with a lane axis
+// (rank1_cluster_lanes: a grid of (C, B) blocks, cluster y = lane) the
+// primal walks of a batch whose frames one block cannot hold, each lane
+// to its own exit in one launch. A lane reads its inputs through lane
+// strides (0: a row every lane shares, as the waves' broadcast masks), so
+// nothing is expanded; a lane not RUNNING below its budget at the launch
+// copies its input out and returns before any cluster barrier. The solo
+// walk is the batch of one lane with every stride 0.
 //
 // Replaces no Pallas kernel: in tpulp these walks are XLA's compiled
 // ``lax.while_loop`` over ``simplex_step`` (tpulp/solve/driver.py:74, the
@@ -86,14 +93,19 @@ enum Walk { W_PRIMAL, W_DEVEX, W_DUAL };
 enum Arg {
   A_T_IN, A_T_OUT, A_BASIS_IN, A_BASIS_OUT, A_ACT_IN, A_ACT_OUT, A_ART_IN, A_ART_OUT,
   A_GAMMA_IN, A_GAMMA_OUT, A_PHASE_IN, A_STATUS_IN, A_NITER_IN, A_STUCK_IN, A_BLAND_IN,
-  A_LASTZ_IN, A_INTS_OUT, A_BLAND_OUT, A_LASTZ_OUT, A_CYCLES, A_NARGS
+  A_LASTZ_IN, A_INTS_OUT, A_BLAND_OUT, A_LASTZ_OUT, A_CYCLES,
+  // the lanes' (rank1_cluster_lanes): the inputs' lane strides in elements
+  // (0: a row every lane shares) and the outputs' int32 fields' stride
+  A_ST_T, A_ST_BASIS, A_ST_ACT, A_ST_ART, A_ST_GAMMA, A_ST_PHASE, A_ST_STATUS, A_ST_NITER,
+  A_ST_STUCK, A_ST_BLAND, A_ST_LASTZ, A_OUT_FIELD, A_NARGS
 };
 enum Int {
   I_M, I_N, I_STALL, I_MAXIT, I_RULE, I_TIE, I_WALK, I_BLOCKS, I_THREADS, I_SMEM, I_RAY_EVERY,
-  I_NINTS
+  I_LANES, I_NINTS
 };
 enum Tol { D_OPT, D_PIV, D_DEGEN, D_INFEAS, D_FEAS, D_RESET, D_NTOLS };
-// the int32 scalars written back (ints_out)
+// the int32 scalars written back (ints_out: field f of lane b at f x
+// out_field + b)
 enum Out { O_PHASE, O_STATUS, O_NITER, O_STUCK };
 // the stages that ``cycles`` splits a walk into (block 0's clock; summed
 // over the steps): the load, then a step's price, barrier A1, the combine
@@ -120,6 +132,10 @@ struct Params {
   unsigned char* bland_out;
   T* lastz_out;
   long long* cycles;  // (C_NSTAGES,) SM cycles per stage (block 0), or null
+  // the inputs' lane strides (a solo walk: one lane, every stride 0), the
+  // outputs' int32 fields' stride
+  long long st_T, st_basis, st_act, st_art, st_gamma, st_phase, st_status, st_niter, st_stuck,
+      st_bland, st_lastz, out_field;
   int M, N, W, stall_limit, max_iters, ray_every;
   // Bland's rule, the greatest increase, largest-pivot ties (the primal
   // walk's; devex and the dual walk take none, as their steps)
@@ -417,8 +433,50 @@ __global__ void __launch_bounds__(THREADS, 1) cluster_kernel(Params<T> p) {
   const int k0 = rank * W, wk = max(0, min(N, k0 + W) - k0);
   const Layout<T> L = layout<T>(M, N, W, cluster_dyn);
   const T inf = pos_inf<T>();
+  // this block's lane (blockIdx.y; a solo walk is lane 0 of one): its
+  // inputs (a lane stride of 0 is a row every lane shares) and outputs
+  const long long b = blockIdx.y;
+  const T* T_in = p.T_in + b * p.st_T;
+  const int* basis_in = p.basis_in + b * p.st_basis;
+  const unsigned char* act_in = p.act_in + b * p.st_act;
+  const unsigned char* art_in = p.art_in + b * p.st_art;
+  const T* gamma_in = DEVEX ? p.gamma_in + b * p.st_gamma : nullptr;
+  T* T_out = p.T_out + b * M * N;
+  unsigned char* act_out = p.act_out + b * n;
+  unsigned char* art_out = p.art_out + b * n;
+  T* gamma_out = DEVEX ? p.gamma_out + b * n : nullptr;
+  int phase = p.phase_in[b * p.st_phase], status = p.status_in[b * p.st_status],
+      niter = p.niter_in[b * p.st_niter], stuck = p.stuck_in[b * p.st_stuck];
+  bool bland = p.bland_in[b * p.st_bland] != 0;
+  T last_z = p.lastz_in[b * p.st_lastz];
+  if (!(status == ST_RUNNING && niter < p.max_iters)) {
+    // a lane not running within its budget: its input copied out, no step
+    // and no read of a peer (so no cluster barrier)
+    for (int i = warp; i < M; i += nw)
+      for (int kk = lane; kk < wk; kk += 32)
+        T_out[(long long)i * N + k0 + kk] = T_in[(long long)i * N + k0 + kk];
+    for (int kk = tid; kk < wk; kk += THREADS) {
+      const int k = k0 + kk;
+      if (k >= n) continue;
+      act_out[k] = act_in[k] != 0;
+      art_out[k] = art_in[k] != 0;
+      if (DEVEX) gamma_out[k] = gamma_in[k];
+    }
+    if (rank == 0) {
+      for (int i = tid; i < m; i += THREADS) p.basis_out[b * m + i] = basis_in[i];
+      if (tid == 0) {
+        p.ints_out[O_PHASE * p.out_field + b] = phase;
+        p.ints_out[O_STATUS * p.out_field + b] = status;
+        p.ints_out[O_NITER * p.out_field + b] = niter;
+        p.ints_out[O_STUCK * p.out_field + b] = stuck;
+        p.bland_out[b] = bland;
+        p.lastz_out[b] = last_z;
+      }
+    }
+    return;
+  }
   if (tid == 0) {
-    laps.on = p.cycles != nullptr && rank == 0;
+    laps.on = p.cycles != nullptr && rank == 0 && b == 0;
     laps.last = clock64();
     for (int k = 0; k < C_NSTAGES; ++k) laps.cyc[k] = 0;
   }
@@ -426,18 +484,15 @@ __global__ void __launch_bounds__(THREADS, 1) cluster_kernel(Params<T> p) {
   // ---- load: the slab, the replicated vectors, the scalars ----
   for (int i = warp; i < M; i += nw)
     for (int kk = lane; kk < wk; kk += 32)
-      L.slab[(long long)kk * M + i] = p.T_in[(long long)i * N + k0 + kk];
-  for (int i = tid; i < M; i += THREADS) L.b[i] = p.T_in[(long long)i * N + N - 1];
-  for (int i = tid; i < m; i += THREADS) L.basis[i] = p.basis_in[i];
-  for (int k = tid; k < n; k += THREADS) L.art[k] = p.art_in[k] != 0;
+      L.slab[(long long)kk * M + i] = T_in[(long long)i * N + k0 + kk];
+  for (int i = tid; i < M; i += THREADS) L.b[i] = T_in[(long long)i * N + N - 1];
+  for (int i = tid; i < m; i += THREADS) L.basis[i] = basis_in[i];
+  for (int k = tid; k < n; k += THREADS) L.art[k] = art_in[k] != 0;
   for (int kk = tid; kk < wk; kk += THREADS) {
     const int k = k0 + kk;
-    L.act[kk] = k < n && p.act_in[k] != 0;
-    L.gamma[kk] = DEVEX && k < n ? p.gamma_in[k] : T(1);
+    L.act[kk] = k < n && act_in[k] != 0;
+    L.gamma[kk] = DEVEX && k < n ? gamma_in[k] : T(1);
   }
-  int phase = *p.phase_in, status = *p.status_in, niter = *p.niter_in, stuck = *p.stuck_in;
-  bool bland = *p.bland_in != 0;
-  T last_z = *p.lastz_in;
   __syncthreads();
   // every peer running and loaded before any read of its shared memory
   cluster_arrive();
@@ -810,23 +865,23 @@ __global__ void __launch_bounds__(THREADS, 1) cluster_kernel(Params<T> p) {
   // and the scalars ----
   for (int i = warp; i < M; i += nw)
     for (int kk = lane; kk < wk; kk += 32)
-      p.T_out[(long long)i * N + k0 + kk] = L.slab[(long long)kk * M + i];
+      T_out[(long long)i * N + k0 + kk] = L.slab[(long long)kk * M + i];
   for (int kk = tid; kk < wk; kk += THREADS) {
     const int k = k0 + kk;
     if (k >= n) continue;
-    p.act_out[k] = L.act[kk];
-    p.art_out[k] = L.art[k];
-    if (DEVEX) p.gamma_out[k] = L.gamma[kk];
+    act_out[k] = L.act[kk];
+    art_out[k] = L.art[k];
+    if (DEVEX) gamma_out[k] = L.gamma[kk];
   }
   if (rank == 0) {
-    for (int i = tid; i < m; i += THREADS) p.basis_out[i] = L.basis[i];
+    for (int i = tid; i < m; i += THREADS) p.basis_out[b * m + i] = L.basis[i];
     if (tid == 0) {
-      p.ints_out[O_PHASE] = phase;
-      p.ints_out[O_STATUS] = status;
-      p.ints_out[O_NITER] = niter;
-      p.ints_out[O_STUCK] = stuck;
-      *p.bland_out = bland;
-      *p.lastz_out = last_z;
+      p.ints_out[O_PHASE * p.out_field + b] = phase;
+      p.ints_out[O_STATUS * p.out_field + b] = status;
+      p.ints_out[O_NITER * p.out_field + b] = niter;
+      p.ints_out[O_STUCK * p.out_field + b] = stuck;
+      p.bland_out[b] = bland;
+      p.lastz_out[b] = last_z;
     }
   }
   if (tid == 0 && laps.on) {
@@ -865,6 +920,18 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
   p.bland_out = (unsigned char*)a[A_BLAND_OUT];
   p.lastz_out = (T*)a[A_LASTZ_OUT];
   p.cycles = (long long*)a[A_CYCLES];
+  p.st_T = a[A_ST_T];
+  p.st_basis = a[A_ST_BASIS];
+  p.st_act = a[A_ST_ACT];
+  p.st_art = a[A_ST_ART];
+  p.st_gamma = a[A_ST_GAMMA];
+  p.st_phase = a[A_ST_PHASE];
+  p.st_status = a[A_ST_STATUS];
+  p.st_niter = a[A_ST_NITER];
+  p.st_stuck = a[A_ST_STUCK];
+  p.st_bland = a[A_ST_BLAND];
+  p.st_lastz = a[A_ST_LASTZ];
+  p.out_field = a[A_OUT_FIELD];
   p.M = in[I_M];
   p.N = in[I_N];
   const int C = in[I_BLOCKS];
@@ -890,7 +957,8 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
 template <typename T>
 bool plan_ok(const int* in) {
   const int M = in[I_M], N = in[I_N], C = in[I_BLOCKS];
-  if (M < 3 || N < 2 || in[I_THREADS] != THREADS || in[I_RAY_EVERY] < 1 ||
+  if (M < 3 || N < 2 || in[I_THREADS] != THREADS || in[I_RAY_EVERY] < 1 || in[I_LANES] < 1 ||
+      in[I_LANES] > 65535 ||
       (C != 1 && C != 2 && C != 4 && C != 8) || in[I_WALK] < W_PRIMAL || in[I_WALK] > W_DUAL)
     return false;
   return (long long)in[I_SMEM] == smem_bytes<T>(M, N, (N + C - 1) / C);
@@ -905,9 +973,9 @@ bool pointers_ok(const Params<T>& p, int walk) {
 }
 
 template <typename T, int WALK>
-cudaLaunchConfig_t config(int C, int smem, cudaStream_t s, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t config(int C, int lanes, int smem, cudaStream_t s, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
+  cfg.gridDim = dim3(C, lanes, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = s;
@@ -934,11 +1002,11 @@ int raise_smem(int smem) {
 }
 
 template <typename T, int WALK>
-int launch_walk(const Params<T>& p, int C, int smem, cudaStream_t s) {
+int launch_walk(const Params<T>& p, int C, int lanes, int smem, cudaStream_t s) {
   const int err = raise_smem<T, WALK>(smem);
   if (err) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config<T, WALK>(C, smem, s, &attr);
+  const cudaLaunchConfig_t cfg = config<T, WALK>(C, lanes, smem, s, &attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, cluster_kernel<T, WALK>, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -951,10 +1019,10 @@ int rank1_cluster(const long long* a, const int* in, const double* tol, void* st
   const int walk = in[I_WALK];
   if (!pointers_ok(p, walk)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int C = in[I_BLOCKS], smem = in[I_SMEM];
-  if (walk == W_DEVEX) return launch_walk<T, W_DEVEX>(p, C, smem, s);
-  if (walk == W_DUAL) return launch_walk<T, W_DUAL>(p, C, smem, s);
-  return launch_walk<T, W_PRIMAL>(p, C, smem, s);
+  const int C = in[I_BLOCKS], smem = in[I_SMEM], lanes = in[I_LANES];
+  if (walk == W_DEVEX) return launch_walk<T, W_DEVEX>(p, C, lanes, smem, s);
+  if (walk == W_DUAL) return launch_walk<T, W_DUAL>(p, C, lanes, smem, s);
+  return launch_walk<T, W_PRIMAL>(p, C, lanes, smem, s);
 }
 
 template <typename T, int WALK>
@@ -962,7 +1030,7 @@ int occupancy_of(int C, int smem, int* clusters) {
   const int err = raise_smem<T, WALK>(smem);
   if (err) return err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config<T, WALK>(C, smem, 0, &attr);
+  const cudaLaunchConfig_t cfg = config<T, WALK>(C, 1, smem, 0, &attr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)cluster_kernel<T, WALK>,
                                              &cfg);
 }

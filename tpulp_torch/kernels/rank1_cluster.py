@@ -20,6 +20,13 @@ a plan whose cluster the card cannot hold: ``cudaOccupancyMaxActiveClusters``
 reports 0). It allocates the output state and never writes the caller's
 tensors.
 
+``rank1_cluster_lanes`` runs the same kernel with a lane axis: every lane
+of a batched state walked by ``simplex_step`` (the primal walk) to its own
+exit in one launch, a cluster a lane; ``solve.lanes.primal_lanes`` takes
+it for frames past one block's shared memory. Its plain version
+``rank1_cluster_lanes_reference`` runs ``rank1_cluster_reference`` on each
+lane.
+
 ``rank1_cluster_reference`` is the same walk in plain torch: the plain
 stages of ``kernels.rank1`` composed step by step (which give
 ``simplex_step``, ``devex_simplex_step`` and ``dual_simplex_step`` bit for
@@ -53,7 +60,8 @@ from .rank1 import (CROW_OK, PHASE, RAY_SCAN_EVERY, RESET_ABOVE, WALKS,
 from .sums import block_sum, block_sums, slab_sum
 
 __all__ = ["ClusterPlan", "cluster_plan", "cluster_occupancy",
-           "rank1_cluster", "rank1_cluster_reference", "slab_sum",
+           "rank1_cluster", "rank1_cluster_reference",
+           "rank1_cluster_lanes", "rank1_cluster_lanes_reference", "slab_sum",
            "block_sums",
            "block_sum", "cluster_sum", "CLUSTER_SIZES",
            "CLUSTER_THREADS", "CLUSTER_SMEM_LIMIT", "CLUSTER_STATIC_SMEM",
@@ -74,7 +82,9 @@ CLUSTER_SMEM_LIMIT = 232_448 - CLUSTER_STATIC_SMEM
 # update, the finish, barrier A2's wait and what follows it; the store
 CLUSTER_STAGES = ("load", "price", "barrier1", "ratio", "row", "update",
                   "finish", "barrier2", "store")
-_NARGS, _NINTS, _NTOLS = 20, 11, 6
+# the pointers, then the lanes' strides (11 inputs' and the int32 outputs'
+# field stride); the plan's ints, then the lanes
+_NARGS, _NINTS, _NTOLS = 32, 12, 6
 _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
 _TOLS = ctypes.c_double * _NTOLS
@@ -131,9 +141,9 @@ def cluster_plan(M: int, N: int, dtype, blocks: int | None = None
                      f"{CLUSTER_SMEM_LIMIT}")
 
 
-def _plan_ints(plan: ClusterPlan, M: int, N: int, walk: str):
+def _plan_ints(plan: ClusterPlan, M: int, N: int, walk: str, lanes: int = 1):
     return _INTS(M, N, 0, 0, 0, 0, WALKS.index(walk), plan.blocks,
-                 plan.threads, plan.smem, RAY_SCAN_EVERY)
+                 plan.threads, plan.smem, RAY_SCAN_EVERY, lanes)
 
 
 @functools.lru_cache(maxsize=64)
@@ -206,7 +216,9 @@ def rank1_cluster(state: SimplexState, opts: SolverOptions,
     ptrs = (ins[0], out.T, ins[1], out.basis, ins[2], out.col_active, ins[3],
             out.art_cols, g_in, g_out, *ins[4:], ints, out.bland, out.last_z,
             stage_cycles)
-    args = _ARGS(*(0 if x is None else x.data_ptr() for x in ptrs))
+    # one lane: every input's lane stride 0, the int32 fields one apart
+    args = _ARGS(*(0 if x is None else x.data_ptr() for x in ptrs),
+                 *([0] * 11), 1)
     iargs = _plan_ints(plan, M, N, walk)
     iargs[2] = min(int(stall_limit), _INT_MAX)
     iargs[3] = min(int(max_iters), _INT_MAX)
@@ -221,6 +233,96 @@ def rank1_cluster(state: SimplexState, opts: SolverOptions,
         raise_on(lib, err, "rank1_cluster")
     LAUNCHES["rank1_cluster"] += 1
     return out, g_out
+
+
+def rank1_cluster_lanes(state: SimplexState, opts: SolverOptions,
+                        stall_limit: int, max_iters: int,
+                        blocks: int | None = None,
+                        stage_cycles: torch.Tensor | None = None
+                        ) -> SimplexState:
+    """Every lane of the batched ``state`` (B, M, N) on one CUDA device
+    walked by ``simplex_step`` (the primal walk: ``RULE_DEVEX`` priced as
+    Dantzig) to its own exit or to ``max_iters``, in one launch: a cluster
+    a lane (grid (C, B), cluster y = lane), each as ``rank1_cluster``'s
+    solo walk. A lane not RUNNING below its budget at the launch is copied
+    out as it is. The masks, basis and scalars are read through their lane
+    strides (the waves' broadcast rows, lane stride 0, are never
+    expanded); the caller's tensors are never written. ``blocks`` forces
+    C; ``stage_cycles`` accumulates lane 0's block 0's clock by stage."""
+    T = state.T
+    if T.dim() != 3:
+        raise ValueError(f"T: expected (B, m + 2, n + 1) frames, got "
+                         f"{tuple(T.shape)}")
+    B, M, N = T.shape
+    if T.stride(1) != N or T.stride(2) != 1:
+        raise ValueError(f"T: each lane's frame must be contiguous, stride "
+                         f"{T.stride()}")
+    dtype, dev = T.dtype, T.device
+    m, n = M - 2, N - 1
+    strides = [T.stride(0)]
+    for x, name, width, dt in ((state.basis, "basis", m, torch.int32),
+                               (state.col_active, "col_active", n,
+                                torch.bool),
+                               (state.art_cols, "art_cols", n, torch.bool)):
+        if x.dtype != dt or tuple(x.shape) != (B, width) or \
+                (width > 1 and x.stride(1) != 1):
+            raise ValueError(f"{name}: expected {dt} {(B, width)} with "
+                             f"contiguous rows, got {x.dtype} "
+                             f"{tuple(x.shape)} stride {x.stride()}")
+        strides.append(x.stride(0))
+    strides.append(0)  # no devex weights: the primal walk
+    for name, dt in (("phase", torch.int32), ("status", torch.int32),
+                     ("niter", torch.int32), ("stuck", torch.int32),
+                     ("bland", torch.bool), ("last_z", dtype)):
+        x = getattr(state, name)
+        if x.dtype != dt or tuple(x.shape) != (B,):
+            raise ValueError(f"{name}: expected {dt} ({B},), got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        strides.append(x.stride(0))
+    if dev.type != "cuda" or any(x.device != dev for x in state):
+        raise ValueError("rank1_cluster_lanes takes the state's tensors on "
+                         "one CUDA device; got "
+                         f"{sorted({str(x.device) for x in state})}")
+    if stage_cycles is not None:
+        check(stage_cycles, "stage_cycles", torch.int64,
+              (len(CLUSTER_STAGES),))
+    plan = cluster_plan(M, N, dtype, blocks)
+    if cluster_occupancy(M, N, dtype, "primal", dev, blocks) == 0:
+        raise RuntimeError(f"rank1_cluster_lanes: the card holds no cluster "
+                           f"of {plan.blocks} blocks with {plan.smem} bytes "
+                           f"of shared memory each ({M} x {N} {dtype})")
+    ints = torch.empty((B * (4 + m),), dtype=torch.int32, device=dev)
+    bools = torch.empty((B * (1 + 2 * n),), dtype=torch.bool, device=dev)
+    out = SimplexState(
+        T=torch.empty((B, M, N), dtype=dtype, device=dev),
+        basis=ints[4 * B:].view(B, m),
+        col_active=bools[B:B + B * n].view(B, n),
+        art_cols=bools[B + B * n:].view(B, n),
+        phase=ints[:B], status=ints[B:2 * B], niter=ints[2 * B:3 * B],
+        stuck=ints[3 * B:4 * B], bland=bools[:B],
+        last_z=torch.empty((B,), dtype=dtype, device=dev))
+    ptrs = (state.T, out.T, state.basis, out.basis, state.col_active,
+            out.col_active, state.art_cols, out.art_cols, None, None,
+            state.phase, state.status, state.niter, state.stuck, state.bland,
+            state.last_z, ints, out.bland, out.last_z, stage_cycles)
+    # the int32 outputs field by field: phase, status, niter, stuck, each
+    # B long
+    args = _ARGS(*(0 if x is None else x.data_ptr() for x in ptrs),
+                 *strides, B)
+    iargs = _plan_ints(plan, M, N, "primal", B)
+    iargs[2] = min(int(stall_limit), _INT_MAX)
+    iargs[3] = min(int(max_iters), _INT_MAX)
+    iargs[4] = int(opts.rule)
+    iargs[5] = int(opts.tie_break)
+    tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
+                 opts.infeas_tol, opts.feas_tol, RESET_ABOVE)
+    lib = lib_for(dev)
+    fn = getattr(lib, f"tpulp_rank1_cluster_{suffix(dtype)}")
+    err = fn(args, iargs, tols, stream_of(dev))
+    if err:
+        raise_on(lib, err, "rank1_cluster_lanes")
+    LAUNCHES["rank1_cluster_lanes"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -262,3 +364,22 @@ def rank1_cluster_reference(state: SimplexState, opts: SolverOptions,
         rank1_update_reference(rec, max_iters)
         rank1_finish_reference(rec, opts, stall_limit, max_iters)
     return record_state(rec), rec.gamma
+
+
+def rank1_cluster_lanes_reference(state: SimplexState, opts: SolverOptions,
+                                  stall_limit: int, max_iters: int,
+                                  C: int = 1) -> SimplexState:
+    """``rank1_cluster_lanes`` in plain torch: ``rank1_cluster_reference``'s
+    primal walk on each lane (a cluster of ``C`` blocks), every lane to its
+    own exit; a lane not RUNNING below its budget is left as it is."""
+    B = state.T.shape[0]
+    outs = []
+    for b in range(B):
+        lane = SimplexState(*(x[b] for x in state))
+        if _live([int(lane.phase), int(lane.status), int(lane.niter)],
+                 max_iters):
+            lane = rank1_cluster_reference(lane, opts, stall_limit,
+                                           max_iters, None, False, C)[0]
+        outs.append(lane)
+    return SimplexState(*(torch.stack([getattr(o, f) for o in outs])
+                          for f in SimplexState._fields))

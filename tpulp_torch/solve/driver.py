@@ -17,7 +17,8 @@ priced as Dantzig; first-index or largest-pivot ties),
 ``devex.run_simplex_devex`` and ``dual.run_dual_simplex``:
 
 1. the primal or dual walk of a frame resident in one block
-   (``lane_plan(M, N, dtype).resident``): ``lane_primal`` / ``lane_dual``
+   (``lane_plan(M, N, dtype).resident``, the dual walk's
+   ``lane_dual_plan``): ``lane_primal`` / ``lane_dual``
    at B = 1 (the whole walk in one launch, ``kernels.lanes``; they take no
    devex weights);
 2. otherwise, a frame that a thread-block cluster of at most 8 blocks
@@ -49,7 +50,8 @@ from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
                           SimplexState, SolverOptions, Status)
 from ..kernels.bounded_grid import GRID_SMS, GridPlanTooLarge
 from ..kernels.fma import fused_fma
-from ..kernels.lanes import lane_dual, lane_plan, lane_primal
+from ..kernels.lanes import (lane_dual, lane_dual_plan, lane_plan,
+                             lane_primal)
 from ..kernels.launch import on_cpu, sm_count
 from ..kernels.rank1 import rank1_steps
 from ..kernels.rank1_cluster import cluster_plan, rank1_cluster
@@ -298,7 +300,7 @@ def solo_route(walk: str, M: int, N: int, dtype, sms: int = GRID_SMS,
     f32 and f64, a frame out of range) raise ValueError."""
     if walk not in ("primal", "devex", "dual"):
         raise ValueError(f"unknown walk {walk!r}")
-    if walk != "devex" and _resident(M, N, dtype):
+    if walk != "devex" and _resident(M, N, dtype, walk):
         return "lane_primal" if walk == "primal" else "lane_dual"
     if _fits_cluster(M, N, dtype):
         return "rank1_cluster"
@@ -314,9 +316,10 @@ def solo_route(walk: str, M: int, N: int, dtype, sms: int = GRID_SMS,
     return "rank1_grid"
 
 
-def _resident(M: int, N: int, dtype) -> bool:
+def _resident(M: int, N: int, dtype, walk: str = "primal") -> bool:
     try:
-        return lane_plan(M, N, dtype).resident
+        plan = lane_dual_plan if walk == "dual" else lane_plan
+        return plan(M, N, dtype).resident
     except ValueError:  # a frame past the lane kernels' shared memory
         return False
 

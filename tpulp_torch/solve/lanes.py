@@ -27,13 +27,19 @@ from __future__ import annotations
 import torch
 
 from ..core.state import SimplexState, SolverOptions
-from ..kernels.lanes import lane_bounded, lane_dual, lane_primal
+from ..kernels.lanes import lane_bounded, lane_dual, lane_plan, lane_primal
 from ..kernels.launch import on_cpu
+from ..kernels.rank1_cluster import cluster_plan, rank1_cluster_lanes
 from .driver import run_chunked, simplex_step
 
-__all__ = ["run_lanes", "dual_lanes", "primal_lanes", "bounded_lanes",
-           "dual_lanes_reference", "primal_lanes_reference",
-           "bounded_lanes_reference"]
+__all__ = ["run_lanes", "dual_lanes", "primal_lanes", "primal_lanes_route",
+           "bounded_lanes", "dual_lanes_reference", "primal_lanes_reference",
+           "bounded_lanes_reference", "PRIMAL_ROUTES"]
+
+# primal_lanes' plans: lane_primal with the frame in a block's shared
+# memory, rank1_cluster_lanes (a cluster a lane, the frame in its blocks'
+# shared memory), lane_primal with the frame in device memory
+PRIMAL_ROUTES = ("resident", "cluster", "streamed")
 
 
 def run_lanes(step, state, max_iters: int, get_state=lambda s: s):
@@ -89,13 +95,42 @@ def dual_lanes(state: SimplexState, opts: SolverOptions, stall_limit: int,
     return lane_dual(state, opts, stall_limit, max_iters)
 
 
+def primal_lanes_route(M: int, N: int, dtype) -> str:
+    """The plan of ``primal_lanes`` on the card for (M, N) frames of
+    ``dtype``, whatever the lane count: "resident" (``lane_primal``, a
+    block a lane) where ``lane_plan`` keeps the frame in one block's shared
+    memory, else "cluster" (``rank1_cluster_lanes``, a cluster a lane)
+    where ``rank1_cluster.cluster_plan`` holds it in a cluster of at most 8
+    blocks, else "streamed" (``lane_primal``'s one block a lane working on
+    the frame in device memory)."""
+    try:
+        if lane_plan(M, N, dtype).resident:
+            return "resident"
+    except ValueError:  # the vectors alone past a block's shared memory
+        pass
+    try:
+        cluster_plan(M, N, dtype)
+    except ValueError:  # past 8 blocks' shared memory
+        return "streamed"
+    return "cluster"
+
+
 def primal_lanes(state: SimplexState, opts: SolverOptions, stall_limit: int,
-                 max_iters: int) -> SimplexState:
-    """Every lane's rank-1 primal loop to its exit: the lane kernel on the
-    card, the plain loop on CPU tensors."""
+                 max_iters: int, route: str | None = None) -> SimplexState:
+    """Every lane's rank-1 primal loop to its exit: on the card the kernel
+    of ``primal_lanes_route`` (``route`` forces one of ``PRIMAL_ROUTES``),
+    the plain loop on CPU tensors."""
+    if route is not None and route not in PRIMAL_ROUTES:
+        raise ValueError(f"unknown route {route!r}: expected one of "
+                         f"{PRIMAL_ROUTES}")
     if on_cpu(*state):
         return primal_lanes_reference(state, opts, stall_limit, max_iters)
-    return lane_primal(state, opts, stall_limit, max_iters)
+    if route is None:
+        route = primal_lanes_route(*state.T.shape[1:], state.T.dtype)
+    if route == "cluster":
+        return rank1_cluster_lanes(state, opts, stall_limit, max_iters)
+    return lane_primal(state, opts, stall_limit, max_iters,
+                       resident=route == "resident")
 
 
 def bounded_lanes(bs, opts: SolverOptions, stall_limit: int,
