@@ -4577,41 +4577,55 @@ def device_time_ms(fn, runs: int) -> float:
     return float(np.median(times))
 
 
-def primal_plans(st, opts, stall: int, p, dev="cuda") -> dict:
-    """7d's further holds of one primal case: the plan ``primal_lanes``
-    takes (its route); on a resident frame ``lane_primal`` on one warp and
-    on 256 threads, past it the one-block streamed plan, each bit for bit
-    the plain loop ``p``; the route's stage split on block 0's clock (lane
-    0's steps: us a stage a step, the block barriers a step)."""
+def lane_plans(kind: str, st, opts, stall: int, p, dev="cuda") -> dict:
+    """7d's further holds of one case of the ``kind`` ("primal" or "dual")
+    loop: the plan ``primal_lanes`` / ``dual_lanes`` takes (its route); on
+    a resident frame the one-block kernel on one warp and on 256 threads,
+    past it the one-block streamed plan, each bit for bit the plain loop
+    ``p``; the route's stage split on block 0's clock, block 0 given the
+    lane with the most pivots (its steps, its pivots and the step that
+    ends it: us a stage a step, the block barriers a step)."""
     import torch
 
     from tpulp_torch.kernels import lanes as kl
     from tpulp_torch.kernels.rank1_cluster import (CLUSTER_STAGES,
                                                    rank1_cluster_lanes)
-    from tpulp_torch.solve.lanes import primal_lanes_route
+    from tpulp_torch.solve.lanes import dual_lanes_route, primal_lanes_route
 
+    dual = kind == "dual"
+    one_block = kl.lane_dual if dual else kl.lane_primal
     B, M, N = st.T.shape
-    route = primal_lanes_route(M, N, st.T.dtype)
+    route = (dual_lanes_route if dual else primal_lanes_route)(
+        M, N, st.T.dtype)
     out = {"route": route, "held": []}
     if route == "resident":
         others = {f"threads {th}": dict(threads=th) for th in (32, 256)}
     else:
         others = {"streamed": dict(resident=False)}
     for label, kw in others.items():
-        lanes_equal(kl.lane_primal(st, opts, stall, opts.max_iters, **kw), p)
+        lanes_equal(one_block(st, opts, stall, opts.max_iters, **kw), p)
         out["held"].append(label)
     if dev != "cuda":
         return out
-    steps0 = max(1, int(p.niter[0] - st.niter[0]))
+    # block 0's clock on the lane with the most pivots, moved to the front
+    # (lane 0 of a warm wave may not pivot)
+    dn = p.niter - st.niter
+    first = int(torch.argmax(dn))
+    order = torch.tensor([first] + [b for b in range(B) if b != first],
+                         device=dev)
+    st = type(st)(*(x.index_select(0, order) for x in st))
+    # its steps: its pivots and, where it ended below its budget, the step
+    # that ended it
+    steps0 = max(1, int(dn[first]) + int(int(p.status[first]) != 0))
     if route == "cluster":
         names = CLUSTER_STAGES
         cyc = torch.zeros(len(names), dtype=torch.int64, device=dev)
         rank1_cluster_lanes(st, opts, stall, opts.max_iters,
-                            stage_cycles=cyc)
+                            stage_cycles=cyc, dual=dual)
     else:
         names = kl.LANE_STAGES
         cyc = torch.zeros(len(names), dtype=torch.int64, device=dev)
-        kl.lane_primal(st, opts, stall, opts.max_iters, stage_cycles=cyc)
+        one_block(st, opts, stall, opts.max_iters, stage_cycles=cyc)
     sync(dev)
     hz = sm_clock_hz()
     vals = dict(zip(names, cyc.tolist()))
@@ -4628,7 +4642,8 @@ def lane_run(kind: str, st, opts, runs: int, plain_runs: int,
     """Phase 7d's check of one loop on one batched state: the kernel and
     its plain loop, held bit for bit; CUDA-event medians of ``runs``
     kernel calls and ``plain_runs`` plain calls (the call time, host work
-    included) and of ``runs`` kernel calls on the card alone
+    included; the first plain call is the one held) and of ``runs``
+    kernel calls on the card alone
     (``device_time_ms``); the steps (the longest lane's pivots), the
     pivots, the bound. Returns (kernel state, plain state, stats)."""
     import torch
@@ -4648,15 +4663,25 @@ def lane_run(kind: str, st, opts, runs: int, plain_runs: int,
     k = fn(st, opts, stall, opts.max_iters)
     sync(dev)
     launches = {name: v for name, v in LAUNCHES.items() if v}
+    # the plain loop's call that the kernel is held to is also the first of
+    # its ``plain_runs`` timed calls (CUDA events)
+    plain = [] if dev != "cuda" else [torch.cuda.Event(enable_timing=True),
+                                      torch.cuda.Event(enable_timing=True)]
+    if plain:
+        plain[0].record()
     p = ref_fn(st, opts, stall, opts.max_iters)
+    if plain:
+        plain[1].record()
     sync(dev)
     err = lanes_equal(k, p)
-    extra = {} if kind == "dual" else primal_plans(st, opts, stall, p, dev)
+    extra = lane_plans(kind, st, opts, stall, p, dev)
     # a CPU rehearsal times nothing
     timed = cuda_time_ms if dev == "cuda" else lambda fn, runs: None
     ms = timed(lambda: fn(st, opts, stall, opts.max_iters), runs)
-    plain_ms = timed(lambda: ref_fn(st, opts, stall, opts.max_iters),
-                     plain_runs)
+    plain_ms = None if not plain else float(np.median(
+        [plain[0].elapsed_time(plain[1])] + [
+            timed(lambda: ref_fn(st, opts, stall, opts.max_iters), 1)
+            for _ in range(plain_runs - 1)]))
     device_ms = None if dev != "cuda" else device_time_ms(
         lambda: fn(st, opts, stall, opts.max_iters), runs)
     dn = (k.niter - st.niter).cpu()
@@ -4781,15 +4806,17 @@ def phase_lane_kernels(dev="cuda"):
     (NUMERIC), 7c's scenarios cold in phase 1 under Dantzig and under the
     greatest increase with largest-pivot ties, small mixed-sign LPs whose
     phase 2 pivots basic artificials out and retires others, and lanes of
-    258 x 513 (primal then dual). Each primal case runs ``primal_lanes``'
-    route (resident: ``lane_primal``; the 258 x 513 frames: the cluster
-    lanes, with 0 one-block launches) and is held again on the other plans
-    (resident: one warp and 256 threads; else the one-block streamed plan),
-    with the route's stage split on block 0's clock. Each case is timed
-    (CUDA events); the knapsack's cold and warm waves at f64 are the
-    headline. Then (w) 128 lanes of 258 x 513 on both plans past a block in
-    turns, (t) tests/test_torch_lanes_card.py in a pytest process of its
-    own, and (m) the cluster lanes' main path, ``solve_lp_batch`` over
+    258 x 513 (primal then dual). Each case runs its loop's route
+    (``primal_lanes_route`` / ``dual_lanes_route``; resident: ``lane_primal``
+    / ``lane_dual``; the 258 x 513 frames: the cluster lanes' primal or
+    dual walk, with 0 one-block launches) and is held again on the other
+    plans (resident: one warp and 256 threads; else the one-block streamed
+    plan), with the route's stage split on block 0's clock and its block
+    barriers a step. Each case is timed (CUDA events); the knapsack's cold
+    and warm waves at f64 are the headline. Then (w) 128 lanes of 258 x 513
+    on both plans past a block in turns, for the primal loop and for the
+    dual loop, (t) tests/test_torch_lanes_card.py in a pytest process of
+    its own, and (m) the cluster lanes' main path, ``solve_lp_batch`` over
     258 x 513 frames."""
     import dataclasses as dc
 
@@ -4867,10 +4894,8 @@ def phase_lane_kernels(dev="cuda"):
         _, d = run("streamed_warm", "dual", warm_s, opts)
         run("streamed_warm_cleanup", "primal", reopened(d), opts)
         for label, st in cases.items():
-            if st["kind"] != "primal":
-                continue
             want = "cluster" if label.startswith("streamed") else "resident"
-            one_block = st["launches"].get("lane_primal", 0)
+            one_block = st["launches"].get(f"lane_{st['kind']}", 0)
             clusters = st["launches"].get("rank1_cluster_lanes", 0)
             counted = dev == "cuda" and ((want == "cluster" and (
                 one_block or clusters != 1)) or (want == "resident" and (
@@ -4879,11 +4904,13 @@ def phase_lane_kernels(dev="cuda"):
                 raise AssertionError(
                     f"7d {label} {name}: the route {st['route']} with "
                     f"launches {st['launches']}; the knapsack's frames "
-                    "must run lane_primal's resident plan and the 258 x "
-                    "513 frames the cluster lanes, with 0 one-block "
+                    f"must run lane_{st['kind']}'s resident plan and the "
+                    "258 x 513 frames the cluster lanes, with 0 one-block "
                     "launches")
         if dt == torch.float64:
-            cases["wide_128"] = wide_lanes_turns(dev)
+            wide = wide_states(dev)
+            cases["wide_128"] = wide_lanes_turns(wide, dev)
+            cases["wide_128_dual"] = wide_lanes_turns(wide, dev, dual=True)
         res[name] = cases
     res["card_tests"] = lanes_card_tests(dev)
     res["cluster_main_path"] = cluster_lanes_main_path(dev)
@@ -4895,31 +4922,51 @@ def phase_lane_kernels(dev="cuda"):
 LANE_WIDE_LANES = 128
 
 
-def wide_lanes_turns(dev="cuda") -> dict:
-    """7d (w): LANE_WIDE_LANES lanes of 258 x 513 f64 on both plans past a
-    block's shared memory, the cluster lanes (primal_lanes' route) and
-    lane_primal's one block a lane, each held bit for bit against the
-    plain loop, then timed on the card alone in turns (cluster, one block,
-    one block, cluster)."""
+def wide_states(dev="cuda"):
+    """7d (w)'s cold frames: LANE_WIDE_LANES LPs of LANE_STREAM_M x
+    LANE_STREAM_N with their slacks (258 x 513 frames), f64."""
+    import torch
+
+    from tpulp_torch.batch import make_batched_states
+
+    return make_batched_states(
+        [scenario_form(*dense_leq_arrays(LANE_STREAM_M, LANE_STREAM_N,
+                                         seed=k))
+         for k in range(LANE_WIDE_LANES)], dtype=torch.float64, device=dev)
+
+
+def wide_lanes_turns(st, dev="cuda", dual: bool = False) -> dict:
+    """7d (w): the lanes of ``st`` (``wide_states``) on both plans past a
+    block's shared memory, the cluster lanes (the route) and the one-block
+    kernel a lane, each held bit for bit against the plain loop, then
+    timed on the card alone in turns (cluster, one block, one block,
+    cluster): the primal loop from the cold frames, or with ``dual`` the
+    dual loop from their optimal frames with one row each tightened (as
+    7d's streamed_warm)."""
     import torch
 
     from tpulp_torch import SolverOptions
-    from tpulp_torch.batch import make_batched_states
     from tpulp_torch.solve import lanes
 
-    dt = torch.float64
-    st = make_batched_states(
-        [scenario_form(*dense_leq_arrays(LANE_STREAM_M, LANE_STREAM_N,
-                                         seed=k))
-         for k in range(LANE_WIDE_LANES)], dtype=dt, device=dev)
+    dt = st.T.dtype
     opts = SolverOptions.for_dtype(dt)
     stall = opts.resolved_stall_limit(LANE_STREAM_M, LANE_STREAM_M
                                       + LANE_STREAM_N)
-    p = lanes.primal_lanes_reference(st, opts, stall, opts.max_iters)
+    loop, ref_fn = lanes.primal_lanes, lanes.primal_lanes_reference
+    if dual:
+        solved = lanes.primal_lanes(st, opts, stall, opts.max_iters)
+        rng = np.random.default_rng(LANE_SEED)
+        rows = rng.integers(0, LANE_STREAM_M, size=LANE_WIDE_LANES)
+        scale = torch.tensor(rng.uniform(0.5, 1.5, size=LANE_WIDE_LANES),
+                             dtype=dt, device=dev)
+        st = rewritten(
+            solved, torch.as_tensor(LANE_STREAM_N + rows, device=dev),
+            -scale * solved.T[:, 2:, -1].abs().amax(dim=1))
+        loop, ref_fn = lanes.dual_lanes, lanes.dual_lanes_reference
+    p = ref_fn(st, opts, stall, opts.max_iters)
     routes = {"cluster": None, "streamed": None}
     for route in routes:
-        routes[route] = lanes.primal_lanes(st, opts, stall, opts.max_iters,
-                                           route=route)
+        routes[route] = loop(st, opts, stall, opts.max_iters, route=route)
         sync(dev)
         lanes_equal(routes[route], p)
     steps = int((p.niter - st.niter).max())
@@ -4928,23 +4975,25 @@ def wide_lanes_turns(dev="cuda") -> dict:
     # each frame read and written once; one fma a tableau entry a pivot
     bound_ms, bound_by = bound(2.0 * B * M * N * 8, 2.0 * pivots * M * N,
                                FP64_FLOP_S)
-    out = {"lanes": LANE_WIDE_LANES, "frame": [M, N], "steps": steps,
-           "pivots": pivots, "bound_ms": bound_ms, "bound_by": bound_by,
-           "route": lanes.primal_lanes_route(M, N, dt)}
+    route_of = lanes.dual_lanes_route if dual else lanes.primal_lanes_route
+    kind = "dual" if dual else "primal"
+    out = {"kind": kind, "lanes": LANE_WIDE_LANES, "frame": [M, N],
+           "steps": steps, "pivots": pivots, "bound_ms": bound_ms,
+           "bound_by": bound_by, "route": route_of(M, N, dt)}
     if dev != "cuda":
         return out
     turns = {"cluster": [], "streamed": []}
     for route in ("cluster", "streamed", "streamed", "cluster"):
-        turns[route].append(device_time_ms(lambda: lanes.primal_lanes(
+        turns[route].append(device_time_ms(lambda: loop(
             st, opts, stall, opts.max_iters, route=route), 5))
     for route, ms in turns.items():
         out[route] = {"device_ms": ms,
                       "us_per_step": [1e3 * t / steps for t in ms]}
-    log(f"# 7d (w) {LANE_WIDE_LANES} lanes of {tuple(out['frame'])} f64, "
-        f"{steps} steps, {pivots} pivots (bound {bound_ms:.5f} ms, "
-        f"{bound_by}), each plan bit for bit the plain loop: the cluster "
-        f"lanes {turns['cluster']} ms, lane_primal's one block a lane "
-        f"{turns['streamed']} ms (device, in turns); the route "
+    log(f"# 7d (w) {kind} loop, {LANE_WIDE_LANES} lanes of "
+        f"{tuple(out['frame'])} f64, {steps} steps, {pivots} pivots (bound "
+        f"{bound_ms:.5f} ms, {bound_by}), each plan bit for bit the plain "
+        f"loop: the cluster lanes {turns['cluster']} ms, lane_{kind}'s one "
+        f"block a lane {turns['streamed']} ms (device, in turns); the route "
         f"{out['route']}")
     return out
 
@@ -6602,9 +6651,12 @@ def bounded_lane_cases(dev="cuda"):
         res[name] = cases
     if dev == "cuda":
         # a plan whose byte count is not the kernel's: the launch refuses it
+        # (the wrappers' cache of launch plans emptied before, so that the
+        # launch plans afresh, and after, so that no later launch reuses it)
         real = klanes.lane_bounded_plan
         klanes.lane_bounded_plan = lambda M, N, dt, *a: real(
             M, N, dt, *a)._replace(smem=real(M, N, dt, *a).smem + 16)
+        klanes._CALLS.clear()
         try:
             bounded_lane_run(box, opts, 1, 1, dev, False)
         except RuntimeError:
@@ -6614,6 +6666,7 @@ def bounded_lane_cases(dev="cuda"):
                                  "launched")
         finally:
             klanes.lane_bounded_plan = real
+            klanes._CALLS.clear()
         log("# 8b lane_bounded refuses a plan whose byte count is not the "
             "kernel's")
     return res
@@ -8595,6 +8648,8 @@ def main() -> int:
                      for case, st in lane_cases[dt].items()
                      if st.get("route") == "cluster"}
             cases["wide_128 float64"] = lane_cases["float64"]["wide_128"]
+            cases["wide_128_dual float64"] = lane_cases["float64"][
+                "wide_128_dual"]
         elif kname.startswith("lane_"):
             # the headline: the f64 bench knapsack's warm wave (the dual
             # loop) and cold wave (the primal loop), 128 lanes of 59 x 114
@@ -8657,9 +8712,9 @@ def main() -> int:
                for path in ("lp_batch_batch", "milp_batch")}}
         head = lane_cases["float64"]["knapsack_warm" if k == 3
                                      else "knapsack_cold"]
-        kernels[k].update({key: head[key] for key in (
+        kernels[k].update({key: head.get(key) for key in (
             "us_per_step", "device_ms", "device_us_per_step", "steps",
-            "pivots")})
+            "pivots", "threads", "stage_us_per_step", "barriers_per_step")})
     kernels[5].update({key: kernels[5]["cases"][
         "too wide for the grid float64 (z)"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
@@ -8844,13 +8899,22 @@ def main() -> int:
     kernels[17]["launches_by_path"] = {
         f"7d_{case}_{dt}": lane_cases[dt][case]["launches"].get(
             "rank1_cluster_lanes", 0)
-        for dt in ("float64", "float32") for case in ("streamed_cold",
-                                                      "streamed_warm_cleanup")}
-    kernels[4]["one_block_launches_on_the_cluster_route"] = {
-        f"7d_{case}_{dt}": lane_cases[dt][case]["launches"].get(
-            "lane_primal", 0)
-        for dt in ("float64", "float32") for case in ("streamed_cold",
-                                                      "streamed_warm_cleanup")}
+        for dt in ("float64", "float32") for case in (
+            "streamed_cold", "streamed_warm", "streamed_warm_cleanup")}
+    # the cluster lanes' dual walk: 7d's streamed_warm (the dual loop on
+    # 258 x 513 frames, dual_lanes' route)
+    kernels[17]["dual_walk"] = {
+        key: lane_cases["float64"]["streamed_warm"].get(key)
+        for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "device_ms", "device_us_per_step", "steps",
+                    "pivots", "stage_us_per_step")}
+    for k, kind, cs in ((4, "primal", ("streamed_cold",
+                                       "streamed_warm_cleanup")),
+                        (3, "dual", ("streamed_warm",))):
+        kernels[k]["one_block_launches_on_the_cluster_route"] = {
+            f"7d_{case}_{dt}": lane_cases[dt][case]["launches"].get(
+                f"lane_{kind}", 0)
+            for dt in ("float64", "float32") for case in cs}
     kernels[4]["card_tests"] = lane_cases["card_tests"]
     kernels[13]["walk_10c"] = {
         key: batch_mesh["spans"][key] for key in ("walk_seconds", "waves",
@@ -8872,7 +8936,7 @@ def main() -> int:
                      (15, tuple(RANK1_GRID_KERNELS.values())),
                      (16, tuple(BLOCKED_GRID_KERNELS.values())),
                      (17, tuple(v for v in CLUSTER_KERNELS.values()
-                                if v.endswith("primal>")))):
+                                if v.endswith(("primal>", "dual>"))))):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

@@ -450,14 +450,15 @@ PLAN_CASES = {
     "small_f64": ((14, 23, torch.float64), (True, 32, 3_072)),
 }
 
-# lane_dual's plan: the frame whole, 256 threads
+# lane_dual's plan: lane_primal's layout and block (the kernels share one
+# layout)
 DUAL_PLAN_CASES = {
-    "knapsack_f64": ((59, 114, torch.float64), (True, 256, 55_696)),
-    "knapsack_f32": ((59, 114, torch.float32), (True, 256, 28_112)),
-    "scenarios_f64": ((66, 193, torch.float64), (True, 256, 104_624)),
-    "streamed_f64": ((258, 513, torch.float64), (False, 256, 8_224)),
-    "streamed_f32": ((258, 513, torch.float32), (False, 256, 5_152)),
-    "small_f64": ((14, 23, torch.float64), (True, 256, 2_992)),
+    "knapsack_f64": ((59, 114, torch.float64), (True, 256, 55_520)),
+    "knapsack_f32": ((59, 114, torch.float32), (True, 256, 28_128)),
+    "scenarios_f64": ((66, 193, torch.float64), (True, 192, 104_384)),
+    "streamed_f64": ((258, 513, torch.float64), (False, 256, 9_264)),
+    "streamed_f32": ((258, 513, torch.float32), (False, 256, 6_192)),
+    "small_f64": ((14, 23, torch.float64), (True, 32, 3_072)),
 }
 
 

@@ -13,8 +13,10 @@ hits and entering flips; span-encoded knapsack nodes. Each redesigned
 kernel runs on both of its resident plans (one warp, and 256 threads),
 on its streamed plan, with a lane frozen at the launch (one not RUNNING,
 one at its budget), at a budget of 1 and with the waves' broadcast masks
-(lane stride 0); the cluster lanes at every cluster size the frame
-allows; ``primal_lanes`` on each of its three routes.
+(lane stride 0); the dual loop also under a stall limit of 1 (the Bland
+switch) and with a NaN lane and an overflowing one; the cluster lanes'
+primal and dual walks at every cluster size the frame allows;
+``primal_lanes`` and ``dual_lanes`` on each of their three routes.
 
 Every test here needs a CUDA card (the ``cuda`` marker) and skips without
 one. The file imports neither jax nor tpulp, so that it runs on a machine
@@ -640,3 +642,107 @@ def test_cuda_primal_lanes_routes(route):
     p = lanes.primal_lanes_reference(st, opts, stall, opts.max_iters)
     torch.cuda.synchronize()
     assert_same(k, p)
+
+
+# ---------------------------------------------------------------------------
+# the dual loop: lane_dual's plans, the cluster lanes' dual walk, the routes
+# ---------------------------------------------------------------------------
+
+def numeric_lanes(st: SimplexState, tt) -> SimplexState:
+    """chip_smoke.py 7d's knapsack_numeric lanes on these frames: a NaN in
+    lane 0's b and two entries of lane 1's b at the type's largest / 1.5
+    (their |b| sum overflows)."""
+    T = st.T.clone()
+    T[0, 3, -1] = float("nan")
+    T[1, 3:5, -1] = torch.finfo(tt).max / 1.5
+    return st._replace(T=T)
+
+
+def dual_cases(tt):
+    """(label, state on the card, options): the warm frames under Dantzig
+    and the Bland switch, the numeric lanes, a frozen lane, a budget of 1
+    and the broadcast masks."""
+    base = SolverOptions.for_dtype(tt, max_iters=300)
+    st = on_card(dual_state(), tt)
+    yield "dantzig", st, base
+    yield "stall_bland", st, dataclasses.replace(base, stall_limit=1,
+                                                  degen_tol=1e300)
+    yield "numeric", numeric_lanes(st, tt), base
+    yield "frozen", frozen(st, 300), base
+    yield "budget_1", st, dataclasses.replace(base, max_iters=1)
+    yield "broadcast_masks", broadcast(st), base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["one_warp", "threads_256", "streamed"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_lane_dual_plans(dtype, plan):
+    """lane_dual on one warp, on 256 threads and on the streamed plan
+    against the plain loop; the masks are the input's."""
+    _card()
+    tt = getattr(torch, dtype)
+    kw = {"one_warp": dict(threads=32), "threads_256": dict(threads=256),
+          "streamed": dict(resident=False)}[plan]
+    for label, st, opts in dual_cases(tt):
+        stall = stall_of(st, opts)
+        k = kl.lane_dual(st, opts, stall, opts.max_iters, **kw)
+        p = lanes.dual_lanes_reference(st, opts, stall, opts.max_iters)
+        torch.cuda.synchronize()
+        assert_same(k, p, label)
+        assert k.col_active is st.col_active, label
+        if label == "numeric":
+            assert k.status[:2].tolist() == [Status.NUMERIC] * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_dual_cluster_lanes(dtype):
+    """rank1_cluster_lanes' dual walk at every cluster size the frame
+    allows against the plain loop and against its own plain version at
+    that size."""
+    _card()
+    tt = getattr(torch, dtype)
+    for label, st, opts in dual_cases(tt):
+        stall = stall_of(st, opts)
+        _, M, N = st.T.shape
+        p = lanes.dual_lanes_reference(st, opts, stall, opts.max_iters)
+        for C in kc.CLUSTER_SIZES:
+            try:
+                kc.cluster_plan(M, N, tt, C)
+            except ValueError:
+                continue
+            k = kc.rank1_cluster_lanes(st, opts, stall, opts.max_iters,
+                                       blocks=C, dual=True)
+            torch.cuda.synchronize()
+            assert_same(k, p, f"{label} C {C}")
+            assert k.col_active is st.col_active, label
+        if label in ("dantzig", "numeric", "frozen"):
+            cpu = SimplexState(*(x.cpu() for x in st))
+            r = kc.rank1_cluster_lanes_reference(cpu, opts, stall,
+                                                 opts.max_iters, 2, dual=True)
+            assert_same(SimplexState(*(x.cpu() for x in k)), r, label)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", lanes.DUAL_ROUTES)
+def test_cuda_dual_lanes_routes(route):
+    """dual_lanes on each of its routes, forced, against the plain loop
+    (f64), and the warm waves' two loops (``_dual_then_primal``) on the
+    frames' own route."""
+    _card()
+    st = on_card(dual_state(numeric=True), torch.float64)
+    opts = SolverOptions.for_dtype(torch.float64, max_iters=300)
+    stall = stall_of(st, opts)
+    k = lanes.dual_lanes(st, opts, stall, opts.max_iters, route=route)
+    p = lanes.dual_lanes_reference(st, opts, stall, opts.max_iters)
+    torch.cuda.synchronize()
+    assert_same(k, p)
+    both = pdual._dual_then_primal(st, opts, stall, opts.max_iters)
+    plain = lanes.primal_lanes_reference(
+        p._replace(status=torch.where(p.status == Status.OPTIMAL,
+                                      Status.RUNNING, p.status)),
+        opts, stall, opts.max_iters)
+    torch.cuda.synchronize()
+    assert_same(both, plain._replace(status=torch.where(
+        plain.status == Status.RUNNING, Status.ITERATION_LIMIT,
+        plain.status)))

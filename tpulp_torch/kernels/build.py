@@ -146,7 +146,8 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = [_P, _P, _P, _P, _D, _L, _P, _P]
         fn.restype = _I
     for name in ("tpulp_lane_dual_f32", "tpulp_lane_dual_f64",
-                 "tpulp_lane_primal_f32", "tpulp_lane_primal_f64"):
+                 "tpulp_lane_primal_f32", "tpulp_lane_primal_f64",
+                 "tpulp_lane_bounded_f32", "tpulp_lane_bounded_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I

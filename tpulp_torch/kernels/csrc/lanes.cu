@@ -35,12 +35,10 @@
 // otherwise the block works on its output frame in device memory (through
 // L2), with the same code.
 //
-// lane_dual_kernel (solve/dual.py::dual_simplex_step) reduces with
-// common.cuh's block_reduce (two barriers a reduction; 256 threads).
-//
-// lane_primal_kernel (solve/driver.py::simplex_step) and
-// lane_bounded_kernel (solve/bounded.py::bounded_simplex_step) take one
-// barrier a decision:
+// The three kernels (lane_dual_kernel: solve/dual.py::dual_simplex_step;
+// lane_primal_kernel: solve/driver.py::simplex_step; lane_bounded_kernel:
+// solve/bounded.py::bounded_simplex_step) share one layout, one load and
+// store, and take one barrier a decision:
 // - Key reductions (common.cuh's okey and warp_arg over redux.sync: the
 //   sequential argmin exactly, NaN first, ties to the first index) into
 //   scratch owned by each call site; on a block of one warp no block
@@ -63,6 +61,23 @@
 //   thread a row) meets every bank once.
 // - A block has 32 to 256 threads from the frame's width
 //   (kernels/lanes.py::lane_threads), so 10c's 3 x 30 nodes run one warp.
+//
+// lane_dual_kernel folds the next step's row scan into the pivot: the
+// leaving row's decision (the argmin of b, NaN first; the first row below
+// -feas_tol for Bland; the |b| sum) is one key reduction over the rows'
+// partials that the previous update left (the thread of row i writes the
+// new b_i into the other RHS buffer and offers it), which also takes the
+// objective row's |c| sum over the active columns (each column's owner adds
+// its new entry as it pivots it). The entering column's decision (the
+// first-index argmin of crow / -T[r, k] over the active T[r, k] < -piv_tol,
+// NaN first, and the first eligible column) is the second reduction. The
+// update reads the pivot's column where it stands in the frame: its owner
+// leaves it until after the next reduction, then writes the unit vector.
+// The pivot step's stall counter (against the dual objective) and status
+// are finished after the next reduction; a step that does not pivot ends
+// the lane at once (without the plain step's redirected pivot on (row 2,
+// basis[0]), which on a unit column changes no value). A dual step passes
+// two block barriers.
 //
 // lane_bounded_kernel steps the bounded step the same way: the clean-up
 // and the retire; Dantzig or devex pricing (c^2 / gamma over the improving
@@ -111,7 +126,7 @@ enum BoundedPtr {
   A_UPPER = A_NARGS, A_AT_IN, A_AT_OUT, A_GAMMA_IN, A_GAMMA_OUT, A_ST_UPPER, A_ST_AT,
   A_ST_GAMMA, A_BNARGS
 };
-// then (every kind; lane_dual ignores it) block 0's stage clock, or null
+// then (every kind) block 0's stage clock, or null
 enum ClockPtr { A_CYCLES = A_BNARGS, A_ALLARGS };
 enum LaneInt { I_B, I_M, I_N, I_STALL, I_MAXIT, I_RULE, I_TIE, I_RESIDENT, I_THREADS, I_SMEM, I_NINTS };
 enum LaneTol { D_OPT, D_PIV, D_DEGEN, D_INFEAS, D_FEAS, D_NTOLS };
@@ -124,8 +139,8 @@ struct LaneParams {
   int* basis_out;
   const unsigned char* act_in;
   const unsigned char* art_in;
-  unsigned char* act_out;  // primal only
-  unsigned char* art_out;  // primal only
+  unsigned char* act_out;  // primal and bounded only
+  unsigned char* art_out;  // primal and bounded only
   const int* phase_in;
   const int* status_in;
   const int* niter_in;
@@ -140,7 +155,7 @@ struct LaneParams {
   T* lastz_out;
   long long st_T, st_basis, st_act, st_art, st_phase, st_status, st_niter, st_stuck, st_bland,
       st_lastz;
-  long long* cycles;  // (S_NSTAGES,) lane_primal / lane_bounded: block 0's clock, or null
+  long long* cycles;  // (S_NSTAGES,) block 0's clock, or null
   int M, N, stall_limit, max_iters, rule, tie;
   // the tolerances rounded to T: the plain step compares T tensors with
   // Python floats, which torch rounds to the tensor's type
@@ -148,106 +163,6 @@ struct LaneParams {
 };
 
 __host__ __device__ __forceinline__ long long align16(long long x) { return (x + 15) / 16 * 16; }
-
-// The dynamic shared memory of a lane: [frame (RESIDENT)] col, prow,
-// basis, active mask, artificial mask; each segment 16-byte aligned.
-template <typename T>
-__host__ __device__ __forceinline__ long long lane_smem_bytes(int M, int N, bool resident) {
-  const long long m = M - 2, n = N - 1;
-  long long bytes = align16((long long)M * sizeof(T)) + align16((long long)N * sizeof(T)) +
-                    align16(4 * m) + 2 * align16(n);
-  if (resident) bytes += align16((long long)M * N * sizeof(T));
-  return bytes;
-}
-
-template <typename T>
-struct Lane {
-  T* tab;  // the frame: shared memory (RESIDENT) or the output in device memory
-  T* colv;
-  T* prow;
-  int* basis;
-  unsigned char* act;
-  unsigned char* art;
-};
-
-template <typename T, bool RESIDENT>
-__device__ Lane<T> lane_layout(const LaneParams<T>& p, unsigned char* dyn) {
-  Lane<T> L;
-  long long off = 0;
-  if (RESIDENT) {
-    L.tab = (T*)dyn;
-    off = align16((long long)p.M * p.N * sizeof(T));
-  } else {
-    L.tab = p.T_out + (long long)blockIdx.x * p.M * p.N;
-  }
-  L.colv = (T*)(dyn + off);
-  off += align16((long long)p.M * sizeof(T));
-  L.prow = (T*)(dyn + off);
-  off += align16((long long)p.N * sizeof(T));
-  L.basis = (int*)(dyn + off);
-  off += align16(4LL * (p.M - 2));
-  L.act = dyn + off;
-  off += align16(p.N - 1);
-  L.art = dyn + off;
-  return L;
-}
-
-// The lane's frame, basis and masks from the inputs; then a barrier.
-template <typename T>
-__device__ void load_lane(const LaneParams<T>& p, const Lane<T>& L) {
-  const long long lane = blockIdx.x;
-  const int MN = p.M * p.N, m = p.M - 2, n = p.N - 1;
-  const T* src = p.T_in + lane * p.st_T;
-  for (int e = threadIdx.x; e < MN; e += blockDim.x) L.tab[e] = src[e];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) L.basis[i] = p.basis_in[lane * p.st_basis + i];
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    L.act[k] = p.act_in[lane * p.st_act + k] != 0;
-    L.art[k] = p.art_in[lane * p.st_art + k] != 0;
-  }
-  __syncthreads();
-}
-
-// The frame and basis back to the outputs (the scalars are thread 0's).
-template <typename T, bool RESIDENT>
-__device__ void store_lane(const LaneParams<T>& p, const Lane<T>& L, bool masks) {
-  const long long lane = blockIdx.x;
-  const int MN = p.M * p.N, m = p.M - 2, n = p.N - 1;
-  if (RESIDENT) {
-    T* dst = p.T_out + lane * MN;
-    for (int e = threadIdx.x; e < MN; e += blockDim.x) dst[e] = L.tab[e];
-  }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) p.basis_out[lane * m + i] = L.basis[i];
-  if (masks) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      p.act_out[lane * n + k] = L.act[k];
-      p.art_out[lane * n + k] = L.art[k];
-    }
-  }
-}
-
-// The Gauss-Jordan pivot on global row rg, column j, as
-// driver.pivot_update computes it; basis[rg - 2] = j. Starts after a
-// barrier (every read of the frame done) and ends with one.
-template <typename T>
-__device__ void pivot(const Lane<T>& L, int M, int N, int rg, int j) {
-  T* tab = L.tab;
-  const T rinv = div_rn(T(1), tab[(long long)rg * N + j]);
-  for (int i = threadIdx.x; i < M; i += blockDim.x) L.colv[i] = tab[(long long)i * N + j];
-  for (int k = threadIdx.x; k < N; k += blockDim.x) L.prow[k] = mul_rn(tab[(long long)rg * N + k], rinv);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int i = warp; i < M; i += nw) {
-    T* row = tab + (long long)i * N;
-    const T nc = -L.colv[i];
-    if (i == rg) {
-      for (int k = lane; k < N; k += 32) row[k] = k == j ? T(1) : L.prow[k];
-    } else {
-      for (int k = lane; k < N; k += 32) row[k] = k == j ? T(0) : fma(nc, L.prow[k], row[k]);
-    }
-  }
-  if (threadIdx.x == 0) L.basis[rg - 2] = j;
-  __syncthreads();
-}
 
 struct Scalars {
   int phase, status, niter, stuck;
@@ -280,77 +195,7 @@ __device__ Scalars load_scalars(const LaneParams<T>& p, T& last_z) {
 }
 
 // ---------------------------------------------------------------------------
-// the dual simplex (solve/dual.py::dual_simplex_step)
-// ---------------------------------------------------------------------------
-
-// Over b = T[2:, -1]: argmin (v, i), the first row below -feas_tol (a) and
-// the sum of |b| (s).
-template <typename T>
-__device__ Red<T> dual_rows(const LaneParams<T>& p, const Lane<T>& L, Red<T>* scratch) {
-  const int N = p.N, m = p.M - 2;
-  Red<T> x = red_identity<T>(false);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const T b = L.tab[(long long)(i + 2) * N + N - 1];
-    offer(x, b, i, false);
-    if (b < -p.feas_tol) x.a = min(x.a, i);
-    x.s = add_rn(x.s, T(fabs(b)));
-  }
-  return block_reduce(x, scratch, false);
-}
-
-template <typename T, bool RESIDENT>
-__global__ void __launch_bounds__(LANE_MAX_THREADS) lane_dual_kernel(LaneParams<T> p) {
-  __shared__ Red<T> scratch[33];
-  extern __shared__ __align__(16) unsigned char lane_dyn[];
-  const Lane<T> L = lane_layout<T, RESIDENT>(p, lane_dyn);
-  const int N = p.N, m = p.M - 2, n = p.N - 1;
-  load_lane(p, L);
-  T last_z;
-  Scalars s = load_scalars(p, last_z);
-
-  Red<T> rows = dual_rows(p, L, scratch);
-  while (s.status == ST_RUNNING && s.niter < p.max_iters) {
-    // leaving row: the most negative b; the first negative under Bland
-    const bool feasible = rows.a == BIG_I;
-    const int r = s.bland ? (feasible ? m - 1 : rows.a) : rows.i;
-    // entering column: the dual ratio crow / -row over row < -piv_tol
-    const T* rrow = L.tab + (long long)(r + 2) * N;
-    Red<T> cols = red_identity<T>(false);
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      const T crow = L.tab[k];
-      const bool act = L.act[k];
-      const T rv = rrow[k];
-      if (act && rv < -p.piv_tol) offer(cols, div_rn(crow, -rv), k, false);
-      if (act) cols.s = add_rn(cols.s, T(fabs(crow)));
-    }
-    cols = block_reduce(cols, scratch, false);
-    const bool has_elig = cols.i != BIG_I;
-    // ties to the first index; a NaN minimum leaves no tie (argmax -> 0)
-    const int j = (has_elig && !is_nan(cols.v)) ? cols.i : 0;
-    const bool do_pivot = !feasible && has_elig;
-    if (do_pivot) pivot(L, p.M, N, r + 2, j);
-    // stall detection against the dual objective
-    const T z = -L.tab[N - 1];
-    if (do_pivot) {
-      const bool improved = sub_rn(z, last_z) > p.degen_tol;
-      s.stuck = improved ? 0 : s.stuck + 1;
-      last_z = z;
-      rows = dual_rows(p, L, scratch);
-    }
-    s.bland = s.bland || s.stuck >= p.stall_limit;
-    const bool finite_ok = finite_val(z) && finite_val(rows.s) && finite_val(cols.s);
-    s.status = !finite_ok ? ST_NUMERIC
-               : (!feasible && !has_elig) ? ST_INFEASIBLE
-               : feasible ? ST_OPTIMAL
-                          : ST_RUNNING;
-    s.niter += do_pivot;
-  }
-  store_lane<T, RESIDENT>(p, L, false);
-  store_scalars(p, s, last_z);
-}
-
-// ---------------------------------------------------------------------------
-// lane_primal and lane_bounded: one barrier a decision
+// the lane kernels' shared machinery: one barrier a decision
 // ---------------------------------------------------------------------------
 
 constexpr int LANE_MAX_WARPS = LANE_MAX_THREADS / 32;
@@ -452,19 +297,38 @@ __device__ Walk<T> walk_layout(const LaneParams<T>& p, unsigned char* dyn, bool 
   return L;
 }
 
+// The rows a warp of load_walk has in flight: their loads are issued before
+// any of their stores, so that a lane's load waits on device memory's
+// latency a few times, not once a row.
+constexpr int LOAD_ROWS = 8;
+
 // The lane's frame (a warp a row: its n columns, and column N - 1 into the
-// first RHS), basis and masks from the inputs; the caller's barrier follows.
+// first RHS; LOAD_ROWS rows at a time), basis and masks from the inputs;
+// the caller's barrier follows.
 template <typename T>
 __device__ void load_walk(const LaneParams<T>& p, const Walk<T>& L) {
   const long long lane = blockIdx.x;
   const int M = p.M, N = p.N, m = M - 2, n = N - 1;
   const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const T* src = p.T_in + lane * p.st_T;
-  for (int i = warp; i < M; i += nw) {
-    const T* row = src + (long long)i * N;
-    T* dst = L.tab + (long long)i * L.pitch;
-    for (int k = ln; k < n; k += 32) dst[k] = row[k];
-    if (ln == 0) L.rhs[0][i] = row[N - 1];
+  for (int i0 = warp; i0 < M; i0 += LOAD_ROWS * nw) {
+    for (int k = ln; k < N; k += 32) {
+      T v[LOAD_ROWS];
+#pragma unroll
+      for (int u = 0; u < LOAD_ROWS; ++u) {
+        const int i = i0 + u * nw;
+        v[u] = i < M ? src[(long long)i * N + k] : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < LOAD_ROWS; ++u) {
+        const int i = i0 + u * nw;
+        if (i >= M) break;
+        if (k < n)
+          L.tab[(long long)i * L.pitch + k] = v[u];
+        else
+          L.rhs[0][i] = v[u];
+      }
+    }
   }
   for (int i = threadIdx.x; i < m; i += blockDim.x) L.basis[0][i] = p.basis_in[lane * p.st_basis + i];
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
@@ -779,13 +643,13 @@ __device__ __forceinline__ Slices row_slices(int n) {
 
 // Column k of the frame (entries col[i * P]) after the pivot on row rg,
 // rows rs, rs + R, ... of it: row rg set to pk (its entry times 1 / pivot,
-// which every lane of the column read first), the others fma(-cp[i], pk,
-// T[i, k]) with cp the pivot's pre-step column (null: e_2, the unit vector
-// of a redirected pivot on a unit column); eight rows at a time, their
-// loads issued before any store.
+// which every lane of the column read first), the others fma(-cp[i * cs],
+// pk, T[i, k]) with cp the pivot's pre-step column at stride cs (null:
+// e_2, the unit vector of a redirected pivot on a unit column); eight rows
+// at a time, their loads issued before any store.
 template <typename T, int R>
 __device__ __forceinline__ void pivot_rows(T* __restrict__ col, int P, int M, int rg, T pk,
-                                           const T* __restrict__ cp, int rs) {
+                                           const T* __restrict__ cp, int cs, int rs) {
   constexpr int U = 8;
   int i = rs;
   for (; i + (U - 1) * R < M; i += U * R) {
@@ -794,7 +658,7 @@ __device__ __forceinline__ void pivot_rows(T* __restrict__ col, int P, int M, in
     for (int u = 0; u < U; ++u) {
       const int r = i + u * R;
       v[u] = col[(long long)r * P];
-      c[u] = cp ? cp[r] : T(r == 2);
+      c[u] = cp ? cp[(long long)r * cs] : T(r == 2);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) v[u] = i + u * R == rg ? pk : fma(-c[u], pk, v[u]);
@@ -803,18 +667,18 @@ __device__ __forceinline__ void pivot_rows(T* __restrict__ col, int P, int M, in
   }
   for (; i < M; i += R) {
     T* e = col + (long long)i * P;
-    const T c = cp ? cp[i] : T(i == 2);
+    const T c = cp ? cp[(long long)i * cs] : T(i == 2);
     *e = i == rg ? pk : fma(-c, pk, *e);
   }
 }
 
 template <typename T>
 __device__ __forceinline__ void pivot_column(T* col, int P, int M, int rg, T pk, const T* cp,
-                                             const Slices& sl) {
+                                             const Slices& sl, int cs = 1) {
   if (sl.R == 2)
-    pivot_rows<T, 2>(col, P, M, rg, pk, cp, sl.rs);
+    pivot_rows<T, 2>(col, P, M, rg, pk, cp, cs, sl.rs);
   else
-    pivot_rows<T, 1>(col, P, M, rg, pk, cp, 0);
+    pivot_rows<T, 1>(col, P, M, rg, pk, cp, cs, 0);
 }
 
 // The first column eligible for the clean-up's pivot on row r_d (active,
@@ -885,6 +749,184 @@ __device__ __forceinline__ void end_step(Pending& pd, Scalars& s, bool act, bool
     s.stuck = 0;
   }
   pd.on = true;
+}
+
+// ---------------------------------------------------------------------------
+// the dual simplex (solve/dual.py::dual_simplex_step)
+// ---------------------------------------------------------------------------
+
+// The frame (RESIDENT: its n columns; always its RHS) and the basis back to
+// the outputs, each entry by the thread that last wrote it in the steps:
+// a column's rows by its slot's lanes, a row's RHS and basis entry by the
+// row's thread (what no step wrote, load_walk wrote before its barrier),
+// so that no barrier goes before it. The masks are the input's.
+template <typename T, bool RESIDENT>
+__device__ void store_owned(const LaneParams<T>& p, const Walk<T>& L, int cur, const Slices& sl) {
+  const long long lane = blockIdx.x;
+  const int M = p.M, N = p.N, n = N - 1;
+  T* dst = p.T_out + lane * M * N;
+  if (RESIDENT)
+    for (int k = sl.slot; k < n; k += sl.slots)
+      for (int i = sl.rs; i < M; i += sl.R)
+        dst[(long long)i * N + k] = L.tab[(long long)i * L.pitch + k];
+  for (int g = threadIdx.x; g < M; g += blockDim.x) {
+    dst[(long long)g * N + N - 1] = L.rhs[cur][g];
+    if (g >= 2) p.basis_out[lane * (M - 2) + g - 2] = L.basis[0][g - 2];
+  }
+}
+
+// This thread's rows' partials of the row decision over b = rhs[2:]: the
+// NaN-first argmin (v1, i1), the first row below -feas_tol (a) and the |b|
+// sum (sb).
+template <typename T>
+__device__ __forceinline__ void dual_row_offer(StepRed<T>& x, T b, int i, T feas_tol) {
+  pick_vi(x.v1, x.i1, b, i, false);
+  if (b < -feas_tol) x.a = min(x.a, (unsigned)i);
+  x.sb = add_term(x.sb, b, x.big, 2u);
+}
+
+// A step of lane_dual_kernel: ONE reduction of the leaving row's decision
+// (the argmin of b, the first row below -feas_tol, the |b| sum) that also
+// takes the objective row's |c| sum over the active columns; the pending
+// step's finish (its stall counter and status against the objective and
+// the |b| sum after it); the dual ratio test over row r + 2 (each column by
+// the slot's first lane) and ONE reduction (the argmin ratio, the first
+// eligible column); then the update with no barrier before it: each thread
+// pivots its own columns (reading its pivot-row entry before it writes,
+// and column j where it stands: its owner leaves it until the next
+// reduction, then sets it to the unit vector), adding the new objective
+// row's |c| to the next reduction, and the thread of row i writes the new
+// b_i into the other RHS buffer and offers it to the next step's row
+// decision. A dual step passes two block barriers, the step that ends the
+// lane one (optimal) or two (infeasible), and the store none (each thread
+// stores what it wrote: store_owned).
+template <typename T, bool RESIDENT>
+__global__ void __launch_bounds__(LANE_MAX_THREADS) lane_dual_kernel(LaneParams<T> p) {
+  __shared__ StepKeys<T> sh_rows[LANE_MAX_WARPS];
+  __shared__ KeyRed<T> sh_cols[LANE_MAX_WARPS];
+  __shared__ WalkClock clk;
+  extern __shared__ __align__(16) unsigned char lane_dyn[];
+  const Walk<T> L = walk_layout<T, RESIDENT>(p, lane_dyn, false);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int M = p.M, n = p.N - 1, P = L.pitch;
+  const T inf = pos_inf<T>();
+  const Slices sl = row_slices(n);
+  if (tid == 0) {
+    clk.on = p.cycles != nullptr && blockIdx.x == 0;
+    clk.last = clock64();
+    for (int k = 0; k < S_NSTAGES; ++k) clk.cyc[k] = 0;
+  }
+  load_walk(p, L);
+  T last_z;
+  Scalars s = load_scalars(p, last_z);
+  block_sync();
+  walk_lap(&clk, S_LOAD);
+  int cur = 0;
+  // this thread's partials of the loaded state: its rows' b, its columns'
+  // |c| over the active ones
+  StepRed<T> x = step_identity<T>(false);
+  for (int g = tid; g < M; g += nt)
+    if (g >= 2) dual_row_offer(x, L.rhs[0][g], g - 2, p.feas_tol);
+  for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots)
+    if (L.act[k]) x.sc = add_term(x.sc, L.tab[k], x.big, 1u);
+  // the pending step (a pivot): its pre-step |c| sum's finiteness; the
+  // column its owner sets to the unit vector e_prg after the next
+  // reduction (none: -1)
+  bool pending = false, crow_ok = true;
+  int pj = -1, prg = 0;
+  while (pending || (s.status == ST_RUNNING && s.niter < p.max_iters)) {
+    // ---- the leaving row's decision and the |c| sum; one reduction ----
+    const StepRed<T> R = step_reduce<T, false>(x, false, false, sh_rows);
+    walk_bar(&clk);
+    if (pj >= 0 && pj % sl.slots == sl.slot) {
+      T* col = L.tab + pj;
+      for (int i = sl.rs; i < M; i += sl.R) col[(long long)i * P] = T(i == prg);
+    }
+    pj = -1;
+    __syncwarp();  // the slot's rows, from its other lanes
+    const T z = -L.rhs[cur][0];
+    if (pending) {
+      // the pivot step's finish: stall detection against the dual
+      // objective, NUMERIC on a non-finite z, |b| sum or pre-step |c| sum
+      s.stuck = sub_rn(z, last_z) > p.degen_tol ? 0 : s.stuck + 1;
+      last_z = z;
+      s.bland = s.bland || s.stuck >= p.stall_limit;
+      if (!(finite_val(z) && finite_val(R.sb) && crow_ok)) s.status = ST_NUMERIC;
+      pending = false;
+      if (!(s.status == ST_RUNNING && s.niter < p.max_iters)) break;
+    }
+    walk_lap(&clk, S_PRICE);
+    // a step that does not pivot ends the lane: its state is the pre-step
+    // one, so its sums are this reduction's
+    const bool finite_ok = finite_val(z) && finite_val(R.sb) && finite_val(R.sc);
+    const bool feasible = R.a == NO_IDX;
+    if (feasible) {
+      s.bland = s.bland || s.stuck >= p.stall_limit;
+      s.status = finite_ok ? ST_OPTIMAL : ST_NUMERIC;
+      break;
+    }
+    // leaving row: the most negative b; the first negative under Bland
+    const int r = s.bland ? (int)R.a : R.i1;
+
+    // ---- the entering column: the dual ratio crow / -row over the active
+    // row < -piv_tol, ties to the first index; one reduction ----
+    T cv = inf;
+    int ci = BIG_I;
+    unsigned first = NO_IDX;
+    const T* rrow = L.tab + (long long)(r + 2) * P;
+    for (int k = sl.slot; sl.rs == 0 && k < n; k += sl.slots) {
+      const T a = rrow[k];
+      if (L.act[k] && a < -p.piv_tol) {
+        first = min(first, (unsigned)k);
+        pick_vi(cv, ci, div_rn(L.tab[k], -a), k, false);
+      }
+    }
+    pick_reduce<T, true>(cv, ci, false, first, sh_cols);
+    walk_bar(&clk);
+    walk_lap(&clk, S_RATIO);
+    if (first == NO_IDX) {
+      s.bland = s.bland || s.stuck >= p.stall_limit;
+      s.status = finite_ok ? ST_INFEASIBLE : ST_NUMERIC;
+      break;
+    }
+    // a NaN minimum leaves no tie (argmax -> 0)
+    const int j = is_nan(cv) ? 0 : ci;
+
+    // ---- the pivot (driver.pivot_update): no barrier before it ----
+    const int rg = r + 2, nx = cur ^ 1;
+    const T* colj = L.tab + j;  // column j at stride P, untouched this step
+    const T rinv = div_rn(T(1), colj[(long long)rg * P]);
+    x = step_identity<T>(false);
+    for (int k = sl.slot; k < n; k += sl.slots) {
+      if (k == j) continue;
+      T* col = L.tab + k;
+      const T pk = mul_rn(col[(long long)rg * P], rinv);
+      __syncwarp(sl.mask);  // every lane of the slot has read row rg
+      pivot_column(col, P, M, rg, pk, colj, sl, P);
+      if (sl.rs == 0 && L.act[k]) x.sc = add_term(x.sc, col[0], x.big, 1u);
+    }
+    const T prhs = mul_rn(L.rhs[cur][rg], rinv);
+    for (int g = tid; g < M; g += nt) {
+      const T b = g == rg ? prhs : fma(-colj[(long long)g * P], prhs, L.rhs[cur][g]);
+      L.rhs[nx][g] = b;
+      if (g >= 2) dual_row_offer(x, b, g - 2, p.feas_tol);
+      if (g == rg) L.basis[0][r] = j;  // one basis buffer: no step reads it
+    }
+    cur = nx;
+    pj = j;
+    prg = rg;
+    crow_ok = finite_val(R.sc);
+    s.niter += 1;
+    pending = true;
+    walk_lap(&clk, S_UPDATE);
+  }
+  walk_lap(&clk, S_PRICE);
+  store_owned<T, RESIDENT>(p, L, cur, sl);
+  store_scalars(p, s, last_z);
+  if (clk.on && tid == 0) {
+    walk_lap(&clk, S_STORE);
+    for (int k = 0; k < S_NSTAGES; ++k) p.cycles[k] += clk.cyc[k];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1550,9 +1592,8 @@ template <typename T, bool PRIMAL>
 int launch_lanes(const long long* a, const int* in, const double* tol, void* stream) {
   const int B = in[I_B], M = in[I_M], N = in[I_N], threads = in[I_THREADS], smem = in[I_SMEM];
   const bool resident = in[I_RESIDENT] != 0;
-  const long long want = PRIMAL ? walk_smem_bytes<T>(M, N, resident, false)
-                                : lane_smem_bytes<T>(M, N, resident);
-  if (!lanes_shape_ok(B, M, N, threads) || (long long)smem != want)
+  if (!lanes_shape_ok(B, M, N, threads) ||
+      (long long)smem != walk_smem_bytes<T>(M, N, resident, false))
     return (int)cudaErrorInvalidValue;
   const LaneParams<T> p = lane_params<T>(a, in, tol);
   const cudaStream_t s = (cudaStream_t)stream;

@@ -11,10 +11,10 @@ the lane's own exit (status leaves RUNNING or ``niter`` reaches
 fits the block's shared memory beside its vectors ("resident") or is
 worked on in place in device memory ("streamed"), with the block size and
 the shared-memory bytes of the kernel's own layout (the launch refuses a
-plan that disagrees). ``lane_primal`` and ``lane_bounded`` take a block of
-32 to 256 threads from the frame's width (``lane_threads``: one warp for
-10c's 3 x 30 span nodes, whose block then passes no block barrier);
-``lane_dual`` keeps 256.
+plan that disagrees). The three kernels share one layout, and take a
+block of 32 to 256 threads from the frame's width (``lane_threads``: one
+warp for 10c's 3 x 30 span nodes, whose block then passes no block
+barrier).
 
 The wrappers take CUDA tensors only (``solve.lanes`` runs the plain loops
 on CPU tensors) and raise on what the kernels do not take. Besides the
@@ -28,6 +28,7 @@ output state with ``torch.empty`` and never write the caller's tensors
 
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import NamedTuple
 
@@ -47,21 +48,21 @@ __all__ = ["LanePlan", "lane_plan", "lane_bounded_plan", "lane_dual_plan",
 # bytes, less that
 LANE_STATIC_SMEM = 2_048
 LANE_SMEM_LIMIT = 232_448 - LANE_STATIC_SMEM
-# the most threads a block (lane_dual's block)
+# the most threads a block
 LANE_THREADS = 256
-# the stages that ``stage_cycles`` splits a lane_primal / lane_bounded
-# launch into (csrc/lanes.cu's WalkStage: block 0's clock, summed over the
-# steps): the load; a step's price pass and its reduction (with the
-# previous step's finish); the clean-up pass, the ratio test and the ties;
-# the update; the store; then the block barriers block 0 passed
+# the stages that ``stage_cycles`` splits a launch into (csrc/lanes.cu's
+# WalkStage: block 0's clock, summed over the steps): the load; a step's
+# price pass and its reduction (with the previous step's finish; the dual
+# loop's leaving-row decision); the clean-up pass, the ratio test and the
+# ties (the dual loop's entering-column decision); the update; the store;
+# then the block barriers block 0 passed
 LANE_STAGES = ("load", "price", "ratio", "update", "store", "barriers")
 # the largest frame side the kernels index (basis values go through the
 # tableau's type in Bland's tie rule: exact in float32 below 2^24)
 _MAX_SIDE = 1 << 24
 # the lanes' 20 pointers and 10 strides, the bounded lanes' 5 pointers and
-# 3 strides, the stage clock
-_NARGS, _NINTS, _NTOLS = 39, 10, 5
-_ARGS = ctypes.c_longlong * _NARGS
+# 3 strides, the stage clock (an int64 array)
+_NINTS, _NTOLS = 10, 5
 _INTS = ctypes.c_int * _NINTS
 _TOLS = ctypes.c_double * _NTOLS
 _INT_MAX = 2 ** 31 - 1
@@ -151,16 +152,13 @@ def lane_bounded_plan(M: int, N: int, dtype, threads: int | None = None,
     return _walk_plan(M, N, dtype, True, threads, resident)
 
 
-def lane_dual_plan(M: int, N: int, dtype) -> LanePlan:
-    """``lane_dual``'s launch plan: the frame (M x N) and its vectors
-    (the pivot's column and row, the basis, two masks) in shared memory
-    while they fit ``LANE_SMEM_LIMIT``, else streamed; ``LANE_THREADS``
-    a block."""
-    es = _itemsize(M, N, dtype)
-    m, n = M - 2, N - 1
-    vectors = (_align(M * es) + _align(N * es) + _align(4 * m)
-               + 2 * _align(n))
-    return _fit(vectors, _align(M * N * es), M, N, LANE_THREADS, None)
+def lane_dual_plan(M: int, N: int, dtype, threads: int | None = None,
+                   resident: bool | None = None) -> LanePlan:
+    """``lane_dual``'s launch plan: ``lane_plan``'s (the kernels share one
+    layout; the dual loop reads its pivot's column in the frame and keeps
+    the vector's room unused), with the same ``threads`` and ``resident``
+    options."""
+    return _walk_plan(M, N, dtype, False, threads, resident)
 
 
 def _vector(x: torch.Tensor, name: str, B: int, width: int, dtype) -> int:
@@ -186,11 +184,54 @@ def _pointers(xs) -> list:
     return [0 if x is None else x.data_ptr() for x in xs]
 
 
-def _launch(kind: str, st: SimplexState, opts: SolverOptions,
-            stall_limit: int, max_iters: int, bs=None, threads=None,
-            resident=None, stage_cycles=None):
-    """The launch of the ``kind`` ("dual", "primal" or "bounded") loop;
-    ``bs`` is the batched ``BoundedState`` of a bounded launch."""
+class _Call(NamedTuple):
+    """What a launch takes from its operands' shapes, strides, types and
+    devices, its options and its plan: computed once, then reused."""
+    dims: tuple    # B, M, N
+    tail: list     # the args after the 20 pointers of the lanes (strides,
+                   # the bounded lanes' pointers' places, their strides)
+    iargs: object  # _INTS
+    tols: object   # _TOLS
+    name: str      # the entry point
+    devex: bool
+
+
+# the launches' _Call by their key (kind, options, budget, forced plan and
+# every operand's shape, stride, type and device): the waves call with the
+# same few layouts every wave, and building a launch's plan and argument
+# arrays costs more host time than the launch
+_CALLS: dict = {}
+_MAX_CALLS = 256
+
+
+def _operands(kind: str, st: SimplexState, opts: SolverOptions, bs):
+    ops = list(st)
+    if kind == "bounded":
+        ops += [bs.upper, bs.at_upper]
+        if opts.rule == RULE_DEVEX:
+            ops.append(bs.gamma)
+    return ops
+
+
+def _call(kind: str, st: SimplexState, opts: SolverOptions,
+          stall_limit: int, max_iters: int, bs, threads, resident) -> _Call:
+    """The checks of a launch's operands, its plan and its argument arrays
+    but the pointers (``_Call``), cached by ``_CALLS``' key."""
+    ops = _operands(kind, st, opts, bs)
+    key = (kind, opts, int(stall_limit), int(max_iters), threads, resident,
+           tuple((x.shape, x.stride(), x.dtype, x.device) for x in ops))
+    call = _CALLS.get(key)
+    if call is None:
+        call = _new_call(kind, st, opts, stall_limit, max_iters, bs, ops,
+                         threads, resident)
+        if len(_CALLS) >= _MAX_CALLS:
+            _CALLS.clear()
+        _CALLS[key] = call
+    return call
+
+
+def _new_call(kind, st, opts, stall_limit, max_iters, bs, ops, threads,
+              resident) -> _Call:
     T = st.T
     if T.dim() != 3:
         raise ValueError(f"T: expected (B, m + 2, n + 1) frames, got "
@@ -201,12 +242,9 @@ def _launch(kind: str, st: SimplexState, opts: SolverOptions,
                          f"{T.stride()}")
     dtype = T.dtype
     bounded = kind == "bounded"
-    masks = kind != "dual"  # the loops that write the masks
-    if kind == "dual":
-        plan = lane_dual_plan(M, N, dtype)
-    else:
-        plan = (lane_bounded_plan if bounded else lane_plan)(
-            M, N, dtype, threads, resident)
+    plan = {"dual": lane_dual_plan, "primal": lane_plan,
+            "bounded": lane_bounded_plan}[kind](M, N, dtype, threads,
+                                                resident)
     m, n = M - 2, N - 1
     strides = [T.stride(0),
                _vector(st.basis, "basis", B, m, torch.int32),
@@ -217,69 +255,87 @@ def _launch(kind: str, st: SimplexState, opts: SolverOptions,
                      ("bland", torch.bool), ("last_z", dtype)):
         strides.append(_scalar(getattr(st, name), name, B, dt))
     devex = bounded and opts.rule == RULE_DEVEX
-    operands = list(st)
+    bstrides = [0, 0, 0]
     if bounded:
-        operands += [bs.upper, bs.at_upper]
-        strides += [_vector(bs.upper, "upper", B, n, dtype),
-                    _vector(bs.at_upper, "at_upper", B, n, torch.bool)]
-        if devex:
-            operands.append(bs.gamma)
-            strides.append(_vector(bs.gamma, "gamma", B, n, dtype))
-        else:
-            strides.append(0)
-    else:
-        strides += [0, 0, 0]
-    if T.device.type != "cuda" or any(x.device != T.device
-                                      for x in operands):
+        bstrides = [_vector(bs.upper, "upper", B, n, dtype),
+                    _vector(bs.at_upper, "at_upper", B, n, torch.bool),
+                    _vector(bs.gamma, "gamma", B, n, dtype) if devex else 0]
+    if T.device.type != "cuda" or any(x.device != T.device for x in ops):
         raise ValueError(
             "lane kernels take the state's tensors on one CUDA device; got "
-            f"{sorted({str(x.device) for x in operands})}")
-    dev = T.device
-    if stage_cycles is not None:
-        check(stage_cycles, "stage_cycles", torch.int64, (len(LANE_STAGES),))
-        if stage_cycles.device != dev:
-            raise ValueError(f"stage_cycles: expected a tensor on {dev}")
-    # one allocation for the int32 fields and one for the bool ones: each
-    # allocation is host time on the waves' path
-    ints = torch.empty((B * (4 + m),), dtype=torch.int32, device=dev)
-    bools = torch.empty((B * (1 + (2 * masks + bounded) * n),),
-                        dtype=torch.bool, device=dev)
-    out = SimplexState(
-        T=torch.empty((B, M, N), dtype=dtype, device=dev),
-        basis=ints[4 * B:].view(B, m),
-        col_active=(bools[B:B + B * n].view(B, n) if masks
-                    else st.col_active),
-        art_cols=(bools[B + B * n:B + 2 * B * n].view(B, n) if masks
-                  else st.art_cols),
-        phase=ints[:B], status=ints[B:2 * B], niter=ints[2 * B:3 * B],
-        stuck=ints[3 * B:4 * B], bland=bools[:B],
-        last_z=torch.empty((B,), dtype=dtype, device=dev))
-    ins = [st.T, out.T, st.basis, out.basis, st.col_active, st.art_cols]
-    ins += ([out.col_active, out.art_cols] if masks else [None, None])
-    ins += [st.phase, st.status, st.niter, st.stuck, st.bland, st.last_z,
-            out.phase, out.status, out.niter, out.stuck, out.bland,
-            out.last_z]
-    extra = [None] * 5
-    at_upper = gamma = None
-    if bounded:
-        at_upper = bools[B + 2 * B * n:].view(B, n)
-        gamma = (torch.empty((B, n), dtype=dtype, device=dev) if devex
-                 else bs.gamma)
-        extra = [bs.upper, bs.at_upper, at_upper,
-                 bs.gamma if devex else None, gamma if devex else None]
+            f"{sorted({str(x.device) for x in ops})}")
     # the C side's order: the lanes' 20 pointers and 10 strides, the
     # bounded lanes' 5 pointers and 3 strides, the stage clock
-    args = _ARGS(*_pointers(ins), *strides[:10], *_pointers(extra),
-                 *strides[10:], *_pointers([stage_cycles]))
+    tail = strides + [0] * 5 + bstrides
     iargs = _INTS(B, M, N, min(int(stall_limit), _INT_MAX),
                   min(int(max_iters), _INT_MAX), int(opts.rule),
                   int(opts.tie_break), int(plan.resident), plan.threads,
                   plan.smem)
     tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
                  opts.infeas_tol, opts.feas_tol)
+    return _Call((B, M, N), tail, iargs, tols,
+                 f"tpulp_lane_{kind}_{suffix(dtype)}", devex)
+
+
+def _launch(kind: str, st: SimplexState, opts: SolverOptions,
+            stall_limit: int, max_iters: int, bs=None, threads=None,
+            resident=None, stage_cycles=None):
+    """The launch of the ``kind`` ("dual", "primal" or "bounded") loop;
+    ``bs`` is the batched ``BoundedState`` of a bounded launch."""
+    call = _call(kind, st, opts, stall_limit, max_iters, bs, threads,
+                 resident)
+    B, M, N = call.dims
+    m, n = M - 2, N - 1
+    dtype, dev = st.T.dtype, st.T.device
+    bounded = kind == "bounded"
+    masks = kind != "dual"  # the loops that write the masks
+    if stage_cycles is not None:
+        check(stage_cycles, "stage_cycles", torch.int64, (len(LANE_STAGES),))
+        if stage_cycles.device != dev:
+            raise ValueError(f"stage_cycles: expected a tensor on {dev}")
+    # one allocation for the int32 fields and one for the bool ones, each
+    # split into its fields by one call: each allocation and view is host
+    # time on the waves' path
+    ints = torch.empty((B * (4 + m),), dtype=torch.int32, device=dev)
+    phase, status, niter, stuck, basis = torch.split_with_sizes(
+        ints, (B, B, B, B, B * m))
+    bools = torch.empty((B * (1 + (2 * masks + bounded) * n),),
+                        dtype=torch.bool, device=dev)
+    bland, col_active, art_cols, at_upper = bools, st.col_active, \
+        st.art_cols, None
+    if masks:
+        bland, col_active, art_cols, *rest = torch.split_with_sizes(
+            bools, (B, B * n, B * n) + (B * n,) * bounded)
+        col_active, art_cols = col_active.view(B, n), art_cols.view(B, n)
+        if bounded:
+            at_upper = rest[0].view(B, n)
+    out = SimplexState(
+        T=torch.empty((B, M, N), dtype=dtype, device=dev),
+        basis=basis.view(B, m), col_active=col_active, art_cols=art_cols,
+        phase=phase, status=status, niter=niter, stuck=stuck, bland=bland,
+        last_z=torch.empty((B,), dtype=dtype, device=dev))
+    ptrs = [st.T.data_ptr(), out.T.data_ptr(), st.basis.data_ptr(),
+            out.basis.data_ptr(), st.col_active.data_ptr(),
+            st.art_cols.data_ptr()]
+    ptrs += ([out.col_active.data_ptr(), out.art_cols.data_ptr()] if masks
+             else [0, 0])
+    ptrs += [x.data_ptr() for x in (
+        st.phase, st.status, st.niter, st.stuck, st.bland, st.last_z,
+        out.phase, out.status, out.niter, out.stuck, out.bland, out.last_z)]
+    tail = call.tail
+    gamma = None
+    if bounded:
+        gamma = (torch.empty((B, n), dtype=dtype, device=dev) if call.devex
+                 else bs.gamma)
+        tail = tail[:10] + _pointers(
+            [bs.upper, bs.at_upper, at_upper,
+             bs.gamma if call.devex else None,
+             gamma if call.devex else None]) + tail[15:]
+    # the C side reads the arguments before the call returns
+    args = array.array("q", ptrs + tail + _pointers([stage_cycles]))
     lib = lib_for(dev)
-    fn = getattr(lib, f"tpulp_lane_{kind}_{suffix(dtype)}")
-    err = fn(args, iargs, tols, stream_of(dev))
+    err = getattr(lib, call.name)(args.buffer_info()[0], call.iargs,
+                                  call.tols, stream_of(dev))
     if err:
         raise_on(lib, err, "lane kernel")
     LAUNCHES[f"lane_{kind}"] += 1
@@ -289,11 +345,17 @@ def _launch(kind: str, st: SimplexState, opts: SolverOptions,
 
 
 def lane_dual(state: SimplexState, opts: SolverOptions, stall_limit: int,
-              max_iters: int) -> SimplexState:
-    """The dual-simplex loop of every lane of ``state`` (a batched state on
-    one CUDA device) to its exit; RUNNING lanes at the budget stay
-    RUNNING. The masks of the result are the input's."""
-    return _launch("dual", state, opts, stall_limit, max_iters)
+              max_iters: int, threads: int | None = None,
+              resident: bool | None = None,
+              stage_cycles: torch.Tensor | None = None) -> SimplexState:
+    """The dual-simplex loop (``dual_simplex_step``) of every lane of
+    ``state`` (a batched state on one CUDA device) to its exit; RUNNING
+    lanes at the budget stay RUNNING. The masks of the result are the
+    input's. ``threads``, ``resident`` and ``stage_cycles`` as
+    ``lane_primal``'s."""
+    return _launch("dual", state, opts, stall_limit, max_iters,
+                   threads=threads, resident=resident,
+                   stage_cycles=stage_cycles)
 
 
 def lane_primal(state: SimplexState, opts: SolverOptions, stall_limit: int,

@@ -21,9 +21,10 @@ reports 0). It allocates the output state and never writes the caller's
 tensors.
 
 ``rank1_cluster_lanes`` runs the same kernel with a lane axis: every lane
-of a batched state walked by ``simplex_step`` (the primal walk) to its own
-exit in one launch, a cluster a lane; ``solve.lanes.primal_lanes`` takes
-it for frames past one block's shared memory. Its plain version
+of a batched state walked by ``simplex_step`` (the primal walk) or, with
+``dual``, by ``dual_simplex_step`` to its own exit in one launch, a
+cluster a lane; ``solve.lanes.primal_lanes`` and ``dual_lanes`` take it
+for frames past one block's shared memory. Its plain version
 ``rank1_cluster_lanes_reference`` runs ``rank1_cluster_reference`` on each
 lane.
 
@@ -238,17 +239,19 @@ def rank1_cluster(state: SimplexState, opts: SolverOptions,
 def rank1_cluster_lanes(state: SimplexState, opts: SolverOptions,
                         stall_limit: int, max_iters: int,
                         blocks: int | None = None,
-                        stage_cycles: torch.Tensor | None = None
-                        ) -> SimplexState:
+                        stage_cycles: torch.Tensor | None = None,
+                        dual: bool = False) -> SimplexState:
     """Every lane of the batched ``state`` (B, M, N) on one CUDA device
     walked by ``simplex_step`` (the primal walk: ``RULE_DEVEX`` priced as
-    Dantzig) to its own exit or to ``max_iters``, in one launch: a cluster
-    a lane (grid (C, B), cluster y = lane), each as ``rank1_cluster``'s
-    solo walk. A lane not RUNNING below its budget at the launch is copied
-    out as it is. The masks, basis and scalars are read through their lane
-    strides (the waves' broadcast rows, lane stride 0, are never
-    expanded); the caller's tensors are never written. ``blocks`` forces
-    C; ``stage_cycles`` accumulates lane 0's block 0's clock by stage."""
+    Dantzig) or, with ``dual``, by ``dual_simplex_step`` to its own exit or
+    to ``max_iters``, in one launch: a cluster a lane (grid (C, B), cluster
+    y = lane), each as ``rank1_cluster``'s solo walk. A lane not RUNNING
+    below its budget at the launch is copied out as it is. The masks,
+    basis and scalars are read through their lane strides (the waves'
+    broadcast rows, lane stride 0, are never expanded); the caller's
+    tensors are never written, and the dual walk's masks are the input's,
+    as ``lane_dual``'s. ``blocks`` forces C; ``stage_cycles`` accumulates
+    lane 0's block 0's clock by stage."""
     T = state.T
     if T.dim() != 3:
         raise ValueError(f"T: expected (B, m + 2, n + 1) frames, got "
@@ -270,7 +273,7 @@ def rank1_cluster_lanes(state: SimplexState, opts: SolverOptions,
                              f"contiguous rows, got {x.dtype} "
                              f"{tuple(x.shape)} stride {x.stride()}")
         strides.append(x.stride(0))
-    strides.append(0)  # no devex weights: the primal walk
+    strides.append(0)  # no devex weights: the primal or the dual walk
     for name, dt in (("phase", torch.int32), ("status", torch.int32),
                      ("niter", torch.int32), ("stuck", torch.int32),
                      ("bland", torch.bool), ("last_z", dtype)):
@@ -286,8 +289,9 @@ def rank1_cluster_lanes(state: SimplexState, opts: SolverOptions,
     if stage_cycles is not None:
         check(stage_cycles, "stage_cycles", torch.int64,
               (len(CLUSTER_STAGES),))
+    walk = "dual" if dual else "primal"
     plan = cluster_plan(M, N, dtype, blocks)
-    if cluster_occupancy(M, N, dtype, "primal", dev, blocks) == 0:
+    if cluster_occupancy(M, N, dtype, walk, dev, blocks) == 0:
         raise RuntimeError(f"rank1_cluster_lanes: the card holds no cluster "
                            f"of {plan.blocks} blocks with {plan.smem} bytes "
                            f"of shared memory each ({M} x {N} {dtype})")
@@ -309,7 +313,7 @@ def rank1_cluster_lanes(state: SimplexState, opts: SolverOptions,
     # B long
     args = _ARGS(*(0 if x is None else x.data_ptr() for x in ptrs),
                  *strides, B)
-    iargs = _plan_ints(plan, M, N, "primal", B)
+    iargs = _plan_ints(plan, M, N, walk, B)
     iargs[2] = min(int(stall_limit), _INT_MAX)
     iargs[3] = min(int(max_iters), _INT_MAX)
     iargs[4] = int(opts.rule)
@@ -322,6 +326,10 @@ def rank1_cluster_lanes(state: SimplexState, opts: SolverOptions,
     if err:
         raise_on(lib, err, "rank1_cluster_lanes")
     LAUNCHES["rank1_cluster_lanes"] += 1
+    if dual:
+        # the kernel wrote the masks it read: the dual walk changes none
+        return out._replace(col_active=state.col_active,
+                            art_cols=state.art_cols)
     return out
 
 
@@ -368,10 +376,12 @@ def rank1_cluster_reference(state: SimplexState, opts: SolverOptions,
 
 def rank1_cluster_lanes_reference(state: SimplexState, opts: SolverOptions,
                                   stall_limit: int, max_iters: int,
-                                  C: int = 1) -> SimplexState:
+                                  C: int = 1, dual: bool = False
+                                  ) -> SimplexState:
     """``rank1_cluster_lanes`` in plain torch: ``rank1_cluster_reference``'s
-    primal walk on each lane (a cluster of ``C`` blocks), every lane to its
-    own exit; a lane not RUNNING below its budget is left as it is."""
+    primal walk (with ``dual``, its dual walk) on each lane (a cluster of
+    ``C`` blocks), every lane to its own exit; a lane not RUNNING below its
+    budget is left as it is."""
     B = state.T.shape[0]
     outs = []
     for b in range(B):
@@ -379,7 +389,7 @@ def rank1_cluster_lanes_reference(state: SimplexState, opts: SolverOptions,
         if _live([int(lane.phase), int(lane.status), int(lane.niter)],
                  max_iters):
             lane = rank1_cluster_reference(lane, opts, stall_limit,
-                                           max_iters, None, False, C)[0]
+                                           max_iters, None, dual, C)[0]
         outs.append(lane)
     return SimplexState(*(torch.stack([getattr(o, f) for o in outs])
                           for f in SimplexState._fields))
