@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the ten sources of tpulp_torch/kernels/csrc
-(flush, inner block, FMA, the two lane kernels, the bounded step's four
-launches, the rank-1 step's five, the blocked engine's seven, the cluster
-walk's one, the blocked engine's cluster launch and the bounded walk's
-cooperative launch; and checks
+Builds the CUDA kernels from the thirteen sources of
+tpulp_torch/kernels/csrc (flush, inner block, FMA, the lane kernels, the
+bounded step's four launches, the rank-1 step's five, the blocked
+engine's seven, the cluster walks, the blocked engine's cluster launch,
+the three grid walks and the sharded pivot's two kernels; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -97,7 +97,7 @@ with the tableau's column slabs in the SMs' shared memory, no
 ``bounded_step`` and no FMA launch, certified, held against the
 row-lowered solve on the kernel engine; at f32 answered on the ladder's f64
 retry), holds the grid walk and ``bounded_steps``' walk (four launches a
-step) on the whole f64 devex walk, the f32 walk's first 2,048 steps and a
+step) on the f64 devex walk's first 4,096 steps, the f32 walk's first 2,048 steps and a
 Dantzig walk that switches to Bland against one plain loop in every field,
 the grid kernel against its plain version ``bounded_grid_reference`` on the
 card, and each of the four launches against its plain stage on a step with
@@ -129,8 +129,17 @@ Wyndor's ranging, ``find_iis`` with every oracle solve on the card, and
 one-process NCCL group and ``make_mesh(1)``, solves phase 5's LP through
 ``solve_lp(mesh=...)`` with the sharded blocked driver (which flushes each
 rank's block with the flush kernel) and the sharded rank-1 driver (each
-certified, the exact objective phase 5's), holds the sharded bounded
-driver's Dantzig walk on a 128 x 256 box LP to the solo walk, times the
+certified, the exact objective phase 5's; the rank-1 driver's pivot one
+``shard_pivot`` launch a step, the rank-K driver's running vectors one
+``shard_vectors`` launch a pivot, no FMA launch), holds the sharded bounded
+driver's Dantzig walk on a 128 x 256 box LP to the solo walk (its pivot,
+gate and flip one ``shard_pivot`` launch a step), holds both kernels bit
+for bit against their plain versions on the walks' own steps (9b's block
+at f64 and f32, the no-op pivot, 9c's pivots, upper hits, entering flips
+and idle steps, 9a's vectors) and times them in turns with the plain
+versions (the former path), times windows of the sharded rank-1 and
+bounded walks under torch.profiler with each, runs the kernels' ``cuda``
+tests (tests/test_torch_shard_pivot_card.py) in a pytest process, times the
 sharded machinery against the solo blocked driver at P = 1, and holds the
 flush against its plain version at the sharded block's shape (9d's solo
 baseline is the eager blocked loop, ``run_simplex_blocked_reference``, with
@@ -140,7 +149,9 @@ on a ``(batch, cols)`` mesh of shape (1, 1) and a 1-D ``("batch",)``
 mesh: ``solve_lp_batch(mesh=)`` over phase 7c's 64 scenarios (statuses,
 pivots and exact objectives equal to the solo batch's), ``solve_milp(mesh=)``
 on the bench knapsack (the DP oracle, every ``BnbStats`` counter equal to
-phase 7's f64 solve), the span-encoded knapsack (the DP oracle; one
+phase 7's f64 solve; on the (1, 1) mesh every lane-sharded step one
+``shard_pivot`` launch over its lanes, held to the plain version and
+timed, no FMA launch in the pivots), the span-encoded knapsack (the DP oracle; one
 ``lane_bounded`` launch a wave, the waves' walks timed) and
 ``tpulp_torch.entry.dryrun_multichip(1)``; every operand layout of those
 paths' FMA launches is held against the CPU's addcmul. Every phase that
@@ -210,6 +221,9 @@ BND_MAX_ITERS = 200_000
 # and a Dantzig walk whose stall limit of 1 switches it to Bland; the step
 # the kernels are timed from and the steps timed
 BND_F32_WINDOW = 2048
+# the f64 devex walk's window held to the plain loop (its whole walk,
+# ~15,000 steps, took the plain loop 70-120 s)
+BND_F64_WINDOW = 4096
 BND_BLAND_STEPS = 1024
 BND_TIMED_FROM, BND_TIMED_STEPS = 2000, 64
 # the grid walk: the steps of one timed launch (from BND_TIMED_FROM), the
@@ -262,7 +276,14 @@ IIS_VARS, IIS_ROWS = 10, 24
 # ratio
 SHARD_K = 64
 SHARD_BOX_M, SHARD_BOX_N = 128, 256
-SHARD_BENCH_PIVOTS = 1024
+SHARD_BENCH_PIVOTS = 512
+# 9b's shard_pivot launches held to the plain version: every SHARD_KEEP-th
+# and the last; the sharded walks' windows timed under torch.profiler
+SHARD_KEEP = 500
+SHARD_WINDOW = 64
+# 10a's and 10b's shard_pivot launches (every lane of a step in one) copied
+# and held to the plain version: every SHARD_LANE_KEEP-th
+SHARD_LANE_KEEP = 64
 
 
 def bound(nbytes: float, flops: float, flop_s: float):
@@ -3655,6 +3676,14 @@ BOUNDED_GRID_KERNELS = {
                                              ("1", "1"))}
 # the rank-1 grid walk's instantiations: <float or double, the walk,
 # streamed>
+# the sharded pivot's instantiations: <float or double, elements a load>
+SHARD_KERNELS = {
+    **{f"shard_pivot_kernelI{t}Li{v}E":
+       f"shard_pivot_kernel<{'float' if t == 'f' else 'double'},{v}>"
+       for t, vs in (("f", (1, 4)), ("d", (1, 2))) for v in vs},
+    **{f"shard_vectors_kernelI{t}E":
+       f"shard_vectors_kernel<{'float' if t == 'f' else 'double'}>"
+       for t in "fd"}}
 RANK1_GRID_KERNELS = {
     f"3rgr11grid_kernelI{t}Li{w}ELb{r}E":
     f"rgrid_kernel<{'float' if t == 'f' else 'double'},{walk}"
@@ -3712,6 +3741,8 @@ def _ptxas_name(name: str) -> str:
         return BOUNDED_GRID_KERNELS[name]
     if name in RANK1_GRID_KERNELS:
         return RANK1_GRID_KERNELS[name]
+    if name in SHARD_KERNELS:
+        return SHARD_KERNELS[name]
     return f"{head}<{t}>" if "kernelI" in name else head
 
 
@@ -3738,7 +3769,8 @@ def ptxas_report(text: str):
                                  *BLOCKED_KERNELS, *CLUSTER_KERNELS,
                                  *BLOCKED_CLUSTER_KERNELS,
                                  *BLOCKED_GRID_KERNELS,
-                                 *BOUNDED_GRID_KERNELS, *RANK1_GRID_KERNELS)
+                                 *BOUNDED_GRID_KERNELS, *RANK1_GRID_KERNELS,
+                                 *SHARD_KERNELS)
                      if k in fn), None)
         if name is None:
             continue
@@ -6156,9 +6188,10 @@ def phase_bounded_lp(dev):
     part("solves")
     # the kernels against the plain loop, on the card
     walks = {
-        "f64_devex": bounded_walk_check(sf, dev, torch.float64,
-                                        "the whole f64 devex walk",
-                                        max_iters=BND_MAX_ITERS),
+        "f64_devex": bounded_walk_check(
+            sf, dev, torch.float64,
+            f"the f64 devex walk's first {BND_F64_WINDOW} steps",
+            max_iters=BND_F64_WINDOW),
         "f32_devex_window": bounded_walk_check(
             sf, dev, torch.float32,
             f"the f32 devex walk's first {BND_F32_WINDOW} steps",
@@ -6183,9 +6216,9 @@ def phase_bounded_lp(dev):
     reference["edge_walks"] = grid_edge_walks(dev)
     part("edge_walks")
     f64 = walks["f64_devex"]
-    if f64["status"] != 1 or f64["niter"] != res["float64"]["niter"]:
-        raise AssertionError(f"8a: the f64 devex walk {f64} is not the "
-                             "solve's")
+    if f64["niter"] != min(BND_F64_WINDOW, res["float64"]["niter"]):
+        raise AssertionError(f"8a: the f64 devex window {f64} is not the "
+                             "solve's walk")
     bs, opts = bounded_state(sf, dev, torch.float64)
     stages = {"box_lp_f64": bounded_stage_checks(
         bs, opts, f"{m}x{n} f64 devex", ("upper",), 100, 3000)}
@@ -6238,8 +6271,11 @@ def phase_bounded_lp(dev):
             f"{split['update_and_finish']:.2f}), {host_us:.2f} us of host "
             f"time to enqueue one (four launches); bound {bound_us:.2f} us "
             "(the tableau read and written once at 3.35 TB/s)")
-        walk = walks["f64_devex" if es == 8 else "f32_devex_window"]
-        grid_us[name] = grid_timing(name, dt, walk["niter"])
+        # the frame's load and store spread over the f64 solve's whole walk,
+        # over the f32 window's steps
+        grid_us[name] = grid_timing(name, dt, res["float64"]["niter"]
+                                    if es == 8 else
+                                    walks["f32_devex_window"]["niter"])
     # the Dantzig instantiations: the f64 walk a window in, and the f32
     # Bland walk within the window held above (from its 64th step)
     grid_us["dantzig float64"] = grid_timing(
@@ -7394,6 +7430,372 @@ def first_block(sf, mesh, dtype):
     return run, lambda carry: _flush(carry, opts, lay), opts
 
 
+# ---- the sharded pivot's kernels (shard_pivot, shard_vectors) ------------
+
+def bits_equal(label: str, a, b) -> None:
+    """Raise unless float tensors ``a`` and ``b`` hold the same bits (zero
+    signs included; every NaN alike)."""
+    import torch
+
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{label}: {a.dtype} {tuple(a.shape)} against "
+                             f"{b.dtype} {tuple(b.shape)}")
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not (torch.equal(na, nb) and torch.equal(
+            torch.where(na, 0.0, a).view(ints),
+            torch.where(nb, 0.0, b).view(ints))):
+        bad = int(((a != b) & ~(na & nb)).sum()) + int((na != nb).sum())
+        raise AssertionError(f"{label}: {bad} of {a.numel()} entries differ "
+                             "from the plain version")
+
+
+def _kept(x, copy: bool):
+    """A recorded argument: itself, or a copy of a tensor with its strides
+    (a lane axis of stride 0 materialised). The lane-sharded paths pass no
+    flip."""
+    import torch
+
+    if not (copy and isinstance(x, torch.Tensor)):
+        return x
+    if 0 in x.stride():
+        return x.clone()
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                               device=x.device).copy_(x)
+
+
+class PivotRecorder:
+    """The arguments of the ``shard_pivot`` launches made inside the block
+    (``kernels.shard_pivot._launch``: the lanes, the block, its layout and
+    the per-lane scalars): every ``every``-th call, and the last one when
+    they are kept by reference (``copy`` False: the solo sharded drivers
+    never write a step's inputs; the lane-sharded waves may, so theirs
+    are copied)."""
+
+    def __init__(self, copy: bool = False, every: int = 1):
+        self.copy, self.every = copy, every
+        self.calls, self.count, self.last = [], 0, None
+
+    def __enter__(self):
+        from tpulp_torch.kernels import shard_pivot as sp
+
+        self.real = real = sp._launch
+
+        def spy(*args):
+            out = real(*args)
+            if self.count % self.every == 0:
+                self.calls.append((self.count, tuple(
+                    _kept(a, self.copy) for a in args)))
+            elif not self.copy:
+                self.last = (self.count, args)
+            self.count += 1
+            return out
+
+        sp._launch = spy
+        return self
+
+    def __exit__(self, *exc):
+        from tpulp_torch.kernels import shard_pivot as sp
+
+        sp._launch = self.real
+        if self.last is not None and (not self.calls or
+                                      self.last[0] > self.calls[-1][0]):
+            self.calls.append(self.last)
+        return False
+
+
+def plain_pivot(args):
+    """The plain version (on the card: the former path, FMA launches and
+    ``torch.where`` passes) on a recorded launch's arguments: directly on
+    one lane, as the solo drivers called it, vmapped over several, as the
+    lane-sharded steps did. Returns (Tn, rhsn) with the lane axis."""
+    import torch
+
+    from tpulp_torch.kernels.shard_pivot import Flip, shard_pivot_reference
+
+    T, rhs, u, rg, jeff, index, gate, flip, _ = args
+    xs = [T, rhs, u, rg, jeff, gate] + (list(flip) if flip is not None
+                                        else [])
+    if T.shape[0] == 1:
+        out = shard_pivot_reference(
+            *(None if x is None else x[0] for x in xs[:5]), index,
+            None if gate is None else gate[0],
+            None if flip is None else Flip(*(x[0] for x in flip)))
+        return out[0][None], out[1][None]
+
+    def one(T, rhs, u, rg, j, g, *f):
+        return shard_pivot_reference(T, rhs, u, rg, j, index, g,
+                                     Flip(*f) if f else None)
+
+    return torch.func.vmap(one, in_dims=tuple(
+        None if x is None else 0 for x in xs))(*xs)
+
+
+def kernel_pivot(args):
+    """The kernel on a recorded launch's arguments: (Tn, rhsn) with the
+    lane axis (views of the output frames where it writes frames)."""
+    from tpulp_torch.kernels import shard_pivot as sp
+
+    out = sp._launch(*args)
+    return (out[..., :-1], out[..., -1]) if args[-1] else out
+
+
+def pivot_held(args, label: str) -> None:
+    """The kernel against its plain version on a recorded launch, bit for
+    bit."""
+    got, want = kernel_pivot(args), plain_pivot(args)
+    for g, w, name in zip(got, want, ("block", "RHS")):
+        bits_equal(f"shard_pivot {label} ({name})", g, w)
+
+
+def pivot_bytes(args) -> int:
+    """The bytes a launch must move: the block, the RHS and the pivot
+    column read once (the flip's column too), the block and the RHS
+    written once."""
+    T, flip = args[0], args[7]
+    L, R, N = T.shape
+    cols = 2 * N + 3 + (flip is not None)
+    return L * R * cols * T.element_size()
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds a call of ``fn`` while the card sleeps (the
+    enqueue alone)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4 * SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * secs / calls
+
+
+def pivot_timing(args, label: str, host_fn=None) -> dict:
+    """Device ms a launch of the kernel and of the plain version (CUDA
+    events after a sleep) in turns (plain, kernel, kernel, plain), the
+    bound, and the host us a call of the kernel's wrapper (``host_fn``,
+    else the launch) and of the plain version."""
+    pivot_held(args, label)
+    turns = {"kernel": [], "plain": []}
+    for kind in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel_pivot if kind == "kernel" else plain_pivot
+        turns[kind].append(device_time_ms(lambda: fn(args), RUNS))
+    nbytes = pivot_bytes(args)
+    bound_ms, bound_by = bound(nbytes, 2.0 * args[0].numel(),
+                               FP64_FLOP_S if args[0].element_size() == 8
+                               else FP32_FLOP_S)
+    res = {"shape": list(args[0].shape), "frame": bool(args[-1]),
+           "t_strides": list(args[0].stride()), "max_abs_err": 0.0,
+           "ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
+           "device_ms_turns": turns["kernel"],
+           "plain_device_ms_turns": turns["plain"], "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "bytes": nbytes,
+           "host_us": host_us(host_fn or (lambda: kernel_pivot(args))),
+           "plain_host_us": host_us(lambda: plain_pivot(args), 10)}
+    log(f"# shard_pivot {label} {tuple(args[0].shape)} (T strides "
+        f"{tuple(args[0].stride())}{', frames' if args[-1] else ''}): bit "
+        f"for bit the plain version; device ms a launch in turns, the "
+        f"plain path {turns['plain'][0]:.4f}, kernel {turns['kernel'][0]:.4f}"
+        f", {turns['kernel'][1]:.4f}, plain {turns['plain'][1]:.4f}; bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {nbytes} bytes); host us a call: "
+        f"the wrapper {res['host_us']:.1f}, the plain version "
+        f"{res['plain_host_us']:.1f}")
+    return res
+
+
+def as_float32(args):
+    """A recorded launch's arguments (with no flip) with its floats in
+    float32."""
+    import torch
+
+    return tuple(a.float() if isinstance(a, torch.Tensor)
+                 and a.is_floating_point() else a for a in args)
+
+
+class VectorRecorder:
+    """The arguments of the rank-K sharded pivot's ``shard_vectors`` calls
+    made inside the block (the first and the last), by reference."""
+
+    def __enter__(self):
+        import tpulp_torch.shard.sharded_blocked as sbk
+
+        self.real = real = sbk.shard_vectors
+        self.first = self.last = None
+
+        def spy(*args):
+            if self.first is None:
+                self.first = args
+            self.last = args
+            return real(*args)
+
+        sbk.shard_vectors = spy
+        return self
+
+    def __exit__(self, *exc):
+        import tpulp_torch.shard.sharded_blocked as sbk
+
+        sbk.shard_vectors = self.real
+        return False
+
+
+def vectors_timing(args, label: str) -> dict:
+    """``shard_vectors`` against its plain version (three FMA launches) on
+    the recorded arguments, bit for bit; device ms in turns, the bound and
+    the host us a call."""
+    from tpulp_torch.kernels.shard_pivot import (shard_vectors,
+                                                 shard_vectors_reference)
+
+    for g, w, name in zip(shard_vectors(*args),
+                          shard_vectors_reference(*args),
+                          ("row0", "row1", "bvec")):
+        bits_equal(f"shard_vectors {label} ({name})", g, w)
+    turns = {"kernel": [], "plain": []}
+    for kind in ("plain", "kernel", "kernel", "plain"):
+        fn = shard_vectors if kind == "kernel" else shard_vectors_reference
+        turns[kind].append(device_time_ms(lambda: fn(*args), RUNS))
+    row0, _, bvec = args[:3]
+    n, M, es = row0.numel(), bvec.numel(), row0.element_size()
+    nbytes = es * (2 * (2 * n + M) + n + M + 1)
+    bound_ms, bound_by = bound(nbytes, 2.0 * (2 * n + M),
+                               FP64_FLOP_S if es == 8 else FP32_FLOP_S)
+    res = {"n_local": n, "M": M, "max_abs_err": 0.0,
+           "ms": min(turns["kernel"]), "plain_ms": min(turns["plain"]),
+           "device_ms_turns": turns["kernel"],
+           "plain_device_ms_turns": turns["plain"], "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None,
+           "host_us": host_us(lambda: shard_vectors(*args)),
+           "plain_host_us": host_us(lambda: shard_vectors_reference(*args))}
+    log(f"# shard_vectors {label} (n_local {n}, M {M}): bit for bit the "
+        f"plain version; device ms in turns, the plain path "
+        f"{turns['plain'][0]:.4f}, kernel {turns['kernel'][0]:.4f}, "
+        f"{turns['kernel'][1]:.4f}, plain {turns['plain'][1]:.4f}; bound "
+        f"{bound_ms:.5f} ms ({bound_by}); host us a call {res['host_us']:.1f}"
+        f" (the plain version {res['plain_host_us']:.1f})")
+    return res
+
+
+def bounded_kinds(rec: PivotRecorder) -> dict:
+    """The recorded bounded steps by kind (one host read): {kind: first
+    call index}, and the counts. Kinds: a pivot alone, a pivot with a
+    leaving flip (an upper hit), an entering flip (the gate closed), an
+    idle step (the gate closed, no flip)."""
+    import torch
+
+    flags = torch.stack([torch.stack([a[6][0], a[7].do_flip[0],
+                                      a[7].enter[0]])
+                         for _, a in rec.calls]).cpu().tolist()
+    kinds = {}
+    for k, (gate, do_flip, enter) in enumerate(flags):
+        kind = ("pivot" if not do_flip else "leave_flip") if gate else (
+            "enter_flip" if do_flip and enter else "idle")
+        kinds.setdefault(kind, []).append(k)
+    return kinds
+
+
+def pivot_card_tests(dev) -> dict:
+    """tests/test_torch_shard_pivot_card.py, the sharded pivot kernels'
+    ``cuda`` tests (each against its plain version on the card and the
+    CPU: 9b's block at f64 and f32, the bounded step's kinds at 9c's width
+    with NaN and inf entries, the lane frames of 10a and 10b under vmap,
+    9a's vectors), run in a process of their own; a failure, or a test
+    that skips, fails the run."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+           "-q", "-p", "no:cacheprovider",
+           "tests/test_torch_shard_pivot_card.py"]
+    if dev != "cuda":
+        return {"skipped": "no card"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    log(f"# 9 (t) {' '.join(cmd[2:])}: exit {proc.returncode}, {tail[0]} "
+        f"({secs:.1f} s)")
+    if proc.returncode != 0 or "skipped" in tail[0] or \
+            "passed" not in tail[0]:
+        raise AssertionError(f"9 (t): the sharded pivot's card tests: "
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return {"summary": tail[0], "seconds": secs}
+
+
+def sharded_walk_window(sf, mesh, kind: str, steps: int):
+    """Host ms and device ms a step (``torch.profiler``) of a window of
+    ``steps`` steps of the sharded rank-1 (``kind`` "rank1", 9b's LP) or
+    bounded (``"bounded"``, 9c's box LP) driver from its first basis, with
+    the kernel and with the plain version in its place (the former
+    path), in turns (kernel, plain, plain, kernel); kernels a step and
+    launches by kind of the kernel's windows."""
+    import torch
+
+    import tpulp_torch.shard.sharded as shm
+    import tpulp_torch.shard.sharded_bounded as sbm
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.comm.collectives import MeshAxis
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.shard_pivot import shard_pivot_reference
+    from tpulp_torch.shard import to_sharded_bounded_state, to_sharded_state
+    from tpulp_torch.solve.api import state_from_standard_form
+    from tpulp_torch.solve.bounded import make_bounded_state
+
+    lay = MeshAxis(mesh)
+    opts = SolverOptions.for_dtype(torch.float64)
+    st = state_from_standard_form(sf, dtype=torch.float64, device="cuda")
+    if kind == "rank1":
+        mod, s0 = shm, to_sharded_state(st, mesh)
+        m, n_local = st.m, s0.T.shape[1]
+    else:
+        mod = sbm
+        s0 = to_sharded_bounded_state(make_bounded_state(st, sf.upper), mesh)
+        m, n_local = st.m, s0.s.T.shape[1]
+    stall = opts.resolved_stall_limit(m, n_local * lay.size)
+    step = mod._sharded_step if kind == "rank1" else \
+        mod._sharded_bounded_step
+
+    def walk():
+        s = s0
+        for _ in range(steps):
+            s = step(s, opts, stall, n_local * lay.size, lay)
+        return s
+
+    real = mod.shard_pivot
+    out = {"kernel": [], "plain": []}
+    walk()  # warm
+    for turn in ("kernel", "plain", "plain", "kernel"):
+        mod.shard_pivot = real if turn == "kernel" else shard_pivot_reference
+        try:
+            reset_launches()
+            wall, busy, kernels = device_busy(walk)
+        finally:
+            mod.shard_pivot = real
+        out[turn].append({"host_ms": 1e3 * wall / steps,
+                          "device_ms": 1e3 * busy / steps,
+                          "kernels": kernels / steps,
+                          "launches": {k: v for k, v in LAUNCHES.items()
+                                       if v}})
+    best = {t: min(out[t], key=lambda r: r["host_ms"]) for t in out}
+    log(f"# 9 sharded {kind} window, {steps} steps from the first basis "
+        f"under torch.profiler, kernel / plain in turns: host ms a step "
+        f"{[round(r['host_ms'], 4) for r in out['kernel']]} / "
+        f"{[round(r['host_ms'], 4) for r in out['plain']]}, device ms a "
+        f"step {[round(r['device_ms'], 5) for r in out['kernel']]} / "
+        f"{[round(r['device_ms'], 5) for r in out['plain']]}, kernels a "
+        f"step {best['kernel']['kernels']:.1f} / "
+        f"{best['plain']['kernels']:.1f}; launches (kernel) "
+        f"{best['kernel']['launches']}")
+    if best["kernel"]["launches"].get("fused_fma", 0) or \
+            best["kernel"]["launches"].get("shard_pivot") != steps:
+        raise AssertionError(f"9 {kind} window: launches "
+                             f"{best['kernel']['launches']}")
+    return {"steps": steps, "turns": out}
+
+
 def sharded_window(sf, mesh, dtype):
     """Host ms, device ms, kernels a pivot and the card's busy share of the
     sharded blocked driver's first block (SHARD_K pivots and the flush)
@@ -7443,8 +7845,14 @@ def mesh_main_path(mesh, sf, driver: str, objective: str, dev="cuda"):
     if dev == "cuda" and driver == "blocked" and launches["fused_flush"] == 0:
         raise AssertionError(f"mesh blocked: fused_flush never launched "
                              f"({launches})")
-    if dev == "cuda" and launches["fused_fma"] == 0:
-        raise AssertionError(f"mesh {driver}: fused_fma never launched")
+    # the rank-1 driver pivots with shard_pivot, the rank-K driver keeps
+    # its running vectors with shard_vectors: one launch a step each, and
+    # no FMA launch
+    kernel = "shard_vectors" if driver == "blocked" else "shard_pivot"
+    if dev == "cuda" and (launches[kernel] == 0
+                          or (driver == "rank1"
+                              and launches["fused_fma"] != 0)):
+        raise AssertionError(f"mesh {driver}: launches {launches}")
     per_step = collectives_per_step(counts, steps)
     log(f"# 9{'a' if driver == 'blocked' else 'b'} solve_lp(mesh, "
         f"shard_driver={driver!r}) {sf.m}x{sf.n} f64 at P = 1 (NCCL): "
@@ -7505,6 +7913,7 @@ def mesh_bounded(mesh, dev="cuda"):
 
     from tpulp_torch import SolverOptions
     from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels.shard_pivot import Flip
     from tpulp_torch.shard import (from_sharded_bounded_state,
                                    run_simplex_sharded_bounded,
                                    to_sharded_bounded_state)
@@ -7515,6 +7924,9 @@ def mesh_bounded(mesh, dev="cuda"):
     sf = bounded_form(SHARD_BOX_M, SHARD_BOX_N)[0]
     opts = SolverOptions.for_dtype(torch.float64)
     res = {}
+    # every shard_pivot launch of the mesh walk, by reference (the driver
+    # never writes a step's inputs)
+    rec = PivotRecorder()
     for kind in ("solo", "mesh"):
         bs = make_bounded_state(state_from_standard_form(
             sf, dtype=torch.float64, device=dev), sf.upper)
@@ -7527,9 +7939,11 @@ def mesh_bounded(mesh, dev="cuda"):
             if kind == "solo":
                 out = run_simplex_bounded(bs, opts)
             else:
-                out = from_sharded_bounded_state(run_simplex_sharded_bounded(
-                    to_sharded_bounded_state(bs, mesh), mesh, opts),
-                    bs.s.n, mesh)
+                with rec:
+                    out = from_sharded_bounded_state(
+                        run_simplex_sharded_bounded(
+                            to_sharded_bounded_state(bs, mesh), mesh, opts),
+                        bs.s.n, mesh)
             sync(dev)
         finally:
             restore()
@@ -7553,7 +7967,9 @@ def mesh_bounded(mesh, dev="cuda"):
         f"{'equal' if same else 'DIFFER'}; objective relative difference "
         f"{rel:.2e}; launches {msh['launches']}")
     if not (same and msh["status"] == 1 and rel <= 1e-9
-            and (dev != "cuda" or (msh["launches"]["fused_fma"] > 0
+            and (dev != "cuda" or (msh["launches"]["fused_fma"] == 0
+                                   and msh["launches"]["shard_pivot"]
+                                   == rec.count > 0
                                    and solo["launches"]["bounded_grid"] == 1
                                    and solo["launches"]["bounded_step"]
                                    == 0))):
@@ -7562,6 +7978,37 @@ def mesh_bounded(mesh, dev="cuda"):
     for r in res.values():
         del r["basis"], r["at_upper"]
     res["relative_difference"] = rel
+    msh["steps"] = rec.count
+    if dev == "cuda":
+        # shard_pivot against its plain version on the walk's own steps: the
+        # first and the last, and the first of each kind (a pivot alone, an
+        # upper hit's leaving flip, an entering flip with the gate closed,
+        # an idle step); one bounded step with a flip timed in turns
+        kinds = bounded_kinds(rec)
+        missing = {"pivot", "leave_flip", "idle"} - set(kinds)
+        if missing:
+            raise AssertionError(f"9c: no step of the kinds {missing}")
+        held = sorted({0, len(rec.calls) - 1}
+                      | {ks[0] for ks in kinds.values()})
+        for k in held:
+            pivot_held(rec.calls[k][1], f"9c step {rec.calls[k][0]}")
+        # Dantzig's walk here takes no entering flip: hold one on its
+        # first pivot's block (the gate closed, the entering column
+        # flipped across a span of 1.5)
+        T, rhs, u, rg, j, index, gate, _, frame = \
+            rec.calls[kinds["pivot"][0]][1]
+        enter = Flip(torch.ones_like(gate), torch.ones_like(gate),
+                     j.clone(), torch.full_like(u[:, 0], 1.5), u)
+        pivot_held((T, rhs, u, rg, j, index, torch.zeros_like(gate), enter,
+                    frame), "9c an entering flip on the walk's block")
+        res["shard_pivot"] = {
+            "steps_by_kind": {k: len(v) for k, v in kinds.items()},
+            "held_steps": [rec.calls[k][0] for k in held],
+            "leave_flip": pivot_timing(
+                rec.calls[kinds["leave_flip"][0]][1], "9c leaving flip")}
+        log(f"# 9c shard_pivot: {rec.count} launches, steps by kind "
+            f"{res['shard_pivot']['steps_by_kind']}; steps "
+            f"{res['shard_pivot']['held_steps']} held bit for bit")
     return res
 
 
@@ -7633,6 +8080,58 @@ def machinery_ratio(mesh, dev="cuda"):
                       "kernel_us": kernel_us}}
 
 
+def sharded_pivot_checks(sf, mesh, prec, vrec, dev="cuda") -> dict:
+    """9b and 9a on the new kernels: ``shard_pivot`` held bit for bit
+    against its plain version on 9b's recorded steps (the first, every
+    SHARD_KEEP-th and the last, the idle step's no-op pivot on (row 2,
+    ``basis[0]``)), and its first step timed at f64 and f32 in turns with
+    the plain version (the former path); ``shard_vectors`` on 9a's first
+    and last pivots, timed likewise; the sharded rank-1 and bounded walks'
+    windows under torch.profiler; the kernels' card tests."""
+    import torch
+
+    from tpulp_torch.kernels.shard_pivot import (shard_pivot, shard_vectors,
+                                                 shard_vectors_reference)
+
+    res = {"card_tests": pivot_card_tests(dev)}
+    if dev != "cuda":
+        return res
+    for count, args in prec.calls:
+        pivot_held(args, f"9b step {count}")
+    # the walk's last step is the idle step that finds the optimum: the
+    # no-op pivot on (row 2, basis[0]), which leaves every value
+    last = prec.calls[-1][1]
+    Tn, rhsn = kernel_pivot(last)
+    noop = int(last[3][0]) == 2 and bool(
+        torch.equal(Tn + 0.0, last[0] + 0.0)
+        and torch.equal(rhsn + 0.0, last[1] + 0.0))
+    if not noop:
+        raise AssertionError("9b: the walk's last step is not the no-op "
+                             "pivot on (row 2, basis[0])")
+    first = prec.calls[0][1]
+
+    def wrapper(args):
+        # the drivers' call: the public wrapper on one lane
+        T, rhs, u, rg, j = (x[0] for x in args[:5])
+        return lambda: shard_pivot(T, rhs, u, rg, j, args[5])
+
+    res["9b_float64"] = pivot_timing(first, "9b float64", wrapper(first))
+    f32 = as_float32(first)
+    res["9b_float32"] = pivot_timing(f32, "9b float32", wrapper(f32))
+    res["9b_steps"] = prec.count
+    res["9b_held_steps"] = [c for c, _ in prec.calls]
+    res["9a_vectors_float64"] = vectors_timing(vrec.first, "9a first pivot")
+    for g, w in zip(shard_vectors(*vrec.last),
+                    shard_vectors_reference(*vrec.last)):
+        bits_equal("shard_vectors 9a last pivot", g, w)
+    res["windows"] = {
+        "rank1": sharded_walk_window(sf, mesh, "rank1", SHARD_WINDOW),
+        "bounded": sharded_walk_window(
+            bounded_form(SHARD_BOX_M, SHARD_BOX_N)[0], mesh, "bounded",
+            SHARD_WINDOW)}
+    return res
+
+
 def phase_mesh(objective: str, dev="cuda"):
     """Phase 9: a one-process NCCL group, ``make_mesh(1)``, and 9a-9e:
     solve_lp(mesh) blocked and rank-1 on phase 5's LP, the sharded bounded
@@ -7660,8 +8159,9 @@ def phase_mesh(objective: str, dev="cuda"):
         log(f"# phase 9: one-process NCCL group and make_mesh(1) in "
             f"{time.perf_counter() - t0:.2f} s: {mesh}")
         sf = main_path_form(MAIN_M, MAIN_N)
-        res = {"blocked": mesh_main_path(mesh, sf, "blocked", objective,
-                                         dev)}
+        with VectorRecorder() as vrec:
+            res = {"blocked": mesh_main_path(mesh, sf, "blocked", objective,
+                                             dev)}
         window = sharded_window(sf, mesh, torch.float64)
         res["blocked"]["window"] = window
         log(f"# 9a first block under torch.profiler: "
@@ -7669,8 +8169,12 @@ def phase_mesh(objective: str, dev="cuda"):
             f"{window['device_ms_per_pivot']:.4f} ms of device time and "
             f"{window['kernels_per_pivot']:.0f} kernels a pivot; the card "
             f"{100 * window['busy_share']:.1f}% busy")
-        res["rank1"] = mesh_main_path(mesh, sf, "rank1", objective, dev)
+        # 9b's shard_pivot launches: every SHARD_KEEP-th and the last, by
+        # reference (the driver never writes a step's inputs)
+        with PivotRecorder(every=SHARD_KEEP) as prec:
+            res["rank1"] = mesh_main_path(mesh, sf, "rank1", objective, dev)
         res["bounded"] = mesh_bounded(mesh, dev)
+        res["shard_pivot"] = sharded_pivot_checks(sf, mesh, prec, vrec, dev)
         res["ratio"] = machinery_ratio(mesh, dev)
         # 9e: the flush at 9a's per-rank block, on its first block's etas
         run, _, opts = first_block(sf, mesh, torch.float64)
@@ -7693,6 +8197,54 @@ def mesh_axes(mesh) -> dict:
         else {"batch_axis": "batch"}
 
 
+class PivotFma:
+    """The FMA launches made inside the lane-sharded walks
+    (``sharded_batch.run_simplex_batch_sharded`` and
+    ``run_dual_batch_sharded``, the pivots' loops) while the block runs:
+    ``fma`` (the waves' RHS rewrite runs outside them)."""
+
+    def __enter__(self):
+        import tpulp_torch.shard.sharded_batch as sbt
+        from tpulp_torch.kernels import LAUNCHES
+
+        self.real = {k: getattr(sbt, k) for k in (
+            "run_simplex_batch_sharded", "run_dual_batch_sharded")}
+        self.fma = 0
+
+        def wrap(fn):
+            def spy(*args, **kw):
+                before = LAUNCHES["fused_fma"]
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.fma += LAUNCHES["fused_fma"] - before
+            return spy
+
+        for k, fn in self.real.items():
+            setattr(sbt, k, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        import tpulp_torch.shard.sharded_batch as sbt
+
+        for k, fn in self.real.items():
+            setattr(sbt, k, fn)
+        return False
+
+
+def lane_pivot_checks(rec, label: str) -> dict:
+    """``shard_pivot`` on a lane-sharded path's recorded launches (copies
+    taken in the run): each held bit for bit against the plain version
+    vmapped over the lanes (the former path), the first timed in turns
+    with it."""
+    for count, args in rec.calls:
+        pivot_held(args, f"{label} launch {count}")
+    res = pivot_timing(rec.calls[0][1], label)
+    res["held_launches"] = [c for c, _ in rec.calls]
+    res["launches"] = rec.count
+    return res
+
+
 def mesh_lp_batch(mesh, label: str, scens, solo, t_solo: float,
                   dev="cuda"):
     """10a: ``solve_lp_batch(mesh=)`` over phase 7c's scenarios, f64:
@@ -7703,10 +8255,12 @@ def mesh_lp_batch(mesh, label: str, scens, solo, t_solo: float,
     from tpulp_torch.comm import COUNTS, reset_counts
     from tpulp_torch.kernels import LAUNCHES, reset_launches
 
-    # this path's main run: counts set to 0 just before, read after
+    # this path's main run: counts set to 0 just before, read after; the
+    # shard_pivot launches copied every SHARD_LANE_KEEP-th
     reset_launches()
     reset_counts()
-    with FmaLayouts() as lay:
+    rec = PivotRecorder(copy=True, every=SHARD_LANE_KEEP)
+    with FmaLayouts() as lay, PivotFma() as pfma, rec:
         t0 = time.perf_counter()
         out = tpulp_torch.solve_lp_batch(scens, mesh=mesh, device=dev,
                                          **mesh_axes(mesh))
@@ -7720,11 +8274,14 @@ def mesh_lp_batch(mesh, label: str, scens, solo, t_solo: float,
     if bad or any(s.status != "optimal" for s in out):
         raise AssertionError(f"10a {label}: lanes {bad} differ from the "
                              "solo batch")
-    # the (1, 1) mesh's lane-sharded steps pivot with the FMA kernel; the
-    # ("batch",) mesh's whole lanes run the lane kernel
-    need = "fused_fma" if label == "1x1" else "lane_primal"
-    if dev == "cuda" and launches[need] == 0:
-        raise AssertionError(f"10a {label}: {need} never launched")
+    # the (1, 1) mesh's lane-sharded steps pivot with shard_pivot, one
+    # launch a step for every lane and no FMA; the ("batch",) mesh's whole
+    # lanes run the lane kernel
+    need = "shard_pivot" if label == "1x1" else "lane_primal"
+    if dev == "cuda" and (launches[need] == 0 or pfma.fma
+                          or (label == "1x1" and launches["fused_fma"])):
+        raise AssertionError(f"10a {label}: launches {launches}, FMA "
+                             f"launches in the pivots {pfma.fma}")
     # a lane-sharded primal step makes one (m,) int32 psum for every lane
     steps = counts.get(("psum", "int32", SCEN_LANES * SCEN_M), 0)
     per_step = collectives_per_step(counts, steps) if steps else counts
@@ -7734,8 +8291,11 @@ def mesh_lp_batch(mesh, label: str, scens, solo, t_solo: float,
         f"{t_solo:.2f} s), {steps} lane-sharded steps; collectives "
         f"{'a step ' if steps else ''}{per_step}; launches {launches}; "
         f"the FMA's {held} operand layouts bit for bit the CPU's addcmul")
+    pivots = lane_pivot_checks(rec, f"10a {label}") \
+        if dev == "cuda" and rec.calls else None
     return {"seconds": secs, "solo_seconds": t_solo, "steps": steps,
-            "fma_layouts": held,
+            "fma_layouts": held, "fma_in_pivots": pfma.fma,
+            "shard_pivot": pivots,
             "collectives": {f"{k}:{d}x{e}": c
                             for (k, d, e), c in counts.items()},
             "launches": launches}
@@ -7756,11 +8316,15 @@ def mesh_milp(mesh, label: str, solo: dict, dev="cuda"):
     lp = knapsack_lp(values, [weights], [cap])
     kw = dict(dtype=torch.float64, batch_size=MILP_BATCH, mesh=mesh,
               device=dev, **mesh_axes(mesh))
-    tpulp_torch.solve_milp(lp, **kw)
+    # the untimed solve: its shard_pivot launches copied every
+    # SHARD_LANE_KEEP-th
+    rec = PivotRecorder(copy=True, every=SHARD_LANE_KEEP)
+    with rec:
+        tpulp_torch.solve_milp(lp, **kw)
     sync(dev)
     reset_launches()
     reset_counts()
-    with FmaLayouts() as lay:
+    with FmaLayouts() as lay, PivotFma() as pfma:
         t0 = time.perf_counter()
         sol, st = tpulp_torch.solve_milp(lp, return_stats=True, **kw)
         sync(dev)
@@ -7776,17 +8340,21 @@ def mesh_milp(mesh, label: str, solo: dict, dev="cuda"):
                              f"{solo['counters']}")
     if st.gen_waves == 0:
         raise AssertionError(f"10b {label}: no device generation ran")
-    needs = ("fused_fma",) if label == "1x1" else ("lane_dual",
-                                                   "lane_primal")
-    if dev == "cuda" and not all(launches[k] for k in needs):
-        raise AssertionError(f"10b {label}: {needs} not all launched")
+    needs = ("shard_pivot",) if label == "1x1" else ("lane_dual",
+                                                     "lane_primal")
+    if dev == "cuda" and (not all(launches[k] for k in needs) or pfma.fma):
+        raise AssertionError(f"10b {label}: {needs} not all launched, or "
+                             f"{pfma.fma} FMA launches in the pivots")
     log(f"# 10b solve_milp(mesh {label}) bench knapsack f64: optimal "
         f"{sol.objective} = DP oracle, every BnbStats counter phase 7's; "
         + milp_stats_line(st, secs)
         + f" (phase 7 solo {solo['nodes_per_s']:.1f} nodes/s); "
         f"{sum(counts.values())} collectives; launches {launches}; the "
         f"FMA's {held} operand layouts bit for bit the CPU's addcmul")
+    pivots = lane_pivot_checks(rec, f"10b {label}") \
+        if dev == "cuda" and rec.calls else None
     return {"seconds": secs, "nodes": st.nodes_solved, "fma_layouts": held,
+            "fma_in_pivots": pfma.fma, "shard_pivot": pivots,
             "nodes_per_s": st.nodes_solved / secs,
             "solo_nodes_per_s": solo["nodes_per_s"],
             "gen_waves": st.gen_waves, "collectives": sum(counts.values()),
@@ -7960,6 +8528,9 @@ def main() -> int:
                     f"{v.get('static_smem')} bytes of static shared memory"
                     for k, v in ptxas.items()
                     if k.startswith("cluster_kernel")))
+    log("# shard_pivot, shard_vectors (ptxas -v): " + "; ".join(
+        f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} bytes "
+        f"of spills" for k, v in ptxas.items() if k.startswith("shard_")))
     log("# lane_primal (ptxas -v): " + "; ".join(
         f"{k} {v.get('registers')} registers, {v.get('spill_bytes')} bytes "
         f"of spills, {v.get('static_smem')} bytes of static shared memory"
@@ -8167,6 +8738,21 @@ def main() -> int:
             "none: XLA's vmapped lax.while_loop over simplex_step "
             "(tpulp/batch/vmap_driver.py:249-252; tpulp/solve/dual.py:271, "
             "409, 525, 592)", lane_cases["cluster_main_path"]["launches"]),
+        # the main path: 9b's solve_lp(mesh, shard_driver="rank1"), one
+        # launch a step; 9c's bounded walk and 10a's and 10b's lanes ride
+        # along
+        "shard_pivot": (
+            "tpulp_torch/kernels/csrc/shard_pivot.cu",
+            "none: XLA's fusion of the sharded pivot (tpulp/shard/"
+            "sharded.py:393-405; tpulp/shard/sharded_bounded.py:218-248)",
+            mesh["rank1"]["launches"]),
+        # the main path: 9a's solve_lp(mesh, shard_driver="blocked"), one
+        # launch a pivot
+        "shard_vectors": (
+            "tpulp_torch/kernels/csrc/shard_pivot.cu",
+            "none: XLA's fusion of the rank-K sharded pivot's running "
+            "vectors (tpulp/shard/sharded_blocked.py:242-244)",
+            mesh["blocked"]["launches"]),
     }
     # rank1_step's main path since the grid took every frame a cluster
     # does not hold up to its plan: (x)'s walk past the plan
@@ -8625,6 +9211,22 @@ def main() -> int:
                     "blocks": w["cluster"], "smem": w["smem"],
                     "occupancy": w["occupancy"], "steps": w["niter"]}
             head = cases["float64"]
+        elif kname == "shard_pivot":
+            # the headline: 9b's first step (1538 x 3072 and its RHS, f64),
+            # in turns with the former path; f32, 9c's leaving flip and the
+            # lanes of 10a and 10b ride along
+            sp = mesh["shard_pivot"]
+            head = sp["9b_float64"]
+            cases = {"9b float64": sp["9b_float64"],
+                     "9b float32": sp["9b_float32"],
+                     "9c leaving flip float64":
+                         mesh["bounded"]["shard_pivot"]["leave_flip"],
+                     "10a 1x1 float64":
+                         batch_mesh["lp_batch_1x1"]["shard_pivot"],
+                     "10b 1x1 float64": batch_mesh["milp_1x1"]["shard_pivot"]}
+        elif kname == "shard_vectors":
+            head = mesh["shard_pivot"]["9a_vectors_float64"]
+            cases = {"9a float64": head}
         elif kname in batch_part:
             # a block of 8c's batch (8 lanes of 514 x 1025, K 64): the
             # launch over the lanes on the card, beside its plain version
@@ -8916,6 +9518,31 @@ def main() -> int:
                 f"lane_{kind}", 0)
             for dt in ("float64", "float32") for case in cs}
     kernels[4]["card_tests"] = lane_cases["card_tests"]
+    # the sharded pivot's kernels: launches by path (one a step, every lane
+    # of a lane-sharded step in one), the FMA's launches on the same runs
+    # (0 on every pivot), the card tests, the walks' windows
+    by_name = {k["name"]: k for k in kernels}
+    by_name["shard_pivot"]["launches_by_path"] = {
+        "9b_rank1_float64": mesh["rank1"]["launches"]["shard_pivot"],
+        "9c_bounded_float64": mesh["bounded"]["mesh"]["launches"][
+            "shard_pivot"],
+        "10a_lp_batch_1x1_float64": batch_mesh["lp_batch_1x1"]["launches"][
+            "shard_pivot"],
+        "10b_milp_1x1_float64": batch_mesh["milp_1x1"]["launches"][
+            "shard_pivot"]}
+    by_name["shard_pivot"]["fma_launches_in_pivots"] = {
+        "9b_rank1_float64": mesh["rank1"]["launches"]["fused_fma"],
+        "9c_bounded_float64": mesh["bounded"]["mesh"]["launches"][
+            "fused_fma"],
+        "10a_lp_batch_1x1_float64":
+            batch_mesh["lp_batch_1x1"]["fma_in_pivots"],
+        "10b_milp_1x1_float64": batch_mesh["milp_1x1"]["fma_in_pivots"]}
+    by_name["shard_pivot"]["steps_by_kind_9c"] = \
+        mesh["bounded"]["shard_pivot"]["steps_by_kind"]
+    by_name["shard_pivot"]["card_tests"] = mesh["shard_pivot"]["card_tests"]
+    by_name["shard_pivot"]["windows"] = mesh["shard_pivot"]["windows"]
+    by_name["shard_vectors"]["launches_by_path"] = {
+        "9a_blocked_float64": mesh["blocked"]["launches"]["shard_vectors"]}
     kernels[13]["walk_10c"] = {
         key: batch_mesh["spans"][key] for key in ("walk_seconds", "waves",
                                                   "seconds", "nodes_per_s")}
@@ -8936,7 +9563,9 @@ def main() -> int:
                      (15, tuple(RANK1_GRID_KERNELS.values())),
                      (16, tuple(BLOCKED_GRID_KERNELS.values())),
                      (17, tuple(v for v in CLUSTER_KERNELS.values()
-                                if v.endswith(("primal>", "dual>"))))):
+                                if v.endswith(("primal>", "dual>")))),
+                     (18, "shard_pivot_kernel<"),
+                     (19, "shard_vectors_kernel<")):
         kernels[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}

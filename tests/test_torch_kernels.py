@@ -347,7 +347,8 @@ def test_launch_counters_stay_zero_on_cpu():
                         "blocked_stage": 0, "blocked_cluster": 0,
                         "blocked_grid": 0,
                         "blocked_cluster_batch": 0, "fused_flush_batch": 0,
-                        "blocked_ray_batch": 0}
+                        "blocked_ray_batch": 0, "shard_pivot": 0,
+                        "shard_vectors": 0}
 
 
 def test_nvcc_command_line():
@@ -371,7 +372,8 @@ def test_nvcc_command_line():
                                                "fma.cu", "inner_block.cu",
                                                "lanes.cu", "rank1.cu",
                                                "rank1_cluster.cu",
-                                               "rank1_grid.cu"]
+                                               "rank1_grid.cu",
+                                               "shard_pivot.cu"]
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link

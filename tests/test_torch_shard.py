@@ -337,8 +337,10 @@ def start_group(tasks, world, tmpdir, handlers=None, local_world=None):
                     q.kill()
                 raise
             logs.append(out)
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            assert p.returncode == 0, f"rank {r} of {world}:\n{log[-4000:]}"
+        failed = [_rank_failure(r, world, p.returncode, log, out_path)
+                  for r, (p, log) in enumerate(zip(procs, logs))
+                  if p.returncode != 0]
+        assert not failed, "\n".join(failed)
         res = []
         for r in range(world):
             with open(f"{out_path}.{r}") as f:
@@ -346,6 +348,19 @@ def start_group(tasks, world, tmpdir, handlers=None, local_world=None):
         return res
 
     return wait
+
+
+def _rank_failure(rank, world, code, log, out_path) -> str:
+    """A failed rank's report: its exit code (the signal that ended it,
+    where one did), whether it wrote its results, the end of its log."""
+    how = f"exit code {code}"
+    if code < 0:
+        import signal
+
+        how = f"killed by {signal.Signals(-code).name}"
+    wrote = os.path.exists(f"{out_path}.{rank}")
+    return (f"rank {rank} of {world}: {how}, results "
+            f"{'written' if wrote else 'not written'}:\n{log[-4000:]}")
 
 
 class InProcessGroup:
@@ -761,4 +776,11 @@ def test_batch_mesh_still_raises_naming_its_item(entry):
 
 
 if __name__ == "__main__":
-    sys.exit(worker_main(sys.argv[1:]))
+    code = worker_main(sys.argv[1:])
+    # the rank's results are written and its process group destroyed:
+    # leave without the interpreter's teardown, in which torch's gloo
+    # objects can abort a finished rank ("terminate called without an
+    # active exception", SIGABRT)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -18,6 +18,8 @@ from .rank1 import rank1_stage, rank1_steps
 from .rank1_cluster import cluster_plan
 # the module, not its wrapper of the same name: rank1_grid.rank1_grid
 from .rank1_grid import rank1_grid_plan
+# the module, not its wrapper of the same name: shard_pivot.shard_pivot
+from .shard_pivot import shard_pivot_plan, shard_vectors
 
 __all__ = [
     "LAUNCHES",
@@ -45,4 +47,6 @@ __all__ = [
     "blocked_stage",
     "blocked_cluster_plan",
     "blocked_grid_plan",
+    "shard_pivot_plan",
+    "shard_vectors",
 ]

@@ -145,6 +145,11 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P, _D, _L, _P, _P]
         fn.restype = _I
+    for name in ("tpulp_shard_pivot_f32", "tpulp_shard_pivot_f64",
+                 "tpulp_shard_vectors_f32", "tpulp_shard_vectors_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P]
+        fn.restype = _I
     for name in ("tpulp_lane_dual_f32", "tpulp_lane_dual_f64",
                  "tpulp_lane_primal_f32", "tpulp_lane_primal_f64",
                  "tpulp_lane_bounded_f32", "tpulp_lane_bounded_f64"):

@@ -17,7 +17,8 @@ basis and the scalars replicated. Per pivot:
 3. the entering column: its owner contributes it, the others zeros, and
    one (m+2)-psum broadcasts it;
 4. the ratio test runs replicated, and the rank-1 update on each shard's
-   block is local, one rounding per element (``fused_fma``).
+   block is local, one rounding per element: the pivot, its unit column
+   and the RHS in one pass (``kernels.shard_pivot``).
 
 torch.distributed is multi-controller: every process runs this driver
 with the same program, and every host-side decision (the chunk loop's
@@ -49,7 +50,7 @@ import torch.distributed as dist
 from ..comm.collectives import MeshAxis, axis_size
 from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
                           SimplexState, SolverOptions, Status)
-from ..kernels.fma import fused_fma
+from ..kernels.shard_pivot import shard_pivot
 from ..solve.driver import (BIG_I, finish, put, ratio_rows, run_chunked,
                              status_select, take)
 
@@ -386,24 +387,6 @@ def cleanup_and_price(s: ShardedState, art_basic, row_of, crow, running,
             use_bland)
 
 
-def pivot_local(T, rhs, u_eff, rg, owner_eff, j_local_eff):
-    """The rank-1 pivot on this shard's block and the replicated RHS: row
-    ``rg`` normalised, ``T - u (x) prow`` with one rounding per element,
-    the entering column (on its owner) snapped to the unit vector."""
-    nrows, n_local = T.shape
-    invp = 1.0 / take(u_eff, rg)
-    prow = take(T, rg, 0) * invp
-    Tn = fused_fma(T, u_eff[:, None], prow[None, :], -1.0)
-    is_rg = (torch.arange(nrows, device=T.device) == rg)[:, None]
-    Tn = torch.where(is_rg, prow[None, :], Tn)
-    is_j = owner_eff & (torch.arange(n_local, device=T.device)
-                        == j_local_eff)
-    Tn = torch.where(is_j[None, :], is_rg.to(T.dtype), Tn)
-    rhs_piv = take(rhs, rg) * invp
-    rhsn = put(fused_fma(rhs, u_eff, rhs_piv, -1.0), rg, rhs_piv)
-    return Tn, rhsn, invp
-
-
 def unit_row2(nrows: int, like: torch.Tensor) -> torch.Tensor:
     """The column of ``basis[0]``: the exact unit vector on row 2."""
     return (torch.arange(nrows, device=like.device) == 2).to(like.dtype)
@@ -459,10 +442,7 @@ def _sharded_step(s: ShardedState, opts: SolverOptions, stall_limit: int,
     rg = torch.where(do_pivot, r + 2, 2)
     j_eff = torch.where(do_pivot, j.long(), s.basis[0].long())
     u_eff = torch.where(do_pivot, u, unit_row2(T.shape[0], T))
-    n_local = T.shape[1]
-    Tn, rhsn, _ = pivot_local(T, s.rhs, u_eff, rg,
-                              (j_eff // n_local) == lay.index,
-                              j_eff % n_local)
+    Tn, rhsn = shard_pivot(T, s.rhs, u_eff, rg, j_eff, lay.index)
     basis = torch.where(do_pivot, put(s.basis, r, j), s.basis)
 
     # ---- stall / Bland switch -----------------------------------------------

@@ -18,7 +18,9 @@ and multi-controller, one process per device:
   carries every local lane, so a lane-sharded primal step makes path B's
   four collectives (the (m,) artificial scan, the packed candidate
   ``all_gather``, the entering column's psum, the finiteness psum) and a
-  dual step three, whatever the lanes per process;
+  dual step three, whatever the lanes per process; on the card its pivot
+  is one ``shard_pivot`` launch over the local lanes, which writes each
+  lane's block and RHS as a frame that the next step reads in place;
 * a mesh without ``cols`` leaves columns whole (``WHOLE``, an axis of one
   shard that does not communicate): its frames are the solo layout, so
   its lanes run the solo lane loops (``solve.lanes``: on the card the
@@ -48,11 +50,12 @@ import torch
 
 from ..comm.collectives import MeshAxis
 from ..core.state import SimplexState, SolverOptions, Status
+from ..kernels.shard_pivot import shard_pivot
 from ..solve.driver import BIG_I, finish, first_true, put, take
 from ..solve.lanes import dual_lanes, primal_lanes, run_lanes
 from .sharded import (ShardedState, _fetch_column, _gather_cols,
                       _local_block, _pad_cols, _sharded_step,
-                      gather_candidates, local_ids, pivot_local, unit_row2)
+                      gather_candidates, local_ids, unit_row2)
 
 __all__ = [
     "WHOLE",
@@ -157,9 +160,7 @@ def _sharded_dual_step(s: ShardedState, opts: SolverOptions,
     rg = torch.where(do_pivot, r + 2, 2)
     j_eff = torch.where(do_pivot, j.long(), s.basis[0].long())
     u_eff = torch.where(do_pivot, u, unit_row2(T.shape[0], T))
-    Tn, rhsn, _ = pivot_local(T, s.rhs, u_eff, rg,
-                              (j_eff // n_local) == lay.index,
-                              j_eff % n_local)
+    Tn, rhsn = shard_pivot(T, s.rhs, u_eff, rg, j_eff, lay.index)
     basis = torch.where(do_pivot, put(s.basis, r, j), s.basis)
 
     # ---- stall detection: the dual objective does not decrease ------------

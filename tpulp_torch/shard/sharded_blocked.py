@@ -40,7 +40,7 @@ from ..core.precision import full_precision
 from ..core.state import (RULE_BLAND, RULE_DEVEX, SolverOptions, Status,
                           eta_scaled_options)
 from ..kernels.block import DEVEX_RESET, fused_flush
-from ..kernels.fma import fused_fma
+from ..kernels.shard_pivot import shard_vectors
 from ..solve.driver import (BIG_I, finish, put, ratio_rows, status_select,
                              take)
 from .sharded import (ShardedState, _check_device, art_basic_scan,
@@ -165,9 +165,8 @@ def _sharded_blocked_pivot(carry: _ShardedBlockCarry, opts: SolverOptions,
     vr = carry.vr.index_copy(0, t, vrow_rhs[None])
 
     # ---- the running vectors: one rounding each, as XLA fuses them --------
-    row0 = fused_fma(carry.row0, w[0], vrow)
-    row1 = fused_fma(carry.row1, w[1], vrow)
-    bvec = fused_fma(carry.bvec, w, vrow_rhs)
+    row0, row1, bvec = shard_vectors(carry.row0, carry.row1, carry.bvec, w,
+                                     vrow, vrow_rhs)
 
     basis = torch.where(act, put(s.basis, r, j), s.basis)
     # retirement clears its row; a pivot installs the entering column's

@@ -14,7 +14,9 @@ layout of ``shard/sharded.py``, Dantzig- or Bland-priced:
   fetched, and the leaving column's post-pivot value is closed form (it
   was the unit vector on row rg: ``-u / piv`` off that row, ``1 / piv`` on
   it); its owner negates its slice, and every shard folds the RHS with one
-  ``fused_fma`` (tpulp's XLA contracts that update to one rounding).
+  fma an entry (tpulp's XLA contracts that update to one rounding). The
+  pivot, its gate and the flip are one pass over the block
+  (``kernels.shard_pivot``).
 
 An idle step pivots on (row 2, ``basis[0]``) with that column's unit
 vector built locally, as in ``shard/sharded.py``.
@@ -28,13 +30,13 @@ import torch
 
 from ..comm.collectives import MeshAxis
 from ..core.state import SolverOptions, Status
-from ..kernels.fma import fused_fma
+from ..kernels.shard_pivot import Flip, shard_pivot
 from ..solve.bounded import BoundedState
 from ..solve.driver import (BIG_I, finish, put, run_chunked, status_select,
                              take)
 from .sharded import (ShardedState, _axis_size, _check_device, _gather_cols,
                       _local_block, _pad_cols, art_basic_scan,
-                      cleanup_and_price, from_sharded_state, pivot_local,
+                      cleanup_and_price, from_sharded_state,
                       to_sharded_state, unit_row2)
 
 __all__ = ["ShardedBoundedState", "to_sharded_bounded_state",
@@ -157,28 +159,18 @@ def _sharded_bounded_step(sb: ShardedBoundedState, opts: SolverOptions,
     rg = torch.where(do_pivot, r + 2, 2)
     j_eff = torch.where(do_pivot, j.long(), basis_l[0])
     u_eff = torch.where(do_pivot, u, unit_row2(nrows, T))
-    Tn, rhsn, invp = pivot_local(T, s.rhs, u_eff, rg,
-                                 (j_eff // n_local) == lay.index,
-                                 j_eff % n_local)
-    # an entering flip alone, or an idle step, leaves the block as it was
-    Tn = torch.where(do_pivot, Tn, T)
-    rhsn = torch.where(do_pivot, rhsn, s.rhs)
     basis = torch.where(do_pivot, put(s.basis, r, j), s.basis)
 
-    # ---- the one (possibly no-op) column flip -------------------------------
+    # ---- the one (possibly no-op) column flip, in the pivot's pass --------
     do_flip = (do_price & kind_up & ~cleanup) | do_flip_enter
     fcol = torch.where(do_flip_enter, j.long(), leaving)
     uf = torch.where(do_flip, torch.where(do_flip_enter, upper_j,
                                           take(u_basic, r)), 0.0)
-    is_rg = torch.arange(nrows, device=T.device) == rg
-    colv = torch.where(do_flip_enter, u,
-                       torch.where(is_rg, invp, -u_eff * invp))
-    # rhs - uf * colv with one rounding, as XLA contracts it
-    rhsn = fused_fma(rhsn, colv, uf, -1.0)
+    Tn, rhsn = shard_pivot(T, s.rhs, u_eff, rg, j_eff, lay.index, do_pivot,
+                           Flip(do_flip, do_flip_enter, fcol, uf, u))
     is_fcol = (((fcol // n_local) == lay.index)
                & (torch.arange(n_local, device=T.device) == fcol % n_local)
                & do_flip)
-    Tn = torch.where(is_fcol[None, :], -Tn, Tn)
     at_upper = torch.where(is_fcol, ~sb.at_upper, sb.at_upper)
 
     # ---- stall / Bland switch ----------------------------------------------
