@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the thirteen sources of
+Builds the CUDA kernels from the twelve sources of
 tpulp_torch/kernels/csrc (flush, inner block, FMA, the lane kernels, the
-bounded step's four launches, the rank-1 step's five, the blocked
-engine's seven, the cluster walks, the blocked engine's cluster launch,
+rank-1 step's five launches, the blocked engine's seven, the cluster
+walks, the blocked engine's cluster launch,
 the three grid walks and the sharded pivot's two kernels; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
@@ -93,24 +93,25 @@ batched pivot at B = 128 beside the lane kernels' us a step, and runs
 ``solve_lp(warm_start=)`` at 256 x 512.
 Phase 8 solves a 1024 x 2048 box LP with ``simple_bounds`` (the
 bounded-variable simplex on ``bounded_grid``, one cooperative launch a walk
-with the tableau's column slabs in the SMs' shared memory, no
-``bounded_step`` and no FMA launch, certified, held against the
-row-lowered solve on the kernel engine; at f32 answered on the ladder's f64
-retry), holds the grid walk and ``bounded_steps``' walk (four launches a
-step) on the f64 devex walk's first 4,096 steps, the f32 walk's first 2,048 steps and a
-Dantzig walk that switches to Bland against one plain loop in every field,
-the grid kernel against its plain version ``bounded_grid_reference`` on the
-card, and each of the four launches against its plain stage on a step with
-an upper hit and one with an entering flip; times both kernels' steps on
-the card and on the host clock in turns, with the grid's stage split;
-solves a 2048 x 2048 box LP past the resident slab in one streamed
-``bounded_grid`` launch (its rows past R through device memory; certified;
-its f64 and f32 windows held to the plain walk and the plain version; the
-launch timed by stage in turns with ``bounded_steps``), holds the grid at
-forced splits on small frames, walks a 7000 x 64 box LP at f64 and a
-12000 x 64 one at f32, past the streamed plan, on the grid's plan with the
-per-row vectors in device memory (held to the plain walk and to
-``bounded_steps``' walk, timed in turns with it), and runs the grid's
+with the tableau's column slabs in the SMs' shared memory, no FMA launch,
+certified, held against the row-lowered solve on the kernel engine; at f32
+answered on the ladder's f64 retry), holds the grid walk on the f64 devex
+walk's first 4,096 steps, the f32 walk's first 2,048 steps and a Dantzig
+walk that switches to Bland against one plain loop in every field, and the
+grid kernel against its plain version ``bounded_grid_reference`` on the
+card; times the grid's steps on the card and on the host clock, with its
+stage split; solves a 2048 x 2048 box LP past the resident slab in one
+streamed ``bounded_grid`` launch (its rows past R through device memory;
+certified; its f64 and f32 windows held to the plain walk and the plain
+version; the launch timed by stage), holds the grid at forced splits and
+forced plans on small frames, walks a 7000 x 64 box LP at f64 and a 12000
+x 64 one at f32, past the streamed plan, on the grid's plan with the
+per-row vectors in device memory (held to the plain walk, timed), walks
+16 x 409,584 (f64, 4,096 steps) and 16 x 1,048,576 (f64 and f32) box LPs,
+past the device-vector plan, on the wide plan (no row of a slab in shared
+memory; one launch a walk, their first steps held to the plain walk and a
+window that pivots to the plain version on the card, timed by stage),
+times a frame both plans hold on each in turns, and runs the grid's
 ``cuda`` tests (tests/test_torch_bounded_grid_card.py) in a pytest process
 of their own; then it
 solves a batch of 256 box LPs with and without bound rows (the bounded
@@ -225,7 +226,7 @@ BND_F32_WINDOW = 2048
 # ~15,000 steps, took the plain loop 70-120 s)
 BND_F64_WINDOW = 4096
 BND_BLAND_STEPS = 1024
-BND_TIMED_FROM, BND_TIMED_STEPS = 2000, 64
+BND_TIMED_FROM = 2000
 # the grid walk: the steps of one timed launch (from BND_TIMED_FROM), the
 # steps held against its plain version on the card at full size, and the
 # box LP past the resident slab (2050 x 4097: slabs of 32 columns, 525 KB
@@ -237,19 +238,28 @@ BND_GRID_REF_WINDOW = 96
 BND_WIDE_M, BND_WIDE_N, BND_WIDE_WINDOW = 2048, 2048, 192
 # (x): a box LP past the streamed plan at f64 (7002 x 7065: the replicated
 # vectors alone pass a block's shared memory), walked on the grid's
-# device-vector plan to a budget and held to the plain loop and to
-# bounded_step's walk; BND_PAST_TIMED steps of bounded_step and one grid
-# launch of BND_PAST_GRID_TIMED steps timed from its eighth, in turns;
-# (y): the same recipe at f32 with BND_PAST32_M rows (12,002 x 12,065,
-# past the f32 streamed plan)
-BND_PAST_M, BND_PAST_N, BND_PAST_STEPS, BND_PAST_TIMED = 7000, 64, 64, 16
+# device-vector plan to a budget and held to the plain loop; one grid
+# launch of BND_PAST_GRID_TIMED steps timed from its eighth, twice; (y):
+# the same recipe at f32 with BND_PAST32_M rows (12,002 x 12,065, past the
+# f32 streamed plan)
+BND_PAST_M, BND_PAST_N, BND_PAST_STEPS = 7000, 64, 64
 BND_PAST_GRID_TIMED = 64
 BND_PAST32_M = 12_000
-# (z): a box LP too wide for every plan of the grid at f64 (18 x 409,601:
-# slabs of 3,104 columns on 132 SMs, past the device-vector plan's 3,098),
-# the one route of bounded_step: walked to BND_PAST_STEPS steps on it and
-# held to the plain loop; BND_PAST_TIMED steps timed from the eighth
+# (z): a box LP whose slabs pass the device-vector plan at f64 (18 x
+# 409,601: slabs of 3,104 columns on 132 SMs, past its 3,098), the wide
+# plan's main path: walked to BND_WIDEST_STEPS steps in one launch, its
+# first BND_PAST_STEPS held to the plain loop; (z64) and (z32): 18 x
+# 1,048,593 at f64 and f32 (past the f32 device-vector plan's 6,032-column
+# slabs too), walked to BND_PAST_STEPS steps and held; in each frame's
+# first chunk of BND_WIDE_SCAN steps that mostly pivots, a window past
+# its entering flips held to the plain version on the card and timed;
+# (s): 18 x 400,001 f64, which both the device-vector and the wide plan
+# hold, timed on each in turns
 BND_WIDEST_M, BND_WIDEST_N = 16, 409_584
+BND_WIDEST_STEPS = 4096
+BND_Z64_N = 1_048_576
+BND_SHARED_N = 399_984
+BND_WIDE_SCAN = 512
 BOX_M, BOX_N, BOX_LANES = 64, 128, 256
 # the row-lowered batch that 8b holds the box batch to: its first lanes
 # only (its exact refinement and certificate take ~0.6 s a lane on the
@@ -3574,12 +3584,6 @@ def check_static_smem(ptxas) -> None:
             max(lane.values()) > LANE_STATIC_SMEM:
         raise AssertionError(f"lane kernels' static shared memory {lane}: "
                              f"the plan leaves {LANE_STATIC_SMEM} bytes")
-    bnd = {k: v.get("static_smem", 0) for k, v in ptxas.items()
-           if k.startswith("bounded_")}
-    if len(bnd) != len(BOUNDED_KERNELS) or \
-            max(bnd.values()) > BOUNDED_STATIC_SMEM:
-        raise AssertionError(f"bounded kernels' static shared memory {bnd}: "
-                             f"their reductions take {BOUNDED_STATIC_SMEM}")
     rk1 = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k.startswith("rank1_")}
     if len(rk1) != len(RANK1_KERNELS) or \
@@ -3624,8 +3628,8 @@ def check_static_smem(ptxas) -> None:
                              f"the plan leaves {BLOCKED_GRID_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
-        f"within {LANE_STATIC_SMEM}; bounded kernels {bnd} and rank-1 "
-        f"kernels {rk1} bytes, within {BOUNDED_STATIC_SMEM}; blocked "
+        f"within {LANE_STATIC_SMEM}; rank-1 kernels {rk1} bytes, within "
+        f"{BOUNDED_STATIC_SMEM}; blocked "
         f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
         f"{clu} bytes, within {CLUSTER_STATIC_SMEM}; blocked_cluster {bkc} "
         f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}; bounded_grid {bgr} "
@@ -3643,17 +3647,15 @@ LANE_KERNELS = tuple(f"lane_{kind}_kernelI{t}Lb{r}" for kind in
 def _walk_kernels(ns: str, stages) -> dict:
     """{mangled-name fragment: readable name} of a stream-ordered walk's
     kernels in namespace ``tpulp::<ns>``, <float or double> (the namespace
-    tells bounded.cu's price_kernel from rank1.cu's)."""
-    prefix = {"bnd": "bounded", "rk1": "rank1", "blk": "blocked"}[ns]
+    tells rank1.cu's price_kernel from blocked.cu's)."""
+    prefix = {"rk1": "rank1", "blk": "blocked"}[ns]
     return {f"{len(ns)}{ns}{len(k)}{k}I{t}":
             f"{prefix}_{k}<{'float' if t == 'f' else 'double'}>"
             for k in (f"{stage}_kernel" for stage in stages) for t in "fd"}
 
 
-# the bounded step's four kernels and the rank-1 step's eight (five, and
-# the dual walk's price, ratio and finish)
-BOUNDED_KERNELS = _walk_kernels("bnd", ("price", "ratio", "update",
-                                        "finish"))
+# the rank-1 step's eight kernels (five, and the dual walk's price, ratio
+# and finish)
 RANK1_KERNELS = _walk_kernels("rk1", ("scan", "price", "ratio", "update",
                                       "finish", "dual_price", "dual_ratio",
                                       "dual_finish"))
@@ -3666,14 +3668,20 @@ CLUSTER_KERNELS = {f"3rkc14cluster_kernelI{t}Li{w}E":
                    f"{walk}>" for t in "fd"
                    for w, walk in enumerate(("primal", "devex", "dual"))}
 # the bounded grid walk's instantiations: <float or double, devex,
-# streamed, the per-row vectors in device memory (always streamed)>
+# streamed, the per-row vectors in device memory (always streamed)>, and
+# the wide plan's kernel <float or double, devex>
 BOUNDED_GRID_KERNELS = {
-    f"3bgr11grid_kernelI{t}Lb{d}ELb{r}ELb{v}E":
-    f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
-    f"{'devex' if d == '1' else 'dantzig'}{',streamed' if r == '1' else ''}"
-    f"{',device_vectors' if v == '1' else ''}>"
-    for t in "fd" for d in "01" for r, v in (("0", "0"), ("1", "0"),
-                                             ("1", "1"))}
+    **{f"3bgr11grid_kernelI{t}Lb{d}ELb{r}ELb{v}E":
+       f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
+       f"{'devex' if d == '1' else 'dantzig'}"
+       f"{',streamed' if r == '1' else ''}"
+       f"{',device_vectors' if v == '1' else ''}>"
+       for t in "fd" for d in "01" for r, v in (("0", "0"), ("1", "0"),
+                                                ("1", "1"))},
+    **{f"3bgr11wide_kernelI{t}Lb{d}E":
+       f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
+       f"{'devex' if d == '1' else 'dantzig'},wide>"
+       for t in "fd" for d in "01"}}
 # the rank-1 grid walk's instantiations: <float or double, the walk,
 # streamed>
 # the sharded pivot's instantiations: <float or double, elements a load>
@@ -3725,8 +3733,6 @@ def _ptxas_name(name: str) -> str:
         else name
     if name.startswith("lane_"):
         return f"{head}<{t},{'resident' if name.endswith('1') else 'streamed'}>"
-    if name in BOUNDED_KERNELS:
-        return BOUNDED_KERNELS[name]
     if name in RANK1_KERNELS:
         return RANK1_KERNELS[name]
     if name in BLOCKED_KERNELS:
@@ -3765,7 +3771,7 @@ def ptxas_report(text: str):
                                  "inner_block_kernelId", *FLUSH_KERNELS,
                                  "fma_kernelIf", "fma_kernelId",
                                  "barrier_probe_kernel", *LANE_KERNELS,
-                                 *BOUNDED_KERNELS, *RANK1_KERNELS,
+                                 *RANK1_KERNELS,
                                  *BLOCKED_KERNELS, *CLUSTER_KERNELS,
                                  *BLOCKED_CLUSTER_KERNELS,
                                  *BLOCKED_GRID_KERNELS,
@@ -5255,28 +5261,13 @@ def bounded_equal(k, p) -> float:
     return err
 
 
-def steps_walk(bs, opts):
-    """``run_simplex_bounded``'s walk on ``bounded_steps`` (its route past
-    the grid's plan), whatever the frame: the four-launch step held and
-    timed beside the grid on the same frames."""
-    from tpulp_torch.kernels.bounded import bounded_steps
-    from tpulp_torch.solve import bounded as pbounded
-
-    bs = pbounded._with_gamma(bs, opts)
-    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-    return pbounded._finish(bounded_steps(bs, opts, stall, opts.max_iters))
-
-
 def bounded_walk_check(sf, dev, dtype, label: str, devex: bool = True,
                        **kw):
     """One bounded walk from the initial basis through ``run_simplex_bounded``
-    on the card (``bounded_route``'s kernel: ``bounded_grid`` within the
-    plan, one launch and no other), through ``bounded_steps`` (the four
-    launches a step), and once through the plain loop
-    (``run_simplex_bounded_reference``); both kernels' walks held equal to
-    it in every field, and timed on the host clock in turns (grid, steps,
-    steps, grid). Returns the numbers, the four-launch step's under
-    "bounded_step"."""
+    on the card (``bounded_route``'s kernel: ``bounded_grid``, one launch
+    and no other) twice, timed on the host clock, and once through the
+    plain loop (``run_simplex_bounded_reference``); the walk held equal to
+    it in every field."""
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels.bounded import FLIPS
     from tpulp_torch.solve.bounded import (run_simplex_bounded,
@@ -5284,51 +5275,36 @@ def bounded_walk_check(sf, dev, dtype, label: str, devex: bool = True,
 
     bs, opts = bounded_state(sf, dev, dtype, devex, **kw)
     sync(dev)
-    runs = {"grid": [], "steps": []}
-    walks, launches, flips = {}, {}, {}
-    for kind in ("grid", "steps", "steps", "grid"):
+    runs = []
+    for _ in range(2):
         flips0 = dict(FLIPS)
         reset_launches()
         t0 = time.perf_counter()
-        out = run_simplex_bounded(bs, opts) if kind == "grid" \
-            else steps_walk(bs, opts)
+        k = run_simplex_bounded(bs, opts)
         sync(dev)
-        runs[kind].append(time.perf_counter() - t0)
-        walks[kind], launches[kind] = out, dict(LAUNCHES)
-        flips[kind] = {key: FLIPS[key] - flips0[key] for key in FLIPS}
+        runs.append(time.perf_counter() - t0)
+        launches = dict(LAUNCHES)
+        flips = {key: FLIPS[key] - flips0[key] for key in FLIPS}
     t0 = time.perf_counter()
     p = run_simplex_bounded_reference(bs, opts)
     sync(dev)
     plain_secs = time.perf_counter() - t0
-    errs = {kind: bounded_equal(walks[kind], p) for kind in walks}
-    k = walks["grid"]
+    err = bounded_equal(k, p)
     niter = int(k.s.niter)
-    if flips["grid"] != flips["steps"]:
-        raise AssertionError(f"8a {label}: flips {flips}")
-    secs, step_secs = min(runs["grid"]), min(runs["steps"])
     res = {"status": int(k.s.status), "niter": niter,
-           "bland": bool(k.s.bland), "seconds": secs,
-           "seconds_turns": runs["grid"], "plain_seconds": plain_secs,
-           "max_abs_err": errs["grid"],
-           "bounded_grid": launches["grid"]["bounded_grid"],
-           "fused_fma": launches["grid"]["fused_fma"], **flips["grid"],
-           "bounded_step": {
-               "seconds": step_secs, "seconds_turns": runs["steps"],
-               "max_abs_err": errs["steps"],
-               "launches": launches["steps"]["bounded_step"]}}
-    log(f"# 8a {label}: the grid walk and bounded_steps' walk each equal the "
-        f"plain walk in every field (status {res['status']}, {niter} steps, "
-        f"bland {res['bland']}, {res['entering_flips']} entering flips and "
-        f"{res['upper_hits']} upper hits); host clock in turns: grid "
-        f"{runs['grid']} s, bounded_steps {runs['steps']} s, the plain walk "
-        f"{plain_secs:.2f} s; launches: grid {launches['grid']['bounded_grid']}"
-        f" (bounded_step {launches['grid']['bounded_step']}, FMA "
-        f"{launches['grid']['fused_fma']}), steps "
-        f"{launches['steps']['bounded_step']}")
-    if dev == "cuda" and not (launches["grid"]["bounded_grid"] == 1
-                              and launches["grid"]["bounded_step"] == 0
-                              and launches["grid"]["fused_fma"] == 0
-                              and launches["steps"]["bounded_step"] > 0):
+           "bland": bool(k.s.bland), "seconds": min(runs),
+           "seconds_turns": runs, "plain_seconds": plain_secs,
+           "max_abs_err": err,
+           "bounded_grid": launches["bounded_grid"],
+           "fused_fma": launches["fused_fma"], **flips}
+    log(f"# 8a {label}: the grid walk equals the plain walk in every field "
+        f"(status {res['status']}, {niter} steps, bland {res['bland']}, "
+        f"{res['entering_flips']} entering flips and {res['upper_hits']} "
+        f"upper hits); host clock {runs} s, the plain walk "
+        f"{plain_secs:.2f} s; launches: grid {launches['bounded_grid']} "
+        f"(FMA {launches['fused_fma']})")
+    if dev == "cuda" and not (launches["bounded_grid"] == 1
+                              and launches["fused_fma"] == 0):
         raise AssertionError(f"8a {label}: launches {launches}")
     return res
 
@@ -5390,100 +5366,6 @@ def launches_us(fn, steps: int):
     return 1e3 * start.elapsed_time(stop) / steps, 1e6 * host / steps
 
 
-def bounded_step_us(sf, dev, dtype, advance: int = BND_TIMED_FROM,
-                    steps: int = BND_TIMED_STEPS, state=None):
-    """(device us, host us, split) a kernel step of the devex walk
-    ``advance`` steps in: the device time of ``steps`` steps enqueued by
-    one C call (CUDA events after a sleep that covers the host's enqueue,
-    as ``device_time_ms``), the host's time to enqueue them, and the
-    device us of the price and ratio launches alone (``steps`` launches of
-    each on the same record: both write only the verdict and the
-    snapshot) beside the rest of the step (update and finish). ``state``,
-    a (state, options) pair, walks in place of ``sf``'s."""
-    from tpulp_torch.kernels import bounded as kb
-
-    bs, opts = bounded_state(sf, dev, dtype) if state is None else state
-    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-    rec = kb.make_record(bs)
-    kb.enqueue_steps(rec, opts, stall, opts.max_iters, advance)
-
-    dev_us, host_us, split = [], [], {"price": [], "ratio": []}
-    for _ in range(3):
-        for stage in split:
-            split[stage].append(launches_us(lambda: [
-                kb.bounded_stage(rec, stage, opts, stall, opts.max_iters)
-                for _ in range(steps)], steps)[0])
-        n0 = int(rec.ints[kb.NITER])
-        d, h = launches_us(lambda: kb.enqueue_steps(rec, opts, stall,
-                                                    opts.max_iters, steps),
-                           steps)
-        if int(rec.ints[kb.NITER]) - n0 != steps:
-            raise AssertionError("8a: the timed steps ran past the walk")
-        dev_us.append(d)
-        host_us.append(h)
-    split = {k: float(np.median(v)) for k, v in split.items()}
-    split["update_and_finish"] = float(np.median(dev_us)) - sum(
-        split.values())
-    return float(np.median(dev_us)), float(np.median(host_us)), split
-
-
-def bounded_stage_checks(bs, opts, label: str, want, min_step: int,
-                         max_steps: int):
-    """Each launch of a step held against its plain stage on the card, on
-    the first step at or past ``min_step`` of each kind in ``want``
-    ("upper": a pivot whose leaving column flips; "enter": an entering
-    flip). The record walks on through the kernels' stages; price and
-    ratio write only the verdict and the snapshot, so they can run
-    again from the same state. Returns {kind: step}."""
-    import torch
-
-    from tpulp_torch.kernels import bounded as kb
-
-    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-    mi = opts.max_iters
-    rec = kb.make_record(bs)
-    found = {}
-    for step in range(max_steps):
-        for stage in ("price", "ratio"):
-            kb.bounded_stage(rec, stage, opts, stall, mi)
-        iv = rec.ints.tolist()
-        if iv[kb.STATUS] != 0:
-            break
-        kind = ("enter" if iv[kb.DO_FLIP_ENTER] else "upper"
-                if iv[kb.DO_PIVOT] and iv[kb.DO_FLIP] else None)
-        if step >= min_step and kind in want and kind not in found:
-            base = kb.clone_record(rec)
-            for stage in kb.STAGES:
-                k, p = kb.clone_record(base), kb.clone_record(base)
-                kb.bounded_stage(k, stage, opts, stall, mi)
-                kb.bounded_stage_reference(p, stage, opts, stall, mi)
-                torch.cuda.synchronize()
-                for name, a, b in zip(kb.BoundedRecord._fields, k, p):
-                    if a is None:
-                        continue
-                    a, b = a.cpu(), b.cpu()
-                    if a.is_floating_point():
-                        a, b = a.nan_to_num(0.5) + 0.0, b.nan_to_num(0.5) + 0.0
-                    if not torch.equal(a, b):
-                        raise AssertionError(
-                            f"8a {label}: the {stage} launch of step {step} "
-                            f"({kind}) differs from its plain stage in "
-                            f"{name}")
-                base = p
-            found[kind] = step
-        for stage in ("update", "finish"):
-            kb.bounded_stage(rec, stage, opts, stall, mi)
-        if set(found) == set(want):
-            break
-    if set(found) != set(want):
-        raise AssertionError(f"8a {label}: no step of kinds "
-                             f"{set(want) - set(found)} in {max_steps}")
-    log(f"# 8a stages, {label}: price, ratio, update and finish each equal "
-        f"their plain stage on the card (every record field) at step "
-        + ", ".join(f"{s} ({k})" for k, s in found.items()))
-    return found
-
-
 def bounded_step_window(sf, dev, dtype):
     """(device ms, kernels, host ms) per plain bounded step
     (BND_PRICING), from 16 steps from the initial basis under
@@ -5513,11 +5395,13 @@ def grid_edge_walks(dev="cuda"):
     not a unit vector (every step through barrier C): each of the 21 walks
     resident on the plan's grid at each type, and again on the
     device-vector plan forced (rows 3 or M - 1 in shared memory, on the
-    plan's grid or 3 or 7 blocks, in turn); and every forced split once at
-    each type, spread over the walks (stride 8 of 21): resident on 3, 1, 2
-    and 7 blocks, streamed at rows 3, M // 2 and M - 1 in shared memory on
-    the plan's grid and on 1, 2, 3 and 7 blocks; the flips too. Returns the
-    cases' counts (resident, streamed, device vectors)."""
+    plan's grid or 3 or 7 blocks, in turn) and on the wide plan forced (no
+    row in shared memory, on the plan's grid or 3 or 7 blocks); and every
+    forced split once at each type, spread over the walks (stride 8 of
+    21): resident on 3, 1, 2 and 7 blocks, streamed at rows 3, M // 2 and
+    M - 1 in shared memory on the plan's grid and on 1, 2, 3 and 7 blocks;
+    the flips too. Returns the cases' counts (resident, streamed, device
+    vectors, wide)."""
     import torch
 
     from tpulp_torch.kernels import bounded_grid as kg
@@ -5543,7 +5427,7 @@ def grid_edge_walks(dev="cuda"):
     # M // 2, M - 1) on G blocks (None: the plan's)
     forced = [(None, b) for b in (3, 1, 2, 7)] + [
         (q, b) for q in range(3) for b in (None, 1, 2, 3, 7)]
-    count = {"resident": 0, "streamed": 0, "device": 0}
+    count = {"resident": 0, "streamed": 0, "device": 0, "wide": 0}
     t0 = time.perf_counter()
     for off, dt in enumerate((torch.float64, torch.float32)):
         tiny = 1e-300 if dt == torch.float64 else 1e-30
@@ -5551,6 +5435,8 @@ def grid_edge_walks(dev="cuda"):
             (*pairs[(8 * i + 3 * off) % len(pairs)], q, b, None)
             for i, (q, b) in enumerate(forced)] + [
             (f, r, (0, 2)[i % 2], (None, 3, 7)[i % 3], "device")
+            for i, (f, r) in enumerate(pairs)] + [
+            (f, r, None, (None, 3, 7)[i % 3], "wide")
             for i, (f, r) in enumerate(pairs)]
         for fname, rule, q, blocks, vectors in walks:
             kw = rules[rule]
@@ -5588,15 +5474,16 @@ def grid_edge_walks(dev="cuda"):
                 raise AssertionError(f"8a (e) {fname} {rule} {dt} "
                                      f"G {plan.blocks} R {plan.rows}: flips "
                                      f"{got} against {counts}")
-            count["device" if vectors else "resident" if rows is None
-                  else "streamed"] += 1
+            count[vectors or ("resident" if rows is None
+                              else "streamed")] += 1
     log(f"# 8a (e) bounded_grid equals bounded_grid_reference in every field "
         f"(the flips too) on {count['resident']} resident, "
-        f"{count['streamed']} streamed and {count['device']} device-vector "
-        "small walks: 3 frames x Dantzig, devex, Bland, a budget, a NaN, "
-        "weights above 1e8, a basic column that is not a unit vector, each "
-        "on the plan's grid and on the device-vector plan forced at f64 and "
-        "f32; every forced split once a type: resident on 3, 1, 2 and 7 "
+        f"{count['streamed']} streamed, {count['device']} device-vector and "
+        f"{count['wide']} wide small walks: 3 frames x Dantzig, devex, "
+        "Bland, a budget, a NaN, weights above 1e8, a basic column that is "
+        "not a unit vector, each on the plan's grid and on the device-vector "
+        "and wide plans forced at f64 and f32; every forced split once a "
+        "type: resident on 3, 1, 2 and 7 "
         "blocks, streamed at rows 3, M // 2 and M - 1 on the plan's grid and "
         f"1, 2, 3 and 7 blocks ({time.perf_counter() - t0:.1f} s)")
     return count
@@ -5692,13 +5579,11 @@ def wide_bounded_lp(dev, clock_hz: float):
     """8a (w): ``solve_lp`` on a BND_WIDE_M x BND_WIDE_N box LP, whose
     frame is past the resident slab at f64 and f32 (``bounded_route``:
     "bounded_grid" on a streamed plan): optimal on the device rung and
-    certified in one ``bounded_grid`` launch (no ``bounded_step`` and no
-    FMA launch); its walk's first BND_WIDE_WINDOW steps, at f64 and f32,
-    held to the plain loop (the grid's walk and ``bounded_steps``') and to
-    ``bounded_grid_reference`` on the card in every field; the streamed
+    certified in one ``bounded_grid`` launch (no FMA launch); its walk's
+    first BND_WIDE_WINDOW steps, at f64 and f32, held to the plain loop and
+    to ``bounded_grid_reference`` on the card in every field; the streamed
     launch (BND_GRID_TIMED_STEPS steps from BND_TIMED_FROM) timed by stage
-    in turns with ``bounded_steps`` (BND_TIMED_STEPS steps from there) on
-    the same frame, with its bounds."""
+    twice, with its bounds."""
     import torch
 
     import tpulp_torch
@@ -5739,7 +5624,6 @@ def wide_bounded_lp(dev, clock_hz: float):
     if not (sol.status == "optimal" and sol.rung == "device-float64"
             and primal_ok and dual_ok and (dev != "cuda" or (
                 launches["bounded_grid"] == 1
-                and launches["bounded_step"] == 0
                 and launches["fused_fma"] == 0))):
         raise AssertionError(f"8a (w): {sol.status}, rung {sol.rung}, "
                              f"certificate {primal_ok, dual_ok}, launches "
@@ -5748,40 +5632,28 @@ def wide_bounded_lp(dev, clock_hz: float):
     for dt in (torch.float64, torch.float32):
         name = str(dt).replace("torch.", "")
         bs, opts = bounded_state(sf, dev, dt, max_iters=BND_WIDE_WINDOW)
-        walks = {}
-        for kind in ("grid", "steps"):
-            t0 = time.perf_counter()
-            walks[kind] = run_simplex_bounded(bs, opts) if kind == "grid" \
-                else steps_walk(bs, opts)
-            sync(dev)
-            walks[kind + "_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        walk = run_simplex_bounded(bs, opts)
+        sync(dev)
+        walk_secs = time.perf_counter() - t0
         t0 = time.perf_counter()
         p = run_simplex_bounded_reference(bs, opts)
         sync(dev)
         plain_secs = time.perf_counter() - t0
-        steps = int(walks["grid"].s.niter)
+        steps = int(walk.s.niter)
         ref = grid_reference_check(sf, dev, dt, f"(w) the {name} devex "
                                    f"walk's first {BND_WIDE_WINDOW} steps",
                                    BND_WIDE_WINDOW)
         windows[name] = {
-            "steps": steps, "seconds": walks["grid_seconds"],
-            "steps_seconds": walks["steps_seconds"],
+            "steps": steps, "seconds": walk_secs,
             "plain_seconds": plain_secs,
-            "max_abs_err": max(bounded_equal(walks["grid"], p),
-                               ref["max_abs_err"]),
-            "steps_max_abs_err": bounded_equal(walks["steps"], p),
+            "max_abs_err": max(bounded_equal(walk, p), ref["max_abs_err"]),
             "plain_ms_per_step": ref["plain_ms_per_step"]}
         log(f"# 8a (w) {name}: the first {steps} steps on the streamed grid "
-            f"and on bounded_steps each equal the plain walk in every field "
-            f"({walks['grid_seconds']:.3f} s and "
-            f"{walks['steps_seconds']:.3f} s against {plain_secs:.2f} s)")
-    # the streamed launch in turns with bounded_steps on the same frame
-    grid_runs, step_runs = [], []
-    for kind in ("grid", "steps", "steps", "grid"):
-        if kind == "grid":
-            grid_runs.append(bounded_grid_us(sf, dev, torch.float64))
-        else:
-            step_runs.append(bounded_step_us(sf, dev, torch.float64))
+            f"equal the plain walk in every field ({walk_secs:.3f} s against "
+            f"{plain_secs:.2f} s)")
+    # the streamed launch, twice
+    grid_runs = [bounded_grid_us(sf, dev, torch.float64) for _ in range(2)]
     g = dict(grid_runs[0])
     g["device_us_per_step"] = float(np.mean(
         [r["device_us_per_step"] for r in grid_runs]))
@@ -5793,10 +5665,6 @@ def wide_bounded_lp(dev, clock_hz: float):
                                   rows=g["rows"])
     g.update(bound_ms=wb[0], bound_by=wb[1], grid_bound_ms=own,
              step_bound_ms=step_b, sm_clock_hz=clock_hz)
-    dev_us = float(np.mean([r[0] for r in step_runs]))
-    host_us = float(np.mean([r[1] for r in step_runs]))
-    split = {k: float(np.mean([r[2][k] for r in step_runs]))
-             for k in step_runs[0][2]}
     log(f"# 8a (w) bounded_grid streamed float64: "
         f"{g['device_us_per_step']:.3f} us a step on the card (turns "
         f"{g['device_us_turns']}; one launch of {g['steps']} steps from step "
@@ -5808,17 +5676,13 @@ def wide_bounded_lp(dev, clock_hz: float):
         f"({wb[1]}), {1e3 * own:.3f} us (the streamed convention: the "
         f"streamed rows through device memory, the resident ones through "
         f"shared memory), {1e3 * step_b:.2f} us (the table's step "
-        f"convention); in turns, bounded_steps {dev_us:.2f} us a step on "
-        f"the card ({[r[0] for r in step_runs]}; {split}), {host_us:.2f} us "
-        "to enqueue")
+        "convention)")
     return {"status": sol.status, "rung": sol.rung, "niter": sol.niter,
             "seconds": secs, "launches": launches, "route": route,
             "plans": {str(dt).replace("torch.", ""): p._asdict()
                       for dt, p in plans.items()},
             "window": windows["float64"], "window_float32":
             windows["float32"], "grid_us": g,
-            "device_us_per_step": dev_us, "host_us_per_step": host_us,
-            "device_us_by_stage": split,
             "bound_us_per_step": 1e3 * bound(2.0 * M * N * 8, 0.0,
                                              FP64_FLOP_S)[0]}
 
@@ -5849,12 +5713,10 @@ def past_streamed_lp(dev, label: str, m: int, dtype, clock_hz: float,
     (``bounded_arrays``' recipe, a slack basis, devex) whose frame is past
     the streamed plan at ``dtype`` (``bounded_route``: "bounded_grid" on
     the plan with the per-row vectors in device memory), to a budget of
-    BND_PAST_STEPS steps: one ``bounded_grid`` launch (no ``bounded_step``
-    and no FMA launch), held to the plain loop and to ``bounded_steps``'
-    walk on the same budget in every field, the flips too; then, in turns
-    (grid, steps, steps, grid), one grid launch of BND_PAST_GRID_TIMED
-    steps from the walk's eighth step by stage and BND_PAST_TIMED steps of
-    ``bounded_steps`` from there, with the plan and the grid's bounds."""
+    BND_PAST_STEPS steps: one ``bounded_grid`` launch (no FMA launch), held
+    to the plain loop on the same budget in every field; then, twice, one
+    grid launch of BND_PAST_GRID_TIMED steps from the walk's eighth step by
+    stage, with the plan and the grid's bounds."""
     import torch
 
     from tpulp_torch.kernels import LAUNCHES, reset_launches
@@ -5891,36 +5753,16 @@ def past_streamed_lp(dev, label: str, m: int, dtype, clock_hz: float,
     sync(dev)
     plain_secs = time.perf_counter() - t0
     err = bounded_equal(k, p)
-    flips0 = dict(FLIPS)
-    reset_launches()
-    t0 = time.perf_counter()
-    s = steps_walk(bs, opts)
-    sync(dev)
-    step_secs = time.perf_counter() - t0
-    step_launches = LAUNCHES["bounded_step"]
-    step_flips = {key: FLIPS[key] - flips0[key] for key in FLIPS}
-    step_err = bounded_equal(s, p)
-    bounded_equal(k, s)
     steps = int(k.s.niter)
-    if steps != BND_PAST_STEPS or flips != step_flips or (
-            dev == "cuda" and not (launches["bounded_grid"] >= 1
-                                   and launches["bounded_step"] == 0
-                                   and launches["fused_fma"] == 0
-                                   and step_launches > 0)):
+    if steps != BND_PAST_STEPS or (
+            dev == "cuda" and not (launches["bounded_grid"] == 1
+                                   and launches["fused_fma"] == 0)):
         raise AssertionError(f"8a {label}: {steps} steps, launches "
-                             f"{launches}, flips {flips} against "
-                             f"bounded_steps' {step_flips}")
-    # the grid's launch in turns with bounded_steps', from the eighth step
-    grid_runs, step_runs = [], []
-    for kind in ("grid", "steps", "steps", "grid"):
-        if kind == "grid":
-            grid_runs.append(bounded_grid_us(
-                None, dev, dtype, advance=8, steps=BND_PAST_GRID_TIMED,
-                state=(bs, opts)))
-        else:
-            step_runs.append(bounded_step_us(
-                None, dev, dtype, advance=8, steps=BND_PAST_TIMED,
-                state=(bs, opts)))
+                             f"{launches}, flips {flips}")
+    # the grid's launch, twice, from the eighth step
+    grid_runs = [bounded_grid_us(None, dev, dtype, advance=8,
+                                 steps=BND_PAST_GRID_TIMED, state=(bs, opts))
+                 for _ in range(2)]
     g = dict(grid_runs[0])
     g["device_us_turns"] = [r["device_us_per_step"] for r in grid_runs]
     g["device_us_per_step"] = float(np.mean(g["device_us_turns"]))
@@ -5932,10 +5774,6 @@ def past_streamed_lp(dev, label: str, m: int, dtype, clock_hz: float,
                                   clock_hz, rows=g["rows"])
     g.update(bound_ms=wb[0], bound_by=wb[1], grid_bound_ms=own,
              step_bound_ms=step_b, sm_clock_hz=clock_hz)
-    dev_us = float(np.mean([r[0] for r in step_runs]))
-    host_us = float(np.mean([r[1] for r in step_runs]))
-    split = {key: float(np.mean([r[2][key] for r in step_runs]))
-             for key in step_runs[0][2]}
     bound_us = 1e3 * bound(2.0 * M * N * es, 0.0, FP64_FLOP_S)[0]
     log(f"# 8a {label} box LP {m}x{n} ({M} x {N} {name}, past the streamed "
         f"plan: {route}, the per-row vectors in device memory; G "
@@ -5944,113 +5782,268 @@ def past_streamed_lp(dev, label: str, m: int, dtype, clock_hz: float,
         f"bytes of shared memory a block, occupancy {g['occupancy']}): its "
         f"first {steps} steps through run_simplex_bounded ({secs:.3f} s, "
         f"launches {launches}) equal the plain walk ({plain_secs:.2f} s) "
-        f"and bounded_steps' walk ({step_secs:.3f} s, {step_launches} "
-        f"launches) in every field, flips {flips}; in turns: bounded_grid "
+        f"in every field, flips {flips}; bounded_grid "
         f"{g['device_us_per_step']:.3f} us a step on the card (turns "
         f"{g['device_us_turns']}; one launch of {g['steps']} steps from step "
         f"{g['advance']}; by stage "
         + ", ".join(f"{key} {v:.3f}" for key, v in
                     g["device_us_by_stage"].items())
-        + f"), bounded_step {dev_us:.2f} us a step ({[r[0] for r in step_runs]}"
-        f"; {split}), {host_us:.2f} us to enqueue; bounds a step: "
+        + "); bounds a step: "
         f"{1e3 * wb[0]:.4f} us ({wb[1]}, the walk's), {1e3 * own:.3f} us "
         f"(the kernel's convention), {bound_us:.2f} us (the table's step "
         "convention: the tableau read and written once)")
     return {"route": route, "plan": plan._asdict(), "steps": steps,
             "seconds": secs, "plain_seconds": plain_secs,
             "max_abs_err": err, "launches": launches, **flips,
-            "grid_us": g, "bound_us_per_step": bound_us,
-            "bounded_step": {
-                "seconds": step_secs, "max_abs_err": step_err,
-                "launches": step_launches, "device_us_per_step": dev_us,
-                "host_us_per_step": host_us, "device_us_by_stage": split}}
+            "grid_us": g, "bound_us_per_step": bound_us}
 
 
-def too_wide_lp(dev):
-    """8a (z): ``run_simplex_bounded`` on a BND_WIDEST_M x BND_WIDEST_N box
-    LP (``past_state``'s recipe, devex) whose slabs are too wide for every
-    plan of the grid at f64 (``bounded_route``: "bounded_step"), to a
-    budget of BND_PAST_STEPS steps: ``bounded_step``'s main path (launches
-    set to 0 just before the walk and read just after: >= 1, no grid and
-    no FMA launch), held to the plain loop in every field; then
-    BND_PAST_TIMED steps from the eighth timed on the card, with the
-    bound."""
+def wide_window(bs, opts, dev, dtype, end: int):
+    """A window start past the entering flips: in the first chunk of
+    BND_WIDE_SCAN steps, up to ``end``, in which most steps pivot (an
+    entering flip changes no basis; ``bounded_grid`` run chunk by chunk),
+    the step after as many steps as the chunk has entering flips (these
+    walks flip first, then pivot), at most BND_WIDE_SCAN -
+    BND_PAST_GRID_TIMED into it; with the chunks' (steps, entering flips,
+    upper hits). The walk's first steps on these box LPs are entering
+    flips: this finds where its update streams the slab."""
+    from tpulp_torch.kernels import bounded_grid as kg
+    from tpulp_torch.kernels.bounded import FLIPS
+
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    cur, chunks = bs, []
+    for c in range(end // BND_WIDE_SCAN if dev == "cuda" else 0):
+        f0, n0 = dict(FLIPS), int(cur.s.niter)
+        cur = kg.bounded_grid(cur, opts, stall, (c + 1) * BND_WIDE_SCAN)
+        d = {k: FLIPS[k] - f0[k] for k in FLIPS}
+        chunks.append((int(cur.s.niter) - n0, d["entering_flips"],
+                       d["upper_hits"]))
+        if int(cur.s.status) != 0 or 2 * d["entering_flips"] < chunks[-1][0]:
+            break
+    if not chunks:
+        return 0, chunks
+    skip = min(chunks[-1][1], BND_WIDE_SCAN - BND_PAST_GRID_TIMED)
+    return BND_WIDE_SCAN * (len(chunks) - 1) + skip, chunks
+
+
+def window_bound_ms(M: int, N: int, es: int, steps: int, flips: int):
+    """The least time a window of ``steps`` steps of which ``flips`` are
+    entering flips could take, a step (ms): a pivot reads and writes the
+    frame once, an entering flip reads the pricing row once, over 3.35
+    TB/s (the data's own: the rows the window's steps touch)."""
+    return 1e3 * ((steps - flips) * 2.0 * M * N * es + flips * N * es) / (
+        HBM_BYTES_S * steps)
+
+
+def wide_plan_lp(dev, label: str, m: int, n: int, dtype, budget: int):
+    """8a (z), (z64) and (z32): ``run_simplex_bounded`` on an m x n box LP
+    (``past_state``'s recipe, seed 4, devex) whose slabs pass the grid's
+    device-vector plan at ``dtype`` (``bounded_route``: "bounded_grid" on
+    the wide plan, no row of a slab in shared memory), to a budget of
+    ``budget`` steps: one ``bounded_grid`` launch (launches set to 0 just
+    before the walk and read just after: no other kernel, no FMA launch),
+    its steps, pivots, entering flips, upper hits and host seconds; its
+    first BND_PAST_STEPS steps held to the plain loop in every field; a
+    window of BND_PAST_GRID_TIMED steps where the walk pivots
+    (``wide_window``) held to ``bounded_grid_reference`` on the card; one
+    launch of BND_PAST_GRID_TIMED steps
+    timed by stage from step 8 (entering flips) and from that window
+    (pivots), twice each, with each window's own bound
+    (``window_bound_ms``) beside the table's step convention (the frame
+    read and written once a step)."""
+    import dataclasses
+
     import torch
 
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels import bounded_grid as kg
+    from tpulp_torch.kernels.bounded import FLIPS
     from tpulp_torch.kernels.launch import sm_count
     from tpulp_torch.solve.bounded import (bounded_route,
                                            run_simplex_bounded,
                                            run_simplex_bounded_reference)
 
-    m, n = BND_WIDEST_M, BND_WIDEST_N
     M, N = m + 2, n + m + 1
-    dtype = torch.float64
+    es = 8 if dtype == torch.float64 else 4
+    name = str(dtype).replace("torch.", "")
     sms = sm_count(torch.device(dev)) if dev == "cuda" else kg.GRID_SMS
     route = bounded_route(M, N, dtype, sms,
                           torch.device(dev) if dev == "cuda" else None)
-    if route != "bounded_step":
-        raise AssertionError(f"8a (z): {M} x {N} takes {route}")
+    plan = kg.bounded_grid_plan(M, N, dtype, sms)
+    if route != "bounded_grid" or plan.vectors != "wide":
+        raise AssertionError(f"8a {label}: {M} x {N} takes {route}, plan "
+                             f"{plan}")
     bs, opts = past_state(dev, m, dtype, 4, n)
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    walk_opts = dataclasses.replace(opts, max_iters=budget)
     sync(dev)
+    # the main path: the walk to its budget
+    flips0 = dict(FLIPS)
     reset_launches()
     t0 = time.perf_counter()
-    k = run_simplex_bounded(bs, opts)
+    k = run_simplex_bounded(bs, walk_opts)
     sync(dev)
     secs = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    flips = {key: FLIPS[key] - flips0[key] for key in FLIPS}
+    steps = int(k.s.niter)
+    if dev == "cuda" and (launches["bounded_grid"] != 1 or any(
+            v for key, v in launches.items() if key != "bounded_grid")):
+        raise AssertionError(f"8a {label}: launches {launches}")
+    # its first BND_PAST_STEPS steps against the plain loop
+    held = run_simplex_bounded(bs, opts)
     t0 = time.perf_counter()
     p = run_simplex_bounded_reference(bs, opts)
     sync(dev)
     plain_secs = time.perf_counter() - t0
-    err = bounded_equal(k, p)
-    steps = int(k.s.niter)
-    if steps != BND_PAST_STEPS or (
-            dev == "cuda" and not (launches["bounded_step"] >= 1
-                                   and launches["bounded_grid"] == 0
-                                   and launches["fused_fma"] == 0)):
-        raise AssertionError(f"8a (z): {steps} steps, launches {launches}")
-    dev_us, host_us, split = bounded_step_us(
-        None, dev, dtype, advance=8, steps=BND_PAST_TIMED, state=(bs, opts))
-    bound_us = 1e3 * bound(2.0 * M * N * 8, 0.0, FP64_FLOP_S)[0]
-    log(f"# 8a (z) box LP {m}x{n} ({M} x {N} float64, too wide for every "
-        f"plan of the grid: {route}): its first {steps} steps through "
-        f"run_simplex_bounded ({secs:.3f} s, launches {launches}) equal the "
-        f"plain walk ({plain_secs:.2f} s) in every field; bounded_step "
-        f"{dev_us:.2f} us a step on the card ({BND_PAST_TIMED} steps from "
-        f"step 8; {split}), {host_us:.2f} us to enqueue; bound "
-        f"{bound_us:.2f} us a step (the tableau read and written once)")
-    return {"route": route, "steps": steps, "seconds": secs,
-            "plain_seconds": plain_secs, "max_abs_err": err,
-            "launches": launches, "device_us_per_step": dev_us,
-            "host_us_per_step": host_us, "device_us_by_stage": split,
-            "bound_us_per_step": bound_us}
+    err = bounded_equal(held, p)
+    if int(held.s.niter) != BND_PAST_STEPS or steps != budget:
+        raise AssertionError(f"8a {label}: {int(held.s.niter)} and {steps} "
+                             "steps")
+    # the first window that mostly pivots, held to the plain version
+    start, chunks = wide_window(bs, opts, dev, dtype, BND_WIDEST_STEPS)
+    wsteps = BND_PAST_GRID_TIMED
+    if dev == "cuda":
+        mid = kg.bounded_grid(bs, opts, stall, start)
+        f0 = dict(FLIPS)
+        kw = kg.bounded_grid(mid, opts, stall, start + wsteps)
+        sync(dev)
+        kflips = {key: FLIPS[key] - f0[key] for key in FLIPS}
+    else:
+        mid = bs
+        kw, kflips = kg.bounded_grid_reference(
+            bs, opts, stall, start + wsteps, plan.blocks, vectors="wide")
+    t0 = time.perf_counter()
+    pw, wflips = kg.bounded_grid_reference(mid, opts, stall, start + wsteps,
+                                           plan.blocks, vectors="wide")
+    sync(dev)
+    ref_ms = 1e3 * (time.perf_counter() - t0) / wsteps
+    werr = bounded_equal(kw, pw)
+    if kflips != wflips:
+        raise AssertionError(f"8a {label}: flips {kflips} against {wflips}")
+    # one launch of wsteps steps by stage, from step 8 and from the window
+    timed = {}
+    for key, adv in (("flips", 8), ("pivots", start)):
+        runs = [bounded_grid_us(None, dev, dtype, advance=adv, steps=wsteps,
+                                state=(bs, opts)) for _ in range(2)]
+        g = dict(runs[0])
+        g["device_us_turns"] = [r["device_us_per_step"] for r in runs]
+        g["device_us_per_step"] = float(np.mean(g["device_us_turns"]))
+        g["device_us_by_stage"] = {
+            st: float(np.mean([r["device_us_by_stage"][st] for r in runs]))
+            for st in runs[0]["device_us_by_stage"]}
+        timed[key] = g
+    # the windows' entering flips: the flip window's all are where the
+    # first chunk pivots nowhere (else its bound is not counted)
+    all_flips = bool(chunks) and chunks[0][1] == chunks[0][0] and \
+        BND_WIDE_SCAN >= 8 + wsteps
+    win_flips = {"flips": wsteps if all_flips else None,
+                 "pivots": wflips["entering_flips"]}
+    for key, g in timed.items():
+        nf = win_flips[key]
+        g["bound_ms"] = None if nf is None else window_bound_ms(
+            M, N, es, wsteps, min(nf, wsteps))
+        g["bound_by"] = "bytes"
+        g["entering_flips"] = nf
+    table_us = 1e3 * bound(2.0 * M * N * es, 0.0, FP64_FLOP_S)[0]
+    res = {"route": route, "plan": plan._asdict(), "steps": steps,
+           "pivots": steps - flips["entering_flips"], **flips,
+           "seconds": secs, "launches": launches,
+           "held_steps": BND_PAST_STEPS, "plain_seconds": plain_secs,
+           "max_abs_err": max(err, werr), "window_from": start,
+           "window_steps": wsteps, "window_flips": wflips,
+           "chunks": chunks, "plain_ms_per_step": ref_ms, "grid_us": timed,
+           "bound_us_per_step": table_us}
+    log(f"# 8a {label} box LP {m}x{n} ({M} x {N} {name}, past the "
+        f"device-vector plan: {route} on the wide plan; G {plan.blocks}, W "
+        f"{plan.width}, chunks of {plan.chunk} columns, tiles of "
+        f"{plan.tile_rows} rows through a ring of {plan.stages}, "
+        f"{plan.scratch} bytes of scratch, {plan.smem} bytes of shared "
+        f"memory a block): its walk to {budget} steps in one launch "
+        f"({secs:.3f} s on the host clock; {res['pivots']} pivots, "
+        f"{flips['entering_flips']} entering flips, {flips['upper_hits']} "
+        f"upper hits; launches {launches}); its first {BND_PAST_STEPS} steps "
+        f"equal the plain walk ({plain_secs:.2f} s) in every field; steps "
+        f"{start}-{start + wsteps} (chunks of {BND_WIDE_SCAN}: {chunks}) "
+        f"equal bounded_grid_reference on the card ({ref_ms:.3f} ms a step), "
+        f"flips {wflips}; one launch of {wsteps} steps on the card: "
+        + "; ".join(
+            f"from step {g['advance']} ({key}) {g['device_us_per_step']:.3f} "
+            f"us a step (turns {g['device_us_turns']}; by stage "
+            + ", ".join(f"{st} {v:.3f}" for st, v in
+                        g["device_us_by_stage"].items())
+            + f"; the window's bound "
+            + ("not counted" if g["bound_ms"] is None
+               else f"{1e3 * g['bound_ms']:.2f} us") + ")"
+            for key, g in timed.items())
+        + f"; the table's step bound {table_us:.2f} us (the frame read and "
+        "written once)")
+    return res
+
+
+def shared_frame_turns(dev):
+    """8a (s): a BND_WIDEST_M x BND_SHARED_N box LP (18 x 400,001 f64),
+    which both the device-vector plan (the route's) and the wide plan
+    hold: one launch of BND_PAST_GRID_TIMED steps on each, in turns (wide,
+    device, device, wide), from step 8 and from its first window that
+    mostly pivots; device us a step (median of three a turn)."""
+    import torch
+
+    from tpulp_torch.kernels import bounded_grid as kg
+
+    m, n = BND_WIDEST_M, BND_SHARED_N
+    bs, opts = past_state(dev, m, torch.float64, 4, n)
+    stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+    M, N = bs.s.T.shape
+    plans = {v: kg.bounded_grid_plan(M, N, torch.float64, kg.GRID_SMS,
+                                     vectors=v) for v in ("device", "wide")}
+    if kg.bounded_grid_plan(M, N, torch.float64, kg.GRID_SMS) != \
+            plans["device"]:
+        raise AssertionError(f"8a (s): the route's plan is not {plans}")
+    if dev != "cuda":
+        return {"plans": {v: p._asdict() for v, p in plans.items()}}
+    start, chunks = wide_window(bs, opts, dev, torch.float64,
+                                BND_WIDEST_STEPS)
+    steps = BND_PAST_GRID_TIMED
+    turns = {}
+    for adv in (8, start):
+        mid = kg.bounded_grid(bs, opts, stall, adv)
+        for v in ("wide", "device", "device", "wide"):
+            runs = [launches_us(lambda: kg.bounded_grid(
+                mid, opts, stall, adv + steps, vectors=v), steps)[0]
+                for _ in range(3)]
+            turns.setdefault(f"from {adv} {v}", []).append(
+                float(np.median(runs)))
+    log(f"# 8a (s) {M} x {N} float64 on both plans (device-vector: R "
+        f"{plans['device'].rows}, {plans['device'].smem} bytes; wide: "
+        f"{plans['wide'].smem} bytes), one launch of {steps} steps, device "
+        f"us a step in turns: {turns} (chunks {chunks})")
+    return {"plans": {v: p._asdict() for v, p in plans.items()},
+            "window_from": start, "steps": steps, "turns_us": turns}
 
 
 def phase_bounded_lp(dev):
     """Phase 8a: solve_lp on the BND_M x BND_N box LP with simple_bounds
     (a (BND_M + 2) x (BND_N + BND_M + 1) tableau, no bound rows, priced
     by BND_PRICING) at f64: the walk on ``bounded_grid`` (launches >= 1, no
-    ``bounded_step`` and no FMA launch), optimal, the f64 bounded
+    FMA launch), optimal, the f64 bounded
     certificate, 0 <= x <= u and D x <= b within 1e-9 relative, columns at
     upper, and the objective within 1e-9 of the row-lowered solve (3 BND_M
     rows), which takes the kernel engine. The same LP at f32: on the grid
     kernel, optimal on BND_F32_RUNG (the ladder's f64 retry), its answer
-    certified and equal to the f64 solve's. Then both kernels (the grid and
-    ``bounded_steps``) against one plain loop each walk: the whole f64
-    devex walk, the f32 walk's first BND_F32_WINDOW steps and a Dantzig f32
-    walk that switches to Bland, every field equal, timed in turns; the
-    grid against ``bounded_grid_reference`` on the card over the first
+    certified and equal to the f64 solve's. Then the grid walk against one
+    plain loop each walk: the f64 devex walk's first BND_F64_WINDOW steps,
+    the f32 walk's first BND_F32_WINDOW steps and a Dantzig f32 walk that
+    switches to Bland, every field equal, timed twice; the grid against
+    ``bounded_grid_reference`` on the card over the first
     BND_GRID_REF_WINDOW steps of the devex walks and the f64 Dantzig walk,
-    and on small frames' edge cases (e); each of the four launches against
-    its plain stage on a step with an upper hit (this LP) and one with an
-    entering flip (8b's first box LP); both kernels' device and host us a
-    step, the grid's by stage (devex at f64 and f32, the f64 Dantzig walk,
-    the f32 Bland window); (w), the box LP past the resident slab on the
-    streamed grid; (x) and (y), frames past the streamed plan at f64 and
-    f32 on the grid's device-vector plan; (z), a frame too wide for every
-    plan, on ``bounded_step``; and (t), the grid's ``cuda`` tests. Returns
+    and on small frames' edge cases (e); the grid's device us a step by
+    stage (devex at f64 and f32, the f64 Dantzig walk, the f32 Bland
+    window); (w), the box LP past the resident slab on the streamed grid;
+    (x) and (y), frames past the streamed plan at f64 and f32 on the
+    grid's device-vector plan; (z), (z64) and (z32), frames past the
+    device-vector plan, on the wide plan, and (s), a frame both plans hold,
+    timed on each in turns; and (t), the grid's ``cuda`` tests. Returns
     the numbers and the launches of the f64 solve."""
     import torch
 
@@ -6115,7 +6108,6 @@ def phase_bounded_lp(dev):
             f"{window['plain_host_ms_per_step']:.3f} ms of host time a "
             "step (torch.profiler over 16 steps)")
         kernel_path = (launches["bounded_grid"] > 0
-                       and launches["bounded_step"] == 0
                        and launches["fused_fma"] == 0)
         if dt == torch.float32:
             # the retry's answer, certified again and held to the f64
@@ -6219,17 +6211,7 @@ def phase_bounded_lp(dev):
     if f64["niter"] != min(BND_F64_WINDOW, res["float64"]["niter"]):
         raise AssertionError(f"8a: the f64 devex window {f64} is not the "
                              "solve's walk")
-    bs, opts = bounded_state(sf, dev, torch.float64)
-    stages = {"box_lp_f64": bounded_stage_checks(
-        bs, opts, f"{m}x{n} f64 devex", ("upper",), 100, 3000)}
-    for dt in (torch.float64, torch.float32):
-        bs, opts = bounded_state(box_form(0, BOX_M, BOX_N), dev, dt, False)
-        stages[f"box_batch_lane0_{dt}".replace("torch.", "")] = \
-            bounded_stage_checks(bs, opts, f"8b's first box LP ({BOX_M}x"
-                                 f"{BOX_N}, Dantzig, {dt})",
-                                 ("upper", "enter"), 5, 400)
-    part("stages")
-    us, grid_us = {}, {}
+    grid_us = {}
     clock_hz = 1e6 * float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -6257,24 +6239,10 @@ def phase_bounded_lp(dev):
 
     for dt in (torch.float64, torch.float32):
         name = str(dt).replace("torch.", "")
-        dev_us, host_us, split = bounded_step_us(sf, dev, dt)
-        es = 8 if dt == torch.float64 else 4
-        bound_us = 1e3 * bound(2.0 * (m + 2) * (n + m + 1) * es, 0.0,
-                               FP64_FLOP_S)[0]
-        us[name] = {
-            "device_us_per_step": dev_us, "host_us_per_step": host_us,
-            "bound_us_per_step": bound_us, "device_us_by_stage": split}
-        log(f"# 8a bounded_step {dt}: {dev_us:.2f} us a step on the card "
-            f"(CUDA events over {BND_TIMED_STEPS} steps from step "
-            f"{BND_TIMED_FROM}; price {split['price']:.2f}, ratio "
-            f"{split['ratio']:.2f}, update and finish "
-            f"{split['update_and_finish']:.2f}), {host_us:.2f} us of host "
-            f"time to enqueue one (four launches); bound {bound_us:.2f} us "
-            "(the tableau read and written once at 3.35 TB/s)")
         # the frame's load and store spread over the f64 solve's whole walk,
         # over the f32 window's steps
         grid_us[name] = grid_timing(name, dt, res["float64"]["niter"]
-                                    if es == 8 else
+                                    if dt == torch.float64 else
                                     walks["f32_devex_window"]["niter"])
     # the Dantzig instantiations: the f64 walk a window in, and the f32
     # Bland walk within the window held above (from its 64th step)
@@ -6284,18 +6252,16 @@ def phase_bounded_lp(dev):
         "bland float32", torch.float32, BND_BLAND_STEPS - 64, devex=False,
         advance=64, steps=BND_BLAND_STEPS - 64, stall_limit=1,
         degen_tol=1e30)
-    f64.update(us["float64"])
+    f64["bound_us_per_step"] = 1e3 * bound(2.0 * (m + 2) * (n + m + 1) * 8,
+                                           0.0, FP64_FLOP_S)[0]
     log(f"# 8a the f64 devex walk: bounded_grid {f64['seconds']:.4f} s for "
         f"{f64['niter']} steps = {1e6 * f64['seconds'] / f64['niter']:.2f} "
-        f"us a step on the host clock ({grid_us['float64']['device_us_per_step']:.2f}"
-        f" on the card); bounded_steps {f64['bounded_step']['seconds']:.4f} "
-        f"s = {1e6 * f64['bounded_step']['seconds'] / f64['niter']:.2f} us "
-        f"a step ({f64['device_us_per_step']:.2f} on the card, "
-        f"{f64['host_us_per_step']:.2f} to enqueue; bound "
-        f"{f64['bound_us_per_step']:.2f} us)")
+        f"us a step on the host clock "
+        f"({grid_us['float64']['device_us_per_step']:.2f} on the card; the "
+        f"table's step bound {f64['bound_us_per_step']:.2f} us)")
     part("timing")
-    res.update(walks=walks, stages=stages, step_us=us, grid_us=grid_us,
-               reference=reference, wide=wide_bounded_lp(dev, clock_hz))
+    res.update(walks=walks, grid_us=grid_us, reference=reference,
+               wide=wide_bounded_lp(dev, clock_hz))
     part("(w)")
     res["past"] = past_streamed_lp(dev, "(x)", BND_PAST_M, torch.float64,
                                    clock_hz)
@@ -6303,8 +6269,15 @@ def phase_bounded_lp(dev):
     res["past_float32"] = past_streamed_lp(dev, "(y)", BND_PAST32_M,
                                            torch.float32, clock_hz, seed=3)
     part("(y)")
-    res["too_wide"] = too_wide_lp(dev)
+    res["too_wide"] = wide_plan_lp(dev, "(z)", BND_WIDEST_M, BND_WIDEST_N,
+                                   torch.float64, BND_WIDEST_STEPS)
     part("(z)")
+    for label, dt in (("(z64)", torch.float64), ("(z32)", torch.float32)):
+        res["too_wide_" + label[2:-1]] = wide_plan_lp(
+            dev, label, BND_WIDEST_M, BND_Z64_N, dt, BND_PAST_STEPS)
+        part(label)
+    res["shared_frame"] = shared_frame_turns(dev)
+    part("(s)")
     res["card_tests"] = bounded_grid_card_tests(dev)
     part("(t)")
     res["seconds_by_part"] = parts
@@ -7970,9 +7943,8 @@ def mesh_bounded(mesh, dev="cuda"):
             and (dev != "cuda" or (msh["launches"]["fused_fma"] == 0
                                    and msh["launches"]["shard_pivot"]
                                    == rec.count > 0
-                                   and solo["launches"]["bounded_grid"] == 1
-                                   and solo["launches"]["bounded_step"]
-                                   == 0))):
+                                   and solo["launches"]["bounded_grid"]
+                                   == 1))):
         raise AssertionError("9c: the sharded bounded walk differs from the "
                              "solo walk")
     for r in res.values():
@@ -8663,15 +8635,6 @@ def main() -> int:
                         "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
                         "592; tpulp/batch/vmap_driver.py:250)",
                         milp_launches),
-        # bounded_step's route since the device-vector grid took (x): a
-        # frame too wide for every plan of the grid, (z)'s walk (on the
-        # other frames it is called directly beside the grid, as the
-        # yardstick)
-        "bounded_step": ("tpulp_torch/kernels/csrc/bounded.cu",
-                         "none: XLA's compiled lax.while_loop over "
-                         "bounded_simplex_step (tpulp/solve/bounded.py:"
-                         "86-276, 278-307)",
-                         exact["bounded_lp"]["too_wide"]["launches"]),
         "rank1_step": ("tpulp_torch/kernels/csrc/rank1.cu",
                        "none: XLA's compiled lax.while_loop over "
                        "simplex_step, devex_simplex_step and "
@@ -8768,85 +8731,10 @@ def main() -> int:
             head = dict(fma_cases["rank1_pivot_vmap float64"])
             head["library_ms"] = None  # CUDA addcmul rounds twice
             cases = fma_cases
-        elif kname == "bounded_step":
-            # per step of 8a's f64 devex walk (called directly on the frame,
-            # held equal and timed beside the grid): the walk's host-clock
-            # time, the plain step's, the tableau's bytes; the headline at
-            # the shape its route gives it, (z)'s box LP
-            bl = exact["bounded_lp"]
-            cases = {}
-            for dt, walk in (("float64", "f64_devex"),
-                             ("float32", "f32_devex_window")):
-                w = bl["walks"][walk]
-                cases[dt] = {
-                    "max_abs_err": w["bounded_step"]["max_abs_err"],
-                    "ms": 1e3 * w["bounded_step"]["seconds"] / w["niter"],
-                    "plain_ms": 1e3 * w["plain_seconds"] / w["niter"],
-                    "bound_ms": bl["step_us"][dt]["bound_us_per_step"] / 1e3,
-                    "bound_by": "bytes", "library_ms": None,
-                    "device_ms": bl["step_us"][dt]["device_us_per_step"]
-                    / 1e3,
-                    "host_enqueue_ms":
-                        bl["step_us"][dt]["host_us_per_step"] / 1e3,
-                    "steps": w["niter"]}
-            # (w) on bounded_steps (its route until the streamed grid): the
-            # window's walk held and timed beside the grid's, the launch
-            # timed in turns with the grid's
-            wd = bl["wide"]
-            cases["wide float64"] = {
-                "max_abs_err": wd["window"]["steps_max_abs_err"],
-                "ms": 1e3 * wd["window"]["steps_seconds"]
-                / wd["window"]["steps"],
-                "plain_ms": 1e3 * wd["window"]["plain_seconds"]
-                / wd["window"]["steps"],
-                "bound_ms": wd["bound_us_per_step"] / 1e3,
-                "bound_by": "bytes", "library_ms": None,
-                "device_ms": wd["device_us_per_step"] / 1e3,
-                "device_ms_by_stage": {k: v / 1e3 for k, v in
-                                       wd["device_us_by_stage"].items()},
-                "host_enqueue_ms": wd["host_us_per_step"] / 1e3,
-                "steps": wd["window"]["steps"]}
-            # (x) and (y), past the streamed plan (its route until the
-            # device-vector grid took them): the walk held and timed
-            # beside the grid's, its steps timed in turns with the grid's
-            # launch
-            for case, key in (("past the streamed plan float64 (x)",
-                               "past"),
-                              ("past the streamed plan float32 (y)",
-                               "past_float32")):
-                px = bl[key]
-                st = px["bounded_step"]
-                cases[case] = {
-                    "max_abs_err": st["max_abs_err"],
-                    "ms": 1e3 * st["seconds"] / px["steps"],
-                    "plain_ms": 1e3 * px["plain_seconds"] / px["steps"],
-                    "bound_ms": px["bound_us_per_step"] / 1e3,
-                    "bound_by": "bytes", "library_ms": None,
-                    "device_ms": st["device_us_per_step"] / 1e3,
-                    "device_ms_by_stage": {
-                        k: v / 1e3 for k, v in
-                        st["device_us_by_stage"].items()},
-                    "host_enqueue_ms": st["host_us_per_step"] / 1e3,
-                    "grid_device_ms": px["grid_us"]["device_us_per_step"]
-                    / 1e3, "steps": px["steps"]}
-            # (z), too wide for every plan: its route, the headline
-            z = bl["too_wide"]
-            cases["too wide for the grid float64 (z)"] = {
-                "max_abs_err": z["max_abs_err"],
-                "ms": 1e3 * z["seconds"] / z["steps"],
-                "plain_ms": 1e3 * z["plain_seconds"] / z["steps"],
-                "bound_ms": z["bound_us_per_step"] / 1e3,
-                "bound_by": "bytes", "library_ms": None,
-                "device_ms": z["device_us_per_step"] / 1e3,
-                "device_ms_by_stage": {
-                    k: v / 1e3 for k, v in z["device_us_by_stage"].items()},
-                "host_enqueue_ms": z["host_us_per_step"] / 1e3,
-                "steps": z["steps"]}
-            head = cases["too wide for the grid float64 (z)"]
         elif kname == "bounded_grid":
-            # per step of 8a's walks on the grid: the walk's host-clock time
-            # (in turns with bounded_steps), the plain version's, one launch
-            # on the card by stage (the same rule and type as the walk), the
+            # per step of 8a's walks on the grid: the walk's host-clock time,
+            # the plain version's, one launch on the card by stage (the same
+            # rule and type as the walk), the
             # walk's bound (the frame read and written once, an fma an
             # entry a step) beside the kernel's own convention and the
             # table's step convention; the f64 Dantzig instantiation by its
@@ -8883,9 +8771,7 @@ def main() -> int:
                 cases[dt] = grid_case(
                     bl["grid_us"][dt], max_abs_err=err,
                     ms=1e3 * w["seconds"] / steps, plain_ms=plain,
-                    bounded_step_ms=1e3 * w["bounded_step"]["seconds"]
-                    / steps, walk_seconds=w["seconds"],
-                    bounded_step_walk_seconds=w["bounded_step"]["seconds"],
+                    walk_seconds=w["seconds"],
                     plain_walk_seconds=w["plain_seconds"], steps=w["niter"])
             g, ref = bl["grid_us"]["dantzig float64"], \
                 bl["reference"]["dantzig float64"]
@@ -8894,16 +8780,14 @@ def main() -> int:
                 ms=g["device_us_per_step"] / 1e3,
                 plain_ms=ref["plain_ms_per_step"], steps=g["steps"])
             # the streamed plan: (w)'s f64 devex walk, one launch of 1,024
-            # steps from step 2,000 in turns with bounded_steps; its window
-            # against the plain walk and the plain version
+            # steps from step 2,000, twice; its window against the plain
+            # walk and the plain version
             wd = bl["wide"]
             win = wd["window"]
             cases["streamed float64 (w)"] = grid_case(
                 wd["grid_us"], max_abs_err=win["max_abs_err"],
                 ms=1e3 * win["seconds"] / win["steps"],
                 plain_ms=win["plain_ms_per_step"],
-                bounded_step_ms=1e3 * win["steps_seconds"] / win["steps"],
-                bounded_step_device_ms=wd["device_us_per_step"] / 1e3,
                 device_ms_turns=[v / 1e3 for v in
                                  wd["grid_us"]["device_us_turns"]],
                 rows=wd["grid_us"]["rows"], scratch=wd["grid_us"]["scratch"],
@@ -8914,10 +8798,9 @@ def main() -> int:
                 window_float32_plain_ms=wd["window_float32"][
                     "plain_ms_per_step"])
             # the device-vector plan: (x) and (y), past the streamed plan,
-            # one launch of BND_PAST_GRID_TIMED steps from step 8 in turns
-            # with bounded_steps; the walk against the plain walk and
-            # bounded_steps' walk; the bound by the table's step convention
-            # beside the walk's and the kernel's own
+            # one launch of BND_PAST_GRID_TIMED steps from step 8, twice;
+            # the walk against the plain walk; the bound by the table's step
+            # convention beside the walk's and the kernel's own
             for case, key in (("device vectors float64 (x)", "past"),
                               ("device vectors float32 (y)",
                                "past_float32")):
@@ -8928,16 +8811,52 @@ def main() -> int:
                     ms=1e3 * px["seconds"] / px["steps"],
                     plain_ms=1e3 * px["plain_seconds"] / px["steps"],
                     table_step_bound_ms=px["bound_us_per_step"] / 1e3,
-                    bounded_step_ms=1e3 * px["bounded_step"]["seconds"]
-                    / px["steps"],
-                    bounded_step_device_ms=px["bounded_step"][
-                        "device_us_per_step"] / 1e3,
                     device_ms_turns=[v / 1e3 for v in
                                      gx["device_us_turns"]],
                     rows=gx["rows"], tile_rows=gx["tile_rows"],
                     scratch=gx["scratch"], vectors=gx["vectors"],
                     steps=gx["steps"], solve_steps=px["steps"],
                     launches=px["launches"]["bounded_grid"])
+            # the wide plan: (z), (z64) and (z32), past the device-vector
+            # plan; the timed launch of the first window that mostly pivots
+            # (its bound the window's own: the rows its steps touch) and of
+            # the entering flips from step 8; the walk to its budget on the
+            # host clock; the held window against the plain version
+            for case, key in (("wide float64 (z)", "too_wide"),
+                              ("wide float64 (z64)", "too_wide_64"),
+                              ("wide float32 (z32)", "too_wide_32")):
+                z = bl[key]
+                gp, gf = z["grid_us"]["pivots"], z["grid_us"]["flips"]
+                cases[case] = {
+                    "max_abs_err": z["max_abs_err"],
+                    "ms": 1e3 * z["seconds"] / z["steps"],
+                    "plain_ms": z["plain_ms_per_step"],
+                    "bound_ms": gp["bound_ms"], "bound_by": "bytes",
+                    "library_ms": None,
+                    "table_step_bound_ms": z["bound_us_per_step"] / 1e3,
+                    "device_ms": gp["device_us_per_step"] / 1e3,
+                    "device_ms_turns": [v / 1e3 for v in
+                                        gp["device_us_turns"]],
+                    "device_ms_by_stage": {
+                        k: v / 1e3 for k, v in
+                        gp["device_us_by_stage"].items()},
+                    "window_from": z["window_from"],
+                    "window_flips": z["window_flips"],
+                    "flips_window_device_ms": gf["device_us_per_step"]
+                    / 1e3,
+                    "flips_window_bound_ms": gf["bound_ms"],
+                    "flips_window_by_stage_ms": {
+                        k: v / 1e3 for k, v in
+                        gf["device_us_by_stage"].items()},
+                    "blocks": gp["blocks"], "width": gp["width"],
+                    "smem": gp["smem"], "occupancy": gp["occupancy"],
+                    "tile_rows": gp["tile_rows"], "scratch": gp["scratch"],
+                    "vectors": gp["vectors"], "steps": z["steps"],
+                    "pivots": z["pivots"],
+                    "entering_flips": z["entering_flips"],
+                    "upper_hits": z["upper_hits"],
+                    "launches": z["launches"]["bounded_grid"]}
+            cases["shared frame (s)"] = bl["shared_frame"]
             head = cases["float64"]
         elif kname == "rank1_step":
             # per step of 5c's walks: the walk's host-clock time, the plain
@@ -9271,12 +9190,13 @@ def main() -> int:
                         "replaces": repl, "launches": counts[kname],
                         **{k: head.get(k) for k in keys},
                         "cases": cases})
+    by_name = {k["name"]: k for k in kernels}
     if bounded_launches["fused_fma"] != 0:
         raise AssertionError("the f64 bounded LP's solve launched the FMA "
                              "kernel")
     # the FMA kernel's main path is MILP (its ``launches``); the bounded
     # LP of phase 8 runs the bounded kernels and no FMA
-    kernels[2]["launches_by_path"] = {
+    by_name["fused_fma"]["launches_by_path"] = {
         "milp_bench_knapsack_float64": milp_launches["fused_fma"],
         "bounded_lp_float64": bounded_launches["fused_fma"],
         "bounded_batch_8b_float64":
@@ -9291,60 +9211,39 @@ def main() -> int:
                         "milp_batch", "spans")}}
     # phase 10's paths: the operand layouts of their launches, each held
     # bit for bit against the CPU's addcmul
-    kernels[2]["layouts_held_by_path"] = {
+    by_name["fused_fma"]["layouts_held_by_path"] = {
         f"{path}_float64": batch_mesh[path]["fma_layouts"]
         for path in ("lp_batch_1x1", "lp_batch_batch", "milp_1x1",
                      "milp_batch")}
     # the flush runs on two main paths: the kernel engine of phase 5 (its
     # ``launches``) and the sharded blocked driver of phase 9a, which
     # flushes each rank's (m+2, n/P) block
-    kernels[0]["launches_by_path"] = {
+    by_name["fused_flush"]["launches_by_path"] = {
         "main_path_kernel_engine": launches["fused_flush"],
         "sharded_blocked_p1_float64":
             mesh["blocked"]["launches"]["fused_flush"]}
-    kernels[0]["sharded_block_case"] = {k: mesh["flush"].get(k)
+    by_name["fused_flush"]["sharded_block_case"] = {k: mesh["flush"].get(k)
                                         for k in keys}
-    kernels[0]["flush_cases"] = flush_cases
-    kernels[0]["sass"] = sass
-    kernels[1]["barrier_probe"] = probe
-    for k, kname in ((3, "lane_dual"), (4, "lane_primal")):
-        kernels[k]["launches_by_path"] = {
+    by_name["fused_flush"]["flush_cases"] = flush_cases
+    by_name["fused_flush"]["sass"] = sass
+    by_name["blocked_inner_block"]["barrier_probe"] = probe
+    for kname in ("lane_dual", "lane_primal"):
+        by_name[kname]["launches_by_path"] = {
             "milp_bench_knapsack_float64": milp_launches[kname],
             **{f"{path}_float64": batch_mesh[path]["launches"][kname]
                for path in ("lp_batch_batch", "milp_batch")}}
-        head = lane_cases["float64"]["knapsack_warm" if k == 3
+        head = lane_cases["float64"]["knapsack_warm" if kname == "lane_dual"
                                      else "knapsack_cold"]
-        kernels[k].update({key: head.get(key) for key in (
+        by_name[kname].update({key: head.get(key) for key in (
             "us_per_step", "device_ms", "device_us_per_step", "steps",
             "pivots", "threads", "stage_us_per_step", "barriers_per_step")})
-    kernels[5].update({key: kernels[5]["cases"][
-        "too wide for the grid float64 (z)"][key] for key in (
-        "device_ms", "host_enqueue_ms", "steps")})
-    # bounded_step: 0 on 8a's solves and 9c's solo walk since the grid took
-    # their frames, 0 on (w) since the streamed grid, 0 on (x) and (y)
-    # since the device-vector grid; its route is (z)'s frame, too wide for
-    # every plan
-    kernels[5]["launches_by_path"] = {
-        "8a_too_wide_float64": exact["bounded_lp"]["too_wide"]["launches"][
-            "bounded_step"],
-        "8a_past_streamed_float64": exact["bounded_lp"]["past"]["launches"][
-            "bounded_step"],
-        "8a_past_streamed_float32": exact["bounded_lp"]["past_float32"][
-            "launches"]["bounded_step"],
-        "8a_wide_float64": exact["bounded_lp"]["wide"]["launches"][
-            "bounded_step"],
-        "bounded_lp_float64": bounded_launches["bounded_step"],
-        "bounded_lp_float32": exact["bounded_lp"]["float32"]["launches"][
-            "bounded_step"],
-        "sharded_bounded_solo_float64":
-            mesh["bounded"]["solo"]["launches"]["bounded_step"]}
-    kernels[5]["walks"] = exact["bounded_lp"]["walks"]
-    kernels[5]["stages_held_at_step"] = exact["bounded_lp"]["stages"]
-    kernels[14].update({key: kernels[14]["cases"]["float64"][key] for key in (
+    bgrid = by_name["bounded_grid"]
+    bgrid.update({key: bgrid["cases"]["float64"][key] for key in (
         "device_ms", "device_ms_by_stage", "blocks", "width", "smem",
-        "occupancy", "grid_bound_ms", "step_bound_ms", "bounded_step_ms",
-        "steps")})
-    kernels[14]["launches_by_path"] = {
+        "occupancy", "grid_bound_ms", "step_bound_ms", "steps")})
+    # every solo bounded walk on the card runs the grid; 8a (z), (z64) and
+    # (z32) on its wide plan
+    bgrid["launches_by_path"] = {
         "bounded_lp_float64": bounded_launches["bounded_grid"],
         "bounded_lp_float32": exact["bounded_lp"]["float32"]["launches"][
             "bounded_grid"],
@@ -9355,11 +9254,14 @@ def main() -> int:
         "8a_past_streamed_float64": exact["bounded_lp"]["past"]["launches"][
             "bounded_grid"],
         "8a_past_streamed_float32": exact["bounded_lp"]["past_float32"][
-            "launches"]["bounded_grid"]}
-    kernels[14]["edge_walks_held"] = exact["bounded_lp"]["reference"][
-        "edge_walks"]
-    kernels[14]["card_tests"] = exact["bounded_lp"]["card_tests"]
-    kernels[6].update({key: kernels[6]["cases"][
+            "launches"]["bounded_grid"],
+        **{f"8a_wide_plan_{key}": exact["bounded_lp"][key]["launches"][
+            "bounded_grid"] for key in ("too_wide", "too_wide_64",
+                                        "too_wide_32")}}
+    bgrid["edge_walks_held"] = exact["bounded_lp"]["reference"]["edge_walks"]
+    bgrid["card_tests"] = exact["bounded_lp"]["card_tests"]
+    kc = by_name["rank1_step"]
+    kc.update({key: kc["cases"][
         "past the grid's plan float64 (x)"][key] for key in (
         "device_ms", "host_enqueue_ms", "steps")})
     # the 5c solves: 0 on the frames a cluster holds (a, b, e, g) since the
@@ -9368,59 +9270,64 @@ def main() -> int:
     solves5c = SOLO_SOLVES + ("e_main_float64", "f_float64",
                               "e_grid_resident_cold_float64",
                               "e_grid_resident_float64")
-    kernels[6]["launches_by_path"] = {
+    by_name["rank1_step"]["launches_by_path"] = {
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_step"]
         for case in solves5c}
-    kernels[6]["launches_by_path"]["5c_past_grid_float64"] = \
+    by_name["rank1_step"]["launches_by_path"]["5c_past_grid_float64"] = \
         solo["past"]["launches"]["rank1_step"]
-    kernels[6]["walks"] = {k: v for k, v in solo["walks"].items()
+    by_name["rank1_step"]["walks"] = {k: v for k, v in solo["walks"].items()
                            if v["route"] == "rank1_step"}
-    kernels[6]["stages_held_at_step"] = solo["stages"]
-    kernels[8].update({key: kernels[8]["cases"]["float64"][key] for key in (
+    by_name["rank1_step"]["stages_held_at_step"] = solo["stages"]
+    kc = by_name["rank1_cluster"]
+    kc.update({key: kc["cases"]["float64"][key] for key in (
         "device_ms", "load_store_ms", "blocks", "occupancy", "steps")})
-    kernels[8]["launches_by_path"] = {
+    by_name["rank1_cluster"]["launches_by_path"] = {
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_cluster"]
         for case in solves5c}
     # the grid: one launch a walk on (f), (e) at 1538 x 3073 and the
     # resident re-solve; 0 on the cluster's frames and past its plan
-    kernels[15].update({key: kernels[15]["cases"]["float64"].get(key)
+    kc = by_name["rank1_grid"]
+    kc.update({key: kc["cases"]["float64"].get(key)
                         for key in ("device_ms", "device_ms_by_stage",
                                     "blocks", "width", "rows", "smem",
                                     "scratch", "occupancy", "grid_bound_ms",
                                     "step_bound_ms", "rank1_step_ms",
                                     "steps")})
-    kernels[15]["launches_by_path"] = {
+    by_name["rank1_grid"]["launches_by_path"] = {
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_grid"]
         for case in solves5c}
-    kernels[15]["launches_by_path"]["5c_past_grid_float64"] = \
+    by_name["rank1_grid"]["launches_by_path"]["5c_past_grid_float64"] = \
         solo["past"]["launches"]["rank1_grid"]
-    kernels[15]["walks"] = {k: v for k, v in solo["walks"].items()
+    by_name["rank1_grid"]["walks"] = {k: v for k, v in solo["walks"].items()
                             if v["route"] == "rank1_grid"}
-    kernels[15]["edge_walks_held"] = solo["edge_grid"]
-    kernels[8]["walks"] = {k: v for k, v in solo["walks"].items()
+    by_name["rank1_grid"]["edge_walks_held"] = solo["edge_grid"]
+    by_name["rank1_cluster"]["walks"] = {k: v for k, v in solo["walks"].items()
                            if v["route"] == "rank1_cluster"}
-    kernels[8]["edge_walks_held"] = solo["edge_walks_held"]
+    by_name["rank1_cluster"]["edge_walks_held"] = solo["edge_walks_held"]
     # the lane kernels at B = 1: one launch a solo walk
-    kernels[3]["launches_by_path"].update({
+    by_name["lane_dual"]["launches_by_path"].update({
         f"5c_resident_warm_resolve_{dt}": solo["solves"][
             f"e_resident_{dt}"]["launches"]["lane_dual"]
         for dt in ("float64", "float32")})
-    kernels[3]["solo_walks"] = {k: v for k, v in solo["walks"].items()
+    by_name["lane_dual"]["solo_walks"] = {
+        k: v for k, v in solo["walks"].items()
                                 if v["route"] == "lane_dual"}
-    kernels[4]["launches_by_path"].update({
+    by_name["lane_primal"]["launches_by_path"].update({
         f"5c_{k}": v["launches"] for k, v in solo["walks"].items()
         if v["route"] == "lane_primal"})
-    kernels[4]["solo_walks"] = {k: v for k, v in solo["walks"].items()
+    by_name["lane_primal"]["solo_walks"] = {
+        k: v for k, v in solo["walks"].items()
                                 if v["route"] == "lane_primal"}
-    kernels[2]["launches_by_path"]["solo_rank1_5c_a_float64"] = \
+    by_name["fused_fma"]["launches_by_path"]["solo_rank1_5c_a_float64"] = \
         solo["launches"]["fused_fma"]
     # the blocked engine: its slots, ray launches and B1 flushes by path,
     # and no FMA
-    kernels[2]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
+    by_name["fused_fma"]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
         blocked["launches"]["fused_fma"]
-    kernels[0]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
+    by_name["fused_flush"]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
         blocked["launches"]["fused_flush"]
-    kernels[7].update({key: kernels[7]["cases"][
+    kc = by_name["blocked_step"]
+    kc.update({key: kc["cases"][
         "past the grid's plan float64 (p)"][key]
         for key in ("device_ms", "host_enqueue_ms", "steps")})
     # the 5d solves: 0 where the cluster's plan fits (a, b, c), 0 on (g)'s
@@ -9429,99 +9336,101 @@ def main() -> int:
     solves5d = ("a_float64", "a_float32", "b_optimal_float64",
                 "b_optimal_float32", "b_float64", "b_float32", "c_float64",
                 "c_float32", "g_wide_float64", "g_wide_float32")
-    kernels[7]["launches_by_path"] = {
+    by_name["blocked_step"]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_step"]
         for case in solves5d}
-    kernels[7]["launches_by_path"]["5d_past_grid_float64"] = \
+    by_name["blocked_step"]["launches_by_path"]["5d_past_grid_float64"] = \
         blocked["past"]["launches"]["blocked_step"]
-    kernels[7]["ray_launches_by_path"] = {
+    by_name["blocked_step"]["ray_launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_ray"]
         for case in ("a_float64", "c_float64", "g_wide_float64",
                      "g_wide_float32")}
-    kernels[7]["walks"] = blocked["walks"]
-    kernels[7]["stages_held_at_slot"] = blocked["stages"]
-    kernels[7]["slot_us"] = blocked["slot_us"]
-    kernels[9].update({key: kernels[9]["cases"]["float64"][key] for key in (
+    by_name["blocked_step"]["walks"] = blocked["walks"]
+    by_name["blocked_step"]["stages_held_at_slot"] = blocked["stages"]
+    by_name["blocked_step"]["slot_us"] = blocked["slot_us"]
+    kc = by_name["blocked_cluster"]
+    kc.update({key: kc["cases"]["float64"][key] for key in (
         "device_ms", "device_ms_by_stage", "blocks", "smem", "occupancy",
         "blocked_step_ms", "steps")})
-    kernels[9]["launches_by_path"] = {
+    by_name["blocked_cluster"]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_cluster"]
         for case in solves5d}
-    kernels[9]["walks"] = blocked["cluster_walks"]
-    kernels[9]["slot_us"] = blocked["cluster_slot_us"]
-    kernels[9]["edge_walks_held"] = blocked["edge_walks"]
+    by_name["blocked_cluster"]["walks"] = blocked["cluster_walks"]
+    by_name["blocked_cluster"]["slot_us"] = blocked["cluster_slot_us"]
+    by_name["blocked_cluster"]["edge_walks_held"] = blocked["edge_walks"]
     # the grid: one launch a block of (g)'s solves and of 8c (v)'s lanes, 0
     # on the cluster's LPs and past its plan
-    kernels[16].update({key: kernels[16]["cases"]["float64"][key] for key in (
+    kc = by_name["blocked_grid"]
+    kc.update({key: kc["cases"]["float64"][key] for key in (
         "device_ms", "device_ms_by_stage", "blocks", "width", "height",
         "smem", "occupancy", "grid_bound_ms", "step_bound_ms",
         "blocked_step_ms", "blocked_step_device_ms", "steps")})
-    kernels[16]["launches_by_path"] = {
+    by_name["blocked_grid"]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_grid"]
         for case in solves5d}
-    kernels[16]["launches_by_path"]["5d_past_grid_float64"] = \
+    by_name["blocked_grid"]["launches_by_path"]["5d_past_grid_float64"] = \
         blocked["past"]["launches"]["blocked_grid"]
-    kernels[16]["launches_by_path"]["8c_wide_float64"] = \
+    by_name["blocked_grid"]["launches_by_path"]["8c_wide_float64"] = \
         exact["blocked_batch"]["wide"]["launches"]["blocked_grid"]
-    kernels[16]["walks"] = blocked["grid_walks"]
-    kernels[16]["slot_us"] = blocked["grid_slot_us"]
-    kernels[16]["edge_walks_held"] = blocked["grid_edge_walks"]
-    kernels[16]["grid_vs_cluster"] = blocked["grid_vs_cluster"]
-    kernels[0]["blocked_cases"] = blocked["flush"]
+    by_name["blocked_grid"]["walks"] = blocked["grid_walks"]
+    by_name["blocked_grid"]["slot_us"] = blocked["grid_slot_us"]
+    by_name["blocked_grid"]["edge_walks_held"] = blocked["grid_edge_walks"]
+    by_name["blocked_grid"]["grid_vs_cluster"] = blocked["grid_vs_cluster"]
+    by_name["fused_flush"]["blocked_cases"] = blocked["flush"]
     # the blocked batch (8c): its three launches a block by path; past the
     # plan its lanes run blocked_step
     bb = exact["blocked_batch"]
-    for k in (10, 11, 12):
-        kernels[k]["launches_by_path"] = {
-            "8c_float32": bb["solves"]["float32"]["launches"][
-                kernels[k]["name"]],
-            "8c_wide_float64": bb["wide"]["launches"][kernels[k]["name"]]}
-    kernels[10]["launches_by_path"]["8c_occupancy_float64"] = \
-        bb["occupancy"]["launches"]
-    kernels[10]["small_batch_held"] = bb["small"]
-    kernels[7]["launches_by_path"]["8c_wide_float64"] = \
+    for k in ("blocked_cluster_batch", "fused_flush_batch",
+              "blocked_ray_batch"):
+        by_name[k]["launches_by_path"] = {
+            "8c_float32": bb["solves"]["float32"]["launches"][k],
+            "8c_wide_float64": bb["wide"]["launches"][k]}
+    by_name["blocked_cluster_batch"]["launches_by_path"][
+        "8c_occupancy_float64"] = bb["occupancy"]["launches"]
+    by_name["blocked_cluster_batch"]["small_batch_held"] = bb["small"]
+    by_name["blocked_step"]["launches_by_path"]["8c_wide_float64"] = \
         bb["wide"]["launches"]["blocked_step"]
     # the bounded batch's walk: one launch a batch (8b), one a cold wave
     # (10c)
-    kernels[13]["launches_by_path"] = {
+    by_name["lane_bounded"]["launches_by_path"] = {
         "8b_float64": exact["bounded_batch"]["bounded"]["launches"][
             "lane_bounded"],
         "10c_spans_float64": batch_mesh["spans"]["launches"]["lane_bounded"]}
-    kernels[13].update({key: kernels[13]["cases"]["box float64"][key]
+    kc = by_name["lane_bounded"]
+    kc.update({key: kc["cases"]["box float64"][key]
                         for key in ("us_per_step", "device_ms",
                                     "device_us_per_step", "steps", "acts",
                                     "pivots")})
-    kernels[13]["split_8b"] = exact["bounded_batch"]["split"]
+    by_name["lane_bounded"]["split_8b"] = exact["bounded_batch"]["split"]
     # the cluster lanes: one launch a batch of frames past a block's shared
     # memory (7d (m)'s solve_lp_batch, the main path; 7d's 258 x 513 cases)
-    kernels[17].update({key: lane_cases["float64"]["streamed_cold"].get(key)
+    by_name["rank1_cluster_lanes"].update({
+        key: lane_cases["float64"]["streamed_cold"].get(key)
                         for key in ("us_per_step", "device_ms",
                                     "device_us_per_step", "steps", "pivots",
                                     "stage_us_per_step")})
-    kernels[17]["launches_by_path"] = {
+    by_name["rank1_cluster_lanes"]["launches_by_path"] = {
         f"7d_{case}_{dt}": lane_cases[dt][case]["launches"].get(
             "rank1_cluster_lanes", 0)
         for dt in ("float64", "float32") for case in (
             "streamed_cold", "streamed_warm", "streamed_warm_cleanup")}
     # the cluster lanes' dual walk: 7d's streamed_warm (the dual loop on
     # 258 x 513 frames, dual_lanes' route)
-    kernels[17]["dual_walk"] = {
+    by_name["rank1_cluster_lanes"]["dual_walk"] = {
         key: lane_cases["float64"]["streamed_warm"].get(key)
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "device_ms", "device_us_per_step", "steps",
                     "pivots", "stage_us_per_step")}
-    for k, kind, cs in ((4, "primal", ("streamed_cold",
-                                       "streamed_warm_cleanup")),
-                        (3, "dual", ("streamed_warm",))):
-        kernels[k]["one_block_launches_on_the_cluster_route"] = {
+    for kind, cs in (("primal", ("streamed_cold", "streamed_warm_cleanup")),
+                     ("dual", ("streamed_warm",))):
+        by_name[f"lane_{kind}"]["one_block_launches_on_the_cluster_route"] = {
             f"7d_{case}_{dt}": lane_cases[dt][case]["launches"].get(
                 f"lane_{kind}", 0)
             for dt in ("float64", "float32") for case in cs}
-    kernels[4]["card_tests"] = lane_cases["card_tests"]
+    by_name["lane_primal"]["card_tests"] = lane_cases["card_tests"]
     # the sharded pivot's kernels: launches by path (one a step, every lane
     # of a lane-sharded step in one), the FMA's launches on the same runs
     # (0 on every pivot), the card tests, the walks' windows
-    by_name = {k["name"]: k for k in kernels}
     by_name["shard_pivot"]["launches_by_path"] = {
         "9b_rank1_float64": mesh["rank1"]["launches"]["shard_pivot"],
         "9c_bounded_float64": mesh["bounded"]["mesh"]["launches"][
@@ -9543,30 +9452,33 @@ def main() -> int:
     by_name["shard_pivot"]["windows"] = mesh["shard_pivot"]["windows"]
     by_name["shard_vectors"]["launches_by_path"] = {
         "9a_blocked_float64": mesh["blocked"]["launches"]["shard_vectors"]}
-    kernels[13]["walk_10c"] = {
+    by_name["lane_bounded"]["walk_10c"] = {
         key: batch_mesh["spans"][key] for key in ("walk_seconds", "waves",
                                                   "seconds", "nodes_per_s")}
-    for k, names in ((0, ("flush_kernel<float>", "flush_kernel<double>")),
-                     (1, "inner_block"), (2, "fma"),
-                     (3, "lane_dual"), (4, "lane_primal"),
-                     (5, tuple(BOUNDED_KERNELS.values())),
-                     (6, "rank1"), (7, tuple(BLOCKED_KERNELS.values())),
-                     (8, tuple(CLUSTER_KERNELS.values())),
-                     (9, tuple(BLOCKED_CLUSTER_KERNELS.values())),
-                     (10, tuple(BLOCKED_CLUSTER_KERNELS.values())),
-                     (11, ("flush_kernel<float,lanes>",
-                           "flush_kernel<double,lanes>")),
-                     (12, ("blocked_ray_kernel<float>",
-                           "blocked_ray_kernel<double>")),
-                     (13, "lane_bounded"),
-                     (14, tuple(BOUNDED_GRID_KERNELS.values())),
-                     (15, tuple(RANK1_GRID_KERNELS.values())),
-                     (16, tuple(BLOCKED_GRID_KERNELS.values())),
-                     (17, tuple(v for v in CLUSTER_KERNELS.values()
-                                if v.endswith(("primal>", "dual>")))),
-                     (18, "shard_pivot_kernel<"),
-                     (19, "shard_vectors_kernel<")):
-        kernels[k]["ptxas"] = {
+    for k, names in (
+            ("fused_flush", ("flush_kernel<float>", "flush_kernel<double>")),
+            ("blocked_inner_block", "inner_block"), ("fused_fma", "fma"),
+            ("lane_dual", "lane_dual"), ("lane_primal", "lane_primal"),
+            ("rank1_step", "rank1"),
+            ("blocked_step", tuple(BLOCKED_KERNELS.values())),
+            ("rank1_cluster", tuple(CLUSTER_KERNELS.values())),
+            ("blocked_cluster", tuple(BLOCKED_CLUSTER_KERNELS.values())),
+            ("blocked_cluster_batch",
+             tuple(BLOCKED_CLUSTER_KERNELS.values())),
+            ("fused_flush_batch", ("flush_kernel<float,lanes>",
+                                   "flush_kernel<double,lanes>")),
+            ("blocked_ray_batch", ("blocked_ray_kernel<float>",
+                                   "blocked_ray_kernel<double>")),
+            ("lane_bounded", "lane_bounded"),
+            ("bounded_grid", tuple(BOUNDED_GRID_KERNELS.values())),
+            ("rank1_grid", tuple(RANK1_GRID_KERNELS.values())),
+            ("blocked_grid", tuple(BLOCKED_GRID_KERNELS.values())),
+            ("rank1_cluster_lanes",
+             tuple(v for v in CLUSTER_KERNELS.values()
+                   if v.endswith(("primal>", "dual>")))),
+            ("shard_pivot", "shard_pivot_kernel<"),
+            ("shard_vectors", "shard_vectors_kernel<")):
+        by_name[k]["ptxas"] = {
             f: v for f, v in ptxas.items()
             if (f in names if isinstance(names, tuple) else names in f)}
     log(json.dumps({"kernels": kernels, "card": smi, "ptxas": ptxas,

@@ -3,9 +3,10 @@
 version ``bounded_grid_reference`` on the CPU: every field equal (the
 tableau as ``T + 0.0``), the entering flips and upper hits too, on the
 plan's grid, on forced grids of 1, 2, 3 and 7 blocks, at forced splits of
-the slabs' rows (the streamed plan) and on the plan with the per-row
-vectors in device memory, forced at small frames; and
-``run_simplex_bounded`` on the card against the plain loop.
+the slabs' rows (the streamed plan), on the plan with the per-row
+vectors in device memory and on the wide plan (no row of a slab in shared
+memory), forced at small frames and at a frame of three column chunks;
+and ``run_simplex_bounded`` on the card against the plain loop.
 
 Every test here needs a CUDA card (the ``cuda`` marker) and skips without
 one. The file imports neither jax nor tpulp, so that it runs on a machine
@@ -45,6 +46,12 @@ RULES = {"dantzig": {}, "devex": {"rule": RULE_DEVEX},
 CASES = [("box", 0, 12, 20), ("deg", 0, 12, 20), ("deg", 3, 30, 40),
          ("redundant", 1, 9, 16), ("redundant", 4, 15, 24),
          ("cleanup", 2, 9, 16)]
+# the wide plan's own case: 1,409 structural columns, three chunks of
+# GRID_WIDE_CHUNK on one block (the last narrower), 11 rows (row tiles of
+# 4, 4 and 3 at f64, 8 and 3 at f32), walked to WIDE_BUDGET steps (its
+# walks run past 400)
+WIDE_CASE = ("box", 5, 9, 1400)
+WIDE_BUDGET = 120
 
 
 def box_lp(seed, m, n, degenerate=False):
@@ -272,3 +279,50 @@ def test_cuda_device_vector_grid_matches_its_plain_version(dtype):
                         assert_same_state(_on_cpu(out), ref)
                         assert {k: kb.FLIPS[k] - before[k]
                                 for k in kb.FLIPS} == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_wide_grid_matches_its_plain_version(dtype):
+    """The wide plan forced at the small frames and at WIDE_CASE (every row
+    streamed from device memory in chunks of GRID_WIDE_CHUNK columns), on
+    the plan's grid and on 1, 2, 3 and 7 blocks, under Dantzig, devex and
+    Bland, to the exit (WIDE_CASE: to WIDE_BUDGET steps) and to a budget
+    of 7, and with an RHS whose |b| sum overflows: every field equal to
+    ``bounded_grid_reference`` on that plan (its |b| sum's order), the
+    flips too. Then ``run_simplex_bounded`` on the card (the route's plan)
+    against the plain loop over 500 steps of each case and rule."""
+    _need_card()
+    tt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for case in CASES + [WIDE_CASE]:
+        for rule in RULES:
+            bs, opts = port_state(case, tt, RULES[rule])
+            stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
+            for blocks in (None, 1, 2, 3, 7):
+                plan = kg.bounded_grid_plan(*bs.s.T.shape, tt, sms,
+                                            blocks=blocks, vectors="wide")
+                assert (plan.vectors, plan.rows) == ("wide", 0)
+                for budget in (WIDE_BUDGET if case == WIDE_CASE else 400,
+                               7):
+                    state = bs
+                    if budget == 7 and blocks == 3:
+                        T = bs.s.T.clone()
+                        T[3:5, -1] = torch.finfo(tt).max / 1.5
+                        state = bs._replace(s=bs.s._replace(T=T))
+                    ref, counts = kg.bounded_grid_reference(
+                        state, opts, stall, budget, plan.blocks,
+                        vectors="wide")
+                    before = dict(kb.FLIPS)
+                    out = kg.bounded_grid(_on_card(state), opts, stall,
+                                          budget, blocks=blocks,
+                                          vectors="wide")
+                    torch.cuda.synchronize()
+                    assert_same_state(_on_cpu(out), ref)
+                    assert {k: kb.FLIPS[k] - before[k]
+                            for k in kb.FLIPS} == counts
+            walk = dataclasses.replace(opts, max_iters=500)
+            out = run_simplex_bounded(_on_card(bs), walk)
+            ref = run_simplex_bounded_reference(bs, walk)
+            torch.cuda.synchronize()
+            assert_same_state(_on_cpu(out), ref)

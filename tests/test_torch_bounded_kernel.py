@@ -1,14 +1,13 @@
-"""The bounded walk's four launches (``tpulp_torch/kernels/bounded.py``),
-held on the CPU through their plain stages: composed, the price, ratio,
+"""The bounded step's four plain stages (``tpulp_torch/kernels/bounded.py``,
+the parts of the grid walk's plain version): composed, the price, ratio,
 update and finish stages give ``bounded_simplex_step`` bit for bit
 (``T + 0.0``) in every field at f64 and f32, and tpulp's jitted bounded
 step step for step at f64 (status, pivots, basis, at-upper flags, the
 tableau). The walks cover Dantzig, devex and the Bland switch, upper hits
 and entering flips, phase 1 with the artificials' clean-up and retire, and
-budgets of 1 and 7 steps. The kernels themselves run on the card only
-(the ``cuda`` test; chip_smoke.py's phase 8a holds them at full size)."""
-
-import dataclasses
+budgets of 1 and 7 steps. The CUDA dispatch of ``run_simplex_bounded`` and
+its CPU walk are held here too; the grid kernel runs on the card only
+(``tests/test_torch_bounded_grid_card.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +18,7 @@ import torch
 import tpulp.solve as tpulp_solve
 import tpulp_torch
 import tpulp_torch.kernels.bounded as kb
+import tpulp_torch.kernels.bounded_grid as kg
 import tpulp_torch.solve.api as papi
 import tpulp_torch.solve.bounded as pbounded
 from tpulp import LinExpr, LinProg
@@ -279,7 +279,7 @@ def test_f32_stage_solve_matches_tpulp(case, pricing, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the wrapper and the dispatch
+# the dispatch
 # ---------------------------------------------------------------------------
 
 def _small():
@@ -287,43 +287,11 @@ def _small():
     return bs, opts
 
 
-def test_bounded_steps_raises_on_cpu_tensors():
-    bs, opts = _small()
-    with pytest.raises(ValueError, match="CUDA"):
-        kb.bounded_steps(bs, opts, 10, 10)
-
-
-def test_bounded_steps_raises_on_mixed_devices():
-    bs, opts = _small()
-    mixed = bs._replace(upper=bs.upper.to("meta"))
-    with pytest.raises(ValueError, match="CUDA"):
-        kb.bounded_steps(mixed, opts, 10, 10)
-
-
-def test_bounded_steps_raises_on_float16():
-    bs, opts = _small()
-    half = bs._replace(s=bs.s._replace(T=bs.s.T.half()),
-                       upper=bs.upper.half())
-    with pytest.raises(ValueError, match="float32 or float64"):
-        kb.bounded_steps(half, opts, 10, 10)
-
-
-def test_bounded_steps_raises_on_a_strided_tableau():
-    bs, opts = _small()
-    T = bs.s.T
-    wide = torch.zeros((T.shape[0], 2 * T.shape[1]), dtype=T.dtype)
-    wide[:, ::2] = T
-    strided = bs._replace(s=bs.s._replace(T=wide[:, ::2]))
-    with pytest.raises(ValueError, match="contiguous"):
-        kb.bounded_steps(strided, opts, 10, 10)
-
-
 def test_dispatch_hands_the_kernels_a_contiguous_tableau(monkeypatch):
     """``run_simplex_bounded`` takes a strided tableau on either device (as
     tpulp's does): on the card it hands the kernel of ``bounded_route``
-    (``bounded_grid`` at this size, ``bounded_steps`` past the grid's plan;
-    both refuse one) a contiguous copy (the CUDA dispatch, ``on_cpu``
-    patched)."""
+    (``bounded_grid``, which refuses one) a contiguous copy (the CUDA
+    dispatch, ``on_cpu`` patched)."""
     seen = []
 
     def spy(bs, opts, stall_limit, max_iters):
@@ -333,7 +301,6 @@ def test_dispatch_hands_the_kernels_a_contiguous_tableau(monkeypatch):
     monkeypatch.setattr(pbounded, "on_cpu", lambda *tensors: False)
     monkeypatch.setattr(pbounded, "sm_count", lambda device: 132)
     monkeypatch.setattr(pbounded, "bounded_grid", spy)
-    monkeypatch.setattr(pbounded, "bounded_steps", spy)
     bs, opts = _small()
     strided = bs._replace(s=bs.s._replace(T=bs.s.T.t().contiguous().t()))
     assert not strided.s.T.is_contiguous()
@@ -343,13 +310,6 @@ def test_dispatch_hands_the_kernels_a_contiguous_tableau(monkeypatch):
     assert torch.equal(out.s.T, bs.s.T)
 
 
-def test_bounded_steps_raises_on_devex_without_gamma():
-    bs, _ = _small()
-    opts = SolverOptions.for_dtype(torch.float64, rule=RULE_DEVEX)
-    with pytest.raises(ValueError, match="gamma"):
-        kb.bounded_steps(bs, opts, 10, 10)
-
-
 def test_cpu_walk_never_reaches_the_kernel(monkeypatch):
     """On CPU tensors ``run_simplex_bounded`` is the plain loop: a wrapper
     that raises is never called, no launch is counted, and the walk is
@@ -357,8 +317,8 @@ def test_cpu_walk_never_reaches_the_kernel(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("the bounded kernel was called on the CPU")
 
-    monkeypatch.setattr(pbounded, "bounded_steps", refuse)
-    monkeypatch.setattr(kb, "bounded_steps", refuse)
+    monkeypatch.setattr(pbounded, "bounded_grid", refuse)
+    monkeypatch.setattr(kg, "bounded_grid", refuse)
     reset_launches()
     bs, opts = port_state(CASES[1], torch.float64, {"rule": RULE_DEVEX})
     bs = bs._replace(gamma=None)
@@ -369,61 +329,9 @@ def test_cpu_walk_never_reaches_the_kernel(monkeypatch):
     sol = tpulp_torch.solve_lp(to_port(case_lp(CASES[1])),
                                simple_bounds=True, device="cpu")
     assert sol.status == "optimal"
-    assert LAUNCHES["bounded_step"] == LAUNCHES["bounded_stage"] == 0
+    assert LAUNCHES["bounded_grid"] == 0
 
 
 def test_constants_shared_with_the_plain_step():
     assert pbounded.DEVEX_RESET_ABOVE == kb.DEVEX_RESET_ABOVE == 1e8
     assert pbounded.BIG_I == kb.BIG_I == 2 ** 30
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernels against the plain walk and the plain stages
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_bounded_kernels_match_the_plain_walk(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 8a runs these "
-                    "checks at the main path's shape)")
-    tt = getattr(torch, dtype)
-    for case in CASES:
-        for rule in RULES:
-            bs, opts = port_state(case, tt, RULES[rule])
-            bs = type(bs)(*(None if x is None else x.cuda() for x in bs))
-            opts = dataclasses.replace(opts, max_iters=500)
-            stall = opts.resolved_stall_limit(bs.s.m, bs.s.n)
-            out = run_simplex_bounded(bs, opts)
-            ref = run_simplex_bounded_reference(bs, opts)
-            torch.cuda.synchronize()
-            assert_same_state(type(bs)(*(None if x is None else x.cpu()
-                                         for x in out)),
-                              type(bs)(*(None if x is None else x.cpu()
-                                         for x in ref)))
-            # each launch against its plain stage, on the first steps
-            rec = kb.make_record(bs)
-            for _ in range(20):
-                for stage in kb.STAGES:
-                    k, p = kb.clone_record(rec), kb.clone_record(rec)
-                    kb.bounded_stage(k, stage, opts, stall, opts.max_iters)
-                    kb.bounded_stage_reference(p, stage, opts, stall,
-                                               opts.max_iters)
-                    torch.cuda.synchronize()
-                    for a, b in zip(k, p):
-                        if a is not None:
-                            assert torch.equal(as_bits(a.cpu()),
-                                               as_bits(b.cpu())), stage
-                    rec = p
-
-
-def test_record_launches_raise_on_cpu_records():
-    """The single-stage launch and the step enqueue refuse a record off
-    the card (and devex without weights) before any pointer is passed."""
-    bs, opts = _small()
-    rec = kb.make_record(bs)
-    with pytest.raises(ValueError, match="CUDA"):
-        kb.bounded_stage(rec, "price", opts, 10, 10)
-    with pytest.raises(ValueError, match="CUDA"):
-        kb.enqueue_steps(rec, opts, 10, 10, 1)
-    assert LAUNCHES["bounded_step"] == LAUNCHES["bounded_stage"] == 0

@@ -338,8 +338,7 @@ def test_launch_counters_stay_zero_on_cpu():
                        1e-9, 1e-9)
     assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0,
                         "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
-                        "lane_bounded": 0, "bounded_step": 0,
-                        "bounded_grid": 0, "bounded_stage": 0,
+                        "lane_bounded": 0, "bounded_grid": 0,
                         "rank1_step": 0, "rank1_stage": 0,
                         "rank1_cluster": 0, "rank1_cluster_lanes": 0,
                         "rank1_grid": 0,
@@ -367,7 +366,6 @@ def test_nvcc_command_line():
     assert sorted(p.name for p in sources) == ["blocked.cu",
                                                "blocked_cluster.cu",
                                                "blocked_grid.cu",
-                                               "bounded.cu",
                                                "bounded_grid.cu", "flush.cu",
                                                "fma.cu", "inner_block.cu",
                                                "lanes.cu", "rank1.cu",

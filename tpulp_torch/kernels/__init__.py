@@ -6,7 +6,6 @@ from .blocked import blocked_stage, blocked_steps
 from .blocked_cluster import blocked_cluster_plan
 # the module, not its wrapper of the same name: blocked_grid.blocked_grid
 from .blocked_grid import blocked_grid_plan
-from .bounded import bounded_stage, bounded_steps
 # the module, not its wrapper of the same name: bounded_grid.bounded_grid
 from .bounded_grid import bounded_grid_plan
 from .fma import fused_fma
@@ -36,8 +35,6 @@ __all__ = [
     "lane_dual_plan",
     "lane_bounded",
     "lane_bounded_plan",
-    "bounded_steps",
-    "bounded_stage",
     "bounded_grid_plan",
     "rank1_steps",
     "rank1_stage",

@@ -1,71 +1,57 @@
-"""``bounded_steps``: the solo bounded-variable walk as four launches a step
-(``csrc/bounded.cu``), and the plain versions of the four, stage by stage.
-No solver path sends a walk here: on the card ``solve.bounded.bounded_route``
-sends every solo walk to ``kernels.bounded_grid``, whose one cooperative
-launch runs the whole walk (the tableau's slabs in the SMs' shared memory,
-past it their first rows there and the rest streamed through device
-memory, and past ~6,300 rows at f64 the per-row vectors in device memory
-too). The four-launch step stays as the yardstick that chip_smoke.py
-holds and times beside the grid on the same frames.
+"""The solo bounded-variable step cut into four plain stages, the parts of
+``kernels.bounded_grid.bounded_grid_reference`` (the grid walk's plain
+version): the walk record they share, the constants the kernel shares
+with the plain step, and the walk's flip counters.
 
 ``solve.bounded.bounded_simplex_step`` is one branchless transition of
 ~250 small tensor ops. Its work has three global dependencies: the
 entering column (pricing over every column), the leaving row (the ratio
 test over every row of that column) and the pivot itself. Cut there, a
-step is four stream-ordered launches that read and write one walk record
-kept on the card:
+step is four stages that read and write one walk record:
 
-- **price** (one block): the clean-up scan for basic artificials, pricing
-  (Dantzig, or devex ``c^2 / gamma``, with the Bland switch), the phase
-  bookkeeping and the finiteness sum of the pre-step pricing row;
-- **ratio** (one block): the three-way ratio test (a lower hit, then an
-  upper hit, then the entering flip on exact ties), the pivot and the flip,
-  and a snapshot of three pre-step vectors into scratch (the pivot's
-  column, its row over the pivot, the flip's column), so that the update
-  can run in place;
-- **update** (the whole grid, elementwise): ``fma(-col[i], prow[k],
-  T[i, k])``, the pivot row set to ``prow``, the entering column to the
-  exact unit vector, the RHS ``fma(-Tn[i, fcol], uf, Tn[i, -1])`` and the
-  flipped column negated;
-- **finish** (one block): the basis, the at-upper flags, the devex weights
-  and their resets, the stall counter and the Bland switch, the phase
-  change, the finiteness sums and the status.
+- **price**: the clean-up scan for basic artificials, pricing (Dantzig,
+  or devex ``c^2 / gamma``, with the Bland switch), the phase bookkeeping
+  and the finiteness sum of the pre-step pricing row;
+- **ratio**: the three-way ratio test (a lower hit, then an upper hit,
+  then the entering flip on exact ties), the pivot and the flip, and a
+  snapshot of three pre-step vectors (the pivot's column, its row over
+  the pivot, the flip's column), so that the update can run in place;
+- **update** (elementwise): ``fma(-col[i], prow[k], T[i, k])``, the pivot
+  row set to ``prow``, the entering column to the exact unit vector, the
+  RHS ``fma(-Tn[i, fcol], uf, Tn[i, -1])`` and the flipped column negated;
+- **finish**: the basis, the at-upper flags, the devex weights and their
+  resets, the stall counter and the Bland switch, the phase change, the
+  finiteness sums and the status.
 
 The record (``BoundedRecord``) holds the walk's state (a copy of the
 caller's tensors: the caller's are never written), the step's verdict
-(``ints`` past the scalars, ``vals``) and the snapshot. Every launch
+(``ints`` past the scalars, ``vals``) and the snapshot. Every stage
 returns at once unless the record's status is RUNNING and its ``niter``
-is below the budget, so steps enqueued past the walk's exit are no-ops and
-the budget holds exactly, as in ``solve.driver.run_chunked``.
+is below the budget, so the budget holds exactly, as in
+``solve.driver.run_chunked``.
 
-The plain stages (``bounded_{price,ratio,update,finish}_reference``) are
-the launches' plain versions on the same record; composed, they give
-``bounded_simplex_step`` bit for bit (``T + 0.0``) in every field. One
-liberty, taken by the kernels and the plain stages alike: a step that
-pivots nowhere (an entering flip, a phase change, a retire, an exit) skips
-the plain step's redirected pivot on (row 2, ``basis[0]``) when that pivot
-is an exact no-op (row 2 finite, column ``basis[0]`` exactly the unit
-vector on row 2): it could then change only the sign of a zero. Otherwise
-the redirected pivot runs, as in the plain step. Nothing on the solver's
-path calls the plain stages: ``solve.bounded.run_simplex_bounded`` runs
-the plain step on CPU tensors and, on CUDA tensors, the kernel that
-``bounded_route`` chooses (``bounded_grid``). ``kernels.bounded_grid``'s
-plain version composes these stages.
+Composed, the stages give ``bounded_simplex_step`` bit for bit (``T +
+0.0``) in every field. One liberty, taken by the grid kernel and the plain
+stages alike: a step that pivots nowhere (an entering flip, a phase
+change, a retire, an exit) skips the plain step's redirected pivot on (row
+2, ``basis[0]``) when that pivot is an exact no-op (row 2 finite, column
+``basis[0]`` exactly the unit vector on row 2): it could then change only
+the sign of a zero. Otherwise the redirected pivot runs, as in the plain
+step. Nothing on the solver's path calls the plain stages:
+``solve.bounded.run_simplex_bounded`` runs the plain step on CPU tensors
+and ``bounded_grid`` on CUDA tensors.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..core.state import RULE_DEVEX, SolverOptions, Status
 from .fma import fused_fma
-from .launch import LAUNCHES, lib_for, raise_on, stream_of, suffix
 
 __all__ = ["BoundedRecord", "make_record", "record_state", "clone_record",
-           "bounded_steps", "enqueue_steps", "bounded_stage",
            "bounded_price_reference",
            "bounded_ratio_reference", "bounded_update_reference",
            "bounded_finish_reference", "bounded_stage_reference",
@@ -74,8 +60,6 @@ __all__ = ["BoundedRecord", "make_record", "record_state", "clone_record",
 
 BIG_I = 2 ** 30
 DEVEX_RESET_ABOVE = 1e8  # re-anchor the devex frame past this weight
-# the longest chunk of steps between two host reads of the record
-CHUNK = 32
 
 # the record's int32 fields: the walk's scalars and its two counters
 PHASE, STATUS, NITER, STUCK, BLAND, N_ENTER, N_UPHIT = range(7)
@@ -90,24 +74,17 @@ LAST_Z, UF, PIV, GAMMA_Q = range(4)
 NV = 4
 STAGES = ("price", "ratio", "update", "finish")
 
-# entering flips and upper hits of every walk ``bounded_steps`` ran: the
-# record's counters, read once a walk
+# entering flips and upper hits of every walk ``bounded_grid`` ran: the
+# kernel's counters, read once a walk
 FLIPS = {"entering_flips": 0, "upper_hits": 0}
 
-# the C entry points' argument arrays (csrc/bounded.cu)
-_NARGS, _NINTS, _NTOLS = 10, 6, 4
-_ARGS = ctypes.c_longlong * _NARGS
-_INTS = ctypes.c_int * _NINTS
-_TOLS = ctypes.c_double * _NTOLS
-_INT_MAX = 2 ** 31 - 1
 # basis values go through the tableau's type in Bland's row tie: exact in
 # float32 below 2^24
 _MAX_SIDE = 1 << 24
 
 
 class BoundedRecord(NamedTuple):
-    """One walk's state on one device, updated in place by the four
-    stages."""
+    """One walk's state, updated in place by the four stages."""
 
     T: torch.Tensor           # (M, N) the walk's tableau
     basis: torch.Tensor       # (m,) int32
@@ -176,7 +153,7 @@ def _first_true(mask: torch.Tensor, default: int) -> int:
 
 def bounded_price_reference(rec: BoundedRecord, opts: SolverOptions,
                             max_iters: int) -> None:
-    """The price launch's plain version: the clean-up scan, pricing, the
+    """The price stage: the clean-up scan, pricing, the
     phase bookkeeping and the finiteness of the pre-step pricing row, into
     the record's verdict."""
     iv = rec.ints.tolist()
@@ -231,7 +208,7 @@ def noop_exact(T: torch.Tensor, jb: int) -> bool:
 
 def bounded_ratio_reference(rec: BoundedRecord, opts: SolverOptions,
                             max_iters: int) -> None:
-    """The ratio launch's plain version: the three-way ratio test over the
+    """The ratio stage: the three-way ratio test over the
     entering column, the pivot and the flip, into the record's verdict,
     and the snapshot of the pivot's column and its normalised row (when
     the update pivots) and of the flip's column."""
@@ -295,7 +272,7 @@ def bounded_ratio_reference(rec: BoundedRecord, opts: SolverOptions,
 
 
 def bounded_update_reference(rec: BoundedRecord, max_iters: int) -> None:
-    """The update launch's plain version: the pivot from the snapshot (a
+    """The update stage: the pivot from the snapshot (a
     real one, or the redirected one when it is not an exact no-op), the
     RHS update of the flip and the flipped column negated, in place."""
     iv = rec.ints.tolist()
@@ -323,7 +300,7 @@ def bounded_update_reference(rec: BoundedRecord, max_iters: int) -> None:
 def bounded_finish_reference(rec: BoundedRecord, opts: SolverOptions,
                              stall_limit: int, max_iters: int,
                              rhs_ok: bool | None = None) -> None:
-    """The finish launch's plain version: the basis, the at-upper flags,
+    """The finish stage: the basis, the at-upper flags,
     the devex weights, the stall counter and the Bland switch, the phase
     change, the finiteness sums and the status. ``rhs_ok``, where given, is
     the finiteness of the post-step |b| sum taken in a kernel's order (else
@@ -395,7 +372,7 @@ def bounded_finish_reference(rec: BoundedRecord, opts: SolverOptions,
 def bounded_stage_reference(rec: BoundedRecord, stage: str,
                             opts: SolverOptions, stall_limit: int,
                             max_iters: int) -> None:
-    """The plain version of one launch, ``stage`` one of ``STAGES``."""
+    """One stage, ``stage`` one of ``STAGES``."""
     if stage == "price":
         bounded_price_reference(rec, opts, max_iters)
     elif stage == "ratio":
@@ -408,119 +385,6 @@ def bounded_stage_reference(rec: BoundedRecord, stage: str,
 
 def bounded_step_reference(rec: BoundedRecord, opts: SolverOptions,
                            stall_limit: int, max_iters: int) -> None:
-    """One step as the four plain stages, in the launches' order."""
+    """One step as the four plain stages, in order."""
     for stage in STAGES:
         bounded_stage_reference(rec, stage, opts, stall_limit, max_iters)
-
-
-# ---------------------------------------------------------------------------
-# the kernels
-# ---------------------------------------------------------------------------
-
-def _check(bs, opts: SolverOptions) -> None:
-    """Raise on a state the kernels do not take: a dtype other than f32 /
-    f64, a strided tableau, devex without weights, a field of the wrong
-    type or length, a tensor off the card or on another card."""
-    s = bs.s
-    T = s.T
-    suffix(T.dtype)
-    if T.dim() != 2 or not T.is_contiguous():
-        raise ValueError(f"T: expected a contiguous (m + 2, n + 1) tableau, "
-                         f"got {tuple(T.shape)} stride {T.stride()}")
-    M, N = T.shape
-    if M < 3 or N < 2 or max(M, N) >= _MAX_SIDE:
-        raise ValueError(f"tableau {M} x {N} outside 3..2^24 x 2..2^24")
-    if opts.rule == RULE_DEVEX and bs.gamma is None:
-        raise ValueError("devex pricing needs the state's gamma")
-    m, n = M - 2, N - 1
-    for name, x, dt, size in (
-            ("basis", s.basis, torch.int32, m),
-            ("col_active", s.col_active, torch.bool, n),
-            ("art_cols", s.art_cols, torch.bool, n),
-            ("at_upper", bs.at_upper, torch.bool, n),
-            ("upper", bs.upper, T.dtype, n),
-            ("gamma", bs.gamma, T.dtype, n)):
-        if x is not None and (x.dtype != dt or tuple(x.shape) != (size,)):
-            raise ValueError(f"{name}: expected {dt} ({size},), got "
-                             f"{x.dtype} {tuple(x.shape)}")
-    tensors = [*s, bs.upper, bs.at_upper]
-    if bs.gamma is not None:
-        tensors.append(bs.gamma)
-    if T.device.type != "cuda" or any(x.device != T.device
-                                      for x in tensors):
-        raise ValueError("the bounded kernels take a state on one CUDA "
-                         "device; got "
-                         f"{sorted({str(x.device) for x in tensors})}")
-
-
-def _entry(rec: BoundedRecord, opts: SolverOptions, stall_limit: int,
-           max_iters: int):
-    """(library, the entry's argument arrays) for a record of
-    ``make_record`` on one CUDA device."""
-    T = rec.T
-    tensors = [x for x in rec if x is not None]
-    if T.device.type != "cuda" or any(x.device != T.device or
-                                      not x.is_contiguous()
-                                      for x in tensors):
-        raise ValueError("the bounded kernels take a record of contiguous "
-                         "tensors on one CUDA device")
-    if opts.rule == RULE_DEVEX and rec.gamma is None:
-        raise ValueError("devex pricing needs the record's gamma")
-    M, N = T.shape
-    args = _ARGS(*(0 if x is None else x.data_ptr() for x in (
-        T, rec.basis, rec.col_active, rec.art_cols, rec.at_upper,
-        rec.upper, rec.gamma, rec.ints, rec.vals, rec.snap)))
-    iargs = _INTS(M, N, min(int(stall_limit), _INT_MAX),
-                  min(int(max_iters), _INT_MAX),
-                  int(opts.rule == RULE_DEVEX), 0)
-    tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
-                 opts.infeas_tol)
-    return lib_for(T.device), args, iargs, tols
-
-
-def enqueue_steps(rec: BoundedRecord, opts: SolverOptions, stall_limit: int,
-                  max_iters: int, nsteps: int) -> None:
-    """Enqueue ``nsteps`` steps (four launches each) on a record on the
-    card through one C call, with no host read; counted in
-    ``LAUNCHES["bounded_step"]``."""
-    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters)
-    fn = getattr(lib, f"tpulp_bounded_steps_{suffix(rec.T.dtype)}")
-    err = fn(args, iargs, tols, int(nsteps), stream_of(rec.T.device))
-    if err:
-        raise_on(lib, err, "bounded step")
-    LAUNCHES["bounded_step"] += nsteps
-
-
-def bounded_steps(bs, opts: SolverOptions, stall_limit: int,
-                  max_iters: int):
-    """The bounded walk of ``bs`` (a ``solve.bounded.BoundedState`` on one
-    CUDA device) to its exit or to ``max_iters``, four launches a step;
-    a RUNNING exit at the budget stays RUNNING. Chunks of 1, 2, 4, ... up
-    to ``CHUNK`` steps go to the card through one C call each, with one
-    host read of the record a chunk. The caller's tensors are never
-    written."""
-    _check(bs, opts)
-    rec = make_record(bs)
-    chunk = 1
-    while True:
-        iv = rec.ints.tolist()
-        if not _live(iv, max_iters):
-            break
-        enqueue_steps(rec, opts, stall_limit, max_iters, chunk)
-        chunk = min(2 * chunk, CHUNK)
-    FLIPS["entering_flips"] += iv[N_ENTER]
-    FLIPS["upper_hits"] += iv[N_UPHIT]
-    return record_state(rec, bs)
-
-
-def bounded_stage(rec: BoundedRecord, stage: str, opts: SolverOptions,
-                  stall_limit: int, max_iters: int) -> None:
-    """One launch of ``stage`` (one of ``STAGES``) on a record on the card,
-    in place: what holds each launch against its plain stage."""
-    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters)
-    iargs[5] = STAGES.index(stage)
-    fn = getattr(lib, f"tpulp_bounded_stage_{suffix(rec.T.dtype)}")
-    err = fn(args, iargs, tols, stream_of(rec.T.device))
-    if err:
-        raise_on(lib, err, f"bounded {stage}")
-    LAUNCHES["bounded_stage"] += 1

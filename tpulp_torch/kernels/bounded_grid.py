@@ -2,10 +2,8 @@
 cooperative launch (``csrc/bounded_grid.cu``), its launch plan and its
 plain version.
 
-``kernels.bounded`` runs a step of ``solve.bounded.bounded_simplex_step``
-as four stream-ordered launches, the tableau through device memory each
-step and one host enqueue a step. Here the whole walk runs in one launch
-instead: G blocks (at most one an SM) each own the structural columns
+The whole walk of ``solve.bounded.bounded_simplex_step`` runs in one
+launch: G blocks (at most one an SM) each own the structural columns
 ``[g W, min(n, (g + 1) W))`` of all M rows, price them, and combine their
 candidates in slab order after a grid barrier; the owner of the entering
 column runs the three-way ratio test and publishes the verdict and its
@@ -23,32 +21,40 @@ copies, a step reading one and writing the other), every block updating
 its share of the RHS rows and taking its share of the ratio test's rows,
 and a block keeps R rows as large as what is left (the device-vector
 plan, always streamed, with a ring of ``GRID_DEVICE_STAGES``; two more
-grid barriers a step).
+grid barriers a step). Where even a slab's rows 0-2 and that ring do not
+fit a block (slabs past 3,098 columns at f64 and 6,032 at f32: n past
+408,936 and 796,224 on 132 SMs), no row of a slab lives in shared memory
+(the wide plan): every row streams from the scratch buffer, the slab cut
+into chunks of ``GRID_WIDE_CHUNK`` columns (one a thread) and each chunk
+into tiles of TR rows, through a ring of ``GRID_WIDE_SLOTS`` tiles; the
+pivot row's entries, the devex weights and the masks are read from device
+memory one chunk at a time, the per-row vectors live in device memory as
+on the device-vector plan.
 ``bounded_grid_plan`` picks W (at least ``GRID_MIN_ENTRIES`` entries a
 slab, so that small frames take few blocks) and G, counts the kernel's
 shared memory and, past the resident slab, R and the streamed buffer; it
-refuses (``GridPlanTooLarge``) only a frame so wide that a slab's rows
-0-2 and the ring do not fit a block (past slabs of 3,098 columns at f64
-and 6,032 at f32). ``solve.bounded.bounded_route`` sends every other solo
-walk on the card here, and those to ``kernels.bounded.bounded_steps``.
+refuses no f32 or f64 frame with sides under 2^24. ``solve.bounded.
+bounded_route`` sends every solo walk on the card here.
 
 ``bounded_grid`` takes a state on one CUDA device and raises on anything
 else (CPU tensors, mixed devices, a strided tableau, a type other than f32
-and f64, devex without weights, a frame past the plan, a grid the card
-cannot hold at once; a frame and scratch past the card's memory raise
-torch's allocation error). It allocates the output state and never writes
-the caller's tensors. The entering flips and upper hits of the walk are added
-to ``kernels.bounded.FLIPS`` (one host read a walk).
+and f64, devex without weights, a frame with a side of 2^24 or more, a
+forced plan past its edge, a grid the card cannot hold at once; a frame
+and scratch past the card's memory raise torch's allocation error). It
+allocates the output state and never writes the caller's tensors. The
+entering flips and upper hits of the walk are added to
+``kernels.bounded.FLIPS`` (one host read a walk).
 
 ``bounded_grid_reference`` is the same walk cut into G slabs, in plain
-torch (the resident and streamed plans alike: the split of a slab's rows
-between shared and device memory changes no entry's arithmetic, an
-entry's update being one fma of its own pre-step value): the plain stages of ``kernels.bounded`` (pricing, whose first-index
-argmin is the slabs' candidates combined in slab order; the ratio test on
-the entering column; the update from its snapshot: the mailbox's colj and
-colf; the finish), with the finiteness sums in the kernel's order
-(``grid_sum``, ``block_sum``; the device-vector plan adds |b| as
-``grid_sum`` over slabs of ceil(m / G) rows). It equals
+torch (every plan alike: the split of a slab's rows between shared and
+device memory changes no entry's arithmetic, an entry's update being one
+fma of its own pre-step value): the plain stages of ``kernels.bounded``
+(pricing, whose first-index argmin is the slabs' candidates combined in
+slab order; the ratio test on the entering column; the update from its
+snapshot: the mailbox's colj and colf; the finish), with the finiteness
+sums in the kernel's order (``grid_sum``, ``block_sum``; the
+device-vector and wide plans add |b| as ``grid_sum`` over slabs of
+ceil(m / G) rows). It equals
 ``bounded_simplex_step`` walked step by step, bit for bit. Nothing on the
 solver's path calls it: ``solve.bounded`` runs the plain loop on CPU
 tensors and the kernels on CUDA tensors.
@@ -73,7 +79,8 @@ __all__ = ["GridPlan", "GridPlanTooLarge", "bounded_grid_plan", "plan_grid",
            "bounded_grid_reference", "grid_slabs", "grid_sum",
            "GRID_THREADS", "GRID_SMS", "GRID_MIN_ENTRIES", "GRID_SMEM_LIMIT",
            "GRID_STATIC_SMEM", "GRID_STAGES", "GRID_DEVICE_VECTOR_STAGES",
-           "GRID_RING_STAGES", "GRID_TILE_BYTES", "grid_stages"]
+           "GRID_WIDE_STAGES", "GRID_RING_STAGES", "GRID_TILE_BYTES",
+           "GRID_WIDE_CHUNK", "GRID_WIDE_SLOTS", "grid_stages"]
 
 GRID_THREADS = 512
 # the SMs of an H100 SXM: the plan's default
@@ -100,6 +107,17 @@ GRID_TILE_BYTES = 16_384
 # an NVIDIA H100 80GB HBM3 at 700 W, at chip_smoke's 8a (x), 4 slots of
 # 16 KB beat 3, 6 and 8 of them, 4 of 32 KB and 6 of 8 KB (PERF.md)
 GRID_DEVICE_STAGES = 4
+# the wide plan's chunks (csrc/bounded_grid.cu's WCH: one column a thread)
+# and its ring's slots of TR x GRID_WIDE_CHUNK entries (TR the largest
+# power of two whose tile takes at most GRID_WIDE_TILE_BYTES; a slot is
+# reloaded a tile after its store): with no row of the slab in shared
+# memory the tiles can be larger than the other plans'; on an NVIDIA H100
+# 80GB HBM3 at 700 W, at chip_smoke's 8a (z), (z64) and (z32), 4 slots of
+# 32 KB beat 6 and 8 of 16 KB, 6 of 32 KB and 3 of 64 KB
+# (tools/torch_wide_plan_sweep.py; PERF.md)
+GRID_WIDE_CHUNK = GRID_THREADS
+GRID_WIDE_SLOTS = 4
+GRID_WIDE_TILE_BYTES = 32_768
 _MAX_STAGES = 8  # csrc/bounded_grid.cu's MAX_STAGES
 # the stages that ``stage_cycles`` splits a walk into on the resident and
 # streamed plans (csrc/bounded_grid.cu's Stage; block 0's clock): the load;
@@ -129,6 +147,15 @@ GRID_DEVICE_VECTOR_STAGES = (
     "load", "price", "barrier_a", "combine_ties", "ratio_picks",
     "barriers_b", "barrier_c", "ties_fetch", "update_resident", "stream",
     "finish_rhs", "barrier_d", "store", "owner_picks")
+# the wide plan's: the device-vector plan's spans where they are the same,
+# and two of its own: "verdict" the ties' combine and the step's scalars
+# (the pivot row and the weights are the stream's, chunk by chunk);
+# "first_tile" the first chunk's pivot row entry and weight asked for and
+# column j's entries of the first tile staged
+GRID_WIDE_STAGES = (
+    "load", "price", "barrier_a", "combine_ties", "ratio_picks",
+    "barriers_b", "barrier_c", "verdict", "first_tile", "stream",
+    "finish_rhs", "barrier_d", "store", "owner_picks")
 # the mailbox: three regions of a slot a block (a step's candidates, the
 # repricing after a devex reset, the last weights' maxima) and the verdict
 _SLOT, _REGIONS = 64, 3
@@ -151,18 +178,19 @@ class GridPlan(NamedTuple):
     stages: int   # the tile ring's slots (0: resident)
     tile_rows: int  # TR, rows a streamed tile (0: resident)
     scratch: int  # bytes of the streamed rows' buffer (0: resident)
-    # where the per-row vectors live: "shared" (every block's copy) or
-    # "device" (one copy in device memory; bounded_grid only)
+    # where the per-row vectors live: "shared" (every block's copy),
+    # "device" (one copy in device memory) or "wide" (there too, and no
+    # row of the slab in shared memory); the last two bounded_grid's only
     vectors: str = "shared"
+    chunk: int = 0  # WC, the wide plan's columns a chunk (0: no chunks)
 
 
 class GridPlanTooLarge(ValueError):
     """A block's shared memory does not hold the frame's first three slab
     rows and tile ring (beside the replicated vectors, where the kernel
     keeps them there): ``solve.driver.solo_route`` then takes
-    ``rank1_steps``, and ``bounded_route`` ``bounded_steps`` (past the
-    device-vector plan's slabs of 3,098 columns at f64 and 6,032 at f32:
-    n past 408,936 and 796,224 on 132 SMs)."""
+    ``rank1_steps``; ``bounded_grid_plan`` raises it only where a plan is
+    forced past its edge (its wide plan takes every other frame)."""
 
 
 def _align(x: int) -> int:
@@ -191,6 +219,12 @@ def _smem_device(W: int, es: int, rows: int, stages: int, tile: int,
     active and artificial masks and the ring's mbarriers."""
     return (_align(rows * W * es) + stages * tile + 2 * _align(W * es)
             + _align(2 * tile_rows * es) + 2 * _align(W) + _align(8 * stages))
+
+
+def _smem_wide(es: int, stages: int, tile: int, tile_rows: int) -> int:
+    """csrc/bounded_grid.cu's smem_bytes_wide, the wide plan's block: the
+    ring, column j's entries of two tiles and the ring's mbarriers."""
+    return stages * tile + _align(2 * tile_rows * es) + _align(8 * stages)
 
 
 def _tile_rows(W: int, es: int, cap: int) -> int:
@@ -241,33 +275,43 @@ def bounded_grid_plan(M: int, N: int, dtype, sms: int = GRID_SMS,
     forced R is), "device" the device-vector plan at any frame (``rows``,
     3 to M - 1, forces its R).
 
-    Raises ``GridPlanTooLarge`` where a shared-vector plan is forced past
-    its edge, or where even the device-vector plan's rows 0-2 and ring do
-    not fit (a slab past 3,098 columns at f64 and 6,032 at f32: n past
-    408,936 and 796,224 on 132 SMs);
-    ValueError for another type, a frame outside 2^24, a grid, an R or a
-    kind out of range."""
+    Where even the device-vector plan's rows 0-2 and ring do not fit (a
+    slab past 3,098 columns at f64 and 6,032 at f32: n past 408,936 and
+    796,224 on 132 SMs), the plan keeps no row in shared memory
+    (``vectors`` "wide", ``_wide_plan``): the same W and G, every row
+    streamed in tiles of TR rows x GRID_WIDE_CHUNK columns; "wide" forces
+    it at any frame (``rows`` must then be None).
+
+    Raises ``GridPlanTooLarge`` where a shared-vector or device-vector
+    plan is forced past its edge; ValueError for another type, a frame
+    outside 2^24, a grid, an R or a kind out of range."""
     return plan_grid(M, N, dtype, sms, blocks, rows, _smem, "bounded_grid",
-                     _smem_device, vectors)
+                     _smem_device, vectors, wide=True)
 
 
 def plan_grid(M: int, N: int, dtype, sms: int, blocks: int | None,
               rows: int | None, smem, name: str, device_smem=None,
-              vectors: str | None = None) -> GridPlan:
+              vectors: str | None = None, wide: bool = False) -> GridPlan:
     """The plan of a grid walk (``bounded_grid_plan``'s rule) whose kernel
     counts a block's dynamic shared memory as ``smem(M, N, W, es, rows=M,
     stages=0, tile=0)`` does and, where it has a device-vector plan, as
     ``device_smem(W, es, rows, stages, tile, tile_rows)`` there (None: it
-    has none, and ``vectors`` stays None or "shared"); ``name`` names the
-    kernel in the refusals."""
+    has none, and ``vectors`` stays None or "shared"); ``wide``: the kernel
+    has the wide plan too, taken where the device-vector plan refuses (or
+    forced, ``vectors`` "wide"); ``name`` names the kernel in the
+    refusals."""
     es = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if es is None:
         raise ValueError(f"{name} takes float32 or float64, not {dtype}")
     if M < 3 or N < 2 or max(M, N) >= kb._MAX_SIDE:
         raise ValueError(f"frame {M} x {N} outside 3..2^24 x 2..2^24")
-    if vectors not in (None, "shared", "device") or (
-            vectors == "device" and device_smem is None):
+    if vectors not in (None, "shared", "device", "wide") or (
+            vectors == "device" and device_smem is None) or (
+            vectors == "wide" and not wide):
         raise ValueError(f"{name}: vectors={vectors!r}")
+    if vectors == "wide" and rows is not None:
+        raise ValueError(f"{name}: the wide plan keeps no row in shared "
+                         f"memory, not rows={rows}")
     n = N - 1
     if blocks is None:
         W = min(n, max(-(-n // sms), -(-GRID_MIN_ENTRIES // M)))
@@ -281,6 +325,8 @@ def plan_grid(M: int, N: int, dtype, sms: int, blocks: int | None,
         raise ValueError(f"rows={rows}: a slab keeps 3 to {M} rows in "
                          "shared memory")
     mail = _SLOT * (_REGIONS * G + 1)
+    if vectors == "wide":
+        return _wide_plan(M, W, G, es, mail)
     if vectors == "device":
         return _device_plan(M, W, G, es, rows, mail, name, device_smem)
     try:
@@ -289,7 +335,13 @@ def plan_grid(M: int, N: int, dtype, sms: int, blocks: int | None,
         # a forced split, or a kernel without the device-vector plan
         if vectors == "shared" or rows is not None or device_smem is None:
             raise
-    return _device_plan(M, W, G, es, None, mail, name, device_smem)
+    try:
+        return _device_plan(M, W, G, es, None, mail, name, device_smem)
+    except GridPlanTooLarge:
+        # a slab whose rows 0-2 and ring pass a block: the wide plan
+        if not wide:
+            raise
+    return _wide_plan(M, W, G, es, mail)
 
 
 def _shared_plan(M: int, N: int, W: int, G: int, es: int,
@@ -362,19 +414,38 @@ def _device_plan(M: int, W: int, G: int, es: int, rows: int | None,
                     mail, R, S, tr, scratch, "device")
 
 
+def _wide_plan(M: int, W: int, G: int, es: int, mail: int) -> GridPlan:
+    """The wide plan (``plan_grid``'s W and G): no row of a slab in shared
+    memory; the slab in chunks of GRID_WIDE_CHUNK columns, each an M-row
+    matrix in the scratch buffer (G regions of M x ceil(W / WC) WC
+    entries), streamed in tiles of TR rows (the largest power of two of at
+    most M rows whose tile takes at most GRID_WIDE_TILE_BYTES) through a
+    ring of GRID_WIDE_SLOTS tiles."""
+    WC = GRID_WIDE_CHUNK
+    tr = 1
+    while 2 * tr <= M and 2 * tr * WC * es <= GRID_WIDE_TILE_BYTES:
+        tr *= 2
+    S, tile = GRID_WIDE_SLOTS, tr * WC * es
+    scratch = G * M * -(-W // WC) * WC * es
+    return GridPlan(G, W, GRID_THREADS, _smem_wide(es, S, tile, tr), mail,
+                    0, S, tr, scratch, "wide", WC)
+
+
 def grid_stages(plan: GridPlan) -> tuple[str, ...]:
     """The names of ``stage_cycles``' counters on ``plan``: the last is
     the owner's clock."""
-    return GRID_DEVICE_VECTOR_STAGES if plan.vectors == "device" \
-        else GRID_STAGES
+    return {"device": GRID_DEVICE_VECTOR_STAGES,
+            "wide": GRID_WIDE_STAGES}.get(plan.vectors, GRID_STAGES)
 
 
 def _plan_ints(plan: GridPlan, M: int, N: int, dtype, devex: bool):
     es = 4 if dtype == torch.float32 else 8
+    tile = plan.tile_rows * plan.chunk * es if plan.vectors == "wide" \
+        else _align(plan.tile_rows * plan.width * es)
     return _INTS(M, N, 0, 0, int(devex), plan.blocks, plan.width,
                  plan.threads, plan.smem, plan.mail, plan.rows, plan.stages,
-                 plan.tile_rows, _align(plan.tile_rows * plan.width * es),
-                 int(plan.vectors == "device"))
+                 plan.tile_rows, tile,
+                 ("shared", "device", "wide").index(plan.vectors))
 
 
 @functools.lru_cache(maxsize=64)
@@ -400,6 +471,42 @@ def bounded_grid_occupancy(M: int, N: int, dtype, devex: bool = True,
     return _occupancy(device.index or 0, plan, M, N, dtype, devex)
 
 
+def _check(bs, opts: SolverOptions) -> None:
+    """Raise on a state the kernel does not take: a dtype other than f32 /
+    f64, a strided tableau, devex without weights, a field of the wrong
+    type or length, a tensor off the card or on another card."""
+    s = bs.s
+    T = s.T
+    suffix(T.dtype)
+    if T.dim() != 2 or not T.is_contiguous():
+        raise ValueError(f"T: expected a contiguous (m + 2, n + 1) tableau, "
+                         f"got {tuple(T.shape)} stride {T.stride()}")
+    M, N = T.shape
+    if M < 3 or N < 2 or max(M, N) >= kb._MAX_SIDE:
+        raise ValueError(f"tableau {M} x {N} outside 3..2^24 x 2..2^24")
+    if opts.rule == RULE_DEVEX and bs.gamma is None:
+        raise ValueError("devex pricing needs the state's gamma")
+    m, n = M - 2, N - 1
+    for name, x, dt, size in (
+            ("basis", s.basis, torch.int32, m),
+            ("col_active", s.col_active, torch.bool, n),
+            ("art_cols", s.art_cols, torch.bool, n),
+            ("at_upper", bs.at_upper, torch.bool, n),
+            ("upper", bs.upper, T.dtype, n),
+            ("gamma", bs.gamma, T.dtype, n)):
+        if x is not None and (x.dtype != dt or tuple(x.shape) != (size,)):
+            raise ValueError(f"{name}: expected {dt} ({size},), got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    tensors = [*s, bs.upper, bs.at_upper]
+    if bs.gamma is not None:
+        tensors.append(bs.gamma)
+    if T.device.type != "cuda" or any(x.device != T.device
+                                      for x in tensors):
+        raise ValueError("the bounded kernel takes a state on one CUDA "
+                         "device; got "
+                         f"{sorted({str(x.device) for x in tensors})}")
+
+
 def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
                  blocks: int | None = None,
                  stage_cycles: torch.Tensor | None = None,
@@ -409,13 +516,13 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
     a RUNNING exit at the budget stays RUNNING. ``blocks`` forces another
     grid, ``rows`` another split of the slabs' rows and ``vectors`` the
     plan's kind (``bounded_grid_plan``'s by default; a streamed plan
-    allocates its scratch buffer here, the device-vector plan its RHS and
-    spans too). ``stage_cycles``, an int64
+    allocates its scratch buffer here, the device-vector and wide plans
+    their RHS and spans too). ``stage_cycles``, an int64
     tensor of ``len(GRID_STAGES)`` on the card, accumulates block 0's SM
     cycles by stage (``grid_stages(plan)`` names them; a measurement, the
     kernel walks the same). Returns the
     walk's state; the caller's tensors are never written."""
-    kb._check(bs, opts)
+    _check(bs, opts)
     s = bs.s
     T = s.T
     M, N = T.shape
@@ -440,9 +547,9 @@ def bounded_grid(bs, opts: SolverOptions, stall_limit: int, max_iters: int,
     g_in = bs.gamma.contiguous() if devex else None
     g_out = torch.empty_like(g_in) if devex else None
     mail = torch.empty((plan.mail,), dtype=torch.uint8, device=dev)
-    # the mailbox's columns; the device-vector plan's two copies of the RHS
-    # and of the spans after them, and of the basis apart
-    dvec = plan.vectors == "device"
+    # the mailbox's columns; the device-vector and wide plans' two copies
+    # of the RHS and of the spans after them, and of the basis apart
+    dvec = plan.vectors in ("device", "wide")
     cols = torch.empty(((3 * M + 2 * M + 2 * m) if dvec else 3 * M,),
                        dtype=dtype, device=dev)
     bvec = torch.empty((2 * m,), dtype=torch.int32, device=dev) \
@@ -503,11 +610,12 @@ def bounded_grid_reference(bs, opts: SolverOptions, stall_limit: int,
     finish stages of
     ``kernels.bounded`` (the update from the entering column and the flip's
     column, as the kernel's mailbox holds them), the finiteness sums in the
-    kernel's order: ``vectors`` "device" takes the device-vector plan's
-    |b| sum (``grid_sum`` over G slabs of ceil(m / G) rows), "shared" the
-    other plans' (one block's). Returns (state, {"entering_flips": e,
-    "upper_hits": u}); the caller's tensors are never written."""
-    if vectors not in ("shared", "device"):
+    kernel's order: ``vectors`` "device" and "wide" take the device-vector
+    and wide plans' |b| sum (``grid_sum`` over G slabs of ceil(m / G)
+    rows), "shared" the other plans' (one block's). Returns (state,
+    {"entering_flips": e, "upper_hits": u}); the caller's tensors are never
+    written."""
+    if vectors not in ("shared", "device", "wide"):
         raise ValueError(f"bounded_grid_reference: vectors={vectors!r}")
     devex = opts.rule == RULE_DEVEX
     if devex and bs.gamma is None:
@@ -522,7 +630,7 @@ def bounded_grid_reference(bs, opts: SolverOptions, stall_limit: int,
         kb.bounded_update_reference(rec, max_iters)
         absb = rec.T[2:, -1].abs()
         rhs_ok = bool(torch.isfinite(
-            grid_sum(absb, -(-m // G), G) if vectors == "device"
+            grid_sum(absb, -(-m // G), G) if vectors != "shared"
             else block_sum(absb, GRID_THREADS)))
         kb.bounded_finish_reference(rec, opts, stall_limit, max_iters,
                                     rhs_ok=rhs_ok)

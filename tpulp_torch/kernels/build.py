@@ -156,14 +156,6 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
-    for name in ("tpulp_bounded_steps_f32", "tpulp_bounded_steps_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _I, _P]
-        fn.restype = _I
-    for name in ("tpulp_bounded_stage_f32", "tpulp_bounded_stage_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _P]
-        fn.restype = _I
     for name in ("tpulp_rank1_steps_f32", "tpulp_rank1_steps_f64",
                  "tpulp_blocked_steps_f32", "tpulp_blocked_steps_f64",
                  "tpulp_blocked_ray_batch_f32",

@@ -2,18 +2,21 @@
 // bounded_simplex_step) stepped to its exit or to max_iters in one
 // persistent cooperative launch of G blocks, each keeping a column slab of
 // the tableau in its shared memory, or, past the shared memory, the slab's
-// first R rows there and the rest streamed through device memory.
+// first R rows there and the rest streamed through device memory, or, past
+// even a slab's first three rows, every row streamed (the wide plan).
 //
 // Replaces no Pallas kernel: in tpulp the walk is XLA's compiled
 // ``lax.while_loop`` over ``bounded_simplex_step`` (tpulp/solve/bounded.py:
-// 86-276 the step, 278-307 the driver). It redesigns bounded.cu's four
+// 86-276 the step, 278-307 the driver). It takes the place of four
 // stream-ordered launches a step (price, ratio and finish on one block
 // each, the whole tableau through device memory twice a step, one host
-// enqueue a step) for every frame the card's memory holds whose slab's
-// first three rows and tile ring fit a block's shared memory
+// enqueue a step) for every frame the card's memory holds
 // (kernels/bounded_grid.py::bounded_grid_plan): past the frames whose
 // replicated vectors also fit (up to 6,284 rows at f64 with n = 2m), the
-// per-row vectors live in device memory (DVEC, below).
+// per-row vectors live in device memory (DVEC, below); past the slabs
+// whose first three rows and tile ring fit a block (3,098 columns at f64,
+// 6,032 at f32), no row of a slab does (wide_kernel, below the grid
+// kernel).
 //
 // What bounds it on the H100: the frame crosses device memory twice a walk
 // (loaded, stored); a step reads and writes the resident rows once from
@@ -47,9 +50,10 @@
 //    applied here (then a second pricing under unit weights and a barrier
 //    A'). The owner of the entering column j publishes its pre-step column
 //    j, runs the three-way ratio test on it (common.cuh's bounded_ratios
-//    and bounded_ratio's rules, each thread's candidates kept in registers
-//    between its two passes) with the replicated RHS, basis and spans, and
-//    publishes the verdict: the step's row, the kinds, the pivot element.
+//    and the plain step's tie rules, each thread's candidates kept in
+//    registers between its two passes) with the replicated RHS, basis and
+//    spans, and publishes the verdict: the step's row, the kinds, the
+//    pivot element.
 //    Grid barrier B.
 // 3. every block reads the verdict (one thread: a line every block reads
 //    is a hot spot in L2) and column j (a thread the rows it updates) in
@@ -73,7 +77,7 @@
 // not hold, the owners of fcol and of basis[0] publish those columns and a
 // third barrier (C) follows B. So the common step has two grid barriers.
 // The plain step's redirected pivot on (row 2, basis[0]) runs where it is
-// not an exact no-op, as in bounded.cu. A mailbox is written once a step
+// not an exact no-op, as in lanes.cu. A mailbox is written once a step
 // and read before its reader arrives at the next barrier, so no slot is
 // rewritten while a peer may still read it.
 //
@@ -153,9 +157,9 @@
 //
 // The frame is loaded once and stored once, with the basis, the masks, the
 // weights, the scalars and the two counters (entering flips, upper hits);
-// the host reads them once a walk. The arithmetic is bounded.cu's
-// (lanes.cu's rules): one rounding per product in the decisions, IEEE
-// division, prow = row * (1 / piv), comparisons in the tableau's type
+// the host reads them once a walk. The arithmetic is lanes.cu's: one
+// rounding per product in the decisions, IEEE division, prow = row * (1 /
+// piv), comparisons in the tableau's type
 // against tolerances rounded to it, the sums of the finiteness checks in a
 // fixed order (a block's as common.cuh's block_reduce takes it; the
 // blocks' |c| sums lane by lane in slab order, then the warp's tree;
@@ -183,7 +187,7 @@ enum Arg {
 // I_ROWS: R, the slab's rows in shared memory (M on a resident plan);
 // I_STAGES: the tile ring's slots; I_TROWS: TR, rows a tile; I_TILE: TS,
 // bytes a tile (the last three 0 on a resident plan); I_VECS: 1 where the
-// per-row vectors live in device memory (DVEC)
+// per-row vectors live in device memory (DVEC), 2 on the wide plan (R 0)
 enum Int {
   I_M, I_N, I_STALL, I_MAXIT, I_DEVEX, I_BLOCKS, I_WIDTH, I_THREADS, I_SMEM, I_MAIL, I_ROWS,
   I_STAGES, I_TROWS, I_TILE, I_VECS, I_NINTS
@@ -237,8 +241,9 @@ struct Params {
                         // (M) and of the spans (m)
   unsigned* bar;        // the grid barrier's counter, zeroed by the wrapper
   long long* cycles;    // (C_NSTAGES,) SM cycles per stage (block 0), or null
-  T* scratch;           // STREAMED: G regions of NT tiles of TS bytes
-  int* bvec;            // DVEC: the basis, two copies of m
+  T* scratch;           // STREAMED: G regions of NT tiles of TS bytes;
+                        // the wide plan: G regions of its chunks (WideSlab)
+  int* bvec;            // DVEC and the wide plan: the basis, two copies of m
   int M, N, W, stall_limit, max_iters;
   int R, S, TR;  // resident rows, the ring's slots, rows a tile (STREAMED)
   int TS;        // bytes a tile (STREAMED)
@@ -407,9 +412,10 @@ __device__ void combine_picks(unsigned char* mail, int region, Red<T>* out, T* g
   __syncthreads();
 }
 
-// common.cuh's bounded_ratio over the m rows of the block's column col
-// (col[i], the replicated RHS b[i] and the basic variables' spans ub[i],
-// all from row 2) with the same candidates (bounded_ratios) and tie rules:
+// The plain step's three-way ratio test over the m rows of the block's
+// column col (col[i], the replicated RHS b[i] and the basic variables'
+// spans ub[i], all from row 2) with the same candidates (bounded_ratios)
+// and tie rules:
 // a thread keeps the candidates of its first RCACHE rows in registers
 // between the two passes, and each pass is one reduction of two argmins by
 // keys (the lower and the upper hits; then Bland's smallest basic index and
@@ -1288,6 +1294,730 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
 }
 
 // ---------------------------------------------------------------------------
+// the wide plan (I_VECS 2): no row of a slab in shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int WCH = THREADS;  // the wide plan's columns a chunk: one a thread
+
+// The dynamic shared memory of a wide block: the ring (S tiles of TS
+// bytes), column j's entries of two tiles (2 TR) and the ring's mbarriers.
+template <typename T>
+__host__ __device__ long long smem_bytes_wide(int S, int TS, int TR) {
+  return (long long)S * TS + align16(2LL * TR * (long long)sizeof(T)) + align16(8LL * S);
+}
+
+// A block's slab on the wide plan: its region of the scratch buffer (M x
+// ceil(W / WCH) WCH entries) and its wk columns, in chunks of WCH columns;
+// chunk c (the columns [c WCH, c WCH + wc(c))) is an M x wp(c) row-major
+// matrix at c M WCH entries of the region (wp: wc rounded up to 4, so that
+// every row of it is 16-byte aligned), and a tile is TR of its rows,
+// contiguous. Entries are read through L2 (L1 is not coherent with the
+// bulk copies' writes).
+template <typename T>
+struct WideSlab {
+  T* scr;
+  int M, wk;
+
+  __device__ __forceinline__ int nc() const { return (wk + WCH - 1) / WCH; }
+  __device__ __forceinline__ int wc(int c) const { return min(WCH, wk - c * WCH); }
+  __device__ __forceinline__ int wp(int c) const { return (wc(c) + 3) & ~3; }
+  __device__ __forceinline__ T* row(int c, int i) const {
+    return scr + (long long)c * M * WCH + (long long)i * wp(c);
+  }
+  __device__ __forceinline__ T* entry(int i, int kk) const {
+    const int c = kk / WCH;
+    return row(c, i) + (kk - c * WCH);
+  }
+  __device__ __forceinline__ T at(int i, int kk) const { return __ldcg(entry(i, kk)); }
+};
+
+// Block q's slab on the wide plan.
+template <typename T>
+__device__ __forceinline__ WideSlab<T> wide_slab(const Params<T>& p, int q) {
+  const long long region = (long long)p.M * ((p.W + WCH - 1) / WCH) * WCH;
+  const int k0 = q * p.W;
+  return WideSlab<T>{p.scratch + q * region, p.M, min(p.N - 1, k0 + p.W) - k0};
+}
+
+// Tile s of a step's walk over a block's ns tiles (chunks of nt row
+// tiles), chunk-major: (chunk c, row tile t); the reverse order where not
+// forward.
+__device__ __forceinline__ void wide_tile(int s, bool forward, int nt, int ns, int& c, int& t) {
+  const int q = forward ? s : ns - 1 - s;
+  c = q / nt;
+  t = q - c * nt;
+}
+
+// The wide plan's price pass, this thread's share: its columns t, t + WCH,
+// ... of the block in turn (bounded_price_scan's entries and order: the
+// |c| sums are grid_sum's), four at a time with their loads issued first;
+// the pricing row ci, the clean-up's row di (-1: row 2 stands in, its
+// first eligible column unread), row 2's finiteness (bad2), the active and
+// artificial masks and the weights (1 where ``unit``).
+template <typename T, bool DEVEX>
+__device__ Red<T> wide_price(const WideSlab<T>& sl, const Params<T>& p, int k0, int ci, int di,
+                             bool unit, bool& bad2) {
+  constexpr int U = 4;
+  Red<T> cols = red_identity<T>(DEVEX);
+  for (int kk0 = threadIdx.x; kk0 < sl.wk; kk0 += U * THREADS) {
+    T c[U], d[U], r2[U], gm[U];
+    bool a[U], ar[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kk = kk0 + u * THREADS;
+      c[u] = d[u] = r2[u] = gm[u] = T(0);
+      a[u] = ar[u] = false;
+      if (kk >= sl.wk) continue;
+      c[u] = sl.at(ci, kk);
+      r2[u] = sl.at(2, kk);
+      d[u] = di >= 0 ? sl.at(di, kk) : r2[u];
+      a[u] = p.act_out[k0 + kk] != 0;
+      ar[u] = __ldcg(p.art_out + k0 + kk) != 0;
+      gm[u] = DEVEX && !unit ? p.gamma_out[k0 + kk] : T(1);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kk = kk0 + u * THREADS;
+      if (kk >= sl.wk) continue;
+      bounded_price_entry(cols, c[u], a[u], a[u] && !ar[u] && T(fabs(d[u])) > p.piv_tol, gm[u],
+                          k0 + kk, DEVEX, p.opt_tol);
+      bad2 = bad2 || !finite_val(r2[u]);
+    }
+  }
+  return cols;
+}
+
+// The walk on the wide plan: the device-vector plan's steps (DVEC in
+// grid_kernel: the same decisions, mailboxes, barriers, ratio test over
+// the blocks' rows, |b| sums and finish) with every row of the slab in the
+// scratch buffer (WideSlab). Thread t owns column t of each of the block's
+// chunks: its pricing entries, its pivot row entry and devex weight (read
+// from device memory at the chunk's first tile, the next chunk's asked for
+// then), its active mask and weight, whose working copies are act_out and
+// gamma_out (only their owner writes them); the artificial mask lives in
+// art_out alone (a retired flag is cleared by its row's owner; read through
+// L2). A step: the first S tiles asked for; the price pass (wide_price);
+// barrier A; the combine (and devex's repricing); the owner of j publishes
+// column j's rows 0-1 and every block its share's rows from the owner's
+// chunks, with its two ratio picks; barriers B and B' (and C); then, where
+// the step pivots, the update of every tile chunk by chunk, each entry one
+// fma of its pre-step value as on the other plans (forward on even steps
+// of the launch, backward on odd ones: the first tiles a step reads are
+// the last the previous one wrote, the ones L2 still holds); the finish
+// and barrier D. The price stays a pass of its own: an update that priced
+// the next step as it wrote the pricing row (the |c| entries kept a chunk
+// apart, so that their sum keeps the pass's order) was slower on the H100,
+// at both types. The stage clock keeps grid_kernel's counters, named by
+// kernels/bounded_grid.py's GRID_WIDE_STAGES: C_FETCH the verdict's
+// scalars, C_UPDATE the first tile's staging.
+template <typename T, bool DEVEX>
+__global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
+  __shared__ KeyRed<T> kr[4][WARPS];
+  __shared__ Red<T> comb;
+  __shared__ T comb_g;
+  __shared__ int comb_f;
+  __shared__ DvVerdict<T> dsh;
+  // b[1] and b[2] before the step's update, and the objective row after it
+  __shared__ T bsh[3];
+  __shared__ Laps<C_NSTAGES> laps;
+  extern __shared__ __align__(16) unsigned char grid_dyn[];
+  GridBarrier gb{p.bar, 0u, 1};
+  const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int M = p.M, N = p.N, W = p.W, m = M - 2, n = N - 1;
+  const int k0 = g * W;
+  const WideSlab<T> slab = wide_slab(p, g);
+  const int wk = slab.wk, nc = slab.nc();
+  const int S = p.S, TR = p.TR;
+  const long long tse = p.TS / (long long)sizeof(T);
+  // the row tiles of a chunk, the block's tiles
+  const int NT = (M + TR - 1) / TR, NS = nc * NT;
+  T* const ring = (T*)grid_dyn;
+  T* const cjs = (T*)(grid_dyn + (long long)S * p.TS);
+  unsigned long long* const mbar = (unsigned long long*)(grid_dyn + (long long)S * p.TS +
+                                                         align16(2LL * TR * (long long)sizeof(T)));
+  const T inf = pos_inf<T>();
+  T* const colJ = p.cols;
+  T* const colF = p.cols + M;
+  T* const colP = p.cols + 2 * M;
+  T* const rhsV = p.cols + 3 * M;
+  T* const ubV = p.cols + 5 * M;
+  int cur = 0;
+  const int H = (m + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int q0 = min(m, g * H), q1 = min(m, q0 + H);
+  const auto tile_bytes = [&](int c, int t) {
+    return (unsigned)(min(TR, M - t * TR) * slab.wp(c) * (int)sizeof(T));
+  };
+  if (tid == 0) {
+    laps.on = p.cycles != nullptr && g == 0;
+    laps.last = clock64();
+    for (int k = 0; k < C_NSTAGES; ++k) laps.cyc[k] = 0;
+    for (int q = 0; q < S; ++q) mbar_init(mbar + q, 1);
+    mbar_init_fence();
+  }
+
+  // ---- load: the slab into its chunks (generic writes that the bulk loads
+  // read: the proxy fence, then the barriers below), the own basic rows'
+  // vectors, the own columns' masks and weights, the scalars ----
+  for (int c = 0; c < nc; ++c) {
+    if (tid >= slab.wc(c)) continue;
+    const T* src = p.T_in + k0 + c * WCH + tid;
+    for (int i0 = 0; i0 < M; i0 += 4) {
+      T v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < M) v[u] = src[(long long)(i0 + u) * N];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < M) slab.row(c, i0 + u)[tid] = v[u];
+    }
+  }
+  __threadfence_block();
+  fence_async_global();
+  for (int q = q0 + tid; q < q1; q += THREADS) {
+    const int k = p.basis_in[q];
+    p.bvec[q] = k;
+    ubV[q] = p.upper[k];
+    rhsV[q + 2] = p.T_in[(long long)(q + 2) * N + N - 1];
+  }
+  if (g == 0 && tid < 2) rhsV[tid] = p.T_in[(long long)tid * N + N - 1];
+  for (int kk = tid; kk < wk; kk += THREADS) {
+    const int k = k0 + kk;
+    p.act_out[k] = p.act_in[k] != 0;
+    p.art_out[k] = p.art_in[k] != 0;
+    if (DEVEX) p.gamma_out[k] = p.gamma_in[k];
+    p.at_upper_out[k] = p.at_upper_in[k];
+  }
+  int phase = *p.phase_in, status = *p.status_in, niter = *p.niter_in, stuck = *p.stuck_in;
+  bool bland = *p.bland_in != 0;
+  T last_z = *p.lastz_in;
+  int n_enter = 0, n_uphit = 0;
+  int b0 = p.basis_in[0];  // basis[0], in every thread
+  __syncthreads();
+  // every basic column this block owns exactly the unit vector on its row
+  // (a warp a row of the basis)
+  bool units_bad = false;
+  for (int i = warp; i < m; i += WARPS) {
+    const int k = p.basis_in[i];
+    if (k < k0 || k >= k0 + wk) continue;
+    for (int r = lane; r < M; r += 32)
+      units_bad = units_bad || slab.at(r, k - k0) != T(r == i + 2);
+  }
+  units_bad = __syncthreads_or(units_bad) != 0;
+  // the first row whose basic column is artificial (a), the largest own
+  // weight (v)
+  Red<T> x = red_identity<T>(true);
+  for (int i = tid; i < m; i += THREADS)
+    if (p.art_in[p.basis_in[i]]) x.a = min(x.a, i);
+  if (DEVEX)
+    for (int kk = tid; kk < wk; kk += THREADS) offer(x, p.gamma_out[k0 + kk], kk, true);
+  x = key_reduce(x, true, kr[3]);
+  int ra = x.a;
+  T gmax_own = x.v;
+  bool first = true, units_ok = true;
+  // the ring: the slot of the next tile, each slot's parity, the tiles'
+  // order this step
+  int slot = 0;
+  unsigned parity = 0;
+  bool forward = true;
+  if (tid == 0) lap(&laps, C_LOAD);
+
+  while (status == ST_RUNNING && niter < p.max_iters) {
+    // the first tiles of the step's update, asked for before its decisions
+    // (the previous step's stores complete first: their rows are read
+    // generically from here on)
+    const int nload = min(S, NS);
+    if (tid == 0) {
+      stores_done();
+      fence_async_global();
+      for (int t = 0; t < nload; ++t) {
+        const int q = slot + t < S ? slot + t : slot + t - S;
+        int c, ti;
+        wide_tile(t, forward, NT, NS, c, ti);
+        tile_load(ring + q * tse, slab.row(c, ti * TR), tile_bytes(c, ti), mbar + q);
+      }
+    }
+    __syncthreads();
+    // ---- 1. price over the own columns; published; barrier A ----
+    const bool cleanup = ra != BIG_I && phase == 2;
+    const int r_d = ra != BIG_I ? ra : 0;
+    const int ci = phase == 1 ? 1 : 0, di = cleanup ? r_d + 2 : -1;
+    bool bad2 = false, unit0 = false;
+    Red<T> cols = key_reduce(wide_price<T, DEVEX>(slab, p, k0, ci, di, false, bad2), DEVEX, kr[0]);
+    if ((first || !units_ok) && b0 >= k0 && b0 < k0 + wk)
+      for (int i = tid; i < M; i += THREADS) unit0 = unit0 || slab.at(i, b0 - k0) != T(i == 2);
+    const int flags = (__syncthreads_or(bad2) ? F_ROW2_BAD : 0) |
+                      (__syncthreads_or(unit0) ? F_UNIT0_BAD : 0) |
+                      (first && units_bad ? F_UNITS_BAD : 0);
+    if (tid == 0) {
+      post(mail_slot<T>(p.mail, R_A, g), cols, gmax_own, flags);
+      lap(&laps, C_PRICE);
+    }
+    gb.sync();
+    if (tid == 0) lap(&laps, C_A);
+
+    // ---- 2. the combine; the previous step's devex reset; the ratio
+    // test over the blocks' rows; barriers B and B' ----
+    // (this step's copy of the vectors, read-only until barrier D, and the
+    // next step's, written by their owners in the finish)
+    const T* const rhsC = rhsV + cur * M;
+    T* const rhsN = rhsV + (cur ^ 1) * M;
+    const T* const ubC = ubV + cur * m;
+    T* const ubN = ubV + (cur ^ 1) * m;
+    const int* const basC = p.bvec + cur * m;
+    int* const basN = p.bvec + (cur ^ 1) * m;
+    if (tid == 0) {
+      bsh[0] = __ldcg(rhsC + 1);
+      bsh[1] = __ldcg(rhsC + 2);
+    }
+    combine_mail<T>(p.mail, R_A, DEVEX, &comb, &comb_g, &comb_f);
+    Red<T> all = comb;
+    const int aflags = comb_f;
+    if (first) units_ok = !(aflags & F_UNITS_BAD);
+    if (DEVEX && !first && comb_g > p.reset_above) {
+      // the plain step reset every weight after the previous step: price
+      // again under unit weights (the pick alone changes)
+      for (int kk = tid; kk < wk; kk += THREADS) p.gamma_out[k0 + kk] = T(1);
+      bool unused = false;
+      cols = key_reduce(wide_price<T, true>(slab, p, k0, ci, di, true, unused), true, kr[1]);
+      if (tid == 0) {
+        post(mail_slot<T>(p.mail, R_R, g), cols, T(1), 0);
+        lap(&laps, C_COMBINE);
+      }
+      gb.sync();
+      if (tid == 0) lap(&laps, C_A);
+      combine_mail<T>(p.mail, R_R, true, &comb, &comb_g, &comb_f);
+      all.v = comb.v;
+      all.i = comb.i;
+    }
+    const bool has_improving = all.a != BIG_I;
+    const bool has_elig = all.b != BIG_I;
+    const int j_price = bland ? (has_improving ? all.a : n - 1) : all.i;
+    const bool phase1_done = phase == 1 && !has_improving;
+    const bool infeasible1 = phase1_done && -bsh[0] > p.infeas_tol;
+    const bool to_phase2 = phase1_done && !infeasible1;
+    const bool pricing_pivot = has_improving && !cleanup && !phase1_done;
+    const bool retire = cleanup && !has_elig;
+    const bool crow_ok = finite_val(all.s);
+    const bool finished_opt = phase == 2 && !has_improving && !cleanup;
+    const int j = cleanup ? (has_elig ? all.b : n - 1) : j_price;
+    if (tid == 0) lap(&laps, C_COMBINE);
+    const bool do_cleanup = cleanup && has_elig;
+    {
+      // the owner of j publishes column j's rows 0-1; every block its
+      // share's rows from the owner's chunks, with its two picks, combined
+      // in block order after barrier B (region R_F); the winning kind's
+      // ties after barrier B' (region A)
+      const long long t0 = p.cycles && tid == 0 ? clock64() : 0;
+      const bool own_j = j >= k0 && j < k0 + wk;
+      const WideSlab<T> jslab = wide_slab(p, j / W);
+      const int kj = j - (j / W) * W;
+      const T t_flip = p.upper[j];
+      T lv = inf, uv = inf;
+      int li = BIG_I, ui = BIG_I;
+      bool bad = false;
+      if (own_j && tid < 2) {
+        const T c = slab.at(tid, j - k0);
+        colJ[tid] = c;
+        bad = !finite_val(c);
+      }
+      for (int q = q0 + tid; q < q1; q += THREADS) {
+        const T c = jslab.at(q + 2, kj);
+        colJ[q + 2] = c;
+        bad = bad || !finite_val(c);
+        T tl, tu;
+        bool neg;
+        bounded_ratios(c, __ldcg(rhsC + q + 2), __ldcg(ubC + q), p.piv_tol, tl, tu, neg);
+        pick(lv, li, tl, q);
+        pick(uv, ui, tu, q);
+      }
+      key_pick2(lv, li, uv, ui, kr[1]);
+      const bool any = __syncthreads_or(bad) != 0;
+      if (tid == 0) {
+        Red<T> c1;
+        c1.v = lv;
+        c1.i = li;
+        c1.s = uv;
+        c1.a = ui;
+        c1.b = BIG_I;
+        post(mail_slot<T>(p.mail, R_F, g), c1, own_j && DEVEX ? __ldcg(p.gamma_out + j) : -inf,
+             any ? 1 : 0);
+        if (p.cycles && own_j)
+          atomicAdd((unsigned long long*)p.cycles + C_OWNER,
+                    (unsigned long long)(clock64() - t0));
+        lap(&laps, C_RATIO);
+      }
+      gb.sync();
+      if (tid == 0) lap(&laps, C_B);
+      combine_picks<T>(p.mail, R_F, &comb, &comb_g, &comb_f);
+      const T t_star = nan_min(nan_min(comb.v, comb.s), t_flip);
+      const bool kind_lo = comb.v <= t_star;
+      const bool kind_up = !kind_lo && comb.s <= t_star;
+      const T gq = comb_g;
+      const int colj_bad = comb_f;
+      // the winning kind's ties: Bland's smallest basic index (bv, bi; row
+      // 0 where none ties), the first tie (fv, fi)
+      T bv = inf, fv = inf;
+      int bi = BIG_I, fi = BIG_I;
+      for (int q = q0 + tid; q < q1; q += THREADS) {
+        T tl, tu;
+        bool neg;
+        bounded_ratios(__ldcg(colJ + q + 2), __ldcg(rhsC + q + 2), __ldcg(ubC + q), p.piv_tol, tl,
+                       tu, neg);
+        const bool t = kind_lo ? tl <= t_star : (neg && tu <= t_star);
+        pick(bv, bi, t ? T(__ldcg(basC + q)) : T(BIG_I), q);
+        if (t) pick(fv, fi, T(0), q);
+      }
+      key_pick2(bv, bi, fv, fi, kr[2]);
+      if (tid == 0) {
+        Red<T> c2;
+        c2.v = bv;
+        c2.i = bi;
+        c2.s = fv;
+        c2.a = fi;
+        c2.b = BIG_I;
+        post(mail_slot<T>(p.mail, R_A, g), c2, -inf, 0);
+        lap(&laps, C_COMBINE);
+      }
+      gb.sync();
+      if (tid == 0) lap(&laps, C_B);
+      combine_picks<T>(p.mail, R_A, &comb, &comb_g, &comb_f);
+      if (tid == 0) {
+        const int r = do_cleanup ? r_d : bland ? comb.i : (comb.a != BIG_I ? comb.a : 0);
+        // this step's copies: no block writes them before barrier D
+        dsh.piv = __ldcg(colJ + r + 2);
+        dsh.brow = __ldcg(rhsC + r + 2);
+        dsh.ulv = __ldcg(ubC + r);
+        dsh.leaving = __ldcg(basC + r);
+        dsh.bd = __ldcg(basC + r_d);
+        dsh.gq = gq;
+        dsh.r = r;
+        dsh.has_ratio = finite_val(t_star);
+        dsh.kind_up = kind_up;
+        dsh.kind_flip = !kind_lo && !kind_up;
+        dsh.colj_bad = colj_bad;
+      }
+    }
+    const T u_j = p.upper[j];
+    __syncthreads();
+
+    // ---- 3. the verdict; barrier C where needed; the update ----
+    const int r = dsh.r;
+    const bool has_ratio = dsh.has_ratio != 0;
+    const bool kind_up = dsh.kind_up != 0;
+    const bool kind_flip = dsh.kind_flip != 0;
+    const T gq = dsh.gq, piv = dsh.piv;
+    const bool in_phase2 = phase == 2;
+    const bool do_price = pricing_pivot && has_ratio;
+    const bool do_pivot = do_cleanup || (do_price && !kind_flip);
+    const bool do_flip_enter = do_price && kind_flip;
+    const int leaving = dsh.leaving;
+    const T u_leave = dsh.ulv;
+    const bool do_flip = (do_price && kind_up && !cleanup) || do_flip_enter;
+    const int fcol = do_flip_enter ? j : leaving;
+    const bool unbounded = pricing_pivot && !has_ratio && in_phase2;
+    const bool failed1 = pricing_pivot && !has_ratio && !in_phase2;
+    // the update's pivot: (r + 2, j), else the plain step's redirected one
+    // on (row 2, basis[0]) unless that is an exact no-op
+    const bool noop = !(aflags & F_ROW2_BAD) && finite_val(bsh[1]) &&
+                      (units_ok || !(aflags & F_UNIT0_BAD));
+    const bool pv = do_pivot || !noop;
+    const int rg = do_pivot ? r + 2 : 2, jp = do_pivot ? j : b0;
+    const T uf = !do_flip ? T(0) : do_flip_enter ? u_j : u_leave;
+    // the pre-step columns the update reads: the pivot's (column j from the
+    // mailbox; or basis[0]: e_2 where every basic column is a unit vector)
+    // and the flip's (column j; or the basic column basis[r]: e_{r+2}
+    // likewise); else their owners publish them before barrier C
+    const bool own_p = pv && !do_pivot && !units_ok;
+    const bool own_f = fcol != j && !units_ok;
+    T cjr = do_pivot ? piv : T(1);  // the pivot element
+    if (own_p || own_f) {
+      if (own_p && b0 >= k0 && b0 < k0 + wk)
+        for (int i = tid; i < M; i += THREADS) colP[i] = slab.at(i, b0 - k0);
+      if (own_f && fcol >= k0 && fcol < k0 + wk)
+        for (int i = tid; i < M; i += THREADS) colF[i] = slab.at(i, fcol - k0);
+      gb.sync();
+      if (tid == 0) lap(&laps, C_C);
+      if (own_p) cjr = __ldcg(colP + 2);
+    }
+    const bool cj_sh = do_pivot || own_p;      // else e_2
+    const T* const cjd = own_p ? colP : colJ;  // that column
+    // column fcol, pre-step: column j (from the mailbox), fcol's owner's
+    // copy, or e_{r+2}
+    const int cf_from = fcol == j ? 2 : own_f ? 3 : 0;
+    const auto cf_at = [&](int i) -> T {
+      return cf_from == 2 ? __ldcg(colJ + i) : cf_from == 3 ? __ldcg(colF + i) : T(i == r + 2);
+    };
+    T rinv = T(1), pf = T(0), prhs = T(0);
+    if (pv) {
+      rinv = div_rn(T(1), cjr);
+      pf = mul_rn(cf_at(rg), rinv);
+      prhs = mul_rn(do_pivot ? dsh.brow : bsh[1], rinv);
+    }
+    const bool jp_own = pv && jp >= k0 && jp < k0 + wk;
+    const bool flip_own = do_flip && fcol >= k0 && fcol < k0 + wk;
+    // a pivot keeps every basic column a unit vector while column j (the
+    // blocks' flags) and 1 / pivot are finite
+    if (pv && ((do_pivot && dsh.colj_bad != 0) || !finite_val(rinv))) units_ok = false;
+    // the devex weights' largest, NaN first (x.v)
+    x = red_identity<T>(true);
+    if (tid == 0) lap(&laps, C_FETCH);
+
+    {
+      // ---- the tiles, chunk by chunk through the ring ----
+      const int jpk = jp_own ? jp - k0 : -1, fk = flip_own ? fcol - k0 : -1;
+      const bool upd = do_price && !kind_flip;
+      const T qd = div_rn(gq, mul_rn(piv, piv));
+      const T leave = is_nan(qd) ? qd : (qd < T(1) ? T(1) : qd);
+      const int nwait = pv ? NS : nload;
+      // the first chunk's pivot row entry and weight (thread t: the chunk's
+      // column t), column j's entries of the first tile's rows
+      int c_cur = -1;
+      T raw = T(0), gnext = T(1), pk = T(0);
+      if (pv) {
+        int c, t;
+        wide_tile(0, forward, NT, NS, c, t);
+        if (tid < slab.wc(c)) {
+          raw = __ldcg(slab.row(c, rg) + tid);
+          if (DEVEX) gnext = p.gamma_out[k0 + c * WCH + tid];
+        }
+        if (cj_sh && tid < TR) {
+          const int i = t * TR + tid;
+          cjs[tid] = i < M ? __ldcg(cjd + i) : T(0);
+        }
+      }
+      __syncthreads();
+      if (tid == 0) lap(&laps, C_UPDATE);
+      for (int s = 0; s < nwait; ++s) {
+        int c, t;
+        wide_tile(s, forward, NT, NS, c, t);
+        const int w = slab.wc(c);
+        if (pv && c != c_cur) {
+          // the chunk's first tile: its pivot row entry and the own
+          // column's devex weight (common.cuh's devex_weights on it), then
+          // the next chunk's asked for
+          c_cur = c;
+          pk = mul_rn(raw, rinv);
+          if (DEVEX && tid < w) {
+            const int kk = c * WCH + tid;
+            T gw = gnext;
+            if (upd) {
+              const T a = kk == jp - k0 ? T(1) : pk;
+              gw = nan_max(gw, mul_rn(mul_rn(a, a), gq));
+              if (kk == leaving - k0) gw = leave;
+            }
+            p.gamma_out[k0 + kk] = gw;
+            offer(x, gw, kk, true);
+          }
+          if (s + NT < NS) {
+            int c2, t2;
+            wide_tile(s + NT, forward, NT, NS, c2, t2);
+            if (tid < slab.wc(c2)) {
+              raw = __ldcg(slab.row(c2, rg) + tid);
+              if (DEVEX) gnext = p.gamma_out[k0 + c2 * WCH + tid];
+            }
+          }
+        }
+        // column j's entries of the next tile's rows, asked for before this
+        // tile's wait and staged after its update
+        const bool stage = pv && cj_sh && tid < TR && s + 1 < NS;
+        T cj_next = T(0);
+        if (stage) {
+          int c2, t2;
+          wide_tile(s + 1, forward, NT, NS, c2, t2);
+          const int in = t2 * TR + tid;
+          if (in < M) cj_next = __ldcg(cjd + in);
+        }
+        const int q = slot;
+        mbar_wait(mbar + q, (parity >> q) & 1u);
+        parity ^= 1u << q;
+        slot = q + 1 == S ? 0 : q + 1;
+        if (!pv) continue;  // the first tiles drained: nothing to update
+        // thread t: column t of the tile, every row (the same per-entry
+        // arithmetic as grid_kernel's)
+        T* const tile = ring + q * tse;
+        if (tid < w) {
+          const int kk = c * WCH + tid, wp = slab.wp(c), rows = min(TR, M - t * TR);
+          for (int ii = 0; ii < rows; ++ii) {
+            const int i = t * TR + ii;
+            const T cj = cj_sh ? cjs[(s & 1) * TR + ii] : T(i == 2);
+            T* e = tile + ii * wp + tid;
+            T v = i == rg ? pk : fma(-cj, pk, *e);
+            if (kk == jpk) v = T(i == rg);
+            if (kk == fk) v = -v;
+            *e = v;
+          }
+        }
+        if (stage) cjs[((s + 1) & 1) * TR + tid] = cj_next;
+        // the tile's generic writes before the bulk store reads it
+        fence_async_shared();
+        __syncthreads();
+        if (tid == 0) {
+          tile_store(slab.row(c, t * TR), tile, tile_bytes(c, t));
+          // the previous tile's slot, reloaded once its store has read it:
+          // this tile's store is not waited for
+          if (s >= 1 && s - 1 + S < NS) {
+            const int qp = q == 0 ? S - 1 : q - 1;
+            int c2, t2;
+            wide_tile(s - 1 + S, forward, NT, NS, c2, t2);
+            stores_read_but_one();
+            tile_load(ring + qp * tse, slab.row(c2, t2 * TR), tile_bytes(c2, t2), mbar + qp);
+          }
+        }
+      }
+      if (DEVEX && !pv)
+        for (int kk = tid; kk < wk; kk += THREADS) offer(x, p.gamma_out[k0 + kk], kk, true);
+      // a step that pivots nowhere: the flipped column negated in place by
+      // its owner (the ring's loads have landed; the next step's loads read
+      // the writes after the proxy fence and the step's barriers)
+      if (!pv && flip_own) {
+        for (int i = tid; i < M; i += THREADS) {
+          T* e = slab.entry(i, fk);
+          __stcg(e, -__ldcg(e));
+        }
+        fence_async_global();
+      }
+      forward = !forward;
+      if (tid == 0) lap(&laps, C_STREAM);
+    }
+
+    // ---- the finish ----
+    if (tid == 0 && flip_own) p.at_upper_out[fcol] = !p.at_upper_out[fcol];
+    if (do_pivot && r == 0) b0 = j;
+    if (to_phase2)
+      for (int kk = tid; kk < wk; kk += THREADS) {
+        const int k = k0 + kk;
+        if (DEVEX) p.gamma_out[k] = T(1);
+        p.act_out[k] = p.act_out[k] && !__ldcg(p.art_out + k);
+      }
+    {
+      // the own rows of the next copies: the RHS (row by row: column j's
+      // and column fcol's entries through L2), the basis and the spans (row
+      // r the entering column's); the retired artificial's flag; the rows'
+      // |b| sum (in block_reduce's order) and their first artificial basic
+      // row
+      const auto rhs_row = [&](int i) -> T {
+        const T b_i = __ldcg(rhsC + i);
+        const T cj = !pv ? T(0) : cj_sh ? __ldcg(cjd + i) : T(i == 2);
+        const T cf = cf_at(i);
+        const T tnf = pv ? pivot_entry(cj, pf, rg, jp, i, fcol, cf) : cf;
+        const T bi = pv ? pivot_entry(cj, prhs, rg, jp, i, N - 1, b_i) : b_i;
+        const T v = fma(-tnf, uf, bi);
+        rhsN[i] = v;
+        return v;
+      };
+      if (g == 0 && tid < 2) rhs_row(tid);
+      for (int q = q0 + tid; q < q1; q += THREADS) {
+        x.s = add_rn(x.s, T(fabs(rhs_row(q + 2))));
+        const bool in = do_pivot && q == r;
+        const int k = in ? j : __ldcg(basC + q);
+        basN[q] = k;
+        ubN[q] = in ? u_j : __ldcg(ubC + q);
+        bool a;
+        if (retire && q == r_d) {
+          p.art_out[k] = 0;
+          a = false;
+        } else {
+          a = __ldcg(p.art_out + k) != 0;
+        }
+        if (a) x.a = min(x.a, q);
+      }
+    }
+    x = key_reduce(x, true, kr[3]);
+    // the blocks' sums and first rows, combined after barrier D (the
+    // repricing's region: its next use follows barrier A); the step's
+    // objective row, updated by block 0
+    if (tid == 0) {
+      post(mail_slot<T>(p.mail, R_R, g), x, T(0), 0);
+      lap(&laps, C_FINISH);
+    }
+    gb.sync();
+    if (tid == 0) {
+      lap(&laps, C_D);
+      bsh[2] = __ldcg(rhsN + (phase == 1 ? 1 : 0));
+    }
+    const T gmax_step = x.v;
+    combine_mail<T>(p.mail, R_R, true, &comb, &comb_g, &comb_f);
+    ra = comb.a;
+    gmax_own = DEVEX && to_phase2 ? T(1) : gmax_step;
+    const bool act = do_pivot || do_flip_enter;
+    const T z = -bsh[2];
+    if (do_price && act) {
+      stuck = sub_rn(last_z, z) > p.degen_tol ? 0 : stuck + 1;
+      last_z = z;
+    }
+    bland = bland || stuck >= p.stall_limit;
+    if (to_phase2) {
+      phase = 2;
+      stuck = 0;
+      last_z = inf;
+    }
+    const bool finite_ok = finite_val(z) && finite_val(comb.s) && crow_ok;
+    status = !finite_ok               ? ST_NUMERIC
+             : infeasible1 || failed1 ? ST_INFEASIBLE
+             : unbounded              ? ST_UNBOUNDED
+             : finished_opt           ? ST_OPTIMAL
+                                      : ST_RUNNING;
+    niter += act;
+    n_enter += do_flip_enter;
+    n_uphit += do_pivot && do_flip;
+    first = false;
+    cur ^= 1;
+    if (tid == 0) lap(&laps, C_FINISH);
+  }
+
+  // ---- the last step's devex reset on the grid's largest weight ----
+  if (DEVEX && !first) {
+    if (tid == 0) post(mail_slot<T>(p.mail, R_F, g), red_identity<T>(true), gmax_own, 0);
+    gb.sync();
+    combine_mail<T>(p.mail, R_F, true, &comb, &comb_g, &comb_f);
+    if (comb_g > p.reset_above)
+      for (int kk = tid; kk < wk; kk += THREADS) p.gamma_out[k0 + kk] = T(1);
+  }
+
+  // ---- write back: the slab (the masks and weights are in place), the
+  // RHS and the basis from the last copies, the scalars ----
+  if (tid == 0) {
+    stores_done();
+    fence_async_global();
+  }
+  __syncthreads();
+  for (int c = 0; c < nc; ++c) {
+    if (tid >= slab.wc(c)) continue;
+    T* dst = p.T_out + k0 + c * WCH + tid;
+    for (int i0 = 0; i0 < M; i0 += 4) {
+      T v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < M) v[u] = __ldcg(slab.row(c, i0 + u) + tid);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < M) dst[(long long)(i0 + u) * N] = v[u];
+    }
+  }
+  for (int q = q0 + tid; q < q1; q += THREADS) {
+    p.T_out[(long long)(q + 2) * N + N - 1] = __ldcg(rhsV + cur * M + q + 2);
+    p.basis_out[q] = __ldcg(p.bvec + cur * m + q);
+  }
+  if (g == 0) {
+    if (tid < 2) p.T_out[(long long)tid * N + N - 1] = __ldcg(rhsV + cur * M + tid);
+    if (tid == 0) {
+      p.ints_out[O_PHASE] = phase;
+      p.ints_out[O_STATUS] = status;
+      p.ints_out[O_NITER] = niter;
+      p.ints_out[O_STUCK] = stuck;
+      p.ints_out[O_N_ENTER] = n_enter;
+      p.ints_out[O_N_UPHIT] = n_uphit;
+      *p.bland_out = bland;
+      *p.lastz_out = last_z;
+    }
+  }
+  if (tid == 0 && laps.on) {
+    lap(&laps, C_STORE);
+    for (int k = 0; k < C_NSTAGES; ++k) p.cycles[k] += laps.cyc[k];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1358,7 +2088,15 @@ bool plan_ok(const int* in) {
   if (M < 3 || N < 2 || W < 1 || G < 1 || G > THREADS || in[I_THREADS] != THREADS)
     return false;
   if ((long long)G != ((long long)N - 1 + W - 1) / W) return false;
-  if ((long long)in[I_MAIL] != mail_bytes(G) || in[I_VECS] < 0 || in[I_VECS] > 1) return false;
+  if ((long long)in[I_MAIL] != mail_bytes(G) || in[I_VECS] < 0 || in[I_VECS] > 2) return false;
+  if (in[I_VECS] == 2) {
+    // the wide plan: no row in shared memory, a ring of at least two slots
+    // of TR x WCH entries
+    const int S = in[I_STAGES], TR = in[I_TROWS];
+    return in[I_ROWS] == 0 && S >= 2 && S <= MAX_STAGES && TR >= 1 && TR <= THREADS &&
+           (TR & (TR - 1)) == 0 && (long long)in[I_TILE] == (long long)TR * WCH * sizeof(T) &&
+           (long long)in[I_SMEM] == smem_bytes_wide<T>(S, in[I_TILE], TR);
+  }
   if (in[I_VECS])
     return streamed_ok(in, sizeof(T)) &&
            (long long)in[I_SMEM] ==
@@ -1378,33 +2116,45 @@ bool pointers_ok(const Params<T>& p, bool devex, bool dvec) {
          (p.R == p.M || p.scratch) && (!dvec || p.bvec);
 }
 
+// The instantiation of a plan: the wide plan's kernel (I_VECS 2), else
+// grid_kernel's for the kind of plan, Dantzig or devex.
+template <typename T>
+void (*kernel_of(const int* in))(Params<T>) {
+  const bool devex = in[I_DEVEX] != 0, streamed = in[I_ROWS] < in[I_M];
+  if (in[I_VECS] == 2) return devex ? wide_kernel<T, true> : wide_kernel<T, false>;
+  if (in[I_VECS] == 1)
+    return devex ? grid_kernel<T, true, true, true> : grid_kernel<T, false, true, true>;
+  if (streamed)
+    return devex ? grid_kernel<T, true, true, false> : grid_kernel<T, false, true, false>;
+  return devex ? grid_kernel<T, true, false, false> : grid_kernel<T, false, false, false>;
+}
+
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor of the instantiation at
 // smem bytes of dynamic shared memory, after raising its limit to them
-template <typename T, bool DEVEX, bool STREAMED, bool DVEC>
-int occupancy_of(int smem, int* blocks) {
-  cudaError_t e = cudaFuncSetAttribute((const void*)grid_kernel<T, DEVEX, STREAMED, DVEC>,
+template <typename T>
+int occupancy_of(void (*kernel)(Params<T>), int smem, int* blocks) {
+  cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, grid_kernel<T, DEVEX, STREAMED, DVEC>, THREADS, (size_t)smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, (size_t)smem);
   return (int)e;
 }
 
-template <typename T, bool DEVEX, bool STREAMED, bool DVEC>
-int launch_walk(const Params<T>& p, int G, int smem, cudaStream_t s) {
+template <typename T>
+int launch_walk(void (*kernel)(Params<T>), const Params<T>& p, int G, int smem, cudaStream_t s) {
   int dev = 0, coop = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return (int)cudaErrorNotSupported;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int err = occupancy_of<T, DEVEX, STREAMED, DVEC>(smem, &occ);
+  const int err = occupancy_of<T>(kernel, smem, &occ);
   if (err) return err;
   if (occ < 1 || G > occ * sms) return (int)cudaErrorCooperativeLaunchTooLarge;
   Params<T> q = p;
   void* args[] = {&q};
-  e = cudaLaunchCooperativeKernel((const void*)grid_kernel<T, DEVEX, STREAMED, DVEC>, dim3(G),
-                                  dim3(THREADS), args, (size_t)smem, s);
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G), dim3(THREADS), args,
+                                  (size_t)smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1413,32 +2163,14 @@ template <typename T>
 int bounded_grid(const long long* a, const int* in, const double* tol, void* stream) {
   if (!plan_ok<T>(in)) return (int)cudaErrorInvalidValue;
   const Params<T> p = make_params<T>(a, in, tol);
-  const bool devex = in[I_DEVEX] != 0, streamed = in[I_ROWS] < in[I_M];
-  if (!pointers_ok(p, devex, in[I_VECS] != 0)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int G = in[I_BLOCKS], smem = in[I_SMEM];
-  if (in[I_VECS])
-    return devex ? launch_walk<T, true, true, true>(p, G, smem, s)
-                 : launch_walk<T, false, true, true>(p, G, smem, s);
-  if (streamed)
-    return devex ? launch_walk<T, true, true, false>(p, G, smem, s)
-                 : launch_walk<T, false, true, false>(p, G, smem, s);
-  return devex ? launch_walk<T, true, false, false>(p, G, smem, s)
-               : launch_walk<T, false, false, false>(p, G, smem, s);
+  if (!pointers_ok(p, in[I_DEVEX] != 0, in[I_VECS] != 0)) return (int)cudaErrorInvalidValue;
+  return launch_walk<T>(kernel_of<T>(in), p, in[I_BLOCKS], in[I_SMEM], (cudaStream_t)stream);
 }
 
 template <typename T>
 int bounded_grid_occupancy(const int* in, int* blocks) {
   if (!plan_ok<T>(in) || !blocks) return (int)cudaErrorInvalidValue;
-  const bool devex = in[I_DEVEX] != 0, streamed = in[I_ROWS] < in[I_M];
-  if (in[I_VECS])
-    return devex ? occupancy_of<T, true, true, true>(in[I_SMEM], blocks)
-                 : occupancy_of<T, false, true, true>(in[I_SMEM], blocks);
-  if (streamed)
-    return devex ? occupancy_of<T, true, true, false>(in[I_SMEM], blocks)
-                 : occupancy_of<T, false, true, false>(in[I_SMEM], blocks);
-  return devex ? occupancy_of<T, true, false, false>(in[I_SMEM], blocks)
-               : occupancy_of<T, false, false, false>(in[I_SMEM], blocks);
+  return occupancy_of<T>(kernel_of<T>(in), in[I_SMEM], blocks);
 }
 
 }  // namespace bgr

@@ -1,17 +1,17 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
-// fma.cu, lanes.cu, bounded.cu, rank1.cu, blocked.cu, rank1_cluster.cu and,
+// fma.cu, lanes.cu, rank1.cu, blocked.cu, rank1_cluster.cu and,
 // through grid.cuh, the grid walks): the grid barrier and the
 // order-preserving keys of the cooperative kernels (inner_block.cu, the
 // grid walks, lanes.cu's lane_primal and lane_bounded) with a warp's share
 // of a reduction by keys, exact-rounding arithmetic, the (value, index)
 // comparison whose ties go to the smallest index, the block-wide
 // reductions of the single-block simplex loops
-// (lanes.cu, bounded.cu, rank1.cu, blocked.cu): torch's NaN-first
+// (lanes.cu, rank1.cu, blocked.cu): torch's NaN-first
 // argmin/argmax with first-index ties, two first-index minima and a sum in
-// a fixed tree, in one pass; and what the stream-ordered walks (bounded.cu,
-// rank1.cu, blocked.cu) and the lane kernels share: the record's status
+// a fixed tree, in one pass; and what the stream-ordered walks (rank1.cu,
+// blocked.cu) and the lane kernels share: the record's status
 // gate, the clean-up scan, the ratio test over one column, the bounded
-// step's pricing and three-way ratio test (bounded.cu, lanes.cu), the
+// step's pricing scan and ratio candidates (lanes.cu, bounded_grid.cu), the
 // pivot's snapshot (with the redirected no-op pivot), the pivoted entry
 // and the devex weights.
 #pragma once
@@ -248,7 +248,7 @@ __device__ __forceinline__ T warp_tree_sum(T s) {
 }
 
 // ---------------------------------------------------------------------------
-// the stream-ordered walks (bounded.cu, rank1.cu, blocked.cu)
+// the stream-ordered walks (rank1.cu, blocked.cu)
 // ---------------------------------------------------------------------------
 
 // The walk records open with the same int32 fields: phase, status, niter.
@@ -320,7 +320,7 @@ __device__ int ratio_row(const T* col, long long cs, const T* b, long long bs, c
 }
 
 // ---------------------------------------------------------------------------
-// the bounded-variable step (bounded.cu's launches, lanes.cu's lane_bounded)
+// the bounded-variable step (lanes.cu's lane_bounded, bounded_grid.cu)
 // ---------------------------------------------------------------------------
 
 // Pricing of solve/bounded.py::bounded_simplex_step over the n columns of
@@ -328,40 +328,41 @@ __device__ int ratio_row(const T* col, long long cs, const T* b, long long bs, c
 // frame, which the results name): Dantzig's NaN-first argmin of c_eff (v,
 // i), or devex's argmax of c^2 / gamma over the improving columns; the
 // first improving column (a); the first column eligible for the clean-up
-// pivot on row rowd (b); the sum of |crow| over the active columns (s).
-// This thread's share (bounded_price_scan), then the block's (returned to
-// every thread by bounded_price). crow's entries are cs apart, rowd's cd
-// apart (cs where cd is negative).
+// pivot on row rowd (b); the sum of |crow| over the active columns (s):
+// this thread's share. crow's entries are cs apart, rowd's cd apart (cs
+// where cd is negative).
+// One column k of the scan: its pricing entry c, whether it is active (a)
+// and eligible for the clean-up pivot (elig: active, not artificial, its
+// entry on rowd above piv_tol), its devex weight (read where devex).
+template <typename T>
+__device__ __forceinline__ void bounded_price_entry(Red<T>& cols, T c, bool a, bool elig,
+                                                    T gamma, int k, bool devex, T opt_tol) {
+  const T inf = pos_inf<T>();
+  const T c_eff = a ? c : inf;
+  const bool improving = c_eff < -opt_tol;
+  if (improving) cols.a = min(cols.a, k);
+  if (elig) cols.b = min(cols.b, k);
+  if (a) cols.s = add_rn(cols.s, T(fabs(c)));
+  if (devex)
+    offer(cols, improving ? div_rn(mul_rn(c, c), gamma) : -inf, k, true);
+  else
+    offer(cols, c_eff, k, false);
+}
+
 template <typename T>
 __device__ Red<T> bounded_price_scan(const T* crow, const T* rowd, const unsigned char* act,
                                      const unsigned char* art, const T* gamma, int n,
                                      bool devex, T opt_tol, T piv_tol, long long cs = 1,
                                      int k0 = 0, long long cd = -1) {
-  const T inf = pos_inf<T>();
   const long long ds = cd < 0 ? cs : cd;
   Red<T> cols = red_identity<T>(devex);
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     const bool a = act[k] != 0;
-    const T c = crow[k * cs];
-    const T c_eff = a ? c : inf;
-    const bool improving = c_eff < -opt_tol;
-    if (improving) cols.a = min(cols.a, k0 + k);
-    if (a && !art[k] && T(fabs(rowd[k * ds])) > piv_tol) cols.b = min(cols.b, k0 + k);
-    if (a) cols.s = add_rn(cols.s, T(fabs(c)));
-    if (devex)
-      offer(cols, improving ? div_rn(mul_rn(c, c), gamma[k]) : -inf, k0 + k, true);
-    else
-      offer(cols, c_eff, k0 + k, false);
+    bounded_price_entry(cols, crow[k * cs], a,
+                        a && !art[k] && T(fabs(rowd[k * ds])) > piv_tol,
+                        devex ? gamma[k] : T(1), k0 + k, devex, opt_tol);
   }
   return cols;
-}
-
-template <typename T>
-__device__ Red<T> bounded_price(const T* crow, const T* rowd, const unsigned char* act,
-                                const unsigned char* art, const T* gamma, int n, bool devex,
-                                T opt_tol, T piv_tol, Red<T>* scratch) {
-  return block_reduce(bounded_price_scan(crow, rowd, act, art, gamma, n, devex, opt_tol, piv_tol),
-                      scratch, devex);
 }
 
 // A row's candidates over the entering column (its entry c, its RHS b, its
@@ -380,53 +381,6 @@ struct BoundedRatio {
   bool has_ratio, kind_up, kind_flip;
   int r_price;
 };
-
-// The three-way ratio test of bounded_simplex_step over column j of the m
-// rows below the two objective rows of tab (row stride N, the RHS in
-// column N - 1, the basic variables' spans upper[basis[i]]) and the
-// entering variable's own span upper[j]: the minima of the lower and the
-// upper hits (NaN-propagating, as torch's min); on exact ties a lower hit,
-// then an upper hit, then the flip; the leaving row among the winning
-// kind's ties, the first or Bland's smallest basic index (row 0 where none
-// ties, as torch's argmax / argmin). Returned to every thread of the block.
-template <typename T>
-__device__ BoundedRatio bounded_ratio(const T* tab, int N, int m, int j, const int* basis,
-                                      const T* upper, T piv_tol, bool bland, Red<T>* scratch) {
-  Red<T> lo = red_identity<T>(false), up = red_identity<T>(false);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const T* row = tab + (long long)(i + 2) * N;
-    T tl, tu;
-    bool neg;
-    bounded_ratios(row[j], row[N - 1], upper[basis[i]], piv_tol, tl, tu, neg);
-    offer(lo, tl, i, false);
-    offer(up, tu, i, false);
-  }
-  lo = block_reduce(lo, scratch, false);
-  up = block_reduce(up, scratch, false);
-  const T t_star = nan_min(nan_min(lo.v, up.v), upper[j]);
-  const bool kind_lo = lo.v <= t_star;
-  const bool kind_up = !kind_lo && up.v <= t_star;
-
-  // the winning kind's ties: the first (a), Bland's smallest basic index
-  // (v, i); none ties (a NaN t_star): row 0, as torch's argmax/argmin
-  Red<T> tie = red_identity<T>(false);
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const T* row = tab + (long long)(i + 2) * N;
-    T tl, tu;
-    bool neg;
-    bounded_ratios(row[j], row[N - 1], upper[basis[i]], piv_tol, tl, tu, neg);
-    const bool t = kind_lo ? tl <= t_star : (neg && tu <= t_star);
-    if (t) tie.a = min(tie.a, i);
-    offer(tie, t ? T(basis[i]) : T(BIG_I), i, false);
-  }
-  tie = block_reduce(tie, scratch, false);
-  BoundedRatio out;
-  out.has_ratio = finite_val(t_star);
-  out.kind_up = kind_up;
-  out.kind_flip = !kind_lo && !kind_up;
-  out.r_price = bland ? tie.i : (tie.a != BIG_I ? tie.a : 0);
-  return out;
-}
 
 // The pivot of a step's update on the (M, N) tableau: (r + 2, j) when the
 // step pivots; otherwise the plain step's redirected pivot on (row 2,

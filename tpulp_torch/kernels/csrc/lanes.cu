@@ -94,7 +94,7 @@
 // whose column and 1 / pivot are finite) the flip's column and basis[0]'s
 // are known without a read, so the row's thread computes its RHS whole;
 // otherwise the rows snapshot both columns behind a barrier. Like
-// bounded.cu it skips the plain step's redirected pivot on (row 2,
+// bounded_grid.cu it skips the plain step's redirected pivot on (row 2,
 // basis[0]) where that is an exact no-op (it could change only a zero's
 // sign); elsewhere it runs it.
 

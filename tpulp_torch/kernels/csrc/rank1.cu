@@ -20,7 +20,7 @@
 // their block reductions; at the small frames the launches themselves and
 // the host's enqueue set the pace.
 //
-// Design: bounded.cu's. The step is cut at its global dependencies (the
+// Design: the step is cut at its global dependencies (the
 // entering column, the leaving row, the pivot) into ordinary launches; the
 // stream's order is the barrier between them, so no launch is cooperative.
 // - scan (the grid; enqueued for greatest-increase and devex walks only):

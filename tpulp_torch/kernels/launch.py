@@ -16,8 +16,7 @@ _SELECTED = threading.local()
 
 # kernel launches per wrapper; a wrapper counts where it launches its
 # kernel and nowhere else ("lane_*" one launch each for every lane of a
-# batch, "bounded_step" counts steps of four launches,
-# "rank1_step" steps of four or five, "rank1_cluster", "rank1_grid" and
+# batch, "rank1_step" steps of four or five, "rank1_cluster", "rank1_grid" and
 # "bounded_grid" walks (one launch each), "rank1_cluster_lanes" one launch
 # each for every lane of a batch, "blocked_step" pivot slots of six,
 # "blocked_cluster" and "blocked_grid" blocks of K slots (one launch each)
@@ -27,8 +26,7 @@ _SELECTED = threading.local()
 # lane of a sharded pivot, "shard_vectors" one each a rank-K sharded pivot)
 LAUNCHES = {"fused_flush": 0, "blocked_inner_block": 0, "fused_fma": 0,
             "lane_dual": 0, "lane_primal": 0, "lane_bounded": 0,
-            "bounded_step": 0, "bounded_grid": 0,
-            "bounded_stage": 0, "rank1_step": 0, "rank1_stage": 0,
+            "bounded_grid": 0, "rank1_step": 0, "rank1_stage": 0,
             "rank1_cluster": 0, "rank1_cluster_lanes": 0, "rank1_grid": 0,
             "blocked_step": 0,
             "blocked_ray": 0,

@@ -17,12 +17,10 @@ infinite spans, so the two-phase layout of ``core/state.py`` is unchanged.
 ``bounded_route`` chooses: ``kernels.bounded_grid.bounded_grid`` (the
 whole walk in one cooperative launch, the tableau's column slabs in the
 SMs' shared memory, or past it their first rows there and the rest
-streamed through device memory, and past 6,284 rows at f64 and 10,800 at
-f32 (with n = 2m) the per-row vectors in device memory too) wherever
-``bounded_grid_plan`` holds, else ``kernels.bounded.bounded_steps`` (four
-hand-written launches a step) for the frames too wide for even the
-device-vector plan (slabs past 3,098 columns at f64 and 6,032 at f32: n
-past 408,936 and 796,224 on 132 SMs); on CPU tensors it
+streamed through device memory, past 6,284 rows at f64 and 10,800 at f32
+(with n = 2m) the per-row vectors in device memory too, and past slabs of
+3,098 columns at f64 and 6,032 at f32 (n past 408,936 and 796,224 on 132
+SMs) every row of a slab streamed, the wide plan); on CPU tensors it
 runs this step in the chunked Python loop of ``solve/driver.py``
 (``run_simplex_bounded_reference``; one host read of the status per
 chunk). ``run_simplex_bounded_batch`` runs every lane of a
@@ -40,10 +38,9 @@ import numpy as np
 import torch
 
 from ..core.state import RULE_DEVEX, SimplexState, SolverOptions, Status
-from ..kernels.bounded import BIG_I, DEVEX_RESET_ABOVE, bounded_steps
-from ..kernels.bounded_grid import (GRID_SMS, GridPlanTooLarge,
-                                    bounded_grid, bounded_grid_occupancy,
-                                    bounded_grid_plan)
+from ..kernels.bounded import BIG_I, DEVEX_RESET_ABOVE
+from ..kernels.bounded_grid import (GRID_SMS, bounded_grid,
+                                    bounded_grid_occupancy, bounded_grid_plan)
 from ..kernels.fma import fused_fma
 from ..kernels.launch import on_cpu, sm_count
 from .driver import (finish, first_true, pivot_update, put, run_chunked,
@@ -297,20 +294,15 @@ def bounded_route(M: int, N: int, dtype, sms: int = GRID_SMS,
                   device: torch.device | None = None,
                   devex: bool = True) -> str:
     """The kernel that runs a solo bounded walk of an (M, N) tableau of
-    ``dtype`` on a card of ``sms`` SMs: "bounded_grid" where
-    ``bounded_grid_plan`` holds (resident, streamed, or with the per-row
-    vectors in device memory), "bounded_step" (four launches a step) where
-    it refuses the frame as too wide for even the device-vector plan
-    (``GridPlanTooLarge``: a slab past 3,098 columns at f64, 6,032 at
-    f32). With ``device`` (a CUDA device) the grid's occupancy there is
-    asked (for devex's instantiation or Dantzig's), and a grid that the
-    card cannot hold raises RuntimeError. Raises the plan's other
-    refusals: a type other than f32 and f64, a frame out of range
-    (ValueError)."""
-    try:
-        plan = bounded_grid_plan(M, N, dtype, sms)
-    except GridPlanTooLarge:  # rows 0-2 and the ring past a block's
-        return "bounded_step"
+    ``dtype`` on a card of ``sms`` SMs: "bounded_grid", on the plan that
+    ``bounded_grid_plan`` picks (resident, streamed, with the per-row
+    vectors in device memory, or wide), for every f32 and f64 frame. With
+    ``device`` (a CUDA device) the grid's occupancy there is asked (for
+    devex's instantiation or Dantzig's), and a grid that the card cannot
+    hold raises RuntimeError: nothing else runs the walk on the card.
+    Raises the plan's refusals: a type other than f32 and f64, a frame out
+    of range (ValueError)."""
+    plan = bounded_grid_plan(M, N, dtype, sms)
     if device is not None and torch.device(device).type == "cuda" and \
             bounded_grid_occupancy(M, N, dtype, devex, device) < 1:
         raise RuntimeError(f"bounded_grid: the card holds no block of "
@@ -323,12 +315,10 @@ def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
                         ) -> BoundedState:
     """Run the bounded-variable driver to termination or to
     ``opts.max_iters`` (single problem); ``RULE_DEVEX`` prices with devex
-    weights. On CUDA tensors the walk runs on ``bounded_route``'s kernel:
-    ``bounded_grid`` (one launch a walk) where its plans hold, else the
-    four-launch step ``bounded_steps`` for the frames too wide for them (a
-    strided tableau is handed to either contiguous; a grid the card cannot
-    hold, a build or a launch failure raises); on CPU tensors in the plain
-    loop."""
+    weights. On CUDA tensors the walk runs on ``bounded_route``'s kernel,
+    ``bounded_grid`` (one launch a walk; a strided tableau is handed to it
+    contiguous; a grid the card cannot hold, a build or a launch failure
+    raises); on CPU tensors in the plain loop."""
     if opts is None:
         opts = SolverOptions.for_dtype(bs.s.T.dtype)
     bs = _with_gamma(bs, opts)
@@ -338,10 +328,9 @@ def run_simplex_bounded(bs: BoundedState, opts: SolverOptions | None = None
     T = bs.s.T.contiguous()
     bs = bs._replace(s=bs.s._replace(T=T))
     M, N = T.shape
-    run = bounded_grid if bounded_route(
-        M, N, T.dtype, sm_count(T.device), T.device,
-        opts.rule == RULE_DEVEX) == "bounded_grid" else bounded_steps
-    return _finish(run(bs, opts, stall_limit, opts.max_iters))
+    bounded_route(M, N, T.dtype, sm_count(T.device), T.device,
+                  opts.rule == RULE_DEVEX)
+    return _finish(bounded_grid(bs, opts, stall_limit, opts.max_iters))
 
 
 def run_simplex_bounded_batch(bs: BoundedState,
