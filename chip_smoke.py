@@ -27,28 +27,32 @@ does not reach the engines' products, and runs the kernel engine on the
 bench instance.
 Phase 5c drives the solo walks on their kernels: ``solve_lp(driver=
 "auto")`` on phase 7c's 256 x 512 LP (one ``rank1_cluster`` launch a walk,
-no ``rank1_step`` and no FMA launch) and on two artificial LPs that auto
-prices with devex (one unbounded, one optimal with no FMA launch), the
-walks held in every field at f32 and f64 against their plain versions
+no other rank-1 kernel and no FMA launch) and on two artificial LPs that
+auto prices with devex (one unbounded, one optimal with no FMA launch),
+the walks held in every field at f32 and f64 against their plain versions
 (``rank1_cluster_reference`` on the cluster route; the plain loop on the
-lane routes) and, on the cluster route, against ``rank1_steps``' walk on
-the same frame, timed beside it in turns (Dantzig, devex past its
+lane and grid routes) and timed on the card (Dantzig, devex past its
 ray-scan and probe ticks, Bland, the greatest increase and largest-pivot
 ties on a resident frame, where ``lane_primal`` runs the walk at B = 1, and
-on the 258 x 769 frame), each of the rank-1 step's launches against its
-plain stage (a clean-up, a phase change with its devex reset, both devex
-ticks, a greatest-increase step, a dual pivot and a dual exit), the warm
-re-solves (``lane_dual`` at B = 1 on a resident frame, the cluster's dual
-walk on the 258 x 769 frame, ``rank1_grid``'s on phase 5's 1538 x 3073 one
-and on a 514 x 1537 one), ``solve_lp(driver="rank1")`` on phase 5's LP
-(one ``rank1_grid`` launch, streamed at f64) and the refreshed rung's
-rank-1 segments; each grid walk is held whole against ``rank1_steps``' and
-over a window against ``rank1_grid_reference`` at f32 and f64, with 210
-small grid walks at forced splits; ``rank1_step`` runs alone past the
-grid's plan (a 10002 x 10513 frame). It prints the cluster and grid plans,
-their occupancy and stages, times the grid and the rank-1 step by launch
-in turns and the plain step, and solves a bounded state whose tableau is
-a strided view.
+on the 258 x 769 frame), the warm re-solves (``lane_dual`` at B = 1 on a
+resident frame, the cluster's dual walk on the 258 x 769 frame,
+``rank1_grid``'s on phase 5's 1538 x 3073 one and on a 514 x 1537 one),
+``solve_lp(driver="rank1")`` on phase 5's LP (one ``rank1_grid`` launch,
+streamed at f64) and the refreshed rung's rank-1 segments; each grid walk
+is held whole against the plain walk and over a window against
+``rank1_grid_reference`` at f32 and f64, with small grid walks at forced
+splits and on the device-vector and wide plans forced, and the grid's
+card tests (tests/test_torch_rank1_grid_card.py) in a pytest process.
+Past the grid's replicated vectors, one ``rank1_grid`` launch a walk
+through ``run_simplex``, ``run_simplex_devex`` and ``run_dual_simplex``:
+(x) and its warm dual walk (xd) at 10002 x 10513 f64 and (x32) at 16002 x
+16513 f32 on the device-vector plan, (zr) at 18 x 1,048,593 f64 (primal,
+devex, dual) and (zr32) at f32 on the wide plan, each held to the plain
+walk in every field and timed by stage; and (zs), ``solve_lp(warm_start=)``
+on an 18 x 200,017 LP whose moved RHS takes the dual walk on the
+device-vector plan, certified optimal. It prints the cluster and grid
+plans, their occupancy and stages, times the grid by launch and the plain
+step, and solves a bounded state whose tableau is a strided view.
 Phase 5d drives the solo rank-K blocked engine on its kernels (where a
 cluster holds a block's eta factors, one ``blocked_cluster`` launch a
 block of 64 slots, else ``blocked_step``'s six launches a slot; B1's flush
@@ -948,8 +952,6 @@ SOLO_RESIDENT_M, SOLO_RESIDENT_N = 40, 80
 SOLO_SOLVES = tuple(f"{case}_{dt}" for case in ("a", "b", "b_optimal", "e",
                                                 "e_deep", "g")
                     for dt in ("float64", "float32"))
-# the steps timed by launch (at most), after a few untimed ones
-SOLO_TIMED_STEPS, SOLO_ADVANCE = 32, 8
 # (c): Bland's walk on the 258 x 769 frame runs past 10,000 pivots; it is
 # held over its first steps
 SOLO_BLAND_WINDOW = 1024
@@ -997,14 +999,12 @@ def solo_plain(walk: str, state, opts):
 def solo_kernel(walk: str, state, opts, route: str):
     """The kernels' walk through the solo drivers (``run_simplex``,
     ``run_dual_simplex``; devex through the route's wrapper,
-    ``rank1_cluster``, ``rank1_grid`` or ``rank1_steps``, which
-    ``run_simplex_devex`` calls, for its weights): (state, weights,
-    seconds, launches)."""
+    ``rank1_cluster`` or ``rank1_grid``, which ``run_simplex_devex``
+    calls, for its weights): (state, weights, seconds, launches)."""
     import torch
 
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels import rank1_cluster as kc
-    from tpulp_torch.kernels.rank1 import rank1_steps
     from tpulp_torch.kernels.rank1_grid import rank1_grid
     from tpulp_torch.solve import run_dual_simplex, run_simplex
     from tpulp_torch.solve.driver import finish
@@ -1016,7 +1016,7 @@ def solo_kernel(walk: str, state, opts, route: str):
     if walk == "devex":
         stall = opts.resolved_stall_limit(state.m, state.n)
         run = {"rank1_cluster": kc.rank1_cluster,
-               "rank1_grid": rank1_grid}.get(route, rank1_steps)
+               "rank1_grid": rank1_grid}[route]
         s, g = run(state, opts, stall, opts.max_iters, torch.ones(
             (state.n,), dtype=state.T.dtype, device=state.T.device))
         s = finish(s)
@@ -1064,8 +1064,8 @@ def solo_walk_check(walk: str, state, opts, label: str, route: str):
     every field (``T + 0.0``, the basis, the masks, every scalar, the
     devex weights); the launches must be the route's alone (one launch a
     walk on a lane or cluster route) and no FMA. On the cluster route the
-    walk is also held equal to ``rank1_steps``' and timed beside it
-    (``cluster_vs_step``). Returns the numbers."""
+    walk is also timed on the card (``cluster_us``). Returns the
+    numbers."""
     import torch
 
     k, gk, secs, launches = solo_kernel(walk, state, opts, route)
@@ -1109,24 +1109,19 @@ def solo_walk_check(walk: str, state, opts, label: str, route: str):
            if "device_ms" in res else "")
         + f", the plain walk {res['plain_ms_per_step']:.3f} ms a pivot")
     if route == "rank1_cluster":
-        res.update(cluster_vs_step(walk, state, opts, k, gk, label, res))
+        res.update(cluster_us(walk, state, opts, label, res))
     return res
 
 
-def cluster_vs_step(walk: str, state, opts, k, gk, label: str, res: dict):
-    """The cluster kernel's walk beside ``rank1_step``'s on the same frame:
-    ``rank1_steps``' walk held equal to the cluster's in every field; both
-    timed on the host clock in turns (cluster, step, step, cluster, twice);
-    the cluster's launch on the card alone (CUDA events after a sleep), its
-    load and store alone (a launch with no step), its stages (block 0's
-    clock, as shares of the launch), its plan and
-    ``cudaOccupancyMaxActiveClusters``; ``rank1_step``'s launches a walk."""
+def cluster_us(walk: str, state, opts, label: str, res: dict):
+    """The cluster kernel's walk timed: on the host clock four times, its
+    launch on the card alone (CUDA events after a sleep), its load and
+    store alone (a launch with no step), its stages (block 0's clock, as
+    shares of the launch), its plan and
+    ``cudaOccupancyMaxActiveClusters``."""
     import torch
 
-    from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels import rank1_cluster as kc
-    from tpulp_torch.kernels.rank1 import rank1_steps
-    from tpulp_torch.solve.driver import finish
 
     dev = state.T.device
     stall = opts.resolved_stall_limit(state.m, state.n)
@@ -1137,25 +1132,20 @@ def cluster_vs_step(walk: str, state, opts, k, gk, label: str, res: dict):
     plan = kc.cluster_plan(M, N, state.T.dtype)
     occ = kc.cluster_occupancy(M, N, state.T.dtype,
                                "primal" if walk == "primal" else walk, dev)
-    runs = {"cluster": lambda: kc.rank1_cluster(
-                state, opts, stall, opts.max_iters, gamma, dual),
-            "step": lambda: rank1_steps(state, opts, stall, opts.max_iters,
-                                        gamma, dual)}
-    reset_launches()
-    s, g = runs["step"]()
-    sync(dev)
-    step_launches = LAUNCHES["rank1_step"]
-    err = lanes_equal(k, finish(s))
-    weights_equal(gk, g, f"{label} against rank1_step")
-    host = {"cluster": [], "step": []}
-    for name in ("cluster", "step", "step", "cluster") * 2:
+
+    def run():
+        return kc.rank1_cluster(state, opts, stall, opts.max_iters, gamma,
+                                dual)
+
+    host = []
+    for _ in range(4):
         sync(dev)
         t0 = time.perf_counter()
-        runs[name]()
+        run()
         sync(dev)
-        host[name].append(time.perf_counter() - t0)
+        host.append(time.perf_counter() - t0)
     niter = max(res["niter"], 1)
-    dev_ms = device_time_ms(runs["cluster"], 5)
+    dev_ms = device_time_ms(run, 5)
     # a budget already spent: the launch loads and stores the frame only
     # (read on the host here, not inside the timed call)
     spent = int(state.niter)
@@ -1169,17 +1159,14 @@ def cluster_vs_step(walk: str, state, opts, k, gk, label: str, res: dict):
     stage_us = {name: 1e3 * dev_ms * f / niter
                 for name, f in zip(kc.CLUSTER_STAGES, share)
                 if name not in ("load", "store")}
-    cl_us = 1e6 * float(np.median(host["cluster"])) / niter
-    st_us = 1e6 * float(np.median(host["step"])) / niter
+    cl_us = 1e6 * float(np.median(host)) / niter
     log(f"# 5c {label} {M}x{N} {str(state.T.dtype)[6:]}: rank1_cluster on "
         f"{plan.blocks} blocks of {plan.width} columns ({plan.smem} bytes "
         f"of shared memory a block; cudaOccupancyMaxActiveClusters {occ}): "
         f"{cl_us:.2f} us a pivot on the host clock, "
         f"{1e3 * dev_ms / niter:.2f} on the card (1 launch; the load and "
         f"store {1e3 * ls_ms:.1f} us a walk; "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stage_us.items())
-        + f"); rank1_step's walk equal in every field, {st_us:.2f} us a "
-        f"pivot on the host clock ({step_launches} steps), in turns")
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_us.items()) + ")")
     # the table's convention for a step: the tableau read and written once
     # from device memory
     step_bound_ms, _ = bound(2.0 * M * N * state.T.element_size(), 0.0,
@@ -1189,146 +1176,7 @@ def cluster_vs_step(walk: str, state, opts, k, gk, label: str, res: dict):
             "step_bound_ms": step_bound_ms,
             "device_ms": dev_ms,
             "device_us_per_step": 1e3 * dev_ms / niter,
-            "load_store_ms": ls_ms, "device_us_by_stage": stage_us,
-            "rank1_step": {"max_abs_err": err, "ms_per_step": st_us / 1e3,
-                           "plain_ms_per_step": res["plain_ms_per_step"],
-                           "steps": step_launches,
-                           "niter": res["niter"]}}
-
-
-def rank1_step_us(state, opts, gamma, label: str, niter: int,
-                  dual: bool = False):
-    """A kernel step of a walk of ``niter`` pivots (the dual walk with
-    ``dual``), up to ``SOLO_ADVANCE`` steps in: the device us a step of
-    ``steps`` steps enqueued by one C call
-    (``launches_us``), the host's us to enqueue one, the device us of the
-    scan, price and ratio launches alone (``steps`` launches of each on the
-    same record: they write only the partials, the verdict and the
-    snapshot) beside the rest (update and finish), and the bound; three
-    rounds, medians. The walk must run through every timed step."""
-    import torch
-
-    from tpulp_torch.kernels import rank1 as kr
-
-    advance = min(SOLO_ADVANCE, niter // 4)
-    steps = max(1, min(SOLO_TIMED_STEPS, (niter - advance) // 4))
-    stall = opts.resolved_stall_limit(state.m, state.n)
-    rec = kr.make_record(state, opts, gamma, dual)
-    kr.enqueue_steps(rec, opts, stall, opts.max_iters, advance)
-    stages = (("scan",) if rec.scan is not None else ()) + ("price",
-                                                             "ratio")
-    dev_us, host_us, split = [], [], {stage: [] for stage in stages}
-    for _ in range(3):
-        for stage in stages:
-            split[stage].append(launches_us(lambda: [
-                kr.rank1_stage(rec, stage, opts, stall, opts.max_iters)
-                for _ in range(steps)], steps)[0])
-        d, h = launches_us(lambda: kr.enqueue_steps(rec, opts, stall,
-                                                    opts.max_iters, steps),
-                           steps)
-        if int(rec.ints[kr.STATUS]) != 0:
-            raise AssertionError("5c: the timed steps ran past the walk")
-        dev_us.append(d)
-        host_us.append(h)
-    split = {k: float(np.median(v)) for k, v in split.items()}
-    dev_us, host_us = float(np.median(dev_us)), float(np.median(host_us))
-    split["update_and_finish"] = dev_us - sum(split.values())
-    M, N = state.T.shape
-    flop_s = FP64_FLOP_S if state.T.dtype == torch.float64 else FP32_FLOP_S
-    # the update: the tableau read and written once, one fma an entry
-    bound_ms, bound_by = bound(2.0 * M * N * state.T.element_size(),
-                               2.0 * M * N, flop_s)
-    log(f"# 5c rank1_step {label} {M}x{N} {str(state.T.dtype)[6:]}: "
-        f"{dev_us:.2f} us a step on the card (CUDA events over "
-        f"{steps} steps from step {advance}; "
-        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-        + f"), {host_us:.2f} us of host time to enqueue one; bound "
-        f"{1e3 * bound_ms:.3f} us (the tableau read and written once at "
-        "3.35 TB/s)")
-    return {"device_us_per_step": dev_us, "host_us_per_step": host_us,
-            "bound_us_per_step": 1e3 * bound_ms, "bound_by": bound_by,
-            "device_us_by_stage": split, "steps_timed": steps}
-
-
-def rank1_stage_checks(state, opts, gamma, label: str, want,
-                       min_step: int = 0, max_steps: int = 5000,
-                       dual: bool = False):
-    """Each launch of a step held against its plain stage on the card
-    (every record field), on the first step at or past ``min_step`` of
-    each kind in ``want``: "cleanup" (a clean-up pivot or retire),
-    "phase_change", "devex_reset" (the phase change's, under devex),
-    "ray_scan" and "probe" (devex's ticks), "max_increase" (a
-    greatest-increase step), "dual_pivot" and "dual_exit" (with ``dual``:
-    a dual walk's pivot and its optimal step).
-    The record walks on through the kernels' stages. Returns {kind:
-    step}."""
-    import torch
-
-    from tpulp_torch.kernels import rank1 as kr
-
-    stall = opts.resolved_stall_limit(state.m, state.n)
-    mi = opts.max_iters
-    rec = kr.make_record(state, opts, gamma, dual)
-    devex = rec.walk == "devex"
-    head = ("scan", "price") if rec.scan is not None else ("price",)
-    found = {}
-    for step in range(max_steps):
-        for stage in head:
-            kr.rank1_stage(rec, stage, opts, stall, mi)
-        iv = rec.ints.tolist()
-        if iv[kr.STATUS] != 0:
-            break
-        tick = iv[kr.NITER] % kr.RAY_SCAN_EVERY
-        plain2 = iv[kr.PHASE] == 2 and not iv[kr.CLEANUP]
-        kinds = {
-            "cleanup": iv[kr.CLEANUP],
-            "phase_change": iv[kr.TO_PHASE2],
-            "devex_reset": devex and iv[kr.TO_PHASE2],
-            "ray_scan": devex and plain2 and tick == 0,
-            "probe": devex and plain2 and not iv[kr.BLAND]
-            and tick == kr.RAY_SCAN_EVERY // 2,
-            "max_increase": rec.scan is not None and not devex,
-            "dual_pivot": dual and not iv[kr.FEASIBLE],
-            "dual_exit": dual and iv[kr.FEASIBLE]}
-        new = {k for k, v in kinds.items() if v and k in want
-               and k not in found}
-        if step >= min_step and new:
-            base = kr.clone_record(rec)
-            for stage in kr.STAGES:
-                if stage == "scan" and base.scan is None:
-                    continue
-                k, p = kr.clone_record(base), kr.clone_record(base)
-                kr.rank1_stage(k, stage, opts, stall, mi)
-                kr.rank1_stage_reference(p, stage, opts, stall, mi)
-                torch.cuda.synchronize()
-                for (name, a), (_, b) in zip(kr.record_tensors(k),
-                                             kr.record_tensors(p)):
-                    a, b = a.cpu(), b.cpu()
-                    if a.is_floating_point():
-                        a, b = a.nan_to_num(0.5) + 0.0, b.nan_to_num(0.5) + 0.0
-                    if not torch.equal(a, b):
-                        raise AssertionError(
-                            f"5c {label}: the {stage} launch of step {step} "
-                            f"({sorted(new)}) differs from its plain stage "
-                            f"in {name}")
-                base = p
-            for kind in new:
-                found[kind] = step
-        for stage in ("ratio", "update", "finish"):
-            kr.rank1_stage(rec, stage, opts, stall, mi)
-        if set(found) == set(want):
-            break
-    if set(found) != set(want):
-        raise AssertionError(f"5c {label}: no step of kinds "
-                             f"{set(want) - set(found)} in {step + 1}")
-    log(f"# 5c stages, {label}: "
-        + ("price, ratio, update and finish" if rec.scan is None
-           else "scan, price, ratio, update and finish")
-        + " each equal their plain stage on the card (every record field) "
-        "at step "
-        + ", ".join(f"{s} ({k})" for k, s in sorted(found.items(),
-                                                    key=lambda x: x[1])))
-    return found
+            "load_store_ms": ls_ms, "device_us_by_stage": stage_us}
 
 
 def solo_solve(sf, dt, driver: str, label: str, route: str,
@@ -1355,7 +1203,7 @@ def solo_solve(sf, dt, driver: str, label: str, route: str,
         f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
         f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
     # the solo walks of the other rank-1 routes: none
-    rank1 = ("rank1_cluster", "rank1_grid", "rank1_step")
+    rank1 = ("rank1_cluster", "rank1_grid")
     others = [r for r in rank1 if r != route] if route in rank1 else []
     if not (launches[route] > 0
             and (launches["fused_fma"] == 0 or not optimal)
@@ -1442,12 +1290,18 @@ def cluster_edge_cases(dt, dev="cuda"):
 # the grid walks of 5c (rank1_grid): their windows held against
 # rank1_grid_reference on the card, f64 and f32; one timed launch of
 # SOLO_GRID_TIMED steps from step SOLO_GRID_ADVANCE; the resident warm
-# re-solve's LP (514 x 1537); the LP past the grid's plan (10002 x 10513,
-# rank1_step's route since the grid) and its budget
+# re-solve's LP (514 x 1537); past the replicated vectors, the LPs of (x)
+# and (xd) (10002 x 10513 f64) and (x32) (16002 x 16513 f32) on the
+# device-vector plan, held over their first RANK1_PAST_STEPS pivots, and
+# of (zr) and (zr32) (18 x 1,048,593) on the wide plan, its dual walk held
+# over RANK1_WIDE_DUAL pivots; (zs)'s LP (18 x 200,017) end to end
 SOLO_GRID_WINDOW, SOLO_GRID_WINDOW_F32 = 256, 96
 SOLO_GRID_TIMED, SOLO_GRID_ADVANCE = 1024, 8
 GRID_RES_M, GRID_RES_N = 512, 1024
 RANK1_PAST_M, RANK1_PAST_N, RANK1_PAST_STEPS = 10000, 512, 64
+RANK1_PAST32_M = 16000
+RANK1_WIDE_M, RANK1_WIDE_N, RANK1_WIDE_DUAL = 16, 1_048_576, 256
+RANK1_WARM_M, RANK1_WARM_N = 16, 200_000
 
 
 def sm_clock_hz() -> float:
@@ -1476,18 +1330,15 @@ def grid_walk(walk: str, state, opts, max_iters=None, **kw):
 
 def grid_walk_check(walk: str, state, opts, label: str, window: int):
     """5c: a walk on ``rank1_grid`` through the solo drivers (one launch, no
-    other kernel), held equal in every field to ``rank1_steps``' walk of
-    the same frame, whole, and over its first ``window`` steps to
-    ``rank1_grid_reference`` on the card (the plan's G); both kernels'
-    whole walks timed on the host clock in turns (grid, steps, steps,
-    grid, twice). Returns the numbers."""
+    other kernel), held equal in every field to the plain walk of the same
+    frame (the plain loop on the card), whole, and over its first
+    ``window`` steps to ``rank1_grid_reference`` on the card (the plan's G
+    and kind); its whole walk timed on the host clock twice. Returns the
+    numbers."""
     import torch
 
-    from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.kernels import rank1_grid as kg
     from tpulp_torch.kernels.launch import sm_count
-    from tpulp_torch.kernels.rank1 import rank1_steps
-    from tpulp_torch.solve.driver import finish
 
     dev = state.T.device
     M, N = state.T.shape
@@ -1501,12 +1352,9 @@ def grid_walk_check(walk: str, state, opts, label: str, window: int):
     if others or launches["rank1_grid"] != 1:
         raise AssertionError(f"5c {label}: launches {launches}, want one "
                              "rank1_grid launch alone")
-    reset_launches()
-    s, g = rank1_steps(state, opts, stall, opts.max_iters, gamma, dual)
-    sync(dev)
-    step_launches = LAUNCHES["rank1_step"]
-    err = lanes_equal(k, finish(s))
-    weights_equal(gk, g, f"{label} against rank1_step")
+    p, gp, whole_plain = solo_plain(walk, state, opts)
+    err = lanes_equal(k, p)
+    weights_equal(gk, gp, f"{label} against the plain walk")
     # the window against the plain version
     budget = int(state.niter) + window
     kw, kgw = grid_walk(walk, state, opts, budget)
@@ -1514,54 +1362,44 @@ def grid_walk_check(walk: str, state, opts, label: str, window: int):
     sync(dev)
     t0 = time.perf_counter()
     pw, pg = kg.rank1_grid_reference(state, opts, stall, budget, gamma,
-                                     dual, plan.blocks)
+                                     dual, plan.blocks, plan.vectors)
     sync(dev)
     plain_secs = time.perf_counter() - t0
     err = max(err, lanes_equal(kw, pw))
     weights_equal(kgw, pg, f"{label} against rank1_grid_reference")
     wsteps = max(int(pw.niter) - int(state.niter), 1)
-    runs = {"grid": lambda: grid_walk(walk, state, opts),
-            "step": lambda: rank1_steps(state, opts, stall, opts.max_iters,
-                                        gamma, dual)}
-    host = {"grid": [], "step": []}
-    for name in ("grid", "step", "step", "grid") * 2:
+    host = []
+    for _ in range(2):
         sync(dev)
         t0 = time.perf_counter()
-        runs[name]()
+        grid_walk(walk, state, opts)
         sync(dev)
-        host[name].append(time.perf_counter() - t0)
+        host.append(time.perf_counter() - t0)
     niter = max(int(k.niter) - int(state.niter), 1)
     flop_s = FP64_FLOP_S if state.T.dtype == torch.float64 else FP32_FLOP_S
     bound_ms, bound_by = bound(2.0 * M * N * state.T.element_size(),
                                2.0 * M * N * niter, flop_s)
     res = {"status": int(k.status), "niter": niter, "bland": bool(k.bland),
            "route": "rank1_grid", "launches": launches["rank1_grid"],
-           "seconds": float(np.median(host["grid"])),
+           "seconds": float(np.median(host)),
            "first_seconds": secs,
-           "ms_per_step": 1e3 * float(np.median(host["grid"])) / niter,
+           "ms_per_step": 1e3 * float(np.median(host)) / niter,
            "max_abs_err": err, "window_steps": wsteps,
            "plain_seconds": plain_secs,
            "plain_ms_per_step": 1e3 * plain_secs / wsteps,
+           "plain_walk_seconds": whole_plain,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "blocks": plan.blocks, "width": plan.width, "rows": plan.rows,
            "smem": plan.smem, "scratch": plan.scratch,
-           "rank1_step": {"max_abs_err": err, "steps": step_launches,
-                          "plain_ms_per_step": 1e3 * plain_secs / wsteps,
-                          "seconds": float(np.median(host["step"])),
-                          "ms_per_step": 1e3 * float(np.median(
-                              host["step"])) / niter,
-                          "niter": niter}}
+           "vectors": plan.vectors}
     log(f"# 5c {label} {M}x{N} {str(state.T.dtype)[6:]}: rank1_grid x 1 "
         f"(G {plan.blocks}, W {plan.width}, R {plan.rows}, "
         f"{plan.scratch} bytes streamed), status {res['status']}, {niter} "
-        f"pivots: the walk equals rank1_steps' in every field, and its "
+        f"pivots: the walk equals the plain walk in every field, and its "
         f"first {wsteps} steps rank1_grid_reference's; "
         f"{1e3 * res['seconds']:.2f} ms = {1e3 * res['ms_per_step']:.2f} us "
-        f"a pivot on the host clock, rank1_steps "
-        f"{1e3 * res['rank1_step']['seconds']:.2f} ms = "
-        f"{1e3 * res['rank1_step']['ms_per_step']:.2f} us ({step_launches} "
-        f"steps), in turns; the plain version "
-        f"{res['plain_ms_per_step']:.3f} ms a pivot")
+        f"a pivot on the host clock (the plain walk {whole_plain:.2f} s); "
+        f"the plain version {res['plain_ms_per_step']:.3f} ms a pivot")
     return res
 
 
@@ -1571,10 +1409,10 @@ def rank1_grid_us(walk: str, state, opts, label: str, niter: int,
     """One ``rank1_grid`` launch of up to ``steps`` steps of a walk of
     ``niter`` pivots, ``advance`` steps in, on the card alone (CUDA events
     after a sleep; median of three), by stage (block 0's cycles of each
-    stage as a share of the launch's time; the owner's ratio test apart),
-    with the plan, the occupancy and the bounds (``grid_bounds``: the
-    walk's, the kernel's own convention and the table's step
-    convention)."""
+    stage as a share of the launch's time, named for the plan's kind by
+    ``rank1_grid_stages``; the owner's ratio test apart), with the plan,
+    the occupancy and the bounds (``grid_bounds``: the walk's, the
+    kernel's own convention and the table's step convention)."""
     import torch
 
     from tpulp_torch.kernels import rank1_grid as kg
@@ -1607,16 +1445,17 @@ def rank1_grid_us(walk: str, state, opts, label: str, niter: int,
     if int(out.niter) != start + advance + steps:
         raise AssertionError(f"5c {label}: the timed grid steps ran past "
                              "the walk")
-    c = dict(zip(kg.RANK1_GRID_STAGES, cyc.tolist()))
-    owner = c.pop("owner")
+    plan = kg.rank1_grid_plan(M, N, dtype, sm_count(dev))
+    names = kg.rank1_grid_stages(plan)
+    c = dict(zip(names, cyc.tolist()))
+    owner = c.pop(names[-1])
     total = max(sum(c.values()), 1)
     us = float(np.median(dev_us))
     per_cycle = us * steps / total
     split = {k: v * per_cycle / steps for k, v in c.items()
              if k not in ("load", "store")}
     split["load_and_store_per_launch"] = (c["load"] + c["store"]) * per_cycle
-    split["owner"] = owner * per_cycle / steps
-    plan = kg.rank1_grid_plan(M, N, dtype, sm_count(dev))
+    split[names[-1]] = owner * per_cycle / steps
     es = state.T.element_size()
     wb, own, step_b = grid_bounds(M, N, es, plan.blocks, niter, clock_hz,
                                   rows=plan.rows)
@@ -1628,8 +1467,10 @@ def rank1_grid_us(walk: str, state, opts, label: str, niter: int,
            "scratch": plan.scratch, "occupancy": occ, "steps": steps,
            "advance": advance, "bound_ms": wb[0], "bound_by": wb[1],
            "grid_bound_ms": own, "step_bound_ms": step_b,
-           "sm_clock_hz": clock_hz}
-    log(f"# 5c rank1_grid {label} {M}x{N} {str(dtype)[6:]}: {us:.3f} us a "
+           "sm_clock_hz": clock_hz, "vectors": plan.vectors,
+           "tile_rows": plan.tile_rows}
+    log(f"# 5c rank1_grid {label} {M}x{N} {str(dtype)[6:]} on the "
+        f"{plan.vectors} plan: {us:.3f} us a "
         f"step on the card (one launch of {steps} steps from step "
         f"{advance}; by stage "
         + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
@@ -1641,37 +1482,6 @@ def rank1_grid_us(walk: str, state, opts, label: str, niter: int,
     return res
 
 
-def grid_and_step_us(walk: str, state, opts, label: str, niter: int,
-                     clock_hz: float):
-    """``rank1_grid_us`` and ``rank1_step_us`` on the same walk in turns
-    (grid, steps, steps, grid): the grid's figures with its turns, and
-    ``rank1_step``'s (the means)."""
-    dual = walk == "dual"
-    grids, steps = [], []
-    for kind in ("grid", "step", "step", "grid"):
-        if kind == "grid":
-            grids.append(rank1_grid_us(walk, state, opts, label, niter,
-                                       clock_hz))
-        else:
-            steps.append(rank1_step_us(state, opts, None, label, niter,
-                                       dual=dual))
-    g = dict(grids[0])
-    g["device_us_turns"] = [r["device_us_per_step"] for r in grids]
-    g["device_us_per_step"] = float(np.mean(g["device_us_turns"]))
-    g["device_us_by_stage"] = {
-        k: float(np.mean([r["device_us_by_stage"][k] for r in grids]))
-        for k in grids[0]["device_us_by_stage"]}
-    s = dict(steps[0])
-    s["device_us_turns"] = [r["device_us_per_step"] for r in steps]
-    s["device_us_per_step"] = float(np.mean(s["device_us_turns"]))
-    s["device_us_by_stage"] = {
-        k: float(np.mean([r["device_us_by_stage"][k] for r in steps]))
-        for k in steps[0]["device_us_by_stage"]}
-    log(f"# 5c {label}, in turns: rank1_grid {g['device_us_turns']} us a "
-        f"step on the card, rank1_step {s['device_us_turns']}")
-    return g, s
-
-
 def grid_edge_cases(dt, dev="cuda"):
     """``rank1_grid`` bit for bit against ``rank1_grid_reference`` (on CPU
     copies, the same slabs) on small frames: 22 x 61 (``dense_leq_arrays``)
@@ -1681,9 +1491,11 @@ def grid_edge_cases(dt, dev="cuda"):
     ``basis[0]`` off the unit vector: barrier C) and a warm dual frame (its
     Bland switch and NaN too); 42 x 131 (``artificial_arrays``: phase 1,
     the clean-up and a retire) under Dantzig and devex. Each on the plan's
-    grid and on 1, 3 and 7 blocks resident, and streamed at forced splits
-    (rows 3, M // 2, M - 1) on 1, 3 and 7 blocks in turn. Returns the
-    counts (resident, streamed)."""
+    grid and on 1, 3 and 7 blocks resident, streamed at forced splits
+    (rows 3, M // 2, M - 1) on 1, 3 and 7 blocks in turn, on the
+    device-vector plan forced (rows M - 1, 3 and M // 2) and on the wide
+    plan forced (the plan's grid, 1, 3 and 7 blocks). Returns the counts
+    by kind of plan."""
     import torch
 
     from tpulp_torch import SolverOptions
@@ -1746,29 +1558,36 @@ def grid_edge_cases(dt, dev="cuda"):
               SolverOptions.for_dtype(dt, stall_limit=1, degen_tol=1e30),
               None),
              ("dual NaN in b", edit(fr, (4, -1, np.nan)), "dual", o, None)]
-    count = {"resident": 0, "streamed": 0}
+    count = {"resident": 0, "streamed": 0, "device": 0, "wide": 0}
     t0 = time.perf_counter()
     for label, s, walk, opts, g in cases:
         stall = opts.resolved_stall_limit(s.m, s.n)
         M = s.T.shape[0]
-        splits = [(None, blocks) for blocks in (None, 1, 3, 7)]
-        splits += [(rows, (1, 3, 7)[q])
+        splits = [(None, blocks, None) for blocks in (None, 1, 3, 7)]
+        splits += [(rows, (1, 3, 7)[q], None)
                    for q, rows in enumerate((3, M // 2, M - 1))]
-        for rows, blocks in splits:
+        # the device-vector plan (the vectors in device memory) and the
+        # wide plan (no row of a slab in shared memory), forced
+        splits += [(None, None, "device"), (3, 3, "device"),
+                   (M // 2, 7, "device")]
+        splits += [(None, blocks, "wide") for blocks in (None, 1, 3, 7)]
+        for rows, blocks, vectors in splits:
             plan = kg.rank1_grid_plan(*s.T.shape, dt, sms, blocks=blocks,
-                                      rows=rows)
+                                      rows=rows, vectors=vectors)
             if dev == "cuda":
                 k, kgw = kg.rank1_grid(
                     type(s)(*(x.to(dev) for x in s)), opts, stall,
                     opts.max_iters, None if g is None else g.to(dev),
-                    walk == "dual", blocks=blocks, rows=rows)
+                    walk == "dual", blocks=blocks, rows=rows,
+                    vectors=vectors)
             else:
                 k, kgw = kg.rank1_grid_reference(s, opts, stall,
                                                  opts.max_iters, g,
                                                  walk == "dual",
-                                                 plan.blocks)
+                                                 plan.blocks, plan.vectors)
             p, pg = kg.rank1_grid_reference(s, opts, stall, opts.max_iters,
-                                            g, walk == "dual", plan.blocks)
+                                            g, walk == "dual", plan.blocks,
+                                            plan.vectors)
             sync(dev)
             try:
                 lanes_equal(type(k)(*(x.cpu() for x in k)), p)
@@ -1778,87 +1597,341 @@ def grid_edge_cases(dt, dev="cuda"):
                 raise AssertionError(
                     f"5c grid edge {label} {str(dt)[6:]} G {plan.blocks} "
                     f"R {plan.rows}: {err}") from None
-            count["resident" if rows is None else "streamed"] += 1
+            count[vectors or ("resident" if rows is None
+                              else "streamed")] += 1
     log(f"# 5c rank1_grid on edge cases, {str(dt)[6:]} (22 x 61, 42 x 131): "
-        f"{count['resident']} resident and {count['streamed']} streamed "
-        "walks equal rank1_grid_reference in every field ("
+        f"{count['resident']} resident, {count['streamed']} streamed, "
+        f"{count['device']} device-vector and {count['wide']} wide walks "
+        "equal rank1_grid_reference in every field ("
         + ", ".join(c[0] for c in cases) + f"; resident on the plan's grid "
         "and 1, 3, 7 blocks, streamed at rows 3, M // 2, M - 1 on 1, 3, 7 "
-        f"blocks; {time.perf_counter() - t0:.1f} s)")
+        "blocks, the device-vector plan at rows M - 1, 3, M // 2 on the "
+        "plan's grid and 3, 7 blocks, the wide plan on the plan's grid and "
+        f"1, 3, 7 blocks; {time.perf_counter() - t0:.1f} s)")
     return count
 
 
-def past_grid_walk(dev="cuda"):
-    """5c (x): ``run_simplex`` on a RANK1_PAST_M x RANK1_PAST_N LP
-    (``main_path_arrays``, a slack basis, 10002 x 10513 at f64) past the
-    grid's plan (``solo_route``: "rank1_step"), to a budget of
-    RANK1_PAST_STEPS pivots: on ``rank1_steps`` (no ``rank1_grid`` and no
-    FMA launch), held to the plain loop in every field; the step timed by
-    launch."""
+def grid_turns(walk: str, state, opts, label: str, niter: int,
+               clock_hz: float, turns: int = 2, **kw):
+    """``rank1_grid_us`` ``turns`` times on the same walk: the first's
+    figures, with the turns and their mean."""
+    runs = [rank1_grid_us(walk, state, opts, label, niter, clock_hz, **kw)
+            for _ in range(turns)]
+    g = dict(runs[0])
+    g["device_us_turns"] = [r["device_us_per_step"] for r in runs]
+    g["device_us_per_step"] = float(np.mean(g["device_us_turns"]))
+    g["device_us_by_stage"] = {
+        k: float(np.mean([r["device_us_by_stage"][k] for r in runs]))
+        for k in runs[0]["device_us_by_stage"]}
+    log(f"# 5c {label}, in turns: rank1_grid {g['device_us_turns']} us a "
+        f"step on the card")
+    return g
+
+
+def held_walk(label: str, walk: str, start, opts, run, kind: str):
+    """5c past the replicated vectors: the walk ``run()`` (a function that
+    ``solve_lp`` calls, from ``start``, to ``opts.max_iters``), with the
+    launch counts set to 0 just before it and read just after: one
+    ``rank1_grid`` launch on the plan of kind ``kind`` (the route's plan
+    for the frame) and no other kernel, FMA included; held equal in every
+    field to the plain walk of ``start`` (the plain loop on the card).
+    Returns the numbers and the walk's state."""
     import torch
 
-    from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import rank1_grid as kg
     from tpulp_torch.kernels.launch import sm_count
     from tpulp_torch.solve.driver import solo_route
 
-    m, n = RANK1_PAST_M, RANK1_PAST_N
-    state = make_state(*main_path_arrays(m, n, seed=4), dtype=torch.float64,
-                       device=dev)
-    M, N = state.T.shape
-    route = solo_route("primal", M, N, torch.float64,
-                       sm_count(torch.device(dev)), torch.device(dev))
-    if route != "rank1_step":
-        raise AssertionError(f"5c (x): {M} x {N} takes {route}")
-    opts = SolverOptions.for_dtype(torch.float64,
-                                   max_iters=RANK1_PAST_STEPS)
-    k, _, secs, launches = solo_kernel("primal", state, opts, "rank1_step")
-    p, _, plain_secs = solo_plain("primal", state, opts)
+    dev = start.T.device
+    M, N = start.T.shape
+    dt = start.T.dtype
+    sms = sm_count(dev)
+    route = solo_route(walk, M, N, dt, sms, dev)
+    plan = kg.rank1_grid_plan(M, N, dt, sms)
+    if route != "rank1_grid" or plan.vectors != kind:
+        raise AssertionError(f"5c {label}: {M} x {N} takes {route} on the "
+                             f"{plan.vectors} plan, want {kind}")
+    sync(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    k = run()
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    if launches["rank1_grid"] != 1 or any(
+            v for key, v in launches.items() if key != "rank1_grid"):
+        raise AssertionError(f"5c {label}: launches {launches}, want one "
+                             "rank1_grid launch alone")
+    p, _, plain_secs = solo_plain(walk, start, opts)
     err = lanes_equal(k, p)
-    steps = int(k.niter)
-    if steps != RANK1_PAST_STEPS or launches["rank1_step"] == 0 or \
-            launches["rank1_grid"] or launches["fused_fma"]:
-        raise AssertionError(f"5c (x): {steps} pivots, launches {launches}")
-    u = rank1_step_us(state, SolverOptions.for_dtype(torch.float64), None,
-                      "(x) past the grid's plan", 4 * RANK1_PAST_STEPS)
-    log(f"# 5c (x) {m}x{n} ({M} x {N}, past the grid's plan: {route}) "
-        f"f64: its first {steps} pivots through run_simplex equal the plain "
-        f"walk in every field ({secs:.3f} s against {plain_secs:.2f} s); "
-        f"launches {launches}")
-    return {"route": route, "steps": steps, "seconds": secs,
-            "plain_seconds": plain_secs, "max_abs_err": err,
-            "launches": launches, "step_us": u,
-            "ms_per_step": 1e3 * secs / steps,
-            "plain_ms_per_step": 1e3 * plain_secs / steps}
+    steps = int(k.niter) - int(start.niter)
+    es = start.T.element_size()
+    flop_s = FP64_FLOP_S if dt == torch.float64 else FP32_FLOP_S
+    # the walk: the frame read and written once, one fma an entry a pivot
+    bound_ms, bound_by = bound(2.0 * M * N * es, 2.0 * M * N * steps, flop_s)
+    res = {"route": route, "plan": plan._asdict(), "status": int(k.status),
+           "niter": steps, "seconds": secs, "plain_seconds": plain_secs,
+           "max_abs_err": err, "launches": launches["rank1_grid"],
+           "ms_per_step": 1e3 * secs / max(steps, 1),
+           "plain_ms_per_step": 1e3 * plain_secs / max(steps, 1),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"# 5c {label} {M} x {N} {str(dt)[6:]} ({walk}): {route} x 1 on the "
+        f"{plan.vectors} plan (G {plan.blocks}, W {plan.width}, R "
+        f"{plan.rows}, TR {plan.tile_rows}, {plan.scratch} bytes streamed, "
+        f"{plan.smem} bytes of shared memory a block), no other launch; "
+        f"status {res['status']}, {steps} pivots, equal to the plain walk "
+        f"in every field ({secs:.3f} s on the host clock, the plain walk "
+        f"{plain_secs:.2f} s)")
+    return res, k
+
+
+def rank1_grid_card_tests(dev):
+    """5c (t): tests/test_torch_rank1_grid_card.py, the rank-1 grid's
+    ``cuda`` tests (the kernel against its plain version on the CPU's
+    small walks: the plan's grid, forced grids and splits, the
+    device-vector and wide plans forced, every instance and rule of the
+    plain stages' tests), run on the card in a process of their own; a
+    failure, or a test that skips, fails the run."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+           "-q", "-p", "no:cacheprovider",
+           "tests/test_torch_rank1_grid_card.py"]
+    if dev != "cuda":
+        return {"skipped": "no card"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    secs = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    log(f"# 5c (t) {' '.join(cmd[2:])}: exit {proc.returncode}, "
+        f"{tail[0]} ({secs:.1f} s)")
+    if proc.returncode != 0 or "skipped" in tail[0] or \
+            "passed" not in tail[0]:
+        raise AssertionError(f"5c (t): the rank-1 grid's card tests: "
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return {"summary": tail[0], "seconds": secs}
+
+
+def past_replicated_walks(clock_hz: float, cut, dev="cuda"):
+    """5c past the grid's replicated vectors, each walk through the
+    functions ``solve_lp`` calls and one ``rank1_grid`` launch
+    (``held_walk``): (x) the primal walk of a RANK1_PAST_M x RANK1_PAST_N
+    LP (``main_path_arrays``, seed 4, 10002 x 10513 at f64) on the
+    device-vector plan to RANK1_PAST_STEPS pivots, then whole (the basis of
+    (xd)); (xd) its warm dual walk with a quarter of the RHS halved, from
+    the frame ``solve.api._warm_frame`` builds, to RANK1_PAST_STEPS
+    pivots, then whole; (x32) the primal walk of a RANK1_PAST32_M-row LP at
+    f32 (16002 x 16513), to RANK1_PAST_STEPS pivots; (zr) the primal,
+    devex and dual walks of a RANK1_WIDE_M x RANK1_WIDE_N LP (18 x
+    1,048,593 at f64) on the wide plan, whole (the dual one, with half of
+    the RHS halved, to RANK1_WIDE_DUAL pivots); (zr32) its primal walk at
+    f32. Each is held in
+    every field to the plain walk; one launch of up to RANK1_PAST_STEPS
+    steps of (x), (xd), (x32), (zr) and (zr32) is timed by stage, twice
+    (from step 1 on the wide frames, whose walks are short)."""
+    import dataclasses
+
+    import torch
+
+    from tpulp_torch import SolverOptions, make_state
+    from tpulp_torch.solve import (run_dual_simplex, run_simplex,
+                                   run_simplex_devex)
+    from tpulp_torch.solve.api import _warm_frame
+    from tpulp_torch.solve.dual import warm_state_from_basis
+
+    res = {}
+
+    def whole(label, run):
+        """The walk ``run()`` to its end on the grid, once (one launch):
+        its pivots, status and host seconds."""
+        from tpulp_torch.kernels import LAUNCHES, reset_launches
+
+        sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        sync(dev)
+        secs = time.perf_counter() - t0
+        if LAUNCHES["rank1_grid"] != 1:
+            raise AssertionError(f"5c {label}: launches {dict(LAUNCHES)}")
+        log(f"# 5c {label} whole: status {int(out.status)}, "
+            f"{int(out.niter)} pivots, {secs:.3f} s on the host clock")
+        return out, {"status": int(out.status), "niter": int(out.niter),
+                     "seconds": secs}
+
+    def frame_of(state, basis):
+        """The warm dual frame of ``state`` on ``basis``, as
+        ``_warm_frame`` builds it (the RHS moved past the basis)."""
+        active = state.col_active & ~state.art_cols
+        return warm_state_from_basis(state.T[2:, :-1], state.T[0, :-1],
+                                     active, state.art_cols, basis,
+                                     state.T[2:, -1])
+
+    def warm_run(state, basis, opts, label):
+        def run():
+            _, out = _warm_frame(state, basis, opts)
+            if out is None:
+                raise AssertionError(f"5c {label}: the warm frame is not "
+                                     "dual feasible and primal infeasible")
+            return out
+        return run
+
+    steps = RANK1_PAST_STEPS
+    for label, m, n, dt, kind in (
+            ("(x)", RANK1_PAST_M, RANK1_PAST_N, torch.float64, "device"),
+            ("(x32)", RANK1_PAST32_M, RANK1_PAST_N, torch.float32, "device"),
+            ("(zr)", RANK1_WIDE_M, RANK1_WIDE_N, torch.float64, "wide"),
+            ("(zr32)", RANK1_WIDE_M, RANK1_WIDE_N, torch.float32, "wide")):
+        c, A, b, hint = main_path_arrays(m, n, seed=4)
+        st = make_state(c, A, b, hint, dtype=dt, device=dev)
+        full = SolverOptions.for_dtype(dt)
+        key = label[1:-1]
+        if kind == "device":
+            o = dataclasses.replace(full, max_iters=steps)
+            res[key], out = held_walk(label, "primal", st, o,
+                                      lambda: run_simplex(st, o), kind)
+            adv = SOLO_GRID_ADVANCE
+            if label == "(x)":
+                # the whole walk: the basis of (xd)
+                out, res[key]["whole"] = whole(
+                    label, lambda: run_simplex(st, full))
+            niter = int(out.niter) if int(out.status) == 1 \
+                else adv + steps + 1
+        else:
+            # (the wide frames' walks are short: held whole)
+            res[key], out = held_walk(label, "primal", st, full,
+                                      lambda: run_simplex(st, full), kind)
+            adv, niter = 1, int(out.niter)
+        if label in ("(x)", "(zr)") and int(out.status) != 1:
+            raise AssertionError(f"5c {label}: status {int(out.status)}")
+        res[key]["grid_us"] = grid_turns(
+            "primal", st, full, label, niter, clock_hz, steps=steps,
+            advance=adv)
+        if label == "(zr)":
+            res["zr_devex"], _ = held_walk(
+                "(zr) devex", "devex", st, full,
+                lambda: run_simplex_devex(st, full), kind)
+        if label in ("(x)", "(zr)"):
+            # the warm dual walk of the LP with its RHS moved (a quarter of
+            # the rows halved; (zr): half of them, as a quarter leaves its
+            # basis feasible), from the optimal basis of the walk above
+            dkey = "xd" if label == "(x)" else "zr_dual"
+            dlabel = "(xd)" if label == "(x)" else "(zr) dual"
+            moved = cut(b)
+            if label == "(zr)":
+                moved[:len(b) // 2] = b[:len(b) // 2] // 2
+            s2 = make_state(c, A, moved, hint, dtype=dt, device=dev)
+            basis = out.basis.cpu().numpy()
+            frame = frame_of(s2, basis)
+            od = dataclasses.replace(
+                full, max_iters=steps if label == "(x)" else RANK1_WIDE_DUAL)
+            res[dkey], _ = held_walk(dlabel, "dual", frame, od,
+                                     warm_run(s2, basis, od, dlabel), kind)
+            if label == "(x)":
+                dout, res[dkey]["whole"] = whole(
+                    dlabel, lambda: run_dual_simplex(frame, full))
+                res[dkey]["grid_us"] = grid_turns(
+                    "dual", frame, full, dlabel, int(dout.niter), clock_hz,
+                    steps=steps)
+            del s2, frame
+        del st, out
+        torch.cuda.empty_cache()
+    return res
+
+
+def warm_resolve_end_to_end(cut, dev="cuda"):
+    """5c (zs): ``solve_lp`` on a RANK1_WARM_M x RANK1_WARM_N LP
+    (``main_path_form``, 18 x 200,017 at f64, past the streamed plan of the
+    grid) end to end: cold (``auto``: its 3.6M elements take the blocked
+    engine), then with a quarter of its RHS halved and ``warm_start=`` the
+    cold solution (the warm frame primal infeasible and dual feasible: the
+    dual walk on ``rank1_grid``'s device-vector plan, one launch and no
+    other kernel), certified optimal on the first rung with the objective
+    of a cold solve of the moved LP. Refinement and certificate (exact at
+    16 rows) included in each solve's seconds."""
+    import torch
+
+    import tpulp_torch
+    from tpulp_torch.kernels import LAUNCHES, reset_launches
+    from tpulp_torch.kernels import rank1_grid as kg
+    from tpulp_torch.kernels.launch import sm_count
+
+    m, n = RANK1_WARM_M, RANK1_WARM_N
+    c, A, b, hint = main_path_arrays(m, n)
+    plan = kg.rank1_grid_plan(m + 2, n + m + 1, torch.float64,
+                              sm_count(torch.device(dev)))
+    if plan.vectors != "device":
+        raise AssertionError(f"5c (zs): the {plan.vectors} plan")
+    out = {}
+
+    def solve(label, sf, **kw):
+        sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        sol = tpulp_torch.solve_lp(sf, dtype=torch.float64, device=dev, **kw)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        log(f"# 5c (zs) {label} {m + 2} x {n + m + 1}: {sol.status}, rung "
+            f"{sol.rung}, {sol.niter} pivots, objective {sol.objective!r}, "
+            f"{secs:.2f} s; launches {launches}")
+        if sol.status != "optimal" or sol.rung != "device-float64":
+            raise AssertionError(f"5c (zs) {label}: {sol.status}, rung "
+                                 f"{sol.rung}")
+        out[label] = {"status": sol.status, "rung": sol.rung,
+                      "niter": sol.niter, "seconds": secs,
+                      "launches": launches, "objective": str(sol.objective)}
+        return sol
+
+    cold = solve("cold", standard_form(c, A, b, hint, n))
+    moved = standard_form(c, A, cut(b), hint, n)
+    warm = solve("warm_start", moved, warm_start=cold)
+    if out["warm_start"]["launches"] != {"rank1_grid": 1} or not warm.niter:
+        raise AssertionError(f"5c (zs): the warm re-solve's launches "
+                             f"{out['warm_start']['launches']}, want one "
+                             "rank1_grid launch")
+    cold2 = solve("cold moved", moved)
+    if warm.objective != cold2.objective:
+        raise AssertionError(f"5c (zs): warm objective {warm.objective!r}, "
+                             f"cold {cold2.objective!r}")
+    out["plan"] = plan._asdict()
+    return out
 
 
 def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
     """Phase 5c: the solo rank-1, devex and dual walks on their kernels,
     each held against its plain version in every field at f64 and f32
     (``rank1_cluster_reference`` on the cluster route, the plain loop on
-    the others) and, on the cluster route, against ``rank1_steps``' walk
-    on the same frame, timed beside it in turns: (a) ``solve_lp(driver=
-    "auto")`` on phase 7c's LP (258 x 769, the top of the rank-1 engine's
-    range) on ``rank1_cluster`` (no ``rank1_step``, no FMA); (b) the devex
-    walk of the largest artificial LP under 200k elements, past a ray-scan
-    and a probe tick, and an optimal devex LP whose solve launches no FMA;
-    (c) Bland, the greatest increase and largest-pivot ties on a resident
-    frame (``lane_primal`` at B = 1) and on (a)'s; (d) each of
-    ``rank1_step``'s launches against its plain stage, on (a)'s and (b)'s
-    frames; (e) the warm re-solves: phase 7c's and a deeper one on the
+    the others) and, on the cluster route, timed on the card: (a)
+    ``solve_lp(driver="auto")`` on phase 7c's LP (258 x 769, the top of the
+    rank-1 engine's range) on ``rank1_cluster`` (no other rank-1 kernel, no
+    FMA); (b) the devex walk of the largest artificial LP under 200k
+    elements, past a ray-scan and a probe tick, and an optimal devex LP
+    whose solve launches no FMA; (c) Bland, the greatest increase and
+    largest-pivot ties on a resident frame (``lane_primal`` at B = 1) and
+    on (a)'s; (e) the warm re-solves: phase 7c's and a deeper one on the
     cluster's dual walk, a resident one on ``lane_dual`` at B = 1, one on
     phase 5's 1538 x 3073 frame on ``rank1_grid``'s streamed plan (f64;
-    resident at f32) and one of a 514 x 1537 LP on its resident plan;
-    (f) ``solve_lp(driver="rank1")`` on phase 5's LP, on ``rank1_grid``;
-    (g) the refreshed rung's rank-1 segments. The grid's walks (one launch
-    each) are held whole against ``rank1_steps``' and over a window against
+    resident at f32) and one of a 514 x 1537 LP on its resident plan; (f)
+    ``solve_lp(driver="rank1")`` on phase 5's LP, on ``rank1_grid``; (g)
+    the refreshed rung's rank-1 segments. The grid's walks (one launch
+    each) are held whole against the plain walk and over a window against
     ``rank1_grid_reference`` (``grid_walk_check``), and one launch of up to
-    1,024 steps is timed by stage in turns with ``rank1_step``
-    (``grid_and_step_us``); (x) a 10002 x 10513 LP past the grid's plan
-    runs ``rank1_step`` (``past_grid_walk``). ``rank1_step`` is timed by
-    launch on (a), (b), (e), (f) and (x). Also the cluster walk on edge
-    cases at every cluster size (``cluster_edge_cases``), the grid's at
-    forced splits (``grid_edge_cases``) and the bounded walk of a strided
-    tableau. Returns the numbers; ``launches`` are (a)'s f64 solve's."""
+    1,024 steps is timed by stage, twice (``grid_turns``). Past the grid's
+    replicated vectors (``past_replicated_walks``): (x), (xd) and (x32) on
+    the device-vector plan, (zr) and (zr32) on the wide plan, each one
+    launch through ``run_simplex``, ``run_simplex_devex`` or
+    ``run_dual_simplex`` (``_warm_frame`` for (xd)) held to the plain walk
+    and timed by stage; (zs) ``solve_lp(warm_start=)`` end to end on the
+    dual walk of the device-vector plan (``warm_resolve_end_to_end``); (t)
+    tests/test_torch_rank1_grid_card.py in a pytest process. Also the
+    cluster walk on edge cases at every cluster size
+    (``cluster_edge_cases``), the grid's at forced splits and plans
+    (``grid_edge_cases``) and the bounded walk of a strided tableau.
+    Returns the numbers; ``launches`` are (a)'s f64 solve's."""
     import dataclasses as dc
 
     import torch
@@ -1886,8 +1959,7 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         b2[:k] = b2[:k] // 2 if b.dtype.kind == "i" else b2[:k] * 0.5
         return b2
 
-    res = {"walks": {}, "stages": {}, "step_us": {}, "grid_us": {},
-           "solves": {}}
+    res = {"walks": {}, "grid_us": {}, "solves": {}}
     A, b, c = dense_leq_arrays(WARM_M, WARM_N)
     sf_a = scenario_form(A, b, c)
     ca, Aa, ba, _ = artificial_arrays(WARM_M, SOLO_DEVEX_N)
@@ -1924,8 +1996,6 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         if w["status"] != 1:
             raise AssertionError(f"5c (a): status {w['status']}")
         res["walks"][f"a_{name}"] = w
-        res["step_us"][f"a_{name}"] = rank1_step_us(
-            st, opts, None, "(a)", w["niter"])
         # (b) devex, chosen by solve_lp for the artificial LP (unbounded at
         # f64 past 13 ray-scan ticks in phase 2; at f32 phase 1 ends
         # infeasible)
@@ -1936,16 +2006,6 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         ob = SolverOptions.for_dtype(dt, rule=RULE_DEVEX)
         wb = solo_walk_check("devex", sb, ob, "(b) devex", "rank1_cluster")
         res["walks"][f"b_{name}"] = wb
-        ones = torch.ones((sb.n,), dtype=dt, device=dev)
-        if name == "float64":
-            # (d) on the devex walk: the clean-up, the phase change and
-            # its reset of the weights, the ray-scan and probe ticks
-            res["stages"]["b_float64"] = rank1_stage_checks(
-                sb, ob, ones, "(b) devex float64",
-                ("cleanup", "phase_change", "devex_reset", "ray_scan",
-                 "probe"))
-        res["step_us"][f"b_{name}"] = rank1_step_us(
-            sb, ob, ones, "(b) devex", wb["niter"])
         # (b) the optimal devex LP: solve_lp's answer on the rank-1 step
         # with no FMA launch, and its walk
         _, res["solves"][f"b_optimal_{name}"] = solo_solve(
@@ -1969,16 +2029,9 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
                 o = dc.replace(o, max_iters=SOLO_BLAND_WINDOW)
             res["walks"][f"c_{rule}_{name}"] = solo_walk_check(
                 "primal", st, o, f"(c) {rule}", "rank1_cluster")
-        om = SolverOptions.for_dtype(dt, rule=RULE_MAX_INCREASE)
-        res["stages"][f"a_max_increase_{name}"] = rank1_stage_checks(
-            st, om, None, f"(a) greatest increase {name}",
-            ("max_increase",), min_step=5)
-        res["step_us"][f"a_max_increase_{name}"] = rank1_step_us(
-            st, om, None, "(a) greatest increase",
-            res["walks"][f"c_max_increase_{name}"]["niter"])
         # (e) the warm re-solves: phase 7c's (three rows x 0.8) and a
-        # deeper one on rank1_step's dual walk, a resident one on lane_dual
-        # at B = 1
+        # deeper one on the cluster's dual walk, a resident one on
+        # lane_dual at B = 1
         b2 = b.copy()
         b2[:3] *= 0.8
         form2 = scenario_form(A, b2, c)
@@ -1998,13 +2051,6 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         w3 = solo_walk_check("dual", frame3, opts, "(e) deeper warm dual",
                              "rank1_cluster")
         res["walks"][f"e_deep_{name}"] = w3
-        res["step_us"][f"e_deep_{name}"] = rank1_step_us(
-            frame3, opts, None, "(e) dual", w3["niter"], dual=True)
-        if name == "float64":
-            # (d) on the dual walk: a pivot and the optimal exit
-            res["stages"]["e_float64"] = rank1_stage_checks(
-                frame3, opts, None, "(e) dual float64",
-                ("dual_pivot", "dual_exit"), dual=True)
         solc, res["solves"][f"e_resident_cold_{name}"] = solo_solve(
             sf_ci, dt, "auto", "(e) resident cold", "lane_primal", dev=dev)
         _, res["solves"][f"e_resident_{name}"] = solo_solve(
@@ -2049,9 +2095,8 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
             SOLO_GRID_WINDOW if dt == torch.float64 else SOLO_GRID_WINDOW_F32)
         res["walks"][f"f_{name}"] = w
         if dt == torch.float64:
-            res["grid_us"]["f_float64"], res["step_us"]["f_float64"] = \
-                grid_and_step_us("primal", sm, of, "(f)", w["niter"],
-                                 clock_hz)
+            res["grid_us"]["f_float64"] = grid_turns(
+                "primal", sm, of, "(f)", w["niter"], clock_hz)
         del sm
         torch.cuda.empty_cache()
     # (e) at (f)'s size: the warm re-solve of phase 5's LP with a quarter
@@ -2071,10 +2116,8 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
             SOLO_GRID_WINDOW if dt == torch.float64 else SOLO_GRID_WINDOW_F32)
         res["walks"][f"e_main_{name}"] = wf
         if dt == torch.float64:
-            res["grid_us"]["e_main_float64"], \
-                res["step_us"]["e_main_float64"] = grid_and_step_us(
-                    "dual", frame_f, od, "(e) dual main", wf["niter"],
-                    clock_hz)
+            res["grid_us"]["e_main_float64"] = grid_turns(
+                "dual", frame_f, od, "(e) dual main", wf["niter"], clock_hz)
         del frame_f
         torch.cuda.empty_cache()
     # (e) resident on the grid: a warm re-solve of a 514 x 1537 LP, f64
@@ -2097,10 +2140,18 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
         res["grid_us"]["e_grid_resident_float64"] = rank1_grid_us(
             "dual", frame_r, o64, "(e) resident dual", wr["niter"], clock_hz)
     del frame_r
-    # the grid on edge cases at forced splits; rank1_step past its plan
+    # the grid on edge cases at forced splits and plans; its card tests
     res["edge_grid"] = {str(dt)[6:]: grid_edge_cases(dt, dev)
                         for dt in (torch.float64, torch.float32)}
-    res["past"] = past_grid_walk(dev)
+    res["card_tests"] = rank1_grid_card_tests(dev)
+    # past the replicated vectors: the device-vector and wide plans; the
+    # warm re-solve end to end
+    t0 = time.perf_counter()
+    res["past"] = past_replicated_walks(clock_hz, cut, dev)
+    res["past"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["warm_zs"] = warm_resolve_end_to_end(cut, dev)
+    res["warm_zs"]["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     # the bounded walk of a strided tableau (a transposed view) equals the
@@ -3144,7 +3195,7 @@ def blocked_flush_case(state, K: int = BLK5_K):
 
 def threshold_table(dev="cuda"):
     """5d (f): us a pivot of the rank-1 walk on its route
-    (``rank1_cluster``, ``rank1_grid``) and on ``rank1_step``, the blocked
+    (``rank1_cluster``, ``rank1_grid``), the blocked
     engine on its route (``blocked_cluster`` where its plan fits), on
     ``blocked_step`` and the kernel engine on bench.py's recipe at each of
     THRESH_SHAPES, f64, over THRESH_PIVOTS pivots (the better of two runs,
@@ -3156,7 +3207,6 @@ def threshold_table(dev="cuda"):
     from tpulp_torch.core import eta_scaled_options
     from tpulp_torch.kernels.blocked import blocked_steps
     from tpulp_torch.kernels.launch import sm_count
-    from tpulp_torch.kernels.rank1 import rank1_steps
     from tpulp_torch.solve import (run_simplex, run_simplex_blocked,
                                    run_simplex_blocked_kernel)
     from tpulp_torch.solve.blocked import blocked_route
@@ -3168,13 +3218,7 @@ def threshold_table(dev="cuda"):
                                o.max_iters, BLK5_K)
         return finish(out)
 
-    def on_rank1_steps(s, o):
-        out, _ = rank1_steps(s, o, o.resolved_stall_limit(s.m, s.n),
-                             o.max_iters)
-        return finish(out)
-
     engines = {"rank1": lambda s, o: run_simplex(s, o),
-               "rank1_step": on_rank1_steps,
                "blocked": lambda s, o: run_simplex_blocked(s, o, BLK5_K),
                "blocked_step": on_steps,
                "kernel": lambda s, o: run_simplex_blocked_kernel(
@@ -3560,11 +3604,10 @@ def check_static_smem(ptxas) -> None:
     """The inner-block kernel's static shared memory (ptxas's report) must
     fit the room ``inner_block_plan`` leaves beside the dynamic share it
     plans, or a plan that fits on paper would not launch. The lane
-    kernels' must fit the room ``lane_plan`` leaves, and each of the eight
-    bounded kernels' and the sixteen rank-1 kernels' the 33 slots of its
-    block reduction, and each of the fourteen blocked kernels' those and
-    its eta coefficients, and the two cluster kernels' and the three grid
-    walks' the room their plans leave."""
+    kernels' must fit the room ``lane_plan`` leaves, each of the fourteen
+    blocked kernels' the 33 slots of its block reduction and its eta
+    coefficients, and the two cluster kernels' and the three grid walks'
+    the room their plans leave."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.blocked_cluster import \
         BLOCKED_CLUSTER_STATIC_SMEM
@@ -3584,12 +3627,6 @@ def check_static_smem(ptxas) -> None:
             max(lane.values()) > LANE_STATIC_SMEM:
         raise AssertionError(f"lane kernels' static shared memory {lane}: "
                              f"the plan leaves {LANE_STATIC_SMEM} bytes")
-    rk1 = {k: v.get("static_smem", 0) for k, v in ptxas.items()
-           if k.startswith("rank1_")}
-    if len(rk1) != len(RANK1_KERNELS) or \
-            max(rk1.values()) > BOUNDED_STATIC_SMEM:
-        raise AssertionError(f"rank-1 kernels' static shared memory {rk1}: "
-                             f"their reductions take {BOUNDED_STATIC_SMEM}")
     clu = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k.startswith("cluster_kernel")}
     if len(clu) != len(CLUSTER_KERNELS) or \
@@ -3628,8 +3665,7 @@ def check_static_smem(ptxas) -> None:
                              f"the plan leaves {BLOCKED_GRID_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
-        f"within {LANE_STATIC_SMEM}; rank-1 kernels {rk1} bytes, within "
-        f"{BOUNDED_STATIC_SMEM}; blocked "
+        f"within {LANE_STATIC_SMEM}; blocked "
         f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
         f"{clu} bytes, within {CLUSTER_STATIC_SMEM}; blocked_cluster {bkc} "
         f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}; bounded_grid {bgr} "
@@ -3646,20 +3682,13 @@ LANE_KERNELS = tuple(f"lane_{kind}_kernelI{t}Lb{r}" for kind in
 
 def _walk_kernels(ns: str, stages) -> dict:
     """{mangled-name fragment: readable name} of a stream-ordered walk's
-    kernels in namespace ``tpulp::<ns>``, <float or double> (the namespace
-    tells rank1.cu's price_kernel from blocked.cu's)."""
-    prefix = {"rk1": "rank1", "blk": "blocked"}[ns]
+    kernels in namespace ``tpulp::<ns>``, <float or double>."""
+    prefix = {"blk": "blocked"}[ns]
     return {f"{len(ns)}{ns}{len(k)}{k}I{t}":
             f"{prefix}_{k}<{'float' if t == 'f' else 'double'}>"
             for k in (f"{stage}_kernel" for stage in stages) for t in "fd"}
 
 
-# the rank-1 step's eight kernels (five, and the dual walk's price, ratio
-# and finish)
-RANK1_KERNELS = _walk_kernels("rk1", ("scan", "price", "ratio", "update",
-                                      "finish", "dual_price", "dual_ratio",
-                                      "dual_finish"))
-# the blocked engine's seven kernels
 BLOCKED_KERNELS = _walk_kernels("blk", ("cleanup", "price", "column",
                                         "ratio", "row", "finish", "ray"))
 # the cluster walk's instantiations: <float or double, the walk>
@@ -3682,8 +3711,6 @@ BOUNDED_GRID_KERNELS = {
        f"bgrid_kernel<{'float' if t == 'f' else 'double'},"
        f"{'devex' if d == '1' else 'dantzig'},wide>"
        for t in "fd" for d in "01"}}
-# the rank-1 grid walk's instantiations: <float or double, the walk,
-# streamed>
 # the sharded pivot's instantiations: <float or double, elements a load>
 SHARD_KERNELS = {
     **{f"shard_pivot_kernelI{t}Li{v}E":
@@ -3692,12 +3719,19 @@ SHARD_KERNELS = {
     **{f"shard_vectors_kernelI{t}E":
        f"shard_vectors_kernel<{'float' if t == 'f' else 'double'}>"
        for t in "fd"}}
+# the rank-1 grid walk's instantiations: <float or double, the walk,
+# streamed, the per-row vectors in device memory (always streamed)>, and
+# the wide plan's kernel <float or double, the walk>
 RANK1_GRID_KERNELS = {
-    f"3rgr11grid_kernelI{t}Li{w}ELb{r}E":
-    f"rgrid_kernel<{'float' if t == 'f' else 'double'},{walk}"
-    f"{',streamed' if r == '1' else ''}>"
-    for t in "fd" for w, walk in enumerate(("primal", "devex", "dual"))
-    for r in "01"}
+    **{f"3rgr11grid_kernelI{t}Li{w}ELb{r}ELb{v}E":
+       f"rgrid_kernel<{'float' if t == 'f' else 'double'},{walk}"
+       f"{',streamed' if r == '1' else ''}"
+       f"{',device_vectors' if v == '1' else ''}>"
+       for t in "fd" for w, walk in enumerate(("primal", "devex", "dual"))
+       for r, v in (("0", "0"), ("1", "0"), ("1", "1"))},
+    **{f"3rgr11wide_kernelI{t}Li{w}E":
+       f"rgrid_kernel<{'float' if t == 'f' else 'double'},{walk},wide>"
+       for t in "fd" for w, walk in enumerate(("primal", "devex", "dual"))}}
 # the blocked cluster's instantiations: <float or double>
 BLOCKED_CLUSTER_KERNELS = {
     f"3bkc14cluster_kernelI{t}E":
@@ -3733,8 +3767,6 @@ def _ptxas_name(name: str) -> str:
         else name
     if name.startswith("lane_"):
         return f"{head}<{t},{'resident' if name.endswith('1') else 'streamed'}>"
-    if name in RANK1_KERNELS:
-        return RANK1_KERNELS[name]
     if name in BLOCKED_KERNELS:
         return BLOCKED_KERNELS[name]
     if name in CLUSTER_KERNELS:
@@ -3771,7 +3803,6 @@ def ptxas_report(text: str):
                                  "inner_block_kernelId", *FLUSH_KERNELS,
                                  "fma_kernelIf", "fma_kernelId",
                                  "barrier_probe_kernel", *LANE_KERNELS,
-                                 *RANK1_KERNELS,
                                  *BLOCKED_KERNELS, *CLUSTER_KERNELS,
                                  *BLOCKED_CLUSTER_KERNELS,
                                  *BLOCKED_GRID_KERNELS,
@@ -5986,7 +6017,9 @@ def shared_frame_turns(dev):
     which both the device-vector plan (the route's) and the wide plan
     hold: one launch of BND_PAST_GRID_TIMED steps on each, in turns (wide,
     device, device, wide), from step 8 and from its first window that
-    mostly pivots; device us a step (median of three a turn)."""
+    mostly pivots; device us a step (median of three a turn), beside the
+    table's step convention (the frame read and written once a step) and
+    an entering flip's own bound (the pricing row read once)."""
     import torch
 
     from tpulp_torch.kernels import bounded_grid as kg
@@ -6014,12 +6047,18 @@ def shared_frame_turns(dev):
                 for _ in range(3)]
             turns.setdefault(f"from {adv} {v}", []).append(
                 float(np.median(runs)))
+    step_us = 1e3 * bound(2.0 * M * N * 8, 0.0, FP64_FLOP_S)[0]
+    flip_us = 1e6 * N * 8 / HBM_BYTES_S
     log(f"# 8a (s) {M} x {N} float64 on both plans (device-vector: R "
         f"{plans['device'].rows}, {plans['device'].smem} bytes; wide: "
         f"{plans['wide'].smem} bytes), one launch of {steps} steps, device "
-        f"us a step in turns: {turns} (chunks {chunks})")
+        f"us a step in turns: {turns} (chunks {chunks}); bounds a step: "
+        f"{step_us:.2f} us (the table's step convention), {flip_us:.3f} us "
+        "an entering flip")
     return {"plans": {v: p._asdict() for v, p in plans.items()},
-            "window_from": start, "steps": steps, "turns_us": turns}
+            "window_from": start, "steps": steps, "turns_us": turns,
+            "chunks": chunks, "step_bound_us": step_us,
+            "flip_bound_us": flip_us}
 
 
 def phase_bounded_lp(dev):
@@ -8635,12 +8674,6 @@ def main() -> int:
                         "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
                         "592; tpulp/batch/vmap_driver.py:250)",
                         milp_launches),
-        "rank1_step": ("tpulp_torch/kernels/csrc/rank1.cu",
-                       "none: XLA's compiled lax.while_loop over "
-                       "simplex_step, devex_simplex_step and "
-                       "dual_simplex_step (tpulp/solve/driver.py:74, "
-                       "252-293; tpulp/solve/devex.py:75, 240-262; "
-                       "tpulp/solve/dual.py:62)", solo["launches"]),
         "blocked_step": ("tpulp_torch/kernels/csrc/blocked.cu",
                          "none: XLA's compiled lax.while_loop over "
                          "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
@@ -8717,10 +8750,6 @@ def main() -> int:
             "vectors (tpulp/shard/sharded_blocked.py:242-244)",
             mesh["blocked"]["launches"]),
     }
-    # rank1_step's main path since the grid took every frame a cluster
-    # does not hold up to its plan: (x)'s walk past the plan
-    sources["rank1_step"] = sources["rank1_step"][:2] + (
-        solo["past"]["launches"],)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     batch_part = {"blocked_cluster_batch": "cluster",
@@ -8858,59 +8887,37 @@ def main() -> int:
                     "launches": z["launches"]["bounded_grid"]}
             cases["shared frame (s)"] = bl["shared_frame"]
             head = cases["float64"]
-        elif kname == "rank1_step":
-            # per step of 5c's walks: the walk's host-clock time, the plain
-            # step's, the tableau's bytes, the launches on the card alone
-            cases = {}
-            for case, walk, us in (
-                    ("float64", "a_float64", "a_float64"),
-                    ("float32", "a_float32", "a_float32"),
-                    ("devex float64", "b_float64", "b_float64"),
-                    ("devex float32", "b_float32", "b_float32"),
-                    ("greatest increase float64", "c_max_increase_float64",
-                     "a_max_increase_float64"),
-                    ("greatest increase float32", "c_max_increase_float32",
-                     "a_max_increase_float32"),
-                    ("main 1538x3073 float64", "f_float64", "f_float64"),
-                    ("dual float64", "e_deep_float64", "e_deep_float64"),
-                    ("dual float32", "e_deep_float32", "e_deep_float32"),
-                    ("dual main 1538x3073 float64", "e_main_float64",
-                     "e_main_float64")):
-                w, u = solo["walks"][walk], solo["step_us"][us]
-                # on the cluster and grid routes: rank1_step's walk timed
-                # beside it
-                w = w.get("rank1_step", w)
-                cases[case] = {
+        elif kname == "rank1_grid":
+            # a pivot of 5c's grid walks: the host clock, one launch of up
+            # to 1,024 steps on the card by stage (twice), the plain
+            # version's window, the walk's bound (the frame read and
+            # written once, an fma an entry a pivot) beside the kernel's
+            # own convention and the table's step convention
+            def rgrid_case(w, g, **extra):
+                steps = max(w["niter"], 1)
+                case = {
                     "max_abs_err": w["max_abs_err"], "ms": w["ms_per_step"],
                     "plain_ms": w["plain_ms_per_step"],
-                    "bound_ms": u["bound_us_per_step"] / 1e3,
-                    "bound_by": u["bound_by"], "library_ms": None,
-                    "device_ms": u["device_us_per_step"] / 1e3,
-                    "device_ms_by_stage": {
-                        k: v / 1e3 for k, v in
-                        u["device_us_by_stage"].items()},
-                    "host_enqueue_ms": u["host_us_per_step"] / 1e3,
-                    "steps": w["niter"]}
-            # the route's shape since the grid: (x), past its plan
-            px, u = solo["past"], solo["past"]["step_us"]
-            cases["past the grid's plan float64 (x)"] = {
-                "max_abs_err": px["max_abs_err"], "ms": px["ms_per_step"],
-                "plain_ms": px["plain_ms_per_step"],
-                "bound_ms": u["bound_us_per_step"] / 1e3,
-                "bound_by": u["bound_by"], "library_ms": None,
-                "device_ms": u["device_us_per_step"] / 1e3,
-                "device_ms_by_stage": {
-                    k: v / 1e3 for k, v in u["device_us_by_stage"].items()},
-                "host_enqueue_ms": u["host_us_per_step"] / 1e3,
-                "steps": px["steps"]}
-            head = cases["past the grid's plan float64 (x)"]
-        elif kname == "rank1_grid":
-            # a pivot of 5c's grid walks: the host clock (in turns with
-            # rank1_step's walk of the same frame), one launch of up to
-            # 1,024 steps on the card by stage, the plain version's window,
-            # the walk's bound (the frame read and written once, an fma an
-            # entry a pivot) beside the kernel's own convention and the
-            # table's step convention
+                    "bound_ms": g["bound_ms"] if g else w["bound_ms"] / steps,
+                    "bound_by": g["bound_by"] if g else w["bound_by"],
+                    "library_ms": None, "steps": w["niter"], **extra}
+                if g:
+                    case.update(
+                        device_ms=g["device_us_per_step"] / 1e3,
+                        device_ms_turns=[v / 1e3 for v in
+                                         g.get("device_us_turns", [])],
+                        device_ms_by_stage={
+                            k: v / 1e3 for k, v in
+                            g["device_us_by_stage"].items()},
+                        grid_bound_ms=g["grid_bound_ms"],
+                        step_bound_ms=g["step_bound_ms"],
+                        occupancy=g["occupancy"], blocks=g["blocks"],
+                        width=g["width"], rows=g["rows"], smem=g["smem"],
+                        scratch=g["scratch"], vectors=g["vectors"],
+                        tile_rows=g["tile_rows"], timed_steps=g["steps"],
+                        timed_from=g["advance"])
+                return case
+
             cases = {}
             for case, walk, us in (
                     ("float64", "f_float64", "f_float64"),
@@ -8920,39 +8927,32 @@ def main() -> int:
                     ("resident dual 514x1537 float64",
                      "e_grid_resident_float64", "e_grid_resident_float64")):
                 w = solo["walks"][walk]
-                g = solo["grid_us"].get(us) if us else None
-                steps = max(w["niter"], 1)
-                cases[case] = {
-                    "max_abs_err": w["max_abs_err"], "ms": w["ms_per_step"],
-                    "plain_ms": w["plain_ms_per_step"],
-                    "bound_ms": g["bound_ms"] if g else w["bound_ms"] / steps,
-                    "bound_by": g["bound_by"] if g else w["bound_by"],
-                    "library_ms": None,
-                    "rank1_step_ms": w["rank1_step"]["ms_per_step"],
-                    "walk_seconds": w["seconds"],
-                    "rank1_step_walk_seconds": w["rank1_step"]["seconds"],
-                    "blocks": w["blocks"], "width": w["width"],
-                    "rows": w["rows"], "smem": w["smem"],
-                    "scratch": w["scratch"], "steps": w["niter"]}
-                if g:
-                    cases[case].update(
-                        device_ms=g["device_us_per_step"] / 1e3,
-                        device_ms_turns=[v / 1e3 for v in
-                                         g.get("device_us_turns", [])],
-                        device_ms_by_stage={
-                            k: v / 1e3 for k, v in
-                            g["device_us_by_stage"].items()},
-                        grid_bound_ms=g["grid_bound_ms"],
-                        step_bound_ms=g["step_bound_ms"],
-                        occupancy=g["occupancy"],
-                        timed_steps=g["steps"])
-                    if us in solo["step_us"]:
-                        cases[case]["rank1_step_device_ms"] = \
-                            solo["step_us"][us]["device_us_per_step"] / 1e3
+                cases[case] = rgrid_case(
+                    w, solo["grid_us"].get(us) if us else None,
+                    walk_seconds=w["seconds"],
+                    plain_walk_seconds=w["plain_walk_seconds"],
+                    blocks=w["blocks"], width=w["width"], rows=w["rows"],
+                    smem=w["smem"], scratch=w["scratch"])
+            # past the replicated vectors: the held walks (the host clock,
+            # the plain walk), each one launch, timed by stage
+            px = solo["past"]
+            for case, key in (
+                    ("device vectors float64 (x)", "x"),
+                    ("device vectors dual float64 (xd)", "xd"),
+                    ("device vectors float32 (x32)", "x32"),
+                    ("wide float64 (zr)", "zr"),
+                    ("wide devex float64 (zr)", "zr_devex"),
+                    ("wide dual float64 (zr)", "zr_dual"),
+                    ("wide float32 (zr32)", "zr32")):
+                w = px[key]
+                cases[case] = rgrid_case(
+                    w, w.get("grid_us"), launches=w["launches"],
+                    plan=w["plan"], whole=w.get("whole"))
+            cases["warm re-solve end to end float64 (zs)"] = solo["warm_zs"]
             head = cases["float64"]
         elif kname == "rank1_cluster":
-            # a pivot of 5c's walks on the cluster kernel: the host clock
-            # (in turns with rank1_step), the launch on the card, the plain
+            # a pivot of 5c's walks on the cluster kernel: the host clock,
+            # the launch on the card, the plain
             # version's walk, the walk's bound (the frame read and written
             # once, one fma an entry a pivot) a pivot
             cases = {}
@@ -8989,8 +8989,6 @@ def main() -> int:
                     "walk_ms": w["host_us_per_step"] * steps / 1e6,
                     "load_store_ms": w["load_store_ms"],
                     "step_bound_ms": w["step_bound_ms"],
-                    "rank1_step_ms": w["rank1_step"]["ms_per_step"],
-                    "rank1_step_steps": w["rank1_step"]["steps"],
                     "blocks": w["blocks"], "width": w["width"],
                     "smem": w["smem"], "occupancy": w["occupancy"],
                     "steps": w["niter"]}
@@ -9260,24 +9258,12 @@ def main() -> int:
                                         "too_wide_32")}}
     bgrid["edge_walks_held"] = exact["bounded_lp"]["reference"]["edge_walks"]
     bgrid["card_tests"] = exact["bounded_lp"]["card_tests"]
-    kc = by_name["rank1_step"]
-    kc.update({key: kc["cases"][
-        "past the grid's plan float64 (x)"][key] for key in (
-        "device_ms", "host_enqueue_ms", "steps")})
     # the 5c solves: 0 on the frames a cluster holds (a, b, e, g) since the
     # cluster kernel took them, 0 on (f) and (e) at 1538 x 3073 since the
-    # grid; (x)'s walk past the grid's plan
+    # grid
     solves5c = SOLO_SOLVES + ("e_main_float64", "f_float64",
                               "e_grid_resident_cold_float64",
                               "e_grid_resident_float64")
-    by_name["rank1_step"]["launches_by_path"] = {
-        f"5c_{case}": solo["solves"][case]["launches"]["rank1_step"]
-        for case in solves5c}
-    by_name["rank1_step"]["launches_by_path"]["5c_past_grid_float64"] = \
-        solo["past"]["launches"]["rank1_step"]
-    by_name["rank1_step"]["walks"] = {k: v for k, v in solo["walks"].items()
-                           if v["route"] == "rank1_step"}
-    by_name["rank1_step"]["stages_held_at_step"] = solo["stages"]
     kc = by_name["rank1_cluster"]
     kc.update({key: kc["cases"]["float64"][key] for key in (
         "device_ms", "load_store_ms", "blocks", "occupancy", "steps")})
@@ -9285,19 +9271,24 @@ def main() -> int:
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_cluster"]
         for case in solves5c}
     # the grid: one launch a walk on (f), (e) at 1538 x 3073 and the
-    # resident re-solve; 0 on the cluster's frames and past its plan
+    # resident re-solve; 0 on the cluster's frames; one a walk past the
+    # replicated vectors, on the device-vector and wide plans, and on
+    # (zs)'s warm re-solve
     kc = by_name["rank1_grid"]
     kc.update({key: kc["cases"]["float64"].get(key)
                         for key in ("device_ms", "device_ms_by_stage",
                                     "blocks", "width", "rows", "smem",
                                     "scratch", "occupancy", "grid_bound_ms",
-                                    "step_bound_ms", "rank1_step_ms",
-                                    "steps")})
+                                    "step_bound_ms", "steps")})
     by_name["rank1_grid"]["launches_by_path"] = {
         f"5c_{case}": solo["solves"][case]["launches"]["rank1_grid"]
         for case in solves5c}
-    by_name["rank1_grid"]["launches_by_path"]["5c_past_grid_float64"] = \
-        solo["past"]["launches"]["rank1_grid"]
+    by_name["rank1_grid"]["launches_by_path"].update({
+        f"5c_past_{key}": solo["past"][key]["launches"]
+        for key in ("x", "xd", "x32", "zr", "zr_devex", "zr_dual", "zr32")})
+    by_name["rank1_grid"]["launches_by_path"]["5c_zs_warm_start"] = \
+        solo["warm_zs"]["warm_start"]["launches"]["rank1_grid"]
+    by_name["rank1_grid"]["card_tests"] = solo["card_tests"]
     by_name["rank1_grid"]["walks"] = {k: v for k, v in solo["walks"].items()
                             if v["route"] == "rank1_grid"}
     by_name["rank1_grid"]["edge_walks_held"] = solo["edge_grid"]
@@ -9459,7 +9450,6 @@ def main() -> int:
             ("fused_flush", ("flush_kernel<float>", "flush_kernel<double>")),
             ("blocked_inner_block", "inner_block"), ("fused_fma", "fma"),
             ("lane_dual", "lane_dual"), ("lane_primal", "lane_primal"),
-            ("rank1_step", "rank1"),
             ("blocked_step", tuple(BLOCKED_KERNELS.values())),
             ("rank1_cluster", tuple(CLUSTER_KERNELS.values())),
             ("blocked_cluster", tuple(BLOCKED_CLUSTER_KERNELS.values())),

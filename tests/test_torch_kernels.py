@@ -339,7 +339,6 @@ def test_launch_counters_stay_zero_on_cpu():
     assert LAUNCHES == {"fused_flush": 0, "blocked_inner_block": 0,
                         "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
                         "lane_bounded": 0, "bounded_grid": 0,
-                        "rank1_step": 0, "rank1_stage": 0,
                         "rank1_cluster": 0, "rank1_cluster_lanes": 0,
                         "rank1_grid": 0,
                         "blocked_step": 0, "blocked_ray": 0,
@@ -368,7 +367,7 @@ def test_nvcc_command_line():
                                                "blocked_grid.cu",
                                                "bounded_grid.cu", "flush.cu",
                                                "fma.cu", "inner_block.cu",
-                                               "lanes.cu", "rank1.cu",
+                                               "lanes.cu",
                                                "rank1_cluster.cu",
                                                "rank1_grid.cu",
                                                "shard_pivot.cu"]

@@ -431,7 +431,7 @@ def test_cpu_walks_never_reach_the_cluster_kernel(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("a kernel route was taken on the CPU")
 
-    for name in ("rank1_cluster", "rank1_steps", "lane_primal",
+    for name in ("rank1_cluster", "rank1_grid", "lane_primal",
                  "lane_dual"):
         monkeypatch.setattr(pdriver, name, refuse)
     monkeypatch.setattr(kc, "rank1_cluster", refuse)

@@ -1,17 +1,17 @@
-"""The solo rank-1, devex and dual walks on the card
-(``tpulp_torch/kernels/rank1.py`` and the lane kernels at B = 1), held on
-the CPU through their plain versions: composed, the scan, price, ratio,
-update and finish stages give ``simplex_step``, ``devex_simplex_step`` and
-``dual_simplex_step`` bit for bit (``T + 0.0``) in every field at f64 and
-f32, for Dantzig, Bland, the greatest increase, devex, largest-pivot ties
-(with Dantzig and with the greatest increase), ``RULE_DEVEX`` priced as
-Dantzig and the stall switch to Bland, and tpulp's jitted steps step for
-step at f64 (status, pivots, basis, the tableau). The lane loops at B = 1,
-the route rule, the wrapper's refusals and the CPU dispatch are held here
-too. The kernels themselves run on the card only (the ``cuda`` test;
-chip_smoke.py's phase 5c holds them at full size)."""
-
-import dataclasses
+"""The solo rank-1, devex and dual walks' plain stages
+(``tpulp_torch/kernels/rank1.py``, the plain versions of the grid and
+cluster walks) and the lane kernels at B = 1, held on the CPU: composed,
+the scan, price, ratio, update and finish stages give ``simplex_step``,
+``devex_simplex_step`` and ``dual_simplex_step`` bit for bit (``T + 0.0``)
+in every field at f64 and f32, for Dantzig, Bland, the greatest increase,
+devex, largest-pivot ties (with Dantzig and with the greatest increase),
+``RULE_DEVEX`` priced as Dantzig and the stall switch to Bland, and
+tpulp's jitted steps step for step at f64 (status, pivots, basis, the
+tableau). The lane loops at B = 1, the route rule, the record's refusals
+and the CPU dispatch are held here too. The kernels themselves run on the
+card only (``tests/test_torch_rank1_grid_card.py`` holds the grid walk on
+these instances against its plain version; chip_smoke.py's phase 5c holds
+the walks at full size)."""
 
 import jax
 import jax.numpy as jnp
@@ -517,67 +517,11 @@ def _small():
         SolverOptions.for_dtype(torch.float64)
 
 
-def test_rank1_steps_raises_on_cpu_tensors():
-    state, opts = _small()
-    with pytest.raises(ValueError, match="CUDA"):
-        kr.rank1_steps(state, opts, 10, 10)
-
-
-def test_rank1_steps_raises_on_mixed_devices():
-    state, opts = _small()
-    with pytest.raises(ValueError, match="CUDA"):
-        kr.rank1_steps(state._replace(basis=state.basis.to("meta")), opts,
-                       10, 10)
-
-
-def test_rank1_steps_raises_on_float16():
-    state, opts = _small()
-    half = state._replace(T=state.T.half(), last_z=state.last_z.half())
-    with pytest.raises(ValueError, match="float32 or float64"):
-        kr.rank1_steps(half, opts, 10, 10)
-
-
-def test_rank1_steps_raises_on_a_strided_tableau():
-    state, opts = _small()
-    strided = state._replace(T=state.T.t().contiguous().t())
-    assert not strided.T.is_contiguous()
-    with pytest.raises(ValueError, match="contiguous"):
-        kr.rank1_steps(strided, opts, 10, 10)
-
-
-def test_rank1_steps_raises_on_weights_of_the_wrong_length():
-    state, opts = _small()
-    with pytest.raises(ValueError, match="gamma"):
-        kr.rank1_steps(state, opts, 10, 10,
-                       torch.ones(state.n + 1, dtype=torch.float64))
-
-
 def test_dual_walk_takes_no_weights():
     state, opts = _small()
     ones = torch.ones(state.n, dtype=torch.float64)
     with pytest.raises(ValueError, match="dual"):
-        kr.rank1_steps(state, opts, 10, 10, ones, dual=True)
-    with pytest.raises(ValueError, match="dual"):
         kr.make_record(state, opts, ones, dual=True)
-    with pytest.raises(ValueError, match="CUDA"):
-        kr.rank1_steps(state, opts, 10, 10, dual=True)
-
-
-def test_record_launches_raise_on_cpu_records():
-    """The single-stage launch and the step enqueue refuse a record off
-    the card, and a greatest-increase launch on a record without the
-    scan's partials, before any pointer is passed."""
-    state, opts = _small()
-    rec = kr.make_record(state, opts)
-    with pytest.raises(ValueError, match="CUDA"):
-        kr.rank1_stage(rec, "price", opts, 10, 10)
-    with pytest.raises(ValueError, match="CUDA"):
-        kr.enqueue_steps(rec, opts, 10, 10, 1)
-    assert rec.scan is None
-    with pytest.raises(ValueError, match="CUDA|scan"):
-        kr.rank1_stage(rec, "scan", dataclasses.replace(
-            opts, rule=RULE_MAX_INCREASE), 10, 10)
-    assert LAUNCHES["rank1_step"] == LAUNCHES["rank1_stage"] == 0
 
 
 def test_cpu_walks_never_reach_a_kernel(monkeypatch):
@@ -590,9 +534,8 @@ def test_cpu_walks_never_reach_a_kernel(monkeypatch):
 
     for mod in (pdriver, pdevex, pdual):
         monkeypatch.setattr(mod, "solo_walk", refuse)
-    for name in ("rank1_steps", "lane_primal", "lane_dual"):
+    for name in ("rank1_cluster", "rank1_grid", "lane_primal", "lane_dual"):
         monkeypatch.setattr(pdriver, name, refuse)
-    monkeypatch.setattr(kr, "rank1_steps", refuse)
     reset_launches()
     state, opts = _small()
     stall = opts.resolved_stall_limit(state.m, state.n)
@@ -616,7 +559,7 @@ def test_cpu_walks_never_reach_a_kernel(monkeypatch):
     # re-solves on the dual simplex
     warm = tpulp_torch.solve_lp(_wyndor(7), warm_start=sol, device="cpu")
     assert warm.objective == 280 and warm.niter > 0
-    assert all(LAUNCHES[k] == 0 for k in ("rank1_step", "rank1_stage",
+    assert all(LAUNCHES[k] == 0 for k in ("rank1_cluster", "rank1_grid",
                                           "lane_primal", "lane_dual",
                                           "fused_fma"))
 
@@ -632,66 +575,3 @@ def _wyndor(cap):
     lp.addConstraint(LinExpr(1, "x", 1, "y").constraintLeq(cap))
     lp.addConstraint(LinExpr(2, "x", 1, "y").constraintLeq(16))
     return lp
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernels against the plain walks and the plain stages
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_rank1_kernels_match_the_plain_walk(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 5c runs these "
-                    "checks at full size)")
-    tt = getattr(torch, dtype)
-    for instance in INSTANCES:
-        for rule in RULES:
-            state = port_state(instance, tt)
-            state = type(state)(*(x.cuda() for x in state))
-            opts, devex = rule_opts(rule, tt, max_iters=500)
-            stall = opts.resolved_stall_limit(state.m, state.n)
-            gamma = torch.ones(state.n, dtype=tt, device="cuda") \
-                if devex else None
-            out, g = kr.rank1_steps(state, opts, stall, opts.max_iters,
-                                    gamma)
-            rec = kr.make_record(state, opts, gamma)
-            while kr._live(rec.ints.tolist(), opts.max_iters):
-                kr.rank1_step_reference(rec, opts, stall, opts.max_iters)
-            torch.cuda.synchronize()
-            assert_same(type(out)(*(x.cpu() for x in out)),
-                        type(out)(*(x.cpu() for x in kr.record_state(rec))),
-                        None if g is None else g.cpu(),
-                        None if g is None else rec.gamma.cpu())
-            _cuda_stages(kr.make_record(state, opts, gamma), opts, stall)
-    for instance in DUAL_INSTANCES:
-        for rule in DUAL_RULES:
-            state = dual_state(instance, tt)
-            state = type(state)(*(x.cuda() for x in state))
-            opts = SolverOptions.for_dtype(tt, max_iters=500,
-                                           **DUAL_RULES[rule])
-            stall = opts.resolved_stall_limit(state.m, state.n)
-            out, _ = kr.rank1_steps(state, opts, stall, opts.max_iters,
-                                    dual=True)
-            ref = _solo_plain(pdual.dual_simplex_step, state, opts, stall)
-            torch.cuda.synchronize()
-            assert_same(type(out)(*(x.cpu() for x in out)),
-                        type(out)(*(x.cpu() for x in ref)))
-            _cuda_stages(kr.make_record(state, opts, dual=True), opts, stall)
-
-
-def _cuda_stages(rec, opts, stall):
-    """Each launch against its plain stage on the first steps."""
-    for _ in range(20):
-        for stage in kr.STAGES:
-            if stage == "scan" and rec.scan is None:
-                continue
-            k, p = kr.clone_record(rec), kr.clone_record(rec)
-            kr.rank1_stage(k, stage, opts, stall, opts.max_iters)
-            kr.rank1_stage_reference(p, stage, opts, stall, opts.max_iters)
-            torch.cuda.synchronize()
-            for (name, a), (_, b) in zip(kr.record_tensors(k),
-                                         kr.record_tensors(p)):
-                assert torch.equal(as_bits(a.cpu()),
-                                   as_bits(b.cpu())), (stage, name)
-            rec = p

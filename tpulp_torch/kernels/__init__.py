@@ -12,7 +12,6 @@ from .fma import fused_fma
 from .lanes import (lane_bounded, lane_bounded_plan, lane_dual, lane_dual_plan,
                     lane_plan, lane_primal)
 from .launch import LAUNCHES, reset_launches
-from .rank1 import rank1_stage, rank1_steps
 # the module, not its wrapper of the same name: rank1_cluster.rank1_cluster
 from .rank1_cluster import cluster_plan
 # the module, not its wrapper of the same name: rank1_grid.rank1_grid
@@ -36,8 +35,6 @@ __all__ = [
     "lane_bounded",
     "lane_bounded_plan",
     "bounded_grid_plan",
-    "rank1_steps",
-    "rank1_stage",
     "cluster_plan",
     "rank1_grid_plan",
     "blocked_steps",

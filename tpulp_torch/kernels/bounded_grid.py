@@ -188,9 +188,9 @@ class GridPlan(NamedTuple):
 class GridPlanTooLarge(ValueError):
     """A block's shared memory does not hold the frame's first three slab
     rows and tile ring (beside the replicated vectors, where the kernel
-    keeps them there): ``solve.driver.solo_route`` then takes
-    ``rank1_steps``; ``bounded_grid_plan`` raises it only where a plan is
-    forced past its edge (its wide plan takes every other frame)."""
+    keeps them there). ``bounded_grid_plan`` and ``rank1_grid_plan`` raise
+    it only where a plan is forced past its edge (their wide plans take
+    every other frame), as does ``blocked_grid_plan`` past its own."""
 
 
 def _align(x: int) -> int:

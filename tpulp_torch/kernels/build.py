@@ -156,20 +156,19 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
-    for name in ("tpulp_rank1_steps_f32", "tpulp_rank1_steps_f64",
-                 "tpulp_blocked_steps_f32", "tpulp_blocked_steps_f64",
+    for name in ("tpulp_blocked_steps_f32", "tpulp_blocked_steps_f64",
                  "tpulp_blocked_ray_batch_f32",
                  "tpulp_blocked_ray_batch_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _I, _P]
         fn.restype = _I
-    for name in ("tpulp_rank1_stage_f32", "tpulp_rank1_stage_f64",
-                 "tpulp_blocked_stage_f32", "tpulp_blocked_stage_f64"):
+    for name in ("tpulp_blocked_stage_f32", "tpulp_blocked_stage_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
     for name in ("tpulp_rank1_cluster_f32", "tpulp_rank1_cluster_f64",
                  "tpulp_bounded_grid_f32", "tpulp_bounded_grid_f64",
+                 "tpulp_rank1_grid_f32", "tpulp_rank1_grid_f64",
                  "tpulp_blocked_cluster_f32", "tpulp_blocked_cluster_f64",
                  "tpulp_blocked_cluster_batch_f32",
                  "tpulp_blocked_cluster_batch_f64",
@@ -181,6 +180,8 @@ def load_library() -> ctypes.CDLL:
                  "tpulp_rank1_cluster_occupancy_f64",
                  "tpulp_bounded_grid_occupancy_f32",
                  "tpulp_bounded_grid_occupancy_f64",
+                 "tpulp_rank1_grid_occupancy_f32",
+                 "tpulp_rank1_grid_occupancy_f64",
                  "tpulp_blocked_cluster_occupancy_f32",
                  "tpulp_blocked_cluster_occupancy_f64",
                  "tpulp_blocked_grid_occupancy_f32",

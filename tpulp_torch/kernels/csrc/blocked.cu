@@ -19,7 +19,7 @@
 // latency of its six launches and the latency of their block reductions,
 // not by bytes or operations.
 //
-// Design: rank1.cu's, on _blocked_pivot's arithmetic. The pivot is cut at its
+// Design: the retired rank-1 step's, on _blocked_pivot's arithmetic. The pivot is cut at its
 // global dependencies (the clean-up row's eligible column, pricing, the
 // entering column, the leaving row, the pivot row) into ordinary launches;
 // the stream's order is the barrier between them, so no launch is

@@ -350,68 +350,6 @@ __device__ Layout<T> layout_dv(int W, int R, int S, int TS, int TR, unsigned cha
   return L;
 }
 
-// A DVEC step's verdict, the same in every block: the ratio test's row
-// and kinds (from the two combines), column j's entry on row r + 2, the
-// entering column's devex weight (from its owner's mailbox), and the
-// pre-step basis[r], its span, b[r + 2] and basis[r_d]; whether column j
-// has an entry that is not finite.
-template <typename T>
-struct DvVerdict {
-  T piv, gq, brow, ulv;
-  int r, leaving, bd, has_ratio, kind_up, kind_flip, colj_bad;
-};
-
-// Two NaN-first argmin picks over the G mailboxes of a region (DVEC's
-// ratio test: each block's two candidates in v, i and s, a), combined as
-// combine_mail combines its pick: lane l of warp 0 takes blocks l, l + 32,
-// ... in turn, then the warp by keys; with the largest gmax (NaN first)
-// and the flags' union. Called by every thread; the result is in out
-// (v, i, s as the second pick's value, a as its index), gmax and flags
-// after its barrier.
-template <typename T>
-__device__ void combine_picks(unsigned char* mail, int region, Red<T>* out, T* gmax,
-                              int* flags) {
-  constexpr int U = 4;  // blocks a lane loads at once
-  const int lane = threadIdx.x & 31, G = gridDim.x;
-  if (threadIdx.x < 32) {
-    const T inf = pos_inf<T>();
-    T v1 = inf, v2 = inf, gm = -inf;
-    int i1 = BIG_I, i2 = BIG_I, fl = 0;
-    for (int q0 = 0; q0 < G; q0 += 32 * U) {
-      Mail<T> mb[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int q = q0 + u * 32 + lane;
-        if (q < G) mb[u] = load_cg(mail_slot<T>(mail, region, q));
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (q0 + u * 32 + lane >= G) continue;
-        pick(v1, i1, mb[u].v, mb[u].i);
-        pick(v2, i2, mb[u].s, mb[u].a);
-        gm = nan_max(gm, mb[u].gmax);
-        fl |= mb[u].flags;
-      }
-    }
-    using K = typename KeyOf<T>::type;
-    K k1 = okey(v1, false), k2 = okey(v2, false), kg = okey(gm, true);
-    unsigned j1 = (unsigned)i1, j2 = (unsigned)i2, ig = 0;
-    warp_arg(k1, j1, false);
-    warp_arg(k2, j2, false);
-    warp_arg(kg, ig, true);
-    fl = (int)__reduce_or_sync(FULL, (unsigned)fl);
-    if (lane == 0) {
-      out->v = key_value(k1, false);
-      out->i = (int)j1;
-      out->s = key_value(k2, false);
-      out->a = (int)j2;
-      *gmax = key_value(kg, true);
-      *flags = fl;
-    }
-  }
-  __syncthreads();
-}
-
 // The plain step's three-way ratio test over the m rows of the block's
 // column col (col[i], the replicated RHS b[i] and the basic variables'
 // spans ub[i], all from row 2) with the same candidates (bounded_ratios)
@@ -1297,57 +1235,6 @@ __global__ void __launch_bounds__(THREADS, 1) grid_kernel(Params<T> p) {
 // the wide plan (I_VECS 2): no row of a slab in shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int WCH = THREADS;  // the wide plan's columns a chunk: one a thread
-
-// The dynamic shared memory of a wide block: the ring (S tiles of TS
-// bytes), column j's entries of two tiles (2 TR) and the ring's mbarriers.
-template <typename T>
-__host__ __device__ long long smem_bytes_wide(int S, int TS, int TR) {
-  return (long long)S * TS + align16(2LL * TR * (long long)sizeof(T)) + align16(8LL * S);
-}
-
-// A block's slab on the wide plan: its region of the scratch buffer (M x
-// ceil(W / WCH) WCH entries) and its wk columns, in chunks of WCH columns;
-// chunk c (the columns [c WCH, c WCH + wc(c))) is an M x wp(c) row-major
-// matrix at c M WCH entries of the region (wp: wc rounded up to 4, so that
-// every row of it is 16-byte aligned), and a tile is TR of its rows,
-// contiguous. Entries are read through L2 (L1 is not coherent with the
-// bulk copies' writes).
-template <typename T>
-struct WideSlab {
-  T* scr;
-  int M, wk;
-
-  __device__ __forceinline__ int nc() const { return (wk + WCH - 1) / WCH; }
-  __device__ __forceinline__ int wc(int c) const { return min(WCH, wk - c * WCH); }
-  __device__ __forceinline__ int wp(int c) const { return (wc(c) + 3) & ~3; }
-  __device__ __forceinline__ T* row(int c, int i) const {
-    return scr + (long long)c * M * WCH + (long long)i * wp(c);
-  }
-  __device__ __forceinline__ T* entry(int i, int kk) const {
-    const int c = kk / WCH;
-    return row(c, i) + (kk - c * WCH);
-  }
-  __device__ __forceinline__ T at(int i, int kk) const { return __ldcg(entry(i, kk)); }
-};
-
-// Block q's slab on the wide plan.
-template <typename T>
-__device__ __forceinline__ WideSlab<T> wide_slab(const Params<T>& p, int q) {
-  const long long region = (long long)p.M * ((p.W + WCH - 1) / WCH) * WCH;
-  const int k0 = q * p.W;
-  return WideSlab<T>{p.scratch + q * region, p.M, min(p.N - 1, k0 + p.W) - k0};
-}
-
-// Tile s of a step's walk over a block's ns tiles (chunks of nt row
-// tiles), chunk-major: (chunk c, row tile t); the reverse order where not
-// forward.
-__device__ __forceinline__ void wide_tile(int s, bool forward, int nt, int ns, int& c, int& t) {
-  const int q = forward ? s : ns - 1 - s;
-  c = q / nt;
-  t = q - c * nt;
-}
-
 // The wide plan's price pass, this thread's share: its columns t, t + WCH,
 // ... of the block in turn (bounded_price_scan's entries and order: the
 // |c| sums are grid_sum's), four at a time with their loads issued first;
@@ -1425,7 +1312,7 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
   const int g = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = p.M, N = p.N, W = p.W, m = M - 2, n = N - 1;
   const int k0 = g * W;
-  const WideSlab<T> slab = wide_slab(p, g);
+  const WideSlab<T> slab = wide_slab<T>(p.scratch, M, N, W, g);
   const int wk = slab.wk, nc = slab.nc();
   const int S = p.S, TR = p.TR;
   const long long tse = p.TS / (long long)sizeof(T);
@@ -1444,9 +1331,6 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
   int cur = 0;
   const int H = (m + (int)gridDim.x - 1) / (int)gridDim.x;
   const int q0 = min(m, g * H), q1 = min(m, q0 + H);
-  const auto tile_bytes = [&](int c, int t) {
-    return (unsigned)(min(TR, M - t * TR) * slab.wp(c) * (int)sizeof(T));
-  };
   if (tid == 0) {
     laps.on = p.cycles != nullptr && g == 0;
     laps.last = clock64();
@@ -1458,19 +1342,7 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
   // ---- load: the slab into its chunks (generic writes that the bulk loads
   // read: the proxy fence, then the barriers below), the own basic rows'
   // vectors, the own columns' masks and weights, the scalars ----
-  for (int c = 0; c < nc; ++c) {
-    if (tid >= slab.wc(c)) continue;
-    const T* src = p.T_in + k0 + c * WCH + tid;
-    for (int i0 = 0; i0 < M; i0 += 4) {
-      T v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (i0 + u < M) v[u] = src[(long long)(i0 + u) * N];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (i0 + u < M) slab.row(c, i0 + u)[tid] = v[u];
-    }
-  }
+  wide_load(slab, p.T_in, N, k0);
   __threadfence_block();
   fence_async_global();
   for (int q = q0 + tid; q < q1; q += THREADS) {
@@ -1523,19 +1395,7 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
 
   while (status == ST_RUNNING && niter < p.max_iters) {
     // the first tiles of the step's update, asked for before its decisions
-    // (the previous step's stores complete first: their rows are read
-    // generically from here on)
-    const int nload = min(S, NS);
-    if (tid == 0) {
-      stores_done();
-      fence_async_global();
-      for (int t = 0; t < nload; ++t) {
-        const int q = slot + t < S ? slot + t : slot + t - S;
-        int c, ti;
-        wide_tile(t, forward, NT, NS, c, ti);
-        tile_load(ring + q * tse, slab.row(c, ti * TR), tile_bytes(c, ti), mbar + q);
-      }
-    }
+    if (tid == 0) wide_first_tiles(slab, ring, tse, mbar, S, TR, NT, NS, slot, forward);
     __syncthreads();
     // ---- 1. price over the own columns; published; barrier A ----
     const bool cleanup = ra != BIG_I && phase == 2;
@@ -1609,7 +1469,7 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
       // ties after barrier B' (region A)
       const long long t0 = p.cycles && tid == 0 ? clock64() : 0;
       const bool own_j = j >= k0 && j < k0 + wk;
-      const WideSlab<T> jslab = wide_slab(p, j / W);
+      const WideSlab<T> jslab = wide_slab<T>(p.scratch, M, N, W, j / W);
       const int kj = j - (j / W) * W;
       const T t_flip = p.upper[j];
       T lv = inf, uv = inf;
@@ -1768,10 +1628,8 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
       const bool upd = do_price && !kind_flip;
       const T qd = div_rn(gq, mul_rn(piv, piv));
       const T leave = is_nan(qd) ? qd : (qd < T(1) ? T(1) : qd);
-      const int nwait = pv ? NS : nload;
       // the first chunk's pivot row entry and weight (thread t: the chunk's
       // column t), column j's entries of the first tile's rows
-      int c_cur = -1;
       T raw = T(0), gnext = T(1), pk = T(0);
       if (pv) {
         int c, t;
@@ -1787,83 +1645,41 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
       }
       __syncthreads();
       if (tid == 0) lap(&laps, C_UPDATE);
-      for (int s = 0; s < nwait; ++s) {
-        int c, t;
-        wide_tile(s, forward, NT, NS, c, t);
-        const int w = slab.wc(c);
-        if (pv && c != c_cur) {
-          // the chunk's first tile: its pivot row entry and the own
-          // column's devex weight (common.cuh's devex_weights on it), then
-          // the next chunk's asked for
-          c_cur = c;
-          pk = mul_rn(raw, rinv);
-          if (DEVEX && tid < w) {
-            const int kk = c * WCH + tid;
-            T gw = gnext;
-            if (upd) {
-              const T a = kk == jp - k0 ? T(1) : pk;
-              gw = nan_max(gw, mul_rn(mul_rn(a, a), gq));
-              if (kk == leaving - k0) gw = leave;
+      wide_stream(
+          slab, ring, cjs, mbar, S, TR, tse, NT, NS, pv, cj_sh, cjd, forward, slot, parity,
+          [&](int c, int s) {
+            // the chunk's first tile: its pivot row entry and the own
+            // column's devex weight (common.cuh's devex_weights on it), then
+            // the next chunk's asked for
+            pk = mul_rn(raw, rinv);
+            if (DEVEX && tid < slab.wc(c)) {
+              const int kk = c * WCH + tid;
+              T gw = gnext;
+              if (upd) {
+                const T a = kk == jp - k0 ? T(1) : pk;
+                gw = nan_max(gw, mul_rn(mul_rn(a, a), gq));
+                if (kk == leaving - k0) gw = leave;
+              }
+              p.gamma_out[k0 + kk] = gw;
+              offer(x, gw, kk, true);
             }
-            p.gamma_out[k0 + kk] = gw;
-            offer(x, gw, kk, true);
-          }
-          if (s + NT < NS) {
-            int c2, t2;
-            wide_tile(s + NT, forward, NT, NS, c2, t2);
-            if (tid < slab.wc(c2)) {
-              raw = __ldcg(slab.row(c2, rg) + tid);
-              if (DEVEX) gnext = p.gamma_out[k0 + c2 * WCH + tid];
+            if (s + NT < NS) {
+              int c2, t2;
+              wide_tile(s + NT, forward, NT, NS, c2, t2);
+              if (tid < slab.wc(c2)) {
+                raw = __ldcg(slab.row(c2, rg) + tid);
+                if (DEVEX) gnext = p.gamma_out[k0 + c2 * WCH + tid];
+              }
             }
-          }
-        }
-        // column j's entries of the next tile's rows, asked for before this
-        // tile's wait and staged after its update
-        const bool stage = pv && cj_sh && tid < TR && s + 1 < NS;
-        T cj_next = T(0);
-        if (stage) {
-          int c2, t2;
-          wide_tile(s + 1, forward, NT, NS, c2, t2);
-          const int in = t2 * TR + tid;
-          if (in < M) cj_next = __ldcg(cjd + in);
-        }
-        const int q = slot;
-        mbar_wait(mbar + q, (parity >> q) & 1u);
-        parity ^= 1u << q;
-        slot = q + 1 == S ? 0 : q + 1;
-        if (!pv) continue;  // the first tiles drained: nothing to update
-        // thread t: column t of the tile, every row (the same per-entry
-        // arithmetic as grid_kernel's)
-        T* const tile = ring + q * tse;
-        if (tid < w) {
-          const int kk = c * WCH + tid, wp = slab.wp(c), rows = min(TR, M - t * TR);
-          for (int ii = 0; ii < rows; ++ii) {
-            const int i = t * TR + ii;
-            const T cj = cj_sh ? cjs[(s & 1) * TR + ii] : T(i == 2);
-            T* e = tile + ii * wp + tid;
-            T v = i == rg ? pk : fma(-cj, pk, *e);
+          },
+          // thread t: column t of the tile, every row (the same per-entry
+          // arithmetic as grid_kernel's)
+          [&](int i, int kk, T cj, T e) {
+            T v = i == rg ? pk : fma(-cj, pk, e);
             if (kk == jpk) v = T(i == rg);
             if (kk == fk) v = -v;
-            *e = v;
-          }
-        }
-        if (stage) cjs[((s + 1) & 1) * TR + tid] = cj_next;
-        // the tile's generic writes before the bulk store reads it
-        fence_async_shared();
-        __syncthreads();
-        if (tid == 0) {
-          tile_store(slab.row(c, t * TR), tile, tile_bytes(c, t));
-          // the previous tile's slot, reloaded once its store has read it:
-          // this tile's store is not waited for
-          if (s >= 1 && s - 1 + S < NS) {
-            const int qp = q == 0 ? S - 1 : q - 1;
-            int c2, t2;
-            wide_tile(s - 1 + S, forward, NT, NS, c2, t2);
-            stores_read_but_one();
-            tile_load(ring + qp * tse, slab.row(c2, t2 * TR), tile_bytes(c2, t2), mbar + qp);
-          }
-        }
-      }
+            return v;
+          });
       if (DEVEX && !pv)
         for (int kk = tid; kk < wk; kk += THREADS) offer(x, p.gamma_out[k0 + kk], kk, true);
       // a step that pivots nowhere: the flipped column negated in place by
@@ -1981,19 +1797,7 @@ __global__ void __launch_bounds__(THREADS, 1) wide_kernel(Params<T> p) {
     fence_async_global();
   }
   __syncthreads();
-  for (int c = 0; c < nc; ++c) {
-    if (tid >= slab.wc(c)) continue;
-    T* dst = p.T_out + k0 + c * WCH + tid;
-    for (int i0 = 0; i0 < M; i0 += 4) {
-      T v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (i0 + u < M) v[u] = __ldcg(slab.row(c, i0 + u) + tid);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (i0 + u < M) dst[(long long)(i0 + u) * N] = v[u];
-    }
-  }
+  wide_store(slab, p.T_out, N, k0);
   for (int q = q0 + tid; q < q1; q += THREADS) {
     p.T_out[(long long)(q + 2) * N + N - 1] = __ldcg(rhsV + cur * M + q + 2);
     p.basis_out[q] = __ldcg(p.bvec + cur * m + q);

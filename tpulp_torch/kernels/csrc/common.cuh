@@ -1,15 +1,15 @@
 // Helpers shared by the kernels of tpulp_torch (flush.cu, inner_block.cu,
-// fma.cu, lanes.cu, rank1.cu, blocked.cu, rank1_cluster.cu and,
+// fma.cu, lanes.cu, blocked.cu, rank1_cluster.cu and,
 // through grid.cuh, the grid walks): the grid barrier and the
 // order-preserving keys of the cooperative kernels (inner_block.cu, the
 // grid walks, lanes.cu's lane_primal and lane_bounded) with a warp's share
 // of a reduction by keys, exact-rounding arithmetic, the (value, index)
 // comparison whose ties go to the smallest index, the block-wide
 // reductions of the single-block simplex loops
-// (lanes.cu, rank1.cu, blocked.cu): torch's NaN-first
+// (lanes.cu, blocked.cu): torch's NaN-first
 // argmin/argmax with first-index ties, two first-index minima and a sum in
-// a fixed tree, in one pass; and what the stream-ordered walks (rank1.cu,
-// blocked.cu) and the lane kernels share: the record's status
+// a fixed tree, in one pass; and what the stream-ordered walk (blocked.cu)
+// and the lane kernels share: the record's status
 // gate, the clean-up scan, the ratio test over one column, the bounded
 // step's pricing scan and ratio candidates (lanes.cu, bounded_grid.cu), the
 // pivot's snapshot (with the redirected no-op pivot), the pivoted entry
@@ -248,7 +248,7 @@ __device__ __forceinline__ T warp_tree_sum(T s) {
 }
 
 // ---------------------------------------------------------------------------
-// the stream-ordered walks (rank1.cu, blocked.cu)
+// the stream-ordered walk (blocked.cu)
 // ---------------------------------------------------------------------------
 
 // The walk records open with the same int32 fields: phase, status, niter.

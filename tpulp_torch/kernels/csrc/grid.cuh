@@ -6,7 +6,10 @@
 // reductions by order-preserving keys (common.cuh's okey and warp_arg);
 // the slab's accessor (rows [0, R) in shared memory, rows [R, M) in the
 // block's tiles in device memory); the bulk async copies, mbarriers and
-// proxy fences of the streamed rows' tile ring; and block 0's stage clock.
+// proxy fences of the streamed rows' tile ring; block 0's stage clock; the
+// combine of the ratio test split over the blocks' rows (the plans whose
+// per-row vectors live in device memory); the wide plan's slab in chunks
+// and its walk over the chunks' tiles.
 #pragma once
 
 #include "common.cuh"
@@ -359,6 +362,261 @@ __device__ __forceinline__ void lap(Laps<NS>* t, int stage) {
   t->cyc[stage] += now - t->last;
   t->last = now;
 }
+
+// A step's verdict on the plans whose per-row vectors live in device
+// memory (the device-vector and wide plans), the same in every block: the
+// ratio test's row and kinds (from the combines; the kinds and the span
+// ulv bounded_grid's only), column j's entry on row r + 2, the entering
+// column's devex weight (from its owner's mailbox), and the pre-step
+// basis[r], its span, b[r + 2] and basis[r_d]; whether column j has an
+// entry that is not finite.
+template <typename T>
+struct DvVerdict {
+  T piv, gq, brow, ulv;
+  int r, leaving, bd, has_ratio, kind_up, kind_flip, colj_bad;
+};
+
+// Two NaN-first argmin picks over the G mailboxes of a region (the ratio
+// test split over the blocks' rows: each block's two candidates in v, i
+// and s, a), combined as
+// combine_mail combines its pick: lane l of warp 0 takes blocks l, l + 32,
+// ... in turn, then the warp by keys; with the largest gmax (NaN first)
+// and the flags' union. Called by every thread; the result is in out
+// (v, i, s as the second pick's value, a as its index), gmax and flags
+// after its barrier.
+template <typename T>
+__device__ void combine_picks(unsigned char* mail, int region, Red<T>* out, T* gmax,
+                              int* flags) {
+  constexpr int U = 4;  // blocks a lane loads at once
+  const int lane = threadIdx.x & 31, G = gridDim.x;
+  if (threadIdx.x < 32) {
+    const T inf = pos_inf<T>();
+    T v1 = inf, v2 = inf, gm = -inf;
+    int i1 = BIG_I, i2 = BIG_I, fl = 0;
+    for (int q0 = 0; q0 < G; q0 += 32 * U) {
+      Mail<T> mb[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = q0 + u * 32 + lane;
+        if (q < G) mb[u] = load_cg(mail_slot<T>(mail, region, q));
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (q0 + u * 32 + lane >= G) continue;
+        pick(v1, i1, mb[u].v, mb[u].i);
+        pick(v2, i2, mb[u].s, mb[u].a);
+        gm = nan_max(gm, mb[u].gmax);
+        fl |= mb[u].flags;
+      }
+    }
+    using K = typename KeyOf<T>::type;
+    K k1 = okey(v1, false), k2 = okey(v2, false), kg = okey(gm, true);
+    unsigned j1 = (unsigned)i1, j2 = (unsigned)i2, ig = 0;
+    warp_arg(k1, j1, false);
+    warp_arg(k2, j2, false);
+    warp_arg(kg, ig, true);
+    fl = (int)__reduce_or_sync(FULL, (unsigned)fl);
+    if (lane == 0) {
+      out->v = key_value(k1, false);
+      out->i = (int)j1;
+      out->s = key_value(k2, false);
+      out->a = (int)j2;
+      *gmax = key_value(kg, true);
+      *flags = fl;
+    }
+  }
+  __syncthreads();
+}
+
+
+// ---- the wide plan: no row of a slab in shared memory ----
+
+constexpr int WCH = THREADS;  // the wide plan's columns a chunk: one a thread
+
+// The dynamic shared memory of a wide block: the ring (S tiles of TS
+// bytes), column j's entries of two tiles (2 TR) and the ring's mbarriers.
+template <typename T>
+__host__ __device__ long long smem_bytes_wide(int S, int TS, int TR) {
+  return (long long)S * TS + align16(2LL * TR * (long long)sizeof(T)) + align16(8LL * S);
+}
+
+// A block's slab on the wide plan: its region of the scratch buffer (M x
+// ceil(W / WCH) WCH entries) and its wk columns, in chunks of WCH columns;
+// chunk c (the columns [c WCH, c WCH + wc(c))) is an M x wp(c) row-major
+// matrix at c M WCH entries of the region (wp: wc rounded up to 4, so that
+// every row of it is 16-byte aligned), and a tile is TR of its rows,
+// contiguous. Entries are read through L2 (L1 is not coherent with the
+// bulk copies' writes).
+template <typename T>
+struct WideSlab {
+  T* scr;
+  int M, wk;
+
+  __device__ __forceinline__ int nc() const { return (wk + WCH - 1) / WCH; }
+  __device__ __forceinline__ int wc(int c) const { return min(WCH, wk - c * WCH); }
+  __device__ __forceinline__ int wp(int c) const { return (wc(c) + 3) & ~3; }
+  __device__ __forceinline__ T* row(int c, int i) const {
+    return scr + (long long)c * M * WCH + (long long)i * wp(c);
+  }
+  __device__ __forceinline__ T* entry(int i, int kk) const {
+    const int c = kk / WCH;
+    return row(c, i) + (kk - c * WCH);
+  }
+  __device__ __forceinline__ T at(int i, int kk) const { return __ldcg(entry(i, kk)); }
+  // the bytes of row tile t of chunk c (TR rows; fewer in the last)
+  __device__ __forceinline__ unsigned tile_bytes(int c, int t, int TR) const {
+    return (unsigned)(min(TR, M - t * TR) * wp(c) * (int)sizeof(T));
+  }
+};
+
+// Block q's slab on the wide plan of an (M, N) frame in slabs of W
+// columns.
+template <typename T>
+__device__ __forceinline__ WideSlab<T> wide_slab(T* scratch, int M, int N, int W, int q) {
+  const long long region = (long long)M * ((W + WCH - 1) / WCH) * WCH;
+  const int k0 = q * W;
+  return WideSlab<T>{scratch + q * region, M, min(N - 1, k0 + W) - k0};
+}
+
+// Tile s of a step's walk over a block's ns tiles (chunks of nt row
+// tiles), chunk-major: (chunk c, row tile t); the reverse order where not
+// forward.
+__device__ __forceinline__ void wide_tile(int s, bool forward, int nt, int ns, int& c, int& t) {
+  const int q = forward ? s : ns - 1 - s;
+  c = q / nt;
+  t = q - c * nt;
+}
+
+// The slab into its chunks from the frame T_in (N columns, the block's
+// from k0): thread t takes column t of each chunk, four rows at a time,
+// their loads issued first. Generic writes that the bulk loads read: the
+// caller's proxy fence and barriers follow.
+template <typename T>
+__device__ void wide_load(const WideSlab<T>& slab, const T* T_in, int N, int k0) {
+  for (int c = 0; c < slab.nc(); ++c) {
+    if ((int)threadIdx.x >= slab.wc(c)) continue;
+    const T* src = T_in + k0 + c * WCH + threadIdx.x;
+    for (int i0 = 0; i0 < slab.M; i0 += 4) {
+      T v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < slab.M) v[u] = src[(long long)(i0 + u) * N];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < slab.M) slab.row(c, i0 + u)[threadIdx.x] = v[u];
+    }
+  }
+}
+
+// The slab's chunks written back into the frame T_out (read through L2,
+// after the last stores have completed).
+template <typename T>
+__device__ void wide_store(const WideSlab<T>& slab, T* T_out, int N, int k0) {
+  for (int c = 0; c < slab.nc(); ++c) {
+    if ((int)threadIdx.x >= slab.wc(c)) continue;
+    T* dst = T_out + k0 + c * WCH + threadIdx.x;
+    for (int i0 = 0; i0 < slab.M; i0 += 4) {
+      T v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < slab.M) v[u] = __ldcg(slab.row(c, i0 + u) + threadIdx.x);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (i0 + u < slab.M) dst[(long long)(i0 + u) * N] = v[u];
+    }
+  }
+}
+
+// Thread 0, at a step's start: the previous step's stores complete (their
+// rows are read generically from here on), then the first min(S, ns)
+// tiles of the step's walk (wide_tile's order, nt row tiles of TR rows a
+// chunk) asked for into the ring's slots from ``slot``.
+template <typename T>
+__device__ void wide_first_tiles(const WideSlab<T>& slab, T* ring, long long tse,
+                                 unsigned long long* mbar, int S, int TR, int nt, int ns,
+                                 int slot, bool forward) {
+  stores_done();
+  fence_async_global();
+  const int nload = min(S, ns);
+  for (int t = 0; t < nload; ++t) {
+    const int q = slot + t < S ? slot + t : slot + t - S;
+    int c, ti;
+    wide_tile(t, forward, nt, ns, c, ti);
+    tile_load(ring + q * tse, slab.row(c, ti * TR), slab.tile_bytes(c, ti, TR), mbar + q);
+  }
+}
+
+// A step's walk over the block's ns tiles through the ring of S slots,
+// chunk by chunk (wide_tile's order). Where the step pivots (``pv``): at
+// each chunk's first tile ``chunk(c, s)`` (s the tile's place in the
+// walk: the caller's pivot row entry and weights of the chunk), then
+// thread t sets column t of the tile, every row i, to ``entry(i, kk, cj,
+// v)`` from its pre-step value v (kk its column in the slab, cj column j's
+// entry on row i: the staged one where ``cj_sh``, else e_2's); column j's
+// entries of the next tile's rows (from ``cjd`` through L2) are asked for
+// before this tile's wait and staged after its update (cjs: two tiles'
+// rows, the first staged by the caller); the tile is stored, and the
+// previous tile's slot is reloaded with the tile S - 1 places on once its
+// store has read it (this tile's store is not waited for). Where the step
+// pivots nowhere, the first tiles' loads are drained. ``slot`` and
+// ``parity`` carry the ring's state across the steps.
+template <typename T, typename Chunk, typename Entry>
+__device__ void wide_stream(const WideSlab<T>& slab, T* ring, T* cjs, unsigned long long* mbar,
+                            int S, int TR, long long tse, int nt, int ns, bool pv, bool cj_sh,
+                            const T* cjd, bool forward, int& slot, unsigned& parity, Chunk chunk,
+                            Entry entry) {
+  const int tid = threadIdx.x, M = slab.M;
+  const int nwait = pv ? ns : min(S, ns);
+  int c_cur = -1;
+  for (int s = 0; s < nwait; ++s) {
+    int c, t;
+    wide_tile(s, forward, nt, ns, c, t);
+    const int w = slab.wc(c);
+    if (pv && c != c_cur) {
+      c_cur = c;
+      chunk(c, s);
+    }
+    const bool stage = pv && cj_sh && tid < TR && s + 1 < ns;
+    T cj_next = T(0);
+    if (stage) {
+      int c2, t2;
+      wide_tile(s + 1, forward, nt, ns, c2, t2);
+      const int in = t2 * TR + tid;
+      if (in < M) cj_next = __ldcg(cjd + in);
+    }
+    const int q = slot;
+    mbar_wait(mbar + q, (parity >> q) & 1u);
+    parity ^= 1u << q;
+    slot = q + 1 == S ? 0 : q + 1;
+    if (!pv) continue;  // the first tiles drained: nothing to update
+    T* const tile = ring + q * tse;
+    if (tid < w) {
+      const int kk = c * WCH + tid, wp = slab.wp(c), rows = min(TR, M - t * TR);
+      for (int ii = 0; ii < rows; ++ii) {
+        const int i = t * TR + ii;
+        const T cj = cj_sh ? cjs[(s & 1) * TR + ii] : T(i == 2);
+        T* e = tile + ii * wp + tid;
+        *e = entry(i, kk, cj, *e);
+      }
+    }
+    if (stage) cjs[((s + 1) & 1) * TR + tid] = cj_next;
+    // the tile's generic writes before the bulk store reads it
+    fence_async_shared();
+    __syncthreads();
+    if (tid == 0) {
+      tile_store(slab.row(c, t * TR), tile, slab.tile_bytes(c, t, TR));
+      if (s >= 1 && s - 1 + S < ns) {
+        const int qp = q == 0 ? S - 1 : q - 1;
+        int c2, t2;
+        wide_tile(s - 1 + S, forward, nt, ns, c2, t2);
+        stores_read_but_one();
+        tile_load(ring + qp * tse, slab.row(c2, t2 * TR), slab.tile_bytes(c2, t2, TR),
+                  mbar + qp);
+      }
+    }
+  }
+}
+
 
 }  // namespace grid
 }  // namespace tpulp

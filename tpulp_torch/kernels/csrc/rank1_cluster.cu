@@ -15,9 +15,10 @@
 // ``lax.while_loop`` over ``simplex_step`` (tpulp/solve/driver.py:74, the
 // driver 286), over ``devex_simplex_step`` (tpulp/solve/devex.py:75, the
 // driver 255) and over ``dual_simplex_step`` (tpulp/solve/dual.py:62, the
-// driver 162). It is the redesign of rank1.cu's stream-ordered step (four
-// or five launches a step, one host enqueue a step) for the frames that a
-// cluster of at most 8 blocks holds; rank1.cu keeps the larger frames.
+// driver 162). It is the redesign, for the frames that a cluster of at
+// most 8 blocks holds, of the walks' first kernel, a stream-ordered step
+// of four or five launches and one host enqueue a step (since retired:
+// rank1_grid.cu takes every larger frame).
 //
 // What bounds it on the H100: a step reads and writes the frame once (2 x
 // 258 x 769 x 8 B at the largest f64 frame of solve_lp's rank-1 range:
@@ -60,7 +61,7 @@
 // its update. The slabs are loaded once and written back once, with the
 // basis, the masks, the weights and the scalars; the launch ends with a
 // cluster barrier, so no block leaves while a peer may read its shared
-// memory. The arithmetic is rank1.cu's (its header): one rounding per
+// memory. The arithmetic is the plain stages' (kernels/rank1.py): one rounding per
 // product in the decisions, prow = row * (1 / piv), fma(-col[i], prow[k],
 // T[i, k]), comparisons in the tableau's type against tolerances rounded
 // to it, torch's NaN-first argmin / argmax with first-index ties, and

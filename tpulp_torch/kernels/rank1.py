@@ -1,35 +1,32 @@
-"""``rank1_steps``: the solo rank-1, devex and dual walks as four or five
-launches a step (``csrc/rank1.cu``), and the plain versions of the launches,
-stage by stage.
+"""The solo rank-1, devex and dual walks' record and plain stages: the
+walks' steps cut at their global dependencies, stage by stage, which the
+grid and cluster walks (``kernels.rank1_grid``, ``kernels.rank1_cluster``)
+compose as their plain versions.
 
 ``solve.driver.simplex_step`` and ``solve.devex.devex_simplex_step`` are
 branchless transitions of ~100-250 small tensor ops and one FMA launch.
 Their work has three global dependencies: the entering column (pricing
 over every column), the leaving row (the ratio test over that column) and
 the pivot itself. Cut there, as ``kernels.bounded`` cuts the bounded step,
-a step is a few stream-ordered launches that read and write one walk
-record kept on the card:
+a step is a few stages that read and write one walk record:
 
-- **scan** (the whole grid; enqueued only for the greatest increase and
-  devex): the column pass where the step needs one, else a no-op: every
-  column's minimum ratio (the greatest increase, every step) or whether it
-  has an entry above ``piv_tol`` (devex's exposed-ray scan, on ``niter %
-  64 == 0`` in phase 2), as one partial per chunk of rows (``SCAN_CHUNKS``)
-  and column;
-- **price** (one block): the clean-up scan for basic artificials, pricing
-  (Dantzig, Bland's first improving column, the greatest increase, or
-  devex ``c^2 / gamma`` with the half-period Dantzig probe), the exposed
-  ray, the phase bookkeeping and the finiteness sum of the pre-step
-  pricing row;
-- **ratio** (one block): the ratio test with first-index or largest-pivot
-  ties (Bland's smallest basic index under Bland), and the snapshot of the
+- **scan** (only for the greatest increase and devex): the column pass
+  where the step needs one, else a no-op: every column's minimum ratio
+  (the greatest increase, every step) or whether it has an entry above
+  ``piv_tol`` (devex's exposed-ray scan, on ``niter % 64 == 0`` in phase
+  2), as one partial per chunk of rows (``SCAN_CHUNKS``) and column;
+- **price**: the clean-up scan for basic artificials, pricing (Dantzig,
+  Bland's first improving column, the greatest increase, or devex ``c^2 /
+  gamma`` with the half-period Dantzig probe), the exposed ray, the phase
+  bookkeeping and the finiteness sum of the pre-step pricing row;
+- **ratio**: the ratio test with first-index or largest-pivot ties
+  (Bland's smallest basic index under Bland), and the snapshot of the
   pivot's column and its normalised row, so that the update runs in place;
-- **update** (the whole grid, elementwise): ``fma(-col[i], prow[k],
-  T[i, k])``, the pivot row set to ``prow``, the entering column to the
-  exact unit vector;
-- **finish** (one block): the basis, the retire, the devex weights and
-  their resets, the stall counter and the Bland switch, the phase change,
-  the finiteness sums and the status.
+- **update** (elementwise): ``fma(-col[i], prow[k], T[i, k])``, the pivot
+  row set to ``prow``, the entering column to the exact unit vector;
+- **finish**: the basis, the retire, the devex weights and their resets,
+  the stall counter and the Bland switch, the phase change, the finiteness
+  sums and the status.
 
 ``solve.dual.dual_simplex_step`` cuts the same way, with no scan: its
 price picks the leaving row (the most negative ``b_r``, the first negative
@@ -46,27 +43,24 @@ record's ``walk`` says which step it takes: "devex" (with the weights
 ``gamma``) ``devex_simplex_step``, "dual" ``dual_simplex_step``, "primal"
 ``simplex_step`` under ``opts.rule`` and ``opts.tie_break``. The walks'
 constants (``RAY_SCAN_EVERY``, ``SCAN_CHUNKS``, ``RESET_ABOVE``) are
-defined here and reach the kernels through their argument arrays.
-Every launch returns at once unless the record's status is RUNNING and
-its ``niter`` is below the budget, so steps enqueued past the walk's exit
-are no-ops and the budget holds exactly, as in ``solve.driver.
-run_chunked``.
+defined here and reach the kernels through their argument arrays. Every
+stage returns at once unless the record's status is RUNNING and its
+``niter`` is below the budget, so a budget holds exactly, as in
+``solve.driver.run_chunked``.
 
-The plain stages (``rank1_{scan,price,ratio,update,finish}_reference``)
-are the launches' plain versions on the same record; composed, they give
-the plain step bit for bit (``T + 0.0``) in every field. They take the
-bounded stages' one liberty: a step that pivots nowhere (a phase change,
-a retire, an exit) skips the plain step's redirected pivot on (row 2,
-``basis[0]``) when that pivot is an exact no-op (``kernels.bounded.
-noop_exact``): it could then change only the sign of a zero. Nothing on
-the solver's path calls the plain stages: ``solve.driver`` runs the plain
-step on CPU tensors and these kernels (or the lane kernels, by its route
-rule) on CUDA tensors.
+Composed, the plain stages (``rank1_{scan,price,ratio,update,finish}_
+reference``) give the plain step bit for bit (``T + 0.0``) in every field.
+They take the bounded stages' one liberty: a step that pivots nowhere (a
+phase change, a retire, an exit) skips the plain step's redirected pivot
+on (row 2, ``basis[0]``) when that pivot is an exact no-op
+(``kernels.bounded.noop_exact``): it could then change only the sign of a
+zero. Nothing on the solver's path calls the plain stages: ``solve.driver``
+runs the plain step on CPU tensors and the kernels (by its route rule) on
+CUDA tensors. ``_check`` is the kernels' shared check of a walk's state.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -76,10 +70,10 @@ from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
 # the records share their first fields (phase, status, niter) and gate
 from .bounded import BIG_I, _first_true, _live, noop_exact
 from .fma import fused_fma
-from .launch import LAUNCHES, lib_for, raise_on, stream_of, suffix
+from .launch import suffix
 
 __all__ = ["Rank1Record", "make_record", "record_state", "clone_record",
-           "rank1_steps", "enqueue_steps", "rank1_stage", "scans",
+           "scans",
            "rank1_scan_reference", "rank1_price_reference",
            "rank1_ratio_reference", "rank1_update_reference",
            "rank1_finish_reference", "rank1_stage_reference",
@@ -88,9 +82,7 @@ __all__ = ["Rank1Record", "make_record", "record_state", "clone_record",
 
 RESET_ABOVE = 1e8  # solve.devex: re-anchor the devex frame past this weight
 RAY_SCAN_EVERY = 64  # solve.devex: the ray scan and probe cadence
-SCAN_CHUNKS = 16  # row chunks of the column pass (csrc/rank1.cu)
-# the longest chunk of steps between two host reads of the record
-CHUNK = 32
+SCAN_CHUNKS = 16  # row chunks of the column pass (the scan stage)
 
 # the record's int32 fields: the walk's scalars, then the step's verdict
 # (price writes CLEANUP..RAY, ratio the rest)
@@ -104,16 +96,9 @@ NI = 27
 LAST_Z, PIV, GAMMA_Q = range(3)
 NV = 3
 STAGES = ("scan", "price", "ratio", "update", "finish")
-# the steps a record walks (csrc/rank1.cu's Walk)
+# the steps a record walks (csrc/rank1_grid.cu's and rank1_cluster.cu's
+# Walk)
 WALKS = ("primal", "devex", "dual")
-
-# the C entry points' argument arrays (csrc/rank1.cu)
-_NARGS, _NINTS, _NTOLS = 9, 10, 6
-_I_STAGE = 7
-_ARGS = ctypes.c_longlong * _NARGS
-_INTS = ctypes.c_int * _NINTS
-_TOLS = ctypes.c_double * _NTOLS
-_INT_MAX = 2 ** 31 - 1
 # basis values go through the tableau's type in Bland's row tie: exact in
 # float32 below 2^24
 _MAX_SIDE = 1 << 24
@@ -135,7 +120,7 @@ class Rank1Record(NamedTuple):
 
 
 def scans(opts: SolverOptions, walk: str) -> bool:
-    """Whether the walk's steps have a column pass (a scan launch)."""
+    """Whether the walk's steps have a column pass (a scan stage)."""
     return walk == "devex" or (walk == "primal"
                                and opts.rule == RULE_MAX_INCREASE)
 
@@ -210,7 +195,7 @@ def _chunks(rec: Rank1Record) -> torch.Tensor:
 
 def rank1_scan_reference(rec: Rank1Record, opts: SolverOptions,
                          max_iters: int) -> None:
-    """The scan launch's plain version: per chunk of rows, every column's
+    """The scan stage: per chunk of rows, every column's
     minimum ratio (the greatest increase) or whether it has an entry above
     ``piv_tol`` (devex, on its ray ticks), into the record's partials."""
     iv = rec.ints.tolist()
@@ -239,7 +224,7 @@ def rank1_scan_reference(rec: Rank1Record, opts: SolverOptions,
 
 def rank1_price_reference(rec: Rank1Record, opts: SolverOptions,
                           max_iters: int) -> None:
-    """The price launch's plain version: the clean-up scan, pricing, the
+    """The price stage: the clean-up scan, pricing, the
     exposed ray, the phase bookkeeping and the finiteness of the pre-step
     pricing row, into the record's verdict; on the dual walk the leaving
     row and the finiteness of the pre-step objective row."""
@@ -308,7 +293,7 @@ def rank1_price_reference(rec: Rank1Record, opts: SolverOptions,
 
 def rank1_ratio_reference(rec: Rank1Record, opts: SolverOptions,
                           max_iters: int) -> None:
-    """The ratio launch's plain version: the ratio test over the entering
+    """The ratio stage: the ratio test over the entering
     column and the pivot, into the record's verdict, and the snapshot of
     the pivot's column and its normalised row when the update pivots; on
     the dual walk the dual ratio test over the leaving row."""
@@ -452,7 +437,7 @@ def _rhs_ok(T: torch.Tensor, rhs_ok: bool | None) -> bool:
 
 
 def rank1_update_reference(rec: Rank1Record, max_iters: int) -> None:
-    """The update launch's plain version: the pivot from the snapshot, in
+    """The update stage: the pivot from the snapshot, in
     place (``driver.pivot_update``'s arithmetic)."""
     iv = rec.ints.tolist()
     if not _live(iv, max_iters) or not iv[PV]:
@@ -470,7 +455,7 @@ def rank1_update_reference(rec: Rank1Record, max_iters: int) -> None:
 def rank1_finish_reference(rec: Rank1Record, opts: SolverOptions,
                            stall_limit: int, max_iters: int,
                            rhs_ok: bool | None = None) -> None:
-    """The finish launch's plain version: the basis, the retire, the devex
+    """The finish stage: the basis, the retire, the devex
     weights, the stall counter and the Bland switch, the phase change, the
     finiteness sums and the status; on the dual walk the basis, the stall
     counter, the Bland switch and the status. ``rhs_ok``, where given, is
@@ -537,7 +522,7 @@ def rank1_finish_reference(rec: Rank1Record, opts: SolverOptions,
 
 def rank1_stage_reference(rec: Rank1Record, stage: str, opts: SolverOptions,
                           stall_limit: int, max_iters: int) -> None:
-    """The plain version of one launch, ``stage`` one of ``STAGES``."""
+    """One plain stage, ``stage`` one of ``STAGES``."""
     if stage == "scan":
         rank1_scan_reference(rec, opts, max_iters)
     elif stage == "price":
@@ -552,7 +537,7 @@ def rank1_stage_reference(rec: Rank1Record, stage: str, opts: SolverOptions,
 
 def rank1_step_reference(rec: Rank1Record, opts: SolverOptions,
                          stall_limit: int, max_iters: int) -> None:
-    """One step as the plain stages, in the launches' order (the scan only
+    """One step as the plain stages, in order (the scan only
     where the walk has one: the scan stage is a no-op on a record without
     partials)."""
     for stage in STAGES:
@@ -560,7 +545,7 @@ def rank1_step_reference(rec: Rank1Record, opts: SolverOptions,
 
 
 # ---------------------------------------------------------------------------
-# the kernels
+# the kernels' check of a state
 # ---------------------------------------------------------------------------
 
 def _check(state: SimplexState, gamma: torch.Tensor | None,
@@ -599,79 +584,3 @@ def _check(state: SimplexState, gamma: torch.Tensor | None,
         raise ValueError("the rank-1 kernels take a state on one CUDA "
                          "device; got "
                          f"{sorted({str(x.device) for x in tensors})}")
-
-
-def _entry(rec: Rank1Record, opts: SolverOptions, stall_limit: int,
-           max_iters: int):
-    """(library, the entry's argument arrays) for a record of
-    ``make_record`` on one CUDA device."""
-    T = rec.T
-    tensors = [x for _, x in record_tensors(rec)]
-    if T.device.type != "cuda" or any(x.device != T.device or
-                                      not x.is_contiguous()
-                                      for x in tensors):
-        raise ValueError("the rank-1 kernels take a record of contiguous "
-                         "tensors on one CUDA device")
-    if rec.walk not in WALKS or (rec.walk == "devex") != (
-            rec.gamma is not None):
-        raise ValueError(f"walk {rec.walk!r} with "
-                         f"{'no ' if rec.gamma is None else ''}weights")
-    if scans(opts, rec.walk) and rec.scan is None:
-        raise ValueError("this walk's column pass needs the record's scan "
-                         "partials (make_record with the same options)")
-    M, N = T.shape
-    args = _ARGS(*(0 if x is None else x.data_ptr() for x in (
-        T, rec.basis, rec.col_active, rec.art_cols, rec.gamma, rec.ints,
-        rec.vals, rec.snap, rec.scan)))
-    iargs = _INTS(M, N, min(int(stall_limit), _INT_MAX),
-                  min(int(max_iters), _INT_MAX), int(opts.rule),
-                  int(opts.tie_break), WALKS.index(rec.walk), 0,
-                  RAY_SCAN_EVERY, SCAN_CHUNKS)
-    tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
-                 opts.infeas_tol, opts.feas_tol, RESET_ABOVE)
-    return lib_for(T.device), args, iargs, tols
-
-
-def enqueue_steps(rec: Rank1Record, opts: SolverOptions, stall_limit: int,
-                  max_iters: int, nsteps: int) -> None:
-    """Enqueue ``nsteps`` steps (four launches each, five with the scan) on
-    a record on the card through one C call, with no host read; counted
-    in ``LAUNCHES["rank1_step"]``."""
-    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters)
-    fn = getattr(lib, f"tpulp_rank1_steps_{suffix(rec.T.dtype)}")
-    err = fn(args, iargs, tols, int(nsteps), stream_of(rec.T.device))
-    if err:
-        raise_on(lib, err, "rank-1 step")
-    LAUNCHES["rank1_step"] += nsteps
-
-
-def rank1_steps(state: SimplexState, opts: SolverOptions, stall_limit: int,
-                max_iters: int, gamma: torch.Tensor | None = None,
-                dual: bool = False):
-    """The walk of ``state`` (one problem on one CUDA device) to its exit or
-    to ``max_iters``: ``simplex_step``'s, with devex weights ``gamma``
-    ``devex_simplex_step``'s, with ``dual`` ``dual_simplex_step``'s; a
-    RUNNING exit at the budget stays RUNNING. Chunks of 1, 2, 4, ... up to
-    ``CHUNK`` steps go to the card through one C call each, with one host
-    read of the record a chunk.
-    Returns (state, weights); the caller's tensors are never written."""
-    _check(state, gamma, dual)
-    rec = make_record(state, opts, gamma, dual)
-    chunk = 1
-    while _live(rec.ints.tolist(), max_iters):
-        enqueue_steps(rec, opts, stall_limit, max_iters, chunk)
-        chunk = min(2 * chunk, CHUNK)
-    return record_state(rec), rec.gamma
-
-
-def rank1_stage(rec: Rank1Record, stage: str, opts: SolverOptions,
-                stall_limit: int, max_iters: int) -> None:
-    """One launch of ``stage`` (one of ``STAGES``) on a record on the card,
-    in place: what holds each launch against its plain stage."""
-    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters)
-    iargs[_I_STAGE] = STAGES.index(stage)
-    fn = getattr(lib, f"tpulp_rank1_stage_{suffix(rec.T.dtype)}")
-    err = fn(args, iargs, tols, stream_of(rec.T.device))
-    if err:
-        raise_on(lib, err, f"rank-1 {stage}")
-    LAUNCHES["rank1_stage"] += 1

@@ -2,9 +2,8 @@
 fits one thread-block cluster, as one launch a walk
 (``csrc/rank1_cluster.cu``), and its plain version.
 
-``kernels.rank1`` runs a step as four or five stream-ordered launches, one
-host enqueue a step. Where the frame fits the shared memory of a cluster of
-at most 8 blocks, the whole walk runs in one launch instead: block b of
+Where the frame fits the shared memory of a cluster of at most 8 blocks,
+the whole walk runs in one launch: block b of
 the cluster keeps the column slab ``[b W, min(N, (b + 1) W))`` of all rows
 (``W = ceil(N / C)``) in its shared memory, prices its own columns, and
 the blocks combine their candidates in rank order between two cluster

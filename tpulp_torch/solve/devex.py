@@ -8,8 +8,8 @@ transition as ``driver.simplex_step``, carrying the weights beside the
 state. ``solve_lp`` picks it for equality-heavy shapes on the rank-1
 engine. On CUDA tensors the walk runs on ``kernels.rank1_cluster`` (one
 launch a walk) where a thread-block cluster holds the frame, else on
-``kernels.rank1`` (the route rule of ``solve/driver.py``); on CPU tensors
-in the plain loop.
+``kernels.rank1_grid`` (one launch a walk on the whole card; the route
+rule of ``solve/driver.py``); on CPU tensors in the plain loop.
 """
 
 from __future__ import annotations
@@ -176,7 +176,7 @@ def run_simplex_devex(state: SimplexState,
                       opts: SolverOptions | None = None) -> SimplexState:
     """Run the devex-priced rank-1 driver; returns the terminal state (the
     weights are internal). The plain loop on CPU tensors; on CUDA tensors
-    ``rank1_cluster`` or ``rank1_step`` (the route rule of
+    ``rank1_cluster`` or ``rank1_grid`` (the route rule of
     ``solve/driver.py``)."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)

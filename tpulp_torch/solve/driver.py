@@ -25,21 +25,18 @@ priced as Dantzig; first-index or largest-pivot ties),
    holds (``cluster_plan`` fits): ``rank1_cluster`` (the whole walk in one
    launch of one cluster, the frame in the blocks' shared memory,
    ``kernels.rank1_cluster``);
-3. otherwise, where ``rank1_grid_plan`` holds on the card's SMs (resident,
-   or past the shared memory streamed) and the card holds at least one
-   block of it an SM (``rank1_grid_occupancy``): ``rank1_grid`` (the whole
-   walk in one persistent cooperative launch on the whole card, a column
-   slab of the frame in each SM's shared memory, the rows past it streamed
-   through device memory, ``kernels.rank1_grid``);
-4. only where ``rank1_grid_plan`` refuses the frame (``GridPlanTooLarge``)
-   ``rank1_step`` (``kernels.rank1``: four stream-ordered launches a step,
-   five with the greatest increase's and devex's column pass; the dual
-   walk's three on one block and one on the grid).
+3. otherwise ``rank1_grid`` (the whole walk in one persistent cooperative
+   launch on the whole card, ``kernels.rank1_grid``, on
+   ``rank1_grid_plan``'s plan: a column slab of the frame in each SM's
+   shared memory, the rows past it streamed through device memory, the
+   per-row vectors in device memory past the replicated ones, every row
+   streamed past a slab's first three), where the card holds at least one
+   block of the plan an SM (``rank1_grid_occupancy``).
 
 Each gets the plain loop's ``stall_limit`` and ``opts.max_iters``, so
 ``finish`` and the absolute ``niter`` budgets of ``refresh.py`` hold, and
-a contiguous tableau. There is no fallback: a build or launch failure
-raises, and so does a grid plan that the card cannot hold.
+a contiguous tableau. There is no fallback: a plan, build or launch
+failure raises, and so does a grid plan that the card cannot hold.
 """
 
 from __future__ import annotations
@@ -48,12 +45,11 @@ import torch
 
 from ..core.state import (RULE_BLAND, RULE_MAX_INCREASE, TIE_MAXPIV,
                           SimplexState, SolverOptions, Status)
-from ..kernels.bounded_grid import GRID_SMS, GridPlanTooLarge
+from ..kernels.bounded_grid import GRID_SMS
 from ..kernels.fma import fused_fma
 from ..kernels.lanes import (lane_dual, lane_dual_plan, lane_plan,
                              lane_primal)
 from ..kernels.launch import on_cpu, sm_count
-from ..kernels.rank1 import rank1_steps
 from ..kernels.rank1_cluster import cluster_plan, rank1_cluster
 from ..kernels.rank1_grid import (rank1_grid, rank1_grid_occupancy,
                                   rank1_grid_plan)
@@ -293,21 +289,18 @@ def solo_route(walk: str, M: int, N: int, dtype, sms: int = GRID_SMS,
                device: torch.device | None = None) -> str:
     """The kernel that runs a solo ``walk`` ("primal", "devex" or "dual")
     of an (M, N) tableau of ``dtype`` on a card of ``sms`` SMs:
-    "lane_primal", "lane_dual", "rank1_cluster", "rank1_grid" or
-    "rank1_step" (the module's rule). With ``device`` (a CUDA device) the
-    grid's occupancy there is asked, and a grid plan that the card cannot
-    hold raises RuntimeError; the plan's other refusals (a type other than
-    f32 and f64, a frame out of range) raise ValueError."""
+    "lane_primal", "lane_dual", "rank1_cluster" or "rank1_grid" (the
+    module's rule). With ``device`` (a CUDA device) the grid's occupancy
+    there is asked, and a grid plan that the card cannot hold raises
+    RuntimeError; the plan's refusals (a type other than f32 and f64, a
+    frame out of range) raise ValueError."""
     if walk not in ("primal", "devex", "dual"):
         raise ValueError(f"unknown walk {walk!r}")
     if walk != "devex" and _resident(M, N, dtype, walk):
         return "lane_primal" if walk == "primal" else "lane_dual"
     if _fits_cluster(M, N, dtype):
         return "rank1_cluster"
-    try:
-        plan = rank1_grid_plan(M, N, dtype, sms)
-    except GridPlanTooLarge:  # rows 0-2 and the ring past a block's
-        return "rank1_step"
+    plan = rank1_grid_plan(M, N, dtype, sms)
     if device is not None and rank1_grid_occupancy(
             M, N, dtype, walk, device) < 1:
         raise RuntimeError(f"rank1_grid: the card holds no block of "
@@ -351,8 +344,7 @@ def solo_walk(walk: str, state: SimplexState, opts: SolverOptions,
     state = state._replace(T=T)
     route = solo_route(walk, *T.shape, T.dtype, sm_count(T.device),
                        T.device)
-    runs = {"rank1_cluster": rank1_cluster, "rank1_grid": rank1_grid,
-            "rank1_step": rank1_steps}
+    runs = {"rank1_cluster": rank1_cluster, "rank1_grid": rank1_grid}
     if route in runs:
         gamma = torch.ones((state.n,), dtype=T.dtype, device=T.device) \
             if walk == "devex" else None

@@ -137,7 +137,7 @@ def run_dual_simplex(state: SimplexState, opts: SolverOptions | None = None
                      ) -> SimplexState:
     """Run the dual simplex on one problem to termination or the budget:
     the plain loop on CPU tensors; on CUDA tensors ``lane_dual`` at B = 1,
-    ``rank1_cluster``'s or ``rank1_step``'s dual walk (the route rule of
+    ``rank1_cluster``'s or ``rank1_grid``'s dual walk (the route rule of
     ``solve/driver.py``)."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
