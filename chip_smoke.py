@@ -5,9 +5,9 @@
 
 Builds the CUDA kernels from the twelve sources of
 tpulp_torch/kernels/csrc (flush, inner block, FMA, the lane kernels, the
-rank-1 step's five launches, the blocked engine's seven, the cluster
-walks, the blocked engine's cluster launch,
-the three grid walks and the sharded pivot's two kernels; and checks
+blocked engine's ray launch, the cluster walks, the blocked engine's
+cluster launch, the three grid walks and the sharded pivot's two
+kernels; and checks
 in their machine code that the f64 flush runs on the FP64 tensor cores
 and the f32 flush uses no TF32), prints nvcc's registers and spills,
 holds the flush and the inner block against their plain PyTorch versions
@@ -55,31 +55,31 @@ plans, their occupancy and stages, times the grid by launch and the plain
 step, and solves a bounded state whose tableau is a strided view.
 Phase 5d drives the solo rank-K blocked engine on its kernels (where a
 cluster holds a block's eta factors, one ``blocked_cluster`` launch a
-block of 64 slots, else ``blocked_step``'s six launches a slot; B1's flush
-and one ray launch a block): ``solve_lp(driver="auto")`` on a 512 x 1024
-LP (514 x 1537 on the cluster route: one ``blocked_cluster`` launch a
-block and no ``blocked_step``, certified, the eager engine's objective
-exactly, no FMA and no B2 launch), devex on an
-artificial LP at 512 rows (optimal and certified, with the eager engine's
-objective) and on its variant with four dependent rows (its status
-recorded beside the eager engine's and those of other walks; within 1e-9
-of the eager engine's at f64), the refreshed rung's blocked segments, each
-cluster walk held in every field at f32 and f64 against
-``blocked_cluster_reference`` and ``blocked_steps``' walk (timed in turns,
-with its plan, ``cudaOccupancyMaxActiveClusters`` and its stages on block
-0's clock), and ``blocked_steps``' walk against its plain-stage walk, each
-flushed by the same B1; the cluster's edge walks (a budget stop inside a
-block, a slot past the budget that ends the walk, the clean-up, retire and
-ray-gate LP, the 1e8 reset) at every cluster size; a wide LP past the
-cluster's plan (258 x 14,257) on ``blocked_step``; each of the seven
-launches against its plain stage (a
-Dantzig pivot, a budget stop inside a block, Bland, a largest-pivot tie, a
-clean-up pivot, a retire, the phase change with devex's reset, the 1e8
-reset, the ray launch with and without an artificial basic); it times a
-slot by launch (and the cluster's by stage), B1 at the blocked shapes
-beside ``addmm``, and the rank-1 walk, the blocked engine on its route and
-on ``blocked_step``, and the kernel engine at four sizes around the `auto`
-thresholds.
+block of 64 slots, else one cooperative ``blocked_grid`` launch a block on
+the grid's plan; B1's flush and one ray launch a block):
+``solve_lp(driver="auto")`` on a 512 x 1024 LP (514 x 1537 on the cluster
+route, certified, the eager engine's objective exactly, no FMA and no B2
+launch), devex on an artificial LP at 512 rows (optimal and certified,
+with the eager engine's objective) and on its variant with four dependent
+rows (its status recorded beside the eager engine's and those of other
+walks; within 1e-9 of the eager engine's at f64), the refreshed rung's
+blocked segments, each cluster walk held in every field at f32 and f64
+against ``blocked_cluster_reference`` flushed by the same B1 (with its
+plan, ``cudaOccupancyMaxActiveClusters`` and its stages on block 0's
+clock); the cluster's edge walks (a budget stop inside a block, a slot
+past the budget that ends the walk, the clean-up, retire and ray-gate LP,
+the 1e8 reset) at every cluster size and the grid's on several grids and
+on its device-factor and device-vector plans forced; a wide LP past the
+cluster's plan (258 x 14,257) on ``blocked_grid`` at f64 and f32, held to
+its plain version over a window and timed by stage; the ray launch
+against its plain stage; past the slabs' room in shared memory, on the
+grid's device-factor plan, (p) 258 x 14,257 in blocks of 256, (zw) and
+(zw32) 18 x 200,017 in blocks of 64 and (tt) 8002 x 16,001 in blocks of
+128, each one launch a block held in every field to the plain version and
+timed by stage; the blocked engine's card tests
+(tests/test_torch_blocked_card.py) in a pytest process; B1 at the blocked
+shapes beside ``addmm``, and the rank-1 walk, the blocked engine on its
+route and the kernel engine at four sizes around the `auto` thresholds.
 Phase 7 drives ``solve_milp`` on bench.py's 28-item knapsack (f32 and f64,
 the DP oracle exactly) and on a 5-constraint 40-item knapsack (equal f32
 and f64 optima, checked in Fractions) with every wave tensor checked to be
@@ -169,8 +169,10 @@ imports nothing of jax or tpulp.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -225,10 +227,11 @@ BND_MAX_ITERS = 200_000
 # the f32 walks 8a holds to the plain loop: the devex walk's first steps,
 # and a Dantzig walk whose stall limit of 1 switches it to Bland; the step
 # the kernels are timed from and the steps timed
-BND_F32_WINDOW = 2048
+BND_F32_WINDOW = 1024
 # the f64 devex walk's window held to the plain loop (its whole walk,
-# ~15,000 steps, took the plain loop 70-120 s)
-BND_F64_WINDOW = 4096
+# ~15,000 steps, took the plain loop 70-120 s; 4,096 steps took 19 s, cut
+# to 2,048 for the script's time)
+BND_F64_WINDOW = 2048
 BND_BLAND_STEPS = 1024
 BND_TIMED_FROM = 2000
 # the grid walk: the steps of one timed launch (from BND_TIMED_FROM), the
@@ -266,10 +269,10 @@ BND_SHARED_N = 399_984
 BND_WIDE_SCAN = 512
 BOX_M, BOX_N, BOX_LANES = 64, 128, 256
 # the row-lowered batch that 8b holds the box batch to: its first lanes
-# only (its exact refinement and certificate take ~0.6 s a lane on the
-# host, ~150-200 s for all 256), so that the full-size f32 box LP of 8a,
-# the card's one run of the ladder's f32-to-f64 retry, fits the time
-BOX_ROW_LANES = 64
+# only (its exact refinement and certificate take ~0.6-0.8 s a lane on the
+# host, ~150-200 s for all 256, 49.9 s for 64), so that the script fits
+# its time; 8b's solve by parts runs on these lanes too
+BOX_ROW_LANES = 16
 BLK_M, BLK_N, BLK_LANES, BLK_K = 512, 1024, 8, 64
 # 8c (iii): a small batch held to its plain version on the card at every
 # cluster size, in blocks of BLK_SMALL_K: BLK_SMALL_LANES LPs of
@@ -290,11 +293,12 @@ IIS_VARS, IIS_ROWS = 10, 24
 # ratio
 SHARD_K = 64
 SHARD_BOX_M, SHARD_BOX_N = 128, 256
-SHARD_BENCH_PIVOTS = 512
+SHARD_BENCH_PIVOTS = 256
 # 9b's shard_pivot launches held to the plain version: every SHARD_KEEP-th
-# and the last; the sharded walks' windows timed under torch.profiler
+# and the last; the sharded walks' windows timed under torch.profiler (cut
+# from 64 steps, with the bench budget from 512, for the script's time)
 SHARD_KEEP = 500
-SHARD_WINDOW = 64
+SHARD_WINDOW = 32
 # 10a's and 10b's shard_pivot launches (every lane of a step in one) copied
 # and held to the plain version: every SHARD_LANE_KEEP-th
 SHARD_LANE_KEEP = 64
@@ -1686,33 +1690,150 @@ def held_walk(label: str, walk: str, start, opts, run, kind: str):
     return res, k
 
 
-def rank1_grid_card_tests(dev):
-    """5c (t): tests/test_torch_rank1_grid_card.py, the rank-1 grid's
-    ``cuda`` tests (the kernel against its plain version on the CPU's
-    small walks: the plan's grid, forced grids and splits, the
-    device-vector and wide plans forced, every instance and rule of the
-    plain stages' tests), run on the card in a process of their own; a
-    failure, or a test that skips, fails the run."""
+CARD_TESTS = {  # label: (file, what it holds)
+    "5c": ("tests/test_torch_rank1_grid_card.py",
+           "the rank-1 grid's card tests"),
+    "5d": ("tests/test_torch_blocked_card.py",
+           "the blocked engine's card tests"),
+    "7d": ("tests/test_torch_lanes_card.py", "the lane kernels' card tests"),
+    "8a": ("tests/test_torch_bounded_grid_card.py",
+           "the bounded grid's card tests"),
+    "9": ("tests/test_torch_shard_pivot_card.py",
+          "the sharded pivot's card tests"),
+}
+CARD_RESULTS: dict = {}  # label: what run_card_tests found
+CHILDREN: list = []  # the processes started beside the main thread of work
+
+
+@atexit.register
+def _stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+CARD_SHARDS = 7  # pytest processes side by side (the card machine: 8 cores)
+
+
+def _pytest(*args) -> list:
+    return [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+            "-q", "-p", "no:cacheprovider", *args]
+
+
+def collect_card_tests(labels):
+    """Starts the one pytest process that collects the ``cuda`` tests of
+    each label's file (``--collect-only``; it imports the files, builds
+    nothing and needs no card, so it can run beside the build). Returns
+    what ``run_card_tests`` takes."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-           "-q", "-p", "no:cacheprovider",
-           "tests/test_torch_rank1_grid_card.py"]
-    if dev != "cuda":
-        return {"skipped": "no card"}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=900)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    files = {CARD_TESTS[label][0]: label for label in labels}
+    proc = subprocess.Popen(_pytest("--collect-only", *files), cwd=root,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return files, proc, time.perf_counter()
+
+
+def run_card_tests(labels, dev, shards: int = CARD_SHARDS,
+                   collecting=None) -> None:
+    """(t): the ``cuda`` tests of each label's file in ``CARD_TESTS`` (each
+    kernel against its plain version on small cases; ``--noconftest -m
+    cuda``: the files import neither jax nor tpulp), collected in one
+    pytest process (``collecting``, started by ``collect_card_tests``, or
+    started here), dealt round-robin to ``shards`` pytest processes that
+    run side by side on the card with one CPU thread each, and counted
+    from their JUnit reports file by file. Nothing is timed while they
+    run. Each label's result goes into ``CARD_RESULTS``; ``card_tests``
+    reads it."""
+    import os
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    if collecting is None:
+        collecting = collect_card_tests(labels)
+    files, coll, t0 = collecting
+    if getattr(dev, "type", dev) != "cuda":
+        coll.kill()
+        coll.communicate()
+        return
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    out, err = coll.communicate(timeout=300)
+    ids = [ln.strip() for ln in out.splitlines()
+           if "::" in ln and ln.split("::")[0] in files]
+    collected = {f: sum(1 for i in ids if i.startswith(f + "::"))
+                 for f in files}
+    if coll.returncode != 0 or not all(collected.values()):
+        raise AssertionError(f"(t): the card tests' collection: exit "
+                             f"{coll.returncode}, {collected}: "
+                             f"{out[-3000:]}{err[-2000:]}")
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    procs = []
+    for k in range(min(shards, len(ids))):
+        xml = os.path.join(tmp, f"shard{k}.xml")
+        cmd = _pytest("--durations=3", f"--junitxml={xml}", *ids[k::shards])
+        procs.append((xml, subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+        CHILDREN.append(procs[-1][1])
+    counts = {f: {"passed": 0, "failed": 0, "skipped": 0} for f in files}
+    tails, slowest = [], []
+    try:
+        for xml, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            for ln in out.splitlines():
+                m = re.match(r"\s*(\d+\.\d+)s (call|setup)\s+(\S+)", ln)
+                if m:
+                    slowest.append((float(m.group(1)), m.group(3)))
+            if proc.returncode != 0:
+                tails.append(out[-4000:] + err[-2000:])
+            for case in ET.parse(xml).getroot().iter("testcase"):
+                f = case.get("classname", "").replace(".", "/") + ".py"
+                kind = "failed" if case.find("failure") is not None or \
+                    case.find("error") is not None else "skipped" if \
+                    case.find("skipped") is not None else "passed"
+                counts[f][kind] += 1
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
     secs = time.perf_counter() - t0
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    log(f"# 5c (t) {' '.join(cmd[2:])}: exit {proc.returncode}, "
-        f"{tail[0]} ({secs:.1f} s)")
-    if proc.returncode != 0 or "skipped" in tail[0] or \
-            "passed" not in tail[0]:
-        raise AssertionError(f"5c (t): the rank-1 grid's card tests: "
-                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-    return {"summary": tail[0], "seconds": secs}
+    for f, label in files.items():
+        c = counts[f]
+        summary = ", ".join(f"{n} {k}" for k, n in c.items() if n)
+        CARD_RESULTS[label] = {
+            "summary": summary, "seconds": secs, "cmd": " ".join(
+                _pytest(f)[2:]), "collected": collected[f], **c,
+            "ok": c["passed"] == collected[f] and not tails,
+            "tail": "\n".join(tails)[-6000:]}
+    log(f"# (t) {len(ids)} card tests of {len(files)} files in "
+        f"{len(procs)} pytest processes side by side: "
+        f"{time.perf_counter() - t1:.1f} s ({secs:.1f} s with the "
+        f"collection); slowest "
+        + "; ".join(f"{t:.2f} s {name}" for t, name in
+                    sorted(slowest, reverse=True)[:6]))
+
+
+def card_tests(label: str, dev) -> dict:
+    """``label`` (t): the result of the ``cuda`` tests of
+    ``CARD_TESTS[label]`` on the card, run now unless ``run_card_tests``
+    ran them; a failure, a test that skips or one that did not run fails
+    the run. Returns the summary and the seconds."""
+    if getattr(dev, "type", dev) != "cuda":
+        return {"skipped": "no card"}
+    if label not in CARD_RESULTS:
+        run_card_tests([label], dev)
+    r = CARD_RESULTS[label]
+    log(f"# {label} (t) {r['cmd']}: {r['summary']} of {r['collected']} "
+        f"collected (the card tests' {r['seconds']:.1f} s)")
+    if not r["ok"]:
+        raise AssertionError(f"{label} (t): {CARD_TESTS[label][1]}: "
+                             f"{r['summary']} of {r['collected']}: "
+                             f"{r['tail']}")
+    return {"summary": r["summary"], "seconds": r["seconds"]}
 
 
 def past_replicated_walks(clock_hz: float, cut, dev="cuda"):
@@ -1846,8 +1967,11 @@ def warm_resolve_end_to_end(cut, dev="cuda"):
     """5c (zs): ``solve_lp`` on a RANK1_WARM_M x RANK1_WARM_N LP
     (``main_path_form``, 18 x 200,017 at f64, past the streamed plan of the
     grid) end to end: cold (``auto``: its 3.6M elements take the blocked
-    engine), then with a quarter of its RHS halved and ``warm_start=`` the
-    cold solution (the warm frame primal infeasible and dual feasible: the
+    engine, whose slabs pass a block's shared memory: one ``blocked_grid``
+    launch a block on its device-factor plan, B1 and the ray launch, no
+    other kernel), then with a quarter of its RHS halved and
+    ``warm_start=`` the cold solution (the warm frame primal infeasible
+    and dual feasible: the
     dual walk on ``rank1_grid``'s device-vector plan, one launch and no
     other kernel), certified optimal on the first rung with the objective
     of a cold solve of the moved LP. Refinement and certificate (exact at
@@ -1887,6 +2011,11 @@ def warm_resolve_end_to_end(cut, dev="cuda"):
         return sol
 
     cold = solve("cold", standard_form(c, A, b, hint, n))
+    if set(out["cold"]["launches"]) != {"blocked_grid", "fused_flush",
+                                        "blocked_ray"}:
+        raise AssertionError(f"5c (zs): the cold solve's launches "
+                             f"{out['cold']['launches']}, want blocked_grid, "
+                             "fused_flush and blocked_ray only")
     moved = standard_form(c, A, cut(b), hint, n)
     warm = solve("warm_start", moved, warm_start=cold)
     if out["warm_start"]["launches"] != {"rank1_grid": 1} or not warm.niter:
@@ -2143,7 +2272,7 @@ def phase_solo_walks(main_pivots_per_s: float, dev="cuda"):
     # the grid on edge cases at forced splits and plans; its card tests
     res["edge_grid"] = {str(dt)[6:]: grid_edge_cases(dt, dev)
                         for dt in (torch.float64, torch.float32)}
-    res["card_tests"] = rank1_grid_card_tests(dev)
+    res["card_tests"] = card_tests("5c", dev)
     # past the replicated vectors: the device-vector and wide plans; the
     # warm re-solve end to end
     t0 = time.perf_counter()
@@ -2198,10 +2327,19 @@ BLK5_WIDE_M, BLK5_WIDE_N = 256, 14_000
 # the first pivots of (g)'s walk held against blocked_grid_reference
 BLK5_WIDE_WINDOW = 512
 # (p): (g)'s LP in blocks of BLK5_PAST_K slots, whose slabs pass a block's
-# shared memory (the grid's plan refuses it): blocked_step's route, walked
-# to a budget (the plain-stage walk held beside it runs every slot of its
-# block, so the budget stays small) and its first slots timed
-BLK5_PAST_K, BLK5_PAST_BUDGET, BLK5_PAST_TIMED = 256, 96, 32
+# shared memory: the grid's device-factor plan (the slabs' first KR slots
+# in shared memory, the rest in the record's U and V), walked to a budget
+# (its plain version runs every slot of the block, so the budget stays
+# small)
+BLK5_PAST_K, BLK5_PAST_BUDGET = 256, 96
+# (zw), (zw32): the (g) recipe at 5c (zs)'s width, 18 x 200,017 (whose own
+# LP is optimal in 8 pivots), 69 Dantzig pivots: its first block of BLK5_K
+# slots pivots in every slot, with 12 of them resident at f64 (28 at f32);
+# (tt): main_path_arrays(8000, 8000), 8002 x 16,001 f64, in blocks of 128
+# (its basis 32 KB of a block: 120 slots resident); each walked to one
+# block and held to the plain version
+BLK5_ZW_M, BLK5_ZW_N = 16, 200_000
+BLK5_TT_M, BLK5_TT_N, BLK5_TT_K = 8000, 8000, 128
 # the grid's edge walks: Bland's walk of the 64 x 128 LP cut to a budget
 BLK5_GRID_BLAND = 200
 # (f): bench.py's recipe at (m, n), the tableau (m + 2) x (n + m + 1), and
@@ -2230,270 +2368,14 @@ def cleanup_arrays(m: int, n: int, extra: int = BLK5_CLEANUP_ROWS,
     return c.astype(float), A.astype(float), b.astype(float)
 
 
-def blocked_plain(state, opts, K: int, max_iters=None):
-    """The plain-stage walk (the launches' plain versions, flushed by B1 as
-    the kernels' walk is): (state, devex weights, seconds)."""
-    from tpulp_torch.core import eta_scaled_options
-    from tpulp_torch.kernels.blocked import blocked_walk_reference
-    from tpulp_torch.kernels.block import fused_flush
-    from tpulp_torch.solve.driver import finish
-
-    opts = eta_scaled_options(opts, state.T.dtype)
-    stall = opts.resolved_stall_limit(state.m, state.n)
-    sync(state.T.device)
-    t0 = time.perf_counter()
-    s, g = blocked_walk_reference(state, opts, stall, max_iters or
-                                  opts.max_iters, K, flush=fused_flush)
-    sync(state.T.device)
-    return finish(s), g, time.perf_counter() - t0
-
-
-def blocked_kernel_walk(state, opts, K: int):
-    """The kernels' walk through ``blocked_steps`` (what
-    ``run_simplex_blocked`` calls on the card, with its weights): (state,
-    weights, seconds, launches)."""
-    from tpulp_torch.core import eta_scaled_options
-    from tpulp_torch.kernels import LAUNCHES, reset_launches
-    from tpulp_torch.kernels.blocked import blocked_steps
-    from tpulp_torch.solve.driver import finish
-
-    opts = eta_scaled_options(opts, state.T.dtype)
-    stall = opts.resolved_stall_limit(state.m, state.n)
-    sync(state.T.device)
-    reset_launches()
-    t0 = time.perf_counter()
-    s, g = blocked_steps(state, opts, stall, opts.max_iters, K)
-    sync(state.T.device)
-    return finish(s), g, time.perf_counter() - t0, dict(LAUNCHES)
-
-
-def blocked_walk_check(state, opts, label: str, K: int = BLK5_K,
-                       window: int | None = BLK5_WINDOW):
-    """The kernels' walk and the plain-stage walk held equal in every field
-    (``T + 0.0``, NaN equal, the devex weights too), over the whole walk or
-    over its first ``window`` pivots (the budget of both, a multiple of K);
-    the launches must be ``blocked_step`` slots, one ray launch and one B1
-    flush a block, and nothing else. Returns the numbers."""
-    import dataclasses as dc
-
-    import torch
-
-    if window is not None:
-        opts = dc.replace(opts, max_iters=min(opts.max_iters, window))
-    k, gk, secs, launches = blocked_kernel_walk(state, opts, K)
-    p, gp, plain_secs = blocked_plain(state, opts, K)
-    err = lanes_equal(k, p)
-    if not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
-        raise AssertionError(f"5d {label}: the devex weights differ")
-    blocks = launches["blocked_ray"]
-    others = {key: v for key, v in launches.items() if v and key not in (
-        "blocked_step", "blocked_ray", "fused_flush")}
-    if others or not blocks or launches["fused_flush"] != blocks or \
-            launches["blocked_step"] != K * blocks:
-        raise AssertionError(f"5d {label}: launches {launches}")
-    niter = int(k.niter) - int(state.niter)
-    res = {"status": int(k.status), "niter": niter, "bland": bool(k.bland),
-           "blocks": blocks, "seconds": secs, "plain_seconds": plain_secs,
-           "max_abs_err": err, "launches": launches["blocked_step"],
-           "us_per_pivot": 1e6 * secs / max(niter, 1),
-           "plain_ms_per_pivot": 1e3 * plain_secs / max(niter, 1),
-           "window": window}
-    log(f"# 5d {label} {tuple(state.T.shape)} {str(state.T.dtype)[6:]} "
-        f"K={K}: the kernels' walk equals the plain-stage walk in every field"
-        f" (status {res['status']}, {niter} pivots in {blocks} blocks"
-        + (f", the first {window} pivots" if window else "")
-        + f"); {1e3 * secs:.2f} ms = {res['us_per_pivot']:.1f} us a pivot on "
-        f"the host clock, the plain walk {res['plain_ms_per_pivot']:.3f} ms "
-        "a pivot")
-    return res
-
-
-def blocked_stage_checks(state, opts, label: str, want, K: int,
-                         max_slots: int = 6000):
-    """Each launch held against its plain stage on the card (every record
-    field, ``T + 0.0``), on the first slot or block end of each kind in
-    ``want``: "pivot" (a pricing pivot, not under Bland), "bland" (one
-    under Bland), "maxpiv_tie" (a pricing pivot with two or more rows in
-    the min-ratio tie under largest-pivot ties), "cleanup", "retire",
-    "devex_reset" (a phase change under devex), "reset_1e8" (the weights
-    past 1e8), "budget_stop" (a slot the budget stops), and at a block's
-    end "ray_art" / "ray_clear" (the ray launch in phase 2 with an
-    artificial basic / with none). The record walks on through the
-    kernels' launches. Returns {kind: slot}."""
-    import torch
-
-    from tpulp_torch.core import Status, eta_scaled_options
-    from tpulp_torch.core.state import RULE_BLAND, RULE_DEVEX, TIE_MAXPIV
-    from tpulp_torch.kernels import blocked as kb
-    from tpulp_torch.kernels.block import fused_flush
-
-    opts = eta_scaled_options(opts, state.T.dtype)
-    stall = opts.resolved_stall_limit(state.m, state.n)
-    mi = opts.max_iters
-    devex = opts.rule == RULE_DEVEX
-    M, N = state.T.shape
-    G = kb.partials(M, N)
-    rec = kb.make_record(state, K)
-    found = {}
-
-    def held(base, stages, kinds, scan=None):
-        for stage in stages:
-            k, p = kb.clone_record(base), kb.clone_record(base)
-            kb.blocked_stage(k, stage, opts, stall, mi, scan)
-            kb.blocked_stage_reference(p, stage, opts, stall, mi, scan)
-            torch.cuda.synchronize()
-            for (name, a), (_, b) in zip(kb.record_tensors(k),
-                                         kb.record_tensors(p)):
-                a, b = a.cpu(), b.cpu()
-                if a.is_floating_point():
-                    a, b = a.nan_to_num(0.5) + 0.0, b.nan_to_num(0.5) + 0.0
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"5d {label}: the {stage} launch differs from its "
-                        f"plain stage in {name} ({sorted(kinds)})")
-            base = p
-
-    slot = 0
-    while slot < max_slots and set(found) != set(want):
-        iv = rec.ints.tolist()
-        if iv[kb.STATUS] != Status.RUNNING or iv[kb.NITER] >= mi:
-            break
-        for _ in range(K):
-            before = kb.clone_record(rec)
-            for stage in kb.SLOT_STAGES:
-                kb.blocked_stage(rec, stage, opts, stall, mi)
-            b, a = before.ints.tolist(), rec.ints.tolist()
-            if b[kb.STATUS] == Status.RUNNING:
-                pricing = bool(a[kb.DO_PRICING] and a[kb.ACT])
-                under_bland = bool(b[kb.BLAND]) or opts.rule == RULE_BLAND
-                ties = 0
-                if pricing and opts.tie_break == TIE_MAXPIV:
-                    col, bv = rec.scratch[2:M], before.bvec[2:]
-                    pos = col > opts.piv_tol
-                    ratios = torch.where(pos, bv / torch.where(pos, col, 1.0),
-                                         float("inf"))
-                    ties = int((ratios <= ratios.min()).sum())
-                kinds = {
-                    "pivot": pricing and not under_bland,
-                    "bland": pricing and under_bland,
-                    "maxpiv_tie": ties >= 2,
-                    "cleanup": bool(a[kb.DO_CLEANUP] and a[kb.ACT]),
-                    "retire": bool(a[kb.RETIRE]),
-                    "devex_reset": devex and bool(a[kb.TO_PHASE2]),
-                    "reset_1e8": devex and bool(
-                        rec.scratch[M + N:M + N + G].max() > 1e8),
-                    "budget_stop": bool(a[kb.DO_CLEANUP] or a[kb.DO_PRICING])
-                    and not a[kb.ACT]}
-                new = {k for k, v in kinds.items() if v and k in want
-                       and k not in found}
-                if new:
-                    held(before, kb.SLOT_STAGES, new)
-                    for kind in new:
-                        found[kind] = slot
-            slot += 1
-        _, scan = fused_flush(*kb.flush_inputs(rec), float(opts.opt_tol),
-                              float(opts.piv_tol))
-        iv = rec.ints.tolist()
-        new = set()
-        if iv[kb.STATUS] == Status.RUNNING and iv[kb.PHASE] == 2:
-            kind = "ray_art" if iv[kb.ART_ROW] != kb.BIG_I else "ray_clear"
-            if kind in want and kind not in found:
-                new = {kind}
-        if new:
-            held(kb.clone_record(rec), ("ray",), new, scan)
-            found.update({kind: slot for kind in new})
-        kb.blocked_stage(rec, "ray", opts, stall, mi, scan)
-    if set(found) != set(want):
-        raise AssertionError(f"5d {label}: no slot of kinds "
-                             f"{set(want) - set(found)} in {slot}")
-    log(f"# 5d stages, {label} {tuple(state.T.shape)} "
-        f"{str(state.T.dtype)[6:]} K={K}: each launch equals its plain "
-        "stage on the card (every record field) at slot "
-        + ", ".join(f"{s} ({k})" for k, s in sorted(found.items(),
-                                                    key=lambda x: x[1])))
-    return found
-
-
-def blocked_slot_us(state, opts, label: str, K: int = BLK5_K):
-    """A kernel slot of the walk of ``state``, half a block into its second
-    block: device us a slot of a whole block's K slots enqueued by one C
-    call (``launches_us``, on a copy of the record at the block's start),
-    the host's us to enqueue one, the device us of the cleanup, price,
-    column, ratio and row launches alone (32 launches of each on a copy)
-    beside the finish, the flush and ray launches a block, and the bound;
-    three rounds, medians."""
-    import torch
-
-    from tpulp_torch.core import eta_scaled_options
-    from tpulp_torch.core.state import RULE_DEVEX
-    from tpulp_torch.kernels import blocked as kb
-    from tpulp_torch.kernels.block import fused_flush
-
-    opts = eta_scaled_options(opts, state.T.dtype)
-    stall = opts.resolved_stall_limit(state.m, state.n)
-    mi = opts.max_iters
-    rec = kb.make_record(state, K)
-    kb.blocked_block(rec, opts, stall, mi)
-    start = kb.clone_record(rec)
-    kb.enqueue_slots(rec, opts, stall, mi, K // 2)
-    steps = 32
-    stages = kb.SLOT_STAGES[:-1]
-    dev_us, host_us, block_us = [], [], []
-    split = {stage: [] for stage in stages}
-    for _ in range(3):
-        for stage in stages:
-            c = kb.clone_record(rec)
-            split[stage].append(launches_us(lambda: [
-                kb.blocked_stage(c, stage, opts, stall, mi)
-                for _ in range(steps)], steps)[0])
-        c = kb.clone_record(start)
-        d, h = launches_us(lambda: kb.enqueue_slots(c, opts, stall, mi, K),
-                           K)
-        if int(c.ints[kb.STATUS]) != 0 or int(c.ints[kb.SLOT]) != K:
-            raise AssertionError("5d: the timed slots ran past the walk")
-        dev_us.append(d)
-        host_us.append(h)
-
-        def end():
-            _, scan = fused_flush(*kb.flush_inputs(c), float(opts.opt_tol),
-                                  float(opts.piv_tol))
-            kb.blocked_stage(c, "ray", opts, stall, mi, scan)
-
-        block_us.append(launches_us(end, 1)[0])
-    split = {k: float(np.median(v)) for k, v in split.items()}
-    dev_us, host_us = float(np.median(dev_us)), float(np.median(host_us))
-    split["finish"] = dev_us - sum(split.values())
-    M, N = state.T.shape
-    bound_ms, bound_by = slot_bound(state, opts, K)
-    res = {"device_us_per_slot": dev_us, "host_us_per_slot": host_us,
-           "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
-           "device_us_by_stage": split,
-           "flush_and_ray_us_per_block": float(np.median(block_us))}
-    log(f"# 5d blocked_step {label} {M}x{N} {str(state.T.dtype)[6:]} K={K}: "
-        f"{dev_us:.2f} us a slot on the card (CUDA events over a block of "
-        f"{K} slots; " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
-        + f"), {host_us:.2f} us of host time to enqueue one; B1's flush and "
-        f"the ray launch {res['flush_and_ray_us_per_block']:.1f} us a block; "
-        f"bound {1e3 * bound_ms:.3f} us a slot ({bound_by})")
-    return res
-
-
-def slot_bound(state, opts, K: int = BLK5_K):
-    """(bound_ms, bound_by) of a pivot slot of ``blocked_step``, whose six
-    launches a slot read their operands from device memory, at the block's
-    mean slot index t = (K - 1) / 2: T0's column and row, the t slots of U
-    and V written before it, U[t] and V[t] written, row0, row1 (N) and bvec
-    (M) read and written, and under devex the weights (N - 1) read and
-    written; one fma an entry of each eta sum."""
-    from tpulp_torch.core.state import RULE_DEVEX
-
+def slot_window_bound(state, t_mean: float):
+    """(bound_ms, bound_by) of a slot by the table's slot convention: slot
+    t reads t slots of U and V, T0's column and row, and writes one slot,
+    (t + 2)(M + N) elements at 3.35 TB/s, at the timed window's mean slot
+    index; one fma an entry of each eta sum."""
     M, N = state.T.shape
     size = state.T.element_size()
-    t_mean = (K - 1) / 2
-    devex = opts.rule == RULE_DEVEX
-    nbytes = size * ((M + N) * (2 + t_mean) + 2 * (2 * N + M)
-                     + (2 * (N - 1) if devex else 0))
-    return bound(nbytes, 2.0 * t_mean * (M + N),
+    return bound(size * (t_mean + 2) * (M + N), 2.0 * t_mean * (M + N),
                  FP64_FLOP_S if size == 8 else FP32_FLOP_S)
 
 
@@ -2523,11 +2405,10 @@ def cluster_walk_check(state, opts, label: str, K: int = BLK5_K,
     ``run_simplex_blocked`` runs on the card where the plan fits) held
     equal in every field (``T + 0.0``, NaN equal, the devex weights too) to
     ``blocked_cluster_reference`` on the same cluster size, flushed by the
-    same B1, and to ``blocked_steps``' walk, over the whole walk or its
-    first ``window`` pivots; its launches one ``blocked_cluster``, one B1
-    flush and one ray launch a block and nothing else; the two kernels'
-    walks timed on the host clock in turns (cluster, step, step, cluster,
-    twice). Returns the numbers, and under "plain" the plain version's
+    same B1, over the whole walk or its first ``window`` pivots; its
+    launches one ``blocked_cluster``, one B1 flush and one ray launch a
+    block and nothing else; the walk timed on the host clock (twice, the
+    median). Returns the numbers, and under "plain" the plain version's
     (state, weights)."""
     import dataclasses as dc
 
@@ -2535,7 +2416,6 @@ def cluster_walk_check(state, opts, label: str, K: int = BLK5_K,
 
     from tpulp_torch.core import eta_scaled_options
     from tpulp_torch.kernels import LAUNCHES, reset_launches
-    from tpulp_torch.kernels import blocked as kb
     from tpulp_torch.kernels import blocked_cluster as kbc
     from tpulp_torch.kernels.block import fused_flush
     from tpulp_torch.solve.driver import finish
@@ -2548,13 +2428,13 @@ def cluster_walk_check(state, opts, label: str, K: int = BLK5_K,
     M, N = state.T.shape
     plan = kbc.blocked_cluster_plan(M, N, K, dt)
     occ = kbc.blocked_cluster_occupancy(M, N, K, dt, dev)
-    runs = {"cluster": lambda: kbc.blocked_cluster(state, o, stall,
-                                                   o.max_iters, K),
-            "step": lambda: kb.blocked_steps(state, o, stall, o.max_iters,
-                                             K)}
+
+    def run():
+        return kbc.blocked_cluster(state, o, stall, o.max_iters, K)
+
     sync(dev)
     reset_launches()
-    k, gk = runs["cluster"]()
+    k, gk = run()
     sync(dev)
     launches = dict(LAUNCHES)
     blocks = launches["blocked_cluster"]
@@ -2564,47 +2444,40 @@ def cluster_walk_check(state, opts, label: str, K: int = BLK5_K,
             launches["blocked_ray"] != blocks:
         raise AssertionError(f"5d {label}: the cluster walk's launches "
                              f"{launches}")
-    sp, gs = runs["step"]()
-    sync(dev)
     t0 = time.perf_counter()
     p, gp = kbc.blocked_cluster_reference(state, o, stall, o.max_iters, K,
                                           plan.blocks, flush=fused_flush)
     sync(dev)
     plain_secs = time.perf_counter() - t0
-    k, sp, p = finish(k), finish(sp), finish(p)
+    k, p = finish(k), finish(p)
     err = lanes_equal(k, p)
-    lanes_equal(k, sp)
-    for g, what in ((gp, "blocked_cluster_reference"),
-                    (gs, "blocked_steps")):
-        if not torch.equal(gk.cpu() + 0.0, g.cpu() + 0.0):
-            raise AssertionError(f"5d {label}: the devex weights differ "
-                                 f"from {what}'s")
-    host = {"cluster": [], "step": []}
-    for name in ("cluster", "step", "step", "cluster") * 2:
+    if not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
+        raise AssertionError(f"5d {label}: the devex weights differ from "
+                             "blocked_cluster_reference's")
+    host = []
+    for _ in range(2):
         sync(dev)
         t0 = time.perf_counter()
-        runs[name]()
+        run()
         sync(dev)
-        host[name].append(time.perf_counter() - t0)
+        host.append(time.perf_counter() - t0)
     niter = max(int(k.niter) - int(state.niter), 1)
     res = {"status": int(k.status), "niter": niter, "blocks": blocks,
            "cluster": plan.blocks, "width": plan.width,
            "height": plan.height, "smem": plan.smem, "occupancy": occ,
            "max_abs_err": err,
-           "us_per_pivot": 1e6 * float(np.median(host["cluster"])) / niter,
-           "step_us_per_pivot": 1e6 * float(np.median(host["step"])) / niter,
+           "us_per_pivot": 1e6 * float(np.median(host)) / niter,
            "plain_ms_per_pivot": 1e3 * plain_secs / niter,
            "window": window, "plain": (p, gp)}
     log(f"# 5d {label} {M}x{N} {str(dt)[6:]} K={K}: blocked_cluster on "
         f"{plan.blocks} blocks ({plan.width} columns, {plan.height} rows, "
         f"{plan.smem} bytes of shared memory a block; "
         f"cudaOccupancyMaxActiveClusters {occ}), {blocks} launches: its walk"
-        f" equals blocked_cluster_reference and blocked_steps' walk in every"
-        f" field (status {res['status']}, {niter} pivots"
+        f" equals blocked_cluster_reference in every field (status "
+        f"{res['status']}, {niter} pivots"
         + (f", the first {window}" if window else "")
-        + f"); {res['us_per_pivot']:.2f} us a pivot on the host clock, "
-        f"blocked_step {res['step_us_per_pivot']:.2f} in turns; the plain "
-        f"version {res['plain_ms_per_pivot']:.3f} ms a pivot")
+        + f"); {res['us_per_pivot']:.2f} us a pivot on the host clock; the "
+        f"plain version {res['plain_ms_per_pivot']:.3f} ms a pivot")
     return res
 
 
@@ -2769,21 +2642,18 @@ def grid_walk_blocked(state, opts, K: int = BLK5_K, max_iters=None,
 def blocked_grid_check(state, opts, label: str, K: int = BLK5_K,
                        window: int = BLK5_WIDE_WINDOW):
     """5d (g): ``blocked_grid``'s walk on its plan's grid (what
-    ``run_simplex_blocked`` runs on the card past the cluster's plan) held
-    equal in every field (``T + 0.0``, NaN equal, the devex weights too) to
-    ``blocked_steps``' whole walk, and over its first ``window`` pivots to
-    ``blocked_grid_reference`` on the card (the plan's G, flushed by the
-    same B1); its launches one ``blocked_grid``, one B1 flush and one ray
-    launch a block and nothing else; the two kernels' whole walks timed on
-    the host clock in turns (grid, step, step, grid, twice). Returns the
-    numbers."""
+    ``run_simplex_blocked`` runs on the card past the cluster's plan), its
+    launches one ``blocked_grid``, one B1 flush and one ray launch a block
+    and nothing else, timed on the host clock (twice, the median), and over
+    its first ``window`` pivots held equal in every field (``T + 0.0``, NaN
+    equal, the devex weights too) to ``blocked_grid_reference`` on the
+    card (the plan's G, flushed by the same B1). Returns the numbers."""
     import dataclasses as dc
 
     import torch
 
     from tpulp_torch.core import eta_scaled_options
     from tpulp_torch.kernels import LAUNCHES, reset_launches
-    from tpulp_torch.kernels import blocked as kb
     from tpulp_torch.kernels import blocked_grid as kg
     from tpulp_torch.kernels.block import fused_flush
     from tpulp_torch.kernels.launch import sm_count
@@ -2795,12 +2665,9 @@ def blocked_grid_check(state, opts, label: str, K: int = BLK5_K,
     M, N = state.T.shape
     plan = kg.blocked_grid_plan(M, N, K, dt, sm_count(dev))
     occ = kg.blocked_grid_occupancy(M, N, K, dt, dev)
-    runs = {"grid": lambda: grid_walk_blocked(state, o, K),
-            "step": lambda: kb.blocked_steps(state, o, stall, o.max_iters,
-                                             K)}
     sync(dev)
     reset_launches()
-    k, gk = runs["grid"]()
+    k, gk = grid_walk_blocked(state, o, K)
     sync(dev)
     launches = dict(LAUNCHES)
     blocks = launches["blocked_grid"]
@@ -2810,12 +2677,6 @@ def blocked_grid_check(state, opts, label: str, K: int = BLK5_K,
             launches["blocked_ray"] != blocks:
         raise AssertionError(f"5d {label}: the grid walk's launches "
                              f"{launches}")
-    sp, gs = runs["step"]()
-    sync(dev)
-    err = lanes_equal(k, finish(sp))
-    if not torch.equal(gk.cpu() + 0.0, gs.cpu() + 0.0):
-        raise AssertionError(f"5d {label}: the devex weights differ from "
-                             "blocked_steps'")
     # the window against the plain version
     ow = dc.replace(o, max_iters=min(o.max_iters, int(state.niter) + window))
     kw_, gkw = grid_walk_blocked(state, ow, K)
@@ -2825,38 +2686,36 @@ def blocked_grid_check(state, opts, label: str, K: int = BLK5_K,
                                         plan.blocks, flush=fused_flush)
     sync(dev)
     plain_secs = time.perf_counter() - t0
-    err = max(err, lanes_equal(kw_, finish(pw)))
+    err = lanes_equal(kw_, finish(pw))
     if not torch.equal(gkw.cpu() + 0.0, gpw.cpu() + 0.0):
         raise AssertionError(f"5d {label}: the devex weights differ from "
                              "blocked_grid_reference's")
     wsteps = max(int(pw.niter) - int(state.niter), 1)
-    host = {"grid": [], "step": []}
-    for name in ("grid", "step", "step", "grid") * 2:
+    host = []
+    for _ in range(2):
         sync(dev)
         t0 = time.perf_counter()
-        runs[name]()
+        grid_walk_blocked(state, o, K)
         sync(dev)
-        host[name].append(time.perf_counter() - t0)
+        host.append(time.perf_counter() - t0)
     niter = max(int(k.niter) - int(state.niter), 1)
     res = {"status": int(k.status), "niter": niter, "blocks": blocks,
            "grid": plan.blocks, "width": plan.width, "height": plan.height,
            "smem": plan.smem, "mail": plan.mail, "occupancy": occ,
+           "resident": plan.resident, "vectors": plan.vectors,
            "max_abs_err": err, "window": wsteps,
-           "walk_seconds": float(np.median(host["grid"])),
-           "step_walk_seconds": float(np.median(host["step"])),
-           "us_per_pivot": 1e6 * float(np.median(host["grid"])) / niter,
-           "step_us_per_pivot": 1e6 * float(np.median(host["step"])) / niter,
+           "walk_seconds": float(np.median(host)),
+           "us_per_pivot": 1e6 * float(np.median(host)) / niter,
            "plain_ms_per_pivot": 1e3 * plain_secs / wsteps}
     log(f"# 5d {label} {M}x{N} {str(dt)[6:]} K={K}: blocked_grid on "
         f"{plan.blocks} blocks ({plan.width} columns, {plan.height} rows, "
+        f"{plan.resident} of {K} slots resident, {plan.vectors} vectors, "
         f"{plan.smem} bytes of shared memory a block, {plan.mail} bytes of "
-        f"mailboxes; occupancy {occ} a block an SM), {blocks} launches: its "
-        f"walk equals blocked_steps' whole walk in every field (status "
-        f"{res['status']}, {niter} pivots) and its first {wsteps} pivots "
-        f"blocked_grid_reference's; {res['us_per_pivot']:.2f} us a pivot on "
-        f"the host clock, blocked_step {res['step_us_per_pivot']:.2f} in "
-        f"turns; the plain version {res['plain_ms_per_pivot']:.3f} ms a "
-        "pivot")
+        f"mailboxes; occupancy {occ} a block an SM), {blocks} launches "
+        f"(status {res['status']}, {niter} pivots); its first {wsteps} "
+        f"pivots equal blocked_grid_reference's in every field; "
+        f"{res['us_per_pivot']:.2f} us a pivot on the host clock; the plain "
+        f"version {res['plain_ms_per_pivot']:.3f} ms a pivot")
     return res
 
 
@@ -2875,16 +2734,22 @@ def grid_slot_bound(state, K: int, G: int, clock_hz: float):
 
 
 def grid_slot_us(state, opts, label: str, clock_hz: float,
-                 K: int = BLK5_K):
-    """One ``blocked_grid`` launch of the walk's second block (K slots, on
-    a copy of the record at the block's start) on the card alone, in turns
-    with ``blocked_step``'s K slots enqueued from the same record (grid,
-    step, step, grid; CUDA events after a sleep that covers the host's
-    enqueue): device us a slot of each, the grid's host us to launch, its
-    stage split (block 0's cycles as shares of the launch), the plan and
-    occupancy, and the slot's bounds: the table's step convention
-    (``slot_bound``), the contract's (``cluster_bound``: each input read
-    once a launch) and the kernel's own (``grid_slot_bound``)."""
+                 K: int = BLK5_K, plans=({},), second: bool = True,
+                 turns: int = 2):
+    """One ``blocked_grid`` launch of a block of K slots on the card alone
+    (CUDA events after a sleep that covers the host's launch), from the
+    walk's second block (``second``: a copy of the record after one block,
+    B1 and the ray launch) or its first, on each plan of ``plans``
+    (``blocked_grid_plan``'s forced arguments; {} the plan's own) in
+    turns, ``turns`` times: device us a slot of each plan, its stage split
+    (block 0's cycles as shares of the launch), the host's us to launch,
+    the plan, the bytes of the factors' slots read and written in device
+    memory a slot (the slots past KR), and the slot's bounds: the
+    contract's (``cluster_bound``: each input once a launch), the table's
+    slot convention at the window's mean slot (``slot_window_bound``) and,
+    on the resident plan, the kernel's own (``grid_slot_bound``). Every
+    timed slot must pivot. Returns the first plan's numbers, the others
+    under "plans"."""
     import torch
 
     from tpulp_torch.core import eta_scaled_options
@@ -2897,60 +2762,90 @@ def grid_slot_us(state, opts, label: str, clock_hz: float,
     mi = o.max_iters
     dev = state.T.device
     M, N = state.T.shape
-    plan = kg.blocked_grid_plan(M, N, K, state.T.dtype, sm_count(dev))
-    work = kg.blocked_grid_work(plan, dev)
+    es = state.T.element_size()
     rec = kb.make_record(state, K)
-    kg.blocked_grid_block(rec, o, stall, mi, work=work)
-    kb.flush_and_ray(rec, o, stall, mi)
+    if second:
+        kg.blocked_grid_block(rec, o, stall, mi)
+        kb.flush_and_ray(rec, o, stall, mi)
     start = kb.clone_record(rec)
-    grid_us, step_us, host_us = [], [], []
-    for kind in ("grid", "step", "step", "grid") * 2:
-        c = kb.clone_record(start)
-        if kind == "grid":
+    t0 = int(start.ints[kb.SLOT])
+    runs = []
+    for kw in plans:
+        plan = kg.blocked_grid_plan(M, N, K, state.T.dtype, sm_count(dev),
+                                    **kw)
+        work = kg.blocked_grid_work(plan, dev)
+        # one untimed launch first (the first launch at a plan raises its
+        # shared-memory limit)
+        kg.blocked_grid_block(kb.clone_record(start), o, stall, mi,
+                              work=work, **kw)
+        runs.append({"kw": kw, "plan": plan, "work": work, "us": [],
+                     "host": []})
+    order = list(range(len(runs)))
+    for turn in range(turns):
+        for i in (order if turn % 2 == 0 else order[::-1]):
+            r = runs[i]
+            c = kb.clone_record(start)
             d, h = launches_us(lambda: kg.blocked_grid_block(
-                c, o, stall, mi, work=work), K)
-            grid_us.append(d)
-            host_us.append(h)
-        else:
-            step_us.append(launches_us(lambda: kb.enqueue_slots(
-                c, o, stall, mi, K), K)[0])
-        if int(c.ints[kb.STATUS]) != 0 or int(c.ints[kb.SLOT]) != K:
-            raise AssertionError("5d: the timed slots ran past the walk")
-    cyc = torch.zeros((len(kg.BLOCKED_GRID_STAGES),), dtype=torch.int64,
-                      device=dev)
-    kg.blocked_grid_block(kb.clone_record(start), o, stall, mi,
-                          stage_cycles=cyc, work=work)
-    share = (cyc.double() / cyc.sum().double().clamp_min(1)).tolist()
-    us = float(np.mean(grid_us))
-    split = {name: us * f for name, f in zip(kg.BLOCKED_GRID_STAGES, share)}
-    step_ms, step_by = slot_bound(state, opts, K)
+                c, o, stall, mi, work=r["work"], **r["kw"]), K - t0)
+            r["us"].append(d)
+            r["host"].append(h)
+            if int(c.ints[kb.STATUS]) != 0 or int(c.ints[kb.SLOT]) != K:
+                raise AssertionError(f"5d {label}: the timed slots ran past "
+                                     "the walk")
+    t_mean = (t0 + K - 1) / 2
     bound_ms, bound_by = cluster_bound(state, opts, K)
-    own_ms = grid_slot_bound(state, K, plan.blocks, clock_hz)
-    res = {"device_us_per_slot": us, "device_us_turns": grid_us,
-           "step_device_us_per_slot": float(np.mean(step_us)),
-           "step_device_us_turns": step_us,
-           "host_us_per_slot": float(np.median(host_us)),
-           "device_us_by_stage": split, "blocks": plan.blocks,
-           "width": plan.width, "height": plan.height, "smem": plan.smem,
-           "occupancy": kg.blocked_grid_occupancy(M, N, K, state.T.dtype,
-                                                  dev),
-           "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
-           "step_bound_us_per_slot": 1e3 * step_ms,
-           "grid_bound_us_per_slot": 1e3 * own_ms, "sm_clock_hz": clock_hz}
-    log(f"# 5d blocked_grid {label} {M}x{N} {str(state.T.dtype)[6:]} "
-        f"K={K}: {us:.2f} us a slot on the card (CUDA events over one launch "
-        f"of {K} slots, in turns: {[round(x, 3) for x in grid_us]}), "
-        f"blocked_step {res['step_device_us_per_slot']:.2f} "
-        f"({[round(x, 3) for x in step_us]}); block 0's clock: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-        + f"; {res['host_us_per_slot']:.3f} us of host time a slot to "
-        f"launch; G {plan.blocks}, W {plan.width}, H {plan.height}, "
-        f"{plan.smem} bytes of shared memory a block, occupancy "
-        f"{res['occupancy']}; bounds a slot: {1e3 * bound_ms:.4f} us "
-        f"({bound_by}, each input once a launch), {1e3 * own_ms:.4f} us (the "
-        f"kernel's convention), {1e3 * step_ms:.3f} us (the table's step "
-        "convention)")
-    return res
+    slot_ms, slot_by = slot_window_bound(state, t_mean)
+    out = []
+    for r in runs:
+        plan = r["plan"]
+        cyc = torch.zeros((len(kg.BLOCKED_GRID_STAGES),), dtype=torch.int64,
+                          device=dev)
+        kg.blocked_grid_block(kb.clone_record(start), o, stall, mi,
+                              stage_cycles=cyc, work=r["work"], **r["kw"])
+        share = (cyc.double() / cyc.sum().double().clamp_min(1)).tolist()
+        us = float(np.mean(r["us"]))
+        dev_slots = np.mean([max(0, t + 1 - plan.resident) + (
+            t >= plan.resident) for t in range(t0, K)])
+        res = {"plan_kw": r["kw"], "device_us_per_slot": us,
+               "device_us_turns": r["us"],
+               "host_us_per_slot": float(np.median(r["host"])),
+               "device_us_by_stage": {
+                   name: us * f for name, f in
+                   zip(kg.BLOCKED_GRID_STAGES, share) if f > 0},
+               "blocks": plan.blocks, "width": plan.width,
+               "height": plan.height, "smem": plan.smem, "mail": plan.mail,
+               "resident": plan.resident, "vectors": plan.vectors,
+               "occupancy": kg.blocked_grid_occupancy(
+                   M, N, K, state.T.dtype, dev, **r["kw"]),
+               "device_bytes_per_slot": float(es * (M + N) * dev_slots),
+               "slots": K - t0, "t_mean": t_mean,
+               "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
+               "slot_bound_us_per_slot": 1e3 * slot_ms,
+               "slot_bound_by": slot_by}
+        if plan.resident == K and plan.vectors == "shared":
+            res["grid_bound_us_per_slot"] = 1e3 * grid_slot_bound(
+                state, K, plan.blocks, clock_hz)
+        out.append(res)
+        log(f"# 5d blocked_grid {label} {M}x{N} {str(state.T.dtype)[6:]} "
+            f"K={K} {r['kw'] or 'plan'}: {us:.2f} us a slot on the card "
+            f"(CUDA events over one launch of slots {t0}-{K - 1}, in "
+            f"turns: {[round(x, 3) for x in r['us']]}); block 0's clock: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        res["device_us_by_stage"].items())
+            + f"; {res['host_us_per_slot']:.3f} us of host time a slot to "
+            f"launch; G {plan.blocks}, W {plan.width}, H {plan.height}, KR "
+            f"{plan.resident}, {plan.vectors} vectors, {plan.smem} bytes of "
+            f"shared memory a block, occupancy {res['occupancy']}, "
+            f"{res['device_bytes_per_slot'] / 1e6:.3f} MB of the factors' "
+            f"slots in device memory a slot; bounds a slot: "
+            f"{1e3 * bound_ms:.4f} us ({bound_by}, each input once a "
+            f"launch), {1e3 * slot_ms:.3f} us (the table's slot convention "
+            f"at mean t {t_mean})"
+            + (f", {res['grid_bound_us_per_slot']:.4f} us (the kernel's "
+               "convention)" if "grid_bound_us_per_slot" in res else ""))
+    head = dict(out[0])
+    head["plans"] = out[1:]
+    return head
 
 
 def grid_vs_cluster_us(state, opts, label: str, K: int = BLK5_K):
@@ -3012,10 +2907,18 @@ def grid_vs_cluster_us(state, opts, label: str, K: int = BLK5_K):
     return res
 
 
+# the forced plans of the grid's edge walks: no slot of the slabs in shared
+# memory; the running vectors, the basis and the artificial bits in device
+# memory, with every slot resident and with none
+EDGE_PLANS = ({"resident": 0}, {"vectors": "device"},
+              {"vectors": "device", "resident": 0})
+
+
 def blocked_grid_edge_walks(dt, sf_d, sf_r, dev="cuda"):
-    """``blocked_grid`` on grids of 1, 2, 3, 7 blocks and the plan's held in
-    every field against ``blocked_grid_reference`` on the card (the plan's
-    G, flushed by the same B1): the clean-up LP under devex with
+    """``blocked_grid`` on grids of 1, 2, 3, 7 blocks and the plan's, and on
+    the forced plans of EDGE_PLANS on grids of 1, 3, 7 and the plan's, held
+    in every field against ``blocked_grid_reference`` on the card (the
+    plan's G, flushed by the same B1): the clean-up LP under devex with
     largest-pivot ties (K = 16: the clean-up pivots, barrier C, a retire,
     the phase change with devex's reset, the ray launch's gate with an
     artificial basic and without), devex's first pivot on 2e-4 (K = 16: the
@@ -3064,13 +2967,15 @@ def blocked_grid_edge_walks(dt, sf_d, sf_r, dev="cuda"):
         p, gp = kg.blocked_grid_reference(st, o, stall, o.max_iters, K, G,
                                           flush=fused_flush)
         p = finish(p)
-        for blocks in (1, 2, 3, 7, None):
-            k, gk = grid_walk_blocked(st, o, K, blocks=blocks)
+        walks = [(blocks, {}) for blocks in (1, 2, 3, 7, None)] + [
+            (blocks, kw) for kw in EDGE_PLANS for blocks in (1, 3, 7, None)]
+        for blocks, kw in walks:
+            k, gk = grid_walk_blocked(st, o, K, blocks=blocks, **kw)
             sync(dev)
             lanes_equal(k, p)
             if not torch.equal(gk.cpu() + 0.0, gp.cpu() + 0.0):
-                raise AssertionError(f"5d grid edge walk {name} G={blocks}: "
-                                     "the devex weights differ")
+                raise AssertionError(f"5d grid edge walk {name} G={blocks} "
+                                     f"{kw}: the devex weights differ")
         status, niter = int(p.status), int(p.niter)
         if name == "budget_inside_a_block" and (
                 niter != budget or status != Status.ITERATION_LIMIT):
@@ -3082,112 +2987,192 @@ def blocked_grid_edge_walks(dt, sf_d, sf_r, dev="cuda"):
             raise AssertionError(f"5d grid edge walk {name}: {status}, "
                                  f"{niter}, budget {budget}")
         out[name] = {"status": status, "niter": niter, "K": K,
-                     "grids": [1, 2, 3, 7, G], "shape": [M, N]}
+                     "grids": [1, 2, 3, 7, G], "shape": [M, N],
+                     "walks": len(walks)}
     log(f"# 5d blocked_grid edge walks, {str(dt)[6:]}: each equals "
         "blocked_grid_reference in every field on grids of 1, 2, 3, 7 and the"
-        " plan's: " + "; ".join(
+        f" plan's, and on {EDGE_PLANS} forced on grids of 1, 3, 7 and the "
+        "plan's: " + "; ".join(
             f"{k} {tuple(v['shape'])} K={v['K']} (status {v['status']}, "
             f"{v['niter']} pivots; plan G {v['grids'][-1]})"
             for k, v in out.items()))
     return out
 
 
-def past_grid_blocked(dev="cuda"):
-    """5d (p): (g)'s wide LP in blocks of BLK5_PAST_K slots, past the grid's
-    plan (its slabs pass a block's shared memory): ``run_simplex_blocked``
-    runs ``blocked_step`` (counts set to 0 just before it, read just after:
-    slots, no ``blocked_grid``) to a budget of BLK5_PAST_BUDGET pivots, its
-    walk held in every field to the plain-stage walk flushed by the same
-    B1, and its slots timed on the card (the first BLK5_PAST_TIMED slots
-    enqueued by one C call, CUDA events after a sleep), with the table's
-    step bound at their mean slot."""
+def leq_state(A, b, c, dt, dev):
+    """min c x, A x <= b, x >= 0 on a slack basis (``scenario_form``) as a
+    state, through ``state_from_standard_form``."""
+    from tpulp_torch.solve.api import state_from_standard_form
+
+    return state_from_standard_form(scenario_form(A, b, c), dtype=dt,
+                                    device=dev)
+
+
+def past_resident_frames(clock_hz: float, dev="cuda"):
+    """5d (p), (zw), (zw32), (tt): frames whose slabs pass a block's shared
+    memory, on the grid's device-factor plan (the plan asserted: KR < K
+    slots resident, the shared vectors): ``run_simplex_blocked`` (counts
+    set to 0 just before it, read just after: one ``blocked_grid``, one B1
+    and one ray launch, nothing else) walks (p) to BLK5_PAST_BUDGET pivots
+    in one block of BLK5_PAST_K and the others one block of their K,
+    each walk held in every field to ``blocked_grid_reference`` on the
+    card (the plan's G, flushed by the same B1); then one launch of the
+    walk's first block timed by stage (``grid_slot_us``): (p) on its plan
+    and on KR = 0 forced, in turns; (zw) on its plan and on the
+    device-vector plan, in turns. Returns {frame: numbers}."""
     import dataclasses as dc
 
     import torch
 
-    from tpulp_torch import SolverOptions
+    from tpulp_torch import SolverOptions, make_state
     from tpulp_torch.core import eta_scaled_options
     from tpulp_torch.kernels import LAUNCHES, reset_launches
-    from tpulp_torch.kernels import blocked as kb
     from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.kernels.block import fused_flush
     from tpulp_torch.kernels.launch import sm_count
     from tpulp_torch.solve import run_simplex_blocked
-    from tpulp_torch.solve.api import state_from_standard_form
     from tpulp_torch.solve.blocked import blocked_route
+    from tpulp_torch.solve.driver import finish
 
-    dt = torch.float64
-    Aw, bw, cw = dense_leq_arrays(BLK5_WIDE_M, BLK5_WIDE_N, seed=2)
-    st = state_from_standard_form(scenario_form(Aw, bw, cw), dtype=dt,
-                                  device=dev)
-    M, N = st.T.shape
-    K = BLK5_PAST_K
-    try:
-        kg.blocked_grid_plan(M, N, K, dt, sm_count(st.T.device))
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError(f"5d (p): the grid's plan holds K = {K}")
-    if blocked_route(M, N, K, dt, st.T.device) != "blocked_step":
-        raise AssertionError(f"5d (p): {M} x {N} K={K} is not on "
-                             "blocked_step's route")
-    o = eta_scaled_options(dc.replace(SolverOptions.for_dtype(dt),
-                                      max_iters=BLK5_PAST_BUDGET), dt)
-    sync(dev)
-    reset_launches()
-    t0 = time.perf_counter()
-    k = run_simplex_blocked(st, o, K)
-    sync(dev)
-    secs = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
-    if launches["blocked_grid"] or launches["blocked_cluster"] or \
-            launches["blocked_step"] != K * launches["blocked_ray"] or \
-            not launches["blocked_step"]:
-        raise AssertionError(f"5d (p): launches {launches}")
-    p, _, plain_secs = blocked_plain(st, o, K)
-    err = lanes_equal(k, p)
-    niter = max(int(k.niter), 1)
-    stall = o.resolved_stall_limit(st.m, st.n)
-    rec = kb.make_record(st, K)
-    dev_us, host_us = [], []
-    for _ in range(3):
-        c = kb.clone_record(rec)
-        d, h = launches_us(lambda: kb.enqueue_slots(
-            c, o, stall, o.max_iters, BLK5_PAST_TIMED), BLK5_PAST_TIMED)
-        dev_us.append(d)
-        host_us.append(h)
-    # the table's step convention at the timed slots' mean slot index
-    bound_ms, bound_by = slot_bound(st, o, BLK5_PAST_TIMED)
-    res = {"launches": launches, "status": int(k.status), "niter": niter,
-           "seconds": secs, "plain_seconds": plain_secs,
-           "max_abs_err": err, "ms_per_pivot": 1e3 * secs / niter,
-           "plain_ms_per_pivot": 1e3 * plain_secs / niter,
-           "device_us_per_slot": float(np.median(dev_us)),
-           "host_us_per_slot": float(np.median(host_us)),
-           "bound_us_per_slot": 1e3 * bound_ms, "bound_by": bound_by,
-           "timed_slots": BLK5_PAST_TIMED, "K": K, "refused": refused}
-    log(f"# 5d (p) {M}x{N} f64 K={K}, past the grid's plan ({refused}): "
-        f"run_simplex_blocked runs blocked_step (launches {launches}), "
-        f"{niter} pivots to the budget in {1e3 * secs:.1f} ms, equal to the "
-        f"plain-stage walk in every field; {res['device_us_per_slot']:.2f} "
-        f"us a slot on the card over its first {BLK5_PAST_TIMED} slots "
-        f"({res['host_us_per_slot']:.2f} us of host time to enqueue one); "
-        f"bound {1e3 * bound_ms:.4f} us a slot ({bound_by})")
+    def zw(dt):
+        return leq_state(*dense_leq_arrays(BLK5_ZW_M, BLK5_ZW_N, seed=2), dt,
+                         dev)
+
+    frames = {
+        "p": (lambda: leq_state(*dense_leq_arrays(BLK5_WIDE_M, BLK5_WIDE_N,
+                                                  seed=2),
+                                torch.float64, dev),
+              BLK5_PAST_K, BLK5_PAST_BUDGET, ({}, {"resident": 0})),
+        "zw": (lambda: zw(torch.float64), BLK5_K, BLK5_K,
+               ({}, {"vectors": "device"})),
+        "zw32": (lambda: zw(torch.float32), BLK5_K, BLK5_K, ({},)),
+        "tt": (lambda: make_state(*main_path_arrays(BLK5_TT_M, BLK5_TT_N),
+                                  dtype=torch.float64, device=dev),
+               BLK5_TT_K, BLK5_TT_K, ({},))}
+    out = {}
+    for label, (make, K, budget, plans) in frames.items():
+        st = make()
+        dt = st.T.dtype
+        M, N = st.T.shape
+        plan = kg.blocked_grid_plan(M, N, K, dt, sm_count(st.T.device))
+        if plan.resident >= K or plan.vectors != "shared":
+            raise AssertionError(f"5d ({label}): the plan {plan}")
+        if blocked_route(M, N, K, dt, st.T.device) != "blocked_grid":
+            raise AssertionError(f"5d ({label}): {M} x {N} K={K} is not on "
+                                 "the grid's route")
+        o = eta_scaled_options(dc.replace(SolverOptions.for_dtype(dt),
+                                          max_iters=budget), dt)
+        stall = o.resolved_stall_limit(st.m, st.n)
+        sync(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        k = run_simplex_blocked(st, o, K)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = {key: v for key, v in LAUNCHES.items() if v}
+        if launches != {"blocked_grid": 1, "fused_flush": 1,
+                        "blocked_ray": 1}:
+            raise AssertionError(f"5d ({label}): launches {launches}")
+        t0 = time.perf_counter()
+        p, _ = kg.blocked_grid_reference(st, o, stall, budget, K,
+                                         plan.blocks, flush=fused_flush)
+        sync(dev)
+        plain_secs = time.perf_counter() - t0
+        err = lanes_equal(k, finish(p))
+        niter = max(int(k.niter), 1)
+        if niter != budget:
+            raise AssertionError(f"5d ({label}): {niter} pivots, want the "
+                                 f"budget {budget}")
+        timed = grid_slot_us(st, SolverOptions.for_dtype(dt), f"({label})",
+                             clock_hz, K, plans, second=False)
+        out[label] = {"shape": [M, N], "dtype": str(dt)[6:], "K": K,
+                      "plan": plan._asdict(), "launches": launches,
+                      "status": int(k.status), "niter": niter,
+                      "seconds": secs, "plain_seconds": plain_secs,
+                      "max_abs_err": err, "ms_per_pivot": 1e3 * secs / niter,
+                      "plain_ms_per_pivot": 1e3 * plain_secs / niter,
+                      "timed": timed}
+        log(f"# 5d ({label}) {M}x{N} {str(dt)[6:]} K={K}: run_simplex_"
+            f"blocked on blocked_grid's plan (G {plan.blocks}, W "
+            f"{plan.width}, H {plan.height}, KR {plan.resident}, "
+            f"{plan.smem} bytes of shared memory a block), launches "
+            f"{launches}, {niter} pivots in {1e3 * secs:.1f} ms, equal to "
+            "blocked_grid_reference in every field (the plain version "
+            f"{1e3 * plain_secs / niter:.3f} ms a pivot)")
+        del st, k, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def blocked_ray_case(state, K: int = BLK5_K, runs: int = RUNS):
+    """The ray launch at the end of the walk's first block on the grid (B1
+    flushed): held in every field of the record to its plain stage
+    ``blocked_ray_reference`` on the card, timed beside it on the card
+    (CUDA events after a sleep, medians), with its bound: B1's two scan
+    columns read, T0's rows 0 and 1 and its last column read, row0, row1,
+    bvec and the K (M + N) zeros of U and V written; the plain stage on
+    the host clock (it reads the record's scalars)."""
+    from tpulp_torch import SolverOptions
+    from tpulp_torch.core import eta_scaled_options
+    from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_grid as kg
+    from tpulp_torch.kernels.block import fused_flush
+
+    o = eta_scaled_options(SolverOptions.for_dtype(state.T.dtype),
+                           state.T.dtype)
+    stall = o.resolved_stall_limit(state.m, state.n)
+    rec = kb.make_record(state, K)
+    kg.blocked_grid_block(rec, o, stall, o.max_iters)
+    _, scan = fused_flush(*kb.flush_inputs(rec), float(o.opt_tol),
+                          float(o.piv_tol))
+    k, p = kb.clone_record(rec), kb.clone_record(rec)
+    kb.blocked_ray(k, scan, o, stall, o.max_iters)
+    kb.blocked_ray_reference(p, scan, o)
+    sync(state.T.device)
+    for (name, a), (_, b) in zip(kb.record_tensors(k), kb.record_tensors(p)):
+        if not raw_equal(a + 0.0 if a.is_floating_point() else a,
+                         b + 0.0 if b.is_floating_point() else b):
+            raise AssertionError(f"5d ray: the launch differs from its "
+                                 f"plain stage in {name}")
+    c = kb.clone_record(rec)
+    ms = device_time_ms(lambda: kb.blocked_ray(c, scan, o, stall,
+                                               o.max_iters), runs)
+    plain = []
+    for _ in range(max(3, runs // 4)):
+        sync(state.T.device)
+        t0 = time.perf_counter()
+        kb.blocked_ray_reference(c, scan, o)
+        sync(state.T.device)
+        plain.append(1e3 * (time.perf_counter() - t0))
+    plain_ms = float(np.median(plain))
+    M, N = state.T.shape
+    es = state.T.element_size()
+    bound_ms, bound_by = bound(4 * 2 * N + es * (2 * N + M)
+                               + es * (2 * N + M) + es * K * (M + N), 0.0,
+                               FP64_FLOP_S)
+    res = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "shape": [M, N], "K": K}
+    log(f"# 5d ray launch {M}x{N} {str(state.T.dtype)[6:]} K={K}: equal to "
+        f"its plain stage in every record field; {ms:.4f} ms on the card, the "
+        f"plain stage {plain_ms:.4f}; bound {bound_ms:.4f} ms ({bound_by})")
     return res
 
 
 def blocked_flush_case(state, K: int = BLK5_K):
     """B1 at the blocked engine's shape: the flush of the walk's first
-    block of K slots against its plain version, with ``addmm`` beside
-    it."""
+    block of K slots (one ``blocked_grid`` launch) against its plain
+    version, with ``addmm`` beside it."""
     from tpulp_torch.core import eta_scaled_options
     from tpulp_torch.core import SolverOptions
     from tpulp_torch.kernels import blocked as kb
+    from tpulp_torch.kernels import blocked_grid as kg
 
     opts = eta_scaled_options(SolverOptions.for_dtype(state.T.dtype),
                               state.T.dtype)
     stall = opts.resolved_stall_limit(state.m, state.n)
     rec = kb.make_record(state, K)
-    kb.enqueue_slots(rec, opts, stall, opts.max_iters, K)
+    kg.blocked_grid_block(rec, opts, stall, opts.max_iters)
     T, U, V, ca = kb.flush_inputs(rec)
     return check_flush(T.clone(), U, V, ca, opts.opt_tol, opts.piv_tol,
                        str(state.T.dtype)[6:], RUNS)
@@ -3196,31 +3181,21 @@ def blocked_flush_case(state, K: int = BLK5_K):
 def threshold_table(dev="cuda"):
     """5d (f): us a pivot of the rank-1 walk on its route
     (``rank1_cluster``, ``rank1_grid``), the blocked
-    engine on its route (``blocked_cluster`` where its plan fits), on
-    ``blocked_step`` and the kernel engine on bench.py's recipe at each of
-    THRESH_SHAPES, f64, over THRESH_PIVOTS pivots (the better of two runs,
-    host clock): the data for the `auto` thresholds, which stay as they
-    are."""
+    engine on its route (``blocked_cluster`` where its plan fits) and the
+    kernel engine on bench.py's recipe at each of THRESH_SHAPES, f64, over
+    THRESH_PIVOTS pivots (the better of two runs, host clock): the data for
+    the `auto` thresholds, which stay as they are."""
     import torch
 
     from tpulp_torch import SolverOptions, make_state
-    from tpulp_torch.core import eta_scaled_options
-    from tpulp_torch.kernels.blocked import blocked_steps
     from tpulp_torch.kernels.launch import sm_count
     from tpulp_torch.solve import (run_simplex, run_simplex_blocked,
                                    run_simplex_blocked_kernel)
     from tpulp_torch.solve.blocked import blocked_route
-    from tpulp_torch.solve.driver import finish, solo_route
-
-    def on_steps(s, o):
-        o = eta_scaled_options(o, s.T.dtype)
-        out, _ = blocked_steps(s, o, o.resolved_stall_limit(s.m, s.n),
-                               o.max_iters, BLK5_K)
-        return finish(out)
+    from tpulp_torch.solve.driver import solo_route
 
     engines = {"rank1": lambda s, o: run_simplex(s, o),
                "blocked": lambda s, o: run_simplex_blocked(s, o, BLK5_K),
-               "blocked_step": on_steps,
                "kernel": lambda s, o: run_simplex_blocked_kernel(
                    s, o, max(BLK5_K, 128))}
     table = {}
@@ -3264,11 +3239,11 @@ def threshold_table(dev="cuda"):
 def blocked_solve(sf, dt, driver: str, label: str, optimal: bool = True,
                   dev="cuda", route: str = "blocked_cluster"):
     """``solve_lp`` with the launch counts set to 0 just before it and read
-    just after: the blocked engine's kernels on ``route`` launched (one
-    ``blocked_cluster`` or ``blocked_grid`` launch a block, or
-    ``blocked_step`` slots), one ray launch and one B1 flush a block,
-    nothing of the other routes, no FMA, no B2; with ``optimal`` the answer
-    optimal and certified (``float_basis_certificate``)."""
+    just after: the blocked engine's kernel on ``route`` launched (one
+    ``blocked_cluster`` or ``blocked_grid`` launch a block), one ray launch
+    and one B1 flush a block, nothing of the other route, no FMA, no B2;
+    with ``optimal`` the answer optimal and certified
+    (``float_basis_certificate``)."""
     import tpulp_torch
     from tpulp_torch.kernels import LAUNCHES, reset_launches
     from tpulp_torch.solve.refine import float_basis_certificate
@@ -3283,14 +3258,13 @@ def blocked_solve(sf, dt, driver: str, label: str, optimal: bool = True,
     log(f"# 5d solve_lp {label} {str(dt)[6:]} (driver={driver!r}): "
         f"{sol.status}, rung {sol.rung}, {sol.niter} pivots, objective "
         f"{sol.objective!r}, {secs:.2f} s; launches {launches}")
-    others = [r for r in ("blocked_cluster", "blocked_grid",
-                          "blocked_step") if r != route]
+    others = [r for r in ("blocked_cluster", "blocked_grid") if r != route]
     blocks = launches["blocked_ray"]
     if not (launches[route] > 0 and not any(launches[r] for r in others)
             and launches["fused_fma"] == 0
             and launches["blocked_inner_block"] == 0
             and launches["fused_flush"] == blocks > 0
-            and (route == "blocked_step" or launches[route] == blocks)):
+            and launches[route] == blocks):
         raise AssertionError(f"5d {label}: launches {launches}, want "
                              f"{route} (one launch a block for the cluster "
                              "and the grid), one B1 flush and one ray launch "
@@ -3379,53 +3353,49 @@ def other_walks(state, opts, label: str):
 def phase_blocked_engine(dev="cuda"):
     """Phase 5d: the solo rank-K blocked engine on its kernels: on the
     cluster route (``blocked_cluster``, one launch a block of 64 slots,
-    where its plan fits), on the grid route past it (``blocked_grid``, one
-    cooperative launch a block) and on ``blocked_step`` (six launches a
-    slot, past the grid's plan), B1 and the ray launch a block. (a) ``solve_lp(driver="auto")`` on phase
-    8c's recipe, one LP of 512 x 1024 (514 x 1537, the blocked engine on
-    the cluster route: one ``blocked_cluster`` launch a block, no
-    ``blocked_step``; optimal, certified, the eager engine's objective
-    exactly); (b) devex, which auto picks for the artificial LP at 512 + 4
-    rows: its independent rows with c >= 0 (optimal, certified) and the
-    variant with its dependent rows (the retire; its status beside the
-    eager engine's, at f64, and those of ``other_walks``); (c) the
-    refreshed rung's
-    blocked segments (largest-pivot ties). Each walk on the cluster held in
-    every field at f64 and f32 against ``blocked_cluster_reference`` and
-    ``blocked_steps``' walk, and ``blocked_steps``' walk against the
-    plain-stage walk, each flushed by the same B1; the two kernels timed in
-    turns. (d) each of ``blocked_step``'s launches against its plain stage
-    on a Dantzig pivot and a budget stop inside a block ((a)'s LP), Bland,
-    a largest-pivot tie, a clean-up pivot, a retire, the phase change with
-    its devex reset and the ray launch with and without an artificial basic
-    (``cleanup_arrays``), and the 1e8 reset (a pivot on 2e-4); the cluster's
-    edge walks on the same LPs at every cluster size, the grid's on grids of
-    1, 2, 3, 7 and the plan's. (e) the device us a slot, by launch for
-    ``blocked_step`` and by stage for the cluster (block 0's clock), the
-    host's enqueue, B1 at the blocked shapes beside ``addmm``, the grid and
-    the cluster in turns at (a)'s shape; (f) the `auto` thresholds' table;
-    (g) past the cluster's plan: ``solve_lp(driver="auto")`` on a wide LP
-    (258 x 14,257) runs ``blocked_grid`` at f64 and f32, whose walk there is
-    held against ``blocked_steps``' and, over its first BLK5_WIDE_WINDOW
-    pivots, ``blocked_grid_reference``, and whose slot is timed in turns
-    with ``blocked_step``'s; (p) past the grid's plan (the same LP in blocks
-    of BLK5_PAST_K) ``blocked_step`` runs and holds. Returns the numbers;
+    where its plan fits) and on the grid route past it (``blocked_grid``,
+    one cooperative launch a block, on the plan ``blocked_grid_plan``
+    picks: every slot of the slabs in shared memory, or their first KR
+    slots and the rest in device memory), B1 and the ray launch a block.
+    (a) ``solve_lp(driver="auto")`` on phase 8c's recipe, one LP of 512 x
+    1024 (514 x 1537, the blocked engine on the cluster route: one
+    ``blocked_cluster`` launch a block; optimal, certified, the eager
+    engine's objective exactly); (b) devex, which auto picks for the
+    artificial LP at 512 + 4 rows: its independent rows with c >= 0
+    (optimal, certified) and the variant with its dependent rows (the
+    retire; its status beside the eager engine's, at f64, and those of
+    ``other_walks``); (c) the refreshed rung's blocked segments
+    (largest-pivot ties). Each walk on the cluster held in every field at
+    f64 and f32 against ``blocked_cluster_reference``, flushed by the same
+    B1. (d) the cluster's edge walks at every cluster size and the grid's
+    on grids of 1, 2, 3, 7 and the plan's, and on the device-factor and
+    device-vector plans forced (``EDGE_PLANS``): a budget stop inside a
+    block, a slot past the budget that ends the walk, a clean-up pivot, a
+    retire, the phase change with its devex reset, largest-pivot ties, the
+    ray launch with and without an artificial basic (``cleanup_arrays``),
+    the 1e8 reset (a pivot on 2e-4) and Bland. (e) the device us a slot
+    by stage for the cluster (block 0's clock), B1 at the blocked shapes
+    beside ``addmm``, the grid and the cluster in turns at (a)'s shape;
+    (f) the `auto` thresholds' table; (g) past the cluster's plan:
+    ``solve_lp(driver="auto")`` on a wide LP (258 x 14,257) runs
+    ``blocked_grid`` at f64 and f32, whose walk there is held over its
+    first BLK5_WIDE_WINDOW pivots to ``blocked_grid_reference`` and whose
+    slot is timed by stage; the ray launch against its plain stage; (p),
+    (zw), (zw32), (tt) past the resident slabs on the device-factor plan
+    (``past_resident_frames``); (t) the card tests. Returns the numbers;
     ``launches`` are (a)'s f64 solve's, ``grid_launches`` (g)'s f64
-    solve's, ``step_launches`` (p)'s walk's."""
-    import dataclasses as dc
-
+    solve's."""
     import torch
 
     from tpulp_torch import SolverOptions, make_state
-    from tpulp_torch.core.state import RULE_BLAND, RULE_DEVEX, TIE_MAXPIV
+    from tpulp_torch.core.state import RULE_DEVEX
     from tpulp_torch.solve.api import (RANK1_BELOW, KERNEL_FROM,
                                        _auto_engine, state_from_standard_form)
     from tpulp_torch.solve.refresh import stabilized_options
 
-    res = {"solves": {}, "walks": {}, "stages": {}, "slot_us": {},
-           "flush": {}, "cluster_walks": {}, "cluster_slot_us": {},
-           "edge_walks": {}, "grid_walks": {}, "grid_slot_us": {},
-           "grid_edge_walks": {}}
+    res = {"solves": {}, "flush": {}, "cluster_walks": {},
+           "cluster_slot_us": {}, "edge_walks": {}, "grid_walks": {},
+           "grid_slot_us": {}, "grid_edge_walks": {}}
     A, b, c = dense_leq_arrays(BLK_M, BLK_N)
     sf_a = scenario_form(A, b, c)
     M, N = BLK_M + 2, BLK_M + BLK_N + 1
@@ -3451,8 +3421,11 @@ def phase_blocked_engine(dev="cuda"):
             sf_a, dt, "auto", f"(a) {BLK_M}x{BLK_N}", dev=dev)
         if name == "float64":
             res["launches"] = res["solves"]["a_float64"]["launches"]
-        eager_solve(sol, sf_a, dt, "auto", "(a)", res["solves"][f"a_{name}"],
-                    dev)
+        # (the eager engine's f32 solves, of (a), (b) and (c), are cut for
+        # the script's time; its f64 ones stay)
+        if name == "float64":
+            eager_solve(sol, sf_a, dt, "auto", "(a)",
+                        res["solves"][f"a_{name}"], dev)
         st = state_from_standard_form(sf_a, dtype=dt, device=dev)
         cw = cluster_walk_check(st, opts, "(a) Dantzig", window=None)
         if cw["status"] != 1:
@@ -3463,16 +3436,9 @@ def phase_blocked_engine(dev="cuda"):
         if name == "float64":
             # the grid and the cluster at a shape both hold, in turns
             res["grid_vs_cluster"] = grid_vs_cluster_us(st, opts, "(a)")
-        w = blocked_walk_check(st, opts, "(a) Dantzig", window=None)
-        if w["status"] != 1:
-            raise AssertionError(f"5d (a): status {w['status']}")
-        res["walks"][f"a_{name}"] = w
-        res["slot_us"][f"a_{name}"] = blocked_slot_us(st, opts, "(a)")
         # (b) devex: the optimal LP, then the one with dependent rows
         solo, res["solves"][f"b_optimal_{name}"] = blocked_solve(
             sf_bo, dt, "auto", f"(b) optimal {BLK_M}x{BLK5_ART_N}", dev=dev)
-        # (the eager engine's f32 solves of (b), ~30-40 s each, cut for
-        # the script's time; its f64 ones and (a)'s and (c)'s f32 stay)
         if name == "float64":
             eager_solve(solo, sf_bo, dt, "auto", "(b) optimal",
                         res["solves"][f"b_optimal_{name}"], dev)
@@ -3481,9 +3447,6 @@ def phase_blocked_engine(dev="cuda"):
             so, ob, "(b) optimal devex")
         res["cluster_slot_us"][f"b_{name}"] = cluster_slot_us(
             so, ob, "(b) devex")
-        res["walks"][f"b_optimal_{name}"] = blocked_walk_check(
-            so, ob, "(b) optimal devex")
-        res["slot_us"][f"b_{name}"] = blocked_slot_us(so, ob, "(b) devex")
         solb, res["solves"][f"b_{name}"] = blocked_solve(
             sf_b, dt, "auto", f"(b) {BLK_M + 4}x{BLK5_ART_N}", optimal=False,
             dev=dev)
@@ -3495,13 +3458,12 @@ def phase_blocked_engine(dev="cuda"):
             sb, ob, "(b) dependent rows")
         res["cluster_walks"][f"b_{name}"] = cluster_walk_check(
             sb, ob, "(b) devex, dependent rows")
-        res["walks"][f"b_{name}"] = blocked_walk_check(
-            sb, ob, "(b) devex, dependent rows")
         # (c) the refreshed rung's blocked segments
         ref, res["solves"][f"c_{name}"] = blocked_solve(
             sf_a, dt, "refreshed", "(c) refreshed", dev=dev)
-        eager_solve(ref, sf_a, dt, "refreshed", "(c) refreshed",
-                    res["solves"][f"c_{name}"], dev)
+        if name == "float64":
+            eager_solve(ref, sf_a, dt, "refreshed", "(c) refreshed",
+                        res["solves"][f"c_{name}"], dev)
         # a basis of the same optimum: (a)'s objective to rounding
         rel = abs(float(ref.objective) - float(sol.objective)) / max(
             1.0, abs(float(sol.objective)))
@@ -3510,25 +3472,7 @@ def phase_blocked_engine(dev="cuda"):
                                  f"{sol.objective!r}")
         res["cluster_walks"][f"c_{name}"] = cluster_walk_check(
             st, stabilized_options(opts), "(c) TIE_MAXPIV", window=None)
-        res["walks"][f"c_{name}"] = blocked_walk_check(
-            st, stabilized_options(opts), "(c) TIE_MAXPIV", window=None)
-        # (d) each launch against its plain stage
-        res["stages"][f"a_{name}"] = blocked_stage_checks(
-            st, dc.replace(opts, max_iters=BLK5_BUDGET), "(a) Dantzig",
-            ("pivot", "budget_stop"), BLK5_K)
-        res["stages"][f"a_bland_{name}"] = blocked_stage_checks(
-            st, SolverOptions.for_dtype(dt, rule=RULE_BLAND), "(a) Bland",
-            ("bland",), BLK5_K)
-        sd = state_from_standard_form(sf_d, dtype=dt, device=dev)
-        res["stages"][f"cleanup_{name}"] = blocked_stage_checks(
-            sd, dc.replace(ob, tie_break=TIE_MAXPIV),
-            "clean-up LP, devex, largest-pivot ties",
-            ("cleanup", "retire", "devex_reset", "maxpiv_tie", "ray_art",
-             "ray_clear"), BLK5_STAGE_K)
-        sr = state_from_standard_form(sf_r, dtype=dt, device=dev)
-        res["stages"][f"reset_{name}"] = blocked_stage_checks(
-            sr, ob, "a pivot on 2e-4", ("reset_1e8",), BLK5_STAGE_K)
-        # (d) the cluster's and the grid's edge walks on the same LPs
+        # (d) the cluster's and the grid's edge walks
         res["edge_walks"][name] = cluster_edge_walks(
             dt, sf_a, sf_d, sf_r, cw, dev)
         res["grid_edge_walks"][name] = blocked_grid_edge_walks(
@@ -3537,36 +3481,34 @@ def phase_blocked_engine(dev="cuda"):
             walk.pop("plain", None)
         # (e) B1 at the blocked engine's shape
         res["flush"][f"a_{name}"] = blocked_flush_case(st)
-        del st, so, sb, sd, sr
+        del st, so, sb
         torch.cuda.empty_cache()
-    # (e) at bench.py's 1024 x 1024: the slot and B1
+    # (e) B1 at bench.py's 1024 x 1024
     s1 = make_state(*bench_arrays(1024, 1024), dtype=torch.float64,
                     device=dev)
-    res["slot_us"]["bench_1026x2049_float64"] = blocked_slot_us(
-        s1, SolverOptions.for_dtype(torch.float64), "bench")
     res["flush"]["bench_1026x2049_float64"] = blocked_flush_case(s1)
     del s1
     torch.cuda.empty_cache()
     # (f) the thresholds, measured
     res["thresholds"] = threshold_table(dev)
     # (g) past the cluster's plan: a wide LP in auto's blocked range on the
-    # grid; (p) past the grid's plan on blocked_step
+    # grid; (p), (zw), (zw32), (tt) past the resident slabs; (t)
     wide_route(res, dev)
     res["grid_launches"] = res["solves"]["g_wide_float64"]["launches"]
-    res["step_launches"] = res["past"]["launches"]
+    res["card_tests"] = card_tests("5d", dev)
     return res
 
 
 def wide_route(res, dev="cuda"):
     """5d (g): ``solve_lp(driver="auto")`` on a wide LP in auto's blocked
     range past the cluster's plan (258 x 14,257) at f64 and f32 runs
-    ``blocked_grid``, one launch a block, and no ``blocked_step``; its walk
-    there held against ``blocked_steps``' whole walk and
-    ``blocked_grid_reference`` over the first BLK5_WIDE_WINDOW pivots
-    (``blocked_grid_check``), its slot timed in turns with
-    ``blocked_step``'s (``grid_slot_us``); (p) the route past the grid's
-    plan (``past_grid_blocked``). Adds to ``res``'s "solves",
-    "grid_walks", "grid_slot_us" and "past"."""
+    ``blocked_grid``, one launch a block, every slot of the slabs
+    resident; its walk there held to ``blocked_grid_reference`` over the
+    first BLK5_WIDE_WINDOW pivots (``blocked_grid_check``), its slot timed
+    by stage (``grid_slot_us``); the ray launch against its plain stage
+    (``blocked_ray_case``); (p), (zw), (zw32), (tt): the device-factor plan
+    (``past_resident_frames``). Adds to ``res``'s "solves", "grid_walks",
+    "grid_slot_us", "ray" and "past"."""
     import torch
 
     from tpulp_torch import SolverOptions
@@ -3595,19 +3537,20 @@ def wide_route(res, dev="cuda"):
             sw, opts, label)
         res["grid_slot_us"][f"g_wide_{name}"] = grid_slot_us(
             sw, opts, label, clock_hz)
+        if name == "float64":
+            res["ray"] = blocked_ray_case(sw)
         del sw
         torch.cuda.empty_cache()
-    res["past"] = past_grid_blocked(dev)
+    res["past"] = past_resident_frames(clock_hz, dev)
 
 
 def check_static_smem(ptxas) -> None:
     """The inner-block kernel's static shared memory (ptxas's report) must
     fit the room ``inner_block_plan`` leaves beside the dynamic share it
     plans, or a plan that fits on paper would not launch. The lane
-    kernels' must fit the room ``lane_plan`` leaves, each of the fourteen
-    blocked kernels' the 33 slots of its block reduction and its eta
-    coefficients, and the two cluster kernels' and the three grid walks'
-    the room their plans leave."""
+    kernels' must fit the room ``lane_plan`` leaves, the blocked ray
+    launch's the 33 slots of its block reduction, and the two cluster
+    kernels' and the three grid walks' the room their plans leave."""
     from tpulp_torch.kernels.block import IB_STATIC_SMEM
     from tpulp_torch.kernels.blocked_cluster import \
         BLOCKED_CLUSTER_STATIC_SMEM
@@ -3637,7 +3580,7 @@ def check_static_smem(ptxas) -> None:
            if k in BLOCKED_KERNELS.values()}
     if len(blk) != len(BLOCKED_KERNELS) or \
             max(blk.values()) > BLOCKED_STATIC_SMEM:
-        raise AssertionError(f"blocked kernels' static shared memory {blk}: "
+        raise AssertionError(f"the ray launch's static shared memory {blk}: "
                              f"at most {BLOCKED_STATIC_SMEM}")
     bgr = {k: v.get("static_smem", 0) for k, v in ptxas.items()
            if k in BOUNDED_GRID_KERNELS.values()}
@@ -3665,8 +3608,8 @@ def check_static_smem(ptxas) -> None:
                              f"the plan leaves {BLOCKED_GRID_STATIC_SMEM}")
     log(f"# inner block static shared memory {got} bytes, within the "
         f"{IB_STATIC_SMEM} the plan leaves; lane kernels {lane} bytes, "
-        f"within {LANE_STATIC_SMEM}; blocked "
-        f"kernels {blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
+        f"within {LANE_STATIC_SMEM}; the blocked ray launch "
+        f"{blk} bytes, within {BLOCKED_STATIC_SMEM}; rank1_cluster "
         f"{clu} bytes, within {CLUSTER_STATIC_SMEM}; blocked_cluster {bkc} "
         f"bytes, within {BLOCKED_CLUSTER_STATIC_SMEM}; bounded_grid {bgr} "
         f"and rank1_grid {rgr} bytes, within {GRID_STATIC_SMEM}; "
@@ -3680,17 +3623,10 @@ LANE_KERNELS = tuple(f"lane_{kind}_kernelI{t}Lb{r}" for kind in
                      for r in "10")
 
 
-def _walk_kernels(ns: str, stages) -> dict:
-    """{mangled-name fragment: readable name} of a stream-ordered walk's
-    kernels in namespace ``tpulp::<ns>``, <float or double>."""
-    prefix = {"blk": "blocked"}[ns]
-    return {f"{len(ns)}{ns}{len(k)}{k}I{t}":
-            f"{prefix}_{k}<{'float' if t == 'f' else 'double'}>"
-            for k in (f"{stage}_kernel" for stage in stages) for t in "fd"}
-
-
-BLOCKED_KERNELS = _walk_kernels("blk", ("cleanup", "price", "column",
-                                        "ratio", "row", "finish", "ray"))
+# blocked.cu's ray launch's instantiations: <float or double>
+BLOCKED_KERNELS = {f"3blk10ray_kernelI{t}":
+                   f"blocked_ray_kernel<{'float' if t == 'f' else 'double'}>"
+                   for t in "fd"}
 # the cluster walk's instantiations: <float or double, the walk>
 CLUSTER_KERNELS = {f"3rkc14cluster_kernelI{t}Li{w}E":
                    f"cluster_kernel<{'float' if t == 'f' else 'double'},"
@@ -3738,16 +3674,16 @@ BLOCKED_CLUSTER_KERNELS = {
     f"blocked_cluster_kernel<{'float' if t == 'f' else 'double'}>"
     for t in "fd"}
 # the blocked grid's instantiations: <float or double>
+# the blocked grid's instantiations: <float or double, the running vectors
+# in device memory>
 BLOCKED_GRID_KERNELS = {
-    f"3bgd19blocked_grid_kernelI{t}E":
-    f"blocked_grid_kernel<{'float' if t == 'f' else 'double'}>"
-    for t in "fd"}
-# the static shared memory of a single-block walk kernel: the block
-# reduction's 33 slots (common.cuh's Red<double>: 32 bytes each); a blocked
-# kernel's adds at most MAX_K eta coefficients of 8 bytes and a scalar or
-# two
-BOUNDED_STATIC_SMEM = 33 * 32
-BLOCKED_STATIC_SMEM = BOUNDED_STATIC_SMEM + 1024 * 8 + 16
+    f"3bgd19blocked_grid_kernelI{t}Lb{d}E":
+    f"blocked_grid_kernel<{'float' if t == 'f' else 'double'},"
+    f"{'device' if d == '1' else 'shared'}>"
+    for t in "fd" for d in "01"}
+# the static shared memory of the ray launch: its block reduction's 33
+# slots (common.cuh's Red<double>: 32 bytes each)
+BLOCKED_STATIC_SMEM = 33 * 32
 
 
 # the flush's instantiations: <float or double, LANES> (B1 batched: LANES)
@@ -4010,16 +3946,36 @@ class FmaLayouts:
         return False
 
 
-def check_machine_code(lib_path):
-    """The flush's machine code: the f64 kernel issues DMMA (FP64 tensor
-    cores) and the f32 kernel no tensor-core instruction at all (so no
-    TF32); returns the counts per kernel."""
+def start_sass(lib_path):
+    """Starts ``cuobjdump -sass`` on the library (tens of seconds: it
+    disassembles every kernel), for ``check_machine_code``."""
     import os
+    import tempfile
 
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
-                          capture_output=True, text=True, check=True).stdout
+    # into a file: megabytes of text, which a pipe nobody reads yet would
+    # hold back
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([cuobjdump, "-sass", str(lib_path)], stdout=out,
+                            stderr=subprocess.PIPE, text=True)
+    CHILDREN.append(proc)
+    return proc, out
+
+
+def check_machine_code(sass_proc):
+    """The flush's machine code (``start_sass``'s disassembly): the f64
+    kernel issues DMMA (FP64 tensor cores) and the f32 kernel no
+    tensor-core instruction at all (so no TF32); returns the counts per
+    kernel."""
+    proc, out = sass_proc
+    _, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cuobjdump -sass failed ({proc.returncode}): "
+                             f"{err[-2000:]}")
+    out.seek(0)
+    sass = out.read()
+    out.close()
     counts, fn = {}, None
     for line in sass.splitlines():
         line = line.strip()
@@ -4981,7 +4937,7 @@ def phase_lane_kernels(dev="cuda"):
             cases["wide_128"] = wide_lanes_turns(wide, dev)
             cases["wide_128_dual"] = wide_lanes_turns(wide, dev, dual=True)
         res[name] = cases
-    res["card_tests"] = lanes_card_tests(dev)
+    res["card_tests"] = card_tests("7d", dev)
     res["cluster_main_path"] = cluster_lanes_main_path(dev)
     return res
 
@@ -5065,34 +5021,6 @@ def wide_lanes_turns(st, dev="cuda", dual: bool = False) -> dict:
         f"block a lane {turns['streamed']} ms (device, in turns); the route "
         f"{out['route']}")
     return out
-
-
-def lanes_card_tests(dev):
-    """7d (t): tests/test_torch_lanes_card.py, the lane kernels' and the
-    cluster lanes' ``cuda`` tests (each against its plain version on the
-    CPU's small cases: both resident plans, the streamed plan, every
-    cluster size, frozen lanes, a budget of 1, broadcast masks), run on the
-    card in a process of their own; a failure, or a test that skips, fails
-    the run."""
-    import os
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-           "-q", "-p", "no:cacheprovider", "tests/test_torch_lanes_card.py"]
-    if dev != "cuda":
-        return {"skipped": "no card"}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=600)
-    secs = time.perf_counter() - t0
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    log(f"# 7d (t) {' '.join(cmd[2:])}: exit {proc.returncode}, "
-        f"{tail[0]} ({secs:.1f} s)")
-    if proc.returncode != 0 or "skipped" in tail[0] or \
-            "passed" not in tail[0]:
-        raise AssertionError(f"7d (t): the lane kernels' card tests: "
-                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-    return {"summary": tail[0], "seconds": secs}
 
 
 def cluster_lanes_main_path(dev="cuda") -> dict:
@@ -6317,40 +6245,12 @@ def phase_bounded_lp(dev):
         part(label)
     res["shared_frame"] = shared_frame_turns(dev)
     part("(s)")
-    res["card_tests"] = bounded_grid_card_tests(dev)
+    res["card_tests"] = card_tests("8a", dev)
     part("(t)")
     res["seconds_by_part"] = parts
     log("# 8a seconds by part (host clock): " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
     return res
-
-
-def bounded_grid_card_tests(dev):
-    """8a (t): tests/test_torch_bounded_grid_card.py, the bounded grid's
-    ``cuda`` tests (the kernel against its plain version on the CPU's
-    small walks: the plan's grid, forced grids and splits, the
-    device-vector plan forced), run on the card in a process of their own;
-    a failure, or a test that skips, fails the run."""
-    import os
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-           "-q", "-p", "no:cacheprovider",
-           "tests/test_torch_bounded_grid_card.py"]
-    if dev != "cuda":
-        return {"skipped": "no card"}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=900)
-    secs = time.perf_counter() - t0
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    log(f"# 8a (t) {' '.join(cmd[2:])}: exit {proc.returncode}, "
-        f"{tail[0]} ({secs:.1f} s)")
-    if proc.returncode != 0 or "skipped" in tail[0] or \
-            "passed" not in tail[0]:
-        raise AssertionError(f"8a (t): the bounded grid's card tests: "
-                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-    return {"summary": tail[0], "seconds": secs}
 
 
 def box_form(seed: int, m: int, n: int):
@@ -6427,7 +6327,9 @@ def phase_bounded_batch(dev):
     split = {}
     sync(dev)
     t0 = time.perf_counter()
-    bs = make_batched_bounded_states(sfs, dtype=torch.float64, device=dev)
+    part_sfs = sfs[:BOX_ROW_LANES]
+    bs = make_batched_bounded_states(part_sfs, dtype=torch.float64,
+                                     device=dev)
     sync(dev)
     split["build_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -6435,15 +6337,16 @@ def phase_bounded_batch(dev):
     sync(dev)
     split["walk_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    parts = extract_batch_bounded_solutions(sfs, out, "auto")
+    parts = extract_batch_bounded_solutions(part_sfs, out, "auto")
     split["extract_s"] = time.perf_counter() - t0
-    if [p.objective for p in parts] != [a.objective
-                                         for a in sols["bounded"]]:
+    if [p.objective for p in parts] != [
+            a.objective for a in sols["bounded"][:BOX_ROW_LANES]]:
         raise AssertionError("8b: the solve by parts differs from "
                              "solve_lp_batch's")
     res["split"] = split
     total = sum(split.values())
-    log(f"# 8b the bounded batch by parts (f64): build {split['build_s']:.4f}"
+    log(f"# 8b the bounded batch by parts (f64, its first {BOX_ROW_LANES} "
+        f"lanes): build {split['build_s']:.4f}"
         f" s, walk {split['walk_s']:.4f} s, extraction (per-lane "
         f"refinement and certificate) {split['extract_s']:.3f} s "
         f"({100 * split['extract_s'] / total:.1f}% of {total:.3f} s)")
@@ -6753,12 +6656,10 @@ def raw_equal(a, b) -> bool:
 
 def solo_lane_walks(batched, opts, K: int, route: str = "blocked_cluster"):
     """The solo walk of each padded lane of ``batched`` on ``route``
-    ("blocked_cluster", "blocked_grid" or "blocked_step"), as
-    ``run_simplex_blocked`` would run it: (finished states, blocks each
-    lane took, weights)."""
+    ("blocked_cluster" or "blocked_grid"), as ``run_simplex_blocked`` would
+    run it: (finished states, blocks each lane took, weights)."""
     from tpulp_torch.batch import unstack_state
     from tpulp_torch.kernels import LAUNCHES, reset_launches
-    from tpulp_torch.kernels import blocked as kb
     from tpulp_torch.kernels import blocked_cluster as kbc
     from tpulp_torch.kernels import blocked_grid as kg
     from tpulp_torch.solve.driver import finish
@@ -6766,8 +6667,7 @@ def solo_lane_walks(batched, opts, K: int, route: str = "blocked_cluster"):
     B, M, N = batched.T.shape
     stall = opts.resolved_stall_limit(M - 2, N - 1)
     run = {"blocked_cluster": kbc.blocked_cluster,
-           "blocked_grid": kg.blocked_grid,
-           "blocked_step": kb.blocked_steps}[route]
+           "blocked_grid": kg.blocked_grid}[route]
     outs, blocks, gammas = [], [], []
     for k in range(B):
         reset_launches()
@@ -6974,8 +6874,8 @@ def wide_batch(dev):
     """8c (v): BLK_WIDE_LANES lanes of 5d (g)'s wide LP (258 x 14,257),
     past the cluster's plan, to a budget of BLK_WIDE_BUDGET pivots:
     ``run_simplex_blocked_batch`` runs each lane on ``blocked_grid`` in turn
-    (one launch a block, no batch launch, no ``blocked_step``), every lane
-    equal to its solo walk bit for bit."""
+    (one launch a block, no batch launch), every lane equal to its solo
+    walk bit for bit."""
     import torch
 
     from tpulp_torch.batch import make_batched_states
@@ -7000,8 +6900,7 @@ def wide_batch(dev):
     if not launches["blocked_grid"] or launches["blocked_grid"] != \
             launches["blocked_ray"] or any(launches[k] for k in (
                 "blocked_cluster_batch", "fused_flush_batch",
-                "blocked_ray_batch", "blocked_cluster", "blocked_step",
-                "fused_fma")):
+                "blocked_ray_batch", "blocked_cluster", "fused_fma")):
         raise AssertionError(f"8c (v): launches {launches}")
     solos, _, _ = solo_lane_walks(st, o, BLK_K, route="blocked_grid")
     batch_equals_solo(out, solos, "(v)")
@@ -7366,17 +7265,21 @@ def phase_exact_layer(dev):
         save_prog(paths[name], lp)
     root = os.path.dirname(os.path.abspath(__file__))
     out = {}
-    for name, flag in (("wyndor", "--ranging"),
-                       ("infeasible", "--certificates")):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tpulp_torch", "solve", paths[name],
-             flag], cwd=root, capture_output=True, text=True, timeout=300)
+    # the two CLI processes side by side
+    t0 = time.perf_counter()
+    procs = {name: (flag, subprocess.Popen(
+        [sys.executable, "-m", "tpulp_torch", "solve", paths[name], flag],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, flag in (("wyndor", "--ranging"),
+                           ("infeasible", "--certificates"))}
+    for name, (flag, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
         if proc.returncode != 0:
-            raise AssertionError(f"CLI on {name}: {proc.stderr[-2000:]}")
-        out[name] = json.loads(proc.stdout)
+            raise AssertionError(f"CLI on {name}: {stderr[-2000:]}")
+        out[name] = json.loads(stdout)
         log(f"# python -m tpulp_torch solve {name}.json {flag} (cuda, "
-            f"{time.perf_counter() - t0:.1f} s): {proc.stdout.strip()}")
+            f"{time.perf_counter() - t0:.1f} s from the start of both): "
+            f"{stdout.strip()}")
     w, bad = out["wyndor"], out["infeasible"]
     golden = (w["status"] == "optimal" and w["objective"] == "36"
               and w["cost_ranging"] == {"x": ["0", "15/2"],
@@ -7706,35 +7609,6 @@ def bounded_kinds(rec: PivotRecorder) -> dict:
             "enter_flip" if do_flip and enter else "idle")
         kinds.setdefault(kind, []).append(k)
     return kinds
-
-
-def pivot_card_tests(dev) -> dict:
-    """tests/test_torch_shard_pivot_card.py, the sharded pivot kernels'
-    ``cuda`` tests (each against its plain version on the card and the
-    CPU: 9b's block at f64 and f32, the bounded step's kinds at 9c's width
-    with NaN and inf entries, the lane frames of 10a and 10b under vmap,
-    9a's vectors), run in a process of their own; a failure, or a test
-    that skips, fails the run."""
-    import os
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-           "-q", "-p", "no:cacheprovider",
-           "tests/test_torch_shard_pivot_card.py"]
-    if dev != "cuda":
-        return {"skipped": "no card"}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=600)
-    secs = time.perf_counter() - t0
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    log(f"# 9 (t) {' '.join(cmd[2:])}: exit {proc.returncode}, {tail[0]} "
-        f"({secs:.1f} s)")
-    if proc.returncode != 0 or "skipped" in tail[0] or \
-            "passed" not in tail[0]:
-        raise AssertionError(f"9 (t): the sharded pivot's card tests: "
-                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
-    return {"summary": tail[0], "seconds": secs}
 
 
 def sharded_walk_window(sf, mesh, kind: str, steps: int):
@@ -8104,7 +7978,7 @@ def sharded_pivot_checks(sf, mesh, prec, vrec, dev="cuda") -> dict:
     from tpulp_torch.kernels.shard_pivot import (shard_pivot, shard_vectors,
                                                  shard_vectors_reference)
 
-    res = {"card_tests": pivot_card_tests(dev)}
+    res = {"card_tests": card_tests("9", dev)}
     if dev != "cuda":
         return res
     for count, args in prec.calls:
@@ -8520,6 +8394,8 @@ def main() -> int:
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
+    # (t)'s collection beside the build
+    collecting = collect_card_tests(list(CARD_TESTS))
     # 2: build (with nvcc's register, shared-memory and spill report)
     t0 = time.perf_counter()
     report = io.StringIO()
@@ -8530,7 +8406,8 @@ def main() -> int:
     ptxas = ptxas_report(report.getvalue())
     log(f"# build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a); "
         f"registers / spills: {ptxas}")
-    sass = check_machine_code(lib_path)
+    # the flush's machine code, disassembled beside (t)
+    sass_proc = start_sass(lib_path)
     check_static_smem(ptxas)
     from tpulp_torch.kernels.rank1_cluster import CLUSTER_THREADS
     log(f"# rank1_cluster (ptxas -v, {CLUSTER_THREADS} threads a block): "
@@ -8576,6 +8453,11 @@ def main() -> int:
                     f"{v.get('static_smem')} bytes of static shared memory"
                     for k, v in ptxas.items()
                     if k in BLOCKED_GRID_KERNELS.values()))
+
+    # (t): every kernel's card tests, the files side by side before
+    # anything is timed; each phase reports its file's result
+    run_card_tests(list(CARD_TESTS), dev, collecting=collecting)
+    sass = check_machine_code(sass_proc)
 
     # 3: the kernels against their plain versions
     kstats = phase_kernels(dev)
@@ -8674,10 +8556,12 @@ def main() -> int:
                         "simplex_step (tpulp/solve/dual.py:271, 409, 525, "
                         "592; tpulp/batch/vmap_driver.py:250)",
                         milp_launches),
-        "blocked_step": ("tpulp_torch/kernels/csrc/blocked.cu",
-                         "none: XLA's compiled lax.while_loop over "
-                         "_blocked_pivot (tpulp/solve/blocked.py:61-245, "
-                         "247-315)", blocked["step_launches"]),
+        # the main path: (g)'s f64 solve_lp(driver="auto"), one a block
+        "blocked_ray": ("tpulp_torch/kernels/csrc/blocked.cu",
+                        "none: the per-block ray scan and carry reset of "
+                        "XLA's compiled loop over the blocks "
+                        "(tpulp/solve/blocked.py:247-315)",
+                        blocked["grid_launches"]),
         "rank1_cluster": ("tpulp_torch/kernels/csrc/rank1_cluster.cu",
                           "none: XLA's compiled lax.while_loop over "
                           "simplex_step, devex_simplex_step and "
@@ -8993,74 +8877,24 @@ def main() -> int:
                     "smem": w["smem"], "occupancy": w["occupancy"],
                     "steps": w["niter"]}
             head = cases["float64"]
-        elif kname == "blocked_step":
-            # per pivot of 5d's walks: the walk's host-clock time, the plain
-            # walk's, a slot's bytes, the launches on the card alone; the
-            # headline at the shape its route gives it since the grid, (p):
-            # (g)'s LP past the grid's plan
-            px = blocked["past"]
-            cases = {"past the grid's plan float64 (p)": {
-                "max_abs_err": px["max_abs_err"], "ms": px["ms_per_pivot"],
-                "plain_ms": px["plain_ms_per_pivot"],
-                "bound_ms": px["bound_us_per_slot"] / 1e3,
-                "bound_by": px["bound_by"], "library_ms": None,
-                "device_ms": px["device_us_per_slot"] / 1e3,
-                "host_enqueue_ms": px["host_us_per_slot"] / 1e3,
-                "K": px["K"], "steps": px["niter"]}}
-            # (g) on blocked_steps, in turns with the grid that took it
-            for dt in ("float64", "float32"):
-                w = blocked["grid_walks"][f"g_wide_{dt}"]
-                u = blocked["grid_slot_us"][f"g_wide_{dt}"]
-                cases[f"wide {dt} (g), in turns with blocked_grid"] = {
-                    "max_abs_err": w["max_abs_err"],
-                    "ms": w["step_us_per_pivot"] / 1e3,
-                    "plain_ms": w["plain_ms_per_pivot"],
-                    "bound_ms": u["step_bound_us_per_slot"] / 1e3,
-                    "bound_by": "bytes", "library_ms": None,
-                    "device_ms": u["step_device_us_per_slot"] / 1e3,
-                    "device_ms_turns": [v / 1e3 for v in
-                                        u["step_device_us_turns"]],
-                    "steps": w["niter"]}
-            for case, walk, us in (
-                    ("float64", "a_float64", "a_float64"),
-                    ("float32", "a_float32", "a_float32"),
-                    ("devex float64", "b_optimal_float64", "b_float64"),
-                    ("devex float32", "b_optimal_float32", "b_float32")):
-                w, u = blocked["walks"][walk], blocked["slot_us"][us]
-                cases[case] = {
-                    "max_abs_err": w["max_abs_err"],
-                    "ms": w["us_per_pivot"] / 1e3,
-                    "plain_ms": w["plain_ms_per_pivot"],
-                    "bound_ms": u["bound_us_per_slot"] / 1e3,
-                    "bound_by": u["bound_by"], "library_ms": None,
-                    "device_ms": u["device_us_per_slot"] / 1e3,
-                    "device_ms_by_stage": {
-                        k: v / 1e3 for k, v in
-                        u["device_us_by_stage"].items()},
-                    "host_enqueue_ms": u["host_us_per_slot"] / 1e3,
-                    "flush_and_ray_ms_per_block":
-                        u["flush_and_ray_us_per_block"] / 1e3,
-                    "steps": w["niter"]}
-            head = cases["past the grid's plan float64 (p)"]
+        elif kname == "blocked_ray":
+            # the ray launch at the end of (g)'s first block, f64, against
+            # its plain stage
+            head = blocked["ray"]
+            cases = {"wide float64 (g)": head}
         elif kname == "blocked_grid":
             # per pivot of (g)'s walks on the grid: the walk's host-clock
-            # time (in turns with blocked_step), the plain version's window,
-            # one launch of K slots on the card (in turns with blocked_step's
-            # K slots) by stage; the bounds: each input once a launch (the
-            # contract's), the kernel's own convention, the table's step
-            # convention; beside blocked_cluster at a shape both hold
-            cases = {}
-            for dt in ("float64", "float32"):
-                w = blocked["grid_walks"][f"g_wide_{dt}"]
-                u = blocked["grid_slot_us"][f"g_wide_{dt}"]
-                cases[dt] = {
-                    "max_abs_err": w["max_abs_err"],
-                    "ms": w["us_per_pivot"] / 1e3,
-                    "plain_ms": w["plain_ms_per_pivot"],
+            # time, the plain version's window, one launch of K slots on
+            # the card by stage; the bounds: each input once a launch (the
+            # contract's), the kernel's own convention, the table's slot
+            # convention; beside blocked_cluster at a shape both hold; past
+            # the resident slabs (p), (zw), (zw32), (tt) on the
+            # device-factor plan, one launch of their first block by stage
+            def gcase(u, **extra):
+                return {
                     "bound_ms": u["bound_us_per_slot"] / 1e3,
                     "bound_by": u["bound_by"], "library_ms": None,
-                    "grid_bound_ms": u["grid_bound_us_per_slot"] / 1e3,
-                    "step_bound_ms": u["step_bound_us_per_slot"] / 1e3,
+                    "slot_bound_ms": u["slot_bound_us_per_slot"] / 1e3,
                     "device_ms": u["device_us_per_slot"] / 1e3,
                     "device_ms_turns": [v / 1e3 for v in
                                         u["device_us_turns"]],
@@ -9068,15 +8902,25 @@ def main() -> int:
                         k: v / 1e3 for k, v in
                         u["device_us_by_stage"].items()},
                     "host_launch_ms_per_slot": u["host_us_per_slot"] / 1e3,
-                    "blocked_step_ms": w["step_us_per_pivot"] / 1e3,
-                    "blocked_step_device_ms":
-                        u["step_device_us_per_slot"] / 1e3,
-                    "walk_seconds": w["walk_seconds"],
-                    "blocked_step_walk_seconds": w["step_walk_seconds"],
                     "blocks": u["blocks"], "width": u["width"],
                     "height": u["height"], "smem": u["smem"],
-                    "mail": w["mail"], "occupancy": u["occupancy"],
-                    "window": w["window"], "steps": w["niter"]}
+                    "mail": u["mail"], "resident": u["resident"],
+                    "vectors": u["vectors"], "occupancy": u["occupancy"],
+                    "device_bytes_per_slot": u["device_bytes_per_slot"],
+                    "timed_slots": u["slots"], **extra}
+
+            cases = {}
+            for dt in ("float64", "float32"):
+                w = blocked["grid_walks"][f"g_wide_{dt}"]
+                u = blocked["grid_slot_us"][f"g_wide_{dt}"]
+                cases[dt] = gcase(
+                    u, max_abs_err=w["max_abs_err"],
+                    ms=w["us_per_pivot"] / 1e3,
+                    plain_ms=w["plain_ms_per_pivot"],
+                    grid_bound_ms=u.get("grid_bound_us_per_slot", 0.0)
+                    / 1e3,
+                    walk_seconds=w["walk_seconds"], window=w["window"],
+                    steps=w["niter"])
             gc = blocked["grid_vs_cluster"]
             cw = blocked["cluster_walks"]["a_float64"]
             cu = blocked["cluster_slot_us"]["a_float64"]
@@ -9091,12 +8935,22 @@ def main() -> int:
                 "blocked_cluster_device_ms_turns": [
                     v / 1e3 for v in gc["cluster_turns"]],
                 "blocks": gc["grid"]}
+            for label, px in blocked["past"].items():
+                t = px["timed"]
+                cases[f"device factors {px['dtype']} ({label})"] = gcase(
+                    t, max_abs_err=px["max_abs_err"],
+                    ms=px["ms_per_pivot"],
+                    plain_ms=px["plain_ms_per_pivot"],
+                    launches=px["launches"]["blocked_grid"],
+                    steps=px["niter"],
+                    forced_plans={str(p["plan_kw"]): gcase(p)
+                                  for p in t["plans"]})
             head = cases["float64"]
         elif kname == "blocked_cluster":
             # per pivot of 5d's walks on the cluster: the walk's host-clock
-            # time (in turns with blocked_step), the plain version's walk,
-            # a slot's share of a launch's bytes (cluster_bound), a launch
-            # of K slots on the card alone, by stage (block 0's clock)
+            # time, the plain version's walk, a slot's share of a launch's
+            # bytes (cluster_bound), a launch of K slots on the card alone,
+            # by stage (block 0's clock)
             cases = {}
             for case, walk, us in (
                     ("float64", "a_float64", "a_float64"),
@@ -9116,7 +8970,6 @@ def main() -> int:
                     "bound_by": (u or blocked["cluster_slot_us"][
                         walk.replace("c_", "a_")])["bound_by"],
                     "library_ms": None,
-                    "blocked_step_ms": w["step_us_per_pivot"] / 1e3,
                     "device_ms": u["device_us_per_slot"] / 1e3 if u
                     else None,
                     "device_ms_by_stage": {
@@ -9311,65 +9164,61 @@ def main() -> int:
                                 if v["route"] == "lane_primal"}
     by_name["fused_fma"]["launches_by_path"]["solo_rank1_5c_a_float64"] = \
         solo["launches"]["fused_fma"]
-    # the blocked engine: its slots, ray launches and B1 flushes by path,
+    # the blocked engine: its launches, ray launches and B1 flushes by path,
     # and no FMA
     by_name["fused_fma"]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
         blocked["launches"]["fused_fma"]
     by_name["fused_flush"]["launches_by_path"]["solo_blocked_5d_a_float64"] = \
         blocked["launches"]["fused_flush"]
-    kc = by_name["blocked_step"]
-    kc.update({key: kc["cases"][
-        "past the grid's plan float64 (p)"][key]
-        for key in ("device_ms", "host_enqueue_ms", "steps")})
-    # the 5d solves: 0 where the cluster's plan fits (a, b, c), 0 on (g)'s
-    # wide LP since the grid took it; (p)'s walk past the grid's plan (its
-    # ``launches``)
+    # the 5d solves: the cluster's where its plan fits (a, b, c), the
+    # grid's on (g)'s wide LP; the ray launch one a block on each
     solves5d = ("a_float64", "a_float32", "b_optimal_float64",
                 "b_optimal_float32", "b_float64", "b_float32", "c_float64",
                 "c_float32", "g_wide_float64", "g_wide_float32")
-    by_name["blocked_step"]["launches_by_path"] = {
-        f"5d_{case}": blocked["solves"][case]["launches"]["blocked_step"]
-        for case in solves5d}
-    by_name["blocked_step"]["launches_by_path"]["5d_past_grid_float64"] = \
-        blocked["past"]["launches"]["blocked_step"]
-    by_name["blocked_step"]["ray_launches_by_path"] = {
+    by_name["blocked_ray"]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_ray"]
-        for case in ("a_float64", "c_float64", "g_wide_float64",
-                     "g_wide_float32")}
-    by_name["blocked_step"]["walks"] = blocked["walks"]
-    by_name["blocked_step"]["stages_held_at_slot"] = blocked["stages"]
-    by_name["blocked_step"]["slot_us"] = blocked["slot_us"]
+        for case in solves5d}
+    by_name["blocked_ray"]["launches_by_path"].update({
+        f"5d_past_{label}": px["launches"]["blocked_ray"]
+        for label, px in blocked["past"].items()})
+    by_name["blocked_ray"]["launches_by_path"]["5c_zs_cold"] = \
+        solo["warm_zs"]["cold"]["launches"].get("blocked_ray", 0)
     kc = by_name["blocked_cluster"]
     kc.update({key: kc["cases"]["float64"][key] for key in (
         "device_ms", "device_ms_by_stage", "blocks", "smem", "occupancy",
-        "blocked_step_ms", "steps")})
+        "steps")})
     by_name["blocked_cluster"]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_cluster"]
         for case in solves5d}
     by_name["blocked_cluster"]["walks"] = blocked["cluster_walks"]
     by_name["blocked_cluster"]["slot_us"] = blocked["cluster_slot_us"]
     by_name["blocked_cluster"]["edge_walks_held"] = blocked["edge_walks"]
-    # the grid: one launch a block of (g)'s solves and of 8c (v)'s lanes, 0
-    # on the cluster's LPs and past its plan
+    # the grid: one launch a block of (g)'s solves, of the frames past the
+    # resident slabs, of (zs)'s cold solve and of 8c (v)'s lanes, 0 on the
+    # cluster's LPs
     kc = by_name["blocked_grid"]
     kc.update({key: kc["cases"]["float64"][key] for key in (
         "device_ms", "device_ms_by_stage", "blocks", "width", "height",
-        "smem", "occupancy", "grid_bound_ms", "step_bound_ms",
-        "blocked_step_ms", "blocked_step_device_ms", "steps")})
+        "smem", "occupancy", "grid_bound_ms", "slot_bound_ms", "steps")})
     by_name["blocked_grid"]["launches_by_path"] = {
         f"5d_{case}": blocked["solves"][case]["launches"]["blocked_grid"]
         for case in solves5d}
-    by_name["blocked_grid"]["launches_by_path"]["5d_past_grid_float64"] = \
-        blocked["past"]["launches"]["blocked_grid"]
+    by_name["blocked_grid"]["launches_by_path"].update({
+        f"5d_past_{label}": px["launches"]["blocked_grid"]
+        for label, px in blocked["past"].items()})
+    by_name["blocked_grid"]["launches_by_path"]["5c_zs_cold"] = \
+        solo["warm_zs"]["cold"]["launches"].get("blocked_grid", 0)
     by_name["blocked_grid"]["launches_by_path"]["8c_wide_float64"] = \
         exact["blocked_batch"]["wide"]["launches"]["blocked_grid"]
     by_name["blocked_grid"]["walks"] = blocked["grid_walks"]
     by_name["blocked_grid"]["slot_us"] = blocked["grid_slot_us"]
+    by_name["blocked_grid"]["past_resident_slabs"] = blocked["past"]
     by_name["blocked_grid"]["edge_walks_held"] = blocked["grid_edge_walks"]
     by_name["blocked_grid"]["grid_vs_cluster"] = blocked["grid_vs_cluster"]
+    by_name["blocked_grid"]["card_tests"] = blocked["card_tests"]
     by_name["fused_flush"]["blocked_cases"] = blocked["flush"]
     # the blocked batch (8c): its three launches a block by path; past the
-    # plan its lanes run blocked_step
+    # plan its lanes run blocked_grid
     bb = exact["blocked_batch"]
     for k in ("blocked_cluster_batch", "fused_flush_batch",
               "blocked_ray_batch"):
@@ -9379,8 +9228,6 @@ def main() -> int:
     by_name["blocked_cluster_batch"]["launches_by_path"][
         "8c_occupancy_float64"] = bb["occupancy"]["launches"]
     by_name["blocked_cluster_batch"]["small_batch_held"] = bb["small"]
-    by_name["blocked_step"]["launches_by_path"]["8c_wide_float64"] = \
-        bb["wide"]["launches"]["blocked_step"]
     # the bounded batch's walk: one launch a batch (8b), one a cold wave
     # (10c)
     by_name["lane_bounded"]["launches_by_path"] = {
@@ -9450,7 +9297,7 @@ def main() -> int:
             ("fused_flush", ("flush_kernel<float>", "flush_kernel<double>")),
             ("blocked_inner_block", "inner_block"), ("fused_fma", "fma"),
             ("lane_dual", "lane_dual"), ("lane_primal", "lane_primal"),
-            ("blocked_step", tuple(BLOCKED_KERNELS.values())),
+            ("blocked_ray", tuple(BLOCKED_KERNELS.values())),
             ("rank1_cluster", tuple(CLUSTER_KERNELS.values())),
             ("blocked_cluster", tuple(BLOCKED_CLUSTER_KERNELS.values())),
             ("blocked_cluster_batch",

@@ -14,8 +14,8 @@ its budget) comes out bit for bit, -0.0 entries included, and so does a
 frozen lane of B1's batched plain version. The batched record's layout, the
 launch's int arguments, the wrappers' refusals and
 ``run_simplex_blocked_batch``'s dispatch are held here too. The kernels
-run on the card only (the ``cuda`` test; chip_smoke.py's phase 8c holds
-them at full size)."""
+run on the card only (tests/test_torch_blocked_card.py; chip_smoke.py's
+phase 8c holds them at full size)."""
 
 import subprocess
 import sys
@@ -361,7 +361,7 @@ def test_cpu_batch_runs_the_eager_loop(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("a kernel route was taken on the CPU")
 
-    for name in ("blocked_cluster_batch", "blocked_steps", "blocked_route",
+    for name in ("blocked_cluster_batch", "blocked_grid", "blocked_route",
                  "blocked_cluster_occupancy"):
         monkeypatch.setattr(pb, name, refuse)
     monkeypatch.setattr(kbc, "blocked_cluster_batch", refuse)
@@ -385,9 +385,10 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     """``run_simplex_blocked_batch`` on a batch it must treat as on the card
     (``on_cpu`` and the occupancy patched): the cluster batch gets a
     contiguous tableau, the stall limit, the budget and the block; the
-    eager loop and ``blocked_steps`` never run; its failure raises. With
-    occupancy 0 (no cluster and no grid) each lane's solo walk runs on
-    ``blocked_steps`` in turn, stacked in lane order."""
+    eager loop and the grid never run; its failure raises. With no cluster
+    on the card each lane's solo walk runs on ``blocked_grid`` in turn,
+    stacked in lane order; with neither a cluster nor the grid the batch
+    raises."""
     def refuse(*args, **kw):
         raise AssertionError("another route ran")
 
@@ -398,19 +399,20 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
                      max_iters, block))
         return batched, None
 
-    def steps_spy(state, opts, stall_limit, max_iters, block):
-        seen.append(("steps", state.T.shape, stall_limit, max_iters, block))
+    def grid_spy(state, opts, stall_limit, max_iters, block):
+        seen.append(("grid", state.T.shape, stall_limit, max_iters, block))
         return state._replace(niter=state.niter + len(seen)), None
 
-    occ = [15]
+    occ = {"cluster": 15, "grid": 15}
     monkeypatch.setattr(pb, "on_cpu", lambda *t: False)
-    monkeypatch.setattr(pb, "blocked_cluster_occupancy", lambda *a: occ[0])
-    monkeypatch.setattr(pb, "blocked_grid_occupancy", lambda *a: occ[0])
+    monkeypatch.setattr(pb, "blocked_cluster_occupancy",
+                        lambda *a: occ["cluster"])
+    monkeypatch.setattr(pb, "blocked_grid_occupancy",
+                        lambda *a: occ["grid"])
     monkeypatch.setattr(pb, "sm_count", lambda device: 132)
     monkeypatch.setattr(pb, "blocked_grid", refuse)
     monkeypatch.setattr(pb, "run_simplex_blocked_batch_reference", refuse)
     monkeypatch.setattr(pb, "_blocked_pivot", refuse)
-    monkeypatch.setattr(pb, "blocked_steps", refuse)
     monkeypatch.setattr(pb, "blocked_cluster_batch", cluster_spy)
     start = _batch()
     strided = start._replace(T=start.T.transpose(1, 2).contiguous()
@@ -428,15 +430,20 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     monkeypatch.setattr(pb, "blocked_cluster_batch", fail)
     with pytest.raises(RuntimeError, match="blocked_cluster_batch"):
         pb.run_simplex_blocked_batch(start)
-    occ[0] = 0
+    occ["cluster"] = 0
     seen.clear()
     monkeypatch.setattr(pb, "blocked_cluster_batch", refuse)
-    monkeypatch.setattr(pb, "blocked_steps", steps_spy)
+    monkeypatch.setattr(pb, "blocked_grid", grid_spy)
     out = pb.run_simplex_blocked_batch(start, _options("dantzig", 77),
                                        block=16)
     B = start.T.shape[0]
-    assert seen == [("steps", start.T.shape[1:], m + n, 77, 16)] * B
+    assert seen == [("grid", start.T.shape[1:], m + n, 77, 16)] * B
     assert out.niter.tolist() == list(range(1, B + 1))
+    occ["grid"] = 0
+    monkeypatch.setattr(pb, "blocked_grid", refuse)
+    with pytest.raises(RuntimeError, match="not a grid of"):
+        pb.run_simplex_blocked_batch(start, _options("dantzig", 77),
+                                     block=16)
 
 
 # ---------------------------------------------------------------------------
@@ -528,32 +535,3 @@ sys.exit(1 if bad else 0)
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernels against their plain versions
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_cluster_batch_matches_its_plain_version(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 8c runs these "
-                    "checks at full size)")
-    from tpulp_torch.kernels.block import fused_flush
-
-    tt = getattr(torch, dtype)
-    for rule, K, budget, C in CASES:
-        start = _frozen_start(budget, tt)
-        start = type(start)(*(x.cuda() for x in start))
-        opts = _options(rule, budget, tt)
-        stall = _stall(opts, start)
-        out, g = kbc.blocked_cluster_batch(start, opts, stall, budget, K,
-                                           blocks=C)
-        ref, gr = kbc.blocked_cluster_batch_reference(
-            start, opts, stall, budget, K, C, flush=fused_flush)
-        torch.cuda.synchronize()
-        for name in out._fields:
-            assert torch.equal(raw_bits(getattr(out, name).cpu()),
-                               raw_bits(getattr(ref, name).cpu())), name
-        assert torch.equal(raw_bits(g.cpu()), raw_bits(gr.cpu()))

@@ -15,8 +15,8 @@ where the two plain versions could part (an overflow at the edge). The
 plan's arithmetic and refusals, the route
 (``solve.blocked.blocked_route``), the wrapper's refusals and the CPU
 dispatch are held here too. The kernel itself runs on
-the card only (the ``cuda`` test; chip_smoke.py's phase 5d holds it at full
-size)."""
+the card only (tests/test_torch_blocked_card.py; chip_smoke.py's phase 5d
+holds it at full size)."""
 
 import math
 
@@ -402,15 +402,15 @@ def test_blocked_cluster_plan_refusals():
     (514, 1537, 64, torch.float64, 15, "blocked_cluster"),
     (514, 1537, 64, torch.float32, 15, "blocked_cluster"),
     (1538, 2600, 64, torch.float64, 7, "blocked_cluster"),
-    (514, 1537, 64, torch.float64, 0, "blocked_step"),
+    (514, 1537, 64, torch.float64, 0, RuntimeError),
     (258, 15000, 64, torch.float64, 15, "blocked_grid"),
     (514, 1537, 1024, torch.float64, 15, "blocked_grid"),
     (4098, 8193, 64, torch.float32, 15, "blocked_grid"),
 ], ids=lambda c: f"{c[0]}x{c[1]}-K{c[2]}-{str(c[3])[6:]}-occ{c[4]}")
 def test_blocked_route(monkeypatch, case):
     """The cluster where its plan fits and the card holds one cluster
-    (occupancy patched), else the grid where its plan fits and the card
-    holds its grid (the same occupancy, 132 SMs), else ``blocked_step``;
+    (occupancy patched), else the grid where the card holds it (the same
+    occupancy, 132 SMs), else a RuntimeError (nothing else runs the walk);
     the cluster's occupancy is asked only of a plan that fits."""
     M, N, Kb, dtype, occ, want = case
     asked = []
@@ -422,8 +422,12 @@ def test_blocked_route(monkeypatch, case):
     monkeypatch.setattr(pb, "blocked_cluster_occupancy", occupancy)
     monkeypatch.setattr(pb, "blocked_grid_occupancy", lambda *a: occ)
     monkeypatch.setattr(pb, "sm_count", lambda device: 132)
-    assert pb.blocked_route(M, N, Kb, dtype,
-                            torch.device("cuda", 0)) == want
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="blocked_grid"):
+            pb.blocked_route(M, N, Kb, dtype, torch.device("cuda", 0))
+    else:
+        assert pb.blocked_route(M, N, Kb, dtype,
+                                torch.device("cuda", 0)) == want
     fits = True
     try:
         kbc.blocked_cluster_plan(M, N, Kb, dtype)
@@ -435,10 +439,10 @@ def test_blocked_route(monkeypatch, case):
 def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     """``run_simplex_blocked`` on a state it must treat as on the card
     (``on_cpu`` and the occupancy patched): the cluster route gets a
-    contiguous tableau and the options, ``blocked_steps`` and the eager
-    loop are never entered, and the cluster's launch failure raises; with
-    occupancy 0 (no cluster and no grid) the same state goes to
-    ``blocked_steps``."""
+    contiguous tableau and the options, the grid and the eager loop are
+    never entered, and the cluster's launch failure raises; with no
+    cluster on the card the same state goes to ``blocked_grid``, and with
+    neither a cluster nor the grid the walk raises."""
     def refuse(*args, **kw):
         raise AssertionError("another route ran")
 
@@ -451,16 +455,16 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
             return state, None
         return run
 
-    occ = [15]
+    occ = {"cluster": 15, "grid": 15}
     monkeypatch.setattr(pb, "on_cpu", lambda *t: False)
     monkeypatch.setattr(pb, "blocked_cluster_occupancy",
-                        lambda *a: occ[0])
-    monkeypatch.setattr(pb, "blocked_grid_occupancy", lambda *a: occ[0])
+                        lambda *a: occ["cluster"])
+    monkeypatch.setattr(pb, "blocked_grid_occupancy",
+                        lambda *a: occ["grid"])
     monkeypatch.setattr(pb, "sm_count", lambda device: 132)
     monkeypatch.setattr(pb, "blocked_grid", refuse)
     monkeypatch.setattr(pb, "run_simplex_blocked_reference", refuse)
     monkeypatch.setattr(pb, "_blocked_pivot", refuse)
-    monkeypatch.setattr(pb, "blocked_steps", refuse)
     monkeypatch.setattr(pb, "blocked_cluster", spy("blocked_cluster"))
     state = port_state("bounded1", torch.float64)
     strided = state._replace(T=state.T.t().contiguous().t())
@@ -475,11 +479,15 @@ def test_cuda_dispatch_takes_the_route_with_no_fallback(monkeypatch):
     monkeypatch.setattr(pb, "blocked_cluster", fail)
     with pytest.raises(RuntimeError, match="blocked_cluster"):
         pb.run_simplex_blocked(state)
-    occ[0] = 0
+    occ["cluster"] = 0
     monkeypatch.setattr(pb, "blocked_cluster", refuse)
-    monkeypatch.setattr(pb, "blocked_steps", spy("blocked_step"))
+    monkeypatch.setattr(pb, "blocked_grid", spy("blocked_grid"))
     pb.run_simplex_blocked(state, block=16)
-    assert seen[-1][0] == "blocked_step"
+    assert seen[-1][0] == "blocked_grid"
+    occ["grid"] = 0
+    monkeypatch.setattr(pb, "blocked_grid", refuse)
+    with pytest.raises(RuntimeError, match="not a grid of"):
+        pb.run_simplex_blocked(state, block=16)
 
 
 def test_cpu_walks_never_reach_a_kernel(monkeypatch):
@@ -489,7 +497,7 @@ def test_cpu_walks_never_reach_a_kernel(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("a kernel route was taken on the CPU")
 
-    for name in ("blocked_cluster", "blocked_steps", "blocked_route",
+    for name in ("blocked_cluster", "blocked_grid", "blocked_route",
                  "blocked_cluster_occupancy"):
         monkeypatch.setattr(pb, name, refuse)
     monkeypatch.setattr(kbc, "blocked_cluster", refuse)
@@ -566,35 +574,3 @@ def test_blocked_cluster_raises_when_the_card_holds_no_cluster(monkeypatch):
         kbc.blocked_cluster(state, opts, 10, 10, K, blocks=2)
     assert asked == [(*state.T.shape, K, 2)]
     assert LAUNCHES["blocked_cluster"] == 0
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernel against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_blocked_cluster_matches_its_plain_version(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 5d runs these "
-                    "checks at full size)")
-    from tpulp_torch.kernels.block import fused_flush
-
-    tt = getattr(torch, dtype)
-    for instance in INSTANCES:
-        for rule in RULES:
-            state = port_state(instance, tt)
-            state = type(state)(*(x.cuda() for x in state))
-            opts = options(rule, tt, max_iters=500)
-            stall = opts.resolved_stall_limit(state.m, state.n)
-            for C in SIZES:
-                for budget in (opts.max_iters, 5):
-                    out, g = kbc.blocked_cluster(state, opts, stall, budget,
-                                                 K, blocks=C)
-                    ref, gr = kbc.blocked_cluster_reference(
-                        state, opts, stall, budget, K, C, flush=fused_flush)
-                    torch.cuda.synchronize()
-                    assert_walks_equal(type(out)(*(x.cpu() for x in out)),
-                                       type(ref)(*(x.cpu() for x in ref)),
-                                       g.cpu(), gr.cpu())
-

@@ -12,11 +12,14 @@ column), through a budget stop inside a block, a slot past the budget that
 still ends the walk, the clean-up pivots and the retire, the phase change
 with devex's reset, the 1e8 reset, the exposed ray and inf / NaN entries.
 The kernel's finiteness sums are taken in its order (``sums.grid_sum``),
-the only place where the plain versions could part. The plan's arithmetic
-and refusals, the three-way route (``solve.blocked.blocked_route``), the
-solo and batch dispatch with no fallback and the wrapper's refusals are
-held here too. The kernel itself runs on the card only (the ``cuda`` test;
-chip_smoke.py's phase 5d holds it at full size)."""
+the only place where the plain versions could part. The plans'
+arithmetic (every slab slot in shared memory, some of them, or the
+running vectors in device memory too), their edges and their refusals
+(none of a frame ``kernels.blocked._check`` accepts), the two-way route
+(``solve.blocked.blocked_route``), the solo and batch dispatch with no
+fallback and the wrapper's refusals are held here too. The kernel itself
+runs on the card only (tests/test_torch_blocked_card.py; chip_smoke.py's
+phase 5d holds it at full size)."""
 
 import functools
 import math
@@ -356,26 +359,34 @@ def test_one_helper_serves_every_plain_version():
 # the plan
 # ---------------------------------------------------------------------------
 
-def _bytes(M, N, K, G, es):
-    """The kernel's layout, each segment rounded up to 16 bytes: V's and
-    U's slabs; row0, row1, the weights (W each); bvec, colj (H each); U's
-    rows 0 and 1, V's column N - 1, the fetched V and U columns and the
-    clean-up row's (K each); the basis; the slab's active mask; the
-    artificial mask, a bit a column in 32-bit words; the G 64-byte mailbox
-    headers a combine brings."""
+def _bytes(M, N, K, G, es, KR=None, vectors="shared"):
+    """The kernel's layout, each segment rounded up to 16 bytes: the first
+    KR slots (all K by default) of V's and U's slabs; on the "shared"
+    plans row0, row1, the weights (W each), bvec, colj (H each); U's rows 0
+    and 1, V's column N - 1, the fetched V and U columns and the clean-up
+    row's (K each); on the "shared" plans the basis, the slab's active
+    mask, the artificial mask, a bit a column in 32-bit words; the G
+    64-byte mailbox headers a combine brings."""
     up = lambda x: -(-x // 16) * 16  # noqa: E731
+    KR = K if KR is None else KR
     W, H = -(-N // G), -(-M // G)
-    return (up(K * W * es) + up(K * H * es) + 3 * up(W * es)
-            + 2 * up(H * es) + 6 * up(K * es) + up(4 * (M - 2)) + up(W)
-            + up(4 * -(-(N - 1) // 32)) + up(64 * G))
+    b = up(KR * W * es) + up(KR * H * es) + 6 * up(K * es) + up(64 * G)
+    if vectors == "shared":
+        b += (3 * up(W * es) + 2 * up(H * es) + up(4 * (M - 2)) + up(W)
+              + up(4 * -(-(N - 1) // 32)))
+    return b
 
 
-def _mail(G, K, es):
+def _mail(G, K, es, M=None, vectors="shared"):
     """The mailboxes: G 64-byte price headers, G 32-byte ratio headers, G
     blocks' two V columns and 32-byte tail, their two U columns and tail,
-    the clean-up column."""
+    the clean-up column; on the "device" plan G 16-byte barrier-D headers,
+    G U columns and the entering column (M values)."""
     vec = -(-K * es // 16) * 16
-    return G * (64 + 2 * vec + 32) + G * (32 + 2 * vec + 32) + vec
+    b = G * (64 + 2 * vec + 32) + G * (32 + 2 * vec + 32) + vec
+    if vectors == "device":
+        b += G * (16 + vec) + -(-M * es // 16) * 16
+    return b
 
 
 @pytest.mark.parametrize("shape", [
@@ -392,14 +403,14 @@ def _mail(G, K, es):
 ], ids=lambda s: f"{s[0]}x{s[1]}-K{s[2]}-{str(s[3])[6:]}")
 def test_blocked_grid_plan(shape):
     """G = ceil(N / ceil(N / 132)), W = ceil(N / G), H = ceil(M / G); the
-    bytes are the kernel's layout, within the limit; the mailboxes'
-    bytes."""
+    bytes are the kernel's layout, within the limit; the mailboxes' bytes;
+    every slot of the slabs in shared memory, with the running vectors."""
     M, N, Kb, dtype, G = shape
     es = 8 if dtype == torch.float64 else 4
     plan = kg.blocked_grid_plan(M, N, Kb, dtype, 132)
     assert plan == kg.BlockedGridPlan(G, -(-N // G), -(-M // G), 512,
                                       _bytes(M, N, Kb, G, es),
-                                      _mail(G, Kb, es))
+                                      _mail(G, Kb, es), Kb, "shared")
     assert plan.smem <= kg.BLOCKED_GRID_SMEM_LIMIT == 229_376
 
 
@@ -417,6 +428,114 @@ def test_blocked_grid_plan_worked_check():
     assert 5 * tiny.width == 10 and 5 * tiny.height == 5  # blocks 5, 6 idle
 
 
+# (M, N, K, dtype, G, W, H, KR, vectors, smem, mail): the frames past the
+# resident plan that chip_smoke.py's phase 5d walks, and frames past the
+# shared vectors
+DEVICE_FACTOR_PLANS = [
+    # (p): (g)'s LP in blocks of 256, 228 of the 256 slots resident
+    (258, 14257, 256, torch.float64, 131, 109, 2, 228, "shared", 228_736,
+     1_096_160),
+    # (zw), (zw32): 18 x 200,017 in blocks of 64, slabs of 1,516 columns
+    (18, 200017, 64, torch.float64, 132, 1516, 1, 12, "shared", 220_160,
+     291_968),
+    (18, 200017, 64, torch.float32, 132, 1516, 1, 28, "shared", 224_704,
+     156_544),
+    # (tt): 8002 x 16,001 in blocks of 128, the basis 32,000 bytes
+    (8002, 16001, 128, torch.float64, 132, 122, 61, 120, "shared", 228_320,
+     562_816),
+    # past the shared vectors: a wide and a tall frame at the sides' limit
+    (18, (1 << 24) - 1, 1024, torch.float64, 132, 127_101, 1, 0, "device",
+     57_600, 5_438_288),
+    ((1 << 24) - 1, 2, 1024, torch.float32, 132, 1, 127_101, 0, "device",
+     33_024, 69_839_552),
+]
+
+
+@pytest.mark.parametrize("case", DEVICE_FACTOR_PLANS,
+                         ids=lambda c: f"{c[0]}x{c[1]}-K{c[2]}-"
+                                       f"{str(c[3])[6:]}")
+def test_blocked_grid_plan_past_the_resident_slabs(case):
+    """The plan keeps as many slots of the slabs in shared memory as fit
+    beside the running vectors (the rest in the record's U and V), and past
+    the vectors' room it moves them to device memory too, its G then from
+    max(M, N); the bytes are the kernel's layout, within the limit, and one
+    more slot would not fit."""
+    M, N, Kb, dtype, G, W, H, KR, vectors, smem, mail = case
+    es = 8 if dtype == torch.float64 else 4
+    plan = kg.blocked_grid_plan(M, N, Kb, dtype, 132)
+    assert plan == kg.BlockedGridPlan(G, W, H, 512, smem, mail, KR, vectors)
+    assert smem == _bytes(M, N, Kb, G, es, KR, vectors)
+    assert mail == _mail(G, Kb, es, M, vectors)
+    assert smem <= kg.BLOCKED_GRID_SMEM_LIMIT
+    assert _bytes(M, N, Kb, G, es, KR + 1, vectors) > \
+        kg.BLOCKED_GRID_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("edge", [
+    # K 64, a wide LP: every slot resident up to N = 51,744 at f64 (M 18
+    # to 66; 51,612 at M 130) and 101,244 at f32
+    (18, 51744, 64, torch.float64), (66, 51744, 64, torch.float64),
+    (130, 51612, 64, torch.float64), (18, 101244, 64, torch.float32),
+    # a tall LP with n = 2m (M = m + 2, N = 2m + 1 here): m 13,265 at K 64
+    # f64, 7,654 at K 128
+    (13267, 26531, 64, torch.float64), (7656, 15309, 128, torch.float64),
+], ids=lambda e: f"{e[0]}x{e[1]}-K{e[2]}-{str(e[3])[6:]}")
+def test_blocked_grid_plan_resident_edges(edge):
+    """The last frames whose slabs fit whole (every slot resident, the
+    shared vectors): one more column (or row and two columns) and a slot
+    moves to device memory."""
+    M, N, Kb, dtype = edge
+    here = kg.blocked_grid_plan(M, N, Kb, dtype, 132)
+    assert (here.resident, here.vectors) == (Kb, "shared")
+    tall = N == 2 * M - 3
+    past = kg.blocked_grid_plan(M + tall, N + 1 + tall, Kb, dtype, 132)
+    assert (past.resident, past.vectors) == (Kb - 1, "shared")
+
+
+@pytest.mark.parametrize("edge", [
+    # the shared vectors' edge at K 64: 18 x 692,481 f64, 981,024 f32; a
+    # tall LP with n = 2m at m 45,852 f64, 48,652 f32
+    (18, 692481, torch.float64), (18, 981024, torch.float32),
+    (45854, 91705, torch.float64), (48654, 97305, torch.float32),
+], ids=lambda e: f"{e[0]}x{e[1]}-{str(e[2])[6:]}")
+def test_blocked_grid_plan_device_vector_edges(edge):
+    """The last frames whose running vectors fit a block beside no slot of
+    the slabs; one more column (or row and two columns) takes the
+    device-vector plan, which has room for slots again."""
+    M, N, dtype = edge
+    here = kg.blocked_grid_plan(M, N, 64, dtype, 132)
+    assert (here.resident, here.vectors) == (0, "shared")
+    tall = N == 2 * M - 3
+    past = kg.blocked_grid_plan(M + tall, N + 1 + tall, 64, dtype, 132)
+    assert past.vectors == "device" and past.resident > 0
+    assert past.blocks == 132
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_blocked_grid_plan_refuses_no_frame_the_kernels_take(dtype):
+    """A sweep of frames from 3 x 2 to the sides' limit and of K from 1 to
+    MAX_K: every one ``kernels.blocked._check`` accepts has a plan (on 132
+    SMs and on a card of 16), within the shared memory, its bytes the
+    kernel's layout and its mailboxes' bytes."""
+    es = 8 if dtype == torch.float64 else 4
+    sides = (3, 4, 17, 258, 1537, 14257, 200017, 1_048_593, (1 << 24) - 1)
+    for M in sides:
+        for N in sides[1:]:
+            if N == 3 and M == 3:
+                continue
+            for Kb in (1, 7, 64, 256, kb.MAX_K):
+                for sms in (132, 16):
+                    plan = kg.blocked_grid_plan(M, N, Kb, dtype, sms)
+                    assert plan.smem <= kg.BLOCKED_GRID_SMEM_LIMIT
+                    assert 0 <= plan.resident <= Kb
+                    assert plan.smem == _bytes(M, N, Kb, plan.blocks, es,
+                                               plan.resident, plan.vectors)
+                    assert plan.mail == _mail(plan.blocks, Kb, es, M,
+                                              plan.vectors)
+                    assert 1 <= plan.blocks <= sms
+
+
 @pytest.mark.parametrize("case", [
     # (g)'s LP in blocks of 1024 (and 256): past a block's shared memory
     (258, 14257, 1024, torch.float64),
@@ -426,9 +545,35 @@ def test_blocked_grid_plan_worked_check():
     (20002, 40001, 64, torch.float64),
 ], ids=lambda c: f"{c[0]}x{c[1]}-K{c[2]}-{str(c[3])[6:]}")
 def test_blocked_grid_plan_refuses_past_the_shared_memory(case):
+    """The resident plan forced (every slot, the shared vectors) past a
+    block's shared memory raises ``GridPlanTooLarge``; the plan itself
+    keeps fewer slots there instead."""
     M, N, Kb, dtype = case
     with pytest.raises(kg.GridPlanTooLarge, match="shared memory"):
-        kg.blocked_grid_plan(M, N, Kb, dtype)
+        kg.blocked_grid_plan(M, N, Kb, dtype, resident=Kb, vectors="shared")
+    plan = kg.blocked_grid_plan(M, N, Kb, dtype)
+    assert plan.vectors == "shared" and plan.resident < Kb
+
+
+def test_blocked_grid_plan_forced():
+    """``resident`` and ``vectors`` force a plan at any frame (a tiny one
+    here), KR from 0 to K; the device-vector plan's grid spreads over
+    max(M, N)."""
+    for KR in (0, 2, 4):
+        plan = kg.blocked_grid_plan(14, 33, 4, torch.float64, 132,
+                                    resident=KR)
+        assert (plan.resident, plan.vectors) == (KR, "shared")
+        assert plan.smem == _bytes(14, 33, 4, plan.blocks, 8, KR)
+    dev = kg.blocked_grid_plan(40, 9, 4, torch.float64, 132,
+                               vectors="device")
+    assert (dev.blocks, dev.width, dev.height, dev.resident) == (40, 1, 1, 4)
+    assert dev.mail == _mail(40, 4, 8, 40, "device")
+    shared = kg.blocked_grid_plan(40, 9, 4, torch.float64, 132)
+    assert (shared.blocks, shared.vectors) == (9, "shared")
+    forced = kg.blocked_grid_plan(40, 9, 4, torch.float32, 132, blocks=3,
+                                  resident=0, vectors="device")
+    assert (forced.blocks, forced.resident, forced.vectors) == \
+        (3, 0, "device")
 
 
 def test_blocked_grid_plan_refusals():
@@ -440,10 +585,19 @@ def test_blocked_grid_plan_refusals():
         kg.blocked_grid_plan(514, 1537, 0, torch.float64)
     with pytest.raises(ValueError, match="outside"):
         kg.blocked_grid_plan(514, 1537, 2048, torch.float64)
+    with pytest.raises(ValueError, match="outside"):
+        kg.blocked_grid_plan(1 << 24, 1537, 64, torch.float64)
     with pytest.raises(ValueError, match="expected 1 to 132"):
         kg.blocked_grid_plan(514, 1537, 64, torch.float64, 132, blocks=133)
     with pytest.raises(ValueError, match="expected 1 to 132"):
         kg.blocked_grid_plan(514, 1537, 64, torch.float64, 132, blocks=0)
+    with pytest.raises(ValueError, match="expected 0 to 64"):
+        kg.blocked_grid_plan(514, 1537, 64, torch.float64, resident=65)
+    with pytest.raises(ValueError, match="expected 0 to 64"):
+        kg.blocked_grid_plan(514, 1537, 64, torch.float64, resident=-1)
+    with pytest.raises(ValueError, match="vectors"):
+        kg.blocked_grid_plan(514, 1537, 64, torch.float64, vectors="wide")
+    assert not issubclass(ValueError, kg.GridPlanTooLarge)
 
 
 # ---------------------------------------------------------------------------
@@ -452,25 +606,33 @@ def test_blocked_grid_plan_refusals():
 
 @pytest.mark.parametrize("case", [
     # a cluster holds the block: the cluster, whatever the grid
-    (514, 1537, 64, torch.float64, 15, 1, "blocked_cluster"),
-    # past the cluster: the grid where the card holds it
-    (258, 14257, 64, torch.float64, 15, 1, "blocked_grid"),
-    (258, 14257, 64, torch.float32, 15, 1, "blocked_grid"),
-    (1026, 8193, 64, torch.float64, 15, 2, "blocked_grid"),
+    (514, 1537, 64, torch.float64, 15, 1, "blocked_cluster", None),
+    # past the cluster: the grid where the card holds it, every slot
+    # resident
+    (258, 14257, 64, torch.float64, 15, 1, "blocked_grid", (64, "shared")),
+    (258, 14257, 64, torch.float32, 15, 1, "blocked_grid", (64, "shared")),
+    (1026, 8193, 64, torch.float64, 15, 2, "blocked_grid", (64, "shared")),
     # the card holds no cluster: the grid
-    (514, 1537, 64, torch.float64, 0, 1, "blocked_grid"),
-    # the card holds no grid: blocked_step
-    (258, 14257, 64, torch.float64, 15, 0, "blocked_step"),
-    # past the grid's plan: blocked_step
-    (258, 14257, 1024, torch.float64, 15, 1, "blocked_step"),
-    (20002, 40001, 64, torch.float64, 15, 1, "blocked_step"),
-], ids=lambda c: f"{c[0]}x{c[1]}-K{c[2]}-{str(c[3])[6:]}-{c[6]}")
+    (514, 1537, 64, torch.float64, 0, 1, "blocked_grid", (64, "shared")),
+    # the card holds no grid: no route
+    (258, 14257, 64, torch.float64, 15, 0, RuntimeError, (64, "shared")),
+    # past the resident slabs: the grid, on the device-factor plan
+    (258, 14257, 1024, torch.float64, 15, 1, "blocked_grid",
+     (187, "shared")),
+    (20002, 40001, 64, torch.float64, 15, 1, "blocked_grid",
+     (33, "shared")),
+    # past the shared vectors: the grid, on the device-vector plan
+    (18, 1_000_017, 64, torch.float64, 15, 1, "blocked_grid",
+     (3, "device")),
+], ids=lambda c: f"{c[0]}x{c[1]}-K{c[2]}-{str(c[3])[6:]}-occ{c[5]}")
 def test_blocked_route_has_three_ways(monkeypatch, case):
     """The cluster where its plan fits and the card holds one cluster; else
-    the grid where its plan fits and the card holds the whole grid at once
-    (occupancy patched, 132 SMs); else ``blocked_step``. The grid's
-    occupancy is asked only of a plan that fits."""
-    M, N, Kb, dtype, occ_c, occ_g, want = case
+    the grid, on the plan ``blocked_grid_plan`` picks (named in each case:
+    its resident slots and where its vectors live), where the card holds
+    the whole grid at once (occupancy patched, 132 SMs); else no route: a
+    RuntimeError. The grid's occupancy is asked of every frame the cluster
+    does not take."""
+    M, N, Kb, dtype, occ_c, occ_g, want, plan = case
     asked = []
 
     def grid_occupancy(*args):
@@ -480,20 +642,22 @@ def test_blocked_route_has_three_ways(monkeypatch, case):
     monkeypatch.setattr(pb, "blocked_cluster_occupancy", lambda *a: occ_c)
     monkeypatch.setattr(pb, "blocked_grid_occupancy", grid_occupancy)
     monkeypatch.setattr(pb, "sm_count", lambda device: 132)
-    assert pb.blocked_route(M, N, Kb, dtype,
-                            torch.device("cuda", 0)) == want
-    fits = True
-    try:
-        kg.blocked_grid_plan(M, N, Kb, dtype, 132)
-    except ValueError:
-        fits = False
-    assert len(asked) == int(fits and want != "blocked_cluster")
+    dev = torch.device("cuda", 0)
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="not a grid of 131"):
+            pb.blocked_route(M, N, Kb, dtype, dev)
+    else:
+        assert pb.blocked_route(M, N, Kb, dtype, dev) == want
+    assert len(asked) == int(want != "blocked_cluster")
+    if plan is not None:
+        p = kg.blocked_grid_plan(M, N, Kb, dtype, 132)
+        assert (p.resident, p.vectors) == plan
 
 
 def test_blocked_route_needs_the_whole_grid(monkeypatch):
     """On a card of 100 SMs the plan takes 100 blocks of 143 columns: a
     card that holds one block an SM holds the grid; one that holds none
-    does not, and the walk takes ``blocked_step``."""
+    does not, and the route raises: nothing else runs the walk."""
     monkeypatch.setattr(pb, "blocked_cluster_occupancy", lambda *a: 15)
     monkeypatch.setattr(pb, "sm_count", lambda device: 100)
     occ = [1]
@@ -502,8 +666,28 @@ def test_blocked_route_needs_the_whole_grid(monkeypatch):
     assert pb.blocked_route(258, 14257, 64, torch.float64, dev) == \
         "blocked_grid"
     occ[0] = 0
-    assert pb.blocked_route(258, 14257, 64, torch.float64, dev) == \
-        "blocked_step"
+    with pytest.raises(RuntimeError, match="holds 0 blocks"):
+        pb.blocked_route(258, 14257, 64, torch.float64, dev)
+
+
+def test_blocked_route_raises_the_plans_refusals(monkeypatch):
+    """A type other than f32 and f64, a K or a frame out of range reach
+    the caller as the plans' ValueError: the route catches only a plan
+    past the shared memory, and no occupancy is asked."""
+    def ask(*args):
+        raise AssertionError("an occupancy was asked")
+
+    monkeypatch.setattr(pb, "blocked_cluster_occupancy", ask)
+    monkeypatch.setattr(pb, "blocked_grid_occupancy", ask)
+    monkeypatch.setattr(pb, "sm_count", lambda device: 132)
+    dev = torch.device("cuda", 0)
+    for M, N, Kb, dtype, match in (
+            (258, 14257, 64, torch.float16, "float32 or float64"),
+            (258, 14257, 0, torch.float64, "outside"),
+            (258, 14257, kb.MAX_K + 1, torch.float64, "outside"),
+            (1 << 24, 14257, 64, torch.float64, "outside")):
+        with pytest.raises(ValueError, match=match):
+            pb.blocked_route(M, N, Kb, dtype, dev)
 
 
 def _grid_route(monkeypatch, grid):
@@ -518,7 +702,7 @@ def _grid_route(monkeypatch, grid):
     monkeypatch.setattr(pb, "sm_count", lambda device: 132)
     for name in ("run_simplex_blocked_reference",
                  "run_simplex_blocked_batch_reference", "_blocked_pivot",
-                 "blocked_steps", "blocked_cluster", "blocked_cluster_batch"):
+                 "blocked_cluster", "blocked_cluster_batch"):
         monkeypatch.setattr(pb, name, refuse)
     monkeypatch.setattr(pb, "blocked_grid", grid)
 
@@ -601,10 +785,10 @@ def test_cpu_walks_never_reach_the_grid(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("a kernel route was taken on the CPU")
 
-    for name in ("blocked_grid", "blocked_route", "blocked_grid_occupancy",
-                 "blocked_steps"):
+    for name in ("blocked_grid", "blocked_route", "blocked_grid_occupancy"):
         monkeypatch.setattr(pb, name, refuse)
     monkeypatch.setattr(kg, "blocked_grid_block", refuse)
+    monkeypatch.setattr(kb, "blocked_ray", refuse)
     reset_launches()
     state = port_state("long", torch.float64)
     opts = options("devex", torch.float64)
@@ -654,8 +838,9 @@ def test_blocked_grid_raises_on_float16_and_a_strided_tableau():
 
 
 def test_blocked_grid_raises_on_a_block_past_the_plan(monkeypatch):
-    """(g)'s LP in blocks of 1024 slots: the plan refuses it before any
-    launch."""
+    """(g)'s LP in blocks of 1024 slots with the resident plan forced:
+    the plan refuses it before any launch (unforced, it keeps 187 of the
+    slots in shared memory)."""
     state = port_state("bounded1", torch.float64)
     wide = state._replace(T=torch.zeros((258, 14257), dtype=torch.float64))
     monkeypatch.setattr(kb, "_check", lambda *a: None)
@@ -663,8 +848,10 @@ def test_blocked_grid_raises_on_a_block_past_the_plan(monkeypatch):
     reset_launches()
     with pytest.raises(kg.GridPlanTooLarge):
         kg.blocked_grid(wide, options("dantzig", torch.float64), 10, 10,
-                        1024)
+                        1024, resident=1024, vectors="shared")
     assert LAUNCHES["blocked_grid"] == 0
+    assert kg.blocked_grid_plan(258, 14257, 1024, torch.float64).resident \
+        == 187
 
 
 def test_blocked_grid_raises_when_the_card_holds_no_grid(monkeypatch):
@@ -673,8 +860,9 @@ def test_blocked_grid_raises_when_the_card_holds_no_grid(monkeypatch):
     state, opts = _small()
     asked = []
 
-    def occupancy(M, N, Kb, dtype, device, blocks):
-        asked.append((M, N, Kb, blocks))
+    def occupancy(M, N, Kb, dtype, device, blocks, resident=None,
+                  vectors=None):
+        asked.append((M, N, Kb, blocks, resident, vectors))
         return 0
 
     monkeypatch.setattr(kb, "_check", lambda *a: None)
@@ -683,7 +871,11 @@ def test_blocked_grid_raises_when_the_card_holds_no_grid(monkeypatch):
     reset_launches()
     with pytest.raises(RuntimeError, match="not a grid of 3"):
         kg.blocked_grid(state, opts, 10, 10, K, blocks=3)
-    assert asked == [(*state.T.shape, K, 3)]
+    with pytest.raises(RuntimeError, match="not a grid of 3"):
+        kg.blocked_grid(state, opts, 10, 10, K, blocks=3, resident=0,
+                        vectors="device")
+    assert asked == [(*state.T.shape, K, 3, None, None),
+                     (*state.T.shape, K, 3, 0, "device")]
     assert LAUNCHES["blocked_grid"] == 0
 
 
@@ -697,34 +889,3 @@ def test_blocked_grid_block_refuses_a_batched_record(monkeypatch):
     with pytest.raises(ValueError, match="solo record"):
         kg.blocked_grid_block(kb.make_batch_record(batched, K), opts, 10, 10)
     assert LAUNCHES["blocked_grid"] == 0
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernel against its plain version
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_blocked_grid_matches_its_plain_version(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 5d runs these "
-                    "checks at full size)")
-    from tpulp_torch.kernels.block import fused_flush
-
-    tt = getattr(torch, dtype)
-    for instance in INSTANCES:
-        for rule in RULES:
-            state = port_state(instance, tt)
-            state = type(state)(*(x.cuda() for x in state))
-            opts = options(rule, tt, max_iters=500)
-            stall = opts.resolved_stall_limit(state.m, state.n)
-            for G in GRIDS:
-                for budget in (opts.max_iters, 5):
-                    out, g = kg.blocked_grid(state, opts, stall, budget, K,
-                                             blocks=G)
-                    ref, gr = kg.blocked_grid_reference(
-                        state, opts, stall, budget, K, G, flush=fused_flush)
-                    torch.cuda.synchronize()
-                    assert_walks_equal(type(out)(*(x.cpu() for x in out)),
-                                       type(ref)(*(x.cpu() for x in ref)),
-                                       g.cpu(), gr.cpu())

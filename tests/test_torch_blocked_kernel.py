@@ -1,14 +1,16 @@
-"""The solo rank-K blocked engine on the card (``tpulp_torch/kernels/
-blocked.py``), held on the CPU through its plain versions: composed, the
-cleanup, price, column, ratio, row and finish stages walk the eager
-``_blocked_pivot`` slot for slot, and a block of them with the flush and the
-ray stage walks the eager block (``solve.blocked._flush``), under Dantzig,
-Bland, devex, largest-pivot ties and the stall switch, through the
-clean-up pivots, the retire, the phase change, devex's resets, the budget
-and the exits; the plain-stage walk ends where tpulp's ``run_simplex_blocked``
-does at f64. The wrapper's refusals and ``run_simplex_blocked``'s dispatch
-are held here too. The kernels run on the card only (the ``cuda`` test;
-chip_smoke.py's phase 5d holds them at full size).
+"""The solo rank-K blocked engine's plain stages (``tpulp_torch/kernels/
+blocked.py``), the plain versions that the cluster and grid launches'
+plain versions compose: composed, the cleanup, price, column, ratio, row
+and finish stages walk the eager ``_blocked_pivot`` slot for slot, and a
+block of them with the flush and the ray stage walks the eager block
+(``solve.blocked._flush``), under Dantzig, Bland, devex, largest-pivot
+ties and the stall switch, through the clean-up pivots, the retire, the
+phase change, devex's resets, the budget and the exits; the plain-stage
+walk ends where tpulp's ``run_simplex_blocked`` does at f64. The grid
+walk's and the record launches' refusals and ``run_simplex_blocked``'s
+dispatch are held here too. The kernels run on the card only
+(tests/test_torch_blocked_card.py; chip_smoke.py's phase 5d holds them at
+full size).
 
 Tolerances: the plain stages sum the eta corrections in slot order, one fma
 a slot; the eager pivot's matrix products sum in the library's order. That
@@ -27,6 +29,8 @@ import pytest
 import torch
 
 import tpulp_torch.kernels.blocked as kb
+import tpulp_torch.kernels.blocked_cluster as kbc
+import tpulp_torch.kernels.blocked_grid as kg
 from tpulp.core import make_state as tpulp_make_state
 from tpulp.core.state import SolverOptions as TpulpOptions
 from tpulp.solve import run_simplex_blocked as tpulp_blocked
@@ -368,55 +372,61 @@ def _small():
         options("dantzig", torch.float64)
 
 
-def test_blocked_steps_raises_on_cpu_tensors():
+def test_grid_walk_raises_on_cpu_tensors():
     state, opts = _small()
     with pytest.raises(ValueError, match="CUDA"):
-        kb.blocked_steps(state, opts, 10, 10, K)
+        kg.blocked_grid(state, opts, 10, 10, K)
 
 
-def test_blocked_steps_raises_on_mixed_devices():
+def test_grid_walk_raises_on_mixed_devices():
     state, opts = _small()
     with pytest.raises(ValueError, match="CUDA"):
-        kb.blocked_steps(state._replace(basis=state.basis.to("meta")), opts,
-                         10, 10, K)
+        kg.blocked_grid(state._replace(basis=state.basis.to("meta")), opts,
+                        10, 10, K)
 
 
-def test_blocked_steps_raises_on_float16():
+def test_grid_walk_raises_on_float16():
     state, opts = _small()
     half = state._replace(T=state.T.half(), last_z=state.last_z.half())
     with pytest.raises(ValueError, match="float32 or float64"):
-        kb.blocked_steps(half, opts, 10, 10, K)
+        kg.blocked_grid(half, opts, 10, 10, K)
 
 
-def test_blocked_steps_raises_on_a_strided_tableau():
+def test_grid_walk_raises_on_a_strided_tableau():
     state, opts = _small()
     strided = state._replace(T=state.T.t().contiguous().t())
     assert not strided.T.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
-        kb.blocked_steps(strided, opts, 10, 10, K)
+        kg.blocked_grid(strided, opts, 10, 10, K)
 
 
-def test_blocked_steps_raises_on_a_block_past_the_kernels():
+def test_grid_walk_raises_on_a_block_past_the_kernels():
     state, opts = _small()
     with pytest.raises(ValueError, match="block"):
-        kb.blocked_steps(state, opts, 10, 10, kb.MAX_K + 1)
+        kg.blocked_grid(state, opts, 10, 10, kb.MAX_K + 1)
 
 
 def test_record_launches_raise_on_cpu_records():
     state, opts = _small()
     rec = kb.make_record(state, K)
+    scan = torch.zeros((2, state.T.shape[1]), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        kb.blocked_stage(rec, "price", opts, 10, 10)
+        kg.blocked_grid_block(rec, opts, 10, 10)
     with pytest.raises(ValueError, match="CUDA"):
-        kb.enqueue_slots(rec, opts, 10, 10, 1)
-    assert LAUNCHES["blocked_step"] == LAUNCHES["blocked_stage"] == 0
+        kbc.blocked_cluster_block(rec, opts, 10, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        kb.blocked_ray(rec, scan, opts, 10, 10)
+    with pytest.raises(ValueError, match="int32 scan"):
+        kb.blocked_ray(rec, scan[:1], opts, 10, 10)
+    assert LAUNCHES["blocked_grid"] == LAUNCHES["blocked_cluster"] == \
+        LAUNCHES["blocked_ray"] == 0
 
 
 def test_cuda_dispatch_takes_the_kernels_with_no_fallback(monkeypatch):
     """``run_simplex_blocked`` on a state it must treat as on the card
-    (``on_cpu`` patched), on the ``blocked_step`` route (``blocked_route``
-    patched; tests/test_torch_blocked_cluster.py holds the route itself):
-    ``blocked_steps`` gets a contiguous tableau, the eager loop is never
+    (``on_cpu`` patched), on the ``blocked_grid`` route (``blocked_route``
+    patched; tests/test_torch_blocked_grid.py holds the route itself):
+    ``blocked_grid`` gets a contiguous tableau, the eager loop is never
     entered, its error propagates, and a RUNNING exit becomes
     ITERATION_LIMIT."""
     def refuse(*args, **kw):
@@ -430,10 +440,11 @@ def test_cuda_dispatch_takes_the_kernels_with_no_fallback(monkeypatch):
         return state, None
 
     monkeypatch.setattr(pb, "on_cpu", lambda *t: False)
-    monkeypatch.setattr(pb, "blocked_route", lambda *a: "blocked_step")
+    monkeypatch.setattr(pb, "blocked_route", lambda *a: "blocked_grid")
     monkeypatch.setattr(pb, "run_simplex_blocked_reference", refuse)
     monkeypatch.setattr(pb, "_blocked_pivot", refuse)
-    monkeypatch.setattr(pb, "blocked_steps", spy)
+    monkeypatch.setattr(pb, "blocked_cluster", refuse)
+    monkeypatch.setattr(pb, "blocked_grid", spy)
     state, _ = _small()
     strided = state._replace(T=state.T.t().contiguous().t())
     out = pb.run_simplex_blocked(strided, SolverOptions.for_dtype(
@@ -449,10 +460,10 @@ def test_cuda_dispatch_takes_the_kernels_with_no_fallback(monkeypatch):
     assert seen[1][5] == 1e-4
 
     def fail(*args, **kw):
-        raise RuntimeError("tpulp_torch blocked step: CUDA error 1")
+        raise RuntimeError("tpulp_torch blocked_grid: CUDA error 1")
 
-    monkeypatch.setattr(pb, "blocked_steps", fail)
-    with pytest.raises(RuntimeError, match="blocked step"):
+    monkeypatch.setattr(pb, "blocked_grid", fail)
+    with pytest.raises(RuntimeError, match="blocked_grid"):
         pb.run_simplex_blocked(state)
 
 
@@ -464,8 +475,10 @@ def test_cpu_walks_never_reach_a_kernel(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("a kernel route was taken on the CPU")
 
-    monkeypatch.setattr(pb, "blocked_steps", refuse)
-    monkeypatch.setattr(kb, "blocked_steps", refuse)
+    for name in ("blocked_grid", "blocked_cluster", "blocked_route"):
+        monkeypatch.setattr(pb, name, refuse)
+    monkeypatch.setattr(kg, "blocked_grid_block", refuse)
+    monkeypatch.setattr(kb, "blocked_ray", refuse)
     reset_launches()
     for instance in ("equalities", "long"):
         for rule in ("dantzig", "devex"):
@@ -482,64 +495,3 @@ def test_cpu_walks_never_reach_a_kernel(monkeypatch):
                                    pricing="devex")
         assert sol.objective == 400
     assert all(v == 0 for v in LAUNCHES.values())
-
-
-# ---------------------------------------------------------------------------
-# on a card only: the kernels against the plain stages and the plain walk
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_cuda_blocked_kernels_match_the_plain_walk(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py's phase 5d runs these "
-                    "checks at full size)")
-    from tpulp_torch.kernels.block import fused_flush
-
-    tt = getattr(torch, dtype)
-    for instance in INSTANCES:
-        for rule in RULES:
-            state = port_state(instance, tt)
-            state = type(state)(*(x.cuda() for x in state))
-            opts = options(rule, tt, max_iters=500)
-            stall = opts.resolved_stall_limit(state.m, state.n)
-            out, g = kb.blocked_steps(state, opts, stall, opts.max_iters, K)
-            ref, gr = kb.blocked_walk_reference(state, opts, stall,
-                                                opts.max_iters, K,
-                                                flush=fused_flush)
-            torch.cuda.synchronize()
-            for name in out._fields:
-                assert torch.equal(as_bits(getattr(out, name).cpu()),
-                                   as_bits(getattr(ref, name).cpu())), name
-            assert torch.equal(as_bits(g.cpu()), as_bits(gr.cpu()))
-            _cuda_stages(kb.make_record(state, K), opts, stall)
-
-
-def _cuda_stages(rec, opts, stall):
-    """Each launch against its plain stage on the first blocks."""
-    from tpulp_torch.kernels.block import fused_flush
-
-    for _ in range(3):
-        for _ in range(K):
-            for stage in kb.SLOT_STAGES:
-                k, p = kb.clone_record(rec), kb.clone_record(rec)
-                kb.blocked_stage(k, stage, opts, stall, opts.max_iters)
-                kb.blocked_stage_reference(p, stage, opts, stall,
-                                           opts.max_iters)
-                torch.cuda.synchronize()
-                for (name, a), (_, b) in zip(kb.record_tensors(k),
-                                             kb.record_tensors(p)):
-                    assert torch.equal(as_bits(a.cpu()),
-                                       as_bits(b.cpu())), (stage, name)
-                rec = p
-        _, scan = fused_flush(*kb.flush_inputs(rec), float(opts.opt_tol),
-                              float(opts.piv_tol))
-        k, p = kb.clone_record(rec), kb.clone_record(rec)
-        kb.blocked_stage(k, "ray", opts, stall, opts.max_iters, scan)
-        kb.blocked_ray_reference(p, scan, opts)
-        torch.cuda.synchronize()
-        for (name, a), (_, b) in zip(kb.record_tensors(k),
-                                     kb.record_tensors(p)):
-            assert torch.equal(as_bits(a.cpu()), as_bits(b.cpu())), \
-                ("ray", name)
-        rec = p

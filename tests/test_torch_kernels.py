@@ -340,10 +340,8 @@ def test_launch_counters_stay_zero_on_cpu():
                         "fused_fma": 0, "lane_dual": 0, "lane_primal": 0,
                         "lane_bounded": 0, "bounded_grid": 0,
                         "rank1_cluster": 0, "rank1_cluster_lanes": 0,
-                        "rank1_grid": 0,
-                        "blocked_step": 0, "blocked_ray": 0,
-                        "blocked_stage": 0, "blocked_cluster": 0,
-                        "blocked_grid": 0,
+                        "rank1_grid": 0, "blocked_ray": 0,
+                        "blocked_cluster": 0, "blocked_grid": 0,
                         "blocked_cluster_batch": 0, "fused_flush_batch": 0,
                         "blocked_ray_batch": 0, "shard_pivot": 0,
                         "shard_vectors": 0}
@@ -352,7 +350,7 @@ def test_launch_counters_stay_zero_on_cpu():
 def test_nvcc_command_line():
     out = build.BUILD_DIR / build.LIB_NAME
     compiles, link = build.nvcc_commands(out)
-    sources, objects = [], []
+    sources, objects, defines = [], [], []
     for cmd in compiles:
         assert cmd[0] == "nvcc"
         assert cmd[cmd.index("-gencode") + 1] == \
@@ -362,15 +360,21 @@ def test_nvcc_command_line():
         (src,) = [pathlib.Path(x) for x in cmd if x.endswith(".cu")]
         sources.append(src)
         objects.append(cmd[cmd.index("-o") + 1])
-    assert sorted(p.name for p in sources) == ["blocked.cu",
-                                               "blocked_cluster.cu",
-                                               "blocked_grid.cu",
-                                               "bounded_grid.cu", "flush.cu",
-                                               "fma.cu", "inner_block.cu",
-                                               "lanes.cu",
-                                               "rank1_cluster.cu",
-                                               "rank1_grid.cu",
-                                               "shard_pivot.cu"]
+        defines.append((src.name, *[x for x in cmd if x.startswith("-D")]))
+    # the largest sources compile twice, their f32 and f64 entry points
+    # apart
+    split = ("bounded_grid.cu", "lanes.cu", "rank1_grid.cu")
+    assert build.SPLIT_BY_TYPE == split
+    assert sorted(p.name for p in sources) == sorted(
+        ["blocked.cu", "blocked_cluster.cu", "blocked_grid.cu",
+         "bounded_grid.cu", "flush.cu", "fma.cu", "inner_block.cu",
+         "lanes.cu", "rank1_cluster.cu", "rank1_grid.cu", "shard_pivot.cu",
+         *split])
+    for name in split:
+        assert sorted(d[1:] for d in defines if d[0] == name) == [
+            ("-DTPULP_TYPES=1",), ("-DTPULP_TYPES=2",)]
+    assert all(len(d) == 1 for d in defines if d[0] not in split)
+    assert len(set(objects)) == len(objects)
     assert all(p.parent == ROOT / "tpulp_torch" / "kernels" / "csrc"
                for p in sources)
     assert link[0] == "nvcc" and "-shared" in link

@@ -228,8 +228,9 @@ def solve_lp_batch(
     one B1 flush and one ray launch over the lanes, with one host read of
     the lanes' status a block; past the cluster's plan (a wide LP, a
     ``block`` past it) each lane's solo walk runs in turn on
-    ``blocked_grid`` (one cooperative launch a block) or, past the grid's
-    plan, on ``blocked_steps``. On the CPU it is the eager vmapped loop. ``simple_bounds=True``
+    ``blocked_grid`` (one cooperative launch a block, on the plan that
+    ``blocked_grid_plan`` picks for the frame). On the CPU it is the eager
+    vmapped loop. ``simple_bounds=True``
     lowers finite upper bounds without rows and runs the bounded-variable
     step over the lanes; otherwise spans become explicit bound rows (the
     same optimum).

@@ -2,7 +2,6 @@
 
 from .block import (blocked_inner_block, blocked_inner_block_reference,
                     fused_flush, fused_flush_reference, inner_block_plan)
-from .blocked import blocked_stage, blocked_steps
 from .blocked_cluster import blocked_cluster_plan
 # the module, not its wrapper of the same name: blocked_grid.blocked_grid
 from .blocked_grid import blocked_grid_plan
@@ -37,8 +36,6 @@ __all__ = [
     "bounded_grid_plan",
     "cluster_plan",
     "rank1_grid_plan",
-    "blocked_steps",
-    "blocked_stage",
     "blocked_cluster_plan",
     "blocked_grid_plan",
     "shard_pivot_plan",

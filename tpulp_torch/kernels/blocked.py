@@ -1,65 +1,67 @@
-"""``blocked_steps``: the solo rank-K blocked engine on the card, six
-launches a pivot slot (``csrc/blocked.cu``) and B1's flush a block, and the
-plain versions of the launches, stage by stage.
+"""The solo rank-K blocked engine's walk record on the card, the ray
+launch that ends each block (``csrc/blocked.cu``), and the plain versions
+of a pivot slot, stage by stage.
 
-``solve.blocked._blocked_pivot`` is one eta pivot of ~200 small tensor ops
-and three FMA launches. Its work has five global dependencies: the
-clean-up row's first eligible column, pricing, the entering column
-``T0[:, j] + V[:, j]^T U``, the leaving row and the pivot row ``T0[r] +
-U[:, r]^T V``. Cut there, a slot is six stream-ordered launches that read
-and write one walk record kept on the card:
+``solve.blocked._blocked_pivot`` is one eta pivot of ~200 small tensor ops.
+Its work has five global dependencies: the clean-up row's first eligible
+column, pricing, the entering column ``T0[:, j] + V[:, j]^T U``, the
+leaving row and the pivot row ``T0[r] + U[:, r]^T V``. Cut there, a slot is
+six plain stages that read and write one walk record:
 
-- **cleanup** (a grid over the columns; returns at once unless a basic
-  artificial remains in phase 2): the clean-up row and, per block, its
+- **cleanup** (returns at once unless a basic artificial remains in phase
+  2): the clean-up row and, per block of ``GRID_THREADS`` columns, its
   first eligible column;
-- **price** (one block): the eligible column from those partials, the
-  retire, pricing on the maintained objective rows (Dantzig, Bland's first
-  improving column, devex ``c^2 / gamma``), the phase bookkeeping, the
-  finiteness of the pre-step pricing row and the entering column;
-- **column** (a grid over the rows): the entering column;
-- **ratio** (one block): ``driver.ratio_rows`` over the column and the RHS
-  vector, with first-index or largest-pivot ties (Bland's smallest basic
-  index under Bland), the slot's ``act`` (with the budget), the row and
-  the pivot element;
-- **row** (a grid over max(M, N)): the pivot row, the running vectors
-  ``row0``, ``row1``, ``bvec`` (one fma an entry), the devex weights, and
-  per block the weights' maximum and the post-step ``|bvec[2:]|`` sum;
-- **finish** (one block): the eta slot ``U[t] = w``, ``V[t] = vrow``, the
-  basis, the retire, the devex resets, the stall counter and the Bland
-  switch, the phase change, the status, ``t`` and ``niter``, and the first
-  row whose basic column is artificial (the next slot's clean-up scan).
+- **price**: the eligible column from those partials, the retire, pricing
+  on the maintained objective rows (Dantzig, Bland's first improving
+  column, devex ``c^2 / gamma``), the phase bookkeeping, the finiteness of
+  the pre-step pricing row and the entering column;
+- **column**: the entering column;
+- **ratio**: ``driver.ratio_rows`` over the column and the RHS vector,
+  with first-index or largest-pivot ties (Bland's smallest basic index
+  under Bland), the slot's ``act`` (with the budget), the row and the
+  pivot element;
+- **row**: the pivot row, the running vectors ``row0``, ``row1``,
+  ``bvec`` (one fma an entry), the devex weights, and per block the
+  weights' maximum and the post-step ``|bvec[2:]|`` sum;
+- **finish**: the eta slot ``U[t] = w``, ``V[t] = vrow``, the basis, the
+  retire, the devex resets, the stall counter and the Bland switch, the
+  phase change, the status, ``t`` and ``niter``, and the first row whose
+  basic column is artificial (the next slot's clean-up scan).
 
-After K slots B1 (``block.fused_flush``) flushes ``T += U^T V`` in place
-and returns its scan columns, and one more launch, **ray**, evaluates the
-per-block ray scan on them with the basic-artificial gate of the eager
-engine and resets the carry for the next block (``row0``, ``row1``,
-``bvec`` from the flushed T, the etas zero, ``t = 0``).
+On the card the K slots of a block run in one launch of
+``kernels.blocked_cluster`` or ``kernels.blocked_grid`` (whose plain
+versions compose these stages). After K slots B1 (``block.fused_flush``)
+flushes ``T += U^T V`` in place and returns its scan columns, and one more
+launch, **ray** (``flush_and_ray``; ``ray_batch`` over the lanes of a
+batch), evaluates the per-block ray scan on them with the basic-artificial
+gate of the eager engine and resets the carry for the next block (``row0``,
+``row1``, ``bvec`` from the flushed T, the etas zero, ``t = 0``).
 
 The record (``BlockedRecord``) holds the walk's state (copies of the
 caller's tensors, which are never written), the block's eta factors and
 running vectors, the slot's verdict (``ints`` past the scalars, ``vals``)
-and the scratch one launch passes to the next. A batched record
+and the scratch one stage passes to the next. A batched record
 (``make_batch_record``) holds the same fields with a leading lane axis,
 contiguous, for ``blocked_cluster_batch``: there ``LIVE`` is each lane's
 verdict at the block's start (running within its budget), which its
 cluster launch writes and B1 and the ray launch obey; a solo record is
-always live. Every slot launch returns at
-once unless the record's status is RUNNING: the eager pivot's own gate. The
-budget enters as it does there, through ``act``, so a slot past the budget
-pivots nowhere and still records what ``_blocked_pivot`` records (an exit,
-a phase change, a retire).
+always live. Every stage returns at once unless the record's status is
+RUNNING: the eager pivot's own gate. The budget enters as it does there,
+through ``act``, so a slot past the budget pivots nowhere and still
+records what ``_blocked_pivot`` records (an exit, a phase change, a
+retire).
 
 The eta sums run over the block's slots in one fixed order, k = 0 .. t,
 one fma each (``_eta``; the slots past t are zero), accumulated in the
 tableau's type, where the eager pivot's matrix products sum in the
 library's order: the kernels and the plain stages agree bit for bit, and
 both agree with the eager engine to rounding. The plain stages
-(``blocked_{cleanup,price,column,ratio,row,finish,ray}_reference``) are the
-launches' plain versions on the same record; ``blocked_pivot_reference``
+(``blocked_{cleanup,price,column,ratio,row,finish,ray}_reference``) are
+the kernels' plain versions on the same record; ``blocked_pivot_reference``
 composes one slot and ``blocked_block_reference`` a block with a given
 flush. Nothing on the solver's path calls them: ``solve.blocked.
-run_simplex_blocked`` runs the eager engine on CPU tensors and
-``blocked_steps`` on CUDA tensors.
+run_simplex_blocked`` runs the eager engine on CPU tensors and the cluster
+or grid launches on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -80,9 +82,8 @@ from .sums import block_sums
 
 __all__ = ["BlockedRecord", "make_record", "record_state", "record_tensors",
            "clone_record", "make_batch_record", "lane_record",
-           "blocked_steps", "enqueue_slots", "blocked_block",
-           "flush_and_ray", "flush_and_ray_batch", "ray_batch",
-           "blocked_stage", "blocked_cleanup_reference",
+           "flush_and_ray", "flush_and_ray_batch", "blocked_ray", "ray_batch",
+           "blocked_cleanup_reference",
            "blocked_price_reference", "blocked_column_reference",
            "blocked_ratio_reference", "blocked_row_reference",
            "blocked_finish_reference", "blocked_ray_reference",
@@ -91,8 +92,10 @@ __all__ = ["BlockedRecord", "make_record", "record_state", "record_tensors",
            "flush_inputs", "partials", "STAGES", "SLOT_STAGES", "MAX_K",
            "RESET_ABOVE"]
 
-MAX_K = 1024  # eta slots of a block (csrc/blocked.cu)
-GRID_THREADS = 256  # threads of the grid launches (csrc/blocked.cu)
+MAX_K = 1024  # eta slots of a block (the kernels' MAX_K)
+# the plain stages' blocks of columns and rows (their partials) and the
+# threads of the ray launch's blocks (csrc/blocked.cu)
+GRID_THREADS = 256
 
 # the record's int32 fields: the walk's scalars, the slot t and the first
 # row whose basic column is artificial; the slot's verdict (price writes
@@ -106,13 +109,13 @@ NI = 26
 # the record's values in the tableau's type
 LAST_Z, PIV, GAMMA_Q = range(3)
 NV = 3
-# the launches of a slot, then the block's ray launch
+# the plain stages of a slot, then the block's ray stage
 SLOT_STAGES = ("cleanup", "price", "column", "ratio", "row", "finish")
 STAGES = SLOT_STAGES + ("ray",)
 
-# the C entry points' argument arrays (csrc/blocked.cu)
-_NARGS, _NINTS, _NTOLS = 14, 8, 5
-_I_STAGE = 7
+# the kernels' argument arrays (csrc/blocked.cu's and the cluster and grid
+# launches', which take the walk's ints and tolerances from here)
+_NARGS, _NINTS, _NTOLS = 14, 7, 5
 _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
 _TOLS = ctypes.c_double * _NTOLS
@@ -129,8 +132,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def partials(M: int, N: int) -> int:
-    """Blocks of the row launch, each writing one partial (the scratch's
-    size and the kernels' ``G``)."""
+    """Blocks of ``GRID_THREADS`` of the row stage, each writing one
+    partial (the scratch's size)."""
     return _cdiv(max(M, N), GRID_THREADS)
 
 
@@ -633,8 +636,9 @@ def _check(state: SimplexState, K: int, batched: bool = False) -> None:
 
 def _entry(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
            max_iters: int, scan: torch.Tensor | None = None):
-    """(library, the entry's argument arrays) for a record of
-    ``make_record`` (or ``make_batch_record``) on one CUDA device."""
+    """(library, the argument arrays: pointers, ints, tolerances) of a
+    launch on a record of ``make_record`` (or ``make_batch_record``) on one
+    CUDA device; raises on anything else."""
     T = rec.T
     M, N = T.shape[-2:]
     K = rec.U.shape[-2]
@@ -661,34 +665,29 @@ def _entry(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
         scan)))
     iargs = _INTS(M, N, K, min(int(stall_limit), _INT_MAX),
                   min(int(max_iters), _INT_MAX), int(opts.rule),
-                  int(opts.tie_break), 0)
+                  int(opts.tie_break))
     tols = _TOLS(opts.opt_tol, opts.piv_tol, opts.degen_tol,
                  opts.infeas_tol, RESET_ABOVE)
     return lib_for(T.device), args, iargs, tols
 
 
-def enqueue_slots(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
-                  max_iters: int, nslots: int) -> None:
-    """Enqueue ``nslots`` pivot slots (six launches each; at most the
-    block's K) on a record on the card through one C call, with no host
-    read; counted in ``LAUNCHES["blocked_step"]``."""
-    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters)
-    fn = getattr(lib, f"tpulp_blocked_steps_{suffix(rec.T.dtype)}")
-    err = fn(args, iargs, tols, int(nslots), stream_of(rec.T.device))
+def blocked_ray(rec: BlockedRecord, scan: torch.Tensor, opts: SolverOptions,
+                stall_limit: int, max_iters: int) -> None:
+    """The ray launch on a solo record on the card, on B1's scan columns
+    ``scan`` (2, N) (counted in ``LAUNCHES["blocked_ray"]``): what
+    ``blocked_ray_reference`` computes, in place."""
+    N = rec.T.shape[-1]
+    if rec.T.dim() != 2 or tuple(scan.shape) != (2, N) \
+            or scan.dtype != torch.int32:
+        raise ValueError(f"blocked_ray: expected a solo record and (2, N) "
+                         f"int32 scan columns, got {tuple(rec.T.shape)} "
+                         f"and {scan.dtype} {tuple(scan.shape)}")
+    lib, args, iargs, _ = _entry(rec, opts, stall_limit, max_iters, scan)
+    fn = getattr(lib, f"tpulp_blocked_ray_{suffix(rec.T.dtype)}")
+    err = fn(args, iargs, stream_of(rec.T.device))
     if err:
-        raise_on(lib, err, "blocked step")
-    LAUNCHES["blocked_step"] += nslots
-
-
-def _launch(rec: BlockedRecord, stage: str, opts: SolverOptions,
-            stall_limit: int, max_iters: int,
-            scan: torch.Tensor | None = None) -> None:
-    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters, scan)
-    iargs[_I_STAGE] = STAGES.index(stage)
-    fn = getattr(lib, f"tpulp_blocked_stage_{suffix(rec.T.dtype)}")
-    err = fn(args, iargs, tols, stream_of(rec.T.device))
-    if err:
-        raise_on(lib, err, f"blocked {stage}")
+        raise_on(lib, err, "blocked ray")
+    LAUNCHES["blocked_ray"] += 1
 
 
 def ray_batch(rec: BlockedRecord, scan: torch.Tensor, opts: SolverOptions,
@@ -703,9 +702,9 @@ def ray_batch(rec: BlockedRecord, scan: torch.Tensor, opts: SolverOptions,
         raise ValueError(f"ray_batch: expected a batched record and (B, 2, "
                          f"N) int32 scan columns, got {tuple(rec.T.shape)} "
                          f"and {scan.dtype} {tuple(scan.shape)}")
-    lib, args, iargs, tols = _entry(rec, opts, stall_limit, max_iters, scan)
+    lib, args, iargs, _ = _entry(rec, opts, stall_limit, max_iters, scan)
     fn = getattr(lib, f"tpulp_blocked_ray_batch_{suffix(rec.T.dtype)}")
-    err = fn(args, iargs, tols, B, stream_of(rec.T.device))
+    err = fn(args, iargs, B, stream_of(rec.T.device))
     if err:
         raise_on(lib, err, "blocked ray batch")
     LAUNCHES["blocked_ray_batch"] += 1
@@ -717,8 +716,7 @@ def flush_and_ray(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
     in ``LAUNCHES["blocked_ray"]``)."""
     _, scan = fused_flush(*flush_inputs(rec), float(opts.opt_tol),
                           float(opts.piv_tol))
-    _launch(rec, "ray", opts, stall_limit, max_iters, scan)
-    LAUNCHES["blocked_ray"] += 1
+    blocked_ray(rec, scan, opts, stall_limit, max_iters)
 
 
 def flush_and_ray_batch(rec: BlockedRecord, opts: SolverOptions,
@@ -729,36 +727,3 @@ def flush_and_ray_batch(rec: BlockedRecord, opts: SolverOptions,
     _, scan = fused_flush_batch(*flush_inputs(rec), rec.ints[:, LIVE],
                                 float(opts.opt_tol), float(opts.piv_tol))
     ray_batch(rec, scan, opts, stall_limit, max_iters)
-
-
-def blocked_block(rec: BlockedRecord, opts: SolverOptions, stall_limit: int,
-                  max_iters: int) -> None:
-    """One block on the card: K slots, B1's flush, the ray launch."""
-    enqueue_slots(rec, opts, stall_limit, max_iters, rec.U.shape[0])
-    flush_and_ray(rec, opts, stall_limit, max_iters)
-
-
-def blocked_steps(state: SimplexState, opts: SolverOptions, stall_limit: int,
-                  max_iters: int, K: int):
-    """The rank-K blocked walk of ``state`` (one problem on one CUDA
-    device) in blocks of ``K`` pivots, ``solve.blocked``'s eager engine on
-    the card, to its exit or to ``max_iters``: a block is its K slots
-    enqueued by one C call, B1's flush and the ray launch, with one host
-    read of (status, niter) a block; a RUNNING exit at the budget stays
-    RUNNING. Returns (state, devex weights); the caller's tensors are never
-    written."""
-    _check(state, K)
-    rec = make_record(state, K)
-    _walk(rec, max_iters,
-          lambda r: blocked_block(r, opts, stall_limit, max_iters))
-    return record_state(rec), rec.gamma
-
-
-def blocked_stage(rec: BlockedRecord, stage: str, opts: SolverOptions,
-                  stall_limit: int, max_iters: int,
-                  scan: torch.Tensor | None = None) -> None:
-    """One launch of ``stage`` (one of ``STAGES``; the ray launch with B1's
-    ``scan``) on a record on the card, in place: what holds each launch
-    against its plain stage."""
-    _launch(rec, stage, opts, stall_limit, max_iters, scan)
-    LAUNCHES["blocked_stage"] += 1

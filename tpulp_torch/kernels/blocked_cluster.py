@@ -3,15 +3,16 @@ blocked engine in one thread-block-cluster launch
 (``csrc/blocked_cluster.cu``), with the block's eta factors in the
 cluster's shared memory; the walk around it; and its plain version.
 
-``kernels.blocked`` runs a slot as six stream-ordered launches, enqueued by
-the host. Where the block's factors fit the shared memory of a cluster of
-8 blocks (16 where 8 do not hold them and the card holds such a cluster),
-the K slots of a block run in one launch instead: block b of the cluster
-keeps ``V[0..K, b W:(b + 1) W]`` and ``U[0..K, b H:(b + 1) H]`` (``W =
-ceil(N / C)``, ``H = ceil(M / C)``) in its shared memory with its entries
-of the running vectors, and the blocks combine their candidates in rank
-order between three cluster barriers a slot. ``blocked_cluster_plan`` picks
-C with the kernel's own layout (the launch refuses a plan that disagrees).
+Where the block's factors fit the shared memory of a cluster of 8 blocks
+(16 where 8 do not hold them and the card holds such a cluster), the K
+slots of a block run in one cluster launch (past that,
+``kernels.blocked_grid`` runs them on the whole card): block b of the
+cluster keeps ``V[0..K, b W:(b + 1) W]`` and ``U[0..K, b H:(b + 1) H]``
+(``W = ceil(N / C)``, ``H = ceil(M / C)``) in its shared memory with its
+entries of the running vectors, and the blocks combine their candidates in
+rank order between three cluster barriers a slot. ``blocked_cluster_plan``
+picks C with the kernel's own layout (the launch refuses a plan that
+disagrees).
 Between two blocks nothing changes: B1 (``block.fused_flush``) flushes the
 factors and ``kernels.blocked``'s ray launch evaluates the per-block ray
 scan and resets the carry, with one host read of (status, niter) a block.
@@ -60,6 +61,7 @@ import torch
 from ..core.state import SimplexState, SolverOptions, Status
 from . import blocked as kb
 from .block import fused_flush_reference
+from .bounded_grid import GridPlanTooLarge
 from .launch import LAUNCHES, check, lib_for, raise_on, stream_of, suffix
 from .sums import slab_sum
 
@@ -127,8 +129,10 @@ def blocked_cluster_plan(M: int, N: int, K: int, dtype,
     """The launch plan of a block of ``K`` slots on an (M, N) = (m + 2, n +
     1) tableau: a cluster of 8 blocks, else of 16, whose blocks hold their
     slabs and vectors in ``BLOCKED_CLUSTER_SMEM_LIMIT`` bytes each (or the
-    one of ``blocks``, to hold the kernel at another size). Raises for a
-    block that 16 blocks cannot hold."""
+    one of ``blocks``, to hold the kernel at another size). Raises
+    ``GridPlanTooLarge`` (a ValueError) for a block that 16 blocks cannot
+    hold, ValueError for another type, a frame outside 2^24, a K or a
+    cluster size out of range."""
     es = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if es is None:
         raise ValueError(f"blocked_cluster takes float32 or float64, not "
@@ -145,9 +149,10 @@ def blocked_cluster_plan(M: int, N: int, K: int, dtype,
         smem = _smem(M, N, K, W, H, es)
         if smem <= BLOCKED_CLUSTER_SMEM_LIMIT:
             return BlockedClusterPlan(C, W, H, BLOCKED_CLUSTER_THREADS, smem)
-    raise ValueError(f"block of {K} pivots on {M} x {N} {dtype}: a block of "
-                     f"a cluster of {C} needs {smem} bytes of shared memory, "
-                     f"above {BLOCKED_CLUSTER_SMEM_LIMIT}")
+    raise GridPlanTooLarge(
+        f"block of {K} pivots on {M} x {N} {dtype}: a block of a cluster of "
+        f"{C} needs {smem} bytes of shared memory, above "
+        f"{BLOCKED_CLUSTER_SMEM_LIMIT}")
 
 
 def _plan_ints(plan: BlockedClusterPlan, M: int, N: int, K: int,
@@ -221,9 +226,10 @@ def blocked_cluster_block(rec: kb.BlockedRecord, opts: SolverOptions,
                           blocks: int | None = None,
                           stage_cycles: torch.Tensor | None = None) -> None:
     """The K slots of the record's block in one cluster launch (counted in
-    ``LAUNCHES["blocked_cluster"]``), in place: what the six launches of
-    ``kernels.blocked.enqueue_slots`` compute, K at a time; the record's
-    scratch and verdict fields are left as they were, but ``LIVE``. A
+    ``LAUNCHES["blocked_cluster"]``), in place: what K of the plain
+    stages' slots (``kernels.blocked.blocked_pivot_reference``) compute;
+    the record's scratch and verdict fields are left as they were, but
+    ``LIVE``. A
     record that is not running within ``max_iters`` is left as it is, but
     ``LIVE = 0``. ``blocks`` forces the cluster's size; ``stage_cycles``
     (int64, ``len(BLOCKED_CLUSTER_STAGES)`` on the card) accumulates block

@@ -1,39 +1,45 @@
 """``blocked_grid``: a block of K eta-pivot slots of the solo rank-K
 blocked engine in one persistent cooperative launch on the whole card
-(``csrc/blocked_grid.cu``), with the block's eta factors in the SMs' shared
-memory; its launch plan, the walk around it and its plain version.
+(``csrc/blocked_grid.cu``), the block's eta factors in slabs whose first
+slots live in the SMs' shared memory; its launch plans, the walk around it
+and its plain version.
 
 ``kernels.blocked_cluster`` runs the K slots of a block in one launch only
 where a cluster of 8 or 16 blocks holds the block's factors (K = 64, f64:
-M + N up to ~7,100); past that, ``kernels.blocked`` runs a slot as six
-stream-ordered launches. Here the K slots run in one launch of G blocks,
-one an SM: block g keeps ``V[0..K, g W:(g + 1) W]`` and ``U[0..K, g H:(g +
-1) H]`` (``W = ceil(N / G)``, ``H = ceil(M / G)``) in its shared memory
+M + N up to ~7,100); every other solo blocked walk runs here, in one launch
+of G blocks, one an SM: block g keeps its slabs ``V[0..K, g W:(g + 1) W]``
+and ``U[0..K, g H:(g + 1) H]`` (``W = ceil(N / G)``, ``H = ceil(M / G)``)
 with its entries of the running vectors, and the blocks meet at two grid
 barriers a slot (three in a clean-up slot), exchanging their candidates and
 the factors' columns that the winners need through mailboxes in device
 memory (the header of ``csrc/blocked_grid.cu``). ``blocked_grid_plan``
-picks G and counts the kernel's shared memory and mailboxes (the launch
-refuses a plan that disagrees); it refuses (``GridPlanTooLarge``) a block
-whose slabs do not fit a block's shared memory (K = 64, f64: M + N past
-~50,500 for a wide LP, ~39,500 with n = 2m; K = 256 on 258 x 14,257). Between two blocks nothing changes: B1
+picks G, how many of a slab's K slots live in shared memory
+(``resident``, KR: all K where they fit, as many as fit past that, the
+others read and written in the record's U and V in device memory) and
+where the running vectors, the basis and the artificial bits live
+(``vectors``: "shared", a block's shared memory; "device", the record in
+device memory, the basis by row slab, with a barrier D a slot), and counts
+the kernel's shared memory and mailboxes (the launch refuses a plan that
+disagrees). It refuses no f32 or f64 frame that ``kernels.blocked._check``
+accepts; only a plan forced past a block's shared memory raises
+``GridPlanTooLarge``. Between two blocks nothing changes: B1
 (``block.fused_flush``) flushes the factors and ``kernels.blocked``'s ray
 launch evaluates the per-block ray scan and resets the carry, with one
 host read of (status, niter) a block.
 
 ``blocked_grid`` takes a state on one CUDA device and raises on anything
 else (CPU tensors, mixed devices, a strided tableau, a type other than f32
-and f64, a block past the plan, a grid the card cannot hold at once:
-``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the SMs below G).
-It never writes the caller's tensors.
+and f64, a forced plan past a block's shared memory, a grid the card
+cannot hold at once: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+times the SMs below G). It never writes the caller's tensors.
 
-``blocked_grid_reference`` is the same walk in plain torch over G slabs:
-the plain stages of ``kernels.blocked`` composed slot by slot (which equal
-``blocked.cu``'s launches bit for bit), flushed by B1's plain version. The
-kernel's sums that feed finiteness checks only, the pre-step ``|c|`` over
-the active columns and the post-step ``|bvec[2:]|``, are taken per block
-and across blocks in block order (``sums.grid_sum``); the plain version
-takes them in that order. So it parts from ``blocked_walk_reference`` and
+``blocked_grid_reference`` is the same walk in plain torch over G slabs,
+on every plan: the plain stages of ``kernels.blocked`` composed slot by
+slot, flushed by B1's plain version. The kernel's sums that feed
+finiteness checks only, the pre-step ``|c|`` over the active columns and
+the post-step ``|bvec[2:]|``, are taken per block and across blocks in
+block order (``sums.grid_sum``) on every plan; the plain version takes
+them in that order. So it parts from ``blocked_walk_reference`` and
 ``blocked_cluster_reference`` only where one order overflows to infinity
 and another does not; on every other input the three give the same walk in
 every field, whatever G. Nothing on the solver's path calls the plain
@@ -62,7 +68,7 @@ __all__ = ["BlockedGridPlan", "blocked_grid_plan", "blocked_grid_occupancy",
            "blocked_grid_block_reference", "blocked_grid_reference",
            "BLOCKED_GRID_THREADS", "BLOCKED_GRID_SMEM_LIMIT",
            "BLOCKED_GRID_STATIC_SMEM", "BLOCKED_GRID_STAGES",
-           "GridPlanTooLarge"]
+           "BLOCKED_GRID_VECTORS", "GridPlanTooLarge"]
 
 BLOCKED_GRID_THREADS = THREADS
 # the static shared memory left to the kernel's key reductions, combines
@@ -77,67 +83,111 @@ BLOCKED_GRID_SMEM_LIMIT = 232_448 - BLOCKED_GRID_STATIC_SMEM
 # combine with the read of the entering column's V slots, the column's
 # rows, the ratio test and its post, barrier B, the combine with the read of
 # the pivot row's U slots, the pivot row and the updates, the block's
-# reduction, the finish; the last slot's sums (one barrier); the store
+# reduction, the finish, barrier D with its post and combine (the
+# device-vector plan only); the last slot's sums (one barrier); the store
 BLOCKED_GRID_STAGES = ("load", "cleanup", "price", "barrier_a", "combine_a",
                        "column", "ratio", "barrier_b", "combine_b", "row",
-                       "reduce", "finish", "final", "store")
+                       "reduce", "finish", "barrier_d", "final", "store")
+# where a plan keeps the running vectors, the basis and the artificial bits
+BLOCKED_GRID_VECTORS = ("shared", "device")
 # the mailboxes' headers and tails (csrc/blocked_grid.cu's HEAD_A, HEAD_B,
-# TAIL)
-_HEAD_A, _HEAD_B, _TAIL = 64, 32, 32
-_NARGS, _NINTS = 15, 13
+# HEAD_D, TAIL)
+_HEAD_A, _HEAD_B, _HEAD_D, _TAIL = 64, 32, 16, 32
+_NARGS, _NINTS = 15, 15
 _ARGS = ctypes.c_longlong * _NARGS
 _INTS = ctypes.c_int * _NINTS
 
 
 class BlockedGridPlan(NamedTuple):
-    blocks: int   # G, the blocks of the grid (at most one an SM)
-    width: int    # W, the columns of a block's slab
-    height: int   # H, the rows of a block's slab
-    threads: int  # threads a block
-    smem: int     # dynamic shared-memory bytes a block
-    mail: int     # bytes of the mailboxes in device memory
+    blocks: int    # G, the blocks of the grid (at most one an SM)
+    width: int     # W, the columns of a block's slab
+    height: int    # H, the rows of a block's slab
+    threads: int   # threads a block
+    smem: int      # dynamic shared-memory bytes a block
+    mail: int      # bytes of the mailboxes (and colj) in device memory
+    resident: int  # KR, a slab's slots in shared memory (the rest in U, V)
+    vectors: str   # "shared" or "device": where the running vectors live
 
 
 def _align(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def _smem(M: int, N: int, K: int, W: int, H: int, G: int, es: int) -> int:
-    """csrc/blocked_grid.cu's smem_bytes: V's and U's slabs; row0, row1 and
-    the weights of the column slab; bvec and colj of the row slab; U's
-    rows 0 and 1, V's column N - 1 and the entering column's, the pivot
-    row's and the clean-up row's eta coefficients; the basis; the slab's
-    active mask; the artificial mask, a bit a column; the G mailbox
-    headers a combine brings."""
+def _smem(M: int, N: int, K: int, KR: int, W: int, H: int, G: int, es: int,
+          vectors: str) -> int:
+    """csrc/blocked_grid.cu's smem_bytes: the first KR slots of V's and
+    U's slabs; on the "shared" plans row0, row1 and the weights of the
+    column slab, bvec and colj of the row slab; U's rows 0 and 1, V's
+    column N - 1 and the entering column's, the pivot row's and the
+    clean-up row's eta coefficients; on the "shared" plans the basis, the
+    slab's active mask and the artificial mask (a bit a column); the G
+    mailbox headers a combine brings."""
     m, n = M - 2, N - 1
-    return (_align(K * W * es) + _align(K * H * es) + 3 * _align(W * es)
-            + 2 * _align(H * es) + 6 * _align(K * es) + _align(4 * m)
-            + _align(W) + _align(4 * -(-n // 32)) + _align(_HEAD_A * G))
+    b = (_align(KR * W * es) + _align(KR * H * es) + 6 * _align(K * es)
+         + _align(_HEAD_A * G))
+    if vectors == "shared":
+        b += (3 * _align(W * es) + 2 * _align(H * es) + _align(4 * m)
+              + _align(W) + _align(4 * -(-n // 32)))
+    return b
 
 
-def _mail(G: int, K: int, es: int) -> int:
+def _mail(G: int, K: int, es: int, M: int, vectors: str) -> int:
     """csrc/blocked_grid.cu's mail_bytes: G price headers, G ratio headers,
     G blocks' price columns (two V columns of K and a tail) and ratio
-    columns (two U columns of K and a tail), the clean-up row's U
-    column."""
+    columns (two U columns of K and a tail), the clean-up row's U column;
+    on the "device" plan G barrier-D headers, G U columns of K and colj (M
+    values)."""
     vec = _align(K * es)
-    return G * (_HEAD_A + 2 * vec + _HEAD_B + 2 * vec + 2 * _TAIL) + vec
+    b = G * (_HEAD_A + 2 * vec + _HEAD_B + 2 * vec + 2 * _TAIL) + vec
+    if vectors == "device":
+        b += G * (_HEAD_D + vec) + _align(M * es)
+    return b
+
+
+def _resident(M, N, K, W, H, G, es, vectors) -> int:
+    """The most slots of a slab (0 to K) that fit a block's shared memory
+    beside the rest of the plan's layout, or -1 where none do."""
+    def fits(kr):
+        return _smem(M, N, K, kr, W, H, G, es, vectors) <= \
+            BLOCKED_GRID_SMEM_LIMIT
+
+    if not fits(0):
+        return -1
+    per = (W + H) * es
+    kr = min(K, (BLOCKED_GRID_SMEM_LIMIT - _smem(M, N, K, 0, W, H, G, es,
+                                                 vectors)) // per)
+    while kr > 0 and not fits(kr):
+        kr -= 1
+    while kr < K and fits(kr + 1):
+        kr += 1
+    return kr
+
+
+def _grid(L: int, sms: int) -> int:
+    return -(-L // -(-L // sms))
 
 
 @functools.lru_cache(maxsize=256)
 def blocked_grid_plan(M: int, N: int, K: int, dtype, sms: int = GRID_SMS,
-                      blocks: int | None = None) -> BlockedGridPlan:
+                      blocks: int | None = None, resident: int | None = None,
+                      vectors: str | None = None) -> BlockedGridPlan:
     """The launch plan of a block of ``K`` slots on an (M, N) = (m + 2, n +
-    1) tableau on a card of ``sms`` SMs: G = ceil(N / ceil(N / sms)) blocks
-    (``blocks`` forces another G, 1 to ``sms``; a block may then own no
-    column or no row), W = ceil(N / G) columns and H = ceil(M / G) rows a
-    block, with the dynamic shared memory a block needs and the mailboxes'
-    bytes. 258 x 14,257 at f64, K 64, on 132 SMs: 131 blocks of 109
-    columns and 2 rows, 73,888 bytes a block.
+    1) tableau on a card of ``sms`` SMs. The first plan that fits a
+    block's shared memory: "shared" vectors on G = ceil(N / ceil(N / sms))
+    blocks with every slot of the slabs resident (KR = K), else as many
+    slots as fit (KR < K, the rest in the record's U and V); else "device"
+    vectors on G = ceil(L / ceil(L / sms)) blocks, L = max(M, N), with as
+    many slots as fit. W = ceil(N / G) columns and H = ceil(M / G) rows a
+    block (a block may own no column or no row), the dynamic shared memory
+    a block needs and the mailboxes' bytes. 258 x 14,257 at f64 on 132 SMs:
+    K 64, 131 blocks of 109 columns and 2 rows, 73,888 bytes a block, every
+    slot resident; K 256, 228 of the 256 slots resident.
 
-    Raises ``GridPlanTooLarge`` for a block whose slabs pass
-    ``BLOCKED_GRID_SMEM_LIMIT``; ValueError for another type, a frame
-    outside 2^24, a K or a grid out of range."""
+    ``blocks`` forces G (1 to ``sms``), ``resident`` KR (0 to K) and
+    ``vectors`` the kind ("shared" or "device"); a forced plan past
+    ``BLOCKED_GRID_SMEM_LIMIT`` raises ``GridPlanTooLarge``, which no
+    unforced plan does. Raises ValueError for another type, a frame outside
+    2^24, a K, a grid, a KR or a kind out of range."""
     es = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if es is None:
         raise ValueError(f"blocked_grid takes float32 or float64, not "
@@ -146,28 +196,38 @@ def blocked_grid_plan(M: int, N: int, K: int, dtype, sms: int = GRID_SMS,
         raise ValueError(f"tableau {M} x {N} outside 3..2^24 x 2..2^24")
     if not 1 <= K <= kb.MAX_K:
         raise ValueError(f"block of {K} pivots outside 1..{kb.MAX_K}")
-    if blocks is None:
-        G = -(-N // -(-N // sms))
-    elif not 1 <= blocks <= sms:
+    if blocks is not None and not 1 <= blocks <= sms:
         raise ValueError(f"a grid of {blocks} blocks: expected 1 to {sms}")
-    else:
-        G = blocks
-    W, H = -(-N // G), -(-M // G)
-    smem = _smem(M, N, K, W, H, G, es)
-    if smem > BLOCKED_GRID_SMEM_LIMIT:
-        raise GridPlanTooLarge(
-            f"block of {K} pivots on {M} x {N} {dtype}: a block of a grid "
-            f"of {G} ({W} columns, {H} rows) needs {smem} bytes of shared "
-            f"memory, above {BLOCKED_GRID_SMEM_LIMIT}")
-    return BlockedGridPlan(G, W, H, BLOCKED_GRID_THREADS, smem,
-                           _mail(G, K, es))
+    if resident is not None and not 0 <= resident <= K:
+        raise ValueError(f"{resident} resident slots: expected 0 to {K}")
+    if vectors is not None and vectors not in BLOCKED_GRID_VECTORS:
+        raise ValueError(f"vectors {vectors!r}: expected one of "
+                         f"{BLOCKED_GRID_VECTORS}")
+    for kind in (vectors,) if vectors else BLOCKED_GRID_VECTORS:
+        G = blocks or _grid(N if kind == "shared" else max(M, N), sms)
+        W, H = -(-N // G), -(-M // G)
+        KR = _resident(M, N, K, W, H, G, es, kind)
+        if resident is not None:
+            KR = resident if KR >= resident else -1
+        if KR >= 0:
+            return BlockedGridPlan(
+                G, W, H, BLOCKED_GRID_THREADS,
+                _smem(M, N, K, KR, W, H, G, es, kind),
+                _mail(G, K, es, M, kind), KR, kind)
+    KR = 0 if resident is None else resident
+    raise GridPlanTooLarge(
+        f"block of {K} pivots on {M} x {N} {dtype}: a block of a grid of "
+        f"{G} ({W} columns, {H} rows) with {KR} slots and {kind} vectors "
+        f"needs {_smem(M, N, K, KR, W, H, G, es, kind)} bytes of shared "
+        f"memory, above {BLOCKED_GRID_SMEM_LIMIT}")
 
 
 def _plan_ints(plan: BlockedGridPlan, M: int, N: int, K: int):
     """The launch's int arguments (csrc/blocked_grid.cu's Int) but the
     walk's: the shape and the plan."""
     return _INTS(M, N, K, 0, 0, 0, 0, plan.blocks, plan.width, plan.height,
-                 plan.threads, plan.smem, plan.mail)
+                 plan.threads, plan.smem, plan.mail, plan.resident,
+                 int(plan.vectors == "device"))
 
 
 @functools.lru_cache(maxsize=64)
@@ -183,19 +243,24 @@ def _occupancy(index: int, plan: BlockedGridPlan, M: int, N: int, K: int,
 
 def blocked_grid_occupancy(M: int, N: int, K: int, dtype,
                            device: torch.device | None = None,
-                           blocks: int | None = None) -> int:
+                           blocks: int | None = None,
+                           resident: int | None = None,
+                           vectors: str | None = None) -> int:
     """``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the launch of a
     block of ``K`` slots on an (M, N) tableau (the plan on ``device``'s
-    SMs): the blocks an SM holds at once (asked once a plan and
-    device)."""
+    SMs; ``blocks``, ``resident`` and ``vectors`` as in
+    ``blocked_grid_plan``): the blocks an SM holds at once (asked once a
+    plan and device)."""
     device = torch.device("cuda", 0) if device is None else device
-    plan = blocked_grid_plan(M, N, K, dtype, sm_count(device), blocks)
+    plan = blocked_grid_plan(M, N, K, dtype, sm_count(device), blocks,
+                             resident, vectors)
     return _occupancy(device.index or 0, plan, M, N, K, dtype)
 
 
 class BlockedGridWork(NamedTuple):
-    """A walk's scratch in device memory: the mailboxes and the grid
-    barrier's counter (zeroed by each launch)."""
+    """A walk's scratch in device memory: the mailboxes (and, on the
+    device-vector plan, the entering column) and the grid barrier's counter
+    (zeroed by each launch)."""
 
     mail: torch.Tensor
     bar: torch.Tensor
@@ -221,15 +286,18 @@ def blocked_grid_block(rec: kb.BlockedRecord, opts: SolverOptions,
                        stall_limit: int, max_iters: int,
                        blocks: int | None = None,
                        stage_cycles: torch.Tensor | None = None,
-                       work: BlockedGridWork | None = None) -> None:
+                       work: BlockedGridWork | None = None,
+                       resident: int | None = None,
+                       vectors: str | None = None) -> None:
     """The K slots of the record's block in one cooperative launch (counted
-    in ``LAUNCHES["blocked_grid"]``), in place: what the six launches of
-    ``kernels.blocked.enqueue_slots`` compute, K at a time; the record's
-    scratch and verdict fields are left as they were, but ``LIVE``. A
-    record that is not running within ``max_iters`` is left as it is, but
-    ``LIVE = 0``. ``blocks`` forces the grid's size; ``stage_cycles``
-    (int64, ``len(BLOCKED_GRID_STAGES)`` on the card) accumulates block 0's
-    SM cycles by stage; ``work`` is the walk's scratch
+    in ``LAUNCHES["blocked_grid"]``), in place: what K of the plain stages'
+    slots (``kernels.blocked.blocked_pivot_reference``) compute; the
+    record's scratch and verdict fields are left as they were, but
+    ``LIVE``. A record that is not running within ``max_iters`` is left as
+    it is, but ``LIVE = 0``. ``blocks``, ``resident`` and ``vectors`` force
+    the plan (``blocked_grid_plan``); ``stage_cycles`` (int64,
+    ``len(BLOCKED_GRID_STAGES)`` on the card) accumulates block 0's SM
+    cycles by stage; ``work`` is the walk's scratch
     (``blocked_grid_work``; allocated here when absent)."""
     lib, args, iargs, tols = kb._entry(rec, opts, stall_limit, max_iters)
     T = rec.T
@@ -239,7 +307,8 @@ def blocked_grid_block(rec: kb.BlockedRecord, opts: SolverOptions,
     M, N = T.shape
     K = rec.U.shape[0]
     _check_cycles(stage_cycles, T.device)
-    plan = blocked_grid_plan(M, N, K, T.dtype, sm_count(T.device), blocks)
+    plan = blocked_grid_plan(M, N, K, T.dtype, sm_count(T.device), blocks,
+                             resident, vectors)
     if work is None:
         work = blocked_grid_work(plan, T.device)
     if work.mail.numel() < plan.mail or work.mail.device != T.device or \
@@ -261,10 +330,13 @@ def blocked_grid_block(rec: kb.BlockedRecord, opts: SolverOptions,
 
 
 def _require_grid(M: int, N: int, K: int, dtype, device,
-                  blocks: int | None) -> BlockedGridPlan:
+                  blocks: int | None, resident: int | None = None,
+                  vectors: str | None = None) -> BlockedGridPlan:
     """The plan, raising unless the card holds its grid at once."""
-    plan = blocked_grid_plan(M, N, K, dtype, sm_count(device), blocks)
-    occ = blocked_grid_occupancy(M, N, K, dtype, device, blocks)
+    plan = blocked_grid_plan(M, N, K, dtype, sm_count(device), blocks,
+                             resident, vectors)
+    occ = blocked_grid_occupancy(M, N, K, dtype, device, blocks,
+                                 resident=resident, vectors=vectors)
     if occ * sm_count(device) < plan.blocks:
         raise RuntimeError(f"blocked_grid: the card holds {occ} blocks of "
                            f"{plan.smem} bytes of shared memory an SM, not "
@@ -275,25 +347,27 @@ def _require_grid(M: int, N: int, K: int, dtype, device,
 
 def blocked_grid(state: SimplexState, opts: SolverOptions, stall_limit: int,
                  max_iters: int, K: int, blocks: int | None = None,
-                 stage_cycles: torch.Tensor | None = None):
+                 stage_cycles: torch.Tensor | None = None,
+                 resident: int | None = None, vectors: str | None = None):
     """The rank-K blocked walk of ``state`` (one problem on one CUDA
     device) in blocks of ``K`` pivots, to its exit or to ``max_iters``: a
     block is one cooperative launch, B1's flush and the ray launch, with
     one host read of (status, niter) a block; a RUNNING exit at the budget
-    stays RUNNING. ``blocks`` and ``stage_cycles`` as in
-    ``blocked_grid_block``. Returns (state, devex weights); the caller's
-    tensors are never written."""
+    stays RUNNING. ``blocks``, ``stage_cycles``, ``resident`` and
+    ``vectors`` as in ``blocked_grid_block``. Returns (state, devex
+    weights); the caller's tensors are never written."""
     kb._check(state, K)
     T = state.T
     M, N = T.shape
     _check_cycles(stage_cycles, T.device)
-    plan = _require_grid(M, N, K, T.dtype, T.device, blocks)
+    plan = _require_grid(M, N, K, T.dtype, T.device, blocks, resident,
+                         vectors)
     rec = kb.make_record(state, K)
     work = blocked_grid_work(plan, T.device)
 
     def block(r):
         blocked_grid_block(r, opts, stall_limit, max_iters, blocks,
-                           stage_cycles, work)
+                           stage_cycles, work, resident, vectors)
         kb.flush_and_ray(r, opts, stall_limit, max_iters)
 
     kb._walk(rec, max_iters, block)

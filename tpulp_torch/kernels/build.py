@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``tpulp_torch.kernels``.
 
 The sources in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
-process per source, all started together, and linked into one shared
+process per source (two for the largest, one a type), all started
+together, and linked into one shared
 library with a plain C interface, at first use, into ``build/tpulp_torch/``
 at the root of the checkout. The library is rebuilt when the hash of the
 sources changes, and it is loaded with ``ctypes``. Nothing is built or
@@ -17,10 +18,11 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["ARCH_FLAGS", "BUILD_DIR", "LIB_NAME", "build", "load_library",
-           "nvcc_commands", "source_files"]
+__all__ = ["ARCH_FLAGS", "BUILD_DIR", "LIB_NAME", "SPLIT_BY_TYPE", "build",
+           "load_library", "nvcc_commands", "source_files"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpulp_torch"
@@ -54,19 +56,32 @@ def _nvcc() -> str:
     return found
 
 
+# the sources with the most kernel instantiations, each compiled twice,
+# its f32 and its f64 entry points apart (common.cuh's TPULP_TYPES), so
+# that the halves compile side by side
+SPLIT_BY_TYPE = ("bounded_grid.cu", "lanes.cu", "rank1_grid.cu")
+TYPE_PARTS = (("f32", "-DTPULP_TYPES=1"), ("f64", "-DTPULP_TYPES=2"))
+
+
 def nvcc_commands(out: Path, nvcc: str = "nvcc",
                   verbose: bool = False) -> tuple[list[list[str]], list[str]]:
     """The nvcc command lines that build the library ``out``: one compile
-    per source (run in parallel), then the link."""
+    per source, two for a source of ``SPLIT_BY_TYPE`` (all run in
+    parallel), then the link."""
     compiles, objects = [], []
     for src in sorted(CSRC.glob("*.cu")):
-        obj = out.with_name(f"{out.name}.{src.stem}.o")
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-               "-c"]
-        if verbose:
-            cmd.append("-Xptxas=-v")
-        compiles.append(cmd + ["-o", str(obj), str(src)])
-        objects.append(str(obj))
+        parts = TYPE_PARTS if src.name in SPLIT_BY_TYPE else ((None, None),)
+        for part, define in parts:
+            stem = src.stem if part is None else f"{src.stem}.{part}"
+            obj = out.with_name(f"{out.name}.{stem}.o")
+            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                   "-fPIC", "-c"]
+            if define is not None:
+                cmd.append(define)
+            if verbose:
+                cmd.append("-Xptxas=-v")
+            compiles.append(cmd + ["-o", str(obj), str(src)])
+            objects.append(str(obj))
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out), *objects]
     return compiles, link
 
@@ -93,12 +108,16 @@ def build(verbose: bool = False) -> Path:
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd in compiles]
-    # wait for every compile before looking at any result
-    reports = []
-    for cmd, proc in zip(compiles, procs):
+
+    def finish(cmd, proc):
         out, err = proc.communicate()
-        reports.append((cmd, proc.returncode, out, err))
-    for cmd, code, out, err in reports:
+        return cmd, proc.returncode, out, err, time.perf_counter() - t0
+
+    # wait for every compile before looking at any result; each one's
+    # seconds are taken when it ends
+    with ThreadPoolExecutor(len(procs)) as pool:
+        reports = list(pool.map(finish, compiles, procs))
+    for cmd, code, out, err, _ in reports:
         if code != 0:
             raise _fail(cmd, code, out, err)
     res = subprocess.run(link, capture_output=True, text=True)
@@ -109,7 +128,9 @@ def build(verbose: bool = False) -> Path:
     if verbose:
         print(f"# nvcc {time.perf_counter() - t0:.1f} s ({len(compiles)} "
               f"compiles in parallel, then the link)")
-        for cmd, _, out, err in reports:
+        for cmd, _, out, err, secs in reports:
+            define = next((c for c in cmd if c.startswith("-D")), "")
+            print(f"# nvcc {secs:.1f} s: {Path(cmd[-1]).name} {define}")
             print(" ".join(cmd))
             print(out + err)
     os.replace(tmp, lib)
@@ -156,15 +177,14 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = _I
-    for name in ("tpulp_blocked_steps_f32", "tpulp_blocked_steps_f64",
-                 "tpulp_blocked_ray_batch_f32",
+    for name in ("tpulp_blocked_ray_f32", "tpulp_blocked_ray_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _P]
+        fn.restype = _I
+    for name in ("tpulp_blocked_ray_batch_f32",
                  "tpulp_blocked_ray_batch_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _I, _P]
-        fn.restype = _I
-    for name in ("tpulp_blocked_stage_f32", "tpulp_blocked_stage_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_P, _P, _P, _P]
+        fn.argtypes = [_P, _P, _I, _P]
         fn.restype = _I
     for name in ("tpulp_rank1_cluster_f32", "tpulp_rank1_cluster_f64",
                  "tpulp_bounded_grid_f32", "tpulp_bounded_grid_f64",

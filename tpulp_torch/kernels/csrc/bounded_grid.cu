@@ -1876,7 +1876,7 @@ Params<T> make_params(const long long* a, const int* in, const double* tol) {
 // A streamed plan: R in [3, M), 1 to MAX_STAGES slots, TR a power of two
 // up to THREADS, TS the tile's bytes rounded up to 16 (the bulk copies'
 // unit).
-bool streamed_ok(const int* in, long long es) {
+inline bool streamed_ok(const int* in, long long es) {
   const int M = in[I_M], W = in[I_WIDTH], R = in[I_ROWS], S = in[I_STAGES], TR = in[I_TROWS];
   return R >= 3 && R < M && S >= 1 && S <= MAX_STAGES && TR >= 1 && TR <= THREADS &&
          (TR & (TR - 1)) == 0 && (long long)in[I_TILE] == align16((long long)TR * W * es);
@@ -1980,19 +1980,24 @@ int bounded_grid_occupancy(const int* in, int* blocks) {
 }  // namespace bgr
 }  // namespace tpulp
 
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the plan's launch
+// (*_occupancy_*): the blocks an SM holds at once (the grid must fit that
+// times the SMs)
+#if TPULP_F32
 extern "C" int tpulp_bounded_grid_f32(const long long* a, const int* in, const double* tol,
                                       void* stream) {
   return tpulp::bgr::bounded_grid<float>(a, in, tol, stream);
 }
+extern "C" int tpulp_bounded_grid_occupancy_f32(const int* in, int* blocks) {
+  return tpulp::bgr::bounded_grid_occupancy<float>(in, blocks);
+}
+#endif
+#if TPULP_F64
 extern "C" int tpulp_bounded_grid_f64(const long long* a, const int* in, const double* tol,
                                       void* stream) {
   return tpulp::bgr::bounded_grid<double>(a, in, tol, stream);
 }
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor of the plan's launch: the
-// blocks an SM holds at once (the grid must fit that times the SMs)
-extern "C" int tpulp_bounded_grid_occupancy_f32(const int* in, int* blocks) {
-  return tpulp::bgr::bounded_grid_occupancy<float>(in, blocks);
-}
 extern "C" int tpulp_bounded_grid_occupancy_f64(const int* in, int* blocks) {
   return tpulp::bgr::bounded_grid_occupancy<double>(in, blocks);
 }
+#endif

@@ -24,6 +24,16 @@
 
 namespace cg = cooperative_groups;
 
+// The entry points a compile of a source builds: both types by default;
+// kernels/build.py compiles its largest sources twice, with
+// -DTPULP_TYPES=1 (the f32 entry points and the kernels they reach) and
+// -DTPULP_TYPES=2 (the f64 ones), so that the halves compile side by side.
+#ifndef TPULP_TYPES
+#define TPULP_TYPES 3
+#endif
+#define TPULP_F32 (TPULP_TYPES & 1)
+#define TPULP_F64 (TPULP_TYPES & 2)
+
 namespace tpulp {
 
 constexpr int BIG_I = 1 << 30;

@@ -1635,16 +1635,19 @@ int launch_bounded_lanes(const long long* a, const int* in, const double* tol, v
     return tpulp::launch_lanes<T, PRIMAL>(a, in, tol, stream);                              \
   }
 
+#if TPULP_F32
 TPULP_LANE_ENTRY(tpulp_lane_dual_f32, float, false)
-TPULP_LANE_ENTRY(tpulp_lane_dual_f64, double, false)
 TPULP_LANE_ENTRY(tpulp_lane_primal_f32, float, true)
-TPULP_LANE_ENTRY(tpulp_lane_primal_f64, double, true)
-
 extern "C" int tpulp_lane_bounded_f32(const long long* a, const int* in, const double* tol,
                                       void* stream) {
   return tpulp::launch_bounded_lanes<float>(a, in, tol, stream);
 }
+#endif
+#if TPULP_F64
+TPULP_LANE_ENTRY(tpulp_lane_dual_f64, double, false)
+TPULP_LANE_ENTRY(tpulp_lane_primal_f64, double, true)
 extern "C" int tpulp_lane_bounded_f64(const long long* a, const int* in, const double* tol,
                                       void* stream) {
   return tpulp::launch_bounded_lanes<double>(a, in, tol, stream);
 }
+#endif

@@ -18,24 +18,26 @@ whatever ``SolverOptions.tie_break`` says (ROADMAP C (a), (b)).
 kernels, on the route of ``blocked_route``: where a thread-block cluster
 holds the block's eta factors (``kernels.blocked_cluster``'s plan, and the
 card holds such a cluster), ``blocked_cluster``: the K slots of a block in
-one cluster launch; else, where the grid's plan holds them
-(``kernels.blocked_grid``'s, and the card holds its grid at once),
-``blocked_grid``: the K slots in one cooperative launch on the whole card;
-else ``kernels.blocked.blocked_steps``: six stream-ordered launches a pivot
-slot. Each keeps a walk record on the card, flushes it with B1 and one ray
-launch a block, and reads it once a block. On CPU tensors it runs the
-eager loop below (``run_simplex_blocked_reference``: ``_blocked_pivot`` K
-times, a matrix-product flush and the ray scan, one host read a block).
+one cluster launch; else ``blocked_grid``: the K slots in one cooperative
+launch on the whole card, on the plan ``kernels.blocked_grid``'s
+``blocked_grid_plan`` picks (which takes every f32 and f64 frame: the
+factors' slots past a block's shared memory, and past that the running
+vectors, in device memory). Each keeps a walk record on the card, flushes
+it with B1 and one ray launch a block, and reads it once a block. A grid
+that the card cannot hold at once, a build or a launch failure raises:
+nothing else runs the walk on the card. On CPU tensors it runs the eager
+loop below (``run_simplex_blocked_reference``: ``_blocked_pivot`` K times,
+a matrix-product flush and the ray scan, one host read a block).
 
 ``run_simplex_blocked_batch`` runs every lane's walk on CUDA tensors on the
 same route: ``kernels.blocked_cluster.blocked_cluster_batch`` (one cluster
 launch a block for every lane, one B1 launch and one ray launch over the
 lanes, one host read of every lane's (status, niter) a block); past the
-cluster's plan, each lane's solo walk on the route's kernel
-(``blocked_grid``, else ``blocked_steps``) in turn (a lane frozen by the
-batch is a stopped solo walk, so the walks are the same). On CPU tensors
-it runs the eager vmapped loop (``run_simplex_blocked_batch_reference``).
-The sharded driver runs the eager pivot on either device.
+cluster's plan, each lane's solo walk on ``blocked_grid`` in turn (a lane
+frozen by the batch is a stopped solo walk, so the walks are the same). On
+CPU tensors it runs the eager vmapped loop
+(``run_simplex_blocked_batch_reference``). The sharded driver runs the
+eager pivot on either device.
 """
 
 from __future__ import annotations
@@ -47,13 +49,13 @@ import torch
 from ..core.precision import full_precision
 from ..core.state import (RULE_BLAND, RULE_DEVEX, TIE_MAXPIV, SimplexState,
                           SolverOptions, Status, eta_scaled_options)
-from ..kernels.blocked import RESET_ABOVE, blocked_steps
+from ..kernels.blocked import RESET_ABOVE
 from ..kernels.blocked_cluster import (blocked_cluster,
                                        blocked_cluster_batch,
                                        blocked_cluster_occupancy,
                                        blocked_cluster_plan)
-from ..kernels.blocked_grid import (blocked_grid, blocked_grid_occupancy,
-                                    blocked_grid_plan)
+from ..kernels.blocked_grid import (GridPlanTooLarge, blocked_grid,
+                                    blocked_grid_occupancy, blocked_grid_plan)
 from ..kernels.fma import fused_fma
 from ..kernels.launch import on_cpu, sm_count
 from .driver import finish, first_true, put, ratio_rows, status_select, take
@@ -237,30 +239,33 @@ def blocked_route(M: int, N: int, K: int, dtype,
     N) tableau of ``dtype`` on the CUDA ``device``: "blocked_cluster" where
     its plan fits (K, the cluster's size and shared memory) and the card
     holds one such cluster (``cudaOccupancyMaxActiveClusters`` >= 1), else
-    "blocked_grid" where the grid's plan fits the card's SMs and the card
-    holds the whole grid at once (its occupancy times the SMs), else
-    "blocked_step"."""
+    "blocked_grid", on the plan ``blocked_grid_plan`` picks for the card's
+    SMs. Raises RuntimeError where the card cannot hold that grid at once
+    (its occupancy times the SMs below G): nothing else runs the walk on
+    the card; and the plans' refusals of a type other than f32 and f64, a
+    frame outside 2^24 or a K out of range (ValueError)."""
     try:
         blocked_cluster_plan(M, N, K, dtype)
-    except ValueError:  # factors past 16 blocks' shared memory, a K past it
+    except GridPlanTooLarge:  # factors past 16 blocks' shared memory
         pass
     else:
         if blocked_cluster_occupancy(M, N, K, dtype, device) >= 1:
             return "blocked_cluster"
     sms = sm_count(device)
-    try:
-        plan = blocked_grid_plan(M, N, K, dtype, sms)
-    except ValueError:  # slabs past a block's shared memory
-        return "blocked_step"
-    if blocked_grid_occupancy(M, N, K, dtype, device) * sms < plan.blocks:
-        return "blocked_step"
+    plan = blocked_grid_plan(M, N, K, dtype, sms)
+    occ = blocked_grid_occupancy(M, N, K, dtype, device)
+    if occ * sms < plan.blocks:
+        raise RuntimeError(f"blocked_grid: the card holds {occ} blocks of "
+                           f"{plan.smem} bytes of shared memory an SM, not "
+                           f"a grid of {plan.blocks} ({M} x {N} {dtype}, "
+                           f"K {K})")
     return "blocked_grid"
 
 
 def _solo_walk(route: str):
     """The solo walk of ``route``."""
-    return {"blocked_cluster": blocked_cluster, "blocked_grid": blocked_grid,
-            "blocked_step": blocked_steps}[route]
+    return {"blocked_cluster": blocked_cluster,
+            "blocked_grid": blocked_grid}[route]
 
 
 @full_precision()
@@ -270,8 +275,9 @@ def run_simplex_blocked(state: SimplexState,
     """Run the rank-K blocked driver to termination or to
     ``opts.max_iters`` (single problem), in blocks of ``block`` pivots with
     one host read of the status a block: on the kernel of ``blocked_route``
-    for CUDA tensors (a strided tableau is handed to it contiguous; a build
-    or launch failure raises), as the eager loop for CPU tensors."""
+    for CUDA tensors (a strided tableau is handed to it contiguous; a grid
+    the card cannot hold, a build or a launch failure raises), as the eager
+    loop for CPU tensors."""
     if opts is None:
         opts = SolverOptions.for_dtype(state.T.dtype)
     opts = eta_scaled_options(opts, state.T.dtype)
@@ -349,8 +355,8 @@ def run_simplex_blocked_batch(batched: SimplexState,
     block keeps its whole state through the block, as in tpulp's vmapped
     ``while_loop``. On CUDA tensors every lane's walk runs on the kernel of
     ``blocked_route`` (``blocked_cluster_batch``, else each lane on
-    ``blocked_grid`` or ``blocked_steps`` in turn; a build or launch failure
-    raises), on CPU tensors as the eager vmapped loop."""
+    ``blocked_grid`` in turn; a grid the card cannot hold, a build or a
+    launch failure raises), on CPU tensors as the eager vmapped loop."""
     if opts is None:
         opts = SolverOptions.for_dtype(batched.T.dtype)
     opts = eta_scaled_options(opts, batched.T.dtype)
